@@ -1,0 +1,248 @@
+"""Decoder stack, dense path — the port's ``repro/models/transformer.py``.
+
+The reference groups identical layers into segments and runs each with
+``jax.lax.scan``; eager PyTorch has no use for that, so the port keeps one
+parameter dict per layer (``params["layers"]``, in layer order) and runs the
+stack as a Python loop. :func:`decompose` is kept because the JAX parameter
+tree is laid out by it (``models/convert.py`` unstacks it).
+
+Only dense attention layers with the SwiGLU feed-forward are ported: MoE,
+RG-LRU and SSD mixers, encoders and patch embeddings come later.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ArchConfig, LayerSpec
+from repro_torch.kernels.matmul.ops import mm
+from repro_torch.kernels.matmul.ref import matmul_ref
+from repro_torch.models import attention as attn_mod
+from repro_torch.models.layers import (
+    ParamDef, act_fn, init_tree, layer_norm, rms_norm, softcap,
+)
+
+
+# ---------------------------------------------------------------------------
+# Param definitions
+# ---------------------------------------------------------------------------
+
+def dense_ff_defs(cfg: ArchConfig) -> Dict[str, ParamDef]:
+    d, f = cfg.d_model, cfg.d_ff
+    return {
+        "w1": ParamDef((d, f), ("d_model", "ff")),
+        "w3": ParamDef((d, f), ("d_model", "ff")),
+        "w2": ParamDef((f, d), ("ff", "d_model")),
+    }
+
+
+def _norm_defs(cfg: ArchConfig, name: str) -> Dict[str, ParamDef]:
+    if cfg.norm_kind == "layernorm":
+        return {
+            f"{name}_w": ParamDef((cfg.d_model,), (None,), init="ones"),
+            f"{name}_b": ParamDef((cfg.d_model,), (None,), init="zeros"),
+        }
+    return {f"{name}_w": ParamDef((cfg.d_model,), (None,), init="zeros")}
+
+
+def _apply_norm(p, cfg: ArchConfig, x, name: str):
+    if cfg.norm_kind == "layernorm":
+        return layer_norm(x, p[f"{name}_w"], p[f"{name}_b"], cfg.norm_eps)
+    return rms_norm(x, p[f"{name}_w"], cfg.norm_eps)
+
+
+def _check_ported(cfg: ArchConfig, spec: LayerSpec) -> None:
+    if spec.mixer not in ("attn", "local_attn") or spec.ff not in ("dense", None):
+        raise NotImplementedError(
+            f"{cfg.name}: layer {spec} is not ported yet (dense attention "
+            f"layers only)")
+    if cfg.encoder is not None:
+        raise NotImplementedError(f"{cfg.name}: encoders are not ported yet")
+
+
+def layer_defs(cfg: ArchConfig, spec: LayerSpec) -> Dict[str, Any]:
+    _check_ported(cfg, spec)
+    defs: Dict[str, Any] = {}
+    defs.update(_norm_defs(cfg, "norm1"))
+    defs["attn"] = attn_mod.attn_defs(cfg)
+    if cfg.post_norms:
+        defs.update(_norm_defs(cfg, "post1"))
+    if spec.ff is not None:
+        if not cfg.parallel_block:
+            defs.update(_norm_defs(cfg, "norm2"))
+        defs["ff"] = dense_ff_defs(cfg)
+        if cfg.post_norms:
+            defs.update(_norm_defs(cfg, "post2"))
+    return defs
+
+
+def decompose(cfg: ArchConfig) -> List[Tuple]:
+    """The reference's split of the layer pattern into scan-able segments:
+    ("seq", (specs...)) and ("scan", unit_specs, reps). The port runs every
+    layer in a loop; this only says how a JAX parameter tree is stacked."""
+    pattern = cfg.layers()
+    n = len(pattern)
+    best = None  # (scanned_layers, -unit_len, start, p, reps)
+    for start in range(0, min(4, n)):
+        for p in range(1, 9):
+            if start + 2 * p > n:
+                break
+            reps = (n - start) // p
+            if reps < 2:
+                continue
+            if all(pattern[start + i] == pattern[start + (i % p)]
+                   for i in range(reps * p)):
+                cand = (reps * p, -p, start, p, reps)
+                if best is None or cand > best:
+                    best = cand
+    if best is None:
+        return [("seq", tuple(pattern))] if pattern else []
+    _, _, start, p, reps = best
+    segments: List[Tuple] = []
+    if start:
+        segments.append(("seq", tuple(pattern[:start])))
+    segments.append(("scan", tuple(pattern[start:start + p]), reps))
+    rest = pattern[start + reps * p:]
+    if rest:
+        segments.append(("seq", tuple(rest)))
+    return segments
+
+
+def model_defs(cfg: ArchConfig) -> Dict[str, Any]:
+    d, v = cfg.d_model, cfg.padded_vocab
+    defs: Dict[str, Any] = {
+        "embed": ParamDef((v, d), ("vocab", "d_model"), init="normal", scale=0.02),
+    }
+    defs.update(_norm_defs(cfg, "final_norm"))
+    if not cfg.tie_embeddings:
+        defs["lm_head"] = ParamDef((d, v), ("d_model", "vocab"), init="normal",
+                                   scale=0.02)
+    defs["layers"] = [layer_defs(cfg, spec) for spec in cfg.layers()]
+    return defs
+
+
+def init_params(cfg: ArchConfig, generator: torch.Generator,
+                dtype=torch.float32, device=None):
+    return init_tree(model_defs(cfg), generator, dtype, device)
+
+
+# ---------------------------------------------------------------------------
+# Layer forward
+# ---------------------------------------------------------------------------
+
+def _dense_ff(p, cfg: ArchConfig, x, tile=None, impl: str = "auto"):
+    """SwiGLU FF. The three GEMMs go through the Hopper matmul kernel on CUDA
+    tensors (``tile`` or the spec's default; any shape — the kernel masks
+    ragged edges, so the reference's divisibility gate is not needed) and
+    through :func:`matmul_ref` on CPU tensors or with ``impl="reference"``."""
+    act = act_fn(cfg.act)
+    b, s, d = x.shape
+    if impl == "reference":
+        gemm = matmul_ref
+    else:
+        def gemm(a, w):
+            return mm(a, w, tile=tile)
+    xf = x.reshape(b * s, d)
+    h = act(gemm(xf, p["w1"].to(x.dtype))) * gemm(xf, p["w3"].to(x.dtype))
+    return gemm(h, p["w2"].to(x.dtype)).reshape(b, s, -1)
+
+
+def layer_forward(p, cfg: ArchConfig, spec: LayerSpec, x, positions, cache,
+                  decode: bool = False, tiles=None, impl: str = "auto"):
+    """Returns (x_out, new_cache)."""
+    tiles = tiles or {}
+    window = cfg.attn_window if spec.mixer == "local_attn" else None
+    h = _apply_norm(p, cfg, x, "norm1")
+    if decode:
+        mix, new_cache = attn_mod.attn_decode(
+            p["attn"], cfg, h, cache=cache, window=window,
+            tile=tiles.get("flash_decode"), impl=impl)
+    else:
+        mix, new_cache = attn_mod.attn_forward(
+            p["attn"], cfg, h, positions, window=window, cache=cache,
+            tile=tiles.get("flash_attention"), impl=impl)
+    if cfg.post_norms:
+        mix = _apply_norm(p, cfg, mix, "post1")
+    ff_tile = tiles.get("matmul")
+    if cfg.parallel_block and spec.ff is not None:
+        x = x + mix + _dense_ff(p["ff"], cfg, h, tile=ff_tile, impl=impl)
+    else:
+        x = x + mix
+        if spec.ff is not None:
+            ff = _dense_ff(p["ff"], cfg, _apply_norm(p, cfg, x, "norm2"),
+                           tile=ff_tile, impl=impl)
+            if cfg.post_norms:
+                ff = _apply_norm(p, cfg, ff, "post2")
+            x = x + ff
+    return x, new_cache
+
+
+# ---------------------------------------------------------------------------
+# Stack forward
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class StackOutputs:
+    logits: Optional[torch.Tensor]
+    caches: Optional[List[Any]] = None
+    hidden: Optional[torch.Tensor] = None
+
+
+def make_caches(cfg: ArchConfig, batch: int, max_len: int, dtype,
+                ring_local: bool = False, device=None) -> List[Any]:
+    """One linear KV cache per layer, in layer order."""
+    caches = []
+    for spec in cfg.layers():
+        _check_ported(cfg, spec)
+        ring = ring_local and spec.mixer == "local_attn"
+        caches.append(attn_mod.make_kv_cache(cfg, batch, max_len, dtype,
+                                             ring=ring, device=device))
+    return caches
+
+
+def forward(
+    params, cfg: ArchConfig, tokens: torch.Tensor,
+    caches: Optional[List[Any]] = None,
+    decode: bool = False,
+    start_pos: int = 0,
+    logits_mode: str = "full",   # full | last | hidden
+    tiles=None,
+    impl: str = "auto",
+) -> StackOutputs:
+    """tokens [B, S] -> logits [B, S, Vpad].
+
+    ``decode=True``: S must be 1 and ``caches`` supplied (positions come from
+    the caches). ``logits_mode``: "last" applies the head to the final
+    position only, "hidden" skips it. ``tiles`` (kernel name -> TileShape)
+    parameterise the kernel call sites; ``impl`` is passed to them
+    ("auto" | "kernel" | "reference").
+    """
+    b, s = tokens.shape
+    x = params["embed"][tokens]
+    if cfg.scale_embeddings:
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
+    positions = (start_pos + torch.arange(s, device=tokens.device))[None, :]
+    positions = positions.expand(b, s)
+
+    new_caches: Optional[List[Any]] = [] if caches is not None else None
+    for li, spec in enumerate(cfg.layers()):
+        lc = caches[li] if caches is not None else None
+        x, nc = layer_forward(params["layers"][li], cfg, spec, x, positions,
+                              lc, decode, tiles=tiles, impl=impl)
+        if new_caches is not None:
+            new_caches.append(nc)
+
+    x = _apply_norm(params, cfg, x, "final_norm")
+    if logits_mode == "hidden":
+        return StackOutputs(logits=None, caches=new_caches, hidden=x)
+    if logits_mode == "last":
+        x = x[:, -1:]
+    # Tied head: the embedding matrix, transposed. A plain product, as the
+    # reference leaves it to XLA.
+    head = params["embed"].t() if cfg.tie_embeddings else params["lm_head"]
+    logits = torch.matmul(x, head.to(x.dtype))
+    if cfg.final_softcap:
+        logits = softcap(logits, cfg.final_softcap)
+    return StackOutputs(logits=logits, caches=new_caches, hidden=x)
