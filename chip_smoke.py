@@ -10,12 +10,15 @@
 Phases, each of which fails the run if it fails:
 
 1. the card's name and power limit (``nvidia-smi``);
-2. build every CUDA kernel of the serving path from ``src/repro_torch/
-   kernels/csrc`` (one ``nvcc`` per source, all at once);
+2. build every CUDA kernel of the port from ``src/repro_torch/kernels/csrc``
+   (one ``nvcc`` per source, all at once);
 3. hold each kernel against its plain PyTorch version on the card, in
-   float32 and bfloat16, at the shapes the full-width qwen2-1.5b serving
-   path gives it, and time kernel, plain version and one PyTorch library
-   call with CUDA events;
+   float32 and bfloat16, at the shapes its path gives it — the full-width
+   qwen2-1.5b serving path, recurrentgemma-9b's head_dim-256 attention, the
+   paper's 800x800 image at scales 2-10, mamba2-2.7b's SSD and
+   recurrentgemma-9b's RG-LRU — and time kernel, plain version and one
+   PyTorch library call (where one computes the same function) with CUDA
+   events;
 4. serve full-width qwen2-1.5b (28 layers, random weights from a seed)
    through the port's ``ServeEngine`` and check that every kernel of the
    path was launched;
@@ -23,7 +26,18 @@ Phases, each of which fails the run if it fails:
    through the kernels against the same request through the plain
    versions, with TF32 off;
 6. run the port's launcher (``python -m repro_torch.launch.serve``) at its
-   smoke config on the card.
+   smoke config on the card;
+7. compile tile plans with wall-clock timing on the card (the port's
+   ``compile_plan`` with ``make_measure_fn``) over a bounded job set: the
+   paper's bilinear family, the train_4k ssd, rglru and head_dim-256
+   attention cells, and qwen2-1.5b's serve cells; check that every cell was
+   measured, none skipped, and that the saved artifact resolves each cell
+   exactly; then time all 16 tiles of the paper's Fig. 3 at every scale
+   beside the paper's two GPUs as the cost model sees them.
+
+Launch counts: matmul, flash_attention and flash_decode are counted over
+the serve of phase 4, bilinear, ssd and rglru over the compile of phase 7,
+each reset to 0 just before its path and read just after.
 
 It prints the card (phase 1), a ``{"kernels": [...]}`` JSON line before the
 last, and as the last line ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -172,6 +186,8 @@ def kernel_checks(quick: bool):
             extra = (f" | {timing['ms']:.4f} ms, plain {timing['plain_ms']:.4f}"
                      f", library {timing['library_ms']}, bound "
                      f"{timing['bound_ms']:.4f} ({timing['bound_by']})")
+            if timing.get("library_max_abs_err") is not None:
+                extra += f", library err {timing['library_max_abs_err']:.3e}"
         log(f"  {kernel:16s} {case:34s} {dtype_name:8s} err {err:.3e} "
             f"(tol {REL_TOL[dtype_name]:g} x {max(1.0, row['ref_max']):.3g})"
             f" {'ok' if ok else 'FAIL'}{extra}")
@@ -308,10 +324,226 @@ def kernel_checks(quick: bool):
             torch.cuda.synchronize()
             record("flash_decode", "b=2 pos=700", dname, out,
                    flash_decode_ref(q, k, v, pos=700))
+    head_dim_256_checks(record, randn, dtypes, quick)
+    bilinear_checks(record, randn, dtypes, quick)
+    ssd_checks(record, dtypes, quick)
+    rglru_checks(record, dtypes, quick)
     bad = [r for r in rows if not r["ok"]]
     check(not bad, f"{len(bad)} kernel check(s) disagree with the plain "
                    f"version: {[(r['kernel'], r['case'], r['dtype']) for r in bad]}")
     return rows
+
+
+def head_dim_256_checks(record, randn, dtypes, quick: bool):
+    """flash_attention and flash_decode at recurrentgemma-9b's local
+    attention: Hq 16, Hkv 1, head_dim 256, window 2048."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.decode import (
+        flash_decode, flash_decode_ref,
+    )
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention,
+    )
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    hq, hkv, d, win = 16, 1, 256, 2048
+    s = 1024 if quick else 4096
+    for dname, dt in dtypes:
+        q = randn((1, hq, s, d), dt)
+        k, v = randn((1, hkv, s, d), dt), randn((1, hkv, s, d), dt)
+        out = flash_attention(q, k, v, causal=True, window=win)
+        torch.cuda.synchronize()
+        ref = flash_attention_ref(q, k, v, causal=True, window=win)
+        timing = None
+        if not quick:
+            nb = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+            pairs = sum(min(i + 1, win) for i in range(s))
+            t_b, by = bound(nb, 4.0 * d * hq * pairs, dname)
+            pos = torch.arange(s, device="cuda")
+            mask = ((pos[None, :] <= pos[:, None])
+                    & (pos[None, :] > pos[:, None] - win))
+            copies = [(randn(q.shape, dt), randn(k.shape, dt),
+                       randn(v.shape, dt)) for _ in range(copies_for(nb))]
+            timing = dict(
+                ms=time_ms([lambda x=x, y=y, z=z: flash_attention(
+                    x, y, z, causal=True, window=win) for x, y, z in copies]),
+                plain_ms=time_ms([lambda x=x, y=y, z=z: flash_attention_ref(
+                    x, y, z, causal=True, window=win) for x, y, z in copies],
+                    iters=4),
+                library_ms=library_ms([
+                    lambda x=x, y=y, z=z: F.scaled_dot_product_attention(
+                        x, y, z, attn_mask=mask, enable_gqa=True)
+                    for x, y, z in copies]),
+                bound_ms=t_b, bound_by=by,
+                shape=dict(b=1, hq=hq, hkv=hkv, sq=s, skv=s, d=d, window=win))
+        record("flash_attention", f"D=256 sq=skv={s} window={win}", dname,
+               out, ref, timing)
+        qd = randn((1, hq, d), dt)
+        out = flash_decode(qd, k, v, pos=s - 1, window=win)
+        torch.cuda.synchronize()
+        ref = flash_decode_ref(qd, k, v, pos=s - 1, window=win)
+        timing = None
+        if not quick:
+            seen = min(s, win)
+            nb = (2 * qd.numel() + 2 * hkv * seen * d) * qd.element_size()
+            t_b, by = bound(nb, 4.0 * d * hq * seen, dname)
+            kp = torch.arange(s, device="cuda")
+            mask = (kp > s - 1 - win)[None, None, None]
+            copies = [(randn(qd.shape, dt), randn(k.shape, dt),
+                       randn(v.shape, dt)) for _ in range(copies_for(nb))]
+            timing = dict(
+                ms=time_ms([lambda x=x, y=y, z=z: flash_decode(
+                    x, y, z, pos=s - 1, window=win) for x, y, z in copies]),
+                plain_ms=time_ms([lambda x=x, y=y, z=z: flash_decode_ref(
+                    x, y, z, pos=s - 1, window=win) for x, y, z in copies]),
+                library_ms=library_ms([
+                    lambda x=x, y=y, z=z: F.scaled_dot_product_attention(
+                        x[:, :, None], y, z, attn_mask=mask, enable_gqa=True)
+                    for x, y, z in copies]),
+                bound_ms=t_b, bound_by=by,
+                shape=dict(b=1, hq=hq, hkv=hkv, s=s, pos=s - 1, d=d,
+                           window=win))
+        record("flash_decode", f"D=256 s={s} pos={s - 1} window={win}",
+               dname, out, ref, timing)
+
+
+def bilinear_checks(record, randn, dtypes, quick: bool):
+    """The paper's 800x800 image at scales 2-10. The library yardstick is
+    ``F.grid_sample`` on the same source positions (align_corners, border
+    padding), timed in float32 with its error against the plain version."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.bilinear.ops import upscale
+    from repro_torch.kernels.bilinear.ref import (
+        bilinear_upscale_ref, source_positions,
+    )
+
+    side = 800
+    for dname, dt in dtypes:
+        for scale in ((4,) if quick else (2, 4, 6, 8, 10)):
+            src = randn((side, side), dt)
+            out = upscale(src, scale)
+            torch.cuda.synchronize()
+            ref = bilinear_upscale_ref(src, scale)
+            timing = None
+            if not quick:
+                eb = src.element_size()
+                nb = (side * side + (side * scale) ** 2) * eb
+                t_b, by = bound(nb, 10.0 * (side * scale) ** 2, dname)
+                copies = [randn(src.shape, dt) for _ in range(copies_for(nb))]
+                lib = lib_err = None
+                if dt == torch.float32:
+                    p = source_positions(side, scale, "cuda") * (2.0 / (side - 1)) - 1.0
+                    grid = torch.stack(torch.broadcast_tensors(
+                        p[None, :], p[:, None]), dim=-1)[None]
+
+                    def gs(x):
+                        return F.grid_sample(x[None, None], grid, mode="bilinear",
+                                             padding_mode="border",
+                                             align_corners=True)[0, 0]
+
+                    # A speed yardstick only: it renormalises the positions
+                    # to [-1, 1] and back, so it differs from the plain
+                    # version by float rounding; its error is printed.
+                    lib_err = max_err(gs(src), ref)
+                    lib = library_ms([lambda x=x: gs(x) for x in copies])
+                timing = dict(
+                    ms=time_ms([lambda x=x: upscale(x, scale) for x in copies]),
+                    plain_ms=time_ms([lambda x=x: bilinear_upscale_ref(x, scale)
+                                      for x in copies], iters=8),
+                    library_ms=lib, library_max_abs_err=lib_err,
+                    bound_ms=t_b, bound_by=by,
+                    shape=dict(src_h=side, src_w=side, scale=scale))
+            record("bilinear", f"{side}x{side} scale={scale}", dname, out, ref,
+                   timing)
+
+
+def _ssd_operands(b, s, h, p, n, dt, seed):
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    log_a = -(torch.rand((b, h, s), generator=g, device="cuda") * 0.1).to(dt)
+    dtx = (torch.randn((b, s, h, p), generator=g, device="cuda") * 0.05).to(dt)
+    bm = torch.randn((b, s, n), generator=g, device="cuda").to(dt)
+    cm = torch.randn((b, s, n), generator=g, device="cuda").to(dt)
+    h0 = torch.randn((b, h, n, p), generator=g, device="cuda").to(dt)
+    return log_a, dtx, bm, cm, h0
+
+
+def ssd_checks(record, dtypes, quick: bool):
+    """The SSD chunk scan at mamba2-2.7b's width (H 80, P 64, N 128), a
+    4096-step sequence and one decode step; no PyTorch call computes it."""
+    import torch
+
+    from repro_torch.kernels.ssd.ops import SPEC, ssd_scan, ssd_scan_ref
+
+    h, p, n = 80, 64, 128
+    for dname, dt in dtypes:
+        for s in ((512,) if quick else (4096, 1)):
+            ops_in = _ssd_operands(1, s, h, p, n, dt, seed=s)
+            (q,) = SPEC.default_tile(dict(s=s, h=h, p=p, n=n), dname)
+            y, hl = ssd_scan(*ops_in, chunk=q)
+            torch.cuda.synchronize()
+            yr, hr = ssd_scan_ref(*ops_in, chunk=q)
+            timing = None
+            if not quick:
+                eb = ops_in[1].element_size()
+                # Every input once, y (like dtx) and h_last (like h0) out.
+                nb = (sum(t.numel() for t in ops_in) + ops_in[1].numel()
+                      + ops_in[4].numel()) * eb
+                chunks = -(-s // q)
+                flops = h * chunks * (2.0 * q * q * n + 2.0 * q * q * p
+                                      + 4.0 * q * n * p)
+                t_b, by = bound(nb, flops, dname)
+                copies = [_ssd_operands(1, s, h, p, n, dt, seed=100 + i)
+                          for i in range(copies_for(nb))]
+                timing = dict(
+                    ms=time_ms([lambda c=c: ssd_scan(*c, chunk=q) for c in copies]),
+                    plain_ms=time_ms([lambda c=c: ssd_scan_ref(*c, chunk=q)
+                                      for c in copies], iters=4),
+                    library_ms=None, bound_ms=t_b, bound_by=by,
+                    shape=dict(b=1, s=s, h=h, p=p, n=n, chunk=q))
+            record("ssd", f"s={s} h={h} p={p} n={n} y", dname, y, yr, timing)
+            record("ssd", f"s={s} h={h} p={p} n={n} h_last", dname, hl, hr)
+
+
+def rglru_checks(record, dtypes, quick: bool):
+    """The RG-LRU scan at recurrentgemma-9b's width (F 4096), a 4096-step
+    sequence and one decode step; no PyTorch call computes it."""
+    import torch
+
+    from repro_torch.kernels.rglru.ops import rglru_scan, rglru_scan_ref
+
+    f = 4096
+    for dname, dt in dtypes:
+        for s in ((256,) if quick else (4096, 1)):
+            def operands(seed):
+                g = torch.Generator(device="cuda").manual_seed(seed)
+                return (torch.rand((1, s, f), generator=g, device="cuda").to(dt),
+                        torch.randn((1, s, f), generator=g, device="cuda").to(dt),
+                        torch.randn((1, f), generator=g, device="cuda").to(dt))
+
+            a, x, h0 = operands(s)
+            y, hl = rglru_scan(a, x, h0)
+            torch.cuda.synchronize()
+            yr, hr = rglru_scan_ref(a, x, h0)
+            timing = None
+            if not quick:
+                eb = x.element_size()
+                nb = (3 * s * f + 2 * f) * eb
+                t_b, by = bound(nb, 2.0 * s * f, dname)
+                copies = [operands(100 + i) for i in range(copies_for(nb))]
+                timing = dict(
+                    ms=time_ms([lambda c=c: rglru_scan(*c) for c in copies]),
+                    plain_ms=time_ms([lambda c=c: rglru_scan_ref(*c)
+                                      for c in copies], iters=2),
+                    library_ms=None, bound_ms=t_b, bound_by=by,
+                    shape=dict(b=1, s=s, f=f))
+            record("rglru", f"s={s} f={f} y", dname, y, yr, timing)
+            record("rglru", f"s={s} f={f} h_last", dname, hl, hr)
 
 
 # ---------------------------------------------------------------------------
@@ -356,8 +588,9 @@ def serve_full_width(cfg, params):
               f"request {r.rid} got {len(r.out_tokens)} tokens")
         check(all(0 <= t < cfg.vocab_size for t in r.out_tokens),
               f"request {r.rid} has tokens outside the vocabulary")
-    for name, n in launches.items():
-        check(n > 0, f"kernel {name} was never launched on the serving path")
+    for name in SERVE_KERNELS:
+        check(launches[name] > 0,
+              f"kernel {name} was never launched on the serving path")
     toks = sum(len(r.out_tokens) for r in done)
     ttft = sorted(eng.metrics.ttft_since())
     stats = dict(requests=len(done), prompt_lengths=list(lengths),
@@ -522,6 +755,151 @@ def run_launcher():
 
 
 # ---------------------------------------------------------------------------
+# Phase 7: tile plans on the card
+# ---------------------------------------------------------------------------
+
+FIG3_AXIS = [(h, w) for h in (4, 8, 16, 32) for w in (4, 8, 16, 32)]
+
+
+def plan_jobs():
+    """The bounded job set of the plan phase, from the port's own cell
+    builders: the paper's bilinear family, the train_4k ssd cell of
+    mamba2-2.7b, the train_4k rglru and D = 256 attention cells of
+    recurrentgemma-9b, and qwen2-1.5b's serve cells at bucket edge 512 and
+    decode (4 slots, 1024)."""
+    from repro_torch import configs
+    from repro_torch.configs.shapes import TRAIN_4K
+    from repro_torch.core import H100_SXM, registry
+    from repro_torch.kernels import register_all
+    from repro_torch.launch.compile_plans import (
+        BILINEAR_PROBLEMS, serve_bucket_cells,
+    )
+    from repro_torch.launch.specs import cell_problems
+
+    register_all()
+    cells = [("bilinear", p) for p in BILINEAR_PROBLEMS]
+    mamba = cell_problems(configs.get_arch("mamba2-2.7b"), TRAIN_4K)
+    rgemma = cell_problems(configs.get_arch("recurrentgemma-9b"), TRAIN_4K)
+    cells += [("ssd", mamba["ssd"]), ("rglru", rgemma["rglru"]),
+              ("flash_attention", rgemma["flash_attention"])]
+    cells += [(k, p) for k, p in serve_bucket_cells(
+        ["qwen2-1.5b"], [512], slots=4, max_len=MAX_LEN)
+        if k in registry.names()]
+    return [(k, p, "float32", H100_SXM) for k, p in cells]
+
+
+def plan_phase(out_dir: Path):
+    """Compile the bounded job set with wall-clock timing on the card, check
+    the artifact, and time the paper's Fig. 3 tiles at every scale. Returns
+    the per-cell report and the launches of the compile."""
+    import torch
+
+    from repro_torch.core import (
+        GEFORCE_8800GTS, GTX260, H100_SXM, Autotuner, TilePlan, compile_plan,
+    )
+    from repro_torch.core.plans import plan_key
+    from repro_torch.core.tiling import TileShape
+    from repro_torch.kernels import build
+    from repro_torch.launch.measure import make_measure_fn
+
+    jobs = plan_jobs()
+    timed = {}
+
+    def factory(kernel, problem, dtype, hw):
+        fn = make_measure_fn(kernel, problem, dtype, hw)
+        if fn is None:
+            return None
+        rec = timed.setdefault(plan_key(kernel, problem, dtype, hw.name), [])
+
+        def measure(tile):
+            t = fn(tile)
+            rec.append((tuple(tile), t))
+            return t
+
+        return measure
+
+    build.reset_launches()
+    t0 = time.perf_counter()
+    plan = compile_plan(jobs, autotuner=Autotuner(), measure_fn_factory=factory,
+                        meta={"generated_by": "chip_smoke.py"})
+    torch.cuda.synchronize()
+    compile_s = time.perf_counter() - t0
+    launches = dict(build.LAUNCHES)
+    check(plan.meta["skipped_jobs"] == 0,
+          f"{plan.meta['skipped_jobs']} plan cells skipped")
+    check(len(plan) == len(jobs), f"{len(plan)} entries for {len(jobs)} jobs")
+    unmeasured = [e.key for e in plan.entries()
+                  if e.hardware == "h100_sxm" and not e.measured]
+    check(not unmeasured, f"h100_sxm cells not measured: {unmeasured}")
+    path = out_dir / "chip_smoke_plans.json"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    plan.save(str(path))
+    loaded = TilePlan.load(str(path))
+    cells = []
+    log(f"  {len(jobs)} cells compiled and timed in {compile_s:.1f} s")
+    for kernel, problem, dtype, hw in jobs:
+        res = loaded.resolve(kernel, problem, dtype, hw)
+        entry = plan.lookup(kernel, problem, dtype, hw.name)
+        check(res is not None and res.source == "exact"
+              and res.tile == entry.tile,
+              f"{kernel} {problem}: the saved artifact does not resolve "
+              f"exactly ({res and res.source})")
+        rec = timed[plan_key(kernel, problem, dtype, hw.name)]
+        model_best, model_s = rec[0]
+        meas_best, meas_s = min(rec, key=lambda r: r[1])
+        spread = max(t for _, t in rec) / meas_s
+        cells.append(dict(kernel=kernel, problem=dict(problem), dtype=dtype,
+                          model_best=list(model_best),
+                          model_best_ms=model_s * 1e3,
+                          measured_best=list(meas_best),
+                          measured_best_ms=meas_s * 1e3,
+                          timed=len(rec), spread=spread))
+        log(f"  {kernel:16s} {_problem_str(problem):44s} model best "
+            f"{TileShape(model_best)} ({model_s * 1e3:.4f} ms), measured best "
+            f"{TileShape(meas_best)} ({meas_s * 1e3:.4f} ms), spread "
+            f"{spread:.2f}x over {len(rec)} tiles")
+    log(f"  launches while compiling: {launches}")
+
+    log("  Fig. 3 on the H100: all 16 tiles of {4,8,16,32}^2 timed per scale "
+        "(tile W x H); the paper's GPUs modelled")
+    fig3 = []
+    tiles = [TileShape(d) for d in FIG3_AXIS]
+    for prob in [p for k, p, _, _ in jobs if k == "bilinear"]:
+        at = Autotuner()
+        res = at.sweep("bilinear", prob, "float32", H100_SXM, tiles=tiles,
+                       measure_fn=make_measure_fn("bilinear", prob, "float32",
+                                                  H100_SXM),
+                       measure_top_k=len(tiles))
+        check(all(e.measured_s is not None for e in res.entries),
+              "a Fig. 3 tile was not timed")
+        row = dict(scale=prob["scale"], h100_best=list(res.best.tile.dims),
+                   h100_best_ms=res.best.measured_s * 1e3,
+                   h100_sensitivity=res.sensitivity(),
+                   h100_ms={_wxh(e.tile): e.measured_s * 1e3
+                            for e in res.entries})
+        for hw in (GTX260, GEFORCE_8800GTS):
+            mod = at.sweep("bilinear_cuda", prob, "float32", hw, tiles=tiles)
+            row[hw.name + "_best"] = list(mod.best.tile.dims)
+            row[hw.name + "_sensitivity"] = mod.sensitivity()
+        fig3.append(row)
+        log(f"  scale {prob['scale']:2d}: H100 best {_wxh(res.best.tile)} "
+            f"({row['h100_best_ms']:.4f} ms, sensitivity "
+            f"{row['h100_sensitivity']:.2f}); modelled GTX260 "
+            f"{_wxh(row['gtx260_best'])}, 8800 GTS "
+            f"{_wxh(row['geforce_8800gts_best'])}")
+    return dict(cells=cells, fig3=fig3, compile_s=compile_s,
+                launches=launches)
+
+
+def _wxh(tile) -> str:
+    return f"{tile[1]}x{tile[0]}"
+
+
+def _problem_str(problem) -> str:
+    return ",".join(f"{k}={v}" for k, v in sorted(problem.items()))
+
+
+# ---------------------------------------------------------------------------
 
 KERNEL_META = {
     "matmul": dict(
@@ -537,7 +915,22 @@ KERNEL_META = {
         route="cuda", source="src/repro_torch/kernels/csrc/flash_decode.cu",
         replaces="src/repro/kernels/flash_attention/decode.py:113",
         headline=dict(dtype="float32", case="pos=511")),
+    "bilinear": dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/bilinear.cu",
+        replaces="src/repro/kernels/bilinear/bilinear.py:73",
+        headline=dict(dtype="float32", case="800x800 scale=10")),
+    "ssd": dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/ssd.cu",
+        replaces="src/repro/kernels/ssd/ssd.py:70",
+        headline=dict(dtype="float32", case="s=4096 h=80 p=64 n=128 y")),
+    "rglru": dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/rglru.cu",
+        replaces="src/repro/kernels/rglru/rglru.py:50",
+        headline=dict(dtype="float32", case="s=4096 f=4096 y")),
 }
+# The path whose launches each kernel's count is read from.
+SERVE_KERNELS = ("matmul", "flash_attention", "flash_decode")
+PLAN_KERNELS = ("bilinear", "ssd", "rglru")
 
 
 def kernels_line(rows, launches):
@@ -554,6 +947,7 @@ def kernels_line(rows, launches):
             ms=head["ms"], plain_ms=head["plain_ms"],
             bound_ms=head["bound_ms"], bound_by=head["bound_by"],
             library_ms=head["library_ms"],
+            library_max_abs_err=head.get("library_max_abs_err"),
             shape=dict(head["shape"], dtype=head["dtype"])))
     return {"kernels": out}
 
@@ -606,10 +1000,18 @@ def main(argv=None) -> int:
         log(f"  built {sorted(per_source)} in {result['build_s']:.1f} s "
             f"({', '.join(f'{k} {v:.1f} s' for k, v in per_source.items())})")
 
+        phase_s = result["phase_s"] = {"build": result["build_s"]}
+
+        def phase_done(name, t0):
+            phase_s[name] = time.perf_counter() - t0
+            log(f"  [{name}: {phase_s[name]:.1f} s]")
+
         # 3. Kernels against their plain versions.
         log("== kernels against their plain versions")
+        t0 = time.perf_counter()
         rows = kernel_checks(args.quick)
         result["kernel_checks"] = rows
+        phase_done("kernels", t0)
         if args.quick:
             log(json.dumps({"quick": True, "checks": len(rows)}))
         else:
@@ -619,31 +1021,49 @@ def main(argv=None) -> int:
             # 4. Full-width serve.
             log("== serve full-width qwen2-1.5b (28 layers, float32)")
             cfg = configs.get_arch("qwen2-1.5b")
-            t0 = time.perf_counter()
+            t_phase = t0 = time.perf_counter()
             params = api.init_params(cfg, 0, dtype=torch.float32,
                                      device="cuda")
             torch.cuda.synchronize()
             log(f"  initialised {sum(p.numel() for p in _leaves(params)) / 1e9:.3f}"
                 f" B parameters in {time.perf_counter() - t0:.1f} s")
             result["serve"] = serve_full_width(cfg, params)
+            phase_done("serve", t_phase)
 
             # 5. Full-width parity, kernels vs plain versions.
             log("== full-width parity: kernels vs plain versions")
+            t0 = time.perf_counter()
             result["parity"] = full_width_parity(cfg, params)
             if args.profile:
                 log("== where the time of one full-width request goes")
                 result["profile"] = profile_request(cfg, params)
             del params
             torch.cuda.empty_cache()
+            phase_done("parity", t0)
 
             # 6. The launcher.
             log("== launcher (smoke config) on the card")
+            t0 = time.perf_counter()
             run_launcher()
+            phase_done("launcher", t0)
+
+            # 7. Tile plans on the card.
+            log("== tile plans on the card (wall-clock compile)")
+            t0 = time.perf_counter()
+            result["plans"] = plan_phase(ROOT / "build")
+            phase_done("plans", t0)
+            for name in PLAN_KERNELS:
+                check(result["plans"]["launches"].get(name, 0) > 0,
+                      f"kernel {name} was never launched by the plan compile")
 
             check("jax" not in sys.modules, "jax was imported")
             check(not any(m == "repro" or m.startswith("repro.")
                           for m in sys.modules), "the JAX package was imported")
-            line = kernels_line(rows, result["serve"]["launches"])
+            launches = {name: result["serve"]["launches"][name]
+                        for name in SERVE_KERNELS}
+            launches.update({name: result["plans"]["launches"][name]
+                             for name in PLAN_KERNELS})
+            line = kernels_line(rows, launches)
             result["kernels"] = line["kernels"]
         result["seconds"] = time.perf_counter() - t_start
         if args.out:

@@ -5,6 +5,11 @@ tile decision in the port is a function of ``(kernel, problem,
 HardwareModel)``. The fields keep their TPU-era names so plan artifacts and
 specs line up with the reference; :data:`H100_SXM` documents what each one
 means on Hopper.
+
+Beside the H100, the registry keeps the paper's two GPUs (its Table I) as
+*modelled* descriptors, with the reference's calibration, so the paper's
+analytic claims (Fig. 3, the 32x4 principle) hold in the port. No machine
+here has them: plans for them come from the cost model only (:data:`MODELLED`).
 """
 from __future__ import annotations
 
@@ -44,6 +49,14 @@ class HardwareModel:
     # Fixed overheads (seconds) ----------------------------------------------
     dma_row_latency: float = 0.0
     launch_overhead: float = 0.0
+    # Hopper estimator fields (0 keeps the paper GPUs' model unchanged) -------
+    smem_per_sm: int = 0           # shared memory of one SM: bounds blocks/SM
+    max_blocks_per_sm: int = 8     # resident blocks per SM
+    simt_flops: float = 0.0        # FLOP/s of the CUDA cores (0: peak_flops_bf16)
+
+    @property
+    def sublane(self) -> Dict[str, int]:
+        return {"float32": self.sublane_fp32, "bfloat16": self.sublane_bf16}
 
 
 # ---------------------------------------------------------------------------
@@ -70,6 +83,11 @@ class HardwareModel:
 #                  32-bit registers bound how many are resident in practice.
 # num_sm           132.
 # launch_overhead  ~3 us per kernel launch from the host (modelled).
+# smem_per_sm      233,472 (228 KB): the SM's shared memory, which bounds how
+#                  many blocks of a tile are resident at once.
+# max_blocks_per_sm 32 resident blocks per SM.
+# simt_flops       67e12: float32 FMA on the CUDA cores, the rate every
+#                  kernel of the port computes at (none uses wgmma yet).
 # ---------------------------------------------------------------------------
 
 H100_SXM = HardwareModel(
@@ -82,9 +100,49 @@ H100_SXM = HardwareModel(
     max_active_threads=2048, max_threads_per_block=1024, num_sm=132,
     saturation_threads=1024, dram_banks=16, sched_overhead=0.0,
     dma_row_latency=0.0, launch_overhead=3.0e-6,
+    smem_per_sm=233_472, max_blocks_per_sm=32, simt_flops=67e12,
 )
 
-REGISTRY: Dict[str, HardwareModel] = {m.name: m for m in (H100_SXM,)}
+# ---------------------------------------------------------------------------
+# The paper's two GPUs (Table I), with the reference's calibration for the
+# Fig. 3 reproduction (``repro/core/hardware.py``).
+#
+# peak_flops: SPs x clock x 2 (MAD) — GTX260: 192 x 1.242GHz x 2 = 477 GFLOP/s
+#             8800GTS(320MB, G80): 96 x 1.2GHz x 2 = 230 GFLOP/s
+# hbm_bw:     GTX260 448-bit GDDR3 ~111.9 GB/s; 8800GTS 320-bit ~64 GB/s
+# dma_row_latency / launch_overhead are calibrated so the cost model
+# reproduces Fig. 3's qualitative ordering.
+# ---------------------------------------------------------------------------
+
+GTX260 = HardwareModel(
+    name="gtx260", family="gpu",
+    peak_flops_bf16=477e9, num_cores=192, mxu_dim=32,
+    hbm_bytes=1 * 2**30, hbm_bw=111.9e9,
+    vmem_bytes=16 * 2**10, vmem_bw=1.4e12,
+    lane_count=32, sublane_fp32=1, sublane_bf16=1,
+    ici_bw_per_link=0.0, ici_links=0,
+    max_active_threads=1024, max_threads_per_block=512, num_sm=24,
+    saturation_threads=512, dram_banks=16, sched_overhead=4.0e-7,
+    dma_row_latency=2.0e-8, launch_overhead=3.0e-6,
+)
+
+GEFORCE_8800GTS = HardwareModel(
+    name="geforce_8800gts", family="gpu",
+    peak_flops_bf16=230e9, num_cores=96, mxu_dim=32,
+    hbm_bytes=320 * 2**20, hbm_bw=64e9,
+    vmem_bytes=16 * 2**10, vmem_bw=0.7e12,
+    lane_count=32, sublane_fp32=1, sublane_bf16=1,
+    ici_bw_per_link=0.0, ici_links=0,
+    max_active_threads=768, max_threads_per_block=512, num_sm=12,
+    saturation_threads=640, dram_banks=8, sched_overhead=5.0e-7,
+    dma_row_latency=3.5e-8, launch_overhead=5.0e-6,
+)
+
+REGISTRY: Dict[str, HardwareModel] = {
+    m.name: m for m in (H100_SXM, GTX260, GEFORCE_8800GTS)}
+
+# Descriptors the cost model stands in for: plans for them are analytic.
+MODELLED = frozenset({GTX260.name, GEFORCE_8800GTS.name})
 
 PRODUCTION_TARGET = H100_SXM
 

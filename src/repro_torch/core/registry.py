@@ -10,6 +10,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, Dict, Mapping, Sequence
 
+from repro_torch.core.cost_model import TileWorkload
 from repro_torch.core.tiling import TileConstraints, TileShape
 
 
@@ -19,13 +20,17 @@ class KernelSpec:
 
     ``vmem_bytes`` is the tile's shared-memory working set per thread block;
     a legal tile keeps it within ``HardwareModel.vmem_bytes`` (227 KB on the
-    H100). All callables are pure. The reference's ``workload`` and
-    ``n_tiles`` fields come with the Hopper estimator that reads them.
+    H100), and a tile the kernel cannot launch has an infinite one, so no
+    sweep ranks it. ``workload`` is one block's work (``threads`` set to the
+    block size) and ``n_tiles`` the blocks of one launch, which the Hopper
+    estimator turns into time. All callables are pure.
     """
 
     name: str
     constraints: Callable[[Mapping[str, int]], TileConstraints]
     vmem_bytes: Callable[[TileShape, Mapping[str, int], str], float]
+    workload: Callable[[TileShape, Mapping[str, int], str], TileWorkload]
+    n_tiles: Callable[[TileShape, Mapping[str, int]], int]
     default_tile: Callable[[Mapping[str, int], str], TileShape]
 
 
@@ -50,4 +55,3 @@ def get(name: str) -> KernelSpec:
 
 def names() -> Sequence[str]:
     return sorted(_REGISTRY)
-

@@ -27,6 +27,9 @@ SOURCES = {
     "matmul": "matmul.cu",
     "flash_attention": "flash_attention.cu",
     "flash_decode": "flash_decode.cu",
+    "bilinear": "bilinear.cu",
+    "ssd": "ssd.cu",
+    "rglru": "rglru.cu",
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
@@ -121,3 +124,28 @@ def stream_ptr(device) -> int:
     import torch
 
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def dtype_code(dtype) -> int:
+    """The ``dtype`` argument of the C entry points: 0 float32, 1 bfloat16."""
+    import torch
+
+    return {torch.float32: 0, torch.bfloat16: 1}[dtype]
+
+
+def check_cuda_operands(name: str, *tensors) -> None:
+    """Raise unless every tensor is a contiguous float32/bfloat16 CUDA
+    tensor of one device and dtype."""
+    import torch
+
+    first = tensors[0]
+    for t in tensors:
+        if t.device.type != "cuda" or t.device != first.device:
+            raise ValueError(f"{name} needs its operands on one CUDA device, "
+                             f"got {[str(x.device) for x in tensors]}")
+        if (t.dtype not in (torch.float32, torch.bfloat16)
+                or t.dtype != first.dtype):
+            raise TypeError(f"{name} takes float32 or bfloat16 operands of "
+                            f"one dtype, got {[x.dtype for x in tensors]}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} needs contiguous operands")

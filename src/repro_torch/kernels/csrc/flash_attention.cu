@@ -25,9 +25,12 @@
 // masked instead of requiring bq | Sq and bkv | Skv. The numerics follow the
 // reference: NEG_INF = -2e30 (not -inf), the mask applied after the softcap,
 // and the 1e-30 clamp of the denominator. The tile (bq, bkv) is a runtime
-// argument (multiples of 4, bq <= 128); its shared-memory working set is
-// checked against the 227 KB a block may use. wgmma, TMA and warp
-// specialisation are later work.
+// argument (multiples of 4, bq at most REPRO_FA_BQ_LIMITS gives: 128, and
+// 64 at D = 256 so the per-thread accumulator stays at 64 floats, since at
+// D = 256 each thread owns one column of every row quad); its
+// shared-memory working set is checked
+// against the 227 KB a block may use. wgmma, TMA and warp specialisation are
+// later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -39,7 +42,17 @@ namespace {
 constexpr float NEG_INF = -2.0e30f;
 constexpr int NT = 256;         // threads per block
 constexpr int NWARPS = NT / 32;
-constexpr int BQ_MAX = 128;
+// The largest bq each head dim takes, as X(head dim, bq): the accumulator
+// holds bq / 4 / (NT / D) row quads of 4 floats per thread, 64 floats at
+// D = 128, bq = 128 and at D = 256, bq = 64. flash_attention.py reads this
+// table, so the launch rule is stated here alone.
+#define REPRO_FA_BQ_LIMITS \
+  X(16, 128) X(32, 128) X(64, 128) X(128, 128) X(256, 64)
+__host__ __device__ constexpr int bq_max_for(int D) {
+#define X(d, bq) D == d ? bq :
+  return REPRO_FA_BQ_LIMITS 0;
+#undef X
+}
 constexpr int SMEM_LIMIT = 232448;  // 227 KB, the H100's per-block maximum
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -76,7 +89,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        int causal, int window, float softcap, int q_offset) {
   static_assert(NT % D == 0, "head_dim must divide the thread count");
   constexpr int RQ_STEP = NT / D;  // row quads between one thread's groups
-  constexpr int MAXG = (BQ_MAX / 4 + RQ_STEP - 1) / RQ_STEP;
+  constexpr int MAXG = (bq_max_for(D) / 4 + RQ_STEP - 1) / RQ_STEP;
 
   extern __shared__ float smem[];
   float* qs = smem;                  // [bq][D], pre-scaled queries
@@ -226,7 +239,9 @@ int launch(const void* q, const void* k, const void* v, void* out, int b,
            int causal, int window, float softcap, int q_offset,
            cudaStream_t stream) {
   const size_t smem = smem_bytes<D>(bq, bkv);
-  if (smem > (size_t)SMEM_LIMIT) return (int)cudaErrorInvalidValue;
+  if (smem > (size_t)SMEM_LIMIT || bq > bq_max_for(D)) {
+    return (int)cudaErrorInvalidValue;
+  }
   auto kernel = flash_attention_kernel<T, D>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -257,6 +272,9 @@ int dispatch_d(int dh, const void* q, const void* k, const void* v, void* out,
     case 128:
       return launch<T, 128>(q, k, v, out, b, hq, hkv, sq, skv, bq, bkv, scale,
                             causal, window, softcap, q_offset, s);
+    case 256:
+      return launch<T, 256>(q, k, v, out, b, hq, hkv, sq, skv, bq, bkv, scale,
+                            causal, window, softcap, q_offset, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -274,8 +292,8 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
                                      int causal, int window, float softcap,
                                      int q_offset, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (hkv <= 0 || hq % hkv != 0 || bq <= 0 || bq > BQ_MAX || bq % 4 != 0 ||
-      bkv <= 0 || bkv % 4 != 0) {
+  if (hkv <= 0 || hq % hkv != 0 || bq <= 0 || bq % 4 != 0 || bkv <= 0 ||
+      bkv % 4 != 0) {
     return (int)cudaErrorInvalidValue;
   }
   if (dtype == 0) {

@@ -239,6 +239,9 @@ int dispatch_d(int dh, const void* q, const void* k, const void* v,
     case 128:
       return launch<T, 128>(q, k, v, kv_pos, out, b, hq, hkv, s, bkv, pos,
                             scale, window, softcap, st);
+    case 256:
+      return launch<T, 256>(q, k, v, kv_pos, out, b, hq, hkv, s, bkv, pos,
+                            scale, window, softcap, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -24,9 +24,7 @@ import torch
 
 from repro_torch.core.hardware import H100_SXM
 from repro_torch.kernels import build
-from repro_torch.kernels.flash_attention.flash_attention import (
-    HEAD_DIMS, _DTYPES, check_cuda_operands,
-)
+from repro_torch.kernels.flash_attention.flash_attention import HEAD_DIMS
 from repro_torch.kernels.flash_attention.ref import NEG_INF, fit_bkv
 
 REP_MAX = 32   # grouped query heads per KV head the kernel keeps resident
@@ -46,6 +44,24 @@ def smem_bytes(n_rep: int, bkv: int, d: int) -> int:
     """Shared memory one block of the kernel uses: float32 grouped queries,
     padded K, V, the [n_rep, bkv] logits and three per-row statistics."""
     return 4 * (n_rep * d + bkv * (d + 1) + bkv * d + n_rep * bkv + 3 * n_rep)
+
+
+def launch_bkv(bkv: int, s: int, d: int, n_rep: int) -> int:
+    """The KV block the kernel runs for ``bkv``: clamped to the cache length
+    ``s``. Raises ValueError for what the kernel cannot launch."""
+    if d not in HEAD_DIMS:
+        raise ValueError(f"flash_decode head_dim {d} not in {HEAD_DIMS}")
+    if n_rep > REP_MAX:
+        raise ValueError(f"flash_decode keeps at most {REP_MAX} grouped "
+                         f"query heads per KV head, got {n_rep}")
+    bkv = min(int(bkv), s)
+    if bkv <= 0:
+        raise ValueError(f"flash_decode bkv must be positive, got {bkv}")
+    if smem_bytes(n_rep, bkv, d) > H100_SXM.vmem_bytes:
+        raise ValueError(f"flash_decode bkv={bkv} needs "
+                         f"{smem_bytes(n_rep, bkv, d)} B of shared memory; a "
+                         f"block may use {H100_SXM.vmem_bytes}")
+    return bkv
 
 
 def flash_decode(
@@ -73,13 +89,7 @@ def flash_decode(
         return flash_decode_ref(q, k, v, pos=pos, kv_pos=kv_pos, window=window,
                                 softcap=softcap, scale=scale,
                                 bkv=bkv if bkv is not None else 512)
-    check_cuda_operands("flash_decode", q, k, v)
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash_decode head_dim {d} not in {HEAD_DIMS}")
-    n_rep = hq // hkv
-    if n_rep > REP_MAX:
-        raise ValueError(f"flash_decode keeps at most {REP_MAX} grouped "
-                         f"query heads per KV head, got {n_rep}")
+    build.check_cuda_operands("flash_decode", q, k, v)
     if not 0 <= pos:
         raise ValueError(f"flash_decode pos must be >= 0, got {pos}")
     if kv_pos is not None:
@@ -93,17 +103,13 @@ def flash_decode(
         bkv = DECODE_SPEC.default_tile(
             dict(b=b, skv=s, d=d, hq=hq, hkv=hkv, window=window or 0),
             str(q.dtype))[0]
-    bkv = min(int(bkv), s)
-    if smem_bytes(n_rep, bkv, d) > H100_SXM.vmem_bytes:
-        raise ValueError(f"flash_decode bkv={bkv} needs "
-                         f"{smem_bytes(n_rep, bkv, d)} B of shared memory; a "
-                         f"block may use {H100_SXM.vmem_bytes}")
+    bkv = launch_bkv(bkv, s, d, hq // hkv)
     out = torch.empty_like(q)
     if q.numel() == 0:
         return out
     rc = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                 kv_pos.data_ptr() if kv_pos is not None else None,
-                out.data_ptr(), b, hq, hkv, s, d, _DTYPES[q.dtype], bkv, pos,
+                out.data_ptr(), b, hq, hkv, s, d, build.dtype_code(q.dtype), bkv, pos,
                 float(scale), int(window or 0), float(softcap or 0.0),
                 build.stream_ptr(q.device))
     build.check(rc, "flash_decode")
@@ -153,4 +159,4 @@ def flash_decode_ref(
 
 
 __all__ = ["NEG_INF", "fit_bkv", "flash_decode", "flash_decode_ref",
-           "smem_bytes"]
+           "launch_bkv", "smem_bytes"]

@@ -8,7 +8,9 @@ tensors launch the kernel or raise.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import functools
+import re
+from typing import Dict, Optional
 
 import torch
 
@@ -17,9 +19,7 @@ from repro_torch.core.tiling import round_up
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention.ref import NEG_INF, flash_attention_ref
 
-HEAD_DIMS = (16, 32, 64, 128)   # head dims flash_attention.cu instantiates
-BQ_MAX = 128
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+HEAD_DIMS = (16, 32, 64, 128, 256)   # head dims the .cu files instantiate
 
 
 def _lib():
@@ -30,21 +30,6 @@ def _lib():
                           ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
-
-
-def check_cuda_operands(name: str, *tensors) -> None:
-    """Raise unless every tensor is a contiguous float32/bfloat16 CUDA
-    tensor of one device and dtype."""
-    first = tensors[0]
-    for t in tensors:
-        if t.device.type != "cuda" or t.device != first.device:
-            raise ValueError(f"{name} needs its operands on one CUDA device, "
-                             f"got {[str(x.device) for x in tensors]}")
-        if t.dtype not in _DTYPES or t.dtype != first.dtype:
-            raise TypeError(f"{name} takes float32 or bfloat16 operands of "
-                            f"one dtype, got {[x.dtype for x in tensors]}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} needs contiguous operands")
 
 
 def flash_attention(
@@ -72,29 +57,19 @@ def flash_attention(
             q, k, v, causal=causal, window=window, softcap=softcap,
             scale=scale, q_offset=q_offset,
             chunk=int(tile[1]) if tile is not None else 512)
-    check_cuda_operands("flash_attention", q, k, v)
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash_attention head_dim {d} not in {HEAD_DIMS}")
+    build.check_cuda_operands("flash_attention", q, k, v)
     if tile is None:
         from repro_torch.kernels.flash_attention.ops import FLASH_SPEC
 
         tile = FLASH_SPEC.default_tile(
             dict(sq=sq, skv=skv, d=d, hq=hq, hkv=hkv, window=window or 0),
             str(q.dtype))
-    bq = min(int(tile[0]), round_up(sq, 4))
-    bkv = min(int(tile[1]), round_up(skv, 4))
-    if bq % 4 or bkv % 4 or bq > BQ_MAX:
-        raise ValueError(f"flash_attention tile ({bq}, {bkv}) needs multiples "
-                         f"of 4 and bq <= {BQ_MAX}")
-    if smem_bytes(bq, bkv, d) > H100_SXM.vmem_bytes:
-        raise ValueError(f"flash_attention tile ({bq}, {bkv}) needs "
-                         f"{smem_bytes(bq, bkv, d)} B of shared memory; a "
-                         f"block may use {H100_SXM.vmem_bytes}")
+    bq, bkv = launch_tile(tile, sq, skv, d)
     out = torch.empty_like(q)
     if q.numel() == 0:
         return out
     rc = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                b, hq, hkv, sq, skv, d, _DTYPES[q.dtype], bq, bkv,
+                b, hq, hkv, sq, skv, d, build.dtype_code(q.dtype), bq, bkv,
                 float(scale), int(bool(causal)), int(window or 0),
                 float(softcap or 0.0), int(q_offset),
                 build.stream_ptr(q.device))
@@ -103,10 +78,44 @@ def flash_attention(
     return out
 
 
+@functools.lru_cache(maxsize=None)
+def _bq_limits() -> Dict[int, int]:
+    """``{head dim: largest bq}`` as ``REPRO_FA_BQ_LIMITS`` in the kernel's
+    source states it, the one place that rule lives."""
+    text = (build.CSRC / build.SOURCES["flash_attention"]).read_text()
+    table = re.search(r"#define REPRO_FA_BQ_LIMITS((?:.*\\\n)*.*)", text)
+    return {int(d): int(bq)
+            for d, bq in re.findall(r"X\((\d+),\s*(\d+)\)", table.group(1))}
+
+
+def bq_max(d: int) -> int:
+    """Largest bq the kernel takes at head dim ``d`` (64 at D = 256, where a
+    thread's accumulator would otherwise double); 0 where it takes none."""
+    return _bq_limits().get(d, 0)
+
+
+def launch_tile(tile, sq: int, skv: int, d: int):
+    """The ``(bq, bkv)`` the kernel runs for ``tile``: clamped to the problem
+    (rounded up to a multiple of 4). Raises ValueError for a tile or head
+    dim the kernel cannot launch."""
+    if d not in HEAD_DIMS:
+        raise ValueError(f"flash_attention head_dim {d} not in {HEAD_DIMS}")
+    bq = min(int(tile[0]), round_up(sq, 4))
+    bkv = min(int(tile[1]), round_up(skv, 4))
+    if bq <= 0 or bkv <= 0 or bq % 4 or bkv % 4 or bq > bq_max(d):
+        raise ValueError(f"flash_attention tile ({bq}, {bkv}) needs multiples "
+                         f"of 4 and bq <= {bq_max(d)} at head_dim {d}")
+    if smem_bytes(bq, bkv, d) > H100_SXM.vmem_bytes:
+        raise ValueError(f"flash_attention tile ({bq}, {bkv}) needs "
+                         f"{smem_bytes(bq, bkv, d)} B of shared memory; a "
+                         f"block may use {H100_SXM.vmem_bytes}")
+    return bq, bkv
+
+
 def smem_bytes(bq: int, bkv: int, d: int) -> int:
     """Shared memory one block of the kernel uses: float32 q, padded K, V,
     the [bq, bkv] logits and three per-row statistics."""
     return 4 * (bq * d + bkv * (d + 1) + bkv * d + bq * bkv + 3 * bq)
 
 
-__all__ = ["NEG_INF", "flash_attention", "smem_bytes"]
+__all__ = ["NEG_INF", "bq_max", "flash_attention", "launch_tile", "smem_bytes"]

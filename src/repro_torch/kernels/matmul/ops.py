@@ -7,23 +7,29 @@ masked at the ragged edge, so no tile has to divide the problem. The
 shared-memory working set per block is the float32 A tile (padded by one
 column) plus the float32 B tile — a few KB, far inside the 227 KB a block
 may use, where the TPU's (256, 512, 512) default needs 1.5 MiB of VMEM.
+Every other tile has an infinite working set in the spec, so the plan
+compiler sweeps exactly the compiled tiles; the tile axes reach at least
+the compiled dims even for a one-row decode problem.
 """
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Mapping
 
 import torch
 
 from repro_torch.core import registry
+from repro_torch.core.cost_model import TileWorkload
 from repro_torch.core.hardware import H100_SXM
-from repro_torch.core.tiling import TileConstraints, TileShape, cdiv
+from repro_torch.core.tiling import TileConstraints, TileShape, cdiv, dtype_bytes
 from repro_torch.kernels import build
 from repro_torch.kernels.matmul.ref import matmul_ref
 
 # (bm, bk, bn) tiles matmul.cu instantiates: a GEMV tile for decode and a
 # square tile for prefill.
 COMPILED_TILES = ((8, 32, 128), (64, 16, 64))
+THREADS = 256   # threads per block of both compiled tiles
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -86,14 +92,41 @@ def mm(a: torch.Tensor, b: torch.Tensor, tile=None) -> torch.Tensor:
 
 
 def _constraints(problem: Mapping[str, int]) -> TileConstraints:
-    m, k, n = problem["m"], problem["k"], problem["n"]
-    return TileConstraints(rank=3, max_dims=(m, k, n), lane_dim=2,
-                           sublane_dim=0)
+    # Ragged edges are masked, so a tile may exceed the problem: the axes
+    # reach the compiled dims however small the problem is.
+    reach = [max(t[i] for t in COMPILED_TILES) for i in range(3)]
+    dims = (problem["m"], problem["k"], problem["n"])
+    return TileConstraints(rank=3, max_dims=tuple(max(p, r) for p, r in
+                                                  zip(dims, reach)),
+                           lane_dim=2, sublane_dim=0, vmem_fraction=1.0)
 
 
 def _vmem_bytes(tile: TileShape, problem: Mapping[str, int], dtype: str) -> float:
+    if tuple(tile) not in COMPILED_TILES:
+        return math.inf
     bm, bk, bn = tile
     return 4.0 * (bk * (bm + 1) + bk * bn)  # float32 A (padded) + B tiles
+
+
+def _workload(tile: TileShape, problem: Mapping[str, int], dtype: str) -> TileWorkload:
+    bm, bk, bn = tile
+    m, k, n = problem["m"], problem["k"], problem["n"]
+    splits = split_k(m, n, k, tile)
+    b = dtype_bytes(dtype)
+    k_block = k / splits
+    return TileWorkload(
+        flops=2.0 * bm * bn * k_block,
+        hbm_bytes=(bm + bn) * k_block * b + bm * bn * (4 if splits > 1 else b),
+        row_segments=bm,
+        row_stride_bytes=float(k * b),
+        threads=THREADS,
+    )
+
+
+def _n_tiles(tile: TileShape, problem: Mapping[str, int]) -> int:
+    bm, _, bn = tile
+    m, k, n = problem["m"], problem["k"], problem["n"]
+    return cdiv(m, bm) * cdiv(n, bn) * split_k(m, n, k, tile)
 
 
 def _default_tile(problem: Mapping[str, int], dtype: str) -> TileShape:
@@ -107,6 +140,8 @@ SPEC = registry.register(registry.KernelSpec(
     name="matmul",
     constraints=_constraints,
     vmem_bytes=_vmem_bytes,
+    workload=_workload,
+    n_tiles=_n_tiles,
     default_tile=_default_tile,
 ))
 

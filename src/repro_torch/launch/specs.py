@@ -2,16 +2,19 @@
 
 ``kernel_problems`` is the reference's (``repro/launch/specs.py:30``): pure
 config arithmetic mapping one (config, batch, seq_len, kind) cell onto the
-tunable-kernel problem dicts. ``resolve_model_tiles`` gives every kernel of
-that cell its Hopper ``default_tile`` — what the reference's resolver falls
-back to when a plan has no cell. Loading TilePlan artifacts comes with the
-Hopper plan compiler.
+tunable-kernel problem dicts; ``cell_problems`` the same for one of the
+assigned (arch x shape) cells, which the plan compiler sweeps.
+``resolve_model_tiles`` gives every ported kernel of a cell its Hopper
+``default_tile`` — what the reference's resolver falls back to when a plan
+has no cell. Resolving tiles from a TilePlan in the engine is still to
+come.
 """
 from __future__ import annotations
 
 from typing import Dict, Tuple
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.shapes import ShapeSpec
 from repro_torch.core import registry
 from repro_torch.core.tiling import TileShape
 
@@ -70,13 +73,18 @@ def kernel_problems(cfg: ArchConfig, batch: int, seq_len: int,
     return problems
 
 
+def cell_problems(cfg: ArchConfig, shape: ShapeSpec) -> Dict[str, Dict[str, int]]:
+    """``kernel_problems`` for one of the assigned (arch x shape) cells."""
+    return kernel_problems(cfg, shape.global_batch, shape.seq_len, shape.kind)
+
+
 def resolve_model_tiles(cfg: ArchConfig, batch: int, seq_len: int, kind: str,
                         dtype: str) -> Tuple[Dict[str, TileShape], Dict]:
     """Hopper default tiles for every ported kernel of one geometry.
 
     Returns ``(tiles, resolutions)`` like the reference; ``resolutions`` is
-    empty until plans load. Kernels the port has no spec for yet (kv_page,
-    the recurrent scans) are left out.
+    empty until the engine loads plans. Kernels the port has no spec for
+    yet (kv_page, chunked_prefill, packed_prefill) are left out.
     """
     from repro_torch import kernels
 

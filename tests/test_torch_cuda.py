@@ -24,8 +24,11 @@ from repro_torch.kernels.flash_attention.flash_attention import (  # noqa: E402
     flash_attention,
 )
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref  # noqa: E402
+from repro_torch.kernels.bilinear import ops as bil_ops  # noqa: E402
 from repro_torch.kernels.matmul import ops as mm_ops  # noqa: E402
 from repro_torch.kernels.matmul.ref import matmul_ref  # noqa: E402
+from repro_torch.kernels.rglru import ops as rg_ops  # noqa: E402
+from repro_torch.kernels.ssd import ops as ssd_ops  # noqa: E402
 from repro_torch.models import api  # noqa: E402
 from repro_torch.serve import ServeEngine  # noqa: E402
 
@@ -111,6 +114,86 @@ def test_flash_decode_kv_pos_and_blocks(dev, bkv):
            flash_decode_ref(q, k, v, pos=433, window=57), 2e-5)
 
 
+@pytest.mark.parametrize("dtype,rtol", DTYPES)
+@pytest.mark.parametrize("case", ["prefill", "decode"])
+def test_attention_at_head_dim_256(dev, dtype, rtol, case):
+    # recurrentgemma-9b's local attention: Hq 16, Hkv 1, D 256, window 2048
+    # (cut to 300 here), at the largest bq and bkv the head dim takes.
+    dt = getattr(torch, dtype)
+    if case == "prefill":
+        q, k, v = _randn(dev, 8, (1, 16, 700, 256), (1, 1, 700, 256),
+                         (1, 1, 700, 256), dtype=dt)
+        for tile in ((64, 64), (32, 32), (4, 100)):
+            _close(flash_attention(q, k, v, causal=True, window=300, tile=tile),
+                   flash_attention_ref(q, k, v, causal=True, window=300), rtol)
+        with pytest.raises(ValueError):
+            flash_attention(q, k, v, tile=(128, 32))
+    else:
+        q, k, v = _randn(dev, 9, (2, 16, 256), (2, 1, 1500, 256),
+                         (2, 1, 1500, 256), dtype=dt)
+        for bkv in (64, 50):
+            _close(flash_decode(q, k, v, pos=1400, window=300, bkv=bkv),
+                   flash_decode_ref(q, k, v, pos=1400, window=300), rtol)
+        _close(flash_decode(q, k, v, pos=1400),
+               flash_decode_ref(q, k, v, pos=1400), rtol)
+
+
+@pytest.mark.parametrize("dtype,rtol", DTYPES)
+@pytest.mark.parametrize("scale,hw,tile", [
+    (2, (800, 800), (4, 32)), (6, (800, 800), (8, 32)),
+    (3, (37, 53), (7, 33)), (10, (40, 30), (32, 32)),
+    (1, (64, 48), (1, 1024)), (4, (50, 70), (16, 4))])
+def test_bilinear_vs_plain(dev, dtype, rtol, scale, hw, tile):
+    (src,) = _randn(dev, 10, hw, dtype=getattr(torch, dtype))
+    build.reset_launches()
+    out = bil_ops.upscale(src, scale, tile=tile)
+    assert build.LAUNCHES["bilinear"] == 1
+    _close(out, bil_ops.bilinear_upscale_ref(src, scale), rtol)
+
+
+def _ssd_inputs(dev, seed, b, s, h, p, n, dtype):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((b, s, h, p), generator=g, device=dev).to(dtype)
+    dt = (torch.rand((b, s, h), generator=g, device=dev) * 0.09 + 0.01).to(dtype)
+    A = -(torch.rand((h,), generator=g, device=dev) + 0.5)
+    Bm = torch.randn((b, s, n), generator=g, device=dev).to(dtype)
+    C = torch.randn((b, s, n), generator=g, device=dev).to(dtype)
+    h0 = torch.randn((b, h, n, p), generator=g, device=dev).to(dtype)
+    return x, dt, A, Bm, C, h0
+
+
+@pytest.mark.parametrize("dtype,rtol", DTYPES)
+@pytest.mark.parametrize("b,s,h,p,n,chunk", [
+    (1, 256, 4, 64, 128, 64), (2, 100, 3, 16, 8, 32), (1, 77, 2, 64, 128, 16),
+    (1, 1, 80, 64, 128, 64), (2, 40, 2, 8, 16, 1)])
+def test_ssd_vs_plain(dev, dtype, rtol, b, s, h, p, n, chunk):
+    x, dt, A, Bm, C, h0 = _ssd_inputs(dev, 11, b, s, h, p, n,
+                                      getattr(torch, dtype))
+    y, hl = ssd_ops.ssd(x, dt, A, Bm, C, h0=h0, chunk=chunk)
+    ycpu, hcpu = ssd_ops.ssd(*(t.cpu() for t in (x, dt, A, Bm, C)),
+                             h0=h0.cpu(), chunk=chunk)
+    _close(y, ycpu.to(dev), rtol)
+    _close(hl, hcpu.to(dev), rtol)
+
+
+@pytest.mark.parametrize("dtype,rtol", DTYPES)
+@pytest.mark.parametrize("b,s,f,tile", [
+    (1, 300, 4096, (64, 128)), (2, 77, 100, (16, 32)), (1, 1, 4096, (1, 1024)),
+    (3, 50, 33, (7, 64))])
+def test_rglru_vs_plain(dev, dtype, rtol, b, s, f, tile):
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=dev).manual_seed(12)
+    a = torch.rand((b, s, f), generator=g, device=dev).to(dt)
+    x = torch.randn((b, s, f), generator=g, device=dev).to(dt)
+    h0 = torch.randn((b, f), generator=g, device=dev).to(dt)
+    build.reset_launches()
+    y, hl = rg_ops.rglru_scan(a, x, h0, tile=tile)
+    assert build.LAUNCHES["rglru"] == 1
+    yr, hr = rg_ops.rglru_scan_ref(a, x, h0)
+    _close(y, yr, rtol)
+    _close(hl, hr, rtol)
+
+
 def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     a, b = _randn(dev, 6, (8, 16), (16, 8))
     with pytest.raises(TypeError):
@@ -124,6 +207,17 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
         flash_attention(q, k, k)                  # head dim 48
     with pytest.raises(ValueError):
         flash_decode(q[:, :, 0].contiguous(), k.cpu(), k.cpu(), pos=1)
+    (img,) = _randn(dev, 13, (16, 16))
+    with pytest.raises(ValueError):
+        bil_ops.upscale(img, 2, tile=(64, 32))    # 2048 threads
+    with pytest.raises(TypeError):
+        bil_ops.upscale(img.half(), 2)
+    with pytest.raises(ValueError):
+        rg_ops.rglru_scan(img[None], img[None], img[:1].cpu())
+    x, dt, A, Bm, C, h0 = _ssd_inputs(dev, 14, 1, 128, 1, 64, 128,
+                                      torch.float32)
+    with pytest.raises(ValueError):               # 258 KB of shared memory
+        ssd_ops.ssd(x, dt, A, Bm, C, h0=h0, chunk=128)
 
 
 def test_smoke_engine_runs_every_kernel_and_matches_the_plain_path(dev):
@@ -136,7 +230,8 @@ def test_smoke_engine_runs_every_kernel_and_matches_the_plain_path(dev):
         eng.add_request(p, max_new_tokens=5)
     done = eng.run_until_done()
     assert len(done) == 3 and all(len(r.out_tokens) == 5 for r in done)
-    assert all(n > 0 for n in build.LAUNCHES.values()), build.LAUNCHES
+    assert all(build.LAUNCHES[name] > 0 for name in
+               ("matmul", "flash_attention", "flash_decode")), build.LAUNCHES
     with torch.inference_mode():
         lk, sk = api.prefill(params, cfg, {"tokens": prompts[1][None]},
                              max_len=64)

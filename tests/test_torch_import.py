@@ -55,7 +55,12 @@ def test_importing_the_whole_port_loads_no_jax_and_no_repro():
     for name in ("repro_torch.serve.engine", "repro_torch.launch.serve",
                  "repro_torch.models.convert", "repro_torch.kernels.build",
                  "repro_torch.kernels.matmul.ops",
-                 "repro_torch.kernels.flash_attention.ops"):
+                 "repro_torch.kernels.flash_attention.ops",
+                 "repro_torch.kernels.bilinear.ops",
+                 "repro_torch.kernels.ssd.ops", "repro_torch.kernels.rglru.ops",
+                 "repro_torch.core.autotuner", "repro_torch.core.policy",
+                 "repro_torch.core.plans", "repro_torch.launch.measure",
+                 "repro_torch.launch.compile_plans"):
         assert name in mods
 
 
@@ -79,7 +84,11 @@ def test_no_source_file_imports_jax_or_repro(path):
 def test_cuda_sources_are_beside_the_port():
     csrc = PORT / "kernels" / "csrc"
     assert sorted(p.name for p in csrc.glob("*.cu")) == [
-        "flash_attention.cu", "flash_decode.cu", "matmul.cu"]
+        "bilinear.cu", "flash_attention.cu", "flash_decode.cu", "matmul.cu",
+        "rglru.cu", "ssd.cu"]
+    from repro_torch.kernels import build
+    assert sorted(build.SOURCES.values()) == sorted(
+        p.name for p in csrc.glob("*.cu"))
     for p in csrc.glob("*.cu"):
         text = p.read_text()
         assert "Replaces:" in text and 'extern "C"' in text
