@@ -14,11 +14,13 @@ Phases, each of which fails the run if it fails:
    (one ``nvcc`` per source, all at once);
 3. hold each kernel against its plain PyTorch version on the card, in
    float32 and bfloat16, at the shapes its path gives it — the full-width
-   qwen2-1.5b serving path, recurrentgemma-9b's head_dim-256 attention, the
-   paper's 800x800 image at scales 2-10, mamba2-2.7b's SSD and
-   recurrentgemma-9b's RG-LRU — and time kernel, plain version and one
-   PyTorch library call (where one computes the same function) with CUDA
-   events;
+   qwen2-1.5b serving path (the matmul in each of its regimes: decode at
+   M = 1 and 4 slots, prefill at M = 600, the plain path for unaligned
+   rows), recurrentgemma-9b's head_dim-256 attention, the paper's 800x800
+   image at scales 2-10, mamba2-2.7b's SSD and recurrentgemma-9b's RG-LRU —
+   and time kernel, plain version and one PyTorch library call (where one
+   computes the same function) on the device: CUDA events around the replay
+   of a CUDA graph of many calls, so the host's launch cost is left out;
 4. serve full-width qwen2-1.5b (28 layers, random weights from a seed)
    through the port's ``ServeEngine`` and check that every kernel of the
    path was launched;
@@ -92,27 +94,41 @@ def check(cond: bool, msg: str) -> None:
 # ---------------------------------------------------------------------------
 
 def time_ms(fns, iters: int = 32, warmup: int = 3) -> float:
-    """Median per-call time of ``fns``, from CUDA events. Each closure
-    holds its own input copy, and the callers pass ``copies_for`` of them:
-    cycled in order, every copy once per timed run at the least, they
-    overflow the 50 MB L2, so every call reads its inputs from HBM."""
+    """Median per-call device time of ``fns``. The calls are captured into
+    one CUDA graph (a run of ``max(iters, len(fns))`` calls) and CUDA
+    events time five replays of it, so what is timed is the device's work
+    and not the host's launches (a few microseconds each, more than the
+    decode kernels take). Each closure holds its own input copy, and the
+    callers pass ``copies_for`` of them: cycled in order, every copy once
+    per replay at the least, they overflow the 50 MB L2, so every call
+    reads its inputs from HBM."""
     import torch
 
     calls = itertools.count()
-    for _ in range(warmup):
-        fns[next(calls) % len(fns)]()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):                 # warm-up off the capture
+        for _ in range(warmup):
+            fns[next(calls) % len(fns)]()
+    torch.cuda.current_stream().wait_stream(side)
     torch.cuda.synchronize()
     per_rep = max(iters, len(fns))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(per_rep):
+            fns[next(calls) % len(fns)]()
+    graph.replay()
+    torch.cuda.synchronize()
     times = []
     for rep in range(5):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        for _ in range(per_rep):
-            fns[next(calls) % len(fns)]()
+        graph.replay()
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end) / per_rep)
+    del graph
     return statistics.median(times)
 
 
@@ -162,7 +178,7 @@ def kernel_checks(quick: bool):
         flash_attention,
     )
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
-    from repro_torch.kernels.matmul.ops import mm
+    from repro_torch.kernels.matmul.ops import mm, regime
     from repro_torch.kernels.matmul.ref import matmul_ref
 
     dev = torch.device("cuda")
@@ -195,8 +211,10 @@ def kernel_checks(quick: bool):
 
     dtypes = (("float32", torch.float32), ("bfloat16", torch.bfloat16))
 
-    # -- matmul: the SwiGLU GEMMs, decode (M = 1) and prefill (M = prompt).
-    ms = (1, 600) if not quick else (1,)
+    # -- matmul: the SwiGLU GEMMs in each regime: decode at one slot and at
+    # four (skinny), prefill of a 600-token prompt (simt in float32, wgmma
+    # in bf16); then ragged checks, N = 1001 taking the plain path.
+    ms = (1, 4, 600) if not quick else (1, 600)
     for dname, dt in dtypes:
         for m in ms:
             for k, n in ((D_MODEL, D_FF), (D_FF, D_MODEL)):
@@ -219,8 +237,18 @@ def kernel_checks(quick: bool):
                         library_ms=library_ms([lambda x=x, y=y: torch.matmul(x, y)
                                             for x, y in copies]),
                         bound_ms=t_b, bound_by=by,
-                        shape=dict(m=m, k=k, n=n))
+                        shape=dict(m=m, k=k, n=n, regime=regime(m, n, k, dt)))
                 record("matmul", f"m={m} k={k} n={n}", dname, out, ref, timing)
+        if not quick:
+            for m, k, n in ((4, 1000, 1001), (601, 1000, 1001),
+                            (17, 1000, 1536), (601, 8960, 1000)):
+                a = randn((m, k), dt)
+                b = randn((k, n), dt, scale=k ** -0.5)
+                out = mm(a, b)
+                torch.cuda.synchronize()
+                record("matmul", f"m={m} k={k} n={n} "
+                       f"({regime(m, n, k, dt)})", dname, out,
+                       matmul_ref(a, b))
 
     # -- flash_attention: whole-prompt prefill, B = 1, Hq = 16, Hkv = 2.
     lengths = (16, 100, 257, 512, 600) if not quick else (257,)
@@ -647,9 +675,9 @@ def full_width_parity(cfg, params):
 
 
 def _kernel_group(name: str) -> str:
-    for key, group in (("matmul_kernel", "matmul"), ("splitk_reduce", "matmul"),
+    for key, group in (("matmul_", "matmul"),
                        ("flash_attention_kernel", "flash_attention"),
-                       ("flash_decode_kernel", "flash_decode")):
+                       ("flash_decode", "flash_decode")):
         if key in name:
             return group
     if any(key in name.lower() for key in ("gemm", "gemv", "cutlass")):

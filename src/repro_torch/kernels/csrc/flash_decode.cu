@@ -8,29 +8,34 @@
 // one KV head stay resident in VMEM while K/V blocks stream.
 //
 // What bounds it on the H100: it reads every visible cache row once
-// (2 * Hkv * (pos + 1) * D elements) for 4 * D FLOP per (query head, key),
-// about n_rep FLOP per byte — far below the card's balance point, so it is
-// bound by device-memory bytes.
+// (2 * Hkv * keys * D elements) for 4 * D FLOP per (query head, key), about
+// n_rep FLOP per byte — far below the card's balance point, so device-memory
+// bytes bound it. At B = 1 the cache is small (1 MB for qwen2 at position
+// 511) and the time is latency: what matters is how many SMs pull at once.
 //
-// Design: one thread block per (b, kv-head) keeps the n_rep grouped queries
-// in shared memory, so each K/V row is read from device memory once per
-// group rather than once per query head, and loops over bkv-row blocks in
-// place of the sequential Pallas grid axis, carrying the online-softmax
-// statistics in shared memory and the accumulator in registers. Without a
-// kv_pos map (a linear cache, slot i = position i) blocks past `pos`, or
-// wholly left of the window, are never read — the reference's `monotonic`
-// block skip; with a kv_pos map (ring caches, -1 = unwritten) every block is
-// visited and masking is per key. The cache length need not be a multiple
-// of bkv: the last block is masked. Numerics follow the reference: NEG_INF =
-// -2e30, softcap before the mask, the 1e-30 clamp of the denominator.
-//
-// Known limit: with B = 1 and Hkv = 2 (qwen2 serving, one request per slot)
-// the grid is two blocks, so two of the 132 SMs stream the cache and the
-// rest idle. Splitting the KV range across blocks with a log-sum-exp combine
-// of the partials (flash-decoding) is later work.
+// Design (flash-decoding): the grid is (splits, Hkv, B). Each block keeps the
+// n_rep grouped queries of its KV head in shared memory, so each K/V row is
+// read once per group, and streams a contiguous run of bkv-row blocks with
+// the online softmax of the reference (statistics in shared memory, the
+// accumulator in registers). The wrapper derives the split count from the
+// grid (about one wave of 132 blocks over B * Hkv; 1 once B * Hkv fills the
+// card) and the key range: with a linear cache (slot i = position i) only
+// the blocks that hold visible keys, [max(0, pos - window + 1), pos] — the
+// reference's block skip; with a kv_pos map (ring caches, -1 = unwritten)
+// all S slots, masked per key. A block writes its unnormalised accumulator
+// and its (m, l) to a float32 workspace, and a second kernel rescales each
+// split by exp(m_i - M) and sums them in split order (deterministic). A
+// split with no visible key has m = NEG_INF and drops out of that sum; if
+// no split sees a key, every weight is 1 and the result is the reference's
+// average of the masked rows. With one split the block normalises and
+// stores directly. Slots past the cache end (S need not be a multiple of
+// bkv) get a logit of -inf, so they never count. Numerics otherwise follow
+// the reference: NEG_INF = -2e30, softcap before the mask, the 1e-30 clamp
+// of the denominator.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math_constants.h>
 
 #include <cstddef>
 
@@ -73,8 +78,10 @@ template <typename T, int D>
 __global__ void __launch_bounds__(NT)
 flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const int* __restrict__ kv_pos,
-                    T* __restrict__ out, int hq, int hkv, int s, int bkv,
-                    int pos, float scale, int window, float softcap) {
+                    T* __restrict__ out, float* __restrict__ ws_acc,
+                    float* __restrict__ ws_ml, int hq, int hkv, int s, int bkv,
+                    int pos, float scale, int window, float softcap,
+                    int ib_lo, int n_blk) {
   static_assert(NT % D == 0, "head_dim must divide the thread count");
   constexpr int R_STEP = NT / D;  // rows between one thread's groups
   constexpr int MAXG = (REP_MAX + R_STEP - 1) / R_STEP;
@@ -91,7 +98,8 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const int tid = threadIdx.x;
   const int lane = tid % 32, warp = tid / 32;
-  const int g = blockIdx.x, bb = blockIdx.y;
+  const int split = blockIdx.x, splits = gridDim.x;
+  const int g = blockIdx.y, bb = blockIdx.z;
   const T* qb = q + ((size_t)bb * hq + (size_t)g * n_rep) * D;
   const T* kb = k + ((size_t)bb * hkv + g) * (size_t)s * D;
   const T* vb = v + ((size_t)bb * hkv + g) * (size_t)s * D;
@@ -103,11 +111,9 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
     l_s[r] = 0.f;
   }
 
-  int ib_lo = 0, ib_hi = (s + bkv - 1) / bkv;
-  if (kv_pos == nullptr) {
-    ib_hi = min(ib_hi, pos / bkv + 1);
-    if (window > 0) ib_lo = max(0, pos - window + 1) / bkv;
-  }
+  // This split's run of the n_blk key blocks from ib_lo, in equal shares.
+  const int ib_begin = ib_lo + (int)((long long)split * n_blk / splits);
+  const int ib_end = ib_lo + (int)((long long)(split + 1) * n_blk / splits);
 
   const int d = tid % D;
   const int r0t = tid / D;
@@ -115,10 +121,14 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int gi = 0; gi < MAXG; ++gi) acc[gi] = 0.f;
 
-  for (int ib = ib_lo; ib < ib_hi; ++ib) {
+  for (int ib = ib_begin; ib < ib_end; ++ib) {
     const int k0 = ib * bkv;
     const int kn = min(bkv, s - k0);
     __syncthreads();
+    // Scalar loads, so that the stores into the padded K rows stay free of
+    // bank conflicts: 16-byte loads stored element by element measured
+    // slower at B = 128 on the H100.
+#pragma unroll 4
     for (int i = tid; i < bkv * D; i += NT) {
       const int c = i / D, dd = i % D;
       const bool ok = c < kn;
@@ -128,7 +138,8 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     __syncthreads();
 
-    // Logits: each thread takes up to four query rows against one key.
+    // Logits: each thread takes up to four query rows against one key
+    // (splitting the head dim over lanes measured slower on the H100).
     const int n_quads = (n_rep + 3) / 4;
     for (int i = tid; i < n_quads * bkv; i += NT) {
       const int c = i % bkv, r0 = (i / bkv) * 4;
@@ -151,7 +162,9 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
         if (r0 + j < n_rep) {
           float x = sc[j];
           if (softcap > 0.f) x = softcap * tanhf(x / softcap);
-          ps[(r0 + j) * bkv + c] = vis ? x : NEG_INF;
+          // A slot past the cache end is no key at all: -inf, so exp gives
+          // 0 even when every real key is masked.
+          ps[(r0 + j) * bkv + c] = c >= kn ? -CUDART_INF_F : vis ? x : NEG_INF;
         }
       }
     }
@@ -196,28 +209,110 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
   __syncthreads();
 
+  if (ws_acc == nullptr) {
+#pragma unroll
+    for (int gi = 0; gi < MAXG; ++gi) {
+      const int r = r0t + gi * R_STEP;
+      if (r < n_rep)
+        store(&ob[(size_t)r * D + d], acc[gi] / fmaxf(l_s[r], 1e-30f));
+    }
+    return;
+  }
+  // Partials of this split: ws_acc [B, Hkv, splits, n_rep, D] unnormalised,
+  // ws_ml [B, Hkv, splits, n_rep, 2] = (m, l).
+  const size_t part = ((size_t)bb * hkv + g) * splits + split;
 #pragma unroll
   for (int gi = 0; gi < MAXG; ++gi) {
     const int r = r0t + gi * R_STEP;
-    if (r < n_rep) store(&ob[(size_t)r * D + d], acc[gi] / fmaxf(l_s[r], 1e-30f));
+    if (r < n_rep) ws_acc[(part * n_rep + r) * D + d] = acc[gi];
+  }
+  for (int r = tid; r < n_rep; r += NT) {
+    ws_ml[(part * n_rep + r) * 2] = m_s[r];
+    ws_ml[(part * n_rep + r) * 2 + 1] = l_s[r];
   }
 }
+
+// Combine the splits of one (query row, b, kv-head), one thread per head
+// dim element: rescale each partial by exp(m_i - M), sum in split order,
+// divide by max(l, 1e-30), cast. Dynamic shared memory: 2 * splits floats.
+template <typename T>
+__global__ void __launch_bounds__(NT)
+flash_decode_combine(const float* __restrict__ ws_acc,
+                     const float* __restrict__ ws_ml, T* __restrict__ out,
+                     int n_rep, int d, int splits) {
+  extern __shared__ float cs[];
+  float* w = cs;             // [splits] exp(m_i - M)
+  float* wl = cs + splits;   // [splits] exp(m_i - M) * l_i
+  __shared__ float red[NWARPS];
+  __shared__ float den_s;
+  const int r = blockIdx.x, tid = threadIdx.x, nt = blockDim.x;
+  const size_t bg = blockIdx.y;  // b * hkv + g
+  const float* ml = ws_ml + bg * splits * n_rep * 2;
+  float mx = NEG_INF;
+  for (int z = tid; z < splits; z += nt)
+    mx = fmaxf(mx, ml[((size_t)z * n_rep + r) * 2]);
+  mx = warp_max(mx);
+  if (tid % 32 == 0) red[tid / 32] = mx;
+  __syncthreads();
+  mx = red[0];
+  for (int i = 1; i < (nt + 31) / 32; ++i) mx = fmaxf(mx, red[i]);
+  for (int z = tid; z < splits; z += nt) {
+    const float wz = expf(ml[((size_t)z * n_rep + r) * 2] - mx);
+    w[z] = wz;
+    wl[z] = wz * ml[((size_t)z * n_rep + r) * 2 + 1];
+  }
+  __syncthreads();
+  if (tid == 0) {
+    float den = 0.f;
+    for (int z = 0; z < splits; ++z) den += wl[z];
+    den_s = fmaxf(den, 1e-30f);
+  }
+  const float* acc = ws_acc + (bg * splits * n_rep + r) * d;
+  float num = 0.f;
+  if (tid < d) {
+#pragma unroll 16
+    for (int z = 0; z < splits; ++z)
+      num = fmaf(w[z], acc[(size_t)z * n_rep * d + tid], num);
+  }
+  __syncthreads();
+  if (tid < d) store(&out[(bg * n_rep + r) * d + tid], num / den_s);
+}
+
+struct Split {
+  float* ws_acc;
+  float* ws_ml;
+  int ib_lo, n_blk, splits;
+};
 
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, const int* kv_pos,
            void* out, int b, int hq, int hkv, int s, int bkv, int pos,
-           float scale, int window, float softcap, cudaStream_t stream) {
+           float scale, int window, float softcap, Split sp,
+           cudaStream_t stream) {
   const size_t smem = smem_bytes<D>(hq / hkv, bkv);
   if (smem > (size_t)SMEM_LIMIT) return (int)cudaErrorInvalidValue;
   auto kernel = flash_decode_kernel<T, D>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid(hkv, b);
+  static size_t sized = 0;  // the dynamic shared memory already allowed
+  if (smem > sized) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    sized = smem;
+  }
+  const bool split = sp.splits > 1;
+  dim3 grid(sp.splits, hkv, b);
   kernel<<<grid, NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), kv_pos, static_cast<T*>(out), hq, hkv, s, bkv,
-      pos, scale, window, softcap);
+      static_cast<const T*>(v), kv_pos, static_cast<T*>(out),
+      split ? sp.ws_acc : nullptr, split ? sp.ws_ml : nullptr, hq, hkv, s,
+      bkv, pos, scale, window, softcap, sp.ib_lo, sp.n_blk);
+  if (split) {
+    dim3 cgrid(hq / hkv, b * hkv);
+    flash_decode_combine<T><<<cgrid, max(D, 32), 2 * sp.splits * sizeof(float),
+                              stream>>>(sp.ws_acc, sp.ws_ml,
+                                        static_cast<T*>(out), hq / hkv, D,
+                                        sp.splits);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -225,23 +320,23 @@ template <typename T>
 int dispatch_d(int dh, const void* q, const void* k, const void* v,
                const int* kv_pos, void* out, int b, int hq, int hkv, int s,
                int bkv, int pos, float scale, int window, float softcap,
-               cudaStream_t st) {
+               Split sp, cudaStream_t st) {
   switch (dh) {
     case 16:
       return launch<T, 16>(q, k, v, kv_pos, out, b, hq, hkv, s, bkv, pos,
-                           scale, window, softcap, st);
+                           scale, window, softcap, sp, st);
     case 32:
       return launch<T, 32>(q, k, v, kv_pos, out, b, hq, hkv, s, bkv, pos,
-                           scale, window, softcap, st);
+                           scale, window, softcap, sp, st);
     case 64:
       return launch<T, 64>(q, k, v, kv_pos, out, b, hq, hkv, s, bkv, pos,
-                           scale, window, softcap, st);
+                           scale, window, softcap, sp, st);
     case 128:
       return launch<T, 128>(q, k, v, kv_pos, out, b, hq, hkv, s, bkv, pos,
-                            scale, window, softcap, st);
+                            scale, window, softcap, sp, st);
     case 256:
       return launch<T, 256>(q, k, v, kv_pos, out, b, hq, hkv, s, bkv, pos,
-                            scale, window, softcap, st);
+                            scale, window, softcap, sp, st);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -250,27 +345,37 @@ int dispatch_d(int dh, const void* q, const void* k, const void* v,
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. kv_pos: int32 [S] slot -> position map,
-// or null for a linear cache. window <= 0 / softcap <= 0 mean none. Returns
-// cudaGetLastError() after the launch, or cudaErrorInvalidValue for an
-// argument this file does not take.
+// or null for a linear cache. window <= 0 / softcap <= 0 mean none. The
+// blocks visit the n_blk key blocks of bkv rows from block ib_lo, split into
+// `splits` runs; with splits > 1, ws_acc (float32 [B, Hkv, splits, n_rep,
+// D]) and ws_ml ([B, Hkv, splits, n_rep, 2]) hold the partials and a second
+// kernel combines them. Returns cudaGetLastError() after the launches, or
+// cudaErrorInvalidValue for an argument this file does not take.
 extern "C" int repro_flash_decode(const void* q, const void* k, const void* v,
-                                  const void* kv_pos, void* out, int b,
-                                  int hq, int hkv, int s, int dh, int dtype,
-                                  int bkv, int pos, float scale, int window,
-                                  float softcap, void* stream) {
+                                  const void* kv_pos, void* out, void* ws_acc,
+                                  void* ws_ml, int b, int hq, int hkv, int s,
+                                  int dh, int dtype, int bkv, int pos,
+                                  float scale, int window, float softcap,
+                                  int ib_lo, int n_blk, int splits,
+                                  void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (hkv <= 0 || hq % hkv != 0 || hq / hkv > REP_MAX || bkv <= 0 ||
-      pos < 0) {
+      pos < 0 || ib_lo < 0 || n_blk < 0 ||
+      (long long)(ib_lo + n_blk) * bkv >= (long long)s + bkv || splits < 1 ||
+      splits > 65535 ||
+      (splits > 1 && (ws_acc == nullptr || ws_ml == nullptr))) {
     return (int)cudaErrorInvalidValue;
   }
+  const Split sp{static_cast<float*>(ws_acc), static_cast<float*>(ws_ml),
+                 ib_lo, n_blk, splits};
   const int* kp = static_cast<const int*>(kv_pos);
   if (dtype == 0) {
     return dispatch_d<float>(dh, q, k, v, kp, out, b, hq, hkv, s, bkv, pos,
-                             scale, window, softcap, st);
+                             scale, window, softcap, sp, st);
   }
   if (dtype == 1) {
     return dispatch_d<__nv_bfloat16>(dh, q, k, v, kp, out, b, hq, hkv, s, bkv,
-                                     pos, scale, window, softcap, st);
+                                     pos, scale, window, softcap, sp, st);
   }
   return (int)cudaErrorInvalidValue;
 }

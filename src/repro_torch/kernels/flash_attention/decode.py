@@ -6,6 +6,9 @@
     CUDA tensors launch the kernel or raise.
 ``flash_decode_ref`` — the same online softmax in plain PyTorch, looped over
     KV splits of ``bkv`` (GQA grouped contraction, no KV repeat).
+``flash_decode_split_ref`` — the kernel's own arithmetic in plain PyTorch:
+    the key blocks split into runs as :func:`decode_splits` lays them out,
+    one online-softmax partial per run, then the log-sum-exp combine.
 
 Shared semantics: q ``[B, Hq, D]``, caches k/v ``[B, Hkv, S, D]``, ``pos``
 the absolute position of the query (a Python int: the port's caches keep
@@ -18,11 +21,12 @@ Optional logit ``softcap``.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
 from repro_torch.core.hardware import H100_SXM
+from repro_torch.core.tiling import cdiv
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention.flash_attention import HEAD_DIMS
 from repro_torch.kernels.flash_attention.ref import NEG_INF, fit_bkv
@@ -33,11 +37,51 @@ REP_MAX = 32   # grouped query heads per KV head the kernel keeps resident
 def _lib():
     fn = build.load("flash_decode").repro_flash_decode
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
-                       + [ctypes.c_float, ctypes.c_int, ctypes.c_float,
-                          ctypes.c_void_p])
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_float]
+                       + [ctypes.c_int] * 3 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
+
+
+class DecodeSplits(NamedTuple):
+    """Which key blocks of ``bkv`` rows the kernel visits, and in how many
+    runs: blocks ``[ib_lo, ib_lo + n_blk)``, split ``i`` of ``splits``
+    taking ``[ib_lo + i*n_blk // splits, ib_lo + (i+1)*n_blk // splits)``."""
+
+    ib_lo: int
+    n_blk: int
+    splits: int
+
+
+def split_count(groups: int, n_blk: int) -> int:
+    """KV splits for ``groups`` = B * Hkv blocks of work: enough for one
+    wave of blocks over the card's SMs, at least one key block a split, and
+    1 once the groups alone fill the card."""
+    sms = H100_SXM.num_sm
+    if groups >= sms:
+        return 1
+    return max(1, min(n_blk, sms // max(groups, 1)))
+
+
+def decode_splits(b: int, hkv: int, s: int, bkv: int, pos: int,
+                  linear: bool, window: Optional[int] = None,
+                  splits: Optional[int] = None) -> DecodeSplits:
+    """The key blocks a decode visits and their split. A linear cache (slot
+    i = position i) visits only the blocks that hold visible keys,
+    ``[max(0, pos - window + 1), pos]``; with a ``kv_pos`` map every block.
+    ``splits`` overrides the derived count (tests only)."""
+    n_all = cdiv(s, bkv)
+    lo, hi = 0, n_all
+    if linear:
+        hi = min(n_all, pos // bkv + 1)
+        if window:
+            lo = max(0, pos - window + 1) // bkv
+    lo = min(lo, hi)
+    n_blk = hi - lo
+    if splits is None:
+        splits = split_count(b * hkv, n_blk)
+    return DecodeSplits(lo, n_blk, int(splits))
 
 
 def smem_bytes(n_rep: int, bkv: int, d: int) -> int:
@@ -73,7 +117,8 @@ def flash_decode(
 
     ``bkv`` is the KV block one loop step streams (default: the spec's
     Hopper tile; on the CPU, the reference's split, default 512). On the
-    card it is clamped to S and need not divide it.
+    card it is clamped to S and need not divide it, and the key blocks are
+    split over the grid as :func:`decode_splits` lays them out.
     """
     b, hq, d = q.shape
     hkv, s = k.shape[1], k.shape[2]
@@ -103,15 +148,26 @@ def flash_decode(
         bkv = DECODE_SPEC.default_tile(
             dict(b=b, skv=s, d=d, hq=hq, hkv=hkv, window=window or 0),
             str(q.dtype))[0]
-    bkv = launch_bkv(bkv, s, d, hq // hkv)
+    n_rep = hq // hkv
+    bkv = launch_bkv(bkv, s, d, n_rep)
     out = torch.empty_like(q)
     if q.numel() == 0:
         return out
+    sp = decode_splits(b, hkv, s, bkv, pos, kv_pos is None, window)
+    ws_acc = ws_ml = None
+    if sp.splits > 1:
+        ws_acc = torch.empty((b, hkv, sp.splits, n_rep, d),
+                             dtype=torch.float32, device=q.device)
+        ws_ml = torch.empty((b, hkv, sp.splits, n_rep, 2),
+                            dtype=torch.float32, device=q.device)
     rc = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                 kv_pos.data_ptr() if kv_pos is not None else None,
-                out.data_ptr(), b, hq, hkv, s, d, build.dtype_code(q.dtype), bkv, pos,
+                out.data_ptr(),
+                ws_acc.data_ptr() if ws_acc is not None else None,
+                ws_ml.data_ptr() if ws_ml is not None else None,
+                b, hq, hkv, s, d, build.dtype_code(q.dtype), bkv, pos,
                 float(scale), int(window or 0), float(softcap or 0.0),
-                build.stream_ptr(q.device))
+                sp.ib_lo, sp.n_blk, sp.splits, build.stream_ptr(q.device))
     build.check(rc, "flash_decode")
     build.LAUNCHES["flash_decode"] += 1
     return out
@@ -158,5 +214,64 @@ def flash_decode_ref(
     return out.reshape(b, hq, d).to(q.dtype)
 
 
-__all__ = ["NEG_INF", "fit_bkv", "flash_decode", "flash_decode_ref",
-           "launch_bkv", "smem_bytes"]
+def flash_decode_split_ref(
+    q, k, v, *, pos, kv_pos=None, window: Optional[int] = None,
+    softcap: Optional[float] = None, scale: Optional[float] = None,
+    bkv: int = 64, splits: Optional[int] = None,
+):
+    """The split kernel's arithmetic in plain PyTorch: each split runs the
+    online softmax over its key blocks (the last block cut at the cache
+    end) into an unnormalised partial with its (m, l); the partials are
+    rescaled by exp(m_i - M) and summed in split order. ``splits`` defaults
+    to the kernel's :func:`split_count`."""
+    b, hq, d = q.shape
+    hkv, s = k.shape[1], k.shape[2]
+    assert hq % hkv == 0, (hq, hkv)
+    n_rep = hq // hkv
+    scale = scale if scale is not None else d ** -0.5
+    bkv = min(int(bkv), s)
+    sp = decode_splits(b, hkv, s, bkv, pos, kv_pos is None, window, splits)
+    kp_all = (torch.arange(s, dtype=torch.int32, device=q.device)
+              if kv_pos is None else kv_pos.to(q.device))
+    qg = q.reshape(b, hkv, n_rep, d).float() * scale
+    shape = (b, hkv, n_rep)
+    parts = []
+    for i in range(sp.splits):
+        m = torch.full(shape, NEG_INF, dtype=torch.float32, device=q.device)
+        l = torch.zeros(shape, dtype=torch.float32, device=q.device)
+        acc = torch.zeros(shape + (d,), dtype=torch.float32, device=q.device)
+        lo = sp.ib_lo + i * sp.n_blk // sp.splits
+        hi = sp.ib_lo + (i + 1) * sp.n_blk // sp.splits
+        for ib in range(lo, hi):
+            sl = slice(ib * bkv, min(s, (ib + 1) * bkv))
+            x = torch.einsum("bgrd,bgkd->bgrk", qg, k[:, :, sl].float())
+            if softcap is not None:
+                x = softcap * torch.tanh(x / softcap)
+            kp = kp_all[sl]
+            valid = (kp >= 0) & (kp <= pos)
+            if window is not None:
+                valid &= kp > pos - window
+            x = torch.where(valid[None, None, None], x, NEG_INF)
+            m_new = torch.maximum(m, x.amax(dim=-1))
+            alpha = torch.exp(m - m_new)
+            p = torch.exp(x - m_new[..., None])
+            l = l * alpha + p.sum(dim=-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bgrk,bgkd->bgrd", p, v[:, :, sl].float())
+            m = m_new
+        parts.append((m, l, acc))
+    m_all = torch.stack([m for m, _, _ in parts])
+    top = m_all.amax(dim=0)
+    num = torch.zeros((b, hkv, n_rep, d), dtype=torch.float32, device=q.device)
+    den = torch.zeros(shape, dtype=torch.float32, device=q.device)
+    for m, l, acc in parts:
+        w = torch.exp(m - top)
+        den = den + w * l
+        num = num + w[..., None] * acc
+    out = num / torch.clamp(den, min=1e-30)[..., None]
+    return out.reshape(b, hq, d).to(q.dtype)
+
+
+__all__ = ["DecodeSplits", "NEG_INF", "decode_splits", "fit_bkv",
+           "flash_decode", "flash_decode_ref", "flash_decode_split_ref",
+           "launch_bkv", "smem_bytes", "split_count"]

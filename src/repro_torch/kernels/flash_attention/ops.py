@@ -13,9 +13,11 @@ and the plan compiler sweeps.
 ``flash_decode`` (one query over the KV cache):
     problem dims {"b", "skv", "d", "hq", "hkv", "window"(0=none)};
     tile rank 1 = (bkv,), the KV rows one loop step streams. One 256-thread
-    block per (b, kv-head). Shared memory: the grouped queries, the padded
+    block per (split, kv-head, b), the splits derived from the grid
+    (``decode.split_count``). Shared memory: the grouped queries, the padded
     K and the V blocks, the [n_rep, bkv] logits and statistics — 140 KB at
-    bkv = 128, D = 128, n_rep = 8.
+    bkv = 128, D = 128, n_rep = 8. The default bkv is the largest (up to
+    64) whose key blocks give the card a wave of blocks.
 
 A tile the kernel cannot launch (``launch_tile`` / ``launch_bkv`` raise) has
 an infinite working set, so no sweep ranks it. The workloads count what the
@@ -32,6 +34,7 @@ from typing import Mapping
 
 from repro_torch.core import registry
 from repro_torch.core.cost_model import TileWorkload
+from repro_torch.core.hardware import H100_SXM
 from repro_torch.core.tiling import (
     TileConstraints, TileShape, cdiv, dtype_bytes, round_up,
 )
@@ -127,14 +130,19 @@ def _decode_vmem_bytes(tile: TileShape, problem: Mapping[str, int],
     return float(_decode.smem_bytes(n_rep, bkv, d))
 
 
+def _decode_splits(bkv: int, problem: Mapping[str, int]):
+    # Steady state: the query at the last slot of a full linear cache.
+    s = problem["skv"]
+    return _decode.decode_splits(problem["b"], max(problem["hkv"], 1), s,
+                                 bkv, s - 1, True, problem["window"] or None)
+
+
 def _decode_workload(tile: TileShape, problem: Mapping[str, int],
                      dtype: str) -> TileWorkload:
-    # Steady state: the query at the last slot of a full linear cache.
     n_rep, d, s = _group_rows(problem), problem["d"], problem["skv"]
     bkv = _decode.launch_bkv(tile[0], s, d, n_rep)
-    window = problem["window"]
-    lo = max(0, s - window) // bkv if window > 0 else 0
-    keys = (cdiv(s, bkv) - lo) * bkv
+    sp = _decode_splits(bkv, problem)
+    keys = cdiv(sp.n_blk, sp.splits) * bkv    # one block's run of keys
     b = dtype_bytes(dtype)
     return TileWorkload(
         flops=4.0 * d * n_rep * keys,
@@ -146,17 +154,29 @@ def _decode_workload(tile: TileShape, problem: Mapping[str, int],
 
 
 def _decode_n_tiles(tile: TileShape, problem: Mapping[str, int]) -> int:
-    return problem["b"] * max(problem["hkv"], 1)
+    bkv = _decode.launch_bkv(tile[0], problem["skv"], problem["d"],
+                             _group_rows(problem))
+    return (problem["b"] * max(problem["hkv"], 1)
+            * _decode_splits(bkv, problem).splits)
 
 
 def _decode_default_tile(problem: Mapping[str, int], dtype: str) -> TileShape:
-    # The largest of 128, 64, 32 KV rows whose block fits (64 at D = 256
-    # with 16 grouped heads).
-    for bkv in (128, 64, 32):
-        tile = TileShape((min(bkv, problem["skv"]),))
-        if math.isfinite(_decode_vmem_bytes(tile, problem, dtype)):
+    # The largest of 64 ... 8 KV rows whose block fits in shared memory and
+    # whose visible key blocks, one or more a split, make a wave of blocks
+    # over the card; the smallest that fits if none does. (128 rows lost
+    # to 64 by 1.4x at B = 128 on the H100, PERF.md.)
+    groups = problem["b"] * max(problem["hkv"], 1)
+    window = problem["window"]
+    visible = min(problem["skv"], window) if window > 0 else problem["skv"]
+    fits = [TileShape((min(bkv, problem["skv"]),)) for bkv in
+            (64, 32, 16, 8)]
+    fits = [t for t in fits
+            if math.isfinite(_decode_vmem_bytes(t, problem, dtype))]
+    for tile in fits:
+        if groups * cdiv(visible, tile[0]) >= H100_SXM.num_sm \
+                or groups >= H100_SXM.num_sm:
             return tile
-    return tile
+    return fits[-1]
 
 
 DECODE_SPEC = registry.register(registry.KernelSpec(

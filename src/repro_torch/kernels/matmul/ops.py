@@ -1,21 +1,32 @@
-"""Hopper tiled matmul: the wrapper of ``csrc/matmul.cu`` and its KernelSpec.
+"""Hopper matmul: the wrapper of ``csrc/matmul.cu`` and its KernelSpec.
 
 Problem dims ``{"m", "k", "n"}``; tile rank 3 = ``(bm, bk, bn)``, the output
-block one thread block owns and the K step it walks in. The source compiles
-the tiles in :data:`COMPILED_TILES`; a tile larger than the problem is
-masked at the ragged edge, so no tile has to divide the problem. The
-shared-memory working set per block is the float32 A tile (padded by one
-column) plus the float32 B tile — a few KB, far inside the 227 KB a block
-may use, where the TPU's (256, 512, 512) default needs 1.5 MiB of VMEM.
-Every other tile has an infinite working set in the spec, so the plan
-compiler sweeps exactly the compiled tiles; the tile axes reach at least
-the compiled dims even for a one-row decode problem.
+block one thread block owns and the K step it walks in. :func:`regime`
+picks one of the source's four kernels from M, N, K and the dtype alone:
+
+* ``skinny`` (M <= 16, decode): a streamed GEMV, bytes-bound; tile
+  ``(16, 64, 256)`` (16 rows at most, 64 K rows a step, 256 columns a
+  block);
+* ``simt`` (M > 16, float32): full-float32 SIMT tiles ``(128, 16, 128)``
+  and ``(64, 16, 128)`` with a cp.async ring;
+* ``wgmma`` (M > 16, bfloat16): tensor-core tiles ``(128, 64, 128)`` and
+  ``(64, 64, 128)``, fed by TMA;
+* ``plain``: a row of A or B that is no multiple of 16 bytes, which TMA and
+  16-byte loads cannot take; the simt tiles with scalar loads, any M.
+
+Each tile's shared memory is what its kernel allocates (the skinny A rows
+and k-lane sums; two float32 stages of the simt tiles; four bf16 stages of
+the wgmma ring). A tile of another regime than the problem's has an
+infinite working set in the spec, so the plan compiler sweeps exactly the
+problem's compiled tiles; a tile larger than the problem is masked at the
+ragged edge. When the output tiles are too few for the card, K is split
+(:func:`split_k`) and a second kernel sums the float32 partials in order.
 """
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Mapping
+from typing import Mapping, Tuple
 
 import torch
 
@@ -26,66 +37,124 @@ from repro_torch.core.tiling import TileConstraints, TileShape, cdiv, dtype_byte
 from repro_torch.kernels import build
 from repro_torch.kernels.matmul.ref import matmul_ref
 
-# (bm, bk, bn) tiles matmul.cu instantiates: a GEMV tile for decode and a
-# square tile for prefill.
-COMPILED_TILES = ((8, 32, 128), (64, 16, 64))
-THREADS = 256   # threads per block of both compiled tiles
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+SKINNY_M = 16   # the most rows the skinny kernel keeps
+REGIME_TILES = {
+    "skinny": ((16, 64, 256),),
+    "simt": ((128, 16, 128), (64, 16, 128)),
+    "wgmma": ((128, 64, 128), (64, 64, 128)),
+}
+REGIME_TILES["plain"] = REGIME_TILES["simt"]
+_REGIME_CODE = {"skinny": 0, "simt": 1, "wgmma": 2, "plain": 3}
+# Every (bm, bk, bn) tile matmul.cu instantiates.
+COMPILED_TILES = tuple(t for r in ("skinny", "simt", "wgmma")
+                       for t in REGIME_TILES[r])
+WGMMA_STAGES = 4
+SIMT_STAGES = 2
+SKINNY_KC = 512   # A rows the skinny kernel stages at a time (SK_KC)
+
+
+def threads(tile) -> int:
+    """Threads of one block: 256, or 128 a warpgroup of a wgmma tile."""
+    bm, bk, _ = tile
+    return 2 * bm if tuple(tile) in REGIME_TILES["wgmma"] else 256
+
+
+def smem_bytes(tile, dtype) -> int:
+    """Shared memory one block of ``tile`` allocates for ``dtype`` operands."""
+    bm, bk, bn = tile
+    if tuple(tile) in REGIME_TILES["skinny"]:
+        vec = 16 // dtype_bytes(dtype)
+        k_lanes = 256 // (bn // vec)
+        return 4 * (bm * SKINNY_KC + k_lanes * bn)
+    if tuple(tile) in REGIME_TILES["simt"]:
+        return 4 * SIMT_STAGES * bk * ((bm + 4) + bn)   # A padded, float32
+    if tuple(tile) in REGIME_TILES["wgmma"]:
+        return WGMMA_STAGES * (bm * bk + bk * bn) * 2 + 1024 + 16 * WGMMA_STAGES
+    raise ValueError(f"matmul tile {tuple(tile)} is not compiled")
+
+
+def regime(m: int, n: int, k: int, dtype) -> str:
+    """The kernel a problem runs on: from M, N, K and the dtype alone."""
+    esize = dtype_bytes(dtype)
+    if (k * esize) % 16 or (n * esize) % 16:
+        return "plain"
+    if m <= SKINNY_M:
+        return "skinny"
+    return "wgmma" if esize == 2 else "simt"
+
+
+def launch_tile(tile, m: int, n: int, k: int, dtype) -> Tuple[int, int, int]:
+    """``tile`` as ints, or ValueError if the problem's regime has no such
+    compiled tile."""
+    t = tuple(int(x) for x in tile)
+    r = regime(m, n, k, dtype)
+    if t not in REGIME_TILES[r]:
+        raise ValueError(f"matmul tile {t} is not a compiled {r} tile; "
+                         f"{r} tiles: {REGIME_TILES[r]}")
+    return t
+
+
+def split_plan(m: int, n: int, k: int, tile) -> Tuple[int, int]:
+    """``(splits, k_split)``: K runs of ``k_split`` rows (a multiple of bk)
+    over the grid. A skinny grid splits until >= 2 blocks sit on each SM,
+    the others until one wave fills the card; every split keeps at least
+    four K steps."""
+    bm, bk, bn = tile
+    blocks = cdiv(m, bm) * cdiv(n, bn)
+    sms = H100_SXM.num_sm
+    want = cdiv(2 * sms, blocks) if bm <= SKINNY_M else sms // blocks
+    want = max(1, min(want, k // (4 * bk)))
+    k_split = cdiv(cdiv(k, want), bk) * bk
+    return cdiv(k, k_split), k_split
+
+
+def split_k(m: int, n: int, k: int, tile) -> int:
+    """K splits the kernel runs for this problem and tile."""
+    return split_plan(m, n, k, tile)[0]
 
 
 def _lib():
     lib = build.load("matmul")
     fn = lib.repro_matmul
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 10
+                       + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
-
-
-def split_k(m: int, n: int, k: int, tile) -> int:
-    """K splits that bring a too-small output grid up to ~2 blocks per SM."""
-    bm, bk, bn = tile
-    blocks = cdiv(m, bm) * cdiv(n, bn)
-    if blocks >= H100_SXM.num_sm:
-        return 1
-    return max(1, min(cdiv(2 * H100_SXM.num_sm, blocks), k // (4 * bk)))
 
 
 def mm(a: torch.Tensor, b: torch.Tensor, tile=None) -> torch.Tensor:
     """``a`` [M, K] @ ``b`` [K, N] -> [M, N] in ``a``'s dtype.
 
-    CPU tensors take :func:`matmul_ref`. CUDA tensors launch the kernel with
-    ``tile`` (default: the spec's Hopper tile for this problem) or raise.
+    CPU tensors take :func:`matmul_ref`. CUDA tensors launch the kernel of
+    their :func:`regime` with ``tile`` (default: the spec's Hopper tile for
+    this problem) or raise.
     """
     if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
         raise ValueError(f"bad matmul shapes {tuple(a.shape)} @ {tuple(b.shape)}")
     if a.device.type == "cpu" and b.device.type == "cpu":
         return matmul_ref(a, b)
-    if a.device.type != "cuda" or b.device != a.device:
-        raise ValueError(f"matmul needs both operands on one CUDA device, got "
-                         f"{a.device} and {b.device}")
-    if a.dtype not in _DTYPES or b.dtype != a.dtype:
-        raise TypeError(f"matmul takes float32 or bfloat16 operands of one "
-                        f"dtype, got {a.dtype} and {b.dtype}")
-    if not (a.is_contiguous() and b.is_contiguous()):
-        raise ValueError("matmul needs contiguous operands")
+    build.check_cuda_operands("matmul", a, b)
     m, k = a.shape
     n = b.shape[1]
-    t = tuple(int(x) for x in (tile if tile is not None else _default_tile(
-        dict(m=m, k=k, n=n), str(a.dtype))))
-    if t not in COMPILED_TILES:
-        raise ValueError(f"matmul tile {t} is not compiled; "
-                         f"compiled tiles: {COMPILED_TILES}")
+    t = launch_tile(tile if tile is not None else _default_tile(
+        dict(m=m, k=k, n=n), str(a.dtype)), m, n, k, a.dtype)
+    reg = regime(m, n, k, a.dtype)
     out = torch.empty((m, n), dtype=a.dtype, device=a.device)
     if m == 0 or n == 0:
         return out
-    splits = split_k(m, n, k, t)
+    if k == 0:
+        return out.zero_()
+    if reg != "plain" and (a.data_ptr() % 16 or b.data_ptr() % 16):
+        raise ValueError(f"matmul's {reg} kernel needs 16-byte aligned "
+                         "operands")
+    splits, k_split = split_plan(m, n, k, t)
     ws = (torch.empty((splits, m, n), dtype=torch.float32, device=a.device)
           if splits > 1 else None)
     rc = _lib()(a.data_ptr(), b.data_ptr(), out.data_ptr(),
                 ws.data_ptr() if ws is not None else None,
-                m, n, k, _DTYPES[a.dtype], *t, splits,
-                build.stream_ptr(a.device))
+                m, n, k, build.dtype_code(a.dtype), _REGIME_CODE[reg], *t,
+                k_split, splits, build.stream_ptr(a.device))
     build.check(rc, "matmul")
     build.LAUNCHES["matmul"] += 1
     return out
@@ -102,16 +171,17 @@ def _constraints(problem: Mapping[str, int]) -> TileConstraints:
 
 
 def _vmem_bytes(tile: TileShape, problem: Mapping[str, int], dtype: str) -> float:
-    if tuple(tile) not in COMPILED_TILES:
+    try:
+        t = launch_tile(tile, problem["m"], problem["n"], problem["k"], dtype)
+    except ValueError:
         return math.inf
-    bm, bk, bn = tile
-    return 4.0 * (bk * (bm + 1) + bk * bn)  # float32 A (padded) + B tiles
+    return float(smem_bytes(t, dtype))
 
 
 def _workload(tile: TileShape, problem: Mapping[str, int], dtype: str) -> TileWorkload:
     bm, bk, bn = tile
     m, k, n = problem["m"], problem["k"], problem["n"]
-    splits = split_k(m, n, k, tile)
+    splits, k_split = split_plan(m, n, k, tile)
     b = dtype_bytes(dtype)
     k_block = k / splits
     return TileWorkload(
@@ -119,7 +189,7 @@ def _workload(tile: TileShape, problem: Mapping[str, int], dtype: str) -> TileWo
         hbm_bytes=(bm + bn) * k_block * b + bm * bn * (4 if splits > 1 else b),
         row_segments=bm,
         row_stride_bytes=float(k * b),
-        threads=THREADS,
+        threads=threads(tile),
     )
 
 
@@ -130,10 +200,11 @@ def _n_tiles(tile: TileShape, problem: Mapping[str, int]) -> int:
 
 
 def _default_tile(problem: Mapping[str, int], dtype: str) -> TileShape:
-    # Decode rows (a handful of tokens) take the GEMV tile: bytes bound it,
-    # so the masked rows of an 8-row block cost nothing. Longer row counts
-    # take the square tile.
-    return TileShape(COMPILED_TILES[0] if problem["m"] <= 16 else COMPILED_TILES[1])
+    """The regime's first tile: 128 rows a simt or wgmma block, split over
+    K where the grid is short of the card. On the H100 it won every
+    65536-row cell of the plan compile in both dtypes (PERF.md)."""
+    m, k, n = problem["m"], problem["k"], problem["n"]
+    return TileShape(REGIME_TILES[regime(m, n, k, dtype)][0])
 
 
 SPEC = registry.register(registry.KernelSpec(
@@ -150,5 +221,6 @@ def default_tile(m: int, k: int, n: int, dtype=torch.float32) -> TileShape:
     return SPEC.default_tile(dict(m=m, k=k, n=n), str(dtype))
 
 
-__all__ = ["COMPILED_TILES", "SPEC", "default_tile", "matmul_ref", "mm",
-           "split_k"]
+__all__ = ["COMPILED_TILES", "REGIME_TILES", "SKINNY_M", "SPEC",
+           "default_tile", "launch_tile", "matmul_ref", "mm", "regime",
+           "smem_bytes", "split_k", "split_plan", "threads"]

@@ -3,7 +3,8 @@
 The paper timed every tile candidate on each GPU. ``make_measure_fn``
 returns a ``MeasureFn`` (tile -> seconds per call) that runs one kernel's
 wrapper on the card, timed with CUDA events after a warm-up; the autotuner prefers these times over the cost
-model's (``SweepEntry.measured_s`` outranks ``cost.total_s``). Each builder
+model's (``SweepEntry.measured_s`` outranks ``cost.total_s``); the calls
+are replayed from a CUDA graph, so the time is the device's. Each builder
 below makes the operands of one kernel's tuning problem on the card, from a
 seeded CUDA generator (a decode cell's cache is gigabytes, too much to draw
 on the host), and returns a call that launches the kernel with a given
@@ -125,16 +126,25 @@ BUILDERS = {
 
 
 def time_call(call, warmup: int = 2, iters: int = 5) -> float:
-    """Seconds per call of ``call()`` on the card: CUDA events around
-    ``iters`` calls after ``warmup`` calls, with a synchronise."""
-    for _ in range(warmup):
-        call()
+    """Seconds per call of ``call()`` on the card: ``iters`` calls captured
+    into a CUDA graph after ``warmup`` calls, one replay timed with CUDA
+    events. The replay leaves out the host's launch cost, which is larger
+    than a decode-sized kernel's whole time."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(warmup):
+            call()
+    torch.cuda.current_stream().wait_stream(side)
     torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(iters):
+            call()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(iters):
-        call()
+    graph.replay()
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / 1e3 / iters

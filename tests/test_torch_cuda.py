@@ -8,7 +8,8 @@ without JAX, with the repository's JAX-loading ``conftest.py`` left out:
 
 Tolerances, max |kernel - plain| relative to max |plain| (at least 1):
 float32 2e-5 (summation order only), bfloat16 1e-2 (plus one rounding of
-the output, at most 2^-8 relative). TF32 is off.
+the output to bf16, at most 2^-8 relative: the kernel and the plain version
+both sum in float32 and round once). TF32 is off.
 """
 import numpy as np
 import pytest
@@ -67,10 +68,36 @@ def test_matmul_vs_plain(dev, dtype, rtol, m, k, n):
     _close(mm_ops.mm(a, b), matmul_ref(a, b), rtol)
 
 
-@pytest.mark.parametrize("tile", mm_ops.COMPILED_TILES)
-def test_matmul_every_compiled_tile(dev, tile):
-    a, b = _randn(dev, 1, (70, 300), (300, 130))
-    _close(mm_ops.mm(a, b, tile=tile), matmul_ref(a, b), 2e-5)
+@pytest.mark.parametrize("dtype,rtol", DTYPES)
+@pytest.mark.parametrize("m", [1, 4, 16, 17, 600, 601])
+@pytest.mark.parametrize("n", [1536, 8960, 1000, 1001])
+@pytest.mark.parametrize("k", [1536, 8960, 1000])
+def test_matmul_regimes_vs_plain(dev, dtype, rtol, m, n, k):
+    # skinny (M <= 16), simt (float32) or wgmma (bf16) above it; N = 1001
+    # in bf16 (2002-byte rows) and in float32 takes the plain path.
+    dt = getattr(torch, dtype)
+    a, b = _randn(dev, 20, (m, k), (k, n), dtype=dt)
+    build.reset_launches()
+    out = mm_ops.mm(a, b)
+    assert build.LAUNCHES["matmul"] == 1
+    _close(out, matmul_ref(a, b), rtol)
+
+
+# Every compiled tile on a problem of its regime (K split or not).
+_TILE_CASES = [(t, "float32", (5, 300, 136)) for t in mm_ops.REGIME_TILES["skinny"]]
+_TILE_CASES += [(t, "bfloat16", (16, 4096, 264)) for t in mm_ops.REGIME_TILES["skinny"]]
+_TILE_CASES += [(t, "float32", (70, 300, 132)) for t in mm_ops.REGIME_TILES["simt"]]
+_TILE_CASES += [(t, "bfloat16", (70, 300, 131)) for t in mm_ops.REGIME_TILES["plain"]]
+_TILE_CASES += [(t, "bfloat16", (70, 320, 136)) for t in mm_ops.REGIME_TILES["wgmma"]]
+_TILE_CASES += [(t, "bfloat16", (300, 4096, 256)) for t in mm_ops.REGIME_TILES["wgmma"]]
+
+
+@pytest.mark.parametrize("tile,dtype,mkn", _TILE_CASES)
+def test_matmul_every_compiled_tile(dev, tile, dtype, mkn):
+    m, k, n = mkn
+    a, b = _randn(dev, 1, (m, k), (k, n), dtype=getattr(torch, dtype))
+    _close(mm_ops.mm(a, b, tile=tile), matmul_ref(a, b),
+           dict(DTYPES)[dtype])
 
 
 @pytest.mark.parametrize("dtype,rtol", DTYPES)
@@ -112,6 +139,40 @@ def test_flash_decode_kv_pos_and_blocks(dev, bkv):
            flash_decode_ref(q, k, v, pos=900, kv_pos=kv_pos), 2e-5)
     _close(flash_decode(q, k, v, pos=433, window=57, bkv=bkv),
            flash_decode_ref(q, k, v, pos=433, window=57), 2e-5)
+
+
+@pytest.mark.parametrize("dtype,rtol", DTYPES)
+@pytest.mark.parametrize("b", [1, 128])
+@pytest.mark.parametrize("hkv,d", [(2, 128), (1, 256)])
+@pytest.mark.parametrize("cache", ["linear", "window", "ring"])
+def test_flash_decode_split_kv(dev, dtype, rtol, b, hkv, d, cache):
+    # One split per ~132 // (B * Hkv) blocks at B = 1, one at B = 128; the
+    # ring cache (kv_pos, -1 slots) visits every block.
+    s, hq = 1024, 16
+    dt = getattr(torch, dtype)
+    q, k, v = _randn(dev, 21, (b, hq, d), (b, hkv, s, d), (b, hkv, s, d),
+                     dtype=dt)
+    kw = dict(pos=700)
+    if cache == "window":
+        kw["window"] = 300
+    if cache == "ring":
+        pos = 1500
+        ring = torch.full((s,), -1, dtype=torch.int32)
+        written = torch.arange(pos - s + 1 + 100, pos + 1, dtype=torch.int32)
+        ring[(written % s).long()] = written
+        kw = dict(pos=pos, kv_pos=ring.to(dev), window=600)
+    build.reset_launches()
+    out = flash_decode(q, k, v, **kw)
+    assert build.LAUNCHES["flash_decode"] == 1
+    _close(out, flash_decode_ref(q, k, v, **kw), rtol)
+
+
+def test_flash_decode_all_masked_averages_the_cache(dev):
+    q, k, v = _randn(dev, 22, (1, 8, 64), (1, 2, 300, 64), (1, 2, 300, 64))
+    kv_pos = torch.full((300,), -1, dtype=torch.int32, device=dev)
+    out = flash_decode(q, k, v, pos=10, kv_pos=kv_pos, bkv=16)
+    _close(out, flash_decode_ref(q, k, v, pos=10, kv_pos=kv_pos), 2e-5)
+    _close(out, v.mean(dim=2).repeat_interleave(4, dim=1), 2e-5)
 
 
 @pytest.mark.parametrize("dtype,rtol", DTYPES)
@@ -202,6 +263,8 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
         mm_ops.mm(a, b.t().contiguous().t())      # not contiguous
     with pytest.raises(ValueError):
         mm_ops.mm(a, b, tile=(16, 16, 16))        # not a compiled tile
+    with pytest.raises(ValueError):
+        mm_ops.mm(a, b, tile=(128, 64, 128))      # a wgmma tile, float32
     q, k = _randn(dev, 7, (1, 4, 8, 48), (1, 2, 8, 48))
     with pytest.raises(ValueError):
         flash_attention(q, k, k)                  # head dim 48

@@ -245,9 +245,15 @@ def test_attention_at_head_dim_256_has_launchable_tiles():
     for bad in ((128, 32), (64, 128)):
         with pytest.raises(ValueError):
             fa.launch_tile(bad, 4096, 4096, 256)
-    prob = dict(b=1, skv=2048, d=256, hq=16, hkv=1, window=2048)
+    # The default bkv: the largest that fits (64 at D = 256) once B * Hkv
+    # fills the card; at B = 1 the smallest, whose 256 key blocks in the
+    # window give the split decode a wave of blocks.
+    prob = dict(b=128, skv=2048, d=256, hq=16, hkv=1, window=2048)
     bkv = registry.get("flash_decode").default_tile(prob, "float32")[0]
     assert fa_decode.launch_bkv(bkv, 2048, 256, 16) == 64
+    prob = dict(prob, b=1)
+    bkv = registry.get("flash_decode").default_tile(prob, "float32")[0]
+    assert fa_decode.launch_bkv(bkv, 2048, 256, 16) == 8
     with pytest.raises(ValueError):
         fa_decode.launch_bkv(128, 2048, 256, 16)
 
