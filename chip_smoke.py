@@ -16,11 +16,14 @@ Phases, each of which fails the run if it fails:
    float32 and bfloat16, at the shapes its path gives it — the full-width
    qwen2-1.5b serving path (the matmul in each of its regimes: decode at
    M = 1 and 4 slots, prefill at M = 600, the plain path for unaligned
-   rows), recurrentgemma-9b's head_dim-256 attention, the paper's 800x800
-   image at scales 2-10, mamba2-2.7b's SSD and recurrentgemma-9b's RG-LRU —
-   and time kernel, plain version and one PyTorch library call (where one
-   computes the same function) on the device: CUDA events around the replay
-   of a CUDA graph of many calls, so the host's launch cost is left out;
+   rows; flash_attention in its float32 mma and bf16 wgmma regimes at
+   every head dim, and every tile of each regime timed at qwen2's prefill
+   widths, S = 600 and 4096), recurrentgemma-9b's head_dim-256 attention,
+   the paper's 800x800 image at scales 2-10, mamba2-2.7b's SSD and
+   recurrentgemma-9b's RG-LRU — and time kernel, plain version and one
+   PyTorch library call (where one computes the same function; for SDPA
+   also the kernels it ran) on the device: CUDA events around the replay of
+   a CUDA graph of many calls, so the host's launch cost is left out;
 4. serve full-width qwen2-1.5b (28 layers, random weights from a seed)
    through the port's ``ServeEngine`` and check that every kernel of the
    path was launched;
@@ -64,6 +67,9 @@ SRC = ROOT / "src"
 # Peak rates of one H100 SXM (NVIDIA's data sheet, dense, 700 W).
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12,      # float32 outside the tensor cores
+              # float32 as 3xTF32 on the tensor cores: three TF32 products
+              # (495 TFLOP/s) for each float32 one
+              "float32_3xtf32": 495e12 / 3,
               "bfloat16": 989e12}    # bf16 tensor cores
 # Full-width serving geometry (qwen2-1.5b): padded heads, head dim, cache.
 HQ, HKV, HEAD_DIM, MAX_LEN = 16, 2, 128, 1024
@@ -148,9 +154,11 @@ def library_ms(fns):
         return None
 
 
-def bound(nbytes: float, flops: float, dtype: str):
+def bound(nbytes: float, flops: float, rate: str):
+    """The least time (ms) for the bytes and the operations; ``rate`` names
+    the peak the kernel's arithmetic runs at (a key of PEAK_FLOPS)."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    t_ops = flops / PEAK_FLOPS[rate] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -175,7 +183,7 @@ def kernel_checks(quick: bool):
         flash_decode, flash_decode_ref,
     )
     from repro_torch.kernels.flash_attention.flash_attention import (
-        flash_attention,
+        flash_attention, regime as fa_regime,
     )
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
     from repro_torch.kernels.matmul.ops import mm, regime
@@ -250,7 +258,8 @@ def kernel_checks(quick: bool):
                        f"({regime(m, n, k, dt)})", dname, out,
                        matmul_ref(a, b))
 
-    # -- flash_attention: whole-prompt prefill, B = 1, Hq = 16, Hkv = 2.
+    # -- flash_attention: whole-prompt prefill, B = 1, Hq = 16, Hkv = 2, in
+    # the dtype's regime (mma in float32, wgmma in bf16).
     lengths = (16, 100, 257, 512, 600) if not quick else (257,)
     for dname, dt in dtypes:
         for s in lengths:
@@ -264,20 +273,26 @@ def kernel_checks(quick: bool):
             if not quick and s == 512:
                 nb = (2 * q.numel() + 2 * k.numel()) * q.element_size()
                 pairs = s * (s + 1) // 2
-                t_b, by = bound(nb, 4.0 * HEAD_DIM * HQ * pairs, dname)
+                t_b, by = bound(nb, 4.0 * HEAD_DIM * HQ * pairs,
+                                FA_RATE[dname])
                 copies = [(randn(q.shape, dt), randn(k.shape, dt),
                            randn(v.shape, dt)) for _ in range(copies_for(nb))]
+
+                def sdpa(x, y, z):
+                    return F.scaled_dot_product_attention(
+                        x, y, z, is_causal=True, enable_gqa=True)
+
                 timing = dict(
                     ms=time_ms([lambda x=x, y=y, z=z: flash_attention(
                         x, y, z, causal=True) for x, y, z in copies]),
                     plain_ms=time_ms([lambda x=x, y=y, z=z: flash_attention_ref(
                         x, y, z, causal=True) for x, y, z in copies]),
-                    library_ms=library_ms([
-                        lambda x=x, y=y, z=z: F.scaled_dot_product_attention(
-                            x, y, z, is_causal=True, enable_gqa=True)
-                        for x, y, z in copies]),
+                    library_ms=library_ms([lambda x=x, y=y, z=z: sdpa(x, y, z)
+                                           for x, y, z in copies]),
+                    library_kernels=device_kernels(lambda: sdpa(q, k, v)),
                     bound_ms=t_b, bound_by=by,
-                    shape=dict(b=1, hq=HQ, hkv=HKV, sq=s, skv=s, d=HEAD_DIM))
+                    shape=dict(b=1, hq=HQ, hkv=HKV, sq=s, skv=s, d=HEAD_DIM,
+                               regime=fa_regime(dt, HEAD_DIM)))
             record("flash_attention", f"sq=skv={s} causal", dname, out, ref,
                    timing)
         if not quick:
@@ -294,6 +309,17 @@ def kernel_checks(quick: bool):
                 torch.cuda.synchronize()
                 ref = flash_attention_ref(qq, k, v, causal=True, **kw)
                 record("flash_attention", case, dname, out, ref)
+        # Every head dim below qwen2's, at its 16 / 2 heads.
+        for d in (16, 32, 64):
+            s = 257 if quick else 600
+            q = randn((1, HQ, s, d), dt)
+            k, v = randn((1, HKV, s, d), dt), randn((1, HKV, s, d), dt)
+            out = flash_attention(q, k, v, causal=True)
+            torch.cuda.synchronize()
+            record("flash_attention", f"D={d} sq=skv={s} causal", dname, out,
+                   flash_attention_ref(q, k, v, causal=True))
+    if not quick:
+        rows.extend(flash_tile_sweep(randn, dtypes))
 
     # -- flash_decode: one query over the linear cache of max_len slots.
     s = MAX_LEN
@@ -362,6 +388,72 @@ def kernel_checks(quick: bool):
     return rows
 
 
+# The rate flash_attention's regime runs at: 3xTF32 on the tensor cores in
+# float32 (mma), bf16 wgmma.
+FA_RATE = {"float32": "float32_3xtf32", "bfloat16": "bfloat16"}
+
+
+def device_kernels(fn):
+    """The names of the CUDA kernels one call of ``fn`` runs (from
+    ``torch.profiler``): which backend a library call took."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sorted({ev.name for ev in prof.events()
+                   if ev.device_type == DeviceType.CUDA})
+
+
+def flash_tile_sweep(randn, dtypes):
+    """Every tile of the dtype's flash_attention regime at qwen2-1.5b's
+    prefill widths (Hq 16, Hkv 2, D 128, causal; S = 600 and 4096), each
+    checked against the plain version and timed: where the spec's default
+    tiles come from. Returns one row per (dtype, S, tile)."""
+    import torch
+
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention, regime_tiles,
+    )
+    from repro_torch.kernels.flash_attention.ops import FLASH_SPEC
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    out = []
+    for dname, dt in dtypes:
+        for s in (600, 4096):
+            q = randn((1, HQ, s, HEAD_DIM), dt)
+            k, v = randn((1, HKV, s, HEAD_DIM), dt), randn((1, HKV, s, HEAD_DIM), dt)
+            ref = flash_attention_ref(q, k, v, causal=True)
+            nb = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+            copies = [(randn(q.shape, dt), randn(k.shape, dt),
+                       randn(v.shape, dt)) for _ in range(copies_for(nb))]
+            default = tuple(FLASH_SPEC.default_tile(
+                dict(sq=s, skv=s, d=HEAD_DIM, hq=HQ, hkv=HKV, window=0),
+                dname))
+            for tile in regime_tiles(dt, HEAD_DIM):
+                res = flash_attention(q, k, v, causal=True, tile=tile)
+                torch.cuda.synchronize()
+                err = max_err(res, ref)
+                ms = time_ms([lambda x=x, y=y, z=z: flash_attention(
+                    x, y, z, causal=True, tile=tile) for x, y, z in copies])
+                row = dict(kernel="flash_attention",
+                           case=f"tile {tile[0]}x{tile[1]} sq=skv={s}",
+                           dtype=dname, max_abs_err=err,
+                           ref_max=float(ref.float().abs().max()),
+                           rel_tol=REL_TOL[dname], ok=within(err, ref, dname),
+                           tile_ms=ms, default=tile == default)
+                out.append(row)
+                log(f"  flash_attention  tile {tile[0]:3d}x{tile[1]:<3d} "
+                    f"sq=skv={s:<5d} {dname:8s} err {err:.3e} "
+                    f"{'ok' if row['ok'] else 'FAIL'} | {ms:.4f} ms"
+                    f"{' (default)' if row['default'] else ''}")
+    return out
+
+
 def head_dim_256_checks(record, randn, dtypes, quick: bool):
     """flash_attention and flash_decode at recurrentgemma-9b's local
     attention: Hq 16, Hkv 1, head_dim 256, window 2048."""
@@ -372,7 +464,7 @@ def head_dim_256_checks(record, randn, dtypes, quick: bool):
         flash_decode, flash_decode_ref,
     )
     from repro_torch.kernels.flash_attention.flash_attention import (
-        flash_attention,
+        flash_attention, regime as fa_regime,
     )
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
@@ -388,7 +480,7 @@ def head_dim_256_checks(record, randn, dtypes, quick: bool):
         if not quick:
             nb = (2 * q.numel() + 2 * k.numel()) * q.element_size()
             pairs = sum(min(i + 1, win) for i in range(s))
-            t_b, by = bound(nb, 4.0 * d * hq * pairs, dname)
+            t_b, by = bound(nb, 4.0 * d * hq * pairs, FA_RATE[dname])
             pos = torch.arange(s, device="cuda")
             mask = ((pos[None, :] <= pos[:, None])
                     & (pos[None, :] > pos[:, None] - win))
@@ -404,8 +496,11 @@ def head_dim_256_checks(record, randn, dtypes, quick: bool):
                     lambda x=x, y=y, z=z: F.scaled_dot_product_attention(
                         x, y, z, attn_mask=mask, enable_gqa=True)
                     for x, y, z in copies]),
+                library_kernels=device_kernels(lambda: F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=mask, enable_gqa=True)),
                 bound_ms=t_b, bound_by=by,
-                shape=dict(b=1, hq=hq, hkv=hkv, sq=s, skv=s, d=d, window=win))
+                shape=dict(b=1, hq=hq, hkv=hkv, sq=s, skv=s, d=d, window=win,
+                           regime=fa_regime(dt, d)))
         record("flash_attention", f"D=256 sq=skv={s} window={win}", dname,
                out, ref, timing)
         qd = randn((1, hq, d), dt)

@@ -59,7 +59,9 @@ def nvcc() -> str:
 
 
 def lib_path(name: str) -> Path:
-    src = (CSRC / SOURCES[name]).read_bytes()
+    # The shared headers (csrc/*.cuh) count as part of every source.
+    src = (CSRC / SOURCES[name]).read_bytes() + b"".join(
+        p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     h = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return build_dir() / f"lib{name}-{h}.so"
 

@@ -50,7 +50,11 @@
 #include <cstddef>
 #include <cstdint>
 
+#include "hopper.cuh"
+
 namespace {
+
+using namespace hopper;
 
 typedef __nv_bfloat16 bf16;
 
@@ -194,19 +198,6 @@ matmul_skinny(const T* __restrict__ a, const T* __restrict__ b,
 // simt: float32 tiles on the SIMT units (VEC), or scalar loads (plain)
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           int src_bytes) {
-  const uint32_t s = (uint32_t)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
 template <typename T, int BM, int BK, int BN, bool VEC>
 __global__ void __launch_bounds__(NT)
 matmul_simt(const T* __restrict__ a, const T* __restrict__ b,
@@ -304,7 +295,7 @@ matmul_simt(const T* __restrict__ a, const T* __restrict__ b,
     store_a(0);
     store_b(0);
     cp_async_commit();
-    cp_async_wait_all();
+    cp_async_wait<0>();
     __syncthreads();
   }
   for (int kt = 0; kt < nk; ++kt) {
@@ -339,7 +330,7 @@ matmul_simt(const T* __restrict__ a, const T* __restrict__ b,
       store_a(cur ^ 1);
       store_b(cur ^ 1);
     }
-    cp_async_wait_all();
+    cp_async_wait<0>();
     __syncthreads();
   }
 
@@ -382,71 +373,6 @@ matmul_simt(const T* __restrict__ a, const T* __restrict__ b,
 constexpr int WG_BK = 64;       // one 128-byte swizzle row of bf16
 constexpr int WG_BN = 128;
 constexpr int WG_STAGES = 4;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(count)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile(
-      "{\n .reg .b64 st;\n"
-      " mbarrier.arrive.expect_tx.shared::cta.b64 st, [%0], %1;\n}\n" ::"r"(
-          smem_u32(bar)),
-      "r"(bytes)
-      : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile(
-      "{\n .reg .b64 st;\n mbarrier.arrive.shared::cta.b64 st, [%0];\n}\n" ::"r"(
-          smem_u32(bar))
-      : "memory");
-}
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_u32(bar);
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
-                                            int c0, int c1, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::"
-      "bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
-      "r"(smem_u32(bar))
-      : "memory");
-}
-
-// A shared-memory matrix descriptor with 128-byte swizzle: start address,
-// leading and stride byte offsets, all in 16-byte units.
-__device__ __forceinline__ uint64_t sw128_desc(const void* p, uint32_t lbo,
-                                               uint32_t sbo) {
-  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) |
-         ((uint64_t)(lbo >> 4) << 16) | ((uint64_t)(sbo >> 4) << 32) |
-         (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
 
 // d[64] += A (64x16, K-major) @ B (16x128, MN-major), bf16 in, f32 sum.
 __device__ __forceinline__ void wgmma_m64n128k16(float* d, uint64_t da,
@@ -508,7 +434,7 @@ matmul_wgmma(const __grid_constant__ CUtensorMap tma_a,
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], WG);
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_fence_init();
   }
   __syncthreads();
 
@@ -583,47 +509,13 @@ matmul_wgmma(const __grid_constant__ CUtensorMap tma_a,
   }
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver, without linking libcuda.
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                     cudaEnableDefault, &q);
-#else
-    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                            &q);
-#endif
-    if (q == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
 // A 2-D bf16 row-major [outer, inner] tensor, boxes of [box_outer, 64].
 int tensor_map(CUtensorMap* map, const void* ptr, int inner, int outer,
                int box_outer) {
-  EncodeTiled enc = encode_tiled();
-  if (enc == nullptr) return (int)cudaErrorNotSupported;
   const cuuint64_t dims[2] = {(cuuint64_t)inner, (cuuint64_t)outer};
   const cuuint64_t strides[1] = {(cuuint64_t)inner * 2};
   const cuuint32_t box[2] = {64, (cuuint32_t)box_outer};
-  const cuuint32_t one[2] = {1, 1};
-  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-                         const_cast<void*>(ptr), dims, strides, box, one,
-                         CU_TENSOR_MAP_INTERLEAVE_NONE,
-                         CU_TENSOR_MAP_SWIZZLE_128B,
-                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+  return bf16_tensor_map(map, ptr, 2, dims, strides, box);
 }
 
 // ---------------------------------------------------------------------------

@@ -3,23 +3,30 @@
 Replaces the Pallas TPU kernel ``repro/kernels/flash_attention/
 flash_attention.py:flash_attention``. CPU tensors take
 :func:`~repro_torch.kernels.flash_attention.ref.flash_attention_ref`; CUDA
-tensors launch the kernel or raise.
+tensors launch the kernel of their :func:`regime` or raise.
+
+The dtype picks the regime: ``wgmma`` (bfloat16: TMA, a producer warpgroup
+and one or two wgmma consumer warpgroups) or ``mma`` (float32: 3xTF32
+mma.sync, one warp per 16 query rows). Each compiles the (head dim, bkv)
+pairs ``REPRO_FA_TILES`` in the source lists, the one place the rule lives;
+bq is 64 or 128 wherever the tile's shared memory fits a block.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
 import re
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.core.hardware import H100_SXM
-from repro_torch.core.tiling import round_up
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention.ref import NEG_INF, flash_attention_ref
 
-HEAD_DIMS = (16, 32, 64, 128, 256)   # head dims the .cu files instantiate
+HEAD_DIMS = (16, 32, 64, 128, 256)   # head dims the .cu file instantiates
+BQS = (64, 128)     # query rows a block: 1 or 2 warpgroups, 4 or 8 warps
+STAGES = 2          # K/V ring depth of both regimes
 
 
 def _lib():
@@ -40,9 +47,9 @@ def flash_attention(
     """q [B, Hq, Sq, D] x k,v [B, Hkv, Skv, D] -> [B, Hq, Sq, D].
 
     ``tile`` is ``(bq, bkv)``, default the spec's Hopper tile. On the card
-    it is clamped to the problem (rounded up to a multiple of 4) as the
-    reference clamps it; the last q and KV blocks are masked, so neither
-    dim has to divide. On the CPU ``bkv`` is the reference's KV chunk.
+    it must be a tile of the dtype's regime (:func:`regime_tiles`); the last
+    q and KV blocks are masked, so neither dim has to divide. On the CPU
+    ``bkv`` is the reference's KV chunk.
     """
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
@@ -64,10 +71,15 @@ def flash_attention(
         tile = FLASH_SPEC.default_tile(
             dict(sq=sq, skv=skv, d=d, hq=hq, hkv=hkv, window=window or 0),
             str(q.dtype))
-    bq, bkv = launch_tile(tile, sq, skv, d)
+    bq, bkv = launch_tile(tile, d, q.dtype)
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention's kernels need 16-byte aligned "
+                         "operands")
     out = torch.empty_like(q)
     if q.numel() == 0:
         return out
+    if skv == 0:
+        return out.zero_()
     rc = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 b, hq, hkv, sq, skv, d, build.dtype_code(q.dtype), bq, bkv,
                 float(scale), int(bool(causal)), int(window or 0),
@@ -78,44 +90,69 @@ def flash_attention(
     return out
 
 
-@functools.lru_cache(maxsize=None)
-def _bq_limits() -> Dict[int, int]:
-    """``{head dim: largest bq}`` as ``REPRO_FA_BQ_LIMITS`` in the kernel's
-    source states it, the one place that rule lives."""
-    text = (build.CSRC / build.SOURCES["flash_attention"]).read_text()
-    table = re.search(r"#define REPRO_FA_BQ_LIMITS((?:.*\\\n)*.*)", text)
-    return {int(d): int(bq)
-            for d, bq in re.findall(r"X\((\d+),\s*(\d+)\)", table.group(1))}
+def _dtype_name(dtype) -> str:
+    return str(dtype).replace("torch.", "")
 
 
-def bq_max(d: int) -> int:
-    """Largest bq the kernel takes at head dim ``d`` (64 at D = 256, where a
-    thread's accumulator would otherwise double); 0 where it takes none."""
-    return _bq_limits().get(d, 0)
-
-
-def launch_tile(tile, sq: int, skv: int, d: int):
-    """The ``(bq, bkv)`` the kernel runs for ``tile``: clamped to the problem
-    (rounded up to a multiple of 4). Raises ValueError for a tile or head
-    dim the kernel cannot launch."""
+def regime(dtype, d: int) -> str:
+    """The kernel a call runs on, from the dtype and head dim alone:
+    ``wgmma`` for bfloat16, ``mma`` for float32. Raises ValueError for a
+    head dim the source does not compile, TypeError for another dtype."""
     if d not in HEAD_DIMS:
         raise ValueError(f"flash_attention head_dim {d} not in {HEAD_DIMS}")
-    bq = min(int(tile[0]), round_up(sq, 4))
-    bkv = min(int(tile[1]), round_up(skv, 4))
-    if bq <= 0 or bkv <= 0 or bq % 4 or bkv % 4 or bq > bq_max(d):
-        raise ValueError(f"flash_attention tile ({bq}, {bkv}) needs multiples "
-                         f"of 4 and bq <= {bq_max(d)} at head_dim {d}")
-    if smem_bytes(bq, bkv, d) > H100_SXM.vmem_bytes:
-        raise ValueError(f"flash_attention tile ({bq}, {bkv}) needs "
-                         f"{smem_bytes(bq, bkv, d)} B of shared memory; a "
-                         f"block may use {H100_SXM.vmem_bytes}")
-    return bq, bkv
+    name = _dtype_name(dtype)
+    if name not in ("float32", "bfloat16"):
+        raise TypeError(f"flash_attention takes float32 or bfloat16, got {name}")
+    return "wgmma" if name == "bfloat16" else "mma"
 
 
-def smem_bytes(bq: int, bkv: int, d: int) -> int:
-    """Shared memory one block of the kernel uses: float32 q, padded K, V,
-    the [bq, bkv] logits and three per-row statistics."""
-    return 4 * (bq * d + bkv * (d + 1) + bkv * d + bq * bkv + 3 * bq)
+@functools.lru_cache(maxsize=None)
+def _compiled() -> Dict[Tuple[str, int], Tuple[int, ...]]:
+    """``{(regime, head dim): bkv values}`` as ``REPRO_FA_TILES`` in the
+    kernel's source states them."""
+    text = (build.CSRC / build.SOURCES["flash_attention"]).read_text()
+    table = re.search(r"#define REPRO_FA_TILES((?:.*\\\n)*.*)", text)
+    out: Dict[Tuple[str, int], Tuple[int, ...]] = {}
+    for reg, d, bkv in re.findall(r"X\((MMA|WGMMA),\s*(\d+),\s*(\d+)\)",
+                                  table.group(1)):
+        key = (reg.lower(), int(d))
+        out[key] = out.get(key, ()) + (int(bkv),)
+    return out
 
 
-__all__ = ["NEG_INF", "bq_max", "flash_attention", "launch_tile", "smem_bytes"]
+def smem_bytes(bq: int, bkv: int, d: int, dtype) -> int:
+    """Shared memory one block uses (``smem_bytes`` of the source): mma, the
+    float32 q block and two K and V stages with rows padded by 4 floats;
+    wgmma, the bf16 q block and two K and V stages in 64-column panels, 1024
+    bytes of alignment and the mbarriers."""
+    if regime(dtype, d) == "mma":
+        return 4 * (d + 4) * (bq + 2 * STAGES * bkv)
+    return 2 * max(d, 64) * (bq + 2 * STAGES * bkv) + 1024 + 8 * (1 + 3 * STAGES)
+
+
+def threads(bq: int, dtype) -> int:
+    """Threads of one block: 2 per query row (mma); 128 a consumer
+    warpgroup of 64 rows plus the producer warpgroup (wgmma)."""
+    return 2 * bq if _dtype_name(dtype) == "float32" else 2 * bq + 128
+
+
+def regime_tiles(dtype, d: int) -> Tuple[Tuple[int, int], ...]:
+    """Every (bq, bkv) the dtype's regime launches at head dim ``d``."""
+    bkvs = _compiled().get((regime(dtype, d), d), ())
+    return tuple((bq, bkv) for bq in BQS for bkv in bkvs
+                 if smem_bytes(bq, bkv, d, dtype) <= H100_SXM.vmem_bytes)
+
+
+def launch_tile(tile, d: int, dtype) -> Tuple[int, int]:
+    """``tile`` as ints, or ValueError if the regime has no such tile at head
+    dim ``d``. A tile larger than the problem is masked at the ragged edge."""
+    t = (int(tile[0]), int(tile[1]))
+    legal = regime_tiles(dtype, d)
+    if t not in legal:
+        raise ValueError(f"flash_attention tile {t} is not a {regime(dtype, d)}"
+                         f" tile at head_dim {d}; tiles: {legal}")
+    return t
+
+
+__all__ = ["HEAD_DIMS", "NEG_INF", "flash_attention", "launch_tile", "regime",
+           "regime_tiles", "smem_bytes", "threads"]

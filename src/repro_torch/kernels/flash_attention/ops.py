@@ -4,12 +4,18 @@ and the plan compiler sweeps.
 
 ``flash_attention`` (whole-prompt prefill):
     problem dims {"sq", "skv", "d", "hq", "hkv", "window"(0=none)}, one
-    batch element; tile rank 2 = (bq, bkv). One 256-thread block owns
-    (b, h, q-block) and loops over KV blocks, so a tile's shared memory is
-    the float32 q block, the padded K and the V blocks, the [bq, bkv]
-    logits and three per-row statistics. The TPU default (512, 1024) would
-    need 3.4 MB of it; the Hopper default (64, 32) needs 75 KB at D = 128
-    and 140 KB at D = 256.
+    batch element; tile rank 2 = (bq, bkv). One block owns (b, h, q-block)
+    and loops over KV blocks. The dtype picks the regime
+    (``flash_attention.regime``): ``mma`` (float32, 3xTF32 on mma.sync, 2
+    threads a query row; the float32 q block and a two-stage K/V ring,
+    rows padded by 4 floats: 203 KB at (128, 64), D = 128) or ``wgmma``
+    (bfloat16, a TMA producer warpgroup and one consumer warpgroup per
+    64 rows; the bf16 q block and a two-stage K/V ring in 64-column panels:
+    165 KB at (128, 128), D = 128, 198 KB at (128, 64), D = 256). Each
+    regime launches bq 64 or 128 and the bkv its source compiles for the
+    head dim (``regime_tiles``); the TPU default (512, 1024) launches in
+    neither. The default is the tile the H100 measured fastest at qwen2's
+    prefill widths (PERF.md).
 ``flash_decode`` (one query over the KV cache):
     problem dims {"b", "skv", "d", "hq", "hkv", "window"(0=none)};
     tile rank 1 = (bkv,), the KV rows one loop step streams. One 256-thread
@@ -21,8 +27,9 @@ and the plan compiler sweeps.
 
 A tile the kernel cannot launch (``launch_tile`` / ``launch_bkv`` raise) has
 an infinite working set, so no sweep ranks it. The workloads count what the
-kernels do: every loaded KV block is computed in full (masked keys too),
-and the causal and window block skips leave blocks out.
+kernels do: every loaded KV block is computed in full (masked keys too, and
+the wgmma regime's zero columns below D = 64), and the causal and window
+block skips leave blocks out.
 
 The chunked_prefill, packed_prefill and kv_page specs of the reference come
 with the chunked, packed and paged serving paths.
@@ -36,7 +43,7 @@ from repro_torch.core import registry
 from repro_torch.core.cost_model import TileWorkload
 from repro_torch.core.hardware import H100_SXM
 from repro_torch.core.tiling import (
-    TileConstraints, TileShape, cdiv, dtype_bytes, round_up,
+    TileConstraints, TileShape, cdiv, dtype_bytes,
 )
 from repro_torch.kernels.flash_attention import decode as _decode
 from repro_torch.kernels.flash_attention import flash_attention as _flash
@@ -47,21 +54,24 @@ from repro_torch.kernels.flash_attention.ref import (
 )
 
 
-THREADS = 256   # threads per block of both attention kernels
+THREADS = 256   # threads per block of the decode kernel
 
 
 def _constraints(problem: Mapping[str, int]) -> TileConstraints:
-    return TileConstraints(rank=2, max_dims=(problem["sq"], problem["skv"]),
+    # Ragged edges are masked, so a tile may exceed the problem: the axes
+    # reach the compiled tiles however short the prompt.
+    reach = max(_flash.BQS)
+    return TileConstraints(rank=2, max_dims=(max(problem["sq"], reach),
+                                             max(problem["skv"], reach)),
                            lane_dim=1, sublane_dim=0, vmem_fraction=1.0)
 
 
 def _vmem_bytes(tile: TileShape, problem: Mapping[str, int], dtype: str) -> float:
     try:
-        bq, bkv = _flash.launch_tile(tile, problem["sq"], problem["skv"],
-                                     problem["d"])
+        bq, bkv = _flash.launch_tile(tile, problem["d"], dtype)
     except ValueError:
         return math.inf
-    return float(_flash.smem_bytes(bq, bkv, problem["d"]))
+    return float(_flash.smem_bytes(bq, bkv, problem["d"], dtype))
 
 
 def _keys_loaded(sq: int, skv: int, bq: int, bkv: int, window: int) -> int:
@@ -75,30 +85,37 @@ def _keys_loaded(sq: int, skv: int, bq: int, bkv: int, window: int) -> int:
 
 
 def _workload(tile: TileShape, problem: Mapping[str, int], dtype: str) -> TileWorkload:
-    bq, bkv = _flash.launch_tile(tile, problem["sq"], problem["skv"],
-                                 problem["d"])
+    bq, bkv = _flash.launch_tile(tile, problem["d"], dtype)
     sq, d = problem["sq"], problem["d"]
     n_q = cdiv(sq, bq)
     keys = _keys_loaded(sq, problem["skv"], bq, bkv, problem["window"]) / n_q
     b = dtype_bytes(dtype)
+    d_math = max(d, 64) if _flash.regime(dtype, d) == "wgmma" else d
     return TileWorkload(
-        flops=4.0 * d * bq * keys,                 # q.k and p.v per key
+        flops=4.0 * d_math * bq * keys,            # q.k and p.v per key
         hbm_bytes=float((2 * bq * d + 2 * keys * d) * b),   # q, out; k, v
         row_segments=bq,
         row_stride_bytes=float(d * b),
-        threads=THREADS,
+        threads=_flash.threads(bq, dtype),
     )
 
 
 def _n_tiles(tile: TileShape, problem: Mapping[str, int]) -> int:
-    bq, _ = _flash.launch_tile(tile, problem["sq"], problem["skv"],
-                               problem["d"])
-    return cdiv(problem["sq"], bq) * problem["hq"]
+    return cdiv(problem["sq"], int(tile[0])) * problem["hq"]
 
 
 def _default_tile(problem: Mapping[str, int], dtype: str) -> TileShape:
-    return TileShape((min(64, round_up(problem["sq"], 4)),
-                      min(32, round_up(problem["skv"], 4))))
+    """The tile the H100 measured fastest (PERF.md), in both regimes:
+    128 query rows with the regime's largest bkv once 128-row blocks alone
+    fill the card (qwen2-1.5b at S = 4096, recurrentgemma-9b's D = 256
+    cells), else (64, 64) (qwen2 at S = 600); the regime's first tile where
+    that one does not launch (float32 at D = 256: (64, 32))."""
+    d = problem["d"]
+    legal = _flash.regime_tiles(dtype, d)
+    tile = (64, 64)
+    if cdiv(problem["sq"], 128) * problem["hq"] >= H100_SXM.num_sm:
+        tile = max((t for t in legal if t[0] == 128), default=tile)
+    return TileShape(tile if tile in legal else legal[0])
 
 
 FLASH_SPEC = registry.register(registry.KernelSpec(

@@ -27,11 +27,12 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.flash_attention.decode import flash_decode, flash_decode_ref
-from repro_torch.kernels.flash_attention.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention.flash_attention import (
+    flash_attention, launch_tile,
+)
 from repro_torch.kernels.flash_attention.ref import (
     NEG_INF, fit_bkv, flash_attention_ref,
 )
-from repro_torch.core.tiling import round_up
 from repro_torch.models.layers import ParamDef, apply_rope, rms_norm
 
 # ---------------------------------------------------------------------------
@@ -159,8 +160,7 @@ def attn_forward(
             _emit_tile_event(
                 kernel="flash_attention", phase="prefill", impl="kernel",
                 tile=tuple(tile), fallback=False,
-                effective=(min(int(tile[0]), round_up(s, 4)),
-                           min(int(tile[1]), round_up(s, 4))))
+                effective=launch_tile(tile, q.shape[-1], q.dtype))
     elif impl == "reference":
         chunk = min(int(tile[1]), s) if tile is not None else 512
         if tile is not None:

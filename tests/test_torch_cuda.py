@@ -7,9 +7,11 @@ without JAX, with the repository's JAX-loading ``conftest.py`` left out:
     python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
 
 Tolerances, max |kernel - plain| relative to max |plain| (at least 1):
-float32 2e-5 (summation order only), bfloat16 1e-2 (plus one rounding of
-the output to bf16, at most 2^-8 relative: the kernel and the plain version
-both sum in float32 and round once). TF32 is off.
+float32 2e-5 (summation order only; flash_attention's 3xTF32 products keep
+about 21 bits), bfloat16 1e-2 (plus one rounding of the output to bf16, at
+most 2^-8 relative: the kernel and the plain version both sum in float32
+and round once; flash_attention also rounds P to bf16, an error of the same
+order). TF32 is off.
 """
 import numpy as np
 import pytest
@@ -21,6 +23,7 @@ from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.flash_attention.decode import (  # noqa: E402
     flash_decode, flash_decode_ref,
 )
+from repro_torch.kernels.flash_attention import flash_attention as fa  # noqa: E402
 from repro_torch.kernels.flash_attention.flash_attention import (  # noqa: E402
     flash_attention,
 )
@@ -111,11 +114,98 @@ def test_flash_attention_vs_plain(dev, dtype, rtol, s, kw):
            flash_attention_ref(q, k, v, causal=True, **kw), rtol)
 
 
-@pytest.mark.parametrize("tile", [(4, 4), (64, 32), (128, 64), (32, 128)])
-def test_flash_attention_tiles_and_q_offset(dev, tile):
-    q, k, v = _randn(dev, 3, (2, 4, 40, 64), (2, 2, 90, 64), (2, 2, 90, 64))
+# Every tile each regime launches at head dim 64 (float32: mma, bf16: wgmma).
+_FA_TILES = [(dt, t) for dt in ("float32", "bfloat16")
+             for t in fa.regime_tiles(dt, 64)]
+
+
+@pytest.mark.parametrize("dtype,tile", _FA_TILES)
+def test_flash_attention_tiles_and_q_offset(dev, dtype, tile):
+    q, k, v = _randn(dev, 3, (2, 4, 40, 64), (2, 2, 90, 64), (2, 2, 90, 64),
+                     dtype=getattr(torch, dtype))
     _close(flash_attention(q, k, v, causal=True, q_offset=50, tile=tile),
-           flash_attention_ref(q, k, v, causal=True, q_offset=50), 2e-5)
+           flash_attention_ref(q, k, v, causal=True, q_offset=50),
+           dict(DTYPES)[dtype])
+
+
+@pytest.mark.parametrize("dtype,d,tile", [
+    ("float32", 64, (4, 4)), ("float32", 64, (32, 128)),
+    ("float32", 64, (64, 128)), ("float32", 256, (128, 32)),
+    ("float32", 256, (64, 64)), ("bfloat16", 64, (64, 32)),
+    ("bfloat16", 128, (32, 64)), ("bfloat16", 256, (64, 128)),
+    ("bfloat16", 256, (128, 128))])
+def test_flash_attention_refuses_tiles_it_does_not_compile(dev, dtype, d, tile):
+    # Never clamped or rerouted to another tile or to the plain version.
+    q, k, v = _randn(dev, 23, (1, 2, 70, d), (1, 2, 70, d), (1, 2, 70, d),
+                     dtype=getattr(torch, dtype))
+    build.reset_launches()
+    with pytest.raises(ValueError):
+        flash_attention(q, k, v, tile=tile)
+    assert build.LAUNCHES["flash_attention"] == 0
+
+
+@pytest.mark.parametrize("dtype,rtol", DTYPES)
+@pytest.mark.parametrize("d", fa.HEAD_DIMS)
+@pytest.mark.parametrize("s", [1, 15, 64, 65, 600])
+def test_flash_attention_head_dims_and_lengths(dev, dtype, rtol, d, s):
+    dt = getattr(torch, dtype)
+    q, k, v = _randn(dev, 24, (1, 4, s, d), (1, 2, s, d), (1, 2, s, d),
+                     dtype=dt)
+    build.reset_launches()
+    out = flash_attention(q, k, v, causal=True)
+    assert build.LAUNCHES["flash_attention"] == 1
+    _close(out, flash_attention_ref(q, k, v, causal=True), rtol)
+
+
+# (b, hq, hkv, sq, skv, kwargs): causal and not, window, softcap, B = 2,
+# n_rep 1 and 8, and q_offset with Skv > Sq and Skv no multiple of any bkv
+# (the ragged last KV block comes from TMA's or cp.async's zero fill).
+_MASK_CASES = [
+    (1, 16, 2, 300, 300, dict(causal=False)),
+    (2, 16, 2, 300, 300, dict(causal=True, window=37)),
+    (1, 8, 8, 257, 257, dict(causal=False, window=50)),
+    (2, 2, 2, 200, 200, dict(causal=True, softcap=5.0)),
+    (1, 16, 2, 70, 237, dict(causal=True, q_offset=167)),
+    (2, 8, 1, 33, 301, dict(causal=True, q_offset=268, window=100)),
+    (1, 4, 4, 129, 400, dict(causal=False, softcap=20.0)),
+]
+
+
+@pytest.mark.parametrize("dtype,rtol", DTYPES)
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("case", _MASK_CASES)
+def test_flash_attention_masks_gqa_and_offsets(dev, dtype, rtol, d, case):
+    b, hq, hkv, sq, skv, kw = case
+    q, k, v = _randn(dev, 25, (b, hq, sq, d), (b, hkv, skv, d),
+                     (b, hkv, skv, d), dtype=getattr(torch, dtype))
+    for tile in fa.regime_tiles(dtype, d):
+        _close(flash_attention(q, k, v, tile=tile, **kw),
+               flash_attention_ref(q, k, v, **kw), rtol)
+
+
+def _qwen2_prefill_tiles():
+    # The tiles the plan compiler sweeps at qwen2-1.5b's 600-token prefill.
+    from repro_torch.core import H100_SXM, registry, tiling
+    from repro_torch.kernels import register_all
+
+    register_all()
+    spec = registry.get("flash_attention")
+    prob = dict(sq=600, skv=600, d=128, hq=16, hkv=2, window=0)
+    out = []
+    for dtype in ("float32", "bfloat16"):
+        tiles = tiling.enumerate_tiles(
+            spec.constraints(prob), H100_SXM, dtype,
+            lambda t: spec.vmem_bytes(t, prob, dtype), max_candidates=256)
+        out += [(dtype, tuple(t)) for t in tiles]
+    return out
+
+
+@pytest.mark.parametrize("dtype,tile", _qwen2_prefill_tiles())
+def test_flash_attention_every_swept_tile_at_qwen2_prefill(dev, dtype, tile):
+    q, k, v = _randn(dev, 26, (1, 16, 600, 128), (1, 2, 600, 128),
+                     (1, 2, 600, 128), dtype=getattr(torch, dtype))
+    _close(flash_attention(q, k, v, causal=True, tile=tile),
+           flash_attention_ref(q, k, v, causal=True), dict(DTYPES)[dtype])
 
 
 @pytest.mark.parametrize("dtype,rtol", DTYPES)
@@ -179,12 +269,12 @@ def test_flash_decode_all_masked_averages_the_cache(dev):
 @pytest.mark.parametrize("case", ["prefill", "decode"])
 def test_attention_at_head_dim_256(dev, dtype, rtol, case):
     # recurrentgemma-9b's local attention: Hq 16, Hkv 1, D 256, window 2048
-    # (cut to 300 here), at the largest bq and bkv the head dim takes.
+    # (cut to 300 here), at every tile the head dim takes.
     dt = getattr(torch, dtype)
     if case == "prefill":
         q, k, v = _randn(dev, 8, (1, 16, 700, 256), (1, 1, 700, 256),
                          (1, 1, 700, 256), dtype=dt)
-        for tile in ((64, 64), (32, 32), (4, 100)):
+        for tile in fa.regime_tiles(dtype, 256):
             _close(flash_attention(q, k, v, causal=True, window=300, tile=tile),
                    flash_attention_ref(q, k, v, causal=True, window=300), rtol)
         with pytest.raises(ValueError):

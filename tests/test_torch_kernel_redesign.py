@@ -1,6 +1,7 @@
-"""The redesigned matmul and flash_decode: what runs before the card does.
+"""The redesigned matmul, flash_decode and flash_attention: what runs
+before the card does.
 
-Both kernels run only on the card; what surrounds them runs here and is
+The kernels run only on the card; what surrounds them runs here and is
 pinned here:
 
 * ``mm``'s choice of kernel (skinny, simt, wgmma, or the plain path for row
@@ -11,7 +12,13 @@ pinned here:
 * the split decode's arithmetic (per-split online softmax, then the
   log-sum-exp combine in split order, ``flash_decode_split_ref``) against
   the JAX Pallas ``flash_decode`` in interpret mode, on inputs from a numpy
-  seed. Tolerance 1e-5 in float32: the combine reorders the sums.
+  seed. Tolerance 1e-5 in float32: the combine reorders the sums;
+* flash_attention's regime (mma for float32, wgmma for bf16) and the tiles
+  each launches, the sweep and default tiles at qwen2-1.5b's, gemma2-9b's
+  and recurrentgemma-9b's widths against a block's shared memory, and each
+  regime's arithmetic emulated in PyTorch (3xTF32 products; bf16 P) against
+  the plain version and the JAX Pallas kernel in interpret mode: 3xTF32
+  meets the float32 check (2e-5), one TF32 product does not.
 """
 import numpy as np
 import pytest
@@ -22,12 +29,18 @@ import jax.numpy as jnp  # noqa: E402
 from repro.kernels.flash_attention.decode import (  # noqa: E402
     flash_decode as pallas_decode,
 )
+from repro.kernels.flash_attention.flash_attention import (  # noqa: E402
+    flash_attention as pallas_flash,
+)
 from repro_torch import configs  # noqa: E402
 from repro_torch.configs.shapes import DECODE_32K, LONG_500K  # noqa: E402
 from repro_torch.core.hardware import H100_SXM  # noqa: E402
 from repro_torch.core.tiling import cdiv  # noqa: E402
+from repro_torch.core.tiling import enumerate_tiles  # noqa: E402
 from repro_torch.kernels.flash_attention import decode as fd  # noqa: E402
+from repro_torch.kernels.flash_attention import flash_attention as fa  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import flash_attention_ref  # noqa: E402
 from repro_torch.kernels.matmul import ops as mm_ops  # noqa: E402
 from repro_torch.launch.specs import cell_problems, kernel_problems  # noqa: E402
 
@@ -274,3 +287,187 @@ def test_decode_default_tile_fits_and_fills():
         assert fa_ops.DECODE_SPEC.vmem_bytes(tile, prob, "float32") <= \
             H100_SXM.vmem_bytes
         assert fa_ops.DECODE_SPEC.n_tiles(tile, prob) >= 128
+
+
+# ---------------------------------------------------------------------------
+# flash_attention: regimes, tiles, and each regime's arithmetic
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("d", fa.HEAD_DIMS)
+@pytest.mark.parametrize("dtype,want", [(F32, "mma"), ("float32", "mma"),
+                                        (BF16, "wgmma"), ("bfloat16", "wgmma")])
+def test_fa_regime_from_dtype_and_head_dim(d, dtype, want):
+    assert fa.regime(dtype, d) == want
+    tiles = fa.regime_tiles(dtype, d)
+    assert tiles
+    for t in tiles:
+        assert fa.launch_tile(t, d, dtype) == t
+        assert fa.smem_bytes(*t, d, dtype) <= H100_SXM.vmem_bytes
+
+
+def test_fa_regime_refuses_other_head_dims_and_dtypes():
+    for d in (0, 8, 48, 96, 512):
+        with pytest.raises(ValueError):
+            fa.regime(F32, d)
+        with pytest.raises(ValueError):
+            fa.launch_tile((64, 64), d, BF16)
+    for dtype in (torch.float16, "float64"):
+        with pytest.raises(TypeError):
+            fa.regime(dtype, 128)
+
+
+@pytest.mark.parametrize("d", fa.HEAD_DIMS)
+def test_fa_launch_tile_per_regime(d):
+    mma = set(fa.regime_tiles("float32", d))
+    wg = set(fa.regime_tiles("bfloat16", d))
+    assert {bq for bq, _ in mma | wg} <= set(fa.BQS) == {64, 128}
+    assert {bkv for _, bkv in mma} <= {32, 64}
+    assert {bkv for _, bkv in wg} <= {64, 128}
+    prob = dict(sq=600, skv=600, d=d, hq=16, hkv=2, window=0)
+    others = {(4, 4), (32, 32), (16, 64), (64, 256), (256, 64), (600, 600)}
+    for t in mma | wg | others:
+        for dtype, legal in (("float32", mma), ("bfloat16", wg)):
+            if t in legal:
+                assert fa.launch_tile(t, d, dtype) == t
+                assert fa_ops.FLASH_SPEC.vmem_bytes(t, prob, dtype) == \
+                    fa.smem_bytes(*t, d, dtype)
+            else:                  # refused, never clamped to a legal tile
+                with pytest.raises(ValueError):
+                    fa.launch_tile(t, d, dtype)
+                assert fa_ops.FLASH_SPEC.vmem_bytes(t, prob, dtype) == \
+                    float("inf")
+
+
+def test_fa_smem_and_threads_of_each_regime():
+    limit = H100_SXM.vmem_bytes
+    # mma: float32 q block and two K, V stages, rows padded by 4 floats.
+    assert fa.smem_bytes(128, 64, 128, F32) == 4 * 132 * (128 + 4 * 64)
+    assert fa.smem_bytes(64, 32, 256, F32) == 4 * 260 * (64 + 4 * 32)
+    assert fa.smem_bytes(128, 32, 256, F32) > limit     # so D = 256: (64, 32)
+    # wgmma: bf16 in 64-column panels, 1024 B of alignment, 7 mbarriers.
+    assert fa.smem_bytes(128, 128, 128, BF16) == \
+        2 * 128 * (128 + 4 * 128) + 1024 + 56
+    assert fa.smem_bytes(64, 64, 16, BF16) == fa.smem_bytes(64, 64, 64, BF16)
+    assert fa.threads(64, F32) == 128 and fa.threads(128, F32) == 256
+    assert fa.threads(64, BF16) == 256 and fa.threads(128, BF16) == 384
+
+
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "gemma2-9b",
+                                  "recurrentgemma-9b"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fa_swept_and_default_tiles_fit_at_model_widths(arch, dtype):
+    cfg = configs.get_arch(arch)
+    spec = fa_ops.FLASH_SPEC
+    for seq in (16, 600, 4096, 32768):
+        prob = kernel_problems(cfg, 1, seq, "prefill")["flash_attention"]
+        d = prob["d"]
+        tiles = enumerate_tiles(spec.constraints(prob), H100_SXM, dtype,
+                                lambda t: spec.vmem_bytes(t, prob, dtype),
+                                max_candidates=256)
+        # The sweep yields exactly the tiles the regime launches.
+        assert {tuple(t) for t in tiles} == set(fa.regime_tiles(dtype, d))
+        for t in list(tiles) + [spec.default_tile(prob, dtype)]:
+            assert fa.launch_tile(t, d, dtype) == tuple(t)
+            assert spec.vmem_bytes(t, prob, dtype) <= H100_SXM.vmem_bytes
+            assert spec.workload(t, prob, dtype).threads == \
+                fa.threads(t[0], dtype)
+
+
+@pytest.mark.parametrize("dtype,s,d,want", [
+    ("float32", 600, 128, (64, 64)), ("float32", 4096, 128, (128, 64)),
+    ("float32", 4096, 256, (64, 32)), ("bfloat16", 600, 128, (64, 64)),
+    ("bfloat16", 4096, 128, (128, 128)), ("bfloat16", 4096, 256, (128, 64)),
+    ("bfloat16", 600, 256, (64, 64)), ("float32", 16, 16, (64, 64)),
+    ("bfloat16", 16, 32, (64, 64))])
+def test_fa_default_tiles_are_the_measured_best(dtype, s, d, want):
+    # qwen2-1.5b's heads (PERF.md): 128 query rows and the regime's
+    # largest bkv once 128-row blocks alone fill the card's 132 SMs.
+    prob = dict(sq=s, skv=s, d=d, hq=16, hkv=2, window=0)
+    assert tuple(fa_ops.FLASH_SPEC.default_tile(prob, dtype)) == want
+
+
+def _tf32(x):
+    """Round float32 to TF32 (10 mantissa bits), to nearest with ties away
+    from zero, as cvt.rna.tf32.f32 does."""
+    i = x.contiguous().view(torch.int32)
+    return ((i + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _mm_tf32(a, b, split):
+    """a @ b from TF32 products summed in float32: three (3xTF32, the mma
+    regime: hi*hi + hi*lo + lo*hi) or one (plain TF32)."""
+    ahi, bhi = _tf32(a), _tf32(b)
+    if not split:
+        return ahi @ bhi
+    alo, blo = _tf32(a - ahi), _tf32(b - bhi)
+    return alo @ bhi + ahi @ blo + ahi @ bhi
+
+
+def _attention_emulated(q, k, v, *, causal, split=True, p_bf16=False):
+    """Dense attention with each regime's arithmetic: q.k and p.v as TF32
+    products (mma), or bf16 operands with P rounded to bf16 before p.v and
+    the denominator from the unrounded P (wgmma)."""
+    n_rep = q.shape[1] // k.shape[1]
+    k = k.float().repeat_interleave(n_rep, dim=1)
+    v = v.float().repeat_interleave(n_rep, dim=1)
+    scale = q.shape[-1] ** -0.5
+    if p_bf16:
+        s = (q.float() @ k.transpose(-1, -2)) * scale
+    else:
+        s = _mm_tf32(q.float() * scale, k.transpose(-1, -2), split)
+    if causal:
+        n = s.shape[-1]
+        s = s.masked_fill(torch.ones(n, n, dtype=torch.bool).triu(1), -2e30)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    den = p.sum(dim=-1, keepdim=True)
+    if p_bf16:
+        o = p.to(BF16).float() @ v
+    else:
+        o = _mm_tf32(p, v, split)
+    return (o / den).to(q.dtype)
+
+
+def _fa_inputs(seed, dtype=F32, b=1, hq=4, hkv=2, s=128, d=64):
+    rng = np.random.default_rng(seed)
+    q, k, v = (rng.standard_normal(shape).astype(np.float32)
+               for shape in ((b, hq, s, d), (b, hkv, s, d), (b, hkv, s, d)))
+    return [torch.from_numpy(x).to(dtype) for x in (q, k, v)]
+
+
+def _rel_err(out, ref):
+    return float((out.float() - ref.float()).abs().max()) / max(
+        1.0, float(ref.float().abs().max()))
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_3xtf32_meets_the_float32_check_and_plain_tf32_does_not(d):
+    q, k, v = _fa_inputs(40 + d, d=d)
+    ref = flash_attention_ref(q, k, v, causal=True)
+    want = torch.from_numpy(np.array(pallas_flash(
+        *(jnp.asarray(x.numpy()) for x in (q, k, v)), causal=True,
+        tile=(64, 64), interpret=True)))
+    three = _attention_emulated(q, k, v, causal=True, split=True)
+    one = _attention_emulated(q, k, v, causal=True, split=False)
+    for target in (ref, want):
+        assert _rel_err(three, target) <= 2e-5 / 4     # chip_smoke's REL_TOL
+        assert _rel_err(one, target) > 2e-5            # why the mma splits
+
+
+def test_bf16_p_stays_within_the_bf16_check():
+    q, k, v = _fa_inputs(44, dtype=BF16, hq=8, hkv=1, s=256, d=128)
+    ref = flash_attention_ref(q, k, v, causal=True)
+    emu = _attention_emulated(q, k, v, causal=True, p_bf16=True)
+    err = _rel_err(emu, ref)
+    assert err <= 1e-2                  # chip_smoke's bf16 REL_TOL
+    # of the order of the output's own rounding to bf16 (2^-8 relative)
+    assert err <= 4 * 2.0 ** -8
+
+
+@pytest.mark.parametrize("d", fa.HEAD_DIMS)
+def test_flash_attention_plain_vs_pallas_every_head_dim(d):
+    q, k, v = _fa_inputs(50 + d, hq=4, hkv=2, s=96, d=d)
+    want = np.asarray(pallas_flash(*(jnp.asarray(x.numpy()) for x in (q, k, v)),
+                                   causal=True, window=40, tile=(32, 32),
+                                   interpret=True))
+    out = fa.flash_attention(q, k, v, causal=True, window=40)
+    np.testing.assert_allclose(out.numpy(), want, **TOL)

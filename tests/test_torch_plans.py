@@ -199,12 +199,12 @@ def _full_width_cells():
     return jobs
 
 
-def _launchable(kernel, tile, problem):
+def _launchable(kernel, tile, problem, dtype):
     """Raise unless the kernel's wrapper takes ``tile`` for ``problem``."""
     if kernel == "matmul":
         assert tuple(tile) in mm_ops.COMPILED_TILES
     elif kernel == "flash_attention":
-        fa.launch_tile(tile, problem["sq"], problem["skv"], problem["d"])
+        fa.launch_tile(tile, problem["d"], dtype)
     elif kernel == "flash_decode":
         fa_decode.launch_bkv(tile[0], problem["skv"], problem["d"],
                              problem["hq"] // problem["hkv"])
@@ -227,24 +227,29 @@ def test_every_candidate_the_port_sweeps_at_full_width_launches():
             lambda t: spec.vmem_bytes(t, problem, dtype), max_candidates=256)
         assert tiles, (kernel, problem, dtype)
         for t in tiles:
-            _launchable(kernel, t, problem)
+            _launchable(kernel, t, problem, dtype)
             cost = estimate(hw, spec.workload(t, problem, dtype),
                             spec.n_tiles(t, problem),
                             vmem_bytes=spec.vmem_bytes(t, problem, dtype))
             assert math.isfinite(cost.total_s), (kernel, problem, t)
-        _launchable(kernel, spec.default_tile(problem, dtype), problem)
+        _launchable(kernel, spec.default_tile(problem, dtype), problem, dtype)
         seen.add(kernel)
     assert seen == {"matmul", "flash_attention", "flash_decode", "bilinear",
                     "ssd", "rglru"}
 
 
 def test_attention_at_head_dim_256_has_launchable_tiles():
-    # recurrentgemma-9b: Hq 16, Hkv 1, head_dim 256, window 2048.
-    assert fa.bq_max(256) == 64 and fa.bq_max(128) == 128
-    assert fa.launch_tile((64, 64), 4096, 4096, 256) == (64, 64)
-    for bad in ((128, 32), (64, 128)):
+    # recurrentgemma-9b: Hq 16, Hkv 1, head_dim 256, window 2048. float32
+    # (mma) fits one tile in shared memory, bf16 (wgmma) bkv 64 at bq 64
+    # and 128; bq 128 is legal at D = 128 in both.
+    assert fa.regime_tiles("float32", 256) == ((64, 32),)
+    assert fa.regime_tiles("bfloat16", 256) == ((64, 64), (128, 64))
+    assert fa.launch_tile((128, 64), 128, "float32") == (128, 64)
+    assert fa.launch_tile((64, 64), 256, "bfloat16") == (64, 64)
+    for bad, dtype in (((128, 32), "float32"), ((64, 64), "float32"),
+                       ((64, 128), "bfloat16"), ((128, 32), "bfloat16")):
         with pytest.raises(ValueError):
-            fa.launch_tile(bad, 4096, 4096, 256)
+            fa.launch_tile(bad, 256, dtype)
     # The default bkv: the largest that fits (64 at D = 256) once B * Hkv
     # fills the card; at B = 1 the smallest, whose 256 key blocks in the
     # window give the split decode a wave of blocks.
