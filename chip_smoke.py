@@ -19,11 +19,13 @@ Phases, each of which fails the run if it fails:
    rows; flash_attention in its float32 mma and bf16 wgmma regimes at
    every head dim, and every tile of each regime timed at qwen2's prefill
    widths, S = 600 and 4096), recurrentgemma-9b's head_dim-256 attention,
-   the paper's 800x800 image at scales 2-10, mamba2-2.7b's SSD and
-   recurrentgemma-9b's RG-LRU — and time kernel, plain version and one
-   PyTorch library call (where one computes the same function; for SDPA
-   also the kernels it ran) on the device: CUDA events around the replay of
-   a CUDA graph of many calls, so the host's launch cost is left out;
+   the paper's 800x800 image at scales 2-10, mamba2-2.7b's SSD (every chunk
+   the spec sweeps, S = 4096, and the decode step) and recurrentgemma-9b's
+   RG-LRU (a few tiles) — and time kernel, plain version and one PyTorch
+   library call (where one computes the same function; for SDPA also the
+   kernels it ran) on the device: CUDA events around the replay of a CUDA
+   graph of many calls, so the host's launch cost is left out; for the
+   multi-launch scans also each launch's device time (torch.profiler);
 4. serve full-width qwen2-1.5b (28 layers, random weights from a seed)
    through the port's ``ServeEngine`` and check that every kernel of the
    path was launched;
@@ -212,6 +214,9 @@ def kernel_checks(quick: bool):
                      f"{timing['bound_ms']:.4f} ({timing['bound_by']})")
             if timing.get("library_max_abs_err") is not None:
                 extra += f", library err {timing['library_max_abs_err']:.3e}"
+            if timing.get("launch_ms"):
+                extra += " | launches " + ", ".join(
+                    f"{k} {v:.4f}" for k, v in timing["launch_ms"].items())
         log(f"  {kernel:16s} {case:34s} {dtype_name:8s} err {err:.3e} "
             f"(tol {REL_TOL[dtype_name]:g} x {max(1.0, row['ref_max']):.3g})"
             f" {'ok' if ok else 'FAIL'}{extra}")
@@ -274,7 +279,7 @@ def kernel_checks(quick: bool):
                 nb = (2 * q.numel() + 2 * k.numel()) * q.element_size()
                 pairs = s * (s + 1) // 2
                 t_b, by = bound(nb, 4.0 * HEAD_DIM * HQ * pairs,
-                                FA_RATE[dname])
+                                TC_RATE[dname])
                 copies = [(randn(q.shape, dt), randn(k.shape, dt),
                            randn(v.shape, dt)) for _ in range(copies_for(nb))]
 
@@ -289,7 +294,7 @@ def kernel_checks(quick: bool):
                         x, y, z, causal=True) for x, y, z in copies]),
                     library_ms=library_ms([lambda x=x, y=y, z=z: sdpa(x, y, z)
                                            for x, y, z in copies]),
-                    library_kernels=device_kernels(lambda: sdpa(q, k, v)),
+                    library_kernels=sorted(device_kernels(lambda: sdpa(q, k, v))),
                     bound_ms=t_b, bound_by=by,
                     shape=dict(b=1, hq=HQ, hkv=HKV, sq=s, skv=s, d=HEAD_DIM,
                                regime=fa_regime(dt, HEAD_DIM)))
@@ -388,14 +393,17 @@ def kernel_checks(quick: bool):
     return rows
 
 
-# The rate flash_attention's regime runs at: 3xTF32 on the tensor cores in
-# float32 (mma), bf16 wgmma.
-FA_RATE = {"float32": "float32_3xtf32", "bfloat16": "bfloat16"}
+# The rate the tensor-core kernels (flash_attention, ssd) run at: 3xTF32 on
+# the tensor cores in float32, bf16 in bfloat16.
+TC_RATE = {"float32": "float32_3xtf32", "bfloat16": "bfloat16"}
 
 
-def device_kernels(fn):
-    """The names of the CUDA kernels one call of ``fn`` runs (from
-    ``torch.profiler``): which backend a library call took."""
+def device_kernels(fn, calls: int = 5):
+    """Device ms per call of each CUDA kernel a call of ``fn`` runs (from
+    ``torch.profiler``), by kernel name: where a multi-launch kernel's time
+    goes, and which backend a library call took."""
+    import re
+
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -403,10 +411,16 @@ def device_kernels(fn):
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
+        for _ in range(calls):
+            fn()
         torch.cuda.synchronize()
-    return sorted({ev.name for ev in prof.events()
-                   if ev.device_type == DeviceType.CUDA})
+    out = {}
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA:
+            name = re.sub(r"^void |\(anonymous namespace\)::", "", ev.name)
+            name = re.sub(r"\(.*", "", name).split("::")[-1]
+            out[name] = out.get(name, 0.0) + ev.time_range.elapsed_us() / 1e3 / calls
+    return out
 
 
 def flash_tile_sweep(randn, dtypes):
@@ -480,7 +494,7 @@ def head_dim_256_checks(record, randn, dtypes, quick: bool):
         if not quick:
             nb = (2 * q.numel() + 2 * k.numel()) * q.element_size()
             pairs = sum(min(i + 1, win) for i in range(s))
-            t_b, by = bound(nb, 4.0 * d * hq * pairs, FA_RATE[dname])
+            t_b, by = bound(nb, 4.0 * d * hq * pairs, TC_RATE[dname])
             pos = torch.arange(s, device="cuda")
             mask = ((pos[None, :] <= pos[:, None])
                     & (pos[None, :] > pos[:, None] - win))
@@ -496,8 +510,8 @@ def head_dim_256_checks(record, randn, dtypes, quick: bool):
                     lambda x=x, y=y, z=z: F.scaled_dot_product_attention(
                         x, y, z, attn_mask=mask, enable_gqa=True)
                     for x, y, z in copies]),
-                library_kernels=device_kernels(lambda: F.scaled_dot_product_attention(
-                    q, k, v, attn_mask=mask, enable_gqa=True)),
+                library_kernels=sorted(device_kernels(lambda: F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=mask, enable_gqa=True))),
                 bound_ms=t_b, bound_by=by,
                 shape=dict(b=1, hq=hq, hkv=hkv, sq=s, skv=s, d=d, window=win,
                            regime=fa_regime(dt, d)))
@@ -598,49 +612,72 @@ def _ssd_operands(b, s, h, p, n, dt, seed):
 
 def ssd_checks(record, dtypes, quick: bool):
     """The SSD chunk scan at mamba2-2.7b's width (H 80, P 64, N 128), a
-    4096-step sequence and one decode step; no PyTorch call computes it."""
+    4096-step sequence with the default chunk and every other chunk the
+    spec sweeps (where the default comes from), and one decode step; no
+    PyTorch call computes it. The bound counts the causal pairs of each
+    chunk (``ops.flops``), the float32 one at the 3xTF32 rate its products
+    run at, over the inputs and outputs alone (not the chunk states'
+    workspace)."""
     import torch
 
-    from repro_torch.kernels.ssd.ops import SPEC, ssd_scan, ssd_scan_ref
+    from repro_torch.core.hardware import H100_SXM
+    from repro_torch.core.tiling import enumerate_tiles
+    from repro_torch.kernels.ssd.ops import SPEC, flops, ssd_scan, ssd_scan_ref
 
     h, p, n = 80, 64, 128
     for dname, dt in dtypes:
         for s in ((512,) if quick else (4096, 1)):
+            prob = dict(s=s, h=h, p=p, n=n)
+            (default,) = SPEC.default_tile(prob, dname)
+            chunks = [default]
+            if s > 1 and not quick:
+                swept = enumerate_tiles(
+                    SPEC.constraints(prob), H100_SXM, dname,
+                    lambda t: SPEC.vmem_bytes(t, prob, dname))
+                chunks += sorted(t[0] for t in swept if t[0] != default)
             ops_in = _ssd_operands(1, s, h, p, n, dt, seed=s)
-            (q,) = SPEC.default_tile(dict(s=s, h=h, p=p, n=n), dname)
-            y, hl = ssd_scan(*ops_in, chunk=q)
-            torch.cuda.synchronize()
-            yr, hr = ssd_scan_ref(*ops_in, chunk=q)
-            timing = None
-            if not quick:
-                eb = ops_in[1].element_size()
-                # Every input once, y (like dtx) and h_last (like h0) out.
-                nb = (sum(t.numel() for t in ops_in) + ops_in[1].numel()
-                      + ops_in[4].numel()) * eb
-                chunks = -(-s // q)
-                flops = h * chunks * (2.0 * q * q * n + 2.0 * q * q * p
-                                      + 4.0 * q * n * p)
-                t_b, by = bound(nb, flops, dname)
-                copies = [_ssd_operands(1, s, h, p, n, dt, seed=100 + i)
-                          for i in range(copies_for(nb))]
-                timing = dict(
-                    ms=time_ms([lambda c=c: ssd_scan(*c, chunk=q) for c in copies]),
-                    plain_ms=time_ms([lambda c=c: ssd_scan_ref(*c, chunk=q)
-                                      for c in copies], iters=4),
-                    library_ms=None, bound_ms=t_b, bound_by=by,
-                    shape=dict(b=1, s=s, h=h, p=p, n=n, chunk=q))
-            record("ssd", f"s={s} h={h} p={p} n={n} y", dname, y, yr, timing)
-            record("ssd", f"s={s} h={h} p={p} n={n} h_last", dname, hl, hr)
+            eb = ops_in[1].element_size()
+            # Every input once, y (like dtx) and h_last (like h0) out.
+            nb = (sum(t.numel() for t in ops_in) + ops_in[1].numel()
+                  + ops_in[4].numel()) * eb
+            copies = ([] if quick else
+                      [_ssd_operands(1, s, h, p, n, dt, seed=100 + i)
+                       for i in range(copies_for(nb))])
+            for q in chunks:
+                y, hl = ssd_scan(*ops_in, chunk=q)
+                torch.cuda.synchronize()
+                yr, hr = ssd_scan_ref(*ops_in, chunk=q)
+                timing = None
+                if not quick:
+                    t_b, by = bound(nb, flops(q, prob), TC_RATE[dname])
+                    timing = dict(
+                        ms=time_ms([lambda c=c: ssd_scan(*c, chunk=q)
+                                    for c in copies]),
+                        plain_ms=time_ms([lambda c=c: ssd_scan_ref(*c, chunk=q)
+                                          for c in copies], iters=4),
+                        library_ms=None, bound_ms=t_b, bound_by=by,
+                        launch_ms=device_kernels(
+                            lambda: ssd_scan(*copies[0], chunk=q)),
+                        shape=dict(b=1, s=s, h=h, p=p, n=n, chunk=q))
+                case = f"s={s} h={h} p={p} n={n}"
+                if q != default:
+                    case += f" chunk={q}"
+                record("ssd", case + " y", dname, y, yr, timing)
+                record("ssd", case + " h_last", dname, hl, hr)
 
 
 def rglru_checks(record, dtypes, quick: bool):
     """The RG-LRU scan at recurrentgemma-9b's width (F 4096), a 4096-step
-    sequence and one decode step; no PyTorch call computes it."""
+    sequence with the default tile and a few other (bt, bf) (where the
+    default comes from), and one decode step; no PyTorch call computes
+    it."""
     import torch
 
-    from repro_torch.kernels.rglru.ops import rglru_scan, rglru_scan_ref
+    from repro_torch.kernels.rglru.ops import SPEC, rglru_scan, rglru_scan_ref
 
     f = 4096
+    sweep = ((32, 256), (32, 512), (64, 128), (64, 256), (64, 512),
+             (128, 256), (128, 512))
     for dname, dt in dtypes:
         for s in ((256,) if quick else (4096, 1)):
             def operands(seed):
@@ -649,24 +686,39 @@ def rglru_checks(record, dtypes, quick: bool):
                         torch.randn((1, s, f), generator=g, device="cuda").to(dt),
                         torch.randn((1, f), generator=g, device="cuda").to(dt))
 
+            default = tuple(SPEC.default_tile(dict(s=s, f=f), dname))
+            tiles = [default]
+            if s > 1 and not quick:
+                tiles += [t for t in sweep if t != default]
             a, x, h0 = operands(s)
-            y, hl = rglru_scan(a, x, h0)
-            torch.cuda.synchronize()
+            eb = x.element_size()
+            nb = (3 * s * f + 2 * f) * eb
+            copies = [] if quick else [operands(100 + i)
+                                       for i in range(copies_for(nb))]
             yr, hr = rglru_scan_ref(a, x, h0)
-            timing = None
-            if not quick:
-                eb = x.element_size()
-                nb = (3 * s * f + 2 * f) * eb
-                t_b, by = bound(nb, 2.0 * s * f, dname)
-                copies = [operands(100 + i) for i in range(copies_for(nb))]
-                timing = dict(
-                    ms=time_ms([lambda c=c: rglru_scan(*c) for c in copies]),
-                    plain_ms=time_ms([lambda c=c: rglru_scan_ref(*c)
-                                      for c in copies], iters=2),
-                    library_ms=None, bound_ms=t_b, bound_by=by,
-                    shape=dict(b=1, s=s, f=f))
-            record("rglru", f"s={s} f={f} y", dname, y, yr, timing)
-            record("rglru", f"s={s} f={f} h_last", dname, hl, hr)
+            plain = None
+            for tile in tiles:
+                y, hl = rglru_scan(a, x, h0, tile=tile)
+                torch.cuda.synchronize()
+                timing = None
+                if not quick:
+                    t_b, by = bound(nb, 2.0 * s * f, dname)
+                    if plain is None:
+                        plain = time_ms([lambda c=c: rglru_scan_ref(*c)
+                                         for c in copies], iters=2)
+                    timing = dict(
+                        ms=time_ms([lambda c=c: rglru_scan(*c, tile=tile)
+                                    for c in copies]),
+                        plain_ms=plain, library_ms=None, bound_ms=t_b,
+                        bound_by=by,
+                        launch_ms=device_kernels(
+                            lambda: rglru_scan(*copies[0], tile=tile)),
+                        shape=dict(b=1, s=s, f=f, tile=list(tile)))
+                case = f"s={s} f={f}"
+                if tile != default:
+                    case += f" tile {tile[0]}x{tile[1]}"
+                record("rglru", case + " y", dname, y, yr, timing)
+                record("rglru", case + " h_last", dname, hl, hr)
 
 
 # ---------------------------------------------------------------------------

@@ -71,6 +71,9 @@ class TileConstraints:
     # The second-minor dim index.
     sublane_dim: Optional[int] = None
     vmem_fraction: float = 0.5
+    # Per-dim floors of the sweep: smaller tiles may launch, but are not
+    # candidates (unless the problem dim itself is smaller).
+    min_dims: Tuple[int, ...] = ()
 
     def alignment(self, hw: "HardwareModel", dtype: str, dim_index: int) -> int:
         if dim_index == self.lane_dim:
@@ -109,6 +112,8 @@ def enumerate_tiles(
     axes: List[List[int]] = []
     for i in range(constraints.rank):
         align = constraints.alignment(hw, dtype, i)
+        if i < len(constraints.min_dims):
+            align = max(align, constraints.min_dims[i])
         limit = constraints.max_dims[i]
         axes.append([limit] if limit <= align
                     else _candidates_for_dim(limit, align))

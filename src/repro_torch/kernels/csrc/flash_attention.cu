@@ -40,7 +40,7 @@
 //   the reference, of the order of the output's own bf16 rounding. Head dims
 //   below 64 are zero-filled to one 64-column panel by TMA.
 // * mma (float32) on the tensor cores at float32 accuracy: mma.sync m16n8k8
-//   TF32 in the 3xTF32 split (x = hi + lo, each TF32; hi*hi + hi*lo + lo*hi
+//   TF32 in the 3xTF32 split (x = hi + lo, hopper::split; hi*hi + hi*lo + lo*hi
 //   keeps about 21 bits of each product; plain TF32 keeps 11 and misses the
 //   float32 check). One warp owns 16 query rows (bq = 64 or 128: 4 or 8
 //   warps); K and V come by 16-byte cp.async into a two-stage ring,
@@ -149,36 +149,9 @@ __device__ __forceinline__ float quad_sum(float x) {
 }
 
 // ---------------------------------------------------------------------------
-// mma: float32 as 3xTF32 on mma.sync m16n8k8
+// mma: float32 as 3xTF32 on mma.sync m16n8k8 (split and mma_3xtf32 in
+// hopper.cuh)
 // ---------------------------------------------------------------------------
-
-__device__ __forceinline__ uint32_t tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;
-}
-// x = hi + lo, both TF32.
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = tf32(x);
-  lo = tf32(x - __uint_as_float(hi));
-}
-// d[4] += A (16x8, row) @ B (8x8, col), TF32 in, float32 sum.
-__device__ __forceinline__ void mma_tf32(float* d, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-// d += a b in 3xTF32: the two small cross terms, then hi * hi.
-__device__ __forceinline__ void mma_3xtf32(float* d, const uint32_t* ahi,
-                                           const uint32_t* alo, uint32_t bh0,
-                                           uint32_t bh1, uint32_t bl0,
-                                           uint32_t bl1) {
-  mma_tf32(d, alo, bh0, bh1);
-  mma_tf32(d, ahi, bl0, bl1);
-  mma_tf32(d, ahi, bh0, bh1);
-}
 
 // blockDim.x = 2 * bq: warp w owns query rows 16w .. 16w + 15. Fragment
 // layouts (g = lane / 4, t = lane % 4): A a0..a3 = (g, t), (g + 8, t),
@@ -414,11 +387,6 @@ __device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a,
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
 }
 
 // NWG consumer warpgroups (threads 0 .. 128 NWG - 1), each owning 64 query

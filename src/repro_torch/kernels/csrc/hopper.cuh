@@ -1,11 +1,13 @@
 // Hopper (sm_90a) building blocks shared by the port's kernels: cp.async,
-// mbarriers, TMA tensor loads and their tensor maps, and the wgmma
-// shared-memory descriptor and fences. Included by matmul.cu and
-// flash_attention.cu; build.py hashes this header into every library name,
-// so an edit here rebuilds them.
+// mbarriers, TMA tensor loads and their tensor maps, the wgmma
+// shared-memory descriptor and fences, and the mma.sync products of the
+// float32 (3xTF32) and bf16 tensor-core paths. Included by matmul.cu,
+// flash_attention.cu and ssd.cu; build.py hashes this header into every
+// library name, so an edit here rebuilds them.
 #pragma once
 
 #include <cuda.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -114,6 +116,57 @@ template <int N>
 __device__ __forceinline__ void reg_fence(float* r) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// ---------------------------------------------------------------------------
+// mma.sync. Fragments (g = lane / 4, t = lane % 4): m16n8k8 TF32 A a0..a3 =
+// (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4), B b0, b1 = (k t, n g),
+// (k t + 4, n g); m16n8k16 bf16 A a0..a3 = (g, 2t .. 2t + 1), (g + 8, 2t ..
+// 2t + 1), (g, 2t + 8 .. 2t + 9), (g + 8, 2t + 8 .. 2t + 9), B b0, b1 =
+// (k 2t .. 2t + 1, n g), (k 2t + 8 .. 2t + 9, n g); C c0..c3 = (g, 2t),
+// (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1) in both.
+// ---------------------------------------------------------------------------
+
+// x = hi + lo for 3xTF32, in integer and add operations alone (no cvt, which
+// issues at a quarter of the rate): hi is x rounded to TF32 (half an ulp
+// added, the low 13 bits cleared), lo = x - hi exactly, handed to the mma as
+// it is, whose TF32 inputs ignore the low 13 bits (lo is truncated).
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+// d[4] += A (16x8, row) @ B (8x8, col), TF32 in, float32 sum.
+__device__ __forceinline__ void mma_tf32(float* d, const uint32_t* a,
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+// d += a b in 3xTF32 (x = hi + lo; hi*hi + hi*lo + lo*hi keeps about 21
+// bits of each product, one TF32 product 11): the two small cross terms,
+// then hi * hi.
+__device__ __forceinline__ void mma_3xtf32(float* d, const uint32_t* ahi,
+                                           const uint32_t* alo, uint32_t bh0,
+                                           uint32_t bh1, uint32_t bl0,
+                                           uint32_t bl1) {
+  mma_tf32(d, alo, bh0, bh1);
+  mma_tf32(d, ahi, bl0, bl1);
+  mma_tf32(d, ahi, bh0, bh1);
+}
+
+// Two floats rounded to bf16 in one register, lo in the low half.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+// d[4] += A (16x16, row) @ B (16x8, col), bf16 in, float32 sum.
+__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,

@@ -1,200 +1,794 @@
 // Mamba-2 SSD chunk scan for Hopper (sm_90a): log_a [B, H, S], dtx
 // [B, S, H, P], Bm and C [B, S, N], h0 [B, H, N, P] -> y [B, S, H, P] and
-// h_last [B, H, N, P]; float32 or bfloat16 in and out, float32 math and
-// state.
+// h_last [B, H, N, P]; float32 or bfloat16 in and out, float32 cumsum,
+// decays and state.
 //
 // Replaces: src/repro/kernels/ssd/ssd.py, function `ssd_scan`
 // (`_ssd_kernel`), the Pallas TPU kernel with grid (B, H, S/Q) whose chunk
 // axis runs in order ("arbitrary") and carries the [N, P] state in VMEM
-// scratch, doing three MXU contractions per chunk.
+// scratch, doing its four contractions per chunk on the MXU.
 //
-// What bounds it on the H100: per chunk of Q steps it does 2*Q*Q*N (C B^T)
-// + 2*Q*Q*P (intra) + 2*Q*N*P (inter) + 2*Q*N*P (state) FLOP on Q*(1 + P +
-// 2N) inputs, some 110 FLOP per byte at Q = 64, P = 64, N = 128 in float32 —
-// above the card's float32 SIMT balance point (67 TFLOP/s over 3.35 TB/s =
-// 20), so it is bound by operations; in practice by shared-memory traffic,
-// since every multiply-add reads its operands from shared memory.
+// What bounds it on the H100: per chunk of Q steps and head it does
+// Q (Q + 1) N (C B^T, causal pairs) + Q (Q + 1) P (scores x) + 2 Q N P
+// (C h) + 2 Q N P (state) FLOP on Q (1 + P + 2N) inputs. At mamba2-2.7b's
+// width (H 80, P 64, N 128) and Q = 64 that is 14.8 GFLOP for S = 4096,
+// which in float32 takes 0.090 ms at the 3xTF32 rate (495/3 TFLOP/s) and in
+// bf16 0.015 ms, below the 0.027 ms its 89 MB of inputs and outputs take at
+// 3.35 TB/s: so operations bound float32 and bytes bound bf16.
 //
-// Design: blocks run in parallel and in no order on Hopper, so the chunk
-// axis cannot be a grid axis that carries state: one block per (b, h) loops
-// over the chunks itself and keeps the [N, P] float32 state in shared
-// memory for the whole sequence. Per chunk it stages log_a, x, B and C in
-// shared memory as float32, takes the inclusive cumsum of log_a, forms the
-// masked decay scores (C_i . B_j) exp(cum_i - cum_j) for i >= j, writes
-// y = scores @ x + exp(cum) * (C @ h), and updates h = exp(total) h +
-// (B * exp(total - cum))^T @ x — the reference's order of operations, so
-// float32 agrees to its 3e-4 tolerance. The chunk Q is a runtime argument
-// (dynamic shared memory, opted into above 48 KB); shared memory bounds it:
-// at mamba2-2.7b's P = 64, N = 128, Q = 64 needs 129 KB and Q = 128 would
-// need 259 KB, over the 227 KB a block may use. The last chunk may be
-// ragged: its missing steps are zero (log_a 0, x 0, B 0), which adds
-// nothing to the state, and are not stored. B rows are padded by one float
-// so the score loop, whose threads walk B rows, does not hit one bank.
-// Known limit: one block per (b, h) gives 80 blocks on 132 SMs at B = 1 for
-// mamba2-2.7b (H = 80); splitting the sequence with a second pass over the
-// chunk states is later work.
+// Design: Mamba-2's own GPU decomposition (arXiv:2405.21060 §6), three
+// launches in order on one stream, so that every chunk of every head runs in
+// parallel instead of one block per (b, h) walking the sequence:
+//
+// (a) ssd_state_kernel, grid (chunks x N-tiles x P-tiles, H, B): the chunk's
+//     inclusive cumsum of log_a (a warp scan), w = exp(total - cum), and
+//     the chunk's own state S_c = (B * w)^T x, a [128, 64] tile a block, on
+//     the tensor cores; S_c and exp(total) go to a float32 workspace. With
+//     one chunk (S <= Q) it writes h_last = exp(total) h0 + S_c instead and
+//     (b) is skipped.
+// (b) ssd_pass_kernel, grid (N*P / 1024, H, B): four state elements a
+//     thread walk the chunks in order from h0: each chunk's slot is
+//     overwritten by the state entering it, then h = exp(total_c) h + S_c
+//     (the order of operations of the one-block scan this replaces); the
+//     end is h_last.
+// (c) ssd_out_kernel, grid (chunks x 64-row tiles x P-tiles, H, B), eight
+//     warps: for 64 rows of a chunk, y = exp(cum_i) (C_i . h_in) + sum over
+//     j <= i of (C_i . B_j) exp(cum_i - cum_j) x_j, j-tile by j-tile up to
+//     the diagonal, on the tensor cores; the two warps of a row slab each
+//     form half of its scores and pass them on through shared memory as
+//     the A fragments of scores . x.
+// (d) ssd_step_kernel, for S = 1 (the decode step) alone: one block a head
+//     gives y and h_last of the one step in one launch, with no workspace;
+//     at one step the products are dot products, not tensor-core work.
+//
+// Every product of (a) and (c) runs on mma.sync with float32 sums. float32
+// takes m16n8k8 as 3xTF32 (x = hi + lo, hopper::split; one TF32 product
+// misses the 2e-5 float32 check). bf16 takes m16n8k16; its float32
+// operands, B * w in (a) and h_in in (c), go in as hi + lo, both bf16 (two
+// products, about 16 bits kept), so that the state and the decays stay
+// float32; only the scores are rounded to bf16, as the operand of
+// scores . x. A thread's k pair of a k8 step is (2t, 2t + 1) in both (in
+// TF32 the k order within a step is free), so one fragment layout serves
+// both dtypes and C B^T's accumulator is, as it lies, the A fragment of
+// scores . x. Tiles are staged by cp.async in the input's type (h_in in
+// float32), rows padded so that every fragment load of a warp hits 32
+// banks. No block holds [Q, N] + [Q, Q] + [N, P] at once: the chunk is
+// tiled by 64 rows, the state by 128 x 64, so any chunk up to QMAX = 256
+// launches; shared memory bounds only N (out_smem). The last chunk may be
+// ragged: its missing steps are zero (log_a 0, x 0, B 0, C 0), which adds
+// nothing, and are not stored; bf16 zero-fills N to a multiple of 16 for
+// the k16 steps over N.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
+#include <cstdint>
+
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int NT = 256;
+using namespace hopper;
+typedef __nv_bfloat16 bf16;
+
+constexpr int NT = 128;      // threads of (a): four warps
+constexpr int NT_OUT = 256;  // threads of (c): eight warps
+constexpr int TQ = 64;     // time rows of a tile
+constexpr int TP = 64;     // state columns (P) of a tile
+constexpr int TN = 128;    // state rows (N) of a chunk-state tile
+constexpr int QMAX = 256;  // the longest chunk (its cumsum sits in smem)
+constexpr int PASS_THREADS = 256;
+constexpr int STEP_THREADS = 256;
 constexpr int SMEM_LIMIT = 232448;  // 227 KB, the H100's per-block maximum
 
+// Tiles sit in shared memory in the input's type, row strides in elements
+// chosen so that every fragment load of a warp hits 32 banks. A tile read
+// along its rows (k = 2t, 2t + 1 of row g: C and B in (c)) takes n + 8: 8
+// mod 32 floats for float2 loads, 4 mod 32 words for bf16 pairs. A tile
+// read down its rows (rows 2t and 2t + 1 of column g: x and h_in, and B in
+// (a)) takes cols + 4 floats (4 mod 16) or cols + 8 bf16 (8 mod 32).
+__host__ __device__ constexpr int ld_row(int n) { return n + 8; }
+__host__ __device__ constexpr int ld_col(int cols, int es) {
+  return es == 4 ? cols + 4 : cols + 8;
+}
+__host__ __device__ constexpr size_t state_smem(int es) {
+  return (size_t)es * TQ * (ld_col(TN, es) + ld_col(TP, es)) + 4 * QMAX;
+}
+// The K extent of the products over N: a whole number of mma k-steps (8 in
+// float32, 16 in bf16), zero-filled past n.
+__host__ __device__ constexpr int n_steps(int n, int es) {
+  return es == 4 ? n : (n + 15) & ~15;
+}
+// (c)'s score buffer: 16 rows x 64 j of each of the four row slabs; h_in's
+// rows, float32 in both dtypes.
+constexpr int LD_SC = TQ + 8;
+constexpr int LH = TP + 4;
+__host__ __device__ constexpr size_t out_smem(int n, int es) {
+  return 4 * QMAX + (size_t)es * 4 * 16 * LD_SC + (size_t)es * TQ * ld_row(n) +
+         ((size_t)4 * n_steps(n, es) * LH >
+                  (size_t)es * TQ * (ld_row(n) + ld_col(TP, es))
+              ? (size_t)4 * n_steps(n, es) * LH
+              : (size_t)es * TQ * (ld_row(n) + ld_col(TP, es)));
+}
+
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
+__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
+
+// Two neighbouring outputs (p, p + 1), and their float values.
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
 }
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
+__device__ __forceinline__ void store2(bf16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+__device__ __forceinline__ float2 load2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 load2(const bf16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
 }
 
-size_t smem_bytes(int q, int p, int n) {
-  return sizeof(float) * (2 * (size_t)q + (size_t)q * p +
-                          (size_t)q * (n + 1) + (size_t)q * n +
-                          (size_t)q * q + (size_t)n * p);
-}
-
+// A [rows, cols] tile of a row-major source (row stride `stride` elements)
+// into shared memory of the same type (row stride ld) by 16-byte cp.async:
+// rows >= vrows and columns >= vcols are zero-filled. cols and vcols are
+// multiples of 8, rows start on 16 bytes; the caller commits and waits.
 template <typename T>
-__global__ void __launch_bounds__(NT)
-ssd_kernel(const T* __restrict__ log_a, const T* __restrict__ dtx,
-           const T* __restrict__ bm, const T* __restrict__ cm,
-           const T* __restrict__ h0, T* __restrict__ y, T* __restrict__ h_out,
-           int nh, int s, int p, int n, int q) {
-  extern __shared__ float smem[];
-  float* cum = smem;                  // [q] inclusive cumsum of log_a
-  float* wv = cum + q;                // [q] exp(total - cum)
-  float* xs = wv + q;                 // [q][p]
-  float* bs = xs + q * p;             // [q][n + 1], padded rows
-  float* cs = bs + q * (n + 1);       // [q][n]
-  float* sc = cs + q * n;             // [q][q] masked decay scores
-  float* hs = sc + q * q;             // [n][p] state
-
-  const int tid = threadIdx.x;
-  const int h = blockIdx.x, bb = blockIdx.y;
-  const T* la_b = log_a + ((size_t)bb * nh + h) * s;
-  const T* bm_b = bm + (size_t)bb * s * n;
-  const T* cm_b = cm + (size_t)bb * s * n;
-  const size_t st_off = ((size_t)bb * nh + h) * n * p;
-
-  for (int i = tid; i < n * p; i += NT) hs[i] = to_f32(h0[st_off + i]);
-
-  for (int t0 = 0; t0 < s; t0 += q) {
-    const int qn = min(q, s - t0);
-    __syncthreads();  // the previous chunk is done with every buffer
-    for (int i = tid; i < q; i += NT) cum[i] = i < qn ? to_f32(la_b[t0 + i]) : 0.f;
-    for (int i = tid; i < q * p; i += NT) {
-      const int r = i / p, c = i % p;
-      xs[i] = r < qn ? to_f32(dtx[(((size_t)bb * s + t0 + r) * nh + h) * p + c])
-                     : 0.f;
+__device__ __forceinline__ void stage(T* dst, int ld, const T* src,
+                                      size_t stride, int rows, int vrows,
+                                      int cols, int vcols) {
+  constexpr int E = 16 / sizeof(T);
+  const int per_row = cols / E;
+  for (int i = threadIdx.x; i < rows * per_row; i += blockDim.x) {
+    const int r = i / per_row, c = (i % per_row) * E;
+    const bool ok = r < vrows && c < vcols;
+    cp_async16(dst + r * ld + c, ok ? src + r * stride + c : src, ok ? 16 : 0);
+  }
+}
+// A bf16 tile into float32 shared memory (h0 as h_in, with one chunk):
+// eight values a thread at a time, through registers.
+__device__ __forceinline__ void stage(float* dst, int ld, const bf16* src,
+                                      size_t stride, int rows, int vrows,
+                                      int cols, int vcols) {
+  const int per_row = cols / 8;
+  for (int i = threadIdx.x; i < rows * per_row; i += blockDim.x) {
+    const int r = i / per_row, c = (i % per_row) * 8;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (r < vrows && c < vcols) {
+      v = *reinterpret_cast<const uint4*>(src + r * stride + c);
     }
-    for (int i = tid; i < q * n; i += NT) {
-      const int r = i / n, c = i % n;
-      const bool ok = r < qn;
-      const size_t src = (size_t)(t0 + r) * n + c;
-      bs[r * (n + 1) + c] = ok ? to_f32(bm_b[src]) : 0.f;
-      cs[i] = ok ? to_f32(cm_b[src]) : 0.f;
+    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+    float4* d = reinterpret_cast<float4*>(dst + r * ld + c);
+    float f[8];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      f[2 * u] = __uint_as_float(w[u] << 16);
+      f[2 * u + 1] = __uint_as_float(w[u] & 0xffff0000u);
     }
-    __syncthreads();
-    if (tid == 0) {
-      float acc = 0.f;
-      for (int i = 0; i < q; ++i) {
-        acc += cum[i];
-        cum[i] = acc;
+    d[0] = make_float4(f[0], f[1], f[2], f[3]);
+    d[1] = make_float4(f[4], f[5], f[6], f[7]);
+  }
+}
+
+// Inclusive cumsum of cum[0 .. len) in place, len a multiple of 32, by one
+// warp: a shuffle scan of each 32 values plus the carry of those before.
+__device__ __forceinline__ void warp_cumsum(float* cum, int len) {
+  const int lane = threadIdx.x & 31;
+  float carry = 0.f;
+  for (int base = 0; base < len; base += 32) {
+    float v = cum[base + lane];
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const float u = __shfl_up_sync(~0u, v, o);
+      if (lane >= o) v += u;
+    }
+    v += carry;
+    cum[base + lane] = v;
+    carry = __shfl_sync(~0u, v, 31);
+  }
+}
+
+// The two warps of a row slab meet (named barrier 1 + slab; 0 is
+// __syncthreads).
+__device__ __forceinline__ void pair_sync(int slab) {
+  asm volatile("bar.sync %0, 64;\n" ::"r"(1 + slab) : "memory");
+}
+
+// The operand arithmetic of each dtype, one mma k-step (K) at a time. An A
+// fragment holds rows g and g + 8 at k = 2t and 2t + 1 (and, in bf16,
+// 2t + 8 and 2t + 9), a B fragment column g at the same k: from two rows of
+// a tile read along k (a_rows, b_row: p at k = 2t), or from a tile read
+// down k (b_col, and b_wide from float32 h_in: p at row 2t, column g).
+// a_scaled forms (B * w)^T of (a) from B read down k (p at k = 2t, row g)
+// and w at k = 2t. AW and BW are the float32 operands: 3xTF32 already in
+// float32, hi + lo in bf16.
+template <typename T>
+struct Mma;
+template <>
+struct Mma<float> {  // 3xTF32 on m16n8k8
+  static constexpr int K = 8;
+  struct A {
+    uint32_t hi[4], lo[4];
+  };
+  struct B {
+    uint32_t hi[2], lo[2];
+  };
+  typedef A AW;
+  typedef B BW;
+  // (g, 2t), (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1) in the TF32 slots
+  // (g, t), (g, t + 4), (g + 8, t), (g + 8, t + 4).
+  __device__ static A a(float v00, float v01, float v10, float v11) {
+    A r;
+    split(v00, r.hi[0], r.lo[0]);
+    split(v10, r.hi[1], r.lo[1]);
+    split(v01, r.hi[2], r.lo[2]);
+    split(v11, r.hi[3], r.lo[3]);
+    return r;
+  }
+  __device__ static B b(float k0, float k1) {
+    B r;
+    split(k0, r.hi[0], r.lo[0]);
+    split(k1, r.hi[1], r.lo[1]);
+    return r;
+  }
+  __device__ static A a_rows(const float* r0, const float* r1) {
+    const float2 u = load2(r0), v = load2(r1);
+    return a(u.x, u.y, v.x, v.y);
+  }
+  __device__ static B b_row(const float* p) {
+    const float2 u = load2(p);
+    return b(u.x, u.y);
+  }
+  __device__ static B b_col(const float* p, int ld) { return b(p[0], p[ld]); }
+  __device__ static BW b_wide(const float* p, int ld) { return b_col(p, ld); }
+  __device__ static AW a_scaled(const float* p, int ld, const float* w) {
+    return a(p[0] * w[0], p[ld] * w[1], p[8] * w[0], p[ld + 8] * w[1]);
+  }
+  __device__ static void mma(float* d, const A& a, const B& b) {
+    mma_3xtf32(d, a.hi, a.lo, b.hi[0], b.hi[1], b.lo[0], b.lo[1]);
+  }
+};
+// x = hi + lo for two floats, each half a bf16 pair.
+__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = pack_bf16(x0, x1);
+  lo = pack_bf16(x0 - __uint_as_float(hi << 16),
+                 x1 - __uint_as_float(hi & 0xffff0000u));
+}
+__device__ __forceinline__ uint32_t ld32(const bf16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+__device__ __forceinline__ uint32_t pair(const bf16* p, int ld) {
+  return (uint32_t)*reinterpret_cast<const unsigned short*>(p) |
+         ((uint32_t)*reinterpret_cast<const unsigned short*>(p + ld) << 16);
+}
+template <>
+struct Mma<bf16> {  // bf16 on m16n8k16, float32 sums
+  static constexpr int K = 16;
+  struct A {
+    uint32_t r[4];
+  };
+  struct B {
+    uint32_t r[2];
+  };
+  struct AW {
+    A hi, lo;
+  };
+  struct BW {
+    B hi, lo;
+  };
+  __device__ static A a_rows(const bf16* r0, const bf16* r1) {
+    return A{{ld32(r0), ld32(r1), ld32(r0 + 8), ld32(r1 + 8)}};
+  }
+  __device__ static B b_row(const bf16* p) { return B{{ld32(p), ld32(p + 8)}}; }
+  __device__ static B b_col(const bf16* p, int ld) {
+    return B{{pair(p, ld), pair(p + 8 * ld, ld)}};
+  }
+  __device__ static BW b_wide(const float* p, int ld) {
+    BW r;
+    split_bf16(p[0], p[ld], r.hi.r[0], r.lo.r[0]);
+    split_bf16(p[8 * ld], p[9 * ld], r.hi.r[1], r.lo.r[1]);
+    return r;
+  }
+  __device__ static AW a_scaled(const bf16* p, int ld, const float* w) {
+    AW r;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {  // k = 2t (+ 8h) and the next
+      const bf16* q = p + 8 * h * ld;
+      const float w0 = w[8 * h], w1 = w[8 * h + 1];
+      split_bf16(to_f32(q[0]) * w0, to_f32(q[ld]) * w1, r.hi.r[2 * h],
+                 r.lo.r[2 * h]);
+      split_bf16(to_f32(q[8]) * w0, to_f32(q[ld + 8]) * w1,
+                 r.hi.r[2 * h + 1], r.lo.r[2 * h + 1]);
+    }
+    return r;
+  }
+  __device__ static void mma(float* d, const A& a, const B& b) {
+    mma_bf16(d, a.r, b.r[0], b.r[1]);
+  }
+  // The small term first, as in 3xTF32.
+  __device__ static void mma(float* d, const AW& a, const B& b) {
+    mma(d, a.lo, b);
+    mma(d, a.hi, b);
+  }
+  __device__ static void mma(float* d, const A& a, const BW& b) {
+    mma(d, a, b.lo);
+    mma(d, a, b.hi);
+  }
+};
+
+// (a) The chunk's state S_c[n, p] = sum_j B[j, n] w_j x[j, p] for one
+// [TN, TP] tile: warp w owns state rows 32w .. 32w + 31 (two m16 tiles) and
+// all 64 columns (eight n8 tiles), K = the chunk's steps, 64 at a time
+// (rows past the chunk and w past qv are zero).
+template <typename T>
+__global__ void __launch_bounds__(NT, 4)
+ssd_state_kernel(const T* __restrict__ log_a, const T* __restrict__ dtx,
+                 const T* __restrict__ bm, const T* __restrict__ h0,
+                 float* __restrict__ ws, float* __restrict__ decay,
+                 T* __restrict__ h_out, int nh, int s, int p, int n, int q,
+                 int nc, int nnb, int npb) {
+  typedef Mma<T> M;
+  constexpr int LB = ld_col(TN, sizeof(T)), LX = ld_col(TP, sizeof(T));
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* w = reinterpret_cast<float*>(smem_raw);  // [QMAX] cumsum, then
+                                                  // exp(total - cum)
+  T* bs = reinterpret_cast<T*>(w + QMAX);         // [TQ][LB] B, N-tile
+  T* xs = bs + TQ * LB;                           // [TQ][LX] x, P-tile
+  int bx = blockIdx.x;
+  const int pb = bx % npb;
+  bx /= npb;
+  const int nb = bx % nnb, c = bx / nnb;
+  const int h = blockIdx.y, bb = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int t0 = c * q, qv = min(q, s - t0), qpad = (qv + 31) & ~31;
+  const int n0 = nb * TN, p0 = pb * TP;
+  auto stage_tile = [&](int j0) {
+    const int jv = min(TQ, qv - j0);
+    const size_t row = (size_t)bb * s + t0 + j0;
+    stage(bs, LB, bm + row * n + n0, n, TQ, jv, TN, min(TN, n - n0));
+    stage(xs, LX, dtx + (row * nh + h) * p + p0, (size_t)nh * p, TQ, jv, TP,
+          min(TP, p - p0));
+    cp_async_commit();
+  };
+  stage_tile(0);  // in flight while the cumsum is taken
+
+  const T* la = log_a + ((size_t)bb * nh + h) * s + t0;
+  for (int i = tid; i < qpad; i += NT) w[i] = i < qv ? to_f32(la[i]) : 0.f;
+  __syncthreads();
+  if (warp == 0) warp_cumsum(w, qpad);
+  __syncthreads();
+  const float total = w[qpad - 1];
+  __syncthreads();  // every thread has read the total
+  for (int i = tid; i < qpad; i += NT) w[i] = i < qv ? expf(total - w[i]) : 0.f;
+
+  float acc[2][8][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+
+  const int m0 = warp * 32;
+  for (int j0 = 0; j0 < qv; j0 += TQ) {
+    if (j0 > 0) {
+      __syncthreads();  // the last tile is consumed
+      stage_tile(j0);
+    }
+    cp_async_wait<0>();
+    __syncthreads();  // the tile, and w, are in place
+    const int ksteps = (min(TQ, qv - j0) + M::K - 1) / M::K;
+    for (int kk = 0; kk < ksteps; ++kk) {
+      const int k = kk * M::K + 2 * t;
+      typename M::AW a[2];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        a[mt] = M::a_scaled(bs + k * LB + m0 + mt * 16 + g, LB, w + j0 + k);
       }
-    }
-    __syncthreads();
-    const float total = cum[q - 1];
-    for (int i = tid; i < q; i += NT) wv[i] = expf(total - cum[i]);
-
-    // Scores: (C_i . B_j) * exp(cum_i - cum_j) below the diagonal.
-    for (int e = tid; e < q * q; e += NT) {
-      const int i = e / q, j = e % q;
-      float v = 0.f;
-      if (i >= j) {
-        const float* ci = cs + i * n;
-        const float* bj = bs + j * (n + 1);
-        float dot = 0.f;
-        for (int k = 0; k < n; ++k) dot = fmaf(ci[k], bj[k], dot);
-        v = dot * expf(cum[i] - cum[j]);
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        const typename M::B b = M::b_col(xs + k * LX + nt * 8 + g, LX);
+        M::mma(acc[0][nt], a[0], b);
+        M::mma(acc[1][nt], a[1], b);
       }
-      sc[e] = v;
-    }
-    __syncthreads();
-
-    // y = scores @ x + exp(cum) * (C @ h_prev).
-    for (int e = tid; e < qn * p; e += NT) {
-      const int i = e / p, c = e % p;
-      const float* si = sc + i * q;
-      float intra = 0.f;
-      for (int j = 0; j <= i; ++j) intra = fmaf(si[j], xs[j * p + c], intra);
-      const float* ci = cs + i * n;
-      float inter = 0.f;
-      for (int k = 0; k < n; ++k) inter = fmaf(ci[k], hs[k * p + c], inter);
-      store(&y[(((size_t)bb * s + t0 + i) * nh + h) * p + c],
-            intra + inter * expf(cum[i]));
-    }
-    __syncthreads();  // every read of h_prev is done
-
-    // h = exp(total) h_prev + (B * exp(total - cum))^T @ x.
-    const float decay = expf(total);
-    for (int e = tid; e < n * p; e += NT) {
-      const int k = e / p, c = e % p;
-      float acc = 0.f;
-      for (int j = 0; j < q; ++j) {
-        acc = fmaf(bs[j * (n + 1) + k] * wv[j], xs[j * p + c], acc);
-      }
-      hs[e] = decay * hs[e] + acc;
     }
   }
+
+  const size_t bh = (size_t)bb * nh + h;
+  const float dA = expf(total);
+  if (nc > 1 && nb == 0 && pb == 0 && tid == 0) decay[bh * nc + c] = dA;
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int r = n0 + m0 + mt * 16 + g + 8 * hh;
+      if (r >= n) continue;
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        const int col = p0 + nt * 8 + 2 * t;
+        if (col >= p) continue;
+        const float v0 = acc[mt][nt][2 * hh], v1 = acc[mt][nt][2 * hh + 1];
+        if (nc > 1) {
+          store2(ws + ((bh * nc + c) * n + r) * p + col, v0, v1);
+        } else {
+          const size_t o = (bh * n + r) * p + col;
+          const float2 h2 = load2(h0 + o);
+          store2(h_out + o, dA * h2.x + v0, dA * h2.y + v1);
+        }
+      }
+    }
+}
+
+// (b) The state entering each chunk: four state elements a thread, the
+// chunks in order, loads kept 8 chunks ahead.
+template <typename T>
+__global__ void __launch_bounds__(PASS_THREADS)
+ssd_pass_kernel(const T* __restrict__ h0, float* __restrict__ ws,
+                const float* __restrict__ decay, T* __restrict__ h_out,
+                int nh, int np, int nc) {
+  const int e = 4 * (blockIdx.x * PASS_THREADS + threadIdx.x);
+  if (e >= np) return;
+  const size_t bh = (size_t)blockIdx.z * nh + blockIdx.y;
+  float hv[4];
+  {
+    const float2 a = load2(h0 + bh * np + e), b = load2(h0 + bh * np + e + 2);
+    hv[0] = a.x, hv[1] = a.y, hv[2] = b.x, hv[3] = b.y;
+  }
+  float4* st = reinterpret_cast<float4*>(ws + bh * nc * np + e);
+  const size_t step = np / 4;
+  const float* dA = decay + bh * nc;
+  constexpr int AHEAD = 8;
+  for (int c0 = 0; c0 < nc; c0 += AHEAD) {
+    float4 sc[AHEAD];
+    float d[AHEAD];
+#pragma unroll
+    for (int u = 0; u < AHEAD; ++u) {
+      if (c0 + u < nc) {
+        sc[u] = st[(c0 + u) * step];
+        d[u] = dA[c0 + u];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < AHEAD; ++u) {
+      if (c0 + u < nc) {
+        st[(c0 + u) * step] = make_float4(hv[0], hv[1], hv[2], hv[3]);
+        hv[0] = d[u] * hv[0] + sc[u].x;
+        hv[1] = d[u] * hv[1] + sc[u].y;
+        hv[2] = d[u] * hv[2] + sc[u].z;
+        hv[3] = d[u] * hv[3] + sc[u].w;
+      }
+    }
+  }
+  store2(h_out + bh * np + e, hv[0], hv[1]);
+  store2(h_out + bh * np + e + 2, hv[2], hv[3]);
+}
+
+// (c) y for 64 rows of a chunk and 64 columns of P. Warp w owns rows
+// 16 (w % 4) .. + 15 of the tile (its slab) and columns 32 (w / 4) .. + 31;
+// the two warps of a slab form alternate j8-tiles of its scores and share
+// them through shared memory (rounded to T, the operand type). h_in, h0
+// with one chunk, sits in float32.
+template <typename T>
+__global__ void __launch_bounds__(NT_OUT, sizeof(T) == 4 ? 2 : 3)
+ssd_out_kernel(const T* __restrict__ log_a, const T* __restrict__ dtx,
+               const T* __restrict__ bm, const T* __restrict__ cm,
+               const T* __restrict__ h0, const float* __restrict__ ws,
+               T* __restrict__ y, int nh, int s, int p, int n, int q, int nc,
+               int nib, int npb) {
+  typedef Mma<T> M;
+  constexpr int NTP = TP / 16;        // n8 tiles of a warp's 32 columns
+  constexpr int LX = ld_col(TP, sizeof(T));
+  constexpr int KU = 32 / M::K;       // k-steps unrolled: C h_in, C B^T
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int ldn = ld_row(n), nk = n_steps(n, sizeof(T));
+  float* cum = reinterpret_cast<float*>(smem_raw);  // [QMAX]
+  T* sbuf = reinterpret_cast<T*>(cum + QMAX);       // [4][16][LD_SC] scores
+  T* cs = sbuf + 4 * 16 * LD_SC;                    // [TQ][ldn] C, i-tile
+  float* hs = reinterpret_cast<float*>(cs + TQ * ldn);  // [nk][LH] h_in,
+  T* bs = reinterpret_cast<T*>(hs);                 // then [TQ][ldn] B,
+  T* xs = bs + TQ * ldn;                            // [TQ][LX] x, j-tile
+  int bx = blockIdx.x;
+  const int pb = bx % npb;
+  bx /= npb;
+  const int ib = nib - 1 - bx % nib;  // the longest row tiles first
+  const int c = bx / nib;
+  const int h = blockIdx.y, bb = blockIdx.z;
+  const int t0 = c * q, qv = min(q, s - t0), i0 = ib * TQ;
+  if (i0 >= qv) return;               // past a ragged chunk's end
+  const int iv = min(TQ, qv - i0), p0 = pb * TP, pv = min(TP, p - p0);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int len = min(qv, i0 + TQ), lpad = (len + 31) & ~31;
+  const size_t bh = (size_t)bb * nh + h;
+
+  // C and h_in by cp.async (bf16 h0 through registers).
+  stage(cs, ldn, cm + ((size_t)bb * s + t0 + i0) * n, n, TQ, iv, nk, n);
+  if (nc > 1) {
+    stage(hs, LH, ws + (bh * nc + c) * n * p + p0, p, nk, n, TP, pv);
+  } else {
+    stage(hs, LH, h0 + bh * n * p + p0, p, nk, n, TP, pv);
+  }
+  cp_async_commit();
+  const T* la = log_a + bh * s + t0;
+  for (int i = tid; i < lpad; i += NT_OUT) cum[i] = i < len ? to_f32(la[i]) : 0.f;
+  auto stage_j = [&](int j0) {
+    const size_t row = (size_t)bb * s + t0 + j0;
+    const int jv = min(TQ, qv - j0);
+    stage(bs, ldn, bm + row * n, n, TQ, jv, nk, n);
+    stage(xs, LX, dtx + (row * nh + h) * p + p0, (size_t)nh * p, TQ, jv, TP,
+          pv);
+    cp_async_commit();
+  };
+  cp_async_wait<0>();
   __syncthreads();
-  for (int i = tid; i < n * p; i += NT) store(&h_out[st_off + i], hs[i]);
+  if (warp == 0) warp_cumsum(cum, lpad);
+  __syncthreads();
+
+  const int r0 = (warp & 3) * 16, c0 = (warp >> 2) * (TP / 2);
+  const bool active = r0 < iv;        // warp-uniform: rows past iv are zero
+  float acc[NTP][4];
+#pragma unroll
+  for (int nt = 0; nt < NTP; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
+  const T* crow = cs + (r0 + g) * ldn + 2 * t;
+  if (active) {
+#pragma unroll KU
+    for (int k = 0; k < nk; k += M::K) {
+      const typename M::A a = M::a_rows(crow + k, crow + 8 * ldn + k);
+#pragma unroll
+      for (int nt = 0; nt < NTP; ++nt) {
+        M::mma(acc[nt], a, M::b_wide(hs + (k + 2 * t) * LH + c0 + nt * 8 + g, LH));
+      }
+    }
+  }
+  const int ia = i0 + r0 + g;         // this thread's rows: ia and ia + 8
+  const float cia = cum[min(ia, len - 1)], cib = cum[min(ia + 8, len - 1)];
+  {
+    const float ea = expf(cia), eb = expf(cib);
+#pragma unroll
+    for (int nt = 0; nt < NTP; ++nt) {
+      acc[nt][0] *= ea, acc[nt][1] *= ea;
+      acc[nt][2] *= eb, acc[nt][3] *= eb;
+    }
+  }
+
+  for (int jb = 0; jb <= ib; ++jb) {
+    const int j0 = jb * TQ;
+    __syncthreads();  // h_in, or the last j-tile, is consumed
+    stage_j(j0);
+    cp_async_wait<0>();
+    __syncthreads();
+    if (!active) continue;
+    // The j8-tiles this slab sees: all below the diagonal tile, on it those
+    // up to its last row; four at a time, two of them this warp's.
+    const int ntj = jb < ib ? 8 : min(8, (r0 + 16) / 8);
+    const int slab = warp & 3, half = warp >> 2;
+    T* sb = sbuf + slab * 16 * LD_SC;
+    for (int jt0 = 0; jt0 < ntj; jt0 += 4) {
+      float sc[2][4];
+#pragma unroll
+      for (int u = 0; u < 2; ++u)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[u][e] = 0.f;
+#pragma unroll KU
+      for (int k = 0; k < nk; k += M::K) {
+        const typename M::A a = M::a_rows(crow + k, crow + 8 * ldn + k);
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const int jt = jt0 + half + 2 * u;
+          if (jt < ntj) {
+            M::mma(sc[u], a, M::b_row(bs + (jt * 8 + g) * ldn + k + 2 * t));
+          }
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int jt = jt0 + half + 2 * u;
+        if (jt < ntj) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = min(ia + 8 * (e >> 1), len - 1);
+            const int j = j0 + jt * 8 + 2 * t + (e & 1);
+            const float ci = e < 2 ? cia : cib;
+            sc[u][e] = j <= i ? sc[u][e] * expf(ci - cum[j]) : 0.f;
+          }
+          store2(sb + g * LD_SC + jt * 8 + 2 * t, sc[u][0], sc[u][1]);
+          store2(sb + (g + 8) * LD_SC + jt * 8 + 2 * t, sc[u][2], sc[u][3]);
+        }
+      }
+      pair_sync(slab);  // the slab's scores of this group are in place
+#pragma unroll
+      for (int jt = jt0; jt < jt0 + 4; jt += M::K / 8) {
+        if (jt < ntj) {  // ntj is even, so a k16 step's second tile is too
+          // Scores as the A fragment of scores . x, k = j.
+          const typename M::A a = M::a_rows(sb + g * LD_SC + jt * 8 + 2 * t,
+                                            sb + (g + 8) * LD_SC + jt * 8 + 2 * t);
+          const T* xr = xs + (jt * 8 + 2 * t) * LX + c0 + g;
+#pragma unroll
+          for (int nt = 0; nt < NTP; ++nt) {
+            M::mma(acc[nt], a, M::b_col(xr + nt * 8, LX));
+          }
+        }
+      }
+      pair_sync(slab);  // both have read them before the next group
+    }
+  }
+
+  if (!active) return;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int r = r0 + g + 8 * hh;
+    if (r >= iv) continue;
+    T* dst = y + (((size_t)bb * s + t0 + i0 + r) * nh + h) * p + p0 + c0 + 2 * t;
+#pragma unroll
+    for (int nt = 0; nt < NTP; ++nt) {
+      if (c0 + nt * 8 + 2 * t < pv) {
+        store2(dst + nt * 8, acc[nt][2 * hh], acc[nt][2 * hh + 1]);
+      }
+    }
+  }
+}
+
+// (d) One step (S = 1, the decode step), one block a (b, h): y = (C . B) x
+// + exp(la) (C . h0) and h_last = exp(la) h0 + B x^T, which (a) and (c)
+// give for a one-step chunk. Thread (g8, cp) takes state rows g8, g8 + 8,
+// ... and columns 2cp, 2cp + 1 (+ 64, ...); y's sum over the rows goes
+// through shared memory in a fixed order.
+template <typename T>
+__global__ void __launch_bounds__(STEP_THREADS)
+ssd_step_kernel(const T* __restrict__ log_a, const T* __restrict__ dtx,
+                const T* __restrict__ bm, const T* __restrict__ cm,
+                const T* __restrict__ h0, T* __restrict__ y,
+                T* __restrict__ h_out, int nh, int p, int n) {
+  __shared__ float part[STEP_THREADS / 32][2 * 32];
+  __shared__ float cbs;
+  const int h = blockIdx.x, bb = blockIdx.y;
+  const int tid = threadIdx.x, g8 = tid >> 5, cp = tid & 31;
+  const size_t bh = (size_t)bb * nh + h;
+  const T* bv = bm + (size_t)bb * n;
+  const T* cv = cm + (size_t)bb * n;
+  const float la = to_f32(log_a[bh]), dA = expf(la);
+  // C . B, by the first warp.
+  if (g8 == 0) {
+    float v = 0.f;
+    for (int k = cp; k < n; k += 32) v = fmaf(to_f32(cv[k]), to_f32(bv[k]), v);
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(~0u, v, o);
+    if (cp == 0) cbs = v;
+  }
+  const T* xr = dtx + bh * p;
+  const T* hr = h0 + bh * n * p;
+  T* ho = h_out + bh * n * p;
+  for (int col0 = 0; col0 < p; col0 += 64) {  // block-uniform trips
+    const int col = col0 + 2 * cp;
+    const bool in = col < p;
+    const float2 xv = in ? load2(xr + col) : make_float2(0.f, 0.f);
+    float ya = 0.f, yb = 0.f;
+    for (int k = g8; in && k < n; k += STEP_THREADS / 32) {
+      const float bk = to_f32(bv[k]), ck = to_f32(cv[k]);
+      const float2 hv = load2(hr + (size_t)k * p + col);
+      store2(ho + (size_t)k * p + col, dA * hv.x + bk * xv.x,
+             dA * hv.y + bk * xv.y);
+      ya = fmaf(ck, hv.x, ya);
+      yb = fmaf(ck, hv.y, yb);
+    }
+    __syncthreads();  // part is free; cbs is written
+    part[g8][2 * cp] = ya;
+    part[g8][2 * cp + 1] = yb;
+    __syncthreads();
+    if (g8 == 0 && in) {
+      float sa = 0.f, sb = 0.f;
+#pragma unroll
+      for (int w = 0; w < STEP_THREADS / 32; ++w) {
+        sa += part[w][2 * cp];
+        sb += part[w][2 * cp + 1];
+      }
+      store2(y + bh * p + col, cbs * xv.x + sa * dA, cbs * xv.y + sb * dA);
+    }
+  }
 }
 
 template <typename T>
 int launch(const void* log_a, const void* dtx, const void* bm, const void* cm,
-           const void* h0, void* y, void* h_out, int b, int nh, int s, int p,
-           int n, int q, cudaStream_t stream) {
-  const size_t smem = smem_bytes(q, p, n);
-  if (smem > (size_t)SMEM_LIMIT) return (int)cudaErrorInvalidValue;
-  auto kernel = ssd_kernel<T>;
+           const void* h0, void* y, void* h_out, float* ws, float* decay,
+           int b, int nh, int s, int p, int n, int q, cudaStream_t stream) {
+  if (q > QMAX || p % 8 || n % 8 ||
+      out_smem(n, sizeof(T)) > (size_t)SMEM_LIMIT) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int nc = (s + q - 1) / q;
+  if (nc > 1 && (ws == nullptr || decay == nullptr)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int nnb = (n + TN - 1) / TN, npb = (p + TP - 1) / TP;
+  const int nib = (q + TQ - 1) / TQ;
+  const T* la = static_cast<const T*>(log_a);
+  const T* x = static_cast<const T*>(dtx);
+  const T* bmt = static_cast<const T*>(bm);
+  const T* h0t = static_cast<const T*>(h0);
+  T* hout = static_cast<T*>(h_out);
+
+  if (s == 1) {  // the decode step: one kernel
+    ssd_step_kernel<T><<<dim3(nh, b), STEP_THREADS, 0, stream>>>(
+        la, x, bmt, static_cast<const T*>(cm), h0t, static_cast<T*>(y), hout,
+        nh, p, n);
+    return (int)cudaGetLastError();
+  }
+  auto state = ssd_state_kernel<T>;
+  auto out = ssd_out_kernel<T>;
+  // All of the SM's 228 KB as shared memory, so that as many blocks as it
+  // fits share an SM (at N = 128: four of (a); two of (c) in float32, three
+  // in bf16, where registers bound it).
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      state, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)state_smem(sizeof(T)));
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(state,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               (int)cudaSharedmemCarveoutMaxShared);
+  }
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(
+        out, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)out_smem(n, sizeof(T)));
+  }
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(out,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               (int)cudaSharedmemCarveoutMaxShared);
+  }
   if (err != cudaSuccess) return (int)err;
-  dim3 grid(nh, b);
-  kernel<<<grid, NT, smem, stream>>>(
-      static_cast<const T*>(log_a), static_cast<const T*>(dtx),
-      static_cast<const T*>(bm), static_cast<const T*>(cm),
-      static_cast<const T*>(h0), static_cast<T*>(y), static_cast<T*>(h_out),
-      nh, s, p, n, q);
+
+  state<<<dim3(nc * nnb * npb, nh, b), NT, state_smem(sizeof(T)), stream>>>(
+      la, x, bmt, h0t, ws, decay, hout, nh, s, p, n, q, nc, nnb, npb);
+  if (nc > 1) {
+    const int per = PASS_THREADS * 4;
+    ssd_pass_kernel<T><<<dim3((n * p + per - 1) / per, nh, b), PASS_THREADS,
+                         0, stream>>>(h0t, ws, decay, hout, nh, n * p, nc);
+  }
+  out<<<dim3(nc * nib * npb, nh, b), NT_OUT, out_smem(n, sizeof(T)), stream>>>(
+      la, x, bmt, static_cast<const T*>(cm), h0t, ws, static_cast<T*>(y), nh,
+      s, p, n, q, nc, nib, npb);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. q is the chunk length (1 <= q; the last
-// chunk may be shorter). Returns cudaGetLastError() after the launch, or
-// cudaErrorInvalidValue for an argument this file does not take (a chunk
-// whose shared memory exceeds 227 KB).
+// dtype: 0 = float32, 1 = bfloat16. q is the chunk length (1 <= q <= 256;
+// the last chunk may be shorter); P and N are multiples of 8, and dtx, Bm,
+// C and h0 start on 16 bytes. With more than one chunk, ws holds
+// ceil(S / q) * B * H * N * P floats and decay ceil(S / q) * B * H (both
+// may be null otherwise). Returns cudaGetLastError() after the launches,
+// or cudaErrorInvalidValue for an argument this file does not take.
 extern "C" int repro_ssd(const void* log_a, const void* dtx, const void* bm,
                          const void* cm, const void* h0, void* y, void* h_out,
-                         int b, int nh, int s, int p, int n, int q, int dtype,
-                         void* stream) {
+                         void* ws, void* decay, int b, int nh, int s, int p,
+                         int n, int q, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (b <= 0 || nh <= 0 || s <= 0 || p <= 0 || n <= 0 || q <= 0) {
     return (int)cudaErrorInvalidValue;
   }
+  float* wsf = static_cast<float*>(ws);
+  float* dec = static_cast<float*>(decay);
   if (dtype == 0) {
-    return launch<float>(log_a, dtx, bm, cm, h0, y, h_out, b, nh, s, p, n, q,
-                         st);
+    return launch<float>(log_a, dtx, bm, cm, h0, y, h_out, wsf, dec, b, nh, s,
+                         p, n, q, st);
   }
   if (dtype == 1) {
-    return launch<__nv_bfloat16>(log_a, dtx, bm, cm, h0, y, h_out, b, nh, s, p,
-                                 n, q, st);
+    return launch<bf16>(log_a, dtx, bm, cm, h0, y, h_out, wsf, dec, b, nh, s,
+                        p, n, q, st);
   }
   return (int)cudaErrorInvalidValue;
+}
+
+
+// Shared memory of one block of (c), the larger kernel, at state width n
+// (dtype as above): the bound on N that `repro_ssd` checks. The wrapper's
+// KernelSpec (kernels/ssd/ops.py: smem_bytes) reads QMAX, TQ and TP from
+// this file and states the same sum, which a card test holds to this one.
+extern "C" long long repro_ssd_smem(int n, int dtype) {
+  return (long long)out_smem(n, dtype == 0 ? 4 : 2);
 }

@@ -1,9 +1,14 @@
 """RG-LRU on Hopper: the wrapper of ``csrc/rglru.cu``, the whole unit (gate
-math in PyTorch, the scan in the kernel) and its KernelSpec.
+math in PyTorch, the scan in the kernels) and its KernelSpec.
 
 Problem dims ``{"s", "f"}`` (one batch row); tile rank 2 = ``(bt, bf)``:
-bf features, one thread each, per block (at most 1024), and bt time rows
-staged per step in 8 * bt * bf bytes of shared memory (float32 a and x).
+the chunk length in time and the features a block takes (at most 1024).
+The scan is chunked over time in three launches (chunk summaries, the carry
+over the chunks, a rescan of each chunk), so ceil(S / bt) * F chains run in
+parallel. A thread takes 4 float32 or 8 bf16 neighbouring features (one
+16-byte load) where F and bf allow, else one. No shared memory; a float32
+workspace of 3 * ceil(S / bt) * F floats a batch row holds the summaries
+and the carries.
 """
 from __future__ import annotations
 
@@ -18,41 +23,42 @@ from repro_torch.core.cost_model import TileWorkload
 from repro_torch.core.hardware import H100_SXM
 from repro_torch.core.tiling import TileConstraints, TileShape, cdiv, dtype_bytes
 from repro_torch.kernels import build
-from repro_torch.kernels.rglru.ref import gates, rglru_ref, rglru_scan_ref
+from repro_torch.kernels.rglru.ref import (
+    gates, rglru_ref, rglru_scan_chunked_ref, rglru_scan_ref,
+)
 
 
 def _lib():
     fn = build.load("rglru").repro_rglru
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
 
-def smem_bytes(bt: int, bf: int) -> int:
-    return 8 * bt * bf
-
-
 def launch_tile(tile, problem: Mapping[str, int]):
-    """The ``(bt, bf)`` the kernel runs for ``tile`` (clamped to the
-    problem). Raises ValueError for a tile it cannot launch."""
+    """The ``(bt, bf)`` the kernels run for ``tile`` (clamped to the
+    problem). Raises ValueError for a tile they cannot launch."""
     bt = min(int(tile[0]), problem["s"])
     bf = min(int(tile[1]), problem["f"])
     if bt < 1 or bf < 1 or bf > H100_SXM.max_threads_per_block:
         raise ValueError(f"rglru tile ({bt}, {bf}) needs bt >= 1 and 1 to "
                          f"{H100_SXM.max_threads_per_block} features a block")
-    if smem_bytes(bt, bf) > H100_SXM.vmem_bytes:
-        raise ValueError(f"rglru tile ({bt}, {bf}) needs {smem_bytes(bt, bf)} "
-                         f"B of shared memory; a block may use "
-                         f"{H100_SXM.vmem_bytes}")
     return bt, bf
+
+
+def features_per_thread(bf: int, f: int, dtype) -> int:
+    """4 float32 or 8 bf16 features (one 16-byte load) where F and bf are
+    multiples of it, else 1 (``csrc/rglru.cu``)."""
+    vec = 16 // dtype_bytes(dtype)
+    return vec if f % vec == 0 and bf % vec == 0 else 1
 
 
 def rglru_scan(a, x, h0, tile=None):
     """Scan h_t = a_t * h_{t-1} + x_t: a, x [B, S, F], h0 [B, F] ->
     (y [B, S, F], h_last [B, F]).
 
-    CPU tensors take :func:`rglru_scan_ref`. CUDA tensors launch the kernel
+    CPU tensors take :func:`rglru_scan_ref`. CUDA tensors launch the kernels
     with ``tile`` = (bt, bf) (default: the spec's Hopper tile) or raise; the
     tile need not divide the problem.
     """
@@ -70,9 +76,12 @@ def rglru_scan(a, x, h0, tile=None):
     h_last = torch.empty_like(h0)
     if y.numel() == 0:
         return y, h_last
+    nc = cdiv(s, bt)
+    ws = (torch.empty(3 * b * nc * f, dtype=torch.float32, device=x.device)
+          if nc > 1 else None)
     rc = _lib()(a.data_ptr(), x.data_ptr(), h0.data_ptr(), y.data_ptr(),
-                h_last.data_ptr(), b, s, f, bt, bf, build.dtype_code(x.dtype),
-                build.stream_ptr(x.device))
+                h_last.data_ptr(), None if ws is None else ws.data_ptr(), b, s,
+                f, bt, bf, build.dtype_code(x.dtype), build.stream_ptr(x.device))
     build.check(rc, "rglru")
     build.LAUNCHES["rglru"] += 1
     return y, h_last
@@ -94,34 +103,39 @@ def _constraints(problem: Mapping[str, int]) -> TileConstraints:
 
 def _vmem_bytes(tile: TileShape, problem: Mapping[str, int], dtype: str) -> float:
     try:
-        bt, bf = launch_tile(tile, problem)
+        launch_tile(tile, problem)
     except ValueError:
         return math.inf
-    return float(smem_bytes(bt, bf))
+    return 0.0                                  # no shared memory
 
 
 def _workload(tile: TileShape, problem: Mapping[str, int], dtype: str) -> TileWorkload:
-    # One block scans the whole sequence of its bf features.
+    # One (chunk, feature-block) of the summary and rescan launches, with its
+    # share of the carry; with one chunk the rescan alone.
     bt, bf = launch_tile(tile, problem)
-    s = problem["s"]
+    s, f = problem["s"], problem["f"]
     b = dtype_bytes(dtype)
+    chunked = cdiv(s, bt) > 1
+    # read a, x (twice if chunked), write y; the workspace A, e, h_in.
+    hbm = (5 if chunked else 3) * bt * bf * b + (5 * 4 * bf if chunked else 2 * bf * b)
     return TileWorkload(
-        flops=2.0 * s * bf,                     # a * h + x per element
-        hbm_bytes=float(3 * s * bf * b + 2 * bf * b),   # a, x, y; h0, h_last
-        row_segments=cdiv(s, bt),               # one staging round per bt rows
-        row_stride_bytes=float(problem["f"] * b),
-        threads=bf,
+        flops=(5.0 if chunked else 2.0) * bt * bf,
+        hbm_bytes=float(hbm),
+        row_segments=bt,                        # one row of bf features a step
+        row_stride_bytes=float(f * b),
+        threads=cdiv(bf, features_per_thread(bf, f, dtype)),
     )
 
 
 def _n_tiles(tile: TileShape, problem: Mapping[str, int]) -> int:
-    _, bf = launch_tile(tile, problem)
-    return cdiv(problem["f"], bf)
+    bt, bf = launch_tile(tile, problem)
+    return cdiv(problem["f"], bf) * cdiv(problem["s"], bt)
 
 
 def _default_tile(problem: Mapping[str, int], dtype: str) -> TileShape:
-    # 128 features a block (32 blocks at F = 4096), 64 rows staged a step.
-    return TileShape((min(64, problem["s"]), min(128, problem["f"])))
+    # The measured best at recurrentgemma-9b's F = 4096 (PERF.md): 32-step
+    # chunks, 128 features a block (in float32 within 1% of the best).
+    return TileShape((min(32, problem["s"]), min(128, problem["f"])))
 
 
 SPEC = registry.register(registry.KernelSpec(
@@ -134,5 +148,5 @@ SPEC = registry.register(registry.KernelSpec(
 ))
 
 
-__all__ = ["SPEC", "launch_tile", "rglru", "rglru_ref", "rglru_scan",
-           "rglru_scan_ref", "smem_bytes"]
+__all__ = ["SPEC", "features_per_thread", "launch_tile", "rglru", "rglru_ref",
+           "rglru_scan", "rglru_scan_chunked_ref", "rglru_scan_ref"]

@@ -8,9 +8,14 @@ Selective state-space recurrence (arXiv:2405.21060), per head:
     y_t = C_t @ h_t  (+ D * x_t skip)
 
 ``ssd_ref`` runs the literal recurrence (the correctness oracle);
-``ssd_scan_ref`` is the chunked dual form over pre-discretised inputs — the
-same algorithm and order of operations as the kernel, on the kernel's
-inputs; ``ssd_chunked_ref`` is the whole layer through it.
+``ssd_scan_ref`` is the chunked dual form over pre-discretised inputs, chunk
+after chunk with the state carried between them (the JAX kernel's order,
+not the CUDA kernels'), the version the kernels are held against;
+``ssd_chunked_ref`` is the whole layer through it. ``ssd_scan_split_ref``
+is the CUDA kernels' decomposition in plain PyTorch (every chunk's own
+state, then a pass carrying the state over the chunks, then every chunk's
+output), with its products through a ``mm`` the tests can replace by an
+emulation of the tensor cores' arithmetic; only tests use it.
 
 Shapes: x [B, S, H, P]; dt [B, S, H]; A [H]; Bm, C [B, S, N] (single group,
 broadcast over heads); D [H] optional. State: [B, H, N, P]. Math in float32.
@@ -69,6 +74,51 @@ def ssd_scan_ref(log_a, dtx, Bm, C, h0, chunk: int = 64):
               + torch.einsum("bhjn,bhjp->bhnp", b_c[:, None] * w[..., None], x_c))
         ys.append((y_intra + y_inter).permute(0, 2, 1, 3))       # [B, Q, H, P]
     return torch.cat(ys, dim=1).to(dtx.dtype), hs.to(dtx.dtype)
+
+
+def ssd_scan_split_ref(log_a, dtx, Bm, C, h0, chunk: int = 64,
+                       mm=torch.matmul, round_scores=None):
+    """``ssd_scan_ref``'s function in ``csrc/ssd.cu``'s three steps: (a) each
+    chunk's state S_c = (B * exp(total - cum))^T x from zero; (b) the state
+    entering each chunk, h <- exp(total_c) h + S_c from h0; (c) each chunk's
+    y = (C B^T * exp(cum_i - cum_j), j <= i) x + exp(cum) (C h_in). The last
+    chunk is padded with zero steps. All four products go through ``mm``;
+    ``round_scores``, if given, rounds the scores as the operand of
+    scores . x (the bf16 kernel's one rounding of a float32 value)."""
+    b, s, h, p = dtx.shape
+    n = Bm.shape[-1]
+    q = max(1, min(int(chunk), s))
+    nc = -(-s // q)
+    pad = nc * q - s
+    la = torch.nn.functional.pad(log_a.float(), (0, pad))
+    xf = torch.nn.functional.pad(dtx.float(), (0, 0, 0, 0, 0, pad))
+    bm = torch.nn.functional.pad(Bm.float(), (0, 0, 0, pad))
+    cm = torch.nn.functional.pad(C.float(), (0, 0, 0, pad))
+    cum = torch.cumsum(la.view(b, h, nc, q), dim=-1)             # [B, H, c, Q]
+    total = cum[..., -1]                                         # [B, H, c]
+    x_c = xf.view(b, nc, q, h, p).permute(0, 3, 1, 2, 4)         # [B, H, c, Q, P]
+    b_c = bm.view(b, 1, nc, q, n)
+    c_c = cm.view(b, 1, nc, q, n)
+    # (a) the chunks' own states.
+    w = torch.exp(total[..., None] - cum)
+    states = mm((b_c * w[..., None]).transpose(-1, -2), x_c)     # [B, H, c, N, P]
+    # (b) the state entering each chunk.
+    hs = h0.float()
+    h_in = []
+    for c in range(nc):
+        h_in.append(hs)
+        hs = torch.exp(total[..., c])[..., None, None] * hs + states[:, :, c]
+    h_in = torch.stack(h_in, dim=2)                              # [B, H, c, N, P]
+    # (c) the chunks' outputs.
+    tri = torch.tril(torch.ones((q, q), dtype=torch.bool, device=dtx.device))
+    decay = torch.where(tri, torch.exp(cum[..., :, None] - cum[..., None, :]),
+                        torch.zeros((), device=dtx.device))
+    scores = mm(c_c, b_c.transpose(-1, -2)) * decay              # [B, H, c, Q, Q]
+    if round_scores is not None:
+        scores = round_scores(scores)
+    y = mm(scores, x_c) + torch.exp(cum)[..., None] * mm(c_c, h_in)
+    y = y.permute(0, 2, 3, 1, 4).reshape(b, nc * q, h, p)[:, :s]
+    return y.to(dtx.dtype), hs.to(dtx.dtype)
 
 
 def discretize(x, dt, A):

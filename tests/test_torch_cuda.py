@@ -316,21 +316,51 @@ def _ssd_inputs(dev, seed, b, s, h, p, n, dtype):
 @pytest.mark.parametrize("dtype,rtol", DTYPES)
 @pytest.mark.parametrize("b,s,h,p,n,chunk", [
     (1, 256, 4, 64, 128, 64), (2, 100, 3, 16, 8, 32), (1, 77, 2, 64, 128, 16),
-    (1, 1, 80, 64, 128, 64), (2, 40, 2, 8, 16, 1)])
+    (1, 1, 80, 64, 128, 64), (2, 40, 2, 8, 16, 1), (1, 300, 2, 64, 128, 128),
+    (1, 600, 2, 64, 128, 256), (2, 200, 3, 136, 256, 72), (1, 50, 3, 64, 128, 64),
+    (2, 1, 3, 136, 16, 64)])
 def test_ssd_vs_plain(dev, dtype, rtol, b, s, h, p, n, chunk):
     x, dt, A, Bm, C, h0 = _ssd_inputs(dev, 11, b, s, h, p, n,
                                       getattr(torch, dtype))
+    build.reset_launches()
     y, hl = ssd_ops.ssd(x, dt, A, Bm, C, h0=h0, chunk=chunk)
+    assert build.LAUNCHES["ssd"] == 1
     ycpu, hcpu = ssd_ops.ssd(*(t.cpu() for t in (x, dt, A, Bm, C)),
                              h0=h0.cpu(), chunk=chunk)
     _close(y, ycpu.to(dev), rtol)
     _close(hl, hcpu.to(dev), rtol)
 
 
+def test_ssd_shared_memory_rule_is_the_sources(dev):
+    import ctypes
+
+    fn = build.load("ssd").repro_ssd_smem
+    fn.argtypes = [ctypes.c_int, ctypes.c_int]
+    fn.restype = ctypes.c_longlong
+    for dtype in (torch.float32, torch.bfloat16):
+        for n in (8, 16, 24, 128, 136, 256, 368, 376, 544, 552, 1024):
+            assert fn(n, build.dtype_code(dtype)) == \
+                ssd_ops.smem_bytes(n, dtype), (n, dtype)
+
+
+def test_ssd_bf16_takes_a_state_wider_than_float32_does(dev):
+    # N = 376 fits a bf16 block's shared memory, not a float32 one's.
+    x, dt, A, Bm, C, h0 = _ssd_inputs(dev, 15, 1, 100, 2, 16, 376,
+                                      torch.bfloat16)
+    y, hl = ssd_ops.ssd(x, dt, A, Bm, C, h0=h0, chunk=64)
+    ycpu, hcpu = ssd_ops.ssd(*(t.cpu() for t in (x, dt, A, Bm, C)),
+                             h0=h0.cpu(), chunk=64)
+    _close(y, ycpu.to(dev), 1e-2)
+    _close(hl, hcpu.to(dev), 1e-2)
+    with pytest.raises(ValueError):
+        ssd_ops.ssd(*(t.float() for t in (x, dt, A, Bm, C)), h0=h0.float(),
+                    chunk=64)
+
+
 @pytest.mark.parametrize("dtype,rtol", DTYPES)
 @pytest.mark.parametrize("b,s,f,tile", [
     (1, 300, 4096, (64, 128)), (2, 77, 100, (16, 32)), (1, 1, 4096, (1, 1024)),
-    (3, 50, 33, (7, 64))])
+    (3, 50, 33, (7, 64)), (1, 4096, 4096, (64, 256)), (2, 130, 96, (1, 1000))])
 def test_rglru_vs_plain(dev, dtype, rtol, b, s, f, tile):
     dt = getattr(torch, dtype)
     g = torch.Generator(device=dev).manual_seed(12)
@@ -367,9 +397,9 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
         bil_ops.upscale(img.half(), 2)
     with pytest.raises(ValueError):
         rg_ops.rglru_scan(img[None], img[None], img[:1].cpu())
-    x, dt, A, Bm, C, h0 = _ssd_inputs(dev, 14, 1, 128, 1, 64, 128,
+    x, dt, A, Bm, C, h0 = _ssd_inputs(dev, 14, 1, 128, 1, 64, 1024,
                                       torch.float32)
-    with pytest.raises(ValueError):               # 258 KB of shared memory
+    with pytest.raises(ValueError):               # 552 KB of shared memory
         ssd_ops.ssd(x, dt, A, Bm, C, h0=h0, chunk=128)
 
 

@@ -211,7 +211,7 @@ def _launchable(kernel, tile, problem, dtype):
     elif kernel == "bilinear":
         bil_ops.launch_tile(tile, problem)
     elif kernel == "ssd":
-        ssd_ops.launch_chunk(tile[0], problem)
+        ssd_ops.launch_chunk(tile[0], problem, dtype)
     elif kernel == "rglru":
         rg_ops.launch_tile(tile, problem)
     else:
@@ -362,7 +362,7 @@ def test_wallclock_timing_of_the_h100_raises_without_a_card():
 
 def test_compile_skips_only_cells_without_a_legal_tile():
     # No chunk of an SSD head this wide fits a block's shared memory.
-    wide = dict(s=64, h=1, p=256, n=256)
+    wide = dict(s=64, h=1, p=64, n=1024)
     plan = compile_plan([("ssd", wide, "float32", H100_SXM),
                          ("ssd", dict(s=64, h=1, p=8, n=8), "float32",
                           H100_SXM)])

@@ -106,14 +106,21 @@ def test_ssd_decode_step_s1():
 
 
 def test_ssd_spec_bounds_the_chunk_by_shared_memory():
-    # mamba2-2.7b: P 64, N 128.
+    # mamba2-2.7b: P 64, N 128. The kernels tile the chunk by 64 rows, so a
+    # block's shared memory (104 KB) no longer grows with the chunk: the JAX
+    # default 128 launches, up to the 256 steps the cumsum holds; the state
+    # width N is what shared memory bounds.
     prob = dict(s=4096, h=80, p=64, n=128)
-    assert sd.launch_chunk(64, prob) == 64
+    assert sd.launch_chunk(64, prob, "float32") == 64
+    assert sd.launch_chunk(128, prob, "float32") == 128
     with pytest.raises(ValueError):
-        sd.launch_chunk(128, prob)
+        sd.launch_chunk(512, prob, "float32")
+    with pytest.raises(ValueError):                 # 552 KB at N = 1024
+        sd.launch_chunk(128, dict(prob, n=1024), "float32")
     assert sd.SPEC.default_tile(prob, "float32").dims == (64,)
+    assert sd.SPEC.default_tile(prob, "bfloat16").dims == (128,)
     assert sd.SPEC.default_tile(dict(prob, s=1), "float32").dims == (1,)
-    assert sd.SPEC.n_tiles((64,), prob) == 80
+    assert sd.SPEC.n_tiles((64,), prob) == 80 * 64
 
 
 def _rg_inputs(seed, b=2, s=24, f=40):
@@ -158,8 +165,10 @@ def test_rglru_state_carries_across_two_calls():
 def test_rglru_spec_tiles_are_thread_blocks():
     prob = dict(s=4096, f=4096)
     assert rg.launch_tile((64, 128), prob) == (64, 128)
-    for bad in ((1, 2048), (64, 1024)):     # too many threads; 512 KB
+    assert rg.launch_tile((64, 1024), prob) == (64, 1024)   # no shared memory
+    for bad in ((1, 2048), (0, 128)):   # over 1024 features a block; no steps
         with pytest.raises(ValueError):
             rg.launch_tile(bad, prob)
-    assert rg.SPEC.n_tiles((64, 128), prob) == 32
-    assert rg.SPEC.workload((64, 128), prob, "float32").threads == 128
+    # A block a (chunk, feature block): 32 feature blocks x 64 chunks.
+    assert rg.SPEC.n_tiles((64, 128), prob) == 32 * 64
+    assert rg.SPEC.workload((64, 128), prob, "float32").threads == 32
