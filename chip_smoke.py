@@ -19,11 +19,14 @@ Phases, each of which fails the run if it fails:
    rows; flash_attention in its float32 mma and bf16 wgmma regimes at
    every head dim, and every tile of each regime timed at qwen2's prefill
    widths, S = 600 and 4096), recurrentgemma-9b's head_dim-256 attention,
-   the paper's 800x800 image at scales 2-10, mamba2-2.7b's SSD (every chunk
-   the spec sweeps, S = 4096, and the decode step) and recurrentgemma-9b's
-   RG-LRU (a few tiles) — and time kernel, plain version and one PyTorch
-   library call (where one computes the same function; for SDPA also the
-   kernels it ran) on the device: CUDA events around the replay of a CUDA
+   h2o-danube-1.8b's head_dim-80 attention (prefill at S = 512 and 4096,
+   decode with and without split KV), the paper's 800x800 image at scales
+   2-10 in both dtypes (with the store path each took, and images whose
+   rows take scalar stores),
+   mamba2-2.7b's SSD (every chunk the spec sweeps, S = 4096, and the
+   decode step) and recurrentgemma-9b's RG-LRU (a few tiles) — and time
+   kernel, plain version and one PyTorch library call (where one computes
+   the same function; for SDPA also the kernels it ran) on the device: CUDA events around the replay of a CUDA
    graph of many calls, so the host's launch cost is left out; for the
    multi-launch scans also each launch's device time (torch.profiler);
 4. serve full-width qwen2-1.5b (28 layers, random weights from a seed)
@@ -384,6 +387,7 @@ def kernel_checks(quick: bool):
             record("flash_decode", "b=2 pos=700", dname, out,
                    flash_decode_ref(q, k, v, pos=700))
     head_dim_256_checks(record, randn, dtypes, quick)
+    head_dim_80_checks(record, randn, dtypes, quick)
     bilinear_checks(record, randn, dtypes, quick)
     ssd_checks(record, dtypes, quick)
     rglru_checks(record, dtypes, quick)
@@ -546,33 +550,128 @@ def head_dim_256_checks(record, randn, dtypes, quick: bool):
                dname, out, ref, timing)
 
 
-def bilinear_checks(record, randn, dtypes, quick: bool):
-    """The paper's 800x800 image at scales 2-10. The library yardstick is
-    ``F.grid_sample`` on the same source positions (align_corners, border
-    padding), timed in float32 with its error against the plain version."""
+def head_dim_80_checks(record, randn, dtypes, quick: bool):
+    """flash_attention and flash_decode at h2o-danube-1.8b's full-width
+    attention: Hq 32, Hkv 8, head_dim 80 (the wgmma regime zero-pads it to
+    128; the bound counts the function's D = 80 work). Prefill causal at
+    S = 512 and 4096; decode at S = 4096, pos 4095, at B = 1 (split KV) and
+    B = 32 (B * Hkv fills the card: one split)."""
     import torch
     import torch.nn.functional as F
 
-    from repro_torch.kernels.bilinear.ops import upscale
+    from repro_torch.kernels.flash_attention.decode import (
+        decode_splits, flash_decode, flash_decode_ref,
+    )
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention, regime as fa_regime,
+    )
+    from repro_torch.kernels.flash_attention.ops import DECODE_SPEC
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    hq, hkv, d = 32, 8, 80
+    for dname, dt in dtypes:
+        for s in ((512,) if quick else (512, 4096)):
+            q = randn((1, hq, s, d), dt)
+            k, v = randn((1, hkv, s, d), dt), randn((1, hkv, s, d), dt)
+            out = flash_attention(q, k, v, causal=True)
+            torch.cuda.synchronize()
+            ref = flash_attention_ref(q, k, v, causal=True)
+            timing = None
+            if not quick:
+                nb = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+                t_b, by = bound(nb, 4.0 * d * hq * s * (s + 1) // 2,
+                                TC_RATE[dname])
+                copies = [(randn(q.shape, dt), randn(k.shape, dt),
+                           randn(v.shape, dt)) for _ in range(copies_for(nb))]
+                timing = dict(
+                    ms=time_ms([lambda x=x, y=y, z=z: flash_attention(
+                        x, y, z, causal=True) for x, y, z in copies]),
+                    plain_ms=time_ms([lambda x=x, y=y, z=z: flash_attention_ref(
+                        x, y, z, causal=True) for x, y, z in copies], iters=4),
+                    library_ms=library_ms([
+                        lambda x=x, y=y, z=z: F.scaled_dot_product_attention(
+                            x, y, z, is_causal=True, enable_gqa=True)
+                        for x, y, z in copies]),
+                    bound_ms=t_b, bound_by=by,
+                    shape=dict(b=1, hq=hq, hkv=hkv, sq=s, skv=s, d=d,
+                               regime=fa_regime(dt, d)))
+            if not quick and s == 4096:
+                # What the padding costs: the same heads at D = 128, which
+                # the bf16 regime runs D = 80 as.
+                wide = [tuple(randn(x.shape[:-1] + (128,), dt) for x in c)
+                        for c in copies]
+                timing["d128_ms"] = time_ms([lambda x=x, y=y, z=z: flash_attention(
+                    x, y, z, causal=True) for x, y, z in wide])
+                log(f"  flash_attention  D=128 hq=32 hkv=8 sq=skv={s} causal "
+                    f"{dname:8s} | {timing['d128_ms']:.4f} ms")
+            record("flash_attention", f"D=80 hq=32 hkv=8 sq=skv={s} causal",
+                   dname, out, ref, timing)
+        s, pos = 4096, 4095
+        for b in ((1,) if quick else (1, 32)):
+            q = randn((b, hq, d), dt)
+            k, v = randn((b, hkv, s, d), dt), randn((b, hkv, s, d), dt)
+            out = flash_decode(q, k, v, pos=pos)
+            torch.cuda.synchronize()
+            ref = flash_decode_ref(q, k, v, pos=pos)
+            timing = None
+            bkv = DECODE_SPEC.default_tile(
+                dict(b=b, skv=s, d=d, hq=hq, hkv=hkv, window=0), dname)[0]
+            splits = decode_splits(b, hkv, s, bkv, pos, True).splits
+            if not quick:
+                nb = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+                t_b, by = bound(nb, 4.0 * d * b * hq * s, dname)
+                copies = [(randn(q.shape, dt), randn(k.shape, dt),
+                           randn(v.shape, dt)) for _ in range(copies_for(nb))]
+                timing = dict(
+                    ms=time_ms([lambda x=x, y=y, z=z: flash_decode(
+                        x, y, z, pos=pos) for x, y, z in copies]),
+                    plain_ms=time_ms([lambda x=x, y=y, z=z: flash_decode_ref(
+                        x, y, z, pos=pos) for x, y, z in copies], iters=4),
+                    library_ms=library_ms([
+                        lambda x=x, y=y, z=z: F.scaled_dot_product_attention(
+                            x[:, :, None], y, z, enable_gqa=True)
+                        for x, y, z in copies]),
+                    bound_ms=t_b, bound_by=by,
+                    shape=dict(b=b, hq=hq, hkv=hkv, s=s, pos=pos, d=d,
+                               splits=splits))
+            record("flash_decode", f"D=80 b={b} s={s} pos={pos} "
+                   f"({'split' if splits > 1 else 'one split'})", dname, out,
+                   ref, timing)
+
+
+def bilinear_checks(record, randn, dtypes, quick: bool):
+    """The paper's 800x800 image at scales 2-10 in both dtypes, each case
+    with its store path (16-byte vectors, or scalar stores where a row's
+    bytes are no multiple of 16), and images whose widths take the scalar
+    path. The library yardstick is ``F.grid_sample`` on the same source positions
+    (align_corners, border padding), timed in float32 with its error against
+    the plain version."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.bilinear import ops as bil
     from repro_torch.kernels.bilinear.ref import (
         bilinear_upscale_ref, source_positions,
     )
 
     side = 800
     for dname, dt in dtypes:
-        for scale in ((4,) if quick else (2, 4, 6, 8, 10)):
+        for scale in ((4, 10) if quick else (2, 4, 6, 8, 10)):
             src = randn((side, side), dt)
-            out = upscale(src, scale)
+            out = bil.upscale(src, scale)
             torch.cuda.synchronize()
             ref = bilinear_upscale_ref(src, scale)
+            prob = dict(src_h=side, src_w=side, scale=scale)
             timing = None
             if not quick:
                 eb = src.element_size()
                 nb = (side * side + (side * scale) ** 2) * eb
-                t_b, by = bound(nb, 10.0 * (side * scale) ** 2, dname)
+                t_b, by = bound(nb, 3.0 * (side * scale) ** 2, dname)
                 copies = [randn(src.shape, dt) for _ in range(copies_for(nb))]
                 lib = lib_err = None
                 if dt == torch.float32:
+                    # (In bf16 grid_sample takes a bf16 grid, whose 8 bits
+                    # miss the positions: not the same function.)
                     p = source_positions(side, scale, "cuda") * (2.0 / (side - 1)) - 1.0
                     grid = torch.stack(torch.broadcast_tensors(
                         p[None, :], p[:, None]), dim=-1)[None]
@@ -588,14 +687,26 @@ def bilinear_checks(record, randn, dtypes, quick: bool):
                     lib_err = max_err(gs(src), ref)
                     lib = library_ms([lambda x=x: gs(x) for x in copies])
                 timing = dict(
-                    ms=time_ms([lambda x=x: upscale(x, scale) for x in copies]),
+                    ms=time_ms([lambda x=x: bil.upscale(x, scale) for x in copies]),
                     plain_ms=time_ms([lambda x=x: bilinear_upscale_ref(x, scale)
                                       for x in copies], iters=8),
                     library_ms=lib, library_max_abs_err=lib_err,
                     bound_ms=t_b, bound_by=by,
-                    shape=dict(src_h=side, src_w=side, scale=scale))
+                    shape=dict(prob, rows=bil.ROWS,
+                               store=bil.store_path(prob, dt)))
+            log(f"  bilinear store path at scale {scale} {dname}: "
+                f"{bil.store_path(prob, dt)}")
             record("bilinear", f"{side}x{side} scale={scale}", dname, out, ref,
                    timing)
+        # Widths whose rows are no multiple of 16 bytes: the scalar stores.
+        for (h, w), scale in (((37, 53), 3), ((41, 29), 10), ((33, 1001), 2)):
+            src = randn((h, w), dt)
+            prob = dict(src_h=h, src_w=w, scale=scale)
+            out = bil.upscale(src, scale)
+            torch.cuda.synchronize()
+            record("bilinear", f"{h}x{w} scale={scale} "
+                   f"({bil.store_path(prob, dt)} stores)", dname, out,
+                   bilinear_upscale_ref(src, scale))
 
 
 def _ssd_operands(b, s, h, p, n, dt, seed):

@@ -2,11 +2,15 @@
 registry declarations.
 
 Two KernelSpecs share the problem ``{"src_h", "src_w", "scale"}`` and a tile
-rank 2 = output ``(bh, bw)``:
+rank 2 = ``(bh, bw)``:
 
-* ``bilinear``      — the kernel that runs on the H100: one thread per
-  output pixel, tile = thread block ``(bh, bw)`` (``bh * bw <= 1024``
-  threads), no shared memory. Any tile launches: the ragged edge is masked.
+* ``bilinear``      — the kernel that runs on the H100. The tile is the
+  thread block (``bh * bw <= 1024`` threads), as in the paper's Fig. 3; a
+  thread writes :func:`vector_pixels` neighbouring pixels of a row (16
+  bytes: 4 float32, 8 bf16) on :data:`ROWS` consecutive rows, so a block
+  covers ``(ROWS * bh) x (V * bw)`` output pixels (:func:`footprint`). Shared
+  memory holds the block's source positions. Any tile launches: the ragged
+  edge is masked.
 * ``bilinear_cuda`` — the paper's gather implementation as executed on its
   GPUs (4 reads + ~10 flops per pixel, one thread per pixel), unchanged from
   the reference; modelled only, for the GTX260 and 8800GTS descriptors.
@@ -15,7 +19,8 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Mapping
+import re
+from typing import Mapping, Tuple
 
 import torch
 
@@ -27,6 +32,11 @@ from repro_torch.kernels import build
 from repro_torch.kernels.bilinear.ref import bilinear_upscale_ref
 
 MAX_GRID_Y = 65535
+MAX_SIDE = 1 << 24      # output sides whose indices are exact floats
+VECTOR_BYTES = 16       # one store a thread a row
+# The rows a thread writes: ``ROWS`` in the source, the one place it is set.
+ROWS = int(re.search(r"constexpr int ROWS = (\d+);", (
+    build.CSRC / build.SOURCES["bilinear"]).read_text()).group(1))
 
 
 def _lib():
@@ -37,17 +47,47 @@ def _lib():
     return fn
 
 
-def launch_tile(tile, problem: Mapping[str, int]):
+def vector_pixels(dtype) -> int:
+    """V: the pixels of one 16-byte store, 4 in float32 and 8 in bf16."""
+    return VECTOR_BYTES // dtype_bytes(dtype)
+
+
+def footprint(tile, dtype) -> Tuple[int, int]:
+    """The output pixels one block writes: ``(ROWS * bh, V * bw)``."""
+    return ROWS * int(tile[0]), vector_pixels(dtype) * int(tile[1])
+
+
+def smem_bytes(tile, dtype) -> int:
+    """The block's shared memory: one float32 source position per column
+    and per row of its footprint."""
+    fh, fw = footprint(tile, dtype)
+    return 4 * (fh + fw)
+
+
+def store_path(problem: Mapping[str, int], dtype) -> str:
+    """Which stores the kernel issues for ``problem``, as the source decides
+    (needs the built kernel): ``vector`` (16 bytes a thread) or ``scalar``
+    (one pixel a store, where a row's bytes are no multiple of 16)."""
+    fn = build.load("bilinear").repro_bilinear_vector_stores
+    vec = fn(int(problem["src_w"]), int(problem["scale"]), build.dtype_code(dtype))
+    return "vector" if vec else "scalar"
+
+
+def launch_tile(tile, problem: Mapping[str, int], dtype="float32"):
     """The ``(bh, bw)`` thread block the kernel runs for ``tile``. Raises
     ValueError for a block it cannot launch."""
     bh, bw = (int(x) for x in tile)
     oh = problem["src_h"] * problem["scale"]
+    ow = problem["src_w"] * problem["scale"]
     if bh <= 0 or bw <= 0 or bh * bw > H100_SXM.max_threads_per_block:
         raise ValueError(f"bilinear tile ({bh}, {bw}) must be a block of 1 to "
                          f"{H100_SXM.max_threads_per_block} threads")
-    if cdiv(oh, bh) > MAX_GRID_Y:
-        raise ValueError(f"bilinear tile height {bh} gives {cdiv(oh, bh)} "
-                         f"block rows; the grid takes {MAX_GRID_Y}")
+    if max(oh, ow) > MAX_SIDE:
+        raise ValueError(f"bilinear output {oh}x{ow} has a side over {MAX_SIDE}")
+    fh = footprint(tile, dtype)[0]
+    if cdiv(oh, fh) > MAX_GRID_Y:
+        raise ValueError(f"bilinear tile height {bh} x {ROWS} rows gives "
+                         f"{cdiv(oh, fh)} block rows; the grid takes {MAX_GRID_Y}")
     return bh, bw
 
 
@@ -56,7 +96,7 @@ def upscale(src: torch.Tensor, scale: int, tile=None) -> torch.Tensor:
 
     CPU tensors take :func:`bilinear_upscale_ref`. CUDA tensors launch the
     kernel with thread block ``tile`` = (bh, bw) (default: the spec's Hopper
-    tile) or raise; the tile need not divide the output.
+    tile), or raise; the tile need not divide the output.
     """
     if src.dim() != 2:
         raise ValueError(f"expected [H, W] image, got {tuple(src.shape)}")
@@ -68,38 +108,48 @@ def upscale(src: torch.Tensor, scale: int, tile=None) -> torch.Tensor:
     build.check_cuda_operands("bilinear", src)
     h, w = src.shape
     problem = dict(src_h=h, src_w=w, scale=scale)
-    bh, bw = launch_tile(tile if tile is not None
-                         else SPEC.default_tile(problem, str(src.dtype)), problem)
+    if tile is None:
+        tile = SPEC.default_tile(problem, str(src.dtype))
+    bh, bw = launch_tile(tile, problem, src.dtype)
     out = torch.empty((h * scale, w * scale), dtype=src.dtype, device=src.device)
     if out.numel() == 0:
         return out
     rc = _lib()(src.data_ptr(), out.data_ptr(), h, w, scale,
-                build.dtype_code(src.dtype), bh, bw, build.stream_ptr(src.device))
+                build.dtype_code(src.dtype), bh, bw,
+                build.stream_ptr(src.device))
     build.check(rc, "bilinear")
     build.LAUNCHES["bilinear"] += 1
     return out
 
 
 # --------------------------------------------------------------------------
-# Registry: the Hopper kernel.
+# Registry: the Hopper kernel. Bilinear cells are compiled in float32
+# (compile_plans.kernel_dtypes), so the spec models float32's footprint:
+# the problem carries no dtype, and ``n_tiles`` must count blocks without
+# one. In bf16 a block covers twice the columns, the same bytes.
 # --------------------------------------------------------------------------
+
+SPEC_DTYPE = "float32"
+
 
 def _out_dims(problem: Mapping[str, int]):
     return problem["src_h"] * problem["scale"], problem["src_w"] * problem["scale"]
 
 
 def _constraints(problem: Mapping[str, int]) -> TileConstraints:
+    # A tile is a thread block: its dims are bounded by the thread grid.
     oh, ow = _out_dims(problem)
-    return TileConstraints(rank=2, max_dims=(oh, ow), lane_dim=1,
-                           sublane_dim=0, vmem_fraction=1.0)
+    return TileConstraints(rank=2, max_dims=(cdiv(oh, ROWS),
+                                             cdiv(ow, vector_pixels(SPEC_DTYPE))),
+                           lane_dim=1, sublane_dim=0, vmem_fraction=1.0)
 
 
 def _vmem_bytes(tile: TileShape, problem: Mapping[str, int], dtype: str) -> float:
     try:
-        launch_tile(tile, problem)
+        launch_tile(tile, problem, SPEC_DTYPE)
     except ValueError:
         return math.inf
-    return 0.0  # no shared memory
+    return float(smem_bytes(tile, SPEC_DTYPE))
 
 
 def _workload(tile: TileShape, problem: Mapping[str, int], dtype: str) -> TileWorkload:
@@ -107,13 +157,15 @@ def _workload(tile: TileShape, problem: Mapping[str, int], dtype: str) -> TileWo
     s = problem["scale"]
     b = dtype_bytes(dtype)
     _, ow = _out_dims(problem)
-    # The block writes bh x bw pixels and reads the source rows and columns
-    # they fall between (the four-point gathers hit L1 after the first).
-    src = (bh // s + 2) * (bw // s + 2) * b
+    fh, fw = footprint(tile, SPEC_DTYPE)
+    src_rows, src_cols = fh // s + 2, fw // s + 2
+    # The block writes its footprint and reads the source rows and columns
+    # it falls between; a pixel is one blend (3 flops), each source row of
+    # the window one lerp per column (3 more).
     return TileWorkload(
-        flops=10.0 * bh * bw,
-        hbm_bytes=float(bh * bw * b + src),
-        row_segments=bh + bh // s + 2,
+        flops=3.0 * fh * fw + 3.0 * src_rows * fw,
+        hbm_bytes=float(fh * fw * b + src_rows * src_cols * b),
+        row_segments=fh + src_rows,
         row_stride_bytes=float(ow * b),
         threads=bh * bw,
     )
@@ -121,12 +173,16 @@ def _workload(tile: TileShape, problem: Mapping[str, int], dtype: str) -> TileWo
 
 def _n_tiles(tile: TileShape, problem: Mapping[str, int]) -> int:
     oh, ow = _out_dims(problem)
-    return cdiv(oh, tile[0]) * cdiv(ow, tile[1])
+    fh, fw = footprint(tile, SPEC_DTYPE)
+    return cdiv(oh, fh) * cdiv(ow, fw)
 
 
 def _default_tile(problem: Mapping[str, int], dtype: str) -> TileShape:
-    # The paper's 32x4 principle: 32 wide (one warp per row), 4 rows.
-    return TileShape((4, 32))
+    # 32 threads wide (a warp stores 512 contiguous bytes), 8 high: of the
+    # Fig. 3 tiles the one nearest the best at every scale and dtype on the
+    # H100 (within 7% at scales 2, 6 and 10, PERF.md); the paper's (4, 32)
+    # came within 12%.
+    return TileShape((8, 32))
 
 
 SPEC = registry.register(registry.KernelSpec(
@@ -161,6 +217,12 @@ def _cuda_vmem(tile: TileShape, problem: Mapping[str, int], dtype: str) -> float
 GPU_TRANSACTION_BYTES = 128  # G80/GT200 coalesced global transaction size
 
 
+def _cuda_n_tiles(tile: TileShape, problem: Mapping[str, int]) -> int:
+    # One thread per pixel: a block covers its own (bh, bw) pixels.
+    oh, ow = _out_dims(problem)
+    return cdiv(oh, tile[0]) * cdiv(ow, tile[1])
+
+
 def _cuda_workload(tile: TileShape, problem: Mapping[str, int], dtype: str) -> TileWorkload:
     bh, bw = tile  # (height, width) = CUDA (blockDim.y, blockDim.x)
     oh, ow = _out_dims(problem)
@@ -191,9 +253,11 @@ CUDA_SPEC = registry.register(registry.KernelSpec(
     constraints=_cuda_constraints,
     vmem_bytes=_cuda_vmem,
     workload=_cuda_workload,
-    n_tiles=_n_tiles,
+    n_tiles=_cuda_n_tiles,
     default_tile=lambda p, d: TileShape((4, 32)),
 ))
 
 
-__all__ = ["CUDA_SPEC", "SPEC", "bilinear_upscale_ref", "launch_tile", "upscale"]
+__all__ = ["CUDA_SPEC", "ROWS", "SPEC", "bilinear_upscale_ref", "footprint",
+           "launch_tile", "smem_bytes", "store_path", "upscale",
+           "vector_pixels"]

@@ -37,8 +37,9 @@
 //   rounds P to bf16 in registers and adds P V with wgmma m64n64k16 per 64
 //   head-dim columns, P the register A operand, V read MN-major (the
 //   transpose bit) as it lies. Rounding P to bf16 is the one departure from
-//   the reference, of the order of the output's own bf16 rounding. Head dims
-//   below 64 are zero-filled to one 64-column panel by TMA.
+//   the reference, of the order of the output's own bf16 rounding. A head
+//   dim that is no multiple of 64 (16, 32, 80) is zero-filled by TMA to
+//   whole 64-column panels.
 // * mma (float32) on the tensor cores at float32 accuracy: mma.sync m16n8k8
 //   TF32 in the 3xTF32 split (x = hi + lo, hopper::split; hi*hi + hi*lo + lo*hi
 //   keeps about 21 bits of each product; plain TF32 keeps 11 and misses the
@@ -75,16 +76,24 @@ enum Regime { MMA = 0, WGMMA = 1 };
 // bq is 64 or 128 wherever smem_bytes fits SMEM_LIMIT. flash_attention.py
 // reads this table, so the launch rule is stated here alone. The wgmma
 // regime takes bkv = 128 up to D = 128 (a consumer then holds 64 S, 32 P
-// and 64 O registers), 64 at D = 256 (128 O registers).
+// and 64 O registers), 64 at D = 256 (128 O registers). D = 80
+// (h2o-danube-1.8b) runs the mma regime as it is (10 k-steps and 10
+// n-tiles of 8) and the wgmma regime zero-padded to two 64-column panels,
+// the D = 128 kernel: TMA fills columns 80 .. 127 with zeros, so Q K^T is
+// exact, the padded columns of P V are dropped at the store, and the scale
+// is the wrapper's 1 / sqrt(80). It does 128 / 80 = 1.6x the products.
 #define REPRO_FA_TILES                                                    \
   X(MMA, 16, 32) X(MMA, 16, 64) X(MMA, 32, 32) X(MMA, 32, 64)              \
-  X(MMA, 64, 32) X(MMA, 64, 64) X(MMA, 128, 32) X(MMA, 128, 64)            \
-  X(MMA, 256, 32)                                                         \
+  X(MMA, 64, 32) X(MMA, 64, 64) X(MMA, 80, 32) X(MMA, 80, 64)              \
+  X(MMA, 128, 32) X(MMA, 128, 64) X(MMA, 256, 32)                          \
   X(WGMMA, 16, 64) X(WGMMA, 16, 128) X(WGMMA, 32, 64) X(WGMMA, 32, 128)    \
-  X(WGMMA, 64, 64) X(WGMMA, 64, 128) X(WGMMA, 128, 64)                     \
-  X(WGMMA, 128, 128) X(WGMMA, 256, 64)
+  X(WGMMA, 64, 64) X(WGMMA, 64, 128) X(WGMMA, 80, 64) X(WGMMA, 80, 128)    \
+  X(WGMMA, 128, 64) X(WGMMA, 128, 128) X(WGMMA, 256, 64)
 
-__host__ __device__ constexpr int panel_dim(int d) { return d < 64 ? 64 : d; }
+// The head dim the wgmma regime computes at: whole 64-column panels.
+__host__ __device__ constexpr int panel_dim(int d) {
+  return (d + 63) / 64 * 64;
+}
 
 // Shared memory of one block: the float32 q block and two K and V stages,
 // rows padded by 4 floats (mma); the bf16 q block and two K and V stages in

@@ -17,11 +17,12 @@
 // n_rep grouped queries of its KV head in shared memory, so each K/V row is
 // read once per group, and streams a contiguous run of bkv-row blocks with
 // the online softmax of the reference (statistics in shared memory, the
-// accumulator in registers). The wrapper derives the split count from the
-// grid (about one wave of 132 blocks over B * Hkv; 1 once B * Hkv fills the
-// card) and the key range: with a linear cache (slot i = position i) only
-// the blocks that hold visible keys, [max(0, pos - window + 1), pos] — the
-// reference's block skip; with a kv_pos map (ring caches, -1 = unwritten)
+// accumulator in registers: each thread one head-dim column of every
+// NT / D-th query row, so a block has 256 threads, or 320 at D = 80). The
+// wrapper derives the split count from the grid (about one wave of 132
+// blocks over B * Hkv; 1 once B * Hkv fills the card) and the key range:
+// with a linear cache (slot i = position i) only the blocks that hold
+// visible keys, [max(0, pos - window + 1), pos] — the reference's block skip; with a kv_pos map (ring caches, -1 = unwritten)
 // all S slots, masked per key. A block writes its unnormalised accumulator
 // and its (m, l) to a float32 workspace, and a second kernel rescales each
 // split by exp(m_i - M) and sums them in split order (deterministic). A
@@ -42,8 +43,8 @@
 namespace {
 
 constexpr float NEG_INF = -2.0e30f;
-constexpr int NT = 256;
-constexpr int NWARPS = NT / 32;
+constexpr int COMBINE_NT = 256;  // the most threads a combine block has
+constexpr int COMBINE_WARPS = COMBINE_NT / 32;
 constexpr int REP_MAX = 32;
 constexpr int SMEM_LIMIT = 232448;  // 227 KB, the H100's per-block maximum
 
@@ -67,6 +68,13 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
+// Threads of a decode block: 256, or where the head dim does not divide 256
+// (80) four rows of it, a multiple of 32 too (320), so that every thread
+// owns one head-dim column of its rows.
+__host__ __device__ constexpr int threads_for(int d) {
+  return 256 % d == 0 ? 256 : 4 * d;
+}
+
 template <int D>
 size_t smem_bytes(int n_rep, int bkv) {
   return sizeof(float) * ((size_t)n_rep * D + (size_t)bkv * (D + 1) +
@@ -75,14 +83,17 @@ size_t smem_bytes(int n_rep, int bkv) {
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(threads_for(D))
 flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const int* __restrict__ kv_pos,
                     T* __restrict__ out, float* __restrict__ ws_acc,
                     float* __restrict__ ws_ml, int hq, int hkv, int s, int bkv,
                     int pos, float scale, int window, float softcap,
                     int ib_lo, int n_blk) {
-  static_assert(NT % D == 0, "head_dim must divide the thread count");
+  constexpr int NT = threads_for(D);
+  constexpr int NWARPS = NT / 32;
+  static_assert(NT % D == 0 && NT % 32 == 0,
+                "the thread count must be whole warps and whole rows");
   constexpr int R_STEP = NT / D;  // rows between one thread's groups
   constexpr int MAXG = (REP_MAX + R_STEP - 1) / R_STEP;
 
@@ -233,17 +244,18 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // Combine the splits of one (query row, b, kv-head), one thread per head
-// dim element: rescale each partial by exp(m_i - M), sum in split order,
-// divide by max(l, 1e-30), cast. Dynamic shared memory: 2 * splits floats.
+// dim element (whole warps: threads past d only join the reductions):
+// rescale each partial by exp(m_i - M), sum in split order, divide by
+// max(l, 1e-30), cast. Dynamic shared memory: 2 * splits floats.
 template <typename T>
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(COMBINE_NT)
 flash_decode_combine(const float* __restrict__ ws_acc,
                      const float* __restrict__ ws_ml, T* __restrict__ out,
                      int n_rep, int d, int splits) {
   extern __shared__ float cs[];
   float* w = cs;             // [splits] exp(m_i - M)
   float* wl = cs + splits;   // [splits] exp(m_i - M) * l_i
-  __shared__ float red[NWARPS];
+  __shared__ float red[COMBINE_WARPS];
   __shared__ float den_s;
   const int r = blockIdx.x, tid = threadIdx.x, nt = blockDim.x;
   const size_t bg = blockIdx.y;  // b * hkv + g
@@ -301,14 +313,16 @@ int launch(const void* q, const void* k, const void* v, const int* kv_pos,
   }
   const bool split = sp.splits > 1;
   dim3 grid(sp.splits, hkv, b);
-  kernel<<<grid, NT, smem, stream>>>(
+  kernel<<<grid, threads_for(D), smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), kv_pos, static_cast<T*>(out),
       split ? sp.ws_acc : nullptr, split ? sp.ws_ml : nullptr, hq, hkv, s,
       bkv, pos, scale, window, softcap, sp.ib_lo, sp.n_blk);
   if (split) {
     dim3 cgrid(hq / hkv, b * hkv);
-    flash_decode_combine<T><<<cgrid, max(D, 32), 2 * sp.splits * sizeof(float),
+    constexpr int combine_nt = (D + 31) / 32 * 32;
+    static_assert(combine_nt <= COMBINE_NT, "a combine block is too large");
+    flash_decode_combine<T><<<cgrid, combine_nt, 2 * sp.splits * sizeof(float),
                               stream>>>(sp.ws_acc, sp.ws_ml,
                                         static_cast<T*>(out), hq / hkv, D,
                                         sp.splits);
@@ -330,6 +344,9 @@ int dispatch_d(int dh, const void* q, const void* k, const void* v,
                            scale, window, softcap, sp, st);
     case 64:
       return launch<T, 64>(q, k, v, kv_pos, out, b, hq, hkv, s, bkv, pos,
+                           scale, window, softcap, sp, st);
+    case 80:
+      return launch<T, 80>(q, k, v, kv_pos, out, b, hq, hkv, s, bkv, pos,
                            scale, window, softcap, sp, st);
     case 128:
       return launch<T, 128>(q, k, v, kv_pos, out, b, hq, hkv, s, bkv, pos,
@@ -379,3 +396,7 @@ extern "C" int repro_flash_decode(const void* q, const void* k, const void* v,
   }
   return (int)cudaErrorInvalidValue;
 }
+
+// The threads of one decode block at head dim dh (its combine block rounds
+// max(dh, 32) up to whole warps).
+extern "C" int repro_flash_decode_threads(int dh) { return threads_for(dh); }

@@ -84,6 +84,13 @@ def decode_splits(b: int, hkv: int, s: int, bkv: int, pos: int,
     return DecodeSplits(lo, n_blk, int(splits))
 
 
+def threads(d: int) -> int:
+    """Threads of one decode block: 256, or where ``d`` does not divide 256
+    (80) four rows of it, whole warps. ``threads_for`` in the source is the
+    rule; a card test holds the two equal."""
+    return 256 if 256 % d == 0 else 4 * d
+
+
 def smem_bytes(n_rep: int, bkv: int, d: int) -> int:
     """Shared memory one block of the kernel uses: float32 grouped queries,
     padded K, V, the [n_rep, bkv] logits and three per-row statistics."""
@@ -274,4 +281,4 @@ def flash_decode_split_ref(
 
 __all__ = ["DecodeSplits", "NEG_INF", "decode_splits", "fit_bkv",
            "flash_decode", "flash_decode_ref", "flash_decode_split_ref",
-           "launch_bkv", "smem_bytes", "split_count"]
+           "launch_bkv", "smem_bytes", "split_count", "threads"]

@@ -9,7 +9,9 @@ The dtype picks the regime: ``wgmma`` (bfloat16: TMA, a producer warpgroup
 and one or two wgmma consumer warpgroups) or ``mma`` (float32: 3xTF32
 mma.sync, one warp per 16 query rows). Each compiles the (head dim, bkv)
 pairs ``REPRO_FA_TILES`` in the source lists, the one place the rule lives;
-bq is 64 or 128 wherever the tile's shared memory fits a block.
+bq is 64 or 128 wherever the tile's shared memory fits a block. The wgmma
+regime computes at :func:`panel_dim`, the head dim zero-padded to whole
+64-column panels (D = 80 at 128), with the true head dim's scale.
 """
 from __future__ import annotations
 
@@ -24,7 +26,7 @@ from repro_torch.core.hardware import H100_SXM
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention.ref import NEG_INF, flash_attention_ref
 
-HEAD_DIMS = (16, 32, 64, 128, 256)   # head dims the .cu file instantiates
+HEAD_DIMS = (16, 32, 64, 80, 128, 256)   # head dims the .cu file compiles
 BQS = (64, 128)     # query rows a block: 1 or 2 warpgroups, 4 or 8 warps
 STAGES = 2          # K/V ring depth of both regimes
 
@@ -120,6 +122,12 @@ def _compiled() -> Dict[Tuple[str, int], Tuple[int, ...]]:
     return out
 
 
+def panel_dim(d: int) -> int:
+    """The head dim the wgmma regime computes at (``panel_dim`` of the
+    source): whole 64-column panels, the columns past ``d`` zero."""
+    return -(-d // 64) * 64
+
+
 def smem_bytes(bq: int, bkv: int, d: int, dtype) -> int:
     """Shared memory one block uses (``smem_bytes`` of the source): mma, the
     float32 q block and two K and V stages with rows padded by 4 floats;
@@ -127,7 +135,8 @@ def smem_bytes(bq: int, bkv: int, d: int, dtype) -> int:
     bytes of alignment and the mbarriers."""
     if regime(dtype, d) == "mma":
         return 4 * (d + 4) * (bq + 2 * STAGES * bkv)
-    return 2 * max(d, 64) * (bq + 2 * STAGES * bkv) + 1024 + 8 * (1 + 3 * STAGES)
+    return (2 * panel_dim(d) * (bq + 2 * STAGES * bkv) + 1024
+            + 8 * (1 + 3 * STAGES))
 
 
 def threads(bq: int, dtype) -> int:
@@ -154,5 +163,5 @@ def launch_tile(tile, d: int, dtype) -> Tuple[int, int]:
     return t
 
 
-__all__ = ["HEAD_DIMS", "NEG_INF", "flash_attention", "launch_tile", "regime",
-           "regime_tiles", "smem_bytes", "threads"]
+__all__ = ["HEAD_DIMS", "NEG_INF", "flash_attention", "launch_tile",
+           "panel_dim", "regime", "regime_tiles", "smem_bytes", "threads"]

@@ -18,8 +18,9 @@ and the plan compiler sweeps.
     prefill widths (PERF.md).
 ``flash_decode`` (one query over the KV cache):
     problem dims {"b", "skv", "d", "hq", "hkv", "window"(0=none)};
-    tile rank 1 = (bkv,), the KV rows one loop step streams. One 256-thread
-    block per (split, kv-head, b), the splits derived from the grid
+    tile rank 1 = (bkv,), the KV rows one loop step streams. One block of
+    256 threads (320 at D = 80) per (split, kv-head, b), the splits derived
+    from the grid
     (``decode.split_count``). Shared memory: the grouped queries, the padded
     K and the V blocks, the [n_rep, bkv] logits and statistics — 140 KB at
     bkv = 128, D = 128, n_rep = 8. The default bkv is the largest (up to
@@ -28,8 +29,8 @@ and the plan compiler sweeps.
 A tile the kernel cannot launch (``launch_tile`` / ``launch_bkv`` raise) has
 an infinite working set, so no sweep ranks it. The workloads count what the
 kernels do: every loaded KV block is computed in full (masked keys too, and
-the wgmma regime's zero columns below D = 64), and the causal and window
-block skips leave blocks out.
+the wgmma regime's zero columns up to whole 64-column panels), and the
+causal and window block skips leave blocks out.
 
 The chunked_prefill, packed_prefill and kv_page specs of the reference come
 with the chunked, packed and paged serving paths.
@@ -53,8 +54,6 @@ from repro_torch.kernels.flash_attention.ref import (
     attention_dense_ref, flash_attention_ref,
 )
 
-
-THREADS = 256   # threads per block of the decode kernel
 
 
 def _constraints(problem: Mapping[str, int]) -> TileConstraints:
@@ -90,7 +89,7 @@ def _workload(tile: TileShape, problem: Mapping[str, int], dtype: str) -> TileWo
     n_q = cdiv(sq, bq)
     keys = _keys_loaded(sq, problem["skv"], bq, bkv, problem["window"]) / n_q
     b = dtype_bytes(dtype)
-    d_math = max(d, 64) if _flash.regime(dtype, d) == "wgmma" else d
+    d_math = _flash.panel_dim(d) if _flash.regime(dtype, d) == "wgmma" else d
     return TileWorkload(
         flops=4.0 * d_math * bq * keys,            # q.k and p.v per key
         hbm_bytes=float((2 * bq * d + 2 * keys * d) * b),   # q, out; k, v
@@ -166,7 +165,7 @@ def _decode_workload(tile: TileShape, problem: Mapping[str, int],
         hbm_bytes=float((2 * keys * d + 2 * n_rep * d) * b),
         row_segments=1,
         row_stride_bytes=float(d * b),
-        threads=THREADS,
+        threads=_decode.threads(d),
     )
 
 

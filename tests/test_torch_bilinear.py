@@ -76,6 +76,7 @@ def test_the_hopper_tile_is_a_thread_block():
     assert ops.SPEC.vmem_bytes((32, 64), prob, "float32") == float("inf")
     work = ops.SPEC.workload((4, 32), prob, "float32")
     assert work.threads == 128 and work.threads <= H100_SXM.max_threads_per_block
-    assert ops.SPEC.n_tiles((4, 32), prob) == 800 * 100
+    # A block of 4 x 32 threads covers 4 R rows of 32 x 4 float32 pixels.
+    assert ops.SPEC.n_tiles((4, 32), prob) == (3200 // (4 * ops.ROWS)) * (3200 // 128)
     with pytest.raises(ValueError):
         ops.upscale(torch.zeros(4), 2)

@@ -23,6 +23,7 @@ from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.flash_attention.decode import (  # noqa: E402
     flash_decode, flash_decode_ref,
 )
+from repro_torch.kernels.flash_attention import decode as fa_decode  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention as fa  # noqa: E402
 from repro_torch.kernels.flash_attention.flash_attention import (  # noqa: E402
     flash_attention,
@@ -302,6 +303,103 @@ def test_bilinear_vs_plain(dev, dtype, rtol, scale, hw, tile):
     _close(out, bil_ops.bilinear_upscale_ref(src, scale), rtol)
 
 
+# The paper's Fig. 3 axis: every (bh, bw) of {4, 8, 16, 32}^2.
+_FIG3 = [(h, w) for h in (4, 8, 16, 32) for w in (4, 8, 16, 32)]
+
+
+@pytest.mark.parametrize("dtype,rtol", DTYPES)
+@pytest.mark.parametrize("tile", _FIG3)
+def test_bilinear_fig3_tiles(dev, dtype, rtol, tile):
+    (src,) = _randn(dev, 31, (50, 70), dtype=getattr(torch, dtype))
+    for scale in (2, 10):
+        build.reset_launches()
+        out = bil_ops.upscale(src, scale, tile=tile)
+        assert build.LAUNCHES["bilinear"] == 1
+        _close(out, bil_ops.bilinear_upscale_ref(src, scale), rtol)
+
+
+# Rows of 16-byte multiples take vector stores, the others scalar stores:
+# float32 ow 159, 290, 2002, 35; ow 36 is 144 bytes in float32, 72 in bf16;
+# ow 272 (s = 16); s = 1. Each case names the path the source takes.
+@pytest.mark.parametrize("dtype,rtol", DTYPES)
+@pytest.mark.parametrize("hw,scale,tile,paths", [
+    ((37, 53), 3, (7, 33), "ss"), ((41, 29), 10, (8, 32), "ss"),
+    ((33, 1001), 2, (4, 32), "ss"), ((9, 7), 5, (16, 16), "ss"),
+    ((9, 12), 3, (4, 8), "vs"), ((23, 17), 16, (32, 4), "vv"),
+    ((64, 48), 1, (1, 1024), "vv")])
+def test_bilinear_store_paths(dev, dtype, rtol, hw, scale, tile, paths):
+    dt = getattr(torch, dtype)
+    prob = dict(src_h=hw[0], src_w=hw[1], scale=scale)
+    want = {"v": "vector", "s": "scalar"}[paths[dtype == "bfloat16"]]
+    assert bil_ops.store_path(prob, dt) == want
+    (src,) = _randn(dev, 32, hw, dtype=dt)
+    build.reset_launches()
+    out = bil_ops.upscale(src, scale, tile=tile)
+    assert build.LAUNCHES["bilinear"] == 1
+    _close(out, bil_ops.bilinear_upscale_ref(src, scale), rtol)
+
+
+def test_bilinear_grid_y_limit_raises(dev):
+    # 300000 output rows: 75000 block rows at bh = 1, R = 4 (the grid takes
+    # 65535), 37500 at bh = 2.
+    (src,) = _randn(dev, 33, (300000, 2))
+    build.reset_launches()
+    with pytest.raises(ValueError):
+        bil_ops.upscale(src, 1, tile=(1, 32))
+    assert build.LAUNCHES["bilinear"] == 0
+    out = bil_ops.upscale(src, 1, tile=(2, 32))
+    assert build.LAUNCHES["bilinear"] == 1
+    _close(out, bil_ops.bilinear_upscale_ref(src, 1), 2e-5)
+
+
+# h2o-danube-1.8b's attention: Hq 32, Hkv 8 (GQA 4), head_dim 80; every
+# tile of each regime (bf16 zero-pads D to 128).
+@pytest.mark.parametrize("dtype,rtol", DTYPES)
+@pytest.mark.parametrize("sq,skv,kw", [
+    (240, 240, dict(causal=True)), (240, 240, dict(causal=True, window=100)),
+    (90, 240, dict(causal=True, q_offset=150)),
+    (130, 201, dict(causal=False, softcap=20.0))])
+def test_flash_attention_at_head_dim_80(dev, dtype, rtol, sq, skv, kw):
+    q, k, v = _randn(dev, 27, (1, 32, sq, 80), (1, 8, skv, 80),
+                     (1, 8, skv, 80), dtype=getattr(torch, dtype))
+    ref = flash_attention_ref(q, k, v, **kw)
+    for tile in fa.regime_tiles(dtype, 80):
+        build.reset_launches()
+        out = flash_attention(q, k, v, tile=tile, **kw)
+        assert build.LAUNCHES["flash_attention"] == 1
+        _close(out, ref, rtol)
+
+
+@pytest.mark.parametrize("dtype,rtol", DTYPES)
+@pytest.mark.parametrize("b", [1, 32])
+@pytest.mark.parametrize("case", ["linear", "window", "kv_pos"])
+def test_flash_decode_at_head_dim_80(dev, dtype, rtol, b, case):
+    # B = 1 splits the KV over the card; at B = 32, B * Hkv fills it: one
+    # split, no combine.
+    from repro_torch.kernels.flash_attention.decode import decode_splits
+    from repro_torch.kernels.flash_attention.ops import DECODE_SPEC
+
+    s = 1024
+    q, k, v = _randn(dev, 28, (b, 32, 80), (b, 8, s, 80), (b, 8, s, 80),
+                     dtype=getattr(torch, dtype))
+    kw = dict(pos=1000)
+    if case == "window":
+        kw["window"] = 300
+    if case == "kv_pos":
+        kv_pos = torch.arange(s, dtype=torch.int32)
+        kv_pos[torch.rand(s, generator=torch.Generator().manual_seed(2)) < 0.3] = -1
+        kw = dict(pos=900, kv_pos=kv_pos.to(dev))
+    bkv = DECODE_SPEC.default_tile(dict(b=b, skv=s, d=80, hq=32, hkv=8,
+                                        window=kw.get("window", 0)), dtype)[0]
+    sp = decode_splits(b, 8, s, bkv, kw["pos"], case != "kv_pos",
+                       kw.get("window"))
+    assert (sp.splits > 1) == (b == 1)
+    build.reset_launches()
+    out = flash_decode(q, k, v, **kw)
+    assert build.LAUNCHES["flash_decode"] == 1
+    _close(out, flash_decode_ref(q, k, v, **kw), rtol)
+
+
 def _ssd_inputs(dev, seed, b, s, h, p, n, dtype):
     g = torch.Generator(device=dev).manual_seed(seed)
     x = torch.randn((b, s, h, p), generator=g, device=dev).to(dtype)
@@ -341,6 +439,12 @@ def test_ssd_shared_memory_rule_is_the_sources(dev):
         for n in (8, 16, 24, 128, 136, 256, 368, 376, 544, 552, 1024):
             assert fn(n, build.dtype_code(dtype)) == \
                 ssd_ops.smem_bytes(n, dtype), (n, dtype)
+
+
+def test_flash_decode_thread_rule_is_the_sources(dev):
+    fn = build.load("flash_decode").repro_flash_decode_threads
+    for d in fa.HEAD_DIMS:
+        assert fn(d) == fa_decode.threads(d), d
 
 
 def test_ssd_bf16_takes_a_state_wider_than_float32_does(dev):

@@ -163,7 +163,7 @@ def test_tuned_and_heuristic_policies_and_the_autotuner_cache(tmp_path):
     pol = TilingPolicy(mode="heuristic", plans=plan)
     assert pol.tile_for("bilinear", prob, "float32") == plan.entries()[0].tile
     bare = TilingPolicy(mode="heuristic")
-    assert bare.tile_for("bilinear", prob, "float32").dims == (4, 32)
+    assert bare.tile_for("bilinear", prob, "float32").dims == (8, 32)
     assert tiling.grid_for((1600, 1601), tiling.TileShape((4, 32))) == (400, 51)
     assert tiling.padded_extent(1601, 32) == 1632
 
@@ -193,8 +193,10 @@ def test_h100_estimator_bounds_tiles_and_blocks_by_shared_memory():
 
 
 def _full_width_cells():
+    # The default archs and h2o-danube-1.8b, whose head_dim is 80.
     jobs, _ = compile_plans.build_jobs(
-        compile_plans.DEFAULT_ARCHS, ["h100_sxm"], ["float32", "bfloat16"],
+        compile_plans.DEFAULT_ARCHS + ("h2o-danube-1.8b",), ["h100_sxm"],
+        ["float32", "bfloat16"],
         serve_buckets=(512,), serve_slots=4, serve_max_len=1024)
     return jobs
 
