@@ -5,7 +5,7 @@
     python3 chip_smoke.py --quick              # build with the ptxas report,
                                                # one check per kernel, stop
     python3 chip_smoke.py --out smoke.json     # also write every measurement
-    python3 chip_smoke.py --profile            # also trace one request
+    python3 chip_smoke.py --profile            # also profile one request
 
 Phases, each of which fails the run if it fails:
 
@@ -18,11 +18,14 @@ Phases, each of which fails the run if it fails:
    M = 1 and 4 slots, prefill at M = 600, the plain path for unaligned
    rows; flash_attention in its float32 mma and bf16 wgmma regimes at
    every head dim, and every tile of each regime timed at qwen2's prefill
-   widths, S = 600 and 4096), recurrentgemma-9b's head_dim-256 attention,
-   h2o-danube-1.8b's head_dim-80 attention (prefill at S = 512 and 4096,
-   decode with and without split KV), the paper's 800x800 image at scales
-   2-10 in both dtypes (with the store path each took, and images whose
-   rows take scalar stores),
+   widths, S = 600 and 4096; flash_decode with its position read from
+   device memory on a grid fixed by the cache length, one position tensor
+   moved over {0, bkv - 1, bkv, S / 2, S - 1} and rings with wrapped and
+   unwritten slots at head dims 80, 128 and 256), recurrentgemma-9b's
+   head_dim-256 attention, h2o-danube-1.8b's head_dim-80 attention
+   (prefill at S = 512 and 4096, decode with and without split KV), the
+   paper's 800x800 image at scales 2-10 in both dtypes (with the store
+   path each took, and images whose rows take scalar stores),
    mamba2-2.7b's SSD (every chunk the spec sweeps, S = 4096, and the
    decode step) and recurrentgemma-9b's RG-LRU (a few tiles) — and time
    kernel, plain version and one PyTorch library call (where one computes
@@ -30,14 +33,24 @@ Phases, each of which fails the run if it fails:
    graph of many calls, so the host's launch cost is left out; for the
    multi-launch scans also each launch's device time (torch.profiler);
 4. serve full-width qwen2-1.5b (28 layers, random weights from a seed)
-   through the port's ``ServeEngine`` and check that every kernel of the
-   path was launched;
+   through the port's ``ServeEngine``, whose decode steps replay one
+   captured CUDA graph per slot, and check that every kernel of the path
+   was launched; then time a decode step on the host clock at one slot
+   and at four, an eager ``api.decode_step`` loop beside the engine's
+   graphs;
 5. hold the full-width prefill logits and four decode steps of one request
    through the kernels against the same request through the plain
-   versions, with TF32 off;
-6. run the port's launcher (``python -m repro_torch.launch.serve``) at its
-   smoke config on the card;
-7. compile tile plans with wall-clock timing on the card (the port's
+   versions, with TF32 off; then 16 captured decode steps of one request:
+   their tokens equal an eager loop's, their logits the plain versions'
+   within the tolerance;
+6. serve full-width h2o-danube-1.8b (24 layers, 4096-slot ring caches)
+   through the captured engine: 4 requests, two of which wrap their rings
+   (one at prefill), held token by token against the plain versions;
+7. gemma2-9b at full width and 4 of its 42 layers: prefill and 8 captured
+   decode steps across a ring's wrap, against the plain versions;
+8. run the port's launcher (``python -m repro_torch.launch.serve``) at the
+   smoke configs of qwen2-1.5b, gemma2-9b and h2o-danube-1.8b on the card;
+9. compile tile plans with wall-clock timing on the card (the port's
    ``compile_plan`` with ``make_measure_fn``) over a bounded job set: the
    paper's bilinear family, the train_4k ssd, rglru and head_dim-256
    attention cells, and qwen2-1.5b's serve cells; check that every cell was
@@ -45,9 +58,14 @@ Phases, each of which fails the run if it fails:
    exactly; then time all 16 tiles of the paper's Fig. 3 at every scale
    beside the paper's two GPUs as the cost model sees them.
 
+``--profile`` adds, after phase 5, where the time of one full-width qwen2
+request goes (prefill, eager decode, captured decode): wall time, device
+time by kernel group and the device's idle share.
+
 Launch counts: matmul, flash_attention and flash_decode are counted over
-the serve of phase 4, bilinear, ssd and rglru over the compile of phase 7,
-each reset to 0 just before its path and read just after.
+the serve of phase 4 (the replays of captured steps included), bilinear,
+ssd and rglru over the compile of phase 9, each reset to 0 just before its
+path and read just after.
 
 It prints the card (phase 1), a ``{"kernels": [...]}`` JSON line before the
 last, and as the last line ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -167,6 +185,27 @@ def bound(nbytes: float, flops: float, rate: str):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def dev_pos(pos: int):
+    """A decode position as a cache holds it: a 0-d int32 tensor on the
+    card, which flash_decode reads from device memory."""
+    import torch
+
+    return torch.full((), int(pos), dtype=torch.int32, device="cuda")
+
+
+def ring_map(s: int, pos: int):
+    """The slot -> position map of an ``s``-slot ring after position
+    ``pos``: unwritten slots (-1) before it wraps, and once it has, the
+    first tenth of the slots set back to -1 (slots not reached again)."""
+    import torch
+
+    kv_pos = torch.full((s,), -1, dtype=torch.int32)
+    lo = max(0, pos - s + 1 + (s // 10 if pos >= s else 0))
+    written = torch.arange(lo, pos + 1, dtype=torch.int32)
+    kv_pos[(written % s).long()] = written
+    return kv_pos.cuda()
+
+
 def max_err(out, ref) -> float:
     return float((out.float() - ref.float()).abs().max())
 
@@ -185,11 +224,12 @@ def kernel_checks(quick: bool):
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention.decode import (
-        flash_decode, flash_decode_ref,
+        decode_splits, flash_decode, flash_decode_ref,
     )
     from repro_torch.kernels.flash_attention.flash_attention import (
         flash_attention, regime as fa_regime,
     )
+    from repro_torch.kernels.flash_attention.ops import DECODE_SPEC
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
     from repro_torch.kernels.matmul.ops import mm, regime
     from repro_torch.kernels.matmul.ref import matmul_ref
@@ -353,11 +393,16 @@ def kernel_checks(quick: bool):
             q = randn((1, HQ, HEAD_DIM), dt)
             k = randn((1, HKV, s, HEAD_DIM), dt)
             v = randn((1, HKV, s, HEAD_DIM), dt)
-            out = flash_decode(q, k, v, **kw)
+            # The kernel reads the position from device memory, as a
+            # cache's 0-d position tensor holds it.
+            kd = dict(kw, pos=dev_pos(kw["pos"]))
+            out = flash_decode(q, k, v, **kd)
             torch.cuda.synchronize()
             ref = flash_decode_ref(q, k, v, **kw)
             timing = None
-            if not quick and case == "pos=511":
+            # pos 511 is the headline; 0 and 1023 show the grid fixed by S
+            # at its emptiest (one split of 66 has a block) and its fullest.
+            if not quick and case in ("pos=0", "pos=511", "pos=1023"):
                 pos = kw["pos"]
                 seen = pos + 1
                 eb = q.element_size()
@@ -366,26 +411,34 @@ def kernel_checks(quick: bool):
                 mask = (torch.arange(s, device=dev) <= pos)[None, None, None]
                 copies = [(randn(q.shape, dt), randn(k.shape, dt),
                            randn(v.shape, dt)) for _ in range(copies_for(nb))]
+                pos_t = kd["pos"]
+                bkv = DECODE_SPEC.default_tile(
+                    dict(b=1, skv=s, d=HEAD_DIM, hq=HQ, hkv=HKV, window=0),
+                    dname)[0]
+                sp = decode_splits(1, HKV, s, bkv, pos, True)
                 timing = dict(
                     ms=time_ms([lambda x=x, y=y, z=z: flash_decode(
-                        x, y, z, pos=pos) for x, y, z in copies]),
+                        x, y, z, pos=pos_t) for x, y, z in copies]),
                     plain_ms=time_ms([lambda x=x, y=y, z=z: flash_decode_ref(
-                        x, y, z, pos=pos) for x, y, z in copies]),
+                        x, y, z, pos=pos_t) for x, y, z in copies]),
                     library_ms=library_ms([
                         lambda x=x, y=y, z=z: F.scaled_dot_product_attention(
                             x[:, :, None], y, z, attn_mask=mask,
                             enable_gqa=True) for x, y, z in copies]),
                     bound_ms=t_b, bound_by=by,
-                    shape=dict(b=1, hq=HQ, hkv=HKV, s=s, pos=pos, d=HEAD_DIM))
+                    shape=dict(b=1, hq=HQ, hkv=HKV, s=s, pos=pos, d=HEAD_DIM,
+                               bkv=bkv, splits=sp.splits,
+                               blocks_visited=sp.n_blk))
             record("flash_decode", case, dname, out, ref, timing)
         if not quick:
             q = randn((2, HQ, HEAD_DIM), dt)
             k = randn((2, HKV, s, HEAD_DIM), dt)
             v = randn((2, HKV, s, HEAD_DIM), dt)
-            out = flash_decode(q, k, v, pos=700)
+            out = flash_decode(q, k, v, pos=dev_pos(700))
             torch.cuda.synchronize()
             record("flash_decode", "b=2 pos=700", dname, out,
                    flash_decode_ref(q, k, v, pos=700))
+    decode_position_checks(record, randn, dtypes, quick)
     head_dim_256_checks(record, randn, dtypes, quick)
     head_dim_80_checks(record, randn, dtypes, quick)
     bilinear_checks(record, randn, dtypes, quick)
@@ -395,6 +448,46 @@ def kernel_checks(quick: bool):
     check(not bad, f"{len(bad)} kernel check(s) disagree with the plain "
                    f"version: {[(r['kernel'], r['case'], r['dtype']) for r in bad]}")
     return rows
+
+
+def decode_position_checks(record, randn, dtypes, quick: bool):
+    """flash_decode with its position in device memory and its grid fixed
+    by S = 1024, at h2o-danube-1.8b's (Hq 32, Hkv 8, D 80), qwen2-1.5b's
+    (16, 2, 128) and recurrentgemma-9b's (16, 1, 256) heads: one position
+    tensor moved over {0, bkv - 1, bkv, S / 2, S - 1} on a linear cache,
+    then a ring (kv_pos) half written, wrapped, and wrapped twice with
+    slots not reached again. Each launch is held against the plain version
+    and the kernel's split arithmetic (``flash_decode_split_ref``)."""
+    import torch
+
+    from repro_torch.kernels.flash_attention.decode import (
+        flash_decode, flash_decode_ref, flash_decode_split_ref,
+    )
+    from repro_torch.kernels.flash_attention.ops import DECODE_SPEC
+
+    s = 1024
+    heads = ((32, 8, 80), (HQ, HKV, HEAD_DIM), (16, 1, 256))
+    for hq, hkv, d in heads[1:2] if quick else heads:
+        for dname, dt in dtypes:
+            q = randn((1, hq, d), dt)
+            k, v = randn((1, hkv, s, d), dt), randn((1, hkv, s, d), dt)
+            bkv = DECODE_SPEC.default_tile(dict(b=1, skv=s, d=d, hq=hq,
+                                                hkv=hkv, window=0), dname)[0]
+            sweep = [("linear", p) for p in (0, bkv - 1, bkv, s // 2, s - 1)]
+            sweep += [("ring", p) for p in (s // 2, s + 37, 3 * s - 1)]
+            pos = dev_pos(0)
+            for cache, p in sweep:
+                kw = dict(kv_pos=ring_map(s, p)) if cache == "ring" else {}
+                pos.fill_(p)
+                out = flash_decode(q, k, v, pos=pos, **kw)
+                torch.cuda.synchronize()
+                split = flash_decode_split_ref(q, k, v, pos=p, bkv=bkv, **kw)
+                err = max_err(out, split)
+                check(within(err, split, dname),
+                      f"flash_decode D={d} pos={p} {cache} {dname}: kernel "
+                      f"and its split arithmetic differ by {err:.3e}")
+                record("flash_decode", f"D={d} device pos={p} {cache}", dname,
+                       out, flash_decode_ref(q, k, v, pos=p, **kw))
 
 
 # The rate the tensor-core kernels (flash_attention, ssd) run at: 3xTF32 on
@@ -522,7 +615,8 @@ def head_dim_256_checks(record, randn, dtypes, quick: bool):
         record("flash_attention", f"D=256 sq=skv={s} window={win}", dname,
                out, ref, timing)
         qd = randn((1, hq, d), dt)
-        out = flash_decode(qd, k, v, pos=s - 1, window=win)
+        pos_t = dev_pos(s - 1)
+        out = flash_decode(qd, k, v, pos=pos_t, window=win)
         torch.cuda.synchronize()
         ref = flash_decode_ref(qd, k, v, pos=s - 1, window=win)
         timing = None
@@ -536,9 +630,9 @@ def head_dim_256_checks(record, randn, dtypes, quick: bool):
                        randn(v.shape, dt)) for _ in range(copies_for(nb))]
             timing = dict(
                 ms=time_ms([lambda x=x, y=y, z=z: flash_decode(
-                    x, y, z, pos=s - 1, window=win) for x, y, z in copies]),
+                    x, y, z, pos=pos_t, window=win) for x, y, z in copies]),
                 plain_ms=time_ms([lambda x=x, y=y, z=z: flash_decode_ref(
-                    x, y, z, pos=s - 1, window=win) for x, y, z in copies]),
+                    x, y, z, pos=pos_t, window=win) for x, y, z in copies]),
                 library_ms=library_ms([
                     lambda x=x, y=y, z=z: F.scaled_dot_product_attention(
                         x[:, :, None], y, z, attn_mask=mask, enable_gqa=True)
@@ -610,7 +704,8 @@ def head_dim_80_checks(record, randn, dtypes, quick: bool):
         for b in ((1,) if quick else (1, 32)):
             q = randn((b, hq, d), dt)
             k, v = randn((b, hkv, s, d), dt), randn((b, hkv, s, d), dt)
-            out = flash_decode(q, k, v, pos=pos)
+            pos_t = dev_pos(pos)
+            out = flash_decode(q, k, v, pos=pos_t)
             torch.cuda.synchronize()
             ref = flash_decode_ref(q, k, v, pos=pos)
             timing = None
@@ -624,9 +719,9 @@ def head_dim_80_checks(record, randn, dtypes, quick: bool):
                            randn(v.shape, dt)) for _ in range(copies_for(nb))]
                 timing = dict(
                     ms=time_ms([lambda x=x, y=y, z=z: flash_decode(
-                        x, y, z, pos=pos) for x, y, z in copies]),
+                        x, y, z, pos=pos_t) for x, y, z in copies]),
                     plain_ms=time_ms([lambda x=x, y=y, z=z: flash_decode_ref(
-                        x, y, z, pos=pos) for x, y, z in copies], iters=4),
+                        x, y, z, pos=pos_t) for x, y, z in copies], iters=4),
                     library_ms=library_ms([
                         lambda x=x, y=y, z=z: F.scaled_dot_product_attention(
                             x[:, :, None], y, z, enable_gqa=True)
@@ -932,6 +1027,277 @@ def full_width_parity(cfg, params):
     return report
 
 
+def decode_rates(cfg, params, prompt_len: int = 600, steps: int = 12,
+                 reps: int = 3):
+    """Decode wall ms a step on the host clock (the median of ``reps`` runs
+    of ``steps`` steps), eager beside graph, at one slot and at four: eager
+    is a direct ``api.decode_step`` loop over each slot's own batch-1
+    caches (the engine's layout) that reads each slot's token back every
+    step, as a server must; graph is ``ServeEngine``, which replays each
+    slot's captured step and reads the tokens back once a step. Both decode
+    from the same ``prompt_len``-token prompts."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import api
+    from repro_torch.serve import ServeEngine
+
+    v = cfg.vocab_size
+    rng = np.random.default_rng(3)
+    out = {}
+    for slots in (1, 4):
+        prompts = [rng.integers(2, v, size=prompt_len) for _ in range(slots)]
+        with torch.inference_mode():
+            states, toks = [], []
+            for p in prompts:
+                logits, st = api.prefill(params, cfg, {"tokens": p[None]},
+                                         max_len=MAX_LEN)
+                states.append(st)
+                toks.append(int(torch.argmax(logits[0, :v])))
+
+            def eager_step():
+                for i in range(slots):
+                    tok = torch.tensor([[toks[i]]], device="cuda")
+                    logits, _ = api.decode_step(params, cfg, tok, states[i])
+                    toks[i] = int(torch.argmax(logits[0, :v]))
+
+            eager_step()
+            eager = statistics.median(
+                per_step_ms(eager_step, steps) for _ in range(reps))
+        eng = ServeEngine(cfg, params, max_len=MAX_LEN, slots=slots,
+                          device="cuda")
+        for p in prompts:
+            eng.add_request(p, max_new_tokens=reps * steps + 8)
+        eng.step()                 # prefill, warm-up, capture, first replay
+        eng.step()
+        graph = statistics.median(
+            per_step_ms(eng.step, steps) for _ in range(reps))
+        check(eng.in_flight() == slots, "a request left the engine early")
+        eng.run_until_done()
+        out[f"slots_{slots}"] = dict(eager_ms=eager, graph_ms=graph,
+                                     eager_tok_s=slots * 1e3 / eager,
+                                     graph_tok_s=slots * 1e3 / graph)
+        log(f"  decode at {slots} slot(s), {prompt_len}-token prompts: eager "
+            f"{eager:.3f} ms a step ({slots * 1e3 / eager:.1f} tok/s), graph "
+            f"{graph:.3f} ms a step ({slots * 1e3 / graph:.1f} tok/s), "
+            f"{eager / graph:.2f}x")
+    return out
+
+
+def per_step_ms(step, steps: int) -> float:
+    """Host-clock ms a call of ``step`` over ``steps`` calls, from a
+    synchronised start to a synchronised end."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        step()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / steps
+
+
+def graph_logits(eng, prompt, new_tokens: int):
+    """Serve one request alone through ``eng`` (one slot), step by step,
+    and keep each decode step's logits as its captured graph wrote them.
+    Returns (tokens, [logits of decode steps 1..new_tokens-1])."""
+    rid = eng.add_request(prompt, max_new_tokens=new_tokens)
+    check(rid is not None, f"request rejected: {eng.last_reject_reason}")
+    steps, done = [], []
+    while eng.in_flight() or eng.scheduler.pending():
+        done += eng.run_until_done(max_steps=1)
+        # The slot's static logits buffer: the graph's output of the step.
+        steps.append(eng._slots[0].logits[0].clone())
+    (req,) = done
+    return req.out_tokens, steps
+
+
+def hold_against_plain(params, cfg, prompt, tokens, graph_steps, max_len,
+                       ring_local: bool, label: str):
+    """The plain versions (``impl="reference"``) teacher-forced with the
+    engine's tokens: at every step the engine's token is the plain argmax
+    unless the plain top-2 margin is within the tolerance, and, where the
+    engine's logits are given, they lie within LOGIT_REL_TOL of max |plain
+    logit|. Returns the worst relative difference and the smallest margin."""
+    import torch
+
+    from repro_torch.models import api
+
+    v = cfg.vocab_size
+    worst, min_margin = 0.0, float("inf")
+    with torch.inference_mode():
+        lr, st = api.prefill(params, cfg, {"tokens": prompt[None]},
+                             max_len=max_len, ring_local=ring_local,
+                             impl="reference")
+        for i, tok in enumerate(tokens):
+            b = lr[0, :v].float()
+            check(bool(torch.isfinite(b).all()), f"{label} step {i}: "
+                  "non-finite plain logits")
+            scale = float(b.abs().max())
+            tol = LOGIT_REL_TOL * scale
+            top2 = torch.topk(b, 2)
+            margin = float(top2.values[0] - top2.values[1])
+            min_margin = min(min_margin, margin)
+            check(int(top2.indices[0]) == tok or margin <= tol,
+                  f"{label} step {i}: token {tok} != plain "
+                  f"{int(top2.indices[0])} with margin {margin:.3e} > "
+                  f"{tol:.3e}")
+            if 0 < i <= len(graph_steps):
+                a = graph_steps[i - 1][:v].float()
+                check(bool(torch.isfinite(a).all()),
+                      f"{label} step {i}: non-finite graph logits")
+                err = float((a - b).abs().max())
+                worst = max(worst, err / scale)
+                check(err <= tol, f"{label} step {i}: graph logits differ "
+                      f"from the plain ones by {err:.3e} > {tol:.3e}")
+            if i + 1 < len(tokens):
+                t = torch.tensor([[tok]], device="cuda")
+                lr, st = api.decode_step(params, cfg, t, st, impl="reference")
+    return worst, min_margin
+
+
+def graph_parity(cfg, params, new_tokens: int = 17):
+    """16 decode steps of one full-width request through the captured
+    engine: its tokens equal an eager kernel loop's, and its logits lie
+    within LOGIT_REL_TOL of the plain versions' (TF32 off)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import api
+    from repro_torch.serve import ServeEngine
+
+    prompt = np.random.default_rng(1).integers(2, cfg.vocab_size, size=384)
+    eng = ServeEngine(cfg, params, max_len=MAX_LEN, slots=1, device="cuda")
+    tokens, steps = graph_logits(eng, prompt, new_tokens)
+    v = cfg.vocab_size
+    with torch.inference_mode():
+        logits, st = api.prefill(params, cfg, {"tokens": prompt[None]},
+                                 max_len=MAX_LEN)
+        eager = [int(torch.argmax(logits[0, :v]))]
+        while len(eager) < new_tokens:
+            t = torch.tensor([[eager[-1]]], device="cuda")
+            logits, st = api.decode_step(params, cfg, t, st)
+            eager.append(int(torch.argmax(logits[0, :v])))
+    check(tokens == eager, f"graph tokens {tokens} != eager tokens {eager}")
+    worst, margin = hold_against_plain(params, cfg, prompt, tokens, steps,
+                                       MAX_LEN, False, "qwen2 graph")
+    log(f"  {len(steps)} captured decode steps: tokens equal the eager "
+        f"loop's; logits within {worst:.3e} x max |logit| of the plain "
+        f"versions' (tol {LOGIT_REL_TOL:g}); smallest top-2 margin "
+        f"{margin:.3e}")
+    return dict(decode_steps=len(steps), tokens_equal_eager=True,
+                max_rel_err=worst, min_top2_margin=margin)
+
+
+def serve_h2o_danube():
+    """Full-width h2o-danube-1.8b (24 layers, Hq 32, Hkv 8, D 80, window
+    4096; float32, random weights from seed 0) through the captured engine:
+    4 requests at max_len 4608, so every layer keeps a 4096-slot ring; the
+    4090-token prompt wraps its rings while it decodes, the 4200-token one
+    overflows them at prefill, 64 and 500 do not wrap. 16 new tokens each,
+    held against the same requests through the plain versions."""
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.kernels import build
+    from repro_torch.models import api
+    from repro_torch.serve import ServeEngine
+
+    cfg = configs.get_arch("h2o-danube-1.8b")
+    max_len, new_tokens, lengths = 4608, 16, (4090, 4200, 64, 500)
+    t0 = time.perf_counter()
+    params = api.init_params(cfg, 0, dtype=torch.float32, device="cuda")
+    torch.cuda.synchronize()
+    log(f"  initialised {sum(p.numel() for p in _leaves(params)) / 1e9:.3f} "
+        f"B parameters in {time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(2, cfg.vocab_size, size=n) for n in lengths]
+    eng = ServeEngine(cfg, params, max_len=max_len, slots=4,
+                      dtype=torch.float32, device="cuda")
+    build.reset_launches()
+    t0 = time.perf_counter()
+    rids = [eng.add_request(p, max_new_tokens=new_tokens) for p in prompts]
+    # One engine step at a time: the first admits all four (their prefills)
+    # and decodes once; each later one is a decode step of the four slots.
+    done, step_ms = {}, []
+    while eng.in_flight() or eng.scheduler.pending():
+        t = time.perf_counter()
+        done.update((r.rid, r) for r in eng.run_until_done(max_steps=1))
+        step_ms.append((time.perf_counter() - t) * 1e3)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(build.LAUNCHES)
+    decode_ms = statistics.median(step_ms[1:])
+    check(all(r is not None for r in rids), f"requests rejected: {rids}")
+    check(sorted(done) == sorted(rids), "not every request finished")
+    for name in SERVE_KERNELS:
+        check(launches[name] > 0, f"h2o-danube never launched {name}")
+    ring = cfg.attn_window
+    tops = sorted(int(slot.caches[0]["slot_pos"].max()) for slot in eng._slots)
+    check(all(c["k"].shape[2] == ring for c in eng._slots[0].caches),
+          "h2o-danube's caches are not 4096-slot rings")
+    check(sum(t >= ring for t in tops) >= 2,
+          f"the rings did not wrap (highest positions held: {tops})")
+    report = []
+    for rid, n, p in zip(rids, lengths, prompts):
+        toks = done[rid].out_tokens
+        check(len(toks) == new_tokens, f"request {rid} got {len(toks)} tokens")
+        _, margin = hold_against_plain(params, cfg, p, toks, [], max_len,
+                                       True, f"h2o-danube prompt {n}")
+        report.append(dict(prompt=n, tokens=toks, min_top2_margin=margin,
+                           wraps=n + new_tokens - 1 > ring))
+    log(f"  4 requests ({', '.join(map(str, lengths))}-token prompts), "
+        f"{4 * new_tokens} tokens in {dt:.3f} s (first step, the prefills: "
+        f"{step_ms[0]:.1f} ms; then {decode_ms:.3f} ms a decode step of 4 "
+        f"slots, median); rings of {ring} slots, highest positions held "
+        f"{tops}; every token the plain versions' or within a top-2 margin "
+        f"of {LOGIT_REL_TOL:g} x max |logit|")
+    log(f"  launches: {launches}")
+    return dict(requests=report, seconds=dt, launches=launches,
+                first_step_ms=step_ms[0], decode_step_ms=decode_ms,
+                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+
+def gemma2_reduced_depth():
+    """gemma2-9b at full width (d_model 3584, Hq 16, Hkv 8, D 256, d_ff
+    14336, softcaps 50 / 30, window 4096) and 4 of its 42 layers (2
+    local/global units; float32, random weights from seed 0): one request
+    of 4092 prompt tokens at max_len 4352, so the local layers keep a
+    4096-slot ring that wraps during 8 captured decode steps, held against
+    the plain versions."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.models import api
+    from repro_torch.serve import ServeEngine
+
+    full = configs.get_arch("gemma2-9b")
+    cfg = dataclasses.replace(full, n_layers=4,
+                              layer_pattern=full.layer_pattern[:4]).validate()
+    params = api.init_params(cfg, 0, dtype=torch.float32, device="cuda")
+    prompt = np.random.default_rng(6).integers(2, cfg.vocab_size, size=4092)
+    max_len = 4352
+    eng = ServeEngine(cfg, params, max_len=max_len, slots=1, device="cuda")
+    t0 = time.perf_counter()
+    tokens, steps = graph_logits(eng, prompt, 9)
+    dt = time.perf_counter() - t0
+    rings = [c["k"].shape[2] for c in eng._slots[0].caches]
+    check(rings == [4096, max_len] * 2, f"gemma2 cache lengths {rings}")
+    worst, margin = hold_against_plain(params, cfg, prompt, tokens, steps,
+                                       max_len, True, "gemma2")
+    cut = f"depth cut to {cfg.n_layers} of {full.n_layers} layers"
+    log(f"  gemma2-9b ({cut}): prefill and {len(steps)} captured decode "
+        f"steps in {dt:.3f} s; caches {rings}; logits within {worst:.3e} x "
+        f"max |logit| of the plain versions' (tol {LOGIT_REL_TOL:g}); "
+        f"smallest top-2 margin {margin:.3e}")
+    return dict(reduced=cut, decode_steps=len(steps), tokens=tokens,
+                max_rel_err=worst, min_top2_margin=margin, seconds=dt)
+
+
 def _kernel_group(name: str) -> str:
     for key, group in (("matmul_", "matmul"),
                        ("flash_attention_kernel", "flash_attention"),
@@ -945,19 +1311,30 @@ def _kernel_group(name: str) -> str:
 
 def profile_request(cfg, params, prompt_len: int = 600, steps: int = 8):
     """Where the time of one full-width request goes: the prefill of a
-    ``prompt_len`` prompt and ``steps`` decode steps at batch 1. Per phase:
-    the wall time on the host clock (median of 3), then the device time by
-    kernel group from ``torch.profiler`` and so the device's idle share."""
+    ``prompt_len`` prompt and ``steps`` decode steps at batch 1, eager
+    (``api.decode_step``) and captured (``ServeEngine``'s replayed graph).
+    Per phase: the wall time on the host clock (median of 3), then the
+    device time by kernel group from ``torch.profiler`` and so the device's
+    idle share."""
     import numpy as np
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.models import api
+    from repro_torch.serve import ServeEngine
 
-    tokens = torch.as_tensor(np.random.default_rng(2).integers(
-        2, cfg.vocab_size, size=(1, prompt_len)), device="cuda")
+    prompt = np.random.default_rng(2).integers(2, cfg.vocab_size,
+                                               size=prompt_len)
+    tokens = torch.as_tensor(prompt[None], device="cuda")
     state = {}
+    eng = ServeEngine(cfg, params, max_len=MAX_LEN, slots=1, device="cuda")
+    eng.add_request(prompt, max_new_tokens=6 * steps + 2)
+    eng.step()                       # prefill, warm-up, capture, first replay
+
+    def decode_graph():
+        for _ in range(steps):
+            eng.step()
 
     def prefill():
         state["logits"], state["cache"] = api.prefill(
@@ -981,9 +1358,10 @@ def profile_request(cfg, params, prompt_len: int = 600, steps: int = 8):
 
     out = {}
     with torch.inference_mode():
-        prefill(), decode()                       # warm-up
+        prefill(), decode(), decode_graph()       # warm-up
         for phase, fn, per in (("prefill", prefill, 1),
-                               ("decode", decode, steps)):
+                               ("decode", decode, steps),
+                               ("decode_graph", decode_graph, steps)):
             unit = "request" if phase == "prefill" else "step"
             wall = statistics.median(wall_ms(phase, fn, per)
                                      for _ in range(3))
@@ -1022,22 +1400,33 @@ def profile_request(cfg, params, prompt_len: int = 600, steps: int = 8):
 
 
 def run_launcher():
+    """The launcher at the smoke configs of qwen2-1.5b and of the two
+    windowed archs (ring caches; 20 new tokens wrap gemma2's and
+    h2o-danube's 16-slot rings), each in its own process."""
     env = dict(os.environ)
     env["PYTHONPATH"] = str(SRC) + (os.pathsep + env["PYTHONPATH"]
                                     if env.get("PYTHONPATH") else "")
-    proc = subprocess.run(
+    procs = {arch: subprocess.Popen(
         [sys.executable, "-m", "repro_torch.launch.serve", "--device", "cuda",
-         "--requests", "4", "--new-tokens", "6"],
-        cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
-    tail = "\n".join(proc.stdout.strip().splitlines()[-14:])
-    log("  " + tail.replace("\n", "\n  "))
-    check(proc.returncode == 0,
-          f"launcher exited {proc.returncode}: {proc.stderr[-2000:]}")
-    check("4 requests (0 rejected)" in proc.stdout,
-          "launcher did not serve its 4 requests")
-    for name in ("matmul", "flash_attention", "flash_decode"):
-        check(f"'{name}': 0" not in proc.stdout,
-              f"launcher never launched {name}")
+         "--arch", arch, "--requests", "4", "--new-tokens", "20"],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True) for arch in ("qwen2-1.5b", "gemma2-9b", "h2o-danube-1.8b")}
+    for arch, proc in procs.items():
+        try:
+            stdout, stderr = proc.communicate(timeout=300)
+        except subprocess.TimeoutExpired:
+            for p in procs.values():
+                p.kill()
+            raise
+        tail = "\n".join(stdout.strip().splitlines()[-14:])
+        log(f"  --arch {arch}\n  " + tail.replace("\n", "\n  "))
+        check(proc.returncode == 0,
+              f"launcher ({arch}) exited {proc.returncode}: {stderr[-2000:]}")
+        check("4 requests (0 rejected)" in stdout,
+              f"launcher ({arch}) did not serve its 4 requests")
+        for name in ("matmul", "flash_attention", "flash_decode"):
+            check(f"'{name}': 0" not in stdout,
+                  f"launcher ({arch}) never launched {name}")
 
 
 # ---------------------------------------------------------------------------
@@ -1314,12 +1703,15 @@ def main(argv=None) -> int:
             log(f"  initialised {sum(p.numel() for p in _leaves(params)) / 1e9:.3f}"
                 f" B parameters in {time.perf_counter() - t0:.1f} s")
             result["serve"] = serve_full_width(cfg, params)
+            log("== decode wall time a step: eager loop vs captured graph")
+            result["decode_rates"] = decode_rates(cfg, params)
             phase_done("serve", t_phase)
 
             # 5. Full-width parity, kernels vs plain versions.
             log("== full-width parity: kernels vs plain versions")
             t0 = time.perf_counter()
             result["parity"] = full_width_parity(cfg, params)
+            result["graph_parity"] = graph_parity(cfg, params)
             if args.profile:
                 log("== where the time of one full-width request goes")
                 result["profile"] = profile_request(cfg, params)
@@ -1327,13 +1719,29 @@ def main(argv=None) -> int:
             torch.cuda.empty_cache()
             phase_done("parity", t0)
 
-            # 6. The launcher.
-            log("== launcher (smoke config) on the card")
+            # 6. Full-width h2o-danube-1.8b on ring caches.
+            log("== serve full-width h2o-danube-1.8b (24 layers, float32, "
+                "4096-slot rings)")
+            t0 = time.perf_counter()
+            result["h2o_danube"] = serve_h2o_danube()
+            torch.cuda.empty_cache()
+            phase_done("h2o-danube", t0)
+
+            # 7. gemma2-9b at full width, reduced depth.
+            log("== gemma2-9b at full width, 4 layers: prefill and captured "
+                "decode on a ring")
+            t0 = time.perf_counter()
+            result["gemma2"] = gemma2_reduced_depth()
+            torch.cuda.empty_cache()
+            phase_done("gemma2", t0)
+
+            # 8. The launcher.
+            log("== launcher (smoke configs) on the card")
             t0 = time.perf_counter()
             run_launcher()
             phase_done("launcher", t0)
 
-            # 7. Tile plans on the card.
+            # 9. Tile plans on the card.
             log("== tile plans on the card (wall-clock compile)")
             t0 = time.perf_counter()
             result["plans"] = plan_phase(ROOT / "build")

@@ -18,18 +18,32 @@
 // read once per group, and streams a contiguous run of bkv-row blocks with
 // the online softmax of the reference (statistics in shared memory, the
 // accumulator in registers: each thread one head-dim column of every
-// NT / D-th query row, so a block has 256 threads, or 320 at D = 80). The
-// wrapper derives the split count from the grid (about one wave of 132
-// blocks over B * Hkv; 1 once B * Hkv fills the card) and the key range:
-// with a linear cache (slot i = position i) only the blocks that hold
-// visible keys, [max(0, pos - window + 1), pos] — the reference's block skip; with a kv_pos map (ring caches, -1 = unwritten)
-// all S slots, masked per key. A block writes its unnormalised accumulator
-// and its (m, l) to a float32 workspace, and a second kernel rescales each
-// split by exp(m_i - M) and sums them in split order (deterministic). A
-// split with no visible key has m = NEG_INF and drops out of that sum; if
-// no split sees a key, every weight is 1 and the result is the reference's
-// average of the masked rows. With one split the block normalises and
-// stores directly. Slots past the cache end (S need not be a multiple of
+// NT / D-th query row, so a block has 256 threads, or 320 at D = 80).
+//
+// The query position is an int32 scalar in device memory, read once by each
+// block, so that one launch serves every decode step of a captured CUDA
+// graph. The grid therefore depends on the cache length alone: the wrapper
+// sizes the split count from B * Hkv and the cache's ceil(S / bkv) blocks
+// (about one wave of 132 blocks; 1 once B * Hkv fills the card). Each block
+// derives the key blocks that hold visible keys from the position — with a
+// linear cache (slot i = position i) [max(0, pos - window + 1), pos], the
+// reference's block skip; with a kv_pos map (ring caches, -1 = unwritten)
+// all S slots, masked per key. The first min(splits, blocks) splits share
+// that run in equal parts, so at every position the work is what a grid
+// sized from the host's position would do; a surplus split gets no block
+// and writes the empty partial (m = NEG_INF, l = 0, acc = 0)
+// (decode.py:decode_splits is this rule in Python). Thread 0 reads the
+// position into shared memory while the block loads its queries, so the
+// read adds no round trip of its own.
+//
+// A block writes its unnormalised accumulator and its (m, l) to a float32
+// workspace, and a second kernel rescales each split by exp(m_i - M) and
+// sums them in split order (deterministic). A split with no visible key has
+// m = NEG_INF and drops out of that sum, and an empty partial adds nothing
+// to it even where every m is NEG_INF; if no split sees a key, every
+// visited split weighs 1 and the result is the reference's average of the
+// masked rows it visited. With one split the block normalises and stores
+// directly. Slots past the cache end (S need not be a multiple of
 // bkv) get a logit of -inf, so they never count. Numerics otherwise follow
 // the reference: NEG_INF = -2e30, softcap before the mask, the 1e-30 clamp
 // of the denominator.
@@ -75,6 +89,24 @@ __host__ __device__ constexpr int threads_for(int d) {
   return 256 % d == 0 ? 256 : 4 * d;
 }
 
+// The key blocks that hold visible keys at position pos, [lo, lo + n), and
+// the splits that share them, used = min(splits, n) (at least 1).
+struct Run {
+  int lo, n, used;
+};
+__device__ __forceinline__ Run visible_run(int pos, int s, int bkv,
+                                           int window, bool linear,
+                                           int splits) {
+  const int n_all = (s + bkv - 1) / bkv;
+  int lo = 0, hi = n_all;
+  if (linear) {
+    hi = min(n_all, pos / bkv + 1);
+    if (window > 0) lo = max(0, pos - window + 1) / bkv;
+  }
+  lo = min(lo, hi);
+  return Run{lo, hi - lo, max(1, min(splits, hi - lo))};
+}
+
 template <int D>
 size_t smem_bytes(int n_rep, int bkv) {
   return sizeof(float) * ((size_t)n_rep * D + (size_t)bkv * (D + 1) +
@@ -82,14 +114,18 @@ size_t smem_bytes(int n_rep, int bkv) {
                           3 * (size_t)n_rep);
 }
 
+// One block an SM as the floor lets ptxas keep what the loops need in
+// registers: without it, once the position came from device memory, ptxas
+// held D = 128 to 64 registers (80 before) and D = 256 to 128 (244), and the
+// kernel ran up to 45% slower on the H100 (PERF.md).
 template <typename T, int D>
-__global__ void __launch_bounds__(threads_for(D))
+__global__ void __launch_bounds__(threads_for(D), 1)
 flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const int* __restrict__ kv_pos,
-                    T* __restrict__ out, float* __restrict__ ws_acc,
-                    float* __restrict__ ws_ml, int hq, int hkv, int s, int bkv,
-                    int pos, float scale, int window, float softcap,
-                    int ib_lo, int n_blk) {
+                    const int* __restrict__ pos_ptr, T* __restrict__ out,
+                    float* __restrict__ ws_acc, float* __restrict__ ws_ml,
+                    int hq, int hkv, int s, int bkv, float scale, int window,
+                    float softcap) {
   constexpr int NT = threads_for(D);
   constexpr int NWARPS = NT / 32;
   static_assert(NT % D == 0 && NT % 32 == 0,
@@ -116,15 +152,27 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* vb = v + ((size_t)bb * hkv + g) * (size_t)s * D;
   T* ob = out + ((size_t)bb * hq + (size_t)g * n_rep) * D;
 
+  // The position, read once, its load in flight with the queries'.
+  __shared__ int pos_s;
+  if (tid == 0) pos_s = __ldg(pos_ptr);
   for (int i = tid; i < n_rep * D; i += NT) qs[i] = to_f32(qb[i]) * scale;
   for (int r = tid; r < n_rep; r += NT) {
     m_s[r] = NEG_INF;
     l_s[r] = 0.f;
   }
+  __syncthreads();
+  const int pos = pos_s;
 
-  // This split's run of the n_blk key blocks from ib_lo, in equal shares.
-  const int ib_begin = ib_lo + (int)((long long)split * n_blk / splits);
-  const int ib_end = ib_lo + (int)((long long)(split + 1) * n_blk / splits);
+  // This split's equal share of the visible key blocks; a surplus split has
+  // none, and its loop below does not run: it writes the empty partial.
+  const Run run = visible_run(pos, s, bkv, window, kv_pos == nullptr, splits);
+  const int ib_begin =
+      split < run.used ? run.lo + (int)((long long)split * run.n / run.used)
+                       : 0;
+  const int ib_end =
+      split < run.used
+          ? run.lo + (int)((long long)(split + 1) * run.n / run.used)
+          : 0;
 
   const int d = tid % D;
   const int r0t = tid / D;
@@ -293,16 +341,18 @@ flash_decode_combine(const float* __restrict__ ws_acc,
 struct Split {
   float* ws_acc;
   float* ws_ml;
-  int ib_lo, n_blk, splits;
+  int splits;
 };
 
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, const int* kv_pos,
-           void* out, int b, int hq, int hkv, int s, int bkv, int pos,
+           const int* pos, void* out, int b, int hq, int hkv, int s, int bkv,
            float scale, int window, float softcap, Split sp,
            cudaStream_t stream) {
   const size_t smem = smem_bytes<D>(hq / hkv, bkv);
-  if (smem > (size_t)SMEM_LIMIT) return (int)cudaErrorInvalidValue;
+  // The block's static shared int (the position) counts against the limit.
+  if (smem + sizeof(int) > (size_t)SMEM_LIMIT)
+    return (int)cudaErrorInvalidValue;
   auto kernel = flash_decode_kernel<T, D>;
   static size_t sized = 0;  // the dynamic shared memory already allowed
   if (smem > sized) {
@@ -315,9 +365,9 @@ int launch(const void* q, const void* k, const void* v, const int* kv_pos,
   dim3 grid(sp.splits, hkv, b);
   kernel<<<grid, threads_for(D), smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), kv_pos, static_cast<T*>(out),
+      static_cast<const T*>(v), kv_pos, pos, static_cast<T*>(out),
       split ? sp.ws_acc : nullptr, split ? sp.ws_ml : nullptr, hq, hkv, s,
-      bkv, pos, scale, window, softcap, sp.ib_lo, sp.n_blk);
+      bkv, scale, window, softcap);
   if (split) {
     dim3 cgrid(hq / hkv, b * hkv);
     constexpr int combine_nt = (D + 31) / 32 * 32;
@@ -332,67 +382,59 @@ int launch(const void* q, const void* k, const void* v, const int* kv_pos,
 
 template <typename T>
 int dispatch_d(int dh, const void* q, const void* k, const void* v,
-               const int* kv_pos, void* out, int b, int hq, int hkv, int s,
-               int bkv, int pos, float scale, int window, float softcap,
-               Split sp, cudaStream_t st) {
+               const int* kv_pos, const int* pos, void* out, int b, int hq,
+               int hkv, int s, int bkv, float scale, int window,
+               float softcap, Split sp, cudaStream_t st) {
+#define REPRO_DECODE_D(DH)                                                   \
+  case DH:                                                                  \
+    return launch<T, DH>(q, k, v, kv_pos, pos, out, b, hq, hkv, s, bkv,     \
+                         scale, window, softcap, sp, st);
   switch (dh) {
-    case 16:
-      return launch<T, 16>(q, k, v, kv_pos, out, b, hq, hkv, s, bkv, pos,
-                           scale, window, softcap, sp, st);
-    case 32:
-      return launch<T, 32>(q, k, v, kv_pos, out, b, hq, hkv, s, bkv, pos,
-                           scale, window, softcap, sp, st);
-    case 64:
-      return launch<T, 64>(q, k, v, kv_pos, out, b, hq, hkv, s, bkv, pos,
-                           scale, window, softcap, sp, st);
-    case 80:
-      return launch<T, 80>(q, k, v, kv_pos, out, b, hq, hkv, s, bkv, pos,
-                           scale, window, softcap, sp, st);
-    case 128:
-      return launch<T, 128>(q, k, v, kv_pos, out, b, hq, hkv, s, bkv, pos,
-                            scale, window, softcap, sp, st);
-    case 256:
-      return launch<T, 256>(q, k, v, kv_pos, out, b, hq, hkv, s, bkv, pos,
-                            scale, window, softcap, sp, st);
+    REPRO_DECODE_D(16)
+    REPRO_DECODE_D(32)
+    REPRO_DECODE_D(64)
+    REPRO_DECODE_D(80)
+    REPRO_DECODE_D(128)
+    REPRO_DECODE_D(256)
     default:
       return (int)cudaErrorInvalidValue;
   }
+#undef REPRO_DECODE_D
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. kv_pos: int32 [S] slot -> position map,
-// or null for a linear cache. window <= 0 / softcap <= 0 mean none. The
-// blocks visit the n_blk key blocks of bkv rows from block ib_lo, split into
-// `splits` runs; with splits > 1, ws_acc (float32 [B, Hkv, splits, n_rep,
-// D]) and ws_ml ([B, Hkv, splits, n_rep, 2]) hold the partials and a second
-// kernel combines them. Returns cudaGetLastError() after the launches, or
-// cudaErrorInvalidValue for an argument this file does not take.
+// or null for a linear cache. pos: the query's absolute position, an int32
+// scalar in device memory (>= 0). window <= 0 / softcap <= 0 mean none. The
+// grid has `splits` blocks for each (b, kv-head); with splits > 1, ws_acc
+// (float32 [B, Hkv, splits, n_rep, D]) and ws_ml ([B, Hkv, splits, n_rep,
+// 2]) hold the partials and a second kernel combines them. Returns
+// cudaGetLastError() after the launches, or cudaErrorInvalidValue for an
+// argument this file does not take.
 extern "C" int repro_flash_decode(const void* q, const void* k, const void* v,
-                                  const void* kv_pos, void* out, void* ws_acc,
-                                  void* ws_ml, int b, int hq, int hkv, int s,
-                                  int dh, int dtype, int bkv, int pos,
-                                  float scale, int window, float softcap,
-                                  int ib_lo, int n_blk, int splits,
-                                  void* stream) {
+                                  const void* kv_pos, const void* pos,
+                                  void* out, void* ws_acc, void* ws_ml, int b,
+                                  int hq, int hkv, int s, int dh, int dtype,
+                                  int bkv, float scale, int window,
+                                  float softcap, int splits, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (hkv <= 0 || hq % hkv != 0 || hq / hkv > REP_MAX || bkv <= 0 ||
-      pos < 0 || ib_lo < 0 || n_blk < 0 ||
-      (long long)(ib_lo + n_blk) * bkv >= (long long)s + bkv || splits < 1 ||
-      splits > 65535 ||
+      pos == nullptr || splits < 1 || splits > 65535 ||
       (splits > 1 && (ws_acc == nullptr || ws_ml == nullptr))) {
     return (int)cudaErrorInvalidValue;
   }
   const Split sp{static_cast<float*>(ws_acc), static_cast<float*>(ws_ml),
-                 ib_lo, n_blk, splits};
+                 splits};
   const int* kp = static_cast<const int*>(kv_pos);
+  const int* p = static_cast<const int*>(pos);
   if (dtype == 0) {
-    return dispatch_d<float>(dh, q, k, v, kp, out, b, hq, hkv, s, bkv, pos,
+    return dispatch_d<float>(dh, q, k, v, kp, p, out, b, hq, hkv, s, bkv,
                              scale, window, softcap, sp, st);
   }
   if (dtype == 1) {
-    return dispatch_d<__nv_bfloat16>(dh, q, k, v, kp, out, b, hq, hkv, s, bkv,
-                                     pos, scale, window, softcap, sp, st);
+    return dispatch_d<__nv_bfloat16>(dh, q, k, v, kp, p, out, b, hq, hkv, s,
+                                     bkv, scale, window, softcap, sp, st);
   }
   return (int)cudaErrorInvalidValue;
 }

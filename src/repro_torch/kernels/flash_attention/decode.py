@@ -11,8 +11,9 @@
     one online-softmax partial per run, then the log-sum-exp combine.
 
 Shared semantics: q ``[B, Hq, D]``, caches k/v ``[B, Hkv, S, D]``, ``pos``
-the absolute position of the query (a Python int: the port's caches keep
-their write position on the host). ``kv_pos`` optionally maps cache slot ->
+the absolute position of the query: the cache's 0-d int32 position tensor,
+which the kernel reads from device memory (so one captured launch serves
+every decode step), or a Python int. ``kv_pos`` optionally maps cache slot ->
 absolute key position (``-1`` marks never-written slots); without it the
 cache is linear (slot i holds position i). A key is visible iff
 ``0 <= kv_pos <= pos`` and, with ``window``, ``kv_pos > pos - window``.
@@ -37,21 +38,31 @@ REP_MAX = 32   # grouped query heads per KV head the kernel keeps resident
 def _lib():
     fn = build.load("flash_decode").repro_flash_decode
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
-                       + [ctypes.c_float, ctypes.c_int, ctypes.c_float]
-                       + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_float,
+                          ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
 
 class DecodeSplits(NamedTuple):
-    """Which key blocks of ``bkv`` rows the kernel visits, and in how many
-    runs: blocks ``[ib_lo, ib_lo + n_blk)``, split ``i`` of ``splits``
-    taking ``[ib_lo + i*n_blk // splits, ib_lo + (i+1)*n_blk // splits)``."""
+    """Which key blocks of ``bkv`` rows the kernel visits, and how its
+    ``splits`` share them: blocks ``[ib_lo, ib_lo + n_blk)``, split ``i`` of
+    the first ``used = min(splits, n_blk)`` taking ``[ib_lo + i*n_blk //
+    used, ib_lo + (i+1)*n_blk // used)``; the surplus splits get none."""
 
     ib_lo: int
     n_blk: int
     splits: int
+
+    @property
+    def used(self) -> int:
+        return max(1, min(self.splits, self.n_blk))
+
+    def runs(self):
+        """The (first, end) key blocks of each used split, in order."""
+        u, lo, n = self.used, self.ib_lo, self.n_blk
+        return [(lo + i * n // u, lo + (i + 1) * n // u) for i in range(u)]
 
 
 def split_count(groups: int, n_blk: int) -> int:
@@ -67,10 +78,13 @@ def split_count(groups: int, n_blk: int) -> int:
 def decode_splits(b: int, hkv: int, s: int, bkv: int, pos: int,
                   linear: bool, window: Optional[int] = None,
                   splits: Optional[int] = None) -> DecodeSplits:
-    """The key blocks a decode visits and their split. A linear cache (slot
-    i = position i) visits only the blocks that hold visible keys,
-    ``[max(0, pos - window + 1), pos]``; with a ``kv_pos`` map every block.
-    ``splits`` overrides the derived count (tests only)."""
+    """The key blocks a decode visits and their split: the rule each block
+    of the kernel applies to the position it reads from device memory. A
+    linear cache (slot i = position i) visits only the blocks that hold
+    visible keys, ``[max(0, pos - window + 1), pos]``; with a ``kv_pos`` map
+    every block. The split count is fixed by the cache length alone (the
+    grid of a captured launch cannot follow ``pos``); ``splits`` overrides
+    it (tests only)."""
     n_all = cdiv(s, bkv)
     lo, hi = 0, n_all
     if linear:
@@ -80,7 +94,7 @@ def decode_splits(b: int, hkv: int, s: int, bkv: int, pos: int,
     lo = min(lo, hi)
     n_blk = hi - lo
     if splits is None:
-        splits = split_count(b * hkv, n_blk)
+        splits = split_count(b * hkv, n_all)
     return DecodeSplits(lo, n_blk, int(splits))
 
 
@@ -93,8 +107,10 @@ def threads(d: int) -> int:
 
 def smem_bytes(n_rep: int, bkv: int, d: int) -> int:
     """Shared memory one block of the kernel uses: float32 grouped queries,
-    padded K, V, the [n_rep, bkv] logits and three per-row statistics."""
-    return 4 * (n_rep * d + bkv * (d + 1) + bkv * d + n_rep * bkv + 3 * n_rep)
+    padded K, V, the [n_rep, bkv] logits, three per-row statistics and the
+    int32 position."""
+    return 4 * (n_rep * d + bkv * (d + 1) + bkv * d + n_rep * bkv + 3 * n_rep
+                + 1)
 
 
 def launch_bkv(bkv: int, s: int, d: int, n_rep: int) -> int:
@@ -125,7 +141,9 @@ def flash_decode(
     ``bkv`` is the KV block one loop step streams (default: the spec's
     Hopper tile; on the CPU, the reference's split, default 512). On the
     card it is clamped to S and need not divide it, and the key blocks are
-    split over the grid as :func:`decode_splits` lays them out.
+    split over the grid as :func:`decode_splits` lays them out. ``pos`` is
+    a 0-d int32 tensor on q's device, which the kernel reads, or an int
+    (>= 0), which the wrapper puts into one.
     """
     b, hq, d = q.shape
     hkv, s = k.shape[1], k.shape[2]
@@ -134,16 +152,24 @@ def flash_decode(
                          f"k {tuple(k.shape)} v {tuple(v.shape)}")
     if hq % hkv:
         raise ValueError(f"GQA requires Hq % Hkv == 0, got {hq}, {hkv}")
-    pos = int(pos)
     scale = scale if scale is not None else d ** -0.5
-    tensors = (q, k, v) + ((kv_pos,) if kv_pos is not None else ())
+    tensors = (q, k, v) + tuple(t for t in (kv_pos, pos)
+                                if isinstance(t, torch.Tensor))
     if all(t.device.type == "cpu" for t in tensors):
         return flash_decode_ref(q, k, v, pos=pos, kv_pos=kv_pos, window=window,
                                 softcap=softcap, scale=scale,
                                 bkv=bkv if bkv is not None else 512)
     build.check_cuda_operands("flash_decode", q, k, v)
-    if not 0 <= pos:
-        raise ValueError(f"flash_decode pos must be >= 0, got {pos}")
+    if isinstance(pos, torch.Tensor):
+        if (pos.device != q.device or pos.dtype != torch.int32
+                or pos.numel() != 1):
+            raise ValueError("flash_decode pos must be an int32 scalar "
+                             f"tensor on {q.device}")
+    else:
+        if int(pos) < 0:
+            raise ValueError(f"flash_decode pos must be >= 0, got {pos}")
+        # A fill, not a host-to-device copy: it can be captured.
+        pos = torch.full((), int(pos), dtype=torch.int32, device=q.device)
     if kv_pos is not None:
         if (kv_pos.device != q.device or kv_pos.dtype != torch.int32
                 or kv_pos.shape != (s,) or not kv_pos.is_contiguous()):
@@ -160,21 +186,21 @@ def flash_decode(
     out = torch.empty_like(q)
     if q.numel() == 0:
         return out
-    sp = decode_splits(b, hkv, s, bkv, pos, kv_pos is None, window)
+    splits = split_count(b * hkv, cdiv(s, bkv))
     ws_acc = ws_ml = None
-    if sp.splits > 1:
-        ws_acc = torch.empty((b, hkv, sp.splits, n_rep, d),
+    if splits > 1:
+        ws_acc = torch.empty((b, hkv, splits, n_rep, d),
                              dtype=torch.float32, device=q.device)
-        ws_ml = torch.empty((b, hkv, sp.splits, n_rep, 2),
+        ws_ml = torch.empty((b, hkv, splits, n_rep, 2),
                             dtype=torch.float32, device=q.device)
     rc = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                 kv_pos.data_ptr() if kv_pos is not None else None,
-                out.data_ptr(),
+                pos.data_ptr(), out.data_ptr(),
                 ws_acc.data_ptr() if ws_acc is not None else None,
                 ws_ml.data_ptr() if ws_ml is not None else None,
-                b, hq, hkv, s, d, build.dtype_code(q.dtype), bkv, pos,
+                b, hq, hkv, s, d, build.dtype_code(q.dtype), bkv,
                 float(scale), int(window or 0), float(softcap or 0.0),
-                sp.ib_lo, sp.n_blk, sp.splits, build.stream_ptr(q.device))
+                splits, build.stream_ptr(q.device))
     build.check(rc, "flash_decode")
     build.LAUNCHES["flash_decode"] += 1
     return out
@@ -226,29 +252,29 @@ def flash_decode_split_ref(
     softcap: Optional[float] = None, scale: Optional[float] = None,
     bkv: int = 64, splits: Optional[int] = None,
 ):
-    """The split kernel's arithmetic in plain PyTorch: each split runs the
-    online softmax over its key blocks (the last block cut at the cache
-    end) into an unnormalised partial with its (m, l); the partials are
-    rescaled by exp(m_i - M) and summed in split order. ``splits`` defaults
-    to the kernel's :func:`split_count`."""
+    """The split kernel's arithmetic in plain PyTorch: each used split runs
+    the online softmax over its share of the visible key blocks (the last
+    block cut at the cache end) into an unnormalised partial with its
+    (m, l); the partials are rescaled by exp(m_i - M) and summed in split
+    order. ``splits`` defaults to the kernel's count, fixed by S
+    (:func:`decode_splits`)."""
     b, hq, d = q.shape
     hkv, s = k.shape[1], k.shape[2]
     assert hq % hkv == 0, (hq, hkv)
     n_rep = hq // hkv
     scale = scale if scale is not None else d ** -0.5
     bkv = min(int(bkv), s)
-    sp = decode_splits(b, hkv, s, bkv, pos, kv_pos is None, window, splits)
+    sp = decode_splits(b, hkv, s, bkv, int(pos), kv_pos is None, window,
+                       splits)
     kp_all = (torch.arange(s, dtype=torch.int32, device=q.device)
               if kv_pos is None else kv_pos.to(q.device))
     qg = q.reshape(b, hkv, n_rep, d).float() * scale
     shape = (b, hkv, n_rep)
     parts = []
-    for i in range(sp.splits):
+    for lo, hi in sp.runs():
         m = torch.full(shape, NEG_INF, dtype=torch.float32, device=q.device)
         l = torch.zeros(shape, dtype=torch.float32, device=q.device)
         acc = torch.zeros(shape + (d,), dtype=torch.float32, device=q.device)
-        lo = sp.ib_lo + i * sp.n_blk // sp.splits
-        hi = sp.ib_lo + (i + 1) * sp.n_blk // sp.splits
         for ib in range(lo, hi):
             sl = slice(ib * bkv, min(s, (ib + 1) * bkv))
             x = torch.einsum("bgrd,bgkd->bgrk", qg, k[:, :, sl].float())

@@ -19,8 +19,8 @@ and the plan compiler sweeps.
 ``flash_decode`` (one query over the KV cache):
     problem dims {"b", "skv", "d", "hq", "hkv", "window"(0=none)};
     tile rank 1 = (bkv,), the KV rows one loop step streams. One block of
-    256 threads (320 at D = 80) per (split, kv-head, b), the splits derived
-    from the grid
+    256 threads (320 at D = 80) per (split, kv-head, b), the split count
+    derived from B * Hkv and the cache's key blocks, not from the position
     (``decode.split_count``). Shared memory: the grouped queries, the padded
     K and the V blocks, the [n_rep, bkv] logits and statistics — 140 KB at
     bkv = 128, D = 128, n_rep = 8. The default bkv is the largest (up to
@@ -158,7 +158,7 @@ def _decode_workload(tile: TileShape, problem: Mapping[str, int],
     n_rep, d, s = _group_rows(problem), problem["d"], problem["skv"]
     bkv = _decode.launch_bkv(tile[0], s, d, n_rep)
     sp = _decode_splits(bkv, problem)
-    keys = cdiv(sp.n_blk, sp.splits) * bkv    # one block's run of keys
+    keys = cdiv(sp.n_blk, sp.used) * bkv      # one block's run of keys
     b = dtype_bytes(dtype)
     return TileWorkload(
         flops=4.0 * d * n_rep * keys,

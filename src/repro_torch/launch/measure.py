@@ -80,8 +80,10 @@ def _flash_decode_call(problem: Mapping[str, int], dtype: str):
     window = problem.get("window", 0) or None
     q = make((b, hq, d))
     k, v = make((b, hkv, skv, d)), make((b, hkv, skv, d))
-    # Steady state: the query at the last slot of a full cache.
-    return lambda tile: flash_decode(q, k, v, pos=skv - 1, window=window,
+    # Steady state: the query at the last slot of a full cache, its
+    # position a device scalar as a cache keeps it.
+    pos = torch.full((), skv - 1, dtype=torch.int32, device=q.device)
+    return lambda tile: flash_decode(q, k, v, pos=pos, window=window,
                                      bkv=int(tile[0]))
 
 

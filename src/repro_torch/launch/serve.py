@@ -2,14 +2,17 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-9b
 
 Mirrors the single-engine path of ``repro/launch/serve.py``: it serves
 ``configs.get_smoke(arch)`` with random parameters from a fixed seed, the
 FIFO or the shape-bucketed scheduler, and prints the tokens of every
-request, the throughput and the engine's metrics. It runs on ``cuda``
-unless given ``--device cpu``; on the card the model's prefill and decode
-go through the Hopper kernels. The fleet, tile plans, chunked, packed and
-paged serving, plan refinement and tracing come with later slices.
+request, the throughput and the engine's metrics. The windowed archs
+(gemma2-9b, h2o-danube-1.8b) keep ring caches on their local layers. It
+runs on ``cuda`` unless given ``--device cpu``; on the card the model's
+prefill and decode go through the Hopper kernels, each decode slot
+replaying its captured CUDA graph. The fleet, tile plans, chunked, packed
+and paged serving, plan refinement and tracing come with later slices.
 """
 from __future__ import annotations
 

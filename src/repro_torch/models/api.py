@@ -7,7 +7,7 @@ the others run where the parameters live.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Optional, Union
+from typing import Any, Dict, List, Mapping, Optional, Union
 
 import numpy as np
 import torch
@@ -16,6 +16,7 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.tiling import TileShape
 from repro_torch.models import transformer as T
+from repro_torch.models.attention import reset_kv_cache
 
 # Resolved kernel tiles (kernel name -> TileShape), threaded from the
 # ServeEngine through forward() into the kernel call sites.
@@ -55,16 +56,23 @@ def _tokens(params, tokens) -> torch.Tensor:
 
 def prefill(params, cfg: ArchConfig, batch: Dict[str, Any], max_len: int,
             dtype=torch.float32, ring_local: bool = False, tiles: Tiles = None,
-            impl: str = "auto"):
+            impl: str = "auto", caches: Optional[List[Any]] = None):
     """Returns (last-token logits [B, Vpad], serve_state).
 
-    The head runs on the last position only: the reference computes every
-    position's logits and keeps the last, the same numbers.
+    ``caches`` (from :func:`make_serve_state`) are emptied and written in
+    place, so that a serving slot keeps the same tensors from one request
+    to the next; without them the prefill makes its own. The head runs on
+    the last position only: the reference computes every position's logits
+    and keeps the last, the same numbers.
     """
     _check_family(cfg)
     tokens = _tokens(params, batch["tokens"])
-    caches = T.make_caches(cfg, tokens.shape[0], max_len, dtype,
-                           ring_local=ring_local, device=tokens.device)
+    if caches is None:
+        caches = T.make_caches(cfg, tokens.shape[0], max_len, dtype,
+                               ring_local=ring_local, device=tokens.device)
+    else:
+        for cache in caches:
+            reset_kv_cache(cache)
     out = T.forward(params, cfg, tokens, caches=caches, logits_mode="last",
                     tiles=tiles, impl=impl)
     return out.logits[:, -1], out.caches
@@ -72,7 +80,12 @@ def prefill(params, cfg: ArchConfig, batch: Dict[str, Any], max_len: int,
 
 def decode_step(params, cfg: ArchConfig, token, state, tiles: Tiles = None,
                 impl: str = "auto"):
-    """token [B, 1] -> (logits [B, Vpad], new state)."""
+    """token [B, 1] -> (logits [B, Vpad], state), the state updated in place.
+
+    A token tensor already on the parameters' device is used as it is, and
+    the step reads nothing back to the host: on the card it is a fixed
+    sequence of launches that a CUDA graph can capture.
+    """
     _check_family(cfg)
     out = T.forward(params, cfg, _tokens(params, token), caches=state,
                     decode=True, tiles=tiles, impl=impl)

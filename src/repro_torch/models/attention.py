@@ -1,5 +1,5 @@
 """Attention block: GQA with RoPE, QKV bias, optional q/k norms, padded heads,
-and a linear KV cache — the port's ``repro/models/attention.py``.
+and linear or ring KV caches — the port's ``repro/models/attention.py``.
 
 Dispatch mirrors the reference's ``impl="auto"`` with "is the tensor on
 CUDA" in place of ``pallas_enabled()``: on the card the prefill runs the
@@ -10,13 +10,18 @@ and decode the dense masked attend — or, with a tile, the chunked
 flash-decode reference. ``impl="reference"`` forces the plain versions on
 either device (the card's parity check holds the kernels against them).
 
-Unlike the reference, which returns new caches functionally, the port writes
-K/V into the cache tensors in place (``_linear_write`` and the decode write);
-the write position ``pos`` is a Python int returned in a new cache dict, so
-calling twice on one cache dict rewrites the same slots.
+A cache holds its write position ``pos`` as a 0-d int32 tensor on the
+cache's device, as the reference traces it. Unlike the reference, which
+returns new caches functionally, the port updates a cache in place: prefill
+writes K/V (``_linear_write``, ``_ring_write``) and sets ``pos``; decode
+writes one K/V row at ``pos`` (linear) or ``pos % W`` (ring), and adds one
+to ``pos``, with no read of the position on the host. So one decode step is
+a fixed sequence of launches over fixed tensors, which the serving engine
+captures into a CUDA graph and replays; calling ``attn_decode`` twice on one
+cache decodes two consecutive positions.
 
-Ring-buffer caches, chunked and packed prefill, paged and sequence-sharded
-decode come in later slices.
+Chunked and packed prefill, paged and sequence-sharded decode come in later
+slices.
 """
 from __future__ import annotations
 
@@ -87,24 +92,56 @@ def attn_defs(cfg: ArchConfig) -> Dict[str, ParamDef]:
 
 def make_kv_cache(cfg: ArchConfig, batch: int, max_len: int, dtype,
                   ring: bool = False, device=None) -> Dict[str, Any]:
-    """A linear cache: k/v [B, Hkv, max_len, hd] and the write position."""
-    if ring:
-        raise NotImplementedError("ring-buffer KV caches are not ported yet")
+    """k/v [B, Hkv, max_len, hd] and the write position ``pos`` (0-d int32);
+    a ring cache adds ``slot_pos`` [max_len] int32, the absolute position
+    each slot holds (-1 while unwritten)."""
     hkv, hd = cfg.padded_kv_heads, cfg.head_dim_
-    return {
+    cache = {
         "k": torch.zeros((batch, hkv, max_len, hd), dtype=dtype, device=device),
         "v": torch.zeros((batch, hkv, max_len, hd), dtype=dtype, device=device),
-        "pos": 0,
+        "pos": torch.zeros((), dtype=torch.int32, device=device),
     }
+    if ring:
+        cache["slot_pos"] = torch.full((max_len,), -1, dtype=torch.int32,
+                                       device=device)
+    return cache
+
+
+def reset_kv_cache(cache: Dict[str, Any]) -> Dict[str, Any]:
+    """Empty a cache in place for a new sequence: position 0 and, in a ring,
+    every slot unwritten. Stale K/V rows stay; the masks hide them."""
+    cache["pos"].zero_()
+    if "slot_pos" in cache:
+        cache["slot_pos"].fill_(-1)
+    return cache
+
+
+def _ring_write(cache, k, v, positions_1d, end_pos):
+    """Write a chunk's K/V tail into a ring cache, in place: the last
+    ``min(chunk, W)`` positions land at ``pos % W`` with their absolute
+    positions recorded in ``slot_pos``. ONE implementation for every
+    prefill path, as the reference keeps it."""
+    max_len = cache["k"].shape[2]
+    keep = min(k.shape[2], max_len)
+    pos_tail = positions_1d[-keep:].to(device=cache["k"].device,
+                                       dtype=torch.long)
+    slots = pos_tail % max_len
+    cache["k"].index_copy_(2, slots, k[:, :, -keep:].to(cache["k"].dtype))
+    cache["v"].index_copy_(2, slots, v[:, :, -keep:].to(cache["v"].dtype))
+    cache["slot_pos"].index_copy_(0, slots, pos_tail.to(torch.int32))
+    cache["pos"].fill_(int(end_pos))
+    return cache
 
 
 def _linear_write(cache, k, v, start: int, end_pos: int):
-    """Write a chunk's K/V into a linear cache at ``start`` — in place, where
-    the reference returns updated arrays (``dynamic_update_slice``)."""
+    """Write a chunk's K/V into a linear cache at its static offset ``start``
+    — in place, where the reference returns updated arrays
+    (``dynamic_update_slice``)."""
     c = k.shape[2]
     cache["k"][:, :, start:start + c] = k.to(cache["k"].dtype)
     cache["v"][:, :, start:start + c] = v.to(cache["v"].dtype)
-    return {"k": cache["k"], "v": cache["v"], "pos": int(end_pos)}
+    cache["pos"].fill_(int(end_pos))
+    return cache
 
 
 def _project_qkv(p, cfg: ArchConfig, x, positions):
@@ -174,7 +211,12 @@ def attn_forward(
     else:
         raise ValueError(f"unknown attention impl {impl!r}")
     y = _out_proj(p, cfg, out, x.dtype)
-    new_cache = _linear_write(cache, k, v, 0, s) if cache is not None else None
+    new_cache = None
+    if cache is not None:
+        if "slot_pos" in cache:
+            new_cache = _ring_write(cache, k, v, positions[0], s)
+        else:
+            new_cache = _linear_write(cache, k, v, 0, s)
     return y, new_cache
 
 
@@ -182,25 +224,31 @@ def attn_decode(
     p, cfg: ArchConfig, x, *, cache: Dict[str, Any],
     window: Optional[int] = None, tile=None, impl: str = "auto",
 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
-    """Single-token decode: x [B, 1, D] attends over the linear cache.
+    """Single-token decode: x [B, 1, D] attends over the cache, which it
+    updates in place (the new K/V row, then ``pos`` + 1).
 
     ``tile`` is the resolved decode tile (last dim ``bkv``). ``impl``: "auto"
     runs the flash-decode kernel on CUDA tensors (tile or Hopper default);
     on CPU tensors the chunked flash-decode reference when a tile is present
     and the dense masked attend otherwise. "kernel", "flash_ref", "dense"
-    force a path; "reference" picks the CPU rule on any device.
+    force a path; "reference" picks the CPU rule on any device. The position
+    stays on the device: nothing here reads it on the host.
     """
     b = x.shape[0]
-    pos = int(cache["pos"])
-    positions = torch.full((b, 1), pos, dtype=torch.long, device=x.device)
+    pos = cache["pos"]                                   # 0-d int32
+    positions = pos.to(torch.long).expand(b, 1)
     q, k_new, v_new = _project_qkv(p, cfg, x, positions)  # [B, H(kv), 1, hd]
     scale = cfg.query_scale or cfg.head_dim_ ** -0.5
     ck, cv = cache["k"], cache["v"]
     max_len = ck.shape[2]
-    if pos >= max_len:
-        raise ValueError(f"decode position {pos} is past the cache ({max_len})")
-    ck[:, :, pos] = k_new[:, :, 0].to(ck.dtype)
-    cv[:, :, pos] = v_new[:, :, 0].to(cv.dtype)
+    # The cache length bounds a linear cache's position (the engine's
+    # admission guarantees it); a ring's slot is pos % W.
+    slot = (pos % max_len).to(torch.long).view(1)
+    ck.index_copy_(2, slot, k_new.to(ck.dtype))
+    cv.index_copy_(2, slot, v_new.to(cv.dtype))
+    slot_pos = cache.get("slot_pos")
+    if slot_pos is not None:
+        slot_pos.index_copy_(0, slot, pos.view(1))
 
     bkv = int(tile[-1]) if tile is not None else None
     clamped = min(bkv, max_len) if bkv is not None else None
@@ -218,15 +266,20 @@ def attn_decode(
     softcap = cfg.attn_softcap or None
     q0 = q[:, :, 0].contiguous()
     if impl == "kernel":
-        out = flash_decode(q0, ck, cv, pos=pos, window=window,
+        out = flash_decode(q0, ck, cv, pos=pos, kv_pos=slot_pos, window=window,
                            softcap=softcap, scale=scale, bkv=clamped)
     elif impl == "flash_ref":
-        out = flash_decode_ref(q0, ck, cv, pos=pos, window=window,
-                               softcap=softcap, scale=scale,
+        out = flash_decode_ref(q0, ck, cv, pos=pos, kv_pos=slot_pos,
+                               window=window, softcap=softcap, scale=scale,
                                bkv=clamped or 512)
     elif impl == "dense":
-        k_pos = torch.arange(max_len, device=x.device)
-        mask = k_pos <= pos
+        if slot_pos is not None:
+            k_pos = slot_pos                              # [W] absolute
+            valid = k_pos >= 0
+        else:
+            k_pos = torch.arange(max_len, device=x.device)
+            valid = k_pos <= pos
+        mask = valid & (k_pos <= pos)
         if window is not None:
             mask &= k_pos > pos - window
         n_rep = cfg.padded_heads // cfg.padded_kv_heads
@@ -242,4 +295,5 @@ def attn_decode(
     else:
         raise ValueError(f"unknown decode impl {impl!r}")
     y = _out_proj(p, cfg, out[:, :, None].to(x.dtype), x.dtype)
-    return y, {"k": ck, "v": cv, "pos": pos + 1}
+    pos.add_(1)
+    return y, cache

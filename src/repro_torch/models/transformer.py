@@ -192,12 +192,15 @@ class StackOutputs:
 
 def make_caches(cfg: ArchConfig, batch: int, max_len: int, dtype,
                 ring_local: bool = False, device=None) -> List[Any]:
-    """One linear KV cache per layer, in layer order."""
+    """One KV cache per layer, in layer order: linear at ``max_len``, or
+    with ``ring_local`` a ring of ``min(max_len, attn_window)`` slots on
+    each ``local_attn`` layer (the reference's ``_cache_for``)."""
     caches = []
     for spec in cfg.layers():
         _check_ported(cfg, spec)
         ring = ring_local and spec.mixer == "local_attn"
-        caches.append(attn_mod.make_kv_cache(cfg, batch, max_len, dtype,
+        length = min(max_len, cfg.attn_window) if ring else max_len
+        caches.append(attn_mod.make_kv_cache(cfg, batch, length, dtype,
                                              ring=ring, device=device))
     return caches
 

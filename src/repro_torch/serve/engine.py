@@ -6,10 +6,22 @@ The unchunked engine of ``repro/serve/engine.py``: a fixed decode batch of
 sampling over the real (unpadded) vocabulary. Admission is delegated to a
 scheduler (FIFO by default, or the shape-bucketed one).
 
-There is no ``jax.jit``: the engine runs eagerly under
-``torch.inference_mode()``. On the card the model's prefill and decode go
-through the Hopper kernels; on the CPU (``device="cpu"``) through their
-plain versions.
+Each slot owns static tensors for its whole life: its KV caches (rings on
+the windowed layers of a windowed arch), a ``[1, 1]`` token buffer, and
+the step's logits and greedy token. Admission runs the prefill eagerly into
+the slot's caches. On the card, the decode step is the port's counterpart
+of the reference's ``jax.jit(api.decode_step)``: on a slot's first decode
+the engine runs one eager warm-up step (it loads the kernels' libraries and
+sets their attributes), puts the slot's caches back as the prefill left
+them, and captures the step, with its argmax, into a CUDA graph; every
+later step writes the last token into the token buffer and replays the
+graph. The slots' graphs share one memory pool, as they replay one after
+another. A capture or replay that fails raises: nothing falls back to the
+eager step on the card. On the CPU (``device="cpu"``) the step runs
+eagerly, through the kernels' plain versions. A step reads back one token
+per slot and nothing else. ``build.LAUNCHES`` counts the kernels that ran:
+a capture launches nothing, so its counts are taken back and each replay
+adds them.
 
 Without a plan every prefill kernel is recorded with plan source
 ``no_plan``, as the reference does, and the kernels take their Hopper
@@ -29,6 +41,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels import build
 from repro_torch.models import api
 from repro_torch.serve.metrics import ServeMetrics
 from repro_torch.serve.scheduler import FifoScheduler
@@ -45,6 +58,17 @@ class Request:
     out_tokens: List[int] = dataclasses.field(default_factory=list)
     done: bool = False
     submit_t: Optional[float] = None
+
+
+@dataclasses.dataclass
+class _Slot:
+    """The static tensors of one decode slot, and its captured step."""
+    caches: List[Any]
+    token: torch.Tensor             # [1, 1] long: the step's input
+    logits: torch.Tensor            # [1, Vpad]: the step's logits
+    next_token: torch.Tensor        # 0-d long: their greedy token
+    graph: Optional[Any] = None     # torch.cuda.CUDAGraph once captured
+    launches: Dict[str, int] = dataclasses.field(default_factory=dict)
 
 
 class ServeEngine:
@@ -95,9 +119,22 @@ class ServeEngine:
         self._finished: List[Request] = []
         self._next_rid = 0
         self.last_reject_reason = "ok"
-        # Per-slot independent caches (batch 1).
-        self._states: List[Any] = [None] * slots
+        # Per-slot independent caches (batch 1) and step buffers.
+        self._slots = [self._make_slot() for _ in range(slots)]
+        self._graph_pool = None
         self._prefill_sources: Dict[int, Dict[str, str]] = {}
+
+    def _make_slot(self) -> _Slot:
+        cfg, dev = self.cfg, self.device
+        caches = api.make_serve_state(cfg, 1, self.max_len, self.dtype,
+                                      device=dev,
+                                      ring_local=bool(cfg.attn_window))
+        return _Slot(
+            caches=caches,
+            token=torch.zeros((1, 1), dtype=torch.long, device=dev),
+            logits=torch.zeros((1, cfg.padded_vocab),
+                               dtype=self.params["embed"].dtype, device=dev),
+            next_token=torch.zeros((), dtype=torch.long, device=dev))
 
     def _prefill_fn(self, length: int):
         """The prefill for one admitted prompt length, with its tiles and
@@ -111,13 +148,52 @@ class ServeEngine:
             }
         cfg, max_len, dtype = self.cfg, self.max_len, self.dtype
 
-        def prefill(params, batch):
+        def prefill(params, batch, caches):
             return api.prefill(params, cfg, batch, max_len=max_len,
-                               dtype=dtype, ring_local=bool(cfg.attn_window))
+                               dtype=dtype, caches=caches)
         return prefill
 
-    def _decode(self, params, tok, state):
-        return api.decode_step(params, self.cfg, tok, state)
+    def _run_step(self, slot: _Slot) -> None:
+        """One decode step of a slot on its static tensors: the step the
+        graph captures, and the eager step on the CPU."""
+        logits, _ = api.decode_step(self.params, self.cfg, slot.token,
+                                    slot.caches)
+        slot.logits.copy_(logits)
+        slot.next_token.copy_(torch.argmax(logits[0, :self.cfg.vocab_size]))
+
+    def _capture(self, slot: _Slot) -> None:
+        """Warm up, put the caches back, and capture the slot's step."""
+        saved = _snapshot(slot.caches)
+        stream = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(stream)
+        with torch.cuda.stream(side):
+            self._run_step(slot)
+        stream.wait_stream(side)
+        _restore(slot.caches, saved)
+        if self._graph_pool is None:
+            self._graph_pool = torch.cuda.graph_pool_handle()
+        before = dict(build.LAUNCHES)
+        graph = torch.cuda.CUDAGraph()
+        # Relaxed: the wrappers may call cudaFuncSetAttribute (already done
+        # by the warm-up, so never for the first time under capture).
+        with torch.cuda.graph(graph, pool=self._graph_pool,
+                              capture_error_mode="relaxed"):
+            self._run_step(slot)
+        slot.launches = {k: build.LAUNCHES[k] - n for k, n in before.items()}
+        for k, n in slot.launches.items():
+            build.LAUNCHES[k] -= n          # captured, not run
+        slot.graph = graph
+
+    def _step(self, slot: _Slot) -> None:
+        if self.device.type != "cuda":
+            self._run_step(slot)
+            return
+        if slot.graph is None:
+            self._capture(slot)
+        slot.graph.replay()
+        for k, n in slot.launches.items():
+            build.LAUNCHES[k] += n
 
     def add_request(self, prompt: np.ndarray, max_new_tokens: int = 16,
                     priority: int = 0,
@@ -176,8 +252,11 @@ class ServeEngine:
                 self.metrics.record_plan("prefill", kernel, source)
             batch = {"tokens": torch.as_tensor(prompt[None], dtype=torch.long,
                                                device=self.device)}
+            # Into the first free slot's caches; a request that its prefill
+            # token satisfies leaves the slot free.
             with torch.inference_mode():
-                logits, state = prefill(self.params, batch)
+                logits, _ = prefill(self.params, batch,
+                                    self._slots[free[0]].caches)
                 tok = int(torch.argmax(logits[0, :self.cfg.vocab_size]))
             req.out_tokens.append(tok)
             self.metrics.record_first_token(req.rid, req.bucket)
@@ -187,36 +266,32 @@ class ServeEngine:
                 self._finished.append(req)
                 self.metrics.record_complete()
                 continue
-            i = free.pop(0)
-            self._active[i] = req
-            self._states[i] = state
+            self._active[free.pop(0)] = req
         return prefill_tokens, tuple(segments)
 
     def _decode_all(self) -> int:
         """One decode step for every active slot. Returns #active."""
-        n = 0
         active_buckets = []
         t0 = self._clock()
-        for i, req in enumerate(self._active):
-            if req is None:
-                continue
-            n += 1
-            active_buckets.append(req.bucket)
-            last = torch.tensor([[req.out_tokens[-1]]], dtype=torch.long,
-                                device=self.device)
-            with torch.inference_mode():
-                logits, self._states[i] = self._decode(
-                    self.params, last, self._states[i])
-                tok = int(torch.argmax(logits[0, :self.cfg.vocab_size]))
+        stepped = [(i, req) for i, req in enumerate(self._active)
+                   if req is not None]
+        with torch.inference_mode():
+            for i, req in stepped:
+                active_buckets.append(req.bucket)
+                self._slots[i].token.fill_(req.out_tokens[-1])
+                self._step(self._slots[i])
+            toks = (torch.stack([self._slots[i].next_token
+                                 for i, _ in stepped]).tolist()
+                    if stepped else [])
+        for (i, req), tok in zip(stepped, toks):
             req.out_tokens.append(tok)
             if len(req.out_tokens) >= req.max_new_tokens:
                 req.done = True
                 self._active[i] = None
-                self._states[i] = None
                 self._finished.append(req)
                 self.metrics.record_complete()
         self.metrics.record_decode_step(active_buckets, self._clock() - t0)
-        return n
+        return len(stepped)
 
     def step(self) -> int:
         """One engine step: admit (each admission runs its whole prefill),
@@ -245,3 +320,24 @@ class ServeEngine:
                 break
             self.step()
         return self._finished
+
+
+def _snapshot(caches):
+    """What one decode step changes in each cache: the position, the K/V
+    row it writes (at ``pos % length``) and a ring's slot map."""
+    saved = []
+    for c in caches:
+        row = (c["pos"] % c["k"].shape[2]).to(torch.long).view(1)
+        saved.append((c["pos"].clone(), row, c["k"].index_select(2, row),
+                       c["v"].index_select(2, row),
+                       c["slot_pos"].clone() if "slot_pos" in c else None))
+    return saved
+
+
+def _restore(caches, saved) -> None:
+    for c, (pos, row, k, v, slot_pos) in zip(caches, saved):
+        c["k"].index_copy_(2, row, k)
+        c["v"].index_copy_(2, row, v)
+        c["pos"].copy_(pos)
+        if slot_pos is not None:
+            c["slot_pos"].copy_(slot_pos)

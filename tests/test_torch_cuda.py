@@ -530,3 +530,102 @@ def test_smoke_engine_runs_every_kernel_and_matches_the_plain_path(dev):
             lk, sk = api.decode_step(params, cfg, tok, sk)
             lr, sr = api.decode_step(params, cfg, tok, sr, impl="reference")
             _close(lk, lr, 1e-4)
+
+
+# ---------------------------------------------------------------------------
+# The position on the device and the captured decode step
+# ---------------------------------------------------------------------------
+
+def _ring_map(s, pos, dev):
+    """Slot -> position of a ring of ``s`` slots after position ``pos``; the
+    first tenth of the slots not reached again (-1) once the ring wraps."""
+    kv_pos = torch.full((s,), -1, dtype=torch.int32)
+    written = torch.arange(max(0, pos - s + 1 + s // 10), pos + 1,
+                           dtype=torch.int32)
+    kv_pos[(written % s).long()] = written
+    return kv_pos.to(dev)
+
+
+@pytest.mark.parametrize("dtype,rtol", DTYPES)
+@pytest.mark.parametrize("hq,hkv,d", [(32, 8, 80), (16, 2, 128), (16, 1, 256)])
+@pytest.mark.parametrize("cache", ["linear", "ring"])
+def test_flash_decode_reads_its_position_from_device_memory(dev, dtype, rtol,
+                                                            hq, hkv, d, cache):
+    """pos over {0, bkv - 1, bkv, S / 2, S - 1} (and past S for the ring),
+    given as the cache's 0-d int32 tensor; the grid is the same at every
+    position."""
+    from repro_torch.kernels.flash_attention.ops import DECODE_SPEC
+
+    s = 1024
+    q, k, v = _randn(dev, 29, (1, hq, d), (1, hkv, s, d), (1, hkv, s, d),
+                     dtype=getattr(torch, dtype))
+    bkv = DECODE_SPEC.default_tile(dict(b=1, skv=s, d=d, hq=hq, hkv=hkv,
+                                        window=0), dtype)[0]
+    sweep = [0, bkv - 1, bkv, s // 2, s - 1]
+    if cache == "ring":
+        sweep += [s + 37, 3 * s - 1]
+    pos = torch.zeros((), dtype=torch.int32, device=dev)
+    for p in sweep:
+        pos.fill_(p)
+        kw = dict(kv_pos=_ring_map(s, p, dev)) if cache == "ring" else {}
+        out = flash_decode(q, k, v, pos=pos, **kw)
+        _close(out, flash_decode_ref(q, k, v, pos=p, **kw), rtol)
+        _close(out, fa_decode.flash_decode_split_ref(q, k, v, pos=p, bkv=bkv,
+                                                     **kw), rtol)
+
+
+@pytest.mark.parametrize("cache", ["linear", "window", "ring"])
+def test_a_replay_reads_the_moved_position(dev, cache):
+    """One captured launch, replayed after the position moves across key
+    blocks (and splits that go empty and full again): each replay matches
+    the plain version at the new position, so nothing was baked in."""
+    s, bkv = 1024, 64
+    q, k, v = _randn(dev, 30, (1, 16, 128), (1, 2, s, 128), (1, 2, s, 128))
+    pos = torch.zeros((), dtype=torch.int32, device=dev)
+    kv_pos = torch.full((s,), -1, dtype=torch.int32, device=dev)
+    kw = dict(window=300) if cache == "window" else {}
+    if cache == "ring":
+        kw = dict(kv_pos=kv_pos)
+    flash_decode(q, k, v, pos=pos, bkv=bkv, **kw)          # warm-up
+    torch.cuda.synchronize()
+    out = torch.empty_like(q)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        out.copy_(flash_decode(q, k, v, pos=pos, bkv=bkv, **kw))
+    for p in (5, 63, 64, 700, 130, 1023, 0):
+        if cache == "ring":
+            p += s                                  # the ring has wrapped
+            kv_pos.copy_(_ring_map(s, p, dev))
+        pos.fill_(p)
+        graph.replay()
+        want = flash_decode_ref(q, k, v, pos=p, bkv=bkv, **kw)
+        _close(out, want, 2e-5)
+
+
+def test_captured_decode_gives_the_eager_loop_s_tokens(dev):
+    """Two slots of a ring-cache smoke model, one reused by a third request,
+    40 tokens each (the 16-slot rings wrap): the engine's replayed graphs
+    give the tokens of an eager ``api.decode_step`` loop, and the launch
+    counts count what ran (warm-ups and replays, not captures)."""
+    cfg = configs.get_smoke("h2o-danube-1.8b")
+    params = api.init_params(cfg, 0, device="cuda")
+    prompts = [np.arange(3, 3 + n) % cfg.vocab_size for n in (9, 21, 5)]
+    new = 40
+    build.reset_launches()
+    eng = ServeEngine(cfg, params, max_len=64, slots=2, device="cuda")
+    for p in prompts:
+        eng.add_request(p, max_new_tokens=new)
+    done = sorted(eng.run_until_done(), key=lambda r: r.rid)
+    steps = 3 * (new - 1)
+    assert build.LAUNCHES["flash_decode"] == cfg.n_layers * (steps + 2)
+    assert all(eng._slots[i].graph is not None for i in range(2))
+    with torch.inference_mode():
+        for p, req in zip(prompts, done):
+            logits, st = api.prefill(params, cfg, {"tokens": p[None]},
+                                     max_len=64, ring_local=True)
+            toks = [int(torch.argmax(logits[0, :cfg.vocab_size]))]
+            while len(toks) < new:
+                tok = torch.tensor([[toks[-1]]], device="cuda")
+                logits, st = api.decode_step(params, cfg, tok, st)
+                toks.append(int(torch.argmax(logits[0, :cfg.vocab_size])))
+            assert req.out_tokens == toks, req.rid

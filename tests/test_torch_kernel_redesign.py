@@ -153,10 +153,13 @@ def test_splits_fill_the_card_at_b1_and_stay_whole_at_b128(arch):
                               prob["skv"] - 1, True, prob["window"] or None)
         blocks = prob["b"] * prob["hkv"] * sp.splits
         assert blocks == fa_ops.DECODE_SPEC.n_tiles(tile, prob)
+        # The split count is fixed by the cache length, not the position.
+        assert sp.splits == fd.split_count(prob["b"] * prob["hkv"],
+                                           cdiv(prob["skv"], bkv))
         if want_one:
             assert sp.splits == 1
         else:
-            assert blocks >= SMS and sp.splits <= sp.n_blk
+            assert blocks >= SMS and sp.splits <= cdiv(prob["skv"], bkv)
 
 
 # ---------------------------------------------------------------------------
@@ -179,10 +182,12 @@ def test_decode_visits_only_blocks_with_visible_keys(s, bkv, pos, window,
         first, last = sp.ib_lo * bkv, (sp.ib_lo + sp.n_blk) * bkv - 1
         lo_key = max(0, pos - window + 1) if window else 0
         assert first <= lo_key < first + bkv and last - bkv < pos <= last
-    # The splits partition the blocks in order, none empty, each block once.
-    runs = [(sp.ib_lo + i * sp.n_blk // sp.splits,
-             sp.ib_lo + (i + 1) * sp.n_blk // sp.splits)
-            for i in range(sp.splits)]
+    # The split count is fixed by S (a captured grid cannot follow pos);
+    # the first min(splits, blocks) splits share the blocks, the rest none.
+    # The used splits partition the blocks in order, none empty, each once.
+    assert sp.splits == fd.split_count(2, cdiv(s, bkv))
+    runs = sp.runs()
+    assert len(runs) == sp.used == min(sp.splits, sp.n_blk)
     assert runs[0][0] == sp.ib_lo and runs[-1][1] == sp.ib_lo + sp.n_blk
     assert all(a < b for a, b in runs)
     assert all(r1[1] == r2[0] for r1, r2 in zip(runs, runs[1:]))

@@ -180,8 +180,11 @@ def test_attention_block_matches_reference():
     for tile in (None, (16,)):
         dj, _ = jax_attn.attn_decode(pj, cfg_j, jnp.asarray(xd), cache=cj,
                                      tile=tile)
+        # Decode advances the port's position in place: each tile decodes
+        # position 12 from its own copy of it.
         dt, _ = attention.attn_decode(pt, cfg_t, torch.from_numpy(xd),
-                                      cache=dict(ct), tile=tile)
+                                      cache={**ct, "pos": ct["pos"].clone()},
+                                      tile=tile)
         np.testing.assert_allclose(dt.numpy(), np.asarray(dj), **LAYER_TOL)
 
 
@@ -240,6 +243,3 @@ def test_unported_families_raise():
                  "whisper-large-v3"):
         with pytest.raises(NotImplementedError):
             api.init_params(configs.get_smoke(name), 0, device="cpu")
-    with pytest.raises(NotImplementedError):
-        transformer.make_caches(configs.get_smoke("gemma2-9b"), 1, 16,
-                                torch.float32, ring_local=True, device="cpu")

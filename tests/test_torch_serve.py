@@ -1,7 +1,9 @@
 """The port's ServeEngine against the JAX ServeEngine, on the CPU.
 
-The same prompts go through both engines (qwen2 smoke config, the JAX
-parameters converted through numpy). Tokens must be equal wherever the
+The same prompts go through both engines (the qwen2 smoke config, and the
+windowed gemma2 and h2o-danube smoke configs, whose local layers keep ring
+caches of 16 slots that the longer requests wrap; the JAX parameters
+converted through numpy). Tokens must be equal wherever the
 reference's top-2 logit margin exceeds the tolerance (1e-4, float32: a
 random-init smoke model can tie); after the first token where the margin is
 within it, the two streams may rightly part. Admission and rejection
@@ -28,10 +30,13 @@ MARGIN_TOL = 1e-4
 TIMING_KEYS = ("ttft_s", "tpot_s")
 
 
-@pytest.fixture(scope="module")
-def models():
-    cfg_j = jax_configs.get_smoke("qwen2-1.5b")
-    cfg_t = configs.get_smoke("qwen2-1.5b")
+ARCHS = ["qwen2-1.5b", "gemma2-9b", "h2o-danube-1.8b"]
+
+
+@pytest.fixture(scope="module", params=ARCHS)
+def models(request):
+    cfg_j = jax_configs.get_smoke(request.param)
+    cfg_t = configs.get_smoke(request.param)
     pj = jax_api.init_params(cfg_j, jax.random.PRNGKey(0))
     pt = params_from_jax(cfg_t, jax.tree.map(np.asarray, pj), device="cpu")
     return cfg_j, cfg_t, pj, pt
@@ -155,3 +160,16 @@ def test_launcher_serves_on_cpu(capsys):
     out = capsys.readouterr().out
     assert "3 requests (0 rejected), 9 tokens" in out
     assert "'matmul': 0" in out      # the plain versions ran, no kernel
+
+
+@pytest.mark.parametrize("arch", ["gemma2-9b", "h2o-danube-1.8b"])
+def test_launcher_serves_the_windowed_archs_on_cpu(capsys, arch):
+    """Ring caches of 16 slots at the default max_len: 20 new tokens wrap
+    them."""
+    from repro_torch.launch import serve
+
+    serve.main(["--device", "cpu", "--arch", arch, "--requests", "3",
+                "--new-tokens", "20"])
+    out = capsys.readouterr().out
+    assert "3 requests (0 rejected), 60 tokens" in out
+    assert "'flash_decode': 0" in out   # the plain versions ran, no kernel
