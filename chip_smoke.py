@@ -38,6 +38,18 @@ Phases, each of which fails the run if it fails:
    was launched; then time a decode step on the host clock at one slot
    and at four, an eager ``api.decode_step`` loop beside the engine's
    graphs;
+4b. the same six requests with tile plans: compile a wall-clock
+   ``h100_sxm`` plan of qwen2-1.5b's float32 serving cells (prefill at
+   bucket edges 16, 128, 384, 512 and 640, decode at 4 slots and 1024;
+   the cost model's best tile beside the measured best per cell), serve
+   the requests through ``ServeEngine(plans=...)`` with the plan's bucket
+   edges (every prefill an exact hit) and with FIFO (100, 257, 511 and 600
+   tokens resolve by nearest shape), hold the tokens against the no-plan
+   serves (a token may differ only where the plain top-2 margin is within
+   1e-3 of max |logit|), print each kernel's tile and plan source per
+   prefill length and for decode, the plan hit rates and the tile_fallback
+   count, and time each request's prefill and a captured decode step at 4
+   slots beside the no-plan engine's, in turns;
 5. hold the full-width prefill logits and four decode steps of one request
    through the kernels against the same request through the plain
    versions, with TF32 off; then 16 captured decode steps of one request:
@@ -65,7 +77,8 @@ time by kernel group and the device's idle share.
 Launch counts: matmul, flash_attention and flash_decode are counted over
 the serve of phase 4 (the replays of captured steps included), bilinear,
 ssd and rglru over the compile of phase 9, each reset to 0 just before its
-path and read just after.
+path and read just after; phase 4b reads its own counts over its two plan
+serves and fails unless each of the serving kernels ran.
 
 It prints the card (phase 1), a ``{"kernels": [...]}`` JSON line before the
 last, and as the last line ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -82,6 +95,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -974,7 +988,10 @@ def serve_full_width(cfg, params):
               f"kernel {name} was never launched on the serving path")
     toks = sum(len(r.out_tokens) for r in done)
     ttft = sorted(eng.metrics.ttft_since())
+    by_rid = {r.rid: r.out_tokens for r in done}
     stats = dict(requests=len(done), prompt_lengths=list(lengths),
+                 prompts=[p.tolist() for p in prompts],
+                 request_tokens=[by_rid[rid] for rid in rids],
                  new_tokens=new_tokens, tokens=toks, seconds=dt,
                  tok_per_s=toks / dt, ttft_p50_s=nearest_rank(ttft, 0.5),
                  ttft_max_s=ttft[-1], launches=launches,
@@ -1095,6 +1112,259 @@ def per_step_ms(step, steps: int) -> float:
         step()
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) * 1e3 / steps
+
+
+# Phase 4b: the bucket edges of the plan-serve phase, which cover phase 4's
+# prompts of 16-600 tokens: 16 and 384 are edges, the other four lie
+# between them.
+PLAN_SERVE_EDGES = (16, 128, 384, 512, 640)
+
+
+def hold_tokens(params, cfg, prompt, got, want, label: str) -> int:
+    """Two engines' tokens for one request: equal, or the first difference
+    lies where the plain versions' top-2 logit margin after the common
+    prefix is within LOGIT_REL_TOL of max |logit| (float32 sums in another
+    order may pick either); past it the streams may rightly part. Returns 1
+    if the tokens differ, else 0."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import api
+
+    check(len(got) == len(want), f"{label}: {len(got)} != {len(want)} tokens")
+    for i, (a, b) in enumerate(zip(got, want)):
+        if a == b:
+            continue
+        ctx = np.concatenate([np.asarray(prompt), np.asarray(want[:i])])[None]
+        with torch.inference_mode():
+            logits, _ = api.prefill(params, cfg, {"tokens": ctx},
+                                    max_len=ctx.shape[1], impl="reference")
+        v = logits[0, :cfg.vocab_size].float()
+        top = torch.topk(v, 2).values
+        margin, tol = float(top[0] - top[1]), LOGIT_REL_TOL * float(
+            v.abs().max())
+        log(f"    {label}: token {i} {a} != {b}, plain top-2 margin "
+            f"{margin:.3e} (tol {tol:.3e})")
+        check(margin <= tol, f"{label}: token {i} differs ({a} != {b}) with "
+              f"margin {margin:.3e} > {tol:.3e}")
+        return 1
+    return 0
+
+
+def _prefill_ms(eng, params, lengths, reps: int = 3):
+    """Per length, the engine's own prefill (its tiles for the length) of
+    one request on a slot's caches: host-clock ms (the median of ``reps``
+    after a warm-up), and device-busy ms in all and in the matmul kernel
+    (``torch.profiler``, the mean of 2 calls)."""
+    import torch
+
+    host, busy, matmul = [], [], []
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    with torch.inference_mode():
+        for n in lengths:
+            fn = eng._prefill_fn(n)
+            batch = {"tokens": torch.randint(2, eng.cfg.vocab_size, (1, n),
+                                             generator=gen, device="cuda")}
+
+            def call():
+                fn(params, batch, eng._slots[0].caches)
+
+            call()
+            host.append(statistics.median(per_step_ms(call, 1)
+                                          for _ in range(reps)))
+            groups = {}
+            for name, ms in device_kernels(call, calls=2).items():
+                g = _kernel_group(name)
+                groups[g] = groups.get(g, 0.0) + ms
+            busy.append(sum(groups.values()))
+            matmul.append(groups.get("matmul", 0.0))
+    return dict(host=host, busy=busy, matmul=matmul)
+
+
+def _decode_ms(eng, prompts, steps: int = 12, reps: int = 3):
+    """The engine's captured decode over ``len(prompts)`` slots: host-clock
+    ms a step (the median of ``reps`` runs of ``steps``), and device ms a
+    step (CUDA events around ``steps`` rounds of the slots' graph
+    replays)."""
+    import torch
+
+    for p in prompts:
+        eng.add_request(p, max_new_tokens=(reps + 1) * steps + 8)
+    eng.step()                 # prefill, warm-up, capture, first replay
+    eng.step()
+    host = statistics.median(per_step_ms(eng.step, steps) for _ in range(reps))
+    check(eng.in_flight() == len(prompts), "a request left the engine early")
+    graphs = [s.graph for s in eng._slots if s.graph is not None]
+    check(len(graphs) == len(prompts), f"{len(graphs)} captured slots")
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(steps):
+        for g in graphs:
+            g.replay()
+    end.record()
+    torch.cuda.synchronize()
+    device = start.elapsed_time(end) / steps
+    eng.run_until_done()
+    return dict(host=host, device=device)
+
+
+def plan_serve(cfg, params, baseline):
+    """Phase 4b: phase 4's serve with tile plans. Compile a wall-clock
+    h100_sxm plan of qwen2-1.5b's float32 serving cells (prefill at the
+    PLAN_SERVE_EDGES, decode at 4 slots and MAX_LEN), serve phase 4's six
+    requests through ``ServeEngine(plans=...)`` with the plan's bucket
+    edges (every prefill an exact hit) and with FIFO (the lengths between
+    edges resolve by nearest shape), hold their tokens against the no-plan
+    serves, and time prefill and captured decode beside the no-plan
+    engine's, in turns (no plan, plan, plan, no plan)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import H100_SXM, registry
+    from repro_torch.kernels import build, register_all
+    from repro_torch.launch.compile_plans import serve_bucket_cells
+    from repro_torch.serve import (BucketPolicy, ServeEngine,
+                                   ShapeBucketScheduler)
+
+    register_all()
+    jobs = [(k, p, "float32", H100_SXM) for k, p in serve_bucket_cells(
+        ["qwen2-1.5b"], PLAN_SERVE_EDGES, slots=4, max_len=MAX_LEN)
+        if k in registry.names()]
+    plan, timed, compile_s = compile_timed(jobs)
+    log(f"  {len(jobs)} serving cells compiled and timed in {compile_s:.1f} s"
+        " (model best vs measured best, with the Hopper estimator):")
+    cells = measured_cells(jobs, timed)
+    policy = BucketPolicy.from_plan(plan, hardware="h100_sxm")
+    check(policy.edges == PLAN_SERVE_EDGES, f"plan edges {policy.edges}")
+
+    def engine(plans, bucket: bool, slots: int = 4):
+        return ServeEngine(cfg, params, max_len=MAX_LEN, slots=slots,
+                           dtype=torch.float32, plans=plans, hardware=H100_SXM,
+                           scheduler=(ShapeBucketScheduler(policy) if bucket
+                                      else None), device="cuda")
+
+    prompts = [np.asarray(p) for p in baseline["prompts"]]
+    new_tokens = baseline["new_tokens"]
+
+    def serve(eng):
+        rids = [eng.add_request(p, max_new_tokens=new_tokens)
+                for p in prompts]
+        check(all(r is not None for r in rids), f"requests rejected: {rids}")
+        done = {r.rid: r.out_tokens for r in eng.run_until_done()}
+        return [done[r] for r in rids]
+
+    out = dict(edges=list(PLAN_SERVE_EDGES), compile_s=compile_s,
+               cells=cells)
+    build.reset_launches()
+    engines, tokens = {}, {}
+    for name, bucket in (("bucket", True), ("fifo", False)):
+        engines[name] = engine(plan, bucket)
+        tokens[name] = serve(engines[name])
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    for name in SERVE_KERNELS:
+        check(launches[name] > 0,
+              f"kernel {name} was never launched by the plan serve")
+    log(f"  launches on the plan serve: {launches}")
+    out["launches"] = launches
+    buckets = [policy.bucket_for(len(p)) for p in prompts]
+    no_plan_bucket = serve(engine(None, True))
+    differ = {}
+    for name, want, ctxs in (
+            ("fifo", baseline["request_tokens"], prompts),
+            ("bucket", no_plan_bucket,
+             [ShapeBucketScheduler(policy).prepare(
+                 types.SimpleNamespace(prompt=p, bucket=b))
+              for p, b in zip(prompts, buckets)])):
+        differ[name] = sum(
+            hold_tokens(params, cfg, ctx, got, ref, f"{name} request {i}")
+            for i, (ctx, got, ref) in enumerate(zip(ctxs, tokens[name],
+                                                    want)))
+    for name, eng in engines.items():
+        m = eng.metrics
+        counts = m.as_dict()["plan"]["counts"]
+        rec = dict(plan_hit_rate_prefill=m.plan_hit_rate("prefill"),
+                   plan_hit_rate_decode=m.plan_hit_rate("decode"),
+                   tile_fallback=counts["tile_fallback"], counts=counts,
+                   requests_differing=differ[name],
+                   prefill={n: dict(tiles={k: list(t) for k, t in
+                                           eng._prefill_tiles[n][0].items()},
+                                    sources=eng._prefill_sources[n])
+                            for n in sorted(eng._prefill_tiles)},
+                   decode=dict(tiles={k: list(t) for k, t in
+                                      eng.tiles.items()},
+                               sources=eng.tile_sources))
+        log(f"  {name}: plan_hit_rate prefill "
+            f"{rec['plan_hit_rate_prefill']:.3f}, decode "
+            f"{rec['plan_hit_rate_decode']:.3f}; tile_fallback "
+            f"{rec['tile_fallback']}; counts {counts}; requests whose tokens "
+            f"differ from the no-plan serve's: {differ[name]} (margin rule)")
+        for n, cell in rec["prefill"].items():
+            log(f"    prefill {n:4d}: " + ", ".join(
+                f"{k} {'x'.join(map(str, t))} ({cell['sources'][k]})"
+                for k, t in cell["tiles"].items()))
+        log("    decode (4 slots, 1024): " + ", ".join(
+            f"{k} {'x'.join(map(str, t))} ({eng.tile_sources[k]})"
+            for k, t in rec["decode"]["tiles"].items()))
+        out[name] = rec
+    check(out["bucket"]["plan_hit_rate_prefill"] == 1.0,
+          "a bucketed prefill missed its exact cell")
+    check(out["bucket"]["plan_hit_rate_decode"] == 1.0
+          and out["fifo"]["plan_hit_rate_decode"] == 1.0,
+          "the decode cell did not resolve exactly")
+    fifo_sources = {n: set(c["sources"].values())
+                    for n, c in out["fifo"]["prefill"].items()}
+    check(all(fifo_sources[n] == ({"exact"} if n in PLAN_SERVE_EDGES
+                                  else {"nearest_shape"})
+              for n in fifo_sources), f"FIFO sources {fifo_sources}")
+
+    # Times, in turns: no plan, plan, plan, no plan.
+    def turns(measure, plan_eng, bare_eng):
+        got = {"no_plan": [], "plan": []}
+        for name, eng in (("no_plan", bare_eng), ("plan", plan_eng),
+                          ("plan", plan_eng), ("no_plan", bare_eng)):
+            got[name].append(measure(eng))
+        return {name: {k: (statistics.fmean(r[k] for r in runs)
+                           if not isinstance(runs[0][k], list) else
+                           [statistics.fmean(x) for x in
+                            zip(*(r[k] for r in runs))])
+                       for k in runs[0]} for name, runs in got.items()}
+
+    lengths = [len(p) for p in prompts]
+    bare = engine(None, False)
+    pf = turns(lambda e: _prefill_ms(e, params, lengths), engines["fifo"],
+               bare)
+    pb = turns(lambda e: _prefill_ms(e, params, buckets), engines["bucket"],
+               bare)
+    rng = np.random.default_rng(3)
+    dprompts = [rng.integers(2, cfg.vocab_size, size=600) for _ in range(4)]
+    dec = {"no_plan": [], "plan": []}
+    for name, plans in (("no_plan", None), ("plan", plan), ("plan", plan),
+                        ("no_plan", None)):
+        dec[name].append(_decode_ms(engine(plans, False), dprompts))
+    dec = {name: {k: statistics.fmean(r[k] for r in runs) for k in runs[0]}
+           for name, runs in dec.items()}
+    out["prefill_ms"] = dict(lengths=lengths, **pf)
+    out["prefill_ms_bucket"] = dict(lengths=buckets, **pb)
+    out["decode_ms_4_slots"] = dec
+
+    def fmt(xs):
+        return "[" + ", ".join(f"{x:.3f}" for x in xs) + "]"
+
+    for label, at, t in (("FIFO", lengths, pf), ("bucket, padded", buckets,
+                                                  pb)):
+        log(f"  prefill ms per request at {at} tokens ({label}):")
+        for k in ("host", "busy", "matmul"):
+            what = {"host": "host clock", "busy": "device busy",
+                    "matmul": "matmul kernel"}[k]
+            log(f"    {what:13s} no plan {fmt(t['no_plan'][k])} (sum "
+                f"{sum(t['no_plan'][k]):.3f}), plan {fmt(t['plan'][k])} "
+                f"(sum {sum(t['plan'][k]):.3f})")
+    log(f"  decode ms a step (captured graphs, 4 slots, 600-token prompts): "
+        f"host clock no plan {dec['no_plan']['host']:.3f}, plan "
+        f"{dec['plan']['host']:.3f}; device no plan "
+        f"{dec['no_plan']['device']:.3f}, plan {dec['plan']['device']:.3f}")
+    return out
 
 
 def graph_logits(eng, prompt, new_tokens: int):
@@ -1470,47 +1740,20 @@ def plan_phase(out_dir: Path):
     import torch
 
     from repro_torch.core import (
-        GEFORCE_8800GTS, GTX260, H100_SXM, Autotuner, TilePlan, compile_plan,
+        GEFORCE_8800GTS, GTX260, H100_SXM, Autotuner, TilePlan,
     )
-    from repro_torch.core.plans import plan_key
     from repro_torch.core.tiling import TileShape
     from repro_torch.kernels import build
     from repro_torch.launch.measure import make_measure_fn
 
     jobs = plan_jobs()
-    timed = {}
-
-    def factory(kernel, problem, dtype, hw):
-        fn = make_measure_fn(kernel, problem, dtype, hw)
-        if fn is None:
-            return None
-        rec = timed.setdefault(plan_key(kernel, problem, dtype, hw.name), [])
-
-        def measure(tile):
-            t = fn(tile)
-            rec.append((tuple(tile), t))
-            return t
-
-        return measure
-
     build.reset_launches()
-    t0 = time.perf_counter()
-    plan = compile_plan(jobs, autotuner=Autotuner(), measure_fn_factory=factory,
-                        meta={"generated_by": "chip_smoke.py"})
-    torch.cuda.synchronize()
-    compile_s = time.perf_counter() - t0
+    plan, timed, compile_s = compile_timed(jobs)
     launches = dict(build.LAUNCHES)
-    check(plan.meta["skipped_jobs"] == 0,
-          f"{plan.meta['skipped_jobs']} plan cells skipped")
-    check(len(plan) == len(jobs), f"{len(plan)} entries for {len(jobs)} jobs")
-    unmeasured = [e.key for e in plan.entries()
-                  if e.hardware == "h100_sxm" and not e.measured]
-    check(not unmeasured, f"h100_sxm cells not measured: {unmeasured}")
     path = out_dir / "chip_smoke_plans.json"
     out_dir.mkdir(parents=True, exist_ok=True)
     plan.save(str(path))
     loaded = TilePlan.load(str(path))
-    cells = []
     log(f"  {len(jobs)} cells compiled and timed in {compile_s:.1f} s")
     for kernel, problem, dtype, hw in jobs:
         res = loaded.resolve(kernel, problem, dtype, hw)
@@ -1519,20 +1762,7 @@ def plan_phase(out_dir: Path):
               and res.tile == entry.tile,
               f"{kernel} {problem}: the saved artifact does not resolve "
               f"exactly ({res and res.source})")
-        rec = timed[plan_key(kernel, problem, dtype, hw.name)]
-        model_best, model_s = rec[0]
-        meas_best, meas_s = min(rec, key=lambda r: r[1])
-        spread = max(t for _, t in rec) / meas_s
-        cells.append(dict(kernel=kernel, problem=dict(problem), dtype=dtype,
-                          model_best=list(model_best),
-                          model_best_ms=model_s * 1e3,
-                          measured_best=list(meas_best),
-                          measured_best_ms=meas_s * 1e3,
-                          timed=len(rec), spread=spread))
-        log(f"  {kernel:16s} {_problem_str(problem):44s} model best "
-            f"{TileShape(model_best)} ({model_s * 1e3:.4f} ms), measured best "
-            f"{TileShape(meas_best)} ({meas_s * 1e3:.4f} ms), spread "
-            f"{spread:.2f}x over {len(rec)} tiles")
+    cells = measured_cells(jobs, timed)
     log(f"  launches while compiling: {launches}")
 
     log("  Fig. 3 on the H100: all 16 tiles of {4,8,16,32}^2 timed per scale "
@@ -1564,6 +1794,75 @@ def plan_phase(out_dir: Path):
             f"{_wxh(row['geforce_8800gts_best'])}")
     return dict(cells=cells, fig3=fig3, compile_s=compile_s,
                 launches=launches)
+
+
+def compile_timed(jobs):
+    """Compile ``jobs`` with wall-clock timing on the card, keeping every
+    tile each cell timed, in the order the sweep timed them (the cost
+    model's best first). Checks that no cell was skipped and that every
+    h100_sxm cell was measured. Returns (plan, {plan key: [(tile, s)]},
+    seconds)."""
+    import torch
+
+    from repro_torch.core import Autotuner, compile_plan
+    from repro_torch.core.plans import plan_key
+    from repro_torch.launch.measure import make_measure_fn
+
+    timed = {}
+
+    def factory(kernel, problem, dtype, hw):
+        fn = make_measure_fn(kernel, problem, dtype, hw)
+        if fn is None:
+            return None
+        rec = timed.setdefault(plan_key(kernel, problem, dtype, hw.name), [])
+
+        def measure(tile):
+            t = fn(tile)
+            rec.append((tuple(tile), t))
+            return t
+
+        return measure
+
+    t0 = time.perf_counter()
+    plan = compile_plan(jobs, autotuner=Autotuner(), measure_fn_factory=factory,
+                        meta={"generated_by": "chip_smoke.py"})
+    torch.cuda.synchronize()
+    compile_s = time.perf_counter() - t0
+    check(plan.meta["skipped_jobs"] == 0,
+          f"{plan.meta['skipped_jobs']} plan cells skipped")
+    check(len(plan) == len(jobs), f"{len(plan)} entries for {len(jobs)} jobs")
+    unmeasured = [e.key for e in plan.entries()
+                  if e.hardware == "h100_sxm" and not e.measured]
+    check(not unmeasured, f"h100_sxm cells not measured: {unmeasured}")
+    return plan, timed, compile_s
+
+
+def measured_cells(jobs, timed):
+    """Per cell: the cost model's best tile (the first the sweep timed)
+    beside the measured best, with the spread of the timed tiles; one line
+    each."""
+    from repro_torch.core.plans import plan_key
+    from repro_torch.core.tiling import TileShape
+
+    cells = []
+    for kernel, problem, dtype, hw in jobs:
+        rec = timed[plan_key(kernel, problem, dtype, hw.name)]
+        model_best, model_s = rec[0]
+        meas_best, meas_s = min(rec, key=lambda r: r[1])
+        spread = max(t for _, t in rec) / meas_s
+        cells.append(dict(kernel=kernel, problem=dict(problem), dtype=dtype,
+                          model_best=list(model_best),
+                          model_best_ms=model_s * 1e3,
+                          measured_best=list(meas_best),
+                          measured_best_ms=meas_s * 1e3,
+                          model_loses=model_s / meas_s,
+                          timed=len(rec), spread=spread))
+        log(f"  {kernel:16s} {_problem_str(problem):44s} model best "
+            f"{TileShape(model_best)} ({model_s * 1e3:.4f} ms), measured best "
+            f"{TileShape(meas_best)} ({meas_s * 1e3:.4f} ms), model loses "
+            f"{model_s / meas_s:.3f}x, spread {spread:.2f}x over {len(rec)} "
+            f"tiles")
+    return cells
 
 
 def _wxh(tile) -> str:
@@ -1706,6 +2005,13 @@ def main(argv=None) -> int:
             log("== decode wall time a step: eager loop vs captured graph")
             result["decode_rates"] = decode_rates(cfg, params)
             phase_done("serve", t_phase)
+
+            # 4b. The same serve with tile plans.
+            log("== plan serve: phase 4's requests with a wall-clock h100_sxm"
+                " plan (bucketed and FIFO)")
+            t0 = time.perf_counter()
+            result["plan_serve"] = plan_serve(cfg, params, result["serve"])
+            phase_done("plan-serve", t0)
 
             # 5. Full-width parity, kernels vs plain versions.
             log("== full-width parity: kernels vs plain versions")

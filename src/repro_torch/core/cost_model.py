@@ -14,9 +14,16 @@ port is a GPU, so only the GPU estimator is ported; it encodes the paper's
 On the H100 a block's shared memory bounds residency as well: blocks per SM
 are at most ``smem_per_sm // vmem_bytes`` (228 KB per SM), as the TPU
 estimator bounds a tile by VMEM, and a tile over the 227 KB one block may
-use is infinite. Compute is charged at the CUDA cores' rate
-(``simt_flops``), which is what the port's kernels run on. The paper's two
-GPUs leave those fields at 0 and get the reference's numbers exactly.
+use is infinite. Compute is charged at the rate of the unit the kernel's
+regime runs on (``TileWorkload.unit``, :func:`compute_rate`): the CUDA
+cores (``simt_flops``), float32 as 3xTF32 on the tensor cores
+(``tf32x3_flops``), or the bf16 tensor cores (``peak_flops_bf16``, the
+reference's matrix-unit rate). A SIMT tile's shared-memory loads add to
+its compute time, at the SM's shared-memory rate; a kernel fed by TMA or
+cp.async needs no resident threads to keep the memory busy. A kernel whose launch is
+followed by a second pass (a split's combine) charges that pass's launch
+and bytes. The paper's two GPUs leave the Hopper fields at 0 and get the
+reference's numbers exactly.
 """
 from __future__ import annotations
 
@@ -28,6 +35,11 @@ from repro_torch.core.tiling import cdiv
 
 DRAM_PAGE_BYTES = 4096
 GPU_WARP = 32
+
+# The units a kernel's FLOPs run on (``TileWorkload.unit``).
+SIMT = "simt"                # the CUDA cores (float32 FMA)
+TF32X3 = "tf32x3"            # float32 as three TF32 tensor-core products
+BF16_TENSOR = "bf16_tensor"  # bf16 tensor cores (wgmma, mma.sync)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,6 +58,11 @@ class TileWorkload:
     row_stride_bytes: float      # stride between segments
     threads: int = 0             # threads per block
     pad_waste: float = 1.0       # >=1: padded work / useful work
+    unit: str = SIMT             # what computes the FLOPs (compute_rate)
+    smem_bytes: float = 0.0      # shared-memory bytes its threads load
+    bulk_copies: bool = False    # fed by TMA or cp.async, not thread loads
+    extra_launches: int = 0      # launches of a pass after the blocks'
+    extra_bytes: float = 0.0     # device-memory bytes that pass moves
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,6 +92,16 @@ def row_penalty_s(hw: HardwareModel, stride_bytes: float) -> float:
     return hw.dma_row_latency * pages
 
 
+def compute_rate(hw: HardwareModel, unit: str) -> float:
+    """FLOP/s of ``unit`` on ``hw``. A descriptor without Hopper rates
+    (the paper's GPUs) charges every unit at ``peak_flops_bf16``."""
+    if unit == BF16_TENSOR:
+        return hw.peak_flops_bf16
+    if unit == TF32X3 and hw.tf32x3_flops:
+        return hw.tf32x3_flops
+    return hw.simt_flops or hw.peak_flops_bf16
+
+
 def estimate_gpu(
     hw: HardwareModel,
     work: TileWorkload,
@@ -97,13 +124,11 @@ def estimate_gpu(
         return INFEASIBLE
     active_threads = blocks_per_sm * work.threads
     utilization = active_threads / hw.max_active_threads
-
-    # Little's law: DRAM bandwidth saturates only with enough resident
-    # threads (a 32x16 tile fits twice on the GTX260 but once on the
-    # 8800GTS, leaving bandwidth on the table).
-    bw_frac = 1.0
-    if hw.saturation_threads:
-        bw_frac = min(1.0, active_threads / hw.saturation_threads)
+    # On Hopper descriptors (``simt_flops`` set) a kernel fed by TMA or
+    # cp.async keeps its bytes in flight without resident threads, and a
+    # last, partial wave is charged only the blocks it holds.
+    hopper = bool(hw.simt_flops)
+    bulk_copies = hopper and work.bulk_copies
 
     # Warp granularity: a 16-thread block still occupies whole warps.
     warp_pad = cdiv(work.threads, GPU_WARP) * GPU_WARP / work.threads
@@ -113,28 +138,53 @@ def estimate_gpu(
     segs = work.row_segments
     seg_eff = segs * max(1.0, segs / hw.dram_banks)
 
-    sm_flops = (hw.simt_flops or hw.peak_flops_bf16) / hw.num_sm
+    sm_flops = compute_rate(hw, work.unit) / hw.num_sm
     sm_bw = hw.hbm_bw / hw.num_sm
-
     per_block_compute = work.flops * warp_pad * work.pad_waste / sm_flops
-    per_block_memory = (
-        work.hbm_bytes / (sm_bw * bw_frac)
-        + seg_eff * row_penalty_s(hw, work.row_stride_bytes)
-    )
+    if hopper:
+        # A SIMT tile issues its shared-memory loads from the warps that
+        # issue its FMAs: the loads add to its compute time.
+        per_block_compute += work.smem_bytes / (hw.vmem_bw / hw.num_sm)
 
-    # One resident set = blocks_per_sm blocks co-scheduled on an SM: compute
-    # serializes on the cores, memory on the SM's bandwidth share; the larger
-    # bounds the set. Block dispatch adds a small fixed cost per block.
-    set_compute = blocks_per_sm * per_block_compute
-    set_memory = blocks_per_sm * per_block_memory
-    set_time = max(set_compute, set_memory) + blocks_per_sm * hw.sched_overhead
+    def resident_set(blocks: int):
+        """(compute, memory, time) of ``blocks`` blocks co-scheduled on an
+        SM: compute serializes on the cores, memory on the SM's bandwidth
+        share; the larger bounds the set. Block dispatch adds a small fixed
+        cost per block."""
+        # Little's law: DRAM bandwidth saturates only with enough resident
+        # threads (a 32x16 tile fits twice on the GTX260 but once on the
+        # 8800GTS, leaving bandwidth on the table).
+        bw_frac = 1.0
+        if hw.saturation_threads and not bulk_copies:
+            bw_frac = min(1.0, blocks * work.threads / hw.saturation_threads)
+        per_block_memory = (
+            work.hbm_bytes / (sm_bw * bw_frac)
+            + seg_eff * row_penalty_s(hw, work.row_stride_bytes)
+        )
+        compute = blocks * per_block_compute
+        memory = blocks * per_block_memory
+        return compute, memory, max(compute, memory) + blocks * hw.sched_overhead
 
     waves = cdiv(n_tiles, hw.num_sm * blocks_per_sm)
-    total = waves * set_time + hw.launch_overhead
+    set_compute, set_memory, set_time = resident_set(blocks_per_sm)
+    compute_s, memory_s = waves * set_compute, waves * set_memory
+    blocks_time = waves * set_time
+    rest = n_tiles % (hw.num_sm * blocks_per_sm)
+    if hopper and rest:
+        last = resident_set(cdiv(rest, hw.num_sm))
+        compute_s += last[0] - set_compute
+        memory_s += last[1] - set_memory
+        blocks_time += last[2] - set_time
+
+    # A second pass (a split's combine) streams its bytes at the card's
+    # rate after the blocks, at the cost of one more launch.
+    extra_memory = work.extra_bytes / hw.hbm_bw
+    overhead = hw.launch_overhead * (1 + work.extra_launches)
+    total = blocks_time + extra_memory + overhead
     return CostBreakdown(
-        compute_s=waves * set_compute,
-        memory_s=waves * set_memory,
-        overhead_s=hw.launch_overhead,
+        compute_s=compute_s,
+        memory_s=memory_s + extra_memory,
+        overhead_s=overhead,
         utilization=utilization,
         total_s=total,
     )

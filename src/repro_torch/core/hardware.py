@@ -53,6 +53,7 @@ class HardwareModel:
     smem_per_sm: int = 0           # shared memory of one SM: bounds blocks/SM
     max_blocks_per_sm: int = 8     # resident blocks per SM
     simt_flops: float = 0.0        # FLOP/s of the CUDA cores (0: peak_flops_bf16)
+    tf32x3_flops: float = 0.0      # float32 FLOP/s as 3xTF32 (0: simt rate)
 
     @property
     def sublane(self) -> Dict[str, int]:
@@ -86,8 +87,12 @@ class HardwareModel:
 # smem_per_sm      233,472 (228 KB): the SM's shared memory, which bounds how
 #                  many blocks of a tile are resident at once.
 # max_blocks_per_sm 32 resident blocks per SM.
-# simt_flops       67e12: float32 FMA on the CUDA cores, the rate every
-#                  kernel of the port computes at (none uses wgmma yet).
+# simt_flops       67e12: float32 FMA on the CUDA cores: the skinny and
+#                  simt matmul, flash_decode, rglru and bilinear.
+# tf32x3_flops     495e12 / 3: float32 as three TF32 tensor-core products
+#                  (mma.sync): flash_attention's mma regime and ssd in
+#                  float32. The bf16 tensor-core kernels (the wgmma matmul
+#                  and flash_attention, ssd in bf16) run at peak_flops_bf16.
 # ---------------------------------------------------------------------------
 
 H100_SXM = HardwareModel(
@@ -101,6 +106,7 @@ H100_SXM = HardwareModel(
     saturation_threads=1024, dram_banks=16, sched_overhead=0.0,
     dma_row_latency=0.0, launch_overhead=3.0e-6,
     smem_per_sm=233_472, max_blocks_per_sm=32, simt_flops=67e12,
+    tf32x3_flops=495e12 / 3,
 )
 
 # ---------------------------------------------------------------------------

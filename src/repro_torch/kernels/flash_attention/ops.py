@@ -41,7 +41,7 @@ import math
 from typing import Mapping
 
 from repro_torch.core import registry
-from repro_torch.core.cost_model import TileWorkload
+from repro_torch.core.cost_model import BF16_TENSOR, TF32X3, TileWorkload
 from repro_torch.core.hardware import H100_SXM
 from repro_torch.core.tiling import (
     TileConstraints, TileShape, cdiv, dtype_bytes,
@@ -89,13 +89,16 @@ def _workload(tile: TileShape, problem: Mapping[str, int], dtype: str) -> TileWo
     n_q = cdiv(sq, bq)
     keys = _keys_loaded(sq, problem["skv"], bq, bkv, problem["window"]) / n_q
     b = dtype_bytes(dtype)
-    d_math = _flash.panel_dim(d) if _flash.regime(dtype, d) == "wgmma" else d
+    wgmma = _flash.regime(dtype, d) == "wgmma"
+    d_math = _flash.panel_dim(d) if wgmma else d
     return TileWorkload(
         flops=4.0 * d_math * bq * keys,            # q.k and p.v per key
         hbm_bytes=float((2 * bq * d + 2 * keys * d) * b),   # q, out; k, v
         row_segments=bq,
         row_stride_bytes=float(d * b),
         threads=_flash.threads(bq, dtype),
+        unit=BF16_TENSOR if wgmma else TF32X3,
+        bulk_copies=True,              # TMA (wgmma), a cp.async ring (mma)
     )
 
 
@@ -160,12 +163,23 @@ def _decode_workload(tile: TileShape, problem: Mapping[str, int],
     sp = _decode_splits(bkv, problem)
     keys = cdiv(sp.n_blk, sp.used) * bkv      # one block's run of keys
     b = dtype_bytes(dtype)
+    # Split KV: each block writes a float32 partial (acc, max, sum) in
+    # place of the output, and the combine launch reads every partial and
+    # writes the output.
+    partial = n_rep * (d + 2) * 4
+    out = n_rep * d * b
+    groups = problem["b"] * max(problem["hkv"], 1)
+    split = sp.splits > 1
     return TileWorkload(
         flops=4.0 * d * n_rep * keys,
-        hbm_bytes=float((2 * keys * d + 2 * n_rep * d) * b),
+        hbm_bytes=float(2 * keys * d * b + n_rep * d * b
+                        + (partial if split else out)),
         row_segments=1,
         row_stride_bytes=float(d * b),
         threads=_decode.threads(d),
+        extra_launches=int(split),
+        extra_bytes=float(groups * (sp.splits * partial + out)) if split
+        else 0.0,
     )
 
 

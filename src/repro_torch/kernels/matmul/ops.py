@@ -31,7 +31,7 @@ from typing import Mapping, Tuple
 import torch
 
 from repro_torch.core import registry
-from repro_torch.core.cost_model import TileWorkload
+from repro_torch.core.cost_model import BF16_TENSOR, SIMT, TileWorkload
 from repro_torch.core.hardware import H100_SXM
 from repro_torch.core.tiling import TileConstraints, TileShape, cdiv, dtype_bytes
 from repro_torch.kernels import build
@@ -179,17 +179,35 @@ def _vmem_bytes(tile: TileShape, problem: Mapping[str, int], dtype: str) -> floa
 
 
 def _workload(tile: TileShape, problem: Mapping[str, int], dtype: str) -> TileWorkload:
+    # A block computes all bm rows of its tile, masked rows too (wgmma in
+    # whole 64-row warpgroup tiles): rows past M are pad waste. The skinny
+    # and simt kernels run on the CUDA cores, wgmma on the bf16 tensor
+    # cores. A simt thread owns bm / 16 rows of 8 columns and loads its
+    # rows' and columns' float32 operands from shared memory each K step.
+    # A split K adds the reduce kernel, which reads the float32 partials
+    # and writes C.
     bm, bk, bn = tile
     m, k, n = problem["m"], problem["k"], problem["n"]
     splits, k_split = split_plan(m, n, k, tile)
     b = dtype_bytes(dtype)
     k_block = k / splits
+    rows = min(bm, m)
+    reg = regime(m, n, k, dtype)
+    wgmma = reg == "wgmma"
+    simt_smem = (k_block * threads(tile) * (bm // 16 + 8) * 4.0
+                 if reg in ("simt", "plain") else 0.0)
     return TileWorkload(
-        flops=2.0 * bm * bn * k_block,
+        flops=2.0 * rows * bn * k_block,
         hbm_bytes=(bm + bn) * k_block * b + bm * bn * (4 if splits > 1 else b),
         row_segments=bm,
         row_stride_bytes=float(k * b),
         threads=threads(tile),
+        pad_waste=bm / rows,
+        unit=BF16_TENSOR if wgmma else SIMT,
+        smem_bytes=simt_smem,
+        bulk_copies=reg in ("simt", "wgmma"),     # cp.async ring, TMA
+        extra_launches=int(splits > 1),
+        extra_bytes=float(m * n * (4 * splits + b)) if splits > 1 else 0.0,
     )
 
 

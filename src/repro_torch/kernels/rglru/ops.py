@@ -124,6 +124,7 @@ def _workload(tile: TileShape, problem: Mapping[str, int], dtype: str) -> TileWo
         row_segments=bt,                        # one row of bf features a step
         row_stride_bytes=float(f * b),
         threads=cdiv(bf, features_per_thread(bf, f, dtype)),
+        extra_launches=2 if chunked else 0,     # the carry and the rescan
     )
 
 

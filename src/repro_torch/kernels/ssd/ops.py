@@ -22,7 +22,7 @@ from typing import Dict, Mapping, Optional
 import torch
 
 from repro_torch.core import registry
-from repro_torch.core.cost_model import TileWorkload
+from repro_torch.core.cost_model import BF16_TENSOR, TF32X3, TileWorkload
 from repro_torch.core.hardware import H100_SXM
 from repro_torch.core.tiling import TileConstraints, TileShape, cdiv, dtype_bytes
 from repro_torch.kernels import build
@@ -192,9 +192,15 @@ def _workload(tile: TileShape, problem: Mapping[str, int], dtype: str) -> TileWo
     blocks = cdiv(s, q) * cdiv(q, tq) * cdiv(p, tp)
     hbm = (s * (1 + 2 * p + 2 * n) * b + 2 * n * p * b
            + 4 * 4 * workspace_floats(q, problem) / h)
+    # The products run on mma.sync: 3xTF32 in float32, bf16 in bfloat16,
+    # on tiles staged by cp.async. Three launches (states, pass, outputs),
+    # one for a decode step.
     return TileWorkload(flops=flops(q, problem) / h / blocks,
                         hbm_bytes=float(hbm) / blocks, row_segments=min(q, tq),
-                        row_stride_bytes=float(h * p * b), threads=THREADS)
+                        row_stride_bytes=float(h * p * b), threads=THREADS,
+                        unit=TF32X3 if b == 4 else BF16_TENSOR,
+                        bulk_copies=True,
+                        extra_launches=2 if s > 1 else 0)
 
 
 def _n_tiles(tile: TileShape, problem: Mapping[str, int]) -> int:

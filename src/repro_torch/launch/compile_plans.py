@@ -65,14 +65,16 @@ def _dedupe(cells: Dict, kernel: str, problem: Dict[str, int]) -> None:
 
 
 def serve_bucket_cells(arch_names: Sequence[str], edges: Sequence[int],
-                       slots: int, max_len: int) -> List[Cell]:
+                       slots: int, max_len: int,
+                       smoke: bool = False) -> List[Cell]:
     """The serving scheduler's shape family as deduped (kernel, problem)
     cells: a (batch=1, seq=edge) prefill cell plus chunked- and
     packed-prefill cells per bucket edge, and the engine's (slots, max_len)
-    decode cell, per architecture."""
+    decode cell, per architecture (its smoke config with ``smoke``)."""
     cells: Dict = {}
+    get_cfg = configs.get_smoke if smoke else configs.get_arch
     for arch in arch_names:
-        cfg = configs.get_arch(arch)
+        cfg = get_cfg(arch)
         for edge in edges:
             for kind in ("prefill", "chunked_prefill", "packed_prefill"):
                 for kernel, problem in kernel_problems(cfg, 1, edge, kind).items():
@@ -99,7 +101,8 @@ def build_jobs(arch_names: Sequence[str], hw_names: Sequence[str],
                dtypes: Sequence[str],
                serve_buckets: Sequence[int] = (),
                serve_slots: int = 4,
-               serve_max_len: int = 0) -> Tuple[List[PlanJob], List[str]]:
+               serve_max_len: int = 0,
+               serve_smoke: bool = False) -> Tuple[List[PlanJob], List[str]]:
     """Problem families (archs x shapes + paper bilinear + serve buckets) x
     hardware. Returns ``(jobs, unported)``: the jobs, and the kernels whose
     cells were left out because the port has no kernel for them yet."""
@@ -108,7 +111,7 @@ def build_jobs(arch_names: Sequence[str], hw_names: Sequence[str],
     if serve_buckets:
         cells += serve_bucket_cells(
             arch_names, serve_buckets, serve_slots,
-            serve_max_len or max(serve_buckets))
+            serve_max_len or max(serve_buckets), smoke=serve_smoke)
     cells += ([("bilinear", p) for p in BILINEAR_PROBLEMS]
               + [("bilinear_cuda", p) for p in BILINEAR_PROBLEMS])
     known = set(registry.names())
@@ -202,6 +205,18 @@ def main(argv: Optional[Sequence[str]] = None) -> str:
     ap.add_argument("--dtypes", nargs="*", default=["bfloat16", "float32"])
     ap.add_argument("--max-candidates", type=int, default=256,
                     help="sweep candidates per cell (bounds the curve size)")
+    ap.add_argument("--serve-buckets", default="",
+                    help="comma list of scheduler bucket edges to compile "
+                         "prefill/decode serving cells for (e.g. 64,128,512)")
+    ap.add_argument("--serve-slots", type=int, default=4,
+                    help="decode slot batch for --serve-buckets cells")
+    ap.add_argument("--serve-max-len", type=int, default=0,
+                    help="decode cache length for --serve-buckets cells "
+                         "(default: the largest bucket edge)")
+    ap.add_argument("--serve-smoke", action="store_true",
+                    help="compile serve cells for the reduced smoke configs "
+                         "(what `python -m repro_torch.launch.serve` runs) "
+                         "instead of the full architectures")
     ap.add_argument("--measure", choices=("analytic", "wallclock"),
                     default=None,
                     help="wallclock (the default when h100_sxm is a target): "
@@ -221,7 +236,12 @@ def main(argv: Optional[Sequence[str]] = None) -> str:
 
         measure_factory = make_measure_fn
 
-    jobs, unported = build_jobs(args.archs, args.hardware, args.dtypes)
+    buckets = sorted({int(x) for x in args.serve_buckets.split(",") if x})
+    jobs, unported = build_jobs(args.archs, args.hardware, args.dtypes,
+                                serve_buckets=buckets,
+                                serve_slots=args.serve_slots,
+                                serve_max_len=args.serve_max_len,
+                                serve_smoke=args.serve_smoke)
     if unported:
         print(f"not ported yet, cells left out: {', '.join(unported)}")
     t0 = time.perf_counter()
@@ -234,6 +254,7 @@ def main(argv: Optional[Sequence[str]] = None) -> str:
             "generated_by": "repro_torch.launch.compile_plans",
             "archs": list(args.archs),
             "dtypes": list(args.dtypes),
+            "serve_buckets": buckets,
             "measure": args.measure,
             "unported_kernels": unported,
         },

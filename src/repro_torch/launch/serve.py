@@ -3,16 +3,25 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-9b
+    PYTHONPATH=src python -m repro_torch.launch.compile_plans \
+        --measure analytic --archs qwen2-1.5b --dtypes float32 \
+        --serve-buckets 16,32 --serve-smoke --serve-max-len 128 --out p.json
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --tile-plans p.json --scheduler bucket --bucket-policy plan
 
 Mirrors the single-engine path of ``repro/launch/serve.py``: it serves
 ``configs.get_smoke(arch)`` with random parameters from a fixed seed, the
 FIFO or the shape-bucketed scheduler, and prints the tokens of every
-request, the throughput and the engine's metrics. The windowed archs
-(gemma2-9b, h2o-danube-1.8b) keep ring caches on their local layers. It
-runs on ``cuda`` unless given ``--device cpu``; on the card the model's
-prefill and decode go through the Hopper kernels, each decode slot
-replaying its captured CUDA graph. The fleet, tile plans, chunked, packed
-and paged serving, plan refinement and tracing come with later slices.
+request, the throughput and the engine's metrics, whose plan-hit line
+counts where each kernel's tile came from. ``--tile-plans`` loads a plan
+artifact for ``--hardware`` (default ``h100_sxm``); ``--bucket-policy
+plan`` takes the bucket edges from its prefill cells, so every prefill
+resolves exactly. The windowed archs (gemma2-9b, h2o-danube-1.8b) keep ring
+caches on their local layers. It runs on ``cuda`` unless given ``--device
+cpu``; on the card the model's prefill and decode go through the Hopper
+kernels, each decode slot replaying its captured CUDA graph. The fleet,
+chunked, packed and paged serving, plan refinement and tracing come with
+later slices.
 """
 from __future__ import annotations
 
@@ -24,11 +33,24 @@ import numpy as np
 import torch
 
 from repro_torch import configs
+from repro_torch.core import HARDWARE_REGISTRY, TilePlan
 from repro_torch.kernels import build
 from repro_torch.models import api
 from repro_torch.serve import BucketPolicy, ServeEngine, make_scheduler
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def build_policy(spec: str, plans, hardware_name: str,
+                 max_queue: int) -> BucketPolicy:
+    """The bucket policy: parsed edges, or with ``"plan"`` the edges of the
+    plan's prefill cells on ``hardware_name``."""
+    if spec == "plan":
+        if plans is None:
+            raise SystemExit("--bucket-policy plan requires --tile-plans")
+        return BucketPolicy.from_plan(plans, hardware=hardware_name,
+                                      max_queue=max_queue)
+    return BucketPolicy.parse(spec, max_queue=max_queue)
 
 
 def main(argv=None):
@@ -46,9 +68,16 @@ def main(argv=None):
     ap.add_argument("--scheduler", default="fifo", choices=("fifo", "bucket"),
                     help="admission policy: naive FIFO or shape-bucketed")
     ap.add_argument("--bucket-policy", default="pow2:16:128",
-                    help='bucket edges: "64,128" or "pow2:lo:hi"')
+                    help='bucket edges: "64,128", "pow2:lo:hi", or "plan" '
+                         "(the prefill cells of --tile-plans)")
     ap.add_argument("--max-queue", type=int, default=256,
                     help="admission bound for the bucketed scheduler")
+    ap.add_argument("--tile-plans", default=None,
+                    help="AOT tile-plan artifact (compile_plans); the engine "
+                         "resolves every kernel's tile from it")
+    ap.add_argument("--hardware", default="h100_sxm",
+                    choices=sorted(HARDWARE_REGISTRY),
+                    help="the hardware model the plan is resolved for")
     ap.add_argument("--metrics-json", action="store_true",
                     help="dump full metrics as JSON instead of the summary")
     args = ap.parse_args(argv)
@@ -56,10 +85,14 @@ def main(argv=None):
     cfg = configs.get_smoke(args.arch)
     dtype = _DTYPES[args.dtype]
     params = api.init_params(cfg, 0, dtype=dtype, device=args.device)
-    policy = (BucketPolicy.parse(args.bucket_policy, max_queue=args.max_queue)
-              if args.scheduler == "bucket" else None)
+    plans = TilePlan.load_or_none(args.tile_plans)
+    policy = None
+    if args.scheduler == "bucket":
+        policy = build_policy(args.bucket_policy, plans, args.hardware,
+                              args.max_queue)
     engine = ServeEngine(cfg, params, max_len=args.max_len, slots=args.slots,
-                         dtype=dtype,
+                         dtype=dtype, plans=plans,
+                         hardware=HARDWARE_REGISTRY[args.hardware],
                          scheduler=make_scheduler(args.scheduler, policy),
                          device=args.device)
 

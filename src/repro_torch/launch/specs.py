@@ -4,14 +4,18 @@
 config arithmetic mapping one (config, batch, seq_len, kind) cell onto the
 tunable-kernel problem dicts; ``cell_problems`` the same for one of the
 assigned (arch x shape) cells, which the plan compiler sweeps.
-``resolve_model_tiles`` gives every ported kernel of a cell its Hopper
-``default_tile`` — what the reference's resolver falls back to when a plan
-has no cell. Resolving tiles from a TilePlan in the engine is still to
-come.
+``resolve_model_tiles`` is the reference's resolver: every ported kernel
+of a cell takes its tile from a :class:`~repro_torch.core.plans.TilePlan`
+(exact hit, nearest shape, cross-hardware transfer) or else its Hopper
+``default_tile``. ``launchable_tiles`` then holds each resolved tile
+against the calls the model makes of its kernel (the wrappers'
+``launch_tile`` rules) and replaces a tile that would not launch by the
+kernel's default, so no plan tile can raise in the middle of a serve.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+import logging
+from typing import Dict, Sequence
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.configs.shapes import ShapeSpec
@@ -78,19 +82,86 @@ def cell_problems(cfg: ArchConfig, shape: ShapeSpec) -> Dict[str, Dict[str, int]
     return kernel_problems(cfg, shape.global_batch, shape.seq_len, shape.kind)
 
 
-def resolve_model_tiles(cfg: ArchConfig, batch: int, seq_len: int, kind: str,
-                        dtype: str) -> Tuple[Dict[str, TileShape], Dict]:
-    """Hopper default tiles for every ported kernel of one geometry.
+def resolve_model_tiles(plans, cfg: ArchConfig, batch: int, seq_len: int,
+                        kind: str, dtype: str, hardware):
+    """Resolve every kernel tile of one model geometry from an AOT plan.
 
-    Returns ``(tiles, resolutions)`` like the reference; ``resolutions`` is
-    empty until the engine loads plans. Kernels the port has no spec for
-    yet (kv_page, chunked_prefill, packed_prefill) are left out.
+    The reference's resolver: never sweeps; a cell the plan cannot resolve
+    (or any cell with ``plans=None``) takes the kernel's Hopper default.
+    ``dtype`` is the name (``"float32"``, ``"bfloat16"``), as plan keys
+    hold it. Returns ``(tiles, resolutions)``: kernel name -> TileShape, and
+    kernel name -> PlanResolution for the cells the plan satisfied. Kernels
+    the port has no spec for yet (kv_page, chunked_prefill, packed_prefill)
+    are left out.
     """
     from repro_torch import kernels
 
+    log = logging.getLogger("repro_torch.plans")
     kernels.register_all()
-    tiles = {}
+    tiles, resolutions = {}, {}
     for kernel, problem in kernel_problems(cfg, batch, seq_len, kind).items():
-        if kernel in registry.names():
+        if kernel not in registry.names():
+            continue
+        res = (plans.resolve(kernel, problem, dtype, hardware)
+               if plans is not None else None)
+        if res is None:
             tiles[kernel] = registry.get(kernel).default_tile(problem, dtype)
-    return tiles, {}
+            if plans is not None:
+                log.warning("no tile plan for %s on %s; using heuristic "
+                            "default %s", kernel, hardware.name,
+                            tiles[kernel])
+        else:
+            tiles[kernel] = res.tile
+            resolutions[kernel] = res
+            log.info("tile plan %s on %s: %s (%s)", kernel, hardware.name,
+                     res.tile, res.source)
+    return tiles, resolutions
+
+
+def tile_launches(kernel: str, tile, cfg: ArchConfig, dtype: str,
+                  tokens: int, cache_lens: Sequence[int] = ()) -> bool:
+    """Whether ``kernel``'s wrapper launches ``tile`` at every call the
+    model makes of it: the FF's ``(tokens, d_model, d_ff)`` and ``(tokens,
+    d_ff, d_model)`` GEMMs (one tile for the three), the prefill attention
+    at the head dim, and the decode attention over each KV cache length in
+    ``cache_lens`` (``bkv`` clamped to it, as ``attn_decode`` clamps it).
+    Pure Python: it runs without a card."""
+    from repro_torch.kernels.flash_attention import decode as fa_decode
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.matmul import ops as mm_ops
+
+    try:
+        if kernel == "matmul":
+            d, f = cfg.d_model, cfg.d_ff or cfg.d_model
+            for k, n in ((d, f), (f, d)):
+                mm_ops.launch_tile(tile, tokens, n, k, dtype)
+        elif kernel == "flash_attention":
+            fa.launch_tile(tile, cfg.head_dim_, dtype)
+        elif kernel == "flash_decode":
+            for s in cache_lens:
+                fa_decode.launch_bkv(tile[-1], s, cfg.head_dim_,
+                                     cfg.gqa_ratio)
+    except ValueError:
+        return False
+    return True
+
+
+def launchable_tiles(tiles: Dict[str, TileShape], cfg: ArchConfig,
+                     batch: int, seq_len: int, kind: str, dtype: str,
+                     tokens: int, cache_lens: Sequence[int] = ()):
+    """``tiles`` with each one that :func:`tile_launches` refuses replaced
+    by the kernel's default for the cell (for the matmul, at the call's
+    ``tokens`` rows, which pick its regime). Returns ``(tiles, replaced)``,
+    ``replaced`` the kernels whose tile was replaced."""
+    problems = kernel_problems(cfg, batch, seq_len, kind)
+    problems["matmul"] = dict(problems["matmul"], m=tokens)
+    out, replaced = dict(tiles), []
+    for kernel, tile in tiles.items():
+        if not tile_launches(kernel, tile, cfg, dtype, tokens, cache_lens):
+            out[kernel] = registry.get(kernel).default_tile(problems[kernel],
+                                                            dtype)
+            replaced.append(kernel)
+            logging.getLogger("repro_torch.plans").warning(
+                "tile %s of %s does not launch at this call; using the "
+                "default %s", tile, kernel, out[kernel])
+    return out, replaced

@@ -23,10 +23,24 @@ per slot and nothing else. ``build.LAUNCHES`` counts the kernels that ran:
 a capture launches nothing, so its counts are taken back and each replay
 adds them.
 
-Without a plan every prefill kernel is recorded with plan source
-``no_plan``, as the reference does, and the kernels take their Hopper
-default tiles. Options not ported yet — ``plans``, ``hardware`` (it selects
-plans), ``chunk_prefill``, ``pack_prefill``, ``paged``, ``shadow_fraction`` /
+Tile selection is the reference's: pass a compiled
+:class:`~repro_torch.core.plans.TilePlan` (and the target
+:class:`~repro_torch.core.hardware.HardwareModel`, by default the H100) and
+the engine resolves the decode kernels' tiles once, at the ``(slots,
+max_len)`` decode cell, and each prefill's tiles once per admitted length,
+at the ``(1, length)`` cell — exact hit, nearest shape, cross-hardware
+transfer, or else the kernel's default, never a sweep
+(``launch.specs.resolve_model_tiles``). Every resolved tile is then held
+against the calls the model makes of its kernel; one that would not launch
+is replaced by the kernel's default and counted as ``tile_fallback``
+(``launch.specs.launchable_tiles``). The decode tiles are baked into each
+slot's captured graph, so :meth:`ServeEngine.set_plans` drops the graphs
+and the next step recaptures. Tile-dispatch events of the call sites
+(``models.attention.capture_tile_events``) count as ``tile_fallback`` too:
+a prefill's once per admitted request, the decode step's once per engine.
+Without a plan every kernel is recorded with plan source ``no_plan``, as
+the reference does, and takes its Hopper default tile. Options not ported
+yet — ``chunk_prefill``, ``pack_prefill``, ``paged``, ``shadow_fraction`` /
 ``refiner`` and ``tracer`` — raise ``NotImplementedError`` when set.
 """
 from __future__ import annotations
@@ -34,6 +48,7 @@ from __future__ import annotations
 import dataclasses
 import math
 import time
+import warnings
 from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
@@ -41,8 +56,13 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core.hardware import PRODUCTION_TARGET
+from repro_torch.core.plans import PlanTransferWarning
+from repro_torch.core.tiling import TileShape
 from repro_torch.kernels import build
+from repro_torch.launch import specs
 from repro_torch.models import api
+from repro_torch.models import attention as attn_mod
 from repro_torch.serve.metrics import ServeMetrics
 from repro_torch.serve.scheduler import FifoScheduler
 
@@ -86,9 +106,7 @@ class ServeEngine:
                  refiner=None,
                  tracer=None,
                  device=None):
-        unported = {"plans": plans is not None,
-                    "hardware": hardware is not None,
-                    "chunk_prefill": chunk_prefill,
+        unported = {"chunk_prefill": chunk_prefill,
                     "pack_prefill": pack_prefill, "paged": paged,
                     "shadow_fraction": bool(shadow_fraction),
                     "refiner": refiner is not None,
@@ -106,6 +124,8 @@ class ServeEngine:
         self.max_len = max_len
         self.slots = slots
         self.dtype = dtype
+        self.hardware = hardware or PRODUCTION_TARGET
+        self.plans = plans
         self.scheduler = scheduler or FifoScheduler()
         self.metrics = metrics or ServeMetrics(clock=clock)
         self._clock = clock
@@ -122,7 +142,17 @@ class ServeEngine:
         # Per-slot independent caches (batch 1) and step buffers.
         self._slots = [self._make_slot() for _ in range(slots)]
         self._graph_pool = None
+        # Per admitted length: the resolved prefill tiles with the events
+        # of the tiles replaced at resolution, and their plan sources.
+        self._prefill_tiles: Dict[int, Any] = {}
         self._prefill_sources: Dict[int, Dict[str, str]] = {}
+        # The decode step's tiles (resolved once per engine and plan) and
+        # its deduplicated tile events (None until the step first runs).
+        self.tiles: Dict[str, TileShape] = {}
+        self.tile_sources: Dict[str, str] = {}
+        self._decode_tile_events: Optional[List[Dict[str, Any]]] = None
+        if plans is not None:
+            self._resolve_tiles()
 
     def _make_slot(self) -> _Slot:
         cfg, dev = self.cfg, self.device
@@ -136,28 +166,114 @@ class ServeEngine:
                                dtype=self.params["embed"].dtype, device=dev),
             next_token=torch.zeros((), dtype=torch.long, device=dev))
 
+    @property
+    def _dtype_name(self) -> str:
+        return str(self.dtype).replace("torch.", "")
+
+    @staticmethod
+    def _dedupe_events(events: List[Dict[str, Any]]) -> List[Dict[str, Any]]:
+        """Drop repeats: identical per-layer call sites, and the warm-up and
+        capture of a slot's step, emit the same event."""
+        seen, out = set(), []
+        for ev in events:
+            key = tuple(sorted((k, str(v)) for k, v in ev.items()))
+            if key not in seen:
+                seen.add(key)
+                out.append(ev)
+        return out
+
+    def _record_tile_event(self, event: Dict[str, Any]) -> None:
+        """A ``fallback`` event — a resolved tile that did not apply as
+        resolved at its call site — counts as ``tile_fallback``."""
+        if event.get("fallback"):
+            self.metrics.record_plan(event["phase"], event["kernel"],
+                                     "tile_fallback")
+
+    def _resolve(self, batch: int, seq_len: int, kind: str, tokens: int,
+                 cache_lens=()):
+        """One cell's tiles from the plan, each held against the calls the
+        model makes of its kernel. Returns ``(tiles, sources, events)``:
+        a replaced tile is one ``tile_fallback`` event."""
+        phase = "decode" if kind == "decode" else "prefill"
+        with warnings.catch_warnings():
+            # resolve() warns once per transfer; the counters record it.
+            warnings.simplefilter("ignore", PlanTransferWarning)
+            tiles, resolutions = specs.resolve_model_tiles(
+                self.plans, self.cfg, batch, seq_len, kind, self._dtype_name,
+                self.hardware)
+        tiles, replaced = specs.launchable_tiles(
+            tiles, self.cfg, batch, seq_len, kind, self._dtype_name,
+            tokens=tokens, cache_lens=cache_lens)
+        sources = {kernel: (resolutions[kernel].source
+                            if kernel in resolutions else "fallback")
+                   for kernel in tiles}
+        events = [dict(kernel=k, phase=phase, impl="launch_check",
+                       tile=tuple(tiles[k]), fallback=True)
+                  for k in replaced]
+        return tiles, sources, events
+
+    def _cache_lens(self):
+        return sorted({int(c["k"].shape[2]) for c in self._slots[0].caches})
+
+    def _resolve_tiles(self) -> None:
+        """The decode kernels' tiles at the ``(slots, max_len)`` decode cell,
+        with one plan source per kernel recorded under ``decode``. The step
+        runs each slot at batch 1, so the tiles are held against M = 1."""
+        self.tiles, self.tile_sources, events = self._resolve(
+            self.slots, self.max_len, "decode", tokens=1,
+            cache_lens=self._cache_lens())
+        for kernel, source in self.tile_sources.items():
+            self.metrics.record_plan("decode", kernel, source)
+        for ev in events:
+            self._record_tile_event(ev)
+
+    def set_plans(self, plans) -> None:
+        """Swap the engine onto another plan artifact (or none), live.
+
+        Every plan-derived cache goes: the prefill tiles and sources, the
+        tile events, and every slot's captured graph, since a graph bakes
+        its tiles in at capture; the next step of each slot recaptures with
+        the new decode tiles. Tiles never change the math, so requests in
+        flight keep their caches.
+        """
+        self.plans = plans
+        self._prefill_tiles.clear()
+        self._prefill_sources.clear()
+        self._decode_tile_events = None
+        self.tiles, self.tile_sources = {}, {}
+        for slot in self._slots:
+            slot.graph, slot.launches = None, {}
+        if plans is not None:
+            self._resolve_tiles()
+
     def _prefill_fn(self, length: int):
         """The prefill for one admitted prompt length, with its tiles and
-        plan sources resolved once per length (``no_plan`` without a plan)."""
+        plan sources resolved once per length (``no_plan`` and the Hopper
+        defaults without a plan)."""
         if length not in self._prefill_sources:
-            from repro_torch.launch.specs import kernel_problems
-
-            self._prefill_sources[length] = {
-                kernel: "no_plan"
-                for kernel in kernel_problems(self.cfg, 1, length, "prefill")
-            }
+            if self.plans is not None:
+                tiles, sources, events = self._resolve(1, length, "prefill",
+                                                       tokens=length)
+            else:
+                tiles, events = {}, []
+                sources = {kernel: "no_plan" for kernel in
+                           specs.kernel_problems(self.cfg, 1, length,
+                                                 "prefill")}
+            self._prefill_tiles[length] = (tiles, events)
+            self._prefill_sources[length] = sources
         cfg, max_len, dtype = self.cfg, self.max_len, self.dtype
+        tiles = self._prefill_tiles[length][0] or None
 
         def prefill(params, batch, caches):
             return api.prefill(params, cfg, batch, max_len=max_len,
-                               dtype=dtype, caches=caches)
+                               dtype=dtype, caches=caches, tiles=tiles)
         return prefill
 
     def _run_step(self, slot: _Slot) -> None:
         """One decode step of a slot on its static tensors: the step the
         graph captures, and the eager step on the CPU."""
         logits, _ = api.decode_step(self.params, self.cfg, slot.token,
-                                    slot.caches)
+                                    slot.caches, tiles=self.tiles or None)
         slot.logits.copy_(logits)
         slot.next_token.copy_(torch.argmax(logits[0, :self.cfg.vocab_size]))
 
@@ -186,6 +302,19 @@ class ServeEngine:
         slot.graph = graph
 
     def _step(self, slot: _Slot) -> None:
+        if self._decode_tile_events is None:
+            # The step's first run in Python (eager, or the warm-up and
+            # capture of a graph): its tile events, once per engine.
+            captured: List[Dict[str, Any]] = []
+            with attn_mod.capture_tile_events(captured.append):
+                self._step_once(slot)
+            self._decode_tile_events = self._dedupe_events(captured)
+            for ev in self._decode_tile_events:
+                self._record_tile_event(ev)
+            return
+        self._step_once(slot)
+
+    def _step_once(self, slot: _Slot) -> None:
         if self.device.type != "cuda":
             self._run_step(slot)
             return
@@ -254,10 +383,16 @@ class ServeEngine:
                                                device=self.device)}
             # Into the first free slot's caches; a request that its prefill
             # token satisfies leaves the slot free.
-            with torch.inference_mode():
+            # Tile events count once per admitted request, as its plan
+            # sources do: the replaced tiles' and the call sites'.
+            events = list(self._prefill_tiles[len(prompt)][1])
+            with torch.inference_mode(), \
+                    attn_mod.capture_tile_events(events.append):
                 logits, _ = prefill(self.params, batch,
                                     self._slots[free[0]].caches)
                 tok = int(torch.argmax(logits[0, :self.cfg.vocab_size]))
+            for ev in self._dedupe_events(events):
+                self._record_tile_event(ev)
             req.out_tokens.append(tok)
             self.metrics.record_first_token(req.rid, req.bucket)
             if len(req.out_tokens) >= req.max_new_tokens:

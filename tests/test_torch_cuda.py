@@ -629,3 +629,124 @@ def test_captured_decode_gives_the_eager_loop_s_tokens(dev):
                 logits, st = api.decode_step(params, cfg, tok, st)
                 toks.append(int(torch.argmax(logits[0, :cfg.vocab_size])))
             assert req.out_tokens == toks, req.rid
+
+
+# ---------------------------------------------------------------------------
+# Tile plans in the engine
+# ---------------------------------------------------------------------------
+
+PLAN_EDGES = (8, 16)
+
+
+def _serve_plan(arch="qwen2-1.5b", max_len=64, slots=2):
+    """An analytic h100_sxm plan of the smoke config's serving cells."""
+    from repro_torch.core import H100_SXM, compile_plan, registry
+    from repro_torch.launch.compile_plans import serve_bucket_cells
+
+    cells = serve_bucket_cells([arch], PLAN_EDGES, slots, max_len, smoke=True)
+    return compile_plan([(k, p, "float32", H100_SXM) for k, p in cells
+                         if k in registry.names()])
+
+
+def _plan_tokens(eng, prompts, new=8):
+    rids = [eng.add_request(p, max_new_tokens=new) for p in prompts]
+    done = {r.rid: r.out_tokens for r in eng.run_until_done()}
+    return [done[r] for r in rids]
+
+
+def _same_tokens_or_tie(params, cfg, prompt, got, want):
+    """Equal tokens, or the first difference where the plain versions' top-2
+    margin is within 1e-3 of max |logit| (float32 sums in another order)."""
+    for i, (a, b) in enumerate(zip(got, want)):
+        if a != b:
+            ctx = np.concatenate([prompt, want[:i]])[None]
+            with torch.inference_mode():
+                logits, _ = api.prefill(params, cfg, {"tokens": ctx},
+                                        max_len=ctx.shape[1],
+                                        impl="reference")
+            top = torch.topk(logits[0, :cfg.vocab_size].float(), 2).values
+            scale = float(logits[0, :cfg.vocab_size].abs().max())
+            assert float(top[0] - top[1]) <= 1e-3 * scale, (i, a, b)
+            return
+    assert len(got) == len(want)
+
+
+@pytest.mark.parametrize("bucket", [True, False], ids=["bucket", "fifo"])
+def test_plan_engine_serves_the_no_plan_tokens_through_the_kernels(dev,
+                                                                  bucket):
+    from repro_torch.launch import specs
+    from repro_torch.serve import BucketPolicy, ShapeBucketScheduler
+
+    cfg = configs.get_smoke("qwen2-1.5b")
+    params = api.init_params(cfg, 0, device="cuda")
+    plan = _serve_plan()
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(2, cfg.vocab_size, size=n) for n in (3, 11, 16)]
+
+    def engine(plans):
+        sched = (ShapeBucketScheduler(BucketPolicy(PLAN_EDGES)) if bucket
+                 else None)
+        return ServeEngine(cfg, params, max_len=64, slots=2, plans=plans,
+                           scheduler=sched, device="cuda")
+
+    want = _plan_tokens(engine(None), prompts)
+    build.reset_launches()
+    eng = engine(plan)
+    got = _plan_tokens(eng, prompts)
+    assert all(build.LAUNCHES[k] > 0 for k in
+               ("matmul", "flash_attention", "flash_decode")), build.LAUNCHES
+    for p, a, b in zip(prompts, got, want):
+        _same_tokens_or_tie(params, cfg, p, a, b)
+    # Every tile the engine resolved is one its kernel launches.
+    for length, (tiles, _) in eng._prefill_tiles.items():
+        for kernel, tile in tiles.items():
+            assert specs.tile_launches(kernel, tile, cfg, "float32", length)
+    lens = sorted({c["k"].shape[2] for c in eng._slots[0].caches})
+    for kernel, tile in eng.tiles.items():
+        assert specs.tile_launches(kernel, tile, cfg, "float32", 1, lens)
+    counts = eng.metrics.as_dict()["plan"]["by_phase"]
+    assert counts["decode"]["exact"] == 2
+    assert counts["prefill"]["tile_fallback"] == 0
+    if bucket:
+        assert eng.metrics.plan_hit_rate("prefill") == 1.0
+    # A swap drops every captured graph; the next steps recapture.
+    assert all(s.graph is not None for s in eng._slots)
+    eng.set_plans(None)
+    assert all(s.graph is None for s in eng._slots)
+    again = _plan_tokens(eng, prompts)
+    assert again == want
+
+
+def test_plan_tiles_that_do_not_launch_are_replaced_and_counted(dev):
+    """A bf16 (wgmma) matmul tile in the float32 16-token cell: the engine
+    replaces it by the default before the kernel sees it (the kernel would
+    raise) and counts one tile_fallback per request admitted at 16."""
+    import dataclasses
+
+    from repro_torch.core import TilePlan
+    from repro_torch.core.tiling import TileShape
+    from repro_torch.launch import specs
+    from repro_torch.serve import BucketPolicy, ShapeBucketScheduler
+
+    cfg = configs.get_smoke("qwen2-1.5b")
+    params = api.init_params(cfg, 0, device="cuda")
+    plan = TilePlan(_serve_plan().entries())
+    prob = specs.kernel_problems(cfg, 1, 16, "prefill")["matmul"]
+    entry = plan.lookup("matmul", prob, "float32", "h100_sxm")
+    plan.add(dataclasses.replace(entry, tile=TileShape((64, 64, 128))))
+    a = torch.zeros((16, cfg.d_model), device=dev)
+    with pytest.raises(ValueError):
+        mm_ops.mm(a, torch.zeros((cfg.d_model, cfg.d_ff), device=dev),
+                  tile=(64, 64, 128))
+    eng = ServeEngine(cfg, params, max_len=64, slots=2, plans=plan,
+                      scheduler=ShapeBucketScheduler(BucketPolicy(PLAN_EDGES)),
+                      device="cuda")
+    rng = np.random.default_rng(1)
+    lengths = (12, 5, 16, 14)
+    out = _plan_tokens(eng, [rng.integers(2, cfg.vocab_size, size=n)
+                             for n in lengths], new=4)
+    assert all(len(t) == 4 for t in out)
+    replaced = sum(n > 8 for n in lengths)
+    counts = eng.metrics.as_dict()["plan"]["by_phase"]
+    assert counts["prefill"]["tile_fallback"] == replaced
+    assert counts.get("decode", {}).get("tile_fallback", 0) == 0

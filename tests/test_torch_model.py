@@ -22,6 +22,7 @@ from repro.models import attention as jax_attn  # noqa: E402
 from repro.models import layers as jax_layers  # noqa: E402
 from repro.models import transformer as jax_T  # noqa: E402
 from repro_torch import configs  # noqa: E402
+from repro_torch.core import H100_SXM  # noqa: E402
 from repro_torch.launch import specs  # noqa: E402
 from repro_torch.models import api, attention, layers, transformer  # noqa: E402
 from repro_torch.models.convert import params_from_jax  # noqa: E402
@@ -92,8 +93,9 @@ def test_qwen2_full_width_geometry():
         (28, 1536, 128, 8960)
     assert (cfg.n_heads, cfg.padded_heads, cfg.padded_kv_heads) == (12, 16, 2)
     assert (cfg.vocab_size, cfg.padded_vocab) == (151936, 153600)
-    tiles, resolutions = specs.resolve_model_tiles(cfg, 1, 600, "prefill",
-                                                   "float32")
+    tiles, resolutions = specs.resolve_model_tiles(None, cfg, 1, 600,
+                                                   "prefill", "float32",
+                                                   H100_SXM)
     assert set(tiles) == {"matmul", "flash_attention"} and resolutions == {}
 
 

@@ -10,6 +10,7 @@ width is one its kernel launches, and round-trip plan artifacts between the
 two packages. No card is needed: wall-clock timing of the H100 raises here,
 and an analytic compile launches no kernel.
 """
+import dataclasses
 import itertools
 import json
 import math
@@ -40,8 +41,9 @@ from repro_torch.core import (  # noqa: E402
     PlanTransferWarning, PlanVersionWarning, TilePlan, TilingPolicy,
     compile_plan, registry,
 )
-from repro_torch.core import tiling  # noqa: E402
+from repro_torch.core import cost_model, tiling  # noqa: E402
 from repro_torch.core.cost_model import TileWorkload, estimate  # noqa: E402
+from repro_torch.core.tiling import TileShape  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.bilinear import ops as bil_ops  # noqa: E402
 from repro_torch.kernels.flash_attention import decode as fa_decode  # noqa: E402
@@ -190,6 +192,149 @@ def test_h100_estimator_bounds_tiles_and_blocks_by_shared_memory():
     assert times == sorted(times) and times[0] < times[-1]
     with pytest.raises(ValueError):
         estimate(H100_SXM, TileWorkload(1.0, 1.0, 1, 1.0), 1)
+
+
+def _compute_s(hw, unit, flops=1e9):
+    """compute_s of one block per SM doing ``flops`` on ``unit``."""
+    work = TileWorkload(flops=flops, hbm_bytes=0.0, row_segments=1,
+                        row_stride_bytes=0.0, threads=256, unit=unit)
+    return estimate(hw, work, hw.num_sm).compute_s
+
+
+@pytest.mark.parametrize("kernel,problem,tile,dtype,unit,rate", [
+    ("matmul", dict(m=600, k=1536, n=8960), (128, 64, 128), "bfloat16",
+     cost_model.BF16_TENSOR, 989e12),
+    ("matmul", dict(m=600, k=1536, n=8960), (128, 16, 128), "float32",
+     cost_model.SIMT, 67e12),
+    ("matmul", dict(m=4, k=1536, n=8960), (16, 64, 256), "bfloat16",
+     cost_model.SIMT, 67e12),
+    ("flash_attention", dict(sq=600, skv=600, d=128, hq=16, hkv=2, window=0),
+     (64, 64), "float32", cost_model.TF32X3, 495e12 / 3),
+    ("flash_attention", dict(sq=600, skv=600, d=128, hq=16, hkv=2, window=0),
+     (128, 128), "bfloat16", cost_model.BF16_TENSOR, 989e12),
+    ("ssd", dict(s=4096, h=80, p=64, n=128), (64,), "float32",
+     cost_model.TF32X3, 495e12 / 3),
+    ("flash_decode", dict(b=4, skv=1024, d=128, hq=16, hkv=2, window=0),
+     (64,), "float32", cost_model.SIMT, 67e12),
+    ("rglru", dict(s=4096, f=4096), (32, 128), "float32", cost_model.SIMT,
+     67e12),
+])
+def test_each_regime_is_charged_at_its_units_rate(kernel, problem, tile,
+                                                  dtype, unit, rate):
+    work = registry.get(kernel).workload(TileShape(tile), problem, dtype)
+    assert work.unit == unit
+    assert cost_model.compute_rate(H100_SXM, unit) == rate
+    # One block on each SM: compute is the block's FLOPs at the SM's share.
+    assert _compute_s(H100_SXM, unit) == pytest.approx(1e9 * 132 / rate)
+    # The paper's GPUs have no tensor cores: every unit at their one rate.
+    for hw in (GTX260, GEFORCE_8800GTS):
+        assert cost_model.compute_rate(hw, unit) == hw.peak_flops_bf16
+
+
+@pytest.mark.parametrize("tile", [(128, 64, 128), (64, 64, 128)])
+def test_a_wgmma_tile_over_65_rows_costs_what_128_rows_cost(tile):
+    spec, t = registry.get("matmul"), TileShape(tile)
+
+    def cost(m):
+        prob = dict(m=m, k=1536, n=8960)
+        assert mm_ops.regime(m, 8960, 1536, "bfloat16") == "wgmma"
+        return estimate(H100_SXM, spec.workload(t, prob, "bfloat16"),
+                        spec.n_tiles(t, prob),
+                        vmem_bytes=spec.vmem_bytes(t, prob, "bfloat16"))
+
+    assert cost(65).total_s == pytest.approx(cost(128).total_s)
+    assert cost(65).compute_s == pytest.approx(cost(128).compute_s)
+    work = spec.workload(t, dict(m=65, k=1536, n=8960), "bfloat16")
+    rows = min(tile[0], 65)
+    assert work.pad_waste == pytest.approx(tile[0] / rows)
+    assert work.flops == pytest.approx(2.0 * rows * 128 * 1536)
+
+
+def test_flash_decode_estimate_includes_the_combine_launch():
+    spec, t = registry.get("flash_decode"), TileShape((64,))
+    split = dict(b=1, skv=1024, d=128, hq=16, hkv=2, window=0)
+    whole = dict(split, b=128)           # 256 groups fill the card: no split
+    assert fa_decode.split_count(2, 16) > 1
+    assert fa_decode.split_count(256, 16) == 1
+    for prob, launches in ((split, 2), (whole, 1)):
+        work = spec.workload(t, prob, "float32")
+        c = estimate(H100_SXM, work, spec.n_tiles(t, prob),
+                     vmem_bytes=spec.vmem_bytes(t, prob, "float32"))
+        assert work.extra_launches == launches - 1
+        assert c.overhead_s == pytest.approx(launches * 3.0e-6)
+    # The combine reads every split's float32 partial (acc, max, sum) and
+    # writes the output.
+    work = spec.workload(t, split, "float32")
+    splits = fa_decode.split_count(2, 16)
+    assert work.extra_bytes == 2 * (splits * 8 * 130 * 4 + 8 * 128 * 4)
+    no_combine = estimate(H100_SXM, dataclasses.replace(
+        work, extra_launches=0, extra_bytes=0.0), spec.n_tiles(t, split))
+    with_combine = estimate(H100_SXM, work, spec.n_tiles(t, split))
+    assert with_combine.total_s == pytest.approx(
+        no_combine.total_s + 3.0e-6 + work.extra_bytes / H100_SXM.hbm_bw)
+
+
+def test_hopper_charges_a_partial_last_wave_only_its_blocks():
+    work = TileWorkload(flops=1e6, hbm_bytes=0.0, row_segments=1,
+                        row_stride_bytes=0.0, threads=256)
+    per_block = 1e6 * 132 / 67e12
+    # 8 blocks of 256 threads fit an SM: 132 * 8 make one full wave, 133
+    # blocks one block each on 132 SMs and a second on one of them.
+    assert estimate(H100_SXM, work, 132 * 8).compute_s == \
+        pytest.approx(8 * per_block)
+    assert estimate(H100_SXM, work, 133).compute_s == \
+        pytest.approx(2 * per_block)
+    assert estimate(H100_SXM, work, 132 * 8 + 1).compute_s == \
+        pytest.approx(9 * per_block)
+
+
+def test_bulk_copies_need_no_resident_threads_on_hopper():
+    # One 128-thread block an SM: Little's law gives thread loads an eighth
+    # of the bandwidth; a kernel fed by TMA or cp.async gets all of it.
+    def memory_s(hw, bulk):
+        work = TileWorkload(flops=0.0, hbm_bytes=1e6, row_segments=1,
+                            row_stride_bytes=0.0, threads=128,
+                            bulk_copies=bulk)
+        return estimate(hw, work, hw.num_sm, vmem_bytes=200_000).memory_s
+
+    full = 1e6 / (3.35e12 / 132)
+    assert memory_s(H100_SXM, True) == pytest.approx(full)
+    assert memory_s(H100_SXM, False) == pytest.approx(full * 1024 / 128)
+    # The paper's GPUs: the flag changes nothing.
+    for hw in (GTX260, GEFORCE_8800GTS):
+        assert memory_s(hw, True) == memory_s(hw, False)
+    spec = registry.get("matmul")
+    prob = dict(m=600, k=1536, n=8960)
+    assert spec.workload(TileShape((128, 16, 128)), prob, "float32").bulk_copies
+    assert not spec.workload(TileShape((16, 64, 256)), dict(prob, m=1),
+                             "float32").bulk_copies
+
+
+def test_a_simt_tiles_shared_memory_loads_add_to_its_compute():
+    """A simt thread loads bm / 16 + 8 floats a K step for bm / 2 FMAs
+    (128-row tile: 16 for 64; 64-row: 12 for 32): the 64-row tile pays
+    more loads per FMA, so the model prefers the 128-row tile where both
+    fill the same waves, as the H100 measured it (1.08-1.16x faster)."""
+    spec = registry.get("matmul")
+    prob = dict(m=65536, k=1536, n=8960)
+    for bm in (128, 64):
+        work = spec.workload(TileShape((bm, 16, 128)), prob, "float32")
+        assert work.smem_bytes == 1536 * 256 * (bm // 16 + 8) * 4
+    costs = {bm: estimate(H100_SXM, spec.workload(TileShape((bm, 16, 128)),
+                                                  prob, "float32"),
+                          spec.n_tiles(TileShape((bm, 16, 128)), prob),
+                          vmem_bytes=spec.vmem_bytes(
+                              TileShape((bm, 16, 128)), prob, "float32"))
+             for bm in (128, 64)}
+    assert costs[128].total_s < costs[64].total_s
+    # The smem term is Hopper's: the paper's GPUs ignore the field.
+    work = TileWorkload(flops=1e6, hbm_bytes=0.0, row_segments=1,
+                        row_stride_bytes=0.0, threads=256, smem_bytes=1e6)
+    bare = dataclasses.replace(work, smem_bytes=0.0)
+    assert estimate(GTX260, work, 24).compute_s == \
+        estimate(GTX260, bare, 24).compute_s
+    assert estimate(H100_SXM, work, 132).compute_s == pytest.approx(
+        estimate(H100_SXM, bare, 132).compute_s + 1e6 / (33e12 / 132))
 
 
 def _full_width_cells():

@@ -141,7 +141,7 @@ def test_engine_is_reusable_and_deterministic(models):
 
 
 @pytest.mark.parametrize("option", [
-    dict(plans=object()), dict(hardware=object()), dict(chunk_prefill=True),
+    dict(chunk_prefill=True),
     dict(pack_prefill=True),
     dict(paged=True), dict(shadow_fraction=0.5), dict(refiner=object()),
     dict(tracer=object()),
