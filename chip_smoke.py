@@ -61,24 +61,43 @@ Phases, each of which fails the run if it fails:
 7. gemma2-9b at full width and 4 of its 42 layers: prefill and 8 captured
    decode steps across a ring's wrap, against the plain versions;
 8. run the port's launcher (``python -m repro_torch.launch.serve``) at the
-   smoke configs of qwen2-1.5b, gemma2-9b and h2o-danube-1.8b on the card;
+   smoke configs of qwen2-1.5b, gemma2-9b, h2o-danube-1.8b, mamba2-2.7b and
+   recurrentgemma-9b on the card;
 9. compile tile plans with wall-clock timing on the card (the port's
    ``compile_plan`` with ``make_measure_fn``) over a bounded job set: the
    paper's bilinear family, the train_4k ssd, rglru and head_dim-256
    attention cells, and qwen2-1.5b's serve cells; check that every cell was
    measured, none skipped, and that the saved artifact resolves each cell
    exactly; then time all 16 tiles of the paper's Fig. 3 at every scale
-   beside the paper's two GPUs as the cost model sees them.
+   beside the paper's two GPUs as the cost model sees them;
+10. serve full-width mamba2-2.7b (64 layers, float32, random weights from
+   seed 0; SSD states) through the captured engine at 4 slots and max_len
+   1024: six requests of 16, 64, 100, 257, 600 and 1000 prompt tokens (a
+   slot serves a second request), 16 new tokens each, held token by token
+   against the plain versions; ssd must launch in the prefills and in the
+   replayed decode steps (as many times as steps times its launches a
+   step); one request's prefill logits and four decode steps against the
+   plain versions; prefill device ms at 600 and 1000 tokens; decode ms a
+   step at 1 and 4 slots, eager beside captured;
+11. the same for full-width recurrentgemma-9b (all 38 layers: RG-LRU
+   states, GeGLU FF, local attention at head_dim 256) at max_len 2304, so
+   its local layers keep 2048-slot rings: prompts of 2100 (wraps at
+   prefill), 2040 (wraps while decoding), 64 and 500 tokens; matmul,
+   flash_attention and rglru must launch in the prefills, matmul,
+   flash_decode and rglru in the replayed decode steps.
 
 ``--profile`` adds, after phase 5, where the time of one full-width qwen2
 request goes (prefill, eager decode, captured decode): wall time, device
-time by kernel group and the device's idle share.
+time by kernel group and the device's idle share; and the same for one
+600-token request of each of phases 10 and 11.
 
 Launch counts: matmul, flash_attention and flash_decode are counted over
-the serve of phase 4 (the replays of captured steps included), bilinear,
-ssd and rglru over the compile of phase 9, each reset to 0 just before its
-path and read just after; phase 4b reads its own counts over its two plan
-serves and fails unless each of the serving kernels ran.
+the serve of phase 4 (the replays of captured steps included), bilinear
+over the compile of phase 9, ssd over the serve of phase 10 and rglru over
+the serve of phase 11, each reset to 0 just before its path and read just
+after; phase 4b reads its own counts over its two plan serves and fails
+unless each of the serving kernels ran, and phase 9 fails unless its
+compile launched bilinear, ssd and rglru.
 
 It prints the card (phase 1), a ``{"kernels": [...]}`` JSON line before the
 last, and as the last line ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -1004,20 +1023,26 @@ def serve_full_width(cfg, params):
     return stats
 
 
-def full_width_parity(cfg, params):
+def full_width_parity(cfg, params, prompt_len: int = 384,
+                      max_len: int = MAX_LEN):
+    """One request's prefill logits and four decode steps through the
+    kernels against the same request through the plain versions (TF32
+    off), within LOGIT_REL_TOL of max |logit|."""
     import numpy as np
     import torch
 
     from repro_torch.models import api
 
     rng = np.random.default_rng(1)
-    tokens = rng.integers(2, cfg.vocab_size, size=(1, 384))
+    tokens = rng.integers(2, cfg.vocab_size, size=(1, prompt_len))
     v = cfg.vocab_size
+    ring = bool(cfg.attn_window)
     report = []
     with torch.inference_mode():
-        lk, sk = api.prefill(params, cfg, {"tokens": tokens}, max_len=MAX_LEN)
-        lr, sr = api.prefill(params, cfg, {"tokens": tokens}, max_len=MAX_LEN,
-                             impl="reference")
+        lk, sk = api.prefill(params, cfg, {"tokens": tokens}, max_len=max_len,
+                             ring_local=ring)
+        lr, sr = api.prefill(params, cfg, {"tokens": tokens}, max_len=max_len,
+                             ring_local=ring, impl="reference")
         steps = [(lk, lr)]
         for _ in range(4):
             tok = torch.argmax(lk[:, :v], dim=-1, keepdim=True)
@@ -1045,7 +1070,7 @@ def full_width_parity(cfg, params):
 
 
 def decode_rates(cfg, params, prompt_len: int = 600, steps: int = 12,
-                 reps: int = 3):
+                 reps: int = 3, max_len: int = MAX_LEN):
     """Decode wall ms a step on the host clock (the median of ``reps`` runs
     of ``steps`` steps), eager beside graph, at one slot and at four: eager
     is a direct ``api.decode_step`` loop over each slot's own batch-1
@@ -1068,7 +1093,8 @@ def decode_rates(cfg, params, prompt_len: int = 600, steps: int = 12,
             states, toks = [], []
             for p in prompts:
                 logits, st = api.prefill(params, cfg, {"tokens": p[None]},
-                                         max_len=MAX_LEN)
+                                         max_len=max_len,
+                                         ring_local=bool(cfg.attn_window))
                 states.append(st)
                 toks.append(int(torch.argmax(logits[0, :v])))
 
@@ -1081,7 +1107,7 @@ def decode_rates(cfg, params, prompt_len: int = 600, steps: int = 12,
             eager_step()
             eager = statistics.median(
                 per_step_ms(eager_step, steps) for _ in range(reps))
-        eng = ServeEngine(cfg, params, max_len=MAX_LEN, slots=slots,
+        eng = ServeEngine(cfg, params, max_len=max_len, slots=slots,
                           device="cuda")
         for p in prompts:
             eng.add_request(p, max_new_tokens=reps * steps + 8)
@@ -1151,33 +1177,42 @@ def hold_tokens(params, cfg, prompt, got, want, label: str) -> int:
     return 0
 
 
-def _prefill_ms(eng, params, lengths, reps: int = 3):
-    """Per length, the engine's own prefill (its tiles for the length) of
-    one request on a slot's caches: host-clock ms (the median of ``reps``
-    after a warm-up), and device-busy ms in all and in the matmul kernel
+def _prefill_profile(eng, params, n: int, gen, reps: int = 3):
+    """The engine's own prefill (its tiles for the length) of one
+    ``n``-token request on a slot's caches: host-clock ms (the median of
+    ``reps`` after a warm-up), and device-busy ms by kernel group
     (``torch.profiler``, the mean of 2 calls)."""
+    import torch
+
+    with torch.inference_mode():
+        fn = eng._prefill_fn(n)
+        batch = {"tokens": torch.randint(2, eng.cfg.vocab_size, (1, n),
+                                         generator=gen, device="cuda")}
+
+        def call():
+            fn(params, batch, eng._slots[0].caches)
+
+        call()
+        host = statistics.median(per_step_ms(call, 1) for _ in range(reps))
+        groups = {}
+        for name, ms in device_kernels(call, calls=2).items():
+            g = _kernel_group(name)
+            groups[g] = groups.get(g, 0.0) + ms
+    return host, groups
+
+
+def _prefill_ms(eng, params, lengths, reps: int = 3):
+    """Per length, :func:`_prefill_profile`'s host-clock ms, and its
+    device-busy ms in all and in the matmul kernel."""
     import torch
 
     host, busy, matmul = [], [], []
     gen = torch.Generator(device="cuda").manual_seed(5)
-    with torch.inference_mode():
-        for n in lengths:
-            fn = eng._prefill_fn(n)
-            batch = {"tokens": torch.randint(2, eng.cfg.vocab_size, (1, n),
-                                             generator=gen, device="cuda")}
-
-            def call():
-                fn(params, batch, eng._slots[0].caches)
-
-            call()
-            host.append(statistics.median(per_step_ms(call, 1)
-                                          for _ in range(reps)))
-            groups = {}
-            for name, ms in device_kernels(call, calls=2).items():
-                g = _kernel_group(name)
-                groups[g] = groups.get(g, 0.0) + ms
-            busy.append(sum(groups.values()))
-            matmul.append(groups.get("matmul", 0.0))
+    for n in lengths:
+        h, groups = _prefill_profile(eng, params, n, gen, reps)
+        host.append(h)
+        busy.append(sum(groups.values()))
+        matmul.append(groups.get("matmul", 0.0))
     return dict(host=host, busy=busy, matmul=matmul)
 
 
@@ -1568,18 +1603,177 @@ def gemma2_reduced_depth():
                 max_rel_err=worst, min_top2_margin=margin, seconds=dt)
 
 
+# ---------------------------------------------------------------------------
+# Phases 10 and 11: the recurrent models at full width
+# ---------------------------------------------------------------------------
+
+def serve_recurrent(cfg, params, max_len: int, lengths, seed: int,
+                    prefill_kernels, decode_kernels, label: str):
+    """Serve one request per prompt length (16 new tokens each) through the
+    captured engine at 4 slots and hold every request token by token
+    against the plain versions. The launches are counted over the serve
+    (reset right before it, read right after) and split into the
+    admissions (prefills) and the decode steps; taking each captured slot's
+    eager warm-up step out of the latter leaves the replays', which must be
+    the number of decode steps times the launches of one step. Fails unless
+    each of ``prefill_kernels`` launched in the prefills and each of
+    ``decode_kernels`` in the replays."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import build
+    from repro_torch.serve import ServeEngine
+
+    new_tokens, slots = 16, 4
+    ring = bool(cfg.attn_window)
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(2, cfg.vocab_size, size=n) for n in lengths]
+    eng = ServeEngine(cfg, params, max_len=max_len, slots=slots,
+                      dtype=torch.float32, device="cuda")
+    by_phase = {"prefill": {}, "decode": {}}
+
+    def counted(phase, fn):
+        def run(*args, **kwargs):
+            before = dict(build.LAUNCHES)
+            out = fn(*args, **kwargs)
+            for k, n in build.LAUNCHES.items():
+                by_phase[phase][k] = by_phase[phase].get(k, 0) + n - before[k]
+            return out
+        return run
+
+    eng._admit = counted("prefill", eng._admit)
+    eng._decode_all = counted("decode", eng._decode_all)
+    build.reset_launches()
+    t0 = time.perf_counter()
+    rids = [eng.add_request(p, max_new_tokens=new_tokens) for p in prompts]
+    # One engine step at a time: the first admits four requests (their
+    # prefills) and decodes once; a later one admits into a freed slot.
+    done, step_ms = {}, []
+    while eng.in_flight() or eng.scheduler.pending():
+        t = time.perf_counter()
+        done.update((r.rid, r) for r in eng.run_until_done(max_steps=1))
+        step_ms.append((time.perf_counter() - t) * 1e3)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(build.LAUNCHES)
+    check(all(r is not None for r in rids), f"requests rejected: {rids}")
+    check(sorted(done) == sorted(rids), "not every request finished")
+    captured = [slot for slot in eng._slots if slot.graph is not None]
+    check(len(captured) == min(slots, len(prompts)),
+          f"{len(captured)} slots captured their decode step")
+    step = captured[0].launches
+    decode_calls = sum(len(done[r].out_tokens) - 1 for r in rids)
+    replayed = {k: by_phase["decode"].get(k, 0)
+                - sum(slot.launches.get(k, 0) for slot in captured)
+                for k in launches}
+    for name in prefill_kernels:
+        check(by_phase["prefill"].get(name, 0) > 0,
+              f"{label}: {name} was never launched by a prefill")
+    for name in decode_kernels:
+        check(step.get(name, 0) > 0 and
+              replayed[name] == decode_calls * step[name],
+              f"{label}: {name} launched {replayed[name]} times in "
+              f"{decode_calls} replayed decode steps of {step.get(name, 0)}")
+    report = []
+    for rid, n, p in zip(rids, lengths, prompts):
+        toks = done[rid].out_tokens
+        check(len(toks) == new_tokens, f"request {rid} got {len(toks)} tokens")
+        check(all(0 <= t < cfg.vocab_size for t in toks),
+              f"request {rid} has tokens outside the vocabulary")
+        _, margin = hold_against_plain(params, cfg, p, toks, [], max_len,
+                                       ring, f"{label} prompt {n}")
+        report.append(dict(prompt=n, tokens=toks, min_top2_margin=margin))
+    decode_ms = statistics.median(step_ms[1:])
+    log(f"  {len(rids)} requests ({', '.join(map(str, lengths))}-token "
+        f"prompts), {len(rids) * new_tokens} tokens in {dt:.3f} s (first "
+        f"step, four prefills: {step_ms[0]:.1f} ms; then {decode_ms:.3f} ms "
+        f"a step, median); every token the plain versions' or within a "
+        f"top-2 margin of {LOGIT_REL_TOL:g} x max |logit|")
+    log(f"  launches: {launches}; prefills {by_phase['prefill']}; "
+        f"{decode_calls} replayed decode steps {replayed} "
+        f"({step} a step)")
+    out = dict(requests=report, seconds=dt, launches=launches,
+               prefill_launches=by_phase["prefill"],
+               replayed_launches=replayed, launches_per_step=step,
+               decode_calls=decode_calls, first_step_ms=step_ms[0],
+               decode_step_ms=decode_ms, engine=eng,
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    if ring:
+        tops = sorted(int(next(c for c in slot.caches if "slot_pos" in c)
+                          ["slot_pos"].max()) for slot in eng._slots)
+        window = cfg.attn_window
+        check(all(c["k"].shape[2] == window for slot in eng._slots
+                  for c in slot.caches if "slot_pos" in c),
+              f"{label}'s local caches are not {window}-slot rings")
+        check(sum(t >= window for t in tops) >= 2,
+              f"the rings did not wrap (highest positions held: {tops})")
+        log(f"  rings of {window} slots, highest positions held {tops}")
+        out["ring_tops"] = tops
+    return out
+
+
+def recurrent_phase(arch: str, max_len: int, lengths, seed: int,
+                    prefill_kernels, decode_kernels, profile: bool):
+    """Phases 10 and 11: ``arch`` at full width (float32, random weights
+    from seed 0) served through the captured engine
+    (:func:`serve_recurrent`), one request's logits held against the plain
+    versions, prefill device ms at 600 tokens and at the longest prompt,
+    decode ms a step at 1 and 4 slots, and with ``profile`` where one
+    600-token request's time goes."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.models import api
+
+    cfg = configs.get_arch(arch)
+    label = arch.split("-")[0]
+    t0 = time.perf_counter()
+    params = api.init_params(cfg, 0, dtype=torch.float32, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in _leaves(params))
+    log(f"  initialised {n_params / 1e9:.3f} B parameters ({cfg.n_layers} "
+        f"layers) in {time.perf_counter() - t0:.1f} s")
+    out = serve_recurrent(cfg, params, max_len, lengths, seed,
+                          prefill_kernels, decode_kernels, label)
+    eng = out.pop("engine")
+    out.update(layers=cfg.n_layers, params_b=n_params / 1e9)
+    out["parity"] = full_width_parity(cfg, params, max_len=max_len)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    out["prefill"] = {}
+    for n in (600, max(lengths)):
+        host, groups = _prefill_profile(eng, params, n, gen)
+        busy = sum(groups.values())
+        out["prefill"][str(n)] = dict(host_ms=host, device_busy_ms=busy,
+                                      by_group_ms=groups)
+        by_group = ", ".join(f"{g} {t:.3f}" for g, t in sorted(
+            groups.items(), key=lambda kv: -kv[1]))
+        log(f"  prefill of {n} tokens: host {host:.3f} ms, device busy "
+            f"{busy:.3f} ms ({by_group})")
+    del eng
+    log(f"  decode wall time a step ({label}): eager loop vs captured graph")
+    out["decode_rates"] = decode_rates(cfg, params, max_len=max_len)
+    if profile:
+        log(f"  where the time of one full-width {label} request goes")
+        out["profile"] = profile_request(cfg, params, max_len=max_len)
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
 def _kernel_group(name: str) -> str:
     for key, group in (("matmul_", "matmul"),
                        ("flash_attention_kernel", "flash_attention"),
-                       ("flash_decode", "flash_decode")):
+                       ("flash_decode", "flash_decode"),
+                       ("ssd_", "ssd"), ("rglru_", "rglru")):
         if key in name:
             return group
     if any(key in name.lower() for key in ("gemm", "gemv", "cutlass")):
-        return "torch.matmul (qkv, out, head)"
+        return "torch.matmul (projections, head)"
     return "other torch ops"
 
 
-def profile_request(cfg, params, prompt_len: int = 600, steps: int = 8):
+def profile_request(cfg, params, prompt_len: int = 600, steps: int = 8,
+                    max_len: int = MAX_LEN):
     """Where the time of one full-width request goes: the prefill of a
     ``prompt_len`` prompt and ``steps`` decode steps at batch 1, eager
     (``api.decode_step``) and captured (``ServeEngine``'s replayed graph).
@@ -1598,7 +1792,7 @@ def profile_request(cfg, params, prompt_len: int = 600, steps: int = 8):
                                                size=prompt_len)
     tokens = torch.as_tensor(prompt[None], device="cuda")
     state = {}
-    eng = ServeEngine(cfg, params, max_len=MAX_LEN, slots=1, device="cuda")
+    eng = ServeEngine(cfg, params, max_len=max_len, slots=1, device="cuda")
     eng.add_request(prompt, max_new_tokens=6 * steps + 2)
     eng.step()                       # prefill, warm-up, capture, first replay
 
@@ -1608,7 +1802,8 @@ def profile_request(cfg, params, prompt_len: int = 600, steps: int = 8):
 
     def prefill():
         state["logits"], state["cache"] = api.prefill(
-            params, cfg, {"tokens": tokens}, max_len=MAX_LEN)
+            params, cfg, {"tokens": tokens}, max_len=max_len,
+            ring_local=bool(cfg.attn_window))
 
     def decode():
         for _ in range(steps):
@@ -1669,10 +1864,18 @@ def profile_request(cfg, params, prompt_len: int = 600, steps: int = 8):
     return out
 
 
+# The launcher's archs (phase 8) and the kernels each one's serve runs.
+ATTN_KERNELS = ("matmul", "flash_attention", "flash_decode")
+LAUNCHER_KERNELS = {"qwen2-1.5b": ATTN_KERNELS, "gemma2-9b": ATTN_KERNELS,
+                    "h2o-danube-1.8b": ATTN_KERNELS, "mamba2-2.7b": ("ssd",),
+                    "recurrentgemma-9b": ATTN_KERNELS + ("rglru",)}
+
+
 def run_launcher():
-    """The launcher at the smoke configs of qwen2-1.5b and of the two
-    windowed archs (ring caches; 20 new tokens wrap gemma2's and
-    h2o-danube's 16-slot rings), each in its own process."""
+    """The launcher at the smoke configs of qwen2-1.5b, of the two windowed
+    archs (ring caches; 20 new tokens wrap gemma2's and h2o-danube's 16-slot
+    rings), of mamba2-2.7b (SSD states) and of recurrentgemma-9b (RG-LRU
+    states beside 16-slot rings), each in its own process."""
     env = dict(os.environ)
     env["PYTHONPATH"] = str(SRC) + (os.pathsep + env["PYTHONPATH"]
                                     if env.get("PYTHONPATH") else "")
@@ -1680,7 +1883,7 @@ def run_launcher():
         [sys.executable, "-m", "repro_torch.launch.serve", "--device", "cuda",
          "--arch", arch, "--requests", "4", "--new-tokens", "20"],
         cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-        text=True) for arch in ("qwen2-1.5b", "gemma2-9b", "h2o-danube-1.8b")}
+        text=True) for arch in LAUNCHER_KERNELS}
     for arch, proc in procs.items():
         try:
             stdout, stderr = proc.communicate(timeout=300)
@@ -1694,7 +1897,7 @@ def run_launcher():
               f"launcher ({arch}) exited {proc.returncode}: {stderr[-2000:]}")
         check("4 requests (0 rejected)" in stdout,
               f"launcher ({arch}) did not serve its 4 requests")
-        for name in ("matmul", "flash_attention", "flash_decode"):
+        for name in LAUNCHER_KERNELS[arch]:
             check(f"'{name}': 0" not in stdout,
                   f"launcher ({arch}) never launched {name}")
 
@@ -1902,9 +2105,16 @@ KERNEL_META = {
         replaces="src/repro/kernels/rglru/rglru.py:50",
         headline=dict(dtype="float32", case="s=4096 f=4096 y")),
 }
-# The path whose launches each kernel's count is read from.
+# The path whose launches each kernel's count is read from: the qwen2 serve
+# (phase 4), the plan compile (phase 9; ssd and rglru are also checked
+# there) and the mamba2 and recurrentgemma serves (phases 10 and 11).
 SERVE_KERNELS = ("matmul", "flash_attention", "flash_decode")
 PLAN_KERNELS = ("bilinear", "ssd", "rglru")
+# Phases 10 and 11: ragged lengths and a chunk multiple, six requests on
+# four slots (a slot serves a second); and recurrentgemma's 2048-slot
+# rings wrapped at prefill (2100) and while decoding (2040).
+MAMBA2_LENGTHS = (16, 64, 100, 257, 600, 1000)
+RECURRENTGEMMA_LENGTHS = (2100, 2040, 64, 500)
 
 
 def kernels_line(rows, launches):
@@ -2056,13 +2266,35 @@ def main(argv=None) -> int:
                 check(result["plans"]["launches"].get(name, 0) > 0,
                       f"kernel {name} was never launched by the plan compile")
 
+            # 10. Full-width mamba2-2.7b.
+            log("== serve full-width mamba2-2.7b (64 layers, float32; SSD "
+                "states)")
+            t0 = time.perf_counter()
+            result["mamba2"] = recurrent_phase(
+                "mamba2-2.7b", 1024, MAMBA2_LENGTHS, seed=7,
+                prefill_kernels=("ssd",), decode_kernels=("ssd",),
+                profile=args.profile)
+            phase_done("mamba2", t0)
+
+            # 11. Full-width recurrentgemma-9b.
+            log("== serve full-width recurrentgemma-9b (38 layers, float32; "
+                "RG-LRU states, 2048-slot rings)")
+            t0 = time.perf_counter()
+            result["recurrentgemma"] = recurrent_phase(
+                "recurrentgemma-9b", 2304, RECURRENTGEMMA_LENGTHS, seed=8,
+                prefill_kernels=("matmul", "flash_attention", "rglru"),
+                decode_kernels=("matmul", "flash_decode", "rglru"),
+                profile=args.profile)
+            phase_done("recurrentgemma", t0)
+
             check("jax" not in sys.modules, "jax was imported")
             check(not any(m == "repro" or m.startswith("repro.")
                           for m in sys.modules), "the JAX package was imported")
             launches = {name: result["serve"]["launches"][name]
                         for name in SERVE_KERNELS}
-            launches.update({name: result["plans"]["launches"][name]
-                             for name in PLAN_KERNELS})
+            launches["bilinear"] = result["plans"]["launches"]["bilinear"]
+            launches["ssd"] = result["mamba2"]["launches"]["ssd"]
+            launches["rglru"] = result["recurrentgemma"]["launches"]["rglru"]
             line = kernels_line(rows, launches)
             result["kernels"] = line["kernels"]
         result["seconds"] = time.perf_counter() - t_start

@@ -3,6 +3,8 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-9b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-9b
     PYTHONPATH=src python -m repro_torch.launch.compile_plans \
         --measure analytic --archs qwen2-1.5b --dtypes float32 \
         --serve-buckets 16,32 --serve-smoke --serve-max-len 128 --out p.json
@@ -16,10 +18,12 @@ request, the throughput and the engine's metrics, whose plan-hit line
 counts where each kernel's tile came from. ``--tile-plans`` loads a plan
 artifact for ``--hardware`` (default ``h100_sxm``); ``--bucket-policy
 plan`` takes the bucket edges from its prefill cells, so every prefill
-resolves exactly. The windowed archs (gemma2-9b, h2o-danube-1.8b) keep ring
-caches on their local layers. It runs on ``cuda`` unless given ``--device
-cpu``; on the card the model's prefill and decode go through the Hopper
-kernels, each decode slot replaying its captured CUDA graph. The fleet,
+resolves exactly. The windowed archs (gemma2-9b, h2o-danube-1.8b,
+recurrentgemma-9b) keep ring caches on their local layers; mamba2-2.7b and
+recurrentgemma-9b carry their SSD and RG-LRU states per slot. It runs on
+``cuda`` unless given ``--device cpu``; on the card the model's prefill and
+decode go through the Hopper kernels, each decode slot replaying its
+captured CUDA graph. The fleet,
 chunked, packed and paged serving, plan refinement and tracing come with
 later slices.
 """

@@ -123,12 +123,16 @@ def tile_launches(kernel: str, tile, cfg: ArchConfig, dtype: str,
     """Whether ``kernel``'s wrapper launches ``tile`` at every call the
     model makes of it: the FF's ``(tokens, d_model, d_ff)`` and ``(tokens,
     d_ff, d_model)`` GEMMs (one tile for the three), the prefill attention
-    at the head dim, and the decode attention over each KV cache length in
-    ``cache_lens`` (``bkv`` clamped to it, as ``attn_decode`` clamps it).
-    Pure Python: it runs without a card."""
+    at the head dim, the decode attention over each KV cache length in
+    ``cache_lens`` (``bkv`` clamped to it, as ``attn_decode`` clamps it),
+    and the SSD and RG-LRU scans over a sequence of ``tokens`` steps (the
+    prompt, or 1 at decode; each wrapper clamps its tile to it). Pure
+    Python: it runs without a card."""
     from repro_torch.kernels.flash_attention import decode as fa_decode
     from repro_torch.kernels.flash_attention import flash_attention as fa
     from repro_torch.kernels.matmul import ops as mm_ops
+    from repro_torch.kernels.rglru import ops as rglru_ops
+    from repro_torch.kernels.ssd import ops as ssd_ops
 
     try:
         if kernel == "matmul":
@@ -141,6 +145,14 @@ def tile_launches(kernel: str, tile, cfg: ArchConfig, dtype: str,
             for s in cache_lens:
                 fa_decode.launch_bkv(tile[-1], s, cfg.head_dim_,
                                      cfg.gqa_ratio)
+        elif kernel == "ssd":
+            ssm = cfg.ssm
+            ssd_ops.launch_chunk(tile[0], dict(
+                s=tokens, h=ssm.n_heads(cfg.d_model), p=ssm.head_dim,
+                n=ssm.d_state), dtype)
+        elif kernel == "rglru":
+            rglru_ops.launch_tile(tile, dict(
+                s=tokens, f=cfg.recurrent.lru_width or cfg.d_model))
     except ValueError:
         return False
     return True

@@ -16,7 +16,6 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.tiling import TileShape
 from repro_torch.models import transformer as T
-from repro_torch.models.attention import reset_kv_cache
 
 # Resolved kernel tiles (kernel name -> TileShape), threaded from the
 # ServeEngine through forward() into the kernel call sites.
@@ -59,11 +58,12 @@ def prefill(params, cfg: ArchConfig, batch: Dict[str, Any], max_len: int,
             impl: str = "auto", caches: Optional[List[Any]] = None):
     """Returns (last-token logits [B, Vpad], serve_state).
 
-    ``caches`` (from :func:`make_serve_state`) are emptied and written in
-    place, so that a serving slot keeps the same tensors from one request
-    to the next; without them the prefill makes its own. The head runs on
-    the last position only: the reference computes every position's logits
-    and keeps the last, the same numbers.
+    ``caches`` (from :func:`make_serve_state`) are emptied (KV positions
+    reset, recurrent states zeroed) and written in place, so that a serving
+    slot keeps the same tensors from one request to the next; without them
+    the prefill makes its own. The head runs on the last position only: the
+    reference computes every position's logits and keeps the last, the same
+    numbers.
     """
     _check_family(cfg)
     tokens = _tokens(params, batch["tokens"])
@@ -71,8 +71,7 @@ def prefill(params, cfg: ArchConfig, batch: Dict[str, Any], max_len: int,
         caches = T.make_caches(cfg, tokens.shape[0], max_len, dtype,
                                ring_local=ring_local, device=tokens.device)
     else:
-        for cache in caches:
-            reset_kv_cache(cache)
+        T.reset_caches(caches)
     out = T.forward(params, cfg, tokens, caches=caches, logits_mode="last",
                     tiles=tiles, impl=impl)
     return out.logits[:, -1], out.caches

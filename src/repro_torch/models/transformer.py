@@ -6,8 +6,11 @@ parameter dict per layer (``params["layers"]``, in layer order) and runs the
 stack as a Python loop. :func:`decompose` is kept because the JAX parameter
 tree is laid out by it (``models/convert.py`` unstacks it).
 
-Only dense attention layers with the SwiGLU feed-forward are ported: MoE,
-RG-LRU and SSD mixers, encoders and patch embeddings come later.
+The mixers ported are attention (global and local), RG-LRU
+(``models/rglru.py``) and SSD (``models/ssm.py``), with the dense
+feed-forward or none; MoE, encoders and patch embeddings come later. Each
+layer keeps its own cache: a KV cache on an attention layer, the carried
+conv tails and recurrent state on an RG-LRU or SSD layer.
 """
 from __future__ import annotations
 
@@ -20,6 +23,8 @@ from repro_torch.configs.base import ArchConfig, LayerSpec
 from repro_torch.kernels.matmul.ops import mm
 from repro_torch.kernels.matmul.ref import matmul_ref
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import rglru as rglru_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (
     ParamDef, act_fn, init_tree, layer_norm, rms_norm, softcap,
 )
@@ -53,11 +58,14 @@ def _apply_norm(p, cfg: ArchConfig, x, name: str):
     return rms_norm(x, p[f"{name}_w"], cfg.norm_eps)
 
 
+_MIXERS = ("attn", "local_attn", "rglru", "ssd")
+
+
 def _check_ported(cfg: ArchConfig, spec: LayerSpec) -> None:
-    if spec.mixer not in ("attn", "local_attn") or spec.ff not in ("dense", None):
+    if spec.mixer not in _MIXERS or spec.ff not in ("dense", None):
         raise NotImplementedError(
-            f"{cfg.name}: layer {spec} is not ported yet (dense attention "
-            f"layers only)")
+            f"{cfg.name}: layer {spec} is not ported yet (attention, RG-LRU "
+            f"and SSD mixers with a dense feed-forward or none)")
     if cfg.encoder is not None:
         raise NotImplementedError(f"{cfg.name}: encoders are not ported yet")
 
@@ -66,7 +74,12 @@ def layer_defs(cfg: ArchConfig, spec: LayerSpec) -> Dict[str, Any]:
     _check_ported(cfg, spec)
     defs: Dict[str, Any] = {}
     defs.update(_norm_defs(cfg, "norm1"))
-    defs["attn"] = attn_mod.attn_defs(cfg)
+    if spec.mixer == "rglru":
+        defs["rglru"] = rglru_mod.rglru_defs(cfg)
+    elif spec.mixer == "ssd":
+        defs["ssm"] = ssm_mod.ssm_defs(cfg)
+    else:
+        defs["attn"] = attn_mod.attn_defs(cfg)
     if cfg.post_norms:
         defs.update(_norm_defs(cfg, "post1"))
     if spec.ff is not None:
@@ -149,20 +162,36 @@ def _dense_ff(p, cfg: ArchConfig, x, tile=None, impl: str = "auto"):
     return gemm(h, p["w2"].to(x.dtype)).reshape(b, s, -1)
 
 
+def _mixer(p, cfg: ArchConfig, spec: LayerSpec, x, positions, cache,
+           decode: bool, tiles, impl: str):
+    """The layer's sequence mixer (the reference's ``_mixer``): attention
+    with its KV cache, or an RG-LRU or SSD block with its carried state.
+    The recurrent blocks run prefill and decode alike (decode is S = 1)."""
+    if spec.mixer == "rglru":
+        return rglru_mod.rglru_forward(p["rglru"], cfg, x, state=cache,
+                                       tile=tiles.get("rglru"), impl=impl)
+    if spec.mixer == "ssd":
+        ssd_tile = tiles.get("ssd")
+        return ssm_mod.ssm_forward(p["ssm"], cfg, x, state=cache,
+                                   chunk=ssd_tile[0] if ssd_tile else 0,
+                                   impl=impl)
+    window = cfg.attn_window if spec.mixer == "local_attn" else None
+    if decode:
+        return attn_mod.attn_decode(
+            p["attn"], cfg, x, cache=cache, window=window,
+            tile=tiles.get("flash_decode"), impl=impl)
+    return attn_mod.attn_forward(
+        p["attn"], cfg, x, positions, window=window, cache=cache,
+        tile=tiles.get("flash_attention"), impl=impl)
+
+
 def layer_forward(p, cfg: ArchConfig, spec: LayerSpec, x, positions, cache,
                   decode: bool = False, tiles=None, impl: str = "auto"):
     """Returns (x_out, new_cache)."""
     tiles = tiles or {}
-    window = cfg.attn_window if spec.mixer == "local_attn" else None
     h = _apply_norm(p, cfg, x, "norm1")
-    if decode:
-        mix, new_cache = attn_mod.attn_decode(
-            p["attn"], cfg, h, cache=cache, window=window,
-            tile=tiles.get("flash_decode"), impl=impl)
-    else:
-        mix, new_cache = attn_mod.attn_forward(
-            p["attn"], cfg, h, positions, window=window, cache=cache,
-            tile=tiles.get("flash_attention"), impl=impl)
+    mix, new_cache = _mixer(p, cfg, spec, h, positions, cache, decode, tiles,
+                            impl)
     if cfg.post_norms:
         mix = _apply_norm(p, cfg, mix, "post1")
     ff_tile = tiles.get("matmul")
@@ -190,19 +219,44 @@ class StackOutputs:
     hidden: Optional[torch.Tensor] = None
 
 
+def _cache_for(cfg: ArchConfig, spec: LayerSpec, batch: int, max_len: int,
+               dtype, ring_local: bool, device):
+    _check_ported(cfg, spec)
+    if spec.mixer == "rglru":
+        return rglru_mod.make_rglru_state(cfg, batch, dtype, device=device)
+    if spec.mixer == "ssd":
+        return ssm_mod.make_ssm_state(cfg, batch, dtype, device=device)
+    ring = ring_local and spec.mixer == "local_attn"
+    length = min(max_len, cfg.attn_window) if ring else max_len
+    return attn_mod.make_kv_cache(cfg, batch, length, dtype, ring=ring,
+                                  device=device)
+
+
 def make_caches(cfg: ArchConfig, batch: int, max_len: int, dtype,
                 ring_local: bool = False, device=None) -> List[Any]:
-    """One KV cache per layer, in layer order: linear at ``max_len``, or
-    with ``ring_local`` a ring of ``min(max_len, attn_window)`` slots on
-    each ``local_attn`` layer (the reference's ``_cache_for``)."""
-    caches = []
-    for spec in cfg.layers():
-        _check_ported(cfg, spec)
-        ring = ring_local and spec.mixer == "local_attn"
-        length = min(max_len, cfg.attn_window) if ring else max_len
-        caches.append(attn_mod.make_kv_cache(cfg, batch, length, dtype,
-                                             ring=ring, device=device))
-    return caches
+    """One cache per layer, in layer order (the reference's ``_cache_for``):
+    on an attention layer a KV cache, linear at ``max_len`` or with
+    ``ring_local`` a ring of ``min(max_len, attn_window)`` slots on each
+    ``local_attn`` layer; on an RG-LRU or SSD layer its state, zeroed."""
+    return [_cache_for(cfg, spec, batch, max_len, dtype, ring_local, device)
+            for spec in cfg.layers()]
+
+
+def is_kv_cache(cache: Dict[str, Any]) -> bool:
+    return "k" in cache
+
+
+def reset_caches(caches: List[Any]) -> None:
+    """Empty every layer's cache in place for a new sequence, keeping its
+    tensors: a KV cache's position and slot map (``reset_kv_cache``), and a
+    recurrent state's conv tails and ``h`` zeroed, as a fresh
+    :func:`make_caches` holds them."""
+    for cache in caches:
+        if is_kv_cache(cache):
+            attn_mod.reset_kv_cache(cache)
+        else:
+            for t in cache.values():
+                t.zero_()
 
 
 def forward(

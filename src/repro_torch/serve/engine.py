@@ -6,14 +6,18 @@ The unchunked engine of ``repro/serve/engine.py``: a fixed decode batch of
 sampling over the real (unpadded) vocabulary. Admission is delegated to a
 scheduler (FIFO by default, or the shape-bucketed one).
 
-Each slot owns static tensors for its whole life: its KV caches (rings on
-the windowed layers of a windowed arch), a ``[1, 1]`` token buffer, and
-the step's logits and greedy token. Admission runs the prefill eagerly into
-the slot's caches. On the card, the decode step is the port's counterpart
-of the reference's ``jax.jit(api.decode_step)``: on a slot's first decode
-the engine runs one eager warm-up step (it loads the kernels' libraries and
-sets their attributes), puts the slot's caches back as the prefill left
-them, and captures the step, with its argmax, into a CUDA graph; every
+Each slot owns static tensors for its whole life: its per-layer caches (KV
+caches, rings on the windowed layers of a windowed arch; the conv tails
+and recurrent state of an RG-LRU or SSD layer), a ``[1, 1]`` token buffer,
+and the step's logits and greedy token. Admission runs the prefill eagerly
+into the slot's caches, from an empty KV cache and a zeroed state, and
+every step writes each state back into the same tensors. On the card, the
+decode step is the port's counterpart of the reference's
+``jax.jit(api.decode_step)``: on a slot's first decode the engine runs one
+eager warm-up step (it loads the kernels' libraries and sets their
+attributes), puts the slot's caches back as the prefill left them (the K/V
+row, position and slot map the step wrote, and every recurrent state
+whole), and captures the step, with its argmax, into a CUDA graph; every
 later step writes the last token into the token buffer and replays the
 graph. The slots' graphs share one memory pool, as they replay one after
 another. A capture or replay that fails raises: nothing falls back to the
@@ -63,6 +67,7 @@ from repro_torch.kernels import build
 from repro_torch.launch import specs
 from repro_torch.models import api
 from repro_torch.models import attention as attn_mod
+from repro_torch.models.transformer import is_kv_cache
 from repro_torch.serve.metrics import ServeMetrics
 from repro_torch.serve.scheduler import FifoScheduler
 
@@ -213,7 +218,10 @@ class ServeEngine:
         return tiles, sources, events
 
     def _cache_lens(self):
-        return sorted({int(c["k"].shape[2]) for c in self._slots[0].caches})
+        """The KV cache lengths of a slot (none for an attention-free arch:
+        recurrent states have no length)."""
+        return sorted({int(c["k"].shape[2]) for c in self._slots[0].caches
+                       if is_kv_cache(c)})
 
     def _resolve_tiles(self) -> None:
         """The decode kernels' tiles at the ``(slots, max_len)`` decode cell,
@@ -458,10 +466,14 @@ class ServeEngine:
 
 
 def _snapshot(caches):
-    """What one decode step changes in each cache: the position, the K/V
-    row it writes (at ``pos % length``) and a ring's slot map."""
+    """What one decode step changes in each cache: in a KV cache the
+    position, the K/V row it writes (at ``pos % length``) and a ring's slot
+    map; in a recurrent state all of it (conv tails and ``h``)."""
     saved = []
     for c in caches:
+        if not is_kv_cache(c):
+            saved.append({k: t.clone() for k, t in c.items()})
+            continue
         row = (c["pos"] % c["k"].shape[2]).to(torch.long).view(1)
         saved.append((c["pos"].clone(), row, c["k"].index_select(2, row),
                        c["v"].index_select(2, row),
@@ -470,7 +482,12 @@ def _snapshot(caches):
 
 
 def _restore(caches, saved) -> None:
-    for c, (pos, row, k, v, slot_pos) in zip(caches, saved):
+    for c, snap in zip(caches, saved):
+        if not is_kv_cache(c):
+            for k, t in snap.items():
+                c[k].copy_(t)
+            continue
+        pos, row, k, v, slot_pos = snap
         c["k"].index_copy_(2, row, k)
         c["v"].index_copy_(2, row, v)
         c["pos"].copy_(pos)

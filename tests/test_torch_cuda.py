@@ -750,3 +750,90 @@ def test_plan_tiles_that_do_not_launch_are_replaced_and_counted(dev):
     counts = eng.metrics.as_dict()["plan"]["by_phase"]
     assert counts["prefill"]["tile_fallback"] == replaced
     assert counts.get("decode", {}).get("tile_fallback", 0) == 0
+
+
+# ---------------------------------------------------------------------------
+# The recurrent mixers on a model's path
+# ---------------------------------------------------------------------------
+
+def _two_layers(arch):
+    """``arch`` at full width and its first 2 layers (two SSD layers of
+    mamba2-2.7b, two RG-LRU layers of recurrentgemma-9b)."""
+    import dataclasses
+
+    full = configs.get_arch(arch)
+    return dataclasses.replace(full, n_layers=2,
+                               layer_pattern=full.layer_pattern[:2]).validate()
+
+
+@pytest.mark.parametrize("arch,block", [("mamba2-2.7b", "ssm"),
+                                        ("recurrentgemma-9b", "rglru")])
+@pytest.mark.parametrize("s", [1, 64, 257, 600])
+def test_recurrent_blocks_at_full_width_vs_plain(dev, arch, block, s):
+    """``ssm_forward`` / ``rglru_forward`` through the kernels against the
+    plain versions (``impl="reference"``) over 2 full-width layers: a
+    prefill of ``s`` tokens, then 4 decode steps, each path carrying its
+    own states in place. Tolerance 1e-4 of max |plain| (at least 1): the
+    two scans sum in another order and the states carry it through."""
+    from repro_torch.models import rglru, ssm, transformer
+
+    cfg = _two_layers(arch)
+    params = api.init_params(cfg, 0, device=dev)
+    forward = ssm.ssm_forward if block == "ssm" else rglru.rglru_forward
+    states = {impl: transformer.make_caches(cfg, 1, 8, torch.float32,
+                                            device=dev)
+              for impl in ("auto", "reference")}
+    ptrs = [t.data_ptr() for c in states["auto"] for t in c.values()]
+    (x,) = _randn(dev, s, (1, s, cfg.d_model))
+    kernel = "ssd" if block == "ssm" else "rglru"
+    build.reset_launches()
+    with torch.inference_mode():
+        for step in range(5):
+            outs = {}
+            for impl, caches in states.items():
+                y = x
+                for layer, cache in zip(params["layers"], caches):
+                    y, _ = forward(layer[block], cfg, y, state=cache,
+                                   impl=impl)
+                outs[impl] = y
+            _close(outs["auto"], outs["reference"], 1e-4)
+            for got, want in zip(*states.values()):
+                for k in got:
+                    _close(got[k], want[k], 1e-4)
+            (x,) = _randn(dev, 100 + step, (1, 1, cfg.d_model))
+    assert build.LAUNCHES[kernel] == 2 * 5
+    assert [t.data_ptr() for c in states["auto"] for t in c.values()] == ptrs
+
+
+@pytest.mark.parametrize("arch,kernels", [
+    ("mamba2-2.7b", ("ssd",)),
+    ("recurrentgemma-9b", ("matmul", "flash_attention", "flash_decode",
+                           "rglru"))])
+def test_captured_recurrent_decode_gives_the_eager_loop_s_tokens(dev, arch,
+                                                                 kernels):
+    """The smoke configs through the captured engine, two slots and a third
+    request on a reused slot, 24 tokens each (recurrentgemma's 16-slot
+    rings wrap): the replayed graphs give an eager ``api.decode_step``
+    loop's tokens, and each kernel of the path ran."""
+    cfg = configs.get_smoke(arch)
+    params = api.init_params(cfg, 0, device="cuda")
+    prompts = [np.arange(3, 3 + n) % cfg.vocab_size for n in (9, 21, 5)]
+    new = 24
+    build.reset_launches()
+    eng = ServeEngine(cfg, params, max_len=64, slots=2, device="cuda")
+    for p in prompts:
+        eng.add_request(p, max_new_tokens=new)
+    done = sorted(eng.run_until_done(), key=lambda r: r.rid)
+    assert all(build.LAUNCHES[k] > 0 for k in kernels), build.LAUNCHES
+    assert all(eng._slots[i].graph is not None for i in range(2))
+    with torch.inference_mode():
+        for p, req in zip(prompts, done):
+            logits, st = api.prefill(params, cfg, {"tokens": p[None]},
+                                     max_len=64,
+                                     ring_local=bool(cfg.attn_window))
+            toks = [int(torch.argmax(logits[0, :cfg.vocab_size]))]
+            while len(toks) < new:
+                tok = torch.tensor([[toks[-1]]], device="cuda")
+                logits, st = api.decode_step(params, cfg, tok, st)
+                toks.append(int(torch.argmax(logits[0, :cfg.vocab_size])))
+            assert req.out_tokens == toks, req.rid

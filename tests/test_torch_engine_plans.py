@@ -20,7 +20,10 @@ beside the JAX engine with its own ``tpu_v5e`` plan of the same cells:
   --serve-buckets``;
 * with no card and no weights: every tile the engine would resolve for
   full-width qwen2-1.5b, h2o-danube-1.8b and gemma2-9b, at every prompt
-  length up to ``max_len``, is one the kernels launch.
+  length up to ``max_len``, is one the kernels launch; and for mamba2-2.7b
+  and recurrentgemma-9b, whose SSD and RG-LRU tiles are held against the
+  scans too (an SSD chunk above the kernel's longest, an RG-LRU block of
+  more than 1024 features: each replaced once, the tokens unchanged).
 """
 import ast
 import dataclasses
@@ -53,9 +56,14 @@ from repro_torch.core.tiling import TileShape  # noqa: E402
 from repro_torch.kernels.flash_attention import decode as fa_decode  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention as fa  # noqa: E402
 from repro_torch.kernels.matmul import ops as mm_ops  # noqa: E402
+from repro_torch.kernels.rglru import ops as rglru_ops  # noqa: E402
+from repro_torch.kernels.ssd import ops as ssd_ops  # noqa: E402
 from repro_torch.launch import compile_plans, specs  # noqa: E402
 from repro_torch.launch.compile_plans import serve_bucket_cells  # noqa: E402
+from repro_torch.models import api  # noqa: E402
 from repro_torch.models import attention as attn_mod  # noqa: E402
+from repro_torch.models import rglru as rglru_mod  # noqa: E402
+from repro_torch.models import ssm as ssm_mod  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
 from repro_torch.models.convert import params_from_jax  # noqa: E402
 from repro_torch.serve import (BucketPolicy, ServeEngine,  # noqa: E402
@@ -341,6 +349,66 @@ def test_a_non_dividing_decode_chunk_counts_once_per_engine(models):
     assert _by_phase(eng.metrics)["decode"]["tile_fallback"] == 1
 
 
+def _scan_case(kernel):
+    """(config, prompt length, a tile the scan's kernel would not launch):
+    an SSD chunk 44 steps over the kernel's longest on a 300-token mamba2
+    prompt, and an RG-LRU block of 1056 features on a recurrentgemma smoke
+    config whose LRU is 1056 wide (a block takes at most 1024)."""
+    if kernel == "ssd":
+        qmax = ssd_ops._layout()["QMAX"]
+        return configs.get_smoke("mamba2-2.7b"), 300, (qmax + 44,)
+    base = configs.get_smoke("recurrentgemma-9b")
+    cfg = dataclasses.replace(
+        base, recurrent=dataclasses.replace(base.recurrent, lru_width=1056))
+    return cfg, 24, (32, 1056)
+
+
+@pytest.mark.parametrize("kernel", ["ssd", "rglru"])
+def test_a_scan_tile_that_does_not_launch_is_replaced_once(kernel,
+                                                           monkeypatch):
+    cfg, length, bad_tile = _scan_case(kernel)
+    prob = specs.kernel_problems(cfg, 1, length, "prefill")[kernel]
+    assert not specs.tile_launches(kernel, bad_tile, cfg, "float32", length)
+    with pytest.raises(ValueError):
+        if kernel == "ssd":
+            ssd_ops.launch_chunk(bad_tile[0], prob, "float32")
+        else:
+            rglru_ops.launch_tile(bad_tile, prob)
+    bad = _with_tile(compile_plan([(kernel, prob, "float32", H100_SXM)]),
+                     kernel, prob, bad_tile)
+    seen = []
+    if kernel == "ssd":
+        real_ssd = ssm_mod.ssd
+
+        def spy(*args, chunk=None, **kw):
+            seen.append(chunk)
+            return real_ssd(*args, chunk=chunk, **kw)
+
+        monkeypatch.setattr(ssm_mod, "ssd", spy)
+    else:
+        real_rglru = rglru_mod.rglru
+
+        def spy(*args, tile=None, **kw):
+            seen.append(None if tile is None else tuple(tile))
+            return real_rglru(*args, tile=tile, **kw)
+
+        monkeypatch.setattr(rglru_mod, "rglru", spy)
+    params = api.init_params(cfg, 0, device="cpu")
+    prompt = _prompts(cfg, seed=7, lengths=(length,))
+
+    def engine(plans):
+        return ServeEngine(cfg, params, max_len=length + 8, slots=1,
+                           plans=plans, device="cpu")
+
+    eng = engine(bad)
+    got = _serve(eng, prompt)
+    default = registry.get(kernel).default_tile(prob, "float32")
+    assert eng._prefill_tiles[length][0][kernel] == default
+    assert _by_phase(eng.metrics)["prefill"]["tile_fallback"] == 1
+    assert bad_tile not in seen and seen
+    assert _serve(engine(None), prompt) == got
+
+
 # ---------------------------------------------------------------------------
 # set_plans
 # ---------------------------------------------------------------------------
@@ -445,6 +513,14 @@ def _launches(kernel, tile, cfg, dtype, tokens, cache_lens):
     elif kernel == "flash_decode":
         for s in cache_lens:
             fa_decode.launch_bkv(tile[0], s, cfg.head_dim_, cfg.gqa_ratio)
+    elif kernel == "ssd":
+        ssm = cfg.ssm
+        ssd_ops.launch_chunk(tile[0], dict(
+            s=tokens, h=ssm.n_heads(cfg.d_model), p=ssm.head_dim,
+            n=ssm.d_state), dtype)
+    elif kernel == "rglru":
+        rglru_ops.launch_tile(tile, dict(s=tokens,
+                                         f=cfg.recurrent.lru_width))
     else:
         raise AssertionError(kernel)
 
@@ -474,6 +550,39 @@ def test_every_tile_the_engine_resolves_at_full_width_launches(arch, dtype):
         tiles, _ = specs.launchable_tiles(tiles, cfg, 1, length, "prefill",
                                           dtype, tokens=length)
         assert set(tiles) == {"matmul", "flash_attention"}
+        for kernel, tile in tiles.items():
+            _launches(kernel, tile, cfg, dtype, length, ())
+    assert sources == {"exact", "nearest_shape"}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "recurrentgemma-9b"])
+def test_every_scan_tile_the_engine_resolves_at_full_width_launches(arch,
+                                                                    dtype):
+    """The two recurrent archs at full width: every tile the engine would
+    resolve, decode and every prefill length up to ``max_len``, the SSD and
+    RG-LRU tiles included, is one the kernels launch."""
+    cfg = configs.get_arch(arch)
+    scan = "ssd" if arch.startswith("mamba2") else "rglru"
+    sweep_plan = h100_plan(arch, SWEEP_EDGES, 4, SWEEP_MAX_LEN,
+                           dtypes=(dtype,), smoke=False)
+    cache_lens = ([min(SWEEP_MAX_LEN, cfg.attn_window)] if cfg.attn_window
+                  else [])
+    tiles, res = specs.resolve_model_tiles(
+        sweep_plan, cfg, 4, SWEEP_MAX_LEN, "decode", dtype, H100_SXM)
+    assert res[scan].source == "exact"
+    tiles, _ = specs.launchable_tiles(tiles, cfg, 4, SWEEP_MAX_LEN, "decode",
+                                      dtype, tokens=1, cache_lens=cache_lens)
+    for kernel, tile in tiles.items():
+        _launches(kernel, tile, cfg, dtype, 1, cache_lens)
+    sources = set()
+    for length in range(1, SWEEP_MAX_LEN + 1):
+        tiles, res = specs.resolve_model_tiles(
+            sweep_plan, cfg, 1, length, "prefill", dtype, H100_SXM)
+        sources |= {r.source for r in res.values()}
+        tiles, _ = specs.launchable_tiles(tiles, cfg, 1, length, "prefill",
+                                          dtype, tokens=length)
+        assert scan in tiles
         for kernel, tile in tiles.items():
             _launches(kernel, tile, cfg, dtype, length, ())
     assert sources == {"exact", "nearest_shape"}

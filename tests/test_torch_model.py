@@ -241,7 +241,6 @@ def test_decode_with_a_tile_takes_the_chunked_reference():
 
 
 def test_unported_families_raise():
-    for name in ("mamba2-2.7b", "recurrentgemma-9b", "deepseek-moe-16b",
-                 "whisper-large-v3"):
+    for name in ("deepseek-moe-16b", "whisper-large-v3"):
         with pytest.raises(NotImplementedError):
             api.init_params(configs.get_smoke(name), 0, device="cpu")

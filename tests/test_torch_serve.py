@@ -1,9 +1,11 @@
 """The port's ServeEngine against the JAX ServeEngine, on the CPU.
 
-The same prompts go through both engines (the qwen2 smoke config, and the
+The same prompts go through both engines (the qwen2 smoke config, the
 windowed gemma2 and h2o-danube smoke configs, whose local layers keep ring
-caches of 16 slots that the longer requests wrap; the JAX parameters
-converted through numpy). Tokens must be equal wherever the
+caches of 16 slots that the longer requests wrap, the attention-free
+mamba2 smoke config, whose SSD layers carry only a recurrent state, and the
+recurrentgemma one, RG-LRU layers beside local attention on 16-slot rings;
+the JAX parameters converted through numpy). Tokens must be equal wherever the
 reference's top-2 logit margin exceeds the tolerance (1e-4, float32: a
 random-init smoke model can tie); after the first token where the margin is
 within it, the two streams may rightly part. Admission and rejection
@@ -30,7 +32,8 @@ MARGIN_TOL = 1e-4
 TIMING_KEYS = ("ttft_s", "tpot_s")
 
 
-ARCHS = ["qwen2-1.5b", "gemma2-9b", "h2o-danube-1.8b"]
+ARCHS = ["qwen2-1.5b", "gemma2-9b", "h2o-danube-1.8b", "mamba2-2.7b",
+         "recurrentgemma-9b"]
 
 
 @pytest.fixture(scope="module", params=ARCHS)
@@ -162,7 +165,8 @@ def test_launcher_serves_on_cpu(capsys):
     assert "'matmul': 0" in out      # the plain versions ran, no kernel
 
 
-@pytest.mark.parametrize("arch", ["gemma2-9b", "h2o-danube-1.8b"])
+@pytest.mark.parametrize("arch", ["gemma2-9b", "h2o-danube-1.8b",
+                                  "recurrentgemma-9b"])
 def test_launcher_serves_the_windowed_archs_on_cpu(capsys, arch):
     """Ring caches of 16 slots at the default max_len: 20 new tokens wrap
     them."""
@@ -173,3 +177,14 @@ def test_launcher_serves_the_windowed_archs_on_cpu(capsys, arch):
     out = capsys.readouterr().out
     assert "3 requests (0 rejected), 60 tokens" in out
     assert "'flash_decode': 0" in out   # the plain versions ran, no kernel
+    assert "'rglru': 0" in out
+
+
+def test_launcher_serves_mamba2_on_cpu(capsys):
+    from repro_torch.launch import serve
+
+    serve.main(["--device", "cpu", "--arch", "mamba2-2.7b", "--requests", "3",
+                "--new-tokens", "20"])
+    out = capsys.readouterr().out
+    assert "3 requests (0 rejected), 60 tokens" in out
+    assert "'ssd': 0" in out
