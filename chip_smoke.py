@@ -84,7 +84,26 @@ Phases, each of which fails the run if it fails:
    its local layers keep 2048-slot rings: prompts of 2100 (wraps at
    prefill), 2040 (wraps while decoding), 64 and 500 tokens; matmul,
    flash_attention and rglru must launch in the prefills, matmul,
-   flash_decode and rglru in the replayed decode steps.
+   flash_decode and rglru in the replayed decode steps;
+12. chunked and packed serving at full width (float32, TF32 off): (a)
+   qwen2-1.5b at max_len 1280, 4 slots, bucket edges 64, 128 and 512 with
+   overflow, a step budget of 260 tokens: phase 4's prompts and a
+   1000-token one (600 and 1000 admitted at 1024 by chunking), served
+   chunked (2 prefill slots) and packed (3), every token held against the
+   plain versions on the padded prompt; flash_attention must launch at
+   q_offset > 0 and a packed step must hold two segments; chunks per
+   prefill, segments per packed step, launches, and one 256-token chunk's
+   device idle share; (b) a 16-token request behind a 1000-token one: its
+   time to first token unchunked, chunked and packed (recorded); (c) in
+   phase 6, h2o-danube-1.8b's 4200-token prompt in 512-token chunks across
+   its 4096-slot rings' wrap against the whole prefill and against the
+   same chunks on the plain versions (logits, ring K/V, slot maps), then 8
+   captured decode steps from each state give the same tokens; (d) in
+   phases 10 and 11, mamba2-2.7b (1000 tokens in chunks of 256) and
+   recurrentgemma-9b (2100 in chunks of 512) against their whole
+   prefills, logits and states. In (c) and (d) every chunk of every
+   attention layer must launch flash_attention, ring layers included. The launcher of phase 8 also serves
+   qwen2-1.5b with ``--chunk-prefill`` and ``--pack-prefill``.
 
 ``--profile`` adds, after phase 5, where the time of one full-width qwen2
 request goes (prefill, eager decode, captured decode): wall time, device
@@ -377,6 +396,55 @@ def kernel_checks(quick: bool):
             record("flash_attention", f"sq=skv={s} causal", dname, out, ref,
                    timing)
         if not quick:
+            # A chunk of the chunked prefill (phase 12): 256 queries at
+            # q_offset 512 over the 768 keys written so far, with the tile
+            # the chunk path launches.
+            from repro_torch.kernels.flash_attention.ops import (
+                chunk_launch_tile, CHUNKED_SPEC,
+            )
+
+            start, sq = IDLE_CHUNK
+            q = randn((1, HQ, sq, HEAD_DIM), dt)
+            k = randn((1, HKV, start + sq, HEAD_DIM), dt)
+            v = randn((1, HKV, start + sq, HEAD_DIM), dt)
+            prob = dict(sq=start + sq, skv=start + sq, d=HEAD_DIM, hq=12,
+                        hkv=HKV, window=0)
+            tile = chunk_launch_tile(CHUNKED_SPEC.default_tile(prob, dname),
+                                     sq, 12, HEAD_DIM, dt)
+            out = flash_attention(q, k, v, causal=True, q_offset=start,
+                                  tile=tile)
+            torch.cuda.synchronize()
+            ref = flash_attention_ref(q, k, v, causal=True, q_offset=start)
+            nb = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+            pairs = sq * start + sq * (sq + 1) // 2
+            t_b, by = bound(nb, 4.0 * HEAD_DIM * HQ * pairs, TC_RATE[dname])
+            copies = [(randn(q.shape, dt), randn(k.shape, dt),
+                       randn(v.shape, dt)) for _ in range(copies_for(nb))]
+            # SDPA takes the offset causal mask as a boolean mask.
+            mask = (torch.arange(start + sq, device=dev)[None, :]
+                    <= start + torch.arange(sq, device=dev)[:, None])
+
+            def sdpa(x, y, z):
+                return F.scaled_dot_product_attention(
+                    x, y, z, attn_mask=mask, enable_gqa=True)
+
+            record("flash_attention", f"chunk sq={sq} q_offset={start}",
+                   dname, out, ref, dict(
+                       ms=time_ms([lambda x=x, y=y, z=z: flash_attention(
+                           x, y, z, causal=True, q_offset=start, tile=tile)
+                           for x, y, z in copies]),
+                       plain_ms=time_ms([
+                           lambda x=x, y=y, z=z: flash_attention_ref(
+                               x, y, z, causal=True, q_offset=start)
+                           for x, y, z in copies]),
+                       library_ms=library_ms([
+                           lambda x=x, y=y, z=z: sdpa(x, y, z)
+                           for x, y, z in copies]),
+                       bound_ms=t_b, bound_by=by,
+                       shape=dict(b=1, hq=HQ, hkv=HKV, sq=sq,
+                                  skv=start + sq, q_offset=start,
+                                  d=HEAD_DIM, tile=list(tile),
+                                  regime=fa_regime(dt, HEAD_DIM))))
             s = 300
             q = randn((2, HQ, s, HEAD_DIM), dt)
             k = randn((2, HKV, s, HEAD_DIM), dt)
@@ -1559,9 +1627,37 @@ def serve_h2o_danube():
         f"{tops}; every token the plain versions' or within a top-2 margin "
         f"of {LOGIT_REL_TOL:g} x max |logit|")
     log(f"  launches: {launches}")
+    del eng
+    log("  == 12c: ring continuation across the wrap (chunks vs whole)")
+    cont = ring_continuation(cfg, params, max_len)
     return dict(requests=report, seconds=dt, launches=launches,
                 first_step_ms=step_ms[0], decode_step_ms=decode_ms,
+                chunked=cont,
                 peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+
+def ring_continuation(cfg, params, max_len: int, n: int = 4200,
+                      chunk: int = 512, steps: int = 8):
+    """Phase 12c: ``n`` tokens in ``chunk``-token chunks across the 4096-slot
+    rings' wrap against the whole prefill, then ``steps`` captured decode
+    steps from each state: the same tokens."""
+    t0 = time.perf_counter()
+    cs, ws, rep = chunked_vs_whole(cfg, params, n, chunk, max_len,
+                                   "h2o-danube", seed=13, plain=True)
+    (tc, lc), (tw, lw) = decode_from_states(
+        cfg, params, [(cs, rep["first_token"]),
+                      (ws, rep["whole_first_token"])], n, steps, max_len)
+    check(tc == tw, f"decode from the chunked state {tc} != from the whole "
+          f"prefill's {tw}")
+    err = max(_rel_err(a, b) for a, b in zip(lc, lw))
+    check(err <= LOGIT_REL_TOL, f"decode logits from the two states differ "
+          f"by {err:.3e} x max |logit|")
+    log(f"  {steps} captured decode steps from each state: the same tokens "
+        f"{tc}, logits within {err:.3e} x max |logit| "
+        f"({time.perf_counter() - t0:.1f} s)")
+    rep.update(decode_tokens=tc, decode_logit_rel_err=err,
+               seconds=time.perf_counter() - t0)
+    return rep
 
 
 def gemma2_reduced_depth():
@@ -1713,13 +1809,16 @@ def serve_recurrent(cfg, params, max_len: int, lengths, seed: int,
 
 
 def recurrent_phase(arch: str, max_len: int, lengths, seed: int,
-                    prefill_kernels, decode_kernels, profile: bool):
+                    prefill_kernels, decode_kernels, profile: bool,
+                    chunking=None):
     """Phases 10 and 11: ``arch`` at full width (float32, random weights
     from seed 0) served through the captured engine
     (:func:`serve_recurrent`), one request's logits held against the plain
     versions, prefill device ms at 600 tokens and at the longest prompt,
-    decode ms a step at 1 and 4 slots, and with ``profile`` where one
-    600-token request's time goes."""
+    decode ms a step at 1 and 4 slots, with ``chunking = (n, chunk)`` an
+    ``n``-token prompt prefilled in chunks against the whole prefill
+    (phase 12d), and with ``profile`` where one 600-token request's time
+    goes."""
     import torch
 
     from repro_torch import configs
@@ -1738,6 +1837,10 @@ def recurrent_phase(arch: str, max_len: int, lengths, seed: int,
     eng = out.pop("engine")
     out.update(layers=cfg.n_layers, params_b=n_params / 1e9)
     out["parity"] = full_width_parity(cfg, params, max_len=max_len)
+    if chunking is not None:
+        log(f"  == 12d: {label} prefill in chunks vs whole")
+        out["chunked"] = chunked_vs_whole(cfg, params, *chunking, max_len,
+                                          label, seed=14)[2]
     gen = torch.Generator(device="cuda").manual_seed(5)
     out["prefill"] = {}
     for n in (600, max(lengths)):
@@ -1864,6 +1967,347 @@ def profile_request(cfg, params, prompt_len: int = 600, steps: int = 8,
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: chunked and packed serving at full width
+# ---------------------------------------------------------------------------
+
+# Phase 12a: phase 4's prompts and a 1000-token one; 600 and 1000 are
+# admitted at 1024 (twice the top edge) by chunking. A step takes at most
+# 260 tokens, so a chunk at most 256 beside the 4-slot decode batch.
+CHUNK_EDGES = (64, 128, 512)
+CHUNK_LENGTHS = (16, 100, 257, 384, 511, 600, 1000)
+CHUNK_BUDGET, CHUNK_MAX_LEN = 260, 1280
+# The chunk whose time is profiled (start, tokens), and phase 12b's long
+# and short prompts.
+IDLE_CHUNK = (512, 256)
+LONG_SHORT = (1000, 16)
+
+
+def _q_offset_spy():
+    """Count the flash-attention launches the attention layers make on the
+    card, and those of them at q_offset > 0 (a chunk's continuation).
+    Returns (counts, restore)."""
+    from repro_torch.models import attention
+
+    real = attention.flash_attention
+    counts = {"launches": 0, "q_offset_gt_0": 0}
+
+    def spy(q, *args, q_offset=0, **kw):
+        if q.is_cuda:
+            counts["launches"] += 1
+            counts["q_offset_gt_0"] += q_offset > 0
+        return real(q, *args, q_offset=q_offset, **kw)
+
+    attention.flash_attention = spy
+
+    def restore():
+        attention.flash_attention = real
+
+    return counts, restore
+
+
+def _chunk_engine(cfg, params, mode: str, slots: int = 4):
+    import torch
+
+    from repro_torch.serve import (BucketPolicy, ServeEngine,
+                                   ShapeBucketScheduler)
+
+    policy = BucketPolicy(CHUNK_EDGES, allow_overflow=True)
+    return ServeEngine(
+        cfg, params, max_len=CHUNK_MAX_LEN, slots=slots, dtype=torch.float32,
+        scheduler=ShapeBucketScheduler(policy), device="cuda",
+        chunk_prefill=mode != "unchunked", pack_prefill=mode == "packed",
+        step_token_budget=CHUNK_BUDGET if mode != "unchunked" else 0,
+        prefill_slots=3 if mode == "packed" else 2)
+
+
+def chunked_serve(cfg, params, phase4_prompts):
+    """Phase 12a: full-width qwen2-1.5b served chunked, then packed: seven
+    requests (16-1000 tokens) on 4 slots, every token held against the
+    plain versions on the prompt as the scheduler padded it; the launches
+    by kernel, flash_attention's at q_offset > 0, chunks per prefill,
+    segments per packed step, and where one 256-token chunk's time goes."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import build
+    from repro_torch.models import api, transformer
+    from repro_torch.serve import ShapeBucketScheduler
+
+    rng = np.random.default_rng(0)
+    prompts = [np.asarray(p) for p in phase4_prompts]
+    prompts.append(rng.integers(2, cfg.vocab_size, size=CHUNK_LENGTHS[-1]))
+    check(tuple(len(p) for p in prompts) == CHUNK_LENGTHS,
+          f"prompt lengths {[len(p) for p in prompts]}")
+    new_tokens = 16
+    out = {}
+    for mode in ("chunked", "packed"):
+        eng = _chunk_engine(cfg, params, mode)
+        counts, restore = _q_offset_spy()
+        build.reset_launches()
+        t0 = time.perf_counter()
+        try:
+            rids = [eng.add_request(p, max_new_tokens=new_tokens)
+                    for p in prompts]
+            check(all(r is not None for r in rids),
+                  f"{mode}: requests rejected: {rids}")
+            segments, steps = [], 0
+            done = {}
+            while eng.in_flight() or eng.scheduler.pending():
+                done.update((r.rid, r) for r in eng.run_until_done(1))
+                segments.append(len(eng.last_step_stats["prefill_segments"]))
+                steps += 1
+            torch.cuda.synchronize()
+        finally:
+            restore()
+        dt = time.perf_counter() - t0
+        launches = dict(build.LAUNCHES)
+        check(sorted(done) == sorted(rids), f"{mode}: not every request "
+              "finished")
+        for name in SERVE_KERNELS:
+            check(launches[name] > 0, f"{mode}: {name} never launched")
+        check(counts["q_offset_gt_0"] > 0,
+              f"{mode}: no flash_attention launch at q_offset > 0")
+        m = eng.metrics.as_dict()["chunked_prefill"]
+        if mode == "packed":
+            check(max(segments) >= 2, f"packed: no step held two segments "
+                  f"({segments})")
+        policy = eng.scheduler.policy
+        sched = ShapeBucketScheduler(policy)
+        held, margins = {}, []
+        for rid, p in zip(rids, prompts):
+            req = done[rid]
+            padded = sched.prepare(types.SimpleNamespace(
+                prompt=np.asarray(p, np.int32), bucket=req.bucket))
+            key = (len(p), tuple(req.out_tokens))
+            if key not in held:
+                _, margin = hold_against_plain(
+                    params, cfg, padded, req.out_tokens, [], CHUNK_MAX_LEN,
+                    False, f"{mode} prompt {len(p)}")
+                held[key] = margin
+            margins.append(held[key])
+        rec = dict(seconds=dt, steps=steps, launches=launches,
+                   flash_attention_calls=counts["launches"],
+                   flash_attention_q_offset_gt_0=counts["q_offset_gt_0"],
+                   chunks_per_prefill=m["chunks_per_prefill"],
+                   packed_chunks_per_step=m.get("packed_chunks_per_step"),
+                   segments_per_step_max=max(segments),
+                   buckets=[done[r].bucket for r in rids],
+                   tokens=[done[r].out_tokens for r in rids],
+                   min_top2_margin=min(margins),
+                   cache_sets=eng.cache_sets_made,
+                   peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+        out[mode] = rec
+        log(f"  {mode}: {len(rids)} requests (buckets {rec['buckets']}), "
+            f"{len(rids) * new_tokens} tokens in {dt:.3f} s over {steps} "
+            f"steps; chunks/prefill {rec['chunks_per_prefill']}"
+            + (f", segments/packed step {rec['packed_chunks_per_step']}"
+               if mode == "packed" else "")
+            + f"; {eng.cache_sets_made} cache sets; every token the plain "
+            f"versions' or within a top-2 margin of {LOGIT_REL_TOL:g} x max "
+            f"|logit| (smallest margin {rec['min_top2_margin']:.3e})")
+        log(f"  {mode} launches: {launches}; flash_attention at q_offset > "
+            f"0: {counts['q_offset_gt_0']} of {counts['launches']}")
+
+    # One 256-token chunk at start 512: wall time on the host clock, device
+    # busy by kernel group, the device's idle share.
+    eng = _chunk_engine(cfg, params, "chunked")
+    start, chunk = IDLE_CHUNK
+    tiles = eng._chunk_plan(eng.scheduler.admit_length(start + chunk))[1]
+    toks = torch.as_tensor(rng.integers(2, cfg.vocab_size,
+                                        size=(1, start + chunk)),
+                           device="cuda")
+    state = api.make_serve_state(cfg, 1, CHUNK_MAX_LEN, torch.float32,
+                                 device="cuda")
+
+    def one_chunk():
+        with torch.inference_mode():
+            api.prefill_chunk(params, cfg, toks[:, start:], state, start,
+                              tiles=tiles)
+
+    with torch.inference_mode():
+        transformer.reset_caches(state)
+        api.prefill_chunk(params, cfg, toks[:, :start], state, 0,
+                          tiles=tiles)
+    one_chunk()
+    wall = statistics.median(per_step_ms(one_chunk, 1) for _ in range(5))
+    groups = {}
+    for name, ms in device_kernels(one_chunk, calls=3).items():
+        g = _kernel_group(name)
+        groups[g] = groups.get(g, 0.0) + ms
+    busy = sum(groups.values())
+    rec = out["idle_chunk"] = dict(
+        start=start, tokens=chunk, wall_ms=wall, device_busy_ms=busy,
+        idle_share=max(0.0, 1 - busy / wall), by_group_ms=groups,
+        tile=list(tiles["chunked_prefill"]))
+    by_group = ", ".join(f"{g} {t:.3f}" for g, t in sorted(
+        groups.items(), key=lambda kv: -kv[1]))
+    log(f"  one {chunk}-token chunk at start {start}: wall {wall:.3f} ms, "
+        f"device busy {busy:.3f} ms, idle {100 * rec['idle_share']:.1f}% "
+        f"({by_group})")
+    return out
+
+
+def short_behind_long(cfg, params, rounds: int = 3):
+    """Phase 12b: a 1000-token request, then a 16-token one, submitted in
+    the same step: each one's time to first token on the host clock (from
+    its submit to the engine's reading of its first token, which waits for
+    the device), unchunked, chunked and packed. Each mode's engine serves
+    one round first (tile resolution, the slots' graph captures), then
+    ``rounds`` more; the median is recorded, not gated."""
+    import numpy as np
+
+    rng = np.random.default_rng(12)
+    out = {}
+    for mode in ("unchunked", "chunked", "packed"):
+        eng = _chunk_engine(cfg, params, mode)
+        first = {}
+        record = eng.metrics.record_first_token
+
+        def stamp(rid, bucket, record=record):
+            first[rid] = time.perf_counter()
+            record(rid, bucket)
+
+        eng.metrics.record_first_token = stamp
+        runs = []
+        for _ in range(rounds + 1):
+            long_p, short_p = (rng.integers(2, cfg.vocab_size, size=n)
+                               for n in LONG_SHORT)
+            t0 = time.perf_counter()
+            rid_long = eng.add_request(long_p, max_new_tokens=4)
+            rid_short = eng.add_request(short_p, max_new_tokens=4)
+            eng.run_until_done()
+            runs.append(((first[rid_short] - t0) * 1e3,
+                         (first[rid_long] - t0) * 1e3))
+        short = statistics.median(r[0] for r in runs[1:])
+        long_ = statistics.median(r[1] for r in runs[1:])
+        out[mode] = dict(short_ttft_ms=short, long_ttft_ms=long_,
+                         runs_ms=runs[1:])
+        log(f"  {mode:9s}: the {LONG_SHORT[1]}-token request's TTFT "
+            f"{short:.1f} ms, the {LONG_SHORT[0]}-token one's {long_:.1f} ms"
+            f" (median of {rounds}, host clock)")
+    return out
+
+
+def _rel_err(a, b) -> float:
+    a, b = a.float(), b.float()
+    return float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
+
+
+def chunked_vs_whole(cfg, params, n: int, chunk: int, max_len: int,
+                     label: str, seed: int, plain: bool = False):
+    """Phase 12c-d: an ``n``-token prompt prefilled in ``chunk``-token
+    chunks (``api.prefill_chunk``) against the whole-prompt prefill through
+    the same kernels: last logits and every cache tensor within
+    LOGIT_REL_TOL of its max |value| (slot maps exact). Every chunk of
+    every attention layer must launch flash_attention (counted over the
+    chunks alone). With ``plain`` the chunks run once more on the plain
+    versions (a ring's chunk the positioned ``flash_prefill_chunk_ref``),
+    and the kernels' chunked state is held against that one too. Returns
+    the two kernel states, and the report."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import build
+    from repro_torch.models import api
+    from repro_torch.models.transformer import is_kv_cache
+
+    ring = bool(cfg.attn_window)
+    toks = np.random.default_rng(seed).integers(2, cfg.vocab_size,
+                                                size=(1, n))
+
+    def chunked(impl):
+        state = api.make_serve_state(cfg, 1, max_len, torch.float32,
+                                     device="cuda", ring_local=ring)
+        for start in range(0, n, chunk):
+            logits, _ = api.prefill_chunk(params, cfg,
+                                          toks[:, start:start + chunk], state,
+                                          start, impl=impl)
+        return logits, state
+
+    with torch.inference_mode():
+        whole, ws = api.prefill(params, cfg, {"tokens": toks},
+                                max_len=max_len, ring_local=ring)
+        build.reset_launches()
+        logits, cs = chunked("auto")
+        torch.cuda.synchronize()
+        launches = dict(build.LAUNCHES)
+        pl, ps = chunked("reference") if plain else (None, None)
+    chunks = -(-n // chunk)
+    attn_layers = sum(1 for c in cs if is_kv_cache(c))
+    check(launches["flash_attention"] == chunks * attn_layers,
+          f"{label}: {launches['flash_attention']} flash_attention launches "
+          f"over {chunks} chunks of {attn_layers} attention layers")
+    v = cfg.vocab_size
+
+    def held(a_logits, a_state, b_logits, b_state, against):
+        logit_err = _rel_err(a_logits[0, :v], b_logits[0, :v])
+        check(logit_err <= LOGIT_REL_TOL, f"{label}: chunked logits differ "
+              f"from {against} by {logit_err:.3e} x max |logit|")
+        state_err = 0.0
+        for li, (a, b) in enumerate(zip(a_state, b_state)):
+            for key in a:
+                if key == "slot_pos" or key == "pos":
+                    check(torch.equal(a[key], b[key]),
+                          f"{label} layer {li}: {key} differs from {against}")
+                    continue
+                x, y = a[key], b[key]
+                if key in ("k", "v") and "slot_pos" not in a:
+                    x, y = x[:, :, :n], y[:, :, :n]
+                err = _rel_err(x, y)
+                state_err = max(state_err, err)
+                check(err <= LOGIT_REL_TOL, f"{label} layer {li}: {key} "
+                      f"differs from {against} by {err:.3e} x max |value|")
+        return logit_err, state_err
+
+    logit_err, state_err = held(logits, cs, whole, ws, "the whole prefill")
+    log(f"  {label}: {n} tokens in {chunks} chunks of {chunk} against the "
+        f"whole prefill: logits within {logit_err:.3e}, states within "
+        f"{state_err:.3e} x max |value| (tol {LOGIT_REL_TOL:g}; positions "
+        f"and slot maps equal); flash_attention launched "
+        f"{launches['flash_attention']} times ({attn_layers} attention "
+        f"layers x {chunks} chunks)")
+    report = dict(prompt=n, chunk=chunk, chunks=chunks,
+                  logit_rel_err=logit_err, state_rel_err=state_err,
+                  flash_attention_launches=launches["flash_attention"],
+                  first_token=int(torch.argmax(logits[0, :v])),
+                  whole_first_token=int(torch.argmax(whole[0, :v])))
+    if plain:
+        p_logit, p_state = held(logits, cs, pl, ps, "the plain chunks")
+        log(f"  {label}: the same chunks on the plain versions: logits "
+            f"within {p_logit:.3e}, states within {p_state:.3e} x max "
+            f"|value|")
+        report.update(plain_logit_rel_err=p_logit, plain_state_rel_err=p_state)
+        del ps
+    return cs, ws, report
+
+
+def decode_from_states(cfg, params, states, n: int, steps: int, max_len):
+    """``steps`` captured decode steps of a one-slot engine from each of
+    ``states`` (moved into the slot as a chunked prefill's is): the token
+    lists, one per state."""
+    import torch
+
+    from repro_torch.serve import ServeEngine
+    from repro_torch.serve.engine import _move_state
+
+    eng = ServeEngine(cfg, params, max_len=max_len, slots=1,
+                      dtype=torch.float32, device="cuda")
+    slot, out = eng._slots[0], []
+    for st, first in states:
+        _move_state(st, slot.caches, n)
+        toks, logits = [first], []
+        with torch.inference_mode():
+            for _ in range(steps):
+                slot.token.fill_(toks[-1])
+                eng._step(slot)
+                toks.append(int(slot.next_token))
+                logits.append(slot.logits[0, :cfg.vocab_size].clone())
+        out.append((toks, logits))
+    check(slot.graph is not None, "the decode step was not captured")
+    return out
+
+
 # The launcher's archs (phase 8) and the kernels each one's serve runs.
 ATTN_KERNELS = ("matmul", "flash_attention", "flash_decode")
 LAUNCHER_KERNELS = {"qwen2-1.5b": ATTN_KERNELS, "gemma2-9b": ATTN_KERNELS,
@@ -1879,12 +2323,17 @@ def run_launcher():
     env = dict(os.environ)
     env["PYTHONPATH"] = str(SRC) + (os.pathsep + env["PYTHONPATH"]
                                     if env.get("PYTHONPATH") else "")
-    procs = {arch: subprocess.Popen(
+    runs = {arch: ["--arch", arch] for arch in LAUNCHER_KERNELS}
+    for mode in ("--chunk-prefill", "--pack-prefill"):
+        runs[f"qwen2-1.5b {mode}"] = [mode, "--step-token-budget", "40",
+                                      "--scheduler", "bucket"]
+    procs = {name: subprocess.Popen(
         [sys.executable, "-m", "repro_torch.launch.serve", "--device", "cuda",
-         "--arch", arch, "--requests", "4", "--new-tokens", "20"],
+         *args, "--requests", "4", "--new-tokens", "20"],
         cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-        text=True) for arch in LAUNCHER_KERNELS}
-    for arch, proc in procs.items():
+        text=True) for name, args in runs.items()}
+    for name, proc in procs.items():
+        arch = name.split()[0]
         try:
             stdout, stderr = proc.communicate(timeout=300)
         except subprocess.TimeoutExpired:
@@ -1892,14 +2341,17 @@ def run_launcher():
                 p.kill()
             raise
         tail = "\n".join(stdout.strip().splitlines()[-14:])
-        log(f"  --arch {arch}\n  " + tail.replace("\n", "\n  "))
+        log(f"  --arch {name}\n  " + tail.replace("\n", "\n  "))
         check(proc.returncode == 0,
               f"launcher ({arch}) exited {proc.returncode}: {stderr[-2000:]}")
         check("4 requests (0 rejected)" in stdout,
               f"launcher ({arch}) did not serve its 4 requests")
-        for name in LAUNCHER_KERNELS[arch]:
-            check(f"'{name}': 0" not in stdout,
-                  f"launcher ({arch}) never launched {name}")
+        for kernel in LAUNCHER_KERNELS[arch]:
+            check(f"'{kernel}': 0" not in stdout,
+                  f"launcher ({name}) never launched {kernel}")
+        if name != arch:
+            check("chunked prefill:" in stdout,
+                  f"launcher ({name}) printed no chunk metrics")
 
 
 # ---------------------------------------------------------------------------
@@ -2003,13 +2455,15 @@ def compile_timed(jobs):
     """Compile ``jobs`` with wall-clock timing on the card, keeping every
     tile each cell timed, in the order the sweep timed them (the cost
     model's best first). Checks that no cell was skipped and that every
-    h100_sxm cell was measured. Returns (plan, {plan key: [(tile, s)]},
-    seconds)."""
+    h100_sxm cell was measured, but for the serving cells
+    (``chunked_prefill``, ``packed_prefill``) that ``launch/measure.py``
+    scores by the cost model, which it names. Returns (plan, {plan key:
+    [(tile, s)]}, seconds)."""
     import torch
 
     from repro_torch.core import Autotuner, compile_plan
     from repro_torch.core.plans import plan_key
-    from repro_torch.launch.measure import make_measure_fn
+    from repro_torch.launch.measure import ANALYTIC_ONLY, make_measure_fn
 
     timed = {}
 
@@ -2035,8 +2489,14 @@ def compile_timed(jobs):
           f"{plan.meta['skipped_jobs']} plan cells skipped")
     check(len(plan) == len(jobs), f"{len(plan)} entries for {len(jobs)} jobs")
     unmeasured = [e.key for e in plan.entries()
-                  if e.hardware == "h100_sxm" and not e.measured]
+                  if e.hardware == "h100_sxm" and not e.measured
+                  and e.kernel not in ANALYTIC_ONLY]
     check(not unmeasured, f"h100_sxm cells not measured: {unmeasured}")
+    analytic = sorted(e.key for e in plan.entries()
+                      if e.kernel in ANALYTIC_ONLY)
+    if analytic:
+        log(f"  scored by the cost model (no timer for a serving step): "
+            f"{', '.join(analytic)}")
     return plan, timed, compile_s
 
 
@@ -2049,7 +2509,9 @@ def measured_cells(jobs, timed):
 
     cells = []
     for kernel, problem, dtype, hw in jobs:
-        rec = timed[plan_key(kernel, problem, dtype, hw.name)]
+        rec = timed.get(plan_key(kernel, problem, dtype, hw.name))
+        if rec is None:         # an analytic-only serving cell
+            continue
         model_best, model_s = rec[0]
         meas_best, meas_s = min(rec, key=lambda r: r[1])
         spread = max(t for _, t in rec) / meas_s
@@ -2231,9 +2693,20 @@ def main(argv=None) -> int:
             if args.profile:
                 log("== where the time of one full-width request goes")
                 result["profile"] = profile_request(cfg, params)
+            phase_done("parity", t0)
+
+            # 12a-b. Chunked and packed serving (12c-d ride phases 6, 10
+            # and 11, where their models are loaded).
+            log("== 12: chunked and packed serving, full-width qwen2-1.5b "
+                "(28 layers, float32)")
+            t0 = time.perf_counter()
+            result["chunked_serve"] = chunked_serve(
+                cfg, params, result["serve"]["prompts"])
+            log("== 12b: a 16-token request behind a 1000-token one")
+            result["short_behind_long"] = short_behind_long(cfg, params)
             del params
             torch.cuda.empty_cache()
-            phase_done("parity", t0)
+            phase_done("chunked", t0)
 
             # 6. Full-width h2o-danube-1.8b on ring caches.
             log("== serve full-width h2o-danube-1.8b (24 layers, float32, "
@@ -2273,7 +2746,7 @@ def main(argv=None) -> int:
             result["mamba2"] = recurrent_phase(
                 "mamba2-2.7b", 1024, MAMBA2_LENGTHS, seed=7,
                 prefill_kernels=("ssd",), decode_kernels=("ssd",),
-                profile=args.profile)
+                profile=args.profile, chunking=(1000, 256))
             phase_done("mamba2", t0)
 
             # 11. Full-width recurrentgemma-9b.
@@ -2284,7 +2757,7 @@ def main(argv=None) -> int:
                 "recurrentgemma-9b", 2304, RECURRENTGEMMA_LENGTHS, seed=8,
                 prefill_kernels=("matmul", "flash_attention", "rglru"),
                 decode_kernels=("matmul", "flash_decode", "rglru"),
-                profile=args.profile)
+                profile=args.profile, chunking=(2100, 512))
             phase_done("recurrentgemma", t0)
 
             check("jax" not in sys.modules, "jax was imported")

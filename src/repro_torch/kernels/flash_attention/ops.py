@@ -32,8 +32,37 @@ kernels do: every loaded KV block is computed in full (masked keys too, and
 the wgmma regime's zero columns up to whole 64-column panels), and the
 causal and window block skips leave blocks out.
 
-The chunked_prefill, packed_prefill and kv_page specs of the reference come
-with the chunked, packed and paged serving paths.
+``chunked_prefill`` (one chunk of a multi-step prefill over the live cache):
+    the reference's problem dims (one admitted prompt, ``sq = skv``) and
+    tile rank 2 = (chunk, bkv), so plans stay schema v3. On a TPU the chunk
+    is the resident query block and VMEM bounds it per hardware model. On
+    the H100 it is not resident: every chunk launches ``flash_attention`` at
+    its ``q_offset``, which tiles the chunk's queries into blocks of ``bq``
+    = 64 or 128 rows (:func:`chunk_launch_tile`, the default's rule at the
+    chunk's length). So shared memory bounds (bq, bkv) alone, and nothing
+    on the card bounds the chunk: a longer chunk only saves launches and
+    engine steps, so a cost model of them would always pick the longest,
+    and a chunk as long as the prompt splits nothing. The chunk is held at
+    the reference's default, min(512, sq), and the sweep ranks the bkv
+    values the regime compiles at the head dim, each scored as the
+    prompt's last chunk's launch with ``FLASH_SPEC``'s workload. The
+    engine's ``step_token_budget`` (chunk + decode batch) cuts the chunk
+    further when serving.
+``packed_prefill`` (the chunks of several requests in one step): the
+    reference's dims and tile (pack, bkv). A pack runs one
+    ``flash_attention`` launch per segment (its prefix plus its chunk, at
+    its ``q_offset``) and the projections, norms and FF once over the
+    pack, so the width, held at the reference's min(1024, 8 sq), sets how
+    many tokens share those, and the sweep ranks bkv as for a chunk,
+    scored as one segment's launch.
+
+A default tile's bkv of 512 is the reference's; where the regime does not
+compile it, the launch snaps it (:func:`chunk_launch_tile`) and the call
+site reports a ``fallback`` tile event, as the plain version's KV split
+does where a bkv does not divide the keys. The sweep never picks such a
+bkv.
+
+The kv_page spec of the reference comes with the paged serving path.
 """
 from __future__ import annotations
 
@@ -41,7 +70,9 @@ import math
 from typing import Mapping
 
 from repro_torch.core import registry
-from repro_torch.core.cost_model import BF16_TENSOR, TF32X3, TileWorkload
+from repro_torch.core.cost_model import (
+    BF16_TENSOR, TF32X3, TileWorkload,
+)
 from repro_torch.core.hardware import H100_SXM
 from repro_torch.core.tiling import (
     TileConstraints, TileShape, cdiv, dtype_bytes,
@@ -53,7 +84,6 @@ from repro_torch.kernels.flash_attention.flash_attention import flash_attention
 from repro_torch.kernels.flash_attention.ref import (
     attention_dense_ref, flash_attention_ref,
 )
-
 
 
 def _constraints(problem: Mapping[str, int]) -> TileConstraints:
@@ -73,11 +103,13 @@ def _vmem_bytes(tile: TileShape, problem: Mapping[str, int], dtype: str) -> floa
     return float(_flash.smem_bytes(bq, bkv, problem["d"], dtype))
 
 
-def _keys_loaded(sq: int, skv: int, bq: int, bkv: int, window: int) -> int:
-    """KV rows the kernel loads over all q-blocks of one head (causal)."""
+def _keys_loaded(sq: int, skv: int, bq: int, bkv: int, window: int,
+                 q_offset: int = 0) -> int:
+    """KV rows the kernel loads over all q-blocks of one head (causal, the
+    queries at ``q_offset ..``)."""
     total = 0
-    for q0 in range(0, sq, bq):
-        hi = min(skv, q0 + min(bq, sq - q0))
+    for q0 in range(q_offset, q_offset + sq, bq):
+        hi = min(skv, q0 + min(bq, q_offset + sq - q0))
         lo = max(0, q0 - window + 1) if window > 0 else 0
         total += (cdiv(hi, bkv) - lo // bkv) * bkv
     return total
@@ -87,7 +119,8 @@ def _workload(tile: TileShape, problem: Mapping[str, int], dtype: str) -> TileWo
     bq, bkv = _flash.launch_tile(tile, problem["d"], dtype)
     sq, d = problem["sq"], problem["d"]
     n_q = cdiv(sq, bq)
-    keys = _keys_loaded(sq, problem["skv"], bq, bkv, problem["window"]) / n_q
+    keys = _keys_loaded(sq, problem["skv"], bq, bkv, problem["window"],
+                        problem.get("q_offset", 0)) / n_q
     b = dtype_bytes(dtype)
     wgmma = _flash.regime(dtype, d) == "wgmma"
     d_math = _flash.panel_dim(d) if wgmma else d
@@ -219,5 +252,132 @@ DECODE_SPEC = registry.register(registry.KernelSpec(
 ))
 
 
-__all__ = ["DECODE_SPEC", "FLASH_SPEC", "attention_dense_ref", "flash_attention",
-           "flash_attention_ref", "flash_decode"]
+# ---------------------------------------------------------------------------
+# chunked_prefill: one chunk of a multi-step prefill over the live cache.
+# ---------------------------------------------------------------------------
+
+def chunk_bq(chunk: int, hq: int) -> int:
+    """The query rows a block of a ``chunk``-token launch takes first: 128
+    once 128-row blocks alone fill the card, else 64 (``FLASH_SPEC``'s
+    default rule at the chunk's length)."""
+    return 128 if cdiv(chunk, 128) * hq >= H100_SXM.num_sm else 64
+
+
+def chunk_launch_tile(tile, chunk: int, hq: int, d: int, dtype):
+    """The ``flash_attention`` tile a ``chunked_prefill`` or
+    ``packed_prefill`` tile ``(chunk | pack, bkv)`` launches for a chunk of
+    ``chunk`` queries: ``(chunk_bq, bkv)``, or the other bq where the
+    regime has only that one at this bkv. A bkv the regime does not compile
+    at head dim ``d`` snaps to the largest it compiles below it (else its
+    smallest), as the plain version's KV split snaps to a divisor
+    (``fit_bkv``); the caller tells a snapped launch by its bkv."""
+    legal = _flash.regime_tiles(dtype, d)
+    bkvs = sorted({b for _, b in legal})
+    bkv = max((b for b in bkvs if b <= int(tile[-1])), default=bkvs[0])
+    first = chunk_bq(chunk, hq)
+    return next((bq, bkv) for bq in (first,) + tuple(
+        b for b in _flash.BQS if b != first) if (bq, bkv) in legal)
+
+
+def _serve_constraints(rows: int, problem: Mapping[str, int]) -> TileConstraints:
+    # dim 0 = chunk (or pack) tokens, held at the reference's default: the
+    # H100 charges nothing for its length (module docstring); dim 1 = bkv,
+    # reaching the compiled values however short the prompt.
+    reach = max(_flash.BQS)
+    return TileConstraints(rank=2, max_dims=(rows, max(problem["skv"], reach)),
+                           lane_dim=1, sublane_dim=0, vmem_fraction=1.0,
+                           min_dims=(rows, 1))
+
+
+def _serve_vmem_bytes(tile: TileShape, problem: Mapping[str, int],
+                      dtype: str) -> float:
+    # A bkv that would snap at launch is not a candidate.
+    rows = min(int(tile[0]), problem["sq"])
+    try:
+        bq, bkv = chunk_launch_tile(tile, rows, problem["hq"], problem["d"],
+                                    dtype)
+    except ValueError:
+        return math.inf
+    if bkv != int(tile[1]):
+        return math.inf
+    return float(_flash.smem_bytes(bq, bkv, problem["d"], dtype))
+
+
+def _chunked_workload(tile: TileShape, problem: Mapping[str, int],
+                      dtype: str) -> TileWorkload:
+    # The prompt's last chunk: its queries over every key before them.
+    sq = problem["sq"]
+    chunk = min(int(tile[0]), sq)
+    launch = chunk_launch_tile(tile, chunk, problem["hq"], problem["d"], dtype)
+    return _workload(launch, dict(problem, sq=chunk, q_offset=sq - chunk),
+                     dtype)
+
+
+def _chunked_n_tiles(tile: TileShape, problem: Mapping[str, int]) -> int:
+    chunk = min(int(tile[0]), problem["sq"])
+    return problem["hq"] * cdiv(chunk, chunk_bq(chunk, problem["hq"]))
+
+
+def _chunked_default_tile(problem: Mapping[str, int], dtype: str) -> TileShape:
+    """The reference's: chunk min(512, sq), bkv min(512, skv), the bkv
+    snapped at launch where the regime does not compile it."""
+    return TileShape((min(512, problem["sq"]), min(512, problem["skv"])))
+
+
+CHUNKED_SPEC = registry.register(registry.KernelSpec(
+    name="chunked_prefill",
+    constraints=lambda problem: _serve_constraints(
+        min(512, problem["sq"]), problem),
+    vmem_bytes=_serve_vmem_bytes,
+    workload=_chunked_workload,
+    n_tiles=_chunked_n_tiles,
+    default_tile=_chunked_default_tile,
+))
+
+
+# ---------------------------------------------------------------------------
+# packed_prefill: several requests' chunks in one engine step.
+# ---------------------------------------------------------------------------
+
+# The reference's default round of sq-token segments a pack is sized for.
+PACK_ROUND_SEGS = 8
+
+
+def _packed_width(problem: Mapping[str, int]) -> int:
+    return min(1024, PACK_ROUND_SEGS * problem["sq"])
+
+
+def _packed_workload(tile: TileShape, problem: Mapping[str, int],
+                     dtype: str) -> TileWorkload:
+    # One segment's launch: its sq queries over its own keys.
+    launch = chunk_launch_tile(tile, problem["sq"], problem["hq"],
+                               problem["d"], dtype)
+    return _workload(launch, problem, dtype)
+
+
+def _packed_n_tiles(tile: TileShape, problem: Mapping[str, int]) -> int:
+    sq = problem["sq"]
+    return problem["hq"] * cdiv(sq, chunk_bq(sq, problem["hq"]))
+
+
+def _packed_default_tile(problem: Mapping[str, int], dtype: str) -> TileShape:
+    """The reference's: width min(1024, 8 sq), bkv min(512, skv), the bkv
+    snapped at launch where the regime does not compile it."""
+    return TileShape((_packed_width(problem), min(512, problem["skv"])))
+
+
+PACKED_SPEC = registry.register(registry.KernelSpec(
+    name="packed_prefill",
+    constraints=lambda problem: _serve_constraints(_packed_width(problem),
+                                                   problem),
+    vmem_bytes=_serve_vmem_bytes,
+    workload=_packed_workload,
+    n_tiles=_packed_n_tiles,
+    default_tile=_packed_default_tile,
+))
+
+
+__all__ = ["CHUNKED_SPEC", "DECODE_SPEC", "FLASH_SPEC", "PACKED_SPEC",
+           "PACK_ROUND_SEGS",
+           "attention_dense_ref", "chunk_bq", "chunk_launch_tile",
+           "flash_attention", "flash_attention_ref", "flash_decode"]

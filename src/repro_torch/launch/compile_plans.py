@@ -22,8 +22,11 @@ the measured best (:func:`print_report`, which reads any saved artifact).
 
 Which kernels a descriptor gets: the paper's gather kernel ``bilinear_cuda``
 only the modelled GPUs; every kernel the port runs only the H100. Cells of
-kernels the port has not ported yet (chunked_prefill, packed_prefill,
-kv_page) are left out, and named on stdout and in ``meta["unported_kernels"]``.
+kernels the port has not ported yet (kv_page) are left out, and named on
+stdout and in ``meta["unported_kernels"]``. The ``chunked_prefill`` and
+``packed_prefill`` cells (``--serve-buckets``) keep the cost model's score
+under ``--measure wallclock`` too: ``launch/measure.py`` has no timer for
+a serving step, as the reference's has none.
 """
 from __future__ import annotations
 

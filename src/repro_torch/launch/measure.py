@@ -15,7 +15,10 @@ Gating, with no fallback that hides the card or a kernel:
 * ``h100_sxm`` with a CUDA device: timed on the card;
 * a modelled descriptor (the paper's GTX260 and 8800GTS, which no machine
   here has): ``None``, so the cell is scored by the cost model;
-* ``h100_sxm`` without a CUDA device: ``RuntimeError``.
+* ``h100_sxm`` without a CUDA device: ``RuntimeError``;
+* a serving cell (``chunked_prefill``, ``packed_prefill``: a tile is a
+  step's chunk or pack width, not one launch's block): ``None``, scored by
+  the cost model, as the reference's ``launch/measure.py`` leaves it.
 
 ``make_cell_timer`` is the same path for callers that always need a number:
 the card's time on the H100, the cost model's score on a modelled target.
@@ -30,6 +33,9 @@ from repro_torch.core.hardware import MODELLED, HardwareModel
 from repro_torch.core.tiling import TileShape
 
 MeasureFn = Callable[[TileShape], float]
+
+# Serving cells the cost model scores on every descriptor.
+ANALYTIC_ONLY = ("chunked_prefill", "packed_prefill")
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -161,9 +167,9 @@ def make_measure_fn(
     iters: int = 5,
 ) -> Optional[MeasureFn]:
     """A tile -> seconds hook for one cell on the card, or None for a
-    modelled descriptor. Raises without a CUDA device, or for a kernel with
-    no operand builder."""
-    if hw.name in MODELLED:
+    modelled descriptor or a serving cell (``ANALYTIC_ONLY``). Raises
+    without a CUDA device, or for a kernel with no operand builder."""
+    if hw.name in MODELLED or kernel in ANALYTIC_ONLY:
         return None
     if not torch.cuda.is_available():
         raise RuntimeError(

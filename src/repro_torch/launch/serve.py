@@ -10,6 +10,10 @@
         --serve-buckets 16,32 --serve-smoke --serve-max-len 128 --out p.json
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
         --tile-plans p.json --scheduler bucket --bucket-policy plan
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --chunk-prefill --step-token-budget 40 --scheduler bucket
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --pack-prefill --step-token-budget 40 --scheduler bucket
 
 Mirrors the single-engine path of ``repro/launch/serve.py``: it serves
 ``configs.get_smoke(arch)`` with random parameters from a fixed seed, the
@@ -23,9 +27,12 @@ recurrentgemma-9b) keep ring caches on their local layers; mamba2-2.7b and
 recurrentgemma-9b carry their SSD and RG-LRU states per slot. It runs on
 ``cuda`` unless given ``--device cpu``; on the card the model's prefill and
 decode go through the Hopper kernels, each decode slot replaying its
-captured CUDA graph. The fleet,
-chunked, packed and paged serving, plan refinement and tracing come with
-later slices.
+captured CUDA graph. ``--chunk-prefill`` serves mixed steps (one prompt
+chunk beside the decode batch under ``--step-token-budget``, up to
+``--prefill-slots`` prefills in flight) and ``--pack-prefill`` packs
+several chunks a step; both admit a prompt longer than the largest bucket
+edge by chunking it, and print the chunk metrics. The fleet, paged
+serving, plan refinement and tracing come with later slices.
 """
 from __future__ import annotations
 
@@ -46,15 +53,18 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def build_policy(spec: str, plans, hardware_name: str,
-                 max_queue: int) -> BucketPolicy:
+                 max_queue: int, allow_overflow: bool = False) -> BucketPolicy:
     """The bucket policy: parsed edges, or with ``"plan"`` the edges of the
-    plan's prefill cells on ``hardware_name``."""
+    plan's prefill cells on ``hardware_name``; ``allow_overflow`` admits a
+    prompt past the largest edge (chunked serving)."""
     if spec == "plan":
         if plans is None:
             raise SystemExit("--bucket-policy plan requires --tile-plans")
         return BucketPolicy.from_plan(plans, hardware=hardware_name,
-                                      max_queue=max_queue)
-    return BucketPolicy.parse(spec, max_queue=max_queue)
+                                      max_queue=max_queue,
+                                      allow_overflow=allow_overflow)
+    return BucketPolicy.parse(spec, max_queue=max_queue,
+                              allow_overflow=allow_overflow)
 
 
 def main(argv=None):
@@ -82,6 +92,21 @@ def main(argv=None):
     ap.add_argument("--hardware", default="h100_sxm",
                     choices=sorted(HARDWARE_REGISTRY),
                     help="the hardware model the plan is resolved for")
+    ap.add_argument("--chunk-prefill", action="store_true",
+                    help="split prompts into plan-sized chunks and build "
+                         "mixed prefill/decode steps (admits over-length "
+                         "prompts via chunking)")
+    ap.add_argument("--step-token-budget", type=int, default=0,
+                    help="max tokens one mixed step may process (prefill "
+                         "chunk + decode batch); 0 = plan chunk unclamped")
+    ap.add_argument("--prefill-slots", type=int, default=2,
+                    help="concurrent partially-prefilled requests (chunked "
+                         "mode; lets short prompts overtake long ones)")
+    ap.add_argument("--pack-prefill", action="store_true",
+                    help="pack several prefill chunks (plus the decode "
+                         "batch) into each step under --step-token-budget "
+                         "and the plan's pack width (implies "
+                         "--chunk-prefill)")
     ap.add_argument("--metrics-json", action="store_true",
                     help="dump full metrics as JSON instead of the summary")
     args = ap.parse_args(argv)
@@ -92,12 +117,17 @@ def main(argv=None):
     plans = TilePlan.load_or_none(args.tile_plans)
     policy = None
     if args.scheduler == "bucket":
-        policy = build_policy(args.bucket_policy, plans, args.hardware,
-                              args.max_queue)
+        policy = build_policy(
+            args.bucket_policy, plans, args.hardware, args.max_queue,
+            allow_overflow=args.chunk_prefill or args.pack_prefill)
     engine = ServeEngine(cfg, params, max_len=args.max_len, slots=args.slots,
                          dtype=dtype, plans=plans,
                          hardware=HARDWARE_REGISTRY[args.hardware],
                          scheduler=make_scheduler(args.scheduler, policy),
+                         chunk_prefill=args.chunk_prefill,
+                         step_token_budget=args.step_token_budget,
+                         prefill_slots=args.prefill_slots,
+                         pack_prefill=args.pack_prefill,
                          device=args.device)
 
     build.reset_launches()

@@ -90,9 +90,10 @@ def resolve_model_tiles(plans, cfg: ArchConfig, batch: int, seq_len: int,
     (or any cell with ``plans=None``) takes the kernel's Hopper default.
     ``dtype`` is the name (``"float32"``, ``"bfloat16"``), as plan keys
     hold it. Returns ``(tiles, resolutions)``: kernel name -> TileShape, and
-    kernel name -> PlanResolution for the cells the plan satisfied. Kernels
-    the port has no spec for yet (kv_page, chunked_prefill, packed_prefill)
-    are left out.
+    kernel name -> PlanResolution for the cells the plan satisfied. A
+    ``chunked_prefill`` or ``packed_prefill`` cell (``kind`` of that name)
+    resolves like any other; kernels the port has no spec for yet
+    (kv_page) are left out.
     """
     from repro_torch import kernels
 

@@ -1,7 +1,8 @@
 """Model API of the port (``repro/models/api.py``): decoder-only LMs.
 
 Serve state is the per-layer cache list from :func:`make_serve_state`,
-consumed by :func:`prefill` / :func:`decode_step`. Functions that create
+consumed by :func:`prefill` / :func:`prefill_chunk` / :func:`prefill_packed`
+/ :func:`decode_step`. Functions that create
 tensors take ``device`` and run on ``cuda`` unless given ``device="cpu"``;
 the others run where the parameters live.
 """
@@ -89,3 +90,40 @@ def decode_step(params, cfg: ArchConfig, token, state, tiles: Tiles = None,
     out = T.forward(params, cfg, _tokens(params, token), caches=state,
                     decode=True, tiles=tiles, impl=impl)
     return out.logits[:, 0], out.caches
+
+
+def prefill_chunk(params, cfg: ArchConfig, tokens, state, start: int,
+                  tiles: Tiles = None, impl: str = "auto"):
+    """One chunk of a multi-step (chunked) prefill.
+
+    ``tokens`` [B, c] sit at absolute positions ``start .. start+c-1``;
+    ``state`` is the serve state the earlier chunks wrote, continued in
+    place. Unlike :func:`prefill` nothing is reset: the caller empties the
+    state before a request's first chunk (``transformer.reset_caches``).
+    Running every chunk through this entry reproduces :func:`prefill`
+    position by position. Returns (last-position logits [B, Vpad], state).
+    """
+    if cfg.encoder is not None:
+        raise NotImplementedError(
+            "chunked prefill is not supported for encoder-decoder models")
+    out = T.forward(params, cfg, _tokens(params, tokens), caches=state,
+                    start_pos=start, chunked=True, logits_mode="last",
+                    tiles=tiles, impl=impl)
+    return out.logits[:, -1], out.caches
+
+
+def prefill_packed(params, cfg: ArchConfig, tokens, states, layout,
+                   tiles: Tiles = None, impl: str = "auto"):
+    """One packed step of several requests' chunked prefills.
+
+    ``tokens`` [1, S_packed] concatenates one chunk per request, ``layout``
+    the per-segment ``(start, len)`` pairs, ``states`` the matching serve
+    states (continued in place). Each state advances as it would through
+    :func:`prefill_chunk` alone. Returns (per-segment last-position logits
+    [N, Vpad], states).
+    """
+    if cfg.encoder is not None:
+        raise NotImplementedError(
+            "packed prefill is not supported for encoder-decoder models")
+    return T.forward_packed(params, cfg, _tokens(params, tokens), states,
+                            tuple(layout), tiles=tiles, impl=impl)

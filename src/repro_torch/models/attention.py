@@ -20,8 +20,23 @@ a fixed sequence of launches over fixed tensors, which the serving engine
 captures into a CUDA graph and replays; calling ``attn_decode`` twice on one
 cache decodes two consecutive positions.
 
-Chunked and packed prefill, paged and sequence-sharded decode come in later
-slices.
+Chunked prefill (:func:`attn_prefill_chunk`) continues a prompt over the
+cache its earlier chunks wrote. On the card it always launches the
+flash-attention kernel over the chunk's visible keys in position order and
+the chunk, at the chunk's ``q_offset`` (the reference gates its Pallas
+kernel on the tile dividing the chunk; the port's kernel masks ragged
+blocks, so it needs no gate). A linear cache's written prefix is positions
+0 .. start-1; a ring's slots hold the same until it wraps, and after it,
+positions start-W .. start-1 at slot ``p % W``, in order once rotated by
+``start % W`` (:func:`_chunk_keys`). On the CPU a chunk runs the plain
+versions the reference runs there: ``flash_attention_ref`` on a linear
+cache, the positioned ``flash_prefill_chunk_ref`` on a ring
+(``kernels/flash_attention/chunked.py``). Packed prefill
+(:func:`attn_prefill_packed`) projects several requests' chunks once; on
+the card each segment launches the kernel over its own keys and chunk (one
+launch a segment, the math of a chunk), and the CPU runs the reference's
+one segment-masked plain call. Paged and sequence-sharded attention come
+in later slices.
 """
 from __future__ import annotations
 
@@ -31,10 +46,14 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels.flash_attention.chunked import (
+    flash_prefill_chunk_ref, flash_prefill_packed_ref,
+)
 from repro_torch.kernels.flash_attention.decode import flash_decode, flash_decode_ref
 from repro_torch.kernels.flash_attention.flash_attention import (
     flash_attention, launch_tile,
 )
+from repro_torch.kernels.flash_attention.ops import chunk_launch_tile
 from repro_torch.kernels.flash_attention.ref import (
     NEG_INF, fit_bkv, flash_attention_ref,
 )
@@ -218,6 +237,214 @@ def attn_forward(
         else:
             new_cache = _linear_write(cache, k, v, 0, s)
     return y, new_cache
+
+
+def _ref_bkv(kernel: str, tile, skv: int) -> int:
+    """The plain version's KV split: the tile's bkv (clamped to Skv), or
+    512; a tile whose split snaps to another divisor of Skv is a
+    ``fallback`` event, as in the reference."""
+    if tile is None:
+        return 512
+    requested = min(int(tile[-1]), skv)
+    effective = fit_bkv(requested, skv)
+    _emit_tile_event(kernel=kernel, phase="prefill", impl="reference",
+                     tile=tuple(tile), effective=effective,
+                     fallback=effective != requested)
+    return requested
+
+
+def _kernel_tile(kernel: str, tile, cfg: ArchConfig, rows: int, d: int,
+                 dtype):
+    """The flash-attention tile a ``chunked_prefill`` / ``packed_prefill``
+    tile launches for ``rows`` queries (``chunk_launch_tile``), or None
+    (the kernel's default) without a tile; a bkv the regime does not
+    compile snaps, a ``fallback`` event."""
+    if tile is None:
+        return None
+    launch = chunk_launch_tile(tile, rows, max(cfg.n_heads, 1), d, dtype)
+    _emit_tile_event(kernel=kernel, phase="prefill", impl="kernel",
+                     tile=tuple(tile), effective=launch,
+                     fallback=launch[1] != int(tile[-1]))
+    return launch
+
+
+def _chunk_keys(cache, k, v, start: int):
+    """``(k_all, v_all, q_offset)``: the keys a chunk at ``start`` sees, in
+    position order, then its own, contiguous as the kernel takes them.
+    A linear cache, and a ring before it wraps (``start <= W``), hold
+    positions 0 .. start-1 at slots 0 .. start-1. A wrapped ring holds
+    positions start-W .. start-1 at slot ``p % W``: rotated by ``start %
+    W`` they are in order, and the chunk's queries sit W keys in."""
+    w = cache["k"].shape[2]
+    if not start:
+        return k.contiguous(), v.contiguous(), 0
+    if "slot_pos" not in cache or start <= w:
+        parts, q_offset = (slice(0, start),), start
+    else:
+        cut = start % w
+        parts, q_offset = (slice(cut, w), slice(0, cut)), w
+    k_all = torch.cat([cache["k"][:, :, sl].to(k.dtype) for sl in parts]
+                      + [k], dim=2)
+    v_all = torch.cat([cache["v"][:, :, sl].to(v.dtype) for sl in parts]
+                      + [v], dim=2)
+    return k_all, v_all, q_offset
+
+
+def attn_prefill_chunk(
+    p, cfg: ArchConfig, x, positions, *,
+    cache: Dict[str, Any],
+    start: int,
+    window: Optional[int] = None,
+    impl: str = "auto",
+    tile=None,
+) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """Continuation prefill of one prompt chunk over the live KV cache.
+
+    ``x`` [B, c, D] holds the chunk's tokens at absolute positions
+    ``start .. start+c-1`` (``positions``). The chunk attends causally over
+    the K/V that chunks 0..N-1 wrote plus its own — the whole-prompt
+    :func:`attn_forward` restricted to these query rows — and writes its
+    K/V into the cache in place.
+
+    ``tile`` is the resolved ``chunked_prefill`` tile ``(chunk, bkv)``.
+    ``impl`` "auto" launches ``flash_attention`` on CUDA tensors over
+    :func:`_chunk_keys` (``bkv`` from the tile, ``bq`` by
+    :func:`~repro_torch.kernels.flash_attention.ops.chunk_launch_tile`)
+    and runs the reference's plain version on CPU tensors: a linear cache
+    ``flash_attention_ref``, a ring ``flash_prefill_chunk_ref`` over its
+    slots and the chunk with ``slot_pos`` as ``kv_pos``. "kernel" /
+    "reference" force one (on CPU tensors "kernel" runs the wrapper's
+    plain version over the same keys).
+    """
+    c = x.shape[1]
+    q, k, v = _project_qkv(p, cfg, x, positions)
+    scale = cfg.query_scale or cfg.head_dim_ ** -0.5
+    softcap = cfg.attn_softcap or None
+    ring = "slot_pos" in cache
+
+    if impl == "auto":
+        impl = "kernel" if x.is_cuda else "reference"
+    if impl == "kernel":
+        k_all, v_all, q_offset = _chunk_keys(cache, k, v, start)
+        launch = _kernel_tile("chunked_prefill", tile, cfg, c, q.shape[-1],
+                              q.dtype)
+        out = flash_attention(q, k_all, v_all, causal=True, window=window,
+                              softcap=softcap, scale=scale,
+                              q_offset=q_offset, tile=launch)
+    elif impl == "reference" and ring:
+        k_all = torch.cat([cache["k"].to(k.dtype), k], dim=2)
+        v_all = torch.cat([cache["v"].to(v.dtype), v], dim=2)
+        kv_pos = torch.cat([cache["slot_pos"].to(positions.dtype),
+                            positions[0]])
+        bkv = _ref_bkv("chunked_prefill", tile, k_all.shape[2])
+        out = flash_prefill_chunk_ref(
+            q, k_all, v_all, q_pos=positions[0], kv_pos=kv_pos,
+            window=window, softcap=softcap, scale=scale, bkv=bkv)
+    elif impl == "reference":
+        k_all, v_all, _ = _chunk_keys(cache, k, v, start)
+        bkv = _ref_bkv("chunked_prefill", tile, start + c)
+        out = flash_attention_ref(q, k_all, v_all, causal=True, window=window,
+                                  softcap=softcap, scale=scale,
+                                  q_offset=start, chunk=bkv)
+    else:
+        raise ValueError(f"unknown attention impl {impl!r}")
+    if ring:
+        _ring_write(cache, k, v, positions[0], start + c)
+    else:
+        _linear_write(cache, k, v, start, start + c)
+    return _out_proj(p, cfg, out, x.dtype), cache
+
+
+def attn_prefill_packed(
+    p, cfg: ArchConfig, x, positions, *,
+    caches,
+    layout,
+    window: Optional[int] = None,
+    impl: str = "auto",
+    tile=None,
+):
+    """Packed continuation prefill: N requests' chunks, one projection.
+
+    ``x`` [1, S_packed, D] concatenates the chunks of N requests;
+    ``layout`` the per-segment ``(start, len)`` pairs and ``positions``
+    [1, S_packed] each token's position within its own request; ``caches``
+    the matching per-request layer caches (batch 1). Each segment attends
+    over its own cache's keys and chunk, never another segment's, so per
+    request the math is :func:`attn_prefill_chunk`'s.
+
+    ``tile`` is the resolved ``packed_prefill`` tile ``(pack, bkv)``. On
+    CUDA tensors ("auto" or "kernel") each segment launches
+    ``flash_attention`` over :func:`_chunk_keys`, linear and ring caches
+    alike; CPU tensors and "reference" run the reference's one
+    segment-masked plain call (``flash_prefill_packed_ref``). Returns
+    ``(y [1, S_packed, D], caches)``, each cache written in place.
+    """
+    b, s_packed, _ = x.shape
+    assert b == 1, "packed prefill packs segments, not batch rows"
+    assert len(caches) == len(layout) and layout, (len(caches), len(layout))
+    q, k, v = _project_qkv(p, cfg, x, positions)
+    scale = cfg.query_scale or cfg.head_dim_ ** -0.5
+    softcap = cfg.attn_softcap or None
+    ring = "slot_pos" in caches[0]
+    offs = [0]
+    for _, ln in layout:
+        offs.append(offs[-1] + ln)
+    assert offs[-1] == s_packed, (offs, s_packed)
+    segs = [slice(offs[i], offs[i + 1]) for i in range(len(layout))]
+
+    if impl == "auto":
+        impl = "kernel" if x.is_cuda else "reference"
+    if impl == "kernel":
+        outs = []
+        for (start, ln), cache, sl in zip(layout, caches, segs):
+            k_all, v_all, q_offset = _chunk_keys(cache, k[:, :, sl],
+                                                 v[:, :, sl], start)
+            launch = _kernel_tile("packed_prefill", tile, cfg, ln,
+                                  q.shape[-1], q.dtype)
+            outs.append(flash_attention(
+                q[:, :, sl].contiguous(), k_all, v_all, causal=True,
+                window=window, softcap=softcap, scale=scale,
+                q_offset=q_offset, tile=launch))
+        out = torch.cat(outs, dim=2)
+    elif impl == "reference":
+        k_parts, v_parts, kvp_parts, kvs_parts = [], [], [], []
+        for i, ((start, ln), cache, sl) in enumerate(zip(layout, caches,
+                                                         segs)):
+            seg_pos = positions[0, sl]
+            if ring:
+                k_parts += [cache["k"].to(k.dtype), k[:, :, sl]]
+                v_parts += [cache["v"].to(v.dtype), v[:, :, sl]]
+                kvp_parts += [cache["slot_pos"].to(seg_pos.dtype), seg_pos]
+                prefix = cache["k"].shape[2]
+            else:
+                k_parts += [cache["k"][:, :, :start].to(k.dtype),
+                            k[:, :, sl]]
+                v_parts += [cache["v"][:, :, :start].to(v.dtype),
+                            v[:, :, sl]]
+                kvp_parts += [torch.arange(start, device=x.device), seg_pos]
+                prefix = start
+            kvs_parts.append(torch.full((prefix + ln,), i, dtype=torch.long,
+                                        device=x.device))
+        k_all = torch.cat(k_parts, dim=2)
+        v_all = torch.cat(v_parts, dim=2)
+        q_seg = torch.cat([torch.full((ln,), i, dtype=torch.long,
+                                      device=x.device)
+                           for i, (_, ln) in enumerate(layout)])
+        bkv = _ref_bkv("packed_prefill", tile, k_all.shape[2])
+        out = flash_prefill_packed_ref(
+            q, k_all, v_all, q_pos=positions[0], q_seg=q_seg,
+            kv_pos=torch.cat(kvp_parts), kv_seg=torch.cat(kvs_parts),
+            window=window, softcap=softcap, scale=scale, bkv=bkv)
+    else:
+        raise ValueError(f"unknown attention impl {impl!r}")
+
+    for (start, ln), cache, sl in zip(layout, caches, segs):
+        if ring:
+            _ring_write(cache, k[:, :, sl], v[:, :, sl], positions[0, sl],
+                        start + ln)
+        else:
+            _linear_write(cache, k[:, :, sl], v[:, :, sl], start, start + ln)
+    return _out_proj(p, cfg, out, x.dtype), tuple(caches)
 
 
 def attn_decode(

@@ -11,6 +11,13 @@ The mixers ported are attention (global and local), RG-LRU
 feed-forward or none; MoE, encoders and patch embeddings come later. Each
 layer keeps its own cache: a KV cache on an attention layer, the carried
 conv tails and recurrent state on an RG-LRU or SSD layer.
+
+``forward(chunked=True)`` runs one chunk of a multi-step prefill from
+``start_pos``: attention continues over the cache (``attn_prefill_chunk``)
+and the recurrent layers from their carried state, which is what they do
+anyway. :func:`forward_packed` runs the chunks of several requests as one
+sequence through the embedding, norms and FF, each attention and recurrent
+layer per request's state.
 """
 from __future__ import annotations
 
@@ -163,10 +170,17 @@ def _dense_ff(p, cfg: ArchConfig, x, tile=None, impl: str = "auto"):
 
 
 def _mixer(p, cfg: ArchConfig, spec: LayerSpec, x, positions, cache,
-           decode: bool, tiles, impl: str):
+           decode: bool, tiles, impl: str, chunk_start=None,
+           pack_layout=None):
     """The layer's sequence mixer (the reference's ``_mixer``): attention
     with its KV cache, or an RG-LRU or SSD block with its carried state.
-    The recurrent blocks run prefill and decode alike (decode is S = 1)."""
+    The recurrent blocks run prefill, a chunk's continuation and decode
+    alike (decode is S = 1). ``chunk_start`` makes an attention layer's
+    prefill a chunk's continuation; ``pack_layout`` runs a packed step
+    (``cache`` is then one cache per segment)."""
+    if pack_layout is not None:
+        return _mixer_packed(p, cfg, spec, x, positions, cache, tiles,
+                             pack_layout, impl)
     if spec.mixer == "rglru":
         return rglru_mod.rglru_forward(p["rglru"], cfg, x, state=cache,
                                        tile=tiles.get("rglru"), impl=impl)
@@ -180,18 +194,45 @@ def _mixer(p, cfg: ArchConfig, spec: LayerSpec, x, positions, cache,
         return attn_mod.attn_decode(
             p["attn"], cfg, x, cache=cache, window=window,
             tile=tiles.get("flash_decode"), impl=impl)
+    if chunk_start is not None:
+        return attn_mod.attn_prefill_chunk(
+            p["attn"], cfg, x, positions, cache=cache, start=chunk_start,
+            window=window, tile=tiles.get("chunked_prefill"), impl=impl)
     return attn_mod.attn_forward(
         p["attn"], cfg, x, positions, window=window, cache=cache,
         tile=tiles.get("flash_attention"), impl=impl)
 
 
+def _mixer_packed(p, cfg: ArchConfig, spec: LayerSpec, x, positions, caches,
+                  tiles, layout, impl: str):
+    """One mixer over a packed step (the reference's ``_mixer_packed``):
+    attention through ``attn_prefill_packed``; a recurrent layer per
+    segment, each continuing its own request's state (a packed sequence
+    would carry state across requests)."""
+    if spec.mixer in ("attn", "local_attn"):
+        window = cfg.attn_window if spec.mixer == "local_attn" else None
+        return attn_mod.attn_prefill_packed(
+            p["attn"], cfg, x, positions, caches=caches, layout=layout,
+            window=window, tile=tiles.get("packed_prefill"), impl=impl)
+    outs, off = [], 0
+    for (_, ln), cache in zip(layout, caches):
+        y, _ = _mixer(p, cfg, spec, x[:, off:off + ln], None, cache, False,
+                      tiles, impl)
+        outs.append(y)
+        off += ln
+    return torch.cat(outs, dim=1), tuple(caches)
+
+
 def layer_forward(p, cfg: ArchConfig, spec: LayerSpec, x, positions, cache,
-                  decode: bool = False, tiles=None, impl: str = "auto"):
-    """Returns (x_out, new_cache)."""
+                  decode: bool = False, tiles=None, impl: str = "auto",
+                  chunk_start=None, pack_layout=None):
+    """Returns (x_out, new_cache); with ``pack_layout`` ``cache`` is one
+    cache per segment, and so is new_cache."""
     tiles = tiles or {}
     h = _apply_norm(p, cfg, x, "norm1")
     mix, new_cache = _mixer(p, cfg, spec, h, positions, cache, decode, tiles,
-                            impl)
+                            impl, chunk_start=chunk_start,
+                            pack_layout=pack_layout)
     if cfg.post_norms:
         mix = _apply_norm(p, cfg, mix, "post1")
     ff_tile = tiles.get("matmul")
@@ -267,15 +308,21 @@ def forward(
     logits_mode: str = "full",   # full | last | hidden
     tiles=None,
     impl: str = "auto",
+    chunked: bool = False,
 ) -> StackOutputs:
     """tokens [B, S] -> logits [B, S, Vpad].
 
     ``decode=True``: S must be 1 and ``caches`` supplied (positions come from
-    the caches). ``logits_mode``: "last" applies the head to the final
-    position only, "hidden" skips it. ``tiles`` (kernel name -> TileShape)
-    parameterise the kernel call sites; ``impl`` is passed to them
-    ("auto" | "kernel" | "reference").
+    the caches). ``chunked=True``: the tokens are one chunk of a prefill at
+    positions ``start_pos ..``, continuing ``caches`` (required).
+    ``logits_mode``: "last" applies the head to the final position only,
+    "hidden" skips it. ``tiles`` (kernel name -> TileShape) parameterise the
+    kernel call sites; ``impl`` is passed to them ("auto" | "kernel" |
+    "reference").
     """
+    if chunked and caches is None:
+        raise ValueError("chunked prefill requires caches (serve state)")
+    chunk_start = start_pos if chunked else None
     b, s = tokens.shape
     x = params["embed"][tokens]
     if cfg.scale_embeddings:
@@ -287,7 +334,8 @@ def forward(
     for li, spec in enumerate(cfg.layers()):
         lc = caches[li] if caches is not None else None
         x, nc = layer_forward(params["layers"][li], cfg, spec, x, positions,
-                              lc, decode, tiles=tiles, impl=impl)
+                              lc, decode, tiles=tiles, impl=impl,
+                              chunk_start=chunk_start)
         if new_caches is not None:
             new_caches.append(nc)
 
@@ -296,10 +344,51 @@ def forward(
         return StackOutputs(logits=None, caches=new_caches, hidden=x)
     if logits_mode == "last":
         x = x[:, -1:]
+    logits = _head(params, cfg, x)
+    return StackOutputs(logits=logits, caches=new_caches, hidden=x)
+
+
+def _head(params, cfg: ArchConfig, x):
     # Tied head: the embedding matrix, transposed. A plain product, as the
     # reference leaves it to XLA.
     head = params["embed"].t() if cfg.tie_embeddings else params["lm_head"]
     logits = torch.matmul(x, head.to(x.dtype))
     if cfg.final_softcap:
         logits = softcap(logits, cfg.final_softcap)
-    return StackOutputs(logits=logits, caches=new_caches, hidden=x)
+    return logits
+
+
+def forward_packed(params, cfg: ArchConfig, tokens: torch.Tensor, states,
+                   layout, tiles=None, impl: str = "auto"):
+    """One packed step of several requests' prefill chunks (the reference's
+    ``forward_packed``, without the paged pool).
+
+    ``tokens`` [1, S_packed] concatenates one chunk per request; ``layout``
+    the per-segment ``(start, len)`` pairs, ``states`` the matching
+    per-request serve states (from :func:`make_caches` or the previous
+    chunk), each updated in place. Embedding, norms and FF run once over
+    the pack; each request's state advances as if its chunk had gone
+    through ``forward(chunked=True)`` alone. Returns ``(logits [N, Vpad],
+    states)``: each segment's last-position logits.
+    """
+    b, s = tokens.shape
+    if b != 1:
+        raise ValueError("packed prefill packs segments, not batch rows")
+    if not layout or len(states) != len(layout):
+        raise ValueError(f"layout/state mismatch: {len(layout)} segments, "
+                         f"{len(states)} states")
+    if sum(ln for _, ln in layout) != s:
+        raise ValueError(f"layout {layout} does not cover {s} tokens")
+    x = params["embed"][tokens]
+    if cfg.scale_embeddings:
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
+    positions = torch.cat([start + torch.arange(ln, device=tokens.device)
+                           for start, ln in layout])[None]
+    for li, spec in enumerate(cfg.layers()):
+        lc = tuple(st[li] for st in states)
+        x, _ = layer_forward(params["layers"][li], cfg, spec, x, positions,
+                             lc, tiles=tiles, impl=impl, pack_layout=layout)
+    x = _apply_norm(params, cfg, x, "final_norm")
+    ends = torch.tensor([sum(ln for _, ln in layout[:i + 1]) - 1
+                         for i in range(len(layout))], device=x.device)
+    return _head(params, cfg, x[0, ends]), tuple(states)

@@ -43,9 +43,28 @@ and the next step recaptures. Tile-dispatch events of the call sites
 (``models.attention.capture_tile_events``) count as ``tile_fallback`` too:
 a prefill's once per admitted request, the decode step's once per engine.
 Without a plan every kernel is recorded with plan source ``no_plan``, as
-the reference does, and takes its Hopper default tile. Options not ported
-yet — ``chunk_prefill``, ``pack_prefill``, ``paged``, ``shadow_fraction`` /
-``refiner`` and ``tracer`` — raise ``NotImplementedError`` when set.
+the reference does, and takes its Hopper default tile.
+
+Chunked prefill (``chunk_prefill=True``) and step packing
+(``pack_prefill=True``, which implies it) are the reference's mixed steps
+with the reference's scheduling: each step runs one prefill chunk (or a
+pack of several requests' chunks) beside the whole decode batch under
+``step_token_budget`` tokens, up to ``prefill_slots`` prefills in flight,
+the most urgent first (priority, deadline, fewest remaining tokens, and
+every ``AGING_PERIOD``-th chunk the oldest), one multi-chunk prefill at a
+time. The chunk is the resolved ``chunked_prefill`` tile's first dim and
+the pack width the ``packed_prefill`` tile's, each clamped to the budget.
+Chunk and pack programs run eagerly (no graph is captured per chunk
+offset); on the card each chunk's attention launches the flash-attention
+kernel at ``q_offset = start``. State ownership differs from the
+reference, which hands a finished prefill's state object to the decode
+slot: a slot's graph holds its tensors' addresses, so each prefill in
+flight fills a cache set of its own, taken from a free list (emptied, at
+most ``slots + prefill_slots`` ever made), and when its request takes slot
+*i* the written K/V rows, positions, slot maps and recurrent states are
+copied into slot *i*'s tensors and the set is freed. Options not ported
+yet — ``paged``, ``shadow_fraction`` / ``refiner`` and ``tracer`` — raise
+``NotImplementedError`` when set.
 """
 from __future__ import annotations
 
@@ -67,9 +86,10 @@ from repro_torch.kernels import build
 from repro_torch.launch import specs
 from repro_torch.models import api
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import transformer as T
 from repro_torch.models.transformer import is_kv_cache
 from repro_torch.serve.metrics import ServeMetrics
-from repro_torch.serve.scheduler import FifoScheduler
+from repro_torch.serve.scheduler import FifoScheduler, pick_chunks
 
 
 @dataclasses.dataclass
@@ -83,6 +103,27 @@ class Request:
     out_tokens: List[int] = dataclasses.field(default_factory=list)
     done: bool = False
     submit_t: Optional[float] = None
+
+
+@dataclasses.dataclass
+class _ChunkJob:
+    """One request's prefill in flight, chunk by chunk."""
+
+    req: Request
+    prompt: np.ndarray            # padded to the admitted length
+    chunk_len: int
+    state: Any = None             # its cache set, taken at the first chunk
+    done: int = 0                 # prompt tokens prefilled so far
+    chunks_run: int = 0
+    packed_runs: int = 0          # chunks that rode a multi-segment pack
+    last_t: float = 0.0           # last progress (chunk queue age)
+    # Tile events of every chunk it ran, deduplicated once at the end so
+    # an N-chunk prefill counts each distinct fallback once.
+    events: List[Dict[str, Any]] = dataclasses.field(default_factory=list)
+
+    @property
+    def remaining(self) -> int:
+        return len(self.prompt) - self.done
 
 
 @dataclasses.dataclass
@@ -105,14 +146,15 @@ class ServeEngine:
                  metrics: Optional[ServeMetrics] = None,
                  clock: Callable[[], float] = time.perf_counter,
                  chunk_prefill: bool = False,
+                 step_token_budget: int = 0,
+                 prefill_slots: int = 2,
                  pack_prefill: bool = False,
                  paged: bool = False,
                  shadow_fraction: float = 0.0,
                  refiner=None,
                  tracer=None,
                  device=None):
-        unported = {"chunk_prefill": chunk_prefill,
-                    "pack_prefill": pack_prefill, "paged": paged,
+        unported = {"paged": paged,
                     "shadow_fraction": bool(shadow_fraction),
                     "refiner": refiner is not None,
                     "tracer": tracer is not None}
@@ -144,6 +186,23 @@ class ServeEngine:
         self._finished: List[Request] = []
         self._next_rid = 0
         self.last_reject_reason = "ok"
+        # Chunked prefill: ``step_token_budget`` bounds one mixed step's
+        # tokens (0: the plan's chunk unclamped), ``prefill_slots`` the
+        # prefills in flight; ``pack_prefill`` packs several chunks a step.
+        self.pack_prefill = pack_prefill
+        self.chunk_prefill = chunk_prefill or pack_prefill
+        self.step_token_budget = step_token_budget
+        self.prefill_slots = max(1, prefill_slots)
+        self._chunking: List[_ChunkJob] = []
+        self._ready: List[Any] = []   # (request, cache set, length) waiting
+        #                               for a free decode slot
+        self._held: List[Request] = []  # deferred multi-chunk (FIFO only)
+        self._free_sets: List[Any] = []  # emptied cache sets for new jobs
+        self.cache_sets_made = 0
+        self._single_chunk_edge: Optional[int] = None
+        self._chunk_ticks = 0
+        self._chunk_plans: Dict[int, Any] = {}
+        self._pack_plan_cache: Optional[Any] = None
         # Per-slot independent caches (batch 1) and step buffers.
         self._slots = [self._make_slot() for _ in range(slots)]
         self._graph_pool = None
@@ -247,6 +306,9 @@ class ServeEngine:
         self.plans = plans
         self._prefill_tiles.clear()
         self._prefill_sources.clear()
+        self._chunk_plans.clear()
+        self._pack_plan_cache = None
+        self._single_chunk_edge = None
         self._decode_tile_events = None
         self.tiles, self.tile_sources = {}, {}
         for slot in self._slots:
@@ -332,6 +394,293 @@ class ServeEngine:
         for k, n in slot.launches.items():
             build.LAUNCHES[k] += n
 
+    # -- chunked prefill ---------------------------------------------------
+    def _resolve_serve_cell(self, kind: str, seq_len: int):
+        """One serving attention cell (``chunked_prefill`` or
+        ``packed_prefill``) from the plan, or the kernel's Hopper default:
+        ``(problem | None, tile | None, source)``; problem is None for an
+        attention-free model (the cell never runs)."""
+        from repro_torch import kernels
+        from repro_torch.core import registry
+
+        kernels.register_all()
+        problem = specs.kernel_problems(self.cfg, 1, seq_len, kind).get(kind)
+        tile, source = None, "no_plan"
+        if problem is not None:
+            if self.plans is not None:
+                with warnings.catch_warnings():
+                    warnings.simplefilter("ignore", PlanTransferWarning)
+                    res = self.plans.resolve(kind, problem, self._dtype_name,
+                                             self.hardware)
+                if res is not None:
+                    tile, source = res.tile, res.source
+                else:
+                    source = "fallback"
+            if tile is None:
+                tile = registry.get(kind).default_tile(problem,
+                                                       self._dtype_name)
+        return problem, tile, source
+
+    def _model_tiles_for(self, seq_len: int):
+        """The FF and recurrent kernels' prefill tiles at one geometry, with
+        their plan sources and the events of tiles replaced as unlaunchable.
+        The whole-prompt ``flash_attention`` cell is left out: chunk and
+        pack programs run the ``chunked_prefill`` / ``packed_prefill``
+        cells instead."""
+        if self.plans is None:
+            return {}, {kernel: "no_plan" for kernel in specs.kernel_problems(
+                self.cfg, 1, seq_len, "prefill") if kernel != "flash_attention"
+            }, []
+        tiles, sources, events = self._resolve(1, seq_len, "prefill",
+                                               tokens=seq_len)
+        tiles.pop("flash_attention", None)
+        sources.pop("flash_attention", None)
+        return tiles, sources, events
+
+    def _chunk_plan(self, admit_len: int):
+        """``(chunk_len, tiles, sources, events)`` for one admitted length.
+
+        The chunk is the resolved ``chunked_prefill`` tile's first dim,
+        clamped so one chunk plus a full decode batch fits
+        ``step_token_budget`` (the reference's rule); the FF and recurrent
+        tiles are resolved at the chunk, the geometry the chunks run."""
+        hit = self._chunk_plans.get(admit_len)
+        if hit is not None:
+            return hit
+        problem, tile, source = self._resolve_serve_cell(
+            "chunked_prefill", admit_len)
+        chunk = int(tile[0]) if tile is not None else min(512, admit_len)
+        if self.step_token_budget:
+            chunk = min(chunk, max(1, self.step_token_budget - self.slots))
+        chunk = max(1, min(chunk, admit_len))
+        tiles, sources, events = self._model_tiles_for(chunk)
+        if tile is not None:
+            tiles["chunked_prefill"] = tile
+        if problem is not None:
+            # No phantom counter for a kernel an attention-free model
+            # never runs.
+            sources["chunked_prefill"] = source
+        entry = (chunk, tiles, sources, events)
+        self._chunk_plans[admit_len] = entry
+        return entry
+
+    def chunk_len_for(self, admit_len: int) -> int:
+        """Chunk length one admitted prompt prefills in (``admit_len`` when
+        chunking is off: the whole prefill is one quantum)."""
+        if not self.chunk_prefill:
+            return admit_len
+        return self._chunk_plan(admit_len)[0]
+
+    # -- step packing --------------------------------------------------------
+    def _pack_plan(self):
+        """``(pack width, tiles, source, events)`` of packed steps: the
+        resolved ``packed_prefill`` tile's first dim at the single-chunk
+        bucket bound (the short prompts packing exists for), the FF and
+        recurrent tiles at the pack's width."""
+        if self._pack_plan_cache is not None:
+            return self._pack_plan_cache
+        policy = getattr(self.scheduler, "policy", None)
+        edge = self._single_chunk_bound() or (
+            min(policy.edges) if policy is not None else 512)
+        _, tile, source = self._resolve_serve_cell("packed_prefill", edge)
+        width = int(tile[0]) if tile is not None else max(512, edge)
+        tiles, _, events = self._model_tiles_for(min(width, self.max_len))
+        if tile is not None:
+            tiles["packed_prefill"] = tile
+        self._pack_plan_cache = (width, tiles, source, events)
+        return self._pack_plan_cache
+
+    def _pack_budget(self) -> float:
+        """Max prefill-chunk tokens one packed step may carry: the pack
+        width, clamped so pack + decode batch fits the step budget."""
+        width = self._pack_plan()[0]
+        if self.step_token_budget:
+            return min(width, max(1, self.step_token_budget - self.slots))
+        return width
+
+    def _ensure_state(self, job: _ChunkJob) -> None:
+        """Give a job its cache set at its first chunk: one from the free
+        list (or a new one), emptied for the new sequence."""
+        if job.state is not None:
+            return
+        if self._free_sets:
+            job.state = self._free_sets.pop()
+            T.reset_caches(job.state)
+        else:
+            job.state = api.make_serve_state(
+                self.cfg, 1, self.max_len, self.dtype, device=self.device,
+                ring_local=bool(self.cfg.attn_window))
+            self.cache_sets_made += 1
+
+    def _advance_job(self, job: _ChunkJob, take: int, events, logits,
+                     packed: bool = False) -> None:
+        """Per-chunk bookkeeping of the one-chunk and packed paths (one
+        implementation, as the reference keeps it): events accrue, the
+        chunk is counted, progress advances, a finished prefill leaves."""
+        job.events.extend(events)
+        now = self._clock()
+        self.metrics.record_chunk(job.req.bucket, now - job.last_t)
+        job.last_t = now
+        job.done += take
+        job.chunks_run += 1
+        job.packed_runs += packed
+        if job.done >= len(job.prompt):
+            self._chunking.remove(job)
+            self._finish_prefill(job, logits)
+
+    def _run_pack(self, picks) -> int:
+        """Advance every picked job by one chunk in one packed step;
+        returns the pack's token count."""
+        jobs = [job for job, _ in picks]
+        layout = tuple((job.done, take) for job, take in picks)
+        for job in jobs:
+            self._ensure_state(job)
+        toks = np.concatenate([job.prompt[start:start + take]
+                               for job, (start, take) in zip(jobs, layout)])
+        _, tiles, _, plan_events = self._pack_plan()
+        events: List[Dict[str, Any]] = list(plan_events)
+        with torch.inference_mode(), \
+                attn_mod.capture_tile_events(events.append):
+            logits, _ = api.prefill_packed(
+                self.params, self.cfg,
+                torch.as_tensor(toks[None], dtype=torch.long,
+                                device=self.device),
+                tuple(job.state for job in jobs), layout,
+                tiles=tiles or None)
+        events = self._dedupe_events(events)
+        for i, (job, (_, take)) in enumerate(zip(jobs, layout)):
+            self._advance_job(job, take, events, logits[i][None],
+                              packed=True)
+        return sum(take for _, take in layout)
+
+    def _is_multi_chunk(self, req: Request) -> bool:
+        """Will this request's prefill span more than one chunk?"""
+        admit_len = req.bucket if req.bucket is not None else len(req.prompt)
+        return admit_len > self._chunk_plan(admit_len)[0]
+
+    def _single_chunk_bound(self) -> int:
+        """Largest bucket edge whose prefill fits one chunk (0 if none)."""
+        if self._single_chunk_edge is None:
+            policy = getattr(self.scheduler, "policy", None)
+            edges = policy.edges if policy is not None else ()
+            self._single_chunk_edge = max(
+                (e for e in edges if self._chunk_plan(e)[0] >= e), default=0)
+        return self._single_chunk_edge
+
+    def _next_admission(self, long_ok: bool) -> Optional[Request]:
+        """Next request to start prefilling (the reference's rule): with
+        ``long_ok=False`` only single-chunk requests qualify. A bucketed
+        scheduler pops within the single-chunk bound, so queued longs stay
+        queued; a FIFO one cannot, and deferred longs wait in ``_held``
+        (at most ``prefill_slots`` of them)."""
+        for i, req in enumerate(self._held):
+            if long_ok or not self._is_multi_chunk(req):
+                return self._held.pop(i)
+        within = getattr(self.scheduler, "next_request_within", None)
+        if not long_ok and within is not None:
+            return within(self._single_chunk_bound())
+        while len(self._held) < self.prefill_slots:
+            req = self.scheduler.next_request()
+            if req is None:
+                return None
+            if long_ok or not self._is_multi_chunk(req):
+                return req
+            self._held.append(req)
+        return None
+
+    def _admit_chunked(self) -> None:
+        """Move ready prefills into free decode slots, then queued requests
+        into free prefill slots, at most one multi-chunk prefill at a time.
+
+        A ready request's state is copied into its slot's own tensors (the
+        ones the slot's captured graph holds) and its cache set goes back
+        to the free list. Admission stalls while the ready backlog covers
+        every decode slot, so at most ``slots + prefill_slots - 1`` cache
+        sets ever live besides the slots'."""
+        free = [i for i, r in enumerate(self._active) if r is None]
+        while free and self._ready:
+            req, state, length = self._ready.pop(0)
+            i = free.pop(0)
+            _move_state(state, self._slots[i].caches, length)
+            self._free_sets.append(state)
+            self._active[i] = req
+        if len(self._ready) >= self.slots:
+            return
+        long_in_flight = any(len(j.prompt) > j.chunk_len
+                             for j in self._chunking)
+        while len(self._chunking) < self.prefill_slots:
+            req = self._next_admission(long_ok=not long_in_flight)
+            if req is None:
+                break
+            prompt = np.asarray(self.scheduler.prepare(req), np.int32)
+            chunk_len, _, _, plan_events = self._chunk_plan(len(prompt))
+            long_in_flight = long_in_flight or len(prompt) > chunk_len
+            submit_t = self.metrics.submit_time(req.rid)
+            self._chunking.append(_ChunkJob(
+                req=req, prompt=prompt, chunk_len=chunk_len,
+                events=list(plan_events),
+                last_t=submit_t if submit_t is not None else self._clock()))
+
+    # Every AGING_PERIOD-th chunk goes to the oldest in-flight prefill
+    # instead of the shortest-remaining one, so a stream of short prompts
+    # cannot starve a long prefill (the reference's floor).
+    AGING_PERIOD = 4
+
+    def _next_chunk_job(self) -> Optional[_ChunkJob]:
+        """The most urgent in-flight prefill: priority, deadline, then
+        fewest remaining tokens, with periodic aging."""
+        if not self._chunking:
+            return None
+        self._chunk_ticks += 1
+        if self._chunk_ticks % self.AGING_PERIOD == 0:
+            return min(self._chunking,
+                       key=lambda j: (j.req.priority, j.req.deadline,
+                                      j.req.rid))
+        return min(self._chunking,
+                   key=lambda j: (j.req.priority, j.req.deadline,
+                                  j.remaining, j.req.rid))
+
+    def _run_chunk(self, job: _ChunkJob) -> int:
+        """Advance one job by one chunk (eager, with the tiles of its
+        admitted length); returns the chunk's token count."""
+        start = job.done
+        length = min(job.chunk_len, len(job.prompt) - start)
+        self._ensure_state(job)
+        _, tiles, _, _ = self._chunk_plan(len(job.prompt))
+        events: List[Dict[str, Any]] = []
+        with torch.inference_mode(), \
+                attn_mod.capture_tile_events(events.append):
+            logits, _ = api.prefill_chunk(
+                self.params, self.cfg,
+                torch.as_tensor(job.prompt[None, start:start + length],
+                                dtype=torch.long, device=self.device),
+                job.state, start, tiles=tiles or None)
+        self._advance_job(job, length, self._dedupe_events(events), logits)
+        return length
+
+    def _finish_prefill(self, job: _ChunkJob, logits) -> None:
+        """Last chunk done: sample the first token and count the prefill's
+        plan sources and tile events once per request, not per chunk."""
+        req = job.req
+        for kernel, source in self._chunk_plan(len(job.prompt))[2].items():
+            self.metrics.record_plan("prefill", kernel, source)
+        if job.packed_runs:
+            self.metrics.record_plan("prefill", "packed_prefill",
+                                     self._pack_plan()[2])
+        for ev in self._dedupe_events(job.events):
+            self._record_tile_event(ev)
+        self.metrics.record_prefill_chunks(job.chunks_run)
+        req.out_tokens.append(
+            int(torch.argmax(logits[0, :self.cfg.vocab_size])))
+        self.metrics.record_first_token(req.rid, req.bucket)
+        if len(req.out_tokens) >= req.max_new_tokens:
+            req.done = True
+            self._free_sets.append(job.state)
+            self._finished.append(req)
+            self.metrics.record_complete()
+        else:
+            self._ready.append((req, job.state, len(job.prompt)))
+
     def add_request(self, prompt: np.ndarray, max_new_tokens: int = 16,
                     priority: int = 0,
                     deadline: float = math.inf,
@@ -356,7 +705,7 @@ class ServeEngine:
                 getattr(self.scheduler, "last_reject_reason", "admission"),
                 len(prompt))
         self.metrics.record_submit(rid, t=submit_t)
-        self._record_backlog(self.scheduler.pending())
+        self._record_backlog(self.scheduler.pending() + len(self._held))
         return rid
 
     def _reject(self, reason: str, prompt_len: int) -> None:
@@ -364,7 +713,7 @@ class ServeEngine:
         sample); the reason also lands in ``self.last_reject_reason``."""
         self.last_reject_reason = reason
         self.metrics.record_reject(reason=reason)
-        self._record_backlog(self.scheduler.pending())
+        self._record_backlog(self.scheduler.pending() + len(self._held))
         return None
 
     def _record_backlog(self, depth: int) -> None:
@@ -437,10 +786,13 @@ class ServeEngine:
         return len(stepped)
 
     def step(self) -> int:
-        """One engine step: admit (each admission runs its whole prefill),
-        one decode step over the active slots, then a second admission pass
-        so slots freed by this decode are claimed in the same step. Returns
-        the number of requests decoded."""
+        """One engine step. Unchunked: admit (each admission runs its whole
+        prefill), one decode step over the active slots, then a second
+        admission pass so slots freed by this decode are claimed in the same
+        step; returns the number of requests decoded. Chunked: a mixed step
+        (:meth:`_step_chunked`)."""
+        if self.chunk_prefill:
+            return self._step_chunked()
         prefill_tokens, segments = self._admit()
         self._record_backlog(self.scheduler.pending())
         n = self._decode_all()
@@ -452,9 +804,64 @@ class ServeEngine:
         self.steps_run += 1
         return n
 
+    def _step_chunked(self) -> int:
+        """A mixed step: one prefill chunk for the most urgent prefill in
+        flight (or, packed, the scheduler's knapsack of chunks), then the
+        whole decode batch, then a second admission pass. Returns the
+        requests in service, as the reference does."""
+        self._admit_chunked()
+        self._record_backlog(self.scheduler.pending() + len(self._held))
+        prefill_tokens = 0
+        packed_rids: tuple = ()
+        segments: tuple = ()
+        if self.pack_prefill:
+            picks = self._next_pack()
+            if picks:
+                packed_rids = tuple(job.req.rid for job, _ in picks)
+                segments = tuple((len(job.prompt), take)
+                                 for job, take in picks)
+                self.metrics.record_packed_step(len(picks))
+                if len(picks) == 1:
+                    prefill_tokens = self._run_chunk(picks[0][0])
+                else:
+                    prefill_tokens = self._run_pack(picks)
+                self._admit_chunked()
+        else:
+            job = self._next_chunk_job()
+            if job is not None:
+                packed_rids = (job.req.rid,)
+                segments = ((len(job.prompt),
+                             min(job.chunk_len, job.remaining)),)
+                prefill_tokens = self._run_chunk(job)
+                # A prefill that chunk finished may decode this very step.
+                self._admit_chunked()
+        n = self._decode_all()
+        self._admit_chunked()
+        self.last_step_stats = {"prefill_tokens": prefill_tokens,
+                                "decode_tokens": n,
+                                "packed_chunks": len(packed_rids),
+                                "packed_rids": packed_rids,
+                                "prefill_segments": segments}
+        self.steps_run += 1
+        return (n + len(self._chunking) + len(self._ready)
+                + len(self._held))
+
+    def _next_pack(self):
+        """The chunks a packed step runs: the scheduler's knapsack over the
+        prefills in flight under the pack budget, at most
+        ``prefill_slots`` segments, with the one-chunk path's head rule."""
+        if not self._chunking:
+            return []
+        self._chunk_ticks += 1
+        aging = self._chunk_ticks % self.AGING_PERIOD == 0
+        return pick_chunks(self._chunking, self._pack_budget(),
+                           self.prefill_slots, aging=aging)
+
     def in_flight(self) -> int:
-        """Requests holding engine state (occupied decode slots)."""
-        return sum(r is not None for r in self._active)
+        """Requests holding engine state: decode slots, prefills in
+        flight, finished prefills waiting for a slot, deferred longs."""
+        return (sum(r is not None for r in self._active)
+                + len(self._chunking) + len(self._ready) + len(self._held))
 
     def run_until_done(self, max_steps: int = 1000) -> List[Request]:
         self._finished = []
@@ -463,6 +870,24 @@ class ServeEngine:
                 break
             self.step()
         return self._finished
+
+
+def _move_state(src, dst, length: int) -> None:
+    """Copy a prefilled cache set into a decode slot's own tensors: the K/V
+    rows ``length`` positions wrote (all of a ring's written slots), the
+    position and slot map, and every recurrent state whole. ``dst`` keeps
+    its tensors, so a graph captured on them stays valid."""
+    for s, d in zip(src, dst):
+        if not is_kv_cache(s):
+            for key, t in s.items():
+                d[key].copy_(t)
+            continue
+        rows = min(length, s["k"].shape[2])
+        d["k"][:, :, :rows].copy_(s["k"][:, :, :rows])
+        d["v"][:, :, :rows].copy_(s["v"][:, :, :rows])
+        d["pos"].copy_(s["pos"])
+        if "slot_pos" in s:
+            d["slot_pos"].copy_(s["slot_pos"])
 
 
 def _snapshot(caches):

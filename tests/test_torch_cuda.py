@@ -725,6 +725,7 @@ def test_plan_tiles_that_do_not_launch_are_replaced_and_counted(dev):
 
     from repro_torch.core import TilePlan
     from repro_torch.core.tiling import TileShape
+    from repro_torch.kernels.flash_attention.ops import chunk_launch_tile
     from repro_torch.launch import specs
     from repro_torch.serve import BucketPolicy, ShapeBucketScheduler
 
@@ -837,3 +838,249 @@ def test_captured_recurrent_decode_gives_the_eager_loop_s_tokens(dev, arch,
                 logits, st = api.decode_step(params, cfg, tok, st)
                 toks.append(int(torch.argmax(logits[0, :cfg.vocab_size])))
             assert req.out_tokens == toks, req.rid
+
+
+# ---------------------------------------------------------------------------
+# Chunked and packed prefill
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype,rtol", DTYPES)
+@pytest.mark.parametrize("sq", [1, 64, 256])
+@pytest.mark.parametrize("start", [0, 255, 511, 767])
+def test_flash_attention_at_continuation_shapes(dev, dtype, rtol, sq, start):
+    """A chunk's call: Sq queries at q_offset = start over Skv = start + Sq
+    keys, qwen2's padded Hq 16, Hkv 2, D 128, with the tile the chunked
+    path launches."""
+    from repro_torch.kernels.flash_attention.ops import chunk_launch_tile
+
+    dt = getattr(torch, dtype)
+    q, k, v = _randn(dev, sq + start, (1, 16, sq, 128),
+                     (1, 2, start + sq, 128), (1, 2, start + sq, 128),
+                     dtype=dt)
+    for bkv in sorted({b for _, b in fa.regime_tiles(dt, 128)}):
+        tile = chunk_launch_tile((sq, bkv), sq, 12, 128, dt)
+        _close(flash_attention(q, k, v, causal=True, q_offset=start,
+                               tile=tile),
+               flash_attention_ref(q, k, v, causal=True, q_offset=start),
+               rtol)
+
+
+@pytest.mark.parametrize("dtype,rtol", DTYPES)
+def test_packed_segments_through_the_kernel_vs_plain(dev, dtype, rtol):
+    """``attn_prefill_packed`` on the card (one flash-attention launch a
+    segment over its own prefix) against the packed plain version, over
+    qwen2-1.5b's full-width attention block, and the caches it writes."""
+    from repro_torch.models import attention
+
+    cfg = configs.get_arch("qwen2-1.5b")
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=dev).manual_seed(0)
+    p = {k: (torch.randn(d.shape, generator=g, device=dev) * 0.05).to(dt)
+         for k, d in attention.attn_defs(cfg).items()}
+    layout = ((300, 64), (0, 100), (511, 1))
+    caches = {impl: [] for impl in ("kernel", "reference")}
+    for start, _ in layout:
+        (hist,) = _randn(dev, start + 1, (1, max(start, 1), cfg.d_model),
+                         dtype=dt)
+        for impl, out in caches.items():
+            c = attention.make_kv_cache(cfg, 1, 640, dt, device=dev)
+            if start:
+                attention.attn_prefill_chunk(
+                    p, cfg, hist, torch.arange(start, device=dev)[None],
+                    cache=c, start=0, impl="reference")
+            out.append(c)
+    n = sum(ln for _, ln in layout)
+    (x,) = _randn(dev, 7, (1, n, cfg.d_model), dtype=dt)
+    pos = torch.cat([s + torch.arange(ln, device=dev)
+                     for s, ln in layout])[None]
+    build.reset_launches()
+    got, _ = attention.attn_prefill_packed(p, cfg, x, pos,
+                                           caches=caches["kernel"],
+                                           layout=layout, impl="kernel")
+    assert build.LAUNCHES["flash_attention"] == len(layout)
+    want, _ = attention.attn_prefill_packed(p, cfg, x, pos,
+                                            caches=caches["reference"],
+                                            layout=layout, impl="reference")
+    _close(got, want, rtol)
+    for a, b in zip(caches["kernel"], caches["reference"]):
+        _close(a["k"], b["k"], rtol)
+        assert int(a["pos"]) == int(b["pos"])
+
+
+def test_a_chunked_tile_that_does_not_launch_is_a_tile_fallback(dev):
+    """A ``chunked_prefill`` plan tile whose bkv no regime compiles: each
+    chunk's launch snaps it to a compiled one, counted as one tile_fallback
+    per request, and the chunks still run the kernel."""
+    import dataclasses
+
+    from repro_torch.core import TilePlan
+    from repro_torch.core.tiling import TileShape
+    from repro_torch.kernels.flash_attention.ops import chunk_launch_tile
+    from repro_torch.launch import specs
+    from repro_torch.serve import BucketPolicy, ShapeBucketScheduler
+
+    cfg = configs.get_smoke("qwen2-1.5b")
+    params = api.init_params(cfg, 0, device="cuda")
+    plan = TilePlan(_serve_plan().entries())
+    prob = specs.kernel_problems(cfg, 1, 16, "chunked_prefill")[
+        "chunked_prefill"]
+    entry = plan.lookup("chunked_prefill", prob, "float32", "h100_sxm")
+    plan.add(dataclasses.replace(entry, tile=TileShape((16, 48))))
+    assert chunk_launch_tile((16, 48), 16, cfg.n_heads, cfg.head_dim_,
+                             torch.float32)[1] != 48
+    eng = ServeEngine(cfg, params, max_len=64, slots=2, plans=plan,
+                      chunk_prefill=True, step_token_budget=10,
+                      scheduler=ShapeBucketScheduler(BucketPolicy(PLAN_EDGES)),
+                      device="cuda")
+    rng = np.random.default_rng(1)
+    build.reset_launches()
+    out = _plan_tokens(eng, [rng.integers(2, cfg.vocab_size, size=n)
+                             for n in (12, 5, 16)], new=4)
+    assert all(len(t) == 4 for t in out)
+    assert build.LAUNCHES["flash_attention"] > 0
+    by_kernel = eng.metrics.as_dict()["plan"]["by_kernel"]
+    assert by_kernel["chunked_prefill"].get("tile_fallback") == 2
+
+
+def _serve_chunked_on_card(arch, packed, prompts, monkeypatch, max_len):
+    """``arch``'s smoke config served chunked (or packed) through the
+    kernels and captured decode, against the same engine on the plain
+    versions; returns the card's engine and the q_offsets of its
+    flash-attention launches."""
+    from repro_torch.models import attention
+    from repro_torch.serve import BucketPolicy, ShapeBucketScheduler
+
+    offsets = []
+    real = attention.flash_attention
+
+    def spy(*args, q_offset=0, **kw):
+        if args[0].is_cuda:
+            offsets.append(q_offset)
+        return real(*args, q_offset=q_offset, **kw)
+
+    monkeypatch.setattr(attention, "flash_attention", spy)
+
+    cfg = configs.get_smoke(arch)
+    params = api.init_params(cfg, 0, device="cuda")
+
+    def serve(impl_device):
+        eng = ServeEngine(
+            cfg, params if impl_device == "cuda" else _to_cpu(params),
+            max_len=max_len, slots=2, chunk_prefill=True,
+            pack_prefill=packed, step_token_budget=14, prefill_slots=3,
+            scheduler=ShapeBucketScheduler(BucketPolicy((8, 32),
+                                                        allow_overflow=True)),
+            device=impl_device)
+        return eng, _plan_tokens(eng, prompts, new=6)
+
+    build.reset_launches()
+    eng, got = serve("cuda")
+    assert all(build.LAUNCHES[k] > 0 for k in
+               ("matmul", "flash_attention", "flash_decode")), build.LAUNCHES
+    assert max(eng.metrics.chunks_per_prefill) > 1
+    assert eng.cache_sets_made <= eng.slots + eng.prefill_slots
+    _, want = serve("cpu")
+    for p, a, b in zip(prompts, got, want):
+        assert len(a) == len(b) == 6
+        if a != b:      # only at a near-tie of the plain top-2 logits
+            i = next(j for j, (x, y) in enumerate(zip(a, b)) if x != y)
+            ctx = np.concatenate([p, b[:i]])[None]
+            logits, _ = api.prefill(_to_cpu(params), cfg, {"tokens": ctx},
+                                    max_len=ctx.shape[1])
+            top = torch.topk(logits[0, :cfg.vocab_size], 2).values
+            assert float(top[0] - top[1]) <= 1e-3 * float(
+                logits[0, :cfg.vocab_size].abs().max())
+    return eng, offsets
+
+
+@pytest.mark.parametrize("packed", [False, True], ids=["chunked", "packed"])
+def test_chunked_engine_on_the_card_gives_the_plain_tokens(dev, packed,
+                                                            monkeypatch):
+    """The smoke qwen2 served chunked (and packed) through the kernels and
+    captured decode, against the same engine on the plain versions; the
+    chunks at start > 0 launch flash_attention with q_offset."""
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(2, configs.get_smoke("qwen2-1.5b").vocab_size,
+                            size=n) for n in (40, 5, 7, 30, 3)]
+    _, offsets = _serve_chunked_on_card("qwen2-1.5b", packed, prompts,
+                                        monkeypatch, max_len=96)
+    assert any(o > 0 for o in offsets) and 0 in offsets
+
+
+@pytest.mark.parametrize("packed", [False, True], ids=["chunked", "packed"])
+def test_ring_chunks_on_the_card_give_the_plain_tokens(dev, packed,
+                                                       monkeypatch):
+    """The smoke gemma2, whose local layers keep a ring of 16 slots, served
+    chunked (and packed) on the card: every chunk of every layer launches
+    flash_attention, those past the ring's wrap at q_offset 16 over its
+    rotated survivors, and the tokens are the plain engine's."""
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(2, configs.get_smoke("gemma2-9b").vocab_size,
+                            size=n) for n in (40, 5, 30, 3)]
+    eng, offsets = _serve_chunked_on_card("gemma2-9b", packed, prompts,
+                                          monkeypatch, max_len=96)
+    assert 16 in offsets and any(o > 16 for o in offsets)
+
+
+@pytest.mark.parametrize("dtype,rtol", DTYPES)
+def test_ring_chunks_through_the_kernel_vs_plain(dev, dtype, rtol):
+    """h2o-danube-1.8b's full-width attention block (D 80) over a ring of
+    256 slots, 700 tokens in chunks of 100 (a chunk at start 200 straddles
+    the wrap, the rest are past it): the kernel over the rotated survivors
+    against the positioned plain version, chunk by chunk, and the rings
+    they write; then two ring segments packed."""
+    from repro_torch.models import attention
+
+    cfg = configs.get_arch("h2o-danube-1.8b")
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=dev).manual_seed(0)
+    p = {k: (torch.randn(d.shape, generator=g, device=dev) * 0.05).to(dt)
+         for k, d in attention.attn_defs(cfg).items()}
+    w = 256
+    (x,) = _randn(dev, 11, (1, 700, cfg.d_model), dtype=dt)
+    caches = {impl: attention.make_kv_cache(cfg, 1, w, dt, ring=True,
+                                            device=dev)
+              for impl in ("kernel", "reference")}
+    for start in range(0, 700, 100):
+        pos = torch.arange(start, start + 100, device=dev)[None]
+        out = {}
+        build.reset_launches()
+        for impl, cache in caches.items():
+            out[impl], _ = attention.attn_prefill_chunk(
+                p, cfg, x[:, start:start + 100], pos, cache=cache,
+                start=start, window=w, impl=impl)
+        assert build.LAUNCHES["flash_attention"] == 1
+        _close(out["kernel"], out["reference"], rtol)
+    a, b = caches["kernel"], caches["reference"]
+    _close(a["k"], b["k"], rtol)
+    assert torch.equal(a["slot_pos"], b["slot_pos"])
+    layout = ((700, 30), (700, 20))
+    pairs = {impl: [attention.make_kv_cache(cfg, 1, w, dt, ring=True,
+                                            device=dev) for _ in layout]
+             for impl in caches}
+    for impl, cs in pairs.items():
+        for c in cs:
+            for key in c:
+                c[key].copy_(caches[impl][key])
+    (y,) = _randn(dev, 12, (1, 50, cfg.d_model), dtype=dt)
+    pos = torch.cat([s + torch.arange(ln, device=dev)
+                     for s, ln in layout])[None]
+    build.reset_launches()
+    got, _ = attention.attn_prefill_packed(p, cfg, y, pos,
+                                           caches=pairs["kernel"],
+                                           layout=layout, window=w,
+                                           impl="kernel")
+    assert build.LAUNCHES["flash_attention"] == len(layout)
+    want, _ = attention.attn_prefill_packed(p, cfg, y, pos,
+                                            caches=pairs["reference"],
+                                            layout=layout, window=w,
+                                            impl="reference")
+    _close(got, want, rtol)
+
+
+def _to_cpu(tree):
+    if isinstance(tree, dict):
+        return {k: _to_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_cpu(v) for v in tree]
+    return tree.cpu()

@@ -48,6 +48,7 @@ from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.bilinear import ops as bil_ops  # noqa: E402
 from repro_torch.kernels.flash_attention import decode as fa_decode  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention as fa  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.matmul import ops as mm_ops  # noqa: E402
 from repro_torch.kernels.rglru import ops as rg_ops  # noqa: E402
 from repro_torch.kernels.ssd import ops as ssd_ops  # noqa: E402
@@ -361,6 +362,9 @@ def _launchable(kernel, tile, problem, dtype):
         ssd_ops.launch_chunk(tile[0], problem, dtype)
     elif kernel == "rglru":
         rg_ops.launch_tile(tile, problem)
+    elif kernel in ("chunked_prefill", "packed_prefill"):
+        return fa_ops.chunk_launch_tile(tile, min(tile[0], problem["sq"]),
+                                        problem["hq"], problem["d"], dtype)
     else:
         raise AssertionError(kernel)
 
@@ -374,7 +378,10 @@ def test_every_candidate_the_port_sweeps_at_full_width_launches():
             lambda t: spec.vmem_bytes(t, problem, dtype), max_candidates=256)
         assert tiles, (kernel, problem, dtype)
         for t in tiles:
-            _launchable(kernel, t, problem, dtype)
+            launch = _launchable(kernel, t, problem, dtype)
+            if kernel in ("chunked_prefill", "packed_prefill"):
+                # A swept bkv launches as given; only a default snaps.
+                assert launch[1] == t[1], (kernel, t, launch)
             cost = estimate(hw, spec.workload(t, problem, dtype),
                             spec.n_tiles(t, problem),
                             vmem_bytes=spec.vmem_bytes(t, problem, dtype))
@@ -382,7 +389,7 @@ def test_every_candidate_the_port_sweeps_at_full_width_launches():
         _launchable(kernel, spec.default_tile(problem, dtype), problem, dtype)
         seen.add(kernel)
     assert seen == {"matmul", "flash_attention", "flash_decode", "bilinear",
-                    "ssd", "rglru"}
+                    "ssd", "rglru", "chunked_prefill", "packed_prefill"}
 
 
 def test_attention_at_head_dim_256_has_launchable_tiles():

@@ -144,8 +144,8 @@ def test_engine_is_reusable_and_deterministic(models):
 
 
 @pytest.mark.parametrize("option", [
-    dict(chunk_prefill=True),
-    dict(pack_prefill=True),
+    dict(chunk_prefill=True, paged=True),
+    dict(pack_prefill=True, tracer=object()),
     dict(paged=True), dict(shadow_fraction=0.5), dict(refiner=object()),
     dict(tracer=object()),
 ])
