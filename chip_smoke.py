@@ -103,7 +103,24 @@ Phases, each of which fails the run if it fails:
    recurrentgemma-9b (2100 in chunks of 512) against their whole
    prefills, logits and states. In (c) and (d) every chunk of every
    attention layer must launch flash_attention, ring layers included. The launcher of phase 8 also serves
-   qwen2-1.5b with ``--chunk-prefill`` and ``--pack-prefill``.
+   qwen2-1.5b with ``--chunk-prefill``, ``--pack-prefill`` and ``--paged``;
+13. paged serving (the KV pool, after phase 12b): (a) full-width
+   qwen2-1.5b at max_len 1280, 4 slots, FIFO, phase 12a's prompts and a
+   510-token one (two tokens before the default 512-row page's edge),
+   unchunked, chunked and packed, on the pool against the unpaged engine:
+   tokens held (``hold_tokens``), the pool balanced (allocs = frees),
+   matmul, flash_attention and flash_decode launched under paging, each
+   slot captured once as unpaged (no recapture when a decode maps a new
+   page), the peak pages x page beside the unpaged caches' rows; (b) page
+   64: a 768-token donor decodes while its prompt plus 32 tokens arrives,
+   then its prompt again (a copy-on-write split): tokens equal to a run
+   without sharing, prefix hits and splits, the 800-token request's TTFT
+   with and without sharing; (d) the captured decode step paged against
+   unpaged at 1 and 4 slots, device and host ms (with ``--profile`` the
+   gather's share), and one layer's attention call (gather + flash_decode
+   over the 1536-row view beside flash_decode over 1280 rows); (c)
+   h2o-danube-1.8b at full width and 4 layers, paged (windowed decode over
+   the linear view) against the ring engine's tokens.
 
 ``--profile`` adds, after phase 5, where the time of one full-width qwen2
 request goes (prefill, eager decode, captured decode): wall time, device
@@ -115,8 +132,10 @@ the serve of phase 4 (the replays of captured steps included), bilinear
 over the compile of phase 9, ssd over the serve of phase 10 and rglru over
 the serve of phase 11, each reset to 0 just before its path and read just
 after; phase 4b reads its own counts over its two plan serves and fails
-unless each of the serving kernels ran, and phase 9 fails unless its
-compile launched bilinear, ssd and rglru.
+unless each of the serving kernels ran, phase 9 fails unless its compile
+launched bilinear, ssd and rglru, and phase 13 sets the counts to 0 before
+each paged serve and fails unless matmul, flash_attention and flash_decode
+ran in it.
 
 It prints the card (phase 1), a ``{"kernels": [...]}`` JSON line before the
 last, and as the last line ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -2308,6 +2327,395 @@ def decode_from_states(cfg, params, states, n: int, steps: int, max_len):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: paged serving at full width
+# ---------------------------------------------------------------------------
+
+# 13a: phase 12a's prompts and a 510-token one, which ends two tokens
+# before the default page's edge (512), so its third decode step maps a new
+# page under a graph captured before it; FIFO, so no prompt is padded.
+PAGED_EXTRA = 510
+# 13b: a donor's prompt, and the page: 768 tokens are 12 whole pages.
+PREFIX_DONOR, PREFIX_TAIL, PREFIX_PAGE = 768, 32, 64
+# 13c: h2o-danube-1.8b at full width and 4 of its 24 layers.
+PAGED_H2O_LAYERS, PAGED_H2O_MAX_LEN = 4, 4352
+PAGED_H2O_LENGTHS = (4200, 4090, 64)
+
+
+def _paged_engine(cfg, params, mode: str, paged: bool, slots: int = 4,
+                  max_len: int = CHUNK_MAX_LEN, **kw):
+    """A captured engine (FIFO) in ``mode``: unchunked, or chunked or
+    packed under phase 12a's step budget; with ``paged`` on the pool."""
+    import torch
+
+    from repro_torch.serve import ServeEngine
+
+    return ServeEngine(
+        cfg, params, max_len=max_len, slots=slots, dtype=torch.float32,
+        device="cuda", chunk_prefill=mode != "unchunked",
+        pack_prefill=mode == "packed",
+        step_token_budget=CHUNK_BUDGET if mode != "unchunked" else 0,
+        prefill_slots=3 if mode == "packed" else 2, paged=paged, **kw)
+
+
+def _count_captures(eng):
+    """Count each slot's captures (warm-up and capture of its step)."""
+    counts = [0] * eng.slots
+    real = eng._capture
+
+    def capture(slot):
+        counts[next(i for i, s in enumerate(eng._slots) if s is slot)] += 1
+        real(slot)
+
+    eng._capture = capture
+    return counts
+
+
+def _serve_counted(eng, prompts, new_tokens: int):
+    """Serve ``prompts`` to the end with the launch counts set to 0 just
+    before: (tokens per prompt, launches, seconds, captures per slot)."""
+    import torch
+
+    from repro_torch.kernels import build
+
+    captures = _count_captures(eng)
+    build.reset_launches()
+    t0 = time.perf_counter()
+    rids = [eng.add_request(p, max_new_tokens=new_tokens) for p in prompts]
+    check(all(r is not None for r in rids), f"requests rejected: {rids}")
+    done = {r.rid: r for r in eng.run_until_done()}
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(build.LAUNCHES)
+    check(sorted(done) == sorted(rids), "not every request finished")
+    return [done[r].out_tokens for r in rids], launches, dt, captures
+
+
+def _check_pool(eng, label: str):
+    """The drained pool: balanced, every page allocated also freed."""
+    try:
+        eng.pool.check_balanced()
+    except AssertionError as exc:
+        raise SmokeError(f"{label}: pool not balanced: {exc}") from None
+    pool = eng.metrics.as_dict()["pool"]
+    check(pool["page_allocs"] == pool["page_frees"] > 0,
+          f"{label}: {pool['page_allocs']} page allocs, "
+          f"{pool['page_frees']} frees")
+    return pool
+
+
+def paged_serve(cfg, params, phase4_prompts):
+    """Phase 13a: full-width qwen2-1.5b on the paged pool (default page)
+    against the port's unpaged engine, unchunked, chunked and packed:
+    phase 12a's seven prompts and a 510-token one, 16 new tokens each.
+    Tokens held (``hold_tokens``), the pool balanced, matmul,
+    flash_attention and flash_decode launched under paging (counts set to
+    0 just before each paged serve), each slot captured once and as often
+    as the unpaged run's, and the peak of pages in use x page beside the
+    rows the unpaged engine's caches hold."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    prompts = [np.asarray(p) for p in phase4_prompts]
+    prompts.append(rng.integers(2, cfg.vocab_size, size=CHUNK_LENGTHS[-1]))
+    prompts.append(rng.integers(2, cfg.vocab_size, size=PAGED_EXTRA))
+    new_tokens = 16
+    out = {}
+    for mode in ("unchunked", "chunked", "packed"):
+        base = _paged_engine(cfg, params, mode, paged=False)
+        want, base_launches, base_s, base_caps = _serve_counted(
+            base, prompts, new_tokens)
+        base_sets = base.slots + base.cache_sets_made
+        base_rows = CHUNK_MAX_LEN * base_sets
+        del base
+        eng = _paged_engine(cfg, params, mode, paged=True)
+        got, launches, dt, caps = _serve_counted(eng, prompts, new_tokens)
+        for name in SERVE_KERNELS:
+            check(launches[name] > 0, f"paged {mode}: {name} never launched")
+        check(caps == base_caps and caps == [1] * eng.slots,
+              f"paged {mode}: captures per slot {caps}, unpaged {base_caps}")
+        differ = sum(hold_tokens(params, cfg, p, a, b, f"paged {mode} "
+                                 f"prompt {len(p)}")
+                     for p, a, b in zip(prompts, got, want))
+        pool = _check_pool(eng, f"paged {mode}")
+        page = eng.pool.page
+        rec = dict(page=page, n_pt=eng.pool.n_pt, pool_pages=eng.pool.n_pages,
+                   seconds=dt, unpaged_seconds=base_s, launches=launches,
+                   unpaged_launches=base_launches, captures=caps,
+                   tokens_differ=differ, pool=pool,
+                   peak_rows=pool["pages_used_max"] * page,
+                   unpaged_rows=base_rows,
+                   chunks_per_prefill=eng.metrics.as_dict()[
+                       "chunked_prefill"]["chunks_per_prefill"])
+        out[mode] = rec
+        log(f"  {mode}: {len(prompts)} requests, {len(prompts) * new_tokens}"
+            f" tokens in {dt:.3f} s paged, {base_s:.3f} s unpaged; page "
+            f"{page} ({eng.pool.n_pt} table entries, pool of "
+            f"{eng.pool.n_pages} pages); {differ} token streams differ (each"
+            f" within the plain top-2 margin); captures per slot {caps}")
+        log(f"    pool: {pool['page_allocs']} allocs = {pool['page_frees']} "
+            f"frees, peak {pool['pages_used_max']} pages x {page} = "
+            f"{rec['peak_rows']} rows against the unpaged engine's "
+            f"{base_rows} ({base_sets} cache sets of {CHUNK_MAX_LEN}); "
+            f"launches {launches}")
+    return out
+
+
+def prefix_sharing(cfg, params):
+    """Phase 13b: a 768-token donor decodes while a request of the same 768
+    tokens and 32 more arrives; once that one has its first token, one of
+    the donor's 768 exactly arrives (768 is 12 whole pages of 64, so the
+    800-token request maps them and splits none; the repeat's hit is
+    capped at 767 and it splits the shared last page). Unchunked, page 64,
+    with sharing against without: tokens equal, at least one prefix hit
+    and one copy-on-write split, and the 800-token request's time to first
+    token on the host clock (its submit to its first token)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(13)
+    donor = rng.integers(2, cfg.vocab_size, size=PREFIX_DONOR)
+    tail = np.concatenate([donor, rng.integers(2, cfg.vocab_size,
+                                               size=PREFIX_TAIL)])
+    out = {}
+    for sharing in (True, False):
+        eng = _paged_engine(cfg, params, "unchunked", paged=True,
+                            page_size=PREFIX_PAGE, prefix_sharing=sharing)
+        first = {}
+        record = eng.metrics.record_first_token
+
+        def stamp(rid, bucket, record=record):
+            first[rid] = time.perf_counter()   # after the token's readback
+            record(rid, bucket)
+
+        eng.metrics.record_first_token = stamp
+        rid_d = eng.add_request(donor, max_new_tokens=32)
+        eng.step()                      # the donor prefills and registers
+        eng.step()                      # and decodes
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rid_t = eng.add_request(tail, max_new_tokens=8)
+        done = {}
+        while rid_t not in first:
+            done.update((r.rid, r.out_tokens) for r in eng.run_until_done(1))
+        rid_r = eng.add_request(donor, max_new_tokens=8)
+        done.update((r.rid, r.out_tokens) for r in eng.run_until_done())
+        check(sorted(done) == sorted((rid_d, rid_t, rid_r)),
+              "not every request finished")
+        pool = _check_pool(eng, f"prefix sharing {sharing}")
+        out[sharing] = dict(tokens=[done[r] for r in (rid_d, rid_t, rid_r)],
+                            pool=pool, ttft_ms=(first[rid_t] - t0) * 1e3)
+    on, off = out[True], out[False]
+    for label, a, b, p in zip(("donor", "donor+32", "donor again"),
+                              on["tokens"], off["tokens"],
+                              (donor, tail, donor)):
+        hold_tokens(params, cfg, p, a, b, f"prefix sharing {label}")
+    check(on["pool"]["prefix_hits"] >= 1, "prefix reuse never fired")
+    check(on["pool"]["cow_splits"] >= 1, "no copy-on-write split")
+    check(off["pool"]["prefix_hits"] == 0 and off["pool"]["cow_splits"] == 0,
+          "sharing off still shared")
+    log(f"  page {PREFIX_PAGE}: {on['pool']['prefix_hits']} prefix hits, "
+        f"{on['pool']['prefix_tokens_reused']} tokens reused, "
+        f"{on['pool']['cow_splits']} copy-on-write splits; tokens equal to "
+        f"the run without sharing; the {PREFIX_DONOR + PREFIX_TAIL}-token "
+        f"request's TTFT {on['ttft_ms']:.1f} ms with sharing, "
+        f"{off['ttft_ms']:.1f} ms without (host clock); peak pages "
+        f"{on['pool']['pages_used_max']} / {off['pool']['pages_used_max']}")
+    return dict(with_sharing=on, without_sharing=off)
+
+
+def paged_windowed():
+    """Phase 13c: h2o-danube-1.8b at full width (D 80, window 4096) and 4
+    of its layers, paged (unchunked, the default page): windowed decode
+    over the linear paged view against the ring engine's tokens, prompts
+    of 4200 (past the window at prefill), 4090 (crosses it while decoding)
+    and 64, 16 new tokens each."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.models import api
+
+    full = configs.get_arch("h2o-danube-1.8b")
+    cfg = dataclasses.replace(
+        full, n_layers=PAGED_H2O_LAYERS,
+        layer_pattern=full.layer_pattern[:PAGED_H2O_LAYERS]).validate()
+    params = api.init_params(cfg, 0, dtype=torch.float32, device="cuda")
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(2, cfg.vocab_size, size=n)
+               for n in PAGED_H2O_LENGTHS]
+    ring = _paged_engine(cfg, params, "unchunked", paged=False, slots=3,
+                         max_len=PAGED_H2O_MAX_LEN)
+    check(all(c["k"].shape[2] == cfg.attn_window
+              for c in ring._slots[0].caches), "the ring engine has no rings")
+    want, _, ring_s, _ = _serve_counted(ring, prompts, 16)
+    del ring
+    eng = _paged_engine(cfg, params, "unchunked", paged=True, slots=3,
+                        max_len=PAGED_H2O_MAX_LEN)
+    got, launches, dt, caps = _serve_counted(eng, prompts, 16)
+    for name in SERVE_KERNELS:
+        check(launches[name] > 0, f"paged h2o-danube: {name} never launched")
+    differ = sum(hold_tokens(params, cfg, p, a, b, f"paged h2o-danube "
+                             f"prompt {len(p)}")
+                 for p, a, b in zip(prompts, got, want))
+    pool = _check_pool(eng, "paged h2o-danube")
+    log(f"  {len(prompts)} requests ({', '.join(map(str, PAGED_H2O_LENGTHS))}"
+        f"-token prompts) in {dt:.3f} s paged (page {eng.pool.page}, view "
+        f"{eng.pool.n_pt * eng.pool.page} rows, window {cfg.attn_window}), "
+        f"{ring_s:.3f} s on rings; {differ} token streams differ (within the "
+        f"plain top-2 margin); captures {caps}; launches {launches}")
+    return dict(seconds=dt, ring_seconds=ring_s, launches=launches,
+                tokens_differ=differ, pool=pool, page=eng.pool.page,
+                tokens=got)
+
+
+def _paged_decode_times(cfg, params, slots: int, paged: bool, profile: bool,
+                        prompt_len: int = 600, steps: int = 12,
+                        reps: int = 3):
+    """The engine's captured decode at ``slots`` slots (600-token prompts,
+    phase 13a's geometry): host-clock ms a step (median of ``reps`` runs of
+    ``steps``) and device ms a step (CUDA events around ``steps`` rounds
+    of the slots' graph replays). Paged, the pages those replays write are
+    mapped first, and every slot's position is put back after them. With
+    ``profile``, the device ms of one round by kernel name."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(4)
+    eng = _paged_engine(cfg, params, "unchunked", paged=paged, slots=slots)
+    for _ in range(slots):
+        eng.add_request(rng.integers(2, cfg.vocab_size, size=prompt_len),
+                        max_new_tokens=(reps + 3) * steps + 8)
+    eng.step()                 # prefill, warm-up, capture, first replay
+    eng.step()
+    host = statistics.median(per_step_ms(eng.step, steps)
+                             for _ in range(reps))
+    check(eng.in_flight() == slots, "a request left the engine early")
+    active = [(s, r) for s, r in zip(eng._slots, eng._active)]
+    if paged:
+        for slot, req in active:
+            eng.pool.prepare_span(req.rid, eng._pos[req.rid], 2 * steps)
+            eng.pool.device_table(req.rid, slot.table)
+            slot.table_host = list(eng.pool.tables[req.rid])
+    saved = [[c["pos"].clone() for c in s.caches] for s, _ in active]
+    graphs = [s.graph for s, _ in active]
+    check(all(g is not None for g in graphs), "a slot has no graph")
+
+    def rounds(n):
+        for _ in range(n):
+            for g in graphs:
+                g.replay()
+
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    rounds(steps)
+    end.record()
+    torch.cuda.synchronize()
+    device = start.elapsed_time(end) / steps
+    kernels = device_kernels(lambda: rounds(1), calls=3) if profile else None
+    for (s, _), pos in zip(active, saved):
+        for c, p in zip(s.caches, pos):
+            c["pos"].copy_(p)
+    eng.run_until_done()
+    if paged:
+        _check_pool(eng, f"paged decode timing at {slots} slots")
+    return dict(host_ms=host, device_ms=device, kernels_ms=kernels)
+
+
+def paged_decode_step(cfg, params, profile: bool):
+    """Phase 13d: the captured decode step, paged (page 512, a 1536-row
+    gathered view) against unpaged (1280-row caches), at 1 and 4 slots, in
+    turns (unpaged, paged, paged, unpaged; the medians of each pair); with
+    ``profile`` the gather's share of a paged step's device time (the
+    index_select kernels). Then the attention call alone on the card:
+    flash_decode over a 1280-row cache beside the paged call (the gather of
+    K and V and flash_decode over the 1536-row view) and the gather alone,
+    all at position 600."""
+    import torch
+
+    from repro_torch.kernels.flash_attention.decode import (
+        flash_decode, paged_gather,
+    )
+
+    out = {}
+    for slots in (1, 4):
+        runs = {False: [], True: []}
+        for paged in (False, True, True, False):
+            runs[paged].append(_paged_decode_times(
+                cfg, params, slots, paged, profile and slots == 1))
+        rec = {}
+        for paged, label in ((False, "unpaged"), (True, "paged")):
+            rec[label] = dict(
+                host_ms=statistics.median(r["host_ms"] for r in runs[paged]),
+                device_ms=statistics.median(r["device_ms"]
+                                            for r in runs[paged]),
+                runs=[dict(host_ms=r["host_ms"], device_ms=r["device_ms"])
+                      for r in runs[paged]])
+        if profile and slots == 1:
+            for paged, label in ((False, "unpaged"), (True, "paged")):
+                ks = runs[paged][0]["kernels_ms"]
+                busy = sum(ks.values())
+                gather = sum(ms for k, ms in ks.items() if "indexSelect" in k)
+                rec[label].update(profile_busy_ms=busy, gather_ms=gather,
+                                  gather_share=gather / busy if busy else 0.0,
+                                  kernels_ms=ks)
+        out[f"slots_{slots}"] = rec
+        u, p = rec["unpaged"], rec["paged"]
+        log(f"  decode at {slots} slot(s): unpaged {u['host_ms']:.3f} ms a "
+            f"step on the host clock, {u['device_ms']:.3f} on the device; "
+            f"paged {p['host_ms']:.3f} / {p['device_ms']:.3f} "
+            f"({100 * (p['device_ms'] / u['device_ms'] - 1):+.1f}% device)")
+        if "gather_ms" in p:
+            log(f"    profiler: paged step busy {p['profile_busy_ms']:.3f} "
+                f"ms, the gather (index_select) {p['gather_ms']:.4f} ms "
+                f"({100 * p['gather_share']:.1f}%); unpaged busy "
+                f"{u['profile_busy_ms']:.3f} ms")
+
+    # The attention call alone, on one layer's shapes, each call on its own
+    # copy of the inputs (``copies_for``: they overflow the L2).
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    page, n_pt, n_pages = 512, 3, 12
+    hkv, d = cfg.padded_kv_heads, cfg.head_dim_
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    q = randn(1, cfg.padded_heads, d)
+    pos = dev_pos(600)
+    table = torch.tensor([7, 2, 10], dtype=torch.int32, device="cuda")
+    view_bytes = 2 * 2 * hkv * n_pt * page * d * 4
+    linear = [(randn(1, hkv, CHUNK_MAX_LEN, d), randn(1, hkv, CHUNK_MAX_LEN,
+                                                      d))
+              for _ in range(copies_for(2 * hkv * CHUNK_MAX_LEN * d * 4))]
+    pages = [(randn(n_pages, hkv, page, d), randn(n_pages, hkv, page, d))
+             for _ in range(copies_for(view_bytes))]
+
+    def unpaged_call(k, v):
+        return lambda: flash_decode(q, k, v, pos=pos)
+
+    def paged_call(kp, vp):
+        return lambda: flash_decode(q, paged_gather(kp, table),
+                                    paged_gather(vp, table), pos=pos)
+
+    def gather(kp, vp):
+        return lambda: (paged_gather(kp, table), paged_gather(vp, table))
+
+    calls = dict(unpaged_ms=time_ms([unpaged_call(*kv) for kv in linear]),
+                 paged_ms=time_ms([paged_call(*kv) for kv in pages]),
+                 gather_ms=time_ms([gather(*kv) for kv in pages]))
+    del linear, pages
+    calls["gather_bound_ms"] = view_bytes / HBM_BYTES_PER_S * 1e3
+    out["attention_call"] = calls
+    log(f"  one layer's attention call at position 600: flash_decode over "
+        f"{CHUNK_MAX_LEN} rows {calls['unpaged_ms']:.4f} ms; paged (gather + "
+        f"flash_decode over {n_pt * page} rows) {calls['paged_ms']:.4f} ms; "
+        f"the gather alone {calls['gather_ms']:.4f} ms (bound "
+        f"{calls['gather_bound_ms']:.4f} ms: {view_bytes} bytes)")
+    return out
+
+
 # The launcher's archs (phase 8) and the kernels each one's serve runs.
 ATTN_KERNELS = ("matmul", "flash_attention", "flash_decode")
 LAUNCHER_KERNELS = {"qwen2-1.5b": ATTN_KERNELS, "gemma2-9b": ATTN_KERNELS,
@@ -2316,10 +2724,11 @@ LAUNCHER_KERNELS = {"qwen2-1.5b": ATTN_KERNELS, "gemma2-9b": ATTN_KERNELS,
 
 
 def run_launcher():
-    """The launcher at the smoke configs of qwen2-1.5b, of the two windowed
-    archs (ring caches; 20 new tokens wrap gemma2's and h2o-danube's 16-slot
-    rings), of mamba2-2.7b (SSD states) and of recurrentgemma-9b (RG-LRU
-    states beside 16-slot rings), each in its own process."""
+    """The launcher at the smoke configs of qwen2-1.5b (also chunked,
+    packed and paged), of the two windowed archs (ring caches; 20 new
+    tokens wrap gemma2's and h2o-danube's 16-slot rings), of mamba2-2.7b
+    (SSD states) and of recurrentgemma-9b (RG-LRU states beside 16-slot
+    rings), each in its own process."""
     env = dict(os.environ)
     env["PYTHONPATH"] = str(SRC) + (os.pathsep + env["PYTHONPATH"]
                                     if env.get("PYTHONPATH") else "")
@@ -2327,6 +2736,7 @@ def run_launcher():
     for mode in ("--chunk-prefill", "--pack-prefill"):
         runs[f"qwen2-1.5b {mode}"] = [mode, "--step-token-budget", "40",
                                       "--scheduler", "bucket"]
+    runs["qwen2-1.5b --paged"] = ["--paged"]
     procs = {name: subprocess.Popen(
         [sys.executable, "-m", "repro_torch.launch.serve", "--device", "cuda",
          *args, "--requests", "4", "--new-tokens", "20"],
@@ -2352,6 +2762,9 @@ def run_launcher():
         if name != arch:
             check("chunked prefill:" in stdout,
                   f"launcher ({name}) printed no chunk metrics")
+        if name.endswith("--paged"):
+            check("kv pool:" in stdout,
+                  f"launcher ({name}) printed no pool metrics")
 
 
 # ---------------------------------------------------------------------------
@@ -2704,9 +3117,27 @@ def main(argv=None) -> int:
                 cfg, params, result["serve"]["prompts"])
             log("== 12b: a 16-token request behind a 1000-token one")
             result["short_behind_long"] = short_behind_long(cfg, params)
+            phase_done("chunked", t0)
+
+            # 13. Paged serving (13c loads its own model).
+            log("== 13: paged serving, full-width qwen2-1.5b (28 layers, "
+                "float32), the default page, against the unpaged engine")
+            t0 = time.perf_counter()
+            result["paged_serve"] = paged_serve(
+                cfg, params, result["serve"]["prompts"])
+            log(f"== 13b: shared prefixes and copy-on-write (page "
+                f"{PREFIX_PAGE})")
+            result["prefix_sharing"] = prefix_sharing(cfg, params)
+            log("== 13d: the captured decode step, paged vs unpaged")
+            result["paged_decode"] = paged_decode_step(cfg, params,
+                                                       args.profile)
             del params
             torch.cuda.empty_cache()
-            phase_done("chunked", t0)
+            log("== 13c: h2o-danube-1.8b at full width, 4 layers, paged "
+                "(windowed decode over the linear view) vs rings")
+            result["paged_windowed"] = paged_windowed()
+            torch.cuda.empty_cache()
+            phase_done("paged", t0)
 
             # 6. Full-width h2o-danube-1.8b on ring caches.
             log("== serve full-width h2o-danube-1.8b (24 layers, float32, "

@@ -15,8 +15,10 @@ written prefix, or a ring's survivors rotated past its wrap, one launch a
 segment in a pack. These functions stay the reference the tests and the
 card's checks hold that route against.
 
-The paged variants (``paged_prefix``, ``flash_prefill_chunk_paged_ref``)
-come with the paged serving slice.
+Over the paged pool (``serve/pool.py``), :func:`paged_prefix` gathers a
+chunk's prefix pages into a positioned linear view and
+:func:`flash_prefill_chunk_paged_ref` runs the chunk over it: the CPU path
+of a paged chunk, and the card's plain version of it.
 """
 from __future__ import annotations
 
@@ -24,6 +26,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels.flash_attention.decode import paged_gather
 from repro_torch.kernels.flash_attention.ref import NEG_INF, fit_bkv
 
 
@@ -111,4 +114,41 @@ def flash_prefill_packed_ref(
     return out.reshape(b, hq, sq, d).to(q.dtype)
 
 
-__all__ = ["flash_prefill_chunk_ref", "flash_prefill_packed_ref"]
+def paged_prefix(k_pages, v_pages, page_table, n_prefix_pages: int, start):
+    """The cache prefix a chunk at ``start`` sees, from the paged pool:
+    ``(k, v, kv_pos)``, k/v the first ``n_prefix_pages`` table entries'
+    linear view ``[1, Hkv, n_prefix_pages*page, D]`` and ``kv_pos`` each
+    row's position, ``-1`` from ``start`` on. The mask hides the unwritten
+    tail of a partial last page and, in a page shared by prefix reuse, the
+    donor's own rows past the shared length."""
+    table = page_table[:n_prefix_pages]
+    k = paged_gather(k_pages, table)
+    v = paged_gather(v_pages, table)
+    pos = torch.arange(k.shape[2], device=k.device)
+    return k, v, torch.where(pos < start, pos, -1)
+
+
+def flash_prefill_chunk_paged_ref(
+    q, k_chunk, v_chunk, k_pages, v_pages, page_table, *,
+    q_pos, start, n_prefix_pages: int,
+    window: Optional[int] = None, softcap: Optional[float] = None,
+    scale: Optional[float] = None, bkv: int = 512,
+):
+    """:func:`flash_prefill_chunk_ref` over a paged prefix: the prefix
+    pages (:func:`paged_prefix`), then the chunk's own keys at ``q_pos``."""
+    q_pos = _as_index(q_pos, q.device)
+    if n_prefix_pages:
+        kp, vp, pp = paged_prefix(k_pages, v_pages, page_table,
+                                  n_prefix_pages, start)
+        k_all = torch.cat([kp, k_chunk.to(kp.dtype)], dim=2)
+        v_all = torch.cat([vp, v_chunk.to(vp.dtype)], dim=2)
+        kv_pos = torch.cat([pp, q_pos])
+    else:
+        k_all, v_all, kv_pos = k_chunk, v_chunk, q_pos
+    return flash_prefill_chunk_ref(q, k_all, v_all, q_pos=q_pos, kv_pos=kv_pos,
+                                   window=window, softcap=softcap, scale=scale,
+                                   bkv=bkv)
+
+
+__all__ = ["flash_prefill_chunk_paged_ref", "flash_prefill_chunk_ref",
+           "flash_prefill_packed_ref", "paged_prefix"]

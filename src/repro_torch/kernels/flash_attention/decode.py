@@ -18,6 +18,17 @@ absolute key position (``-1`` marks never-written slots); without it the
 cache is linear (slot i holds position i). A key is visible iff
 ``0 <= kv_pos <= pos`` and, with ``window``, ``kv_pos > pos - window``.
 Optional logit ``softcap``.
+
+The paged pool (``serve/pool.py``) keeps a request's rows in pages behind a
+page table: ``pages`` ``[n_pages, Hkv, page, D]``, ``page_table`` ``[n_pt]``
+int32, the physical page of each logical page. :func:`paged_gather` lays the
+table's pages out as the linear view ``[1, Hkv, n_pt*page, D]`` (slot i is
+position i, so ``pos`` masks the unwritten tail and the unmapped entries,
+which point at page 0), :func:`paged_write` puts rows through the table in
+place, and :func:`flash_decode_paged_ref` is the plain decode over the
+view. They are plain PyTorch, as the reference's are plain jnp beside its
+Pallas kernel; on the card the model gathers the view and launches
+:func:`flash_decode` over it.
 """
 from __future__ import annotations
 
@@ -305,6 +316,45 @@ def flash_decode_split_ref(
     return out.reshape(b, hq, d).to(q.dtype)
 
 
+def paged_gather(pages, page_table):
+    """The linear view ``[1, Hkv, n_pt*page, D]`` of one request's pages,
+    in one copy (an ``index_select`` over the page axis of the head-major
+    view). Rows past the request's written length hold whatever their page
+    holds; callers mask them by position."""
+    n_pt = page_table.shape[0]
+    _, hkv, page, d = pages.shape
+    view = pages.transpose(0, 1).index_select(1, page_table)
+    return view.reshape(1, hkv, n_pt * page, d)
+
+
+def paged_write(pages, page_table, x, start):
+    """Write ``x`` ``[1, Hkv, c, D]`` into ``pages`` in place at positions
+    ``start .. start+c-1``: row i lands in page ``page_table[(start+i) //
+    page]`` at offset ``(start+i) % page``. ``start`` is an int or a 0-d
+    tensor on the pages' device (a decode's ``pos``, which the page and
+    offset are then computed from on the device, so the write can be
+    captured). Returns ``pages``."""
+    c, page = x.shape[2], pages.shape[2]
+    idx = start + torch.arange(c, device=pages.device)
+    phys = page_table.index_select(0, idx // page).long()
+    pages[phys, :, idx % page] = x[0].transpose(0, 1).to(pages.dtype)
+    return pages
+
+
+def flash_decode_paged_ref(
+    q, k_pages, v_pages, page_table, *, pos,
+    window: Optional[int] = None, softcap: Optional[float] = None,
+    scale: Optional[float] = None, bkv: int = 512,
+):
+    """:func:`flash_decode_ref` over a paged cache: the table's linear view,
+    masked by ``pos`` as a linear cache is."""
+    k = paged_gather(k_pages, page_table)
+    v = paged_gather(v_pages, page_table)
+    return flash_decode_ref(q, k, v, pos=pos, window=window, softcap=softcap,
+                            scale=scale, bkv=bkv)
+
+
 __all__ = ["DecodeSplits", "NEG_INF", "decode_splits", "fit_bkv",
-           "flash_decode", "flash_decode_ref", "flash_decode_split_ref",
-           "launch_bkv", "smem_bytes", "split_count", "threads"]
+           "flash_decode", "flash_decode_paged_ref", "flash_decode_ref",
+           "flash_decode_split_ref", "launch_bkv", "paged_gather",
+           "paged_write", "smem_bytes", "split_count", "threads"]

@@ -62,7 +62,24 @@ site reports a ``fallback`` tile event, as the plain version's KV split
 does where a bkv does not divide the keys. The sweep never picks such a
 bkv.
 
-The kv_page spec of the reference comes with the paged serving path.
+``kv_page`` (the page size of the paged KV pool, ``serve/pool.py``): the
+    reference's problem dims {"skv", "d", "hkv"} and tile rank 1 =
+    (page,), repriced for the H100. On a TPU a step stages one K and one V
+    page in VMEM, which bounds the page per chip. Here no launch stages a
+    page in shared memory: decode gathers the table's pages into a linear
+    view and ``flash_decode`` streams that, a chunk gathers its prefix
+    pages for ``flash_attention``. So shared memory bounds nothing, and the
+    page is bounded by the cache length alone. What a page costs is
+    charged in bytes of one decode step's gather, per layer
+    (:func:`page_bytes`): the K and V pages read and the view written
+    (``n_pt * page`` rows, so a page that does not divide the cache pays
+    its rounding every step), a DRAM page opened per contiguous
+    (page, head) run, and the ``n_pt`` int32 table entries, which favour
+    large pages; a copy-on-write split's page copy once per request
+    spread over its ``skv`` steps, and the pool's tail waste (page/2 rows
+    a request on average that hold no token, the pool's capacity scaled
+    by ``1 + page / (2 skv)``), which favour small ones. The default
+    stays the reference's min(512, skv).
 """
 from __future__ import annotations
 
@@ -71,7 +88,7 @@ from typing import Mapping
 
 from repro_torch.core import registry
 from repro_torch.core.cost_model import (
-    BF16_TENSOR, TF32X3, TileWorkload,
+    BF16_TENSOR, DRAM_PAGE_BYTES, TF32X3, TileWorkload,
 )
 from repro_torch.core.hardware import H100_SXM
 from repro_torch.core.tiling import (
@@ -377,7 +394,57 @@ PACKED_SPEC = registry.register(registry.KernelSpec(
 ))
 
 
-__all__ = ["CHUNKED_SPEC", "DECODE_SPEC", "FLASH_SPEC", "PACKED_SPEC",
-           "PACK_ROUND_SEGS",
+# ---------------------------------------------------------------------------
+# kv_page: the page size of the paged KV pool.
+# ---------------------------------------------------------------------------
+
+# Threads of a block of the gather (PyTorch's index_select copy).
+GATHER_THREADS = 256
+
+
+def page_bytes(page: int, problem: Mapping[str, int], dtype: str) -> float:
+    """Device-memory bytes one layer's decode step moves because of the
+    page size (module docstring): the gathered K and V view read and
+    written, a DRAM page per contiguous (page, head) run, the table, a
+    copy-on-write page copy spread over the request's steps, all scaled by
+    the pool's tail waste."""
+    skv, hkv = max(problem["skv"], 1), max(problem["hkv"], 1)
+    row = hkv * problem["d"] * dtype_bytes(dtype)
+    n_pt = cdiv(skv, page)
+    moved = (4 * n_pt * page * row
+             + 2 * n_pt * hkv * DRAM_PAGE_BYTES
+             + 4 * n_pt
+             + 4 * page * row / skv)
+    return moved * (1 + page / (2 * skv))
+
+
+def _kv_page_workload(tile: TileShape, problem: Mapping[str, int],
+                      dtype: str) -> TileWorkload:
+    # The gather spreads over a wave of blocks, one SM's share a tile.
+    return TileWorkload(
+        flops=0.0,
+        hbm_bytes=page_bytes(int(tile[0]), problem, dtype) / H100_SXM.num_sm,
+        row_segments=1,
+        row_stride_bytes=float(problem["d"] * dtype_bytes(dtype)),
+        threads=GATHER_THREADS,
+        bulk_copies=True,
+    )
+
+
+KV_PAGE_SPEC = registry.register(registry.KernelSpec(
+    name="kv_page",
+    constraints=lambda problem: TileConstraints(
+        rank=1, max_dims=(problem["skv"],), lane_dim=0, vmem_fraction=1.0),
+    # No launch stages a page in shared memory.
+    vmem_bytes=lambda tile, problem, dtype: 0.0,
+    workload=_kv_page_workload,
+    n_tiles=lambda tile, problem: H100_SXM.num_sm,
+    default_tile=lambda problem, dtype: TileShape(
+        (min(512, problem["skv"]),)),
+))
+
+
+__all__ = ["CHUNKED_SPEC", "DECODE_SPEC", "FLASH_SPEC", "KV_PAGE_SPEC",
+           "PACKED_SPEC", "PACK_ROUND_SEGS", "page_bytes",
            "attention_dense_ref", "chunk_bq", "chunk_launch_tile",
            "flash_attention", "flash_attention_ref", "flash_decode"]

@@ -22,11 +22,13 @@ the measured best (:func:`print_report`, which reads any saved artifact).
 
 Which kernels a descriptor gets: the paper's gather kernel ``bilinear_cuda``
 only the modelled GPUs; every kernel the port runs only the H100. Cells of
-kernels the port has not ported yet (kv_page) are left out, and named on
-stdout and in ``meta["unported_kernels"]``. The ``chunked_prefill`` and
-``packed_prefill`` cells (``--serve-buckets``) keep the cost model's score
-under ``--measure wallclock`` too: ``launch/measure.py`` has no timer for
-a serving step, as the reference's has none.
+a kernel with no spec in the port would be left out and named on stdout
+and in ``meta["unported_kernels"]``; every kernel of the reference has one,
+so the list is empty. The ``chunked_prefill`` and ``packed_prefill`` cells
+(``--serve-buckets``) and the ``kv_page`` cells (every decode cell) keep
+the cost model's score under ``--measure wallclock`` too:
+``launch/measure.py`` has no timer for a serving step or a page size, as
+the reference's has none.
 """
 from __future__ import annotations
 

@@ -17,8 +17,9 @@ Gating, with no fallback that hides the card or a kernel:
   here has): ``None``, so the cell is scored by the cost model;
 * ``h100_sxm`` without a CUDA device: ``RuntimeError``;
 * a serving cell (``chunked_prefill``, ``packed_prefill``: a tile is a
-  step's chunk or pack width, not one launch's block): ``None``, scored by
-  the cost model, as the reference's ``launch/measure.py`` leaves it.
+  step's chunk or pack width, not one launch's block; ``kv_page``: the
+  paged pool's page size): ``None``, scored by the cost model, as the
+  reference's ``launch/measure.py`` leaves it.
 
 ``make_cell_timer`` is the same path for callers that always need a number:
 the card's time on the H100, the cost model's score on a modelled target.
@@ -35,7 +36,7 @@ from repro_torch.core.tiling import TileShape
 MeasureFn = Callable[[TileShape], float]
 
 # Serving cells the cost model scores on every descriptor.
-ANALYTIC_ONLY = ("chunked_prefill", "packed_prefill")
+ANALYTIC_ONLY = ("chunked_prefill", "packed_prefill", "kv_page")
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 

@@ -14,6 +14,7 @@
         --chunk-prefill --step-token-budget 40 --scheduler bucket
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
         --pack-prefill --step-token-budget 40 --scheduler bucket
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --paged
 
 Mirrors the single-engine path of ``repro/launch/serve.py``: it serves
 ``configs.get_smoke(arch)`` with random parameters from a fixed seed, the
@@ -31,8 +32,13 @@ captured CUDA graph. ``--chunk-prefill`` serves mixed steps (one prompt
 chunk beside the decode batch under ``--step-token-budget``, up to
 ``--prefill-slots`` prefills in flight) and ``--pack-prefill`` packs
 several chunks a step; both admit a prompt longer than the largest bucket
-edge by chunking it, and print the chunk metrics. The fleet, paged
-serving, plan refinement and tracing come with later slices.
+edge by chunking it, and print the chunk metrics. ``--paged`` serves from
+the paged KV pool (page from the plan's ``kv_page`` cell, else the
+default; shared prompt prefixes mapped copy-on-write unless
+``--no-prefix-sharing``; admission by the pool's headroom), every prefill
+as chunks, and prints the pool counters under ``kv pool`` (``pool`` in
+``--metrics-json``). The fleet, plan refinement and tracing come with
+later slices.
 """
 from __future__ import annotations
 
@@ -107,6 +113,13 @@ def main(argv=None):
                          "batch) into each step under --step-token-budget "
                          "and the plan's pack width (implies "
                          "--chunk-prefill)")
+    ap.add_argument("--paged", action="store_true",
+                    help="serve from the paged KV pool (page size from the "
+                         "plan's kv_page cell; shared-prefix copy-on-write "
+                         "reuse; admission by pool headroom — implies "
+                         "--chunk-prefill)")
+    ap.add_argument("--no-prefix-sharing", action="store_true",
+                    help="disable shared-prefix page reuse in --paged mode")
     ap.add_argument("--metrics-json", action="store_true",
                     help="dump full metrics as JSON instead of the summary")
     args = ap.parse_args(argv)
@@ -119,7 +132,8 @@ def main(argv=None):
     if args.scheduler == "bucket":
         policy = build_policy(
             args.bucket_policy, plans, args.hardware, args.max_queue,
-            allow_overflow=args.chunk_prefill or args.pack_prefill)
+            allow_overflow=(args.chunk_prefill or args.pack_prefill
+                            or args.paged))
     engine = ServeEngine(cfg, params, max_len=args.max_len, slots=args.slots,
                          dtype=dtype, plans=plans,
                          hardware=HARDWARE_REGISTRY[args.hardware],
@@ -128,6 +142,8 @@ def main(argv=None):
                          step_token_budget=args.step_token_budget,
                          prefill_slots=args.prefill_slots,
                          pack_prefill=args.pack_prefill,
+                         paged=args.paged,
+                         prefix_sharing=not args.no_prefix_sharing,
                          device=args.device)
 
     build.reset_launches()

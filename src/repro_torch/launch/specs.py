@@ -92,8 +92,7 @@ def resolve_model_tiles(plans, cfg: ArchConfig, batch: int, seq_len: int,
     hold it. Returns ``(tiles, resolutions)``: kernel name -> TileShape, and
     kernel name -> PlanResolution for the cells the plan satisfied. A
     ``chunked_prefill`` or ``packed_prefill`` cell (``kind`` of that name)
-    resolves like any other; kernels the port has no spec for yet
-    (kv_page) are left out.
+    resolves like any other, and so does a decode cell's ``kv_page``.
     """
     from repro_torch import kernels
 
@@ -101,8 +100,6 @@ def resolve_model_tiles(plans, cfg: ArchConfig, batch: int, seq_len: int,
     kernels.register_all()
     tiles, resolutions = {}, {}
     for kernel, problem in kernel_problems(cfg, batch, seq_len, kind).items():
-        if kernel not in registry.names():
-            continue
         res = (plans.resolve(kernel, problem, dtype, hardware)
                if plans is not None else None)
         if res is None:

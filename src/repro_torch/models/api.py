@@ -2,7 +2,10 @@
 
 Serve state is the per-layer cache list from :func:`make_serve_state`,
 consumed by :func:`prefill` / :func:`prefill_chunk` / :func:`prefill_packed`
-/ :func:`decode_step`. Functions that create
+/ :func:`decode_step`; a request served from the paged pool has the state
+of :func:`make_paged_state` and goes through :func:`prefill_chunk_paged` /
+:func:`prefill_packed_paged` / :func:`decode_step_paged`, beside the pool
+of :func:`make_paged_pool` and its page table. Functions that create
 tensors take ``device`` and run on ``cuda`` unless given ``device="cpu"``;
 the others run where the parameters live.
 """
@@ -127,3 +130,61 @@ def prefill_packed(params, cfg: ArchConfig, tokens, states, layout,
             "packed prefill is not supported for encoder-decoder models")
     return T.forward_packed(params, cfg, _tokens(params, tokens), states,
                             tuple(layout), tiles=tiles, impl=impl)
+
+
+# -- the paged pool ----------------------------------------------------------
+# Each entry mirrors its counterpart above with the pool and the request's
+# page table (``serve.pool.PagedKVPool``) beside the state; pages, state and
+# positions are written in place, and the pool comes back as the last output
+# (the same tensors), as the reference returns its updated pool.
+
+def make_paged_pool(cfg: ArchConfig, n_pages: int, page: int, dtype,
+                    device=None):
+    """The engine's page tensors (``transformer.make_paged_pool``)."""
+    _check_family(cfg)
+    return T.make_paged_pool(cfg, n_pages, page, dtype,
+                             device=resolve_device(device))
+
+
+def make_paged_state(cfg: ArchConfig, dtype, device=None):
+    """A paged request's state: ``pos`` on each attention layer, the usual
+    batch-1 state on a recurrent one."""
+    _check_family(cfg)
+    return T.make_caches(cfg, 1, 1, dtype, device=resolve_device(device),
+                         paged=True)
+
+
+def decode_step_paged(params, cfg: ArchConfig, token, state, pool, page_table,
+                      tiles: Tiles = None, impl: str = "auto"):
+    """token [1, 1] -> (logits [1, Vpad], state, pool). Nothing is read back
+    to the host, so a CUDA graph can capture it with the table tensor."""
+    _check_family(cfg)
+    out = T.forward(params, cfg, _tokens(params, token), caches=state,
+                    decode=True, tiles=tiles, impl=impl, pool=pool,
+                    page_table=page_table)
+    return out.logits[:, 0], out.caches, pool
+
+
+def prefill_chunk_paged(params, cfg: ArchConfig, tokens, state, start: int,
+                        pool, page_table, tiles: Tiles = None,
+                        impl: str = "auto"):
+    """:func:`prefill_chunk` over the paged pool. A request whose prompt
+    prefix was found in the pool starts at ``start`` = the shared length:
+    the mapped pages stand in for the chunks it never ran."""
+    _check_family(cfg)
+    out = T.forward(params, cfg, _tokens(params, tokens), caches=state,
+                    start_pos=start, chunked=True, logits_mode="last",
+                    tiles=tiles, impl=impl, pool=pool, page_table=page_table)
+    return out.logits[:, -1], out.caches, pool
+
+
+def prefill_packed_paged(params, cfg: ArchConfig, tokens, states, layout,
+                         pool, page_tables, tiles: Tiles = None,
+                         impl: str = "auto"):
+    """:func:`prefill_packed` over the paged pool, one page table per
+    segment. Returns (logits [N, Vpad], states, pool)."""
+    _check_family(cfg)
+    logits, states = T.forward_packed(
+        params, cfg, _tokens(params, tokens), states, tuple(layout),
+        tiles=tiles, impl=impl, pool=pool, page_tables=tuple(page_tables))
+    return logits, states, pool

@@ -35,8 +35,23 @@ cache, the positioned ``flash_prefill_chunk_ref`` on a ring
 (:func:`attn_prefill_packed`) projects several requests' chunks once; on
 the card each segment launches the kernel over its own keys and chunk (one
 launch a segment, the math of a chunk), and the CPU runs the reference's
-one segment-masked plain call. Paged and sequence-sharded attention come
-in later slices.
+one segment-masked plain call.
+
+A paged cache (``serve/pool.py``) is a layer's dict with the pool's page
+tensors ``k_pages`` / ``v_pages`` ``[n_pages, Hkv, page, D]``, the
+request's ``table`` ``[n_pt]`` int32 and its ``pos`` (the model merges
+them, ``transformer.forward``). Decode writes its row through the table
+(``paged_write``, page and offset computed on the device from ``pos``),
+gathers the table's linear view (``paged_gather``: slot i is position i)
+and attends over it as over a linear cache, ``pos`` masking the unwritten
+tail and the unmapped entries. A chunk at ``start`` gathers its
+``cdiv(start, page)`` prefix pages; on the card it cuts them to the first
+``start`` rows, appends its own K/V and launches ``flash_attention`` at
+``q_offset = start`` (:func:`_paged_chunk_keys`), on the CPU it runs the
+reference's positioned plain version (``flash_prefill_chunk_paged_ref``).
+The engine makes every written page the request's own before the call
+(``PagedKVPool.prepare_span``). Sequence-sharded attention comes in a later
+slice.
 """
 from __future__ import annotations
 
@@ -46,10 +61,14 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core.tiling import cdiv
 from repro_torch.kernels.flash_attention.chunked import (
-    flash_prefill_chunk_ref, flash_prefill_packed_ref,
+    flash_prefill_chunk_paged_ref, flash_prefill_chunk_ref,
+    flash_prefill_packed_ref, paged_prefix,
 )
-from repro_torch.kernels.flash_attention.decode import flash_decode, flash_decode_ref
+from repro_torch.kernels.flash_attention.decode import (
+    flash_decode, flash_decode_ref, paged_gather, paged_write,
+)
 from repro_torch.kernels.flash_attention.flash_attention import (
     flash_attention, launch_tile,
 )
@@ -124,6 +143,18 @@ def make_kv_cache(cfg: ArchConfig, batch: int, max_len: int, dtype,
         cache["slot_pos"] = torch.full((max_len,), -1, dtype=torch.int32,
                                        device=device)
     return cache
+
+
+def make_paged_kv_pages(cfg: ArchConfig, n_pages: int, page: int, dtype,
+                        device=None) -> Dict[str, Any]:
+    """One attention layer's share of the paged pool: ``k_pages`` /
+    ``v_pages`` ``[n_pages, Hkv, page, hd]``. Requests reach them through
+    their page tables; a request's own state keeps only ``pos``
+    (``transformer.make_caches(paged=True)``)."""
+    hkv, hd = cfg.padded_kv_heads, cfg.head_dim_
+    shape = (n_pages, hkv, page, hd)
+    return {"k_pages": torch.zeros(shape, dtype=dtype, device=device),
+            "v_pages": torch.zeros(shape, dtype=dtype, device=device)}
 
 
 def reset_kv_cache(cache: Dict[str, Any]) -> Dict[str, Any]:
@@ -290,6 +321,31 @@ def _chunk_keys(cache, k, v, start: int):
     return k_all, v_all, q_offset
 
 
+def _paged_chunk_keys(cache, k, v, start: int):
+    """:func:`_chunk_keys` of a paged cache: the ``cdiv(start, page)``
+    prefix pages gathered, cut to their first ``start`` rows (what the
+    plain version masks with ``kv_pos = -1``: a partial page's unwritten
+    tail, and a prefix donor's rows past the shared length), then the
+    chunk's own K/V, at ``q_offset = start``."""
+    if not start:
+        return k.contiguous(), v.contiguous(), 0
+    n_pp = cdiv(start, cache["k_pages"].shape[2])
+    table = cache["table"][:n_pp]
+    k_all, v_all = (
+        torch.cat([paged_gather(cache[name], table)[:, :, :start].to(t.dtype),
+                   t], dim=2)
+        for name, t in (("k_pages", k), ("v_pages", v)))
+    return k_all, v_all, start
+
+
+def _paged_write(cache, k, v, start: int, end_pos: int):
+    """Write a chunk's K/V through the cache's page table, in place."""
+    paged_write(cache["k_pages"], cache["table"], k, start)
+    paged_write(cache["v_pages"], cache["table"], v, start)
+    cache["pos"].fill_(int(end_pos))
+    return cache
+
+
 def attn_prefill_chunk(
     p, cfg: ArchConfig, x, positions, *,
     cache: Dict[str, Any],
@@ -312,20 +368,32 @@ def attn_prefill_chunk(
     :func:`~repro_torch.kernels.flash_attention.ops.chunk_launch_tile`)
     and runs the reference's plain version on CPU tensors: a linear cache
     ``flash_attention_ref``, a ring ``flash_prefill_chunk_ref`` over its
-    slots and the chunk with ``slot_pos`` as ``kv_pos``. "kernel" /
-    "reference" force one (on CPU tensors "kernel" runs the wrapper's
-    plain version over the same keys).
+    slots and the chunk with ``slot_pos`` as ``kv_pos``. A paged cache
+    takes :func:`_paged_chunk_keys` on CUDA tensors and
+    ``flash_prefill_chunk_paged_ref`` on CPU tensors, and writes through
+    its table. "kernel" / "reference" force one (on CPU tensors "kernel"
+    runs the wrapper's plain version over the same keys).
     """
     c = x.shape[1]
     q, k, v = _project_qkv(p, cfg, x, positions)
     scale = cfg.query_scale or cfg.head_dim_ ** -0.5
     softcap = cfg.attn_softcap or None
     ring = "slot_pos" in cache
+    paged = "k_pages" in cache
 
     if impl == "auto":
         impl = "kernel" if x.is_cuda else "reference"
-    if impl == "kernel":
-        k_all, v_all, q_offset = _chunk_keys(cache, k, v, start)
+    if paged and impl == "reference":
+        n_pp = cdiv(start, cache["k_pages"].shape[2])
+        bkv = _ref_bkv("chunked_prefill", tile,
+                       n_pp * cache["k_pages"].shape[2] + c)
+        out = flash_prefill_chunk_paged_ref(
+            q, k, v, cache["k_pages"], cache["v_pages"], cache["table"],
+            q_pos=positions[0], start=start, n_prefix_pages=n_pp,
+            window=window, softcap=softcap, scale=scale, bkv=bkv)
+    elif impl == "kernel":
+        chunk_keys = _paged_chunk_keys if paged else _chunk_keys
+        k_all, v_all, q_offset = chunk_keys(cache, k, v, start)
         launch = _kernel_tile("chunked_prefill", tile, cfg, c, q.shape[-1],
                               q.dtype)
         out = flash_attention(q, k_all, v_all, causal=True, window=window,
@@ -348,7 +416,9 @@ def attn_prefill_chunk(
                                   q_offset=start, chunk=bkv)
     else:
         raise ValueError(f"unknown attention impl {impl!r}")
-    if ring:
+    if paged:
+        _paged_write(cache, k, v, start, start + c)
+    elif ring:
         _ring_write(cache, k, v, positions[0], start + c)
     else:
         _linear_write(cache, k, v, start, start + c)
@@ -374,9 +444,12 @@ def attn_prefill_packed(
 
     ``tile`` is the resolved ``packed_prefill`` tile ``(pack, bkv)``. On
     CUDA tensors ("auto" or "kernel") each segment launches
-    ``flash_attention`` over :func:`_chunk_keys`, linear and ring caches
-    alike; CPU tensors and "reference" run the reference's one
-    segment-masked plain call (``flash_prefill_packed_ref``). Returns
+    ``flash_attention`` over :func:`_chunk_keys` (linear and ring caches)
+    or :func:`_paged_chunk_keys` (paged: one gather from the segment's own
+    table); CPU tensors and "reference" run the reference's one
+    segment-masked plain call (``flash_prefill_packed_ref``, a paged
+    prefix positioned by ``paged_prefix``). Every segment attends before
+    any writes, so each reads its prefix as the step found it. Returns
     ``(y [1, S_packed, D], caches)``, each cache written in place.
     """
     b, s_packed, _ = x.shape
@@ -386,6 +459,7 @@ def attn_prefill_packed(
     scale = cfg.query_scale or cfg.head_dim_ ** -0.5
     softcap = cfg.attn_softcap or None
     ring = "slot_pos" in caches[0]
+    paged = "k_pages" in caches[0]
     offs = [0]
     for _, ln in layout:
         offs.append(offs[-1] + ln)
@@ -396,9 +470,10 @@ def attn_prefill_packed(
         impl = "kernel" if x.is_cuda else "reference"
     if impl == "kernel":
         outs = []
+        chunk_keys = _paged_chunk_keys if paged else _chunk_keys
         for (start, ln), cache, sl in zip(layout, caches, segs):
-            k_all, v_all, q_offset = _chunk_keys(cache, k[:, :, sl],
-                                                 v[:, :, sl], start)
+            k_all, v_all, q_offset = chunk_keys(cache, k[:, :, sl],
+                                                v[:, :, sl], start)
             launch = _kernel_tile("packed_prefill", tile, cfg, ln,
                                   q.shape[-1], q.dtype)
             outs.append(flash_attention(
@@ -411,7 +486,22 @@ def attn_prefill_packed(
         for i, ((start, ln), cache, sl) in enumerate(zip(layout, caches,
                                                          segs)):
             seg_pos = positions[0, sl]
-            if ring:
+            if paged:
+                page = cache["k_pages"].shape[2]
+                n_pp = cdiv(start, page)
+                if n_pp:
+                    kp, vp, pp = paged_prefix(cache["k_pages"],
+                                              cache["v_pages"],
+                                              cache["table"], n_pp, start)
+                    k_parts += [kp.to(k.dtype), k[:, :, sl]]
+                    v_parts += [vp.to(v.dtype), v[:, :, sl]]
+                    kvp_parts += [pp, seg_pos]
+                else:
+                    k_parts.append(k[:, :, sl])
+                    v_parts.append(v[:, :, sl])
+                    kvp_parts.append(seg_pos)
+                prefix = n_pp * page
+            elif ring:
                 k_parts += [cache["k"].to(k.dtype), k[:, :, sl]]
                 v_parts += [cache["v"].to(v.dtype), v[:, :, sl]]
                 kvp_parts += [cache["slot_pos"].to(seg_pos.dtype), seg_pos]
@@ -439,7 +529,9 @@ def attn_prefill_packed(
         raise ValueError(f"unknown attention impl {impl!r}")
 
     for (start, ln), cache, sl in zip(layout, caches, segs):
-        if ring:
+        if paged:
+            _paged_write(cache, k[:, :, sl], v[:, :, sl], start, start + ln)
+        elif ring:
             _ring_write(cache, k[:, :, sl], v[:, :, sl], positions[0, sl],
                         start + ln)
         else:
@@ -459,23 +551,35 @@ def attn_decode(
     on CPU tensors the chunked flash-decode reference when a tile is present
     and the dense masked attend otherwise. "kernel", "flash_ref", "dense"
     force a path; "reference" picks the CPU rule on any device. The position
-    stays on the device: nothing here reads it on the host.
+    stays on the device: nothing here reads it on the host. A paged cache
+    attends over its table's gathered view (``n_pt * page`` rows, the
+    length the tile is clamped to) through the same paths.
     """
     b = x.shape[0]
     pos = cache["pos"]                                   # 0-d int32
     positions = pos.to(torch.long).expand(b, 1)
     q, k_new, v_new = _project_qkv(p, cfg, x, positions)  # [B, H(kv), 1, hd]
     scale = cfg.query_scale or cfg.head_dim_ ** -0.5
-    ck, cv = cache["k"], cache["v"]
-    max_len = ck.shape[2]
-    # The cache length bounds a linear cache's position (the engine's
-    # admission guarantees it); a ring's slot is pos % W.
-    slot = (pos % max_len).to(torch.long).view(1)
-    ck.index_copy_(2, slot, k_new.to(ck.dtype))
-    cv.index_copy_(2, slot, v_new.to(cv.dtype))
     slot_pos = cache.get("slot_pos")
-    if slot_pos is not None:
-        slot_pos.index_copy_(0, slot, pos.view(1))
+    if "k_pages" in cache:
+        # Batch 1: the row through the table, then the table's linear
+        # view, which ``pos`` masks as it masks a linear cache.
+        table = cache["table"]
+        paged_write(cache["k_pages"], table, k_new, pos)
+        paged_write(cache["v_pages"], table, v_new, pos)
+        ck = paged_gather(cache["k_pages"], table)
+        cv = paged_gather(cache["v_pages"], table)
+        max_len = ck.shape[2]
+    else:
+        ck, cv = cache["k"], cache["v"]
+        max_len = ck.shape[2]
+        # The cache length bounds a linear cache's position (the engine's
+        # admission guarantees it); a ring's slot is pos % W.
+        slot = (pos % max_len).to(torch.long).view(1)
+        ck.index_copy_(2, slot, k_new.to(ck.dtype))
+        cv.index_copy_(2, slot, v_new.to(cv.dtype))
+        if slot_pos is not None:
+            slot_pos.index_copy_(0, slot, pos.view(1))
 
     bkv = int(tile[-1]) if tile is not None else None
     clamped = min(bkv, max_len) if bkv is not None else None

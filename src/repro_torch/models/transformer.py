@@ -18,6 +18,15 @@ and the recurrent layers from their carried state, which is what they do
 anyway. :func:`forward_packed` runs the chunks of several requests as one
 sequence through the embedding, norms and FF, each attention and recurrent
 layer per request's state.
+
+Paged serving (``serve/pool.py``): :func:`make_paged_pool` makes the
+engine's page tensors, one ``k_pages`` / ``v_pages`` pair per attention
+layer, and ``make_caches(paged=True)`` a request's state, in which an
+attention layer keeps only ``pos`` (windowed layers too: the linear paged
+view, the window a mask, as the reference has it) and a recurrent layer its
+usual state. ``forward(pool=, page_table=)`` and ``forward_packed(pool=,
+page_tables=)`` hand each attention layer its pages and the request's table
+merged into its state dict; pages and positions are written in place.
 """
 from __future__ import annotations
 
@@ -261,12 +270,14 @@ class StackOutputs:
 
 
 def _cache_for(cfg: ArchConfig, spec: LayerSpec, batch: int, max_len: int,
-               dtype, ring_local: bool, device):
+               dtype, ring_local: bool, device, paged: bool = False):
     _check_ported(cfg, spec)
     if spec.mixer == "rglru":
         return rglru_mod.make_rglru_state(cfg, batch, dtype, device=device)
     if spec.mixer == "ssd":
         return ssm_mod.make_ssm_state(cfg, batch, dtype, device=device)
+    if paged:
+        return {"pos": torch.zeros((), dtype=torch.int32, device=device)}
     ring = ring_local and spec.mixer == "local_attn"
     length = min(max_len, cfg.attn_window) if ring else max_len
     return attn_mod.make_kv_cache(cfg, batch, length, dtype, ring=ring,
@@ -274,13 +285,40 @@ def _cache_for(cfg: ArchConfig, spec: LayerSpec, batch: int, max_len: int,
 
 
 def make_caches(cfg: ArchConfig, batch: int, max_len: int, dtype,
-                ring_local: bool = False, device=None) -> List[Any]:
+                ring_local: bool = False, device=None,
+                paged: bool = False) -> List[Any]:
     """One cache per layer, in layer order (the reference's ``_cache_for``):
     on an attention layer a KV cache, linear at ``max_len`` or with
     ``ring_local`` a ring of ``min(max_len, attn_window)`` slots on each
-    ``local_attn`` layer; on an RG-LRU or SSD layer its state, zeroed."""
-    return [_cache_for(cfg, spec, batch, max_len, dtype, ring_local, device)
+    ``local_attn`` layer; on an RG-LRU or SSD layer its state, zeroed.
+    ``paged=True``: an attention layer keeps only its position ``pos``
+    (its K/V live in the pool, :func:`make_paged_pool`)."""
+    return [_cache_for(cfg, spec, batch, max_len, dtype, ring_local, device,
+                       paged=paged)
             for spec in cfg.layers()]
+
+
+def make_paged_pool(cfg: ArchConfig, n_pages: int, page: int, dtype,
+                    device=None) -> List[Any]:
+    """The engine's paged pool, one entry per layer in layer order: an
+    attention layer's ``k_pages`` / ``v_pages`` ``[n_pages, Hkv, page,
+    hd]``, None on a recurrent layer (its state stays per request)."""
+    out: List[Any] = []
+    for spec in cfg.layers():
+        _check_ported(cfg, spec)
+        out.append(attn_mod.make_paged_kv_pages(cfg, n_pages, page, dtype,
+                                                device=device)
+                   if spec.mixer in ("attn", "local_attn") else None)
+    return out
+
+
+def _with_pool(cache, pool_leaf, table):
+    """A layer's state with its pool pages and the request's page table
+    merged in (the attention paths dispatch on ``k_pages``), or the state
+    itself off the pool. The tensors are shared, so writes land in place."""
+    if pool_leaf is None:
+        return cache
+    return {**cache, **pool_leaf, "table": table}
 
 
 def is_kv_cache(cache: Dict[str, Any]) -> bool:
@@ -290,8 +328,8 @@ def is_kv_cache(cache: Dict[str, Any]) -> bool:
 def reset_caches(caches: List[Any]) -> None:
     """Empty every layer's cache in place for a new sequence, keeping its
     tensors: a KV cache's position and slot map (``reset_kv_cache``), and a
-    recurrent state's conv tails and ``h`` zeroed, as a fresh
-    :func:`make_caches` holds them."""
+    recurrent state's conv tails and ``h`` (or a paged layer's ``pos``)
+    zeroed, as a fresh :func:`make_caches` holds them."""
     for cache in caches:
         if is_kv_cache(cache):
             attn_mod.reset_kv_cache(cache)
@@ -309,6 +347,8 @@ def forward(
     tiles=None,
     impl: str = "auto",
     chunked: bool = False,
+    pool: Optional[List[Any]] = None,
+    page_table: Optional[torch.Tensor] = None,
 ) -> StackOutputs:
     """tokens [B, S] -> logits [B, S, Vpad].
 
@@ -318,8 +358,14 @@ def forward(
     ``logits_mode``: "last" applies the head to the final position only,
     "hidden" skips it. ``tiles`` (kernel name -> TileShape) parameterise the
     kernel call sites; ``impl`` is passed to them ("auto" | "kernel" |
-    "reference").
+    "reference"). ``pool`` (:func:`make_paged_pool`) and ``page_table``
+    (the request's ``[n_pt]`` int32 table) run the attention layers over
+    the paged pool: ``caches`` then come from ``make_caches(paged=True)``
+    (batch 1), and only the decode and chunk paths take them.
     """
+    if pool is not None and not (decode or chunked):
+        raise ValueError("a paged request prefills through chunks "
+                         "(chunked=True) and decodes (decode=True)")
     if chunked and caches is None:
         raise ValueError("chunked prefill requires caches (serve state)")
     chunk_start = start_pos if chunked else None
@@ -333,11 +379,13 @@ def forward(
     new_caches: Optional[List[Any]] = [] if caches is not None else None
     for li, spec in enumerate(cfg.layers()):
         lc = caches[li] if caches is not None else None
+        if pool is not None:
+            lc = _with_pool(lc, pool[li], page_table)
         x, nc = layer_forward(params["layers"][li], cfg, spec, x, positions,
                               lc, decode, tiles=tiles, impl=impl,
                               chunk_start=chunk_start)
         if new_caches is not None:
-            new_caches.append(nc)
+            new_caches.append(caches[li] if pool is not None else nc)
 
     x = _apply_norm(params, cfg, x, "final_norm")
     if logits_mode == "hidden":
@@ -359,9 +407,11 @@ def _head(params, cfg: ArchConfig, x):
 
 
 def forward_packed(params, cfg: ArchConfig, tokens: torch.Tensor, states,
-                   layout, tiles=None, impl: str = "auto"):
+                   layout, tiles=None, impl: str = "auto", pool=None,
+                   page_tables=None):
     """One packed step of several requests' prefill chunks (the reference's
-    ``forward_packed``, without the paged pool).
+    ``forward_packed``); with ``pool``, over the paged pool, each segment
+    through its own table in ``page_tables``.
 
     ``tokens`` [1, S_packed] concatenates one chunk per request; ``layout``
     the per-segment ``(start, len)`` pairs, ``states`` the matching
@@ -386,6 +436,9 @@ def forward_packed(params, cfg: ArchConfig, tokens: torch.Tensor, states,
                            for start, ln in layout])[None]
     for li, spec in enumerate(cfg.layers()):
         lc = tuple(st[li] for st in states)
+        if pool is not None:
+            lc = tuple(_with_pool(c, pool[li], tbl)
+                       for c, tbl in zip(lc, page_tables))
         x, _ = layer_forward(params["layers"][li], cfg, spec, x, positions,
                              lc, tiles=tiles, impl=impl, pack_layout=layout)
     x = _apply_norm(params, cfg, x, "final_norm")

@@ -62,9 +62,27 @@ slot: a slot's graph holds its tensors' addresses, so each prefill in
 flight fills a cache set of its own, taken from a free list (emptied, at
 most ``slots + prefill_slots`` ever made), and when its request takes slot
 *i* the written K/V rows, positions, slot maps and recurrent states are
-copied into slot *i*'s tensors and the set is freed. Options not ported
-yet — ``paged``, ``shadow_fraction`` / ``refiner`` and ``tracer`` — raise
-``NotImplementedError`` when set.
+copied into slot *i*'s tensors and the set is freed.
+
+Paged serving (``paged=True``) is the reference's: one engine-wide pool
+(:class:`~repro_torch.serve.pool.PagedKVPool`) holds every attention
+layer's K/V in pages, each request a page table, and pages are allocated
+as chunks and decode steps write them (``prepare_span`` before every
+write, copy-on-write splits of shared pages included) and released when
+the request finishes. The page is ``page_size`` when given, else the
+plan's ``kv_page`` tile, else min(512, max_len), as the reference orders
+them. Every prefill runs as chunks (a whole prompt is one chunk when
+chunking is off); admission is the pool's
+reservation gate (``can_admit``, a FIFO pool-wait line), so more prefills
+are in flight than ``prefill_slots`` (up to 8 x (slots + prefill_slots)),
+and a prompt whose prefix another request registered maps those pages and
+prefills only its tail. A request's state is its positions and recurrent
+states; a slot keeps its own, and a fixed int32 ``[n_pt]`` table tensor
+its captured step reads. Before each step the engine makes the row's page
+writable and copies the request's table into that tensor when the table
+changed (a new page, a split), then replays the same graph: crossing a
+page needs no recapture. Options not ported yet — ``shadow_fraction`` /
+``refiner`` and ``tracer`` — raise ``NotImplementedError`` when set.
 """
 from __future__ import annotations
 
@@ -89,6 +107,7 @@ from repro_torch.models import attention as attn_mod
 from repro_torch.models import transformer as T
 from repro_torch.models.transformer import is_kv_cache
 from repro_torch.serve.metrics import ServeMetrics
+from repro_torch.serve.pool import PagedKVPool, cdiv
 from repro_torch.serve.scheduler import FifoScheduler, pick_chunks
 
 
@@ -116,6 +135,7 @@ class _ChunkJob:
     done: int = 0                 # prompt tokens prefilled so far
     chunks_run: int = 0
     packed_runs: int = 0          # chunks that rode a multi-segment pack
+    table: Optional[torch.Tensor] = None  # paged: its page table tensor
     last_t: float = 0.0           # last progress (chunk queue age)
     # Tile events of every chunk it ran, deduplicated once at the end so
     # an N-chunk prefill counts each distinct fallback once.
@@ -135,6 +155,10 @@ class _Slot:
     next_token: torch.Tensor        # 0-d long: their greedy token
     graph: Optional[Any] = None     # torch.cuda.CUDAGraph once captured
     launches: Dict[str, int] = dataclasses.field(default_factory=dict)
+    # Paged: the int32 [n_pt] table the step reads, and the host table it
+    # holds (None until the first copy).
+    table: Optional[torch.Tensor] = None
+    table_host: Optional[List[int]] = None
 
 
 class ServeEngine:
@@ -150,12 +174,14 @@ class ServeEngine:
                  prefill_slots: int = 2,
                  pack_prefill: bool = False,
                  paged: bool = False,
+                 pool_pages: Optional[int] = None,
+                 page_size: Optional[int] = None,
+                 prefix_sharing: bool = True,
                  shadow_fraction: float = 0.0,
                  refiner=None,
                  tracer=None,
                  device=None):
-        unported = {"paged": paged,
-                    "shadow_fraction": bool(shadow_fraction),
+        unported = {"shadow_fraction": bool(shadow_fraction),
                     "refiner": refiner is not None,
                     "tracer": tracer is not None}
         wanted = sorted(k for k, on in unported.items() if on)
@@ -190,10 +216,19 @@ class ServeEngine:
         # tokens (0: the plan's chunk unclamped), ``prefill_slots`` the
         # prefills in flight; ``pack_prefill`` packs several chunks a step.
         self.pack_prefill = pack_prefill
-        self.chunk_prefill = chunk_prefill or pack_prefill
+        # Paged: every prefill runs as chunks, a whole prompt as one chunk
+        # when chunking is off (the reference's one paged prefill path).
+        self.paged = paged
+        self._paged_whole = paged and not (chunk_prefill or pack_prefill)
+        self.chunk_prefill = chunk_prefill or pack_prefill or paged
         self.step_token_budget = step_token_budget
         self.prefill_slots = max(1, prefill_slots)
         self._chunking: List[_ChunkJob] = []
+        # Paged admission: requests the pool cannot reserve pages for yet
+        # (FIFO: the head gets the first claim on freed pages), and each
+        # decoding request's next cache position.
+        self._pool_wait: List[Request] = []
+        self._pos: Dict[int, int] = {}
         self._ready: List[Any] = []   # (request, cache set, length) waiting
         #                               for a free decode slot
         self._held: List[Request] = []  # deferred multi-chunk (FIFO only)
@@ -203,6 +238,19 @@ class ServeEngine:
         self._chunk_ticks = 0
         self._chunk_plans: Dict[int, Any] = {}
         self._pack_plan_cache: Optional[Any] = None
+        # The paged pool (``_page_size``); by default as many pages as
+        # whole caches for every decode and prefill slot, plus the
+        # copy-on-write slack.
+        self.pool: Optional[PagedKVPool] = None
+        if paged:
+            page = self._page_size(page_size)
+            n_pages = pool_pages if pool_pages is not None else (
+                (slots + self.prefill_slots)
+                * (cdiv(max_len, page) + PagedKVPool.RESERVE_SLACK))
+            self.pool = PagedKVPool(
+                cfg, n_pages=n_pages, page=page, max_len=max_len,
+                dtype=dtype, prefix_sharing=prefix_sharing,
+                metrics=self.metrics, device=self.device)
         # Per-slot independent caches (batch 1) and step buffers.
         self._slots = [self._make_slot() for _ in range(slots)]
         self._graph_pool = None
@@ -218,13 +266,35 @@ class ServeEngine:
         if plans is not None:
             self._resolve_tiles()
 
+    def _page_size(self, page_size: Optional[int]) -> int:
+        """The pool's page: ``page_size``, else the plan's ``kv_page`` tile
+        at the ``(slots, max_len)`` decode cell, else min(512, max_len)."""
+        if page_size is not None:
+            return int(page_size)
+        if self.plans is not None:
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore", PlanTransferWarning)
+                tiles, _ = specs.resolve_model_tiles(
+                    self.plans, self.cfg, self.slots, self.max_len, "decode",
+                    self._dtype_name, self.hardware)
+            if "kv_page" in tiles:
+                return int(tiles["kv_page"][0])
+        return min(512, self.max_len)
+
+    def _new_state(self):
+        """A request's serve state: whole caches, or paged positions."""
+        if self.paged:
+            return api.make_paged_state(self.cfg, self.dtype,
+                                        device=self.device)
+        return api.make_serve_state(self.cfg, 1, self.max_len, self.dtype,
+                                    device=self.device,
+                                    ring_local=bool(self.cfg.attn_window))
+
     def _make_slot(self) -> _Slot:
         cfg, dev = self.cfg, self.device
-        caches = api.make_serve_state(cfg, 1, self.max_len, self.dtype,
-                                      device=dev,
-                                      ring_local=bool(cfg.attn_window))
         return _Slot(
-            caches=caches,
+            caches=self._new_state(),
+            table=self.pool.new_table() if self.paged else None,
             token=torch.zeros((1, 1), dtype=torch.long, device=dev),
             logits=torch.zeros((1, cfg.padded_vocab),
                                dtype=self.params["embed"].dtype, device=dev),
@@ -277,8 +347,12 @@ class ServeEngine:
         return tiles, sources, events
 
     def _cache_lens(self):
-        """The KV cache lengths of a slot (none for an attention-free arch:
-        recurrent states have no length)."""
+        """The KV cache lengths a decode attends over (none for an
+        attention-free arch: recurrent states have no length). Paged, the
+        gathered view's ``n_pt * page`` rows, which may exceed max_len."""
+        if self.paged:
+            attends = any(leaf is not None for leaf in self.pool.arrays)
+            return [self.pool.n_pt * self.pool.page] if attends else []
         return sorted({int(c["k"].shape[2]) for c in self._slots[0].caches
                        if is_kv_cache(c)})
 
@@ -342,13 +416,21 @@ class ServeEngine:
     def _run_step(self, slot: _Slot) -> None:
         """One decode step of a slot on its static tensors: the step the
         graph captures, and the eager step on the CPU."""
-        logits, _ = api.decode_step(self.params, self.cfg, slot.token,
-                                    slot.caches, tiles=self.tiles or None)
+        tiles = self.tiles or None
+        if self.paged:
+            logits, _, _ = api.decode_step_paged(
+                self.params, self.cfg, slot.token, slot.caches,
+                self.pool.arrays, slot.table, tiles=tiles)
+        else:
+            logits, _ = api.decode_step(self.params, self.cfg, slot.token,
+                                        slot.caches, tiles=tiles)
         slot.logits.copy_(logits)
         slot.next_token.copy_(torch.argmax(logits[0, :self.cfg.vocab_size]))
 
     def _capture(self, slot: _Slot) -> None:
-        """Warm up, put the caches back, and capture the slot's step."""
+        """Warm up, put the caches back, and capture the slot's step. A
+        paged warm-up writes its row into the page the engine has just
+        made the request's own; the replay writes the same row again."""
         saved = _snapshot(slot.caches)
         stream = torch.cuda.current_stream(self.device)
         side = torch.cuda.Stream(self.device)
@@ -453,6 +535,10 @@ class ServeEngine:
         if self.step_token_budget:
             chunk = min(chunk, max(1, self.step_token_budget - self.slots))
         chunk = max(1, min(chunk, admit_len))
+        if self._paged_whole:
+            # Paged without chunking: the whole prompt is one chunk, the
+            # unchunked engine's schedule.
+            chunk = admit_len
         tiles, sources, events = self._model_tiles_for(chunk)
         if tile is not None:
             tiles["chunked_prefill"] = tile
@@ -507,10 +593,10 @@ class ServeEngine:
             job.state = self._free_sets.pop()
             T.reset_caches(job.state)
         else:
-            job.state = api.make_serve_state(
-                self.cfg, 1, self.max_len, self.dtype, device=self.device,
-                ring_local=bool(self.cfg.attn_window))
+            job.state = self._new_state()
             self.cache_sets_made += 1
+        if self.paged and job.table is None:
+            job.table = self.pool.new_table()
 
     def _advance_job(self, job: _ChunkJob, take: int, events, logits,
                      packed: bool = False) -> None:
@@ -539,14 +625,27 @@ class ServeEngine:
                                for job, (start, take) in zip(jobs, layout)])
         _, tiles, _, plan_events = self._pack_plan()
         events: List[Dict[str, Any]] = list(plan_events)
+        tokens = torch.as_tensor(toks[None], dtype=torch.long,
+                                 device=self.device)
+        states = tuple(job.state for job in jobs)
+        if self.paged:
+            # Every segment's pages before the first launch: the pack
+            # writes in place, and a split must copy what the step found.
+            for job, (start, take) in zip(jobs, layout):
+                self.pool.prepare_span(job.req.rid, start, take)
+            for job in jobs:
+                self.pool.device_table(job.req.rid, job.table)
         with torch.inference_mode(), \
                 attn_mod.capture_tile_events(events.append):
-            logits, _ = api.prefill_packed(
-                self.params, self.cfg,
-                torch.as_tensor(toks[None], dtype=torch.long,
-                                device=self.device),
-                tuple(job.state for job in jobs), layout,
-                tiles=tiles or None)
+            if self.paged:
+                logits, _, _ = api.prefill_packed_paged(
+                    self.params, self.cfg, tokens, states, layout,
+                    self.pool.arrays, tuple(job.table for job in jobs),
+                    tiles=tiles or None)
+            else:
+                logits, _ = api.prefill_packed(
+                    self.params, self.cfg, tokens, states, layout,
+                    tiles=tiles or None)
         events = self._dedupe_events(events)
         for i, (job, (_, take)) in enumerate(zip(jobs, layout)):
             self._advance_job(job, take, events, logits[i][None],
@@ -596,7 +695,13 @@ class ServeEngine:
         ones the slot's captured graph holds) and its cache set goes back
         to the free list. Admission stalls while the ready backlog covers
         every decode slot, so at most ``slots + prefill_slots - 1`` cache
-        sets ever live besides the slots'."""
+        sets ever live besides the slots'.
+
+        Paged, the pool's reservation gate bounds the prefills in flight
+        (up to 8 x (slots + prefill_slots)) in place of ``prefill_slots``,
+        requests the pool cannot reserve for wait in FIFO order, the
+        one-long rule is lifted, and a prompt's registered prefix is mapped
+        at admission (the job starts after it)."""
         free = [i for i, r in enumerate(self._active) if r is None]
         while free and self._ready:
             req, state, length = self._ready.pop(0)
@@ -608,18 +713,46 @@ class ServeEngine:
             return
         long_in_flight = any(len(j.prompt) > j.chunk_len
                              for j in self._chunking)
-        while len(self._chunking) < self.prefill_slots:
-            req = self._next_admission(long_ok=not long_in_flight)
+        cap = (8 * (self.slots + self.prefill_slots) if self.paged
+               else self.prefill_slots)
+        while len(self._chunking) < cap:
+            req = None
+            if self.paged and self._pool_wait:
+                # The head of the pool-wait line admits first or nobody
+                # does.
+                if not self.pool.can_admit(
+                        self._pool_estimate(self._pool_wait[0])):
+                    break
+                req = self._pool_wait.pop(0)
             if req is None:
+                req = self._next_admission(
+                    long_ok=self.paged or not long_in_flight)
+            if req is None:
+                break
+            if self.paged and not self.pool.can_admit(
+                    self._pool_estimate(req)):
+                self._pool_wait.append(req)
                 break
             prompt = np.asarray(self.scheduler.prepare(req), np.int32)
             chunk_len, _, _, plan_events = self._chunk_plan(len(prompt))
             long_in_flight = long_in_flight or len(prompt) > chunk_len
             submit_t = self.metrics.submit_time(req.rid)
+            hit = 0
+            if self.paged:
+                self.pool.register_request(
+                    req.rid, len(prompt) + req.max_new_tokens - 1)
+                hit = self.pool.lookup_prefix(req.rid, prompt.tolist())
             self._chunking.append(_ChunkJob(
-                req=req, prompt=prompt, chunk_len=chunk_len,
+                req=req, prompt=prompt, chunk_len=chunk_len, done=hit,
                 events=list(plan_events),
                 last_t=submit_t if submit_t is not None else self._clock()))
+
+    def _pool_estimate(self, req: Request) -> int:
+        """The cache positions a request may write, for the pool's gate:
+        the admitted prompt and the generation, less the last sampled token
+        (never cached)."""
+        admit_len = req.bucket if req.bucket is not None else len(req.prompt)
+        return admit_len + req.max_new_tokens - 1
 
     # Every AGING_PERIOD-th chunk goes to the oldest in-flight prefill
     # instead of the shortest-remaining one, so a stream of short prompts
@@ -648,13 +781,21 @@ class ServeEngine:
         self._ensure_state(job)
         _, tiles, _, _ = self._chunk_plan(len(job.prompt))
         events: List[Dict[str, Any]] = []
+        tokens = torch.as_tensor(job.prompt[None, start:start + length],
+                                 dtype=torch.long, device=self.device)
+        if self.paged:
+            self.pool.prepare_span(job.req.rid, start, length)
+            self.pool.device_table(job.req.rid, job.table)
         with torch.inference_mode(), \
                 attn_mod.capture_tile_events(events.append):
-            logits, _ = api.prefill_chunk(
-                self.params, self.cfg,
-                torch.as_tensor(job.prompt[None, start:start + length],
-                                dtype=torch.long, device=self.device),
-                job.state, start, tiles=tiles or None)
+            if self.paged:
+                logits, _, _ = api.prefill_chunk_paged(
+                    self.params, self.cfg, tokens, job.state, start,
+                    self.pool.arrays, job.table, tiles=tiles or None)
+            else:
+                logits, _ = api.prefill_chunk(
+                    self.params, self.cfg, tokens, job.state, start,
+                    tiles=tiles or None)
         self._advance_job(job, length, self._dedupe_events(events), logits)
         return length
 
@@ -673,12 +814,20 @@ class ServeEngine:
         req.out_tokens.append(
             int(torch.argmax(logits[0, :self.cfg.vocab_size])))
         self.metrics.record_first_token(req.rid, req.bucket)
+        if self.paged:
+            # Its pages become shareable (a weak registry: no references).
+            self.pool.register_prefix(req.rid, job.prompt.tolist())
         if len(req.out_tokens) >= req.max_new_tokens:
             req.done = True
+            if self.paged:
+                self.pool.release(req.rid)
             self._free_sets.append(job.state)
             self._finished.append(req)
             self.metrics.record_complete()
         else:
+            if self.paged:
+                # The first decode writes right after the prompt.
+                self._pos[req.rid] = len(job.prompt)
             self._ready.append((req, job.state, len(job.prompt)))
 
     def add_request(self, prompt: np.ndarray, max_new_tokens: int = 16,
@@ -705,7 +854,7 @@ class ServeEngine:
                 getattr(self.scheduler, "last_reject_reason", "admission"),
                 len(prompt))
         self.metrics.record_submit(rid, t=submit_t)
-        self._record_backlog(self.scheduler.pending() + len(self._held))
+        self._record_backlog(self._backlog())
         return rid
 
     def _reject(self, reason: str, prompt_len: int) -> None:
@@ -713,8 +862,14 @@ class ServeEngine:
         sample); the reason also lands in ``self.last_reject_reason``."""
         self.last_reject_reason = reason
         self.metrics.record_reject(reason=reason)
-        self._record_backlog(self.scheduler.pending() + len(self._held))
+        self._record_backlog(self._backlog())
         return None
+
+    def _backlog(self) -> int:
+        """Queued requests: the scheduler's, deferred multi-chunk ones and
+        the pool-wait line."""
+        return (self.scheduler.pending() + len(self._held)
+                + len(self._pool_wait))
 
     def _record_backlog(self, depth: int) -> None:
         self.metrics.record_queue_depth(depth)
@@ -770,8 +925,17 @@ class ServeEngine:
         with torch.inference_mode():
             for i, req in stepped:
                 active_buckets.append(req.bucket)
+                if self.paged:
+                    self._prepare_paged_step(self._slots[i], req.rid)
                 self._slots[i].token.fill_(req.out_tokens[-1])
                 self._step(self._slots[i])
+                if self.paged and len(req.out_tokens) + 1 >= \
+                        req.max_new_tokens:
+                    # Its last step: the pages go back before the next
+                    # slot's, in the reference's order (the stream keeps
+                    # this step's reads ahead of any reuse).
+                    self.pool.release(req.rid)
+                    self._pos.pop(req.rid, None)
             toks = (torch.stack([self._slots[i].next_token
                                  for i, _ in stepped]).tolist()
                     if stepped else [])
@@ -784,6 +948,18 @@ class ServeEngine:
                 self.metrics.record_complete()
         self.metrics.record_decode_step(active_buckets, self._clock() - t0)
         return len(stepped)
+
+    def _prepare_paged_step(self, slot: _Slot, rid: int) -> None:
+        """Before a paged step (and before its warm-up and capture): make
+        the page the row lands in the request's own, then copy the table
+        into the slot's table tensor if it changed (a new page, a split, a
+        new request). The graph reads the tensor, so it replays as is."""
+        pos = self._pos[rid]
+        self.pool.prepare_span(rid, pos, 1)
+        self._pos[rid] = pos + 1
+        if slot.table_host != self.pool.tables[rid]:
+            self.pool.device_table(rid, slot.table)
+            slot.table_host = list(self.pool.tables[rid])
 
     def step(self) -> int:
         """One engine step. Unchunked: admit (each admission runs its whole
@@ -810,7 +986,7 @@ class ServeEngine:
         whole decode batch, then a second admission pass. Returns the
         requests in service, as the reference does."""
         self._admit_chunked()
-        self._record_backlog(self.scheduler.pending() + len(self._held))
+        self._record_backlog(self._backlog())
         prefill_tokens = 0
         packed_rids: tuple = ()
         segments: tuple = ()
@@ -836,7 +1012,12 @@ class ServeEngine:
                 # A prefill that chunk finished may decode this very step.
                 self._admit_chunked()
         n = self._decode_all()
+        # Second pass: what this decode finished freed its slot (and its
+        # pages, which a pool-waiting request may now claim).
         self._admit_chunked()
+        if self.paged:
+            self.metrics.record_pool(self.pool.used_pages,
+                                     self.pool.n_pages)
         self.last_step_stats = {"prefill_tokens": prefill_tokens,
                                 "decode_tokens": n,
                                 "packed_chunks": len(packed_rids),
@@ -844,7 +1025,7 @@ class ServeEngine:
                                 "prefill_segments": segments}
         self.steps_run += 1
         return (n + len(self._chunking) + len(self._ready)
-                + len(self._held))
+                + len(self._held) + len(self._pool_wait))
 
     def _next_pack(self):
         """The chunks a packed step runs: the scheduler's knapsack over the
@@ -859,9 +1040,11 @@ class ServeEngine:
 
     def in_flight(self) -> int:
         """Requests holding engine state: decode slots, prefills in
-        flight, finished prefills waiting for a slot, deferred longs."""
+        flight, finished prefills waiting for a slot, deferred longs, and
+        the pool-wait line."""
         return (sum(r is not None for r in self._active)
-                + len(self._chunking) + len(self._ready) + len(self._held))
+                + len(self._chunking) + len(self._ready) + len(self._held)
+                + len(self._pool_wait))
 
     def run_until_done(self, max_steps: int = 1000) -> List[Request]:
         self._finished = []
@@ -875,8 +1058,9 @@ class ServeEngine:
 def _move_state(src, dst, length: int) -> None:
     """Copy a prefilled cache set into a decode slot's own tensors: the K/V
     rows ``length`` positions wrote (all of a ring's written slots), the
-    position and slot map, and every recurrent state whole. ``dst`` keeps
-    its tensors, so a graph captured on them stays valid."""
+    position and slot map, and every recurrent state whole (a paged state
+    has no K/V: its positions and recurrent states). ``dst`` keeps its
+    tensors, so a graph captured on them stays valid."""
     for s, d in zip(src, dst):
         if not is_kv_cache(s):
             for key, t in s.items():

@@ -705,7 +705,7 @@ def test_plan_engine_serves_the_no_plan_tokens_through_the_kernels(dev,
     for kernel, tile in eng.tiles.items():
         assert specs.tile_launches(kernel, tile, cfg, "float32", 1, lens)
     counts = eng.metrics.as_dict()["plan"]["by_phase"]
-    assert counts["decode"]["exact"] == 2
+    assert counts["decode"]["exact"] == 3      # matmul, flash_decode, kv_page
     assert counts["prefill"]["tile_fallback"] == 0
     if bucket:
         assert eng.metrics.plan_hit_rate("prefill") == 1.0
@@ -1084,3 +1084,116 @@ def _to_cpu(tree):
     if isinstance(tree, list):
         return [_to_cpu(v) for v in tree]
     return tree.cpu()
+
+
+# ---------------------------------------------------------------------------
+# The paged pool on the card
+# ---------------------------------------------------------------------------
+
+def _paged_pool(dev, seed, n_pages, hkv, page, d, dtype):
+    """K and V pages filled everywhere (unwritten rows hold garbage the
+    masks and cuts must hide) and a shuffled table of 5 entries."""
+    kp, vp = _randn(dev, seed, (n_pages, hkv, page, d),
+                    (n_pages, hkv, page, d), dtype=dtype)
+    table = torch.randperm(n_pages, generator=torch.Generator().manual_seed(
+        seed))[:5].to(device=dev, dtype=torch.int32)
+    return kp, vp, table
+
+
+@pytest.mark.parametrize("dtype,rtol", DTYPES)
+@pytest.mark.parametrize("pos", [0, 63, 64, 200, 319])
+@pytest.mark.parametrize("window", [None, 100])
+def test_paged_decode_through_flash_decode_vs_plain(dev, dtype, rtol, pos,
+                                                    window):
+    """The paged decode's route: the table's gathered view through
+    ``flash_decode`` with the position on the device (no kv_pos), against
+    ``flash_decode_paged_ref``."""
+    dt = getattr(torch, dtype)
+    kp, vp, table = _paged_pool(dev, 30, 9, 2, 64, 128, dt)
+    (q,) = _randn(dev, 32, (1, 12, 128), dtype=dt)
+    k, v = fa_decode.paged_gather(kp, table), fa_decode.paged_gather(vp, table)
+    assert k.shape == (1, 2, 320, 128) and k.is_contiguous()
+    build.reset_launches()
+    got = flash_decode(q, k, v, pos=torch.tensor(pos, dtype=torch.int32,
+                                                 device=dev), window=window)
+    assert build.LAUNCHES["flash_decode"] == 1
+    want = fa_decode.flash_decode_paged_ref(q, kp, vp, table, pos=pos,
+                                            window=window)
+    _close(got, want, rtol)
+
+
+@pytest.mark.parametrize("dtype,rtol", DTYPES)
+@pytest.mark.parametrize("start,c", [(0, 37), (100, 28), (128, 64),
+                                     (250, 1)])
+def test_paged_chunk_through_flash_attention_vs_plain(dev, dtype, rtol,
+                                                      start, c):
+    """A full-width qwen2 attention chunk over the paged pool: the card's
+    route (the prefix pages gathered and cut at ``start``, then
+    ``flash_attention`` at q_offset = start) against the plain paged chunk
+    (``flash_prefill_chunk_paged_ref``). At start 100 the last prefix page
+    is partial and its rows 100..127 hold another request's tokens, as a
+    prefix donor's shared page does; the cut must hide them. The chunk's
+    rows land in the same pages on both routes."""
+    from repro_torch.models import attention
+    from repro_torch.models.layers import init_tree
+
+    dt = getattr(torch, dtype)
+    cfg = configs.get_arch("qwen2-1.5b")
+    p = init_tree(attention.attn_defs(cfg),
+                  torch.Generator(device=dev).manual_seed(5), dt, dev)
+    kp, vp, table = _paged_pool(dev, 40, 9, cfg.padded_kv_heads, 64,
+                                cfg.head_dim_, dt)
+    (x,) = _randn(dev, 42, (1, c, cfg.d_model), dtype=dt)
+    positions = (start + torch.arange(c, device=dev))[None]
+    outs, pools = [], []
+    for impl in ("kernel", "reference"):
+        cache = {"k_pages": kp.clone(), "v_pages": vp.clone(),
+                 "table": table, "pos": torch.zeros((), dtype=torch.int32,
+                                                    device=dev)}
+        build.reset_launches()
+        y, cache = attention.attn_prefill_chunk(p, cfg, x, positions,
+                                                cache=cache, start=start,
+                                                impl=impl)
+        assert build.LAUNCHES["flash_attention"] == (impl == "kernel")
+        assert int(cache["pos"]) == start + c
+        outs.append(y)
+        pools.append(cache)
+    _close(outs[0], outs[1], rtol)
+    for key in ("k_pages", "v_pages"):
+        _close(pools[0][key], pools[1][key], rtol)
+
+
+def test_captured_paged_step_replays_across_page_boundaries(dev):
+    """Paged serving on the card at page 8: each slot captures its step
+    once and replays it while decodes cross page edges (new pages mapped
+    into the slot's table tensor, which keeps its address) and while a
+    third request reuses a slot; the tokens are the unpaged engine's and
+    the pool drains balanced."""
+    cfg = configs.get_smoke("qwen2-1.5b")
+    params = api.init_params(cfg, 0, device="cuda")
+    prompts = [np.arange(3, 3 + n) % cfg.vocab_size for n in (6, 13, 22)]
+
+    def serve(**kw):
+        eng = ServeEngine(cfg, params, max_len=64, slots=2, device="cuda",
+                          **kw)
+        captures = []
+        real = eng._capture
+        eng._capture = lambda slot: (captures.append(slot), real(slot))
+        for p in prompts:
+            eng.add_request(p, max_new_tokens=20)
+        done = sorted(eng.run_until_done(), key=lambda r: r.rid)
+        return eng, [r.out_tokens for r in done], captures
+
+    build.reset_launches()
+    eng, got, captures = serve(paged=True, page_size=8)
+    assert build.LAUNCHES["flash_decode"] > 0
+    assert build.LAUNCHES["flash_attention"] > 0
+    assert len(captures) == 2                   # once per slot, no recapture
+    ptrs = [s.table.data_ptr() for s in eng._slots]
+    _, want, base_captures = serve()
+    assert got == want
+    assert len(base_captures) == 2
+    assert [s.table.data_ptr() for s in eng._slots] == ptrs
+    eng.pool.check_balanced()
+    pool = eng.metrics.as_dict()["pool"]
+    assert pool["page_allocs"] == pool["page_frees"] >= 3 * 3

@@ -6,8 +6,8 @@ beside the JAX engine with its own ``tpu_v5e`` plan of the same cells:
 
 * plan sources: the bucketed scheduler hits every cell exactly, raw FIFO
   lengths between edges resolve by nearest shape — the same per-phase
-  counts in both engines (the reference also resolves a ``kv_page`` decode
-  cell, which the port has no kernel for yet);
+  counts in both engines, the paged pool's ``kv_page`` decode cell
+  included;
 * the plan's tiles reach the kernel call sites (monkeypatched spies);
 * tokens with a plan equal tokens without one and the JAX engine's, where
   the reference's top-2 logit margin exceeds 1e-4 (float32; a plan's KV
@@ -163,7 +163,7 @@ def test_bucketed_prefills_resolve_exactly_and_fifo_by_nearest_shape(
         _serve(eng, _prompts(cfg))
     assert bucketed.metrics.plan_hit_rate("prefill") == 1.0
     assert bucketed.metrics.plan_hit_rate("decode") == 1.0
-    assert set(bucketed.tiles) == {"matmul", "flash_decode"}
+    assert set(bucketed.tiles) == {"matmul", "flash_decode", "kv_page"}
     for sources in bucketed._prefill_sources.values():
         assert set(sources.values()) == {"exact"}
     assert fifo.metrics.plan_hit_rate("decode") == 1.0
@@ -192,14 +192,10 @@ def test_plan_engine_matches_the_reference_engine(models, plan, bucket):
     for p, a, b in zip(prompts, got, want):
         _assert_same_tokens(models, p, a, b)
     mine, ref = _by_phase(et.metrics), _by_phase(ej.metrics)
-    # kv_page: a decode cell of the reference's paged pool, not ported yet.
-    kv_page = ej.metrics.plan_by_kernel["kv_page"]
     for phase in ("prefill", "decode"):
         for source in ("exact", "nearest_shape"):
-            extra = kv_page[source] if phase == "decode" else 0
-            assert mine[phase][source] == ref[phase][source] - extra, \
-                (phase, source)
-    assert mine["decode"]["exact"] == 2
+            assert mine[phase][source] == ref[phase][source], (phase, source)
+    assert mine["decode"]["exact"] == 3      # matmul, flash_decode, kv_page
 
 
 def test_tokens_with_a_plan_equal_tokens_without_one(models, plan):
@@ -331,7 +327,8 @@ def test_a_decode_tile_that_does_not_launch_counts_once_per_engine(models):
                       device="cpu")
     _serve(eng, _prompts(cfg), new=6)
     decode = _by_phase(eng.metrics)["decode"]
-    assert decode["tile_fallback"] == 1 and decode["exact"] == 2
+    # exact: matmul, kv_page and the flash_decode cell the plan held.
+    assert decode["tile_fallback"] == 1 and decode["exact"] == 3
     assert eng.tiles["flash_decode"] == \
         registry.get("flash_decode").default_tile(prob, "float32")
 
@@ -424,14 +421,15 @@ def test_set_plans_drops_plan_state_and_keeps_the_tokens(models, plan):
     assert all(s.graph is None and not s.launches for s in eng._slots)
     bare = _serve(eng, prompts)
     eng.set_plans(plan)
-    assert set(eng.tiles) == {"matmul", "flash_decode"}
+    assert set(eng.tiles) == {"matmul", "flash_decode", "kv_page"}
     again = _serve(eng, prompts)
     assert again == first
     for p, a, b in zip(prompts, bare, first):
         _assert_same_tokens(models, p, a, b)
     # Decode sources: one resolution per plan loaded, at construction and
-    # at the second set_plans.
-    assert _by_phase(eng.metrics)["decode"]["exact"] == 4
+    # at the second set_plans, of three cells (matmul, flash_decode,
+    # kv_page).
+    assert _by_phase(eng.metrics)["decode"]["exact"] == 6
     assert _by_phase(eng.metrics)["prefill"]["no_plan"] == 8
 
 
@@ -489,7 +487,8 @@ def test_compile_and_serve_clis_with_a_serve_plan(tmp_path, capsys):
     counts = re.search(r"counts (\{.*\})", printed).group(1)
     counts = ast.literal_eval(counts)
     assert counts["nearest_shape"] > 0
-    assert counts["exact"] + counts["nearest_shape"] == 3 * 2 + 2
+    # Two prefill cells a request, three decode cells (kv_page's too).
+    assert counts["exact"] + counts["nearest_shape"] == 3 * 2 + 3
     with pytest.raises(SystemExit):
         serve.main(["--device", "cpu", "--scheduler", "bucket",
                     "--bucket-policy", "plan"])
@@ -521,6 +520,9 @@ def _launches(kernel, tile, cfg, dtype, tokens, cache_lens):
     elif kernel == "rglru":
         rglru_ops.launch_tile(tile, dict(s=tokens,
                                          f=cfg.recurrent.lru_width))
+    elif kernel == "kv_page":
+        # A pool geometry: a page no longer than the longest cache.
+        assert 0 < tile[0] <= max(cache_lens), (tile, cache_lens)
     else:
         raise AssertionError(kernel)
 
@@ -537,7 +539,10 @@ def test_every_tile_the_engine_resolves_at_full_width_launches(arch, dtype):
     tiles, res = specs.resolve_model_tiles(
         sweep_plan, cfg, 4, SWEEP_MAX_LEN, "decode", dtype, H100_SXM)
     assert {k: r.source for k, r in res.items()} == {
-        "matmul": "exact", "flash_decode": "exact"}
+        "matmul": "exact", "flash_decode": "exact", "kv_page": "exact"}
+    # Paged, the decode attends over the table's view of whole pages.
+    page = tiles["kv_page"][0]
+    cache_lens.append(-(-SWEEP_MAX_LEN // page) * page)
     tiles, _ = specs.launchable_tiles(tiles, cfg, 4, SWEEP_MAX_LEN, "decode",
                                       dtype, tokens=1, cache_lens=cache_lens)
     for kernel, tile in tiles.items():

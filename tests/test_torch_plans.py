@@ -365,6 +365,10 @@ def _launchable(kernel, tile, problem, dtype):
     elif kernel in ("chunked_prefill", "packed_prefill"):
         return fa_ops.chunk_launch_tile(tile, min(tile[0], problem["sq"]),
                                         problem["hq"], problem["d"], dtype)
+    elif kernel == "kv_page":
+        # A page is a pool geometry, no launch: it only has to fit the
+        # cache (the decode tile is held against the paged view).
+        assert 0 < tile[0] <= problem["skv"], (tile, problem)
     else:
         raise AssertionError(kernel)
 
@@ -389,7 +393,8 @@ def test_every_candidate_the_port_sweeps_at_full_width_launches():
         _launchable(kernel, spec.default_tile(problem, dtype), problem, dtype)
         seen.add(kernel)
     assert seen == {"matmul", "flash_attention", "flash_decode", "bilinear",
-                    "ssd", "rglru", "chunked_prefill", "packed_prefill"}
+                    "ssd", "rglru", "chunked_prefill", "packed_prefill",
+                    "kv_page"}
 
 
 def test_attention_at_head_dim_256_has_launchable_tiles():
@@ -533,8 +538,8 @@ def test_compile_skips_only_cells_without_a_legal_tile():
         compile_plan([("bilinear", _prob(2), "float32", H100_SXM)],
                      measure_fn_factory=broken)
     with pytest.raises(KeyError):
-        compile_plan([("kv_page", dict(skv=64, d=16, hkv=1), "float32",
-                       H100_SXM)])
+        compile_plan([("no_such_kernel", dict(skv=64, d=16, hkv=1),
+                       "float32", H100_SXM)])
 
 
 def test_measured_times_outrank_the_model_and_mark_the_entry():
@@ -596,13 +601,14 @@ def test_compile_plans_cli_names_the_unported_kernels(tmp_path):
          "--measure", "analytic", "--hardware", "h100_sxm", "--out", str(out)],
         capture_output=True, text=True, env=env, timeout=300, cwd=tmp_path)
     assert proc.returncode == 0, proc.stderr
-    assert "not ported yet, cells left out: kv_page" in proc.stdout
+    # Every kernel has a spec now, the paged pool's kv_page included.
+    assert "not ported yet" not in proc.stdout
     art = json.loads(out.read_text())
     kinds = {e["kernel"] for e in art["entries"]}
     assert {"bilinear", "ssd", "rglru", "matmul", "flash_attention",
-            "flash_decode"} == kinds
+            "flash_decode", "kv_page"} == kinds
     assert {e["hardware"] for e in art["entries"]} == {"h100_sxm"}
-    assert art["meta"]["unported_kernels"] == ["kv_page"]
+    assert art["meta"]["unported_kernels"] == []
     assert art["meta"]["skipped_jobs"] == 0
     if not torch.cuda.is_available():
         # Wall-clock timing, asked for or by default (h100_sxm is the

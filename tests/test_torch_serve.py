@@ -144,15 +144,33 @@ def test_engine_is_reusable_and_deterministic(models):
 
 
 @pytest.mark.parametrize("option", [
-    dict(chunk_prefill=True, paged=True),
     dict(pack_prefill=True, tracer=object()),
-    dict(paged=True), dict(shadow_fraction=0.5), dict(refiner=object()),
+    dict(shadow_fraction=0.5), dict(refiner=object()),
     dict(tracer=object()),
 ])
 def test_unported_engine_options_raise(models, option):
     _, cfg_t, _, pt = models
     with pytest.raises(NotImplementedError):
         ServeEngine(cfg_t, pt, device="cpu", **option)
+
+
+@pytest.mark.parametrize("option", [
+    dict(chunk_prefill=True, paged=True), dict(paged=True),
+])
+def test_paged_engine_options_construct_and_serve(models, option):
+    """The options that raised before the paged pool was ported: they
+    construct and serve on the CPU, the tokens the unpaged engine's and the
+    pool drained."""
+    _, cfg_t, _, pt = models
+    subs = [(np.arange(2, 2 + n) % cfg_t.vocab_size, 4) for n in (5, 11)]
+    eng, _, _, got = _serve(lambda: ServeEngine(
+        cfg_t, pt, max_len=32, device="cpu", page_size=8, **option), subs)
+    _, _, _, want = _serve(lambda: ServeEngine(cfg_t, pt, max_len=32,
+                                               device="cpu"), subs)
+    assert {r: q.out_tokens for r, q in got.items()} == \
+        {r: q.out_tokens for r, q in want.items()}
+    assert eng.pool.page == 8 and eng.metrics.pool_page_allocs > 0
+    eng.pool.check_balanced()
 
 
 def test_launcher_serves_on_cpu(capsys):
