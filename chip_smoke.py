@@ -120,7 +120,28 @@ Phases, each of which fails the run if it fails:
    gather's share), and one layer's attention call (gather + flash_decode
    over the 1536-row view beside flash_decode over 1280 rows); (c)
    h2o-danube-1.8b at full width and 4 layers, paged (windowed decode over
-   the linear view) against the ring engine's tokens.
+   the linear view) against the ring engine's tokens. 13d times each
+   attention call beside its plain version and SDPA;
+14. request tracing and shadow plan refinement (after phase 12b), on phase
+   4's engine (full-width qwen2-1.5b, 4 slots, max_len 1024, captured
+   decode, phase 4b's bucket edges) and phase 4's six requests: (a) served
+   with and without a ``Tracer`` (off, on, on, off): tokens bit-equal, each
+   slot captured once, the trace's TTFT p95 equal to the metrics', the
+   trace written (Chrome JSON and JSONL), read back and summarised by
+   ``trace_report``; events and wall ms on and off printed; (b) a
+   cost-model plan of phase 4b's cells (a GTX260 plan holds none of the
+   Hopper kernels' tiles, which is printed), served with a quarter of the
+   steps timing a cell's incumbent and a candidate on the card
+   (``make_shadow_measure(h100_sxm)``) into a ``PlanRefiner``, the
+   requests repeated until every timed cell with candidates holds 3
+   samples of both: tokens bit-equal to the shadowless serve every round,
+   no slot recaptured, matmul, flash_attention and flash_decode launched
+   by the measurements, every time finite (or ``inf`` for a tile that
+   would not launch), the allocated bytes flat once every cell's timer is
+   built; then ``refine``, the drift report, ``set_plans(refined)`` and a
+   serve: tokens held, one recapture per slot, every refined cell exact;
+   (c) after phase 11, the paper's four examples (``repro_torch.examples``)
+   on the card.
 
 ``--profile`` adds, after phase 5, where the time of one full-width qwen2
 request goes (prefill, eager decode, captured decode): wall time, device
@@ -2632,11 +2653,15 @@ def paged_decode_step(cfg, params, profile: bool):
     index_select kernels). Then the attention call alone on the card:
     flash_decode over a 1280-row cache beside the paged call (the gather of
     K and V and flash_decode over the 1536-row view) and the gather alone,
-    all at position 600."""
+    all at position 600, each call beside its plain version
+    (``flash_decode_ref``, after the same gather when paged) and the
+    library's (SDPA with one query over the cache, or over the gathered
+    view, masked past the position)."""
     import torch
+    import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention.decode import (
-        flash_decode, paged_gather,
+        flash_decode, flash_decode_ref, paged_gather,
     )
 
     out = {}
@@ -2702,9 +2727,38 @@ def paged_decode_step(cfg, params, profile: bool):
     def gather(kp, vp):
         return lambda: (paged_gather(kp, table), paged_gather(vp, table))
 
+    def plain(paged):
+        def call(k, v):
+            if paged:
+                return lambda: flash_decode_ref(q, paged_gather(k, table),
+                                                paged_gather(v, table),
+                                                pos=pos)
+            return lambda: flash_decode_ref(q, k, v, pos=pos)
+        return call
+
+    def sdpa(paged):
+        rows = n_pt * page if paged else CHUNK_MAX_LEN
+        mask = (torch.arange(rows, device="cuda") <= 600)[None, None, None]
+
+        def call(k, v):
+            if paged:
+                return lambda: F.scaled_dot_product_attention(
+                    q[:, :, None], paged_gather(k, table),
+                    paged_gather(v, table), attn_mask=mask, enable_gqa=True)
+            return lambda: F.scaled_dot_product_attention(
+                q[:, :, None], k, v, attn_mask=mask, enable_gqa=True)
+        return call
+
     calls = dict(unpaged_ms=time_ms([unpaged_call(*kv) for kv in linear]),
                  paged_ms=time_ms([paged_call(*kv) for kv in pages]),
-                 gather_ms=time_ms([gather(*kv) for kv in pages]))
+                 gather_ms=time_ms([gather(*kv) for kv in pages]),
+                 unpaged_plain_ms=time_ms([plain(False)(*kv)
+                                           for kv in linear]),
+                 paged_plain_ms=time_ms([plain(True)(*kv) for kv in pages]),
+                 unpaged_library_ms=library_ms([sdpa(False)(*kv)
+                                                for kv in linear]),
+                 paged_library_ms=library_ms([sdpa(True)(*kv)
+                                              for kv in pages]))
     del linear, pages
     calls["gather_bound_ms"] = view_bytes / HBM_BYTES_PER_S * 1e3
     out["attention_call"] = calls
@@ -2713,6 +2767,349 @@ def paged_decode_step(cfg, params, profile: bool):
         f"flash_decode over {n_pt * page} rows) {calls['paged_ms']:.4f} ms; "
         f"the gather alone {calls['gather_ms']:.4f} ms (bound "
         f"{calls['gather_bound_ms']:.4f} ms: {view_bytes} bytes)")
+    log(f"    plain: {calls['unpaged_plain_ms']:.4f} ms unpaged, "
+        f"{calls['paged_plain_ms']:.4f} ms gather + view; library (SDPA): "
+        f"{_ms(calls['unpaged_library_ms'])} unpaged, "
+        f"{_ms(calls['paged_library_ms'])} gather + view")
+    return out
+
+
+def _ms(t) -> str:
+    return "not timed" if t is None else f"{t:.4f} ms"
+
+
+# ---------------------------------------------------------------------------
+# Phase 14: request tracing and shadow plan refinement in the engine, and the
+# paper's examples, on the card
+# ---------------------------------------------------------------------------
+
+# 14b: a plan ranked by the cost model, refined by the card's times.
+SHADOW_FRACTION = 1 / 4
+REFINE_MIN_SAMPLES, REFINE_MIN_SPEEDUP = 3, 1.05
+REFINE_MAX_ROUNDS = 24
+TIMED_KERNELS = ("matmul", "flash_attention", "flash_decode")
+
+
+def _bucket_engine(cfg, params, **kw):
+    """Phase 4's engine (4 slots, MAX_LEN, captured decode) with phase 4b's
+    bucket edges."""
+    import torch
+
+    from repro_torch.serve import (BucketPolicy, ServeEngine,
+                                   ShapeBucketScheduler)
+
+    return ServeEngine(cfg, params, max_len=MAX_LEN, slots=4,
+                       dtype=torch.float32, device="cuda",
+                       scheduler=ShapeBucketScheduler(BucketPolicy(
+                           PLAN_SERVE_EDGES, max_queue=64)), **kw)
+
+
+def trace_serve(cfg, params, phase4):
+    """Phase 14a: phase 4's six requests served twice each with and
+    without a tracer (off, on, on, off, after a warm-up serve). Tokens bit-equal, each slot
+    captured once in every serve, the trace's TTFT p95 equal to the
+    metrics' p95, and the written trace (Chrome JSON and JSONL) read back
+    by ``load_trace`` and ``trace_report`` (``main`` returns 0)."""
+    import contextlib
+    import io
+
+    import numpy as np
+
+    from repro_torch.launch import trace_report
+    from repro_torch.obs import Tracer, load_trace, write_jsonl, write_trace
+
+    prompts = [np.asarray(p) for p in phase4["prompts"]]
+    new_tokens = phase4["new_tokens"]
+    # A warm-up serve: the bucketed lengths' first prefills.
+    _serve_counted(_bucket_engine(cfg, params), prompts, new_tokens)
+    runs = {False: [], True: []}
+    tokens = {}
+    for traced in (False, True, True, False):
+        tracer = Tracer() if traced else None
+        eng = _bucket_engine(cfg, params, tracer=tracer)
+        got, _, dt, caps = _serve_counted(eng, prompts, new_tokens)
+        check(caps == [1] * eng.slots,
+              f"traced={traced}: captures per slot {caps}")
+        tokens.setdefault(traced, got)
+        check(got == tokens[traced], f"traced={traced}: tokens moved "
+              "between two serves")
+        runs[traced].append(dt)
+        if traced:
+            last_tracer, last_eng = tracer, eng
+    check(tokens[True] == tokens[False], "tracing changed the tokens")
+    last_tracer.flush()
+    ttfts = trace_report.ttft_values({"events": last_tracer.events})
+    trace_p95 = trace_report.nearest_rank(ttfts, 0.95)
+    metrics_p95 = last_eng.metrics.ttft_p95()
+    check(len(ttfts) == len(prompts) and trace_p95 == metrics_p95,
+          f"trace TTFT p95 {trace_p95} != metrics p95 {metrics_p95} "
+          f"({len(ttfts)} spans)")
+    out_dir = ROOT / "build"
+    out_dir.mkdir(exist_ok=True)
+    summaries = {}
+    for path, writer in ((out_dir / "trace_14a.json", write_trace),
+                         (out_dir / "trace_14a.jsonl", write_jsonl)):
+        writer(last_tracer, str(path))
+        summary = trace_report.summarize(load_trace(str(path)))
+        check(summary["requests"] == len(prompts)
+              and summary["ttft"]["n"] == len(prompts),
+              f"{path.name}: summary {summary['requests']} requests")
+        with contextlib.redirect_stdout(io.StringIO()) as text:
+            rc = trace_report.main([str(path)])
+        check(rc == 0, f"trace_report on {path.name} returned {rc}")
+        summaries[path.name] = summary["ttft"]
+    report = text.getvalue().splitlines()
+    off_s, on_s = (statistics.median(runs[k]) for k in (False, True))
+    out = dict(events=len(last_tracer.events), seconds_off=runs[False],
+               seconds_on=runs[True], median_off_s=off_s, median_on_s=on_s,
+               trace_p95_s=trace_p95, metrics_p95_s=metrics_p95,
+               summaries=summaries)
+    log(f"  tokens equal with and without the tracer; captures per slot "
+        f"[1, 1, 1, 1] in all four serves; {len(last_tracer.events)} "
+        f"events")
+    log(f"  serve wall ms: tracing off {runs[False][0] * 1e3:.1f} / "
+        f"{runs[False][1] * 1e3:.1f}, on {runs[True][0] * 1e3:.1f} / "
+        f"{runs[True][1] * 1e3:.1f} (medians {off_s * 1e3:.1f} / "
+        f"{on_s * 1e3:.1f}, {100 * (on_s / off_s - 1):+.2f}%)")
+    log(f"  TTFT p95 {trace_p95 * 1e3:.3f} ms in the trace = "
+        f"{metrics_p95 * 1e3:.3f} ms in the metrics")
+    for line in report[:4]:
+        log(f"    trace_report: {line}")
+    return out
+
+
+def _shadow_cells(eng):
+    """The cells the engine resolved whose plan entry has candidates."""
+    return {key: eng._shadow_cell_map[key] for key in eng._shadow_order
+            if eng._shadow_view(key) is not None}
+
+
+def refine_serve(cfg, params, phase4):
+    """Phase 14b: the refinement loop on the card. A cost-model plan of
+    phase 4b's serving cells: first for the GTX260 alone (the paper's
+    donor), which holds no tile of the Hopper matmul, flash_attention or
+    flash_decode within its 16 KB of shared memory, so the loop's plan is
+    the H100's own cost-model ranking, never timed on the card. Served
+    with shadowing off, then with a quarter of the steps diverted to
+    timing (``make_shadow_measure(h100_sxm)``) and a PlanRefiner, phase
+    4's requests repeated until every resolved matmul, flash_attention and
+    flash_decode cell with candidates holds REFINE_MIN_SAMPLES samples of
+    its incumbent and of one candidate. Tokens bit-equal to the shadowless
+    serve, no slot recaptured by a shadow step, the three kernels launched
+    by the measurements, every time finite (or inf for a tile that would
+    not launch), the allocated bytes flat once every cell's timer is
+    built. Then ``refine`` and ``set_plans``: the tokens again, one
+    recapture per slot, and every refined cell resolved exactly."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core import GTX260, H100_SXM, compile_plan, registry
+    from repro_torch.kernels import build
+    from repro_torch.launch.compile_plans import serve_bucket_cells
+    from repro_torch.serve.refine import (PlanRefiner, drift_report,
+                                          make_shadow_measure)
+
+    cells = [(k, p) for k, p in serve_bucket_cells(
+        ["qwen2-1.5b"], PLAN_SERVE_EDGES, slots=4, max_len=MAX_LEN)
+        if k in registry.names()]
+    gtx = compile_plan([(k, p, "float32", GTX260) for k, p in cells])
+    gtx_kernels = sorted({e.kernel for e in gtx.entries()})
+    log(f"  a gtx260 plan of the {len(cells)} serving cells holds "
+        f"{len(gtx)} entries ({', '.join(gtx_kernels) or 'none'}); "
+        f"{gtx.meta['skipped_jobs']} cells have no tile within its "
+        f"{GTX260.vmem_bytes // 1024} KB of shared memory")
+    plan = compile_plan([(k, p, "float32", H100_SXM) for k, p in cells],
+                        meta={"generated_by": "chip_smoke phase 14b"})
+    prompts = [np.asarray(p) for p in phase4["prompts"]]
+    new_tokens = phase4["new_tokens"]
+
+    base = _bucket_engine(cfg, params, plans=plan, hardware=H100_SXM)
+    want, _, base_s, base_caps = _serve_counted(base, prompts, new_tokens)
+    check(base_caps == [1] * base.slots, f"no shadow: captures {base_caps}")
+    del base
+
+    timed = make_shadow_measure(H100_SXM)
+    shadow_launches = {k: 0 for k in build.LAUNCHES}
+    times = []
+
+    def measure(kernel, problem, dtype, tile):
+        before = dict(build.LAUNCHES)
+        dt = timed(kernel, problem, dtype, tile)
+        for k, n in build.LAUNCHES.items():
+            shadow_launches[k] += n - before.get(k, 0)
+        times.append((kernel, dt))
+        return dt
+
+    refiner = PlanRefiner(min_samples=REFINE_MIN_SAMPLES,
+                          min_speedup=REFINE_MIN_SPEEDUP)
+    eng = _bucket_engine(cfg, params, plans=plan, hardware=H100_SXM,
+                         shadow_fraction=SHADOW_FRACTION,
+                         shadow_measure=measure, refiner=refiner)
+    steps = []                 # (ms, allocated bytes, timers) a shadow step
+    real_shadow = eng._maybe_shadow
+
+    def maybe_shadow():
+        n, t0 = eng.metrics.shadow_steps, time.perf_counter()
+        real_shadow()
+        if eng.metrics.shadow_steps > n:
+            steps.append(((time.perf_counter() - t0) * 1e3,
+                          torch.cuda.memory_allocated(), len(timed.timers)))
+
+    eng._maybe_shadow = maybe_shadow
+    captures = _count_captures(eng)
+
+    def pending():
+        """Cells of the three kernels still short of samples."""
+        short = []
+        for key, (kernel, problem) in _shadow_cells(eng).items():
+            if kernel not in TIMED_KERNELS:
+                continue
+            inc, cands = eng._shadow_view(key)
+            stats = refiner._cells.get(("h100_sxm", kernel, key.split("|")[1],
+                                        "float32"))
+            counts = ({} if stats is None else
+                      {t: s.count for t, s in stats.tiles.items()})
+            if (counts.get(inc, 0) < REFINE_MIN_SAMPLES or max(
+                    (counts.get(c, 0) for c in cands), default=0)
+                    < REFINE_MIN_SAMPLES):
+                short.append(key)
+        return short
+
+    t0 = time.perf_counter()
+    rounds = 0
+    differ = 0
+    while rounds < REFINE_MAX_ROUNDS:
+        rounds += 1
+        rids = [eng.add_request(p, max_new_tokens=new_tokens)
+                for p in prompts]
+        check(all(r is not None for r in rids), f"rejected: {rids}")
+        done = {r.rid: r.out_tokens for r in eng.run_until_done()}
+        got = [done[r] for r in rids]
+        check(got == want, f"round {rounds}: shadowing changed the tokens")
+        if not pending():
+            break
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    check(not pending(), f"cells short of samples after {rounds} rounds: "
+          f"{pending()}")
+    check(captures == [1] * eng.slots,
+          f"shadow steps recaptured a slot: captures {captures}")
+    for k in TIMED_KERNELS:
+        check(shadow_launches[k] > 0,
+              f"shadow measurement never launched {k}")
+    n_inf = sum(1 for _, dt in times if dt == math.inf)
+    check(all(dt == math.inf or (math.isfinite(dt) and dt > 0)
+              for _, dt in times), "a shadow time is neither finite nor inf")
+    n_cells = len(_shadow_cells(eng))
+    steady = [i for i, s in enumerate(steps) if s[2] == steps[-1][2]]
+    mem_first, mem_steady, mem_last = (steps[0][1], steps[steady[0]][1],
+                                       steps[-1][1])
+    check(len(steps) - steady[0] >= 10, f"only {len(steps) - steady[0]} "
+          "shadow steps after the last timer was built")
+    check(abs(mem_last - mem_steady) <= 4 << 20,
+          f"allocated bytes grew by {(mem_last - mem_steady) / 2**20:.1f} "
+          f"MiB over {len(steps) - steady[0]} shadow steps of built timers")
+    shadow_ms = [s[0] for s in steps]
+    log(f"  gtx260's place taken by the H100's cost-model plan: "
+        f"{len(plan)} entries, every cell exact on the h100_sxm engine")
+    log(f"  {rounds} rounds of {len(prompts)} requests in {loop_s:.1f} s, "
+        f"{eng.steps_run} steps, {eng.metrics.shadow_steps} shadow steps "
+        f"over {n_cells} cells with candidates; tokens equal to the "
+        f"shadowless serve ({base_s * 1e3:.1f} ms) every round; captures "
+        f"per slot {captures}")
+    log(f"  a shadow step: median {statistics.median(shadow_ms):.2f} ms, "
+        f"max {max(shadow_ms):.2f} ms on the host clock (two timed "
+        f"measurements); launches by the measurements "
+        f"{ {k: shadow_launches[k] for k in TIMED_KERNELS} }; "
+        f"{len(times)} times, {n_inf} inf (tiles that would not launch)")
+    log(f"  allocated: {mem_first / 2**20:.1f} MiB after the first shadow "
+        f"step, {mem_steady / 2**20:.1f} once all {steps[-1][2]} timers were "
+        f"built (step {steady[0] + 1}), {mem_last / 2**20:.1f} after the "
+        f"last ({len(steps)})")
+    samples = {}
+    for (hw, kernel, problem, dtype), cell in sorted(refiner._cells.items()):
+        samples[f"{kernel}|{problem}"] = {
+            str(t): dict(count=s.count, mean_s=s.mean_s)
+            for t, s in cell.tiles.items()}
+    refined = refiner.refine(plan)
+    report = drift_report(refined)
+    log(f"  drift report: {report['n_refined']} cell(s) re-ranked from "
+        f"{report['shadow_samples']} samples")
+    for cell in report["cells"]:
+        log(f"    {cell['cell']}: {cell['incumbent']} -> {cell['refined']} "
+            f"({cell['incumbent_s'] * 1e3:.4f} -> "
+            f"{cell['refined_s'] * 1e3:.4f} ms, {cell['speedup']:.3f}x, "
+            f"{cell['samples']} samples)")
+    for m in refined.meta["measurements"]:
+        res = refined.resolve(m["kernel"], m["problem"], m["dtype"],
+                              H100_SXM)
+        check(res is not None and res.source == "exact",
+              f"refined {m['kernel']} resolves {res and res.source}")
+    eng.set_plans(refined)
+    eng.shadow_fraction = 0.0
+    before = list(captures)
+    rids = [eng.add_request(p, max_new_tokens=new_tokens) for p in prompts]
+    done = {r.rid: r.out_tokens for r in eng.run_until_done()}
+    for p, r, w in zip(prompts, rids, want):
+        differ += hold_tokens(params, cfg, p, done[r], w,
+                              f"refined plan prompt {len(p)}")
+    recaptures = [a - b for a, b in zip(captures, before)]
+    check(recaptures == [1] * eng.slots,
+          f"set_plans: recaptures per slot {recaptures}")
+    log(f"  set_plans(refined): {differ} token streams differ from the "
+        f"donor plan's; recaptures per slot {recaptures}")
+    return dict(gtx260_entries=len(gtx), gtx260_kernels=gtx_kernels,
+                plan_entries=len(plan), rounds=rounds, loop_s=loop_s,
+                steps=eng.steps_run, shadow_steps=len(steps),
+                cells_with_candidates=n_cells, shadow_ms=shadow_ms,
+                shadow_launches=shadow_launches, times=len(times),
+                inf_times=n_inf, mem_first=mem_first, mem_steady=mem_steady,
+                mem_last=mem_last, samples=samples, drift=report,
+                refined_differ=differ, no_shadow_s=base_s)
+
+
+def run_examples():
+    """Phase 14c: the paper's examples (``repro_torch.examples``) on the
+    card, in this process, their output lines logged: quickstart, the
+    bilinear kernel over a batch of images (each held against the oracle
+    at 2e-5), tune_tiles' plan compile into a temporary file, and the
+    engine over a reduced model."""
+    import contextlib
+    import io
+    import tempfile
+
+    from repro_torch.core import TilePlan
+    from repro_torch.examples import (quickstart, resize_images, serve_lm,
+                                      tune_tiles)
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        plan_path = str(Path(tmp) / "tune_tiles_plan.json")
+        runs = (("quickstart", quickstart, []),
+                ("resize_images", resize_images,
+                 ["--size", "800", "--scale", "10", "--count", "4"]),
+                ("tune_tiles", tune_tiles, ["--compile-plans", plan_path]),
+                ("serve_lm", serve_lm, ["--requests", "8"]))
+        for name, example, argv in runs:
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()) as text:
+                example.main(argv)
+            lines = text.getvalue().splitlines()
+            out[name] = dict(seconds=time.perf_counter() - t0, lines=lines)
+            log(f"  examples.{name} {' '.join(argv)} "
+                f"({out[name]['seconds']:.1f} s):")
+            for line in lines[-12:]:
+                log(f"    {line}")
+        plan = TilePlan.load(plan_path)
+        check(plan.hardware_names() == ["geforce_8800gts", "gtx260",
+                                        "h100_sxm"],
+              f"tune_tiles plan hardware {plan.hardware_names()}")
+    check(any("matches the oracle" in s for s in out["quickstart"]["lines"]),
+          "quickstart did not match the oracle")
+    check(sum(s.startswith("image ") for s in out["resize_images"]["lines"])
+          == 4, "resize_images did not upscale its 4 images")
     return out
 
 
@@ -3119,6 +3516,18 @@ def main(argv=None) -> int:
             result["short_behind_long"] = short_behind_long(cfg, params)
             phase_done("chunked", t0)
 
+            # 14a-b. Tracing and shadow refinement (14c, the examples,
+            # after phase 11).
+            log("== 14a: request tracing on the card, phase 4's requests "
+                "(tracer off, on, on, off)")
+            t0 = time.perf_counter()
+            result["trace_serve"] = trace_serve(cfg, params, result["serve"])
+            log("== 14b: shadow refinement on the card: a cost-model plan, "
+                "a quarter of the steps timing its cells")
+            result["refine_serve"] = refine_serve(cfg, params,
+                                                  result["serve"])
+            phase_done("trace-refine", t0)
+
             # 13. Paged serving (13c loads its own model).
             log("== 13: paged serving, full-width qwen2-1.5b (28 layers, "
                 "float32), the default page, against the unpaged engine")
@@ -3190,6 +3599,12 @@ def main(argv=None) -> int:
                 decode_kernels=("matmul", "flash_decode", "rglru"),
                 profile=args.profile, chunking=(2100, 512))
             phase_done("recurrentgemma", t0)
+
+            # 14c. The paper's examples.
+            log("== 14c: the paper's examples on the card")
+            t0 = time.perf_counter()
+            result["examples"] = run_examples()
+            phase_done("examples", t0)
 
             check("jax" not in sys.modules, "jax was imported")
             check(not any(m == "repro" or m.startswith("repro.")

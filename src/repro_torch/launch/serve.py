@@ -15,6 +15,10 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
         --pack-prefill --step-token-budget 40 --scheduler bucket
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --paged
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --tile-plans p.json --hardware gtx260 --refine --shadow-fraction 1 \
+        --refine-out refined.json --trace-out trace.jsonl
+    PYTHONPATH=src python -m repro_torch.launch.trace_report trace.jsonl
 
 Mirrors the single-engine path of ``repro/launch/serve.py``: it serves
 ``configs.get_smoke(arch)`` with random parameters from a fixed seed, the
@@ -37,8 +41,16 @@ the paged KV pool (page from the plan's ``kv_page`` cell, else the
 default; shared prompt prefixes mapped copy-on-write unless
 ``--no-prefix-sharing``; admission by the pool's headroom), every prefill
 as chunks, and prints the pool counters under ``kv pool`` (``pool`` in
-``--metrics-json``). The fleet, plan refinement and tracing come with
-later slices.
+``--metrics-json``). ``--refine`` (with ``--tile-plans``) diverts
+``--shadow-fraction`` of the steps to shadow-measuring candidate tiles from
+the plan's sensitivity curves (on the card for ``h100_sxm``, by the cost
+model for the paper's GPUs), and at exit re-ranks the plan
+(``PlanRefiner.refine``), prints the drift report, writes the refined
+artifact to ``--refine-out`` and swaps the engine onto it.
+``--trace-out`` writes the request-lifecycle and plan-audit trace (JSONL
+for a ``.jsonl`` path, else Chrome/Perfetto JSON) for ``python -m
+repro_torch.launch.trace_report``. The fleet (``--fleet``,
+``--autoscale``, ``roll_plans``) comes with a later slice.
 """
 from __future__ import annotations
 
@@ -53,7 +65,9 @@ from repro_torch import configs
 from repro_torch.core import HARDWARE_REGISTRY, TilePlan
 from repro_torch.kernels import build
 from repro_torch.models import api
+from repro_torch.obs import Tracer, write_jsonl, write_trace
 from repro_torch.serve import BucketPolicy, ServeEngine, make_scheduler
+from repro_torch.serve.refine import PlanRefiner, drift_report
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -120,14 +134,39 @@ def main(argv=None):
                          "--chunk-prefill)")
     ap.add_argument("--no-prefix-sharing", action="store_true",
                     help="disable shared-prefix page reuse in --paged mode")
+    ap.add_argument("--refine", action="store_true",
+                    help="shadow-measure candidate tiles during service and "
+                         "emit a refined (re-ranked) plan artifact at exit; "
+                         "requires --tile-plans")
+    ap.add_argument("--shadow-fraction", type=float, default=1 / 32,
+                    help="fraction of steps diverted to shadow measurement "
+                         "when --refine is on (deterministic counter-based "
+                         "sampling; default 1/32)")
+    ap.add_argument("--refine-out", default=None,
+                    help="write the refined plan artifact here (with "
+                         "--refine; default: print the drift summary only)")
     ap.add_argument("--metrics-json", action="store_true",
                     help="dump full metrics as JSON instead of the summary")
+    ap.add_argument("--trace-out", default=None,
+                    help="write a request-lifecycle / plan-audit trace here "
+                         "(.jsonl for JSONL, else Chrome/Perfetto JSON; "
+                         "inspect with python -m "
+                         "repro_torch.launch.trace_report)")
     args = ap.parse_args(argv)
 
     cfg = configs.get_smoke(args.arch)
     dtype = _DTYPES[args.dtype]
     params = api.init_params(cfg, 0, dtype=dtype, device=args.device)
     plans = TilePlan.load_or_none(args.tile_plans)
+    refiner = None
+    if args.refine:
+        if plans is None:
+            raise SystemExit("--refine requires a loadable --tile-plans "
+                             "artifact (shadow candidates come from its "
+                             "sensitivity curves)")
+        refiner = PlanRefiner()
+    # Wall clock, the launcher's timing.
+    tracer = Tracer() if args.trace_out else None
     policy = None
     if args.scheduler == "bucket":
         policy = build_policy(
@@ -144,7 +183,10 @@ def main(argv=None):
                          pack_prefill=args.pack_prefill,
                          paged=args.paged,
                          prefix_sharing=not args.no_prefix_sharing,
-                         device=args.device)
+                         shadow_fraction=(args.shadow_fraction if args.refine
+                                          else 0.0),
+                         refiner=refiner, tracer=tracer,
+                         instance=args.hardware, device=args.device)
 
     build.reset_launches()
     rng = np.random.default_rng(0)
@@ -164,6 +206,30 @@ def main(argv=None):
     print(f"{len(done)} requests ({rejected} rejected), {toks} tokens in "
           f"{dt:.2f}s ({toks / dt:.1f} tok/s) on {engine.device}")
     print(f"kernel launches: {dict(build.LAUNCHES)}")
+    if refiner is not None:
+        refine_trace = (tracer.attach("refiner", kind="refiner")
+                        if tracer is not None else None)
+        refined = refiner.refine(plans, trace=refine_trace)
+        report = drift_report(refined)
+        print(f"refined {report['n_refined']} cell(s) from "
+              f"{report['shadow_samples']} shadow sample(s)")
+        for cell in report["cells"]:
+            print(f"  {cell['cell']}: {cell['incumbent']} -> "
+                  f"{cell['refined']} ({cell['speedup']:.2f}x, "
+                  f"{cell['samples']} samples)")
+        if args.refine_out:
+            refined.save(args.refine_out)
+            print(f"refined plan artifact -> {args.refine_out}")
+        engine.set_plans(refined)
+        print("engine rolled onto the refined artifact")
+    if tracer is not None:
+        if args.trace_out.endswith(".jsonl"):
+            write_jsonl(tracer, args.trace_out)
+        else:
+            write_trace(tracer, args.trace_out)
+        print(f"trace -> {args.trace_out} ({len(tracer.events)} events; "
+              f"open in ui.perfetto.dev or run python -m "
+              f"repro_torch.launch.trace_report {args.trace_out})")
     if args.metrics_json:
         print(json.dumps(engine.metrics.as_dict(), indent=1, sort_keys=True,
                          default=str))

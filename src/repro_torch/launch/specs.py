@@ -15,7 +15,7 @@ kernel's default, so no plan tile can raise in the middle of a serve.
 from __future__ import annotations
 
 import logging
-from typing import Dict, Sequence
+from typing import Dict, Mapping, Sequence
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.configs.shapes import ShapeSpec
@@ -151,6 +151,46 @@ def tile_launches(kernel: str, tile, cfg: ArchConfig, dtype: str,
         elif kernel == "rglru":
             rglru_ops.launch_tile(tile, dict(
                 s=tokens, f=cfg.recurrent.lru_width or cfg.d_model))
+    except ValueError:
+        return False
+    return True
+
+
+def cell_launches(kernel: str, problem: Mapping[str, int], dtype: str,
+                  tile) -> bool:
+    """Whether ``kernel``'s wrapper launches ``tile`` as given on one plan
+    cell's own problem, the call ``launch.measure.make_cell_timer`` times:
+    :func:`tile_launches`'s per-kernel rule at the cell's shapes (the
+    matmul's one ``(m, k, n)`` GEMM, the attention's head dim, the decode
+    attention over ``skv`` keys, a scan over ``s`` steps), and no clamping
+    of the tile to the problem, after which the wrapper would run another
+    tile than the one named. A serving cell (``chunked_prefill``,
+    ``packed_prefill``, ``kv_page``) is no single launch: True. Pure
+    Python."""
+    from repro_torch.kernels.bilinear import ops as bilinear_ops
+    from repro_torch.kernels.flash_attention import decode as fa_decode
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.matmul import ops as mm_ops
+    from repro_torch.kernels.rglru import ops as rglru_ops
+    from repro_torch.kernels.ssd import ops as ssd_ops
+
+    t = tuple(int(x) for x in tile)
+    try:
+        if kernel == "matmul":
+            mm_ops.launch_tile(t, problem["m"], problem["n"], problem["k"],
+                               dtype)
+        elif kernel == "flash_attention":
+            fa.launch_tile(t, problem["d"], dtype)
+        elif kernel == "flash_decode":
+            rep = max(problem["hq"], 1) // max(problem["hkv"], 1)
+            return fa_decode.launch_bkv(t[-1], problem["skv"], problem["d"],
+                                        rep) == t[-1]
+        elif kernel == "ssd":
+            return ssd_ops.launch_chunk(t[0], problem, dtype) == t[0]
+        elif kernel == "rglru":
+            return rglru_ops.launch_tile(t, problem) == t
+        elif kernel in ("bilinear", "bilinear_cuda"):
+            bilinear_ops.launch_tile(t, problem, dtype)
     except ValueError:
         return False
     return True

@@ -81,8 +81,38 @@ states; a slot keeps its own, and a fixed int32 ``[n_pt]`` table tensor
 its captured step reads. Before each step the engine makes the row's page
 writable and copies the request's table into that tensor when the table
 changed (a new page, a split), then replays the same graph: crossing a
-page needs no recapture. Options not ported yet — ``shadow_fraction`` /
-``refiner`` and ``tracer`` — raise ``NotImplementedError`` when set.
+page needs no recapture.
+
+Tracing (``tracer=``, a :class:`~repro_torch.obs.trace.Tracer`) is the
+reference's: the engine attaches as process ``instance`` and records the
+request lifecycle (submit, admit or reject, chunks with their pack lane and
+queue age, the whole prefill, first token, decode, finish), one span a
+step, queue depth, the pool's page events, and one ``plan_resolve``
+instant per kernel each time a cell is resolved (the tile it launches,
+after the launch check), at the reference's sites and on the engine's
+clock. Without a tracer every site short-circuits on ``self._trace is
+None``: no call and no allocation. What each span holds of the card's time
+is set out in ``obs/trace.py``; tracing adds no synchronisation. One order
+differs from the reference: a paged step frees the pages of each request
+it finishes as the request's step launches (the reference's order, so the
+pool's events match), but records the ``finish`` instants after the step's
+single token readback, so in a step that finishes two requests both
+``page_free`` events come before both ``finish`` events.
+
+Shadow execution (``shadow_fraction=``, ``shadow_measure=``,
+``refiner=``; ``serve/refine.py``) is the reference's: a counter-based
+accumulator diverts that fraction of the steps, and each diverted step
+measures the next resolved plan cell in round-robin order (the cells are
+noted as the engine resolves them) at its incumbent, the plan's resolved
+tile, and at the next candidate of the entry's sensitivity curve, records
+both in the metrics, the trace and the refiner, and serves on. The default
+measure is ``refine.make_shadow_measure(hardware)``: on ``h100_sxm`` it
+times the cell's kernel on the card (a CPU engine raises ``RuntimeError``
+there rather than score it with the cost model; CPU tests pass
+``shadow_measure`` or a modelled ``hardware``). A measurement captures and
+drops a graph of its own on operands of its own, so no slot's graph is
+recaptured and the tokens are the same with shadowing on or off; only
+``set_plans`` (with the refined artifact) drops the slots' graphs.
 """
 from __future__ import annotations
 
@@ -98,7 +128,8 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.hardware import PRODUCTION_TARGET
-from repro_torch.core.plans import PlanTransferWarning
+from repro_torch.core.plans import (PLAN_SCHEMA_VERSION,
+                                    PlanTransferWarning, problem_key)
 from repro_torch.core.tiling import TileShape
 from repro_torch.kernels import build
 from repro_torch.launch import specs
@@ -178,16 +209,11 @@ class ServeEngine:
                  page_size: Optional[int] = None,
                  prefix_sharing: bool = True,
                  shadow_fraction: float = 0.0,
+                 shadow_measure=None,
                  refiner=None,
                  tracer=None,
+                 instance: Optional[str] = None,
                  device=None):
-        unported = {"shadow_fraction": bool(shadow_fraction),
-                    "refiner": refiner is not None,
-                    "tracer": tracer is not None}
-        wanted = sorted(k for k, on in unported.items() if on)
-        if wanted:
-            raise NotImplementedError(
-                f"ServeEngine options not ported yet: {', '.join(wanted)}")
         self.device = resolve_device(device)
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"params live on {params['embed'].device}, the "
@@ -202,6 +228,33 @@ class ServeEngine:
         self.scheduler = scheduler or FifoScheduler()
         self.metrics = metrics or ServeMetrics(clock=clock)
         self._clock = clock
+        # Tracing: None unless a tracer is given, and every site is guarded
+        # by ``if self._trace is not None``.
+        self._trace = None
+        self._plan_schema: Optional[int] = None
+        if tracer is not None:
+            self._trace = tracer.attach(instance or "engine", kind="engine",
+                                        hardware=self.hardware.name)
+            bind = getattr(self.scheduler, "bind_trace", None)
+            if bind is not None:
+                bind(self._trace)
+        # Shadow execution: a fractional accumulator (no randomness), a
+        # round-robin cursor over the cells resolved so far and a candidate
+        # cursor per cell.
+        self.shadow_fraction = float(shadow_fraction)
+        if not 0.0 <= self.shadow_fraction <= 1.0:
+            raise ValueError(
+                f"shadow_fraction must be in [0, 1]: {shadow_fraction}")
+        self.refiner = refiner
+        self._shadow_measure = shadow_measure
+        self._shadow_acc = 0.0
+        self._shadow_rr = 0
+        self._shadow_idx: Dict[str, int] = {}
+        # cell key -> (kernel, problem), in the order resolved.
+        self._shadow_cell_map: Dict[str, Any] = {}
+        self._shadow_order: List[str] = []
+        # cell key -> (incumbent dims, candidate dims) | None.
+        self._shadow_views: Dict[str, Any] = {}
         self.last_step_stats: Dict[str, Any] = {"prefill_tokens": 0,
                                                 "decode_tokens": 0,
                                                 "packed_chunks": 0,
@@ -250,7 +303,7 @@ class ServeEngine:
             self.pool = PagedKVPool(
                 cfg, n_pages=n_pages, page=page, max_len=max_len,
                 dtype=dtype, prefix_sharing=prefix_sharing,
-                metrics=self.metrics, device=self.device)
+                metrics=self.metrics, trace=self._trace, device=self.device)
         # Per-slot independent caches (batch 1) and step buffers.
         self._slots = [self._make_slot() for _ in range(slots)]
         self._graph_pool = None
@@ -360,22 +413,128 @@ class ServeEngine:
         """The decode kernels' tiles at the ``(slots, max_len)`` decode cell,
         with one plan source per kernel recorded under ``decode``. The step
         runs each slot at batch 1, so the tiles are held against M = 1."""
+        self._plan_schema = int(self.plans.meta.get(
+            "schema_version", PLAN_SCHEMA_VERSION))
         self.tiles, self.tile_sources, events = self._resolve(
             self.slots, self.max_len, "decode", tokens=1,
             cache_lens=self._cache_lens())
+        problems = specs.kernel_problems(self.cfg, self.slots, self.max_len,
+                                         "decode")
         for kernel, source in self.tile_sources.items():
             self.metrics.record_plan("decode", kernel, source)
+            if self._trace is not None:
+                self._trace.plan_resolve(
+                    "decode", kernel, problem_key(problems.get(kernel, {})),
+                    tuple(self.tiles[kernel].dims), source,
+                    self._plan_schema)
         for ev in events:
             self._record_tile_event(ev)
+        self._note_shadow_cells(problems)
+
+    def _trace_plan_table(self, phase: str, tiles, sources, problems) -> None:
+        """One ``plan_resolve`` instant per kernel of a resolved cell: the
+        tile it launches (``()`` where no tile was resolved), its source,
+        the artifact's schema."""
+        for kernel in sorted(sources):
+            tile = tiles.get(kernel)
+            self._trace.plan_resolve(
+                phase, kernel, problem_key(problems.get(kernel) or {}),
+                tuple(tile.dims) if tile is not None else (),
+                sources[kernel], self._plan_schema)
+
+    # -- live plan refinement ------------------------------------------------
+    def _note_shadow_cells(self, problems: Dict[str, Dict[str, int]]) -> None:
+        """Register plan cells this engine resolved as shadow targets."""
+        for kernel, problem in problems.items():
+            key = f"{kernel}|{problem_key(problem)}"
+            if key not in self._shadow_cell_map:
+                self._shadow_cell_map[key] = (kernel, dict(problem))
+                self._shadow_order.append(key)
+
+    def _shadow_view(self, key: str):
+        """``(incumbent dims, candidate dims)`` of one cell, or None: the
+        incumbent is the plan's resolved tile, the candidates every other
+        tile on the resolved entry's sensitivity curve."""
+        if key in self._shadow_views:
+            return self._shadow_views[key]
+        kernel, problem = self._shadow_cell_map[key]
+        view = None
+        if self.plans is not None:
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore", PlanTransferWarning)
+                res = self.plans.resolve(kernel, problem, self._dtype_name,
+                                         self.hardware)
+            if res is not None:
+                inc = tuple(int(x) for x in res.tile.dims)
+                cands, seen = [], {inc}
+                for dims, _score in res.entry.curve:
+                    dims = tuple(int(x) for x in dims)
+                    if dims not in seen:
+                        seen.add(dims)
+                        cands.append(dims)
+                if cands:
+                    view = (inc, tuple(cands))
+        self._shadow_views[key] = view
+        return view
+
+    def _shadow_measure_fn(self):
+        if self._shadow_measure is None:
+            from repro_torch.serve.refine import make_shadow_measure
+
+            self._shadow_measure = make_shadow_measure(self.hardware)
+        return self._shadow_measure
+
+    def _maybe_shadow(self) -> None:
+        """When the fractional accumulator crosses 1, measure the next cell
+        with a view (round robin) at its incumbent and at its next
+        candidate, and record both in the metrics, the trace and the
+        refiner. Nothing of the serve is touched."""
+        if not self.shadow_fraction or self.plans is None:
+            return
+        self._shadow_acc += self.shadow_fraction
+        if self._shadow_acc < 1.0:
+            return
+        self._shadow_acc -= 1.0
+        if not self._shadow_order:
+            return
+        measure = self._shadow_measure_fn()
+        dtype = self._dtype_name
+        for _ in range(len(self._shadow_order)):
+            key = self._shadow_order[self._shadow_rr
+                                     % len(self._shadow_order)]
+            self._shadow_rr += 1
+            view = self._shadow_view(key)
+            if view is None:
+                continue
+            inc, cands = view
+            kernel, problem = self._shadow_cell_map[key]
+            idx = self._shadow_idx.get(key, 0)
+            self._shadow_idx[key] = idx + 1
+            cand = cands[idx % len(cands)]
+            dt_inc = float(measure(kernel, problem, dtype, inc))
+            dt_cand = float(measure(kernel, problem, dtype, cand))
+            self.metrics.record_shadow(kernel, inc, dt_inc, incumbent=True)
+            self.metrics.record_shadow(kernel, cand, dt_cand)
+            if self._trace is not None:
+                self._trace.shadow(kernel, problem_key(problem), inc, cand,
+                                   dt_inc, dt_cand)
+            if self.refiner is not None:
+                self.refiner.observe(kernel, problem, dtype,
+                                     self.hardware.name, inc, dt_inc,
+                                     incumbent=True)
+                self.refiner.observe(kernel, problem, dtype,
+                                     self.hardware.name, cand, dt_cand)
+            self.metrics.record_shadow_step()
+            return
 
     def set_plans(self, plans) -> None:
         """Swap the engine onto another plan artifact (or none), live.
 
         Every plan-derived cache goes: the prefill tiles and sources, the
-        tile events, and every slot's captured graph, since a graph bakes
-        its tiles in at capture; the next step of each slot recaptures with
-        the new decode tiles. Tiles never change the math, so requests in
-        flight keep their caches.
+        tile events, the shadow views, and every slot's captured graph,
+        since a graph bakes its tiles in at capture; the next step of each
+        slot recaptures with the new decode tiles. Tiles never change the
+        math, so requests in flight keep their caches.
         """
         self.plans = plans
         self._prefill_tiles.clear()
@@ -384,11 +543,17 @@ class ServeEngine:
         self._pack_plan_cache = None
         self._single_chunk_edge = None
         self._decode_tile_events = None
+        self._shadow_views.clear()
         self.tiles, self.tile_sources = {}, {}
+        self._plan_schema = None
         for slot in self._slots:
             slot.graph, slot.launches = None, {}
         if plans is not None:
             self._resolve_tiles()
+        if self._trace is not None:
+            refined_from = (plans.meta.get("refined_from")
+                            if plans is not None else None)
+            self._trace.plan_swap(self._plan_schema, refined_from)
 
     def _prefill_fn(self, length: int):
         """The prefill for one admitted prompt length, with its tiles and
@@ -405,6 +570,11 @@ class ServeEngine:
                                                  "prefill")}
             self._prefill_tiles[length] = (tiles, events)
             self._prefill_sources[length] = sources
+            problems = specs.kernel_problems(self.cfg, 1, length, "prefill")
+            if self._trace is not None:
+                self._trace_plan_table("prefill", tiles, sources, problems)
+            if self.plans is not None:
+                self._note_shadow_cells(problems)
         cfg, max_len, dtype = self.cfg, self.max_len, self.dtype
         tiles = self._prefill_tiles[length][0] or None
 
@@ -548,6 +718,15 @@ class ServeEngine:
             sources["chunked_prefill"] = source
         entry = (chunk, tiles, sources, events)
         self._chunk_plans[admit_len] = entry
+        if self._trace is not None or self.plans is not None:
+            cells = specs.kernel_problems(self.cfg, 1, chunk, "prefill")
+            if problem is not None:
+                cells["chunked_prefill"] = problem
+            if self._trace is not None:
+                self._trace_plan_table("prefill", tiles, sources, cells)
+            if self.plans is not None:
+                cells.pop("flash_attention", None)
+                self._note_shadow_cells(cells)
         return entry
 
     def chunk_len_for(self, admit_len: int) -> int:
@@ -568,12 +747,20 @@ class ServeEngine:
         policy = getattr(self.scheduler, "policy", None)
         edge = self._single_chunk_bound() or (
             min(policy.edges) if policy is not None else 512)
-        _, tile, source = self._resolve_serve_cell("packed_prefill", edge)
+        problem, tile, source = self._resolve_serve_cell("packed_prefill",
+                                                         edge)
         width = int(tile[0]) if tile is not None else max(512, edge)
         tiles, _, events = self._model_tiles_for(min(width, self.max_len))
         if tile is not None:
             tiles["packed_prefill"] = tile
         self._pack_plan_cache = (width, tiles, source, events)
+        if problem is not None:
+            if self._trace is not None:
+                self._trace_plan_table("prefill", tiles,
+                                       {"packed_prefill": source},
+                                       {"packed_prefill": problem})
+            if self.plans is not None:
+                self._note_shadow_cells({"packed_prefill": problem})
         return self._pack_plan_cache
 
     def _pack_budget(self) -> float:
@@ -599,13 +786,19 @@ class ServeEngine:
             job.table = self.pool.new_table()
 
     def _advance_job(self, job: _ChunkJob, take: int, events, logits,
-                     packed: bool = False) -> None:
+                     packed: bool = False, pack_n: int = 1, lane: int = 0,
+                     t0: Optional[float] = None) -> None:
         """Per-chunk bookkeeping of the one-chunk and packed paths (one
         implementation, as the reference keeps it): events accrue, the
-        chunk is counted, progress advances, a finished prefill leaves."""
+        chunk is counted (and traced on its pack lane), progress advances,
+        a finished prefill leaves."""
         job.events.extend(events)
         now = self._clock()
-        self.metrics.record_chunk(job.req.bucket, now - job.last_t)
+        age = now - job.last_t
+        self.metrics.record_chunk(job.req.bucket, age)
+        if self._trace is not None:
+            self._trace.chunk(job.req.rid, lane, now if t0 is None else t0,
+                              job.done, take, pack_n, age)
         job.last_t = now
         job.done += take
         job.chunks_run += 1
@@ -619,6 +812,7 @@ class ServeEngine:
         returns the pack's token count."""
         jobs = [job for job, _ in picks]
         layout = tuple((job.done, take) for job, take in picks)
+        t0 = self._clock() if self._trace is not None else None
         for job in jobs:
             self._ensure_state(job)
         toks = np.concatenate([job.prompt[start:start + take]
@@ -649,7 +843,7 @@ class ServeEngine:
         events = self._dedupe_events(events)
         for i, (job, (_, take)) in enumerate(zip(jobs, layout)):
             self._advance_job(job, take, events, logits[i][None],
-                              packed=True)
+                              packed=True, pack_n=len(jobs), lane=i, t0=t0)
         return sum(take for _, take in layout)
 
     def _is_multi_chunk(self, req: Request) -> bool:
@@ -737,6 +931,10 @@ class ServeEngine:
             chunk_len, _, _, plan_events = self._chunk_plan(len(prompt))
             long_in_flight = long_in_flight or len(prompt) > chunk_len
             submit_t = self.metrics.submit_time(req.rid)
+            if self._trace is not None:
+                self._trace.admit(
+                    req.rid, len(prompt),
+                    self._clock() - submit_t if submit_t is not None else 0.0)
             hit = 0
             if self.paged:
                 self.pool.register_request(
@@ -778,6 +976,7 @@ class ServeEngine:
         admitted length); returns the chunk's token count."""
         start = job.done
         length = min(job.chunk_len, len(job.prompt) - start)
+        t0 = self._clock() if self._trace is not None else None
         self._ensure_state(job)
         _, tiles, _, _ = self._chunk_plan(len(job.prompt))
         events: List[Dict[str, Any]] = []
@@ -796,7 +995,8 @@ class ServeEngine:
                 logits, _ = api.prefill_chunk(
                     self.params, self.cfg, tokens, job.state, start,
                     tiles=tiles or None)
-        self._advance_job(job, length, self._dedupe_events(events), logits)
+        self._advance_job(job, length, self._dedupe_events(events), logits,
+                          t0=t0)
         return length
 
     def _finish_prefill(self, job: _ChunkJob, logits) -> None:
@@ -813,7 +1013,7 @@ class ServeEngine:
         self.metrics.record_prefill_chunks(job.chunks_run)
         req.out_tokens.append(
             int(torch.argmax(logits[0, :self.cfg.vocab_size])))
-        self.metrics.record_first_token(req.rid, req.bucket)
+        self._first_token(req)
         if self.paged:
             # Its pages become shareable (a weak registry: no references).
             self.pool.register_prefix(req.rid, job.prompt.tolist())
@@ -824,11 +1024,25 @@ class ServeEngine:
             self._free_sets.append(job.state)
             self._finished.append(req)
             self.metrics.record_complete()
+            if self._trace is not None:
+                self._trace.finish(req.rid, len(req.out_tokens))
         else:
             if self.paged:
                 # The first decode writes right after the prompt.
                 self._pos[req.rid] = len(job.prompt)
             self._ready.append((req, job.state, len(job.prompt)))
+
+    def _first_token(self, req: Request) -> None:
+        """Record a request's first token. Traced, the submit time is read
+        before ``record_first_token`` pops it, and one clock reading is
+        both the metric's and the ``ttft`` span's end."""
+        if self._trace is None:
+            self.metrics.record_first_token(req.rid, req.bucket)
+            return
+        sub_t = self.metrics.submit_time(req.rid)
+        now = self.metrics.clock()
+        self.metrics.record_first_token(req.rid, req.bucket, t=now)
+        self._trace.first_token(req.rid, req.bucket, sub_t, now=now)
 
     def add_request(self, prompt: np.ndarray, max_new_tokens: int = 16,
                     priority: int = 0,
@@ -855,6 +1069,8 @@ class ServeEngine:
                 len(prompt))
         self.metrics.record_submit(rid, t=submit_t)
         self._record_backlog(self._backlog())
+        if self._trace is not None:
+            self._trace.submit(rid, len(prompt), req.bucket)
         return rid
 
     def _reject(self, reason: str, prompt_len: int) -> None:
@@ -863,6 +1079,8 @@ class ServeEngine:
         self.last_reject_reason = reason
         self.metrics.record_reject(reason=reason)
         self._record_backlog(self._backlog())
+        if self._trace is not None:
+            self._trace.reject(reason, prompt_len)
         return None
 
     def _backlog(self) -> int:
@@ -873,6 +1091,8 @@ class ServeEngine:
 
     def _record_backlog(self, depth: int) -> None:
         self.metrics.record_queue_depth(depth)
+        if self._trace is not None:
+            self._trace.queue_depth(depth)
 
     def _admit(self):
         """Admit into free slots, running each whole prefill. Returns
@@ -898,6 +1118,9 @@ class ServeEngine:
             # Tile events count once per admitted request, as its plan
             # sources do: the replaced tiles' and the call sites'.
             events = list(self._prefill_tiles[len(prompt)][1])
+            sub_t = (self.metrics.submit_time(req.rid)
+                     if self._trace is not None else None)
+            t0 = self._clock() if self._trace is not None else None
             with torch.inference_mode(), \
                     attn_mod.capture_tile_events(events.append):
                 logits, _ = prefill(self.params, batch,
@@ -906,12 +1129,20 @@ class ServeEngine:
             for ev in self._dedupe_events(events):
                 self._record_tile_event(ev)
             req.out_tokens.append(tok)
-            self.metrics.record_first_token(req.rid, req.bucket)
+            if self._trace is None:
+                self.metrics.record_first_token(req.rid, req.bucket)
+            else:
+                self._trace.admit(req.rid, len(prompt),
+                                  t0 - sub_t if sub_t is not None else 0.0)
+                self._trace.prefill(req.rid, t0, len(prompt))
+                self._first_token(req)
             if len(req.out_tokens) >= req.max_new_tokens:
                 # Satisfied by the prefill token alone — never occupy a slot.
                 req.done = True
                 self._finished.append(req)
                 self.metrics.record_complete()
+                if self._trace is not None:
+                    self._trace.finish(req.rid, len(req.out_tokens))
                 continue
             self._active[free.pop(0)] = req
         return prefill_tokens, tuple(segments)
@@ -946,7 +1177,11 @@ class ServeEngine:
                 self._active[i] = None
                 self._finished.append(req)
                 self.metrics.record_complete()
+                if self._trace is not None:
+                    self._trace.finish(req.rid, len(req.out_tokens))
         self.metrics.record_decode_step(active_buckets, self._clock() - t0)
+        if self._trace is not None and stepped:
+            self._trace.decode(t0, [req.rid for _, req in stepped])
         return len(stepped)
 
     def _prepare_paged_step(self, slot: _Slot, rid: int) -> None:
@@ -969,6 +1204,7 @@ class ServeEngine:
         (:meth:`_step_chunked`)."""
         if self.chunk_prefill:
             return self._step_chunked()
+        t0 = self._clock() if self._trace is not None else 0.0
         prefill_tokens, segments = self._admit()
         self._record_backlog(self.scheduler.pending())
         n = self._decode_all()
@@ -977,7 +1213,10 @@ class ServeEngine:
                                 "decode_tokens": n,
                                 "packed_chunks": 0, "packed_rids": (),
                                 "prefill_segments": segments + extra_segments}
+        self._maybe_shadow()
         self.steps_run += 1
+        if self._trace is not None:
+            self._trace.step_mark(t0, self.last_step_stats, self.steps_run)
         return n
 
     def _step_chunked(self) -> int:
@@ -985,6 +1224,7 @@ class ServeEngine:
         flight (or, packed, the scheduler's knapsack of chunks), then the
         whole decode batch, then a second admission pass. Returns the
         requests in service, as the reference does."""
+        t0 = self._clock() if self._trace is not None else 0.0
         self._admit_chunked()
         self._record_backlog(self._backlog())
         prefill_tokens = 0
@@ -1018,12 +1258,18 @@ class ServeEngine:
         if self.paged:
             self.metrics.record_pool(self.pool.used_pages,
                                      self.pool.n_pages)
+            if self._trace is not None:
+                self._trace.pool_occupancy(self.pool.used_pages,
+                                           self.pool.n_pages)
         self.last_step_stats = {"prefill_tokens": prefill_tokens,
                                 "decode_tokens": n,
                                 "packed_chunks": len(packed_rids),
                                 "packed_rids": packed_rids,
                                 "prefill_segments": segments}
+        self._maybe_shadow()
         self.steps_run += 1
+        if self._trace is not None:
+            self._trace.step_mark(t0, self.last_step_stats, self.steps_run)
         return (n + len(self._chunking) + len(self._ready)
                 + len(self._held) + len(self._pool_wait))
 

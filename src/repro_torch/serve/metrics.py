@@ -211,11 +211,15 @@ class ServeMetrics:
         """Submit timestamp of a not-yet-first-token request (else None)."""
         return self._submit_t.get(rid)
 
-    def record_first_token(self, rid: int, bucket: object) -> None:
+    def record_first_token(self, rid: int, bucket: object,
+                           t: Optional[float] = None) -> None:
+        """One first token, at ``t`` (default: now). A traced engine reads
+        the clock once and gives the same ``t`` to its trace's ``ttft``
+        span, so the two agree exactly on a live clock too."""
         self.tokens_out += 1   # prefill samples the request's first token
         t0 = self._submit_t.pop(rid, None)
         if t0 is not None:
-            self.ttft[bucket].record(self.clock() - t0)
+            self.ttft[bucket].record((self.clock() if t is None else t) - t0)
 
     def record_decode_step(self, buckets, dt: float) -> None:
         """One engine decode step over ``buckets`` (one entry per active

@@ -73,7 +73,7 @@ class PagedKVPool:
 
     def __init__(self, cfg: ArchConfig, *, n_pages: int, page: int,
                  max_len: int, dtype, prefix_sharing: bool = True,
-                 metrics=None, device=None):
+                 metrics=None, trace=None, device=None):
         from repro_torch.models import api
 
         if n_pages <= 0 or page <= 0:
@@ -91,6 +91,7 @@ class PagedKVPool:
         self.prefix_sharing = bool(prefix_sharing) and \
             supports_prefix_sharing(cfg)
         self.metrics = metrics
+        self._trace = trace
 
         self.refcount: List[int] = [0] * self.n_pages
         # Bumped when a page returns to the free list, so a stale prefix
@@ -159,6 +160,8 @@ class PagedKVPool:
         if self.metrics is not None:
             self.metrics.record_page_free(freed)
             self.metrics.record_pool(self.used_pages, self.n_pages)
+        if self._trace is not None:
+            self._trace.page_free(rid, freed, self.used_pages, self.n_pages)
         return freed
 
     # -- page allocation / copy-on-write -----------------------------------
@@ -202,11 +205,15 @@ class PagedKVPool:
                     copies.append((pid, dst))
                     if self.metrics is not None:
                         self.metrics.record_cow_split()
+                    if self._trace is not None:
+                        self._trace.cow_split(rid, pid, dst)
             else:
                 table.append(self._alloc(rid))
                 fresh += 1
         if self.metrics is not None and (fresh or copies):
             self.metrics.record_pool(self.used_pages, self.n_pages)
+        if self._trace is not None and fresh:
+            self._trace.page_alloc(rid, fresh, self.used_pages, self.n_pages)
         self._apply_copies(copies)
 
     def _apply_copies(self, copies: List[Tuple[int, int]]) -> None:
@@ -251,7 +258,7 @@ class PagedKVPool:
             return 0
         table = self.tables[rid]
         assert not table, "lookup_prefix must precede any page mapping"
-        hit = 0
+        hit = n_map = 0
         toks = tuple(int(t) for t in tokens)
         for ln in sorted({e.length for e in self._prefix.values()},
                          reverse=True):
@@ -267,12 +274,15 @@ class PagedKVPool:
             hit = min(ln, len(toks) - 1)
             if hit <= 0:
                 continue
-            for pid in entry.pages[:cdiv(hit, self.page)]:
+            n_map = cdiv(hit, self.page)
+            for pid in entry.pages[:n_map]:
                 self.refcount[pid] += 1
                 table.append(pid)
             break
         if self.metrics is not None:
             self.metrics.record_prefix_lookup(hit)
+        if self._trace is not None and hit:
+            self._trace.prefix_hit(rid, hit, n_map)
         return hit
 
     def register_prefix(self, rid: int, tokens: Sequence[int]) -> None:

@@ -1197,3 +1197,64 @@ def test_captured_paged_step_replays_across_page_boundaries(dev):
     eng.pool.check_balanced()
     pool = eng.metrics.as_dict()["pool"]
     assert pool["page_allocs"] == pool["page_frees"] >= 3 * 3
+
+
+# -- Shadow measurement on the card (serve/refine.py) -----------------------
+
+QWEN_CELLS = {
+    "matmul": dict(m=4, k=1536, n=8960),
+    "flash_attention": dict(sq=128, skv=128, d=128, hq=12, hkv=2, window=0),
+    "flash_decode": dict(b=4, skv=1024, d=128, hq=12, hkv=2, window=0),
+}
+
+
+def _launchable(kernel, problem):
+    if kernel == "matmul":
+        return mm_ops.REGIME_TILES[mm_ops.regime(
+            problem["m"], problem["n"], problem["k"], torch.float32)][0]
+    if kernel == "flash_attention":
+        return fa.regime_tiles(torch.float32, problem["d"])[0]
+    return (64,)
+
+
+@pytest.mark.parametrize("kernel", sorted(QWEN_CELLS))
+def test_shadow_measure_times_a_launchable_tile_on_the_card(dev, kernel):
+    """``make_shadow_measure(h100_sxm)`` times a tile the wrapper launches
+    on the card (finite seconds, the kernel launched), and gives ``inf``
+    for one it would not launch as given, without timing it."""
+    from repro_torch.core import H100_SXM
+    from repro_torch.serve.refine import make_shadow_measure
+
+    measure = make_shadow_measure(H100_SXM)
+    problem = QWEN_CELLS[kernel]
+    before = build.LAUNCHES[kernel]
+    dt = measure(kernel, problem, "float32", _launchable(kernel, problem))
+    assert 0.0 < dt < 1.0
+    assert build.LAUNCHES[kernel] > before
+    bad = {"matmul": (32, 32, 32), "flash_attention": (48, 48),
+           "flash_decode": (2048,)}[kernel]
+    before = build.LAUNCHES[kernel]
+    assert measure(kernel, problem, "float32", bad) == float("inf")
+    assert build.LAUNCHES[kernel] == before
+    assert len(measure.timers) == 1
+
+
+def test_shadow_measure_leaves_memory_flat(dev):
+    """Fifty measurements of a cached cell's timer: each captures, replays
+    and drops its own graph, so the allocated bytes end where the first
+    measurement left them."""
+    from repro_torch.core import H100_SXM
+    from repro_torch.serve.refine import make_shadow_measure
+
+    measure = make_shadow_measure(H100_SXM)
+    tiles = {k: _launchable(k, p) for k, p in QWEN_CELLS.items()}
+    for kernel, problem in QWEN_CELLS.items():
+        measure(kernel, problem, "float32", tiles[kernel])
+    torch.cuda.synchronize()
+    first = torch.cuda.memory_allocated()
+    for i in range(50):
+        kernel = sorted(QWEN_CELLS)[i % 3]
+        measure(kernel, QWEN_CELLS[kernel], "float32", tiles[kernel])
+    torch.cuda.synchronize()
+    assert abs(torch.cuda.memory_allocated() - first) <= 1 << 20
+    assert len(measure.timers) == 3

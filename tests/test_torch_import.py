@@ -60,7 +60,14 @@ def test_importing_the_whole_port_loads_no_jax_and_no_repro():
                  "repro_torch.kernels.ssd.ops", "repro_torch.kernels.rglru.ops",
                  "repro_torch.core.autotuner", "repro_torch.core.policy",
                  "repro_torch.core.plans", "repro_torch.launch.measure",
-                 "repro_torch.launch.compile_plans"):
+                 "repro_torch.launch.compile_plans", "repro_torch.obs",
+                 "repro_torch.obs.trace", "repro_torch.obs.export",
+                 "repro_torch.serve.refine",
+                 "repro_torch.launch.trace_report",
+                 "repro_torch.examples.quickstart",
+                 "repro_torch.examples.resize_images",
+                 "repro_torch.examples.tune_tiles",
+                 "repro_torch.examples.serve_lm"):
         assert name in mods
 
 

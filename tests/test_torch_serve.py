@@ -144,14 +144,30 @@ def test_engine_is_reusable_and_deterministic(models):
 
 
 @pytest.mark.parametrize("option", [
-    dict(pack_prefill=True, tracer=object()),
-    dict(shadow_fraction=0.5), dict(refiner=object()),
-    dict(tracer=object()),
+    dict(pack_prefill=True, tracer=True),
+    dict(shadow_fraction=0.5), dict(refiner=True),
+    dict(tracer=True),
 ])
 def test_unported_engine_options_raise(models, option):
+    """The options that raised NotImplementedError before tracing and
+    shadow refinement were ported now construct and serve, with the tokens
+    of the engine without them."""
+    from repro_torch.obs import Tracer
+    from repro_torch.serve.refine import PlanRefiner
+
     _, cfg_t, _, pt = models
-    with pytest.raises(NotImplementedError):
-        ServeEngine(cfg_t, pt, device="cpu", **option)
+    made = {"tracer": Tracer, "refiner": PlanRefiner}
+    kw = {k: made[k]() if k in made else v for k, v in option.items()}
+    p = np.asarray([9, 8, 7, 6])
+    want = ServeEngine(cfg_t, pt, max_len=32, slots=2, device="cpu",
+                       pack_prefill=kw.get("pack_prefill", False))
+    want.add_request(p, max_new_tokens=4)
+    eng = ServeEngine(cfg_t, pt, max_len=32, slots=2, device="cpu", **kw)
+    eng.add_request(p, max_new_tokens=4)
+    assert (eng.run_until_done()[0].out_tokens
+            == want.run_until_done()[0].out_tokens)
+    if "tracer" in kw:
+        assert kw["tracer"].events
 
 
 @pytest.mark.parametrize("option", [
