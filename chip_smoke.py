@@ -27,7 +27,12 @@ Phases, each of which fails the run if it fails:
    paper's 800x800 image at scales 2-10 in both dtypes (with the store
    path each took, and images whose rows take scalar stores),
    mamba2-2.7b's SSD (every chunk the spec sweeps, S = 4096, and the
-   decode step) and recurrentgemma-9b's RG-LRU (a few tiles) — and time
+   decode step), recurrentgemma-9b's RG-LRU (a few tiles) and phase 15's
+   shapes (flash_attention at deepseek-moe-16b's MHA, 16 / 16 heads at D
+   128, in both regimes, at qwen3-moe's 64 / 4 and non-causal at
+   whisper's 32 / 32 heads at D 64, 1500 x 1500 and 64 x 1500;
+   flash_decode at GQA ratio 1, D 128 and 64, and ratio 16; the matmul at
+   K 2048, N 10944 and 2816, M 1 and 600) — and time
    kernel, plain version and one PyTorch library call (where one computes
    the same function; for SDPA also the kernels it ran) on the device: CUDA events around the replay of a CUDA
    graph of many calls, so the host's launch cost is left out; for the
@@ -61,8 +66,8 @@ Phases, each of which fails the run if it fails:
 7. gemma2-9b at full width and 4 of its 42 layers: prefill and 8 captured
    decode steps across a ring's wrap, against the plain versions;
 8. run the port's launcher (``python -m repro_torch.launch.serve``) at the
-   smoke configs of qwen2-1.5b, gemma2-9b, h2o-danube-1.8b, mamba2-2.7b and
-   recurrentgemma-9b on the card;
+   smoke configs of qwen2-1.5b, gemma2-9b, h2o-danube-1.8b, mamba2-2.7b,
+   recurrentgemma-9b, deepseek-moe-16b and qwen3-moe-235b-a22b on the card;
 9. compile tile plans with wall-clock timing on the card (the port's
    ``compile_plan`` with ``make_measure_fn``) over a bounded job set: the
    paper's bilinear family, the train_4k ssd, rglru and head_dim-256
@@ -141,7 +146,30 @@ Phases, each of which fails the run if it fails:
    built; then ``refine``, the drift report, ``set_plans(refined)`` and a
    serve: tokens held, one recapture per slot, every refined cell exact;
    (c) after phase 11, the paper's four examples (``repro_torch.examples``)
-   on the card.
+   on the card;
+15. the MoE, encoder-decoder and vision models, each after the models of
+   the phases before it are released: (a) full-width deepseek-moe-16b (28
+   layers, 64 routed experts top-6 and 2 shared, float32, 16.4 B
+   parameters from seed 0) served through the captured engine at 4 slots,
+   max_len 1024, FIFO: six requests of phase 4's prompt lengths, 16 new
+   tokens each, held token by token against the plain versions; matmul
+   and flash_attention launched in the prefills, matmul and flash_decode
+   in every replayed decode step; one 600-token request's prefill logits
+   and four decode steps against the plain versions with every routing
+   recorded on both paths (a flip, a token whose top-k set differs, is
+   printed and allowed only where the plain k / k+1 probability margin is
+   within 1e-5); 16 captured decode steps against an eager loop; prefill
+   device ms at 600 tokens, decode ms a step at 1 and 4 slots and the peak
+   allocated memory (``--profile``: the split between matmul, attention,
+   the experts' torch.bmm, other torch.matmul and other ops); (b)
+   qwen3-moe-235b-a22b at full width and 4 of its 94 layers: a 600-token
+   prefill and 8 captured decode steps against the plain versions; (c)
+   whisper-large-v3 at full width (32 + 32 layers, 1500 frames from a
+   seed): the encoder output, a 64-token decoder prefill and 16
+   ``api.decode_step``s against the plain versions, flash_attention and
+   flash_decode launches counted; (d) internvl2-1b at full width: 256
+   patch embeddings and 64 text tokens, then 16 decode steps, against the
+   plain versions.
 
 ``--profile`` adds, after phase 5, where the time of one full-width qwen2
 request goes (prefill, eager decode, captured decode): wall time, device
@@ -149,7 +177,8 @@ time by kernel group and the device's idle share; and the same for one
 600-token request of each of phases 10 and 11.
 
 Launch counts: matmul, flash_attention and flash_decode are counted over
-the serve of phase 4 (the replays of captured steps included), bilinear
+the serve of phase 15a (the replays of captured steps included; the line
+also gives their counts over phase 4's serve), bilinear
 over the compile of phase 9, ssd over the serve of phase 10 and rglru over
 the serve of phase 11, each reset to 0 just before its path and read just
 after; phase 4b reads its own counts over its two plan serves and fails
@@ -582,6 +611,7 @@ def kernel_checks(quick: bool):
     decode_position_checks(record, randn, dtypes, quick)
     head_dim_256_checks(record, randn, dtypes, quick)
     head_dim_80_checks(record, randn, dtypes, quick)
+    moe_slice_checks(record, randn, dtypes, quick)
     bilinear_checks(record, randn, dtypes, quick)
     ssd_checks(record, dtypes, quick)
     rglru_checks(record, dtypes, quick)
@@ -783,6 +813,135 @@ def head_dim_256_checks(record, randn, dtypes, quick: bool):
                            window=win))
         record("flash_decode", f"D=256 s={s} pos={s - 1} window={win}",
                dname, out, ref, timing)
+
+
+def moe_slice_checks(record, randn, dtypes, quick: bool):
+    """The shapes phase 15's models give the three serving kernels, each
+    timed (float32, the path's dtype; bf16 checked) beside its plain
+    version and one library call: flash_attention at deepseek-moe-16b's
+    MHA (Hq = Hkv = 16, D 128, S 600, both regimes), at qwen3-moe's GQA
+    ratio 16 (64 / 4, D 128) and non-causal at whisper-large-v3's (Hq = Hkv
+    = 32, D 64: the encoder's 1500 x 1500 and the decoder's 64 queries
+    against 1500 frames); flash_decode at ratio 1 (D 128, deepseek; D 64,
+    whisper) and ratio 16 (D 128, qwen3-moe) over 1024 slots; the matmul at
+    deepseek's dense layer (K 2048, N 10944) and shared experts (N 2816)
+    at M = 1 and 600."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.decode import (
+        flash_decode, flash_decode_ref,
+    )
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention, regime as fa_regime,
+    )
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.kernels.matmul.ops import mm, regime
+    from repro_torch.kernels.matmul.ref import matmul_ref
+
+    def attention(label, hq, hkv, sq, skv, d, causal, dname, dt, timed):
+        q = randn((1, hq, sq, d), dt)
+        k, v = randn((1, hkv, skv, d), dt), randn((1, hkv, skv, d), dt)
+        out = flash_attention(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        ref = flash_attention_ref(q, k, v, causal=causal)
+        timing = None
+        if timed:
+            nb = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+            pairs = sq * (sq + 1) // 2 if causal else sq * skv
+            t_b, by = bound(nb, 4.0 * d * hq * pairs, TC_RATE[dname])
+            copies = [(randn(q.shape, dt), randn(k.shape, dt),
+                       randn(v.shape, dt)) for _ in range(copies_for(nb))]
+
+            def sdpa(x, y, z):
+                return F.scaled_dot_product_attention(
+                    x, y, z, is_causal=causal, enable_gqa=hq != hkv)
+
+            timing = dict(
+                ms=time_ms([lambda x=x, y=y, z=z: flash_attention(
+                    x, y, z, causal=causal) for x, y, z in copies]),
+                plain_ms=time_ms([lambda x=x, y=y, z=z: flash_attention_ref(
+                    x, y, z, causal=causal) for x, y, z in copies], iters=8),
+                library_ms=library_ms([lambda x=x, y=y, z=z: sdpa(x, y, z)
+                                       for x, y, z in copies]),
+                bound_ms=t_b, bound_by=by,
+                shape=dict(b=1, hq=hq, hkv=hkv, sq=sq, skv=skv, d=d,
+                           causal=causal, regime=fa_regime(dt, d)))
+        record("flash_attention", label, dname, out, ref, timing)
+
+    def decode(label, hq, hkv, d, s, pos, dname, dt, timed):
+        q = randn((1, hq, d), dt)
+        k, v = randn((1, hkv, s, d), dt), randn((1, hkv, s, d), dt)
+        pos_t = dev_pos(pos)
+        out = flash_decode(q, k, v, pos=pos_t)
+        torch.cuda.synchronize()
+        ref = flash_decode_ref(q, k, v, pos=pos)
+        timing = None
+        if timed:
+            seen = pos + 1
+            nb = (2 * q.numel() + 2 * hkv * seen * d) * q.element_size()
+            t_b, by = bound(nb, 4.0 * d * hq * seen, dname)
+            mask = (torch.arange(s, device="cuda") <= pos)[None, None, None]
+            copies = [(randn(q.shape, dt), randn(k.shape, dt),
+                       randn(v.shape, dt)) for _ in range(copies_for(nb))]
+            timing = dict(
+                ms=time_ms([lambda x=x, y=y, z=z: flash_decode(
+                    x, y, z, pos=pos_t) for x, y, z in copies]),
+                plain_ms=time_ms([lambda x=x, y=y, z=z: flash_decode_ref(
+                    x, y, z, pos=pos_t) for x, y, z in copies]),
+                library_ms=library_ms([
+                    lambda x=x, y=y, z=z: F.scaled_dot_product_attention(
+                        x[:, :, None], y, z, attn_mask=mask,
+                        enable_gqa=hq != hkv) for x, y, z in copies]),
+                bound_ms=t_b, bound_by=by,
+                shape=dict(b=1, hq=hq, hkv=hkv, s=s, pos=pos, d=d))
+        record("flash_decode", label, dname, out, ref, timing)
+
+    for dname, dt in dtypes:
+        timed = not quick and dname == "float32"
+        both = not quick                      # both regimes timed at MHA
+        attention("MHA 16/16 D=128 sq=skv=600 causal", 16, 16, 600, 600,
+                  128, True, dname, dt, both)
+        if quick:
+            continue
+        attention("GQA 64/4 D=128 sq=skv=600 causal", 64, 4, 600, 600, 128,
+                  True, dname, dt, timed)
+        attention("MHA 32/32 D=64 sq=skv=1500 non-causal", 32, 32, 1500,
+                  1500, 64, False, dname, dt, timed)
+        attention("MHA 32/32 D=64 sq=64 skv=1500 non-causal", 32, 32, 64,
+                  1500, 64, False, dname, dt, timed)
+        decode("ratio 1 16/16 D=128 s=1024 pos=611", 16, 16, 128, 1024, 611,
+               dname, dt, timed)
+        decode("ratio 1 32/32 D=64 s=1024 pos=79", 32, 32, 64, 1024, 79,
+               dname, dt, timed)
+        decode("ratio 16 64/4 D=128 s=1024 pos=607", 64, 4, 128, 1024, 607,
+               dname, dt, timed)
+        for m in (1, 600):
+            for n in (10944, 2816):
+                k = 2048
+                a = randn((m, k), dt)
+                b = randn((k, n), dt, scale=k ** -0.5)
+                out = mm(a, b)
+                torch.cuda.synchronize()
+                timing = None
+                if timed:
+                    nb = (m * k + k * n + m * n) * a.element_size()
+                    t_b, by = bound(nb, 2.0 * m * k * n, dname)
+                    copies = [(randn((m, k), dt), randn((k, n), dt))
+                              for _ in range(copies_for(nb))]
+                    timing = dict(
+                        ms=time_ms([lambda x=x, y=y: mm(x, y)
+                                    for x, y in copies]),
+                        plain_ms=time_ms([lambda x=x, y=y: matmul_ref(x, y)
+                                          for x, y in copies]),
+                        library_ms=library_ms([
+                            lambda x=x, y=y: torch.matmul(x, y)
+                            for x, y in copies]),
+                        bound_ms=t_b, bound_by=by,
+                        shape=dict(m=m, k=k, n=n,
+                                   regime=regime(m, n, k, dt)))
+                record("matmul", f"moe m={m} k={k} n={n}", dname, out,
+                       matmul_ref(a, b), timing)
 
 
 def head_dim_80_checks(record, randn, dtypes, quick: bool):
@@ -1569,7 +1728,8 @@ def hold_against_plain(params, cfg, prompt, tokens, graph_steps, max_len,
     return worst, min_margin
 
 
-def graph_parity(cfg, params, new_tokens: int = 17):
+def graph_parity(cfg, params, new_tokens: int = 17, label: str = "qwen2",
+                 max_len: int = MAX_LEN):
     """16 decode steps of one full-width request through the captured
     engine: its tokens equal an eager kernel loop's, and its logits lie
     within LOGIT_REL_TOL of the plain versions' (TF32 off)."""
@@ -1580,12 +1740,13 @@ def graph_parity(cfg, params, new_tokens: int = 17):
     from repro_torch.serve import ServeEngine
 
     prompt = np.random.default_rng(1).integers(2, cfg.vocab_size, size=384)
-    eng = ServeEngine(cfg, params, max_len=MAX_LEN, slots=1, device="cuda")
+    eng = ServeEngine(cfg, params, max_len=max_len, slots=1, device="cuda")
     tokens, steps = graph_logits(eng, prompt, new_tokens)
+    del eng
     v = cfg.vocab_size
     with torch.inference_mode():
         logits, st = api.prefill(params, cfg, {"tokens": prompt[None]},
-                                 max_len=MAX_LEN)
+                                 max_len=max_len)
         eager = [int(torch.argmax(logits[0, :v]))]
         while len(eager) < new_tokens:
             t = torch.tensor([[eager[-1]]], device="cuda")
@@ -1593,7 +1754,7 @@ def graph_parity(cfg, params, new_tokens: int = 17):
             eager.append(int(torch.argmax(logits[0, :v])))
     check(tokens == eager, f"graph tokens {tokens} != eager tokens {eager}")
     worst, margin = hold_against_plain(params, cfg, prompt, tokens, steps,
-                                       MAX_LEN, False, "qwen2 graph")
+                                       max_len, False, f"{label} graph")
     log(f"  {len(steps)} captured decode steps: tokens equal the eager "
         f"loop's; logits within {worst:.3e} x max |logit| of the plain "
         f"versions' (tol {LOGIT_REL_TOL:g}); smallest top-2 margin "
@@ -1743,7 +1904,7 @@ def gemma2_reduced_depth():
 # Phases 10 and 11: the recurrent models at full width
 # ---------------------------------------------------------------------------
 
-def serve_recurrent(cfg, params, max_len: int, lengths, seed: int,
+def serve_counted(cfg, params, max_len: int, lengths, seed: int,
                     prefill_kernels, decode_kernels, label: str):
     """Serve one request per prompt length (16 new tokens each) through the
     captured engine at 4 slots and hold every request token by token
@@ -1853,7 +2014,7 @@ def recurrent_phase(arch: str, max_len: int, lengths, seed: int,
                     chunking=None):
     """Phases 10 and 11: ``arch`` at full width (float32, random weights
     from seed 0) served through the captured engine
-    (:func:`serve_recurrent`), one request's logits held against the plain
+    (:func:`serve_counted`), one request's logits held against the plain
     versions, prefill device ms at 600 tokens and at the longest prompt,
     decode ms a step at 1 and 4 slots, with ``chunking = (n, chunk)`` an
     ``n``-token prompt prefilled in chunks against the whole prefill
@@ -1862,18 +2023,12 @@ def recurrent_phase(arch: str, max_len: int, lengths, seed: int,
     import torch
 
     from repro_torch import configs
-    from repro_torch.models import api
 
     cfg = configs.get_arch(arch)
     label = arch.split("-")[0]
-    t0 = time.perf_counter()
-    params = api.init_params(cfg, 0, dtype=torch.float32, device="cuda")
-    torch.cuda.synchronize()
-    n_params = sum(p.numel() for p in _leaves(params))
-    log(f"  initialised {n_params / 1e9:.3f} B parameters ({cfg.n_layers} "
-        f"layers) in {time.perf_counter() - t0:.1f} s")
-    out = serve_recurrent(cfg, params, max_len, lengths, seed,
-                          prefill_kernels, decode_kernels, label)
+    params, n_params = _init_full(cfg)
+    out = serve_counted(cfg, params, max_len, lengths, seed,
+                        prefill_kernels, decode_kernels, label)
     eng = out.pop("engine")
     out.update(layers=cfg.n_layers, params_b=n_params / 1e9)
     out["parity"] = full_width_parity(cfg, params, max_len=max_len)
@@ -1989,6 +2144,27 @@ def profile_request(cfg, params, prompt_len: int = 600, steps: int = 8,
                     n_kernels += 1
                     g = _kernel_group(ev.name)
                     groups[g] = groups.get(g, 0.0) + ev.time_range.elapsed_us()
+            if cfg.moe is not None:
+                # The routed experts' torch.bmm: each kernel an aten::bmm
+                # launched moves from its name's group to its own (an
+                # eager call's; a graph replay's kernels carry no op). The
+                # projections' einsums also reach aten::bmm: not those.
+                moved = 0
+                for ev in prof.events():
+                    parent = getattr(ev, "cpu_parent", None)
+                    if ev.name != "aten::bmm" or (
+                            parent is not None
+                            and parent.name == "aten::einsum"):
+                        continue
+                    for kern in ev.kernels:
+                        g = _kernel_group(kern.name)
+                        groups[g] = groups.get(g, 0.0) - kern.duration
+                        groups["experts (torch.bmm)"] = groups.get(
+                            "experts (torch.bmm)", 0.0) + kern.duration
+                        moved += 1
+                if not moved:
+                    log("    experts' torch.bmm: not separated (kernels "
+                        "of a graph replay carry no op)")
             rec["kernels_per_" + unit] = n_kernels / per
             rec["by_group_ms"] = {g: t / 1e3 / per for g, t in sorted(
                 groups.items(), key=lambda kv: -kv[1])}
@@ -2900,6 +3076,7 @@ def refine_serve(cfg, params, phase4):
     not launch), the allocated bytes flat once every cell's timer is
     built. Then ``refine`` and ``set_plans``: the tokens again, one
     recapture per slot, and every refined cell resolved exactly."""
+    import gc
     import math
 
     import numpy as np
@@ -2929,6 +3106,9 @@ def refine_serve(cfg, params, phase4):
     want, _, base_s, base_caps = _serve_counted(base, prompts, new_tokens)
     check(base_caps == [1] * base.slots, f"no shadow: captures {base_caps}")
     del base
+    # An engine is freed by the cycle collector, whenever it runs: collect
+    # now, or its ~225 MiB of caches may go inside the window below.
+    gc.collect()
 
     timed = make_shadow_measure(H100_SXM)
     shadow_launches = {k: 0 for k in build.LAUNCHES}
@@ -3117,15 +3297,19 @@ def run_examples():
 ATTN_KERNELS = ("matmul", "flash_attention", "flash_decode")
 LAUNCHER_KERNELS = {"qwen2-1.5b": ATTN_KERNELS, "gemma2-9b": ATTN_KERNELS,
                     "h2o-danube-1.8b": ATTN_KERNELS, "mamba2-2.7b": ("ssd",),
-                    "recurrentgemma-9b": ATTN_KERNELS + ("rglru",)}
+                    "recurrentgemma-9b": ATTN_KERNELS + ("rglru",),
+                    "deepseek-moe-16b": ATTN_KERNELS,
+                    # Every layer MoE and no shared experts: no matmul.
+                    "qwen3-moe-235b-a22b": ("flash_attention",
+                                            "flash_decode")}
 
 
 def run_launcher():
     """The launcher at the smoke configs of qwen2-1.5b (also chunked,
     packed and paged), of the two windowed archs (ring caches; 20 new
     tokens wrap gemma2's and h2o-danube's 16-slot rings), of mamba2-2.7b
-    (SSD states) and of recurrentgemma-9b (RG-LRU states beside 16-slot
-    rings), each in its own process."""
+    (SSD states), of recurrentgemma-9b (RG-LRU states beside 16-slot
+    rings) and of the two MoE archs, each in its own process."""
     env = dict(os.environ)
     env["PYTHONPATH"] = str(SRC) + (os.pathsep + env["PYTHONPATH"]
                                     if env.get("PYTHONPATH") else "")
@@ -3349,6 +3533,335 @@ def _problem_str(problem) -> str:
 
 
 # ---------------------------------------------------------------------------
+# Phase 15: the MoE, encoder-decoder and vision models at full width
+# ---------------------------------------------------------------------------
+
+# 15a serves requests of phase 4's prompt lengths (tokens from deepseek's
+# own vocabulary); a routing flip between the kernel and the plain path is
+# allowed only where the plain k-th and (k+1)-th router probabilities lie
+# within FLIP_MARGIN.
+PHASE4_LENGTHS = (16, 100, 257, 384, 511, 600)
+FLIP_MARGIN = 1e-5
+MOE_MAX_LEN = 1024
+
+
+def _release():
+    """Free the models of earlier phases before a large one is made."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    log(f"  allocated before: {torch.cuda.memory_allocated() / 1e9:.2f} GB")
+
+
+def _init_full(cfg):
+    import torch
+
+    from repro_torch.models import api
+
+    t0 = time.perf_counter()
+    params = api.init_params(cfg, 0, dtype=torch.float32, device="cuda")
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in _leaves(params))
+    log(f"  initialised {n / 1e9:.3f} B parameters ({cfg.n_layers} layers, "
+        f"{n * 4 / 1e9:.1f} GB in float32) in {time.perf_counter() - t0:.1f} s")
+    return params, n
+
+
+def routing_flips(cfg, params, prompt_len: int = 600,
+                  max_len: int = MOE_MAX_LEN):
+    """:func:`full_width_parity` (one request's prefill logits and four
+    decode steps, kernels against plain versions) with every MoE layer's
+    routing recorded on both paths: a flip is a token whose top-k expert
+    set differs between them. Each flip is printed with the plain k-th /
+    (k+1)-th probability margin, which must be within FLIP_MARGIN."""
+    import torch
+
+    from repro_torch.models import moe as moe_mod
+
+    calls = []
+    route = moe_mod._route
+
+    def spy(p, cfg_, x2d):
+        probs, gates, eidx = route(p, cfg_, x2d)
+        calls.append((probs, eidx))
+        return probs, gates, eidx
+
+    moe_mod._route = spy
+    try:
+        report = full_width_parity(cfg, params, prompt_len=prompt_len,
+                                   max_len=max_len)
+    finally:
+        moe_mod._route = route
+    n_moe = sum(spec.ff == "moe" for spec in cfg.layers())
+    k = cfg.moe.top_k
+    # The parity runs the kernel prefill, the plain prefill, then each
+    # decode step on the kernels and on the plain versions.
+    runs = [calls[i:i + n_moe] for i in range(0, len(calls), n_moe)]
+    check(len(runs) == 2 * len(report), f"{len(calls)} routings recorded")
+    flips, decisions, least = [], 0, float("inf")
+    for step in range(len(report)):
+        for layer, ((_, ek), (pp, ep)) in enumerate(
+                zip(runs[2 * step], runs[2 * step + 1])):
+            differ = (torch.sort(ek, -1).values
+                      != torch.sort(ep, -1).values).any(-1)
+            top = torch.topk(pp, k + 1, dim=-1).values
+            margin = (top[:, k - 1] - top[:, k]).float()
+            decisions += differ.numel()
+            least = min(least, float(margin.min()))
+            for t in differ.nonzero().flatten().tolist():
+                flips.append(dict(step=step, layer=layer + 1, token=t,
+                                  margin=float(margin[t])))
+    for f in flips:
+        log(f"  routing flip: step {f['step']} layer {f['layer']} token "
+            f"{f['token']}, plain k/k+1 margin {f['margin']:.3e}")
+    log(f"  routing: {len(flips)} flip(s) in {decisions} token routings "
+        f"({n_moe} MoE layers, prefill of {prompt_len} and 4 decode steps); "
+        f"smallest plain k/k+1 margin {least:.3e}")
+    check(all(f["margin"] <= FLIP_MARGIN for f in flips),
+          f"a routing flip with a plain margin above {FLIP_MARGIN:g}")
+    return dict(parity=report, flips=flips, routings=decisions,
+                min_margin=least)
+
+
+def deepseek_phase(profile: bool):
+    """15a: full-width deepseek-moe-16b (28 layers, 64 routed experts top-6
+    and 2 shared; float32, random weights from seed 0) through the captured
+    engine at 4 slots, max_len 1024, FIFO: six requests of phase 4's prompt
+    lengths, 16 new tokens each, held token by token against the plain
+    versions, with matmul and flash_attention launched in the prefills and
+    matmul and flash_decode in every replayed decode step
+    (:func:`serve_counted`); routing flips (:func:`routing_flips`); 16
+    captured decode steps against an eager loop (:func:`graph_parity`);
+    prefill device ms at 600 tokens; decode ms a step at 1 and 4 slots;
+    peak allocated memory."""
+    import torch
+
+    from repro_torch import configs
+
+    cfg = configs.get_arch("deepseek-moe-16b")
+    _release()
+    params, n_params = _init_full(cfg)
+    out = serve_counted(cfg, params, MOE_MAX_LEN, PHASE4_LENGTHS, seed=15,
+                          prefill_kernels=("matmul", "flash_attention"),
+                          decode_kernels=("matmul", "flash_decode"),
+                          label="deepseek")
+    eng = out.pop("engine")
+    out.update(layers=cfg.n_layers, params_b=n_params / 1e9)
+    out["routing"] = routing_flips(cfg, params)
+    out["graph_parity"] = graph_parity(cfg, params, label="deepseek",
+                                       max_len=MOE_MAX_LEN)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    host, groups = _prefill_profile(eng, params, 600, gen)
+    busy = sum(groups.values())
+    out["prefill_600"] = dict(host_ms=host, device_busy_ms=busy,
+                              by_group_ms=groups)
+    log(f"  prefill of 600 tokens: host {host:.3f} ms, device busy "
+        f"{busy:.3f} ms (" + ", ".join(f"{g} {t:.3f}" for g, t in sorted(
+            groups.items(), key=lambda kv: -kv[1])) + ")")
+    del eng
+    log("  decode wall time a step (deepseek): eager loop vs captured graph")
+    out["decode_rates"] = decode_rates(cfg, params, max_len=MOE_MAX_LEN)
+    if profile:
+        log("  where the time of one full-width deepseek request goes")
+        out["profile"] = profile_request(cfg, params, max_len=MOE_MAX_LEN)
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    log(f"  torch.cuda.max_memory_allocated: {out['peak_mem_gb']:.2f} GB")
+    del params
+    return out
+
+
+def qwen3_moe_reduced_depth():
+    """15b: qwen3-moe-235b-a22b at full width (d_model 4096, Hq 64, Hkv 4,
+    D 128, 128 experts top-8, renormalised gates, q/k norms) and 4 of its
+    94 layers (float32, random weights from seed 0): a 600-token prefill
+    and 8 captured decode steps against the plain versions, as phase 7
+    holds gemma2."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.kernels import build
+    from repro_torch.serve import ServeEngine
+
+    full = configs.get_arch("qwen3-moe-235b-a22b")
+    cfg = dataclasses.replace(full, n_layers=4,
+                              layer_pattern=full.layer_pattern[:4]).validate()
+    _release()
+    params, n_params = _init_full(cfg)
+    prompt = np.random.default_rng(17).integers(2, cfg.vocab_size, size=600)
+    eng = ServeEngine(cfg, params, max_len=MOE_MAX_LEN, slots=1,
+                      device="cuda")
+    build.reset_launches()
+    t0 = time.perf_counter()
+    tokens, steps = graph_logits(eng, prompt, 9)
+    dt = time.perf_counter() - t0
+    launches = dict(build.LAUNCHES)
+    for name in ("flash_attention", "flash_decode"):
+        check(launches[name] > 0, f"qwen3-moe: {name} was never launched")
+    del eng
+    worst, margin = hold_against_plain(params, cfg, prompt, tokens, steps,
+                                       MOE_MAX_LEN, False, "qwen3-moe")
+    cut = f"depth cut to {cfg.n_layers} of {full.n_layers} layers"
+    log(f"  qwen3-moe-235b-a22b ({cut}): prefill of 600 and {len(steps)} "
+        f"captured decode steps in {dt:.3f} s; launches {launches}; logits "
+        f"within {worst:.3e} x max |logit| of the plain versions' (tol "
+        f"{LOGIT_REL_TOL:g}); smallest top-2 margin {margin:.3e}")
+    out = dict(reduced=cut, params_b=n_params / 1e9, tokens=tokens,
+               decode_steps=len(steps), launches=launches,
+               max_rel_err=worst, min_top2_margin=margin, seconds=dt,
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    del params
+    return out
+
+
+def api_held(cfg, params, batch, max_len: int, steps: int, label: str):
+    """A prefill and ``steps`` decode steps through ``api`` on the kernels,
+    and the same (teacher-forced with the kernel path's tokens) on the
+    plain versions: every step's logits within LOGIT_REL_TOL of max |plain
+    logit|, every token the plain argmax unless the plain top-2 margin is
+    within it. Returns (tokens, worst relative difference, smallest
+    margin)."""
+    import torch
+
+    from repro_torch.models import api
+
+    v = cfg.vocab_size
+    tokens, worst, least = [], 0.0, float("inf")
+    with torch.inference_mode():
+        lk, sk = api.prefill(params, cfg, batch, max_len=max_len)
+        lr, sr = api.prefill(params, cfg, batch, max_len=max_len,
+                             impl="reference")
+        for i in range(steps + 1):
+            a, b = lk[0, :v].float(), lr[0, :v].float()
+            check(bool(torch.isfinite(a).all()),
+                  f"{label} step {i}: non-finite logits")
+            scale = float(b.abs().max())
+            tol = LOGIT_REL_TOL * scale
+            err = float((a - b).abs().max())
+            worst = max(worst, err / scale)
+            check(err <= tol, f"{label} step {i}: kernel logits differ from "
+                  f"the plain ones by {err:.3e} > {tol:.3e}")
+            top2 = torch.topk(b, 2)
+            margin = float(top2.values[0] - top2.values[1])
+            least = min(least, margin)
+            tok = int(a.argmax())
+            check(tok == int(top2.indices[0]) or margin <= tol,
+                  f"{label} step {i}: token {tok} != plain "
+                  f"{int(top2.indices[0])} with margin {margin:.3e}")
+            tokens.append(tok)
+            if i == steps:
+                break
+            t = torch.tensor([[tok]], device="cuda")
+            lk, sk = api.decode_step(params, cfg, t, sk)
+            lr, sr = api.decode_step(params, cfg, t, sr, impl="reference")
+    return tokens, worst, least
+
+
+def whisper_phase():
+    """15c: full-width whisper-large-v3 (32 encoder and 32 decoder layers,
+    d_model 1280, 20 heads padded to 32, D 64; float32, random weights and
+    1500 frame embeddings from seed 0): the encoder output, then a 64-token
+    decoder prefill and 16 ``api.decode_step``s (max_len 448, whisper's
+    decoder limit), kernels against plain versions; flash_attention and
+    flash_decode launches counted."""
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.kernels import build
+    from repro_torch.models import encdec
+
+    cfg = configs.get_arch("whisper-large-v3")
+    _release()
+    params, n_params = _init_full(cfg)
+    rng = np.random.default_rng(0)
+    frames = torch.tensor(rng.standard_normal(
+        (1, cfg.encoder.seq_len, cfg.d_model)), dtype=torch.float32,
+        device="cuda")
+    prompt = rng.integers(2, cfg.vocab_size, size=(1, 64))
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        enc = encdec.encode(params, cfg, frames)
+        torch.cuda.synchronize()
+        enc_s = time.perf_counter() - t0
+        ref = encdec.encode(params, cfg, frames, impl="reference")
+    err = float((enc - ref).abs().max())
+    scale = float(ref.abs().max())
+    check(bool(torch.isfinite(enc).all()) and err <= LOGIT_REL_TOL * scale,
+          f"whisper encoder output differs by {err:.3e} (max {scale:.3f})")
+    log(f"  encode of {cfg.encoder.seq_len} frames: {enc_s * 1e3:.1f} ms "
+        f"(host clock, first call); output within {err / scale:.3e} x max "
+        f"of the plain versions'")
+    build.reset_launches()
+    t0 = time.perf_counter()
+    tokens, worst, margin = api_held(
+        cfg, params, {"tokens": prompt, "frames": frames}, 448, 16,
+        "whisper")
+    dt = time.perf_counter() - t0
+    launches = dict(build.LAUNCHES)
+    layers = cfg.n_layers
+    # encode + the decoder's self and cross attention, then per step the
+    # self (cache) and cross (frames) decodes.
+    check(launches["flash_attention"] == cfg.encoder.n_layers + 2 * layers,
+          f"whisper: flash_attention launched {launches['flash_attention']}")
+    check(launches["flash_decode"] == 16 * 2 * layers,
+          f"whisper: flash_decode launched {launches['flash_decode']}")
+    log(f"  prefill of 64 tokens and 16 decode steps (kernels and plain) in "
+        f"{dt:.3f} s; launches {launches}; logits within {worst:.3e} x max "
+        f"|logit| of the plain versions' (tol {LOGIT_REL_TOL:g}); smallest "
+        f"top-2 margin {margin:.3e}")
+    out = dict(params_b=n_params / 1e9, encoder_rel_err=err / scale,
+               tokens=tokens, launches=launches, max_rel_err=worst,
+               min_top2_margin=margin, seconds=dt)
+    del params
+    return out
+
+
+def internvl_phase():
+    """15d: full-width internvl2-1b (24 layers, Hq 14 padded to 16, Hkv 2,
+    D 64; float32, random weights and 256 patch embeddings from seed 0):
+    ``api.prefill`` of the patches and 64 text tokens, then 16 decode
+    steps, kernels against plain versions."""
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.kernels import build
+
+    cfg = configs.get_arch("internvl2-1b")
+    _release()
+    params, n_params = _init_full(cfg)
+    rng = np.random.default_rng(0)
+    patches = torch.tensor(rng.standard_normal(
+        (1, cfg.encoder.seq_len, 1024)), dtype=torch.float32, device="cuda")
+    prompt = rng.integers(2, cfg.vocab_size, size=(1, 64))
+    build.reset_launches()
+    t0 = time.perf_counter()
+    tokens, worst, margin = api_held(
+        cfg, params, {"tokens": prompt, "patch_embeds": patches}, 512, 16,
+        "internvl2")
+    dt = time.perf_counter() - t0
+    launches = dict(build.LAUNCHES)
+    for name in SERVE_KERNELS:
+        check(launches[name] > 0, f"internvl2: {name} was never launched")
+    log(f"  prefill of {cfg.encoder.seq_len} patches + 64 tokens and 16 "
+        f"decode steps (kernels and plain) in {dt:.3f} s; launches "
+        f"{launches}; logits within {worst:.3e} x max |logit| of the plain "
+        f"versions' (tol {LOGIT_REL_TOL:g}); smallest top-2 margin "
+        f"{margin:.3e}")
+    out = dict(params_b=n_params / 1e9, tokens=tokens, launches=launches,
+               max_rel_err=worst, min_top2_margin=margin, seconds=dt)
+    del params
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 KERNEL_META = {
     "matmul": dict(
@@ -3377,9 +3890,10 @@ KERNEL_META = {
         replaces="src/repro/kernels/rglru/rglru.py:50",
         headline=dict(dtype="float32", case="s=4096 f=4096 y")),
 }
-# The path whose launches each kernel's count is read from: the qwen2 serve
-# (phase 4), the plan compile (phase 9; ssd and rglru are also checked
-# there) and the mamba2 and recurrentgemma serves (phases 10 and 11).
+# The path whose launches each kernel's count is read from: the
+# deepseek-moe-16b serve (phase 15a; the qwen2 serve of phase 4 beside it),
+# the plan compile (phase 9; ssd and rglru are also checked there) and the
+# mamba2 and recurrentgemma serves (phases 10 and 11).
 SERVE_KERNELS = ("matmul", "flash_attention", "flash_decode")
 PLAN_KERNELS = ("bilinear", "ssd", "rglru")
 # Phases 10 and 11: ragged lengths and a chunk multiple, six requests on
@@ -3389,7 +3903,7 @@ MAMBA2_LENGTHS = (16, 64, 100, 257, 600, 1000)
 RECURRENTGEMMA_LENGTHS = (2100, 2040, 64, 500)
 
 
-def kernels_line(rows, launches):
+def kernels_line(rows, launches, by_path=None):
     out = []
     for name, meta in KERNEL_META.items():
         head = next(r for r in rows if r["kernel"] == name
@@ -3405,6 +3919,8 @@ def kernels_line(rows, launches):
             library_ms=head["library_ms"],
             library_max_abs_err=head.get("library_max_abs_err"),
             shape=dict(head["shape"], dtype=head["dtype"])))
+        if by_path and name in by_path:
+            out[-1]["launches_by_path"] = by_path[name]
     return {"kernels": out}
 
 
@@ -3606,15 +4122,42 @@ def main(argv=None) -> int:
             result["examples"] = run_examples()
             phase_done("examples", t0)
 
+            # 15. The MoE, encoder-decoder and vision models.
+            log("== 15a: serve full-width deepseek-moe-16b (28 layers, 64 "
+                "routed experts top-6 + 2 shared, float32)")
+            t0 = time.perf_counter()
+            result["deepseek"] = deepseek_phase(args.profile)
+            phase_done("15a deepseek", t0)
+            log("== 15b: qwen3-moe-235b-a22b at full width, 4 layers: prefill "
+                "and captured decode")
+            t0 = time.perf_counter()
+            result["qwen3_moe"] = qwen3_moe_reduced_depth()
+            phase_done("15b qwen3-moe", t0)
+            log("== 15c: whisper-large-v3 at full width through the model "
+                "API")
+            t0 = time.perf_counter()
+            result["whisper"] = whisper_phase()
+            phase_done("15c whisper", t0)
+            log("== 15d: internvl2-1b at full width through the model API")
+            t0 = time.perf_counter()
+            result["internvl2"] = internvl_phase()
+            phase_done("15d internvl2", t0)
+
             check("jax" not in sys.modules, "jax was imported")
             check(not any(m == "repro" or m.startswith("repro.")
                           for m in sys.modules), "the JAX package was imported")
-            launches = {name: result["serve"]["launches"][name]
+            # The serving kernels' launches on this slice's path (phase
+            # 15a), each beside its count on phase 4's qwen2 serve.
+            launches = {name: result["deepseek"]["launches"][name]
                         for name in SERVE_KERNELS}
             launches["bilinear"] = result["plans"]["launches"]["bilinear"]
             launches["ssd"] = result["mamba2"]["launches"]["ssd"]
             launches["rglru"] = result["recurrentgemma"]["launches"]["rglru"]
-            line = kernels_line(rows, launches)
+            by_path = {name: {"qwen2 serve (phase 4)":
+                              result["serve"]["launches"][name],
+                              "deepseek-moe-16b serve (phase 15a)":
+                              launches[name]} for name in SERVE_KERNELS}
+            line = kernels_line(rows, launches, by_path)
             result["kernels"] = line["kernels"]
         result["seconds"] = time.perf_counter() - t_start
         if args.out:

@@ -5,6 +5,8 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-9b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-9b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-moe-16b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-moe-235b-a22b
     PYTHONPATH=src python -m repro_torch.launch.compile_plans \
         --measure analytic --archs qwen2-1.5b --dtypes float32 \
         --serve-buckets 16,32 --serve-smoke --serve-max-len 128 --out p.json
@@ -29,7 +31,10 @@ artifact for ``--hardware`` (default ``h100_sxm``); ``--bucket-policy
 plan`` takes the bucket edges from its prefill cells, so every prefill
 resolves exactly. The windowed archs (gemma2-9b, h2o-danube-1.8b,
 recurrentgemma-9b) keep ring caches on their local layers; mamba2-2.7b and
-recurrentgemma-9b carry their SSD and RG-LRU states per slot. It runs on
+recurrentgemma-9b carry their SSD and RG-LRU states per slot;
+deepseek-moe-16b and qwen3-moe-235b-a22b route through their experts
+(``models/moe.py``); internvl2-1b serves its text, and whisper-large-v3,
+whose requests need encoder frames, is refused. It runs on
 ``cuda`` unless given ``--device cpu``; on the card the model's prefill and
 decode go through the Hopper kernels, each decode slot replaying its
 captured CUDA graph. ``--chunk-prefill`` serves mixed steps (one prompt

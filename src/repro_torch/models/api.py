@@ -1,13 +1,25 @@
-"""Model API of the port (``repro/models/api.py``): decoder-only LMs.
+"""Model API of the port (``repro/models/api.py``) across the families:
+decoder-only LMs (dense, MoE, hybrid, SSM), the vision LM and the
+encoder-decoder.
 
-Serve state is the per-layer cache list from :func:`make_serve_state`,
-consumed by :func:`prefill` / :func:`prefill_chunk` / :func:`prefill_packed`
-/ :func:`decode_step`; a request served from the paged pool has the state
-of :func:`make_paged_state` and goes through :func:`prefill_chunk_paged` /
-:func:`prefill_packed_paged` / :func:`decode_step_paged`, beside the pool
-of :func:`make_paged_pool` and its page table. Functions that create
-tensors take ``device`` and run on ``cuda`` unless given ``device="cpu"``;
-the others run where the parameters live.
+Batch conventions, the reference's:
+    LM:    ``{"tokens": [B, S]}``
+    VLM:   ``+ {"patch_embeds": [B, P, 1024]}`` (the frontend stub); the
+           tokens are the text tail, the sequence is P + S long
+    audio: ``{"frames": [B, S_enc, D]}`` + the decoder's ``tokens``
+
+Serve state is the per-layer cache list from :func:`make_serve_state`
+(an encoder-decoder's: ``models/encdec.py``'s dict, made from the encoder
+output), consumed by :func:`prefill` / :func:`prefill_chunk` /
+:func:`prefill_packed` / :func:`decode_step`; a request served from the
+paged pool has the state of :func:`make_paged_state` and goes through
+:func:`prefill_chunk_paged` / :func:`prefill_packed_paged` /
+:func:`decode_step_paged`, beside the pool of :func:`make_paged_pool` and its
+page table. The chunked, packed and paged entry points refuse an audio
+encoder-decoder model, as the reference's do; a vision model goes through
+them as text. Functions that create tensors take ``device`` and run on
+``cuda`` unless given ``device="cpu"``; the others run where the parameters
+live.
 """
 from __future__ import annotations
 
@@ -19,6 +31,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.tiling import TileShape
+from repro_torch.models import encdec as E
 from repro_torch.models import transformer as T
 
 # Resolved kernel tiles (kernel name -> TileShape), threaded from the
@@ -26,26 +39,44 @@ from repro_torch.models import transformer as T
 Tiles = Optional[Mapping[str, TileShape]]
 
 
-def _check_family(cfg: ArchConfig) -> None:
-    if cfg.encoder is not None:
+def is_encdec(cfg: ArchConfig) -> bool:
+    return cfg.encoder is not None and cfg.encoder.kind == "audio"
+
+
+def is_vlm(cfg: ArchConfig) -> bool:
+    return cfg.encoder is not None and cfg.encoder.kind == "vision"
+
+
+def _refuse_encdec(cfg: ArchConfig, what: str) -> None:
+    if is_encdec(cfg):
         raise NotImplementedError(
-            f"{cfg.name}: encoder-decoder and vision models are not ported yet")
+            f"{what} is not supported for encoder-decoder models")
 
 
 def init_params(cfg: ArchConfig, seed: Union[int, torch.Generator] = 0,
                 dtype=torch.float32, device=None):
     """Random parameters from a seeded ``torch.Generator`` on ``device``,
     with the reference's distributions."""
-    _check_family(cfg)
     dev = resolve_device(device)
     gen = seed if isinstance(seed, torch.Generator) else \
         torch.Generator(device=dev).manual_seed(int(seed))
+    if is_encdec(cfg):
+        return E.init_params(cfg, gen, dtype, dev)
     return T.init_params(cfg, gen, dtype, dev)
 
 
 def make_serve_state(cfg: ArchConfig, batch: int, max_len: int, dtype,
-                     device=None, ring_local: bool = False):
-    _check_family(cfg)
+                     device=None, ring_local: bool = False,
+                     enc_out: Optional[torch.Tensor] = None, params=None):
+    """An empty serve state; an encoder-decoder's needs the encoder output
+    ``enc_out`` and the ``params`` that project its cross K/V (it lives on
+    ``enc_out``'s device)."""
+    if is_encdec(cfg):
+        if enc_out is None or params is None:
+            raise ValueError(f"{cfg.name}: an encoder-decoder serve state "
+                             "needs enc_out and params")
+        return E.make_decode_caches(params, cfg, enc_out, batch, max_len,
+                                    dtype)
     return T.make_caches(cfg, batch, max_len, dtype, ring_local=ring_local,
                          device=resolve_device(device))
 
@@ -55,6 +86,13 @@ def _tokens(params, tokens) -> torch.Tensor:
     if isinstance(tokens, torch.Tensor):
         return tokens.to(device=dev, dtype=torch.long)
     return torch.tensor(np.asarray(tokens), dtype=torch.long, device=dev)
+
+
+def _embeds(params, x) -> torch.Tensor:
+    dev, dtype = params["embed"].device, params["embed"].dtype
+    if isinstance(x, torch.Tensor):
+        return x.to(device=dev, dtype=dtype)
+    return torch.tensor(np.asarray(x), dtype=dtype, device=dev)
 
 
 def prefill(params, cfg: ArchConfig, batch: Dict[str, Any], max_len: int,
@@ -67,17 +105,28 @@ def prefill(params, cfg: ArchConfig, batch: Dict[str, Any], max_len: int,
     slot keeps the same tensors from one request to the next; without them
     the prefill makes its own. The head runs on the last position only: the
     reference computes every position's logits and keeps the last, the same
-    numbers.
+    numbers. A vision model's ``patch_embeds`` are prepended to the tokens
+    (``max_len`` covers P + S); an encoder-decoder encodes ``frames`` and
+    prefills its decoder over the tokens into a new state
+    (``encdec.prefill``; ``caches`` is not taken).
     """
-    _check_family(cfg)
     tokens = _tokens(params, batch["tokens"])
+    if is_encdec(cfg):
+        enc = E.encode(params, cfg, _embeds(params, batch["frames"]),
+                       impl=impl)
+        logits, state = E.prefill(params, cfg, tokens, enc, max_len, dtype,
+                                  impl=impl)
+        return logits[:, -1], state
+    patch = batch.get("patch_embeds")
     if caches is None:
         caches = T.make_caches(cfg, tokens.shape[0], max_len, dtype,
                                ring_local=ring_local, device=tokens.device)
     else:
         T.reset_caches(caches)
     out = T.forward(params, cfg, tokens, caches=caches, logits_mode="last",
-                    tiles=tiles, impl=impl)
+                    tiles=tiles, impl=impl,
+                    patch_embeds=None if patch is None
+                    else _embeds(params, patch))
     return out.logits[:, -1], out.caches
 
 
@@ -87,9 +136,13 @@ def decode_step(params, cfg: ArchConfig, token, state, tiles: Tiles = None,
 
     A token tensor already on the parameters' device is used as it is, and
     the step reads nothing back to the host: on the card it is a fixed
-    sequence of launches that a CUDA graph can capture.
+    sequence of launches that a CUDA graph can capture. An
+    encoder-decoder's state is ``encdec``'s dict, updated the same way.
     """
-    _check_family(cfg)
+    if is_encdec(cfg):
+        logits, state = E.decode_step(params, cfg, _tokens(params, token),
+                                      state, impl=impl)
+        return logits[:, 0], state
     out = T.forward(params, cfg, _tokens(params, token), caches=state,
                     decode=True, tiles=tiles, impl=impl)
     return out.logits[:, 0], out.caches
@@ -106,9 +159,7 @@ def prefill_chunk(params, cfg: ArchConfig, tokens, state, start: int,
     Running every chunk through this entry reproduces :func:`prefill`
     position by position. Returns (last-position logits [B, Vpad], state).
     """
-    if cfg.encoder is not None:
-        raise NotImplementedError(
-            "chunked prefill is not supported for encoder-decoder models")
+    _refuse_encdec(cfg, "chunked prefill")
     out = T.forward(params, cfg, _tokens(params, tokens), caches=state,
                     start_pos=start, chunked=True, logits_mode="last",
                     tiles=tiles, impl=impl)
@@ -125,9 +176,7 @@ def prefill_packed(params, cfg: ArchConfig, tokens, states, layout,
     :func:`prefill_chunk` alone. Returns (per-segment last-position logits
     [N, Vpad], states).
     """
-    if cfg.encoder is not None:
-        raise NotImplementedError(
-            "packed prefill is not supported for encoder-decoder models")
+    _refuse_encdec(cfg, "packed prefill")
     return T.forward_packed(params, cfg, _tokens(params, tokens), states,
                             tuple(layout), tiles=tiles, impl=impl)
 
@@ -141,7 +190,7 @@ def prefill_packed(params, cfg: ArchConfig, tokens, states, layout,
 def make_paged_pool(cfg: ArchConfig, n_pages: int, page: int, dtype,
                     device=None):
     """The engine's page tensors (``transformer.make_paged_pool``)."""
-    _check_family(cfg)
+    _refuse_encdec(cfg, "paged KV pool")
     return T.make_paged_pool(cfg, n_pages, page, dtype,
                              device=resolve_device(device))
 
@@ -149,7 +198,7 @@ def make_paged_pool(cfg: ArchConfig, n_pages: int, page: int, dtype,
 def make_paged_state(cfg: ArchConfig, dtype, device=None):
     """A paged request's state: ``pos`` on each attention layer, the usual
     batch-1 state on a recurrent one."""
-    _check_family(cfg)
+    _refuse_encdec(cfg, "paged KV pool")
     return T.make_caches(cfg, 1, 1, dtype, device=resolve_device(device),
                          paged=True)
 
@@ -158,7 +207,7 @@ def decode_step_paged(params, cfg: ArchConfig, token, state, pool, page_table,
                       tiles: Tiles = None, impl: str = "auto"):
     """token [1, 1] -> (logits [1, Vpad], state, pool). Nothing is read back
     to the host, so a CUDA graph can capture it with the table tensor."""
-    _check_family(cfg)
+    _refuse_encdec(cfg, "paged decode")
     out = T.forward(params, cfg, _tokens(params, token), caches=state,
                     decode=True, tiles=tiles, impl=impl, pool=pool,
                     page_table=page_table)
@@ -171,7 +220,7 @@ def prefill_chunk_paged(params, cfg: ArchConfig, tokens, state, start: int,
     """:func:`prefill_chunk` over the paged pool. A request whose prompt
     prefix was found in the pool starts at ``start`` = the shared length:
     the mapped pages stand in for the chunks it never ran."""
-    _check_family(cfg)
+    _refuse_encdec(cfg, "chunked prefill")
     out = T.forward(params, cfg, _tokens(params, tokens), caches=state,
                     start_pos=start, chunked=True, logits_mode="last",
                     tiles=tiles, impl=impl, pool=pool, page_table=page_table)
@@ -183,7 +232,7 @@ def prefill_packed_paged(params, cfg: ArchConfig, tokens, states, layout,
                          impl: str = "auto"):
     """:func:`prefill_packed` over the paged pool, one page table per
     segment. Returns (logits [N, Vpad], states, pool)."""
-    _check_family(cfg)
+    _refuse_encdec(cfg, "packed prefill")
     logits, states = T.forward_packed(
         params, cfg, _tokens(params, tokens), states, tuple(layout),
         tiles=tiles, impl=impl, pool=pool, page_tables=tuple(page_tables))

@@ -1,9 +1,12 @@
 """Convert a JAX parameter tree (as numpy arrays) into the port's parameters.
 
 The reference stacks the layers of each ``("scan", unit, reps)`` segment on
-a leading axis (``transformer.decompose``); the port keeps one dict per
-layer in layer order. Imports no JAX: the caller hands in the tree with its
-leaves already converted, e.g. ``jax.tree.map(np.asarray, params)``.
+a leading axis (``transformer.decompose``), and an encoder-decoder's
+``enc_layers`` and ``dec_layers`` each on axis 0; the port keeps one dict
+per layer in layer order. Every other entry (an MoE layer's ``moe`` dict, a
+vision model's ``vit_proj``, the norms) is carried across as it is. Imports
+no JAX: the caller hands in the tree with its leaves already converted,
+e.g. ``jax.tree.map(np.asarray, params)``.
 """
 from __future__ import annotations
 
@@ -29,6 +32,17 @@ def params_from_jax(cfg: ArchConfig, tree: Dict[str, Any],
         if isinstance(node, dict):
             return {k: walk(v, index) for k, v in node.items()}
         return tensor(node if index is None else np.asarray(node)[index])
+
+    def unstack(stacked) -> List[Dict[str, Any]]:
+        n = len(np.asarray(stacked["ln1_w"]))
+        return [walk(stacked, r) for r in range(n)]
+
+    if "dec_layers" in tree:           # encoder-decoder
+        out = {k: walk(v) for k, v in tree.items()
+               if k not in ("enc_layers", "dec_layers")}
+        out["enc_layers"] = unstack(tree["enc_layers"])
+        out["dec_layers"] = unstack(tree["dec_layers"])
+        return out
 
     layers: List[Dict[str, Any]] = []
     for seg, group in zip(decompose(cfg), tree["segments"]):

@@ -1,0 +1,276 @@
+"""Encoder-decoder stack (whisper-large-v3's backbone) — the port's
+``repro/models/encdec.py``.
+
+The audio conv frontend is a stub, as in the reference: the encoder takes
+precomputed frame embeddings ``[B, S_enc, D]``. Pre-LN transformer,
+sinusoidal positions, a GELU MLP (tanh form, as ``jax.nn.gelu``), MHA with
+the heads padded to ``cfg.padded_heads`` and the padded heads' outputs
+masked to zero, a decoder with causal self-attention and cross-attention,
+and the embedding as the tied head.
+
+The parameters keep one dict a layer (``enc_layers``, ``dec_layers``) where
+the reference stacks them for ``jax.lax.scan`` (``models/convert.py``
+unstacks a JAX tree). The serve state is the reference's dict with a list
+where it stacks: ``self_k`` / ``self_v`` one ``[B, H, max_len, hd]`` tensor a
+decoder layer, ``cross`` one ``(k, v)`` pair ``[B, H, S_enc, hd]`` a layer,
+and ``pos``, a 0-d int32 tensor on the device. :func:`decode_step` writes
+the new row and adds one to ``pos`` in place and reads nothing back to the
+host, so a CUDA graph can capture it.
+
+Attention runs where the tensors live (``impl="auto"``). On CUDA tensors
+it launches the port's kernels: the encoder's self-attention and the
+cross-attention through ``flash_attention`` with ``causal=False`` (the
+cross-attention's queries are the decoder's, Sq != Skv), the decoder's
+causal prefill through ``flash_attention``, and at decode the
+self-attention through ``flash_decode`` over the self cache at ``pos`` and
+the cross-attention through ``flash_decode`` over all S_enc keys. On CPU
+tensors, or with ``impl="reference"``, it runs the plain versions the
+reference runs: ``flash_attention_ref`` with ``chunk = min(512, Skv)``, and
+at decode the masked softmax over the self cache.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels.flash_attention.decode import flash_decode
+from repro_torch.kernels.flash_attention.flash_attention import (
+    flash_attention,
+)
+from repro_torch.kernels.flash_attention.ref import NEG_INF, flash_attention_ref
+from repro_torch.models.layers import ParamDef, act_fn, init_tree, layer_norm
+
+
+def _sinusoid(seq: int, d: int, device=None) -> torch.Tensor:
+    pos = torch.arange(seq, device=device, dtype=torch.float32)[:, None]
+    i = torch.arange(d // 2, device=device, dtype=torch.float32)[None, :]
+    ang = pos / torch.pow(torch.tensor(10000.0, device=device), 2 * i / d)
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+def _mha_defs(cfg: ArchConfig) -> Dict[str, ParamDef]:
+    d, hd, h = cfg.d_model, cfg.head_dim_, cfg.padded_heads
+    return {
+        "wq": ParamDef((d, h, hd), ("d_model", "heads", None)),
+        "wk": ParamDef((d, h, hd), ("d_model", "heads", None)),
+        "wv": ParamDef((d, h, hd), ("d_model", "heads", None)),
+        "wo": ParamDef((h, hd, d), ("heads", None, "d_model")),
+    }
+
+
+def _ln_defs(cfg: ArchConfig, name: str) -> Dict[str, ParamDef]:
+    return {
+        f"{name}_w": ParamDef((cfg.d_model,), (None,), init="ones"),
+        f"{name}_b": ParamDef((cfg.d_model,), (None,), init="zeros"),
+    }
+
+
+def _ff_defs(cfg: ArchConfig) -> Dict[str, ParamDef]:
+    d, f = cfg.d_model, cfg.d_ff
+    return {
+        "w1": ParamDef((d, f), ("d_model", "ff")),
+        "b1": ParamDef((f,), ("ff",), init="zeros"),
+        "w2": ParamDef((f, d), ("ff", "d_model")),
+        "b2": ParamDef((d,), (None,), init="zeros"),
+    }
+
+
+def _enc_layer_defs(cfg):
+    return {**_ln_defs(cfg, "ln1"), "attn": _mha_defs(cfg),
+            **_ln_defs(cfg, "ln2"), "ff": _ff_defs(cfg)}
+
+
+def _dec_layer_defs(cfg):
+    return {**_ln_defs(cfg, "ln1"), "self_attn": _mha_defs(cfg),
+            **_ln_defs(cfg, "lnx"), "cross_attn": _mha_defs(cfg),
+            **_ln_defs(cfg, "ln2"), "ff": _ff_defs(cfg)}
+
+
+def model_defs(cfg: ArchConfig) -> Dict[str, Any]:
+    return {
+        "embed": ParamDef((cfg.padded_vocab, cfg.d_model),
+                          ("vocab", "d_model"), init="normal", scale=0.02),
+        "enc_layers": [_enc_layer_defs(cfg)
+                       for _ in range(cfg.encoder.n_layers)],
+        "dec_layers": [_dec_layer_defs(cfg) for _ in range(cfg.n_layers)],
+        **_ln_defs(cfg, "enc_final"),
+        **_ln_defs(cfg, "dec_final"),
+    }
+
+
+def init_params(cfg: ArchConfig, generator: torch.Generator,
+                dtype=torch.float32, device=None):
+    return init_tree(model_defs(cfg), generator, dtype, device)
+
+
+def _ln(p, name, x, eps):
+    return layer_norm(x, p[f"{name}_w"], p[f"{name}_b"], eps)
+
+
+def _heads(p, x, w):  # [B,S,D] x [D,H,hd] -> [B,H,S,hd], contiguous
+    return torch.einsum("bsd,dhk->bhsk", x, p[w].to(x.dtype)).contiguous()
+
+
+def _head_mask(cfg: ArchConfig, out):
+    h = cfg.padded_heads
+    if h == cfg.n_heads:
+        return out
+    mask = (torch.arange(h, device=out.device) < cfg.n_heads).to(out.dtype)
+    return out * mask.view((1, h) + (1,) * (out.dim() - 2))
+
+
+def _use_kernel(x, impl: str) -> bool:
+    if impl == "auto":
+        return x.is_cuda
+    if impl in ("kernel", "reference"):
+        return impl == "kernel"
+    raise ValueError(f"unknown attention impl {impl!r}")
+
+
+def _attend(cfg: ArchConfig, q, k, v, causal: bool, impl: str):
+    """q [B,H,Sq,hd] over k, v [B,H,Skv,hd]; padded heads masked."""
+    if _use_kernel(q, impl):
+        out = flash_attention(q, k.contiguous(), v.contiguous(),
+                              causal=causal)
+    else:
+        out = flash_attention_ref(q, k, v, causal=causal,
+                                  chunk=min(512, k.shape[2]))
+    return _head_mask(cfg, out)
+
+
+def _out(p, o, dtype):  # [B,H,S,hd] x [H,hd,D] -> [B,S,D]
+    return torch.einsum("bhsk,hkd->bsd", o, p["wo"].to(dtype))
+
+
+def _mha(p, cfg: ArchConfig, xq, xkv, causal: bool, impl: str,
+         cached_kv=None):
+    """Returns the attention output [B,Sq,D]; ``cached_kv`` stands in for
+    the projection of ``xkv``."""
+    q = _heads(p, xq, "wq")
+    if cached_kv is None:
+        k, v = _heads(p, xkv, "wk"), _heads(p, xkv, "wv")
+    else:
+        k, v = cached_kv
+    return _out(p, _attend(cfg, q, k, v, causal, impl), xq.dtype)
+
+
+def _ff(p, x):
+    act = act_fn("gelu")
+    h = act(torch.matmul(x, p["w1"].to(x.dtype)) + p["b1"].to(x.dtype))
+    return torch.matmul(h, p["w2"].to(x.dtype)) + p["b2"].to(x.dtype)
+
+
+def encode(params, cfg: ArchConfig, frames: torch.Tensor,
+           impl: str = "auto") -> torch.Tensor:
+    """frames [B, S_enc, D] (the conv frontend's embeddings) -> encoder
+    output [B, S_enc, D]."""
+    x = frames + _sinusoid(frames.shape[1], cfg.d_model,
+                           frames.device)[None].to(frames.dtype)
+    for lp in params["enc_layers"]:
+        h = _ln(lp, "ln1", x, cfg.norm_eps)
+        x = x + _mha(lp["attn"], cfg, h, h, causal=False, impl=impl)
+        x = x + _ff(lp["ff"], _ln(lp, "ln2", x, cfg.norm_eps))
+    return _ln(params, "enc_final", x, cfg.norm_eps)
+
+
+def _logits(params, x):
+    return torch.matmul(x, params["embed"].t().to(x.dtype))
+
+
+def make_decode_caches(params, cfg: ArchConfig, enc_out, batch: int,
+                       max_len: int, dtype) -> Dict[str, Any]:
+    """The self-attention KV caches (zeros) and each decoder layer's
+    cross-attention K/V of ``enc_out``, projected once."""
+    h, hd, dev = cfg.padded_heads, cfg.head_dim_, enc_out.device
+    cross = [(_heads(lp["cross_attn"], enc_out, "wk").to(dtype),
+              _heads(lp["cross_attn"], enc_out, "wv").to(dtype))
+             for lp in params["dec_layers"]]
+    shape = (batch, h, max_len, hd)
+    return {
+        "self_k": [torch.zeros(shape, dtype=dtype, device=dev)
+                   for _ in params["dec_layers"]],
+        "self_v": [torch.zeros(shape, dtype=dtype, device=dev)
+                   for _ in params["dec_layers"]],
+        "cross": cross,
+        "pos": torch.zeros((), dtype=torch.int32, device=dev),
+    }
+
+
+def prefill(params, cfg: ArchConfig, tokens: torch.Tensor, enc_out,
+            max_len: int, dtype, impl: str = "auto"):
+    """The decoder's teacher-forced pass over the prompt, filling the
+    self-attention caches. Returns (logits [B, 1, Vpad] of the last
+    position, caches ready for :func:`decode_step` at ``pos = S``)."""
+    s = tokens.shape[1]
+    caches = make_decode_caches(params, cfg, enc_out, tokens.shape[0],
+                                max_len, dtype)
+    x = params["embed"][tokens]
+    x = x + _sinusoid(s, cfg.d_model, x.device)[None].to(x.dtype)
+    for lp, sk, sv, kv in zip(params["dec_layers"], caches["self_k"],
+                              caches["self_v"], caches["cross"]):
+        h = _ln(lp, "ln1", x, cfg.norm_eps)
+        sa = lp["self_attn"]
+        q, k1, v1 = (_heads(sa, h, w) for w in ("wq", "wk", "wv"))
+        sk[:, :, :s] = k1.to(sk.dtype)
+        sv[:, :, :s] = v1.to(sv.dtype)
+        x = x + _out(sa, _attend(cfg, q, k1, v1, True, impl), x.dtype)
+        x = x + _mha(lp["cross_attn"], cfg, _ln(lp, "lnx", x, cfg.norm_eps),
+                     None, causal=False, impl=impl, cached_kv=kv)
+        x = x + _ff(lp["ff"], _ln(lp, "ln2", x, cfg.norm_eps))
+    x = _ln(params, "dec_final", x[:, -1:], cfg.norm_eps)
+    caches["pos"].fill_(s)
+    return _logits(params, x), caches
+
+
+def _self_decode(cfg: ArchConfig, q, sk, sv, pos, impl: str):
+    """One query [B,H,hd] over the self cache at ``pos``."""
+    if _use_kernel(q, impl):
+        return flash_decode(q, sk, sv, pos=pos)
+    mask = torch.arange(sk.shape[2], device=q.device) <= pos
+    s = torch.einsum("bhk,bhsk->bhs", q.float(), sk.float()) \
+        * cfg.head_dim_ ** -0.5
+    s = torch.where(mask[None, None], s, NEG_INF)
+    a = torch.softmax(s, dim=-1)
+    return torch.einsum("bhs,bhsk->bhk", a, sv.float()).to(q.dtype)
+
+
+def _cross_decode(cfg: ArchConfig, q, ck, cv, impl: str):
+    """One query [B,H,hd] over every encoder position."""
+    if _use_kernel(q, impl):
+        return flash_decode(q, ck, cv, pos=ck.shape[2] - 1)
+    return flash_attention_ref(q[:, :, None], ck, cv, causal=False,
+                               chunk=min(512, ck.shape[2]))[:, :, 0]
+
+
+def decode_step(params, cfg: ArchConfig, token: torch.Tensor, caches,
+                impl: str = "auto"):
+    """token [B, 1] -> (logits [B, 1, Vpad], caches), the caches updated
+    in place (the new self K/V row at ``pos``, then ``pos`` + 1)."""
+    pos = caches["pos"]
+    x = params["embed"][token]
+    max_len = caches["self_k"][0].shape[2]
+    posemb = _sinusoid(max_len, cfg.d_model, x.device)
+    x = x + posemb.index_select(0, pos.view(1).long())[None].to(x.dtype)
+    slot = pos.view(1).long()
+    for lp, sk, sv, (ck, cv) in zip(params["dec_layers"], caches["self_k"],
+                                    caches["self_v"], caches["cross"]):
+        h = _ln(lp, "ln1", x, cfg.norm_eps)
+        sa = lp["self_attn"]
+        q, k1, v1 = (_heads(sa, h, w) for w in ("wq", "wk", "wv"))
+        sk.index_copy_(2, slot, k1.to(sk.dtype))
+        sv.index_copy_(2, slot, v1.to(sv.dtype))
+        o = _head_mask(cfg, _self_decode(cfg, q[:, :, 0].contiguous(), sk, sv,
+                                         pos, impl))
+        x = x + _out(sa, o[:, :, None].to(x.dtype), x.dtype)
+        ca = lp["cross_attn"]
+        hx = _ln(lp, "lnx", x, cfg.norm_eps)
+        qx = _heads(ca, hx, "wq")[:, :, 0].contiguous()
+        ox = _head_mask(cfg, _cross_decode(cfg, qx, ck, cv, impl))
+        x = x + _out(ca, ox[:, :, None].to(x.dtype), x.dtype)
+        x = x + _ff(lp["ff"], _ln(lp, "ln2", x, cfg.norm_eps))
+    x = _ln(params, "dec_final", x, cfg.norm_eps)
+    pos.add_(1)
+    return _logits(params, x), caches
+

@@ -1,0 +1,163 @@
+"""Mixture-of-Experts block — the port's ``repro/models/moe.py``, single
+device (the reference's path without a mesh).
+
+Routing is the reference's exactly: a float32 softmax router, top-k, the
+optional renormalisation of the k gates (floor 1e-9) and the Switch
+load-balance aux loss. Dispatch is its capacity-based gather: a **stable**
+sort of the pairs' expert ids makes each expert's pairs a contiguous group
+in token order, the first ``C = max(8, int(T*k*cf/E) + 1)`` of a group
+fill its ``[E, C]`` slots and the rest drop, so the same pairs drop as in
+the reference. The routed experts run as one batched product over the
+static ``[E, C, D]`` gather (``torch.bmm``; the reference's ``einsum`` runs
+outside any Pallas kernel too), the shared experts through the port's
+matmul kernel (``kernels/matmul/ops.py:mm``) on CUDA tensors.
+
+The combine differs in form from the reference's scatter-add, not in what
+it sums: each (token, k) pair finds its slot by inverting the sort, reads
+its expert's output row back, and the k contributions of a token are summed
+in a fixed order, so the result does not depend on the order of atomic
+adds. Nothing reads back to the host (group sizes come from a
+``scatter_add_``, not ``bincount``; no boolean indexing), so a decode step
+through this block can be captured in a CUDA graph.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Tuple
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels.matmul.ops import mm
+from repro_torch.kernels.matmul.ref import matmul_ref
+from repro_torch.models.layers import ParamDef, act_fn
+
+
+def moe_defs(cfg: ArchConfig) -> Dict[str, ParamDef]:
+    m = cfg.moe
+    d = cfg.d_model
+    defs = {
+        "router": ParamDef((d, m.n_experts), ("d_model", None), scale=0.1),
+        "w1": ParamDef((m.n_experts, d, m.d_expert), ("experts", "d_model", None)),
+        "w3": ParamDef((m.n_experts, d, m.d_expert), ("experts", "d_model", None)),
+        "w2": ParamDef((m.n_experts, m.d_expert, d), ("experts", None, "d_model")),
+    }
+    if m.n_shared_experts:
+        ds = m.d_shared or m.n_shared_experts * m.d_expert
+        defs["shared_w1"] = ParamDef((d, ds), ("d_model", "ff"))
+        defs["shared_w3"] = ParamDef((d, ds), ("d_model", "ff"))
+        defs["shared_w2"] = ParamDef((ds, d), ("ff", "d_model"))
+    return defs
+
+
+def _capacity(n_tokens: int, cfg: ArchConfig) -> int:
+    m = cfg.moe
+    c = int(n_tokens * m.top_k * m.capacity_factor / m.n_experts) + 1
+    return max(8, c)
+
+
+def _route(p, cfg: ArchConfig, x2d):
+    """``(probs [T, E], gates [T, k], eidx [T, k])`` in float32."""
+    m = cfg.moe
+    logits = torch.matmul(x2d.float(), p["router"].float())
+    probs = torch.softmax(logits, dim=-1)
+    gates, eidx = torch.topk(probs, m.top_k, dim=-1)
+    if m.renorm_gates:
+        gates = gates / torch.clamp(gates.sum(dim=-1, keepdim=True), min=1e-9)
+    return probs, gates, eidx
+
+
+def _counts(ids, length: int) -> torch.Tensor:
+    """How many of ``ids`` fall on each of ``length`` values, on the device
+    (``bincount`` would read its size back to the host)."""
+    return torch.zeros(length, dtype=torch.long, device=ids.device) \
+        .scatter_add_(0, ids, torch.ones_like(ids))
+
+
+def dispatch(eidx, n_local: int, local_offset: int, cap: int):
+    """The reference's slot layout for the flattened (token, k) pairs.
+
+    Returns ``(pair [E_loc, C], valid [E_loc, C], expert [T*k],
+    slot [T*k], kept [T*k])``: the pair filling each expert slot (valid
+    while the slot lies within its group), and for each pair its local
+    expert, its slot in that expert's group and whether it was kept (local,
+    and within capacity)."""
+    flat_e = eidx.reshape(-1)
+    n_pairs = flat_e.shape[0]
+    local_id = flat_e - local_offset
+    is_local = (local_id >= 0) & (local_id < n_local)
+    key = torch.where(is_local, local_id, torch.full_like(local_id, n_local))
+    order = torch.argsort(key, stable=True)
+    sizes = _counts(key, n_local + 1)[:n_local]
+    starts = torch.cumsum(sizes, 0) - sizes
+    c = torch.arange(cap, device=eidx.device)
+    pair = order[torch.clamp(starts[:, None] + c[None, :], 0, n_pairs - 1)]
+    valid = c[None, :] < sizes[:, None]
+    # Each pair's rank in the sort, then its slot within its group.
+    rank = torch.empty_like(order).scatter_(
+        0, order, torch.arange(n_pairs, device=eidx.device))
+    expert = torch.clamp(key, max=n_local - 1)
+    slot = rank - starts[expert]
+    kept = is_local & (slot < cap)
+    return pair, valid, expert, slot, kept
+
+
+def moe_apply_local(
+    p: Dict[str, Any], cfg: ArchConfig, x2d: torch.Tensor,
+    n_local: int, local_offset: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Local experts' contribution for the tokens ``x2d`` [T, D].
+
+    ``p``'s ``w1``/``w3``/``w2`` hold the ``n_local`` experts from
+    ``local_offset`` on. Returns (partial_out [T, D], aux_loss scalar
+    float32); a pair routed to an expert outside the shard contributes
+    nothing here."""
+    m = cfg.moe
+    t, d = x2d.shape
+    k = m.top_k
+    cap = _capacity(t, cfg)
+    probs, gates, eidx = _route(p, cfg, x2d)
+
+    # Load-balance aux (Switch): E * sum_e f_e * P_e over the full expert set.
+    f = _counts(eidx[:, 0], m.n_experts).float() / t
+    pbar = probs.mean(dim=0)
+    aux = m.n_experts * torch.sum(f * pbar) * m.router_aux_weight
+
+    pair, valid, expert, slot, kept = dispatch(eidx, n_local, local_offset,
+                                               cap)
+    tok = pair // k
+    xg = x2d[tok] * valid[..., None].to(x2d.dtype)          # [E_loc, C, D]
+    act = act_fn(cfg.act)
+    h = act(torch.bmm(xg, p["w1"].to(x2d.dtype)))
+    h = h * torch.bmm(xg, p["w3"].to(x2d.dtype))
+    out_e = torch.bmm(h, p["w2"].to(x2d.dtype))             # [E_loc, C, D]
+
+    # Combine: each pair reads its slot's row back; a token sums its k.
+    row = expert * cap + torch.clamp(slot, 0, cap - 1)
+    g = gates.reshape(-1) * kept
+    contrib = out_e.reshape(-1, d)[row] * g[:, None].to(out_e.dtype)
+    y = contrib.reshape(t, k, d).sum(dim=1)
+    return y, aux.float()
+
+
+def _shared_ff(p, cfg: ArchConfig, x2d, impl: str = "auto"):
+    """The always-on shared experts, one SwiGLU FF: through the matmul
+    kernel on CUDA tensors (its default tile), :func:`matmul_ref` on CPU
+    tensors or with ``impl="reference"`` (the reference's ``@``)."""
+    gemm = matmul_ref if impl == "reference" else mm
+    act = act_fn(cfg.act)
+    h = act(gemm(x2d, p["shared_w1"].to(x2d.dtype)))
+    h = h * gemm(x2d, p["shared_w3"].to(x2d.dtype))
+    return gemm(h, p["shared_w2"].to(x2d.dtype))
+
+
+def moe_forward(p: Dict[str, Any], cfg: ArchConfig, x: torch.Tensor,
+                impl: str = "auto") -> Tuple[torch.Tensor, torch.Tensor]:
+    """x [B, S, D] -> (y [B, S, D], aux scalar). The B*S tokens share one
+    capacity, as in the reference."""
+    b, s, d = x.shape
+    m = cfg.moe
+    x2d = x.reshape(-1, d)
+    y, aux = moe_apply_local(p, cfg, x2d, m.n_experts, 0)
+    if m.n_shared_experts:
+        y = y + _shared_ff(p, cfg, x2d, impl)
+    return y.reshape(b, s, d), aux

@@ -6,18 +6,24 @@ parameter dict per layer (``params["layers"]``, in layer order) and runs the
 stack as a Python loop. :func:`decompose` is kept because the JAX parameter
 tree is laid out by it (``models/convert.py`` unstacks it).
 
-The mixers ported are attention (global and local), RG-LRU
-(``models/rglru.py``) and SSD (``models/ssm.py``), with the dense
-feed-forward or none; MoE, encoders and patch embeddings come later. Each
-layer keeps its own cache: a KV cache on an attention layer, the carried
-conv tails and recurrent state on an RG-LRU or SSD layer.
+The mixers are attention (global and local), RG-LRU (``models/rglru.py``)
+and SSD (``models/ssm.py``), with the dense feed-forward, the MoE block
+(``models/moe.py``) or none; a layer returns its MoE aux loss, which the
+stack sums into ``StackOutputs.aux_loss`` as the reference does (serving
+ignores it). A vision model (internvl2) projects its patch embeddings with
+``vit_proj`` and prepends them to the tokens (``forward(patch_embeds=)``);
+the encoder-decoder backbone is ``models/encdec.py``. Each layer keeps its
+own cache: a KV cache on an attention layer, the carried conv tails and
+recurrent state on an RG-LRU or SSD layer.
 
 ``forward(chunked=True)`` runs one chunk of a multi-step prefill from
 ``start_pos``: attention continues over the cache (``attn_prefill_chunk``)
 and the recurrent layers from their carried state, which is what they do
 anyway. :func:`forward_packed` runs the chunks of several requests as one
 sequence through the embedding, norms and FF, each attention and recurrent
-layer per request's state.
+layer per request's state. An MoE layer routes the tokens it is given
+together: a chunk's capacity counts the chunk's tokens, a pack's the
+pack's, as in the reference.
 
 Paged serving (``serve/pool.py``): :func:`make_paged_pool` makes the
 engine's page tensors, one ``k_pages`` / ``v_pages`` pair per attention
@@ -39,6 +45,7 @@ from repro_torch.configs.base import ArchConfig, LayerSpec
 from repro_torch.kernels.matmul.ops import mm
 from repro_torch.kernels.matmul.ref import matmul_ref
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (
@@ -74,34 +81,28 @@ def _apply_norm(p, cfg: ArchConfig, x, name: str):
     return rms_norm(x, p[f"{name}_w"], cfg.norm_eps)
 
 
-_MIXERS = ("attn", "local_attn", "rglru", "ssd")
-
-
-def _check_ported(cfg: ArchConfig, spec: LayerSpec) -> None:
-    if spec.mixer not in _MIXERS or spec.ff not in ("dense", None):
-        raise NotImplementedError(
-            f"{cfg.name}: layer {spec} is not ported yet (attention, RG-LRU "
-            f"and SSD mixers with a dense feed-forward or none)")
-    if cfg.encoder is not None:
-        raise NotImplementedError(f"{cfg.name}: encoders are not ported yet")
-
-
 def layer_defs(cfg: ArchConfig, spec: LayerSpec) -> Dict[str, Any]:
-    _check_ported(cfg, spec)
     defs: Dict[str, Any] = {}
     defs.update(_norm_defs(cfg, "norm1"))
-    if spec.mixer == "rglru":
+    if spec.mixer in ("attn", "local_attn"):
+        defs["attn"] = attn_mod.attn_defs(cfg)
+    elif spec.mixer == "rglru":
         defs["rglru"] = rglru_mod.rglru_defs(cfg)
     elif spec.mixer == "ssd":
         defs["ssm"] = ssm_mod.ssm_defs(cfg)
     else:
-        defs["attn"] = attn_mod.attn_defs(cfg)
+        raise ValueError(f"unknown mixer {spec.mixer}")
     if cfg.post_norms:
         defs.update(_norm_defs(cfg, "post1"))
     if spec.ff is not None:
         if not cfg.parallel_block:
             defs.update(_norm_defs(cfg, "norm2"))
-        defs["ff"] = dense_ff_defs(cfg)
+        if spec.ff == "dense":
+            defs["ff"] = dense_ff_defs(cfg)
+        elif spec.ff == "moe":
+            defs["moe"] = moe_mod.moe_defs(cfg)
+        else:
+            raise ValueError(f"unknown ff {spec.ff}")
         if cfg.post_norms:
             defs.update(_norm_defs(cfg, "post2"))
     return defs
@@ -149,6 +150,11 @@ def model_defs(cfg: ArchConfig) -> Dict[str, Any]:
         defs["lm_head"] = ParamDef((d, v), ("d_model", "vocab"), init="normal",
                                    scale=0.02)
     defs["layers"] = [layer_defs(cfg, spec) for spec in cfg.layers()]
+    if cfg.encoder is not None and cfg.encoder.kind == "vision":
+        defs["vit_proj"] = {
+            "w": ParamDef((1024, d), (None, "d_model")),
+            "b": ParamDef((d,), (None,), init="zeros"),
+        }
     return defs
 
 
@@ -235,9 +241,13 @@ def _mixer_packed(p, cfg: ArchConfig, spec: LayerSpec, x, positions, caches,
 def layer_forward(p, cfg: ArchConfig, spec: LayerSpec, x, positions, cache,
                   decode: bool = False, tiles=None, impl: str = "auto",
                   chunk_start=None, pack_layout=None):
-    """Returns (x_out, new_cache); with ``pack_layout`` ``cache`` is one
-    cache per segment, and so is new_cache."""
+    """Returns (x_out, new_cache, aux): aux is an MoE layer's load-balance
+    loss, float32, and None on a layer without one (the reference's zero,
+    left out so that a dense step launches nothing for it). With
+    ``pack_layout`` ``cache`` is one cache per segment, and so is
+    new_cache."""
     tiles = tiles or {}
+    aux = None
     h = _apply_norm(p, cfg, x, "norm1")
     mix, new_cache = _mixer(p, cfg, spec, h, positions, cache, decode, tiles,
                             impl, chunk_start=chunk_start,
@@ -250,12 +260,15 @@ def layer_forward(p, cfg: ArchConfig, spec: LayerSpec, x, positions, cache,
     else:
         x = x + mix
         if spec.ff is not None:
-            ff = _dense_ff(p["ff"], cfg, _apply_norm(p, cfg, x, "norm2"),
-                           tile=ff_tile, impl=impl)
+            h2 = _apply_norm(p, cfg, x, "norm2")
+            if spec.ff == "dense":
+                ff = _dense_ff(p["ff"], cfg, h2, tile=ff_tile, impl=impl)
+            else:
+                ff, aux = moe_mod.moe_forward(p["moe"], cfg, h2, impl=impl)
             if cfg.post_norms:
                 ff = _apply_norm(p, cfg, ff, "post2")
             x = x + ff
-    return x, new_cache
+    return x, new_cache, aux
 
 
 # ---------------------------------------------------------------------------
@@ -265,13 +278,13 @@ def layer_forward(p, cfg: ArchConfig, spec: LayerSpec, x, positions, cache,
 @dataclasses.dataclass(frozen=True)
 class StackOutputs:
     logits: Optional[torch.Tensor]
+    aux_loss: Optional[torch.Tensor] = None
     caches: Optional[List[Any]] = None
     hidden: Optional[torch.Tensor] = None
 
 
 def _cache_for(cfg: ArchConfig, spec: LayerSpec, batch: int, max_len: int,
                dtype, ring_local: bool, device, paged: bool = False):
-    _check_ported(cfg, spec)
     if spec.mixer == "rglru":
         return rglru_mod.make_rglru_state(cfg, batch, dtype, device=device)
     if spec.mixer == "ssd":
@@ -305,7 +318,6 @@ def make_paged_pool(cfg: ArchConfig, n_pages: int, page: int, dtype,
     hd]``, None on a recurrent layer (its state stays per request)."""
     out: List[Any] = []
     for spec in cfg.layers():
-        _check_ported(cfg, spec)
         out.append(attn_mod.make_paged_kv_pages(cfg, n_pages, page, dtype,
                                                 device=device)
                    if spec.mixer in ("attn", "local_attn") else None)
@@ -349,8 +361,9 @@ def forward(
     chunked: bool = False,
     pool: Optional[List[Any]] = None,
     page_table: Optional[torch.Tensor] = None,
+    patch_embeds: Optional[torch.Tensor] = None,
 ) -> StackOutputs:
-    """tokens [B, S] -> logits [B, S, Vpad].
+    """tokens [B, S] -> logits [B, S(+P), Vpad].
 
     ``decode=True``: S must be 1 and ``caches`` supplied (positions come from
     the caches). ``chunked=True``: the tokens are one chunk of a prefill at
@@ -362,6 +375,9 @@ def forward(
     (the request's ``[n_pt]`` int32 table) run the attention layers over
     the paged pool: ``caches`` then come from ``make_caches(paged=True)``
     (batch 1), and only the decode and chunk paths take them.
+    ``patch_embeds`` [B, P, 1024] (a vision model's frontend stub) are
+    projected by ``vit_proj`` and prepended to the token embeddings, so the
+    sequence is P + S long. ``aux_loss`` sums the layers' MoE aux losses.
     """
     if pool is not None and not (decode or chunked):
         raise ValueError("a paged request prefills through chunks "
@@ -373,27 +389,37 @@ def forward(
     x = params["embed"][tokens]
     if cfg.scale_embeddings:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
+    if patch_embeds is not None:
+        vp, pdt = params["vit_proj"], patch_embeds.dtype
+        pe = torch.matmul(patch_embeds, vp["w"].to(pdt)) + vp["b"].to(pdt)
+        x = torch.cat([pe.to(x.dtype), x], dim=1)
+        s = x.shape[1]
     positions = (start_pos + torch.arange(s, device=tokens.device))[None, :]
     positions = positions.expand(b, s)
 
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     new_caches: Optional[List[Any]] = [] if caches is not None else None
     for li, spec in enumerate(cfg.layers()):
         lc = caches[li] if caches is not None else None
         if pool is not None:
             lc = _with_pool(lc, pool[li], page_table)
-        x, nc = layer_forward(params["layers"][li], cfg, spec, x, positions,
-                              lc, decode, tiles=tiles, impl=impl,
-                              chunk_start=chunk_start)
+        x, nc, aux = layer_forward(params["layers"][li], cfg, spec, x,
+                                   positions, lc, decode, tiles=tiles,
+                                   impl=impl, chunk_start=chunk_start)
+        if aux is not None:
+            aux_total = aux_total + aux
         if new_caches is not None:
             new_caches.append(caches[li] if pool is not None else nc)
 
     x = _apply_norm(params, cfg, x, "final_norm")
     if logits_mode == "hidden":
-        return StackOutputs(logits=None, caches=new_caches, hidden=x)
+        return StackOutputs(logits=None, aux_loss=aux_total,
+                            caches=new_caches, hidden=x)
     if logits_mode == "last":
         x = x[:, -1:]
     logits = _head(params, cfg, x)
-    return StackOutputs(logits=logits, caches=new_caches, hidden=x)
+    return StackOutputs(logits=logits, aux_loss=aux_total, caches=new_caches,
+                        hidden=x)
 
 
 def _head(params, cfg: ArchConfig, x):
@@ -439,8 +465,9 @@ def forward_packed(params, cfg: ArchConfig, tokens: torch.Tensor, states,
         if pool is not None:
             lc = tuple(_with_pool(c, pool[li], tbl)
                        for c, tbl in zip(lc, page_tables))
-        x, _ = layer_forward(params["layers"][li], cfg, spec, x, positions,
-                             lc, tiles=tiles, impl=impl, pack_layout=layout)
+        x, _, _ = layer_forward(params["layers"][li], cfg, spec, x,
+                                positions, lc, tiles=tiles, impl=impl,
+                                pack_layout=layout)
     x = _apply_norm(params, cfg, x, "final_norm")
     ends = torch.tensor([sum(ln for _, ln in layout[:i + 1]) - 1
                          for i in range(len(layout))], device=x.device)

@@ -4,7 +4,12 @@ The unchunked engine of ``repro/serve/engine.py``: a fixed decode batch of
 ``slots``; each admitted request runs its whole prefill into its own cache
 (batch 1), then every step decodes one token for every active slot. Greedy
 sampling over the real (unpadded) vocabulary. Admission is delegated to a
-scheduler (FIFO by default, or the shape-bucketed one).
+scheduler (FIFO by default, or the shape-bucketed one). Requests are
+tokens: a vision model's requests are its text (no patch embeddings), as
+in the reference, and an encoder-decoder model, whose requests need
+encoder frames, is refused with a ``NotImplementedError`` where the
+reference fails on the missing ``frames`` key. MoE models are served like
+any other decoder, in every mode.
 
 Each slot owns static tensors for its whole life: its per-layer caches (KV
 caches, rings on the windowed layers of a windowed arch; the conv tails
@@ -214,6 +219,11 @@ class ServeEngine:
                  tracer=None,
                  instance: Optional[str] = None,
                  device=None):
+        if api.is_encdec(cfg):
+            raise NotImplementedError(
+                f"{cfg.name} is an encoder-decoder model: its requests need "
+                "encoder frames, and the engine takes tokens only; serve it "
+                "through api.prefill (with 'frames') and api.decode_step")
         self.device = resolve_device(device)
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"params live on {params['embed'].device}, the "

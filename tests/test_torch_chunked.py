@@ -343,6 +343,19 @@ def test_chunked_engine_matches_reference(model):
         cfg_t.name != "mamba2-2.7b")
 
 
+def test_chunked_moe_engine_matches_reference():
+    """deepseek-moe-16b smoke: each chunk routes its own tokens, capacity
+    counted over the chunk as in the JAX engine."""
+    cfg_j = jax_configs.get_smoke("deepseek-moe-16b")
+    cfg_t = configs.get_smoke("deepseek-moe-16b")
+    pj = jax.jit(jax_api.init_params, static_argnums=0)(
+        cfg_j, jax.random.PRNGKey(0))
+    pt = params_from_jax(cfg_t, jax.tree.map(np.asarray, pj), device="cpu")
+    eng = serve_both((cfg_j, cfg_t, pj, pt), packed=False,
+                     trace=_trace(cfg_t))
+    assert max(eng.metrics.chunks_per_prefill) > 1
+
+
 def test_overflow_prompt_is_served_by_chunking(model):
     """A prompt past the largest edge is admitted at an edge multiple and
     chunked, in both engines alike."""

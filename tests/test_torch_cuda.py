@@ -1258,3 +1258,130 @@ def test_shadow_measure_leaves_memory_flat(dev):
     torch.cuda.synchronize()
     assert abs(torch.cuda.memory_allocated() - first) <= 1 << 20
     assert len(measure.timers) == 3
+
+
+# ---------------------------------------------------------------------------
+# The MoE, encoder-decoder and vision models
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "qwen3-moe-235b-a22b"])
+def test_captured_moe_decode_replays_the_eager_step(dev, arch):
+    """An MoE decode step (router, top-k, the stable sort, the gather
+    dispatch and combine) captured in a CUDA graph replays the eager
+    step's logits exactly: nothing in it reads back to the host."""
+    cfg = configs.get_smoke(arch)
+    params = api.init_params(cfg, 0, device="cuda")
+    prompt = (np.arange(3, 14) * 7) % cfg.vocab_size
+    _, eager = api.prefill(params, cfg, {"tokens": prompt[None]}, max_len=32)
+    _, graphed = api.prefill(params, cfg, {"tokens": prompt[None]}, max_len=32)
+    tok = torch.full((1, 1), 5, dtype=torch.long, device="cuda")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):          # warm-up: what capture needs
+        scratch = [{k: t.clone() for k, t in c.items()} for c in graphed]
+        api.decode_step(params, cfg, tok, scratch)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        out, _ = api.decode_step(params, cfg, tok, graphed)
+    for step in range(3):
+        tok.fill_(11 + step)
+        want, _ = api.decode_step(params, cfg, tok, eager)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, want), step
+    assert all(int(c["pos"]) == len(prompt) + 3 for c in graphed)
+
+
+@pytest.mark.parametrize("dtype,rtol", DTYPES)
+@pytest.mark.parametrize("hq,hkv,sq,skv,d,causal", [
+    (16, 16, 600, 600, 128, True),       # deepseek-moe-16b: MHA
+    (64, 4, 600, 600, 128, True),        # qwen3-moe: ratio 16
+    (32, 32, 1500, 1500, 64, False),     # whisper's encoder
+    (32, 32, 64, 1500, 64, False),       # whisper's cross-attention
+    (32, 32, 1, 1500, 64, False),        # a decode step's cross-attention
+])
+def test_flash_attention_at_the_moe_and_whisper_shapes(dev, dtype, rtol, hq,
+                                                       hkv, sq, skv, d,
+                                                       causal):
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device="cuda").manual_seed(sq + skv)
+    q = torch.randn((1, hq, sq, d), generator=g, device="cuda").to(dt)
+    k = torch.randn((1, hkv, skv, d), generator=g, device="cuda").to(dt)
+    v = torch.randn((1, hkv, skv, d), generator=g, device="cuda").to(dt)
+    _close(flash_attention(q, k, v, causal=causal),
+           flash_attention_ref(q, k, v, causal=causal), rtol)
+
+
+@pytest.mark.parametrize("dtype,rtol", DTYPES)
+@pytest.mark.parametrize("hq,hkv,d,pos", [(16, 16, 128, 611),
+                                          (32, 32, 64, 79),
+                                          (64, 4, 128, 607),
+                                          (32, 32, 64, 1499)])
+def test_flash_decode_at_the_moe_and_whisper_ratios(dev, dtype, rtol, hq, hkv,
+                                                    d, pos):
+    dt = getattr(torch, dtype)
+    s = 1500 if pos == 1499 else 1024
+    g = torch.Generator(device="cuda").manual_seed(pos)
+    q = torch.randn((1, hq, d), generator=g, device="cuda").to(dt)
+    k = torch.randn((1, hkv, s, d), generator=g, device="cuda").to(dt)
+    v = torch.randn((1, hkv, s, d), generator=g, device="cuda").to(dt)
+    pos_t = torch.full((), pos, dtype=torch.int32, device="cuda")
+    _close(flash_decode(q, k, v, pos=pos_t), flash_decode_ref(q, k, v, pos=pos),
+           rtol)
+
+
+def test_whisper_cross_attention_through_the_kernel(dev):
+    """whisper's smoke model on the card: the encoder, the decoder prefill
+    (cross-attention Sq != Skv, non-causal) and decode steps through the
+    kernels against the plain versions, and the launches they made."""
+    from repro_torch.models import encdec
+
+    cfg = configs.get_smoke("whisper-large-v3")
+    params = api.init_params(cfg, 0, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(3)
+    frames = torch.randn((2, cfg.encoder.seq_len, cfg.d_model), generator=g,
+                         device="cuda")
+    toks = torch.randint(2, cfg.vocab_size, (2, 7), generator=g, device="cuda")
+    batch = {"tokens": toks, "frames": frames}
+    build.reset_launches()
+    with torch.inference_mode():
+        _close(encdec.encode(params, cfg, frames),
+               encdec.encode(params, cfg, frames, impl="reference"), 2e-5)
+        lk, sk = api.prefill(params, cfg, batch, max_len=16)
+        lr, sr = api.prefill(params, cfg, batch, max_len=16, impl="reference")
+        _close(lk, lr, 2e-5)
+        for _ in range(3):
+            tok = torch.argmax(lr[:, :cfg.vocab_size], -1, keepdim=True)
+            lk, sk = api.decode_step(params, cfg, tok, sk)
+            lr, sr = api.decode_step(params, cfg, tok, sr, impl="reference")
+            _close(lk, lr, 2e-5)
+    n_enc, n_dec = cfg.encoder.n_layers, cfg.n_layers
+    assert build.LAUNCHES["flash_attention"] == 2 * n_enc + 2 * n_dec
+    assert build.LAUNCHES["flash_decode"] == 3 * 2 * n_dec
+
+
+def test_moe_engine_serves_the_plain_tokens_through_the_kernels(dev):
+    """deepseek-moe-16b smoke through the captured engine: matmul (dense
+    layer, shared experts), flash_attention and flash_decode launch, and
+    the tokens are the plain path's or differ at a near tie."""
+    cfg = configs.get_smoke("deepseek-moe-16b")
+    params = api.init_params(cfg, 0, device="cuda")
+    prompts = [(np.arange(2, 2 + n) * 5) % cfg.vocab_size for n in (7, 19, 4)]
+    build.reset_launches()
+    eng = ServeEngine(cfg, params, max_len=48, slots=2, device="cuda")
+    rids = [eng.add_request(p, max_new_tokens=8) for p in prompts]
+    done = {r.rid: r.out_tokens for r in eng.run_until_done()}
+    for name in ("matmul", "flash_attention", "flash_decode"):
+        assert build.LAUNCHES[name] > 0, name
+    for rid, p in zip(rids, prompts):
+        with torch.inference_mode():
+            logits, st = api.prefill(params, cfg, {"tokens": p[None]},
+                                     max_len=48, impl="reference")
+            want = [int(torch.argmax(logits[0, :cfg.vocab_size]))]
+            while len(want) < 8:
+                tok = torch.tensor([[want[-1]]], device="cuda")
+                logits, st = api.decode_step(params, cfg, tok, st,
+                                             impl="reference")
+                want.append(int(torch.argmax(logits[0, :cfg.vocab_size])))
+        _same_tokens_or_tie(params, cfg, p, done[rid], want)

@@ -240,7 +240,27 @@ def test_decode_with_a_tile_takes_the_chunked_reference():
                           for e in events)
 
 
-def test_unported_families_raise():
-    for name in ("deepseek-moe-16b", "whisper-large-v3"):
-        with pytest.raises(NotImplementedError):
-            api.init_params(configs.get_smoke(name), 0, device="cpu")
+@pytest.mark.parametrize("name", jax_configs.list_archs())
+def test_smoke_serve_every_family(name):
+    """Every config runs through the model API (``tests/test_configs_smoke.py
+    :test_smoke_serve``): finite logits of shape [B, padded_vocab] from
+    ``init_params``, ``prefill`` (frames for the encoder-decoder, patch
+    embeddings for the vision model) and one ``decode_step``."""
+    cfg = configs.get_smoke(name)
+    params = api.init_params(cfg, 1, device="cpu")
+    rng = np.random.default_rng(1)
+    b, s = 2, 16
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, size=(b, s))}
+    if api.is_encdec(cfg):
+        batch["frames"] = rng.standard_normal(
+            (b, cfg.encoder.seq_len, cfg.d_model)).astype(np.float32)
+    if api.is_vlm(cfg):
+        batch["patch_embeds"] = rng.standard_normal(
+            (b, cfg.encoder.seq_len, 1024)).astype(np.float32)
+    extra = cfg.encoder.seq_len if api.is_vlm(cfg) else 0
+    logits, state = api.prefill(params, cfg, batch, max_len=s + extra + 4)
+    assert tuple(logits.shape) == (b, cfg.padded_vocab)
+    logits2, state = api.decode_step(params, cfg, batch["tokens"][:, :1],
+                                     state)
+    assert tuple(logits2.shape) == (b, cfg.padded_vocab)
+    assert torch.isfinite(logits2).all()

@@ -204,6 +204,21 @@ def models(request):
 
 
 def test_packed_engine_matches_reference(models):
+    _packed_against_reference(models)
+
+
+def test_packed_moe_engine_matches_reference():
+    """deepseek-moe-16b smoke: a packed step routes the whole pack's tokens
+    together, capacity counted over the pack as in the JAX engine."""
+    cfg_j = jax_configs.get_smoke("deepseek-moe-16b")
+    cfg_t = configs.get_smoke("deepseek-moe-16b")
+    pj = jax.jit(jax_api.init_params, static_argnums=0)(
+        cfg_j, jax.random.PRNGKey(0))
+    pt = params_from_jax(cfg_t, jax.tree.map(np.asarray, pj), device="cpu")
+    _packed_against_reference((cfg_j, cfg_t, pj, pt))
+
+
+def _packed_against_reference(models):
     cfg_t = models[1]
     rng = np.random.default_rng(11)
     # Shorts that pack beside a long that chunks.

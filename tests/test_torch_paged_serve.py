@@ -149,8 +149,23 @@ def _jax_margin(models, tokens) -> float:
 
 @pytest.mark.parametrize("family", ["bimodal", "head_of_line"])
 def test_paged_matches_the_jax_paged_engine(family, models):
+    _against_jax(models, family, MODES)
+
+
+def test_paged_moe_matches_the_jax_paged_engine():
+    """deepseek-moe-16b smoke on the pool, chunked: its experts route each
+    chunk's tokens together, capacity counted as the JAX engine counts it."""
+    cfg_j = jax_configs.get_smoke("deepseek-moe-16b")
+    cfg_t = configs.get_smoke("deepseek-moe-16b")
+    pj = jax.jit(jax_api.init_params, static_argnums=0)(
+        cfg_j, jax.random.PRNGKey(0))
+    pt = params_from_jax(cfg_t, jax.tree.map(np.asarray, pj), device="cpu")
+    _against_jax((cfg_j, cfg_t, pj, pt), "bimodal", ("chunked",))
+
+
+def _against_jax(models, family, modes):
     trace = _trace(models[1], family, n=6)
-    for mode in MODES:
+    for mode in modes:
         eng_t = _engine(models, mode, paged=True)
         eng_j = _jax_engine(models, mode)
         got, _, stats_t = _serve(eng_t, trace)

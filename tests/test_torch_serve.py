@@ -4,8 +4,10 @@ The same prompts go through both engines (the qwen2 smoke config, the
 windowed gemma2 and h2o-danube smoke configs, whose local layers keep ring
 caches of 16 slots that the longer requests wrap, the attention-free
 mamba2 smoke config, whose SSD layers carry only a recurrent state, and the
-recurrentgemma one, RG-LRU layers beside local attention on 16-slot rings;
-the JAX parameters converted through numpy). Tokens must be equal wherever the
+recurrentgemma one, RG-LRU layers beside local attention on 16-slot rings,
+and the two MoE ones, deepseek-moe-16b with its dense first layer and shared
+experts and qwen3-moe-235b-a22b with renormalised gates and q/k norms; the
+JAX parameters converted through numpy). Tokens must be equal wherever the
 reference's top-2 logit margin exceeds the tolerance (1e-4, float32: a
 random-init smoke model can tie); after the first token where the margin is
 within it, the two streams may rightly part. Admission and rejection
@@ -33,7 +35,7 @@ TIMING_KEYS = ("ttft_s", "tpot_s")
 
 
 ARCHS = ["qwen2-1.5b", "gemma2-9b", "h2o-danube-1.8b", "mamba2-2.7b",
-         "recurrentgemma-9b"]
+         "recurrentgemma-9b", "deepseek-moe-16b", "qwen3-moe-235b-a22b"]
 
 
 @pytest.fixture(scope="module", params=ARCHS)
@@ -222,3 +224,44 @@ def test_launcher_serves_mamba2_on_cpu(capsys):
     out = capsys.readouterr().out
     assert "3 requests (0 rejected), 60 tokens" in out
     assert "'ssd': 0" in out
+
+
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "qwen3-moe-235b-a22b"])
+def test_launcher_serves_the_moe_archs_on_cpu(capsys, arch):
+    from repro_torch.launch import serve
+
+    serve.main(["--device", "cpu", "--arch", arch, "--requests", "3",
+                "--new-tokens", "4"])
+    out = capsys.readouterr().out
+    assert "3 requests (0 rejected), 12 tokens" in out
+    assert "'matmul': 0" in out      # the plain versions ran, no kernel
+
+
+def test_encoder_decoder_is_refused_by_the_engine_and_launcher():
+    """whisper's requests need encoder frames; the engine takes tokens. The
+    reference fails on the missing 'frames' key; the port says why."""
+    from repro_torch.launch import serve
+    from repro_torch.models import api
+
+    cfg = configs.get_smoke("whisper-large-v3")
+    params = api.init_params(cfg, 0, device="cpu")
+    for start in (lambda: ServeEngine(cfg, params, max_len=32, device="cpu"),
+                  lambda: serve.main(["--device", "cpu", "--arch",
+                                      "whisper-large-v3"])):
+        with pytest.raises(NotImplementedError, match="encoder frames"):
+            start()
+
+
+def test_vision_model_serves_its_text_as_the_reference():
+    """internvl2's requests are text in both engines (no patches)."""
+    cfg_j = jax_configs.get_smoke("internvl2-1b")
+    cfg_t = configs.get_smoke("internvl2-1b")
+    pj = jax.jit(jax_api.init_params, static_argnums=0)(
+        cfg_j, jax.random.PRNGKey(0))
+    pt = params_from_jax(cfg_t, jax.tree.map(np.asarray, pj), device="cpu")
+    rng = np.random.default_rng(3)
+    subs = [(rng.integers(2, cfg_t.vocab_size, size=n), 4) for n in (5, 9)]
+    _compare((cfg_j, cfg_t, pj, pt),
+             lambda: JaxEngine(cfg_j, pj, max_len=32, slots=2),
+             lambda: ServeEngine(cfg_t, pt, max_len=32, slots=2,
+                                 device="cpu"), subs)
