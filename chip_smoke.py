@@ -67,7 +67,10 @@ Phases, each of which fails the run if it fails:
    decode steps across a ring's wrap, against the plain versions;
 8. run the port's launcher (``python -m repro_torch.launch.serve``) at the
    smoke configs of qwen2-1.5b, gemma2-9b, h2o-danube-1.8b, mamba2-2.7b,
-   recurrentgemma-9b, deepseek-moe-16b and qwen3-moe-235b-a22b on the card;
+   recurrentgemma-9b, deepseek-moe-16b and qwen3-moe-235b-a22b on the card,
+   and qwen2-1.5b through the fleet: ``--fleet h100_sxm,gtx260`` on an
+   analytic plan of both (each instance's ``tile_fallback`` count printed)
+   and ``--fleet h100_sxm --autoscale``;
 9. compile tile plans with wall-clock timing on the card (the port's
    ``compile_plan`` with ``make_measure_fn``) over a bounded job set: the
    paper's bilinear family, the train_4k ssd, rglru and head_dim-256
@@ -171,6 +174,31 @@ Phases, each of which fails the run if it fails:
    patch embeddings and 64 text tokens, then 16 decode steps, against the
    plain versions.
 
+16. the fleet (after phase 14c, before phase 15): full-width qwen2-1.5b
+   (28 layers, float32, random weights from seed 0, shared by every
+   instance), phase 4's engine (4 slots, max_len 1024, captured decode)
+   with phase 4b's bucket edges, 12 requests (phase 4's six prompts and
+   six more of their lengths), 16 new tokens each, held against a
+   fault-free serve on one engine: (a) two instances under a
+   ``FaultScript``: "b" killed while it decodes with work queued, a fresh
+   engine joined under its name, "a" stalled while it decodes (the
+   watchdog evicts its work onto the new "b") and recovered; every fid
+   once, none lost, no slot of "a" recaptured and its slot tensors at
+   their addresses, matmul, flash_attention and flash_decode launched
+   after the kill, recovered requests' TTFT beside the others', and the
+   allocated bytes before the fleet, before and after the kill and after
+   the join (the joiner replaces the dead engine's memory); (b) the same
+   paged, "b" killed with slots decoding, a prefill in flight and one
+   waiting for a slot, every pool balanced; then a 768-token prefix donor
+   cancelled under a decoding recipient at page 64 (its tokens those of a
+   run without the donor); (c) one instance and a burst of 24 requests
+   under the autoscaler (candidates ``h100-1`` and ``h100-2``, both the
+   card's own model): a join, and a drain once idle, with the host ms of
+   the step that builds a joiner and of its first capture; (d)
+   ``roll_plans`` of phase 14b's refined artifact over two instances on
+   14b's plan, each behind a probe of phase 4's six requests: tokens held
+   and one recapture a slot for each ``set_plans``.
+
 ``--profile`` adds, after phase 5, where the time of one full-width qwen2
 request goes (prefill, eager decode, captured decode): wall time, device
 time by kernel group and the device's idle share; and the same for one
@@ -181,7 +209,8 @@ the serve of phase 15a (the replays of captured steps included; the line
 also gives their counts over phase 4's serve), bilinear
 over the compile of phase 9, ssd over the serve of phase 10 and rglru over
 the serve of phase 11, each reset to 0 just before its path and read just
-after; phase 4b reads its own counts over its two plan serves and fails
+after (phase 16 prints its own counts over the phase and after the kill,
+on lines before the kernels line); phase 4b reads its own counts over its two plan serves and fails
 unless each of the serving kernels ran, phase 9 fails unless its compile
 launched bilinear, ssd and rglru, and phase 13 sets the counts to 0 before
 each paged serve and fails unless matmul, flash_attention and flash_decode
@@ -3215,6 +3244,12 @@ def refine_serve(cfg, params, phase4):
             for t, s in cell.tiles.items()}
     refined = refiner.refine(plan)
     report = drift_report(refined)
+    # Both artifacts for phase 16d's rollout.
+    (ROOT / "build").mkdir(exist_ok=True)
+    plan_path = ROOT / "build" / "plan_14b.json"
+    refined_path = ROOT / "build" / "refined_14b.json"
+    plan.save(str(plan_path))
+    refined.save(str(refined_path))
     log(f"  drift report: {report['n_refined']} cell(s) re-ranked from "
         f"{report['shadow_samples']} samples")
     for cell in report["cells"]:
@@ -3247,7 +3282,8 @@ def refine_serve(cfg, params, phase4):
                 shadow_launches=shadow_launches, times=len(times),
                 inf_times=n_inf, mem_first=mem_first, mem_steady=mem_steady,
                 mem_last=mem_last, samples=samples, drift=report,
-                refined_differ=differ, no_shadow_s=base_s)
+                refined_differ=differ, no_shadow_s=base_s,
+                plan_path=str(plan_path), refined_path=str(refined_path))
 
 
 def run_examples():
@@ -3304,27 +3340,64 @@ LAUNCHER_KERNELS = {"qwen2-1.5b": ATTN_KERNELS, "gemma2-9b": ATTN_KERNELS,
                                             "flash_decode")}
 
 
+# Phase 8's fleet runs: the smoke serving cells' analytic plan for both
+# hardware models and its bucket edges; requests enough that the h100_sxm
+# instance queues and the gtx260 one steals, and the autoscaled burst.
+FLEET_PLAN_EDGES, FLEET_PLAN_MAX_LEN = (16, 32), 128
+LAUNCHER_REQUESTS = {"qwen2-1.5b --fleet": 12, "qwen2-1.5b --autoscale": 24}
+
+
+def _fleet_plan(path: Path) -> None:
+    """An analytic plan of the smoke serving cells for h100_sxm and
+    gtx260: the gtx260 instance's tiles (16 KB of shared memory) are not
+    the H100's, and those its calls cannot launch fall back."""
+    from repro_torch import kernels
+    from repro_torch.core import GTX260, H100_SXM, compile_plan, registry
+    from repro_torch.launch.compile_plans import serve_bucket_cells
+
+    kernels.register_all()
+    cells = serve_bucket_cells(["qwen2-1.5b"], FLEET_PLAN_EDGES, slots=4,
+                               max_len=FLEET_PLAN_MAX_LEN, smoke=True)
+    compile_plan([(k, p, "float32", hw) for k, p in cells
+                  for hw in (H100_SXM, GTX260)
+                  if k in registry.names()]).save(str(path))
+
+
 def run_launcher():
     """The launcher at the smoke configs of qwen2-1.5b (also chunked,
-    packed and paged), of the two windowed archs (ring caches; 20 new
+    packed and paged, and through the fleet: an h100_sxm and a gtx260
+    instance on an analytic plan of both, and an autoscaled one from one
+    h100_sxm instance), of the two windowed archs (ring caches; 20 new
     tokens wrap gemma2's and h2o-danube's 16-slot rings), of mamba2-2.7b
     (SSD states), of recurrentgemma-9b (RG-LRU states beside 16-slot
     rings) and of the two MoE archs, each in its own process."""
     env = dict(os.environ)
     env["PYTHONPATH"] = str(SRC) + (os.pathsep + env["PYTHONPATH"]
                                     if env.get("PYTHONPATH") else "")
+    (ROOT / "build").mkdir(exist_ok=True)
+    plan_path = ROOT / "build" / "fleet_plans.json"
+    _fleet_plan(plan_path)
     runs = {arch: ["--arch", arch] for arch in LAUNCHER_KERNELS}
     for mode in ("--chunk-prefill", "--pack-prefill"):
         runs[f"qwen2-1.5b {mode}"] = [mode, "--step-token-budget", "40",
                                       "--scheduler", "bucket"]
     runs["qwen2-1.5b --paged"] = ["--paged"]
+    edges = ",".join(map(str, FLEET_PLAN_EDGES))
+    runs["qwen2-1.5b --fleet"] = [
+        "--fleet", "h100_sxm,gtx260", "--scheduler", "bucket",
+        "--tile-plans", str(plan_path), "--bucket-policy", edges]
+    runs["qwen2-1.5b --autoscale"] = [
+        "--fleet", "h100_sxm", "--scheduler", "bucket", "--autoscale",
+        "--max-instances", "3"]
     procs = {name: subprocess.Popen(
         [sys.executable, "-m", "repro_torch.launch.serve", "--device", "cuda",
-         *args, "--requests", "4", "--new-tokens", "20"],
+         "--requests", str(LAUNCHER_REQUESTS.get(name, 4)),
+         "--new-tokens", "20", *args],
         cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
         text=True) for name, args in runs.items()}
     for name, proc in procs.items():
         arch = name.split()[0]
+        n = LAUNCHER_REQUESTS.get(name, 4)
         try:
             stdout, stderr = proc.communicate(timeout=300)
         except subprocess.TimeoutExpired:
@@ -3335,12 +3408,19 @@ def run_launcher():
         log(f"  --arch {name}\n  " + tail.replace("\n", "\n  "))
         check(proc.returncode == 0,
               f"launcher ({arch}) exited {proc.returncode}: {stderr[-2000:]}")
-        check("4 requests (0 rejected)" in stdout,
-              f"launcher ({arch}) did not serve its 4 requests")
+        check(f"{n} requests (0 rejected)" in stdout,
+              f"launcher ({name}) did not serve its {n} requests")
         for kernel in LAUNCHER_KERNELS[arch]:
             check(f"'{kernel}': 0" not in stdout,
                   f"launcher ({name}) never launched {kernel}")
-        if name != arch:
+        if name.endswith(("--fleet", "--autoscale")):
+            lines = [s for s in stdout.splitlines()
+                     if s.startswith(("instance ", "autoscale:", "  step ",
+                                      "placements:", "WARNING"))]
+            check("WARNING" not in stdout,
+                  f"launcher ({name}): the fleet did not drain")
+            log("  " + "\n  ".join(lines))
+        elif name != arch:
             check("chunked prefill:" in stdout,
                   f"launcher ({name}) printed no chunk metrics")
         if name.endswith("--paged"):
@@ -3862,6 +3942,490 @@ def internvl_phase():
 
 
 # ---------------------------------------------------------------------------
+# Phase 16: the fleet at full width
+# ---------------------------------------------------------------------------
+
+# 16a-b: two prompts of each of phase 4's lengths (phase 4's own six, and
+# six more from a seed), 16 new tokens each; the router's watchdog and
+# retry budget; and the scripted faults (router step, action, instance): a
+# kill of "b" while it decodes with work queued, a join of a fresh engine
+# under its name (the injector's kill recovered first, or the router would
+# find the new "b" dead too), a stall of "a" while it decodes (its work
+# evicted onto the new "b" once the watchdog sees no progress) and the
+# recover of "a".
+FLEET_NEW_TOKENS, FLEET_WATCHDOG, FLEET_RETRY_BUDGET = 16, 3, 2
+FLEET_SCRIPT = ((3, "kill", "b"), (4, "recover", "b"), (4, "join", "b"),
+                (8, "stall", "a"), (14, "recover", "a"))
+# 16b: a paged engine prefills through chunks, one a step: by step 6 "b"
+# holds slots decoding, a finished prefill waiting for a slot and one in
+# flight.
+PAGED_FLEET_SCRIPT = ((6, "kill", "b"), (7, "recover", "b"),
+                      (7, "join", "b"), (11, "stall", "a"),
+                      (17, "recover", "a"))
+# 16c: the autoscaler's candidates (both the card's own model: a candidate
+# named for another GPU would run tiles this card does not have) and its
+# policy over a burst of 24 requests.
+SCALE_CANDIDATES = ("h100-1", "h100-2")
+SCALE_POLICY = dict(min_instances=1, max_instances=3, interval=4, cooldown=1,
+                    queue_high=4.0, queue_low=0.0, low_evals=2)
+
+
+def _allocated(device):
+    """Bytes allocated on the card once the cycle collector has run (an
+    engine freed by it inside a window would read as negative growth)."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    if device != "cuda":
+        return 0
+    torch.cuda.synchronize()
+    return torch.cuda.memory_allocated()
+
+
+def _reserved(device):
+    """Bytes the caching allocator holds once its unused blocks are
+    returned: the live tensors and the captured graphs' pools."""
+    import torch
+
+    if device != "cuda":
+        return 0
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_reserved()
+
+
+class _FleetClock:
+    """The host clock less the time spent measuring between router steps,
+    so that a TTFT holds the fleet's own time and not the measurement's."""
+
+    def __init__(self):
+        self.paused = 0.0
+
+    def __call__(self) -> float:
+        return time.perf_counter() - self.paused
+
+
+def _fleet_engine(cfg, params, name, device="cuda", **kw):
+    """Phase 4's engine (4 slots, MAX_LEN, captured decode) with phase 4b's
+    bucket edges, named for the fleet: its captures counted per slot
+    (``eng.captures``) and each request's time to first token kept
+    (``eng.ttft_s``: from its submit, a recovered request's original one,
+    to its token's readback)."""
+    import torch
+
+    from repro_torch.serve import (BucketPolicy, ServeEngine,
+                                   ShapeBucketScheduler)
+
+    eng = ServeEngine(cfg, params, max_len=MAX_LEN, slots=4,
+                      dtype=torch.float32, device=device, instance=name,
+                      scheduler=ShapeBucketScheduler(BucketPolicy(
+                          PLAN_SERVE_EDGES, max_queue=64)), **kw)
+    eng.captures = _count_captures(eng)
+    eng.ttft_s = {}
+    metrics = eng.metrics
+    record = metrics.record_first_token
+
+    def stamp(rid, bucket, t=None):
+        now = metrics.clock() if t is None else t
+        submit = metrics.submit_time(rid)
+        if submit is not None:
+            eng.ttft_s[rid] = now - submit
+        record(rid, bucket, t=now)
+
+    metrics.record_first_token = stamp
+    return eng
+
+
+def _slot_ptrs(eng):
+    return [[t.data_ptr() for c in s.caches for t in c.values()]
+            + [s.token.data_ptr(), s.logits.data_ptr(),
+               s.next_token.data_ptr()]
+            + ([s.table.data_ptr()] if s.table is not None else [])
+            for s in eng._slots]
+
+
+def _fleet_router(cfg, params, names, device, injector=None,
+                  autoscaler=None, **kw):
+    """A router over ``_fleet_engine`` instances (``kw`` goes to each)."""
+    from repro_torch.serve import BucketPolicy, FleetRouter
+
+    return FleetRouter(
+        {n: _fleet_engine(cfg, params, n, device, **kw) for n in names},
+        BucketPolicy(PLAN_SERVE_EDGES, max_queue=64),
+        watchdog_threshold=FLEET_WATCHDOG, retry_budget=FLEET_RETRY_BUDGET,
+        injector=injector, autoscaler=autoscaler)
+
+
+def _hold_results(params, cfg, router, prompts, fids, want, label):
+    """Every fid once, none lost, each one's tokens held against the
+    fault-free serve's. Returns the streams that differ (at near-ties)."""
+    got = router.results()
+    check(sorted(got) == sorted(fids), f"{label}: results hold "
+          f"{len(got)} of {len(fids)} requests")
+    check(router.lost == 0, f"{label}: {router.lost} requests lost")
+    return sum(hold_tokens(params, cfg, p, got[f], w, f"{label} fid {f}")
+               for f, p, w in zip(fids, prompts, want))
+
+
+def fleet_faults(cfg, params, prompts, want, paged=False, device="cuda"):
+    """16a (16b with ``paged``): two instances "a" and "b" serve the prompts
+    through the router under the scripted kill, join, stall and recover.
+    Checks: every fid once and none lost, every token held against the
+    fault-free serve, "b" killed while it decodes with work queued (paged:
+    with a prefill in flight and one waiting for a slot), "a" stalled while
+    it decodes; no slot of "a" recaptured and its slot tensors at their
+    addresses across both evictions (each engine captures each slot at
+    most once); matmul, flash_attention and flash_decode launched after
+    the kill; the join replaces the dead engine's memory (after it and
+    after the run, the allocated bytes above the pre-kill level stay under
+    half of one engine's)."""
+    from repro_torch.kernels import build
+    from repro_torch.serve import FaultEvent, FaultInjector, FaultScript
+
+    label = "16b paged fleet" if paged else "16a fleet"
+    script = PAGED_FLEET_SCRIPT if paged else FLEET_SCRIPT
+    steps = {(action, name): step for step, action, name in script}
+    kill_step, join_step = steps["kill", "b"], steps["join", "b"]
+    stall_step, recover_step = steps["stall", "a"], steps["recover", "a"]
+
+    clock = _FleetClock()
+
+    def joiner():
+        return _fleet_engine(cfg, params, "b", device, paged=paged,
+                             clock=clock)
+
+    injector = FaultInjector(FaultScript([
+        FaultEvent(step, action, name,
+                   make_engine=joiner if action == "join" else None)
+        for step, action, name in script]))
+    mem, reserved = {}, {}
+
+    def measure(key):
+        t0 = time.perf_counter()
+        mem[key], reserved[key] = _allocated(device), _reserved(device)
+        clock.paused += time.perf_counter() - t0
+
+    measure("before")
+    router = _fleet_router(cfg, params, ("a", "b"), device, paged=paged,
+                           injector=injector, clock=clock)
+    a = router.engines["a"]
+    ptrs = _slot_ptrs(a)
+    fids = [router.route(p, max_new_tokens=FLEET_NEW_TOKENS).fid
+            for p in prompts]
+    fleet_s, states = 0.0, {}
+    for step in range(1, 1000):
+        if step == kill_step:
+            b = router.engines["b"]
+            states["b at the kill"] = dict(
+                decoding=sum(r is not None for r in b._active),
+                prefilling=len(b._chunking), ready=len(b._ready),
+                queued=b.scheduler.pending() + len(b._pool_wait))
+            del b
+            measure("pre_kill")
+        if step == stall_step:
+            states["a at the stall"] = dict(
+                decoding=sum(r is not None for r in a._active),
+                queued=a.scheduler.pending())
+        t0 = time.perf_counter()
+        pending = router.step_all()
+        fleet_s += time.perf_counter() - t0
+        if step == kill_step:
+            check(router.status["b"] == "dead", f"{label}: b not dead")
+            measure("after_kill")
+            at_kill = dict(build.LAUNCHES)
+        if step == join_step:
+            check(router.status["b"] == "live", f"{label}: b not joined")
+            measure("after_join")
+        if step == recover_step:
+            check(router.status["a"] == "live", f"{label}: a not live "
+                  f"after its recover ({router.status['a']})")
+        if not pending and not router.pending():
+            break
+    launches = {k: n - at_kill[k] for k, n in build.LAUNCHES.items()}
+    measure("end")
+    kill, stall = states["b at the kill"], states["a at the stall"]
+    check(kill["decoding"] > 0 and kill["queued"] + kill["ready"]
+          + kill["prefilling"] > 0, f"{label}: b at the kill {kill}")
+    if paged:
+        check(kill["prefilling"] > 0 and kill["ready"] > 0,
+              f"{label}: b at the kill {kill}")
+    check(stall["decoding"] > 0, f"{label}: a at the stall {stall}")
+    fleet = router.metrics()["fleet"]
+    check(fleet["recoveries"] > 0, f"{label}: nothing recovered")
+    differ = _hold_results(params, cfg, router, prompts, fids, want, label)
+    b = router.engines["b"]
+    if device == "cuda":         # the CPU runs the step eagerly
+        check(a.captures == [1] * a.slots,
+              f"{label}: captures per slot of a {a.captures}")
+        check(all(n <= 1 for n in b.captures),
+              f"{label}: captures per slot of the new b {b.captures}")
+    check(_slot_ptrs(a) == ptrs, f"{label}: a slot tensor of a moved")
+    for name in SERVE_KERNELS:
+        check(device != "cuda" or launches[name] > 0,
+              f"{label}: {name} never launched after the kill")
+    if paged:
+        for name, eng in router.engines.items():
+            _check_pool(eng, f"{label} {name}")
+    recovered, others = [], []
+    for fid, fr in router._fleet.items():
+        ttft = router.engines[fr.instance].ttft_s[fr.rid]
+        (recovered if fr.retries else others).append(ttft * 1e3)
+    engine_bytes = (mem["pre_kill"] - mem["before"]) / 2
+    growth = max(mem["after_join"], mem["end"]) - mem["pre_kill"]
+    if device == "cuda":
+        check(growth < engine_bytes / 2, f"{label}: {growth / 2**20:.1f} MiB"
+              f" above the pre-kill level after the join (one engine: "
+              f"{engine_bytes / 2**20:.1f} MiB)")
+    out = dict(fleet=fleet, states=states, launches_after_kill=launches,
+               captures={n: e.captures for n, e in router.engines.items()},
+               ttft_recovered_ms=sorted(recovered),
+               ttft_others_ms=sorted(others), fleet_s=fleet_s,
+               memory=mem, reserved=reserved, engine_bytes=engine_bytes,
+               differ=differ,
+               statuses=dict(router.status))
+    log(f"  {label}: {len(fids)} requests, {fleet['recoveries']} "
+        f"recoveries, {fleet['steals']} steals, {fleet['lost']} lost, "
+        f"{fleet['tokens_discarded']} tokens discarded, "
+        f"{fleet['instance_steps']} instance steps; b at the kill {kill}, "
+        f"a at the stall {stall}; {differ} token streams differ from the "
+        f"fault-free serve's (near-ties)")
+    log(f"  {label}: captures per slot {out['captures']}; launches after "
+        f"the kill { {k: launches[k] for k in SERVE_KERNELS} }")
+    log(f"  {label}: TTFT of the {len(recovered)} recovered requests "
+        f"{_stats_ms(recovered)}, of the other {len(others)} "
+        f"{_stats_ms(others)} (submit-anchored, host clock less the memory "
+        f"readings); fleet {fleet_s:.3f} s of steps")
+    log(f"  {label}: allocated {mem['before'] / 2**20:.1f} MiB before the "
+        f"fleet, {mem['pre_kill'] / 2**20:.1f} before the kill, "
+        f"{mem['after_kill'] / 2**20:.1f} after it, "
+        f"{mem['after_join'] / 2**20:.1f} after the join, "
+        f"{mem['end'] / 2**20:.1f} at the end (one engine "
+        f"{engine_bytes / 2**20:.1f}); reserved (graph pools included) "
+        f"{', '.join(f'{k} {v / 2**20:.1f}' for k, v in reserved.items())}"
+        f" MiB")
+    return out
+
+
+def _stats_ms(xs) -> str:
+    if not xs:
+        return "none"
+    return (f"median {statistics.median(xs):.1f} ms, max {max(xs):.1f} ms")
+
+
+def fleet_cancel_donor(cfg, params, device="cuda"):
+    """16b: one paged engine at page 64 (FIFO): a 768-token donor decodes,
+    a request of its 768 tokens and 32 more maps its pages, and the donor
+    is cancelled while that one decodes. The recipient's tokens equal a run
+    without the donor; the pool balances (allocs = frees)."""
+    import numpy as np
+
+    from repro_torch.serve import ServeEngine
+
+    rng = np.random.default_rng(16)
+    donor = rng.integers(2, cfg.vocab_size, size=PREFIX_DONOR)
+    recipient = np.concatenate([donor, rng.integers(2, cfg.vocab_size,
+                                                    size=PREFIX_TAIL)])
+
+    def run(with_donor):
+        import torch
+
+        eng = ServeEngine(cfg, params, max_len=MAX_LEN, slots=4,
+                          dtype=torch.float32, device=device, paged=True,
+                          page_size=PREFIX_PAGE)
+        if with_donor:
+            d = eng.add_request(donor, max_new_tokens=FLEET_NEW_TOKENS)
+            eng.step()                   # the donor prefills, registers
+            eng.step()                   # and decodes
+        r = eng.add_request(recipient, max_new_tokens=FLEET_NEW_TOKENS)
+        while not any(q is not None and q.rid == r for q in eng._active):
+            eng.step()
+        eng.step()                       # the recipient decodes
+        if with_donor:
+            check(eng.cancel(d) is not None, "16b: the donor was not here")
+        done = {q.rid: q.out_tokens for q in eng.run_until_done()}
+        check(r in done and (not with_donor or d not in done),
+              f"16b: finished {sorted(done)}")
+        return done[r], _check_pool(eng, f"16b donor={with_donor}")
+
+    got, pool = run(True)
+    want, _ = run(False)
+    check(pool["prefix_hits"] >= 1, "16b: the recipient mapped no prefix")
+    differ = hold_tokens(params, cfg, recipient, got, want,
+                         "16b recipient of a cancelled donor")
+    log(f"  16b cancel: a {PREFIX_DONOR}-token donor cancelled under its "
+        f"recipient ({pool['prefix_tokens_reused']} tokens reused, page "
+        f"{PREFIX_PAGE}): tokens {'differ at a near-tie' if differ else 'equal'}"
+        f" to a run without the donor; pool {pool['page_allocs']} allocs "
+        f"= {pool['page_frees']} frees")
+    return dict(pool=pool, differ=differ)
+
+
+def fleet_autoscale(cfg, params, prompts, want, device="cuda"):
+    """16c: one instance and a burst of the prompts twice over (24
+    requests); the autoscaler joins from SCALE_CANDIDATES while the queue
+    is deep and, once idle, drains back. Checks: at least one join and
+    one drain, nothing lost, every token held. Prints the decisions, and
+    the host ms of the step that builds a joiner and of the step in which
+    it first captures."""
+    from repro_torch.serve import AutoscalePolicy, ScaleCandidate
+
+    def make_engine(name):
+        return _fleet_engine(cfg, params, name, device)
+
+    scaler = AutoscalePolicy(
+        tuple(ScaleCandidate(name=c, hardware="h100_sxm",
+                             make_engine=make_engine)
+              for c in SCALE_CANDIDATES), **SCALE_POLICY)
+    router = _fleet_router(cfg, params, ("h100-0",), device,
+                           autoscaler=scaler)
+    burst = list(prompts) * 2
+    fids = [router.route(p, max_new_tokens=FLEET_NEW_TOKENS).fid
+            for p in burst]
+    step_ms, built, first_capture = [], {}, {}
+    for step in range(1, 2000):
+        known = set(router.engines)
+        t0 = time.perf_counter()
+        pending = router.step_all()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        for name in set(router.engines) - known:
+            built[name] = step
+        for name in built:
+            if name not in first_capture and sum(
+                    router.engines[name].captures):
+                first_capture[name] = step
+        idle = not pending and not router.pending()
+        if idle and any(d.action == "drain" for d in scaler.decisions):
+            break
+    actions = [d.action for d in scaler.decisions]
+    check("join" in actions and "drain" in actions,
+          f"16c: decisions {actions}")
+    differ = _hold_results(params, cfg, router, burst, fids, list(want) * 2,
+                           "16c autoscale")
+    log(f"  16c autoscale: {len(burst)} requests, decisions:")
+    for d in scaler.decisions:
+        log(f"    step {d.step}: {d.action} {d.instance} ({d.reason}; queue "
+            f"{d.signals['queue_depth']}, instances {d.signals['instances']})")
+    for name, step in sorted(built.items()):
+        cap = first_capture.get(name)
+        log(f"  16c: {name} built in step {step} ({step_ms[step - 1]:.1f} ms "
+            f"on the host clock), first captured in step {cap} "
+            f"({step_ms[cap - 1]:.1f} ms)" if cap else
+            f"  16c: {name} built in step {step} ({step_ms[step - 1]:.1f} "
+            f"ms), never captured")
+    med = statistics.median(step_ms)
+    log(f"  16c: {len(step_ms)} steps, median {med:.1f} ms; "
+        f"{router.metrics()['fleet']['instance_steps']} instance steps; "
+        f"final fleet {router.live_instances()}; {differ} token streams "
+        f"differ (near-ties)")
+    return dict(decisions=[d.as_dict() for d in scaler.decisions],
+                built=built, first_capture=first_capture,
+                build_ms={n: step_ms[s - 1] for n, s in built.items()},
+                capture_ms={n: step_ms[s - 1]
+                            for n, s in first_capture.items()},
+                median_step_ms=med, fleet=router.metrics()["fleet"],
+                differ=differ)
+
+
+def fleet_rollout(cfg, params, prompts, want, plan, refined, device="cuda"):
+    """16d: two instances on phase 14b's cost-model plan; ``roll_plans``
+    rolls 14b's refined artifact across them, each behind the p95-TTFT
+    guard of a probe that serves the prompts (phase 4's six) on that
+    instance. Then one more probe each. Checks: every probe's tokens held
+    against the fault-free serve, and each slot captured once at first and
+    once more for every ``set_plans`` (the swap, and a rollback's)."""
+    from repro_torch.core import H100_SXM
+
+    router = _fleet_router(cfg, params, ("a", "b"), device, plans=plan,
+                           hardware=H100_SXM)
+    swaps = {name: 0 for name in router.engines}
+    differ = 0
+
+    def count_swaps(name, eng):
+        real = eng.set_plans
+
+        def set_plans(p):
+            swaps[name] += 1
+            real(p)
+        eng.set_plans = set_plans
+
+    def probe(name):
+        nonlocal differ
+        eng = router.engines[name]
+        rids = [eng.add_request(p, max_new_tokens=FLEET_NEW_TOKENS)
+                for p in prompts]
+        done = {r.rid: r.out_tokens for r in eng.run_until_done()}
+        differ += sum(hold_tokens(params, cfg, p, done[r], w,
+                                  f"16d probe on {name}")
+                      for p, r, w in zip(prompts, rids, want))
+
+    for name, eng in router.engines.items():
+        count_swaps(name, eng)
+    decisions = router.roll_plans(refined, drive_fn=probe)
+    for name in sorted(router.engines):
+        probe(name)
+        eng = router.engines[name]
+        check(device != "cuda" or eng.captures == [1 + swaps[name]] * eng.slots,
+              f"16d: {name} captures per slot {eng.captures} after "
+              f"{swaps[name]} set_plans")
+    for d in decisions:
+        log(f"  16d roll {d.instance}: p95 TTFT {d.pre_p95 * 1e3:.1f} -> "
+            f"{d.post_p95 * 1e3:.1f} ms, rolled_back={d.rolled_back}, "
+            f"clipped={d.clipped}; set_plans {swaps[d.instance]}x, captures "
+            f"per slot {router.engines[d.instance].captures}")
+    return dict(decisions=[dict(instance=d.instance, pre_p95=d.pre_p95,
+                                post_p95=d.post_p95,
+                                rolled_back=d.rolled_back, clipped=d.clipped)
+                           for d in decisions], swaps=swaps, differ=differ)
+
+
+def fleet_phase(phase4, refine):
+    """Phase 16: full-width qwen2-1.5b (28 layers, float32, random weights
+    from seed 0), one set of weights shared by every instance: 16a-d."""
+    from repro_torch import configs
+
+    cfg = configs.get_arch("qwen2-1.5b")
+    params, _ = _init_full(cfg)
+    out = fleet_checks(cfg, params, phase4, refine)
+    del params
+    _allocated("cuda")
+    return out
+
+
+def fleet_checks(cfg, params, phase4, refine, device="cuda"):
+    """A fault-free serve of the 12 prompts on one engine, then 16a-d."""
+    import numpy as np
+
+    from repro_torch.core import TilePlan
+
+    rng = np.random.default_rng(16)
+    prompts = ([np.asarray(p) for p in phase4["prompts"]]
+               + [rng.integers(2, cfg.vocab_size, size=n)
+                  for n in phase4["prompt_lengths"]])
+    solo = _fleet_engine(cfg, params, "solo", device)
+    t0 = time.perf_counter()
+    rids = [solo.add_request(p, max_new_tokens=FLEET_NEW_TOKENS)
+            for p in prompts]
+    done = {r.rid: r.out_tokens for r in solo.run_until_done()}
+    solo_s = time.perf_counter() - t0
+    check(sorted(done) == sorted(rids), "16: the fault-free serve")
+    want = [done[r] for r in rids]
+    del solo
+    log(f"  fault-free serve of {len(prompts)} requests on one engine: "
+        f"{solo_s:.3f} s")
+    out = dict(fault_free_s=solo_s)
+    out["faults"] = fleet_faults(cfg, params, prompts, want, device=device)
+    out["paged"] = fleet_faults(cfg, params, prompts, want, paged=True,
+                                device=device)
+    out["cancel_donor"] = fleet_cancel_donor(cfg, params, device)
+    out["autoscale"] = fleet_autoscale(cfg, params, prompts, want, device)
+    out["rollout"] = fleet_rollout(
+        cfg, params, prompts[:6], want[:6], TilePlan.load(refine["plan_path"]),
+        TilePlan.load(refine["refined_path"]), device)
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 KERNEL_META = {
     "matmul": dict(
@@ -4121,6 +4685,20 @@ def main(argv=None) -> int:
             t0 = time.perf_counter()
             result["examples"] = run_examples()
             phase_done("examples", t0)
+
+            # 16. The fleet (before phase 15, whose 15a needs the card's
+            # memory to itself).
+            log("== 16: the fleet, full-width qwen2-1.5b (28 layers, "
+                "float32): two instances on one set of weights, killed, "
+                "stalled, joined, autoscaled and rolled onto 14b's plan")
+            t0 = time.perf_counter()
+            build.reset_launches()
+            result["fleet"] = fleet_phase(result["serve"],
+                                          result["refine_serve"])
+            result["fleet"]["launches"] = dict(build.LAUNCHES)
+            log(f"  launches over phase 16: "
+                f"{ {k: build.LAUNCHES[k] for k in SERVE_KERNELS} }")
+            phase_done("16 fleet", t0)
 
             # 15. The MoE, encoder-decoder and vision models.
             log("== 15a: serve full-width deepseek-moe-16b (28 layers, 64 "

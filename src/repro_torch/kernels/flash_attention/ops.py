@@ -296,6 +296,17 @@ def chunk_launch_tile(tile, chunk: int, hq: int, d: int, dtype):
         b for b in _flash.BQS if b != first) if (bq, bkv) in legal)
 
 
+def serve_launch_tile(tile, problem: Mapping[str, int],
+                      dtype: str) -> TileShape:
+    """A ``chunked_prefill`` / ``packed_prefill`` tile with the bkv its
+    calls launch (``chunk_launch_tile``'s snap): the tile the cost model
+    can price where the one named is no candidate (the reference's default
+    bkv of min(512, skv) is one the regime may not compile)."""
+    rows = min(int(tile[0]), problem["sq"])
+    _, bkv = chunk_launch_tile(tile, rows, problem["hq"], problem["d"], dtype)
+    return TileShape((int(tile[0]), bkv))
+
+
 def _serve_constraints(rows: int, problem: Mapping[str, int]) -> TileConstraints:
     # dim 0 = chunk (or pack) tokens, held at the reference's default: the
     # H100 charges nothing for its length (module docstring); dim 1 = bkv,
@@ -447,4 +458,5 @@ KV_PAGE_SPEC = registry.register(registry.KernelSpec(
 __all__ = ["CHUNKED_SPEC", "DECODE_SPEC", "FLASH_SPEC", "KV_PAGE_SPEC",
            "PACKED_SPEC", "PACK_ROUND_SEGS", "page_bytes",
            "attention_dense_ref", "chunk_bq", "chunk_launch_tile",
-           "flash_attention", "flash_attention_ref", "flash_decode"]
+           "flash_attention", "flash_attention_ref", "flash_decode",
+           "serve_launch_tile"]

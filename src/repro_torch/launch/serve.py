@@ -21,6 +21,10 @@
         --tile-plans p.json --hardware gtx260 --refine --shadow-fraction 1 \
         --refine-out refined.json --trace-out trace.jsonl
     PYTHONPATH=src python -m repro_torch.launch.trace_report trace.jsonl
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --fleet h100_sxm,gtx260 --scheduler bucket
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --fleet h100_sxm --scheduler bucket --autoscale
 
 Mirrors the single-engine path of ``repro/launch/serve.py``: it serves
 ``configs.get_smoke(arch)`` with random parameters from a fixed seed, the
@@ -54,14 +58,31 @@ model for the paper's GPUs), and at exit re-ranks the plan
 artifact to ``--refine-out`` and swaps the engine onto it.
 ``--trace-out`` writes the request-lifecycle and plan-audit trace (JSONL
 for a ``.jsonl`` path, else Chrome/Perfetto JSON) for ``python -m
-repro_torch.launch.trace_report``. The fleet (``--fleet``,
-``--autoscale``, ``roll_plans``) comes with a later slice.
+repro_torch.launch.trace_report``.
+
+``--fleet h100_sxm,gtx260`` (with ``--scheduler bucket``) serves through
+the hardware-aware :class:`~repro_torch.serve.fleet.FleetRouter`: one
+engine per listed hardware model, all on this process's device and
+sharing one parameter set, each request placed on the instance the cost
+model prices cheapest for its bucket (each engine's tiles resolve for its
+own hardware; a tile the card cannot launch falls back to the kernel's
+default and counts as ``tile_fallback``, printed per instance). The
+watchdog (``--watchdog-threshold``) and the retry budget
+(``--retry-budget``) are the router's. ``--autoscale`` starts from
+``--min-instances`` of the listed models and lets the
+:class:`~repro_torch.serve.autoscale.AutoscalePolicy` join and drain
+instances up to ``--max-instances``, every listed model a candidate; its
+decisions print at exit. A fleet that does not drain prints
+``FleetExhausted`` as a warning and reports what finished; with
+``--refine`` the refined artifact rolls across the fleet one instance at
+a time (``roll_plans``).
 """
 from __future__ import annotations
 
 import argparse
 import json
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -71,17 +92,20 @@ from repro_torch.core import HARDWARE_REGISTRY, TilePlan
 from repro_torch.kernels import build
 from repro_torch.models import api
 from repro_torch.obs import Tracer, write_jsonl, write_trace
-from repro_torch.serve import BucketPolicy, ServeEngine, make_scheduler
+from repro_torch.serve import (AutoscalePolicy, BucketPolicy,
+                               FleetExhausted, FleetRouter, ScaleCandidate,
+                               ServeEngine, make_scheduler)
 from repro_torch.serve.refine import PlanRefiner, drift_report
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
-def build_policy(spec: str, plans, hardware_name: str,
+def build_policy(spec: str, plans, hardware_name: Optional[str],
                  max_queue: int, allow_overflow: bool = False) -> BucketPolicy:
     """The bucket policy: parsed edges, or with ``"plan"`` the edges of the
-    plan's prefill cells on ``hardware_name``; ``allow_overflow`` admits a
-    prompt past the largest edge (chunked serving)."""
+    plan's prefill cells on ``hardware_name`` (None: on every hardware, the
+    union a fleet shares); ``allow_overflow`` admits a prompt past the
+    largest edge (chunked serving)."""
     if spec == "plan":
         if plans is None:
             raise SystemExit("--bucket-policy plan requires --tile-plans")
@@ -139,6 +163,26 @@ def main(argv=None):
                          "--chunk-prefill)")
     ap.add_argument("--no-prefix-sharing", action="store_true",
                     help="disable shared-prefix page reuse in --paged mode")
+    ap.add_argument("--fleet", default="",
+                    help="comma list of hardware models; serve through the "
+                         "fleet router with one engine per model "
+                         "(overrides --hardware; needs --scheduler bucket)")
+    ap.add_argument("--watchdog-threshold", type=int, default=8,
+                    help="fleet: consecutive no-progress steps before an "
+                         "instance is declared stalled and its work "
+                         "recovered onto survivors")
+    ap.add_argument("--retry-budget", type=int, default=2,
+                    help="fleet: recovery attempts per request before it "
+                         "is declared lost")
+    ap.add_argument("--autoscale", action="store_true",
+                    help="fleet: start with --min-instances of the --fleet "
+                         "models and let the telemetry-driven policy join/"
+                         "drain instances; every --fleet model is a scale "
+                         "candidate, priced by the live traffic mix")
+    ap.add_argument("--min-instances", type=int, default=1,
+                    help="autoscale: never drain below this many instances")
+    ap.add_argument("--max-instances", type=int, default=4,
+                    help="autoscale: never join above this many instances")
     ap.add_argument("--refine", action="store_true",
                     help="shadow-measure candidate tiles during service and "
                          "emit a refined (re-ranked) plan artifact at exit; "
@@ -172,26 +216,57 @@ def main(argv=None):
         refiner = PlanRefiner()
     # Wall clock, the launcher's timing.
     tracer = Tracer() if args.trace_out else None
+    fleet_names = [h for h in args.fleet.split(",") if h]
+    if fleet_names and args.scheduler != "bucket":
+        raise SystemExit("--fleet requires --scheduler bucket (routing is "
+                         "per shape bucket)")
+    if args.autoscale and not fleet_names:
+        raise SystemExit("--autoscale requires --fleet (the candidates come "
+                         "from its hardware list)")
     policy = None
     if args.scheduler == "bucket":
+        # A fleet shares one bucketing: "plan" edges from every hardware.
         policy = build_policy(
-            args.bucket_policy, plans, args.hardware, args.max_queue,
+            args.bucket_policy, plans,
+            None if fleet_names else args.hardware, args.max_queue,
             allow_overflow=(args.chunk_prefill or args.pack_prefill
                             or args.paged))
-    engine = ServeEngine(cfg, params, max_len=args.max_len, slots=args.slots,
-                         dtype=dtype, plans=plans,
-                         hardware=HARDWARE_REGISTRY[args.hardware],
-                         scheduler=make_scheduler(args.scheduler, policy),
-                         chunk_prefill=args.chunk_prefill,
-                         step_token_budget=args.step_token_budget,
-                         prefill_slots=args.prefill_slots,
-                         pack_prefill=args.pack_prefill,
-                         paged=args.paged,
-                         prefix_sharing=not args.no_prefix_sharing,
-                         shadow_fraction=(args.shadow_fraction if args.refine
-                                          else 0.0),
-                         refiner=refiner, tracer=tracer,
-                         instance=args.hardware, device=args.device)
+
+    def make_engine(hw_name: str, instance: Optional[str] = None):
+        return ServeEngine(
+            cfg, params, max_len=args.max_len, slots=args.slots, dtype=dtype,
+            plans=plans, hardware=HARDWARE_REGISTRY[hw_name],
+            scheduler=make_scheduler(args.scheduler, policy),
+            chunk_prefill=args.chunk_prefill,
+            step_token_budget=args.step_token_budget,
+            prefill_slots=args.prefill_slots, pack_prefill=args.pack_prefill,
+            paged=args.paged, prefix_sharing=not args.no_prefix_sharing,
+            shadow_fraction=args.shadow_fraction if args.refine else 0.0,
+            refiner=refiner, tracer=tracer, instance=instance or hw_name,
+            device=args.device)
+
+    router = engine = None
+    if fleet_names:
+        autoscaler = None
+        seed_names = fleet_names
+        if args.autoscale:
+            # Start small; every --fleet model is a candidate the policy
+            # may join (under its own name, suffixed on a re-join).
+            autoscaler = AutoscalePolicy(
+                tuple(ScaleCandidate(name=h, hardware=h,
+                                     make_engine=lambda name, hw=h:
+                                     make_engine(hw, instance=name))
+                      for h in fleet_names),
+                min_instances=args.min_instances,
+                max_instances=args.max_instances)
+            seed_names = fleet_names[:max(1, args.min_instances)]
+        router = FleetRouter({h: make_engine(h) for h in seed_names}, policy,
+                             tracer=tracer,
+                             watchdog_threshold=args.watchdog_threshold,
+                             retry_budget=args.retry_budget,
+                             autoscaler=autoscaler)
+    else:
+        engine = make_engine(args.hardware)
 
     build.reset_launches()
     rng = np.random.default_rng(0)
@@ -199,17 +274,57 @@ def main(argv=None):
     rejected = 0
     for _ in range(args.requests):
         prompt = rng.integers(2, cfg.vocab_size, size=rng.integers(4, 12))
-        rejected += engine.add_request(
-            prompt, max_new_tokens=args.new_tokens) is None
-    done = engine.run_until_done()
-    if engine.device.type == "cuda":
-        torch.cuda.synchronize(engine.device)
+        if router is not None:
+            ok = router.route(prompt, max_new_tokens=args.new_tokens)
+        else:
+            ok = engine.add_request(prompt, max_new_tokens=args.new_tokens)
+        rejected += ok is None
+    if router is not None:
+        try:
+            done_by = router.run_until_done()
+        except FleetExhausted as exc:
+            # Loud, never silent: a partial result set must not read as a
+            # complete run, but what did finish is still reported.
+            print(f"WARNING: {exc}")
+            done_by = {name: list(eng._finished)
+                       for name, eng in router.engines.items()}
+        done = [r for _, rs in sorted(done_by.items()) for r in rs]
+    else:
+        done = engine.run_until_done()
+    if torch.device(args.device).type == "cuda":
+        torch.cuda.synchronize(args.device)
     dt = time.perf_counter() - t0
-    for r in done:
-        print(f"req {r.rid}: {r.out_tokens}")
+    if router is not None:
+        for name, rs in sorted(done_by.items()):
+            for r in rs:
+                print(f"req {r.rid}@{name}: {r.out_tokens}")
+        print("placements:", {str(b): p for b, p in
+                              sorted(router.placements().items())})
+        for name, eng in sorted(router.engines.items()):
+            counts = eng.metrics.as_dict()["plan"]["counts"]
+            print(f"instance {name} ({eng.hardware.name}, "
+                  f"{router.status[name]}): "
+                  f"{len(eng._finished)} finished, tile_fallback "
+                  f"{counts.get('tile_fallback', 0)}")
+        metrics = router.metrics()
+        scale = metrics.get("autoscale")
+        if scale is not None:
+            print(f"autoscale: {scale['joins']} join(s), "
+                  f"{scale['drains']} drain(s) over "
+                  f"{scale['evaluations']} evaluation(s); final fleet: "
+                  f"{router.live_instances()}")
+            for entry in scale["log"]:
+                print(f"  step {entry['step']}: {entry['action']} "
+                      f"{entry['instance']} ({entry['reason']})")
+        where = f"{len(router.engines)} instance(s) on {args.device}"
+    else:
+        for r in done:
+            print(f"req {r.rid}: {r.out_tokens}")
+        metrics = engine.metrics.as_dict()
+        where = str(engine.device)
     toks = sum(len(r.out_tokens) for r in done)
     print(f"{len(done)} requests ({rejected} rejected), {toks} tokens in "
-          f"{dt:.2f}s ({toks / dt:.1f} tok/s) on {engine.device}")
+          f"{dt:.2f}s ({toks / dt:.1f} tok/s) on {where}")
     print(f"kernel launches: {dict(build.LAUNCHES)}")
     if refiner is not None:
         refine_trace = (tracer.attach("refiner", kind="refiner")
@@ -225,8 +340,15 @@ def main(argv=None):
         if args.refine_out:
             refined.save(args.refine_out)
             print(f"refined plan artifact -> {args.refine_out}")
-        engine.set_plans(refined)
-        print("engine rolled onto the refined artifact")
+        if router is not None:
+            # One instance at a time behind the p95-TTFT guard (unguarded
+            # here: the demo has no probe traffic).
+            for decision in router.roll_plans(refined):
+                print(f"rolled {decision.instance}: "
+                      f"rolled_back={decision.rolled_back}")
+        else:
+            engine.set_plans(refined)
+            print("engine rolled onto the refined artifact")
     if tracer is not None:
         if args.trace_out.endswith(".jsonl"):
             write_jsonl(tracer, args.trace_out)
@@ -236,8 +358,11 @@ def main(argv=None):
               f"open in ui.perfetto.dev or run python -m "
               f"repro_torch.launch.trace_report {args.trace_out})")
     if args.metrics_json:
-        print(json.dumps(engine.metrics.as_dict(), indent=1, sort_keys=True,
-                         default=str))
+        print(json.dumps(metrics, indent=1, sort_keys=True, default=str))
+    elif router is not None:
+        for name, eng in sorted(router.engines.items()):
+            print(f"--- {name}")
+            print(eng.metrics.render())
     else:
         print(engine.metrics.render())
 

@@ -118,6 +118,14 @@ there rather than score it with the cost model; CPU tests pass
 drops a graph of its own on operands of its own, so no slot's graph is
 recaptured and the tokens are the same with shadowing on or off; only
 ``set_plans`` (with the refined artifact) drops the slots' graphs.
+
+The fleet's hooks (``extract_queued``, ``evict_all``, ``cancel``;
+``serve/fleet.py``) are the reference's, with its return values: a
+request leaves with its tokens so far, its pages go back to the pool and
+its TTFT anchor onto the request. Where the reference drops a slot's state
+object, here an evicted slot keeps its tensors and its graph (the next
+request is copied into them and replays it), and a prefill's cache set
+goes back to the free list.
 """
 from __future__ import annotations
 
@@ -1301,6 +1309,105 @@ class ServeEngine:
         return (sum(r is not None for r in self._active)
                 + len(self._chunking) + len(self._ready) + len(self._held)
                 + len(self._pool_wait))
+
+    # -- eviction and handoff (the fleet's fault tolerance) -------------------
+    def _evict_state(self, req: Request) -> None:
+        """Tear down one request's bookkeeping: its pages released
+        (``missing_ok``: a queued, held or pool-waiting request never
+        registered), its decode cursor dropped, and its pending TTFT anchor
+        moved onto the request (the router re-anchors it on the next
+        engine). Cache sets and slots are the caller's."""
+        if self.paged:
+            self.pool.release(req.rid, missing_ok=True)
+            self._pos.pop(req.rid, None)
+        t = self.metrics.drop_submit(req.rid)
+        if t is not None:
+            req.submit_t = t
+
+    def extract_queued(self) -> List[Request]:
+        """Hand off every request that has not started prefilling: the
+        scheduler's queue (in its order), the deferred multi-chunk requests
+        and the pool-wait line. None holds a cache set, a slot or a page.
+        The caller queues them elsewhere (drain, work handoff)."""
+        out: List[Request] = []
+        while True:
+            req = self.scheduler.next_request()
+            if req is None:
+                break
+            out.append(req)
+        out.extend(self._held)
+        self._held.clear()
+        out.extend(self._pool_wait)
+        self._pool_wait.clear()
+        for req in out:
+            self._evict_state(req)
+        return out
+
+    def evict_all(self) -> List[Request]:
+        """Evict every request that has not finished (queued, prefilling,
+        ready or decoding) and return them with their tokens so far; the
+        fleet re-prefills them from their prompts elsewhere. Each cache set
+        goes back to the free list and each page to the pool. A decode
+        slot only loses its request: its tensors (caches, token, logits,
+        table) stay, since the slot's captured graph holds their addresses,
+        and the next request copied into them replays the same graph.
+        Finished requests stay in ``self._finished``."""
+        out = self.extract_queued()
+        for job in self._chunking:
+            self._release_job(job)
+            out.append(job.req)
+        self._chunking.clear()
+        for req, state, _ in self._ready:
+            self._evict_state(req)
+            self._free_sets.append(state)
+            out.append(req)
+        self._ready.clear()
+        for i, req in enumerate(self._active):
+            if req is not None:
+                self._evict_state(req)
+                self._active[i] = None
+                out.append(req)
+        return out
+
+    def _release_job(self, job: _ChunkJob) -> None:
+        """A prefill in flight leaves: its cache set (taken at its first
+        chunk) back to the free list, and its request's bookkeeping."""
+        self._evict_state(job.req)
+        if job.state is not None:
+            self._free_sets.append(job.state)
+
+    def cancel(self, rid: int) -> Optional[Request]:
+        """Remove one request wherever it is (queued, held, pool-waiting,
+        prefilling, ready or decoding), torn down as :meth:`evict_all`
+        tears down each. Returns it, or None when ``rid`` is not here
+        (finished, or never admitted)."""
+        remove = getattr(self.scheduler, "remove", None)
+        req = remove(rid) if remove is not None else None
+        for pen in (self._held, self._pool_wait):
+            if req is None:
+                req = next((r for r in pen if r.rid == rid), None)
+                if req is not None:
+                    pen.remove(req)
+        if req is not None:
+            self._evict_state(req)
+            return req
+        for job in self._chunking:
+            if job.req.rid == rid:
+                self._chunking.remove(job)
+                self._release_job(job)
+                return job.req
+        for i, (r, state, _) in enumerate(self._ready):
+            if r.rid == rid:
+                del self._ready[i]
+                self._free_sets.append(state)
+                self._evict_state(r)
+                return r
+        for i, r in enumerate(self._active):
+            if r is not None and r.rid == rid:
+                self._active[i] = None
+                self._evict_state(r)
+                return r
+        return None
 
     def run_until_done(self, max_steps: int = 1000) -> List[Request]:
         self._finished = []

@@ -46,8 +46,9 @@ speedup; a cell whose every sampled tile is infinite is not re-ranked.
 The refined entry's curve keeps the infinite points, and its sensitivity
 is taken over the finite ones.
 
-The fleet's versioned rollout (``FleetRouter.roll_plans``) comes with the
-fleet; a single engine swaps with ``set_plans``.
+A single engine swaps with ``set_plans``; a fleet rolls the refined
+artifact one instance at a time behind a p95-TTFT guard
+(``FleetRouter.roll_plans``, ``serve/fleet.py``).
 """
 from __future__ import annotations
 

@@ -1385,3 +1385,69 @@ def test_moe_engine_serves_the_plain_tokens_through_the_kernels(dev):
                                              impl="reference")
                 want.append(int(torch.argmax(logits[0, :cfg.vocab_size])))
         _same_tokens_or_tie(params, cfg, p, done[rid], want)
+
+
+# ---------------------------------------------------------------------------
+# The fleet: a kill and its recovery under captured graphs
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_fleet_kill_and_recover_serves_the_fault_free_tokens(dev, paged):
+    """Two captured engines, "a" and "b"; "b" is killed while it decodes
+    and its requests are re-prefilled on "a". Every request finishes once
+    with the tokens of a fault-free serve on one engine; no slot of the
+    survivor is recaptured and its slot tensors keep their addresses; the
+    kernels launch after the kill (the survivor's re-prefills and
+    replays)."""
+    from repro_torch.serve import (BucketPolicy, FaultEvent, FaultInjector,
+                                   FaultScript, FleetRouter,
+                                   ShapeBucketScheduler)
+
+    cfg = configs.get_smoke("qwen2-1.5b")
+    params = api.init_params(cfg, 0, device="cuda")
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(2, cfg.vocab_size, size=n) for n in
+               (5, 12, 7, 30, 9, 20)]
+    policy = BucketPolicy((8, 16, 32), max_queue=64)
+
+    def engine():
+        eng = ServeEngine(cfg, params, max_len=64, slots=2, device="cuda",
+                          scheduler=ShapeBucketScheduler(policy),
+                          paged=paged, page_size=8 if paged else None)
+        eng.captures = []
+        real = eng._capture
+        eng._capture = lambda slot: (eng.captures.append(slot), real(slot))
+        return eng
+
+    solo = engine()
+    rids = [solo.add_request(p, max_new_tokens=12) for p in prompts]
+    by_rid = {r.rid: r.out_tokens for r in solo.run_until_done()}
+    want = [by_rid[r] for r in rids]
+
+    router = FleetRouter({"a": engine(), "b": engine()}, policy,
+                         injector=FaultInjector(FaultScript(
+                             [FaultEvent(4, "kill", "b")])))
+    fids = [router.route(p, max_new_tokens=12).fid for p in prompts]
+    survivor = router.engines["a"]
+    for _ in range(3):
+        router.step_all()
+    assert any(r is not None for r in router.engines["b"]._active)
+    ptrs = [[t.data_ptr() for c in s.caches for t in c.values()]
+            + [s.token.data_ptr(), s.next_token.data_ptr()]
+            for s in survivor._slots]
+    build.reset_launches()
+    router.run_until_done(max_steps=500)
+    assert router.status["b"] == "dead" and router.recoveries >= 1
+    assert router.lost == 0
+    got = router.results()
+    assert sorted(got) == sorted(fids)
+    assert [got[f] for f in fids] == want
+    for name in ("matmul", "flash_attention", "flash_decode"):
+        assert build.LAUNCHES[name] > 0, name
+    assert len(survivor.captures) == survivor.slots
+    assert [[t.data_ptr() for c in s.caches for t in c.values()]
+            + [s.token.data_ptr(), s.next_token.data_ptr()]
+            for s in survivor._slots] == ptrs
+    if paged:
+        for eng in router.engines.values():
+            eng.pool.check_balanced()

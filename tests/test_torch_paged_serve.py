@@ -19,7 +19,7 @@ and against the JAX paged engine (``tests/test_serve_paged.py``'s suite).
 
 The engines serve the qwen2-1.5b smoke config, the JAX parameters converted
 through numpy. The fleet's cancel and eviction hooks
-(``tests/test_serve_paged.py``'s last tests) come with the fleet.
+(``tests/test_serve_paged.py``'s last tests) are in ``test_torch_evict.py``.
 """
 import pathlib
 import sys

@@ -21,7 +21,7 @@ the engine's shadow steps) on the CPU, against ``tests/test_refine.py``.
   tile its wrapper would not launch as given measures ``inf`` untimed,
   which the refiner's gate handles as the module's docstring says.
 
-The reference's four ``roll_plans`` tests come with the fleet. The plans
+The reference's four ``roll_plans`` tests are in ``test_torch_fleet.py``. The plans
 are the port's compiles of the smoke serving cells for the paper's GPUs
 (the JAX package's specs hold no tile of these cells within 16 KB of
 shared memory); where both engines run, both load the same saved artifact

@@ -5,7 +5,7 @@ the CPU, against the reference's (``tests/test_obs_trace.py``).
   JSONL round trips and the Perfetto metadata — and the same ``Tracer``
   calls made through both packages export byte-identical files.
 * ``ServeMetrics.ttft_window`` clipping (the ``roll_plans`` guard that
-  reads it comes with the fleet).
+  reads it is in ``test_torch_fleet.py``).
 * ``trace_report``: ``diff`` and the CLI give the reference's exit codes,
   and each package's report reads the other's files with the same summary.
 * The engine: two virtual-clock runs export byte-identical traces; tracing
