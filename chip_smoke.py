@@ -199,6 +199,33 @@ Phases, each of which fails the run if it fails:
    14b's plan, each behind a probe of phase 4's six requests: tokens held
    and one recapture a slot for each ``set_plans``.
 
+17. training (last, after phase 15's models are released): (a) gradients
+   through the matmul and flash-attention wrappers' autograd Functions
+   against the plain versions' on the same inputs, float32 and bf16 —
+   the matmul at full-width qwen2-1.5b's train FF (M = 4096 = 8 x 512, K
+   1536 / N 8960 and K 8960 / N 1536, so dB is a K = 4096 product) and an
+   unaligned plain-regime shape, three launches each (the forward, dA and
+   dB); flash_attention causal at S 512, D 128, 16 / 2 heads, windowed,
+   with softcap, at D 80, and whisper's non-causal 64 x 1500 at D 64, one
+   launch and one plain backward each — then the step's four GEMM shapes,
+   the attention forward at batch 8 and its plain backward (beside SDPA's)
+   timed; (b) full-width qwen2-1.5b (float32, seed 0), one batch of 8 x
+   512 tokens from the data pipeline: ``api.train_loss`` and backward
+   through the kernels against ``impl="reference"``, the loss within 1e-5,
+   every parameter's gradient set, non-zero and within 1e-3 of its leaf's
+   max, and one step's launches (336 matmul: 3 forward, 3 recomputed and 6
+   backward a layer; 56 flash_attention; 28 plain attention backwards);
+   (c) five ``make_train_step`` steps (AdamW, warmup-cosine): the losses
+   finite and falling, host ms a step, tokens/s, peak allocated bytes and
+   model FLOP/s (6 N tokens) against float32's 67 TFLOP/s, with
+   ``--profile`` a sixth step's device ms by group and idle share; (d)
+   ``Trainer.run`` on the 100M example config (200 steps of 8 x 256,
+   checkpoints every 50 in a temporary directory, removed after): the loss
+   falls by more than 1.0, a failure at step 120 restores step 100 and
+   ends at the uninterrupted run's loss within 1e-3, and the launcher
+   ``python -m repro_torch.launch.train --steps 20 --checkpoint-every 10
+   --fail-at 12`` exits 0 with one restart.
+
 ``--profile`` adds, after phase 5, where the time of one full-width qwen2
 request goes (prefill, eager decode, captured decode): wall time, device
 time by kernel group and the device's idle share; and the same for one
@@ -210,7 +237,8 @@ also gives their counts over phase 4's serve), bilinear
 over the compile of phase 9, ssd over the serve of phase 10 and rglru over
 the serve of phase 11, each reset to 0 just before its path and read just
 after (phase 16 prints its own counts over the phase and after the kill,
-on lines before the kernels line); phase 4b reads its own counts over its two plan serves and fails
+on lines before the kernels line; the matmul and flash_attention lines
+also give their counts over one train step of phase 17c); phase 4b reads its own counts over its two plan serves and fails
 unless each of the serving kernels ran, phase 9 fails unless its compile
 launched bilinear, ssd and rglru, and phase 13 sets the counts to 0 before
 each paged serve and fails unless matmul, flash_attention and flash_decode
@@ -226,6 +254,7 @@ from __future__ import annotations
 import argparse
 import itertools
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -4426,6 +4455,647 @@ def fleet_checks(cfg, params, phase4, refine, device="cuda"):
 
 
 # ---------------------------------------------------------------------------
+# Phase 17: training on the card
+# ---------------------------------------------------------------------------
+
+# 17b-c: full-width qwen2-1.5b at a global batch of 8 x 512 tokens.
+TRAIN_BATCH, TRAIN_SEQ = 8, 512
+# 17b: each gradient leaf, kernels against the plain versions, relative to
+# that leaf's max |plain gradient|: the forward's float32 sums run in
+# another order (the simt matmul) or through 3xTF32 (flash_attention,
+# ~2e-6 relative), and 28 layers of backward carry that on. Sound runs
+# reach ~8e-6; the plain path with TF32 products, run as a control, must
+# land above the limit, so a float32 product that lost precision fails.
+TRAIN_GRAD_TOL = 1e-4
+# 17c: the learning rate's peak (warmup-cosine over the five steps; the
+# first step's rate is 0).
+TRAIN_PEAK_LR = 3e-4
+# 17c: one step's launches with remat: the three FF GEMMs forward, again in
+# the recompute and six backward products a layer; the attention forward
+# twice and its plain backward once.
+TRAIN_STEP_LAUNCHES = {"matmul": 28 * 12, "flash_attention": 28 * 2,
+                       "flash_attention_bwd_plain": 28}
+# 17d: the 100M example, 200 steps at 8 x 256 tokens, checkpoints every 50
+# (keep 2), a failure injected at step 120; the replayed steps' losses and
+# the final parameters must equal the uninterrupted run's bit for bit (a
+# step is deterministic and the checkpoint holds params, moments and step).
+EXAMPLE_STEPS, EXAMPLE_FAIL_AT = 200, 120
+
+
+def eager_ms(fn, iters: int = 10, warmup: int = 2) -> float:
+    """Device ms per call of ``fn`` from CUDA events around ``iters`` eager
+    calls: for calls a CUDA graph does not take (an autograd backward), at
+    sizes whose kernels outlast their launches."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def _grad_case(fn, inputs, weight):
+    """(output, gradients) of ``sum(fn(*inputs) * weight)``."""
+    import torch
+
+    leaves = [t.detach().requires_grad_(True) for t in inputs]
+    out = fn(*leaves)
+    grads = torch.autograd.grad((out.float() * weight).sum(), leaves)
+    return out.detach(), grads
+
+
+def _train_randn(device, seed: int):
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def randn(shape, dtype=torch.float32, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=device)
+                * scale).to(dtype)
+    return randn
+
+
+def train_grad_checks(device="cuda"):
+    """17a: gradients through ``mm`` and ``flash_attention`` against the
+    plain versions' on the same inputs, at the train step's shapes, in
+    float32 and bf16, with each wrapper's launches (``device="cpu"``
+    rehearses the schedule on the plain versions)."""
+    import torch
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention,
+    )
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.kernels.matmul.ops import mm, regime
+    from repro_torch.kernels.matmul.ref import matmul_ref
+
+    on_card = torch.device(device).type == "cuda"
+    randn = _train_randn(device, 17)
+    rows = []
+
+    def hold(kernel, case, dname, pairs, launches, want):
+        """Each (name, out, plain) within REL_TOL of max |plain|."""
+        errs = {}
+        for name, out, ref in pairs:
+            err = max_err(out, ref)
+            errs[name] = err / max(1.0, float(ref.float().abs().max()))
+            check(within(err, ref, dname), f"{kernel} {case} {dname}: {name} "
+                  f"differs by {err:.3e} (max {float(ref.abs().max()):.3g})")
+        check(launches == (want if on_card else type(want)(0 * w for w in
+                                                            want)),
+              f"{kernel} {case}: launches {launches}, expected {want}")
+        rows.append(dict(kernel=kernel, case=case, dtype=dname,
+                         rel_err=errs, launches=launches))
+        log(f"  {kernel:16s} {case:40s} {dname:8s} " + ", ".join(
+            f"{k} {v:.2e}" for k, v in errs.items()) + f" | {launches}")
+
+    dtypes = (("float32", torch.float32), ("bfloat16", torch.bfloat16))
+    for dname, dt in dtypes:
+        for m, k, n in ((TRAIN_BATCH * TRAIN_SEQ, D_MODEL, D_FF),
+                        (TRAIN_BATCH * TRAIN_SEQ, D_FF, D_MODEL),
+                        (37, 70, 33)):
+            a, b = randn((m, k), dt), randn((k, n), dt, k ** -0.5)
+            w = randn((m, n))
+            build.reset_launches()
+            out, (da, db) = _grad_case(mm, (a, b), w)
+            launches = (build.LAUNCHES["matmul"],)
+            ref, (ra, rb) = _grad_case(matmul_ref, (a, b), w)
+            hold("matmul", f"grad m={m} k={k} n={n} "
+                 f"({regime(m, n, k, dt)})", dname,
+                 (("out", out, ref), ("dA", da, ra), ("dB", db, rb)),
+                 launches, (3,))
+        for b_, hq, hkv, s, skv, d, causal, window, cap in (
+                (2, HQ, HKV, TRAIN_SEQ, TRAIN_SEQ, HEAD_DIM, True, None, None),
+                (2, HQ, HKV, TRAIN_SEQ, TRAIN_SEQ, HEAD_DIM, True, 128, None),
+                (2, HQ, HKV, TRAIN_SEQ, TRAIN_SEQ, HEAD_DIM, True, None, 50.0),
+                (2, 32, 8, TRAIN_SEQ, TRAIN_SEQ, 80, True, None, None),
+                (1, 32, 32, 64, 1500, 64, False, None, None)):
+            q = randn((b_, hq, s, d), dt)
+            k_, v = randn((b_, hkv, skv, d), dt), randn((b_, hkv, skv, d), dt)
+            w = randn((b_, hq, s, d))
+            kw = dict(causal=causal, window=window, softcap=cap)
+            build.reset_launches()
+            out, grads = _grad_case(
+                lambda *t: flash_attention(*t, **kw), (q, k_, v), w)
+            launches = (build.LAUNCHES["flash_attention"],
+                        build.LAUNCHES["flash_attention_bwd_plain"])
+            ref, want = _grad_case(
+                lambda *t: flash_attention_ref(*t, **kw), (q, k_, v), w)
+            case = (f"grad b={b_} {hq}/{hkv} {s}x{skv} d={d}"
+                    + ("" if causal else " non-causal")
+                    + (f" window={window}" if window else "")
+                    + (f" softcap={cap:g}" if cap else ""))
+            hold("flash_attention", case, dname,
+                 (("out", out, ref),) + tuple(
+                     (name, g, r) for name, g, r in zip(("dq", "dk", "dv"),
+                                                         grads, want)),
+                 launches, (1, 1))
+    return rows
+
+
+def train_shape_times():
+    """17a: the train step's shapes timed, float32 (TF32 off) and bf16:
+    each of its four GEMM shapes (the forward's two, the weight gradients'
+    two) through the kernel, its plain version and torch.matmul; the
+    attention forward at batch 8, and its plain backward beside SDPA's."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention,
+    )
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.kernels.matmul.ops import mm, regime
+    from repro_torch.kernels.matmul.ref import matmul_ref
+
+    randn = _train_randn("cuda", 18)
+    dtypes = (("float32", torch.float32), ("bfloat16", torch.bfloat16))
+    timed = []
+    m = TRAIN_BATCH * TRAIN_SEQ
+    per_layer = {(m, D_MODEL, D_FF): "fwd w1,w3 (x4: +recompute); dA of w2",
+                 (m, D_FF, D_MODEL): "fwd w2 (x2: +recompute); dA of w1,w3",
+                 (D_MODEL, m, D_FF): "dB of w1, w3",
+                 (D_FF, m, D_MODEL): "dB of w2"}
+    for dname, dt in dtypes:
+        for (mm_, k, n), role in per_layer.items():
+            nb = (mm_ * k + k * n + mm_ * n) * (4 if dname == "float32" else 2)
+            t_b, by = bound(nb, 2.0 * mm_ * k * n, dname)
+            copies = [(randn((mm_, k), dt), randn((k, n), dt, k ** -0.5))
+                      for _ in range(copies_for(nb))]
+            row = dict(kernel="matmul", dtype=dname, role=role,
+                       shape=dict(m=mm_, k=k, n=n,
+                                  regime=regime(mm_, n, k, dt)),
+                       ms=time_ms([lambda x=x, y=y: mm(x, y)
+                                   for x, y in copies]),
+                       plain_ms=time_ms([lambda x=x, y=y: matmul_ref(x, y)
+                                         for x, y in copies]),
+                       library_ms=library_ms([lambda x=x, y=y: torch.matmul(
+                           x, y) for x, y in copies]),
+                       bound_ms=t_b, bound_by=by)
+            timed.append(row)
+            log(f"  matmul {dname:8s} m={mm_} k={k} n={n} ({role}): "
+                f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f}, "
+                f"torch.matmul {row['library_ms']}, bound {t_b:.4f} ({by})")
+        # The attention forward at the train shape, and its backward: the
+        # plain version's gradient (with its recompute, as the autograd
+        # Function runs it) beside SDPA's backward (its forward kept).
+        shape = (TRAIN_BATCH, HQ, TRAIN_SEQ, HEAD_DIM)
+        kv = (TRAIN_BATCH, HKV, TRAIN_SEQ, HEAD_DIM)
+        esize = 4 if dname == "float32" else 2
+        nb = (2 * TRAIN_BATCH * HQ + 2 * TRAIN_BATCH * HKV) * TRAIN_SEQ \
+            * HEAD_DIM * esize
+        pairs = TRAIN_BATCH * TRAIN_SEQ * (TRAIN_SEQ + 1) // 2
+        t_b, by = bound(nb, 4.0 * HEAD_DIM * HQ * pairs, TC_RATE[dname])
+        copies = [(randn(shape, dt), randn(kv, dt), randn(kv, dt))
+                  for _ in range(copies_for(nb))]
+
+        def sdpa(x, y, z):
+            return F.scaled_dot_product_attention(x, y, z, is_causal=True,
+                                                  enable_gqa=True)
+
+        row = dict(kernel="flash_attention", dtype=dname, role="forward",
+                   shape=dict(b=TRAIN_BATCH, hq=HQ, hkv=HKV, s=TRAIN_SEQ,
+                              d=HEAD_DIM),
+                   ms=time_ms([lambda x=x, y=y, z=z: flash_attention(
+                       x, y, z, causal=True) for x, y, z in copies]),
+                   plain_ms=time_ms([lambda x=x, y=y, z=z: flash_attention_ref(
+                       x, y, z, causal=True) for x, y, z in copies]),
+                   library_ms=library_ms([lambda x=x, y=y, z=z: sdpa(x, y, z)
+                                          for x, y, z in copies]),
+                   bound_ms=t_b, bound_by=by)
+        timed.append(row)
+        log(f"  flash_attention {dname:8s} forward b={TRAIN_BATCH} "
+            f"{HQ}/{HKV} s={TRAIN_SEQ}: {row['ms']:.4f} ms, plain "
+            f"{row['plain_ms']:.4f}, SDPA {row['library_ms']}, bound "
+            f"{t_b:.4f} ({by})")
+        q, k_, v = (t.detach().requires_grad_(True) for t in copies[0])
+        dout = randn(shape, dt)
+
+        def plain_bwd():
+            torch.autograd.grad(flash_attention_ref(q, k_, v, causal=True),
+                                (q, k_, v), dout)
+
+        # Five products of the forward's size (S, dP, dV, dQ, dK): q, k,
+        # v and dout read, dq, dk and dv written.
+        t_b, by = bound(2 * nb, 10.0 * HEAD_DIM * HQ * pairs, TC_RATE[dname])
+        lib = None
+        try:
+            out = sdpa(q, k_, v)
+            lib = eager_ms(lambda: torch.autograd.grad(
+                out, (q, k_, v), dout, retain_graph=True))
+        except (TypeError, RuntimeError) as exc:
+            log(f"  (SDPA backward not timed: {exc})")
+        row = dict(kernel="flash_attention", dtype=dname,
+                   role="backward (plain, with its recompute)",
+                   shape=dict(b=TRAIN_BATCH, hq=HQ, hkv=HKV, s=TRAIN_SEQ,
+                              d=HEAD_DIM),
+                   ms=eager_ms(plain_bwd), library_ms=lib, bound_ms=t_b,
+                   bound_by=by)
+        row["plain_ms"] = row["ms"]
+        timed.append(row)
+        log(f"  flash_attention {dname:8s} backward (plain, recompute "
+            f"included): {row['ms']:.4f} ms, SDPA backward {lib}, bound "
+            f"{t_b:.4f} ({by})")
+        del copies, q, k_, v
+    return timed
+
+
+def _step_launches(on_card: bool):
+    """One train step's launches: TRAIN_STEP_LAUNCHES on the card, none on
+    the CPU (the plain versions; the rehearsal)."""
+    return {k: v if on_card else 0 for k, v in TRAIN_STEP_LAUNCHES.items()}
+
+
+def _train_batch(cfg, batch: int, seq: int, step: int = 0):
+    from repro_torch.data.pipeline import DataConfig, make_batch
+
+    return make_batch(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                                 global_batch=batch), step)
+
+
+def train_parity(cfg, params):
+    """17b: one batch of full-width qwen2-1.5b through ``api.train_loss``
+    and its backward, the kernels against ``impl="reference"``: the loss
+    within 1e-5, every leaf's gradient set, non-zero and within
+    TRAIN_GRAD_TOL of its max |plain gradient|; the launches of one step.
+    A control runs the plain path again with TF32 products: its worst leaf
+    must exceed TRAIN_GRAD_TOL, or the limit could not tell a float32
+    product from a TF32 one."""
+    import torch
+
+    from repro_torch.kernels import build
+    from repro_torch.models import api
+
+    batch = _train_batch(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    leaves = list(_leaves(params))
+    on_card = leaves[0].is_cuda
+    out = {}
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    for run, impl in (("auto", "auto"), ("reference", "reference"),
+                      ("tf32", "reference")):
+        for p in leaves:
+            p.grad = None
+            p.requires_grad_(True)
+        build.reset_launches()
+        torch.backends.cuda.matmul.allow_tf32 = run == "tf32"
+        try:
+            t0 = time.perf_counter()
+            loss, _ = api.train_loss(params, cfg, batch, impl=impl)
+            loss.backward()
+            if on_card:
+                torch.cuda.synchronize()
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+        out[run] = dict(loss=float(loss.detach()), s=time.perf_counter() - t0,
+                        launches=dict(build.LAUNCHES),
+                        grads=[p.grad for p in leaves])
+    for p in leaves:
+        p.grad = None
+        p.requires_grad_(False)
+    k, r, c = out["auto"], out["reference"], out.pop("tf32")
+
+    def worst_leaf_rel(grads):
+        worst, worst_leaf = 0.0, None
+        for i, (g, ref) in enumerate(zip(grads, r["grads"])):
+            rel = float((g - ref).abs().max()) / float(ref.abs().max())
+            if rel > worst:
+                worst, worst_leaf = rel, i
+        return worst, worst_leaf
+
+    loss_rel = abs(k["loss"] - r["loss"]) / abs(r["loss"])
+    check(loss_rel <= 1e-5, f"train loss {k['loss']} vs plain {r['loss']}")
+    for i, g in enumerate(k["grads"]):
+        check(g is not None and bool(g.abs().max() > 0),
+              f"parameter {i} got no gradient through the kernels")
+    worst, worst_leaf = worst_leaf_rel(k["grads"])
+    check(worst <= TRAIN_GRAD_TOL, f"gradient leaf {worst_leaf} differs by "
+          f"{worst:.3e} x its max (tol {TRAIN_GRAD_TOL:g})")
+    control, control_leaf = worst_leaf_rel(c.pop("grads"))
+    if on_card:
+        check(control > TRAIN_GRAD_TOL, f"the TF32 control's worst leaf "
+              f"{control:.3e} x its max is within the limit "
+              f"{TRAIN_GRAD_TOL:g}: the limit cannot see lost precision")
+    launches = {name: k["launches"][name] for name in TRAIN_STEP_LAUNCHES}
+    check(launches == _step_launches(on_card), f"one train step launched "
+          f"{launches}, expected {TRAIN_STEP_LAUNCHES}")
+    check(all(r["launches"][name] == 0 for name in TRAIN_STEP_LAUNCHES),
+          f"the plain path launched kernels: {r['launches']}")
+    log(f"  loss {k['loss']:.6f} (plain {r['loss']:.6f}, rel {loss_rel:.2e});"
+        f" {len(leaves)} gradient leaves, all non-zero, worst {worst:.3e} x "
+        f"max (leaf {worst_leaf}, tol {TRAIN_GRAD_TOL:g}; the TF32 "
+        f"control {control:.3e}, leaf {control_leaf}); launches "
+        f"{launches}; first call {k['s']:.2f} s, plain {r['s']:.2f} s")
+    return dict(loss=k["loss"], plain_loss=r["loss"], loss_rel=loss_rel,
+                worst_grad_rel=worst, tf32_control_rel=control,
+                launches=launches)
+
+
+# 17c --profile: the ranges chip_smoke labels on a profiled step (each
+# shows on the device's timeline as an annotation spanning its kernels),
+# and the group each range's kernels go to.
+TRAIN_LABELS = {"train.matmul_forward": "matmul forward (+ recompute)",
+                "train.attention_backward": "attention backward (plain)",
+                "train.adamw": "adamw",
+                "train.head_loss": "head and loss (forward)"}
+
+
+def _train_groups(prof):
+    """Device ms of a profiled train step by group, and the device's busy
+    ms (the union of the kernels' intervals). A kernel that ran inside a
+    labelled range on the device's timeline (TRAIN_LABELS) goes to that
+    range's group; any other goes by its name: a matmul kernel outside a
+    forward range is a backward product (dA or dB), the flash-attention
+    kernel is the forward (a layer's recompute runs inside the backward,
+    so only the labels tell the two matmul passes apart), the rest are
+    the projections' and the head's cuBLAS products and other ops, their
+    backward included."""
+    import bisect
+
+    from torch.autograd import DeviceType
+
+    labels, kernels = [], []
+    for ev in prof.events():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        span = (ev.time_range.start, ev.time_range.end, ev.name)
+        if ev.name in TRAIN_LABELS:
+            labels.append(span)
+        elif not getattr(ev, "is_user_annotation", False):
+            kernels.append(span)
+    labels.sort()
+    starts = [start for start, _, _ in labels]
+    by_name = {"matmul": "matmul backward",
+               "flash_attention": "flash_attention forward (+ recompute)",
+               "torch.matmul (projections, head)":
+                   "torch.matmul (projections, head; backward included)",
+               "other torch ops": "other torch ops (backward included)"}
+    groups, busy_us, reach = {}, 0.0, None
+    for start, end, name in sorted(kernels):
+        i = bisect.bisect_right(starts, start) - 1
+        if i >= 0 and start < labels[i][1]:
+            group = TRAIN_LABELS[labels[i][2]]
+        else:
+            group = by_name.get(_kernel_group(name), _kernel_group(name))
+        groups[group] = groups.get(group, 0.0) + (end - start) / 1e3
+        if reach is None or start > reach:
+            busy_us += end - start
+            reach = end
+        elif end > reach:
+            busy_us += end - reach
+            reach = end
+    return groups, busy_us / 1e3
+
+
+def train_steps(cfg, params, profile: bool, steps: int = 5):
+    """17c: five steps of ``make_train_step`` (AdamW, weight decay 0.01;
+    warmup-cosine to TRAIN_PEAK_LR) on full-width qwen2-1.5b from 17b's parameters:
+    host ms a step (median of steps 2-5, each ending with its loss read
+    back), tokens/s, peak allocated bytes, model FLOP/s (6 N tokens a
+    step) against float32's 67 TFLOP/s, one step's launches; with
+    ``profile`` a sixth step's device ms by group and the idle share, and
+    the head and loss (forward and backward) timed alone."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+    from torch.profiler import record_function
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import flash_attention as fa_ops
+    from repro_torch.kernels.matmul import ops as mm_ops
+    from repro_torch.models import transformer
+    from repro_torch.optim import adamw
+    from repro_torch.optim.schedule import warmup_cosine
+    from repro_torch.train.step import make_train_step
+
+    n_params = sum(p.numel() for p in _leaves(params))
+    opt_cfg = adamw.AdamWConfig(weight_decay=0.01)
+    opt_state = adamw.init_state(params, opt_cfg)
+    step_fn = make_train_step(cfg, opt_cfg, lambda s: warmup_cosine(
+        s, peak_lr=TRAIN_PEAK_LR, warmup_steps=1, total_steps=steps))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    losses, times, launches = [], [], None
+    on_card = next(_leaves(params)).is_cuda
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    for i in range(steps):
+        batch = _train_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, step=i)
+        if i == 2:
+            build.reset_launches()
+        t0 = time.perf_counter()
+        params, opt_state, metrics = step_fn(params, opt_state, batch)
+        losses.append(float(metrics["loss"]))
+        times.append((time.perf_counter() - t0) * 1e3)
+        if i == 2:
+            launches = {k: build.LAUNCHES[k] for k in TRAIN_STEP_LAUNCHES}
+    peak = torch.cuda.max_memory_allocated() if on_card else 0
+    check(all(math.isfinite(x) for x in losses), f"losses {losses}")
+    check(losses[-1] < losses[0], f"the loss did not fall: {losses}")
+    check(launches == _step_launches(on_card),
+          f"step 3 launched {launches}, expected {TRAIN_STEP_LAUNCHES}")
+    step_ms = statistics.median(times[1:])
+    flops = 6.0 * n_params * tokens
+    out = dict(losses=losses, step_ms=times, median_step_ms=step_ms,
+               tokens_per_s=tokens / step_ms * 1e3, peak_allocated=peak,
+               model_tflops=flops / step_ms / 1e9,
+               model_flops_share=flops / step_ms * 1e3 / PEAK_FLOPS["float32"],
+               n_params=n_params, launches=launches)
+    log(f"  losses {', '.join(f'{x:.4f}' for x in losses)}; step ms "
+        f"{', '.join(f'{x:.1f}' for x in times)}; median (steps 2-5) "
+        f"{step_ms:.1f} ms = {out['tokens_per_s']:.0f} tokens/s; peak "
+        f"allocated {peak / 2**30:.2f} GiB; model {out['model_tflops']:.2f} "
+        f"TFLOP/s (6 N tokens, N = {n_params / 1e9:.3f} B) = "
+        f"{out['model_flops_share']:.3f} of float32's 67; launches of step 3 "
+        f"{launches}")
+    if profile:
+        real_update, real_loss = adamw.apply_updates, transformer.fused_lm_loss
+
+        def labelled(name, fn):
+            def call(*args, **kwargs):
+                with record_function(name):
+                    return fn(*args, **kwargs)
+            return call
+
+        # The matmul Function's forward and the attention Function's
+        # backward, labelled: a checkpointed layer's recompute runs inside
+        # the backward, so only the label tells the matmul's two passes
+        # apart.
+        real_fwd = mm_ops._MatmulFn.forward
+        real_bwd = fa_ops._FlashAttentionFn.backward
+        adamw.apply_updates = labelled("train.adamw", real_update)
+        transformer.fused_lm_loss = labelled("train.head_loss", real_loss)
+        mm_ops._MatmulFn.forward = staticmethod(
+            labelled("train.matmul_forward", real_fwd))
+        fa_ops._FlashAttentionFn.backward = staticmethod(
+            labelled("train.attention_backward", real_bwd))
+        try:
+            batch = _train_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, step=steps)
+            if on_card:
+                torch.cuda.synchronize()
+            with torch_profile(activities=[ProfilerActivity.CPU,
+                                           ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                params, opt_state, metrics = step_fn(params, opt_state, batch)
+                float(metrics["loss"])
+                wall = (time.perf_counter() - t0) * 1e3
+        finally:
+            adamw.apply_updates, transformer.fused_lm_loss = (real_update,
+                                                              real_loss)
+            mm_ops._MatmulFn.forward = staticmethod(real_fwd)
+            fa_ops._FlashAttentionFn.backward = staticmethod(real_bwd)
+        groups, busy = _train_groups(prof)
+        out["profile"] = dict(wall_ms=wall, by_group_ms=groups,
+                              kernel_sum_ms=sum(groups.values()),
+                              device_busy_ms=busy,
+                              device_idle_share=max(0.0, 1 - busy / wall)
+                              if busy else None)
+        log(f"  profiled step: wall {wall:.1f} ms, device busy {busy:.1f} ms "
+            f"(kernel times summed {sum(groups.values()):.1f} ms), idle "
+            f"share {out['profile']['device_idle_share']}")
+        for g, t in sorted(groups.items(), key=lambda kv: -kv[1]):
+            log(f"    {g:44s} {t:.3f} ms")
+        # The head product and cross-entropy, forward and backward, alone.
+        dev = params["embed"].device
+        hidden = torch.randn((TRAIN_BATCH, TRAIN_SEQ, cfg.d_model),
+                             device=dev).requires_grad_(True)
+        head = params["embed"].detach().t().requires_grad_(True)
+        targets = torch.as_tensor(batch["targets"], device=dev).long()
+        out["head_loss_ms"] = eager_ms(lambda: torch.autograd.grad(
+            transformer.fused_lm_loss(head, hidden, targets, cfg),
+            (head, hidden)), iters=5)
+        log(f"  head and loss, forward and backward alone: "
+            f"{out['head_loss_ms']:.2f} ms")
+    del opt_state
+    return out
+
+
+def train_example(tmp_dir: Path):
+    """17d: ``Trainer.run`` on the 100M example config: 200 steps at 8 x 256
+    tokens, checkpoints every 50 (keep 2); the loss falls by more than 1.0
+    (the example's own assertion); a run with a failure at step 120
+    restores step 100 and ends at the uninterrupted run's loss; then the
+    launcher on the smoke config with a failure at step 12."""
+    import torch
+
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.examples.train_lm import make_100m_config, n_params
+    from repro_torch.kernels import build
+    from repro_torch.optim import adamw
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    cfg = make_100m_config()
+    data_cfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=256,
+                          global_batch=8)
+
+    def run(name, fail_at=None):
+        tcfg = TrainerConfig(steps=EXAMPLE_STEPS, checkpoint_every=50,
+                             keep=2, checkpoint_dir=str(tmp_dir / name),
+                             peak_lr=3e-4, warmup_steps=20, log_every=50)
+        trainer = Trainer(cfg, data_cfg, tcfg, device="cuda",
+                          opt_cfg=adamw.AdamWConfig(weight_decay=0.01))
+        t0 = time.perf_counter()
+        res = trainer.run(fail_at=fail_at)
+        res["s"] = time.perf_counter() - t0
+        res["ckpts"] = trainer.ckpt.all_steps()
+        return res
+
+    build.reset_launches()
+    clean = run("clean")
+    launches = {k: build.LAUNCHES[k] for k in TRAIN_STEP_LAUNCHES}
+    first, last = clean["losses"][0], clean["losses"][-1]
+    check(last < first - 1.0, f"100M example: loss {first:.3f} -> "
+          f"{last:.3f}, not more than 1.0 lower")
+    check(clean["ckpts"] == [150, 200], f"kept {clean['ckpts']}")
+    check(all(launches[k] > 0 for k in launches), f"launches {launches}")
+    torch.cuda.empty_cache()
+    failed = run("failed", fail_at=EXAMPLE_FAIL_AT)
+    check(failed["restarts"] == 1, f"restarts {failed['restarts']}")
+    check(len(failed["losses"]) == EXAMPLE_STEPS + EXAMPLE_FAIL_AT - 100,
+          f"{len(failed['losses'])} steps taken with the restart")
+    replayed = EXAMPLE_STEPS - 100
+    check(failed["losses"][-replayed:] == clean["losses"][-replayed:],
+          f"restarted run's losses after step 100 differ from the "
+          f"uninterrupted run's (final {failed['losses'][-1]!r} vs {last!r})")
+    same_params = all(torch.equal(a, b) for a, b in zip(
+        _leaves(failed.pop("params")), _leaves(clean.pop("params"))))
+    check(same_params, "restarted run's final parameters differ from the "
+          "uninterrupted run's")
+    log(f"  {cfg.name} ({n_params(cfg) / 1e6:.0f}M parameters): loss "
+        f"{first:.3f} -> {last:.3f} over {EXAMPLE_STEPS} steps in "
+        f"{clean['s']:.1f} s ({clean['s'] / EXAMPLE_STEPS * 1e3:.1f} ms a "
+        f"step with checkpoints); kept {clean['ckpts']}; launches {launches}")
+    log(f"  failure at step {EXAMPLE_FAIL_AT}: restarts "
+        f"{failed['restarts']}, {len(failed['losses'])} steps, final loss "
+        f"{failed['losses'][-1]:.6f} vs {last:.6f}; the {replayed} losses "
+        f"after step 100 and the final parameters bit-identical; "
+        f"stragglers {failed['straggler_events']}")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+           "qwen2-1.5b", "--steps", "20", "--checkpoint-every", "10",
+           "--fail-at", "12", "--checkpoint-dir", str(tmp_dir / "launcher")]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, env=env,
+                          timeout=600, cwd=ROOT)
+    check(proc.returncode == 0 and "restarts: 1" in proc.stdout,
+          f"launcher: rc {proc.returncode}\n{proc.stdout[-2000:]}"
+          f"\n{proc.stderr[-2000:]}")
+    final = [line for line in proc.stdout.splitlines()
+             if line.startswith("final loss")]
+    log(f"  launcher ({' '.join(cmd[2:8])} --fail-at 12): "
+        f"{final[-1] if final else '?'} in {time.perf_counter() - t0:.1f} s")
+    return dict(first_loss=first, last_loss=last, clean_s=clean["s"],
+                restart_final_loss=failed["losses"][-1], restart_identical=True,
+                launches=launches, launcher=final[-1] if final else None)
+
+
+def train_phase(profile: bool):
+    """Phase 17 (after 15d): 17a kernel gradients, 17b-c full-width
+    qwen2-1.5b, 17d the 100M example and the launcher."""
+    import shutil
+    import tempfile
+
+    from repro_torch import configs
+
+    out = {}
+    log("== 17a: gradients through matmul and flash_attention against the "
+        "plain versions")
+    t0 = time.perf_counter()
+    out["grad_checks"] = train_grad_checks()
+    out["times"] = train_shape_times()
+    log(f"  [17a: {time.perf_counter() - t0:.1f} s]")
+    cfg = configs.get_arch("qwen2-1.5b")
+    _release()
+    params, _ = _init_full(cfg)
+    log(f"== 17b: full-width qwen2-1.5b, one batch of {TRAIN_BATCH} x "
+        f"{TRAIN_SEQ}: train_loss and backward, kernels vs plain versions")
+    t0 = time.perf_counter()
+    out["parity"] = train_parity(cfg, params)
+    log("== 17c: 5 train steps of full-width qwen2-1.5b (AdamW, "
+        "warmup-cosine)")
+    out["steps"] = train_steps(cfg, params, profile)
+    del params
+    _release()
+    log(f"  [17b-c: {time.perf_counter() - t0:.1f} s]")
+    log("== 17d: Trainer.run on the 100M example config, a restart, the "
+        "launcher")
+    t0 = time.perf_counter()
+    tmp_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
+    try:
+        out["example"] = train_example(tmp_dir)
+    finally:
+        shutil.rmtree(tmp_dir, ignore_errors=True)
+    log(f"  [17d: {time.perf_counter() - t0:.1f} s]")
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 KERNEL_META = {
     "matmul": dict(
@@ -4721,6 +5391,14 @@ def main(argv=None) -> int:
             result["internvl2"] = internvl_phase()
             phase_done("15d internvl2", t0)
 
+            # 17. Training (last: its full-width state needs the card's
+            # memory to itself).
+            log("== 17: training on the card: kernel gradients, full-width "
+                "qwen2-1.5b train steps, the 100M example and the launcher")
+            t0 = time.perf_counter()
+            result["train"] = train_phase(args.profile)
+            phase_done("17 train", t0)
+
             check("jax" not in sys.modules, "jax was imported")
             check(not any(m == "repro" or m.startswith("repro.")
                           for m in sys.modules), "the JAX package was imported")
@@ -4735,6 +5413,11 @@ def main(argv=None) -> int:
                               result["serve"]["launches"][name],
                               "deepseek-moe-16b serve (phase 15a)":
                               launches[name]} for name in SERVE_KERNELS}
+            # One full-width qwen2-1.5b train step (phase 17c), forward,
+            # recompute and backward.
+            for name in ("matmul", "flash_attention"):
+                by_path[name]["qwen2 train step (phase 17c)"] = \
+                    result["train"]["steps"]["launches"][name]
             line = kernels_line(rows, launches, by_path)
             result["kernels"] = line["kernels"]
         result["seconds"] = time.perf_counter() - t_start

@@ -105,6 +105,7 @@ def upscale(src: torch.Tensor, scale: int, tile=None) -> torch.Tensor:
         raise ValueError("scale must be a positive integer")
     if src.device.type == "cpu":
         return bilinear_upscale_ref(src, scale)
+    build.refuse_grad("bilinear", src)
     build.check_cuda_operands("bilinear", src)
     h, w = src.shape
     problem = dict(src_h=h, src_w=w, scale=scale)

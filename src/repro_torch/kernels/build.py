@@ -36,7 +36,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 # Kernel launches per wrapper: each wrapper adds one where it launches its
 # kernel on the card, and nowhere else (the plain CPU path does not count).
+# A backward that launches its kernel counts under the kernel's name; the
+# flash-attention backward, the plain version's gradient (the reference has
+# no backward kernel), counts apart under "flash_attention_bwd_plain".
 LAUNCHES: Dict[str, int] = {name: 0 for name in SOURCES}
+LAUNCHES["flash_attention_bwd_plain"] = 0
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -151,3 +155,18 @@ def check_cuda_operands(name: str, *tensors) -> None:
                             f"one dtype, got {[x.dtype for x in tensors]}")
         if not t.is_contiguous():
             raise ValueError(f"{name} needs contiguous operands")
+
+
+def refuse_grad(name: str, *tensors, why: str = "") -> None:
+    """Raise NotImplementedError where autograd would record a call of a
+    kernel that has no backward: its output would carry no history, and
+    every gradient upstream of it would silently be missing."""
+    import torch
+
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"{name} has no backward on the card: an input requires grad "
+            f"under grad mode{'; ' + why if why else ''}. Run it under "
+            "torch.no_grad(), or on CPU tensors (the plain version is "
+            "differentiable).")

@@ -170,6 +170,8 @@ def flash_decode(
         return flash_decode_ref(q, k, v, pos=pos, kv_pos=kv_pos, window=window,
                                 softcap=softcap, scale=scale,
                                 bkv=bkv if bkv is not None else 512)
+    build.refuse_grad("flash_decode", q, k, v,
+                      why="decoding is not on the train path")
     build.check_cuda_operands("flash_decode", q, k, v)
     if isinstance(pos, torch.Tensor):
         if (pos.device != q.device or pos.dtype != torch.int32

@@ -51,7 +51,8 @@ def flash_attention(
     ``tile`` is ``(bq, bkv)``, default the spec's Hopper tile. On the card
     it must be a tile of the dtype's regime (:func:`regime_tiles`); the last
     q and KV blocks are masked, so neither dim has to divide. On the CPU
-    ``bkv`` is the reference's KV chunk.
+    ``bkv`` is the reference's KV chunk. Under grad mode, with an input that
+    requires grad, a CUDA call goes through :class:`_FlashAttentionFn`.
     """
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
@@ -61,18 +62,57 @@ def flash_attention(
     if hq % hkv:
         raise ValueError(f"GQA requires Hq % Hkv == 0, got {hq}, {hkv}")
     scale = scale if scale is not None else d ** -0.5
+    opts = dict(causal=causal, window=window, softcap=softcap, scale=scale,
+                q_offset=q_offset)
     if q.device.type == "cpu" and k.device.type == "cpu" and v.device.type == "cpu":
         return flash_attention_ref(
-            q, k, v, causal=causal, window=window, softcap=softcap,
-            scale=scale, q_offset=q_offset,
-            chunk=int(tile[1]) if tile is not None else 512)
+            q, k, v, chunk=int(tile[1]) if tile is not None else 512, **opts)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _FlashAttentionFn.apply(q, k, v, tile, opts)
+    return _flash_cuda(q, k, v, tile, opts)
+
+
+class _FlashAttentionFn(torch.autograd.Function):
+    """Forward: the kernel. Backward: the gradient of the plain
+    :func:`flash_attention_ref` at the saved q, k and v (recomputed under
+    ``torch.enable_grad``), every time. The reference has no backward
+    kernel: it differentiates its Pallas call through JAX, so the plain
+    version's gradient is the declared derivative here, counted apart in
+    ``build.LAUNCHES["flash_attention_bwd_plain"]``. It keeps each KV
+    chunk's [B, Hq, Sq, chunk] logits while it runs (transient, one layer at
+    a time under remat)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, tile, opts):
+        ctx.save_for_backward(q, k, v)
+        ctx.opts = opts
+        return _flash_cuda(q, k, v, tile, opts)
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v = ctx.saved_tensors
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_(need) for t, need in
+                      zip((q, k, v), ctx.needs_input_grad[:3])]
+            out = flash_attention_ref(*leaves, **ctx.opts)
+            wanted = [t for t in leaves if t.requires_grad]
+            grads = iter(torch.autograd.grad(out, wanted, dout))
+        build.LAUNCHES["flash_attention_bwd_plain"] += 1
+        return (*(next(grads) if t.requires_grad else None for t in leaves),
+                None, None)
+
+
+def _flash_cuda(q, k, v, tile, opts):
+    """One launch of the kernel (no autograd history)."""
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
     build.check_cuda_operands("flash_attention", q, k, v)
     if tile is None:
         from repro_torch.kernels.flash_attention.ops import FLASH_SPEC
 
         tile = FLASH_SPEC.default_tile(
-            dict(sq=sq, skv=skv, d=d, hq=hq, hkv=hkv, window=window or 0),
-            str(q.dtype))
+            dict(sq=sq, skv=skv, d=d, hq=hq, hkv=hkv,
+                 window=opts["window"] or 0), str(q.dtype))
     bq, bkv = launch_tile(tile, d, q.dtype)
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("flash_attention's kernels need 16-byte aligned "
@@ -84,9 +124,9 @@ def flash_attention(
         return out.zero_()
     rc = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 b, hq, hkv, sq, skv, d, build.dtype_code(q.dtype), bq, bkv,
-                float(scale), int(bool(causal)), int(window or 0),
-                float(softcap or 0.0), int(q_offset),
-                build.stream_ptr(q.device))
+                float(opts["scale"]), int(bool(opts["causal"])),
+                int(opts["window"] or 0), float(opts["softcap"] or 0.0),
+                int(opts["q_offset"]), build.stream_ptr(q.device))
     build.check(rc, "flash_attention")
     build.LAUNCHES["flash_attention"] += 1
     return out

@@ -126,14 +126,54 @@ def _lib():
 def mm(a: torch.Tensor, b: torch.Tensor, tile=None) -> torch.Tensor:
     """``a`` [M, K] @ ``b`` [K, N] -> [M, N] in ``a``'s dtype.
 
-    CPU tensors take :func:`matmul_ref`. CUDA tensors launch the kernel of
-    their :func:`regime` with ``tile`` (default: the spec's Hopper tile for
-    this problem) or raise.
+    CPU tensors take :func:`matmul_ref` (differentiable as it is). CUDA
+    tensors launch the kernel of their :func:`regime` with ``tile``
+    (default: the spec's Hopper tile for this problem) or raise; under grad
+    mode, with an operand that requires grad, through :class:`_MatmulFn`,
+    whose backward launches the same kernel.
     """
     if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
         raise ValueError(f"bad matmul shapes {tuple(a.shape)} @ {tuple(b.shape)}")
     if a.device.type == "cpu" and b.device.type == "cpu":
         return matmul_ref(a, b)
+    if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+        return _MatmulFn.apply(a, b, tile)
+    return _mm_cuda(a, b, tile)
+
+
+def _grad_operand(t: torch.Tensor) -> torch.Tensor:
+    """A backward product's operand as the kernel takes it: contiguous and
+    on 16 bytes (a transpose is copied; a gradient may arrive as a view)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+class _MatmulFn(torch.autograd.Function):
+    """C = A B through the kernel, forward and backward: dA = dC Bᵀ and
+    dB = Aᵀ dC are the same kernel on transposed copies (each launch counted
+    under ``matmul``), at the default tile of their own shapes. The
+    reference differentiates its Pallas matmul through JAX; the products are
+    the same."""
+
+    @staticmethod
+    def forward(ctx, a, b, tile):
+        ctx.save_for_backward(a, b)
+        return _mm_cuda(a, b, tile)
+
+    @staticmethod
+    def backward(ctx, dc):
+        a, b = ctx.saved_tensors
+        dc = _grad_operand(dc)
+        da = db = None
+        if ctx.needs_input_grad[0]:
+            da = _mm_cuda(dc, _grad_operand(b.t()), None)
+        if ctx.needs_input_grad[1]:
+            db = _mm_cuda(_grad_operand(a.t()), dc, None)
+        return da, db, None
+
+
+def _mm_cuda(a: torch.Tensor, b: torch.Tensor, tile) -> torch.Tensor:
+    """One launch of the kernel (no autograd history)."""
     build.check_cuda_operands("matmul", a, b)
     m, k = a.shape
     n = b.shape[1]

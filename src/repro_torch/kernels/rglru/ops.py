@@ -68,6 +68,9 @@ def rglru_scan(a, x, h0, tile=None):
                          f"{tuple(x.shape)} h0 {tuple(h0.shape)}")
     if all(t.device.type == "cpu" for t in (a, x, h0)):
         return rglru_scan_ref(a, x, h0)
+    build.refuse_grad("rglru", a, x, h0,
+                      why="its CUDA gradient is the first item of ROADMAP.md "
+                      "§1 (then recurrentgemma trains on the card)")
     build.check_cuda_operands("rglru", a, x, h0)
     problem = dict(s=s, f=f)
     bt, bf = launch_tile(tile if tile is not None

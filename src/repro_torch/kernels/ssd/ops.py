@@ -114,6 +114,9 @@ def ssd_scan(log_a, dtx, Bm, C, h0, chunk: Optional[int] = None):
     tensors = (log_a, dtx, Bm, C, h0)
     if all(t.device.type == "cpu" for t in tensors):
         return ssd_scan_ref(log_a, dtx, Bm, C, h0, chunk=chunk)
+    build.refuse_grad("ssd", *tensors,
+                      why="its CUDA gradient is the first item of ROADMAP.md "
+                      "§1 (then mamba2 trains on the card)")
     build.check_cuda_operands("ssd", *tensors)
     q = launch_chunk(chunk, problem, dtx.dtype)
     if any(t.data_ptr() % 16 for t in (dtx, Bm, C, h0)):

@@ -3,7 +3,8 @@ decoder-only LMs (dense, MoE, hybrid, SSM), the vision LM and the
 encoder-decoder.
 
 Batch conventions, the reference's:
-    LM:    ``{"tokens": [B, S]}``
+    LM:    ``{"tokens": [B, S]}``, and ``"targets"`` [B, S] for
+           :func:`train_loss`
     VLM:   ``+ {"patch_embeds": [B, P, 1024]}`` (the frontend stub); the
            tokens are the text tail, the sequence is P + S long
     audio: ``{"frames": [B, S_enc, D]}`` + the decoder's ``tokens``
@@ -63,6 +64,44 @@ def init_params(cfg: ArchConfig, seed: Union[int, torch.Generator] = 0,
     if is_encdec(cfg):
         return E.init_params(cfg, gen, dtype, dev)
     return T.init_params(cfg, gen, dtype, dev)
+
+
+def train_loss(params, cfg: ArchConfig, batch: Dict[str, Any],
+               remat: bool = True, tiles: Tiles = None, impl: str = "auto"):
+    """Scalar loss and metrics ``{"loss", "ce", "aux"}``, differentiable
+    (the reference's ``train_loss``): the cross-entropy of
+    ``transformer.fused_lm_loss`` over the hidden states, plus an MoE
+    model's aux loss. A vision model's loss covers the text positions only
+    (after the ``patch_embeds`` prefix); an encoder-decoder encodes
+    ``frames`` and runs ``encdec.decode_train``, with the tied embedding as
+    the head. ``batch`` holds numpy arrays or tensors (tokens and targets
+    int32 or int64), moved to the parameters' device. ``remat``
+    checkpoints each layer; ``tiles`` and ``impl`` reach the kernel call
+    sites as in serving. On CUDA tensors the FF GEMMs and the attention
+    launch the matmul and flash-attention kernels forward and backward."""
+    tokens = _tokens(params, batch["tokens"])
+    targets = _tokens(params, batch["targets"])
+    if is_encdec(cfg):
+        enc = E.encode(params, cfg, _embeds(params, batch["frames"]),
+                       impl=impl, remat=remat)
+        hidden = E.decode_train(params, cfg, tokens, enc, return_hidden=True,
+                                impl=impl, remat=remat)
+        head = params["embed"].t()
+        aux = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    else:
+        patch = batch.get("patch_embeds")
+        out = T.forward(params, cfg, tokens, logits_mode="hidden",
+                        tiles=tiles, impl=impl, remat=remat,
+                        patch_embeds=None if patch is None
+                        else _embeds(params, patch))
+        hidden, aux = out.hidden, out.aux_loss
+        if patch is not None:
+            hidden = hidden[:, patch.shape[1]:]
+        head = (params["embed"].t() if cfg.tie_embeddings
+                else params["lm_head"])
+    ce = T.fused_lm_loss(head, hidden, targets, cfg)
+    loss = ce + aux
+    return loss, {"loss": loss, "ce": ce, "aux": aux}
 
 
 def make_serve_state(cfg: ArchConfig, batch: int, max_len: int, dtype,

@@ -1,4 +1,5 @@
-"""Convert a JAX parameter tree (as numpy arrays) into the port's parameters.
+"""Convert a JAX parameter tree (as numpy arrays) into the port's parameters,
+and the reference's AdamW state into the port's (:func:`opt_state_from_jax`).
 
 The reference stacks the layers of each ``("scan", unit, reps)`` segment on
 a leading axis (``transformer.decompose``), and an encoder-decoder's
@@ -22,11 +23,33 @@ from repro_torch.models.transformer import decompose
 
 def params_from_jax(cfg: ArchConfig, tree: Dict[str, Any],
                     dtype=torch.float32, device=None) -> Dict[str, Any]:
-    dev = resolve_device(device)
+    return _convert(cfg, tree, dtype, resolve_device(device))
 
+
+def opt_state_from_jax(cfg: ArchConfig, tree: Dict[str, Any],
+                       device=None) -> Dict[str, Any]:
+    """The reference's AdamW state ``{"m", "v", "step"}`` as the port's:
+    ``m`` and ``v`` unstacked as :func:`params_from_jax` unstacks the
+    parameters, each leaf keeping its dtype (float32, or bfloat16 moments,
+    carried exactly through float32), and ``step`` a 0-d int32 tensor. Both
+    packages then take the same step from the same state."""
+    dev = resolve_device(device)
+    return {"m": _convert(cfg, tree["m"], None, dev),
+            "v": _convert(cfg, tree["v"], None, dev),
+            "step": torch.tensor(int(np.asarray(tree["step"])),
+                                 dtype=torch.int32, device=dev)}
+
+
+def _convert(cfg: ArchConfig, tree: Dict[str, Any], dtype,
+             dev: torch.device) -> Dict[str, Any]:
+    """A parameter-shaped tree, unstacked, as tensors of ``dtype`` (None:
+    each leaf's own, bfloat16 or float32) on ``dev``."""
     def tensor(a) -> torch.Tensor:
+        a = np.asarray(a)
+        dt = dtype or (torch.bfloat16 if a.dtype.name == "bfloat16"
+                       else torch.float32)
         return torch.from_numpy(np.array(a, dtype=np.float32)).to(
-            device=dev, dtype=dtype)
+            device=dev, dtype=dt)
 
     def walk(node, index=None):
         if isinstance(node, dict):

@@ -6,7 +6,9 @@ precomputed frame embeddings ``[B, S_enc, D]``. Pre-LN transformer,
 sinusoidal positions, a GELU MLP (tanh form, as ``jax.nn.gelu``), MHA with
 the heads padded to ``cfg.padded_heads`` and the padded heads' outputs
 masked to zero, a decoder with causal self-attention and cross-attention,
-and the embedding as the tied head.
+and the embedding as the tied head. :func:`decode_train` is the
+teacher-forced decoder pass the training loss takes (the reference's
+``decode_train``).
 
 The parameters keep one dict a layer (``enc_layers``, ``dec_layers``) where
 the reference stacks them for ``jax.lax.scan`` (``models/convert.py``
@@ -40,7 +42,9 @@ from repro_torch.kernels.flash_attention.flash_attention import (
     flash_attention,
 )
 from repro_torch.kernels.flash_attention.ref import NEG_INF, flash_attention_ref
-from repro_torch.models.layers import ParamDef, act_fn, init_tree, layer_norm
+from repro_torch.models.layers import (
+    ParamDef, act_fn, init_tree, layer_norm, maybe_checkpoint,
+)
 
 
 def _sinusoid(seq: int, d: int, device=None) -> torch.Tensor:
@@ -162,17 +166,48 @@ def _ff(p, x):
     return torch.matmul(h, p["w2"].to(x.dtype)) + p["b2"].to(x.dtype)
 
 
+def _enc_layer(lp, cfg: ArchConfig, x, impl: str):
+    h = _ln(lp, "ln1", x, cfg.norm_eps)
+    x = x + _mha(lp["attn"], cfg, h, h, causal=False, impl=impl)
+    return x + _ff(lp["ff"], _ln(lp, "ln2", x, cfg.norm_eps))
+
+
 def encode(params, cfg: ArchConfig, frames: torch.Tensor,
-           impl: str = "auto") -> torch.Tensor:
+           impl: str = "auto", remat: bool = False) -> torch.Tensor:
     """frames [B, S_enc, D] (the conv frontend's embeddings) -> encoder
-    output [B, S_enc, D]."""
+    output [B, S_enc, D]. ``remat`` checkpoints each layer under grad mode
+    (the reference always does)."""
     x = frames + _sinusoid(frames.shape[1], cfg.d_model,
                            frames.device)[None].to(frames.dtype)
     for lp in params["enc_layers"]:
-        h = _ln(lp, "ln1", x, cfg.norm_eps)
-        x = x + _mha(lp["attn"], cfg, h, h, causal=False, impl=impl)
-        x = x + _ff(lp["ff"], _ln(lp, "ln2", x, cfg.norm_eps))
+        x = maybe_checkpoint(remat, _enc_layer, lp, cfg, x, impl)
     return _ln(params, "enc_final", x, cfg.norm_eps)
+
+
+def _dec_layer(lp, cfg: ArchConfig, x, enc_out, impl: str):
+    h = _ln(lp, "ln1", x, cfg.norm_eps)
+    x = x + _mha(lp["self_attn"], cfg, h, h, causal=True, impl=impl)
+    x = x + _mha(lp["cross_attn"], cfg, _ln(lp, "lnx", x, cfg.norm_eps),
+                 enc_out, causal=False, impl=impl)
+    return x + _ff(lp["ff"], _ln(lp, "ln2", x, cfg.norm_eps))
+
+
+def decode_train(params, cfg: ArchConfig, tokens: torch.Tensor, enc_out,
+                 return_hidden: bool = False, impl: str = "auto",
+                 remat: bool = False) -> torch.Tensor:
+    """The teacher-forced decoder pass over ``tokens`` [B, S] attending to
+    ``enc_out`` -> logits [B, S, Vpad], or with ``return_hidden`` the final
+    normed hidden [B, S, D]. No cache: the training path. Its attention
+    launches the flash-attention kernel on CUDA tensors (differentiable
+    through the wrapper's autograd Function); ``remat`` checkpoints each
+    layer under grad mode."""
+    s = tokens.shape[1]
+    x = params["embed"][tokens]
+    x = x + _sinusoid(s, cfg.d_model, x.device)[None].to(x.dtype)
+    for lp in params["dec_layers"]:
+        x = maybe_checkpoint(remat, _dec_layer, lp, cfg, x, enc_out, impl)
+    x = _ln(params, "dec_final", x, cfg.norm_eps)
+    return x if return_hidden else _logits(params, x)
 
 
 def _logits(params, x):

@@ -13,6 +13,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 
 @dataclasses.dataclass(frozen=True)
@@ -89,6 +90,18 @@ def act_fn(name: str):
 
 def softcap(x, cap: float):
     return cap * torch.tanh(x / cap)
+
+
+def maybe_checkpoint(enabled: bool, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)``, under ``torch.utils.checkpoint`` (non-reentrant) when
+    ``enabled`` and grad mode is on: its activations are dropped after the
+    forward and recomputed in the backward, the reference's
+    ``jax.checkpoint``. The recompute runs ``fn``'s kernels a second time.
+    Nothing in the models draws random numbers, so no RNG state is kept."""
+    if enabled and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False, **kwargs)
+    return fn(*args, **kwargs)
 
 
 # ---------------------------------------------------------------------------

@@ -25,6 +25,13 @@ layer per request's state. An MoE layer routes the tokens it is given
 together: a chunk's capacity counts the chunk's tokens, a pack's the
 pack's, as in the reference.
 
+Training: ``forward(remat=True)`` runs each layer under
+``torch.utils.checkpoint`` (the reference checkpoints its scanned layers),
+so the backward recomputes one layer at a time, kernels included;
+:func:`fused_lm_loss` is the head and cross-entropy over sequence chunks,
+each chunk checkpointed, and :func:`lm_loss` the plain cross-entropy over
+given logits.
+
 Paged serving (``serve/pool.py``): :func:`make_paged_pool` makes the
 engine's page tensors, one ``k_pages`` / ``v_pages`` pair per attention
 layer, and ``make_caches(paged=True)`` a request's state, in which an
@@ -49,7 +56,8 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (
-    ParamDef, act_fn, init_tree, layer_norm, rms_norm, softcap,
+    ParamDef, act_fn, init_tree, layer_norm, maybe_checkpoint, rms_norm,
+    softcap,
 )
 
 
@@ -362,6 +370,7 @@ def forward(
     pool: Optional[List[Any]] = None,
     page_table: Optional[torch.Tensor] = None,
     patch_embeds: Optional[torch.Tensor] = None,
+    remat: bool = False,
 ) -> StackOutputs:
     """tokens [B, S] -> logits [B, S(+P), Vpad].
 
@@ -378,6 +387,8 @@ def forward(
     ``patch_embeds`` [B, P, 1024] (a vision model's frontend stub) are
     projected by ``vit_proj`` and prepended to the token embeddings, so the
     sequence is P + S long. ``aux_loss`` sums the layers' MoE aux losses.
+    ``remat`` checkpoints each layer when grad mode is on (training; it
+    takes no caches).
     """
     if pool is not None and not (decode or chunked):
         raise ValueError("a paged request prefills through chunks "
@@ -403,9 +414,10 @@ def forward(
         lc = caches[li] if caches is not None else None
         if pool is not None:
             lc = _with_pool(lc, pool[li], page_table)
-        x, nc, aux = layer_forward(params["layers"][li], cfg, spec, x,
-                                   positions, lc, decode, tiles=tiles,
-                                   impl=impl, chunk_start=chunk_start)
+        x, nc, aux = maybe_checkpoint(
+            remat and lc is None, layer_forward, params["layers"][li], cfg,
+            spec, x, positions, lc, decode, tiles=tiles, impl=impl,
+            chunk_start=chunk_start)
         if aux is not None:
             aux_total = aux_total + aux
         if new_caches is not None:
@@ -472,3 +484,63 @@ def forward_packed(params, cfg: ArchConfig, tokens: torch.Tensor, states,
     ends = torch.tensor([sum(ln for _, ln in layout[:i + 1]) - 1
                          for i in range(len(layout))], device=x.device)
     return _head(params, cfg, x[0, ends]), tuple(states)
+
+
+# ---------------------------------------------------------------------------
+# Losses
+# ---------------------------------------------------------------------------
+
+def _scalar(x: float, like: torch.Tensor) -> torch.Tensor:
+    # A float32 divisor on the tensor's device: PyTorch on CUDA divides by a
+    # Python scalar as a multiply by its reciprocal, JAX divides.
+    return torch.tensor(float(x), dtype=torch.float32, device=like.device)
+
+
+def _nll(logits: torch.Tensor, targets: torch.Tensor,
+         cfg: ArchConfig) -> torch.Tensor:
+    """Per-position negative log-likelihood over the real (unpadded)
+    vocabulary: the padded columns' logits are -1e30."""
+    vocab_ok = torch.arange(logits.shape[-1], device=logits.device) \
+        < cfg.vocab_size
+    logits = torch.where(vocab_ok, logits.float(), -1e30)
+    logp = torch.log_softmax(logits, dim=-1)
+    return -torch.take_along_dim(logp, targets.long()[..., None],
+                                 dim=-1)[..., 0]
+
+
+def lm_loss(logits: torch.Tensor, targets: torch.Tensor, cfg: ArchConfig,
+            mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Cross-entropy over the real (unpadded) vocab, the reference's
+    ``lm_loss``: the mean over positions, or over ``mask``'s."""
+    nll = _nll(logits, targets, cfg)
+    if mask is not None:
+        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.mean(nll)
+
+
+def _chunk_nll_sum(h, t, head, cfg: ArchConfig):
+    logits = torch.matmul(h.float(), head.float())
+    if cfg.final_softcap:
+        logits = softcap(logits, cfg.final_softcap)
+    return torch.sum(_nll(logits, t, cfg))
+
+
+def fused_lm_loss(head: torch.Tensor, hidden: torch.Tensor,
+                  targets: torch.Tensor, cfg: ArchConfig,
+                  chunk: int = 1024) -> torch.Tensor:
+    """Head product + cross-entropy over sequence chunks (the reference's
+    ``fused_lm_loss``): ``[B, S, Vpad]`` logits are never held whole, each
+    chunk's only inside a checkpointed call, recomputed in the backward.
+    ``chunk`` is ``min(chunk, S)``, or S where it does not divide. The head
+    product is ``torch.matmul`` in float32, as the reference leaves it to
+    XLA. Returns the mean over the B * S positions."""
+    b, s, _ = hidden.shape
+    chunk = min(chunk, s)
+    if s % chunk:
+        chunk = s  # unchunked for odd lengths
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for i in range(0, s, chunk):
+        total = total + maybe_checkpoint(True, _chunk_nll_sum,
+                                   hidden[:, i:i + chunk],
+                                   targets[:, i:i + chunk], head, cfg)
+    return total / _scalar(b * s, total)

@@ -1,0 +1,195 @@
+"""Trainer: the fault-tolerant training loop — the port of
+``repro/train/trainer.py``.
+
+It drives the data pipeline, takes the train step, checkpoints every N
+steps (async, atomic), restores and continues after a failure (simulated
+with ``run(fail_at=)`` or real), tracks step-time health and stragglers,
+and logs. All state lives in (params, opt_state, data step), and all of it
+round-trips through the :class:`CheckpointManager`: a process can die at
+any step and resume.
+
+The port runs on one device (``device=``, default ``cuda``; the CPU runs
+the kernels' plain versions). On the card the FF GEMMs and the attention
+launch the matmul and flash-attention kernels, forward and backward. The
+reference's mesh comes with the distributed layers: a mesh raises.
+
+Tile selection: ``TrainerConfig.tile_plans`` names a compiled
+:class:`~repro_torch.core.plans.TilePlan` artifact (or pass it as
+``plans=``). The trainer resolves the ``kind="train"`` cell's tiles from
+it once, at construction (``launch/specs.py:resolve_model_tiles``); a
+corrupt or missing artifact degrades to the kernels' defaults, and on the
+card a tile the forward's calls would not launch is swapped for the
+default (``launchable_tiles``). No sweep runs on the step loop.
+"""
+from __future__ import annotations
+
+import dataclasses
+import logging
+import os
+import tempfile
+from typing import Any, Dict, Optional
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.checkpoint.manager import CheckpointManager
+from repro_torch.configs.base import ArchConfig
+from repro_torch.core.hardware import PRODUCTION_TARGET
+from repro_torch.core.hardware import get as get_hardware
+from repro_torch.core.plans import PlanResolution, TilePlan
+from repro_torch.core.tiling import TileShape
+from repro_torch.data.pipeline import DataConfig, make_batch
+from repro_torch.distributed.fault_tolerance import HealthMonitor, StepTimer
+from repro_torch.models import api
+from repro_torch.optim import adamw
+from repro_torch.optim.schedule import warmup_cosine
+from repro_torch.train.step import make_train_step
+
+log = logging.getLogger("repro_torch.trainer")
+
+
+def default_checkpoint_dir() -> str:
+    return os.path.join(tempfile.gettempdir(), "repro_torch_ckpt")
+
+
+@dataclasses.dataclass
+class TrainerConfig:
+    steps: int = 100
+    checkpoint_every: int = 50
+    checkpoint_dir: str = dataclasses.field(
+        default_factory=default_checkpoint_dir)
+    keep: int = 3
+    peak_lr: float = 3e-4
+    warmup_steps: int = 10
+    microbatches: int = 1
+    seed: int = 0
+    param_dtype: Any = torch.float32
+    log_every: int = 10
+    # AOT tile plans: a compiled artifact and the hardware to resolve for
+    # ("" = the production target, the H100). Corrupt or missing artifacts
+    # are tolerated (the kernels' defaults), never swept around.
+    tile_plans: Optional[str] = None
+    hardware: str = ""
+
+
+class Trainer:
+    def __init__(self, cfg: ArchConfig, data_cfg: DataConfig,
+                 tcfg: TrainerConfig, mesh=None,
+                 opt_cfg: Optional[adamw.AdamWConfig] = None,
+                 plans: Optional[TilePlan] = None, device=None):
+        if mesh is not None:
+            raise NotImplementedError(
+                "the port's Trainer runs on one device; a mesh comes with "
+                "the distributed layers (ROADMAP.md §1, item 7)")
+        self.cfg = cfg
+        self.data_cfg = data_cfg
+        self.tcfg = tcfg
+        self.device = resolve_device(device)
+        self.opt_cfg = opt_cfg or adamw.AdamWConfig()
+        self.monitor = HealthMonitor()
+        self.ckpt = CheckpointManager(tcfg.checkpoint_dir, keep=tcfg.keep)
+        self.hardware = (get_hardware(tcfg.hardware) if tcfg.hardware
+                         else PRODUCTION_TARGET)
+        self.tiles: Dict[str, TileShape] = {}
+        self.tile_resolutions: Dict[str, PlanResolution] = {}
+        if plans is None:
+            plans = TilePlan.load_or_none(tcfg.tile_plans)
+        if plans is not None:
+            self._resolve_tiles(plans)
+
+        lr_fn = lambda step: warmup_cosine(
+            step, peak_lr=tcfg.peak_lr, warmup_steps=tcfg.warmup_steps,
+            total_steps=tcfg.steps)
+        self._step = make_train_step(
+            cfg, self.opt_cfg, lr_fn, microbatches=tcfg.microbatches,
+            tiles=self.tiles or None)
+
+    def _dtype_name(self) -> str:
+        return str(self.tcfg.param_dtype).replace("torch.", "")
+
+    def _resolve_tiles(self, plans: TilePlan) -> None:
+        """Resolve the train step's kernel tiles from the plan store. No
+        sweeps. The step takes per-host batches, so the cell is at
+        host_batch."""
+        from repro_torch.launch import specs
+
+        b, s = self.data_cfg.host_batch, self.data_cfg.seq_len
+        dtype = self._dtype_name()
+        self.tiles, self.tile_resolutions = specs.resolve_model_tiles(
+            plans, self.cfg, b, s, "train", dtype, self.hardware)
+        if self.device.type == "cuda":
+            rows = b // self.tcfg.microbatches * s
+            self.tiles, _ = specs.launchable_tiles(
+                self.tiles, self.cfg, b, s, "train", dtype, tokens=rows)
+
+    # -- state --------------------------------------------------------------
+    def init_state(self):
+        params = api.init_params(self.cfg, self.tcfg.seed,
+                                 dtype=self.tcfg.param_dtype,
+                                 device=self.device)
+        opt_state = adamw.init_state(params, self.opt_cfg)
+        return params, opt_state, 0
+
+    def try_restore(self):
+        latest = self.ckpt.latest_step()
+        if latest is None:
+            return self.init_state()
+        params, opt_state, _ = self.init_state()
+        tree = self.ckpt.restore({"params": params, "opt": opt_state})
+        meta = self.ckpt.meta()
+        log.info("restored checkpoint at step %d", meta["step"])
+        return tree["params"], tree["opt"], meta["step"]
+
+    # -- loop ---------------------------------------------------------------
+    def run(self, fail_at: Optional[int] = None,
+            max_restarts: int = 2) -> Dict[str, Any]:
+        """Run to tcfg.steps; survives ``max_restarts`` worker failures.
+
+        ``fail_at``: raise an injected RuntimeError at that step once
+        (the fault-tolerance test hook).
+        """
+        restarts = 0
+        failed_once = False
+        losses = []
+        while True:
+            try:
+                params, opt_state, start = self.try_restore()
+                for step in range(start, self.tcfg.steps):
+                    if fail_at is not None and step == fail_at and not failed_once:
+                        failed_once = True
+                        raise RuntimeError("injected worker failure")
+                    batch = make_batch(self.data_cfg, step)
+                    # The step and the loss's readback: a synchronised step.
+                    with StepTimer() as t:
+                        params, opt_state, metrics = self._step(
+                            params, opt_state, batch)
+                        loss = float(metrics["loss"])
+                    straggler = self.monitor.record_step(t.seconds)
+                    if straggler:
+                        log.warning("straggler step %d: %.3fs (baseline %.3fs)",
+                                    step, t.seconds, self.monitor.baseline_s)
+                    losses.append(loss)
+                    if step % self.tcfg.log_every == 0:
+                        log.info("step %d loss %.4f (%.3fs)", step, loss,
+                                 t.seconds)
+                    if (step + 1) % self.tcfg.checkpoint_every == 0:
+                        self.ckpt.save(
+                            step + 1, {"params": params, "opt": opt_state},
+                            extra={"data_step": step + 1})
+                self.ckpt.save(self.tcfg.steps,
+                               {"params": params, "opt": opt_state},
+                               extra={"data_step": self.tcfg.steps})
+                self.ckpt.wait()
+                return {
+                    "losses": losses,
+                    "restarts": restarts,
+                    "straggler_events": self.monitor.straggler_events,
+                    "params": params,
+                }
+            except NotImplementedError:
+                raise               # a missing path, not a worker failure
+            except RuntimeError as e:
+                restarts += 1
+                log.warning("worker failure (%s); restart %d", e, restarts)
+                if restarts > max_restarts:
+                    raise

@@ -13,6 +13,8 @@ most 2^-8 relative: the kernel and the plain version both sum in float32
 and round once; flash_attention also rounds P to bf16, an error of the same
 order). TF32 is off.
 """
+import gc
+
 import numpy as np
 import pytest
 
@@ -1251,7 +1253,8 @@ def test_shadow_measure_leaves_memory_flat(dev):
     for kernel, problem in QWEN_CELLS.items():
         measure(kernel, problem, "float32", tiles[kernel])
     torch.cuda.synchronize()
-    first = torch.cuda.memory_allocated()
+    gc.collect()     # earlier tests' cycles, freed inside the window, read
+    first = torch.cuda.memory_allocated()   # as shrinkage
     for i in range(50):
         kernel = sorted(QWEN_CELLS)[i % 3]
         measure(kernel, QWEN_CELLS[kernel], "float32", tiles[kernel])
@@ -1451,3 +1454,181 @@ def test_fleet_kill_and_recover_serves_the_fault_free_tokens(dev, paged):
     if paged:
         for eng in router.engines.values():
             eng.pool.check_balanced()
+
+
+# ---------------------------------------------------------------------------
+# Training: autograd through the matmul and flash-attention kernels
+# ---------------------------------------------------------------------------
+
+def _grads_of(fn, inputs, weight):
+    """Gradients of sum(fn(*inputs) * weight) with respect to ``inputs``."""
+    leaves = [t.detach().requires_grad_(True) for t in inputs]
+    out = fn(*leaves)
+    grads = torch.autograd.grad((out.float() * weight).sum(), leaves)
+    return out.detach(), grads
+
+
+@pytest.mark.parametrize("dtype,rtol", DTYPES)
+@pytest.mark.parametrize("m,k,n", [(4096, 1536, 8960), (4096, 8960, 1536),
+                                   (600, 1536, 8960), (37, 70, 33)])
+def test_matmul_gradients_launch_the_kernel(dev, dtype, rtol, m, k, n):
+    """dA = dC Bᵀ and dB = Aᵀ dC through the kernel (the first shapes are
+    full-width qwen2's FF at batch 8 x 512: dB is a K = 4096 product;
+    (37, 70, 33) takes the plain regime), against the plain version's
+    gradients; one forward and two backward launches."""
+    dt = getattr(torch, dtype)
+    a, b = _randn(dev, 1, (m, k), (k, n), dtype=dt)
+    (w,) = _randn(dev, 2, (m, n))
+    build.reset_launches()
+    out, (da, db) = _grads_of(mm_ops.mm, (a, b), w)
+    assert build.LAUNCHES["matmul"] == 3
+    ref, (ra, rb) = _grads_of(matmul_ref, (a, b), w)
+    assert da.dtype == db.dtype == dt
+    _close(out, ref, rtol)
+    _close(da, ra, rtol)
+    _close(db, rb, rtol)
+
+
+ATTN_GRAD_CASES = [
+    # (b, hq, hkv, sq, skv, d, causal, window, softcap)
+    (2, 16, 2, 512, 512, 128, True, None, None),      # qwen2, padded heads
+    (1, 16, 2, 300, 300, 128, True, 128, None),       # windowed
+    (1, 8, 4, 256, 256, 64, True, None, 50.0),        # softcap
+    (1, 8, 8, 200, 200, 80, True, None, None),        # h2o-danube's D 80
+    (1, 32, 32, 64, 1500, 64, False, None, None),     # whisper's cross-attn
+]
+
+
+@pytest.mark.parametrize("dtype,rtol", DTYPES)
+@pytest.mark.parametrize("case", ATTN_GRAD_CASES,
+                         ids=lambda c: f"{c[1]}-{c[2]}-{c[3]}x{c[4]}-d{c[5]}")
+def test_flash_attention_gradients_are_the_plain_versions(dev, dtype, rtol,
+                                                          case):
+    """Forward through the kernel, backward the plain version's gradient at
+    the saved q, k, v: with the same output weights the gradients equal the
+    plain path's (computed by the same code), and the forward agrees within
+    the kernel tolerance. Counted: one launch, one plain backward."""
+    b, hq, hkv, sq, skv, d, causal, window, cap = case
+    dt = getattr(torch, dtype)
+    q, k, v = _randn(dev, 3, (b, hq, sq, d), (b, hkv, skv, d),
+                     (b, hkv, skv, d), dtype=dt)
+    (w,) = _randn(dev, 4, (b, hq, sq, d))
+    kw = dict(causal=causal, window=window, softcap=cap)
+    build.reset_launches()
+    out, grads = _grads_of(lambda *t: flash_attention(*t, **kw), (q, k, v), w)
+    assert build.LAUNCHES["flash_attention"] == 1
+    assert build.LAUNCHES["flash_attention_bwd_plain"] == 1
+    ref, want = _grads_of(lambda *t: flash_attention_ref(*t, **kw),
+                          (q, k, v), w)
+    _close(out, ref, rtol)
+    for g, r in zip(grads, want):
+        assert g.dtype == dt and g.shape == r.shape
+        _close(g, r, rtol)
+
+
+def test_kernels_without_a_backward_raise_under_grad(dev):
+    """ssd, rglru, flash_decode and bilinear refuse an input that requires
+    grad under grad mode, instead of returning a tensor with no history;
+    under no_grad they launch."""
+    (x,) = _randn(dev, 5, (64, 64))
+    (qd, kd, vd) = _randn(dev, 6, (1, 4, 64), (1, 2, 128, 64),
+                          (1, 2, 128, 64))
+    la, dtx, bm, cm, h0 = _randn(dev, 7, (1, 2, 32), (1, 32, 2, 64),
+                                 (1, 32, 16), (1, 32, 16), (1, 2, 16, 64))
+    ra, rx, rh = _randn(dev, 8, (1, 32, 64), (1, 32, 64), (1, 64))
+    calls = {
+        "bilinear": (lambda t: bil_ops.upscale(t, 2), (x,)),
+        "flash_decode": (lambda q, k, v: flash_decode(q, k, v, pos=100),
+                         (qd, kd, vd)),
+        "ssd": (lambda *t: ssd_ops.ssd_scan(*t), (-la.abs(), dtx, bm, cm,
+                                                   h0)),
+        "rglru": (lambda *t: rg_ops.rglru_scan(*t),
+                  (torch.sigmoid(ra), rx, rh)),
+    }
+    for name, (fn, inputs) in calls.items():
+        live = [t.detach().requires_grad_(True) for t in inputs]
+        with pytest.raises(NotImplementedError, match=name):
+            fn(*live)
+        with torch.no_grad():
+            fn(*live)
+        fn(*inputs)                          # no input requires grad
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ssd_ops.ssd_scan(*[t.detach().requires_grad_(True) for t in
+                           (-la.abs(), dtx, bm, cm, h0)])
+
+
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "deepseek-moe-16b",
+                                  "internvl2-1b", "whisper-large-v3"])
+def test_every_parameter_gets_a_gradient_on_the_card(dev, arch):
+    """One backward of a smoke model's train loss on the card: every
+    parameter's gradient is set and non-zero (a kernel output without
+    history would leave every leaf upstream of it without one), within 1e-4
+    of max(1, max |g|) of the plain versions' gradients on the card, and
+    the kernels launched forward (twice, with remat) and backward."""
+    from repro_torch.optim.adamw import tree_leaves, tree_map
+
+    cfg = configs.get_smoke(arch)
+    params = api.init_params(cfg, 0, device="cuda")
+    rng = np.random.default_rng(0)
+    batch = {k: rng.integers(2, cfg.vocab_size, (2, 32)).astype(np.int32)
+             for k in ("tokens", "targets")}
+    if cfg.encoder is not None and cfg.encoder.kind == "vision":
+        batch["patch_embeds"] = rng.standard_normal((2, 4, 1024)).astype(
+            np.float32)
+    if cfg.encoder is not None and cfg.encoder.kind == "audio":
+        batch["frames"] = rng.standard_normal((2, 48, cfg.d_model)).astype(
+            np.float32)
+    grads = {}
+    for impl in ("auto", "reference"):
+        for p in tree_leaves(params):
+            p.grad = None
+            p.requires_grad_(True)
+        build.reset_launches()
+        loss, _ = api.train_loss(params, cfg, batch, impl=impl)
+        loss.backward()
+        torch.cuda.synchronize()
+        grads[impl] = [p.grad for p in tree_leaves(params)]
+        if impl == "auto":
+            if arch != "whisper-large-v3":      # its FF is torch.matmul
+                assert build.LAUNCHES["matmul"] > 0
+            assert build.LAUNCHES["flash_attention"] > 0
+            assert build.LAUNCHES["flash_attention_bwd_plain"] == \
+                build.LAUNCHES["flash_attention"] // 2
+        else:
+            assert build.LAUNCHES["matmul"] == 0
+            assert build.LAUNCHES["flash_attention"] == 0
+    for g, r in zip(grads["auto"], grads["reference"]):
+        assert g is not None and bool(g.abs().max() > 0)
+        _close(g, r, 1e-4)
+    tree_map(lambda p: p.requires_grad_(False), params)
+
+
+def test_trainer_on_the_card_restores_and_finishes(dev, tmp_path):
+    """The smoke Trainer on the card: an interrupted run restores its
+    checkpoint and replays the uninterrupted run bit for bit: the same
+    losses after the checkpoint and the same final parameters."""
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.optim import adamw
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    cfg = configs.get_smoke("qwen2-1.5b")
+    data = DataConfig(vocab_size=cfg.vocab_size, seq_len=32, global_batch=4)
+
+    def run(name, fail_at=None):
+        tcfg = TrainerConfig(steps=20, checkpoint_every=10, peak_lr=1e-3,
+                             warmup_steps=5, checkpoint_dir=str(
+                                 tmp_path / name))
+        return Trainer(cfg, data, tcfg, device="cuda",
+                       opt_cfg=adamw.AdamWConfig(weight_decay=0.01)).run(
+            fail_at=fail_at)
+
+    build.reset_launches()
+    clean = run("clean")
+    assert build.LAUNCHES["matmul"] > 0 and build.LAUNCHES["flash_attention"] > 0
+    failed = run("failed", fail_at=13)
+    assert failed["restarts"] == 1
+    assert clean["losses"][-1] < clean["losses"][0]
+    assert failed["losses"][-10:] == clean["losses"][-10:]
+    assert all(torch.equal(a, b) for a, b in zip(
+        tree_leaves(failed["params"]), tree_leaves(clean["params"])))

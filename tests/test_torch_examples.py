@@ -9,7 +9,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.core import TilePlan  # noqa: E402
 from repro_torch.examples import (quickstart, resize_images,  # noqa: E402
-                                  serve_lm, tune_tiles)
+                                  serve_lm, train_lm, tune_tiles)
 
 
 def test_quickstart(capsys):
@@ -53,9 +53,35 @@ def test_serve_lm(capsys):
     assert "3 requests, 12 tokens" in out
 
 
+@pytest.fixture
+def one_torch_thread():
+    """One intra-op thread: a training run is many small ops, and with
+    torch's default pool (a thread a core in each of the suite's six
+    workers) the threads spin on their barriers (the trainer's tests took
+    509 s of a whole run's worker time so, 32 s on one thread)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def test_train_lm(tmp_path, capsys, one_torch_thread):
+    """The 100M-parameter example at two steps of 16 tokens (the loss
+    assertion needs 100 steps, which chip_smoke runs on the card)."""
+    out = train_lm.main(["--device", "cpu", "--steps", "2", "--seq-len",
+                         "16", "--global-batch", "2", "--checkpoint-dir",
+                         str(tmp_path)])
+    text = capsys.readouterr().out
+    assert "config demo-100m: 109M params" in text
+    assert "over 2 steps (restarts=0)" in text
+    assert len(out["losses"]) == 2
+    assert sorted(p.name for p in tmp_path.iterdir()) == ["step_0000000002"]
+
+
 def test_examples_need_a_card_unless_given_the_cpu():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is usable")
-    for example in (quickstart, resize_images, tune_tiles, serve_lm):
+    for example in (quickstart, resize_images, tune_tiles, serve_lm,
+                    train_lm):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             example.main([])

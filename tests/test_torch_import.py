@@ -67,7 +67,13 @@ def test_importing_the_whole_port_loads_no_jax_and_no_repro():
                  "repro_torch.examples.quickstart",
                  "repro_torch.examples.resize_images",
                  "repro_torch.examples.tune_tiles",
-                 "repro_torch.examples.serve_lm"):
+                 "repro_torch.examples.serve_lm",
+                 "repro_torch.data.pipeline", "repro_torch.optim.adamw",
+                 "repro_torch.optim.schedule",
+                 "repro_torch.distributed.fault_tolerance",
+                 "repro_torch.checkpoint.manager", "repro_torch.train.step",
+                 "repro_torch.train.trainer", "repro_torch.launch.train",
+                 "repro_torch.examples.train_lm"):
         assert name in mods
 
 
@@ -102,7 +108,7 @@ def test_cuda_sources_are_beside_the_port():
         assert "torch/extension.h" not in text
 
 
-def test_entry_points_need_a_card_unless_given_the_cpu():
+def test_entry_points_need_a_card_unless_given_the_cpu(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is usable")
     from repro_torch import configs
@@ -125,6 +131,23 @@ def test_entry_points_need_a_card_unless_given_the_cpu():
         ServeEngine(cfg, params)
     eng = ServeEngine(cfg, params, device="cpu")
     assert eng.device.type == "cpu"
+
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.launch import train
+    from repro_torch.models.convert import opt_state_from_jax
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    data_cfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=8,
+                          global_batch=2)
+    tcfg = TrainerConfig(steps=1, checkpoint_dir=str(tmp_path))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Trainer(cfg, data_cfg, tcfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--steps", "1", "--checkpoint-dir", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        opt_state_from_jax(cfg, {"m": {"segments": []},
+                                 "v": {"segments": []}, "step": 0})
+    assert Trainer(cfg, data_cfg, tcfg, device="cpu").device.type == "cpu"
 
 
 def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):
