@@ -224,7 +224,26 @@ Phases, each of which fails the run if it fails:
    falls by more than 1.0, a failure at step 120 restores step 100 and
    ends at the uninterrupted run's loss within 1e-3, and the launcher
    ``python -m repro_torch.launch.train --steps 20 --checkpoint-every 10
-   --fail-at 12`` exits 0 with one restart.
+   --fail-at 12`` exits 0 with one restart; (e) the recurrent mixers under
+   training: (a) the ssd and rglru gradients through their autograd
+   Functions (backwards on the kernels: the forward kernels on the
+   time-reversed problem, ``repro_ssd_bwd`` for dB and dC) against autograd
+   of the plain scans, at mamba2-2.7b's width (S 4096, H 80, P 64, N 128,
+   chunk 64) and recurrentgemma-9b's (S 4096, F 4096) and at a ragged S
+   4001, float32 and bf16, one forward and one backward counted each; each
+   backward timed beside the plain version's and its bound; (b)
+   full-width mamba2-2.7b (64 layers, float32, seed 0), one batch of 8 x
+   512: ``api.train_loss`` and backward through the kernels against
+   ``impl="reference"``, the loss and every leaf within 1e-4 of max(1,
+   max |plain|), every leaf non-zero, 128 ssd and 64 ssd_bwd launches;
+   (c) five ``make_train_step`` steps of it: losses falling, host ms a
+   step, tokens/s, peak allocated bytes, with ``--profile`` a sixth step's
+   device ms by group (einsum products, ssd forward, ssd backward, head
+   and loss, AdamW, other); (d) recurrentgemma-9b at full width and 2 of
+   its (rglru, rglru, local_attn) units (6 of 38 layers, 2.36 B
+   parameters): the same check and three steps; then the train launcher
+   at both models' smoke configs, 20 steps with a failure at step 12,
+   each scan's forward and backward launched.
 
 ``--profile`` adds, after phase 5, where the time of one full-width qwen2
 request goes (prefill, eager decode, captured decode): wall time, device
@@ -238,7 +257,9 @@ over the compile of phase 9, ssd over the serve of phase 10 and rglru over
 the serve of phase 11, each reset to 0 just before its path and read just
 after (phase 16 prints its own counts over the phase and after the kill,
 on lines before the kernels line; the matmul and flash_attention lines
-also give their counts over one train step of phase 17c); phase 4b reads its own counts over its two plan serves and fails
+also give their counts over one train step of phase 17c, the ssd and rglru
+lines under ``launches_by_path["train"]`` the forward and backward calls
+of one train step of phase 17e (c) and (d)); phase 4b reads its own counts over its two plan serves and fails
 unless each of the serving kernels ran, phase 9 fails unless its compile
 launched bilinear, ssd and rglru, and phase 13 sets the counts to 0 before
 each paged serve and fails unless matmul, flash_attention and flash_decode
@@ -4480,6 +4501,24 @@ TRAIN_STEP_LAUNCHES = {"matmul": 28 * 12, "flash_attention": 28 * 2,
 # the final parameters must equal the uninterrupted run's bit for bit (a
 # step is deterministic and the checkpoint holds params, moments and step).
 EXAMPLE_STEPS, EXAMPLE_FAIL_AT = 200, 120
+# 17e (a): each scan's gradients at its model's full width: mamba2-2.7b's
+# SSD (H 80, P 64, N 128, its float32 chunk 64) and recurrentgemma-9b's
+# RG-LRU (F 4096), one batch row of 4096 steps and a ragged 4001 (no
+# multiple of the chunk or of the RG-LRU's 32-step tile).
+SCAN_GRAD_WIDTHS = {"ssd": dict(h=80, p=64, n=128, chunk=64),
+                    "rglru": dict(f=4096)}
+SCAN_GRAD_S = (4096, 4001)
+# 17e (b): each gradient leaf of full-width mamba2-2.7b (and of 17e (d)'s
+# recurrentgemma-9b), kernels against the plain versions, and the loss,
+# within this of max(1, max |plain|).
+SCAN_TRAIN_GRAD_TOL = 1e-4
+# 17e (d): recurrentgemma-9b at full width and this many (rglru, rglru,
+# local_attn) units: 6 of its 38 layers, 2.36 B parameters (the tied
+# 256,000 x 4096 embedding is 1.05 B of them), 37.8 GB as float32 weights,
+# gradients and two moments. All 38 layers (9.4 B, 150 GB) do not fit;
+# three units (3.02 B, 48.3 GB) ran out of the card's memory in AdamW,
+# whose update of the embedding leaf takes 3.9 GB a temporary.
+RG_TRAIN_UNITS = 2
 
 
 def eager_ms(fn, iters: int = 10, warmup: int = 2) -> float:
@@ -4807,7 +4846,7 @@ TRAIN_LABELS = {"train.matmul_forward": "matmul forward (+ recompute)",
                 "train.head_loss": "head and loss (forward)"}
 
 
-def _train_groups(prof):
+def _train_groups(prof, labels_by_range=None, by_name=None):
     """Device ms of a profiled train step by group, and the device's busy
     ms (the union of the kernels' intervals). A kernel that ran inside a
     labelled range on the device's timeline (TRAIN_LABELS) goes to that
@@ -4821,27 +4860,29 @@ def _train_groups(prof):
 
     from torch.autograd import DeviceType
 
+    ranges = TRAIN_LABELS if labels_by_range is None else labels_by_range
     labels, kernels = [], []
     for ev in prof.events():
         if ev.device_type != DeviceType.CUDA:
             continue
         span = (ev.time_range.start, ev.time_range.end, ev.name)
-        if ev.name in TRAIN_LABELS:
+        if ev.name in ranges:
             labels.append(span)
         elif not getattr(ev, "is_user_annotation", False):
             kernels.append(span)
     labels.sort()
     starts = [start for start, _, _ in labels]
-    by_name = {"matmul": "matmul backward",
-               "flash_attention": "flash_attention forward (+ recompute)",
-               "torch.matmul (projections, head)":
-                   "torch.matmul (projections, head; backward included)",
-               "other torch ops": "other torch ops (backward included)"}
+    if by_name is None:
+        by_name = {"matmul": "matmul backward",
+                   "flash_attention": "flash_attention forward (+ recompute)",
+                   "torch.matmul (projections, head)":
+                       "torch.matmul (projections, head; backward included)",
+                   "other torch ops": "other torch ops (backward included)"}
     groups, busy_us, reach = {}, 0.0, None
     for start, end, name in sorted(kernels):
         i = bisect.bisect_right(starts, start) - 1
         if i >= 0 and start < labels[i][1]:
-            group = TRAIN_LABELS[labels[i][2]]
+            group = ranges[labels[i][2]]
         else:
             group = by_name.get(_kernel_group(name), _kernel_group(name))
         groups[group] = groups.get(group, 0.0) + (end - start) / 1e3
@@ -5055,9 +5096,484 @@ def train_example(tmp_dir: Path):
                 launches=launches, launcher=final[-1] if final else None)
 
 
+def _scan_grad_operands(kernel, width, s, dt, device, seed):
+    """17e (a): one batch row of a scan's inputs and of the weights of its
+    two outputs (the objective is sum(y w_y) + sum(h_last w_h))."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def rand(shape, lo=0.0, hi=1.0):
+        return (torch.rand(shape, generator=gen, device=device) * (hi - lo)
+                + lo).to(dt)
+
+    def randn(shape, scale=1.0, dtype=dt):
+        return (torch.randn(shape, generator=gen, device=device)
+                * scale).to(dtype)
+
+    if kernel == "ssd":
+        h, p, n = width["h"], width["p"], width["n"]
+        inputs = (rand((1, h, s), -0.1, 0.0), randn((1, s, h, p), 0.05),
+                  randn((1, s, n)), randn((1, s, n)), randn((1, h, n, p)))
+        weights = (randn((1, s, h, p), dtype=torch.float32),
+                   randn((1, h, n, p), dtype=torch.float32))
+    else:
+        f = width["f"]
+        inputs = (rand((1, s, f), 0.5, 1.0), randn((1, s, f)), randn((1, f)))
+        weights = (randn((1, s, f), dtype=torch.float32),
+                   randn((1, f), dtype=torch.float32))
+    return inputs, weights
+
+
+def _scan_fns(kernel, width):
+    """(kernel path, plain version) of a scan as 17e (a) calls them."""
+    from repro_torch.kernels.rglru import ops as rg_ops
+    from repro_torch.kernels.ssd import ops as ssd_ops
+
+    if kernel == "ssd":
+        q = width["chunk"]
+        return (lambda *t: ssd_ops.ssd_scan(*t, chunk=q),
+                lambda *t: ssd_ops.ssd_scan_ref(*t, chunk=q))
+    return rg_ops.rglru_scan, rg_ops.rglru_scan_ref
+
+
+def _scan_objective(fn, inputs, weights):
+    """(leaves, objective) of sum(y w_y) + sum(h_last w_h) through ``fn``."""
+    leaves = [t.detach().requires_grad_(True) for t in inputs]
+    outs = fn(*leaves)
+    return leaves, sum((o.float() * w).sum() for o, w in zip(outs, weights))
+
+
+def scan_grad_checks(device="cuda", widths=SCAN_GRAD_WIDTHS,
+                     lengths=SCAN_GRAD_S):
+    """17e (a): the ssd and rglru gradients through ``_SsdScanFn`` /
+    ``_RglruScanFn`` (their backwards on the kernels) against autograd of
+    the plain scans on the same inputs, float32 and bf16, at each length;
+    each gradient within REL_TOL of max(1, max |plain|), one forward and one
+    backward counted. ``device="cpu"`` rehearses the schedule on the plain
+    versions (nothing launched)."""
+    import torch
+
+    from repro_torch.kernels import build
+
+    on_card = torch.device(device).type == "cuda"
+    rows = []
+    names = {"ssd": ("dlog_a", "ddtx", "dB", "dC", "dh0"),
+             "rglru": ("da", "dx", "dh0")}
+    for kernel, width in widths.items():
+        fn, plain = _scan_fns(kernel, width)
+        for dname, dt in (("float32", torch.float32),
+                          ("bfloat16", torch.bfloat16)):
+            for s in lengths:
+                inputs, weights = _scan_grad_operands(kernel, width, s, dt,
+                                                      device, seed=s)
+                build.reset_launches()
+                leaves, obj = _scan_objective(fn, inputs, weights)
+                got = torch.autograd.grad(obj, leaves)
+                if on_card:
+                    torch.cuda.synchronize()
+                launches = (build.LAUNCHES[kernel],
+                            build.LAUNCHES[f"{kernel}_bwd"])
+                leaves, obj = _scan_objective(plain, inputs, weights)
+                want = torch.autograd.grad(obj, leaves)
+                errs = {}
+                for name, g, w in zip(names[kernel], got, want):
+                    check(g.dtype == w.dtype == dt and g.shape == w.shape,
+                          f"{kernel} gradient {name}: {g.dtype} {g.shape}")
+                    err = max_err(g, w)
+                    errs[name] = err / max(1.0, float(w.float().abs().max()))
+                    check(within(err, w, dname), f"{kernel} s={s} {dname}: "
+                          f"{name} differs by {err:.3e} (max "
+                          f"{float(w.float().abs().max()):.3g})")
+                check(launches == ((1, 1) if on_card else (0, 0)),
+                      f"{kernel} s={s} {dname}: launches {launches}")
+                case = f"grad s={s} " + " ".join(
+                    f"{k}={v}" for k, v in width.items())
+                rows.append(dict(kernel=f"{kernel}_bwd", case=case,
+                                 dtype=dname, rel_err=errs,
+                                 launches=launches))
+                log(f"  {kernel + '_bwd':10s} {case:40s} {dname:8s} "
+                    + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+                    + f" | {launches}")
+                del inputs, weights, leaves, obj, got, want
+    return rows
+
+
+def scan_backward_times(widths=SCAN_GRAD_WIDTHS, s=SCAN_GRAD_S[0]):
+    """17e (a): each scan's backward alone at its full width, float32 and
+    bf16: the kernel backward (from a forward's saved outputs:
+    ``ssd_scan_backward`` on the kernels, ``repro_rglru_bwd``) as a CUDA
+    graph, its launches' device ms, the plain version's backward (autograd
+    of the plain scan, its forward's graph kept), and the bound; for rglru
+    also the simple version (the forward kernels on time-flipped copies)
+    and those copies alone. No PyTorch call computes either scan."""
+    import torch
+
+    from repro_torch.kernels.rglru import ops as rg_ops
+    from repro_torch.kernels.ssd import ops as ssd_ops
+
+    timed = []
+    for kernel, width in widths.items():
+        _, plain = _scan_fns(kernel, width)
+        for dname, dt in (("float32", torch.float32),
+                          ("bfloat16", torch.bfloat16)):
+            inputs, weights = _scan_grad_operands(kernel, width, s, dt,
+                                                  "cuda", seed=7)
+            eb = inputs[1].element_size()
+            dy, dh = (w.to(dt) for w in weights)
+            row = dict(kernel=f"{kernel}_bwd", dtype=dname,
+                       shape=dict(b=1, s=s, **width), library_ms=None)
+            if kernel == "ssd":
+                log_a, dtx, bm, cm, h0 = inputs
+                q = width["chunk"]
+                prob = dict(s=s, h=width["h"], p=width["p"], n=width["n"])
+                y, hl, h_in = ssd_ops._ssd_cuda(*inputs, q)
+
+                def bwd():
+                    return ssd_ops.ssd_scan_backward(
+                        *inputs, y, hl, h_in, dy, dh, q, ssd_ops._ssd_cuda,
+                        ssd_ops._ssd_bwd_cuda)
+                # log_a, dtx, B, C, h0, y, h_last, dy and dh_last read once;
+                # the five gradients written once.
+                nb = (2 * sum(t.numel() for t in inputs) + y.numel()
+                      + hl.numel() + dy.numel() + dh.numel()) * eb
+                flops = ssd_ops.bwd_flops(q, prob)
+                row["bound_ms"], row["bound_by"] = bound(nb, flops,
+                                                         TC_RATE[dname])
+            else:
+                a, x, h0 = inputs
+                y, _ = rg_ops._rglru_cuda(a, x, h0)
+
+                def bwd():
+                    return rg_ops._rglru_bwd_cuda(a, y, h0, dy, dh)
+
+                def by_flips():
+                    return rg_ops.rglru_scan_backward(a, y, h0, dy, dh,
+                                                      rg_ops._rglru_cuda)
+                g = torch.empty_like(y)
+
+                def flips():
+                    torch.cat([torch.ones_like(a[:, :1]),
+                               torch.flip(a[:, 1:], (1,))], dim=1)
+                    torch.flip(dy, (1,)).contiguous()
+                    torch.flip(g, (1,))
+                    torch.cat([h0[:, None], y[:, :-1]], dim=1)
+                # a, y and dy read, dx and da written (h0, dh_last, dh0
+                # beside them).
+                nb = (5 * s * width["f"] + 3 * width["f"]) * eb
+                row["bound_ms"], row["bound_by"] = bound(
+                    nb, 4.0 * s * width["f"], dname)
+                # The simple version beside the kernel: the forward kernels
+                # on flipped copies, and those copies alone.
+                row["by_flips_ms"] = time_ms([by_flips], iters=8)
+                row["flips_ms"] = time_ms([flips], iters=8)
+            row["ms"] = time_ms([bwd], iters=8)
+            row["launch_ms"] = device_kernels(bwd, calls=3)
+            leaves, obj = _scan_objective(plain, inputs, weights)
+            row["plain_ms"] = eager_ms(lambda: torch.autograd.grad(
+                obj, leaves, retain_graph=True), iters=3, warmup=1)
+            del leaves, obj
+            timed.append(row)
+            log(f"  {kernel}_bwd {dname:8s} s={s}: {row['ms']:.4f} ms"
+                + (f" (the forward kernels on flipped copies "
+                   f"{row['by_flips_ms']:.4f}, the copies alone "
+                   f"{row['flips_ms']:.4f})" if "flips_ms" in row else "")
+                + f", plain backward {row['plain_ms']:.2f}, bound "
+                f"{row['bound_ms']:.4f} ({row['bound_by']}); launches "
+                + ", ".join(f"{k} {v:.4f}" for k, v in sorted(
+                    row["launch_ms"].items(), key=lambda kv: -kv[1])[:6]))
+    return timed
+
+
+def _scan_step_launches(cfg, on_card: bool):
+    """One remat train step's scan launches: each scan layer's forward
+    twice (the recompute) and its backward once."""
+    out = {}
+    for scan in ("ssd", "rglru"):
+        layers = sum(spec.mixer == scan for spec in cfg.layer_pattern)
+        if layers:
+            out[scan] = 2 * layers if on_card else 0
+            out[f"{scan}_bwd"] = layers if on_card else 0
+    return out
+
+
+def scan_train_parity(cfg, params, batch: int, seq: int):
+    """17e (b), (d): one batch through ``api.train_loss`` and its backward,
+    the kernels against ``impl="reference"`` (the plain versions; for the
+    SSD the reference's chunked jnp form, for the RG-LRU its loop): the
+    loss and every leaf's gradient within SCAN_TRAIN_GRAD_TOL of max(1,
+    max |plain|), every leaf's gradient set and non-zero, and the scans'
+    launches of the step (none on the plain path)."""
+    import torch
+
+    from repro_torch.kernels import build
+    from repro_torch.models import api
+
+    data = _train_batch(cfg, batch, seq)
+    leaves = list(_leaves(params))
+    on_card = leaves[0].is_cuda
+    out = {}
+    for impl in ("auto", "reference"):
+        for p in leaves:
+            p.grad = None
+            p.requires_grad_(True)
+        build.reset_launches()
+        t0 = time.perf_counter()
+        loss, _ = api.train_loss(params, cfg, data, impl=impl)
+        loss.backward()
+        if on_card:
+            torch.cuda.synchronize()
+        out[impl] = dict(loss=float(loss.detach()), s=time.perf_counter() - t0,
+                         launches=dict(build.LAUNCHES),
+                         grads=[p.grad for p in leaves])
+        del loss
+    for p in leaves:
+        p.grad = None
+        p.requires_grad_(False)
+    k, r = out["auto"], out["reference"]
+    loss_err = abs(k["loss"] - r["loss"]) / max(1.0, abs(r["loss"]))
+    check(loss_err <= SCAN_TRAIN_GRAD_TOL,
+          f"{cfg.name} train loss {k['loss']} vs plain {r['loss']}")
+    worst, worst_leaf = 0.0, None
+    for i, (g, ref) in enumerate(zip(k["grads"], r["grads"])):
+        check(g is not None and bool(g.abs().max() > 0),
+              f"{cfg.name}: parameter {i} got no gradient through the kernels")
+        rel = float((g - ref).abs().max()) / max(1.0, float(ref.abs().max()))
+        if rel > worst:
+            worst, worst_leaf = rel, i
+    check(worst <= SCAN_TRAIN_GRAD_TOL, f"{cfg.name}: gradient leaf "
+          f"{worst_leaf} differs by {worst:.3e} x max(1, its max)")
+    want = _scan_step_launches(cfg, on_card)
+    launches = {name: k["launches"][name] for name in want}
+    check(launches == want, f"{cfg.name}: one train step launched "
+          f"{launches}, expected {want}")
+    check(all(v == 0 for v in r["launches"].values()),
+          f"{cfg.name}: the plain path launched kernels: {r['launches']}")
+    log(f"  loss {k['loss']:.6f} (plain {r['loss']:.6f}, error {loss_err:.2e});"
+        f" {len(leaves)} gradient leaves, all non-zero, worst {worst:.3e} x "
+        f"max(1, max) (leaf {worst_leaf}, tol {SCAN_TRAIN_GRAD_TOL:g}); "
+        f"launches {k['launches']}; first call {k['s']:.2f} s, plain "
+        f"{r['s']:.2f} s")
+    del out
+    return dict(loss=k["loss"], plain_loss=r["loss"], loss_err=loss_err,
+                worst_grad_rel=worst, worst_leaf=worst_leaf,
+                launches=k["launches"])
+
+
+# 17e (c) --profile: the ranges labelled on a profiled mamba2 step.
+SCAN_TRAIN_LABELS = {"train.ssd_forward": "ssd forward (+ recompute)",
+                     "train.ssd_backward": "ssd backward",
+                     "train.adamw": "adamw",
+                     "train.head_loss": "head and loss (forward)"}
+
+
+def scan_train_steps(cfg, params, profile: bool, batch: int, seq: int,
+                     steps: int = 5):
+    """17e (c): ``steps`` steps of ``make_train_step`` (AdamW, weight decay
+    0.01, warmup-cosine) from ``params``: the losses finite (and falling
+    over five steps), host ms a step (median of steps 2 on, each ending
+    with its loss read back), tokens/s, peak allocated bytes, model FLOP/s
+    (6 N tokens) and the scans' launches of the third step; with
+    ``profile`` one more step's device ms by group: the einsum products
+    (cuBLAS; the projections and the head's backward), ssd forward (with
+    its recompute), ssd backward, head and loss, AdamW, other."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+    from torch.profiler import record_function
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.models import transformer
+    from repro_torch.optim import adamw
+    from repro_torch.optim.schedule import warmup_cosine
+    from repro_torch.train.step import make_train_step
+
+    n_params = sum(p.numel() for p in _leaves(params))
+    opt_cfg = adamw.AdamWConfig(weight_decay=0.01)
+    opt_state = adamw.init_state(params, opt_cfg)
+    step_fn = make_train_step(cfg, opt_cfg, lambda s: warmup_cosine(
+        s, peak_lr=TRAIN_PEAK_LR, warmup_steps=1, total_steps=steps))
+    tokens = batch * seq
+    on_card = next(_leaves(params)).is_cuda
+    want = _scan_step_launches(cfg, on_card)
+    losses, times, launches = [], [], None
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    for i in range(steps):
+        data = _train_batch(cfg, batch, seq, step=i)
+        if i == min(2, steps - 1):
+            build.reset_launches()
+        t0 = time.perf_counter()
+        params, opt_state, metrics = step_fn(params, opt_state, data)
+        losses.append(float(metrics["loss"]))
+        times.append((time.perf_counter() - t0) * 1e3)
+        if i == min(2, steps - 1):
+            launches = {k: build.LAUNCHES[k] for k in want}
+    peak = torch.cuda.max_memory_allocated() if on_card else 0
+    check(all(math.isfinite(x) for x in losses), f"losses {losses}")
+    if steps >= 5:
+        check(losses[-1] < losses[0], f"the loss did not fall: {losses}")
+    check(launches == want, f"{cfg.name}: a step launched {launches}, "
+          f"expected {want}")
+    step_ms = statistics.median(times[1:])
+    flops = 6.0 * n_params * tokens
+    out = dict(losses=losses, step_ms=times, median_step_ms=step_ms,
+               tokens_per_s=tokens / step_ms * 1e3, peak_allocated=peak,
+               model_tflops=flops / step_ms / 1e9, n_params=n_params,
+               launches=launches)
+    log(f"  losses {', '.join(f'{x:.4f}' for x in losses)}; step ms "
+        f"{', '.join(f'{x:.1f}' for x in times)}; median (steps 2-"
+        f"{steps}) {step_ms:.1f} ms = {out['tokens_per_s']:.0f} tokens/s; "
+        f"peak allocated {peak / 2**30:.2f} GiB; model "
+        f"{out['model_tflops']:.2f} TFLOP/s (6 N tokens, N = "
+        f"{n_params / 1e9:.3f} B); launches {launches}")
+    if profile and on_card:
+        real_update, real_loss = adamw.apply_updates, transformer.fused_lm_loss
+        real_fwd, real_bwd = ssd_ops._SsdScanFn.forward, ssd_ops._SsdScanFn.backward
+
+        def labelled(name, fn):
+            def call(*args, **kwargs):
+                with record_function(name):
+                    return fn(*args, **kwargs)
+            return call
+
+        adamw.apply_updates = labelled("train.adamw", real_update)
+        transformer.fused_lm_loss = labelled("train.head_loss", real_loss)
+        ssd_ops._SsdScanFn.forward = staticmethod(
+            labelled("train.ssd_forward", real_fwd))
+        ssd_ops._SsdScanFn.backward = staticmethod(
+            labelled("train.ssd_backward", real_bwd))
+        try:
+            data = _train_batch(cfg, batch, seq, step=steps)
+            torch.cuda.synchronize()
+            with torch_profile(activities=[ProfilerActivity.CPU,
+                                           ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                params, opt_state, metrics = step_fn(params, opt_state, data)
+                float(metrics["loss"])
+                wall = (time.perf_counter() - t0) * 1e3
+        finally:
+            adamw.apply_updates, transformer.fused_lm_loss = (real_update,
+                                                              real_loss)
+            ssd_ops._SsdScanFn.forward = staticmethod(real_fwd)
+            ssd_ops._SsdScanFn.backward = staticmethod(real_bwd)
+        groups, busy = _train_groups(prof, SCAN_TRAIN_LABELS, {
+            "torch.matmul (projections, head)":
+                "einsum products (projections, head; backward included)",
+            "other torch ops": "other torch ops (backward included)"})
+        out["profile"] = dict(wall_ms=wall, by_group_ms=groups,
+                              kernel_sum_ms=sum(groups.values()),
+                              device_busy_ms=busy,
+                              device_idle_share=max(0.0, 1 - busy / wall)
+                              if busy else None)
+        log(f"  profiled step: wall {wall:.1f} ms, device busy {busy:.1f} ms "
+            f"(kernel times summed {sum(groups.values()):.1f} ms), idle "
+            f"share {out['profile']['device_idle_share']}")
+        for g, t in sorted(groups.items(), key=lambda kv: -kv[1]):
+            log(f"    {g:56s} {t:.3f} ms")
+    del opt_state
+    return out
+
+
+def recurrent_train_phase(profile: bool, device="cuda", mamba2=None,
+                          recurrentgemma=None, batch: int = TRAIN_BATCH,
+                          seq: int = TRAIN_SEQ):
+    """17e: (a) the scans' gradients and backward times, (b)-(c) full-width
+    mamba2-2.7b (64 layers, float32, seed 0) at ``batch`` x ``seq`` tokens:
+    one batch's loss and gradients, kernels against the plain versions, and
+    five train steps; (d) recurrentgemma-9b at full width and RG_TRAIN_UNITS
+    of its units: the same check and three steps. ``device="cpu"`` with
+    smoke configs rehearses the schedule on the plain versions."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.models import api
+
+    on_card = torch.device(device).type == "cuda"
+    out = {}
+    t0 = time.perf_counter()
+    if on_card:
+        out["grad_checks"] = scan_grad_checks()
+        out["times"] = scan_backward_times()
+    else:
+        out["grad_checks"] = scan_grad_checks(
+            device, {"ssd": dict(h=3, p=8, n=16, chunk=8),
+                     "rglru": dict(f=16)}, (24, 21))
+    log(f"  [17e (a): {time.perf_counter() - t0:.1f} s]")
+    if mamba2 is None:
+        mamba2 = configs.get_arch("mamba2-2.7b")
+    if recurrentgemma is None:
+        full = configs.get_arch("recurrentgemma-9b")
+        recurrentgemma = dataclasses.replace(
+            full, n_layers=3 * RG_TRAIN_UNITS,
+            layer_pattern=full.layer_pattern[:3 * RG_TRAIN_UNITS]).validate()
+    for key, cfg, steps in (("mamba2", mamba2, 5),
+                            ("recurrentgemma", recurrentgemma, 3)):
+        if on_card:
+            _release()
+            params, _ = _init_full(cfg)
+        else:
+            params = api.init_params(cfg, 0, device=device)
+        log(f"== 17e {'(b)-(c)' if key == 'mamba2' else '(d)'}: {cfg.name} "
+            f"({cfg.n_layers} layers, d_model {cfg.d_model}), one batch of "
+            f"{batch} x {seq}: train_loss and backward, kernels vs plain "
+            f"versions; {steps} train steps")
+        t0 = time.perf_counter()
+        res = out[key] = dict(n_layers=cfg.n_layers)
+        res["parity"] = scan_train_parity(cfg, params, batch, seq)
+        res["steps"] = scan_train_steps(cfg, params, profile and key == "mamba2",
+                                        batch, seq, steps=steps)
+        del params
+        log(f"  [17e {key}: {time.perf_counter() - t0:.1f} s]")
+    if on_card:
+        _release()
+        out["launcher"] = {arch: scan_launcher(arch) for arch in
+                           ("mamba2-2.7b", "recurrentgemma-9b")}
+    return out
+
+
+def scan_launcher(arch: str):
+    """17e: the train launcher at ``arch``'s smoke config on the card, 20
+    steps with a failure at 12 (one restart from the step-10 checkpoint):
+    rc 0, and its scan's forward and backward launched."""
+    import re
+    import shutil
+    import tempfile
+
+    scan = "ssd" if arch.startswith("mamba2") else "rglru"
+    tmp_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_launcher_"))
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch", arch,
+           "--steps", "20", "--checkpoint-every", "10", "--fail-at", "12",
+           "--checkpoint-dir", str(tmp_dir)]
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True,
+                              env=dict(os.environ, PYTHONPATH=str(SRC)),
+                              timeout=600, cwd=ROOT)
+    finally:
+        shutil.rmtree(tmp_dir, ignore_errors=True)
+    counts = {k: int(v) for k, v in re.findall(
+        r"'(\w+)': (\d+)", "".join(line for line in proc.stdout.splitlines()
+                                    if line.startswith("kernel launches")))}
+    check(proc.returncode == 0 and "restarts: 1" in proc.stdout
+          and counts.get(scan, 0) > 0 and counts.get(f"{scan}_bwd", 0) > 0,
+          f"launcher {arch}: rc {proc.returncode}, launches {counts}\n"
+          f"{proc.stdout[-2000:]}\n{proc.stderr[-2000:]}")
+    final = [line for line in proc.stdout.splitlines()
+             if line.startswith("final loss")]
+    log(f"  launcher --arch {arch} --steps 20 --fail-at 12: "
+        f"{final[-1] if final else '?'}; {scan} {counts[scan]}, {scan}_bwd "
+        f"{counts[scan + '_bwd']} launches; {time.perf_counter() - t0:.1f} s")
+    return dict(final=final[-1] if final else None, launches=counts)
+
+
 def train_phase(profile: bool):
     """Phase 17 (after 15d): 17a kernel gradients, 17b-c full-width
-    qwen2-1.5b, 17d the 100M example and the launcher."""
+    qwen2-1.5b, 17d the 100M example and the launcher, 17e the scans'
+    gradients and full-width mamba2-2.7b and recurrentgemma-9b training."""
     import shutil
     import tempfile
 
@@ -5092,6 +5608,11 @@ def train_phase(profile: bool):
     finally:
         shutil.rmtree(tmp_dir, ignore_errors=True)
     log(f"  [17d: {time.perf_counter() - t0:.1f} s]")
+    log("== 17e: the ssd and rglru gradients on the kernels, full-width "
+        "mamba2-2.7b and recurrentgemma-9b (reduced depth) train steps")
+    t0 = time.perf_counter()
+    out["recurrent"] = recurrent_train_phase(profile)
+    log(f"  [17e: {time.perf_counter() - t0:.1f} s]")
     return out
 
 
@@ -5418,6 +5939,15 @@ def main(argv=None) -> int:
             for name in ("matmul", "flash_attention"):
                 by_path[name]["qwen2 train step (phase 17c)"] = \
                     result["train"]["steps"]["launches"][name]
+            # One remat train step of full-width mamba2-2.7b and of 17e
+            # (d)'s recurrentgemma-9b: forward (with the recompute) and
+            # backward calls.
+            recurrent = result["train"]["recurrent"]
+            by_path["ssd"] = {"mamba2 serve (phase 10)": launches["ssd"],
+                              "train": recurrent["mamba2"]["steps"]["launches"]}
+            by_path["rglru"] = {
+                "recurrentgemma serve (phase 11)": launches["rglru"],
+                "train": recurrent["recurrentgemma"]["steps"]["launches"]}
             line = kernels_line(rows, launches, by_path)
             result["kernels"] = line["kernels"]
         result["seconds"] = time.perf_counter() - t_start

@@ -23,14 +23,14 @@ from repro_torch.core.plans import (
     TilePlan,
     compile_plan,
 )
-from repro_torch.core.policy import TilingPolicy
+from repro_torch.core.policy import TilingPolicy, default_policy, set_default_policy
 from repro_torch.core.tiling import TileConstraints, TileShape, cdiv, round_up
 
 __all__ = [
     "Autotuner", "NoLegalTileError", "SweepResult", "CostBreakdown",
     "TileWorkload", "estimate", "HardwareModel", "HARDWARE_REGISTRY",
     "PRODUCTION_TARGET", "H100_SXM", "GTX260", "GEFORCE_8800GTS", "MODELLED",
-    "TilingPolicy", "TileConstraints", "TileShape", "cdiv", "round_up",
+    "TilingPolicy", "default_policy", "set_default_policy", "TileConstraints", "TileShape", "cdiv", "round_up",
     "PLAN_SCHEMA_VERSION", "PlanEntry", "PlanError", "PlanResolution",
     "PlanSchemaError", "PlanTransferWarning", "PlanVersionWarning",
     "TilePlan", "compile_plan",

@@ -59,6 +59,12 @@ class HardwareModel:
     def sublane(self) -> Dict[str, int]:
         return {"float32": self.sublane_fp32, "bfloat16": self.sublane_bf16}
 
+    def arithmetic_intensity_knee(self) -> float:
+        """FLOP/byte at which the chip turns from memory- to compute-bound:
+        the bf16 matrix rate over device-memory bandwidth (on the H100,
+        989e12 / 3.35e12, about 295)."""
+        return self.peak_flops_bf16 / self.hbm_bw
+
 
 # ---------------------------------------------------------------------------
 # NVIDIA H100 SXM (Hopper, sm_90a) — NVIDIA's data sheet and the Hopper

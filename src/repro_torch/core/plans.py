@@ -476,10 +476,12 @@ def compile_entry(
     hw: HardwareModel,
     autotuner=None,
     max_candidates: int = 256,
+    curve_cap: Optional[int] = None,
     measure_fn=None,
 ) -> PlanEntry:
     """Sweep one cell and package the result as a :class:`PlanEntry`.
 
+    ``curve_cap`` keeps only the best N points of the score-sorted curve.
     ``measure_fn`` (tile -> seconds, see ``launch.measure``) adds wall-clock
     timing of the analytically-best candidates; measured scores outrank
     analytic ones in the sweep's ``best`` selection.
@@ -501,6 +503,8 @@ def compile_entry(
          if math.isfinite(e.score)),
         key=lambda p: p[1],
     )
+    if curve_cap is not None:
+        curve = curve[:curve_cap]
     return PlanEntry(
         kernel=kernel,
         hardware=hw.name,
@@ -519,6 +523,7 @@ def compile_plan(
     jobs: Iterable[PlanJob],
     autotuner=None,
     max_candidates: int = 256,
+    curve_cap: Optional[int] = None,
     meta: Optional[Mapping] = None,
     measure_fn_factory=None,
 ) -> TilePlan:
@@ -544,6 +549,7 @@ def compile_plan(
             entry = compile_entry(kernel, problem, dtype, hw,
                                   autotuner=autotuner,
                                   max_candidates=max_candidates,
+                                  curve_cap=curve_cap,
                                   measure_fn=measure_fn)
         except NoLegalTileError as e:
             skipped += 1

@@ -99,3 +99,15 @@ class TilingPolicy:
                 best_worst, best_tile = worst, t
         return best_tile
 
+
+# Module-level default policy used by model code; tests may swap it.
+_DEFAULT = TilingPolicy()
+
+
+def default_policy() -> TilingPolicy:
+    return _DEFAULT
+
+
+def set_default_policy(policy: TilingPolicy) -> None:
+    global _DEFAULT
+    _DEFAULT = policy

@@ -36,11 +36,14 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 # Kernel launches per wrapper: each wrapper adds one where it launches its
 # kernel on the card, and nowhere else (the plain CPU path does not count).
-# A backward that launches its kernel counts under the kernel's name; the
-# flash-attention backward, the plain version's gradient (the reference has
-# no backward kernel), counts apart under "flash_attention_bwd_plain".
+# The matmul backward's launches count under "matmul"; the flash-attention
+# backward, the plain version's gradient (the reference has no backward
+# kernel), counts apart under "flash_attention_bwd_plain"; the scans'
+# backwards count once a call under "ssd_bwd" and "rglru_bwd", whatever
+# kernels they launch (the forward kernels on the reversed problem among
+# them), so that "ssd" and "rglru" count forward calls alone.
 LAUNCHES: Dict[str, int] = {name: 0 for name in SOURCES}
-LAUNCHES["flash_attention_bwd_plain"] = 0
+LAUNCHES.update(flash_attention_bwd_plain=0, ssd_bwd=0, rglru_bwd=0)
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 

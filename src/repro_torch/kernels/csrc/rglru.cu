@@ -32,6 +32,13 @@
 // read twice). Only h_in is rounded otherwise than in the plain scan: it
 // comes through the product of up to L decays. With one chunk (S <= L:
 // the decode step) only (c) runs, from h0.
+//
+// The backward (repro_rglru_bwd, below (c)): the same three launches over
+// time reversed, reading the reversed rows in place (no flipped copies),
+// with da = g h_{t-1} folded into the rescan. It moves a, dy and y in and
+// dx and da out, five arrays of S x F: 0.100 ms in float32 at S = F = 4096
+// is its bound. The Pallas kernel has no backward (the reference
+// differentiates its jnp scan).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -202,6 +209,110 @@ __global__ void rglru_rescan(const T* __restrict__ a, const T* __restrict__ x,
   }
 }
 
+// The backward (repro_rglru_bwd) is the same chunked scan run backward in
+// time: the adjoint g_t = a_{t+1} g_{t+1} + dy_t from g_{S-1} = dy_{S-1} +
+// dh_last. Step u = 0 .. S-1 of the reversed scan is time t = S - 1 - u,
+// its input dy_t and its decay a_{t+1} (1 at u = 0): (a) and (c) read those
+// rows in place of flipped copies, and (b) runs unchanged from dh_last.
+// The rescan writes dx_t = g_t and da_t = g_t h_{t-1} (h_{-1} = h0, else
+// the forward's y_{t-1}) and, at t = 0, dh0 = a_0 g_0: a, dy and y are read
+// (a and dy twice, with more than one chunk), dx and da written.
+template <typename T, int V>
+__device__ __forceinline__ void rev_step(const T* a, const T* dy, size_t row0,
+                                         int s, int u, int f, float* av,
+                                         float* xv) {
+  const int t = s - 1 - u;
+  if (u == 0) {
+#pragma unroll
+    for (int v = 0; v < V; ++v) av[v] = 1.f;
+  } else {
+    Vec<T, V>::load(a + row0 + (size_t)(t + 1) * f, av);
+  }
+  Vec<T, V>::load(dy + row0 + (size_t)t * f, xv);
+}
+
+// (a) backward: per (chunk of u, feature), A = prod a' and e, the chunk's
+// reversed scan from 0.
+template <typename T, int V>
+__global__ void rglru_bwd_summary(const T* __restrict__ a,
+                                  const T* __restrict__ dy,
+                                  float* __restrict__ acum,
+                                  float* __restrict__ ecum, int s, int f,
+                                  int bt, int bf, int nfb, int nc) {
+  int c, f0;
+  if (!place<V>(f, bf, nfb, c, f0)) return;
+  const int bb = blockIdx.y, u0 = c * bt, un = min(bt, s - u0);
+  const size_t row0 = (size_t)bb * s * f + f0;
+  float A[V], e[V];
+#pragma unroll
+  for (int v = 0; v < V; ++v) A[v] = 1.f, e[v] = 0.f;
+#pragma unroll 4
+  for (int u = u0; u < u0 + un; ++u) {
+    float av[V], xv[V];
+    rev_step<T, V>(a, dy, row0, s, u, f, av, xv);
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      e[v] = __fadd_rn(__fmul_rn(av[v], e[v]), xv[v]);
+      A[v] = __fmul_rn(A[v], av[v]);
+    }
+  }
+  const size_t o = ((size_t)bb * nc + c) * f + f0;
+#pragma unroll
+  for (int v = 0; v < V; ++v) acum[o + v] = A[v], ecum[o + v] = e[v];
+}
+
+// (c) backward: per (chunk of u, feature), the reversed rescan from the
+// adjoint entering the chunk (dh_last for the first), with dx, da and dh0.
+template <typename T, int V>
+__global__ void rglru_bwd_rescan(const T* __restrict__ a,
+                                 const T* __restrict__ dy,
+                                 const T* __restrict__ y,
+                                 const T* __restrict__ h0,
+                                 const T* __restrict__ dh_last,
+                                 const float* __restrict__ hin,
+                                 T* __restrict__ dx, T* __restrict__ da,
+                                 T* __restrict__ dh0, int s, int f, int bt,
+                                 int bf, int nfb, int nc) {
+  int c, f0;
+  if (!place<V>(f, bf, nfb, c, f0)) return;
+  const int bb = blockIdx.y, u0 = c * bt, un = min(bt, s - u0);
+  const size_t row0 = (size_t)bb * s * f + f0;
+  float g[V];
+  if (c == 0) {
+#pragma unroll
+    for (int v = 0; v < V; ++v) g[v] = to_f32(dh_last[(size_t)bb * f + f0 + v]);
+  } else {
+#pragma unroll
+    for (int v = 0; v < V; ++v) g[v] = hin[((size_t)bb * nc + c) * f + f0 + v];
+  }
+#pragma unroll 2
+  for (int u = u0; u < u0 + un; ++u) {
+    float av[V], xv[V], hp[V], dav[V];
+    rev_step<T, V>(a, dy, row0, s, u, f, av, xv);
+    const int t = s - 1 - u;
+    if (t > 0) {
+      Vec<T, V>::load(y + row0 + (size_t)(t - 1) * f, hp);
+    } else {
+#pragma unroll
+      for (int v = 0; v < V; ++v) hp[v] = to_f32(h0[(size_t)bb * f + f0 + v]);
+    }
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      g[v] = __fadd_rn(__fmul_rn(av[v], g[v]), xv[v]);
+      dav[v] = g[v] * hp[v];
+    }
+    Vec<T, V>::store(dx + row0 + (size_t)t * f, g);
+    Vec<T, V>::store(da + row0 + (size_t)t * f, dav);
+  }
+  if (c == nc - 1) {  // u = S - 1 is t = 0: dh0 = a_0 g_0
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      const float d = to_f32(a[row0 + v]) * g[v];
+      Vec<T, 1>::store(dh0 + (size_t)bb * f + f0 + v, &d);
+    }
+  }
+}
+
 template <typename T, int V>
 void launch_scans(const T* a, const T* x, const T* h0, T* y, T* h_out,
                   float* acum, float* ecum, float* hin, int b, int s, int f,
@@ -250,6 +361,59 @@ int launch(const void* a, const void* x, const void* h0, void* y, void* h_out,
   return (int)cudaGetLastError();
 }
 
+template <typename T, int V>
+void launch_bwd_scans(const T* a, const T* y, const T* h0, const T* dy,
+                      const T* dh_last, T* dx, T* da, T* dh0, float* acum,
+                      float* ecum, float* hin, int b, int s, int f, int bt,
+                      int bf, cudaStream_t stream) {
+  const int nc = (s + bt - 1) / bt, nfb = (f + bf - 1) / bf;
+  const int threads = (bf + V - 1) / V;
+  const dim3 grid(nfb * nc, b);
+  if (nc > 1) {
+    rglru_bwd_summary<T, V><<<grid, threads, 0, stream>>>(
+        a, dy, acum, ecum, s, f, bt, bf, nfb, nc);
+    rglru_carry<T><<<dim3((f + CARRY_THREADS - 1) / CARRY_THREADS, b),
+                     CARRY_THREADS, 0, stream>>>(dh_last, acum, ecum, hin, f,
+                                                 nc);
+  }
+  rglru_bwd_rescan<T, V><<<grid, threads, 0, stream>>>(
+      a, dy, y, h0, dh_last, hin, dx, da, dh0, s, f, bt, bf, nfb, nc);
+}
+
+template <typename T>
+int launch_bwd(const void* a, const void* y, const void* h0, const void* dy,
+               const void* dh_last, void* dx, void* da, void* dh0, float* ws,
+               int b, int s, int f, int bt, int bf, cudaStream_t stream) {
+  const long long nc = (s + bt - 1) / bt, nfb = (f + bf - 1) / bf;
+  if (nc * nfb > 0x7fffffffLL || b > 65535) return (int)cudaErrorInvalidValue;
+  if (nc > 1 && ws == nullptr) return (int)cudaErrorInvalidValue;
+  const size_t plane = (size_t)b * nc * f;
+  float* acum = ws;
+  float* ecum = ws ? ws + plane : nullptr;
+  float* hin = ws ? ws + 2 * plane : nullptr;
+  constexpr int VEC = 16 / sizeof(T);
+  const bool aligned =
+      ((reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(y) |
+        reinterpret_cast<uintptr_t>(dy) | reinterpret_cast<uintptr_t>(dx) |
+        reinterpret_cast<uintptr_t>(da)) & 15) == 0;
+  const T* at = static_cast<const T*>(a);
+  const T* yt = static_cast<const T*>(y);
+  const T* h0t = static_cast<const T*>(h0);
+  const T* dyt = static_cast<const T*>(dy);
+  const T* dht = static_cast<const T*>(dh_last);
+  T* dxt = static_cast<T*>(dx);
+  T* dat = static_cast<T*>(da);
+  T* d0t = static_cast<T*>(dh0);
+  if (aligned && f % VEC == 0 && bf % VEC == 0) {
+    launch_bwd_scans<T, VEC>(at, yt, h0t, dyt, dht, dxt, dat, d0t, acum, ecum,
+                             hin, b, s, f, bt, bf, stream);
+  } else {
+    launch_bwd_scans<T, 1>(at, yt, h0t, dyt, dht, dxt, dat, d0t, acum, ecum,
+                           hin, b, s, f, bt, bf, stream);
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. (bt, bf): the chunk length in time and
@@ -267,5 +431,30 @@ extern "C" int repro_rglru(const void* a, const void* x, const void* h0,
   float* wsf = static_cast<float*>(ws);
   if (dtype == 0) return launch<float>(a, x, h0, y, h_out, wsf, b, s, f, bt, bf, st);
   if (dtype == 1) return launch<bf16>(a, x, h0, y, h_out, wsf, b, s, f, bt, bf, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The backward of repro_rglru's scan: from its a, y (every h_t) and h0 and
+// the output gradients dy [B, S, F] and dh_last [B, F], dx = g, da_t = g_t
+// h_{t-1} and dh0 = a_0 g_0, with g the adjoint scanned backward in time
+// (above). Tile and workspace as repro_rglru's.
+extern "C" int repro_rglru_bwd(const void* a, const void* y, const void* h0,
+                               const void* dy, const void* dh_last, void* dx,
+                               void* da, void* dh0, void* ws, int b, int s,
+                               int f, int bt, int bf, int dtype,
+                               void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (b <= 0 || s <= 0 || f <= 0 || bt <= 0 || bf <= 0 || bf > MAX_FEATURES) {
+    return (int)cudaErrorInvalidValue;
+  }
+  float* wsf = static_cast<float*>(ws);
+  if (dtype == 0) {
+    return launch_bwd<float>(a, y, h0, dy, dh_last, dx, da, dh0, wsf, b, s, f,
+                             bt, bf, st);
+  }
+  if (dtype == 1) {
+    return launch_bwd<bf16>(a, y, h0, dy, dh_last, dx, da, dh0, wsf, b, s, f,
+                            bt, bf, st);
+  }
   return (int)cudaErrorInvalidValue;
 }

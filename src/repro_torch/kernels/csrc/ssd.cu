@@ -40,6 +40,17 @@
 // (d) ssd_step_kernel, for S = 1 (the decode step) alone: one block a head
 //     gives y and h_last of the one step in one launch, with no workspace;
 //     at one step the products are dot products, not tensor-core work.
+// (e) ssd_bwd_kernel (repro_ssd_bwd), the backward's dB and dC: (c)'s
+//     products with the operands' roles swapped, summed over heads. The
+//     Pallas kernel has no backward (the reference differentiates its jnp
+//     scan); this one serves kernels/ssd/ops.py:ssd_scan_backward, which
+//     runs (a)-(c) on the time-reversed problem for d(dtx) and dh0 (its
+//     states are the adjoint states) and this kernel twice: on the forward
+//     problem against dy for dC, on the reversed one against dtx for dB.
+//     Per chunk of L steps and head it does L (L + 1) (N + P) + 2 L N P
+//     FLOP; with the reversed scan, the whole backward does 3.37e10 at
+//     mamba2-2.7b's width, S = 4096 and Q = 64: 0.20 ms at the 3xTF32 rate,
+//     so operations bound it in float32.
 //
 // Every product of (a) and (c) runs on mma.sync with float32 sums. float32
 // takes m16n8k8 as 3xTF32 (x = hi + lo, hopper::split; one TF32 product
@@ -110,6 +121,17 @@ __host__ __device__ constexpr size_t out_smem(int n, int es) {
                   (size_t)es * TQ * (ld_row(n) + ld_col(TP, es))
               ? (size_t)4 * n_steps(n, es) * LH
               : (size_t)es * TQ * (ld_row(n) + ld_col(TP, es)));
+}
+
+// (e)'s blocks: the cumsum, the score buffer, dy rows [TQ][ld_row(p)], then
+// float32 h_in rows [TP][Pk + 8] (Pk: P in whole k-steps) or x rows
+// [TQ][ld_row(p)] with B columns [TQ][ld_col(TP)].
+__host__ __device__ constexpr size_t bwd_smem(int p, int es) {
+  return 4 * QMAX + (size_t)es * 4 * 16 * LD_SC + (size_t)es * TQ * ld_row(p) +
+         ((size_t)4 * TP * (n_steps(p, es) + 8) >
+                  (size_t)es * TQ * (ld_row(p) + ld_col(TP, es))
+              ? (size_t)4 * TP * (n_steps(p, es) + 8)
+              : (size_t)es * TQ * (ld_row(p) + ld_col(TP, es)));
 }
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -241,6 +263,7 @@ struct Mma<float> {  // 3xTF32 on m16n8k8
   }
   __device__ static B b_col(const float* p, int ld) { return b(p[0], p[ld]); }
   __device__ static BW b_wide(const float* p, int ld) { return b_col(p, ld); }
+  __device__ static BW b_wide_row(const float* p) { return b_row(p); }
   __device__ static AW a_scaled(const float* p, int ld, const float* w) {
     return a(p[0] * w[0], p[ld] * w[1], p[8] * w[0], p[ld + 8] * w[1]);
   }
@@ -288,6 +311,14 @@ struct Mma<bf16> {  // bf16 on m16n8k16, float32 sums
     BW r;
     split_bf16(p[0], p[ld], r.hi.r[0], r.lo.r[0]);
     split_bf16(p[8 * ld], p[9 * ld], r.hi.r[1], r.lo.r[1]);
+    return r;
+  }
+  // The same from a float32 tile read along k (h_in rows in the backward).
+  __device__ static BW b_wide_row(const float* p) {
+    BW r;
+    const float2 u = load2(p), v = load2(p + 8);
+    split_bf16(u.x, u.y, r.hi.r[0], r.lo.r[0]);
+    split_bf16(v.x, v.y, r.hi.r[1], r.lo.r[1]);
     return r;
   }
   __device__ static AW a_scaled(const bf16* p, int ld, const float* w) {
@@ -691,6 +722,215 @@ ssd_step_kernel(const T* __restrict__ log_a, const T* __restrict__ dtx,
   }
 }
 
+// (e) The backward's products (repro_ssd_bwd): for 64 rows of a chunk and
+// 64 columns of N, dC_t[n] = sum over the block's heads of
+// exp(cum_t) (dy_t . h_in[n, :]) + sum over s <= t of (dy_t . x_s)
+// exp(cum_t - cum_s) B_s[n]: ssd_out_kernel's products with dy in C's
+// place, x in B's, B in x's and h_in read across (N and P swap roles). A
+// block walks its group of heads in order, every head's two terms adding
+// to one float32 sum in registers, and writes the group's partial sum: no
+// atomics, so the sum over heads is the same on every run. Warp w owns
+// rows 16 (w % 4) .. + 15 and N columns 32 (w / 4) .. + 31, as in (c).
+// Two blocks an SM in both dtypes: at three, bf16 spilled (ptxas capped it
+// at 80 registers).
+template <typename T>
+__global__ void __launch_bounds__(NT_OUT, 2)
+ssd_bwd_kernel(const T* __restrict__ log_a, const T* __restrict__ dtx,
+               const T* __restrict__ bm, const T* __restrict__ dy,
+               const T* __restrict__ h0, const float* __restrict__ ws,
+               float* __restrict__ part, int nbatch, int nh, int s, int p,
+               int n, int q, int nc, int nib, int nnb, int hpb) {
+  typedef Mma<T> M;
+  constexpr int NTP = TP / 16;        // n8 tiles of a warp's 32 columns
+  constexpr int LX = ld_col(TP, sizeof(T));
+  constexpr int KU = 32 / M::K;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int ldp = ld_row(p), pk = n_steps(p, sizeof(T)), lhr = pk + 8;
+  float* cum = reinterpret_cast<float*>(smem_raw);      // [QMAX]
+  T* sbuf = reinterpret_cast<T*>(cum + QMAX);           // [4][16][LD_SC]
+  T* ds = sbuf + 4 * 16 * LD_SC;                        // [TQ][ldp] dy
+  float* hs = reinterpret_cast<float*>(ds + TQ * ldp);  // [TP][lhr] h_in,
+  T* xr = reinterpret_cast<T*>(hs);                     // then [TQ][ldp] x,
+  T* bc = xr + TQ * ldp;                                // [TQ][LX] B, j-tile
+  int bx = blockIdx.x;
+  const int nbk = bx % nnb;
+  bx /= nnb;
+  const int ib = nib - 1 - bx % nib;  // the longest row tiles first
+  const int c = bx / nib;
+  const int hg = blockIdx.y, bb = blockIdx.z;
+  const int t0 = c * q, qv = min(q, s - t0), i0 = ib * TQ;
+  if (i0 >= qv) return;               // past a ragged chunk's end
+  const int iv = min(TQ, qv - i0), n0 = nbk * TP, nv = min(TP, n - n0);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int len = min(qv, i0 + TQ), lpad = (len + 31) & ~31;
+  const int r0 = (warp & 3) * 16, c0 = (warp >> 2) * (TP / 2);
+  const bool active = r0 < iv;        // warp-uniform: rows past iv are zero
+  const int slab = warp & 3, half = warp >> 2;
+  T* sb = sbuf + slab * 16 * LD_SC;
+  const T* drow = ds + (r0 + g) * ldp + 2 * t;
+  const int ia = i0 + r0 + g;         // this thread's rows: ia and ia + 8
+
+  float acc[NTP][4];
+#pragma unroll
+  for (int nt = 0; nt < NTP; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
+
+  const int h_end = min(nh, (hg + 1) * hpb);
+  for (int h = hg * hpb; h < h_end; ++h) {
+    const size_t bh = (size_t)bb * nh + h;
+    __syncthreads();  // the last head's tiles and cumsum are consumed
+    stage(ds, ldp, dy + (((size_t)bb * s + t0 + i0) * nh + h) * p,
+          (size_t)nh * p, TQ, iv, pk, p);
+    if (nc > 1) {
+      stage(hs, lhr, ws + (bh * nc + c) * n * p + (size_t)n0 * p, p, TP, nv,
+            pk, p);
+    } else {
+      stage(hs, lhr, h0 + bh * n * p + (size_t)n0 * p, p, TP, nv, pk, p);
+    }
+    cp_async_commit();
+    const T* la = log_a + bh * s + t0;
+    for (int i = tid; i < lpad; i += NT_OUT) {
+      cum[i] = i < len ? to_f32(la[i]) : 0.f;
+    }
+    cp_async_wait<0>();
+    __syncthreads();
+    if (warp == 0) warp_cumsum(cum, lpad);
+    __syncthreads();
+    const float cia = cum[min(ia, len - 1)], cib = cum[min(ia + 8, len - 1)];
+
+    if (active) {  // exp(cum_t) (dy_t . h_in[n, :])
+      float tmp[NTP][4];
+#pragma unroll
+      for (int nt = 0; nt < NTP; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) tmp[nt][e] = 0.f;
+#pragma unroll KU
+      for (int k = 0; k < pk; k += M::K) {
+        const typename M::A a = M::a_rows(drow + k, drow + 8 * ldp + k);
+#pragma unroll
+        for (int nt = 0; nt < NTP; ++nt) {
+          M::mma(tmp[nt], a,
+                 M::b_wide_row(hs + (c0 + nt * 8 + g) * lhr + k + 2 * t));
+        }
+      }
+      const float ea = expf(cia), eb = expf(cib);
+#pragma unroll
+      for (int nt = 0; nt < NTP; ++nt) {
+        acc[nt][0] += ea * tmp[nt][0], acc[nt][1] += ea * tmp[nt][1];
+        acc[nt][2] += eb * tmp[nt][2], acc[nt][3] += eb * tmp[nt][3];
+      }
+    }
+
+    for (int jb = 0; jb <= ib; ++jb) {
+      const int j0 = jb * TQ, jv = min(TQ, qv - j0);
+      __syncthreads();  // h_in, or the last j-tile, is consumed
+      const size_t row = (size_t)bb * s + t0 + j0;
+      stage(xr, ldp, dtx + (row * nh + h) * p, (size_t)nh * p, TQ, jv, pk, p);
+      stage(bc, LX, bm + row * n + n0, n, TQ, jv, TP, nv);
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncthreads();
+      if (!active) continue;
+      const int ntj = jb < ib ? 8 : min(8, (r0 + 16) / 8);
+      for (int jt0 = 0; jt0 < ntj; jt0 += 4) {
+        float sc[2][4];
+#pragma unroll
+        for (int u = 0; u < 2; ++u)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) sc[u][e] = 0.f;
+#pragma unroll KU
+        for (int k = 0; k < pk; k += M::K) {
+          const typename M::A a = M::a_rows(drow + k, drow + 8 * ldp + k);
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {
+            const int jt = jt0 + half + 2 * u;
+            if (jt < ntj) {
+              M::mma(sc[u], a, M::b_row(xr + (jt * 8 + g) * ldp + k + 2 * t));
+            }
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const int jt = jt0 + half + 2 * u;
+          if (jt < ntj) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int i = min(ia + 8 * (e >> 1), len - 1);
+              const int j = j0 + jt * 8 + 2 * t + (e & 1);
+              const float ci = e < 2 ? cia : cib;
+              sc[u][e] = j <= i ? sc[u][e] * expf(ci - cum[j]) : 0.f;
+            }
+            store2(sb + g * LD_SC + jt * 8 + 2 * t, sc[u][0], sc[u][1]);
+            store2(sb + (g + 8) * LD_SC + jt * 8 + 2 * t, sc[u][2], sc[u][3]);
+          }
+        }
+        pair_sync(slab);  // the slab's scores of this group are in place
+#pragma unroll
+        for (int jt = jt0; jt < jt0 + 4; jt += M::K / 8) {
+          if (jt < ntj) {
+            const typename M::A a = M::a_rows(sb + g * LD_SC + jt * 8 + 2 * t,
+                                              sb + (g + 8) * LD_SC + jt * 8 + 2 * t);
+            const T* br = bc + (jt * 8 + 2 * t) * LX + c0 + g;
+#pragma unroll
+            for (int nt = 0; nt < NTP; ++nt) {
+              M::mma(acc[nt], a, M::b_col(br + nt * 8, LX));
+            }
+          }
+        }
+        pair_sync(slab);  // both have read them before the next group
+      }
+    }
+  }
+
+  if (!active) return;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int r = r0 + g + 8 * hh;
+    if (r >= iv) continue;
+    float* dst = part + (((size_t)hg * nbatch + bb) * s + t0 + i0 + r) * n + n0 +
+                 c0 + 2 * t;
+#pragma unroll
+    for (int nt = 0; nt < NTP; ++nt) {
+      if (c0 + nt * 8 + 2 * t < nv) {
+        store2(dst + nt * 8, acc[nt][2 * hh], acc[nt][2 * hh + 1]);
+      }
+    }
+  }
+}
+
+template <typename T>
+int launch_bwd(const void* log_a, const void* dtx, const void* bm,
+               const void* dy, const void* h0, const float* ws, float* part,
+               int b, int nh, int s, int p, int n, int q, int hpb,
+               cudaStream_t stream) {
+  if (q > QMAX || p % 8 || n % 8 || hpb <= 0 ||
+      bwd_smem(p, sizeof(T)) > (size_t)SMEM_LIMIT) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int nc = (s + q - 1) / q;
+  if (nc > 1 && ws == nullptr) return (int)cudaErrorInvalidValue;
+  const int nnb = (n + TP - 1) / TP, nib = (q + TQ - 1) / TQ;
+  const int groups = (nh + hpb - 1) / hpb;
+  auto kern = ssd_bwd_kernel<T>;
+  const size_t smem = bwd_smem(p, sizeof(T));
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(kern,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               (int)cudaSharedmemCarveoutMaxShared);
+  }
+  if (err != cudaSuccess) return (int)err;
+  kern<<<dim3(nc * nib * nnb, groups, b), NT_OUT, smem, stream>>>(
+      static_cast<const T*>(log_a), static_cast<const T*>(dtx),
+      static_cast<const T*>(bm), static_cast<const T*>(dy),
+      static_cast<const T*>(h0), ws, part, b, nh, s, p, n, q, nc, nib, nnb,
+      hpb);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int launch(const void* log_a, const void* dtx, const void* bm, const void* cm,
            const void* h0, void* y, void* h_out, float* ws, float* decay,
@@ -791,4 +1031,40 @@ extern "C" int repro_ssd(const void* log_a, const void* dtx, const void* bm,
 // this file and states the same sum, which a card test holds to this one.
 extern "C" long long repro_ssd_smem(int n, int dtype) {
   return (long long)out_smem(n, dtype == 0 ? 4 : 2);
+}
+
+
+// The backward's dB / dC products (ssd_bwd_kernel): part[g, b, t, n] =
+// sum over heads g * hpb .. (g + 1) * hpb - 1 of exp(cum_t) (dy_t . h_in)
+// + sum over s <= t in t's chunk of (dy_t . x_s) exp(cum_t - cum_s) B_s, for
+// the scan (log_a, dtx, bm, h0) in chunks of q, with ws its states entering
+// each chunk ([B, H, nc, N, P] float32, the forward's workspace; may be null
+// with one chunk, when h0 is that state). part holds ceil(H / hpb) * B * S
+// * N floats. Shapes and alignment as repro_ssd's.
+extern "C" int repro_ssd_bwd(const void* log_a, const void* dtx,
+                             const void* bm, const void* dy, const void* h0,
+                             const void* ws, void* part, int b, int nh, int s,
+                             int p, int n, int q, int hpb, int dtype,
+                             void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (b <= 0 || nh <= 0 || s <= 0 || p <= 0 || n <= 0 || q <= 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const float* wsf = static_cast<const float*>(ws);
+  float* pf = static_cast<float*>(part);
+  if (dtype == 0) {
+    return launch_bwd<float>(log_a, dtx, bm, dy, h0, wsf, pf, b, nh, s, p, n,
+                             q, hpb, st);
+  }
+  if (dtype == 1) {
+    return launch_bwd<bf16>(log_a, dtx, bm, dy, h0, wsf, pf, b, nh, s, p, n,
+                            q, hpb, st);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// Shared memory of one block of ssd_bwd_kernel at head width p (dtype as
+// above); kernels/ssd/ops.py: smem_bwd_bytes states the same sum.
+extern "C" long long repro_ssd_bwd_smem(int p, int dtype) {
+  return (long long)bwd_smem(p, dtype == 0 ? 4 : 2);
 }

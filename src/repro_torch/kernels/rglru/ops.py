@@ -8,7 +8,8 @@ over the chunks, a rescan of each chunk), so ceil(S / bt) * F chains run in
 parallel. A thread takes 4 float32 or 8 bf16 neighbouring features (one
 16-byte load) where F and bf allow, else one. No shared memory; a float32
 workspace of 3 * ceil(S / bt) * F floats a batch row holds the summaries
-and the carries.
+and the carries. The backward (:class:`_RglruScanFn`, ``repro_rglru_bwd``)
+is the same three launches over time reversed.
 """
 from __future__ import annotations
 
@@ -60,7 +61,9 @@ def rglru_scan(a, x, h0, tile=None):
 
     CPU tensors take :func:`rglru_scan_ref`. CUDA tensors launch the kernels
     with ``tile`` = (bt, bf) (default: the spec's Hopper tile) or raise; the
-    tile need not divide the problem.
+    tile need not divide the problem. Under grad mode, with an input that
+    requires grad, CUDA tensors go through :class:`_RglruScanFn`, whose
+    backward launches the same kernels.
     """
     b, s, f = x.shape
     if a.shape != x.shape or h0.shape != (b, f):
@@ -68,9 +71,16 @@ def rglru_scan(a, x, h0, tile=None):
                          f"{tuple(x.shape)} h0 {tuple(h0.shape)}")
     if all(t.device.type == "cpu" for t in (a, x, h0)):
         return rglru_scan_ref(a, x, h0)
-    build.refuse_grad("rglru", a, x, h0,
-                      why="its CUDA gradient is the first item of ROADMAP.md "
-                      "§1 (then recurrentgemma trains on the card)")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (a, x, h0)):
+        return _RglruScanFn.apply(a, x, h0, tile)
+    y, h_last = _rglru_cuda(a, x, h0, tile)
+    build.LAUNCHES["rglru"] += 1
+    return y, h_last
+
+
+def _rglru_cuda(a, x, h0, tile=None):
+    """One run of the kernels (uncounted, no autograd history)."""
+    b, s, f = x.shape
     build.check_cuda_operands("rglru", a, x, h0)
     problem = dict(s=s, f=f)
     bt, bf = launch_tile(tile if tile is not None
@@ -86,8 +96,91 @@ def rglru_scan(a, x, h0, tile=None):
                 h_last.data_ptr(), None if ws is None else ws.data_ptr(), b, s,
                 f, bt, bf, build.dtype_code(x.dtype), build.stream_ptr(x.device))
     build.check(rc, "rglru")
-    build.LAUNCHES["rglru"] += 1
     return y, h_last
+
+
+def rglru_scan_backward(a, y, h0, dy, dh_last, scan):
+    """The scan's gradients (da, dx, dh0) from dy [B, S, F] and dh_last
+    [B, F] (None: zero), given the forward's y (its h_t).
+
+    ``scan(a, x, h0) -> (y, h_last)`` is the forward. The adjoint g_t =
+    dL/dh_t obeys g_t = a_{t+1} g_{t+1} + dy_t from g_{S-1} = dy_{S-1} +
+    dh_last: the scan itself on dy reversed in time, with a' = [1, a
+    reversed without its first step] and h0' = dh_last. Then dx = g,
+    da_t = g_t h_{t-1} (h_{-1} = h0) and dh0 = a_0 g_0, g_0 being that
+    scan's h_last. CPU tests run it with :func:`rglru_scan_ref` in the
+    kernel's place; ``repro_rglru_bwd`` computes the same function with the
+    reversal in its indexing (the plain version of that kernel is this
+    function over :func:`rglru_scan_ref`).
+    """
+    if dh_last is None:
+        dh_last = torch.zeros_like(h0)
+    r_a = torch.cat([torch.ones_like(a[:, :1]),
+                     torch.flip(a[:, 1:], (1,))], dim=1)
+    r_dy = torch.flip(dy, (1,)).contiguous()
+    r_g, g0 = scan(r_a, r_dy, dh_last.contiguous())
+    g = torch.flip(r_g, (1,))
+    h_prev = torch.cat([h0[:, None].float(), y[:, :-1].float()], dim=1)
+    da = (g.float() * h_prev).to(a.dtype)
+    dh0 = (a[:, 0].float() * g0.float()).to(h0.dtype)
+    return da, g.to(y.dtype), dh0
+
+
+def _bwd_lib():
+    fn = build.load("rglru").repro_rglru_bwd
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _rglru_bwd_cuda(a, y, h0, dy, dh_last, tile=None):
+    """One run of ``repro_rglru_bwd`` (uncounted): :func:`rglru_scan_backward`'s
+    function, (da, dx, dh0), with the reversal in the kernels' indexing and
+    da folded into the rescan; ``tile`` (default: the spec's) as the
+    forward's."""
+    b, s, f = y.shape
+    dy, dh_last = dy.contiguous(), dh_last.contiguous()
+    build.check_cuda_operands("rglru_bwd", a, y, h0, dy, dh_last)
+    problem = dict(s=s, f=f)
+    bt, bf = launch_tile(tile if tile is not None
+                         else SPEC.default_tile(problem, str(y.dtype)), problem)
+    dx, da, dh0 = torch.empty_like(y), torch.empty_like(a), torch.empty_like(h0)
+    if y.numel() == 0:
+        return da, dx, dh0
+    nc = cdiv(s, bt)
+    ws = (torch.empty(3 * b * nc * f, dtype=torch.float32, device=y.device)
+          if nc > 1 else None)
+    rc = _bwd_lib()(a.data_ptr(), y.data_ptr(), h0.data_ptr(), dy.data_ptr(),
+                    dh_last.data_ptr(), dx.data_ptr(), da.data_ptr(),
+                    dh0.data_ptr(), None if ws is None else ws.data_ptr(), b,
+                    s, f, bt, bf, build.dtype_code(y.dtype),
+                    build.stream_ptr(y.device))
+    build.check(rc, "rglru_bwd")
+    return da, dx, dh0
+
+
+class _RglruScanFn(torch.autograd.Function):
+    """The scan through the kernels, forward and backward: the forward is
+    ``repro_rglru`` (counted under ``rglru``); the backward is
+    ``repro_rglru_bwd`` (counted once under ``rglru_bwd``), the same chunked
+    scan over time reversed at the default tile, which computes
+    :func:`rglru_scan_backward`'s function. The reference differentiates its
+    jnp scan through JAX."""
+
+    @staticmethod
+    def forward(ctx, a, x, h0, tile):
+        y, h_last = _rglru_cuda(a, x, h0, tile)
+        build.LAUNCHES["rglru"] += 1
+        ctx.save_for_backward(a, y, h0)
+        return y, h_last
+
+    @staticmethod
+    def backward(ctx, dy, dh_last):
+        a, y, h0 = ctx.saved_tensors
+        da, dx, dh0 = _rglru_bwd_cuda(a, y, h0, dy, dh_last)
+        build.LAUNCHES["rglru_bwd"] += 1
+        return da, dx, dh0, None
 
 
 def rglru(x, r, i, a_param, h0=None, c: float = 8.0, tile=None):
@@ -153,4 +246,5 @@ SPEC = registry.register(registry.KernelSpec(
 
 
 __all__ = ["SPEC", "features_per_thread", "launch_tile", "rglru", "rglru_ref",
-           "rglru_scan", "rglru_scan_chunked_ref", "rglru_scan_ref"]
+           "rglru_scan", "rglru_scan_backward", "rglru_scan_chunked_ref",
+           "rglru_scan_ref"]

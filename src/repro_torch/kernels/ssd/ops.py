@@ -10,6 +10,11 @@ state by 128 x TP, so shared memory bounds only N (up to 368 in float32,
 launches; the state entering every chunk goes through a float32 workspace
 of ceil(S / Q) * H * N * P floats a batch row, which the wrapper
 allocates. TQ, TP and QMAX are read from the source.
+
+Gradients (:class:`_SsdScanFn`, :func:`ssd_scan_backward`): the forward
+keeps that workspace (the state entering every chunk); the backward runs
+the three launches on the time-reversed problem and ``repro_ssd_bwd`` twice
+(dC, then dB on the reversed problem), counted once under ``ssd_bwd``.
 """
 from __future__ import annotations
 
@@ -27,7 +32,8 @@ from repro_torch.core.hardware import H100_SXM
 from repro_torch.core.tiling import TileConstraints, TileShape, cdiv, dtype_bytes
 from repro_torch.kernels import build
 from repro_torch.kernels.ssd.ref import (
-    discretize, ssd_chunked_ref, ssd_ref, ssd_scan_ref, ssd_scan_split_ref,
+    discretize, ssd_chunk_states_ref, ssd_chunked_ref, ssd_ref,
+    ssd_scan_bwd_ref, ssd_scan_ref, ssd_scan_split_ref,
 )
 
 THREADS = 128          # four warps in the state kernel
@@ -70,6 +76,20 @@ def smem_bytes(n: int, dtype) -> int:
             + max(4 * nk * (tp + 4), es * tq * (ld_row + ld_col)))
 
 
+def smem_bwd_bytes(p: int, dtype) -> int:
+    """Shared memory of a ``repro_ssd_bwd`` block (``bwd_smem`` in
+    ``csrc/ssd.cu``): the cumsum [QMAX] float32, the scores [4, 16, TQ + 8],
+    dy rows [TQ, P + 8], then float32 h_in rows [TP, Pk + 8] (Pk: P rounded
+    up to 16 in bf16) or x rows [TQ, P + 8] with B columns [TQ, TP + 4]
+    (TP + 8 in bf16); all but the cumsum and h_in in the input's type."""
+    c, es = _layout(), dtype_bytes(dtype)
+    tq, tp = c["TQ"], c["TP"]
+    ld_row, ld_col = p + 8, tp + (4 if es == 4 else 8)
+    pk = p if es == 4 else cdiv(p, 16) * 16
+    return (4 * c["QMAX"] + es * 4 * 16 * (tq + 8) + es * tq * ld_row
+            + max(4 * tp * (pk + 8), es * tq * (ld_row + ld_col)))
+
+
 def launch_chunk(chunk, problem: Mapping[str, int], dtype) -> int:
     """The chunk the kernels run for ``chunk`` (clamped to the sequence).
     Raises ValueError for a chunk or a width they cannot launch in
@@ -99,7 +119,9 @@ def ssd_scan(log_a, dtx, Bm, C, h0, chunk: Optional[int] = None):
 
     CPU tensors take :func:`ssd_scan_ref`. CUDA tensors launch the kernels
     with chunk ``chunk`` (default: the spec's Hopper tile) or raise; the
-    chunk need not divide S.
+    chunk need not divide S. Under grad mode, with an input that requires
+    grad, CUDA tensors go through :class:`_SsdScanFn`, whose backward
+    launches the kernels too.
     """
     b, s, h, p = dtx.shape
     n = Bm.shape[-1]
@@ -108,37 +130,172 @@ def ssd_scan(log_a, dtx, Bm, C, h0, chunk: Optional[int] = None):
         raise ValueError(f"bad ssd shapes log_a {tuple(log_a.shape)} dtx "
                          f"{tuple(dtx.shape)} B {tuple(Bm.shape)} C "
                          f"{tuple(C.shape)} h0 {tuple(h0.shape)}")
-    problem = dict(s=s, h=h, p=p, n=n)
     if chunk is None:
-        chunk = SPEC.default_tile(problem, str(dtx.dtype))[0]
+        chunk = SPEC.default_tile(dict(s=s, h=h, p=p, n=n), str(dtx.dtype))[0]
     tensors = (log_a, dtx, Bm, C, h0)
     if all(t.device.type == "cpu" for t in tensors):
         return ssd_scan_ref(log_a, dtx, Bm, C, h0, chunk=chunk)
-    build.refuse_grad("ssd", *tensors,
-                      why="its CUDA gradient is the first item of ROADMAP.md "
-                      "§1 (then mamba2 trains on the card)")
-    build.check_cuda_operands("ssd", *tensors)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        return _SsdScanFn.apply(log_a, dtx, Bm, C, h0, chunk)
+    y, h_last, _ = _ssd_cuda(log_a, dtx, Bm, C, h0, chunk)
+    build.LAUNCHES["ssd"] += 1
+    return y, h_last
+
+
+def _ssd_cuda(log_a, dtx, Bm, C, h0, chunk):
+    """One run of the forward kernels (uncounted, no autograd history) ->
+    (y, h_last, the state entering each chunk as [B, H, nc, N, P] float32,
+    or None with one chunk: then h0 is that state)."""
+    b, s, h, p = dtx.shape
+    n = Bm.shape[-1]
+    build.check_cuda_operands("ssd", log_a, dtx, Bm, C, h0)
+    problem = dict(s=s, h=h, p=p, n=n)
     q = launch_chunk(chunk, problem, dtx.dtype)
     if any(t.data_ptr() % 16 for t in (dtx, Bm, C, h0)):
         raise ValueError("ssd needs dtx, B, C and h0 to start on 16 bytes")
     y = torch.empty_like(dtx)
     h_last = torch.empty_like(h0)
     if y.numel() == 0:
-        return y, h_last
+        return y, h_last, None
     ws = decay = None
-    if cdiv(s, q) > 1:
-        ws = torch.empty(workspace_floats(q, problem, b), dtype=torch.float32,
+    nc = cdiv(s, q)
+    if nc > 1:
+        ws = torch.empty((b, h, nc, n, p), dtype=torch.float32,
                          device=dtx.device)
-        decay = torch.empty(cdiv(s, q) * b * h, dtype=torch.float32,
-                            device=dtx.device)
+        decay = torch.empty(nc * b * h, dtype=torch.float32, device=dtx.device)
     rc = _lib()(log_a.data_ptr(), dtx.data_ptr(), Bm.data_ptr(), C.data_ptr(),
                 h0.data_ptr(), y.data_ptr(), h_last.data_ptr(),
                 None if ws is None else ws.data_ptr(),
                 None if decay is None else decay.data_ptr(), b, h, s, p, n,
                 q, build.dtype_code(dtx.dtype), build.stream_ptr(dtx.device))
     build.check(rc, "ssd")
-    build.LAUNCHES["ssd"] += 1
-    return y, h_last
+    return y, h_last, ws
+
+
+def _bwd_lib():
+    fn = build.load("ssd").repro_ssd_bwd
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def bwd_heads_per_block(b: int, s: int, q: int, h: int, n: int) -> int:
+    """Heads a ``repro_ssd_bwd`` block sums: the heads are split into
+    ceil(H / this) groups, each block summing its group's (the groups'
+    float32 partials are summed after), so that the grid holds about four
+    blocks an SM."""
+    tq, tp = _layout()["TQ"], _layout()["TP"]
+    base = b * cdiv(s, q) * cdiv(q, tq) * cdiv(n, tp)
+    return cdiv(h, max(1, min(h, cdiv(4 * H100_SXM.num_sm, base))))
+
+
+def _ssd_bwd_cuda(log_a, dtx, Bm, dy, h0, h_in, chunk):
+    """One launch of ``repro_ssd_bwd`` (uncounted): :func:`ssd_scan_bwd_ref`'s
+    function, dC_t = sum_h h_t dy_t [B, S, N] in dy's dtype, with ``h_in``
+    the forward kernels' chunk states (None: one chunk, h0)."""
+    b, s, h, p = dtx.shape
+    n = Bm.shape[-1]
+    build.check_cuda_operands("ssd_bwd", log_a, dtx, Bm, dy, h0)
+    q = launch_chunk(chunk, dict(s=s, h=h, p=p, n=n), dtx.dtype)
+    if smem_bwd_bytes(p, dtx.dtype) > H100_SXM.vmem_bytes:
+        raise ValueError(f"ssd's backward at P = {p} needs "
+                         f"{smem_bwd_bytes(p, dtx.dtype)} B of shared memory")
+    if cdiv(s, q) > 1 and (h_in is None or h_in.shape != (b, h, cdiv(s, q), n, p)
+                           or h_in.dtype != torch.float32
+                           or not h_in.is_contiguous()):
+        raise ValueError("ssd's backward needs the chunk states as a "
+                         "contiguous float32 [B, H, nc, N, P]")
+    if any(t.data_ptr() % 16 for t in (dtx, Bm, dy, h0)):
+        raise ValueError("ssd's backward needs dtx, B, dy and h0 to start "
+                         "on 16 bytes")
+    hpb = bwd_heads_per_block(b, s, q, h, n)
+    groups = cdiv(h, hpb)
+    part = torch.empty((groups, b, s, n), dtype=torch.float32, device=dy.device)
+    if part.numel() == 0:
+        return part.sum(0).to(dy.dtype)
+    rc = _bwd_lib()(log_a.data_ptr(), dtx.data_ptr(), Bm.data_ptr(),
+                    dy.data_ptr(), h0.data_ptr(),
+                    None if h_in is None else h_in.data_ptr(), part.data_ptr(),
+                    b, h, s, p, n, q, hpb,
+                    build.dtype_code(dtx.dtype), build.stream_ptr(dy.device))
+    build.check(rc, "ssd_bwd")
+    return (part[0] if groups == 1 else part.sum(0)).to(dy.dtype)
+
+
+def _reverse(t, dim):
+    return torch.flip(t, (dim,)).contiguous()
+
+
+def ssd_scan_backward(log_a, dtx, Bm, C, h0, y, h_last, h_in, dy, dh_last,
+                      chunk, scan, db_dc):
+    """The scan's gradients (d log_a, d dtx, dB, dC, dh0) from dy [B, S, H, P]
+    and dh_last [B, H, N, P] (None: zero), given the forward's y, h_last and
+    chunk states ``h_in`` (None with one chunk).
+
+    ``scan(log_a, dtx, Bm, C, h0, chunk) -> (y, h_last, h_in)`` is the
+    forward; ``db_dc(log_a, dtx, Bm, dy, h0, h_in, chunk)`` is
+    :func:`ssd_scan_bwd_ref`'s function. The adjoint state g_t = dL/dh_t
+    obeys g_t = a_{t+1} g_{t+1} + C_t dy_t^T from g_{S-1} = C dy^T +
+    dh_last: the scan itself run backward in time with log_a' = [0, log_a
+    reversed without its first step], dtx' = dy reversed, B' = C and C' = B
+    reversed, h0' = dh_last. So
+
+    - d dtx_t = B_t . g_t is that scan's y reversed, and dh0 = a_0 g_0 =
+      exp(log_a_0) times its h_last;
+    - dC = db_dc of the forward scan against dy, and dB = db_dc of the
+      reversed scan against dtx reversed (its states are the g's), reversed;
+    - d log_a is the reverse cumulative sum over t of <dy_t, y_t> -
+      <dtx_t, d dtx_t> (summed over P, per head), with <dh_last, h_last>
+      added at t = S - 1.
+
+    CPU tests run it with the plain versions in the kernels' place.
+    """
+    s = dtx.shape[1]
+    if dh_last is None:
+        dh_last = torch.zeros_like(h0)
+    dy = dy.contiguous()
+    dh_last = dh_last.contiguous()
+    r_log_a = torch.cat([torch.zeros_like(log_a[:, :, :1]),
+                         _reverse(log_a[:, :, 1:], 2)], dim=2)
+    r_dy, r_dtx = _reverse(dy, 1), _reverse(dtx, 1)
+    r_b, r_c = _reverse(C, 1), _reverse(Bm, 1)
+    r_y, g0, r_h_in = scan(r_log_a, r_dy, r_b, r_c, dh_last, chunk)
+    d_dtx = _reverse(r_y, 1)
+    dh0 = (torch.exp(log_a[:, :, 0].float())[..., None, None]
+           * g0.float()).to(h0.dtype)
+    dC = db_dc(log_a, dtx, Bm, dy, h0, h_in, chunk)
+    dB = _reverse(db_dc(r_log_a, r_dy, r_b, r_dtx, dh_last, r_h_in, chunk), 1)
+    dcum = ((dy.float() * y.float()).sum(-1)
+            - (dtx.float() * d_dtx.float()).sum(-1)).transpose(1, 2)  # [B, H, S]
+    dcum[:, :, s - 1] += (dh_last.float() * h_last.float()).sum((-2, -1))
+    d_log_a = torch.flip(torch.cumsum(torch.flip(dcum, (2,)), 2), (2,))
+    return d_log_a.to(log_a.dtype), d_dtx, dB, dC, dh0
+
+
+class _SsdScanFn(torch.autograd.Function):
+    """The chunk scan through the kernels, forward and backward. The forward
+    is ``repro_ssd`` (counted under ``ssd``) and keeps its chunk states; the
+    backward (:func:`ssd_scan_backward`, counted once under ``ssd_bwd``)
+    runs ``repro_ssd`` on the reversed problem and ``repro_ssd_bwd`` twice.
+    The reference differentiates its jnp scan through JAX; the gradients are
+    the same function's."""
+
+    @staticmethod
+    def forward(ctx, log_a, dtx, Bm, C, h0, chunk):
+        y, h_last, h_in = _ssd_cuda(log_a, dtx, Bm, C, h0, chunk)
+        build.LAUNCHES["ssd"] += 1
+        ctx.chunk = chunk
+        ctx.save_for_backward(log_a, dtx, Bm, C, h0, y, h_last, h_in)
+        return y, h_last
+
+    @staticmethod
+    def backward(ctx, dy, dh_last):
+        log_a, dtx, Bm, C, h0, y, h_last, h_in = ctx.saved_tensors
+        grads = ssd_scan_backward(log_a, dtx, Bm, C, h0, y, h_last, h_in, dy,
+                                  dh_last, ctx.chunk, _ssd_cuda, _ssd_bwd_cuda)
+        build.LAUNCHES["ssd_bwd"] += 1
+        return (*grads, None)
 
 
 def ssd(x, dt, A, Bm, C, D=None, h0=None, chunk: Optional[int] = None):
@@ -181,6 +338,21 @@ def flops(q: int, problem: Mapping[str, int]) -> float:
         return ln * (ln + 1) * (n + p) + 4.0 * ln * n * p
 
     return h * ((s // q) * chunk(q) + chunk(s % q))
+
+
+def bwd_flops(q: int, problem: Mapping[str, int]) -> float:
+    """The backward's operations at chunk ``q`` (one batch row): the
+    forward's (:func:`flops`) on the reversed problem, and two runs of
+    ``repro_ssd_bwd``'s products (dC, dB): per chunk of L steps and head,
+    L (L + 1) / 2 causal pairs for dy . x and for scores . B, and L N P
+    products for dy . h_in; two operations a product."""
+    s, h, p, n = problem["s"], problem["h"], problem["p"], problem["n"]
+    q = min(q, s)
+
+    def chunk(ln):
+        return ln * (ln + 1) * (n + p) + 2.0 * ln * n * p
+
+    return flops(q, problem) + 2 * h * ((s // q) * chunk(q) + chunk(s % q))
 
 
 def _workload(tile: TileShape, problem: Mapping[str, int], dtype: str) -> TileWorkload:
@@ -235,6 +407,7 @@ SPEC = registry.register(registry.KernelSpec(
 ))
 
 
-__all__ = ["SPEC", "flops", "launch_chunk", "smem_bytes", "ssd", "ssd_chunked_ref",
-           "ssd_ref", "ssd_scan", "ssd_scan_ref", "ssd_scan_split_ref",
-           "workspace_floats"]
+__all__ = ["SPEC", "bwd_flops", "flops", "launch_chunk", "smem_bwd_bytes",
+           "smem_bytes", "ssd", "ssd_chunk_states_ref", "ssd_chunked_ref",
+           "ssd_ref", "ssd_scan", "ssd_scan_backward", "ssd_scan_bwd_ref",
+           "ssd_scan_ref", "ssd_scan_split_ref", "workspace_floats"]

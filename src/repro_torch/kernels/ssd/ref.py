@@ -11,7 +11,10 @@ Selective state-space recurrence (arXiv:2405.21060), per head:
 ``ssd_scan_ref`` is the chunked dual form over pre-discretised inputs, chunk
 after chunk with the state carried between them (the JAX kernel's order,
 not the CUDA kernels'), the version the kernels are held against;
-``ssd_chunked_ref`` is the whole layer through it. ``ssd_scan_split_ref``
+``ssd_chunked_ref`` is the whole layer through it. ``ssd_chunk_states_ref``
+gives the state entering each chunk and ``ssd_scan_bwd_ref`` the gradient
+of the scan's input projections (the plain version of the backward kernel
+``repro_ssd_bwd``). ``ssd_scan_split_ref``
 is the CUDA kernels' decomposition in plain PyTorch (every chunk's own
 state, then a pass carrying the state over the chunks, then every chunk's
 output), with its products through a ``mm`` the tests can replace by an
@@ -119,6 +122,59 @@ def ssd_scan_split_ref(log_a, dtx, Bm, C, h0, chunk: int = 64,
     y = mm(scores, x_c) + torch.exp(cum)[..., None] * mm(c_c, h_in)
     y = y.permute(0, 2, 3, 1, 4).reshape(b, nc * q, h, p)[:, :s]
     return y.to(dtx.dtype), hs.to(dtx.dtype)
+
+
+def ssd_chunk_states_ref(log_a, dtx, Bm, h0, chunk: int = 64):
+    """The state entering each chunk of the scan, [B, H, nc, N, P] float32
+    (the forward kernels' workspace after their state pass)."""
+    s = dtx.shape[1]
+    q = max(1, min(int(chunk), s))
+    la, xf, bm = log_a.float(), dtx.float(), Bm.float()
+    hs = h0.float()
+    states = []
+    for t0 in range(0, s, q):
+        states.append(hs)
+        cum = torch.cumsum(la[:, :, t0:t0 + q], dim=-1)            # [B, H, Q]
+        total = cum[..., -1]
+        w = torch.exp(total[..., None] - cum)
+        x_c = xf[:, t0:t0 + q].permute(0, 2, 1, 3)                # [B, H, Q, P]
+        hs = (torch.exp(total)[..., None, None] * hs
+              + torch.einsum("bhjn,bhjp->bhnp",
+                             bm[:, None, t0:t0 + q] * w[..., None], x_c))
+    return torch.stack(states, dim=2)
+
+
+def ssd_scan_bwd_ref(log_a, dtx, Bm, dy, h0, h_in=None, chunk: int = 64):
+    """The gradient, summed over heads, of sum(dy * y) with respect to the C
+    of the scan (log_a, dtx, Bm, C, h0): dC_t = sum_h h_t dy_t [B, S, N].
+
+    By the chunked products ``csrc/ssd.cu``'s ``ssd_bwd_kernel`` does: within
+    a chunk, dC_t = sum_h [exp(cum_t) h_in dy_t + sum_{s <= t} (dy_t . x_s)
+    exp(cum_t - cum_s) B_s], with h_in the state entering the chunk
+    ([B, H, nc, N, P]; ``None`` means h0, one chunk). On the scan run
+    backward in time (see ``ops.ssd_scan_backward``), whose states are the
+    adjoint states, the same function gives dB. float32 math, dy's dtype
+    out."""
+    b, s, h, p = dtx.shape
+    q = max(1, min(int(chunk), s))
+    la, xf, bm, g = log_a.float(), dtx.float(), Bm.float(), dy.float()
+    states = h0.float()[:, :, None] if h_in is None else h_in.float()
+    out = []
+    for c, t0 in enumerate(range(0, s, q)):
+        qn = min(q, s - t0)
+        cum = torch.cumsum(la[:, :, t0:t0 + qn], dim=-1)           # [B, H, Q]
+        x_c = xf[:, t0:t0 + qn].permute(0, 2, 1, 3)                # [B, H, Q, P]
+        g_c = g[:, t0:t0 + qn].permute(0, 2, 1, 3)
+        tri = torch.tril(torch.ones((qn, qn), dtype=torch.bool,
+                                    device=dtx.device))
+        decay = torch.where(tri, torch.exp(cum[..., :, None] - cum[..., None, :]),
+                            torch.zeros((), device=dtx.device))
+        scores = torch.matmul(g_c, x_c.transpose(-1, -2)) * decay  # [B, H, Q, Q]
+        d_c = (torch.exp(cum)[..., None]
+               * torch.einsum("bhtp,bhnp->bhtn", g_c, states[:, :, c])
+               + torch.matmul(scores, bm[:, None, t0:t0 + qn]))
+        out.append(d_c.sum(dim=1))                                 # [B, Q, N]
+    return torch.cat(out, dim=1).to(dy.dtype)
 
 
 def discretize(x, dt, A):

@@ -210,6 +210,8 @@ def main(argv: Optional[Sequence[str]] = None) -> str:
     ap.add_argument("--dtypes", nargs="*", default=["bfloat16", "float32"])
     ap.add_argument("--max-candidates", type=int, default=256,
                     help="sweep candidates per cell (bounds the curve size)")
+    ap.add_argument("--curve-cap", type=int, default=0,
+                    help="keep only the top-N curve points (0 = full curve)")
     ap.add_argument("--serve-buckets", default="",
                     help="comma list of scheduler bucket edges to compile "
                          "prefill/decode serving cells for (e.g. 64,128,512)")
@@ -254,6 +256,7 @@ def main(argv: Optional[Sequence[str]] = None) -> str:
         jobs,
         autotuner=Autotuner(),
         max_candidates=args.max_candidates,
+        curve_cap=args.curve_cap or None,
         measure_fn_factory=measure_factory,
         meta={
             "generated_by": "repro_torch.launch.compile_plans",

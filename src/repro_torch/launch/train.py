@@ -13,8 +13,9 @@ into ``--checkpoint-dir`` (a run resumes from the newest one there), and
 ``--fail-at`` injects one worker failure, after which the loop restores
 the last checkpoint and goes on. ``--tile-plans`` / ``--hardware`` resolve
 the train cell's kernel tiles from a compiled plan. It runs on ``cuda``
-unless given ``--device cpu``; on the card the FF GEMMs and the attention
-launch the matmul and flash-attention kernels, forward and backward. The
+unless given ``--device cpu``; on the card the FF GEMMs, the attention and
+the SSD and RG-LRU scans launch their kernels, forward and backward
+(``--arch mamba2-2.7b`` and ``recurrentgemma-9b`` train there). The
 reference's ``--mesh`` comes with the distributed layers.
 """
 from __future__ import annotations

@@ -1526,24 +1526,105 @@ def test_flash_attention_gradients_are_the_plain_versions(dev, dtype, rtol,
         _close(g, r, rtol)
 
 
+SSD_GRAD_CASES = [
+    # (b, s, h, p, n, chunk)
+    (1, 512, 8, 64, 128, 64),       # mamba2-2.7b's head and state widths
+    (2, 100, 3, 16, 8, 32),         # ragged: the reversed chunks fall elsewhere
+    (1, 77, 2, 64, 128, 16),        # ragged, short chunks
+    (2, 200, 3, 136, 256, 72),      # two row tiles a chunk, ragged
+    (1, 300, 2, 64, 128, 128),
+    (2, 40, 2, 8, 16, 1),           # a chunk of one step
+    (2, 1, 3, 64, 16, 64),          # one step: the decode kernel forward
+]
+
+
+@pytest.mark.parametrize("dtype,rtol", DTYPES)
+@pytest.mark.parametrize("case", SSD_GRAD_CASES,
+                         ids=lambda c: "-".join(map(str, c)))
+def test_ssd_gradients_launch_the_kernels(dev, dtype, rtol, case):
+    """The chunk scan's five gradients through ``_SsdScanFn`` (the forward
+    kernels on the reversed problem, ``repro_ssd_bwd`` for dB and dC)
+    against autograd of the plain scan on the card, with non-zero h0 and
+    dh_last; one forward and one backward counted."""
+    b, s, h, p, n, chunk = case
+    dt = getattr(torch, dtype)
+    x, dtv, A, Bm, C, h0 = _ssd_inputs(dev, 21, b, s, h, p, n, dt)
+    log_a, dtx = ssd_ops.discretize(x, dtv, A)
+    inputs = (log_a.to(dt), dtx.to(dt), Bm, C, h0)
+    wy, wh = _randn(dev, 22, (b, s, h, p), (b, h, n, p))
+
+    def grads(fn):
+        leaves = [t.detach().requires_grad_(True) for t in inputs]
+        y, hl = fn(*leaves, chunk=chunk)
+        obj = (y.float() * wy).sum() + (hl.float() * wh).sum()
+        return (y.detach(), hl.detach()), torch.autograd.grad(obj, leaves)
+
+    build.reset_launches()
+    out, got = grads(ssd_ops.ssd_scan)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["ssd"] == 1 and build.LAUNCHES["ssd_bwd"] == 1
+    ref, want = grads(ssd_ops.ssd_scan_ref)
+    for o, r in zip(out, ref):
+        _close(o, r, rtol)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype == dt and g.shape == w.shape
+        _close(g, w, rtol)
+
+
+def test_ssd_backward_shared_memory_rule_is_the_sources(dev):
+    import ctypes
+
+    fn = build.load("ssd").repro_ssd_bwd_smem
+    fn.argtypes = [ctypes.c_int, ctypes.c_int]
+    fn.restype = ctypes.c_longlong
+    for dtype in (torch.float32, torch.bfloat16):
+        for p in (8, 16, 64, 72, 136, 256):
+            assert fn(p, build.dtype_code(dtype)) == \
+                ssd_ops.smem_bwd_bytes(p, dtype), (p, dtype)
+
+
+@pytest.mark.parametrize("dtype,rtol", DTYPES)
+@pytest.mark.parametrize("b,s,f,tile", [
+    (1, 1024, 4096, None), (2, 77, 100, (16, 32)), (1, 1, 256, None),
+    (3, 50, 33, (7, 64))])
+def test_rglru_gradients_launch_the_kernel(dev, dtype, rtol, b, s, f, tile):
+    """da, dx and dh0 through ``_RglruScanFn`` (the kernels on the
+    time-reversed adjoint, at the default tile) against autograd of the
+    plain scan on the card; one forward and one backward counted."""
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=dev).manual_seed(23)
+    a = (torch.rand((b, s, f), generator=g, device=dev) * 0.5 + 0.5).to(dt)
+    x = torch.randn((b, s, f), generator=g, device=dev).to(dt)
+    h0 = torch.randn((b, f), generator=g, device=dev).to(dt)
+    wy, wh = _randn(dev, 24, (b, s, f), (b, f))
+
+    def grads(fn):
+        leaves = [t.detach().requires_grad_(True) for t in (a, x, h0)]
+        y, hl = fn(*leaves)
+        obj = (y.float() * wy).sum() + (hl.float() * wh).sum()
+        return torch.autograd.grad(obj, leaves)
+
+    build.reset_launches()
+    got = grads(lambda *t: rg_ops.rglru_scan(*t, tile=tile))
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["rglru"] == 1 and build.LAUNCHES["rglru_bwd"] == 1
+    want = grads(rg_ops.rglru_scan_ref)
+    for gr, w in zip(got, want):
+        assert gr.dtype == w.dtype == dt and gr.shape == w.shape
+        _close(gr, w, rtol)
+
+
 def test_kernels_without_a_backward_raise_under_grad(dev):
-    """ssd, rglru, flash_decode and bilinear refuse an input that requires
-    grad under grad mode, instead of returning a tensor with no history;
-    under no_grad they launch."""
+    """flash_decode and bilinear refuse an input that requires grad under
+    grad mode, instead of returning a tensor with no history; under no_grad
+    they launch."""
     (x,) = _randn(dev, 5, (64, 64))
     (qd, kd, vd) = _randn(dev, 6, (1, 4, 64), (1, 2, 128, 64),
                           (1, 2, 128, 64))
-    la, dtx, bm, cm, h0 = _randn(dev, 7, (1, 2, 32), (1, 32, 2, 64),
-                                 (1, 32, 16), (1, 32, 16), (1, 2, 16, 64))
-    ra, rx, rh = _randn(dev, 8, (1, 32, 64), (1, 32, 64), (1, 64))
     calls = {
         "bilinear": (lambda t: bil_ops.upscale(t, 2), (x,)),
         "flash_decode": (lambda q, k, v: flash_decode(q, k, v, pos=100),
                          (qd, kd, vd)),
-        "ssd": (lambda *t: ssd_ops.ssd_scan(*t), (-la.abs(), dtx, bm, cm,
-                                                   h0)),
-        "rglru": (lambda *t: rg_ops.rglru_scan(*t),
-                  (torch.sigmoid(ra), rx, rh)),
     }
     for name, (fn, inputs) in calls.items():
         live = [t.detach().requires_grad_(True) for t in inputs]
@@ -1552,19 +1633,21 @@ def test_kernels_without_a_backward_raise_under_grad(dev):
         with torch.no_grad():
             fn(*live)
         fn(*inputs)                          # no input requires grad
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ssd_ops.ssd_scan(*[t.detach().requires_grad_(True) for t in
-                           (-la.abs(), dtx, bm, cm, h0)])
 
 
 @pytest.mark.parametrize("arch", ["qwen2-1.5b", "deepseek-moe-16b",
-                                  "internvl2-1b", "whisper-large-v3"])
+                                  "internvl2-1b", "whisper-large-v3",
+                                  "mamba2-2.7b", "recurrentgemma-9b",
+                                  "gemma2-9b", "h2o-danube-1.8b"])
 def test_every_parameter_gets_a_gradient_on_the_card(dev, arch):
     """One backward of a smoke model's train loss on the card: every
     parameter's gradient is set and non-zero (a kernel output without
     history would leave every leaf upstream of it without one), within 1e-4
     of max(1, max |g|) of the plain versions' gradients on the card, and
-    the kernels launched forward (twice, with remat) and backward."""
+    the kernels launched forward (twice, with remat) and backward: the
+    scans' backwards once a layer, none on the plain path. gemma2 and
+    h2o-danube bring a window, a softcap and head dim 80 under the plain
+    attention backward."""
     from repro_torch.optim.adamw import tree_leaves, tree_map
 
     cfg = configs.get_smoke(arch)
@@ -1588,15 +1671,23 @@ def test_every_parameter_gets_a_gradient_on_the_card(dev, arch):
         loss.backward()
         torch.cuda.synchronize()
         grads[impl] = [p.grad for p in tree_leaves(params)]
+        mixers = {spec.mixer for spec in cfg.layer_pattern}
         if impl == "auto":
-            if arch != "whisper-large-v3":      # its FF is torch.matmul
+            # whisper's FF is torch.matmul; mamba2 has none.
+            if arch not in ("whisper-large-v3", "mamba2-2.7b"):
                 assert build.LAUNCHES["matmul"] > 0
-            assert build.LAUNCHES["flash_attention"] > 0
+            if mixers & {"attn", "local_attn"}:
+                assert build.LAUNCHES["flash_attention"] > 0
             assert build.LAUNCHES["flash_attention_bwd_plain"] == \
                 build.LAUNCHES["flash_attention"] // 2
+            for scan, mixer in (("ssd", "ssd"), ("rglru", "rglru")):
+                layers = sum(spec.mixer == mixer for spec in cfg.layer_pattern)
+                assert build.LAUNCHES[f"{scan}_bwd"] == layers, scan
+                assert build.LAUNCHES[scan] == 2 * layers, scan
         else:
-            assert build.LAUNCHES["matmul"] == 0
-            assert build.LAUNCHES["flash_attention"] == 0
+            for name in ("matmul", "flash_attention", "ssd", "ssd_bwd",
+                         "rglru", "rglru_bwd"):
+                assert build.LAUNCHES[name] == 0, name
     for g, r in zip(grads["auto"], grads["reference"]):
         assert g is not None and bool(g.abs().max() > 0)
         _close(g, r, 1e-4)

@@ -94,6 +94,54 @@ def test_no_source_file_imports_jax_or_repro(path):
         assert top not in ("jax", "jaxlib", "repro"), (path, mod)
 
 
+_CORE_PROBE = r"""
+import json, sys
+sys.path.insert(0, {src!r})
+import repro_torch.core as core
+from repro_torch.core import H100_SXM
+missing = [n for n in core.__all__ if not hasattr(core, n)]
+pol = core.TilingPolicy()
+old = core.default_policy()
+core.set_default_policy(pol)
+swapped = core.default_policy() is pol
+core.set_default_policy(old)
+print(json.dumps({{"all": list(core.__all__), "missing": missing,
+                  "swapped": swapped, "restored": core.default_policy() is old,
+                  "knee": H100_SXM.arithmetic_intensity_knee(),
+                  "jax": any(m == "jax" or m.startswith("jax.")
+                             for m in sys.modules)}}))
+"""
+
+
+def _reference_all():
+    tree = ast.parse((SRC / "repro" / "core" / "__init__.py").read_text())
+    for node in tree.body:
+        if (isinstance(node, ast.Assign)
+                and any(getattr(t, "id", None) == "__all__"
+                        for t in node.targets)):
+            return [ast.literal_eval(e) for e in node.value.elts]
+    raise AssertionError("repro/core/__init__.py has no __all__")
+
+
+def test_the_ports_core_exports_every_public_name_of_the_references():
+    """``repro_torch.core`` covers ``repro.core.__all__`` less the TPU
+    descriptors (the port models the H100 and the paper's GPUs), in a
+    process that never loads JAX."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run(
+        [sys.executable, "-c", _CORE_PROBE.format(src=str(SRC))],
+        capture_output=True, text=True, env=env, timeout=120, cwd=str(ROOT))
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    ref = [n for n in _reference_all() if not n.startswith("TPU_")]
+    assert "default_policy" in ref and "set_default_policy" in ref
+    assert sorted(set(ref) - set(out["all"])) == []
+    assert out["missing"] == [] and not out["jax"]
+    assert out["swapped"] and out["restored"]
+    # The H100's own knee: 989 TFLOP/s of bf16 over 3.35 TB/s.
+    assert out["knee"] == pytest.approx(989e12 / 3.35e12, rel=1e-12)
+
+
 def test_cuda_sources_are_beside_the_port():
     csrc = PORT / "kernels" / "csrc"
     assert sorted(p.name for p in csrc.glob("*.cu")) == [

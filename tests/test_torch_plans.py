@@ -41,6 +41,8 @@ from repro_torch.core import (  # noqa: E402
     PlanTransferWarning, PlanVersionWarning, TilePlan, TilingPolicy,
     compile_plan, registry,
 )
+from repro_torch import configs  # noqa: E402
+from repro_torch.core.plans import compile_entry  # noqa: E402
 from repro_torch.core import cost_model, tiling  # noqa: E402
 from repro_torch.core.cost_model import TileWorkload, estimate  # noqa: E402
 from repro_torch.core.tiling import TileShape  # noqa: E402
@@ -486,6 +488,55 @@ def test_a_reference_artifact_loads_in_the_port(tmp_path):
     # A shape the artifact lacks resolves to the nearest one on the same GPU.
     res = plan.resolve("bilinear_cuda", _prob(7), "float32", "gtx260")
     assert res.source == "nearest_shape"
+
+
+def test_compile_plans_cli_caps_every_curve(tmp_path):
+    """``--curve-cap 8`` (the reference's flag): every entry keeps at most 8
+    curve points, best first, and its tile is the first of them."""
+    out = str(tmp_path / "plans.json")
+    compile_plans.main([
+        "--out", out, "--archs", "qwen2-1.5b", "--measure", "analytic",
+        "--hardware", "h100_sxm", "gtx260", "--curve-cap", "8",
+    ])
+    plan = TilePlan.load(out)
+    assert len(plan.kernels()) >= 3
+    assert set(plan.hardware_names()) == {"h100_sxm", "gtx260"}
+    assert max(len(e.curve) for e in plan.entries()) == 8
+    for e in plan.entries():
+        assert 1 <= len(e.curve) <= 8
+        assert e.tile.dims == e.curve[0][0]
+        scores = [score for _, score in e.curve]
+        assert scores == sorted(scores)
+    # 0 means the whole curve, as without the flag.
+    whole = compile_entry("bilinear_cuda", _prob(4), "float32", GTX260)
+    capped = compile_entry("bilinear_cuda", _prob(4), "float32", GTX260,
+                           curve_cap=8)
+    assert len(whole.curve) > 8 and capped.curve == whole.curve[:8]
+
+
+def test_compile_plans_cli_serve_buckets_with_a_curve_cap(tmp_path):
+    """--serve-buckets compiles the scheduler's prefill and decode cells,
+    under a curve cap (the reference's case, scored by the H100's cost
+    model: on the paper's GPUs only the bilinear cells compile)."""
+    out = str(tmp_path / "plans.json")
+    compile_plans.main([
+        "--out", out, "--archs", "qwen2-1.5b", "--hardware", "h100_sxm",
+        "--measure", "analytic", "--dtypes", "float32", "--curve-cap", "4",
+        "--serve-buckets", "16,32", "--serve-slots", "2",
+        "--serve-max-len", "64",
+    ])
+    plan = TilePlan.load(out)
+    assert plan.meta["serve_buckets"] == [16, 32]
+    assert plan.meta["measure"] == "analytic"
+    assert all(len(e.curve) <= 4 for e in plan.entries())
+    cfg = configs.get_arch("qwen2-1.5b")
+    for edge in (16, 32):
+        assert plan.lookup(
+            "matmul", dict(m=edge, k=cfg.d_model, n=cfg.d_ff),
+            "float32", "h100_sxm") is not None
+    assert plan.lookup(
+        "matmul", dict(m=2, k=cfg.d_model, n=cfg.d_ff),
+        "float32", "h100_sxm") is not None
 
 
 def test_cross_hardware_resolution_among_the_ports_descriptors():
