@@ -219,19 +219,24 @@ Phases, each of which fails the run if it fails:
    finite and falling, host ms a step, tokens/s, peak allocated bytes and
    model FLOP/s (6 N tokens) against float32's 67 TFLOP/s, with
    ``--profile`` a sixth step's device ms by group and idle share; (d)
-   ``Trainer.run`` on the 100M example config (200 steps of 8 x 256,
-   checkpoints every 50 in a temporary directory, removed after): the loss
-   falls by more than 1.0, a failure at step 120 restores step 100 and
-   ends at the uninterrupted run's loss within 1e-3, and the launcher
+   ``Trainer.run`` on the 100M example config (100 steps of 8 x 256,
+   checkpoints every 25 in a temporary directory, removed after): the loss
+   falls by more than 1.0, a failure at step 60 restores step 50 and ends
+   at the uninterrupted run's loss, bit for bit, and the launcher
    ``python -m repro_torch.launch.train --steps 20 --checkpoint-every 10
    --fail-at 12`` exits 0 with one restart; (e) the recurrent mixers under
    training: (a) the ssd and rglru gradients through their autograd
-   Functions (backwards on the kernels: the forward kernels on the
-   time-reversed problem, ``repro_ssd_bwd`` for dB and dC) against autograd
-   of the plain scans, at mamba2-2.7b's width (S 4096, H 80, P 64, N 128,
-   chunk 64) and recurrentgemma-9b's (S 4096, F 4096) and at a ragged S
-   4001, float32 and bf16, one forward and one backward counted each; each
-   backward timed beside the plain version's and its bound; (b)
+   Functions (backwards on the kernels: the forward kernels reversed, read
+   in place, with d log_a's dot products in their output launch, and one
+   ``repro_ssd_bwd`` launch for dB and dC) against autograd of the plain
+   scans, at mamba2-2.7b's width (S 4096, H 80, P 64, N 128, chunk 64) and
+   recurrentgemma-9b's (S 4096, F 4096) and at a ragged S 4001, float32
+   and bf16, one forward and one backward counted each; each backward
+   timed beside the plain version's, its bound and its earlier time (the
+   ssd's also at mamba2's train shape, B 8, S 512), the ssd backward's
+   calls each timed alone (they must add up to the whole within 10%) and
+   its launches named by the profiler in a fresh process (each ssd kernel
+   of the design once a call, no flip, no copy but bf16's dtype casts); (b)
    full-width mamba2-2.7b (64 layers, float32, seed 0), one batch of 8 x
    512: ``api.train_loss`` and backward through the kernels against
    ``impl="reference"``, the loss and every leaf within 1e-4 of max(1,
@@ -745,29 +750,57 @@ def decode_position_checks(record, randn, dtypes, quick: bool):
 TC_RATE = {"float32": "float32_3xtf32", "bfloat16": "bfloat16"}
 
 
+# Idle host seconds a kernel listing's profile holds before and after its
+# calls (device_kernel_launches).
+PROFILE_PAD_S = 0.1
+
+
 def device_kernels(fn, calls: int = 5):
     """Device ms per call of each CUDA kernel a call of ``fn`` runs (from
     ``torch.profiler``), by kernel name: where a multi-launch kernel's time
     goes, and which backend a library call took."""
-    import re
+    return {k: v[0] for k, v in device_kernel_launches(fn, calls).items()}
 
+
+def device_kernel_launches(fn, calls: int = 5, full_names: bool = False):
+    """{kernel name: (device ms, launches)} per call of ``fn``, from
+    ``torch.profiler``; the name cut to its last component (templates kept)
+    unless ``full_names``. The profile holds PROFILE_PAD_S of idle host
+    time on either side of the calls: the profiler drops device events
+    that fall outside its window on the host's clock, and the card's
+    timestamps drift from that clock as a process ages (a listing of a few
+    milliseconds came out empty late in a full run, and rglru's 0.5 ms one
+    a minute or so into a fresh process)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_PAD_S)
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
+        time.sleep(PROFILE_PAD_S)
     out = {}
     for ev in prof.events():
         if ev.device_type == DeviceType.CUDA:
-            name = re.sub(r"^void |\(anonymous namespace\)::", "", ev.name)
-            name = re.sub(r"\(.*", "", name).split("::")[-1]
-            out[name] = out.get(name, 0.0) + ev.time_range.elapsed_us() / 1e3 / calls
+            name = ev.name if full_names else short_kernel_name(ev.name)
+            ms, n = out.get(name, (0.0, 0.0))
+            out[name] = (ms + ev.time_range.elapsed_us() / 1e3 / calls,
+                         n + 1 / calls)
     return out
+
+
+def short_kernel_name(name: str) -> str:
+    """A demangled kernel name cut to its last component, its template
+    arguments kept (``ssd_out_kernel<float, true>``)."""
+    import re
+
+    name = re.sub(r"^void |\(anonymous namespace\)::", "", name)
+    return re.sub(r"\(.*", "", name).split("::")[-1]
 
 
 def flash_tile_sweep(randn, dtypes):
@@ -4496,11 +4529,13 @@ TRAIN_PEAK_LR = 3e-4
 # twice and its plain backward once.
 TRAIN_STEP_LAUNCHES = {"matmul": 28 * 12, "flash_attention": 28 * 2,
                        "flash_attention_bwd_plain": 28}
-# 17d: the 100M example, 200 steps at 8 x 256 tokens, checkpoints every 50
-# (keep 2), a failure injected at step 120; the replayed steps' losses and
+# 17d: the 100M example, 100 steps at 8 x 256 tokens (the example's loss
+# assertion needs 100), checkpoints every 25 (keep 2), a failure injected at
+# step 60, so the run restarts from step 50; the replayed steps' losses and
 # the final parameters must equal the uninterrupted run's bit for bit (a
 # step is deterministic and the checkpoint holds params, moments and step).
-EXAMPLE_STEPS, EXAMPLE_FAIL_AT = 200, 120
+EXAMPLE_STEPS, EXAMPLE_EVERY, EXAMPLE_FAIL_AT = 100, 25, 60
+EXAMPLE_RESTORED = EXAMPLE_FAIL_AT // EXAMPLE_EVERY * EXAMPLE_EVERY
 # 17e (a): each scan's gradients at its model's full width: mamba2-2.7b's
 # SSD (H 80, P 64, N 128, its float32 chunk 64) and recurrentgemma-9b's
 # RG-LRU (F 4096), one batch row of 4096 steps and a ragged 4001 (no
@@ -4508,6 +4543,17 @@ EXAMPLE_STEPS, EXAMPLE_FAIL_AT = 200, 120
 SCAN_GRAD_WIDTHS = {"ssd": dict(h=80, p=64, n=128, chunk=64),
                     "rglru": dict(f=4096)}
 SCAN_GRAD_S = (4096, 4001)
+# 17e (a): the backwards are timed at one row of 4096 steps and, for the
+# ssd, at mamba2-2.7b's train shape too (one layer's call in a 17e (c)
+# step: B 8, S 512), each beside the earlier design's time where one was
+# kept (the ssd's: the forward kernels on flipped copies and two
+# repro_ssd_bwd launches; NVIDIA H100 80GB HBM3 at 700 W).
+SCAN_BWD_SHAPES = {"ssd": ((1, 4096), (8, 512)), "rglru": ((1, 4096),)}
+SCAN_BWD_EARLIER_MS = {("ssd", "float32", 1, 4096): 2.3325,
+                       ("ssd", "bfloat16", 1, 4096): 1.8728}
+# 17e (c): the "ssd backward" group of the profiled mamba2 step with that
+# earlier design (ms, same card).
+SCAN_TRAIN_SSD_BWD_EARLIER_MS = 149.9
 # 17e (b): each gradient leaf of full-width mamba2-2.7b (and of 17e (d)'s
 # recurrentgemma-9b), kernels against the plain versions, and the loss,
 # within this of max(1, max |plain|).
@@ -5018,11 +5064,12 @@ def train_steps(cfg, params, profile: bool, steps: int = 5):
 
 
 def train_example(tmp_dir: Path):
-    """17d: ``Trainer.run`` on the 100M example config: 200 steps at 8 x 256
-    tokens, checkpoints every 50 (keep 2); the loss falls by more than 1.0
-    (the example's own assertion); a run with a failure at step 120
-    restores step 100 and ends at the uninterrupted run's loss; then the
-    launcher on the smoke config with a failure at step 12."""
+    """17d: ``Trainer.run`` on the 100M example config: EXAMPLE_STEPS steps
+    at 8 x 256 tokens, checkpoints every EXAMPLE_EVERY (keep 2); the loss
+    falls by more than 1.0 (the example's own assertion); a run with a
+    failure at EXAMPLE_FAIL_AT restores EXAMPLE_RESTORED and ends at the
+    uninterrupted run's loss; then the launcher on the smoke config with a
+    failure at step 12."""
     import torch
 
     from repro_torch.data.pipeline import DataConfig
@@ -5036,7 +5083,8 @@ def train_example(tmp_dir: Path):
                           global_batch=8)
 
     def run(name, fail_at=None):
-        tcfg = TrainerConfig(steps=EXAMPLE_STEPS, checkpoint_every=50,
+        tcfg = TrainerConfig(steps=EXAMPLE_STEPS,
+                             checkpoint_every=EXAMPLE_EVERY,
                              keep=2, checkpoint_dir=str(tmp_dir / name),
                              peak_lr=3e-4, warmup_steps=20, log_every=50)
         trainer = Trainer(cfg, data_cfg, tcfg, device="cuda",
@@ -5053,17 +5101,20 @@ def train_example(tmp_dir: Path):
     first, last = clean["losses"][0], clean["losses"][-1]
     check(last < first - 1.0, f"100M example: loss {first:.3f} -> "
           f"{last:.3f}, not more than 1.0 lower")
-    check(clean["ckpts"] == [150, 200], f"kept {clean['ckpts']}")
+    kept = [EXAMPLE_STEPS - EXAMPLE_EVERY, EXAMPLE_STEPS]
+    check(clean["ckpts"] == kept, f"kept {clean['ckpts']}, want {kept}")
     check(all(launches[k] > 0 for k in launches), f"launches {launches}")
     torch.cuda.empty_cache()
     failed = run("failed", fail_at=EXAMPLE_FAIL_AT)
     check(failed["restarts"] == 1, f"restarts {failed['restarts']}")
-    check(len(failed["losses"]) == EXAMPLE_STEPS + EXAMPLE_FAIL_AT - 100,
+    check(len(failed["losses"]) == (EXAMPLE_STEPS + EXAMPLE_FAIL_AT
+                                    - EXAMPLE_RESTORED),
           f"{len(failed['losses'])} steps taken with the restart")
-    replayed = EXAMPLE_STEPS - 100
+    replayed = EXAMPLE_STEPS - EXAMPLE_RESTORED
     check(failed["losses"][-replayed:] == clean["losses"][-replayed:],
-          f"restarted run's losses after step 100 differ from the "
-          f"uninterrupted run's (final {failed['losses'][-1]!r} vs {last!r})")
+          f"restarted run's losses after step {EXAMPLE_RESTORED} differ from "
+          f"the uninterrupted run's (final {failed['losses'][-1]!r} vs "
+          f"{last!r})")
     same_params = all(torch.equal(a, b) for a, b in zip(
         _leaves(failed.pop("params")), _leaves(clean.pop("params"))))
     check(same_params, "restarted run's final parameters differ from the "
@@ -5075,7 +5126,8 @@ def train_example(tmp_dir: Path):
     log(f"  failure at step {EXAMPLE_FAIL_AT}: restarts "
         f"{failed['restarts']}, {len(failed['losses'])} steps, final loss "
         f"{failed['losses'][-1]:.6f} vs {last:.6f}; the {replayed} losses "
-        f"after step 100 and the final parameters bit-identical; "
+        f"after step {EXAMPLE_RESTORED} and the final parameters "
+        f"bit-identical; "
         f"stragglers {failed['straggler_events']}")
     env = dict(os.environ, PYTHONPATH=str(SRC))
     cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
@@ -5096,8 +5148,8 @@ def train_example(tmp_dir: Path):
                 launches=launches, launcher=final[-1] if final else None)
 
 
-def _scan_grad_operands(kernel, width, s, dt, device, seed):
-    """17e (a): one batch row of a scan's inputs and of the weights of its
+def _scan_grad_operands(kernel, width, s, dt, device, seed, b=1):
+    """17e (a): ``b`` batch rows of a scan's inputs and of the weights of its
     two outputs (the objective is sum(y w_y) + sum(h_last w_h))."""
     import torch
 
@@ -5113,15 +5165,15 @@ def _scan_grad_operands(kernel, width, s, dt, device, seed):
 
     if kernel == "ssd":
         h, p, n = width["h"], width["p"], width["n"]
-        inputs = (rand((1, h, s), -0.1, 0.0), randn((1, s, h, p), 0.05),
-                  randn((1, s, n)), randn((1, s, n)), randn((1, h, n, p)))
-        weights = (randn((1, s, h, p), dtype=torch.float32),
-                   randn((1, h, n, p), dtype=torch.float32))
+        inputs = (rand((b, h, s), -0.1, 0.0), randn((b, s, h, p), 0.05),
+                  randn((b, s, n)), randn((b, s, n)), randn((b, h, n, p)))
+        weights = (randn((b, s, h, p), dtype=torch.float32),
+                   randn((b, h, n, p), dtype=torch.float32))
     else:
         f = width["f"]
-        inputs = (rand((1, s, f), 0.5, 1.0), randn((1, s, f)), randn((1, f)))
-        weights = (randn((1, s, f), dtype=torch.float32),
-                   randn((1, f), dtype=torch.float32))
+        inputs = (rand((b, s, f), 0.5, 1.0), randn((b, s, f)), randn((b, f)))
+        weights = (randn((b, s, f), dtype=torch.float32),
+                   randn((b, f), dtype=torch.float32))
     return inputs, weights
 
 
@@ -5199,30 +5251,143 @@ def scan_grad_checks(device="cuda", widths=SCAN_GRAD_WIDTHS,
     return rows
 
 
-def scan_backward_times(widths=SCAN_GRAD_WIDTHS, s=SCAN_GRAD_S[0]):
-    """17e (a): each scan's backward alone at its full width, float32 and
-    bf16: the kernel backward (from a forward's saved outputs:
+# 17e (a): the copies a bf16 ssd backward makes, all dtype casts of small
+# tensors or of its outputs: to float32 log_a[:, :, 0], g0, dh_last and
+# h_last (ssd_bwd_tail), to bf16 dh0, d log_a, dB and dC.
+SSD_BWD_BF16_CASTS = 8
+
+
+def _ssd_backward_launches(row, listing, inputs, y, hl, h_in, dy, dh, q, nc):
+    """17e (a): every launch of the ssd backward, named and timed. Each of
+    its three calls is replayed alone under CUDA events (the reversed
+    ``repro_ssd``: chunk states, state pass, outputs with d log_a's dot
+    products; ``repro_ssd_bwd``: dB and dC; the PyTorch tail), and must add
+    up to the whole backward's time within 10%. ``listing`` (the
+    profiler's, by full kernel name) must hold each kernel of the design
+    once a call (the reversed scan's state, pass and output kernels,
+    ``ssd_bwd_kernel``), no flip and no copy but bf16's SSD_BWD_BF16_CASTS
+    dtype casts: no flipped or contiguous copy of an operand is left."""
+    from repro_torch.kernels.ssd import ops as ssd_ops
+
+    log_a, dtx, bm, cm, h0 = inputs
+    d_dtx, g0, r_h_in, dcum = ssd_ops._ssd_rev_cuda(log_a, dy, cm, bm, dh, y,
+                                                    dtx, q)
+    pieces = {
+        "repro_ssd reversed (states, pass, outputs + d log_a dots)":
+            lambda: ssd_ops._ssd_rev_cuda(log_a, dy, cm, bm, dh, y, dtx, q),
+        "repro_ssd_bwd (dB and dC, one launch)":
+            lambda: ssd_ops._ssd_bwd_cuda(log_a, dtx, bm, cm, dy, h0, dh,
+                                          h_in, r_h_in, q),
+        "tail (dh0, <dh_last, h_last>, reverse cumsum; torch)":
+            lambda: ssd_ops.ssd_bwd_tail(log_a, hl, dh, g0, dcum)}
+    row["pieces_ms"] = {k: time_ms([fn], iters=8) for k, fn in pieces.items()}
+    total = sum(row["pieces_ms"].values())
+    check(abs(total - row["ms"]) <= 0.1 * row["ms"],
+          f"ssd backward: its calls add up to {total:.4f} ms, the whole "
+          f"to {row['ms']:.4f}")
+    want = {"ssd_state_kernel": 1, "ssd_out_kernel": 1, "ssd_bwd_kernel": 1}
+    if nc > 1:
+        want["ssd_pass_kernel"] = 1
+    seen, flips, copies = {}, 0, 0
+    for name, (_, n) in listing.items():
+        # Kernel names carry their template arguments (ssd_out_kernel<float,
+        # true>).
+        base = short_kernel_name(name).split("<")[0].strip()
+        if base.startswith("ssd_"):
+            seen[base] = seen.get(base, 0) + round(n)
+        flips += round(n) if "flip" in name else 0
+        copies += round(n) if "copy_kernel" in name else 0
+    check(seen == want, f"ssd backward: launches a call {seen}, want {want}")
+    casts = 0 if row["dtype"] == "float32" else SSD_BWD_BF16_CASTS
+    check(flips == 0 and copies == casts,
+          f"ssd backward: {flips} flip and {copies} copy launches a call, "
+          f"want 0 and {casts} (dtype casts)")
+    row["flip_launches"], row["copy_launches"] = flips, copies
+    del d_dtx, g0, r_h_in, dcum
+
+
+def scan_backward_listings():
+    """17e (a)'s scan backwards at each of their dtypes and SCAN_BWD_SHAPES,
+    on 17e (a)'s operands: {"kernel dtype b s": :func:`device_kernel_launches`
+    by full kernel name}. :func:`scan_backward_times` runs it in a process of
+    its own, where the card's clock has not yet drifted far from the
+    host's (the in-process listings of a full run came out empty)."""
+    import torch
+
+    from repro_torch.kernels.rglru import ops as rg_ops
+    from repro_torch.kernels.ssd import ops as ssd_ops
+
+    out = {}
+    for kernel, width in SCAN_GRAD_WIDTHS.items():
+        for (dname, dt), (b, s) in itertools.product(
+                (("float32", torch.float32), ("bfloat16", torch.bfloat16)),
+                SCAN_BWD_SHAPES[kernel]):
+            inputs, weights = _scan_grad_operands(kernel, width, s, dt,
+                                                  "cuda", seed=7, b=b)
+            dy, dh = (w.to(dt) for w in weights)
+            if kernel == "ssd":
+                q = width["chunk"]
+                y, hl, h_in = ssd_ops._ssd_cuda(*inputs, q)
+
+                def bwd():
+                    return ssd_ops.ssd_scan_backward(
+                        *inputs, y, hl, h_in, dy, dh, q,
+                        ssd_ops._ssd_rev_cuda, ssd_ops._ssd_bwd_cuda)
+            else:
+                a, x, h0 = inputs
+                y, _ = rg_ops._rglru_cuda(a, x, h0)
+
+                def bwd():
+                    return rg_ops._rglru_bwd_cuda(a, y, h0, dy, dh)
+            out[f"{kernel} {dname} {b} {s}"] = device_kernel_launches(
+                bwd, calls=3, full_names=True)
+    return out
+
+
+def _fresh_scan_backward_listings():
+    """:func:`scan_backward_listings` in a new Python process (the kernels
+    already built), its JSON read from the last line it prints."""
+    code = ("import json, sys; sys.path.insert(0, 'src'); "
+            "import chip_smoke; "
+            "print(json.dumps(chip_smoke.scan_backward_listings()))")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
+                          capture_output=True, text=True, timeout=600)
+    check(proc.returncode == 0, "scan backward listings in a fresh process: "
+          f"rc {proc.returncode}: {proc.stderr[-2000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def scan_backward_times():
+    """17e (a): each scan's backward alone at its full width
+    (SCAN_GRAD_WIDTHS), float32 and bf16, at each of its SCAN_BWD_SHAPES:
+    the kernel backward (from a forward's saved outputs:
     ``ssd_scan_backward`` on the kernels, ``repro_rglru_bwd``) as a CUDA
-    graph, its launches' device ms, the plain version's backward (autograd
-    of the plain scan, its forward's graph kept), and the bound; for rglru
-    also the simple version (the forward kernels on time-flipped copies)
-    and those copies alone. No PyTorch call computes either scan."""
+    graph, its launches as a fresh process's profiler lists them
+    (:func:`scan_backward_listings`; for the ssd also each call timed alone
+    and the listing checked: :func:`_ssd_backward_launches`),
+    the plain version's backward (autograd of the plain scan, its forward's
+    graph kept), the bound, and the earlier time where one was kept; for
+    rglru also the simple version (the forward kernels on time-flipped
+    copies) and those copies alone. No PyTorch call computes either scan."""
     import torch
 
     from repro_torch.kernels.rglru import ops as rg_ops
     from repro_torch.kernels.ssd import ops as ssd_ops
 
     timed = []
-    for kernel, width in widths.items():
+    listings = _fresh_scan_backward_listings()
+    for kernel, width in SCAN_GRAD_WIDTHS.items():
         _, plain = _scan_fns(kernel, width)
-        for dname, dt in (("float32", torch.float32),
-                          ("bfloat16", torch.bfloat16)):
+        for (dname, dt), (b, s) in itertools.product(
+                (("float32", torch.float32), ("bfloat16", torch.bfloat16)),
+                SCAN_BWD_SHAPES[kernel]):
             inputs, weights = _scan_grad_operands(kernel, width, s, dt,
-                                                  "cuda", seed=7)
+                                                  "cuda", seed=7, b=b)
             eb = inputs[1].element_size()
             dy, dh = (w.to(dt) for w in weights)
             row = dict(kernel=f"{kernel}_bwd", dtype=dname,
-                       shape=dict(b=1, s=s, **width), library_ms=None)
+                       shape=dict(b=b, s=s, **width), library_ms=None,
+                       earlier_ms=SCAN_BWD_EARLIER_MS.get((kernel, dname, b, s)))
             if kernel == "ssd":
                 log_a, dtx, bm, cm, h0 = inputs
                 q = width["chunk"]
@@ -5231,13 +5396,13 @@ def scan_backward_times(widths=SCAN_GRAD_WIDTHS, s=SCAN_GRAD_S[0]):
 
                 def bwd():
                     return ssd_ops.ssd_scan_backward(
-                        *inputs, y, hl, h_in, dy, dh, q, ssd_ops._ssd_cuda,
-                        ssd_ops._ssd_bwd_cuda)
+                        *inputs, y, hl, h_in, dy, dh, q,
+                        ssd_ops._ssd_rev_cuda, ssd_ops._ssd_bwd_cuda)
                 # log_a, dtx, B, C, h0, y, h_last, dy and dh_last read once;
                 # the five gradients written once.
                 nb = (2 * sum(t.numel() for t in inputs) + y.numel()
                       + hl.numel() + dy.numel() + dh.numel()) * eb
-                flops = ssd_ops.bwd_flops(q, prob)
+                flops = b * ssd_ops.bwd_flops(q, prob)
                 row["bound_ms"], row["bound_by"] = bound(nb, flops,
                                                          TC_RATE[dname])
             else:
@@ -5260,28 +5425,45 @@ def scan_backward_times(widths=SCAN_GRAD_WIDTHS, s=SCAN_GRAD_S[0]):
                     torch.cat([h0[:, None], y[:, :-1]], dim=1)
                 # a, y and dy read, dx and da written (h0, dh_last, dh0
                 # beside them).
-                nb = (5 * s * width["f"] + 3 * width["f"]) * eb
+                nb = (5 * s * width["f"] + 3 * width["f"]) * eb * b
                 row["bound_ms"], row["bound_by"] = bound(
-                    nb, 4.0 * s * width["f"], dname)
+                    nb, 4.0 * b * s * width["f"], dname)
                 # The simple version beside the kernel: the forward kernels
                 # on flipped copies, and those copies alone.
                 row["by_flips_ms"] = time_ms([by_flips], iters=8)
                 row["flips_ms"] = time_ms([flips], iters=8)
             row["ms"] = time_ms([bwd], iters=8)
-            row["launch_ms"] = device_kernels(bwd, calls=3)
+            listing = listings[f"{kernel} {dname} {b} {s}"]
+            row["launches_listed"] = {}
+            for k, (ms, n) in listing.items():
+                short = short_kernel_name(k)
+                was = row["launches_listed"].get(short, dict(ms=0.0,
+                                                             launches=0.0))
+                row["launches_listed"][short] = dict(
+                    ms=was["ms"] + ms, launches=was["launches"] + n)
+            if kernel == "ssd":
+                _ssd_backward_launches(row, listing, inputs, y, hl, h_in, dy,
+                                       dh, q, -(-s // q))
             leaves, obj = _scan_objective(plain, inputs, weights)
             row["plain_ms"] = eager_ms(lambda: torch.autograd.grad(
                 obj, leaves, retain_graph=True), iters=3, warmup=1)
             del leaves, obj
             timed.append(row)
-            log(f"  {kernel}_bwd {dname:8s} s={s}: {row['ms']:.4f} ms"
+            log(f"  {kernel}_bwd {dname:8s} b={b} s={s}: {row['ms']:.4f} ms"
+                + (f" (earlier design: {row['earlier_ms']:.4f})"
+                   if row["earlier_ms"] else "")
                 + (f" (the forward kernels on flipped copies "
                    f"{row['by_flips_ms']:.4f}, the copies alone "
                    f"{row['flips_ms']:.4f})" if "flips_ms" in row else "")
                 + f", plain backward {row['plain_ms']:.2f}, bound "
-                f"{row['bound_ms']:.4f} ({row['bound_by']}); launches "
-                + ", ".join(f"{k} {v:.4f}" for k, v in sorted(
-                    row["launch_ms"].items(), key=lambda kv: -kv[1])[:6]))
+                f"{row['bound_ms']:.4f} ({row['bound_by']})")
+            for k, v in row.get("pieces_ms", {}).items():
+                log(f"    {k:60s} {v:.4f} ms")
+            log("    profiler (a fresh process): " + ", ".join(
+                f"{k} x{v['launches']:.0f} {v['ms']:.4f}" for k, v in
+                sorted(row["launches_listed"].items(),
+                       key=lambda kv: -kv[1]["ms"])))
+            del inputs, weights, dy, dh, y
     return timed
 
 
@@ -5471,7 +5653,9 @@ def scan_train_steps(cfg, params, profile: bool, batch: int, seq: int,
             f"(kernel times summed {sum(groups.values()):.1f} ms), idle "
             f"share {out['profile']['device_idle_share']}")
         for g, t in sorted(groups.items(), key=lambda kv: -kv[1]):
-            log(f"    {g:56s} {t:.3f} ms")
+            log(f"    {g:56s} {t:.3f} ms"
+                + (f" (earlier design: {SCAN_TRAIN_SSD_BWD_EARLIER_MS})"
+                   if g == SCAN_TRAIN_LABELS["train.ssd_backward"] else ""))
     del opt_state
     return out
 

@@ -40,18 +40,50 @@
 // (d) ssd_step_kernel, for S = 1 (the decode step) alone: one block a head
 //     gives y and h_last of the one step in one launch, with no workspace;
 //     at one step the products are dot products, not tensor-core work.
-// (e) ssd_bwd_kernel (repro_ssd_bwd), the backward's dB and dC: (c)'s
-//     products with the operands' roles swapped, summed over heads. The
-//     Pallas kernel has no backward (the reference differentiates its jnp
-//     scan); this one serves kernels/ssd/ops.py:ssd_scan_backward, which
-//     runs (a)-(c) on the time-reversed problem for d(dtx) and dh0 (its
-//     states are the adjoint states) and this kernel twice: on the forward
-//     problem against dy for dC, on the reversed one against dtx for dB.
-//     Per chunk of L steps and head it does L (L + 1) (N + P) + 2 L N P
-//     FLOP; with the reversed scan, the whole backward does 3.37e10 at
-//     mamba2-2.7b's width, S = 4096 and Q = 64: 0.20 ms at the 3xTF32 rate,
-//     so operations bound it in float32.
+// (e) ssd_bwd_kernel (repro_ssd_bwd), the backward's dB and dC in one
+//     launch: (c)'s products with the operands' roles swapped, summed over
+//     heads. The Pallas kernel has no backward (the reference
+//     differentiates its jnp scan); this one serves
+//     kernels/ssd/ops.py:ssd_scan_backward, which first runs (a)-(c) (or
+//     (d)) in their reversed mode for d(dtx), dh0 and d log_a's dot
+//     products (the adjoint scan, whose states are the adjoint states), then
+//     this kernel once: a grid dimension picks dC (the forward problem
+//     against dy) or dB (the reversed one against dtx).
 //
+// The reversed mode (repro_ssd's reverse = 1): every kernel reads step t of
+// the adjoint scan at forward step S - 1 - t, rows staged by cp.async with a
+// negative row stride, so the tiles in shared memory are those the forward
+// mode would stage from time-flipped copies (the same bits out); its log_a
+// is 0 at t = 0 and log_a[S - t] after. Its chunk grid starts at forward
+// step S - 1, so a ragged S puts its short chunk at forward step 0. y is
+// written at forward steps, the chunk states in the adjoint scan's order.
+// (c)'s epilogue, holding d dtx for its rows, also forms <dy_t, y_t> -
+// <dtx_t, d dtx_t> over its P columns (dy is its own last j-tile) and
+// writes them as float32 [P-tiles, B, H, S]: d log_a needs no full-size
+// temporary and no copy.
+//
+// What bounds the backward: at mamba2-2.7b's width (H 80, P 64, N 128),
+// S = 4096 and Q = 64 it does 3.37e10 FLOP (ops.bwd_flops: the reversed
+// scan's and L (L + 1) (N + P) + 2 L N P a chunk and head for each of dB and
+// dC), 0.20 ms at the 3xTF32 rate, so operations bound it in float32 and
+// its 179 MB bytes bound it in bf16. (e) itself reads 2 x 168 MB of float32
+// chunk states besides. Its design: a block takes 64 rows of a chunk and
+// 128 N columns of one problem and walks a group of heads (all 80 at
+// mamba2's width, one block an SM) through a two-stage cp.async ring, so a
+// head's dy, x and h_in tiles load while the head before computes; the B
+// tile is staged once a j-tile; the heads' cumsums are taken once, a head a
+// warp; each head's products sum in a tile of their own, then into the
+// block's float32 sum in a fixed order (summed in the tensor cores' own
+// accumulator, 80 heads missed the float32 check). Both dtypes run on
+// mma.sync with sixteen warps (four a 16-row slab, 32 N columns each; each
+// SM sub-partition holds one warp of every slab, since the causal rows give
+// the last slab four times the first's scores). The products, with their
+// operand loads and 3xTF32 splits, take about two thirds of the float32
+// launch and half of the bf16 one (tools/time_ssd.py's variant without
+// them); a wgmma form of the bf16 kernel was no faster, and 3xTF32 on wgmma
+// (tf32 operands K-major in shared memory, split into hi and lo there) is
+// not tried yet.
+
 // Every product of (a) and (c) runs on mma.sync with float32 sums. float32
 // takes m16n8k8 as 3xTF32 (x = hi + lo, hopper::split; one TF32 product
 // misses the 2e-5 float32 check). bf16 takes m16n8k16; its float32
@@ -85,9 +117,11 @@ typedef __nv_bfloat16 bf16;
 
 constexpr int NT = 128;      // threads of (a): four warps
 constexpr int NT_OUT = 256;  // threads of (c): eight warps
+constexpr int NT_BWD = 512;  // threads of (e): sixteen warps
 constexpr int TQ = 64;     // time rows of a tile
 constexpr int TP = 64;     // state columns (P) of a tile
-constexpr int TN = 128;    // state rows (N) of a chunk-state tile
+constexpr int TN = 128;    // state rows (N) of a chunk-state tile, and N
+                           // columns of a backward block
 constexpr int QMAX = 256;  // the longest chunk (its cumsum sits in smem)
 constexpr int PASS_THREADS = 256;
 constexpr int STEP_THREADS = 256;
@@ -123,19 +157,56 @@ __host__ __device__ constexpr size_t out_smem(int n, int es) {
               : (size_t)es * TQ * (ld_row(n) + ld_col(TP, es)));
 }
 
-// (e)'s blocks: the cumsum, the score buffer, dy rows [TQ][ld_row(p)], then
-// float32 h_in rows [TP][Pk + 8] (Pk: P in whole k-steps) or x rows
-// [TQ][ld_row(p)] with B columns [TQ][ld_col(TP)].
-__host__ __device__ constexpr size_t bwd_smem(int p, int es) {
-  return 4 * QMAX + (size_t)es * 4 * 16 * LD_SC + (size_t)es * TQ * ld_row(p) +
-         ((size_t)4 * TP * (n_steps(p, es) + 8) >
-                  (size_t)es * TQ * (ld_row(p) + ld_col(TP, es))
-              ? (size_t)4 * TP * (n_steps(p, es) + 8)
-              : (size_t)es * TQ * (ld_row(p) + ld_col(TP, es)));
+// (e)'s blocks. A stage of the head pipeline: dy rows and x rows
+// [TQ][ld_row(p)] in the input's type, then float32 h_in rows [TN][Pk + 8]
+// (Pk: P in whole k-steps). After the stages: B columns [TQ][ld_col(TN)] of
+// the block's j-tile, the score buffer, and the cumsums of the block's heads
+// [hpb][q rounded up to 32], float32.
+__host__ __device__ constexpr size_t bwd_stage_bytes(int p, int es) {
+  return (size_t)2 * es * TQ * ld_row(p) + (size_t)4 * TN * (n_steps(p, es) + 8);
+}
+__host__ __device__ constexpr size_t bwd_smem(int p, int q, int hpb, int stages,
+                                              int es) {
+  return (size_t)stages * bwd_stage_bytes(p, es) +
+         (size_t)es * TQ * ld_col(TN, es) + (size_t)es * 4 * 16 * LD_SC +
+         (size_t)4 * hpb * ((q + 31) & ~31);
+}
+// Two stages where they fit, else one; 0 if not even one does. (A third,
+// where it fits, made the bf16 kernel slower on the H100.)
+__host__ __device__ constexpr int bwd_stages(int p, int q, int hpb, int es) {
+  return bwd_smem(p, q, hpb, 2, es) <= (size_t)SMEM_LIMIT   ? 2
+         : bwd_smem(p, q, hpb, 1, es) <= (size_t)SMEM_LIMIT ? 1
+                                                            : 0;
+}
+
+// The units' ring of (e): unit u sits in stage u % stages.
+// `nx` units are loading or loaded; at the top of unit u (all units before
+// it consumed) the ring waits for unit u, then starts loads ahead while a
+// stage is free. A unit that starts a j-tile round also stages that round's
+// B tile, which the round before reads to its end: its loads start only
+// once every unit before it is consumed.
+__device__ __forceinline__ void bwd_ring_wait(int pending) {
+  if (pending >= 1) {
+    cp_async_wait<1>();
+  } else {
+    cp_async_wait<0>();
+  }
 }
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
+
+// The reversed mode (the backward's adjoint scan, read in place): step t of
+// the scan is forward step s - 1 - t, and its log_a is 0 at t = 0 and
+// log_a[s - t] after. `la` is the (b, h) row of log_a.
+__device__ __forceinline__ int time_row(int t, int s, int rev) {
+  return rev ? s - 1 - t : t;
+}
+template <typename T>
+__device__ __forceinline__ float log_a_at(const T* la, int t, int s, int rev) {
+  if (!rev) return to_f32(la[t]);
+  return t == 0 ? 0.f : to_f32(la[s - t]);
+}
 
 // Two neighbouring outputs (p, p + 1), and their float values.
 __device__ __forceinline__ void store2(float* p, float a, float b) {
@@ -151,13 +222,14 @@ __device__ __forceinline__ float2 load2(const bf16* p) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
 }
 
-// A [rows, cols] tile of a row-major source (row stride `stride` elements)
-// into shared memory of the same type (row stride ld) by 16-byte cp.async:
-// rows >= vrows and columns >= vcols are zero-filled. cols and vcols are
-// multiples of 8, rows start on 16 bytes; the caller commits and waits.
+// A [rows, cols] tile of a row-major source (row stride `stride` elements,
+// negative to read rows backward in time) into shared memory of the same
+// type (row stride ld) by 16-byte cp.async: rows >= vrows and columns >=
+// vcols are zero-filled. cols and vcols are multiples of 8, rows start on 16
+// bytes; the caller commits and waits.
 template <typename T>
 __device__ __forceinline__ void stage(T* dst, int ld, const T* src,
-                                      size_t stride, int rows, int vrows,
+                                      ptrdiff_t stride, int rows, int vrows,
                                       int cols, int vcols) {
   constexpr int E = 16 / sizeof(T);
   const int per_row = cols / E;
@@ -170,7 +242,7 @@ __device__ __forceinline__ void stage(T* dst, int ld, const T* src,
 // A bf16 tile into float32 shared memory (h0 as h_in, with one chunk):
 // eight values a thread at a time, through registers.
 __device__ __forceinline__ void stage(float* dst, int ld, const bf16* src,
-                                      size_t stride, int rows, int vrows,
+                                      ptrdiff_t stride, int rows, int vrows,
                                       int cols, int vcols) {
   const int per_row = cols / 8;
   for (int i = threadIdx.x; i < rows * per_row; i += blockDim.x) {
@@ -214,6 +286,10 @@ __device__ __forceinline__ void warp_cumsum(float* cum, int len) {
 // __syncthreads).
 __device__ __forceinline__ void pair_sync(int slab) {
   asm volatile("bar.sync %0, 64;\n" ::"r"(1 + slab) : "memory");
+}
+// The four warps of a row slab of (e) meet.
+__device__ __forceinline__ void quad_sync(int slab) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + slab) : "memory");
 }
 
 // The operand arithmetic of each dtype, one mma k-step (K) at a time. An A
@@ -351,8 +427,9 @@ struct Mma<bf16> {  // bf16 on m16n8k16, float32 sums
 // (a) The chunk's state S_c[n, p] = sum_j B[j, n] w_j x[j, p] for one
 // [TN, TP] tile: warp w owns state rows 32w .. 32w + 31 (two m16 tiles) and
 // all 64 columns (eight n8 tiles), K = the chunk's steps, 64 at a time
-// (rows past the chunk and w past qv are zero).
-template <typename T>
+// (rows past the chunk and w past qv are zero). REV is the reversed mode,
+// a template argument so that the forward compiles without it.
+template <typename T, bool REV>
 __global__ void __launch_bounds__(NT, 4)
 ssd_state_kernel(const T* __restrict__ log_a, const T* __restrict__ dtx,
                  const T* __restrict__ bm, const T* __restrict__ h0,
@@ -375,18 +452,22 @@ ssd_state_kernel(const T* __restrict__ log_a, const T* __restrict__ dtx,
   const int g = lane >> 2, t = lane & 3;
   const int t0 = c * q, qv = min(q, s - t0), qpad = (qv + 31) & ~31;
   const int n0 = nb * TN, p0 = pb * TP;
+  constexpr int rev = REV;
+  const ptrdiff_t sgn = REV ? -1 : 1;
   auto stage_tile = [&](int j0) {
     const int jv = min(TQ, qv - j0);
-    const size_t row = (size_t)bb * s + t0 + j0;
-    stage(bs, LB, bm + row * n + n0, n, TQ, jv, TN, min(TN, n - n0));
-    stage(xs, LX, dtx + (row * nh + h) * p + p0, (size_t)nh * p, TQ, jv, TP,
+    const size_t row = (size_t)bb * s + time_row(t0 + j0, s, rev);
+    stage(bs, LB, bm + row * n + n0, sgn * n, TQ, jv, TN, min(TN, n - n0));
+    stage(xs, LX, dtx + (row * nh + h) * p + p0, sgn * nh * p, TQ, jv, TP,
           min(TP, p - p0));
     cp_async_commit();
   };
   stage_tile(0);  // in flight while the cumsum is taken
 
-  const T* la = log_a + ((size_t)bb * nh + h) * s + t0;
-  for (int i = tid; i < qpad; i += NT) w[i] = i < qv ? to_f32(la[i]) : 0.f;
+  const T* la = log_a + ((size_t)bb * nh + h) * s;
+  for (int i = tid; i < qpad; i += NT) {
+    w[i] = i < qv ? log_a_at(la, t0 + i, s, rev) : 0.f;
+  }
   __syncthreads();
   if (warp == 0) warp_cumsum(w, qpad);
   __syncthreads();
@@ -500,14 +581,16 @@ ssd_pass_kernel(const T* __restrict__ h0, float* __restrict__ ws,
 // 16 (w % 4) .. + 15 of the tile (its slab) and columns 32 (w / 4) .. + 31;
 // the two warps of a slab form alternate j8-tiles of its scores and share
 // them through shared memory (rounded to T, the operand type). h_in, h0
-// with one chunk, sits in float32.
-template <typename T>
+// with one chunk, sits in float32. REV as in (a); only the reversed mode
+// takes y_fwd, x_fwd and dots.
+template <typename T, bool REV>
 __global__ void __launch_bounds__(NT_OUT, sizeof(T) == 4 ? 2 : 3)
 ssd_out_kernel(const T* __restrict__ log_a, const T* __restrict__ dtx,
                const T* __restrict__ bm, const T* __restrict__ cm,
                const T* __restrict__ h0, const float* __restrict__ ws,
-               T* __restrict__ y, int nh, int s, int p, int n, int q, int nc,
-               int nib, int npb) {
+               T* __restrict__ y, const T* __restrict__ y_fwd,
+               const T* __restrict__ x_fwd, float* __restrict__ dots, int nh,
+               int s, int p, int n, int q, int nc, int nib, int npb) {
   typedef Mma<T> M;
   constexpr int NTP = TP / 16;        // n8 tiles of a warp's 32 columns
   constexpr int LX = ld_col(TP, sizeof(T));
@@ -534,21 +617,26 @@ ssd_out_kernel(const T* __restrict__ log_a, const T* __restrict__ dtx,
   const int len = min(qv, i0 + TQ), lpad = (len + 31) & ~31;
   const size_t bh = (size_t)bb * nh + h;
 
+  constexpr int rev = REV;
+  const ptrdiff_t sgn = REV ? -1 : 1;
   // C and h_in by cp.async (bf16 h0 through registers).
-  stage(cs, ldn, cm + ((size_t)bb * s + t0 + i0) * n, n, TQ, iv, nk, n);
+  stage(cs, ldn, cm + ((size_t)bb * s + time_row(t0 + i0, s, rev)) * n,
+        sgn * n, TQ, iv, nk, n);
   if (nc > 1) {
     stage(hs, LH, ws + (bh * nc + c) * n * p + p0, p, nk, n, TP, pv);
   } else {
     stage(hs, LH, h0 + bh * n * p + p0, p, nk, n, TP, pv);
   }
   cp_async_commit();
-  const T* la = log_a + bh * s + t0;
-  for (int i = tid; i < lpad; i += NT_OUT) cum[i] = i < len ? to_f32(la[i]) : 0.f;
+  const T* la = log_a + bh * s;
+  for (int i = tid; i < lpad; i += NT_OUT) {
+    cum[i] = i < len ? log_a_at(la, t0 + i, s, rev) : 0.f;
+  }
   auto stage_j = [&](int j0) {
-    const size_t row = (size_t)bb * s + t0 + j0;
+    const size_t row = (size_t)bb * s + time_row(t0 + j0, s, rev);
     const int jv = min(TQ, qv - j0);
-    stage(bs, ldn, bm + row * n, n, TQ, jv, nk, n);
-    stage(xs, LX, dtx + (row * nh + h) * p + p0, (size_t)nh * p, TQ, jv, TP,
+    stage(bs, ldn, bm + row * n, sgn * n, TQ, jv, nk, n);
+    stage(xs, LX, dtx + (row * nh + h) * p + p0, sgn * nh * p, TQ, jv, TP,
           pv);
     cp_async_commit();
   };
@@ -649,11 +737,58 @@ ssd_out_kernel(const T* __restrict__ log_a, const T* __restrict__ dtx,
   }
 
   if (!active) return;
+  if (REV && dots != nullptr) {
+    // d log_a's terms of these rows, <dy_t, y_t> - <dtx_t, d dtx_t> over
+    // this tile's columns: here dtx is dy (its last j-tile, still in xs, is
+    // these rows), y is d dtx (in acc), and y_fwd, x_fwd the forward's y
+    // and dtx. Summed over the four lanes of a row, then over the slab's
+    // two warps through its score rows (both have read them).
+    float part[2] = {0.f, 0.f};
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int r = r0 + g + 8 * hh;
+      if (r >= iv) continue;
+      const size_t o = (((size_t)bb * s + time_row(t0 + i0 + r, s, rev)) * nh +
+                        h) * p + p0;
+#pragma unroll
+      for (int nt = 0; nt < NTP; ++nt) {
+        const int col = c0 + nt * 8 + 2 * t;
+        if (col < pv) {
+          const float2 dv = load2(xs + r * LX + col);
+          const float2 yv = load2(y_fwd + o + col), xv = load2(x_fwd + o + col);
+          part[hh] += dv.x * yv.x + dv.y * yv.y - xv.x * acc[nt][2 * hh] -
+                      xv.y * acc[nt][2 * hh + 1];
+        }
+      }
+    }
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      part[hh] += __shfl_xor_sync(~0u, part[hh], 1);
+      part[hh] += __shfl_xor_sync(~0u, part[hh], 2);
+    }
+    float* pr = reinterpret_cast<float*>(sbuf + (warp & 3) * 16 * LD_SC);
+    if (t == 0) {
+      pr[(warp >> 2) * 16 + g] = part[0];
+      pr[(warp >> 2) * 16 + g + 8] = part[1];
+    }
+    pair_sync(warp & 3);
+    if (warp < 4 && t == 0) {
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int r = r0 + g + 8 * hh;
+        if (r < iv) {
+          dots[(((size_t)pb * gridDim.z + bb) * nh + h) * s +
+               time_row(t0 + i0 + r, s, rev)] = pr[g + 8 * hh] + pr[16 + g + 8 * hh];
+        }
+      }
+    }
+  }
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
     const int r = r0 + g + 8 * hh;
     if (r >= iv) continue;
-    T* dst = y + (((size_t)bb * s + t0 + i0 + r) * nh + h) * p + p0 + c0 + 2 * t;
+    T* dst = y + (((size_t)bb * s + time_row(t0 + i0 + r, s, rev)) * nh + h) * p +
+             p0 + c0 + 2 * t;
 #pragma unroll
     for (int nt = 0; nt < NTP; ++nt) {
       if (c0 + nt * 8 + 2 * t < pv) {
@@ -667,13 +802,17 @@ ssd_out_kernel(const T* __restrict__ log_a, const T* __restrict__ dtx,
 // + exp(la) (C . h0) and h_last = exp(la) h0 + B x^T, which (a) and (c)
 // give for a one-step chunk. Thread (g8, cp) takes state rows g8, g8 + 8,
 // ... and columns 2cp, 2cp + 1 (+ 64, ...); y's sum over the rows goes
-// through shared memory in a fixed order.
-template <typename T>
+// through shared memory in a fixed order. REV is the reversed mode (log_a
+// read as 0, d log_a's terms into dots), a template argument so that the
+// forward's decode step compiles without it.
+template <typename T, bool REV>
 __global__ void __launch_bounds__(STEP_THREADS)
 ssd_step_kernel(const T* __restrict__ log_a, const T* __restrict__ dtx,
                 const T* __restrict__ bm, const T* __restrict__ cm,
                 const T* __restrict__ h0, T* __restrict__ y,
-                T* __restrict__ h_out, int nh, int p, int n) {
+                T* __restrict__ h_out, const T* __restrict__ y_fwd,
+                const T* __restrict__ x_fwd, float* __restrict__ dots, int nh,
+                int p, int n) {
   __shared__ float part[STEP_THREADS / 32][2 * 32];
   __shared__ float cbs;
   const int h = blockIdx.x, bb = blockIdx.y;
@@ -681,7 +820,17 @@ ssd_step_kernel(const T* __restrict__ log_a, const T* __restrict__ dtx,
   const size_t bh = (size_t)bb * nh + h;
   const T* bv = bm + (size_t)bb * n;
   const T* cv = cm + (size_t)bb * n;
-  const float la = to_f32(log_a[bh]), dA = expf(la);
+  // Reversed, log_a is 0, held opaque: a constant dA = 1 would let the
+  // compiler fuse the products below otherwise than the forward mode does,
+  // whose bits on flipped copies the reversed mode must give.
+  float la = 0.f;
+  if (REV) {
+    asm volatile("" : "+f"(la));
+  } else {
+    la = to_f32(log_a[bh]);
+  }
+  const float dA = expf(la);
+  float dsum = 0.f;  // d log_a's terms (the reversed mode with dots)
   // C . B, by the first warp.
   if (g8 == 0) {
     float v = 0.f;
@@ -717,170 +866,247 @@ ssd_step_kernel(const T* __restrict__ log_a, const T* __restrict__ dtx,
         sa += part[w][2 * cp];
         sb += part[w][2 * cp + 1];
       }
-      store2(y + bh * p + col, cbs * xv.x + sa * dA, cbs * xv.y + sb * dA);
+      const float ya = cbs * xv.x + sa * dA, yb = cbs * xv.y + sb * dA;
+      store2(y + bh * p + col, ya, yb);
+      if (REV && dots != nullptr) {
+        const float2 yf = load2(y_fwd + bh * p + col),
+                     xf = load2(x_fwd + bh * p + col);
+        dsum += xv.x * yf.x + xv.y * yf.y - xf.x * ya - xf.y * yb;
+      }
     }
+  }
+  if (REV && dots != nullptr && g8 == 0) {
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) dsum += __shfl_xor_sync(~0u, dsum, o);
+    if (cp == 0) dots[bh] = dsum;
   }
 }
 
-// (e) The backward's products (repro_ssd_bwd): for 64 rows of a chunk and
-// 64 columns of N, dC_t[n] = sum over the block's heads of
-// exp(cum_t) (dy_t . h_in[n, :]) + sum over s <= t of (dy_t . x_s)
-// exp(cum_t - cum_s) B_s[n]: ssd_out_kernel's products with dy in C's
-// place, x in B's, B in x's and h_in read across (N and P swap roles). A
-// block walks its group of heads in order, every head's two terms adding
-// to one float32 sum in registers, and writes the group's partial sum: no
-// atomics, so the sum over heads is the same on every run. Warp w owns
-// rows 16 (w % 4) .. + 15 and N columns 32 (w / 4) .. + 31, as in (c).
-// Two blocks an SM in both dtypes: at three, bf16 spilled (ptxas capped it
-// at 80 registers).
+// (e) The backward's products (repro_ssd_bwd), dC and dB in one launch:
+// for 64 rows t of a chunk and 128 columns of N, d_t[n] = sum over the
+// block's heads of exp(cum_t) (dy_t . h_in[n, :]) + sum over s <= t of
+// (dy_t . x_s) exp(cum_t - cum_s) B_s[n]: ssd_out_kernel's products with dy
+// in C's place, x in B's, B in x's and h_in read across (N and P swap
+// roles). blockIdx.z picks the problem: dC is the forward scan against dy;
+// dB is the reversed scan (log_a', x' = dy, B' = C, its chunk states, h0' =
+// dh_last) against dtx, read in place like repro_ssd's reversed mode and
+// written in forward order.
+//
+// A block walks units (j-tile, head), the heads inner, through a ring of
+// `stages` shared-memory stages: a unit's dy and x tiles (and, at the first
+// j-tile, h_in) are in flight while the unit before it computes. The B tile
+// is the same for every head: it is staged once per j-tile, at the first
+// head (the pipeline waits at that one boundary, since the tile is read
+// until the last head). Every head's cumsum is taken once, before the walk,
+// by all eight warps, a head a warp. All heads add to one float32 sum in
+// registers in a fixed order, and the block writes its group's partial: no
+// atomics, so a rerun gives the same bits. Sixteen warps: each owns the 16
+// rows of one slab and 32 of the N columns; the four warps of a slab each
+// form a quarter of its scores (dy . x over P, all eight j8-tiles at once)
+// and pass them on through shared memory as the A fragments of scores . B.
+// The slabs are dealt so that each SM sub-partition holds all four causal
+// row ranges. One block an SM: its stages take most of its shared memory,
+// and sixteen warps keep the sub-partitions' tensor cores fed where eight
+// waited on their own chains of products.
 template <typename T>
-__global__ void __launch_bounds__(NT_OUT, 2)
+__global__ void __launch_bounds__(NT_BWD, 1)
 ssd_bwd_kernel(const T* __restrict__ log_a, const T* __restrict__ dtx,
-               const T* __restrict__ bm, const T* __restrict__ dy,
-               const T* __restrict__ h0, const float* __restrict__ ws,
-               float* __restrict__ part, int nbatch, int nh, int s, int p,
-               int n, int q, int nc, int nib, int nnb, int hpb) {
+               const T* __restrict__ bm, const T* __restrict__ cm,
+               const T* __restrict__ dy, const T* __restrict__ h0,
+               const T* __restrict__ dh_last, const float* __restrict__ ws,
+               const float* __restrict__ ws_rev, float* __restrict__ part,
+               int nbatch, int nh, int s, int p, int n, int q, int nc, int nib,
+               int nnb, int hpb, int stages) {
   typedef Mma<T> M;
-  constexpr int NTP = TP / 16;        // n8 tiles of a warp's 32 columns
-  constexpr int LX = ld_col(TP, sizeof(T));
+  constexpr int NTN = TN / 32;        // n8 tiles of a warp's 32 columns
+  constexpr int LB = ld_col(TN, sizeof(T));
   constexpr int KU = 32 / M::K;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int ldp = ld_row(p), pk = n_steps(p, sizeof(T)), lhr = pk + 8;
-  float* cum = reinterpret_cast<float*>(smem_raw);      // [QMAX]
-  T* sbuf = reinterpret_cast<T*>(cum + QMAX);           // [4][16][LD_SC]
-  T* ds = sbuf + 4 * 16 * LD_SC;                        // [TQ][ldp] dy
-  float* hs = reinterpret_cast<float*>(ds + TQ * ldp);  // [TP][lhr] h_in,
-  T* xr = reinterpret_cast<T*>(hs);                     // then [TQ][ldp] x,
-  T* bc = xr + TQ * ldp;                                // [TQ][LX] B, j-tile
+  const size_t stage_bytes = bwd_stage_bytes(p, sizeof(T));
+  T* bc = reinterpret_cast<T*>(smem_raw + stages * stage_bytes);  // [TQ][LB]
+  T* sbuf = bc + TQ * LB;                                         // scores
+  float* cums = reinterpret_cast<float*>(sbuf + 4 * 16 * LD_SC);  // [hpb][lq]
+  const int lq = (q + 31) & ~31;
   int bx = blockIdx.x;
   const int nbk = bx % nnb;
   bx /= nnb;
   const int ib = nib - 1 - bx % nib;  // the longest row tiles first
   const int c = bx / nib;
-  const int hg = blockIdx.y, bb = blockIdx.z;
+  const int hg = blockIdx.y, bb = blockIdx.z >> 1, rev = blockIdx.z & 1;
   const int t0 = c * q, qv = min(q, s - t0), i0 = ib * TQ;
   if (i0 >= qv) return;               // past a ragged chunk's end
-  const int iv = min(TQ, qv - i0), n0 = nbk * TP, nv = min(TP, n - n0);
+  const int iv = min(TQ, qv - i0), n0 = nbk * TN, nv = min(TN, n - n0);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
   const int len = min(qv, i0 + TQ), lpad = (len + 31) & ~31;
-  const int r0 = (warp & 3) * 16, c0 = (warp >> 2) * (TP / 2);
+  // Warps w, w + 4, w + 8 and w + 12 share an SM sub-partition: give them
+  // four different slabs, so that each holds short and long causal rows.
+  const int quarter = warp >> 2, slab = (warp + quarter) & 3;
+  const int r0 = slab * 16, c0 = quarter * (TN / 4);
   const bool active = r0 < iv;        // warp-uniform: rows past iv are zero
-  const int slab = warp & 3, half = warp >> 2;
   T* sb = sbuf + slab * 16 * LD_SC;
-  const T* drow = ds + (r0 + g) * ldp + 2 * t;
   const int ia = i0 + r0 + g;         // this thread's rows: ia and ia + 8
 
-  float acc[NTP][4];
+  // The problem's operands: rows t ("dy"), rows s ("x"), B, the states.
+  const T* ga = rev ? dtx : dy;
+  const T* gx = rev ? dy : dtx;
+  const T* gb = rev ? cm : bm;
+  const float* st = rev ? ws_rev : ws;
+  const T* gh0 = rev ? dh_last : h0;
+  const ptrdiff_t sgn = rev ? -1 : 1;
+  const int h_first = hg * hpb, nhb = min(nh, h_first + hpb) - h_first;
+  const int units = (ib + 1) * nhb;
+
+  auto load_unit = [&](int u) {  // unit u = (j-tile u / nhb, head u % nhb)
+    const int jb = u / nhb, h = h_first + u % nhb, j0 = jb * TQ;
+    T* ds = reinterpret_cast<T*>(smem_raw + (u % stages) * stage_bytes);
+    T* xs = ds + TQ * ldp;
+    float* hs = reinterpret_cast<float*>(xs + TQ * ldp);
+    const size_t bh = (size_t)bb * nh + h;
+    stage(ds, ldp,
+          ga + (((size_t)bb * s + time_row(t0 + i0, s, rev)) * nh + h) * p,
+          sgn * nh * p, TQ, iv, pk, p);
+    stage(xs, ldp,
+          gx + (((size_t)bb * s + time_row(t0 + j0, s, rev)) * nh + h) * p,
+          sgn * nh * p, TQ, min(TQ, qv - j0), pk, p);
+    if (jb == 0) {
+      if (nc > 1) {
+        stage(hs, lhr, st + ((bh * nc + c) * n + n0) * p, p, TN, nv, pk, p);
+      } else {
+        stage(hs, lhr, gh0 + (bh * n + n0) * p, p, TN, nv, pk, p);
+      }
+    }
+    if (u % nhb == 0) {
+      stage(bc, LB, gb + ((size_t)bb * s + time_row(t0 + j0, s, rev)) * n + n0,
+            sgn * n, TQ, min(TQ, qv - j0), TN, nv);
+    }
+    cp_async_commit();
+  };
+  int nx = 0;  // units loading or loaded
+  do {
+    load_unit(nx++);
+  } while (nx < units && nx < stages && nx % nhb != 0);
+
+  // Every head's cumsum over the chunk's first len steps.
+  for (int hl = warp; hl < nhb; hl += NT_BWD / 32) {
+    const T* la = log_a + ((size_t)bb * nh + h_first + hl) * s;
+    float* cum = cums + hl * lq;
+    float carry = 0.f;
+    for (int base = 0; base < lpad; base += 32) {
+      const int i = base + lane;
+      float v = i < len ? log_a_at(la, t0 + i, s, rev) : 0.f;
 #pragma unroll
-  for (int nt = 0; nt < NTP; ++nt)
+      for (int o = 1; o < 32; o <<= 1) {
+        const float w = __shfl_up_sync(~0u, v, o);
+        if (lane >= o) v += w;
+      }
+      v += carry;
+      cum[i] = v;
+      carry = __shfl_sync(~0u, v, 31);
+    }
+  }
+
+  float acc[NTN][4];
+#pragma unroll
+  for (int nt = 0; nt < NTN; ++nt)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
 
-  const int h_end = min(nh, (hg + 1) * hpb);
-  for (int h = hg * hpb; h < h_end; ++h) {
-    const size_t bh = (size_t)bb * nh + h;
-    __syncthreads();  // the last head's tiles and cumsum are consumed
-    stage(ds, ldp, dy + (((size_t)bb * s + t0 + i0) * nh + h) * p,
-          (size_t)nh * p, TQ, iv, pk, p);
-    if (nc > 1) {
-      stage(hs, lhr, ws + (bh * nc + c) * n * p + (size_t)n0 * p, p, TP, nv,
-            pk, p);
-    } else {
-      stage(hs, lhr, h0 + bh * n * p + (size_t)n0 * p, p, TP, nv, pk, p);
+  for (int u = 0; u < units; ++u) {
+    if (nx == u) {  // a round's first unit: the units before it are consumed
+      __syncthreads();
+      load_unit(nx++);
     }
-    cp_async_commit();
-    const T* la = log_a + bh * s + t0;
-    for (int i = tid; i < lpad; i += NT_OUT) {
-      cum[i] = i < len ? to_f32(la[i]) : 0.f;
-    }
-    cp_async_wait<0>();
-    __syncthreads();
-    if (warp == 0) warp_cumsum(cum, lpad);
-    __syncthreads();
+    bwd_ring_wait(nx - 1 - u);
+    __syncthreads();  // unit u is in place, unit u - 1 consumed
+    while (nx < units && nx - u < stages && nx % nhb != 0) load_unit(nx++);
+    const int jb = u / nhb, hl = u % nhb, j0 = jb * TQ;
+    const T* ds = reinterpret_cast<const T*>(smem_raw + (u % stages) * stage_bytes);
+    const T* xs = ds + TQ * ldp;
+    const float* hs = reinterpret_cast<const float*>(xs + TQ * ldp);
+    const float* cum = cums + hl * lq;
+    const T* drow = ds + (r0 + g) * ldp + 2 * t;
     const float cia = cum[min(ia, len - 1)], cib = cum[min(ia + 8, len - 1)];
-
-    if (active) {  // exp(cum_t) (dy_t . h_in[n, :])
-      float tmp[NTP][4];
+    // The unit's terms sum in a tile of their own, added to acc after: the
+    // tensor cores' adds into a large running sum lose low bits, in
+    // proportion to the heads summed (80 heads missed the float32 check).
+    float tmp[NTN][4];
 #pragma unroll
-      for (int nt = 0; nt < NTP; ++nt)
+    for (int nt = 0; nt < NTN; ++nt)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) tmp[nt][e] = 0.f;
+      for (int e = 0; e < 4; ++e) tmp[nt][e] = 0.f;
+    if (active && jb == 0) {  // exp(cum_t) (dy_t . h_in[n, :])
 #pragma unroll KU
       for (int k = 0; k < pk; k += M::K) {
         const typename M::A a = M::a_rows(drow + k, drow + 8 * ldp + k);
 #pragma unroll
-        for (int nt = 0; nt < NTP; ++nt) {
+        for (int nt = 0; nt < NTN; ++nt) {
           M::mma(tmp[nt], a,
                  M::b_wide_row(hs + (c0 + nt * 8 + g) * lhr + k + 2 * t));
         }
       }
       const float ea = expf(cia), eb = expf(cib);
 #pragma unroll
-      for (int nt = 0; nt < NTP; ++nt) {
-        acc[nt][0] += ea * tmp[nt][0], acc[nt][1] += ea * tmp[nt][1];
-        acc[nt][2] += eb * tmp[nt][2], acc[nt][3] += eb * tmp[nt][3];
+      for (int nt = 0; nt < NTN; ++nt) {
+        tmp[nt][0] *= ea, tmp[nt][1] *= ea;
+        tmp[nt][2] *= eb, tmp[nt][3] *= eb;
       }
     }
-
-    for (int jb = 0; jb <= ib; ++jb) {
-      const int j0 = jb * TQ, jv = min(TQ, qv - j0);
-      __syncthreads();  // h_in, or the last j-tile, is consumed
-      const size_t row = (size_t)bb * s + t0 + j0;
-      stage(xr, ldp, dtx + (row * nh + h) * p, (size_t)nh * p, TQ, jv, pk, p);
-      stage(bc, LX, bm + row * n + n0, n, TQ, jv, TP, nv);
-      cp_async_commit();
-      cp_async_wait<0>();
-      __syncthreads();
-      if (!active) continue;
+    if (active) {
+      // The j8-tiles this slab sees (all below the diagonal tile, on it
+      // those up to its last row), every fourth one this warp's.
       const int ntj = jb < ib ? 8 : min(8, (r0 + 16) / 8);
-      for (int jt0 = 0; jt0 < ntj; jt0 += 4) {
+      {
         float sc[2][4];
 #pragma unroll
-        for (int u = 0; u < 2; ++u)
+        for (int v = 0; v < 2; ++v)
 #pragma unroll
-          for (int e = 0; e < 4; ++e) sc[u][e] = 0.f;
+          for (int e = 0; e < 4; ++e) sc[v][e] = 0.f;
 #pragma unroll KU
         for (int k = 0; k < pk; k += M::K) {
           const typename M::A a = M::a_rows(drow + k, drow + 8 * ldp + k);
 #pragma unroll
-          for (int u = 0; u < 2; ++u) {
-            const int jt = jt0 + half + 2 * u;
+          for (int v = 0; v < 2; ++v) {
+            const int jt = quarter + 4 * v;
             if (jt < ntj) {
-              M::mma(sc[u], a, M::b_row(xr + (jt * 8 + g) * ldp + k + 2 * t));
+              M::mma(sc[v], a, M::b_row(xs + (jt * 8 + g) * ldp + k + 2 * t));
             }
           }
         }
 #pragma unroll
-        for (int u = 0; u < 2; ++u) {
-          const int jt = jt0 + half + 2 * u;
+        for (int v = 0; v < 2; ++v) {
+          const int jt = quarter + 4 * v;
           if (jt < ntj) {
 #pragma unroll
             for (int e = 0; e < 4; ++e) {
               const int i = min(ia + 8 * (e >> 1), len - 1);
               const int j = j0 + jt * 8 + 2 * t + (e & 1);
               const float ci = e < 2 ? cia : cib;
-              sc[u][e] = j <= i ? sc[u][e] * expf(ci - cum[j]) : 0.f;
+              sc[v][e] = j <= i ? sc[v][e] * expf(ci - cum[min(j, len - 1)]) : 0.f;
             }
-            store2(sb + g * LD_SC + jt * 8 + 2 * t, sc[u][0], sc[u][1]);
-            store2(sb + (g + 8) * LD_SC + jt * 8 + 2 * t, sc[u][2], sc[u][3]);
+            store2(sb + g * LD_SC + jt * 8 + 2 * t, sc[v][0], sc[v][1]);
+            store2(sb + (g + 8) * LD_SC + jt * 8 + 2 * t, sc[v][2], sc[v][3]);
           }
         }
-        pair_sync(slab);  // the slab's scores of this group are in place
+        quad_sync(slab);  // the slab's scores are in place
 #pragma unroll
-        for (int jt = jt0; jt < jt0 + 4; jt += M::K / 8) {
+        for (int jt = 0; jt < 8; jt += M::K / 8) {
           if (jt < ntj) {
             const typename M::A a = M::a_rows(sb + g * LD_SC + jt * 8 + 2 * t,
                                               sb + (g + 8) * LD_SC + jt * 8 + 2 * t);
-            const T* br = bc + (jt * 8 + 2 * t) * LX + c0 + g;
+            const T* br = bc + (jt * 8 + 2 * t) * LB + c0 + g;
 #pragma unroll
-            for (int nt = 0; nt < NTP; ++nt) {
-              M::mma(acc[nt], a, M::b_col(br + nt * 8, LX));
+            for (int nt = 0; nt < NTN; ++nt) {
+              M::mma(tmp[nt], a, M::b_col(br + nt * 8, LB));
             }
           }
         }
-        pair_sync(slab);  // both have read them before the next group
-      }
+      }  // (the next unit's scores are written after its __syncthreads)
+#pragma unroll
+      for (int nt = 0; nt < NTN; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[nt][e] += tmp[nt][e];
     }
   }
 
@@ -889,10 +1115,10 @@ ssd_bwd_kernel(const T* __restrict__ log_a, const T* __restrict__ dtx,
   for (int hh = 0; hh < 2; ++hh) {
     const int r = r0 + g + 8 * hh;
     if (r >= iv) continue;
-    float* dst = part + (((size_t)hg * nbatch + bb) * s + t0 + i0 + r) * n + n0 +
-                 c0 + 2 * t;
+    float* dst = part + ((((size_t)hg * 2 + rev) * nbatch + bb) * s +
+                         time_row(t0 + i0 + r, s, rev)) * n + n0 + c0 + 2 * t;
 #pragma unroll
-    for (int nt = 0; nt < NTP; ++nt) {
+    for (int nt = 0; nt < NTN; ++nt) {
       if (c0 + nt * 8 + 2 * t < nv) {
         store2(dst + nt * 8, acc[nt][2 * hh], acc[nt][2 * hh + 1]);
       }
@@ -902,19 +1128,22 @@ ssd_bwd_kernel(const T* __restrict__ log_a, const T* __restrict__ dtx,
 
 template <typename T>
 int launch_bwd(const void* log_a, const void* dtx, const void* bm,
-               const void* dy, const void* h0, const float* ws, float* part,
-               int b, int nh, int s, int p, int n, int q, int hpb,
+               const void* cm, const void* dy, const void* h0,
+               const void* dh_last, const float* ws, const float* ws_rev,
+               float* part, int b, int nh, int s, int p, int n, int q, int hpb,
                cudaStream_t stream) {
-  if (q > QMAX || p % 8 || n % 8 || hpb <= 0 ||
-      bwd_smem(p, sizeof(T)) > (size_t)SMEM_LIMIT) {
+  const int stages = bwd_stages(p, q, hpb, sizeof(T));
+  if (q > QMAX || p % 8 || n % 8 || hpb <= 0 || stages == 0) {
     return (int)cudaErrorInvalidValue;
   }
   const int nc = (s + q - 1) / q;
-  if (nc > 1 && ws == nullptr) return (int)cudaErrorInvalidValue;
-  const int nnb = (n + TP - 1) / TP, nib = (q + TQ - 1) / TQ;
+  if (nc > 1 && (ws == nullptr || ws_rev == nullptr)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int nnb = (n + TN - 1) / TN, nib = (q + TQ - 1) / TQ;
   const int groups = (nh + hpb - 1) / hpb;
   auto kern = ssd_bwd_kernel<T>;
-  const size_t smem = bwd_smem(p, sizeof(T));
+  const size_t smem = bwd_smem(p, q, hpb, stages, sizeof(T));
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err == cudaSuccess) {
@@ -923,18 +1152,20 @@ int launch_bwd(const void* log_a, const void* dtx, const void* bm,
                                (int)cudaSharedmemCarveoutMaxShared);
   }
   if (err != cudaSuccess) return (int)err;
-  kern<<<dim3(nc * nib * nnb, groups, b), NT_OUT, smem, stream>>>(
+  kern<<<dim3(nc * nib * nnb, groups, 2 * b), NT_BWD, smem, stream>>>(
       static_cast<const T*>(log_a), static_cast<const T*>(dtx),
-      static_cast<const T*>(bm), static_cast<const T*>(dy),
-      static_cast<const T*>(h0), ws, part, b, nh, s, p, n, q, nc, nib, nnb,
-      hpb);
+      static_cast<const T*>(bm), static_cast<const T*>(cm),
+      static_cast<const T*>(dy), static_cast<const T*>(h0),
+      static_cast<const T*>(dh_last), ws, ws_rev, part, b, nh, s, p, n, q, nc,
+      nib, nnb, hpb, stages);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch(const void* log_a, const void* dtx, const void* bm, const void* cm,
            const void* h0, void* y, void* h_out, float* ws, float* decay,
-           int b, int nh, int s, int p, int n, int q, cudaStream_t stream) {
+           const void* y_fwd, const void* x_fwd, float* dots, int b, int nh,
+           int s, int p, int n, int q, int rev, cudaStream_t stream) {
   if (q > QMAX || p % 8 || n % 8 ||
       out_smem(n, sizeof(T)) > (size_t)SMEM_LIMIT) {
     return (int)cudaErrorInvalidValue;
@@ -950,15 +1181,18 @@ int launch(const void* log_a, const void* dtx, const void* bm, const void* cm,
   const T* bmt = static_cast<const T*>(bm);
   const T* h0t = static_cast<const T*>(h0);
   T* hout = static_cast<T*>(h_out);
+  const T* yf = static_cast<const T*>(y_fwd);
+  const T* xf = static_cast<const T*>(x_fwd);
 
   if (s == 1) {  // the decode step: one kernel
-    ssd_step_kernel<T><<<dim3(nh, b), STEP_THREADS, 0, stream>>>(
+    auto step = rev ? ssd_step_kernel<T, true> : ssd_step_kernel<T, false>;
+    step<<<dim3(nh, b), STEP_THREADS, 0, stream>>>(
         la, x, bmt, static_cast<const T*>(cm), h0t, static_cast<T*>(y), hout,
-        nh, p, n);
+        yf, xf, dots, nh, p, n);
     return (int)cudaGetLastError();
   }
-  auto state = ssd_state_kernel<T>;
-  auto out = ssd_out_kernel<T>;
+  auto state = rev ? ssd_state_kernel<T, true> : ssd_state_kernel<T, false>;
+  auto out = rev ? ssd_out_kernel<T, true> : ssd_out_kernel<T, false>;
   // All of the SM's 228 KB as shared memory, so that as many blocks as it
   // fits share an SM (at N = 128: four of (a); two of (c) in float32, three
   // in bf16, where registers bound it).
@@ -990,8 +1224,8 @@ int launch(const void* log_a, const void* dtx, const void* bm, const void* cm,
                          0, stream>>>(h0t, ws, decay, hout, nh, n * p, nc);
   }
   out<<<dim3(nc * nib * npb, nh, b), NT_OUT, out_smem(n, sizeof(T)), stream>>>(
-      la, x, bmt, static_cast<const T*>(cm), h0t, ws, static_cast<T*>(y), nh,
-      s, p, n, q, nc, nib, npb);
+      la, x, bmt, static_cast<const T*>(cm), h0t, ws, static_cast<T*>(y), yf,
+      xf, dots, nh, s, p, n, q, nc, nib, npb);
   return (int)cudaGetLastError();
 }
 
@@ -1003,23 +1237,38 @@ int launch(const void* log_a, const void* dtx, const void* bm, const void* cm,
 // ceil(S / q) * B * H * N * P floats and decay ceil(S / q) * B * H (both
 // may be null otherwise). Returns cudaGetLastError() after the launches,
 // or cudaErrorInvalidValue for an argument this file does not take.
+//
+// reverse = 1 runs the scan backward in time, read in place: step t is
+// forward step S - 1 - t of dtx, Bm and C, its log_a 0 at t = 0 and
+// log_a[S - t] after, and y is written at the forward step (the states in
+// ws, the scan's own, in its order). The backward calls it with dtx = dy,
+// Bm = C, C = Bm and h0 = dh_last for d dtx (y) and the adjoint states.
+// dots, if not null (reverse only), takes d log_a's terms <dy_t, y_fwd_t> -
+// <x_fwd_t, y_t> over P, float32 [parts, B, H, S] at forward steps, one part
+// a 64-column tile of P (one part at S = 1); y_fwd and x_fwd are the
+// forward's y and dtx.
 extern "C" int repro_ssd(const void* log_a, const void* dtx, const void* bm,
                          const void* cm, const void* h0, void* y, void* h_out,
-                         void* ws, void* decay, int b, int nh, int s, int p,
-                         int n, int q, int dtype, void* stream) {
+                         void* ws, void* decay, const void* y_fwd,
+                         const void* x_fwd, void* dots, int b, int nh, int s,
+                         int p, int n, int q, int reverse, int dtype,
+                         void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (b <= 0 || nh <= 0 || s <= 0 || p <= 0 || n <= 0 || q <= 0) {
+  if (b <= 0 || nh <= 0 || s <= 0 || p <= 0 || n <= 0 || q <= 0 ||
+      (reverse != 0 && reverse != 1) ||
+      (dots != nullptr && (!reverse || y_fwd == nullptr || x_fwd == nullptr))) {
     return (int)cudaErrorInvalidValue;
   }
   float* wsf = static_cast<float*>(ws);
   float* dec = static_cast<float*>(decay);
+  float* dts = static_cast<float*>(dots);
   if (dtype == 0) {
-    return launch<float>(log_a, dtx, bm, cm, h0, y, h_out, wsf, dec, b, nh, s,
-                         p, n, q, st);
+    return launch<float>(log_a, dtx, bm, cm, h0, y, h_out, wsf, dec, y_fwd,
+                         x_fwd, dts, b, nh, s, p, n, q, reverse, st);
   }
   if (dtype == 1) {
-    return launch<bf16>(log_a, dtx, bm, cm, h0, y, h_out, wsf, dec, b, nh, s,
-                        p, n, q, st);
+    return launch<bf16>(log_a, dtx, bm, cm, h0, y, h_out, wsf, dec, y_fwd,
+                        x_fwd, dts, b, nh, s, p, n, q, reverse, st);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -1034,37 +1283,46 @@ extern "C" long long repro_ssd_smem(int n, int dtype) {
 }
 
 
-// The backward's dB / dC products (ssd_bwd_kernel): part[g, b, t, n] =
-// sum over heads g * hpb .. (g + 1) * hpb - 1 of exp(cum_t) (dy_t . h_in)
-// + sum over s <= t in t's chunk of (dy_t . x_s) exp(cum_t - cum_s) B_s, for
-// the scan (log_a, dtx, bm, h0) in chunks of q, with ws its states entering
-// each chunk ([B, H, nc, N, P] float32, the forward's workspace; may be null
-// with one chunk, when h0 is that state). part holds ceil(H / hpb) * B * S
-// * N floats. Shapes and alignment as repro_ssd's.
+// The backward's dB and dC (ssd_bwd_kernel), one launch: part[g, 0, b, t, n]
+// = dC's and part[g, 1, b, t, n] = dB's sum over heads g * hpb .. (g + 1) *
+// hpb - 1, where the function of a scan (log_a, x, B, states) against rows
+// r is exp(cum_t) (r_t . h_in) + sum over s <= t in t's chunk of (r_t . x_s)
+// exp(cum_t - cum_s) B_s: dC's scan is the forward one (log_a, dtx, bm, ws:
+// the forward's states entering each chunk, [B, H, nc, N, P] float32) against
+// dy; dB's the reversed one (reverse = 1 of repro_ssd: x = dy, B = cm,
+// ws_rev its states) against dtx, written at forward steps. With one chunk
+// ws and ws_rev may be null (the states are h0 and dh_last). part holds
+// ceil(H / hpb) * 2 * B * S * N floats. Shapes and alignment as repro_ssd's.
 extern "C" int repro_ssd_bwd(const void* log_a, const void* dtx,
-                             const void* bm, const void* dy, const void* h0,
-                             const void* ws, void* part, int b, int nh, int s,
-                             int p, int n, int q, int hpb, int dtype,
-                             void* stream) {
+                             const void* bm, const void* cm, const void* dy,
+                             const void* h0, const void* dh_last,
+                             const void* ws, const void* ws_rev, void* part,
+                             int b, int nh, int s, int p, int n, int q,
+                             int hpb, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (b <= 0 || nh <= 0 || s <= 0 || p <= 0 || n <= 0 || q <= 0) {
     return (int)cudaErrorInvalidValue;
   }
   const float* wsf = static_cast<const float*>(ws);
+  const float* wsr = static_cast<const float*>(ws_rev);
   float* pf = static_cast<float*>(part);
   if (dtype == 0) {
-    return launch_bwd<float>(log_a, dtx, bm, dy, h0, wsf, pf, b, nh, s, p, n,
-                             q, hpb, st);
+    return launch_bwd<float>(log_a, dtx, bm, cm, dy, h0, dh_last, wsf, wsr, pf,
+                             b, nh, s, p, n, q, hpb, st);
   }
   if (dtype == 1) {
-    return launch_bwd<bf16>(log_a, dtx, bm, dy, h0, wsf, pf, b, nh, s, p, n,
-                            q, hpb, st);
+    return launch_bwd<bf16>(log_a, dtx, bm, cm, dy, h0, dh_last, wsf, wsr, pf,
+                            b, nh, s, p, n, q, hpb, st);
   }
   return (int)cudaErrorInvalidValue;
 }
 
-// Shared memory of one block of ssd_bwd_kernel at head width p (dtype as
-// above); kernels/ssd/ops.py: smem_bwd_bytes states the same sum.
-extern "C" long long repro_ssd_bwd_smem(int p, int dtype) {
-  return (long long)bwd_smem(p, dtype == 0 ? 4 : 2);
+// Shared memory of one ssd_bwd_kernel block at head width p, chunk q and hpb
+// heads a block (dtype as above), at the stages it launches with (two where
+// they fit, else one; one if neither fits, which repro_ssd_bwd refuses);
+// kernels/ssd/ops.py: smem_bwd_bytes states the same sum.
+extern "C" long long repro_ssd_bwd_smem(int p, int q, int hpb, int dtype) {
+  const int es = dtype == 0 ? 4 : 2;
+  const int stages = bwd_stages(p, q, hpb, es);
+  return (long long)bwd_smem(p, q, hpb, stages == 0 ? 1 : stages, es);
 }

@@ -13,8 +13,10 @@ allocates. TQ, TP and QMAX are read from the source.
 
 Gradients (:class:`_SsdScanFn`, :func:`ssd_scan_backward`): the forward
 keeps that workspace (the state entering every chunk); the backward runs
-the three launches on the time-reversed problem and ``repro_ssd_bwd`` twice
-(dC, then dB on the reversed problem), counted once under ``ssd_bwd``.
+the three launches on the time-reversed problem, read in place (``repro_ssd``
+with ``reverse = 1``, whose output launch also forms d log_a's dot
+products), then ``repro_ssd_bwd`` once for dB and dC, counted once under
+``ssd_bwd``.
 """
 from __future__ import annotations
 
@@ -33,7 +35,8 @@ from repro_torch.core.tiling import TileConstraints, TileShape, cdiv, dtype_byte
 from repro_torch.kernels import build
 from repro_torch.kernels.ssd.ref import (
     discretize, ssd_chunk_states_ref, ssd_chunked_ref, ssd_ref,
-    ssd_scan_bwd_ref, ssd_scan_ref, ssd_scan_split_ref,
+    ssd_db_dc_ref, ssd_scan_bwd_ref, ssd_scan_ref, ssd_scan_rev_ref,
+    ssd_scan_split_ref,
 )
 
 THREADS = 128          # four warps in the state kernel
@@ -47,7 +50,7 @@ MIN_SWEPT_CHUNK = 16
 def _lib():
     fn = build.load("ssd").repro_ssd
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -55,10 +58,11 @@ def _lib():
 @functools.lru_cache(maxsize=None)
 def _layout() -> Dict[str, int]:
     """The kernels' tile constants (``constexpr int`` in ``csrc/ssd.cu``):
-    TQ time rows and TP state columns a tile, QMAX the longest chunk."""
+    TQ time rows and TP state columns a tile, QMAX the longest chunk, TN
+    the N columns of a backward block."""
     text = (build.CSRC / build.SOURCES["ssd"]).read_text()
     return {k: int(v) for k, v in
-            re.findall(r"constexpr int (TQ|TP|QMAX) = (\d+);", text)}
+            re.findall(r"constexpr int (TQ|TP|TN|QMAX) = (\d+);", text)}
 
 
 def smem_bytes(n: int, dtype) -> int:
@@ -76,18 +80,34 @@ def smem_bytes(n: int, dtype) -> int:
             + max(4 * nk * (tp + 4), es * tq * (ld_row + ld_col)))
 
 
-def smem_bwd_bytes(p: int, dtype) -> int:
-    """Shared memory of a ``repro_ssd_bwd`` block (``bwd_smem`` in
-    ``csrc/ssd.cu``): the cumsum [QMAX] float32, the scores [4, 16, TQ + 8],
-    dy rows [TQ, P + 8], then float32 h_in rows [TP, Pk + 8] (Pk: P rounded
-    up to 16 in bf16) or x rows [TQ, P + 8] with B columns [TQ, TP + 4]
-    (TP + 8 in bf16); all but the cumsum and h_in in the input's type."""
+def bwd_stages(p: int, q: int, hpb: int, dtype) -> int:
+    """The stages of a ``repro_ssd_bwd`` block's head pipeline (``bwd_stages``
+    in ``csrc/ssd.cu``): two where they fit a block's shared memory, else
+    one; 0 where not even one does (the kernel refuses)."""
+    for stages in (2, 1):
+        if _bwd_smem(p, q, hpb, stages, dtype) <= H100_SXM.vmem_bytes:
+            return stages
+    return 0
+
+
+def _bwd_smem(p, q, hpb, stages, dtype):
     c, es = _layout(), dtype_bytes(dtype)
-    tq, tp = c["TQ"], c["TP"]
-    ld_row, ld_col = p + 8, tp + (4 if es == 4 else 8)
+    tq, tn = c["TQ"], c["TN"]
     pk = p if es == 4 else cdiv(p, 16) * 16
-    return (4 * c["QMAX"] + es * 4 * 16 * (tq + 8) + es * tq * ld_row
-            + max(4 * tp * (pk + 8), es * tq * (ld_row + ld_col)))
+    stage = 2 * es * tq * (p + 8) + 4 * tn * (pk + 8)
+    return (stages * stage + es * tq * (tn + (4 if es == 4 else 8))
+            + es * 4 * 16 * (tq + 8) + 4 * hpb * cdiv(q, 32) * 32)
+
+
+def smem_bwd_bytes(p: int, q: int, hpb: int, dtype) -> int:
+    """Shared memory of a ``repro_ssd_bwd`` block (``bwd_smem`` in
+    ``csrc/ssd.cu``) at head width ``p``, chunk ``q`` and ``hpb`` heads a
+    block, at :func:`bwd_stages` (one if none fits): each stage dy and x
+    rows [TQ, P + 8] and float32 h_in rows [TN, Pk + 8] (Pk: P rounded up
+    to 16 in bf16); then B columns [TQ, TN + 4] (TN + 8 in bf16), the
+    scores [4, 16, TQ + 8], and the heads' cumsums [hpb, q rounded up to
+    32] float32; all but h_in and the cumsums in the input's type."""
+    return _bwd_smem(p, q, hpb, max(1, bwd_stages(p, q, hpb, dtype)), dtype)
 
 
 def launch_chunk(chunk, problem: Mapping[str, int], dtype) -> int:
@@ -166,118 +186,188 @@ def _ssd_cuda(log_a, dtx, Bm, C, h0, chunk):
     rc = _lib()(log_a.data_ptr(), dtx.data_ptr(), Bm.data_ptr(), C.data_ptr(),
                 h0.data_ptr(), y.data_ptr(), h_last.data_ptr(),
                 None if ws is None else ws.data_ptr(),
-                None if decay is None else decay.data_ptr(), b, h, s, p, n,
-                q, build.dtype_code(dtx.dtype), build.stream_ptr(dtx.device))
+                None if decay is None else decay.data_ptr(), None, None, None,
+                b, h, s, p, n, q, 0, build.dtype_code(dtx.dtype),
+                build.stream_ptr(dtx.device))
     build.check(rc, "ssd")
     return y, h_last, ws
+
+
+def _ssd_rev_cuda(log_a, dy, C, Bm, dh_last, y, dtx, chunk):
+    """The adjoint scan (uncounted): ``repro_ssd`` reversed, read in place,
+    on (log_a, dtx' = dy, B' = C, C' = Bm, h0' = dh_last), with d log_a's dot
+    products -> (d dtx [B, S, H, P], the adjoint state at step 0 [B, H, N,
+    P], the adjoint scan's chunk states [B, H, nc, N, P] float32 or None
+    with one chunk, <dy_t, y_t> - <dtx_t, d dtx_t> over P as float32
+    [B, H, S]). :func:`ssd_scan_rev_ref` is its plain version."""
+    b, s, h, p = dy.shape
+    n = Bm.shape[-1]
+    build.check_cuda_operands("ssd_bwd", log_a, dy, C, Bm, dh_last, y, dtx)
+    q = launch_chunk(chunk, dict(s=s, h=h, p=p, n=n), dy.dtype)
+    if any(t.data_ptr() % 16 for t in (dy, C, Bm, dh_last, y, dtx)):
+        raise ValueError("ssd's reversed scan needs dy, C, B, dh_last, y and "
+                         "dtx to start on 16 bytes")
+    d_dtx = torch.empty_like(dy)
+    g0 = torch.empty_like(dh_last)
+    parts = 1 if s == 1 else cdiv(p, _layout()["TP"])
+    dots = torch.empty((parts, b, h, s), dtype=torch.float32, device=dy.device)
+    ws = decay = None
+    nc = cdiv(s, q)
+    if nc > 1:
+        ws = torch.empty((b, h, nc, n, p), dtype=torch.float32,
+                         device=dy.device)
+        decay = torch.empty(nc * b * h, dtype=torch.float32, device=dy.device)
+    if dy.numel():
+        rc = _lib()(log_a.data_ptr(), dy.data_ptr(), C.data_ptr(),
+                    Bm.data_ptr(), dh_last.data_ptr(), d_dtx.data_ptr(),
+                    g0.data_ptr(), None if ws is None else ws.data_ptr(),
+                    None if decay is None else decay.data_ptr(), y.data_ptr(),
+                    dtx.data_ptr(), dots.data_ptr(), b, h, s, p, n, q, 1,
+                    build.dtype_code(dy.dtype), build.stream_ptr(dy.device))
+        build.check(rc, "ssd_bwd")
+    else:
+        dots.zero_()
+    return d_dtx, g0, ws, dots[0] if parts == 1 else dots.sum(0)
 
 
 def _bwd_lib():
     fn = build.load("ssd").repro_ssd_bwd
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
 
-def bwd_heads_per_block(b: int, s: int, q: int, h: int, n: int) -> int:
-    """Heads a ``repro_ssd_bwd`` block sums: the heads are split into
-    ceil(H / this) groups, each block summing its group's (the groups'
-    float32 partials are summed after), so that the grid holds about four
-    blocks an SM."""
-    tq, tp = _layout()["TQ"], _layout()["TP"]
-    base = b * cdiv(s, q) * cdiv(q, tq) * cdiv(n, tp)
-    return cdiv(h, max(1, min(h, cdiv(4 * H100_SXM.num_sm, base))))
+def _bwd_smem_lib():
+    fn = build.load("ssd").repro_ssd_bwd_smem
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_int] * 4
+        fn.restype = ctypes.c_longlong
+    return fn
 
 
-def _ssd_bwd_cuda(log_a, dtx, Bm, dy, h0, h_in, chunk):
-    """One launch of ``repro_ssd_bwd`` (uncounted): :func:`ssd_scan_bwd_ref`'s
-    function, dC_t = sum_h h_t dy_t [B, S, N] in dy's dtype, with ``h_in``
-    the forward kernels' chunk states (None: one chunk, h0)."""
+def bwd_heads_per_block(b: int, s: int, q: int, h: int, n: int, p: int,
+                        dtype) -> int:
+    """Heads a ``repro_ssd_bwd`` block walks: the heads are split into
+    ceil(H / this) groups, whose float32 partials are summed after. A block
+    takes a whole SM, and its time grows with its heads plus about one (its
+    cumsums, B tiles and partial), so the split taken is the one with the
+    fewest waves of blocks over the SMs times (heads a block + 1), among
+    those whose block keeps two pipeline stages (any that fits if none
+    does); the fewer groups on a tie. At mamba2-2.7b's width both shapes of
+    the train step and S = 4096 give one group: 128 blocks, one wave."""
+    tq, tn = _layout()["TQ"], _layout()["TN"]
+    # Live blocks of one group (row tiles past a ragged chunk's end return).
+    blocks = ((s // q) * cdiv(q, tq) + cdiv(s % q, tq)) * cdiv(n, tn) * 2 * b
+    sizes = sorted({cdiv(h, g) for g in range(1, h + 1)}, reverse=True)
+    for want in (2, 1):
+        fits = [hpb for hpb in sizes if bwd_stages(p, q, hpb, dtype) >= want]
+        if fits:
+            return min(fits, key=lambda hpb: cdiv(
+                blocks * cdiv(h, hpb), H100_SXM.num_sm) * (hpb + 1))
+    raise ValueError(f"ssd's backward at P = {p}, chunk {q} needs "
+                     f"{smem_bwd_bytes(p, q, 1, dtype)} B of shared memory; "
+                     f"a block may use {H100_SXM.vmem_bytes}")
+
+
+def _ssd_bwd_cuda(log_a, dtx, Bm, C, dy, h0, dh_last, h_in, r_h_in, chunk):
+    """One launch of ``repro_ssd_bwd`` (uncounted) -> (dB, dC) [B, S, N] in
+    dy's dtype: :func:`ssd_scan_bwd_ref` of the forward scan against dy
+    (dC) and of the reversed scan against dtx (dB), with ``h_in`` and
+    ``r_h_in`` the two scans' chunk states (None: one chunk, h0 and
+    dh_last). :func:`ssd_db_dc_ref` is its plain version."""
     b, s, h, p = dtx.shape
     n = Bm.shape[-1]
-    build.check_cuda_operands("ssd_bwd", log_a, dtx, Bm, dy, h0)
+    build.check_cuda_operands("ssd_bwd", log_a, dtx, Bm, C, dy, h0, dh_last)
     q = launch_chunk(chunk, dict(s=s, h=h, p=p, n=n), dtx.dtype)
-    if smem_bwd_bytes(p, dtx.dtype) > H100_SXM.vmem_bytes:
-        raise ValueError(f"ssd's backward at P = {p} needs "
-                         f"{smem_bwd_bytes(p, dtx.dtype)} B of shared memory")
-    if cdiv(s, q) > 1 and (h_in is None or h_in.shape != (b, h, cdiv(s, q), n, p)
-                           or h_in.dtype != torch.float32
-                           or not h_in.is_contiguous()):
-        raise ValueError("ssd's backward needs the chunk states as a "
-                         "contiguous float32 [B, H, nc, N, P]")
-    if any(t.data_ptr() % 16 for t in (dtx, Bm, dy, h0)):
-        raise ValueError("ssd's backward needs dtx, B, dy and h0 to start "
-                         "on 16 bytes")
-    hpb = bwd_heads_per_block(b, s, q, h, n)
+    nc = cdiv(s, q)
+    for states in (h_in, r_h_in):
+        if nc > 1 and (states is None or states.shape != (b, h, nc, n, p)
+                       or states.dtype != torch.float32
+                       or not states.is_contiguous()):
+            raise ValueError("ssd's backward needs the chunk states as a "
+                             "contiguous float32 [B, H, nc, N, P]")
+    if any(t.data_ptr() % 16 for t in (dtx, Bm, C, dy, h0, dh_last)):
+        raise ValueError("ssd's backward needs dtx, B, C, dy, h0 and dh_last "
+                         "to start on 16 bytes")
+    hpb = bwd_heads_per_block(b, s, q, h, n, p, dtx.dtype)
     groups = cdiv(h, hpb)
-    part = torch.empty((groups, b, s, n), dtype=torch.float32, device=dy.device)
-    if part.numel() == 0:
-        return part.sum(0).to(dy.dtype)
-    rc = _bwd_lib()(log_a.data_ptr(), dtx.data_ptr(), Bm.data_ptr(),
-                    dy.data_ptr(), h0.data_ptr(),
-                    None if h_in is None else h_in.data_ptr(), part.data_ptr(),
-                    b, h, s, p, n, q, hpb,
-                    build.dtype_code(dtx.dtype), build.stream_ptr(dy.device))
-    build.check(rc, "ssd_bwd")
-    return (part[0] if groups == 1 else part.sum(0)).to(dy.dtype)
-
-
-def _reverse(t, dim):
-    return torch.flip(t, (dim,)).contiguous()
+    part = torch.empty((groups, 2, b, s, n), dtype=torch.float32,
+                       device=dy.device)
+    if part.numel():
+        rc = _bwd_lib()(log_a.data_ptr(), dtx.data_ptr(), Bm.data_ptr(),
+                        C.data_ptr(), dy.data_ptr(), h0.data_ptr(),
+                        dh_last.data_ptr(),
+                        None if nc == 1 else h_in.data_ptr(),
+                        None if nc == 1 else r_h_in.data_ptr(),
+                        part.data_ptr(), b, h, s, p, n, q, hpb,
+                        build.dtype_code(dtx.dtype), build.stream_ptr(dy.device))
+        build.check(rc, "ssd_bwd")
+    total = part[0] if groups == 1 else part.sum(0)
+    return total[1].to(dy.dtype), total[0].to(dy.dtype)
 
 
 def ssd_scan_backward(log_a, dtx, Bm, C, h0, y, h_last, h_in, dy, dh_last,
-                      chunk, scan, db_dc):
+                      chunk, scan_rev, db_dc):
     """The scan's gradients (d log_a, d dtx, dB, dC, dh0) from dy [B, S, H, P]
     and dh_last [B, H, N, P] (None: zero), given the forward's y, h_last and
     chunk states ``h_in`` (None with one chunk).
 
-    ``scan(log_a, dtx, Bm, C, h0, chunk) -> (y, h_last, h_in)`` is the
-    forward; ``db_dc(log_a, dtx, Bm, dy, h0, h_in, chunk)`` is
-    :func:`ssd_scan_bwd_ref`'s function. The adjoint state g_t = dL/dh_t
-    obeys g_t = a_{t+1} g_{t+1} + C_t dy_t^T from g_{S-1} = C dy^T +
-    dh_last: the scan itself run backward in time with log_a' = [0, log_a
-    reversed without its first step], dtx' = dy reversed, B' = C and C' = B
-    reversed, h0' = dh_last. So
+    The adjoint state g_t = dL/dh_t obeys g_t = a_{t+1} g_{t+1} + C_t dy_t^T
+    from g_{S-1} = C dy^T + dh_last: the scan itself run backward in time
+    with log_a' = [0, log_a reversed without its first step], dtx' = dy,
+    B' = C and C' = B, h0' = dh_last, each read reversed.
+    ``scan_rev(log_a, dy, C, Bm, dh_last, y, dtx, chunk) -> (d dtx, g_0,
+    its chunk states, dcum)`` runs it (:func:`_ssd_rev_cuda`,
+    :func:`ssd_scan_rev_ref`): d dtx_t = B_t . g_t is its output at forward
+    steps, and dcum [B, H, S] float32 is <dy_t, y_t> - <dtx_t, d dtx_t>
+    over P. So
 
-    - d dtx_t = B_t . g_t is that scan's y reversed, and dh0 = a_0 g_0 =
-      exp(log_a_0) times its h_last;
-    - dC = db_dc of the forward scan against dy, and dB = db_dc of the
-      reversed scan against dtx reversed (its states are the g's), reversed;
-    - d log_a is the reverse cumulative sum over t of <dy_t, y_t> -
-      <dtx_t, d dtx_t> (summed over P, per head), with <dh_last, h_last>
-      added at t = S - 1.
+    - dh0 = a_0 g_0 = exp(log_a_0) g_0;
+    - ``db_dc(log_a, dtx, Bm, C, dy, h0, dh_last, h_in, r_h_in, chunk) ->
+      (dB, dC)`` (:func:`_ssd_bwd_cuda`, :func:`ssd_db_dc_ref`): dC of the
+      forward scan against dy, dB of the reversed one against dtx;
+    - d log_a is the reverse cumulative sum over t of dcum, with <dh_last,
+      h_last> added at t = S - 1.
 
     CPU tests run it with the plain versions in the kernels' place.
     """
-    s = dtx.shape[1]
     if dh_last is None:
         dh_last = torch.zeros_like(h0)
     dy = dy.contiguous()
     dh_last = dh_last.contiguous()
-    r_log_a = torch.cat([torch.zeros_like(log_a[:, :, :1]),
-                         _reverse(log_a[:, :, 1:], 2)], dim=2)
-    r_dy, r_dtx = _reverse(dy, 1), _reverse(dtx, 1)
-    r_b, r_c = _reverse(C, 1), _reverse(Bm, 1)
-    r_y, g0, r_h_in = scan(r_log_a, r_dy, r_b, r_c, dh_last, chunk)
-    d_dtx = _reverse(r_y, 1)
-    dh0 = (torch.exp(log_a[:, :, 0].float())[..., None, None]
-           * g0.float()).to(h0.dtype)
-    dC = db_dc(log_a, dtx, Bm, dy, h0, h_in, chunk)
-    dB = _reverse(db_dc(r_log_a, r_dy, r_b, r_dtx, dh_last, r_h_in, chunk), 1)
-    dcum = ((dy.float() * y.float()).sum(-1)
-            - (dtx.float() * d_dtx.float()).sum(-1)).transpose(1, 2)  # [B, H, S]
-    dcum[:, :, s - 1] += (dh_last.float() * h_last.float()).sum((-2, -1))
-    d_log_a = torch.flip(torch.cumsum(torch.flip(dcum, (2,)), 2), (2,))
-    return d_log_a.to(log_a.dtype), d_dtx, dB, dC, dh0
+    d_dtx, g0, r_h_in, dcum = scan_rev(log_a, dy, C, Bm, dh_last, y, dtx, chunk)
+    dB, dC = db_dc(log_a, dtx, Bm, C, dy, h0, dh_last, h_in, r_h_in, chunk)
+    d_log_a, dh0 = ssd_bwd_tail(log_a, h_last, dh_last, g0, dcum)
+    return d_log_a, d_dtx, dB, dC, dh0
+
+
+def ssd_bwd_tail(log_a, h_last, dh_last, g0, dcum):
+    """The backward's last PyTorch ops -> (d log_a, dh0): <dh_last, h_last>
+    added to ``dcum`` (in place) at the last step, its reverse cumulative
+    sum over [B, H, S], and dh0 = exp(log_a_0) g0, in g0's place when it is
+    float32 (no temporary of the state's size)."""
+    b, h, s = dcum.shape
+    a0 = torch.exp(log_a[:, :, 0].float())[..., None, None]
+    dh0 = (g0.mul_(a0) if g0.dtype == torch.float32
+           else (g0.float() * a0).to(g0.dtype))
+    # <dh_last, h_last> a (b, h) as a batched product: no [B, H, N, P]
+    # float32 temporary.
+    m = h_last[0, 0].numel()
+    dcum[:, :, s - 1] += torch.bmm(
+        dh_last.reshape(b * h, 1, m).float(),
+        h_last.reshape(b * h, m, 1).float()).reshape(b, h)
+    # The reverse cumulative sum as the total less the sum before each step:
+    # no flipped copy.
+    d_log_a = dcum.sum(2, keepdim=True) - dcum.cumsum(2) + dcum
+    return d_log_a.to(log_a.dtype), dh0
 
 
 class _SsdScanFn(torch.autograd.Function):
     """The chunk scan through the kernels, forward and backward. The forward
     is ``repro_ssd`` (counted under ``ssd``) and keeps its chunk states; the
     backward (:func:`ssd_scan_backward`, counted once under ``ssd_bwd``)
-    runs ``repro_ssd`` on the reversed problem and ``repro_ssd_bwd`` twice.
+    runs ``repro_ssd`` reversed and ``repro_ssd_bwd`` once.
     The reference differentiates its jnp scan through JAX; the gradients are
     the same function's."""
 
@@ -293,7 +383,8 @@ class _SsdScanFn(torch.autograd.Function):
     def backward(ctx, dy, dh_last):
         log_a, dtx, Bm, C, h0, y, h_last, h_in = ctx.saved_tensors
         grads = ssd_scan_backward(log_a, dtx, Bm, C, h0, y, h_last, h_in, dy,
-                                  dh_last, ctx.chunk, _ssd_cuda, _ssd_bwd_cuda)
+                                  dh_last, ctx.chunk, _ssd_rev_cuda,
+                                  _ssd_bwd_cuda)
         build.LAUNCHES["ssd_bwd"] += 1
         return (*grads, None)
 
@@ -342,8 +433,9 @@ def flops(q: int, problem: Mapping[str, int]) -> float:
 
 def bwd_flops(q: int, problem: Mapping[str, int]) -> float:
     """The backward's operations at chunk ``q`` (one batch row): the
-    forward's (:func:`flops`) on the reversed problem, and two runs of
-    ``repro_ssd_bwd``'s products (dC, dB): per chunk of L steps and head,
+    forward's (:func:`flops`) on the reversed problem, and
+    ``repro_ssd_bwd``'s products for each of dC and dB (one launch): per
+    chunk of L steps and head,
     L (L + 1) / 2 causal pairs for dy . x and for scores . B, and L N P
     products for dy . h_in; two operations a product."""
     s, h, p, n = problem["s"], problem["h"], problem["p"], problem["n"]
@@ -407,7 +499,9 @@ SPEC = registry.register(registry.KernelSpec(
 ))
 
 
-__all__ = ["SPEC", "bwd_flops", "flops", "launch_chunk", "smem_bwd_bytes",
-           "smem_bytes", "ssd", "ssd_chunk_states_ref", "ssd_chunked_ref",
-           "ssd_ref", "ssd_scan", "ssd_scan_backward", "ssd_scan_bwd_ref",
-           "ssd_scan_ref", "ssd_scan_split_ref", "workspace_floats"]
+__all__ = ["SPEC", "bwd_flops", "bwd_stages", "flops",
+           "launch_chunk", "smem_bwd_bytes", "smem_bytes", "ssd",
+           "ssd_bwd_tail", "ssd_chunk_states_ref", "ssd_chunked_ref",
+           "ssd_db_dc_ref", "ssd_ref", "ssd_scan", "ssd_scan_backward",
+           "ssd_scan_bwd_ref", "ssd_scan_ref", "ssd_scan_rev_ref",
+           "ssd_scan_split_ref", "workspace_floats"]

@@ -13,8 +13,14 @@ after chunk with the state carried between them (the JAX kernel's order,
 not the CUDA kernels'), the version the kernels are held against;
 ``ssd_chunked_ref`` is the whole layer through it. ``ssd_chunk_states_ref``
 gives the state entering each chunk and ``ssd_scan_bwd_ref`` the gradient
-of the scan's input projections (the plain version of the backward kernel
-``repro_ssd_bwd``). ``ssd_scan_split_ref``
+of the scan's input projections. With ``reverse=True`` the three run the
+scan backward in time, reading forward-ordered tensors in place (the
+adjoint scan of the backward, as ``repro_ssd``'s reversed mode does; step
+t is forward step S - 1 - t, its log_a 0 at t = 0 and log_a[S - t] after),
+and write forward-ordered outputs. ``ssd_scan_rev_ref`` (the reversed
+forward kernels with d log_a's dot products) and ``ssd_db_dc_ref`` (the
+backward kernel ``repro_ssd_bwd``: dB and dC) are the plain versions of
+the backward's two steps. ``ssd_scan_split_ref``
 is the CUDA kernels' decomposition in plain PyTorch (every chunk's own
 state, then a pass carrying the state over the chunks, then every chunk's
 output), with its products through a ``mm`` the tests can replace by an
@@ -49,21 +55,41 @@ def ssd_ref(x, dt, A, Bm, C, D=None, h0=None):
     return y.to(x.dtype), hs.to(x.dtype)
 
 
-def ssd_scan_ref(log_a, dtx, Bm, C, h0, chunk: int = 64):
+def _rows(s: int, t0: int, qn: int, reverse: bool, device):
+    """The forward steps of the scan's steps t0 .. t0 + qn - 1: a slice, or
+    reversed (step t at forward step s - 1 - t) an index, descending."""
+    if not reverse:
+        return slice(t0, t0 + qn)
+    return torch.arange(s - 1 - t0, s - 1 - t0 - qn, -1, device=device)
+
+
+def _scan_log_a(log_a, reverse: bool):
+    """log_a as float32 at forward steps; reversed, the backward scan's
+    log_a' at forward step f: log_a[f + 1], 0 at f = S - 1 (its step 0)."""
+    la = log_a.float()
+    if not reverse:
+        return la
+    return torch.cat([la[..., 1:], torch.zeros_like(la[..., :1])], dim=-1)
+
+
+def ssd_scan_ref(log_a, dtx, Bm, C, h0, chunk: int = 64, reverse: bool = False):
     """The chunk scan over log_a [B, H, S], dtx [B, S, H, P], Bm, C
     [B, S, N] and h0 [B, H, N, P] -> (y [B, S, H, P], h_last [B, H, N, P])
-    in dtx's dtype. The last chunk may be shorter than ``chunk``."""
+    in dtx's dtype. The last chunk may be shorter than ``chunk``; reversed,
+    the chunks start at forward step S - 1, so the short one ends at 0."""
     s = dtx.shape[1]
     q = max(1, min(int(chunk), s))
-    la, xf = log_a.float(), dtx.float()
+    la, xf = _scan_log_a(log_a, reverse), dtx.float()
     bm, cm = Bm.float(), C.float()
     hs = h0.float()
     ys = []
+    y_rev = torch.empty_like(xf) if reverse else None
     for t0 in range(0, s, q):
         qn = min(q, s - t0)
-        cum = torch.cumsum(la[:, :, t0:t0 + qn], dim=-1)         # [B, H, Q]
-        x_c = xf[:, t0:t0 + qn].permute(0, 2, 1, 3)              # [B, H, Q, P]
-        b_c, c_c = bm[:, t0:t0 + qn], cm[:, t0:t0 + qn]          # [B, Q, N]
+        rows = _rows(s, t0, qn, reverse, dtx.device)
+        cum = torch.cumsum(la[:, :, rows], dim=-1)               # [B, H, Q]
+        x_c = xf[:, rows].permute(0, 2, 1, 3)                    # [B, H, Q, P]
+        b_c, c_c = bm[:, rows], cm[:, rows]                      # [B, Q, N]
         tri = torch.tril(torch.ones((qn, qn), dtype=torch.bool,
                                     device=dtx.device))
         decay = torch.where(tri, torch.exp(cum[..., :, None] - cum[..., None, :]),
@@ -75,8 +101,12 @@ def ssd_scan_ref(log_a, dtx, Bm, C, h0, chunk: int = 64):
         w = torch.exp(total[..., None] - cum)                    # [B, H, Q]
         hs = (torch.exp(total)[..., None, None] * hs
               + torch.einsum("bhjn,bhjp->bhnp", b_c[:, None] * w[..., None], x_c))
-        ys.append((y_intra + y_inter).permute(0, 2, 1, 3))       # [B, Q, H, P]
-    return torch.cat(ys, dim=1).to(dtx.dtype), hs.to(dtx.dtype)
+        if reverse:
+            y_rev[:, rows] = (y_intra + y_inter).permute(0, 2, 1, 3)
+        else:
+            ys.append((y_intra + y_inter).permute(0, 2, 1, 3))   # [B, Q, H, P]
+    y = y_rev if reverse else torch.cat(ys, dim=1)
+    return y.to(dtx.dtype), hs.to(dtx.dtype)
 
 
 def ssd_scan_split_ref(log_a, dtx, Bm, C, h0, chunk: int = 64,
@@ -124,27 +154,31 @@ def ssd_scan_split_ref(log_a, dtx, Bm, C, h0, chunk: int = 64,
     return y.to(dtx.dtype), hs.to(dtx.dtype)
 
 
-def ssd_chunk_states_ref(log_a, dtx, Bm, h0, chunk: int = 64):
+def ssd_chunk_states_ref(log_a, dtx, Bm, h0, chunk: int = 64,
+                         reverse: bool = False):
     """The state entering each chunk of the scan, [B, H, nc, N, P] float32
-    (the forward kernels' workspace after their state pass)."""
+    (the forward kernels' workspace after their state pass), in the scan's
+    chunk order (reversed: from forward step S - 1)."""
     s = dtx.shape[1]
     q = max(1, min(int(chunk), s))
-    la, xf, bm = log_a.float(), dtx.float(), Bm.float()
+    la, xf, bm = _scan_log_a(log_a, reverse), dtx.float(), Bm.float()
     hs = h0.float()
     states = []
     for t0 in range(0, s, q):
         states.append(hs)
-        cum = torch.cumsum(la[:, :, t0:t0 + q], dim=-1)            # [B, H, Q]
+        rows = _rows(s, t0, min(q, s - t0), reverse, dtx.device)
+        cum = torch.cumsum(la[:, :, rows], dim=-1)                 # [B, H, Q]
         total = cum[..., -1]
         w = torch.exp(total[..., None] - cum)
-        x_c = xf[:, t0:t0 + q].permute(0, 2, 1, 3)                # [B, H, Q, P]
+        x_c = xf[:, rows].permute(0, 2, 1, 3)                      # [B, H, Q, P]
         hs = (torch.exp(total)[..., None, None] * hs
               + torch.einsum("bhjn,bhjp->bhnp",
-                             bm[:, None, t0:t0 + q] * w[..., None], x_c))
+                             bm[:, None, rows] * w[..., None], x_c))
     return torch.stack(states, dim=2)
 
 
-def ssd_scan_bwd_ref(log_a, dtx, Bm, dy, h0, h_in=None, chunk: int = 64):
+def ssd_scan_bwd_ref(log_a, dtx, Bm, dy, h0, h_in=None, chunk: int = 64,
+                     reverse: bool = False):
     """The gradient, summed over heads, of sum(dy * y) with respect to the C
     of the scan (log_a, dtx, Bm, C, h0): dC_t = sum_h h_t dy_t [B, S, N].
 
@@ -152,19 +186,22 @@ def ssd_scan_bwd_ref(log_a, dtx, Bm, dy, h0, h_in=None, chunk: int = 64):
     a chunk, dC_t = sum_h [exp(cum_t) h_in dy_t + sum_{s <= t} (dy_t . x_s)
     exp(cum_t - cum_s) B_s], with h_in the state entering the chunk
     ([B, H, nc, N, P]; ``None`` means h0, one chunk). On the scan run
-    backward in time (see ``ops.ssd_scan_backward``), whose states are the
-    adjoint states, the same function gives dB. float32 math, dy's dtype
-    out."""
+    backward in time (``reverse=True``, see ``ops.ssd_scan_backward``), whose
+    states are the adjoint states, the same function gives dB, at forward
+    steps. float32 math, dy's dtype out."""
     b, s, h, p = dtx.shape
     q = max(1, min(int(chunk), s))
-    la, xf, bm, g = log_a.float(), dtx.float(), Bm.float(), dy.float()
+    la, xf = _scan_log_a(log_a, reverse), dtx.float()
+    bm, g = Bm.float(), dy.float()
     states = h0.float()[:, :, None] if h_in is None else h_in.float()
     out = []
+    d_rev = torch.empty((b, s, Bm.shape[-1]), device=dtx.device) if reverse else None
     for c, t0 in enumerate(range(0, s, q)):
         qn = min(q, s - t0)
-        cum = torch.cumsum(la[:, :, t0:t0 + qn], dim=-1)           # [B, H, Q]
-        x_c = xf[:, t0:t0 + qn].permute(0, 2, 1, 3)                # [B, H, Q, P]
-        g_c = g[:, t0:t0 + qn].permute(0, 2, 1, 3)
+        rows = _rows(s, t0, qn, reverse, dtx.device)
+        cum = torch.cumsum(la[:, :, rows], dim=-1)                 # [B, H, Q]
+        x_c = xf[:, rows].permute(0, 2, 1, 3)                      # [B, H, Q, P]
+        g_c = g[:, rows].permute(0, 2, 1, 3)
         tri = torch.tril(torch.ones((qn, qn), dtype=torch.bool,
                                     device=dtx.device))
         decay = torch.where(tri, torch.exp(cum[..., :, None] - cum[..., None, :]),
@@ -172,9 +209,44 @@ def ssd_scan_bwd_ref(log_a, dtx, Bm, dy, h0, h_in=None, chunk: int = 64):
         scores = torch.matmul(g_c, x_c.transpose(-1, -2)) * decay  # [B, H, Q, Q]
         d_c = (torch.exp(cum)[..., None]
                * torch.einsum("bhtp,bhnp->bhtn", g_c, states[:, :, c])
-               + torch.matmul(scores, bm[:, None, t0:t0 + qn]))
-        out.append(d_c.sum(dim=1))                                 # [B, Q, N]
-    return torch.cat(out, dim=1).to(dy.dtype)
+               + torch.matmul(scores, bm[:, None, rows]))
+        if reverse:
+            d_rev[:, rows] = d_c.sum(dim=1)
+        else:
+            out.append(d_c.sum(dim=1))                             # [B, Q, N]
+    return (d_rev if reverse else torch.cat(out, dim=1)).to(dy.dtype)
+
+
+def ssd_dlog_a_terms_ref(dy, y, dtx, d_dtx):
+    """d log_a's terms before its reverse cumulative sum: <dy_t, y_t> -
+    <dtx_t, d dtx_t> over P, float32 [B, H, S] (the reversed output
+    launch's dot products)."""
+    return ((dy.float() * y.float()).sum(-1)
+            - (dtx.float() * d_dtx.float()).sum(-1)).transpose(1, 2)
+
+
+def ssd_scan_rev_ref(log_a, dy, C, Bm, dh_last, y, dtx, chunk: int = 64):
+    """The backward's adjoint scan, plain: the scan reversed (log_a', dtx' =
+    dy, B' = C, C' = Bm, h0' = dh_last) -> (d dtx, the adjoint state at
+    step 0, its chunk states or None with one chunk, d log_a's terms
+    [B, H, S] float32), as ``ops._ssd_rev_cuda`` returns them."""
+    s = dy.shape[1]
+    d_dtx, g0 = ssd_scan_ref(log_a, dy, C, Bm, dh_last, chunk, reverse=True)
+    q = max(1, min(int(chunk), s))
+    states = (None if s <= q else
+              ssd_chunk_states_ref(log_a, dy, C, dh_last, chunk, reverse=True))
+    return d_dtx, g0, states, ssd_dlog_a_terms_ref(dy, y, dtx, d_dtx)
+
+
+def ssd_db_dc_ref(log_a, dtx, Bm, C, dy, h0, dh_last, h_in, r_h_in,
+                  chunk: int = 64):
+    """(dB, dC), plain, as ``ops._ssd_bwd_cuda`` returns them: dC of the
+    forward scan against dy, dB of the reversed one (x = dy, B = C, its
+    states ``r_h_in``, from dh_last) against dtx."""
+    dC = ssd_scan_bwd_ref(log_a, dtx, Bm, dy, h0, h_in, chunk)
+    dB = ssd_scan_bwd_ref(log_a, dy, C, dtx, dh_last, r_h_in, chunk,
+                          reverse=True)
+    return dB, dC
 
 
 def discretize(x, dt, A):

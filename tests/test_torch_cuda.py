@@ -1535,6 +1535,7 @@ SSD_GRAD_CASES = [
     (1, 300, 2, 64, 128, 128),
     (2, 40, 2, 8, 16, 1),           # a chunk of one step
     (2, 1, 3, 64, 16, 64),          # one step: the decode kernel forward
+    (8, 512, 80, 64, 128, 64),      # mamba2-2.7b's train step, one layer
 ]
 
 
@@ -1543,7 +1544,7 @@ SSD_GRAD_CASES = [
                          ids=lambda c: "-".join(map(str, c)))
 def test_ssd_gradients_launch_the_kernels(dev, dtype, rtol, case):
     """The chunk scan's five gradients through ``_SsdScanFn`` (the forward
-    kernels on the reversed problem, ``repro_ssd_bwd`` for dB and dC)
+    kernels reversed, read in place, ``repro_ssd_bwd`` for dB and dC)
     against autograd of the plain scan on the card, with non-zero h0 and
     dh_last; one forward and one backward counted."""
     b, s, h, p, n, chunk = case
@@ -1572,15 +1573,105 @@ def test_ssd_gradients_launch_the_kernels(dev, dtype, rtol, case):
 
 
 def test_ssd_backward_shared_memory_rule_is_the_sources(dev):
-    import ctypes
-
-    fn = build.load("ssd").repro_ssd_bwd_smem
-    fn.argtypes = [ctypes.c_int, ctypes.c_int]
-    fn.restype = ctypes.c_longlong
+    fn = ssd_ops._bwd_smem_lib()
     for dtype in (torch.float32, torch.bfloat16):
         for p in (8, 16, 64, 72, 136, 256):
-            assert fn(p, build.dtype_code(dtype)) == \
-                ssd_ops.smem_bwd_bytes(p, dtype), (p, dtype)
+            for q in (1, 16, 64, 72, 128, 256):
+                for hpb in (1, 2, 16, 80):
+                    assert fn(p, q, hpb, build.dtype_code(dtype)) == \
+                        ssd_ops.smem_bwd_bytes(p, q, hpb, dtype), (p, q, hpb,
+                                                                   dtype)
+
+
+def _ssd_bwd_operands(dev, case, dt, seed=31):
+    """The backward's operands at ``case``: the scan's inputs, the
+    forward's y, h_last and chunk states, dy and dh_last."""
+    b, s, h, p, n, chunk = case
+    x, dtv, A, Bm, C, h0 = _ssd_inputs(dev, seed, b, s, h, p, n, dt)
+    log_a, dtx = ssd_ops.discretize(x, dtv, A)
+    inputs = (log_a.to(dt), dtx.to(dt), Bm, C, h0)
+    y, hl, h_in = ssd_ops._ssd_cuda(*inputs, chunk)
+    dy, dh = _randn(dev, seed + 1, (b, s, h, p), (b, h, n, p), dtype=dt)
+    return inputs, y, hl, h_in, dy, dh
+
+
+SSD_REV_CASES = [(2, 100, 3, 16, 8, 32), (1, 77, 2, 64, 128, 16),
+                 (2, 200, 3, 136, 256, 72), (2, 1, 3, 64, 16, 64),
+                 (1, 50, 2, 64, 128, 64), (1, 512, 8, 64, 128, 64)]
+
+
+@pytest.mark.parametrize("dtype,rtol", DTYPES)
+@pytest.mark.parametrize("case", SSD_REV_CASES,
+                         ids=lambda c: "-".join(map(str, c)))
+def test_ssd_reversed_mode_is_the_forward_on_flipped_copies(dev, dtype, rtol,
+                                                            case):
+    """``repro_ssd`` reversed (read in place) gives, bit for bit, what the
+    forward mode gives on flipped copies of the adjoint problem: d dtx at
+    forward steps, the final state and the chunk states; its d log_a terms
+    match the plain dot products."""
+    from repro_torch.kernels.ssd.ref import ssd_dlog_a_terms_ref
+
+    chunk = case[-1]
+    dt = getattr(torch, dtype)
+    (log_a, dtx, Bm, C, h0), y, _, _, dy, dh = _ssd_bwd_operands(dev, case, dt)
+    d_dtx, g0, ws, dots = ssd_ops._ssd_rev_cuda(log_a, dy, C, Bm, dh, y, dtx,
+                                                chunk)
+    flip = lambda t, d=1: torch.flip(t, (d,)).contiguous()  # noqa: E731
+    r_la = torch.cat([torch.zeros_like(log_a[:, :, :1]),
+                      flip(log_a[:, :, 1:], 2)], dim=2)
+    y_f, g_f, ws_f = ssd_ops._ssd_cuda(r_la, flip(dy), flip(C), flip(Bm), dh,
+                                       chunk)
+    torch.cuda.synchronize()
+    assert torch.equal(d_dtx, flip(y_f))
+    assert torch.equal(g0, g_f)
+    assert (ws is None) == (ws_f is None)
+    if ws is not None:
+        assert torch.equal(ws, ws_f)
+    _close(dots, ssd_dlog_a_terms_ref(dy, y, dtx, d_dtx), rtol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_backward_reruns_bit_for_bit(dev, dtype):
+    """Two runs of the backward on the same operands give the same bits
+    (the sums over heads and over P tiles run in a fixed order)."""
+    case = (2, 200, 6, 64, 128, 64)
+    inputs, y, hl, h_in, dy, dh = _ssd_bwd_operands(
+        dev, case, getattr(torch, dtype))
+
+    def run():
+        return ssd_ops.ssd_scan_backward(
+            *inputs, y, hl, h_in, dy, dh, case[-1], ssd_ops._ssd_rev_cuda,
+            ssd_ops._ssd_bwd_cuda)
+
+    first, second = run(), run()
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_ssd_backward_holds_no_full_size_temporaries(dev):
+    """At mamba2-2.7b's train shape in float32 (one layer: B 8, S 512, H 80,
+    P 64, N 128, Q 64) the backward allocates at most its gradients, the
+    adjoint scan's chunk states and a quarter of one [B, S, H, P] tensor
+    beyond what it held before: no flipped copy and no full-size float32
+    temporary."""
+    case = (8, 512, 80, 64, 128, 64)
+    b, s, h, p, n, q = case
+    inputs, y, hl, h_in, dy, dh = _ssd_bwd_operands(dev, case, torch.float32)
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    grads = ssd_ops.ssd_scan_backward(
+        *inputs, y, hl, h_in, dy, dh, q, ssd_ops._ssd_rev_cuda,
+        ssd_ops._ssd_bwd_cuda)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    # dB and dC are views of one [2, B, S, N] float32 buffer.
+    returned = sum(g.numel() * g.element_size() for g in grads)
+    states = b * h * -(-s // q) * n * p * 4
+    limit = returned + states + b * s * h * p * 4 // 4
+    assert peak <= limit, (peak, returned, states, limit)
 
 
 @pytest.mark.parametrize("dtype,rtol", DTYPES)

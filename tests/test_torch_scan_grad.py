@@ -3,14 +3,19 @@ and ``kernels/rglru/ops.py:rglru_scan_backward``), on the CPU.
 
 On CUDA tensors under grad, ``ssd_scan`` and ``rglru_scan`` go through
 ``_SsdScanFn`` / ``_RglruScanFn``, whose backwards run the kernels: for
-the SSD the forward kernels on the time-reversed adjoint problem and the
-``repro_ssd_bwd`` kernel for dB and dC, for the RG-LRU ``repro_rglru_bwd``
-(the forward's scan with the reversal in its indexing). Here the plain
-versions take the kernels' place:
+the SSD the forward kernels in their reversed mode (the time-reversed
+adjoint problem read in place, d log_a's dot products in its output
+launch) and one ``repro_ssd_bwd`` launch for dB and dC, for the RG-LRU
+``repro_rglru_bwd`` (the forward's scan with the reversal in its
+indexing). Here the plain versions take the kernels' place:
 
 (a) both backward formulas against ``torch.autograd.grad`` of the plain
     scans, within 1e-5 of each gradient's max |g| (ragged S, a chunk of 1,
-    S = 1, non-zero h0 and dh_last, dh_last None);
+    S = 1, non-zero h0 and dh_last, dh_last None); the SSD's plain
+    reversed mode (``reverse=True`` of ``ssd_scan_ref``,
+    ``ssd_chunk_states_ref`` and ``ssd_scan_bwd_ref``, and
+    ``ssd_scan_rev_ref``'s d log_a terms) against the flipped copies it
+    replaces;
 (b) the whole layers ``ssd`` and ``rglru`` with the Functions routed
     through the plain scans, against ``jax.vjp`` of the JAX package's
     ``ssd_chunked_ref`` and ``rglru_ref`` on the same numpy inputs, within
@@ -36,7 +41,8 @@ from repro_torch.kernels.rglru import ops as rg_ops  # noqa: E402
 from repro_torch.kernels.rglru.ref import rglru_scan_ref  # noqa: E402
 from repro_torch.kernels.ssd import ops as ssd_ops  # noqa: E402
 from repro_torch.kernels.ssd.ref import (  # noqa: E402
-    ssd_chunk_states_ref, ssd_scan_bwd_ref, ssd_scan_ref,
+    ssd_chunk_states_ref, ssd_db_dc_ref, ssd_scan_bwd_ref, ssd_scan_ref,
+    ssd_scan_rev_ref,
 )
 from test_torch_train_step import (  # noqa: E402,F401
     check_train_loss, one_torch_thread,
@@ -104,10 +110,66 @@ def test_ssd_scan_backward_matches_autograd_of_the_plain_scan(s, chunk, with_dh)
                                 inputs["h0"], chunk=chunk)
     got = ssd_ops.ssd_scan_backward(
         *inputs.values(), y.detach(), h_last.detach(), h_in, dy, dh, chunk,
-        _plain_ssd_scan, ssd_scan_bwd_ref)
+        ssd_scan_rev_ref, ssd_db_dc_ref)
     for name, g, w in zip(inputs, got, want):
         assert g.shape == w.shape and g.dtype == w.dtype, name
         assert _rel(g, w) <= SCAN_TOL, (name, _rel(g, w))
+
+
+def _flipped(t, dim=1):
+    return torch.flip(t, (dim,)).contiguous()
+
+
+def _flipped_adjoint_problem(raw):
+    """The adjoint scan's inputs as flipped copies (the construction the
+    reversed mode replaces): log_a' = [0, log_a reversed without its first
+    step], dtx' = dy, B' = C, C' = B, each reversed in time."""
+    la = _t(raw["log_a"])
+    r_la = torch.cat([torch.zeros_like(la[:, :, :1]), _flipped(la[:, :, 1:], 2)],
+                     dim=2)
+    return (r_la, _flipped(_t(raw["dy"])), _flipped(_t(raw["C"])),
+            _flipped(_t(raw["Bm"])), _t(raw["dh_last"]))
+
+
+@pytest.mark.parametrize("s,chunk", [
+    (37, 8),     # ragged: the short reversed chunk lies at forward step 0
+    (16, 1),     # a chunk of one step
+    (1, 8),      # one step
+    (24, 64),    # one chunk
+])
+def test_ssd_reversed_mode_is_the_scan_on_flipped_copies(s, chunk):
+    """The plain reversed mode, reading forward-ordered tensors in place,
+    gives the forward scan on flipped copies: y (d dtx) flipped back, the
+    final state, the chunk states in the reversed scan's order, dB through
+    ``ssd_scan_bwd_ref``, and d log_a's dot products against the flipped
+    d dtx."""
+    raw = _ssd_inputs(2, s, 3, 4, 5, seed=100 + s + chunk)
+    la, dtx, bm, cm, h0, dy, dh = (_t(raw[k]) for k in (
+        "log_a", "dtx", "Bm", "C", "h0", "dy", "dh_last"))
+    r_la, r_dy, r_b, r_c, _ = _flipped_adjoint_problem(raw)
+    y_f, g_f = ssd_scan_ref(r_la, r_dy, r_b, r_c, dh, chunk=chunk)
+    states_f = ssd_chunk_states_ref(r_la, r_dy, r_b, dh, chunk=chunk)
+    db_f = _flipped(ssd_scan_bwd_ref(r_la, r_dy, r_b, _flipped(dtx), dh,
+                                     states_f, chunk))
+
+    y_fwd, _ = ssd_scan_ref(la, dtx, bm, cm, h0, chunk=chunk)
+    d_dtx, g0, states, dcum = ssd_scan_rev_ref(la, dy, cm, bm, dh, y_fwd, dtx,
+                                               chunk)
+    torch.testing.assert_close(d_dtx, _flipped(y_f), rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(g0, g_f, rtol=1e-6, atol=1e-6)
+    if s <= chunk:
+        assert states is None and states_f.shape[2] == 1
+    else:
+        torch.testing.assert_close(states, states_f, rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(
+        ssd_chunk_states_ref(la, dy, cm, dh, chunk=chunk, reverse=True),
+        states_f, rtol=1e-6, atol=1e-6)
+    h_in = ssd_chunk_states_ref(la, dtx, bm, h0, chunk=chunk)
+    db, _ = ssd_db_dc_ref(la, dtx, bm, cm, dy, h0, dh, h_in, states, chunk)
+    torch.testing.assert_close(db, db_f, rtol=1e-5, atol=1e-5)
+    want = ((dy * y_fwd).sum(-1) - (dtx * _flipped(y_f)).sum(-1)).transpose(1, 2)
+    assert dcum.shape == (2, 3, s) and dcum.dtype == torch.float32
+    torch.testing.assert_close(dcum, want, rtol=1e-5, atol=1e-5)
 
 
 def test_ssd_chunk_states_are_the_scans_states():
@@ -157,7 +219,8 @@ def routed(monkeypatch):
     launches = {k: 0 for k in build.LAUNCHES}
     monkeypatch.setattr(build, "LAUNCHES", launches)
     monkeypatch.setattr(ssd_ops, "_ssd_cuda", _plain_ssd_scan)
-    monkeypatch.setattr(ssd_ops, "_ssd_bwd_cuda", ssd_scan_bwd_ref)
+    monkeypatch.setattr(ssd_ops, "_ssd_rev_cuda", ssd_scan_rev_ref)
+    monkeypatch.setattr(ssd_ops, "_ssd_bwd_cuda", ssd_db_dc_ref)
     monkeypatch.setattr(rg_ops, "_rglru_cuda", _plain_rglru_scan)
     monkeypatch.setattr(
         rg_ops, "_rglru_bwd_cuda", lambda a, y, h0, dy, dh: (
@@ -287,6 +350,7 @@ def _c_params(source: str, name: str):
 @pytest.mark.parametrize("module,binder,source,entry", [
     ("ssd", "_lib", "ssd.cu", "repro_ssd"),
     ("ssd", "_bwd_lib", "ssd.cu", "repro_ssd_bwd"),
+    ("ssd", "_bwd_smem_lib", "ssd.cu", "repro_ssd_bwd_smem"),
     ("rglru", "_lib", "rglru.cu", "repro_rglru"),
     ("rglru", "_bwd_lib", "rglru.cu", "repro_rglru_bwd"),
 ])
@@ -303,3 +367,19 @@ def test_scan_bindings_declare_the_c_entry_points_arguments(
     ops = ssd_ops if module == "ssd" else rg_ops
     fn = getattr(ops, binder)()
     assert fn.argtypes == _c_params(source, entry)
+
+
+@pytest.mark.parametrize("b,s,q,dtype,want", [
+    (1, 4096, 64, "float32", 80),    # S 4096: 128 blocks, one wave
+    (1, 4096, 64, "bfloat16", 80),
+    (8, 512, 64, "float32", 80),     # mamba2-2.7b's train shape
+    (1, 4001, 64, "float32", 80),    # ragged: the short chunk's tile counts
+    (2, 1024, 128, "float32", 40),   # 64 blocks: two groups fill a wave
+    (1, 256, 64, "float32", 5),      # 8 blocks: 16 groups fill a wave
+])
+def test_ssd_backward_heads_a_block(b, s, q, dtype, want):
+    """``repro_ssd_bwd``'s heads a block at mamba2-2.7b's width (H 80, P 64,
+    N 128): the fewest waves of blocks times (heads a block + 1), the fewer
+    groups on a tie. The split fixes the order heads are summed in, so it
+    fixes the gradients' bits."""
+    assert ssd_ops.bwd_heads_per_block(b, s, q, 80, 128, 64, dtype) == want
