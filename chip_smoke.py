@@ -78,8 +78,8 @@ Phases, each of which fails the run if it fails:
    measured, none skipped, and that the saved artifact resolves each cell
    exactly; then time all 16 tiles of the paper's Fig. 3 at every scale
    beside the paper's two GPUs as the cost model sees them;
-10. serve full-width mamba2-2.7b (64 layers, float32, random weights from
-   seed 0; SSD states) through the captured engine at 4 slots and max_len
+10. serve full-width mamba2-2.7b (32 of its 64 layers, float32, random
+   weights from seed 0; SSD states) through the captured engine at 4 slots and max_len
    1024: six requests of 16, 64, 100, 257, 600 and 1000 prompt tokens (a
    slot serves a second request), 16 new tokens each, held token by token
    against the plain versions; ssd must launch in the prefills and in the
@@ -219,9 +219,9 @@ Phases, each of which fails the run if it fails:
    finite and falling, host ms a step, tokens/s, peak allocated bytes and
    model FLOP/s (6 N tokens) against float32's 67 TFLOP/s, with
    ``--profile`` a sixth step's device ms by group and idle share; (d)
-   ``Trainer.run`` on the 100M example config (100 steps of 8 x 256,
-   checkpoints every 25 in a temporary directory, removed after): the loss
-   falls by more than 1.0, a failure at step 60 restores step 50 and ends
+   ``Trainer.run`` on the 100M example config (60 steps of 8 x 256,
+   checkpoints every 20 in a temporary directory, removed after): the loss
+   falls by more than 1.0, a failure at step 45 restores step 40 and ends
    at the uninterrupted run's loss, bit for bit, and the launcher
    ``python -m repro_torch.launch.train --steps 20 --checkpoint-every 10
    --fail-at 12`` exits 0 with one restart; (e) the recurrent mixers under
@@ -249,6 +249,34 @@ Phases, each of which fails the run if it fails:
    parameters): the same check and three steps; then the train launcher
    at both models' smoke configs, 20 steps with a failure at step 12,
    each scan's forward and backward launched.
+
+18. the mesh runtime (last; ``torch.distributed``, one process a rank):
+   (a) ``Trainer(mesh=make_local_mesh(1, 1))`` over a one-rank NCCL group
+   (NCCL cannot put two ranks on one card) against the mesh-less Trainer:
+   full-width qwen2-1.5b at 4 of its 28 layers (a 28-layer Trainer's
+   final checkpoint is 19 GB, two of them more than one call may write),
+   3 steps of 8 x 512, losses and final parameters bit for bit; (b) ranks on cuda:0 over gloo (its all-gather and
+   point-to-point copied through pinned host memory), each check against
+   the one-process path of the same ranks: four ranks — the
+   sequence-sharded decode of full-width qwen2-1.5b at 4 of its 28 layers
+   on a 1 x 4 mesh (2 KV heads < 4: each rank a 256-row slice of the
+   1024-row cache; a 511-token prefill, 8 greedy steps: tokens equal, logits
+   within 1e-3 of max |logit|, flash_decode launched 4 x 8 times on every
+   rank, the collectives' ms a step), the expert-parallel MoE of
+   full-width deepseek-moe-16b at 3 layers on 2 x 2 (16 of 64 experts a
+   rank, 4 x 64 tokens, capacity factor 32: logits within 2e-3), a 2 x 2
+   train step of qwen2-1.5b at 4 layers (8 x 256, 2 microbatches, 2 steps:
+   losses within 1e-6 relative, averaged gradients within 1e-5 of each
+   leaf's max, parameters within 2 x lr) and the trained parameters saved
+   from their 2 x 2 blocks; two ranks — the restore onto 1 x 2 (blocks
+   exact, each rank holding only its own) and one more step, GPipe over
+   two stages (loss within 2e-4, gradients within 1e-4 of the sequential
+   ones), ``compress_psum`` over 20 rounds; each check's wall ms and each
+   rank's peak allocated bytes. The four ranks on one card measure
+   correctness, not multi-GPU speed. Phase 3 holds flash_decode's
+   log-sum-exp output (``return_lse``) against its plain version at the
+   headline shape and at phase 18's slices, and times the headline call
+   with and without it.
 
 ``--profile`` adds, after phase 5, where the time of one full-width qwen2
 request goes (prefill, eager decode, captured decode): wall time, device
@@ -693,6 +721,7 @@ def kernel_checks(quick: bool):
             record("flash_decode", "b=2 pos=700", dname, out,
                    flash_decode_ref(q, k, v, pos=700))
     decode_position_checks(record, randn, dtypes, quick)
+    decode_lse_checks(record, randn, dtypes, quick)
     head_dim_256_checks(record, randn, dtypes, quick)
     head_dim_80_checks(record, randn, dtypes, quick)
     moe_slice_checks(record, randn, dtypes, quick)
@@ -703,6 +732,71 @@ def kernel_checks(quick: bool):
     check(not bad, f"{len(bad)} kernel check(s) disagree with the plain "
                    f"version: {[(r['kernel'], r['case'], r['dtype']) for r in bad]}")
     return rows
+
+
+def decode_lse_checks(record, randn, dtypes, quick: bool):
+    """flash_decode's log-sum-exp output (``return_lse``) against its plain
+    version's: at the headline shape (qwen2-1.5b's 16 / 2 heads, D 128, S
+    1024, pos 511) and at phase 18's sequence slices (S / 4 = 256 rows at
+    their ``kv_pos`` offsets: the slice holding pos, one before it and one
+    wholly after it, whose LSE is NEG_INF's); the output beside it must be
+    the one without the LSE, bit for bit. In float32 the headline call is
+    timed with and without the output, in turns."""
+    import torch
+
+    from repro_torch.kernels.flash_attention.decode import (
+        flash_decode, flash_decode_ref,
+    )
+
+    s, pos = MAX_LEN, 511
+    for dname, dt in dtypes:
+        q = randn((1, HQ, HEAD_DIM), dt)
+        k = randn((1, HKV, s, HEAD_DIM), dt)
+        v = randn((1, HKV, s, HEAD_DIM), dt)
+        pos_t = dev_pos(pos)
+        out, lse = flash_decode(q, k, v, pos=pos_t, return_lse=True)
+        plain_out = flash_decode(q, k, v, pos=pos_t)
+        torch.cuda.synchronize()
+        check(torch.equal(out, plain_out), "flash_decode's output changed "
+              "with return_lse")
+        ref_out, ref_lse = flash_decode_ref(q, k, v, pos=pos, return_lse=True)
+        record("flash_decode", f"pos={pos} lse", dname, lse, ref_lse)
+        s_loc = s // 4
+        for i in ((1, 3) if quick else (0, 1, 2, 3)):
+            rows = slice(i * s_loc, (i + 1) * s_loc)
+            kv_pos = torch.arange(i * s_loc, (i + 1) * s_loc,
+                                  dtype=torch.int32, device="cuda")
+            kk, vv = k[:, :, rows].contiguous(), v[:, :, rows].contiguous()
+            o, ls = flash_decode(q, kk, vv, pos=pos_t, kv_pos=kv_pos,
+                                 return_lse=True)
+            torch.cuda.synchronize()
+            ro, rl = flash_decode_ref(q, kk, vv, pos=pos, kv_pos=kv_pos,
+                                      return_lse=True)
+            if i * s_loc > pos:        # no visible key: NEG_INF + log(count)
+                check(bool(torch.all(ls < -1e29)) and bool(
+                    torch.all(rl < -1e29)), f"slice {i}: LSE of no key "
+                    f"{float(ls.max())} / {float(rl.max())}")
+            else:
+                record("flash_decode", f"slice {i} of 4 pos={pos} lse",
+                       dname, ls, rl)
+                record("flash_decode", f"slice {i} of 4 pos={pos} out",
+                       dname, o, ro)
+        if not quick and dname == "float32":
+            copies = [(randn(q.shape, dt), randn(k.shape, dt),
+                       randn(v.shape, dt)) for _ in range(copies_for(
+                           (2 * q.numel() + 2 * HKV * (pos + 1) * HEAD_DIM)
+                           * q.element_size()))]
+            turns = []
+            for with_lse in (False, True, True, False):
+                turns.append(time_ms([
+                    lambda x=x, y=y, z=z: flash_decode(
+                        x, y, z, pos=pos_t, return_lse=with_lse)
+                    for x, y, z in copies]))
+            off = statistics.mean((turns[0], turns[3]))
+            on = statistics.mean((turns[1], turns[2]))
+            log(f"  flash_decode pos={pos} {dname}: {off:.4f} ms without the "
+                f"LSE output, {on:.4f} ms with it (turns "
+                f"{', '.join(f'{t:.4f}' for t in turns)})")
 
 
 def decode_position_checks(record, randn, dtypes, quick: bool):
@@ -2123,7 +2217,7 @@ def serve_counted(cfg, params, max_len: int, lengths, seed: int,
 
 def recurrent_phase(arch: str, max_len: int, lengths, seed: int,
                     prefill_kernels, decode_kernels, profile: bool,
-                    chunking=None):
+                    chunking=None, layers=None):
     """Phases 10 and 11: ``arch`` at full width (float32, random weights
     from seed 0) served through the captured engine
     (:func:`serve_counted`), one request's logits held against the plain
@@ -2131,12 +2225,14 @@ def recurrent_phase(arch: str, max_len: int, lengths, seed: int,
     decode ms a step at 1 and 4 slots, with ``chunking = (n, chunk)`` an
     ``n``-token prompt prefilled in chunks against the whole prefill
     (phase 12d), and with ``profile`` where one 600-token request's time
-    goes."""
+    goes. ``layers`` cuts the model to its first layers (full width)."""
     import torch
 
     from repro_torch import configs
 
     cfg = configs.get_arch(arch)
+    if layers:
+        cfg = _first_layers(cfg, layers)
     label = arch.split("-")[0]
     params, n_params = _init_full(cfg)
     out = serve_counted(cfg, params, max_len, lengths, seed,
@@ -4529,12 +4625,13 @@ TRAIN_PEAK_LR = 3e-4
 # twice and its plain backward once.
 TRAIN_STEP_LAUNCHES = {"matmul": 28 * 12, "flash_attention": 28 * 2,
                        "flash_attention_bwd_plain": 28}
-# 17d: the 100M example, 100 steps at 8 x 256 tokens (the example's loss
-# assertion needs 100), checkpoints every 25 (keep 2), a failure injected at
-# step 60, so the run restarts from step 50; the replayed steps' losses and
-# the final parameters must equal the uninterrupted run's bit for bit (a
-# step is deterministic and the checkpoint holds params, moments and step).
-EXAMPLE_STEPS, EXAMPLE_EVERY, EXAMPLE_FAIL_AT = 100, 25, 60
+# 17d: the 100M example, 60 steps at 8 x 256 tokens (cut from 100 so that
+# phase 18 fits the time limit; the loss must still fall by more than 1.0),
+# checkpoints every 20 (keep 2), a failure injected at step 45, so the run
+# restarts from step 40; the replayed steps' losses and the final
+# parameters must equal the uninterrupted run's bit for bit (a step is
+# deterministic and the checkpoint holds params, moments and step).
+EXAMPLE_STEPS, EXAMPLE_EVERY, EXAMPLE_FAIL_AT = 60, 20, 45
 EXAMPLE_RESTORED = EXAMPLE_FAIL_AT // EXAMPLE_EVERY * EXAMPLE_EVERY
 # 17e (a): each scan's gradients at its model's full width: mamba2-2.7b's
 # SSD (H 80, P 64, N 128, its float32 chunk 64) and recurrentgemma-9b's
@@ -5801,6 +5898,910 @@ def train_phase(profile: bool):
 
 
 # ---------------------------------------------------------------------------
+# Phase 18: the mesh runtime (DistContext, sharding rules, expert-parallel
+# MoE, sequence-sharded decode, GPipe, int8 gradients, elastic restore)
+# ---------------------------------------------------------------------------
+# Each check is held against the one-process path of the same run.
+MESH_DECODE_REL = 1e-3       # decode logits, of max |logit|
+MESH_MOE_TOL = 2e-3          # logits, absolute and relative (the reference's)
+MESH_LOSS_REL = 1e-6
+MESH_GRAD_REL = 1e-5         # of each leaf's max |gradient|
+MESH_PIPE_LOSS_REL = 2e-4
+MESH_PIPE_GRAD_REL = 1e-4
+MESH_COMPRESS_SCALES = 3.0   # running mean within 3 quantization scales
+# Full-width geometry of phase 18: qwen2-1.5b cut to 4 of its 28 layers
+# (18a too: each Trainer writes its final checkpoint, 19 GB at 28 layers,
+# and one call to the card may write 45 GiB in all), deepseek-moe-16b to 3
+# (layer 0 dense, two MoE layers).
+MESH_QWEN2_LAYERS = 4
+MESH_DEEPSEEK_LAYERS = 3
+
+
+def _np32(t):
+    return t.detach().float().cpu().numpy()
+
+
+def _flat(tree):
+    from repro_torch.checkpoint.manager import _flatten
+
+    return _flatten(tree)
+
+
+def _mesh_params(src, cfg, device):
+    """A check's parameters: ``{"path"}``, a tree ``torch.save`` wrote (the
+    CPU tests' parameters, converted from the JAX package's), or ``{"seed"}``
+    (random, made on the device; with ``"stages"`` stacked for the
+    pipeline)."""
+    import torch
+
+    from repro_torch.distributed import pipeline
+    from repro_torch.models import api
+    from repro_torch.optim.adamw import tree_map
+
+    if src.get("path"):
+        tree = torch.load(src["path"])
+        return tree_map(lambda t: t.to(device), tree)
+    if src.get("stages"):
+        # The model's own layers, stacked: init_pipeline_params draws with
+        # the reference's fan-in of the stacked shape (the stage count),
+        # weights so large at full width that the float32 gradients of
+        # stage 0 keep few digits (kernels and plain versions disagree).
+        return pipeline.stage_params(
+            api.init_params(cfg, src["seed"], device=device), src["stages"])
+    return api.init_params(cfg, src["seed"], device=device)
+
+
+def _mesh_tokens(seed: int, shape, vocab: int):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return rng.integers(2, vocab, size=shape).astype(np.int64)
+
+
+def _sync(device):
+    import torch
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _mesh_decode(rank, device, out_dir, state, *, cfg, mesh, batch,
+                 prompt_len, steps, max_len, params, token_seed,
+                 teacher=False):
+    """Sequence-sharded decode (``flags.set_perf(decode_sharded=True)``)
+    over this rank's rows, then the same rows unsharded."""
+    import numpy as np
+    import torch
+
+    from repro_torch.distributed import collectives
+    from repro_torch.distributed import sharding_rules as rules
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import api, flags
+
+    ctx = rules.make_context(make_local_mesh(*mesh, device=device))
+    p = _mesh_params(params, cfg, device)
+    toks = torch.from_numpy(rules.local_rows(_mesh_tokens(
+        token_seed, (batch, prompt_len + steps), cfg.vocab_size), ctx))
+    res = {}
+
+    def run(c, sharded):
+        flags.set_perf(decode_sharded=sharded)
+        logits, st = api.prefill(p, cfg, {"tokens": toks[:, :prompt_len]},
+                                 max_len, ctx=c)
+        outs, picked, step_s = [], [], []
+        before = build.LAUNCHES["flash_decode"]
+        for i in range(steps):
+            tok = (toks[:, prompt_len + i].to(logits.device) if teacher
+                   else logits[:, :cfg.vocab_size].argmax(-1))
+            picked.append(tok)
+            _sync(device)
+            t0 = time.perf_counter()
+            logits, st = api.decode_step(p, cfg, tok[:, None], st, ctx=c)
+            _sync(device)
+            step_s.append(time.perf_counter() - t0)
+            outs.append(logits)
+        return (torch.stack(outs), torch.stack(picked), st,
+                build.LAUNCHES["flash_decode"] - before, step_s)
+
+    coll = [0.0, 0]
+    real = collectives.all_reduce
+
+    def timed_all_reduce(x, op="sum", group=None):
+        _sync(device)
+        t0 = time.perf_counter()
+        y = real(x, op, group)
+        _sync(device)
+        coll[0] += time.perf_counter() - t0
+        coll[1] += 1
+        return y
+
+    try:
+        with torch.no_grad():
+            collectives.all_reduce = timed_all_reduce
+            try:
+                logits, picked, st, launches, step_s = run(ctx, True)
+            finally:
+                collectives.all_reduce = real
+                flags.set_perf(decode_sharded=False)
+            kv = [c for c in st if "k" in c]
+            res["sliced_layers"] = np.array(
+                sum("kv_pos" in c for c in kv))
+            res["s_loc"] = np.array(kv[0]["k"].shape[2])
+            res["logits"] = _np32(logits)
+            res["tokens"] = picked.cpu().numpy()
+            res["launches"] = np.array(launches)
+            res["collective_ms_step"] = np.array(coll[0] * 1e3 / steps)
+            res["collectives_step"] = np.array(coll[1] / steps)
+            res["step_ms"] = np.array(statistics.median(step_s) * 1e3)
+            del st
+            ref, ref_tok, st, _, _ = run(None, False)
+            res["ref_logits"] = _np32(ref)
+            res["ref_tokens"] = ref_tok.cpu().numpy()
+            del st
+    finally:
+        flags.set_perf(decode_sharded=False)
+    return res
+
+
+def _mesh_moe(rank, device, out_dir, state, *, cfg, mesh, batch, seq,
+              params, token_seed, single=True, keep=True):
+    """Expert-parallel MoE forward of this rank's rows against the local
+    all-experts forward of the same rows."""
+    import numpy as np
+    import torch
+
+    from repro_torch.distributed import sharding_rules as rules
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import transformer as T
+
+    ctx = rules.make_context(make_local_mesh(*mesh, device=device))
+    p = _mesh_params(params, cfg, device)
+    toks = torch.from_numpy(rules.local_rows(
+        _mesh_tokens(token_seed, (batch, seq), cfg.vocab_size), ctx)).to(
+        device)
+    res = {}
+    with torch.no_grad():
+        y = T.forward(p, cfg, toks, ctx=ctx).logits.float()
+        if single:
+            ref = T.forward(p, cfg, toks).logits.float()
+            res["err"] = np.array(float((y - ref).abs().max()))
+            res["bound"] = np.array(float(
+                (MESH_MOE_TOL + MESH_MOE_TOL * ref.abs()).min()))
+            res["ok"] = np.array(bool(torch.all(
+                (y - ref).abs() <= MESH_MOE_TOL + MESH_MOE_TOL * ref.abs())))
+            res["scale"] = np.array(float(ref.abs().max()))
+            if keep:
+                res["ref_logits"] = _np32(ref)
+        if keep:
+            res["logits"] = _np32(y)
+    return res
+
+
+def _train_batches(cfg, batch, seq, steps, seed):
+    from repro_torch.data.pipeline import DataConfig, make_batch
+
+    dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                    global_batch=batch, seed=seed)
+    return [make_batch(dc, s) for s in range(steps)]
+
+
+def _mesh_train(rank, device, out_dir, state, *, cfg, mesh, batch, seq,
+                microbatches, steps, lr, params, data_seed, single=True,
+                keep=False):
+    """``steps`` mesh train steps (this rank's rows, gradients averaged
+    over the batch axes) and, with ``single``, rank 0's one-process steps
+    on the global batch from the same parameters, held against them here
+    (the figures are written; with ``keep``, rank 0's arrays too: the
+    first step's gradients and the last parameters)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.distributed import collectives
+    from repro_torch.distributed import sharding_rules as rules
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.optim import adamw
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.train.step import make_train_step
+
+    ctx = rules.make_context(make_local_mesh(*mesh, device=device))
+    opt_cfg = adamw.AdamWConfig()
+
+    def lr_fn(step):
+        return torch.tensor(lr, dtype=torch.float32)
+
+    batches = _train_batches(cfg, batch, seq, steps, data_seed)
+    res = {}
+
+    def run(c, feed):
+        p = _mesh_params(params, cfg, device)
+        opt = adamw.init_state(p, opt_cfg)
+        step = make_train_step(cfg, opt_cfg, lr_fn, microbatches, ctx=c)
+        losses, times, grads = [], [], None
+        for i, b in enumerate(batches):
+            _sync(device)
+            t0 = time.perf_counter()
+            if i == 0:
+                # The step's two halves, to keep its averaged gradients.
+                m, g = step.grad_step(p, feed(b))
+                p, opt, _ = adamw.apply_updates(p, g, opt, opt_cfg,
+                                                lr_fn(opt["step"]))
+                grads = {k: _np32(v) for k, v in _flat(g).items()}
+                del g
+            else:
+                p, opt, m = step(p, opt, feed(b))
+            losses.append(float(m["loss"]))
+            times.append(time.perf_counter() - t0)
+        return p, grads, np.array(losses), times
+
+    p, grads, losses, times = run(ctx, lambda b: rules.local_batch(b, ctx))
+    res["losses"] = losses
+    res["step_ms"] = np.array(statistics.median(times) * 1e3)
+    # Every rank must hold the same parameters after the steps.
+    total = sum(float(t.double().abs().sum()) for t in tree_leaves(p))
+    sums = collectives.all_gather(
+        torch.tensor([total], dtype=torch.float64), 0)
+    res["param_abs_sums"] = sums.numpy()
+    state["trained"] = p
+    if rank == 0 and keep:
+        res.update({f"grads/{k}": v for k, v in grads.items()})
+        res.update({f"params/{k}": _np32(v) for k, v in _flat(p).items()})
+    if single and rank == 0:
+        q, g1, l1, _ = run(None, lambda b: b)
+        res["ref_losses"] = l1
+        res["loss_rel"] = np.array(float(np.abs(losses - l1).max()
+                                         / np.abs(l1).max()))
+        res["grad_rel"] = np.array(max(_grad_rel(grads[k], g1[k])
+                                       for k in g1))
+        mine = _flat(p)
+        res["param_diff"] = np.array(max(float((mine[k] - v).abs().max())
+                                         for k, v in _flat(q).items()))
+        del q, g1
+    del grads
+    return res
+
+
+def _mesh_save(rank, device, out_dir, state, *, cfg, mesh, step, ckpt):
+    """The trained parameters cut into this rank's blocks of the 2 x 2
+    mesh's shardings and saved (gathered whole, rank 0 writes); rank 0
+    holds what was written against the parameters it trained."""
+    import numpy as np
+
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.distributed import sharding_rules as rules
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import api
+    from repro_torch.optim.adamw import tree_leaves
+
+    m = make_local_mesh(*mesh, device=device)
+    p = state.pop("trained")
+    sh = rules.param_shardings(api.param_logical_axes(cfg), p, m)
+    blocks = rules.shard_tree(p, sh)
+    held = sum(t.numel() for t in tree_leaves(blocks))
+    whole = sum(t.numel() for t in tree_leaves(p))
+    cm = CheckpointManager(ckpt, async_save=False)
+    _sync(device)
+    t0 = time.perf_counter()
+    cm.save(step, {"params": blocks}, shardings={"params": sh},
+            write=rank == 0)
+    save_ms = (time.perf_counter() - t0) * 1e3
+    exact = True
+    if rank == 0:
+        # What was written is what the ranks trained, whole, exactly.
+        path = Path(ckpt) / f"step_{step:010d}" / "arrays.npz"
+        with np.load(path) as z:
+            exact = all(np.array_equal(z[f"params/{k}"], v.cpu().numpy())
+                        for k, v in _flat(p).items())
+    return {"held": np.array(held), "whole": np.array(whole),
+            "written_exact": np.array(exact), "save_ms": np.array(save_ms)}
+
+
+def _meta_params(cfg):
+    import torch
+
+    from repro_torch.models import api
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import ParamDef
+
+    def walk(d):
+        if isinstance(d, ParamDef):
+            return torch.empty(d.shape, dtype=torch.float32, device="meta")
+        if isinstance(d, dict):
+            return {k: walk(v) for k, v in d.items()}
+        return [walk(v) for v in d]
+    assert not api.is_encdec(cfg)
+    return walk(T.model_defs(cfg))
+
+
+def _mesh_restore(rank, device, out_dir, state, *, cfg, mesh, batch, seq,
+                  microbatches, lr, data_seed, ckpt):
+    """Elastic restore: the 2 x 2 mesh's checkpoint onto this mesh's
+    shardings (each rank its blocks, equal to the saved arrays exactly),
+    then one more train step on this mesh."""
+    import numpy as np
+    import torch
+
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.distributed import sharding_rules as rules
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import api
+    from repro_torch.optim import adamw
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.train.step import make_train_step
+
+    m = make_local_mesh(*mesh, device=device)
+    ctx = rules.make_context(m)
+    template = _meta_params(cfg)
+    sh = rules.param_shardings(api.param_logical_axes(cfg), template, m)
+    cm = CheckpointManager(ckpt)
+    _sync(device)
+    t0 = time.perf_counter()
+    tree = cm.restore({"params": template}, shardings={"params": sh},
+                      device=device)["params"]
+    _sync(device)
+    restore_ms = (time.perf_counter() - t0) * 1e3
+    # Each block against the saved whole array (which the save checked
+    # against the trained parameters).
+    got, shs = _flat(tree), _flat(sh)
+    with np.load(Path(ckpt) / f"step_{cm.latest_step():010d}" /
+                 "arrays.npz") as z:
+        want = {k: torch.from_numpy(z[f"params/{k}"]) for k in got}
+    exact = all(torch.equal(got[k].cpu(), shs[k].local_block(want[k]))
+                for k in want)
+    shaped = all(tuple(got[k].shape) == shs[k].shard_shape(want[k].shape)
+                 for k in want)
+    held = sum(t.numel() for t in tree_leaves(tree))
+    whole = sum(t.numel() for t in want.values())
+    del want
+    params = rules.unshard_tree(tree, sh)
+    del tree
+    opt_cfg = adamw.AdamWConfig()
+    opt = adamw.init_state(params, opt_cfg)
+    step = make_train_step(cfg, opt_cfg,
+                           lambda s: torch.tensor(lr, dtype=torch.float32),
+                           microbatches, ctx=ctx)
+    b = _train_batches(cfg, batch, seq, 1, data_seed + 1)[0]
+    before = [t.clone() for t in tree_leaves(params)]
+    params, opt, metrics = step(params, opt, rules.local_batch(b, ctx))
+    moved = sum(float((a - t).abs().sum())
+                for a, t in zip(before, tree_leaves(params)))
+    return {"exact": np.array(exact), "shaped": np.array(shaped),
+            "held": np.array(held), "whole": np.array(whole),
+            "loss": np.array(float(metrics["loss"])),
+            "moved": np.array(moved), "restore_ms": np.array(restore_ms)}
+
+
+def _mesh_gpipe(rank, device, out_dir, state, *, cfg, n_stages,
+                microbatches, batch, seq, params, token_seed, keep=False):
+    """The GPipe loss and its gradients on this rank's stage (its block of
+    the stacked layers), held here against the sequential loss and
+    gradients of the whole parameters (each rank its stage's and the
+    replicated leaves'); with ``keep`` the gradients are written too."""
+    import numpy as np
+    import torch
+
+    from repro_torch.distributed import pipeline
+    from repro_torch.distributed import sharding_rules as rules
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.optim.adamw import tree_leaves, tree_map
+
+    m = make_mesh((n_stages,), ("pod",), device=device)
+    whole = _mesh_params(dict(params, stages=n_stages), cfg, device)
+    local = rules.shard_tree(whole, pipeline.pipeline_shardings(whole, m))
+    tok = torch.from_numpy(_mesh_tokens(token_seed, (batch, seq),
+                                        cfg.vocab_size)).to(device)
+    loss_fn = pipeline.make_pipeline_loss(cfg, m, n_stages, microbatches)
+    res = {}
+
+    def grads_of(fn, tree):
+        live = tree_map(lambda t: t.detach().requires_grad_(True), tree)
+        loss = fn(live)
+        g = torch.autograd.grad(loss, tree_leaves(live))
+        it = iter(g)
+        return float(loss.detach()), tree_map(lambda _: next(it), tree)
+
+    _sync(device)
+    t0 = time.perf_counter()
+    loss, g = grads_of(lambda t: loss_fn(t, tok, tok), local)
+    _sync(device)
+    res["ms"] = np.array((time.perf_counter() - t0) * 1e3)
+    res["loss"] = np.array(loss)
+    ref, rg = grads_of(lambda t: pipeline.sequential_reference_loss(
+        cfg, t, tok, tok), whole)
+    res["ref_loss"] = np.array(ref)
+    got, want = _flat(g), _flat(rg)
+    errs = []
+    for k, v in got.items():
+        w = want[k][rank:rank + 1] if k.startswith("stages/") else want[k]
+        errs.append((_grad_rel(_np32(v), _np32(w)), k))
+        if not bool(v.abs().max() > 0):
+            errs.append((float("inf"), f"{k} (all zeros)"))
+    errs.sort(reverse=True)
+    res["grad_rel"] = np.array(errs[0][0])
+    res["worst"] = np.array([f"{e:.2e} {k}" for e, k in errs[:6]])
+    if keep:
+        res.update({f"grads/{k}": _np32(v) for k, v in got.items()})
+    return res
+
+
+def _mesh_compress(rank, device, out_dir, state, *, shape, rounds, seed):
+    """``compress_psum`` over the group: one round of different gradients
+    against the reference's formula in numpy, then ``rounds`` rounds of one
+    gradient whose error feedback keeps the running mean near the true."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.optim import compression
+
+    n = dist.get_world_size()
+
+    def grad(r):
+        rng = np.random.default_rng(seed + r)
+        return (rng.standard_normal(shape) * 1e-3).astype(np.float32)
+
+    g = torch.from_numpy(grad(rank)).to(device)
+    out, _ = compression.compress_psum({"w": g},
+                                       compression.init_error({"w": g}))
+    # The reference's order of operations on every rank's gradient, float32.
+    qs, scales = [], []
+    for r in range(n):
+        x = grad(r)
+        s = np.float32(np.abs(x).max()) / np.float32(127.0) + \
+            np.float32(1e-12)
+        qs.append(np.clip(np.round(x / s), -127, 127).astype(np.int32))
+        scales.append(s)
+    ssum = np.float32(sum(scales))
+    want = (sum(qs).astype(np.float32) * (ssum / np.float32(n))) / \
+        np.float32(n)
+    one_err = float(np.abs(_np32(out["w"]) - want).max())
+    step = float(ssum / n / n)
+    # Error feedback over rounds, one gradient on every rank.
+    g0 = torch.from_numpy(grad(0)).to(device)
+    err = compression.init_error({"w": g0})
+    tot_true = np.zeros(shape)
+    tot_deq = np.zeros(shape)
+    for _ in range(rounds):
+        o, err = compression.compress_psum({"w": g0}, err)
+        tot_true += grad(0)
+        tot_deq += _np32(o["w"])
+    scale = float(np.abs(grad(0)).max() / 127.0)
+    return {"one_round_err": np.array(one_err), "one_round_step":
+            np.array(step), "drift": np.array(float(
+                np.abs(tot_true - tot_deq).max())),
+            "scale": np.array(scale)}
+
+
+def _mesh_trainer(rank, device, out_dir, state, *, cfg, mesh, steps, batch,
+                  seq, fail_at, ckpt):
+    """``Trainer.run`` on a mesh, one Trainer a rank, with an injected
+    failure: its losses, restarts and parameters, and the checkpoints
+    written (rank 0 alone writes)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    tcfg = TrainerConfig(steps=steps, checkpoint_every=5,
+                         checkpoint_dir=ckpt, peak_lr=1e-3, warmup_steps=2,
+                         log_every=10 ** 6)
+    t = Trainer(cfg, DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                                global_batch=batch), tcfg,
+                mesh=make_local_mesh(*mesh, device=device), device=device)
+    out = t.run(fail_at=fail_at)
+    flat = torch.cat([p.detach().float().reshape(-1).cpu()
+                      for p in _leaves(out["params"])])
+    return {"losses": np.array(out["losses"]),
+            "restarts": np.array(out["restarts"]),
+            "params": flat.numpy(),
+            "steps_written": np.array(t.ckpt.all_steps())}
+
+
+MESH_CHECKS = {"decode": _mesh_decode, "moe": _mesh_moe,
+               "train": _mesh_train, "save": _mesh_save,
+               "restore": _mesh_restore, "gpipe": _mesh_gpipe,
+               "compress": _mesh_compress, "trainer": _mesh_trainer}
+
+
+def mesh_rank_program(rank: int, world: int, plan):
+    """One rank of a phase-18 group: each check of ``plan["checks"]`` in
+    order (``(name, tag, kwargs)``), its arrays written to ``<out>/<tag>.
+    rank<r>.npz`` with its wall ms and the rank's peak allocated bytes.
+    Then, with ``plan["then"] = (world2, checks2)``, the group is left and
+    its first ``world2`` ranks form a new one (a ``FileStore`` beside the
+    outputs) for ``checks2``; the others are done."""
+    import torch
+
+    if str(SRC) not in sys.path:
+        sys.path.insert(0, str(SRC))
+    device = plan["device"]
+    if torch.device(device).type == "cpu":
+        torch.set_num_threads(1)
+    else:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    state = {}
+    _run_checks(rank, plan["checks"], device, plan["out"], state)
+    if plan.get("then"):
+        import torch.distributed as dist
+
+        from repro_torch.distributed.process_group import init_process_group
+
+        world2, checks2 = plan["then"]
+        dist.barrier()
+        backend = dist.get_backend()
+        dist.destroy_process_group()
+        if rank < world2:
+            init_process_group(backend, rank, world2,
+                               Path(plan["out"]) / "store2", device=device)
+            _run_checks(rank, checks2, device, plan["out"], state)
+
+
+def _run_checks(rank, checks, device, out, state):
+    import numpy as np
+    import torch
+
+    for name, tag, kw in checks:
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = MESH_CHECKS[name](rank, device, out, state, **kw)
+        _sync(device)
+        res["wall_ms"] = np.array((time.perf_counter() - t0) * 1e3)
+        res["peak_bytes"] = np.array(
+            torch.cuda.max_memory_allocated()
+            if torch.device(device).type == "cuda" else 0)
+        np.savez(Path(out) / f"{tag}.rank{rank}.npz", **res)
+        del res
+        if torch.device(device).type == "cuda":
+            import gc
+
+            gc.collect()
+            torch.cuda.empty_cache()
+
+
+def run_mesh_group(world: int, checks, out_dir, device: str,
+                   timeout_s: float = 600.0, then=None):
+    """Run ``checks`` on ``world`` new gloo ranks (``mesh_rank_program``), then
+    ``then = (world2, checks2)`` on the first ``world2`` of them, and read
+    back each check's arrays: ``{tag: [rank 0's, rank 1's, ...]}``."""
+    import numpy as np
+
+    if str(SRC) not in sys.path:
+        sys.path.insert(0, str(SRC))
+    from repro_torch.distributed.process_group import run_ranks
+
+    out_dir = Path(out_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    run_ranks(mesh_rank_program, world, out_dir, backend="gloo",
+              args=({"device": device, "out": str(out_dir),
+                     "checks": list(checks), "then": then},),
+              timeout_s=timeout_s, device=device)
+    got = {}
+    for w, group in [(world, checks)] + ([then] if then else []):
+        for _, tag, _ in group:
+            got[tag] = []
+            for r in range(w):
+                with np.load(out_dir / f"{tag}.rank{r}.npz") as z:
+                    got[tag].append({k: z[k] for k in z.files})
+    return got
+
+
+def _rank_line(label, ranks) -> str:
+    walls = ", ".join(f"{float(r['wall_ms']):.0f}" for r in ranks)
+    peaks = ", ".join(f"{float(r['peak_bytes']) / 1e9:.2f}" for r in ranks)
+    return f"  {label}: wall ms by rank [{walls}], peak GB by rank [{peaks}]"
+
+
+def _grad_rel(got, want) -> float:
+    import numpy as np
+
+    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
+
+
+def mesh_verdicts(res, lr: float):
+    """Hold phase 18 (b)'s results (``run_mesh_group``'s, both groups)
+    against the one-process paths computed in the same ranks; returns the
+    figures it printed. Raises on the first check that fails."""
+    import numpy as np
+
+    out = {}
+    if "decode" in res:
+        ranks = res["decode"]
+        for r, d in enumerate(ranks):
+            check(np.array_equal(d["tokens"], d["ref_tokens"]),
+                  f"sharded decode tokens differ on rank {r}: "
+                  f"{d['tokens'].ravel().tolist()} vs "
+                  f"{d['ref_tokens'].ravel().tolist()}")
+            err = float(np.abs(d["logits"] - d["ref_logits"]).max())
+            scale = float(np.abs(d["ref_logits"]).max())
+            check(err <= MESH_DECODE_REL * scale,
+                  f"sharded decode logits off by {err:.3e} on rank {r} "
+                  f"(max |logit| {scale:.3e})")
+            check(int(d["sliced_layers"]) > 0,
+                  f"rank {r} kept no sequence slice")
+        d0 = ranks[0]
+        out["decode"] = dict(
+            err=max(float(np.abs(d["logits"] - d["ref_logits"]).max())
+                    for d in ranks),
+            launches=[int(d["launches"]) for d in ranks],
+            s_loc=int(d0["s_loc"]),
+            collective_ms_step=[float(d["collective_ms_step"])
+                                for d in ranks],
+            step_ms=[float(d["step_ms"]) for d in ranks],
+            wall_ms=[float(d["wall_ms"]) for d in ranks],
+            peak_bytes=[int(d["peak_bytes"]) for d in ranks])
+        log(f"  sharded decode: tokens equal on {len(ranks)} ranks, logits "
+            f"within {out['decode']['err']:.3e}, flash_decode launches by "
+            f"rank {out['decode']['launches']}, slice {d0['s_loc']} rows, "
+            f"collectives {float(d0['collectives_step']):.0f} a step taking "
+            f"{out['decode']['collective_ms_step']} ms, step ms "
+            f"{out['decode']['step_ms']}")
+        log(_rank_line("decode", ranks))
+    if "moe" in res:
+        ranks = res["moe"]
+        for r, d in enumerate(ranks):
+            check(bool(d["ok"]), f"EP MoE logits off by {float(d['err']):.3e}"
+                  f" on rank {r}")
+        out["moe"] = dict(err=max(float(d["err"]) for d in ranks),
+                          wall_ms=[float(d["wall_ms"]) for d in ranks],
+                          peak_bytes=[int(d["peak_bytes"]) for d in ranks])
+        log(f"  EP MoE: logits within {out['moe']['err']:.3e} of the local "
+            f"all-experts forward (max |logit| "
+            f"{max(float(d['scale']) for d in ranks):.3e})")
+        log(_rank_line("moe", ranks))
+    if "train" in res:
+        ranks = res["train"]
+        d = ranks[0]
+        sums = d["param_abs_sums"]
+        check(np.all(sums == sums[0]), f"ranks' parameters differ: {sums}")
+        lrel, grel = float(d["loss_rel"]), float(d["grad_rel"])
+        pdiff = float(d["param_diff"])
+        check(lrel <= MESH_LOSS_REL, f"mesh train losses {d['losses']} vs "
+              f"{d['ref_losses']} (relative {lrel:.3e})")
+        check(grel <= MESH_GRAD_REL, f"mesh gradients off by {grel:.3e} of "
+              "a leaf's max")
+        check(pdiff <= 2 * lr, f"mesh parameters off by {pdiff:.3e} "
+              f"(2 x lr = {2 * lr:.1e})")
+        out["train"] = dict(losses=d["losses"].tolist(),
+                            ref_losses=d["ref_losses"].tolist(),
+                            loss_rel=lrel, grad_rel=grel, param_diff=pdiff,
+                            step_ms=[float(r["step_ms"]) for r in ranks],
+                            wall_ms=[float(r["wall_ms"]) for r in ranks],
+                            peak_bytes=[int(r["peak_bytes"]) for r in ranks])
+        log(f"  mesh train: losses {d['losses'].tolist()} vs one process "
+            f"{d['ref_losses'].tolist()} (relative {lrel:.3e}), gradients "
+            f"within {grel:.3e} of a leaf's max, parameters within "
+            f"{pdiff:.3e}, step ms {out['train']['step_ms']}")
+        log(_rank_line("train", ranks))
+    if "restore" in res:
+        ranks = res["restore"]
+        saved = res["save"]
+        check(bool(saved[0]["written_exact"]), "the checkpoint written from "
+              "the 2 x 2 blocks is not the trained parameters")
+        for r, d in enumerate(ranks):
+            check(bool(d["exact"]) and bool(d["shaped"]),
+                  f"rank {r}'s restored blocks are not the saved arrays' "
+                  "blocks")
+            check(np.isfinite(float(d["loss"])) and float(d["moved"]) > 0,
+                  f"the step after the restore failed on rank {r}")
+        out["elastic"] = dict(
+            held_fraction_saved=[float(s["held"]) / float(s["whole"])
+                                 for s in saved],
+            held_fraction_restored=[float(d["held"]) / float(d["whole"])
+                                    for d in ranks],
+            loss=float(ranks[0]["loss"]),
+            save_ms=[float(s["save_ms"]) for s in saved],
+            restore_ms=[float(d["restore_ms"]) for d in ranks],
+            save_wall_ms=[float(s["wall_ms"]) for s in saved],
+            wall_ms=[float(d["wall_ms"]) for d in ranks],
+            peak_bytes=[int(d["peak_bytes"]) for d in ranks])
+        check(all(f < 1.0 for f in out["elastic"]["held_fraction_restored"]),
+              "a restored rank holds the whole parameters")
+        log(f"  elastic restore: blocks exact on {len(ranks)} ranks, each "
+            f"holding {out['elastic']['held_fraction_restored']} of the "
+            f"parameters (saved from blocks of "
+            f"{out['elastic']['held_fraction_saved']}); one more step, loss "
+            f"{out['elastic']['loss']:.6f}; save ms by rank "
+            f"{[round(x) for x in out['elastic']['save_ms']]}, restore ms "
+            f"{[round(x) for x in out['elastic']['restore_ms']]}")
+        log(_rank_line("save", saved))
+        log(_rank_line("restore", ranks))
+    if "gpipe" in res:
+        ranks = res["gpipe"]
+        d0 = ranks[0]
+        ref = float(d0["ref_loss"])
+        for r, d in enumerate(ranks):
+            rel = abs(float(d["loss"]) - ref) / abs(ref)
+            check(rel <= MESH_PIPE_LOSS_REL, f"GPipe loss {float(d['loss'])}"
+                  f" vs sequential {ref} on rank {r}")
+            check(float(d["grad_rel"]) <= MESH_PIPE_GRAD_REL,
+                  f"GPipe gradients on rank {r} off the sequential ones "
+                  f"(error of a leaf's max, leaf): {d['worst'].tolist()}")
+        worst = max(float(d["grad_rel"]) for d in ranks)
+        out["gpipe"] = dict(loss=float(d0["loss"]), ref_loss=ref,
+                            grad_rel=worst,
+                            ms=[float(d["ms"]) for d in ranks],
+                            wall_ms=[float(d["wall_ms"]) for d in ranks],
+                            peak_bytes=[int(d["peak_bytes"]) for d in ranks])
+        log(f"  GPipe: loss {float(d0['loss']):.6f} vs sequential {ref:.6f}, "
+            f"gradients within {worst:.3e} of a leaf's max, loss+backward ms "
+            f"{out['gpipe']['ms']}")
+        log(_rank_line("gpipe", ranks))
+    if "compress" in res:
+        ranks = res["compress"]
+        for r, d in enumerate(ranks):
+            check(float(d["one_round_err"]) <= float(d["one_round_step"]),
+                  f"compress_psum off the reference's formula by "
+                  f"{float(d['one_round_err']):.3e} on rank {r}")
+            check(float(d["drift"]) <= MESH_COMPRESS_SCALES
+                  * float(d["scale"]), f"error feedback drifted "
+                  f"{float(d['drift']):.3e} (scale {float(d['scale']):.3e})")
+        d = ranks[0]
+        out["compress"] = dict(one_round_err=float(d["one_round_err"]),
+                               drift=float(d["drift"]),
+                               scale=float(d["scale"]),
+                               wall_ms=[float(r["wall_ms"]) for r in ranks])
+        log(f"  compress_psum: one round within {float(d['one_round_err']):.3e}"
+            f" of the reference's formula, 20-round drift "
+            f"{float(d['drift']):.3e} against a scale of "
+            f"{float(d['scale']):.3e}")
+        log(_rank_line("compress", ranks))
+    return out
+
+
+def mesh_nccl_trainer(tmp_dir: Path, cfg):
+    """Phase 18 (a): ``Trainer(mesh=make_local_mesh(1, 1))`` over a
+    one-rank NCCL group against the mesh-less Trainer, ``cfg`` at full
+    width, 3 steps of the train batch, the same seed and data: losses and
+    final parameters."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.distributed.process_group import init_process_group
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    device, backend = "cuda", "nccl"
+    data_cfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                          global_batch=TRAIN_BATCH)
+
+    def run(name, mesh):
+        tcfg = TrainerConfig(steps=3, checkpoint_every=10 ** 6,
+                             checkpoint_dir=str(tmp_dir / name),
+                             log_every=10 ** 6, warmup_steps=1, keep=1)
+        _sync(device)
+        t0 = time.perf_counter()
+        trainer = Trainer(cfg, data_cfg, tcfg, mesh=mesh, device=device)
+        saving = [0.0]
+        save, wait = trainer.ckpt.save, trainer.ckpt.wait
+
+        def timed(fn):
+            def call(*a, **kw):
+                t = time.perf_counter()
+                try:
+                    return fn(*a, **kw)
+                finally:
+                    saving[0] += time.perf_counter() - t
+            return call
+
+        trainer.ckpt.save, trainer.ckpt.wait = timed(save), timed(wait)
+        out = trainer.run()
+        _sync(device)
+        wall = time.perf_counter() - t0
+        log(f"  {name}: {wall:.1f} s, of which {saving[0]:.1f} s saving the "
+            "final checkpoint")
+        host = [t.detach().cpu() for t in _leaves(out["params"])]
+        peak = torch.cuda.max_memory_allocated()
+        del out["params"]
+        _release()
+        return out["losses"], host, wall, peak
+
+    losses0, p0, wall0, peak0 = run("plain", None)
+    init_process_group(backend, 0, 1, tmp_dir / f"{backend}_store",
+                       device=device)
+    try:
+        mesh = make_local_mesh(1, 1, device=device)
+        check(dist.get_backend() == backend, f"the group is not {backend}")
+        losses1, p1, wall1, peak1 = run("mesh", mesh)
+    finally:
+        dist.destroy_process_group()
+    diff = max(float((a - b).abs().max()) for a, b in zip(p0, p1))
+    same = losses0 == losses1 and diff == 0.0
+    log(f"  {backend} 1 x 1 mesh Trainer: losses {losses1} vs mesh-less "
+        f"{losses0}; max parameter difference {diff:.3e} "
+        f"({'bit for bit' if same else 'NOT bit for bit'}); wall s "
+        f"{wall1:.1f} vs {wall0:.1f}; peak GB {peak1 / 1e9:.2f} vs "
+        f"{peak0 / 1e9:.2f}")
+    check(same, f"the {backend} mesh Trainer differs from the mesh-less one:"
+          f" losses {losses1} vs {losses0}, parameters by {diff:.3e}")
+    return dict(losses=losses1, plain_losses=losses0, param_diff=diff,
+                wall_s=wall1, plain_wall_s=wall0, peak_bytes=peak1)
+
+
+def _first_layers(cfg, n: int):
+    """``cfg`` cut to its first ``n`` layers (full width)."""
+    import dataclasses
+
+    return dataclasses.replace(
+        cfg, n_layers=n, layer_pattern=cfg.layer_pattern[:n]
+        if cfg.layer_pattern else cfg.layer_pattern).validate()
+
+
+def mesh_phase():
+    """Phase 18: (a) the NCCL Trainer, (b) four gloo ranks on the card at
+    full width, then two of them."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    from repro_torch import configs
+
+    out = {}
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_mesh_"))
+    try:
+        _release()
+        qwen2 = _first_layers(configs.get_arch("qwen2-1.5b"),
+                              MESH_QWEN2_LAYERS)
+        log("== 18a: Trainer(mesh=make_local_mesh(1, 1)) over a one-rank "
+            f"NCCL group, full-width qwen2-1.5b at {MESH_QWEN2_LAYERS} "
+            f"layers, 3 steps of {TRAIN_BATCH} x {TRAIN_SEQ}, against the "
+            "mesh-less Trainer")
+        t0 = time.perf_counter()
+        out["nccl"] = mesh_nccl_trainer(tmp, qwen2)
+        log(f"  [18a: {time.perf_counter() - t0:.1f} s]")
+        _release()
+        ds = _first_layers(configs.get_arch("deepseek-moe-16b"),
+                           MESH_DEEPSEEK_LAYERS)
+        deepseek = dataclasses.replace(
+            ds, moe=dataclasses.replace(ds.moe, capacity_factor=32.0))
+        lr = 1e-3
+        four = dict(
+            decode=dict(mesh=(1, 4), batch=1, prompt_len=511, steps=8,
+                        max_len=1024, params={"seed": 0}, token_seed=11),
+            moe=dict(mesh=(2, 2), batch=4, seq=64, params={"seed": 0},
+                     token_seed=12, keep=False),
+            train=dict(mesh=(2, 2), batch=8, seq=256, microbatches=2,
+                       steps=2, params={"seed": 0}, data_seed=13))
+        two = dict(
+            restore=dict(mesh=(1, 2), batch=8, seq=256, microbatches=2,
+                         data_seed=13),
+            gpipe=dict(n_stages=2, microbatches=2, batch=4, seq=256,
+                       params={"seed": 0}, token_seed=14),
+            compress=dict(shape=(1536, 1536), rounds=20, seed=15))
+        ckpt = str(tmp / "elastic")
+        g4 = [("decode", "decode", dict(cfg=qwen2, **four["decode"])),
+              ("moe", "moe", dict(cfg=deepseek, **four["moe"])),
+              ("train", "train", dict(cfg=qwen2, lr=lr, **four["train"])),
+              ("save", "save", dict(cfg=qwen2, mesh=four["train"]["mesh"],
+                                    step=1, ckpt=ckpt))]
+        g2 = [("restore", "restore", dict(cfg=qwen2, lr=lr, ckpt=ckpt,
+                                          **two["restore"])),
+              ("gpipe", "gpipe", dict(cfg=qwen2, **two["gpipe"])),
+              ("compress", "compress", dict(**two["compress"]))]
+        log("== 18b: four gloo ranks on cuda:0 — sequence-sharded decode "
+            "(qwen2-1.5b, 4 layers, 1 x 4), EP MoE (deepseek-moe-16b, 3 "
+            "layers, 2 x 2), mesh train step (qwen2-1.5b, 4 layers, 2 x 2), "
+            "the sharded save; then two of them — elastic restore onto 1 x "
+            "2 and one step, GPipe over two stages, compress_psum")
+        t0 = time.perf_counter()
+        res = run_mesh_group(4, g4, tmp / "ranks", "cuda", then=(2, g2))
+        log(f"  [18b ranks: {time.perf_counter() - t0:.1f} s]")
+        out["checks"] = mesh_verdicts(res, lr)
+        want = MESH_QWEN2_LAYERS * four["decode"]["steps"]
+        got = out["checks"]["decode"]["launches"]
+        check(all(n == want for n in got), f"the sharded decode launched "
+              f"flash_decode {got} times by rank; {want} expected")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 KERNEL_META = {
     "matmul": dict(
@@ -5839,6 +6840,9 @@ PLAN_KERNELS = ("bilinear", "ssd", "rglru")
 # four slots (a slot serves a second); and recurrentgemma's 2048-slot
 # rings wrapped at prefill (2100) and while decoding (2040).
 MAMBA2_LENGTHS = (16, 64, 100, 257, 600, 1000)
+# Phase 10 serves mamba2-2.7b at 32 of its 64 layers (full width): cut so
+# that phase 18 fits the run's time (17e trains it at all 64).
+MAMBA2_SERVE_LAYERS = 32
 RECURRENTGEMMA_LENGTHS = (2100, 2040, 64, 500)
 
 
@@ -6035,13 +7039,14 @@ def main(argv=None) -> int:
                       f"kernel {name} was never launched by the plan compile")
 
             # 10. Full-width mamba2-2.7b.
-            log("== serve full-width mamba2-2.7b (64 layers, float32; SSD "
-                "states)")
+            log(f"== serve full-width mamba2-2.7b ({MAMBA2_SERVE_LAYERS} of "
+                "its 64 layers, float32; SSD states)")
             t0 = time.perf_counter()
             result["mamba2"] = recurrent_phase(
                 "mamba2-2.7b", 1024, MAMBA2_LENGTHS, seed=7,
                 prefill_kernels=("ssd",), decode_kernels=("ssd",),
-                profile=args.profile, chunking=(1000, 256))
+                profile=args.profile, chunking=(1000, 256),
+                layers=MAMBA2_SERVE_LAYERS)
             phase_done("mamba2", t0)
 
             # 11. Full-width recurrentgemma-9b.
@@ -6104,6 +7109,13 @@ def main(argv=None) -> int:
             result["train"] = train_phase(args.profile)
             phase_done("17 train", t0)
 
+            # 18. The mesh runtime (last: its ranks share the card).
+            log("== 18: the mesh runtime — a one-rank NCCL Trainer, then "
+                "four and two gloo ranks on cuda:0")
+            t0 = time.perf_counter()
+            result["mesh"] = mesh_phase()
+            phase_done("18 mesh", t0)
+
             check("jax" not in sys.modules, "jax was imported")
             check(not any(m == "repro" or m.startswith("repro.")
                           for m in sys.modules), "the JAX package was imported")
@@ -6132,6 +7144,9 @@ def main(argv=None) -> int:
             by_path["rglru"] = {
                 "recurrentgemma serve (phase 11)": launches["rglru"],
                 "train": recurrent["recurrentgemma"]["steps"]["launches"]}
+            # Phase 18 (b)'s sequence-sharded decode, on each of its ranks.
+            by_path["flash_decode"]["sharded decode (phase 18b), by rank"] = \
+                result["mesh"]["checks"]["decode"]["launches"]
             line = kernels_line(rows, launches, by_path)
             result["kernels"] = line["kernels"]
         result["seconds"] = time.perf_counter() - t_start

@@ -12,12 +12,21 @@ package restores what the other saved.
 * Keys flatten the tree as the reference does: dict keys sorted, list and
   tuple indices, joined by ``/``.
 
-``restore(template, step=None, device=None)`` takes the place of the
-reference's ``shardings``: each leaf comes back as a tensor of its template
-leaf's dtype, on ``device`` (default: the template leaf's device). numpy has
-no bfloat16 on the card's machine, so a bfloat16 tensor is saved as float32
-(exact) and cast back to the template's dtype on restore. Resharding onto
-another mesh comes with the distributed layers.
+``restore(template, step=None, device=None, shardings=None)``: each leaf
+comes back as a tensor of its template leaf's dtype, on ``device``
+(default: the template leaf's device). numpy has no bfloat16 on the card's
+machine, so a bfloat16 tensor is saved as float32 (exact) and cast back to
+the template's dtype on restore.
+
+On a mesh (``distributed/sharding_rules.py``): ``save(..., shardings=)``
+takes a tree of this rank's blocks, gathers each leaf whole (a collective:
+every rank of the mesh calls it) and writes whole arrays, so the layout on
+disk stays the one both packages read; ``restore(template, shardings=)``
+(the template's leaves whole-shaped, ``meta`` tensors will do) gives each
+rank its blocks under another mesh's shardings (elastic restore), cutting
+each array as it is read, so a rank holds one whole array at a time. The
+caller says which rank writes (``save(..., write=False)`` on the others,
+which return once the gather is done).
 """
 from __future__ import annotations
 
@@ -77,9 +86,18 @@ class CheckpointManager:
         os.makedirs(directory, exist_ok=True)
 
     # -- save ---------------------------------------------------------------
-    def save(self, step: int, tree: Any, extra: Optional[Dict] = None):
-        """Snapshot ``tree`` at ``step``. Returns once the tensors are on the
-        host if async."""
+    def save(self, step: int, tree: Any, extra: Optional[Dict] = None,
+             shardings: Any = None, write: bool = True):
+        """Snapshot ``tree`` at ``step`` (with ``shardings``, a tree of this
+        rank's blocks, gathered whole first). Returns once the tensors are
+        on the host if async. ``write=False``: only the gather, for the
+        ranks of a mesh that do not write."""
+        if shardings is not None:
+            from repro_torch.distributed.sharding_rules import unshard_tree
+
+            tree = unshard_tree(tree, shardings)
+        if not write:
+            return
         self.wait()  # at most one in-flight save
         host_flat = {k: _to_host(v) for k, v in _flatten(tree).items()}
         if self.async_save:
@@ -129,22 +147,30 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     def restore(self, template: Any, step: Optional[int] = None,
-                device=None) -> Any:
+                device=None, shardings: Any = None) -> Any:
         """Load into the structure of ``template``: tensors of each template
-        leaf's dtype on ``device`` (default: the template leaf's)."""
+        leaf's dtype on ``device`` (default: the template leaf's). With
+        ``shardings`` (a tree of ``sharding_rules.NamedSharding`` matching
+        ``template``), each leaf is this rank's block of the saved array."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.dir}")
         path = os.path.join(self.dir, f"step_{step:010d}", "arrays.npz")
+        # With shardings, each array is cut to this rank's block (a copy)
+        # as it is read, on the host: only the block is kept, and only it
+        # reaches the device.
+        cut = _flatten(shardings) if shardings is not None else {}
         with np.load(path) as z:
-            flat = {k: z[k] for k in z.files}
+            flat = {k: cut[k].local_block(torch.from_numpy(z[k]))
+                    if k in cut else z[k] for k in z.files}
 
         def leaf(t, arr):
             if not isinstance(t, torch.Tensor):
                 return arr
-            return torch.from_numpy(np.array(arr)).to(
-                device=device if device is not None else t.device,
-                dtype=t.dtype)
+            x = arr if isinstance(arr, torch.Tensor) else \
+                torch.from_numpy(np.array(arr))
+            return x.to(device=device if device is not None else t.device,
+                        dtype=t.dtype)
 
         return _unflatten_into(template, flat, leaf)
 

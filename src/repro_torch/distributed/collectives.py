@@ -1,0 +1,186 @@
+"""The collectives of the port's explicit SPMD bodies, and their gradients.
+
+The reference writes its two ``shard_map`` bodies (the expert-parallel MoE
+and the sequence-sharded decode) and its pipeline with ``jax.lax``
+collectives; the port runs the same bodies on one process a rank, with
+``torch.distributed`` over a process group:
+
+* ``pmax`` -> :func:`all_reduce` ``"max"``; ``psum`` / ``pmean`` ->
+  ``"sum"`` (divided by the group size for the mean);
+* ``all_gather(tiled=True)`` -> :func:`all_gather` (``all_gather_into_tensor``
+  along dim 0, the gathered dim moved there and back);
+* ``ppermute`` -> :func:`permute` (``batch_isend_irecv``);
+* ``axis_index`` -> the rank's coordinate (``models/context.py``).
+
+Every rank must call the same collectives in the same order; nothing here
+branches around one.
+
+gloo on CUDA tensors. gloo reduces and broadcasts CUDA tensors, but it has
+no CUDA all-gather and its point-to-point sends take host tensors. For
+those two, a CUDA tensor under a gloo group is copied through pinned host
+memory here, explicitly; the compute stays on the card. This is how several
+ranks share one card (NCCL cannot put two ranks on one GPU); in production
+NCCL runs every collective on the device.
+
+Under grad (the train step, the pipeline) the model-axis sums are
+``autograd.Function`` s with the cotangents a replicated computation needs:
+each rank of a group computes the same loss from the group's sum, so
+
+* :func:`sum_from_group` (the body's closing ``psum``) sums forward and
+  passes its cotangent through unchanged backward: every rank already
+  holds the whole cotangent of the sum;
+* :func:`copy_to_group` (a value entering the body: its input and the
+  weights it reads) is the identity forward and sums the ranks' partial
+  cotangents backward;
+* :func:`mean_from_group` (the aux loss's ``pmean``) averages forward and
+  divides its cotangent by the group size backward.
+
+A differentiable ``all_reduce`` whose backward is another all-reduce would
+count a replicated cotangent once a rank, the group size too often.
+"""
+from __future__ import annotations
+
+from typing import Sequence, Tuple
+
+import torch
+import torch.distributed as dist
+
+_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
+
+
+def _host_staged(x: torch.Tensor, group) -> bool:
+    """A CUDA tensor under a gloo group: gloo has no CUDA all-gather or
+    point-to-point, so these go through pinned host memory."""
+    return x.is_cuda and dist.get_backend(group) == "gloo"
+
+
+def _to_host(x: torch.Tensor) -> torch.Tensor:
+    h = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+    h.copy_(x)
+    return h
+
+
+def all_reduce(x: torch.Tensor, op: str = "sum", group=None) -> torch.Tensor:
+    """A new tensor: ``x`` reduced over ``group`` (gloo and NCCL reduce CUDA
+    tensors in place, so nothing is staged)."""
+    out = x.detach().clone().contiguous()
+    dist.all_reduce(out, op=_OPS[op], group=group)
+    return out
+
+
+def all_gather(x: torch.Tensor, dim: int = 0, group=None) -> torch.Tensor:
+    """The ranks' ``x`` concatenated along ``dim`` in rank order (the
+    reference's ``all_gather(tiled=True)``)."""
+    n = dist.get_world_size(group)
+    if n == 1:
+        return x.detach().clone()
+    moved = x.detach().movedim(dim, 0).contiguous()
+    if _host_staged(x, group):
+        src = _to_host(moved)
+        parts = [torch.empty_like(src) for _ in range(n)]
+        dist.all_gather(parts, src, group=group)
+        out = torch.cat(parts).to(x.device)
+    else:
+        out = torch.empty((n * moved.shape[0],) + moved.shape[1:],
+                          dtype=x.dtype, device=x.device)
+        dist.all_gather_into_tensor(out, moved, group=group)
+    return out.movedim(0, dim).contiguous()
+
+
+def permute(x: torch.Tensor, pairs: Sequence[Tuple[int, int]],
+            group=None) -> torch.Tensor:
+    """The reference's ``ppermute``: the group rank ``src`` of each
+    ``(src, dst)`` pair sends its ``x`` to ``dst``; a rank that receives
+    nothing gets zeros. Ranks are the group's own."""
+    me = dist.get_rank(group)
+    staged = _host_staged(x, group)
+    send = x.detach().contiguous()
+    if staged:
+        send = _to_host(send)
+    recv = torch.zeros_like(send)
+    ops = []
+    for src, dst in pairs:
+        if src == me:
+            ops.append(dist.P2POp(dist.isend, send,
+                                  dist.get_global_rank(group, dst)
+                                  if group is not None else dst, group))
+        if dst == me:
+            ops.append(dist.P2POp(dist.irecv, recv,
+                                  dist.get_global_rank(group, src)
+                                  if group is not None else src, group))
+    if ops:
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+    return recv.to(x.device) if staged else recv
+
+
+class _SumFromGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce(x, "sum", group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _CopyToGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, "sum", ctx.group), None
+
+
+class _MeanFromGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.n = dist.get_world_size(group)
+        return all_reduce(x, "sum", group) / ctx.n
+
+    @staticmethod
+    def backward(ctx, g):
+        return g / ctx.n, None
+
+
+def sum_from_group(x: torch.Tensor, group) -> torch.Tensor:
+    """``psum`` over ``group``; backward passes the cotangent through."""
+    return _SumFromGroup.apply(x, group)
+
+
+def copy_to_group(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` as it is; backward sums the ranks' cotangents. Outside grad
+    mode it is ``x`` itself."""
+    if not (torch.is_grad_enabled() and x.requires_grad):
+        return x
+    return _CopyToGroup.apply(x, group)
+
+
+def mean_from_group(x: torch.Tensor, group) -> torch.Tensor:
+    """``pmean`` over ``group``; backward divides the cotangent by the
+    group size."""
+    return _MeanFromGroup.apply(x, group)
+
+
+class _Permute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, pairs, group):
+        ctx.pairs, ctx.group = pairs, group
+        return permute(x, pairs, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        back = tuple((dst, src) for src, dst in ctx.pairs)
+        return permute(g, back, ctx.group), None, None
+
+
+def permute_grad(x: torch.Tensor, pairs: Sequence[Tuple[int, int]],
+                 group=None) -> torch.Tensor:
+    """:func:`permute` whose backward is the reverse permute (the
+    transpose of ``ppermute``): a rank that received nothing forward sends
+    nothing back, and a rank that sent nothing receives zeros."""
+    return _Permute.apply(x, tuple(pairs), group)
+

@@ -47,6 +47,14 @@
 // bkv) get a logit of -inf, so they never count. Numerics otherwise follow
 // the reference: NEG_INF = -2e30, softcap before the mask, the 1e-30 clamp
 // of the denominator.
+//
+// On request (a non-null `lse`), each (b, query head) also gets its
+// log-sum-exp, m + log l over the keys it saw, in float32 [B, Hq]: the one
+// split block writes it beside its output, the combine as M + log(sum_i
+// exp(m_i - M) l_i). Ranks that each hold a slice of a sequence-sharded
+// cache combine their outputs with it (models/attention.py). The write is
+// the template argument LSE of both kernels, so a call without it runs code
+// compiled as it was before the output existed.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -114,18 +122,29 @@ size_t smem_bytes(int n_rep, int bkv) {
                           3 * (size_t)n_rep);
 }
 
+// Each row's m + log l, from a call and not inline: inline, its logf took
+// the D = 80 kernel from 96 registers to 108, and so from two blocks an SM
+// to one, which made a one-split launch at B = 32 46% slower on the H100
+// (PERF.md).
+__device__ __noinline__ void write_lse(float* __restrict__ dst,
+                                       const float* m_s, const float* l_s,
+                                       int n_rep) {
+  for (int r = threadIdx.x; r < n_rep; r += blockDim.x)
+    dst[r] = m_s[r] + logf(l_s[r]);
+}
+
 // One block an SM as the floor lets ptxas keep what the loops need in
 // registers: without it, once the position came from device memory, ptxas
 // held D = 128 to 64 registers (80 before) and D = 256 to 128 (244), and the
 // kernel ran up to 45% slower on the H100 (PERF.md).
-template <typename T, int D>
+template <typename T, int D, bool LSE>
 __global__ void __launch_bounds__(threads_for(D), 1)
 flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const int* __restrict__ kv_pos,
                     const int* __restrict__ pos_ptr, T* __restrict__ out,
                     float* __restrict__ ws_acc, float* __restrict__ ws_ml,
-                    int hq, int hkv, int s, int bkv, float scale, int window,
-                    float softcap) {
+                    float* __restrict__ lse, int hq, int hkv, int s, int bkv,
+                    float scale, int window, float softcap) {
   constexpr int NT = threads_for(D);
   constexpr int NWARPS = NT / 32;
   static_assert(NT % D == 0 && NT % 32 == 0,
@@ -275,6 +294,8 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
       if (r < n_rep)
         store(&ob[(size_t)r * D + d], acc[gi] / fmaxf(l_s[r], 1e-30f));
     }
+    if constexpr (LSE)
+      write_lse(lse + (size_t)bb * hq + (size_t)g * n_rep, m_s, l_s, n_rep);
     return;
   }
   // Partials of this split: ws_acc [B, Hkv, splits, n_rep, D] unnormalised,
@@ -295,16 +316,17 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // dim element (whole warps: threads past d only join the reductions):
 // rescale each partial by exp(m_i - M), sum in split order, divide by
 // max(l, 1e-30), cast. Dynamic shared memory: 2 * splits floats.
-template <typename T>
+template <typename T, bool LSE>
 __global__ void __launch_bounds__(COMBINE_NT)
 flash_decode_combine(const float* __restrict__ ws_acc,
                      const float* __restrict__ ws_ml, T* __restrict__ out,
-                     int n_rep, int d, int splits) {
+                     float* __restrict__ lse, int n_rep, int d, int splits) {
   extern __shared__ float cs[];
   float* w = cs;             // [splits] exp(m_i - M)
   float* wl = cs + splits;   // [splits] exp(m_i - M) * l_i
   __shared__ float red[COMBINE_WARPS];
   __shared__ float den_s;
+  __shared__ float lse_s;
   const int r = blockIdx.x, tid = threadIdx.x, nt = blockDim.x;
   const size_t bg = blockIdx.y;  // b * hkv + g
   const float* ml = ws_ml + bg * splits * n_rep * 2;
@@ -326,6 +348,7 @@ flash_decode_combine(const float* __restrict__ ws_acc,
     float den = 0.f;
     for (int z = 0; z < splits; ++z) den += wl[z];
     den_s = fmaxf(den, 1e-30f);
+    if constexpr (LSE) lse_s = mx + logf(den);
   }
   const float* acc = ws_acc + (bg * splits * n_rep + r) * d;
   float num = 0.f;
@@ -336,6 +359,11 @@ flash_decode_combine(const float* __restrict__ ws_acc,
   }
   __syncthreads();
   if (tid < d) store(&out[(bg * n_rep + r) * d + tid], num / den_s);
+  // Stored last: stored where it is computed, before the loads above, it
+  // made the combine ~2 us slower on the H100 (4.1 -> 6.1 us, PERF.md).
+  if constexpr (LSE) {
+    if (tid == 0) lse[bg * n_rep + r] = lse_s;
+  }
 }
 
 struct Split {
@@ -344,16 +372,16 @@ struct Split {
   int splits;
 };
 
-template <typename T, int D>
+template <typename T, int D, bool LSE>
 int launch(const void* q, const void* k, const void* v, const int* kv_pos,
-           const int* pos, void* out, int b, int hq, int hkv, int s, int bkv,
-           float scale, int window, float softcap, Split sp,
+           const int* pos, void* out, float* lse, int b, int hq, int hkv,
+           int s, int bkv, float scale, int window, float softcap, Split sp,
            cudaStream_t stream) {
   const size_t smem = smem_bytes<D>(hq / hkv, bkv);
   // The block's static shared int (the position) counts against the limit.
   if (smem + sizeof(int) > (size_t)SMEM_LIMIT)
     return (int)cudaErrorInvalidValue;
-  auto kernel = flash_decode_kernel<T, D>;
+  auto kernel = flash_decode_kernel<T, D, LSE>;
   static size_t sized = 0;  // the dynamic shared memory already allowed
   if (smem > sized) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -366,29 +394,34 @@ int launch(const void* q, const void* k, const void* v, const int* kv_pos,
   kernel<<<grid, threads_for(D), smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), kv_pos, pos, static_cast<T*>(out),
-      split ? sp.ws_acc : nullptr, split ? sp.ws_ml : nullptr, hq, hkv, s,
-      bkv, scale, window, softcap);
+      split ? sp.ws_acc : nullptr, split ? sp.ws_ml : nullptr, lse, hq, hkv,
+      s, bkv, scale, window, softcap);
   if (split) {
     dim3 cgrid(hq / hkv, b * hkv);
     constexpr int combine_nt = (D + 31) / 32 * 32;
     static_assert(combine_nt <= COMBINE_NT, "a combine block is too large");
-    flash_decode_combine<T><<<cgrid, combine_nt, 2 * sp.splits * sizeof(float),
-                              stream>>>(sp.ws_acc, sp.ws_ml,
-                                        static_cast<T*>(out), hq / hkv, D,
-                                        sp.splits);
+    flash_decode_combine<T, LSE>
+        <<<cgrid, combine_nt, 2 * sp.splits * sizeof(float), stream>>>(
+            sp.ws_acc, sp.ws_ml, static_cast<T*>(out), lse, hq / hkv, D,
+            sp.splits);
   }
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int dispatch_d(int dh, const void* q, const void* k, const void* v,
-               const int* kv_pos, const int* pos, void* out, int b, int hq,
-               int hkv, int s, int bkv, float scale, int window,
-               float softcap, Split sp, cudaStream_t st) {
+               const int* kv_pos, const int* pos, void* out, float* lse,
+               int b, int hq, int hkv, int s, int bkv, float scale,
+               int window, float softcap, Split sp, cudaStream_t st) {
 #define REPRO_DECODE_D(DH)                                                   \
   case DH:                                                                  \
-    return launch<T, DH>(q, k, v, kv_pos, pos, out, b, hq, hkv, s, bkv,     \
-                         scale, window, softcap, sp, st);
+    return lse != nullptr                                                   \
+               ? launch<T, DH, true>(q, k, v, kv_pos, pos, out, lse, b, hq, \
+                                     hkv, s, bkv, scale, window, softcap, sp,\
+                                     st)                                     \
+               : launch<T, DH, false>(q, k, v, kv_pos, pos, out, nullptr, b,\
+                                      hq, hkv, s, bkv, scale, window,        \
+                                      softcap, sp, st);
   switch (dh) {
     REPRO_DECODE_D(16)
     REPRO_DECODE_D(32)
@@ -409,12 +442,14 @@ int dispatch_d(int dh, const void* q, const void* k, const void* v,
 // scalar in device memory (>= 0). window <= 0 / softcap <= 0 mean none. The
 // grid has `splits` blocks for each (b, kv-head); with splits > 1, ws_acc
 // (float32 [B, Hkv, splits, n_rep, D]) and ws_ml ([B, Hkv, splits, n_rep,
-// 2]) hold the partials and a second kernel combines them. Returns
+// 2]) hold the partials and a second kernel combines them. lse: null, or
+// float32 [B, Hq] for each row's log-sum-exp. Returns
 // cudaGetLastError() after the launches, or cudaErrorInvalidValue for an
 // argument this file does not take.
 extern "C" int repro_flash_decode(const void* q, const void* k, const void* v,
                                   const void* kv_pos, const void* pos,
-                                  void* out, void* ws_acc, void* ws_ml, int b,
+                                  void* out, void* ws_acc, void* ws_ml,
+                                  void* lse, int b,
                                   int hq, int hkv, int s, int dh, int dtype,
                                   int bkv, float scale, int window,
                                   float softcap, int splits, void* stream) {
@@ -428,13 +463,14 @@ extern "C" int repro_flash_decode(const void* q, const void* k, const void* v,
                  splits};
   const int* kp = static_cast<const int*>(kv_pos);
   const int* p = static_cast<const int*>(pos);
+  float* ls = static_cast<float*>(lse);
   if (dtype == 0) {
-    return dispatch_d<float>(dh, q, k, v, kp, p, out, b, hq, hkv, s, bkv,
+    return dispatch_d<float>(dh, q, k, v, kp, p, out, ls, b, hq, hkv, s, bkv,
                              scale, window, softcap, sp, st);
   }
   if (dtype == 1) {
-    return dispatch_d<__nv_bfloat16>(dh, q, k, v, kp, p, out, b, hq, hkv, s,
-                                     bkv, scale, window, softcap, sp, st);
+    return dispatch_d<__nv_bfloat16>(dh, q, k, v, kp, p, out, ls, b, hq, hkv,
+                                     s, bkv, scale, window, softcap, sp, st);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -49,7 +49,7 @@ REP_MAX = 32   # grouped query heads per KV head the kernel keeps resident
 def _lib():
     fn = build.load("flash_decode").repro_flash_decode
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_float,
                           ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
@@ -145,7 +145,7 @@ def launch_bkv(bkv: int, s: int, d: int, n_rep: int) -> int:
 def flash_decode(
     q, k, v, *, pos, kv_pos=None, window: Optional[int] = None,
     softcap: Optional[float] = None, scale: Optional[float] = None,
-    bkv: Optional[int] = None,
+    bkv: Optional[int] = None, return_lse: bool = False,
 ):
     """q [B, Hq, D] x cache k/v [B, Hkv, S, D] -> [B, Hq, D].
 
@@ -154,7 +154,10 @@ def flash_decode(
     card it is clamped to S and need not divide it, and the key blocks are
     split over the grid as :func:`decode_splits` lays them out. ``pos`` is
     a 0-d int32 tensor on q's device, which the kernel reads, or an int
-    (>= 0), which the wrapper puts into one.
+    (>= 0), which the wrapper puts into one. ``return_lse`` also returns
+    each row's log-sum-exp over the keys it saw (float32 ``[B, Hq]``, the
+    logits' ``m + log l``), which ranks holding slices of one sequence
+    combine by (``models/attention.py``).
     """
     b, hq, d = q.shape
     hkv, s = k.shape[1], k.shape[2]
@@ -169,7 +172,8 @@ def flash_decode(
     if all(t.device.type == "cpu" for t in tensors):
         return flash_decode_ref(q, k, v, pos=pos, kv_pos=kv_pos, window=window,
                                 softcap=softcap, scale=scale,
-                                bkv=bkv if bkv is not None else 512)
+                                bkv=bkv if bkv is not None else 512,
+                                return_lse=return_lse)
     build.refuse_grad("flash_decode", q, k, v,
                       why="decoding is not on the train path")
     build.check_cuda_operands("flash_decode", q, k, v)
@@ -197,8 +201,10 @@ def flash_decode(
     n_rep = hq // hkv
     bkv = launch_bkv(bkv, s, d, n_rep)
     out = torch.empty_like(q)
+    lse = (torch.empty((b, hq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     if q.numel() == 0:
-        return out
+        return (out, lse) if return_lse else out
     splits = split_count(b * hkv, cdiv(s, bkv))
     ws_acc = ws_ml = None
     if splits > 1:
@@ -211,21 +217,23 @@ def flash_decode(
                 pos.data_ptr(), out.data_ptr(),
                 ws_acc.data_ptr() if ws_acc is not None else None,
                 ws_ml.data_ptr() if ws_ml is not None else None,
+                lse.data_ptr() if lse is not None else None,
                 b, hq, hkv, s, d, build.dtype_code(q.dtype), bkv,
                 float(scale), int(window or 0), float(softcap or 0.0),
                 splits, build.stream_ptr(q.device))
     build.check(rc, "flash_decode")
     build.LAUNCHES["flash_decode"] += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 def flash_decode_ref(
     q, k, v, *, pos, kv_pos=None, window: Optional[int] = None,
     softcap: Optional[float] = None, scale: Optional[float] = None,
-    bkv: int = 512,
+    bkv: int = 512, return_lse: bool = False,
 ):
     """Chunked online-softmax decode over KV splits of ``bkv`` (snapped to
-    the largest divisor of the cache length, as the reference does)."""
+    the largest divisor of the cache length, as the reference does).
+    ``return_lse``: also each row's ``m + log l`` (float32 ``[B, Hq]``)."""
     b, hq, d = q.shape
     hkv, s = k.shape[1], k.shape[2]
     assert hq % hkv == 0, (hq, hkv)
@@ -257,7 +265,10 @@ def flash_decode_ref(
             "bgrk,bgkd->bgrd", p, v[:, :, sl].float())
         m = m_new
     out = acc / torch.clamp(l, min=1e-30)[..., None]
-    return out.reshape(b, hq, d).to(q.dtype)
+    out = out.reshape(b, hq, d).to(q.dtype)
+    if return_lse:
+        return out, (m + torch.log(l)).reshape(b, hq)
+    return out
 
 
 def flash_decode_split_ref(

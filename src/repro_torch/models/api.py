@@ -21,6 +21,14 @@ encoder-decoder model, as the reference's do; a vision model goes through
 them as text. Functions that create tensors take ``device`` and run on
 ``cuda`` unless given ``device="cpu"``; the others run where the parameters
 live.
+
+``ctx`` (a ``models/context.py`` ``DistContext``, as the reference threads
+it): on a mesh the batch given is this rank's rows
+(``sharding_rules.local_batch``), the parameters are whole, the MoE layers
+run expert-parallel, and with ``flags.DECODE_ATTN_SHARDED``
+:func:`decode_step` decodes every cache that ``attention.sharded_decode_gate``
+passes sequence-sharded (its first decode keeps this rank's slice of a
+whole cache). ``ctx=None`` is every path as before.
 """
 from __future__ import annotations
 
@@ -34,6 +42,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.tiling import TileShape
 from repro_torch.models import encdec as E
 from repro_torch.models import transformer as T
+from repro_torch.models.context import DistContext
 
 # Resolved kernel tiles (kernel name -> TileShape), threaded from the
 # ServeEngine through forward() into the kernel call sites.
@@ -66,8 +75,17 @@ def init_params(cfg: ArchConfig, seed: Union[int, torch.Generator] = 0,
     return T.init_params(cfg, gen, dtype, dev)
 
 
+def param_logical_axes(cfg: ArchConfig):
+    """The parameters' logical axes, a tree of the parameters' structure
+    (the port's: one dict a layer where the reference stacks them)."""
+    if is_encdec(cfg):
+        return E.param_logical_axes(cfg)
+    return T.param_logical_axes(cfg)
+
+
 def train_loss(params, cfg: ArchConfig, batch: Dict[str, Any],
-               remat: bool = True, tiles: Tiles = None, impl: str = "auto"):
+               remat: bool = True, tiles: Tiles = None, impl: str = "auto",
+               ctx: Optional[DistContext] = None):
     """Scalar loss and metrics ``{"loss", "ce", "aux"}``, differentiable
     (the reference's ``train_loss``): the cross-entropy of
     ``transformer.fused_lm_loss`` over the hidden states, plus an MoE
@@ -83,9 +101,9 @@ def train_loss(params, cfg: ArchConfig, batch: Dict[str, Any],
     targets = _tokens(params, batch["targets"])
     if is_encdec(cfg):
         enc = E.encode(params, cfg, _embeds(params, batch["frames"]),
-                       impl=impl, remat=remat)
+                       impl=impl, remat=remat, ctx=ctx)
         hidden = E.decode_train(params, cfg, tokens, enc, return_hidden=True,
-                                impl=impl, remat=remat)
+                                impl=impl, remat=remat, ctx=ctx)
         head = params["embed"].t()
         aux = torch.zeros((), dtype=torch.float32, device=hidden.device)
     else:
@@ -93,7 +111,7 @@ def train_loss(params, cfg: ArchConfig, batch: Dict[str, Any],
         out = T.forward(params, cfg, tokens, logits_mode="hidden",
                         tiles=tiles, impl=impl, remat=remat,
                         patch_embeds=None if patch is None
-                        else _embeds(params, patch))
+                        else _embeds(params, patch), ctx=ctx)
         hidden, aux = out.hidden, out.aux_loss
         if patch is not None:
             hidden = hidden[:, patch.shape[1]:]
@@ -136,7 +154,8 @@ def _embeds(params, x) -> torch.Tensor:
 
 def prefill(params, cfg: ArchConfig, batch: Dict[str, Any], max_len: int,
             dtype=torch.float32, ring_local: bool = False, tiles: Tiles = None,
-            impl: str = "auto", caches: Optional[List[Any]] = None):
+            impl: str = "auto", caches: Optional[List[Any]] = None,
+            ctx: Optional[DistContext] = None):
     """Returns (last-token logits [B, Vpad], serve_state).
 
     ``caches`` (from :func:`make_serve_state`) are emptied (KV positions
@@ -165,12 +184,12 @@ def prefill(params, cfg: ArchConfig, batch: Dict[str, Any], max_len: int,
     out = T.forward(params, cfg, tokens, caches=caches, logits_mode="last",
                     tiles=tiles, impl=impl,
                     patch_embeds=None if patch is None
-                    else _embeds(params, patch))
+                    else _embeds(params, patch), ctx=ctx)
     return out.logits[:, -1], out.caches
 
 
 def decode_step(params, cfg: ArchConfig, token, state, tiles: Tiles = None,
-                impl: str = "auto"):
+                impl: str = "auto", ctx: Optional[DistContext] = None):
     """token [B, 1] -> (logits [B, Vpad], state), the state updated in place.
 
     A token tensor already on the parameters' device is used as it is, and
@@ -183,12 +202,13 @@ def decode_step(params, cfg: ArchConfig, token, state, tiles: Tiles = None,
                                       state, impl=impl)
         return logits[:, 0], state
     out = T.forward(params, cfg, _tokens(params, token), caches=state,
-                    decode=True, tiles=tiles, impl=impl)
+                    decode=True, tiles=tiles, impl=impl, ctx=ctx)
     return out.logits[:, 0], out.caches
 
 
 def prefill_chunk(params, cfg: ArchConfig, tokens, state, start: int,
-                  tiles: Tiles = None, impl: str = "auto"):
+                  tiles: Tiles = None, impl: str = "auto",
+                  ctx: Optional[DistContext] = None):
     """One chunk of a multi-step (chunked) prefill.
 
     ``tokens`` [B, c] sit at absolute positions ``start .. start+c-1``;
@@ -201,7 +221,7 @@ def prefill_chunk(params, cfg: ArchConfig, tokens, state, start: int,
     _refuse_encdec(cfg, "chunked prefill")
     out = T.forward(params, cfg, _tokens(params, tokens), caches=state,
                     start_pos=start, chunked=True, logits_mode="last",
-                    tiles=tiles, impl=impl)
+                    tiles=tiles, impl=impl, ctx=ctx)
     return out.logits[:, -1], out.caches
 
 

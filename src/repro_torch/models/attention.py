@@ -50,8 +50,19 @@ tail and the unmapped entries. A chunk at ``start`` gathers its
 ``q_offset = start`` (:func:`_paged_chunk_keys`), on the CPU it runs the
 reference's positioned plain version (``flash_prefill_chunk_paged_ref``).
 The engine makes every written page the request's own before the call
-(``PagedKVPool.prepare_span``). Sequence-sharded attention comes in a later
-slice.
+(``PagedKVPool.prepare_span``).
+
+On a mesh (``models/context.py``) with ``flags.DECODE_ATTN_SHARDED`` on, a
+linear unpaged cache whose padded KV heads are fewer than the model axis's
+ranks, and whose length that axis divides, decodes sequence-sharded (the
+reference's ``_decode_attn_sharded``): each rank keeps the ``S / n`` slice
+of its model coordinate (``serve_state_shardings``' sequence entry,
+:func:`shard_kv_cache`, marked by its ``kv_pos`` map of absolute
+positions), only the owner of ``pos`` writes the new K/V (at ``pos %
+s_loc``, on the device: no rank branches), each rank runs ``flash_decode``
+over its slice with ``kv_pos`` (the kernel on the card, its plain version
+on the CPU) and returns its log-sum-exp, and the ranks combine by a max and
+a sum over the model group.
 """
 from __future__ import annotations
 
@@ -62,6 +73,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.tiling import cdiv
+from repro_torch.distributed import collectives
 from repro_torch.kernels.flash_attention.chunked import (
     flash_prefill_chunk_paged_ref, flash_prefill_chunk_ref,
     flash_prefill_packed_ref, paged_prefix,
@@ -76,6 +88,8 @@ from repro_torch.kernels.flash_attention.ops import chunk_launch_tile
 from repro_torch.kernels.flash_attention.ref import (
     NEG_INF, fit_bkv, flash_attention_ref,
 )
+from repro_torch.models import flags
+from repro_torch.models.context import DistContext, has_mesh
 from repro_torch.models.layers import ParamDef, apply_rope, rms_norm
 
 # ---------------------------------------------------------------------------
@@ -539,9 +553,76 @@ def attn_prefill_packed(
     return _out_proj(p, cfg, out, x.dtype), tuple(caches)
 
 
+def sharded_decode_gate(cfg: ArchConfig, ctx: Optional[DistContext],
+                        cache: Dict[str, Any]) -> bool:
+    """Whether a decode over ``cache`` runs sequence-sharded (the
+    reference's gate in ``attn_decode``): the switch on, a mesh, a linear
+    unpaged cache, fewer padded KV heads than model ranks, and a cache
+    length (the whole sequence's, for a slice) that the model ranks
+    divide."""
+    if not (flags.DECODE_ATTN_SHARDED and has_mesh(ctx)):
+        return False
+    if "k_pages" in cache or "slot_pos" in cache or "k" not in cache:
+        return False
+    n = ctx.model_size
+    length = cache["k"].shape[2] * (n if "kv_pos" in cache else 1)
+    return cfg.padded_kv_heads < n and length % n == 0
+
+
+def shard_kv_cache(cache: Dict[str, Any], ctx: DistContext
+                   ) -> Dict[str, Any]:
+    """Keep this rank's sequence slice of a whole linear cache, in place:
+    positions ``[i * s_loc, (i + 1) * s_loc)`` of model coordinate ``i``
+    (``sharding_rules.serve_state_shardings`` puts the sequence on the
+    model axis when the heads do not divide), and ``kv_pos``, the slice's
+    absolute positions (int32), which marks the cache as a slice."""
+    n, i = ctx.model_size, ctx.model_index
+    s_loc = cache["k"].shape[2] // n
+    rows = slice(i * s_loc, (i + 1) * s_loc)
+    cache["k"] = cache["k"][:, :, rows].contiguous()
+    cache["v"] = cache["v"][:, :, rows].contiguous()
+    cache["kv_pos"] = i * s_loc + torch.arange(
+        s_loc, dtype=torch.int32, device=cache["k"].device)
+    return cache
+
+
+def _decode_attn_sharded(ctx: DistContext, q0, k_new, v_new, cache,
+                         window: Optional[int], softcap, scale: float,
+                         impl: str):
+    """Flash-decoding over the sequence-sharded cache: the owner of
+    ``pos`` writes the new row, each rank attends over its slice and the
+    partial results combine by their log-sum-exp over the model group
+    (a max, then one sum of the weighted outputs and weights: a few KB a
+    layer, not the cache). Returns [B, Hq, D] float32."""
+    ck, cv, pos = cache["k"], cache["v"], cache["pos"]
+    s_loc = ck.shape[2]
+    slot = (pos % s_loc).to(torch.long).view(1)
+    owner = (pos // s_loc) == ctx.model_index    # on the device: no branch
+    for c, new in ((ck, k_new), (cv, v_new)):
+        row = torch.where(owner, new.to(c.dtype), c.index_select(2, slot))
+        c.index_copy_(2, slot, row)
+    kw = dict(pos=pos, kv_pos=cache["kv_pos"], window=window,
+              softcap=softcap, scale=scale, return_lse=True)
+    if impl in ("auto", "kernel"):
+        out, lse = flash_decode(q0, ck, cv, **kw)
+    elif impl == "reference":
+        out, lse = flash_decode_ref(q0, ck, cv, **kw)
+    else:
+        raise ValueError(f"the sharded decode runs flash_decode; impl "
+                         f"{impl!r} has no sharded form")
+    group = ctx.model_group
+    top = collectives.all_reduce(lse, "max", group)
+    w = torch.exp(lse - top)[..., None]                       # [B, Hq, 1]
+    tot = collectives.all_reduce(
+        torch.cat([out.float() * w, w], dim=-1), "sum", group)
+    d = out.shape[-1]
+    return tot[..., :d] / torch.clamp(tot[..., d:], min=1e-30)
+
+
 def attn_decode(
     p, cfg: ArchConfig, x, *, cache: Dict[str, Any],
     window: Optional[int] = None, tile=None, impl: str = "auto",
+    ctx: Optional[DistContext] = None,
 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Single-token decode: x [B, 1, D] attends over the cache, which it
     updates in place (the new K/V row, then ``pos`` + 1).
@@ -554,12 +635,30 @@ def attn_decode(
     stays on the device: nothing here reads it on the host. A paged cache
     attends over its table's gathered view (``n_pt * page`` rows, the
     length the tile is clamped to) through the same paths.
+
+    With ``ctx`` and :func:`sharded_decode_gate`, the decode runs
+    sequence-sharded (a whole cache keeps only this rank's slice from then
+    on, :func:`shard_kv_cache`); like the reference's, that path keeps its
+    own split (the model axis) and ignores ``tile``. It runs eagerly: its
+    collectives (gloo's host-staged ones among them) are not captured in a
+    CUDA graph. The cache becomes a slice here, on its first sharded
+    decode, whatever made it; ``transformer._mixer`` refuses a slice on any
+    other path.
     """
     b = x.shape[0]
     pos = cache["pos"]                                   # 0-d int32
     positions = pos.to(torch.long).expand(b, 1)
     q, k_new, v_new = _project_qkv(p, cfg, x, positions)  # [B, H(kv), 1, hd]
     scale = cfg.query_scale or cfg.head_dim_ ** -0.5
+    if sharded_decode_gate(cfg, ctx, cache):
+        if "kv_pos" not in cache:
+            shard_kv_cache(cache, ctx)
+        out = _decode_attn_sharded(
+            ctx, q[:, :, 0].contiguous(), k_new, v_new, cache, window,
+            cfg.attn_softcap or None, scale, impl)
+        y = _out_proj(p, cfg, out[:, :, None].to(x.dtype), x.dtype)
+        pos.add_(1)
+        return y, cache
     slot_pos = cache.get("slot_pos")
     if "k_pages" in cache:
         # Batch 1: the row through the table, then the table's linear

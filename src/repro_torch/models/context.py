@@ -1,0 +1,133 @@
+"""DistContext: how model code sees the mesh without naming mesh axes — the
+port's ``repro/models/context.py``.
+
+``None`` context (or one without a mesh) = one device, every existing path.
+With a mesh, the reference lets GSPMD partition the model under logical
+sharding constraints and runs two bodies by hand (``shard_map``); the port
+has no GSPMD, so it writes out what each rank computes (explicit SPMD, one
+process a rank):
+
+* a rank takes the batch rows of its coordinate on the batch axes and keeps
+  the parameters whole; each model rank computes the dense layers whole for
+  its rows (the reference splits them over the model axis: a deliberate
+  difference, so :meth:`DistContext.constrain` only states a layout and
+  returns ``x`` unchanged, as the reference's does without a mesh);
+* the expert-parallel MoE (``models/moe.py``) and the sequence-sharded
+  decode (``models/attention.py``) run collectives over the model axis's
+  process group (``distributed/collectives.py``), at the rank's coordinate
+  (:meth:`DistContext.axis_index`, the reference's ``axis_index``).
+
+The logical -> mesh axis mapping is the reference's ``rules`` (and
+``distributed/sharding_rules.py``); :meth:`DistContext.spec_for` gives the
+port's :class:`PartitionSpec`, a tuple with the reference's entries.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional, Tuple
+
+
+class PartitionSpec(tuple):
+    """A tuple of mesh-axis entries, one per array dim: ``None``
+    (replicated), an axis name, or a tuple of names. Equal, as a tuple, to
+    the reference's ``jax.sharding.PartitionSpec`` with the same entries."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, entries)
+
+    def __repr__(self) -> str:
+        return f"PartitionSpec{tuple.__repr__(self)}"
+
+
+@dataclasses.dataclass(frozen=True)
+class DistContext:
+    mesh: Optional[Any] = None              # launch.mesh.Mesh
+    batch_axes: Tuple[str, ...] = ("data",)   # axes sharding the batch dim
+    model_axis: str = "model"                 # TP / EP axis
+    # Logical axis name -> mesh axis (None = replicated).
+    rules: Tuple[Tuple[str, Optional[object]], ...] = (
+        ("batch", None),        # filled from batch_axes by spec_for
+        ("seq", None),
+        ("d_model", None),
+        ("heads", "model"),
+        ("kv_heads", "model"),
+        ("ff", "model"),
+        ("vocab", "model"),
+        ("experts", "model"),
+        ("lru", "model"),
+        ("ssm_heads", "model"),
+    )
+
+    def spec_for(self, logical_axes: Tuple[Optional[str], ...]
+                 ) -> PartitionSpec:
+        table = dict(self.rules)
+        out = []
+        for ax in logical_axes:
+            if ax == "batch":
+                out.append(self.batch_axes if len(self.batch_axes) > 1
+                           else self.batch_axes[0])
+            elif ax is None:
+                out.append(None)
+            else:
+                out.append(table.get(ax))
+        return PartitionSpec(*out)
+
+    def constrain(self, x, *logical_axes):
+        """The layout ``x`` has under :meth:`spec_for`; the port computes
+        the dense layers whole on each rank, so ``x`` comes back as it is."""
+        return x
+
+    # -- the explicit bodies' view of the mesh ------------------------------
+    def _mesh(self):
+        if self.mesh is None:
+            raise ValueError("this context has no mesh")
+        return self.mesh
+
+    def axis_size(self, axis: str) -> int:
+        """Ranks on ``axis``; ``"batch"`` is the product of the batch axes."""
+        m = self._mesh()
+        if axis == "batch":
+            n = 1
+            for a in self.batch_axes:
+                n *= m.shape[a]
+            return n
+        return m.shape[axis]
+
+    def axis_index(self, axis: str) -> int:
+        """This rank's coordinate on ``axis`` (on ``"batch"``, its index
+        over the batch axes, the first the slowest)."""
+        m = self._mesh()
+        if axis == "batch":
+            i = 0
+            for a in self.batch_axes:
+                i = i * m.shape[a] + m.coords[a]
+            return i
+        return m.coords[axis]
+
+    def group(self, axis: str):
+        """The process group of this rank's line along ``axis`` (``"batch"``:
+        the ranks that share its model coordinate)."""
+        m = self._mesh()
+        if axis == "batch":
+            return m.group(self.batch_axes)
+        return m.group((axis,))
+
+    @property
+    def model_size(self) -> int:
+        return self.axis_size(self.model_axis)
+
+    @property
+    def model_index(self) -> int:
+        return self.axis_index(self.model_axis)
+
+    @property
+    def model_group(self):
+        return self.group(self.model_axis)
+
+
+def null_context() -> DistContext:
+    return DistContext(mesh=None)
+
+
+def has_mesh(ctx: Optional[DistContext]) -> bool:
+    return ctx is not None and ctx.mesh is not None

@@ -32,7 +32,7 @@ at decode the masked softmax over the self cache.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 
@@ -42,8 +42,9 @@ from repro_torch.kernels.flash_attention.flash_attention import (
     flash_attention,
 )
 from repro_torch.kernels.flash_attention.ref import NEG_INF, flash_attention_ref
+from repro_torch.models.context import DistContext
 from repro_torch.models.layers import (
-    ParamDef, act_fn, init_tree, layer_norm, maybe_checkpoint,
+    ParamDef, act_fn, axes_tree, init_tree, layer_norm, maybe_checkpoint,
 )
 
 
@@ -107,6 +108,10 @@ def model_defs(cfg: ArchConfig) -> Dict[str, Any]:
 def init_params(cfg: ArchConfig, generator: torch.Generator,
                 dtype=torch.float32, device=None):
     return init_tree(model_defs(cfg), generator, dtype, device)
+
+
+def param_logical_axes(cfg: ArchConfig):
+    return axes_tree(model_defs(cfg))
 
 
 def _ln(p, name, x, eps):
@@ -173,14 +178,18 @@ def _enc_layer(lp, cfg: ArchConfig, x, impl: str):
 
 
 def encode(params, cfg: ArchConfig, frames: torch.Tensor,
-           impl: str = "auto", remat: bool = False) -> torch.Tensor:
+           impl: str = "auto", remat: bool = False,
+           ctx: Optional[DistContext] = None) -> torch.Tensor:
     """frames [B, S_enc, D] (the conv frontend's embeddings) -> encoder
     output [B, S_enc, D]. ``remat`` checkpoints each layer under grad mode
-    (the reference always does)."""
+    (the reference always does). ``ctx``: the rank computes its rows whole
+    (``models/context.py``)."""
     x = frames + _sinusoid(frames.shape[1], cfg.d_model,
                            frames.device)[None].to(frames.dtype)
     for lp in params["enc_layers"]:
         x = maybe_checkpoint(remat, _enc_layer, lp, cfg, x, impl)
+        if ctx is not None:
+            x = ctx.constrain(x, "batch", None, None)
     return _ln(params, "enc_final", x, cfg.norm_eps)
 
 
@@ -194,7 +203,8 @@ def _dec_layer(lp, cfg: ArchConfig, x, enc_out, impl: str):
 
 def decode_train(params, cfg: ArchConfig, tokens: torch.Tensor, enc_out,
                  return_hidden: bool = False, impl: str = "auto",
-                 remat: bool = False) -> torch.Tensor:
+                 remat: bool = False,
+                 ctx: Optional[DistContext] = None) -> torch.Tensor:
     """The teacher-forced decoder pass over ``tokens`` [B, S] attending to
     ``enc_out`` -> logits [B, S, Vpad], or with ``return_hidden`` the final
     normed hidden [B, S, D]. No cache: the training path. Its attention
@@ -206,6 +216,8 @@ def decode_train(params, cfg: ArchConfig, tokens: torch.Tensor, enc_out,
     x = x + _sinusoid(s, cfg.d_model, x.device)[None].to(x.dtype)
     for lp in params["dec_layers"]:
         x = maybe_checkpoint(remat, _dec_layer, lp, cfg, x, enc_out, impl)
+        if ctx is not None:
+            x = ctx.constrain(x, "batch", None, None)
     x = _ln(params, "dec_final", x, cfg.norm_eps)
     return x if return_hidden else _logits(params, x)
 

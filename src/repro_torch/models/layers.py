@@ -61,6 +61,16 @@ def init_tree(defs: Dict[str, Any], generator: torch.Generator, dtype,
     return walk(defs)
 
 
+def axes_tree(defs: Dict[str, Any]) -> Dict[str, Any]:
+    """The parallel tree of logical-axes tuples (the reference's
+    ``axes_tree``; the port's layers are a list of dicts, not stacked)."""
+    if isinstance(defs, ParamDef):
+        return defs.axes
+    if isinstance(defs, dict):
+        return {k: axes_tree(v) for k, v in defs.items()}
+    return [axes_tree(x) for x in defs]
+
+
 # ---------------------------------------------------------------------------
 # Numerics
 # ---------------------------------------------------------------------------

@@ -1,5 +1,5 @@
-"""Mixture-of-Experts block — the port's ``repro/models/moe.py``, single
-device (the reference's path without a mesh).
+"""Mixture-of-Experts block — the port's ``repro/models/moe.py``: one
+device, and expert-parallel over a mesh's model axis.
 
 Routing is the reference's exactly: a float32 softmax router, top-k, the
 optional renormalisation of the k gates (floor 1e-9) and the Switch
@@ -19,16 +19,31 @@ in a fixed order, so the result does not depend on the order of atomic
 adds. Nothing reads back to the host (group sizes come from a
 ``scatter_add_``, not ``bincount``; no boolean indexing), so a decode step
 through this block can be captured in a CUDA graph.
+
+On a mesh (``moe_forward(ctx=)``, the reference's ``_moe_forward_sharded``)
+the experts split over the model axis: model rank ``i`` runs
+:func:`moe_apply_local` on its ``n_experts / n`` experts from ``i *
+n_local`` over its batch rows, the ranks sum ``y`` over the model group and
+average ``aux``, and the shared experts run whole on every rank after the
+sum (the reference splits them over the model axis inside the sum; the
+port keeps dense compute whole, ``models/context.py``). Under grad the
+body's inputs (the tokens, the router and the expert weights) enter
+through ``collectives.copy_to_group``, whose backward sums the ranks'
+partial cotangents, and ``y`` leaves through ``sum_from_group``, whose
+backward passes the (replicated) cotangent through, so every rank ends with
+the one-device gradient of every weight.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed import collectives
 from repro_torch.kernels.matmul.ops import mm
 from repro_torch.kernels.matmul.ref import matmul_ref
+from repro_torch.models.context import DistContext, has_mesh
 from repro_torch.models.layers import ParamDef, act_fn
 
 
@@ -151,13 +166,43 @@ def _shared_ff(p, cfg: ArchConfig, x2d, impl: str = "auto"):
 
 
 def moe_forward(p: Dict[str, Any], cfg: ArchConfig, x: torch.Tensor,
-                impl: str = "auto") -> Tuple[torch.Tensor, torch.Tensor]:
+                impl: str = "auto", ctx: Optional[DistContext] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x [B, S, D] -> (y [B, S, D], aux scalar). The B*S tokens share one
-    capacity, as in the reference."""
+    capacity, as in the reference. With a mesh, the rank's rows through
+    its experts (:func:`_moe_forward_sharded`)."""
     b, s, d = x.shape
     m = cfg.moe
     x2d = x.reshape(-1, d)
-    y, aux = moe_apply_local(p, cfg, x2d, m.n_experts, 0)
+    if has_mesh(ctx):
+        y, aux = _moe_forward_sharded(p, cfg, x2d, ctx)
+    else:
+        y, aux = moe_apply_local(p, cfg, x2d, m.n_experts, 0)
     if m.n_shared_experts:
         y = y + _shared_ff(p, cfg, x2d, impl)
     return y.reshape(b, s, d), aux
+
+
+def _moe_forward_sharded(p, cfg: ArchConfig, x2d, ctx: DistContext):
+    """The expert-parallel body over the model group: this rank's experts'
+    contribution summed over the ranks, and the mean of their aux."""
+    m = cfg.moe
+    n = ctx.model_size
+    if m.n_experts % n:
+        raise ValueError(
+            f"{cfg.name}: {m.n_experts} experts not divisible by "
+            f"model axis {n}")
+    n_local = m.n_experts // n
+    off = ctx.model_index * n_local
+    group = ctx.model_group
+    local = {"router": collectives.copy_to_group(p["router"], group)}
+    for name in ("w1", "w3", "w2"):
+        # Whole, then cut: the backward's sum adds the ranks' own experts'
+        # gradients into one whole tensor (a sum of the cut slices would
+        # add different experts together).
+        local[name] = collectives.copy_to_group(
+            p[name], group)[off:off + n_local]
+    y, aux = moe_apply_local(local, cfg, collectives.copy_to_group(x2d, group),
+                             n_local, off)
+    return (collectives.sum_from_group(y, group),
+            collectives.mean_from_group(aux, group))

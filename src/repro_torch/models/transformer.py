@@ -56,8 +56,8 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (
-    ParamDef, act_fn, init_tree, layer_norm, maybe_checkpoint, rms_norm,
-    softcap,
+    ParamDef, act_fn, axes_tree, init_tree, layer_norm, maybe_checkpoint,
+    rms_norm, softcap,
 )
 
 
@@ -171,6 +171,10 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
     return init_tree(model_defs(cfg), generator, dtype, device)
 
 
+def param_logical_axes(cfg: ArchConfig):
+    return axes_tree(model_defs(cfg))
+
+
 # ---------------------------------------------------------------------------
 # Layer forward
 # ---------------------------------------------------------------------------
@@ -194,13 +198,14 @@ def _dense_ff(p, cfg: ArchConfig, x, tile=None, impl: str = "auto"):
 
 def _mixer(p, cfg: ArchConfig, spec: LayerSpec, x, positions, cache,
            decode: bool, tiles, impl: str, chunk_start=None,
-           pack_layout=None):
+           pack_layout=None, ctx=None):
     """The layer's sequence mixer (the reference's ``_mixer``): attention
     with its KV cache, or an RG-LRU or SSD block with its carried state.
     The recurrent blocks run prefill, a chunk's continuation and decode
     alike (decode is S = 1). ``chunk_start`` makes an attention layer's
     prefill a chunk's continuation; ``pack_layout`` runs a packed step
-    (``cache`` is then one cache per segment)."""
+    (``cache`` is then one cache per segment). ``ctx``: a decode may run
+    sequence-sharded (``attention.attn_decode``)."""
     if pack_layout is not None:
         return _mixer_packed(p, cfg, spec, x, positions, cache, tiles,
                              pack_layout, impl)
@@ -213,10 +218,15 @@ def _mixer(p, cfg: ArchConfig, spec: LayerSpec, x, positions, cache,
                                    chunk=ssd_tile[0] if ssd_tile else 0,
                                    impl=impl)
     window = cfg.attn_window if spec.mixer == "local_attn" else None
+    if cache is not None and "kv_pos" in cache and not (
+            decode and attn_mod.sharded_decode_gate(cfg, ctx, cache)):
+        raise ValueError("a sequence-sharded cache decodes only through the "
+                         "sharded path (flags.set_perf(decode_sharded=True) "
+                         "and its mesh)")
     if decode:
         return attn_mod.attn_decode(
             p["attn"], cfg, x, cache=cache, window=window,
-            tile=tiles.get("flash_decode"), impl=impl)
+            tile=tiles.get("flash_decode"), impl=impl, ctx=ctx)
     if chunk_start is not None:
         return attn_mod.attn_prefill_chunk(
             p["attn"], cfg, x, positions, cache=cache, start=chunk_start,
@@ -248,18 +258,20 @@ def _mixer_packed(p, cfg: ArchConfig, spec: LayerSpec, x, positions, caches,
 
 def layer_forward(p, cfg: ArchConfig, spec: LayerSpec, x, positions, cache,
                   decode: bool = False, tiles=None, impl: str = "auto",
-                  chunk_start=None, pack_layout=None):
+                  chunk_start=None, pack_layout=None, ctx=None):
     """Returns (x_out, new_cache, aux): aux is an MoE layer's load-balance
     loss, float32, and None on a layer without one (the reference's zero,
     left out so that a dense step launches nothing for it). With
     ``pack_layout`` ``cache`` is one cache per segment, and so is
-    new_cache."""
+    new_cache. ``ctx`` (a ``DistContext``): the MoE block runs expert-
+    parallel and a decode may run sequence-sharded over its mesh; the
+    rest is computed whole for the rank's rows."""
     tiles = tiles or {}
     aux = None
     h = _apply_norm(p, cfg, x, "norm1")
     mix, new_cache = _mixer(p, cfg, spec, h, positions, cache, decode, tiles,
                             impl, chunk_start=chunk_start,
-                            pack_layout=pack_layout)
+                            pack_layout=pack_layout, ctx=ctx)
     if cfg.post_norms:
         mix = _apply_norm(p, cfg, mix, "post1")
     ff_tile = tiles.get("matmul")
@@ -272,10 +284,13 @@ def layer_forward(p, cfg: ArchConfig, spec: LayerSpec, x, positions, cache,
             if spec.ff == "dense":
                 ff = _dense_ff(p["ff"], cfg, h2, tile=ff_tile, impl=impl)
             else:
-                ff, aux = moe_mod.moe_forward(p["moe"], cfg, h2, impl=impl)
+                ff, aux = moe_mod.moe_forward(p["moe"], cfg, h2, impl=impl,
+                                              ctx=ctx)
             if cfg.post_norms:
                 ff = _apply_norm(p, cfg, ff, "post2")
             x = x + ff
+    if ctx is not None:
+        x = ctx.constrain(x, "batch", None, None)
     return x, new_cache, aux
 
 
@@ -371,6 +386,7 @@ def forward(
     page_table: Optional[torch.Tensor] = None,
     patch_embeds: Optional[torch.Tensor] = None,
     remat: bool = False,
+    ctx=None,
 ) -> StackOutputs:
     """tokens [B, S] -> logits [B, S(+P), Vpad].
 
@@ -388,7 +404,9 @@ def forward(
     projected by ``vit_proj`` and prepended to the token embeddings, so the
     sequence is P + S long. ``aux_loss`` sums the layers' MoE aux losses.
     ``remat`` checkpoints each layer when grad mode is on (training; it
-    takes no caches).
+    takes no caches). ``ctx`` (``models/context.py``): ``tokens`` are the
+    rank's rows of the batch; the MoE layers run expert-parallel and the
+    decode may run sequence-sharded over the mesh's model axis.
     """
     if pool is not None and not (decode or chunked):
         raise ValueError("a paged request prefills through chunks "
@@ -407,6 +425,8 @@ def forward(
         s = x.shape[1]
     positions = (start_pos + torch.arange(s, device=tokens.device))[None, :]
     positions = positions.expand(b, s)
+    if ctx is not None:
+        x = ctx.constrain(x, "batch", None, None)
 
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     new_caches: Optional[List[Any]] = [] if caches is not None else None
@@ -417,7 +437,7 @@ def forward(
         x, nc, aux = maybe_checkpoint(
             remat and lc is None, layer_forward, params["layers"][li], cfg,
             spec, x, positions, lc, decode, tiles=tiles, impl=impl,
-            chunk_start=chunk_start)
+            chunk_start=chunk_start, ctx=ctx)
         if aux is not None:
             aux_total = aux_total + aux
         if new_caches is not None:
@@ -430,6 +450,8 @@ def forward(
     if logits_mode == "last":
         x = x[:, -1:]
     logits = _head(params, cfg, x)
+    if ctx is not None:
+        logits = ctx.constrain(logits, "batch", None, "vocab")
     return StackOutputs(logits=logits, aux_loss=aux_total, caches=new_caches,
                         hidden=x)
 

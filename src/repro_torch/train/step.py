@@ -8,8 +8,16 @@ them (``torch.autograd.grad``) and then updates them, and the moments, in
 place (``optim/adamw.py``). With ``microbatches > 1`` the batch is split as
 the reference splits it (microbatch m takes rows m, m + mb, ...), the
 gradients are summed in ``accum_dtype`` and divided by the count, and the
-loss is averaged. The reference's ``make_serve_steps`` (serving programs
-for the dry run) waits for the distributed layers.
+loss is averaged.
+
+On a mesh (``ctx``, a ``DistContext``: the reference's second argument, a
+keyword here so that the one-device calls keep their form) the step is what
+each rank runs: ``batch`` is the rank's rows of the global batch
+(``sharding_rules.local_batch``), the parameters are whole on every rank,
+the MoE layers run expert-parallel over the model axis, and the gradients
+and the loss are averaged over the batch axes' group before AdamW, so the
+loss is the global batch's mean and every rank takes the same update.
+:func:`make_serve_steps` is the reference's ``(prefill, decode)`` pair.
 """
 from __future__ import annotations
 
@@ -18,31 +26,33 @@ from typing import Callable, Optional
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed import collectives
 from repro_torch.models import api
+from repro_torch.models.context import DistContext, has_mesh
 from repro_torch.optim import adamw
 from repro_torch.optim.adamw import tree_leaves, tree_map
 
 
-def make_train_step(
+def make_grad_step(
     cfg: ArchConfig,
-    opt_cfg: adamw.AdamWConfig,
-    lr_fn: Optional[Callable] = None,
     microbatches: int = 1,
     remat: bool = True,
     accum_dtype=torch.float32,
     tiles=None,
+    ctx: Optional[DistContext] = None,
 ):
-    lr_fn = lr_fn or (lambda step: torch.tensor(3e-4, dtype=torch.float32))
-
+    """``grad_step(params, batch) -> (metrics, grads)``: the train step
+    before AdamW — the loss and its gradients over the microbatches, and on
+    a mesh both averaged over the batch axes."""
     def loss_and_grads(params, batch):
         live = tree_map(lambda p: p.detach().requires_grad_(True), params)
         loss, metrics = api.train_loss(live, cfg, batch, remat=remat,
-                                       tiles=tiles)
+                                       tiles=tiles, ctx=ctx)
         grads = iter(torch.autograd.grad(loss, tree_leaves(live)))
         return ({k: v.detach() for k, v in metrics.items()},
                 tree_map(lambda _: next(grads), params))
 
-    def train_step(params, opt_state, batch):
+    def grad_step(params, batch):
         if microbatches == 1:
             metrics, grads = loss_and_grads(params, batch)
         else:
@@ -62,6 +72,46 @@ def make_train_step(
                                  device=loss.device)
             grads = tree_map(lambda g: g / count.to(g.dtype), grads)
             metrics = {"loss": loss / count}
+        if has_mesh(ctx):
+            metrics, grads = _batch_mean(metrics, grads, ctx)
+        return metrics, grads
+
+    return grad_step
+
+
+def _batch_mean(metrics, grads, ctx: DistContext):
+    """The metrics and the gradients averaged over the batch axes' group
+    (each rank's are over its rows, equal in number)."""
+    n = ctx.axis_size("batch")
+    if n == 1:
+        return metrics, grads
+    group = ctx.group("batch")
+
+    def mean(x):
+        count = torch.tensor(float(n), dtype=x.dtype, device=x.device)
+        return collectives.all_reduce(x, "sum", group) / count
+
+    return ({k: mean(v) for k, v in metrics.items()}, tree_map(mean, grads))
+
+
+def make_train_step(
+    cfg: ArchConfig,
+    opt_cfg: adamw.AdamWConfig,
+    lr_fn: Optional[Callable] = None,
+    microbatches: int = 1,
+    remat: bool = True,
+    accum_dtype=torch.float32,
+    tiles=None,
+    ctx: Optional[DistContext] = None,
+):
+    """``train_step(params, opt_state, batch)``; ``train_step.grad_step``
+    is its :func:`make_grad_step`."""
+    lr_fn = lr_fn or (lambda step: torch.tensor(3e-4, dtype=torch.float32))
+    grad_step = make_grad_step(cfg, microbatches, remat, accum_dtype, tiles,
+                               ctx)
+
+    def train_step(params, opt_state, batch):
+        metrics, grads = grad_step(params, batch)
         lr = lr_fn(opt_state["step"])
         params, opt_state, om = adamw.apply_updates(
             params, grads, opt_state, opt_cfg, lr)
@@ -70,4 +120,23 @@ def make_train_step(
         metrics["lr"] = lr
         return params, opt_state, metrics
 
+    train_step.grad_step = grad_step
     return train_step
+
+
+def make_serve_steps(cfg: ArchConfig, ctx: Optional[DistContext],
+                     max_len: int, dtype=torch.float32, tiles=None):
+    """(prefill_fn, decode_fn) pair for serving, the reference's: window
+    (local) attention layers keep ring caches, their KV being the window
+    whatever the context length. On a mesh each rank serves its rows."""
+
+    def prefill_step(params, batch):
+        return api.prefill(params, cfg, batch, max_len=max_len, dtype=dtype,
+                           ctx=ctx, ring_local=bool(cfg.attn_window),
+                           tiles=tiles)
+
+    def decode_step(params, token, state):
+        return api.decode_step(params, cfg, token, state, ctx=ctx,
+                               tiles=tiles)
+
+    return prefill_step, decode_step

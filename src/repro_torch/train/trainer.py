@@ -10,8 +10,20 @@ any step and resume.
 
 The port runs on one device (``device=``, default ``cuda``; the CPU runs
 the kernels' plain versions). On the card the FF GEMMs and the attention
-launch the matmul and flash-attention kernels, forward and backward. The
-reference's mesh comes with the distributed layers: a mesh raises.
+launch the matmul and flash-attention kernels, forward and backward.
+
+``mesh=`` (``launch/mesh.py``, built over an initialised process group;
+one Trainer a rank) runs the step of ``train/step.py`` on the mesh: every
+rank makes the global batch of the step and reads its rows
+(``sharding_rules.local_batch``), keeps the parameters whole, and takes the
+update averaged over the batch axes, so every rank holds the same state.
+Only rank 0 writes checkpoints; before a restore every rank waits for its
+writes (a barrier), so all restart from the same step. A rank restarts in
+place only on the injected failure, which every rank raises at the same
+step before the step's collectives. Any other failure on a mesh raises: a
+rank that failed alone would leave its peers inside the step's all-reduce,
+and its restore's barrier would pair with it. The group then restarts as a
+whole, and ``try_restore`` resumes it from the last checkpoint.
 
 Tile selection: ``TrainerConfig.tile_plans`` names a compiled
 :class:`~repro_torch.core.plans.TilePlan` artifact (or pass it as
@@ -30,6 +42,7 @@ import tempfile
 from typing import Any, Dict, Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import resolve_device
 from repro_torch.checkpoint.manager import CheckpointManager
@@ -39,6 +52,7 @@ from repro_torch.core.hardware import get as get_hardware
 from repro_torch.core.plans import PlanResolution, TilePlan
 from repro_torch.core.tiling import TileShape
 from repro_torch.data.pipeline import DataConfig, make_batch
+from repro_torch.distributed import sharding_rules as rules
 from repro_torch.distributed.fault_tolerance import HealthMonitor, StepTimer
 from repro_torch.models import api
 from repro_torch.optim import adamw
@@ -46,6 +60,10 @@ from repro_torch.optim.schedule import warmup_cosine
 from repro_torch.train.step import make_train_step
 
 log = logging.getLogger("repro_torch.trainer")
+
+
+class InjectedFailure(RuntimeError):
+    """The worker failure ``Trainer.run(fail_at=)`` raises."""
 
 
 def default_checkpoint_dir() -> str:
@@ -77,10 +95,8 @@ class Trainer:
                  tcfg: TrainerConfig, mesh=None,
                  opt_cfg: Optional[adamw.AdamWConfig] = None,
                  plans: Optional[TilePlan] = None, device=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "the port's Trainer runs on one device; a mesh comes with "
-                "the distributed layers (ROADMAP.md §1, item 7)")
+        self.mesh = mesh
+        self.ctx = rules.make_context(mesh) if mesh is not None else None
         self.cfg = cfg
         self.data_cfg = data_cfg
         self.tcfg = tcfg
@@ -88,6 +104,8 @@ class Trainer:
         self.opt_cfg = opt_cfg or adamw.AdamWConfig()
         self.monitor = HealthMonitor()
         self.ckpt = CheckpointManager(tcfg.checkpoint_dir, keep=tcfg.keep)
+        # On a mesh rank 0 alone writes, so no two ranks write one folder.
+        self._writes = self.ctx is None or dist.get_rank() == 0
         self.hardware = (get_hardware(tcfg.hardware) if tcfg.hardware
                          else PRODUCTION_TARGET)
         self.tiles: Dict[str, TileShape] = {}
@@ -102,7 +120,7 @@ class Trainer:
             total_steps=tcfg.steps)
         self._step = make_train_step(
             cfg, self.opt_cfg, lr_fn, microbatches=tcfg.microbatches,
-            tiles=self.tiles or None)
+            tiles=self.tiles or None, ctx=self.ctx)
 
     def _dtype_name(self) -> str:
         return str(self.tcfg.param_dtype).replace("torch.", "")
@@ -110,10 +128,12 @@ class Trainer:
     def _resolve_tiles(self, plans: TilePlan) -> None:
         """Resolve the train step's kernel tiles from the plan store. No
         sweeps. The step takes per-host batches, so the cell is at
-        host_batch."""
+        host_batch (on a mesh, a rank's share of it)."""
         from repro_torch.launch import specs
 
         b, s = self.data_cfg.host_batch, self.data_cfg.seq_len
+        if self.ctx is not None:         # a rank's rows
+            b //= self.ctx.axis_size("batch")
         dtype = self._dtype_name()
         self.tiles, self.tile_resolutions = specs.resolve_model_tiles(
             plans, self.cfg, b, s, "train", dtype, self.hardware)
@@ -131,6 +151,13 @@ class Trainer:
         return params, opt_state, 0
 
     def try_restore(self):
+        # An async save still in flight lands before anyone looks for the
+        # latest checkpoint (on a mesh, rank 0's, before every rank looks).
+        # Without the wait a restart soon after a save resumed from the
+        # checkpoint before it.
+        self.ckpt.wait()
+        if self.ctx is not None:
+            dist.barrier()
         latest = self.ckpt.latest_step()
         if latest is None:
             return self.init_state()
@@ -157,8 +184,9 @@ class Trainer:
                 for step in range(start, self.tcfg.steps):
                     if fail_at is not None and step == fail_at and not failed_once:
                         failed_once = True
-                        raise RuntimeError("injected worker failure")
-                    batch = make_batch(self.data_cfg, step)
+                        raise InjectedFailure("injected worker failure")
+                    batch = rules.local_batch(
+                        make_batch(self.data_cfg, step), self.ctx)
                     # The step and the loss's readback: a synchronised step.
                     with StepTimer() as t:
                         params, opt_state, metrics = self._step(
@@ -175,11 +203,16 @@ class Trainer:
                     if (step + 1) % self.tcfg.checkpoint_every == 0:
                         self.ckpt.save(
                             step + 1, {"params": params, "opt": opt_state},
-                            extra={"data_step": step + 1})
+                            extra={"data_step": step + 1},
+                            write=self._writes)
                 self.ckpt.save(self.tcfg.steps,
                                {"params": params, "opt": opt_state},
-                               extra={"data_step": self.tcfg.steps})
+                               extra={"data_step": self.tcfg.steps},
+                               write=self._writes)
                 self.ckpt.wait()
+                if self.ctx is not None:
+                    # Every rank returns once rank 0's last save is on disk.
+                    dist.barrier()
                 return {
                     "losses": losses,
                     "restarts": restarts,
@@ -189,6 +222,8 @@ class Trainer:
             except NotImplementedError:
                 raise               # a missing path, not a worker failure
             except RuntimeError as e:
+                if self.ctx is not None and not isinstance(e, InjectedFailure):
+                    raise           # see the module's docstring
                 restarts += 1
                 log.warning("worker failure (%s); restart %d", e, restarts)
                 if restarts > max_restarts:

@@ -1,7 +1,8 @@
 """The port's checkpoint manager (``repro_torch/checkpoint/manager.py``):
-the reference's cases (elastic resharding waits for the distributed
-layers), checkpoints crossing between the two packages in both
-directions, and bfloat16 moments kept exactly through their float32 copy."""
+the reference's cases (the elastic restore onto a mesh runs in
+``tests/test_torch_mesh.py``), checkpoints crossing between the two
+packages in both directions, and bfloat16 moments kept exactly through
+their float32 copy."""
 import os
 
 import numpy as np
@@ -45,6 +46,15 @@ def test_roundtrip(tmp_path):
     cm.save(10, tree)
     _assert_trees_equal(cm.restore(tree), tree)
     assert cm.meta()["step"] == 10
+
+
+def test_a_save_that_does_not_write_leaves_nothing(tmp_path):
+    """``save(..., write=False)``, a mesh rank that is not the writer,
+    writes nothing and leaves nothing in flight."""
+    cm = CheckpointManager(str(tmp_path), async_save=True)
+    cm.save(3, _tree(), write=False)
+    cm.wait()
+    assert cm.latest_step() is None and os.listdir(tmp_path) == []
 
 
 def test_async_roundtrip_snapshots_before_returning(tmp_path):

@@ -260,6 +260,32 @@ def test_flash_decode_split_kv(dev, dtype, rtol, b, hkv, d, cache):
     _close(out, flash_decode_ref(q, k, v, **kw), rtol)
 
 
+@pytest.mark.parametrize("dtype,rtol", DTYPES)
+@pytest.mark.parametrize("b", [1, 128])
+@pytest.mark.parametrize("slice_", [0, 1, 3])
+def test_flash_decode_lse_over_sequence_slices(dev, dtype, rtol, b, slice_):
+    """The log-sum-exp output (one split at B = 128, the combine's at B =
+    1) against the plain version's, over a quarter of a 1024-row cache at
+    its kv_pos offset (the sharded decode's slice); the output is the one
+    without the LSE, bit for bit. A slice after pos sees no key."""
+    s, hq, hkv, d, pos = 256, 16, 2, 128, 511
+    dt = getattr(torch, dtype)
+    q, k, v = _randn(dev, 22, (b, hq, d), (b, hkv, s, d), (b, hkv, s, d),
+                     dtype=dt)
+    kv_pos = torch.arange(slice_ * s, (slice_ + 1) * s, dtype=torch.int32,
+                          device=dev)
+    out, lse = flash_decode(q, k, v, pos=pos, kv_pos=kv_pos, return_lse=True)
+    assert torch.equal(out, flash_decode(q, k, v, pos=pos, kv_pos=kv_pos))
+    ro, rl = flash_decode_ref(q, k, v, pos=pos, kv_pos=kv_pos,
+                              return_lse=True)
+    assert lse.shape == (b, hq) and lse.dtype == torch.float32
+    if slice_ * s > pos:
+        assert bool(torch.all(lse < -1e29)) and bool(torch.all(rl < -1e29))
+    else:
+        _close(lse, rl, rtol)
+        _close(out, ro, rtol)
+
+
 def test_flash_decode_all_masked_averages_the_cache(dev):
     q, k, v = _randn(dev, 22, (1, 8, 64), (1, 2, 300, 64), (1, 2, 300, 64))
     kv_pos = torch.full((300,), -1, dtype=torch.int32, device=dev)

@@ -73,7 +73,14 @@ def test_importing_the_whole_port_loads_no_jax_and_no_repro():
                  "repro_torch.distributed.fault_tolerance",
                  "repro_torch.checkpoint.manager", "repro_torch.train.step",
                  "repro_torch.train.trainer", "repro_torch.launch.train",
-                 "repro_torch.examples.train_lm"):
+                 "repro_torch.examples.train_lm",
+                 "repro_torch.models.context", "repro_torch.models.flags",
+                 "repro_torch.distributed.sharding_rules",
+                 "repro_torch.distributed.collectives",
+                 "repro_torch.distributed.process_group",
+                 "repro_torch.distributed.pipeline",
+                 "repro_torch.launch.mesh",
+                 "repro_torch.optim.compression"):
         assert name in mods
 
 
@@ -196,6 +203,14 @@ def test_entry_points_need_a_card_unless_given_the_cpu(tmp_path):
         opt_state_from_jax(cfg, {"m": {"segments": []},
                                  "v": {"segments": []}, "step": 0})
     assert Trainer(cfg, data_cfg, tcfg, device="cpu").device.type == "cpu"
+
+    from repro_torch.distributed import pipeline
+    from repro_torch.launch.mesh import make_local_mesh
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_local_mesh(1, 1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pipeline.init_pipeline_params(cfg, 0, 2)
 
 
 def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):

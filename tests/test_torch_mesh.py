@@ -1,0 +1,478 @@
+"""The port's mesh runtime on the CPU over gloo, against the JAX package.
+
+Two rank groups run once for the module (``chip_smoke.run_mesh_group``,
+the program phase 18 runs on the card, here at smoke width on the CPU):
+four ranks — the sequence-sharded decode and the expert-parallel MoE on a
+2 x 2 mesh, a 2 x 2 train step of the smoke qwen2 and of the smoke MoE, the
+trained parameters saved from their 2 x 2 blocks — then two of the same
+processes in a group of their own: the elastic restore onto a 1 x 2 mesh
+and one more step, GPipe over two stages, ``compress_psum``, a mesh
+Trainer. The rank programs import no JAX; they take the
+reference's parameters (converted here, ``torch.save``d under the module's
+temporary folder) and write their results as ``.npz``; this process holds
+them against the reference on one device, as the reference's own tests do:
+
+* the sharded decode against the full forward's last logits at 5e-4
+  (``tests/test_distributed.py:22``);
+* the EP MoE against the local forward at 2e-3 (``:57``);
+* the 2 x 2 train step against ``make_train_step(cfg, None, ...)``: the
+  first step's loss within 1e-6 relative (the second's within 1e-5: it is
+  taken after an update whose sign flips, below, move the two sides' weights
+  apart; measured 1.1e-6 here; the in-run check holds both losses to the
+  port's one-device steps at 1e-6), the parameters after two AdamW steps
+  within 2 x lr
+  (a near-zero gradient that changes sign with the order of its sum moves
+  Adam's normalised step by up to 2 x lr), the averaged gradients within
+  1e-5 of each leaf's max of the port's one-device gradients and within
+  1e-4 of the reference's: the reference's own gradients of these smoke
+  weights move by 1.3e-5 to 2.3e-5 of a leaf's max between its jitted and
+  its eager run, and the port's one-device ones lie there too (1e-4 is
+  ``tests/test_torch_train_step.py``'s bound for qwen2);
+* the MoE's gradients — the expert weights' summed over the model axis —
+  against the one-device gradients of each data half, averaged (a rank's
+  aux loss is over its rows, so this is what data parallelism computes),
+  the port's at 1e-5 and the reference's at 1e-4;
+* GPipe against ``sequential_reference_loss`` at 2e-4, its gradients
+  non-zero and within 1e-4 of the port's sequential ones
+  (``tests/test_pipeline.py``);
+* the restore exact and one more step (``tests/test_elastic.py``);
+* ``Trainer(mesh=)`` on a 2 x 1 mesh with a failure at step 7: one
+  restart from rank 0's step-5 checkpoint, the ranks' parameters equal,
+  the losses those of the mesh-less Trainer on the same data.
+
+Each rank group has a deadline, so a hang fails the module's tests.
+"""
+import dataclasses
+import functools
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro import configs as jax_configs  # noqa: E402
+from repro.configs.base import ArchConfig as JaxArchConfig  # noqa: E402
+from repro.distributed import pipeline as jax_pipeline  # noqa: E402
+from repro.models import api as jax_api  # noqa: E402
+from repro.models import transformer as jax_T  # noqa: E402
+from repro.optim import adamw as jax_adamw  # noqa: E402
+from repro.train.step import make_train_step as jax_make_train_step  # noqa: E402
+from repro_torch import configs  # noqa: E402
+from repro_torch.configs.base import ArchConfig  # noqa: E402
+from repro_torch.models.convert import params_from_jax  # noqa: E402
+
+ROOT = Path(__file__).resolve().parents[1]
+if str(ROOT) not in sys.path:
+    sys.path.insert(0, str(ROOT))
+import chip_smoke  # noqa: E402
+
+LR = 1e-3
+DECODE_TOL = 5e-4
+MOE_TOL = 2e-3
+LOSS_RTOL = 1e-6
+LOSS_RTOL_AFTER_UPDATE = 1e-5
+GRAD_REL = 1e-5            # against the port's one-device gradients
+GRAD_REL_JAX = 1e-4        # against the reference's (see above)
+PIPE_RTOL = 2e-4
+B, S = 4, 16
+
+
+def _pair(name, **kw):
+    return (dataclasses.replace(jax_configs.get_smoke(name), **kw),
+            dataclasses.replace(configs.get_smoke(name), **kw))
+
+
+def _moe_pair():
+    cj, ct = _pair("qwen3-moe-235b-a22b")
+    return (dataclasses.replace(cj, moe=dataclasses.replace(
+        cj.moe, capacity_factor=32.0)),
+        dataclasses.replace(ct, moe=dataclasses.replace(
+            ct.moe, capacity_factor=32.0)))
+
+
+def _pp_pair():
+    kw = dict(name="pp_test", family="dense", n_layers=4, d_model=64,
+              n_heads=4, n_kv_heads=2, head_dim=16, d_ff=128,
+              vocab_size=128, tie_embeddings=True)
+    return JaxArchConfig(**kw).validate(), ArchConfig(**kw).validate()
+
+
+def _save(tree, path) -> str:
+    torch.save(tree, path)
+    return str(path)
+
+
+def _port(cfg_t, pj):
+    return params_from_jax(cfg_t, jax.tree.map(np.asarray, pj),
+                           device="cpu")
+
+
+@functools.lru_cache(maxsize=None)
+def _init(cfg_j):
+    return jax.jit(jax_api.init_params, static_argnums=0)(
+        cfg_j, jax.random.PRNGKey(0))
+
+
+def _batches(cfg_t, steps, seed):
+    return chip_smoke._train_batches(cfg_t, B, S, steps, seed)
+
+
+@pytest.fixture(scope="module")
+def groups(tmp_path_factory):
+    """Both rank groups' results and the inputs they were given."""
+    tmp = tmp_path_factory.mktemp("mesh")
+    dec_j, dec_t = _pair("qwen2-1.5b", n_kv_heads=1, n_heads=4)
+    moe_j, moe_t = _moe_pair()
+    q_j, q_t = _pair("qwen2-1.5b")
+    pp_j, pp_t = _pp_pair()
+    pp_params = jax_pipeline.init_pipeline_params(
+        pp_j, jax.random.PRNGKey(0), n_stages=2)
+    paths = {
+        "decode": _save(_port(dec_t, _init(dec_j)), tmp / "decode.pt"),
+        "moe": _save(_port(moe_t, _init(moe_j)), tmp / "moe.pt"),
+        "train": _save(_port(q_t, _init(q_j)), tmp / "train.pt"),
+        "gpipe": _save(jax.tree.map(lambda a: torch.from_numpy(
+            np.array(a)), pp_params), tmp / "gpipe.pt"),
+    }
+    ckpt = str(tmp / "elastic")
+    four = [
+        ("decode", "decode", dict(
+            cfg=dec_t, mesh=(2, 2), batch=B, prompt_len=S - 1, steps=1,
+            max_len=S, params={"path": paths["decode"]}, token_seed=1,
+            teacher=True)),
+        ("moe", "moe", dict(cfg=moe_t, mesh=(2, 2), batch=B, seq=S,
+                            params={"path": paths["moe"]}, token_seed=2)),
+        ("train", "train", dict(
+            cfg=q_t, mesh=(2, 2), batch=B, seq=S, microbatches=2, steps=2,
+            lr=LR, params={"path": paths["train"]}, data_seed=3, keep=True)),
+        ("save", "save", dict(cfg=q_t, mesh=(2, 2), step=1, ckpt=ckpt)),
+        ("train", "moe_train", dict(
+            cfg=moe_t, mesh=(2, 2), batch=B, seq=S, microbatches=1, steps=1,
+            lr=LR, params={"path": paths["moe"]}, data_seed=4,
+            single=False, keep=True)),
+    ]
+    two = [
+        ("restore", "restore", dict(cfg=q_t, mesh=(1, 2), batch=2, seq=S,
+                                    microbatches=1, lr=LR, data_seed=3,
+                                    ckpt=ckpt)),
+        ("gpipe", "gpipe", dict(cfg=pp_t, n_stages=2, microbatches=2,
+                                batch=B, seq=S,
+                                params={"path": paths["gpipe"]},
+                                token_seed=5, keep=True)),
+        ("compress", "compress", dict(shape=(64,), rounds=20, seed=6)),
+        ("trainer", "trainer", dict(cfg=q_t, mesh=(2, 1), steps=12, batch=B,
+                                    seq=S, fail_at=7,
+                                    ckpt=str(tmp / "trainer"))),
+    ]
+    res = chip_smoke.run_mesh_group(4, four, tmp / "ranks", "cpu",
+                                    timeout_s=240, then=(2, two))
+    return dict(res=res, dec=(dec_j, dec_t), moe=(moe_j, moe_t),
+                train=(q_j, q_t), pp=(pp_j, pp_t, pp_params), paths=paths)
+
+
+def _rows(rank: int, model: int = 2):
+    """The global rows of a 2 x 2 rank: its data coordinate's half."""
+    d = rank // model
+    return slice(d * B // 2, (d + 1) * B // 2)
+
+
+def test_the_in_run_checks_pass(groups):
+    """Phase 18 (b)'s own verdicts (each check against the one-process
+    path of the same ranks) hold on the CPU too."""
+    out = chip_smoke.mesh_verdicts(groups["res"], LR)
+    assert set(out) == {"decode", "moe", "train", "elastic", "gpipe",
+                        "compress"}
+
+
+def test_sharded_flash_decode_matches_full(groups):
+    cfg_j, cfg_t = groups["dec"]
+    tok = chip_smoke._mesh_tokens(1, (B, S), cfg_t.vocab_size)
+    full = np.asarray(jax_T.forward(_init(cfg_j), cfg_j, jnp.asarray(tok),
+                                    remat=False).logits[:, -1])
+    for r, d in enumerate(groups["res"]["decode"]):
+        np.testing.assert_allclose(d["logits"][0], full[_rows(r)],
+                                   rtol=DECODE_TOL, atol=DECODE_TOL)
+        # Every layer kept its S / 2 slice; the CPU ran no kernel.
+        assert int(d["sliced_layers"]) == cfg_t.n_layers
+        assert int(d["s_loc"]) == S // 2
+        assert int(d["launches"]) == 0
+        assert float(d["collectives_step"]) == 2 * cfg_t.n_layers
+
+
+def test_moe_ep_sharded_matches_local(groups):
+    cfg_j, cfg_t = groups["moe"]
+    tok = chip_smoke._mesh_tokens(2, (B, S), cfg_t.vocab_size)
+    ref = np.asarray(jax_T.forward(_init(cfg_j), cfg_j, jnp.asarray(tok),
+                                   remat=False).logits, np.float32)
+    for r, d in enumerate(groups["res"]["moe"]):
+        np.testing.assert_allclose(d["logits"], ref[_rows(r)],
+                                   rtol=MOE_TOL, atol=MOE_TOL)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_grad_fn(cfg_j):
+    return jax.jit(jax.grad(lambda p, b: jax_api.train_loss(
+        p, cfg_j, b, remat=False)[0]))
+
+
+def _jax_grads(cfg_j, pj, batch, microbatches=1):
+    """The reference's gradients of ``train_loss``, averaged over the
+    strided microbatches as its train step averages them."""
+    grad = _jax_grad_fn(cfg_j)
+    parts = []
+    for m in range(microbatches):
+        mb = {k: jnp.asarray(v[m::microbatches]) for k, v in batch.items()}
+        parts.append(grad(pj, mb))
+    return jax.tree.map(lambda *g: sum(g) / microbatches, *parts)
+
+
+def _port_flat(cfg_t, tree):
+    from repro_torch.checkpoint.manager import _flatten
+
+    return {k: v.numpy() for k, v in _flatten(_port(cfg_t, tree)).items()}
+
+
+def _hold_grads(got, want, tol):
+    for k, w in want.items():
+        g = got[f"grads/{k}"]
+        scale = float(np.abs(w).max())
+        assert float(np.abs(g - w).max()) <= tol * max(scale, 1e-30), k
+
+
+def _port_grads(cfg_t, path, batch):
+    """The port's one-device gradients of ``train_loss`` on ``batch``."""
+    from repro_torch.checkpoint.manager import _flatten
+    from repro_torch.models import api
+    from repro_torch.optim.adamw import tree_leaves, tree_map
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        live = tree_map(lambda t: t.requires_grad_(True), torch.load(path))
+        loss, _ = api.train_loss(live, cfg_t, batch, remat=False)
+        it = iter(torch.autograd.grad(loss, tree_leaves(live)))
+        return {k: v.numpy() for k, v in
+                _flatten(tree_map(lambda _: next(it), live)).items()}
+    finally:
+        torch.set_num_threads(n)
+
+
+def test_train_step_on_a_2x2_mesh_matches_the_reference(groups):
+    cfg_j, cfg_t = groups["train"]
+    pj = _init(cfg_j)
+    batches = _batches(cfg_t, 2, 3)
+    d = groups["res"]["train"][0]
+    _hold_grads(d, _port_flat(cfg_t, _jax_grads(cfg_j, pj, batches[0], 2)),
+                GRAD_REL_JAX)
+    ocfg = jax_adamw.AdamWConfig()
+    step = jax.jit(jax_make_train_step(
+        cfg_j, None, ocfg, lr_fn=lambda s: jnp.asarray(LR, jnp.float32),
+        microbatches=2))
+    p, opt, losses = pj, jax_adamw.init_state(pj, ocfg), []
+    for b in batches:
+        p, opt, m = step(p, opt, {k: jnp.asarray(v) for k, v in b.items()})
+        losses.append(float(m["loss"]))
+    np.testing.assert_allclose(d["losses"][0], losses[0], rtol=LOSS_RTOL)
+    np.testing.assert_allclose(d["losses"], losses,
+                               rtol=LOSS_RTOL_AFTER_UPDATE)
+    want = _port_flat(cfg_t, p)
+    for k, w in want.items():
+        assert float(np.abs(d[f"params/{k}"] - w).max()) <= 2 * LR, k
+    # Every rank took the same update.
+    sums = d["param_abs_sums"]
+    assert np.all(sums == sums[0])
+
+
+def test_moe_expert_gradients_sum_over_the_model_axis(groups):
+    """The 2 x 2 MoE step's gradients — the experts' owned by one model
+    rank each, the router's and the tokens' partial on each — equal the
+    reference's one-device gradients of the two data halves, averaged."""
+    cfg_j, cfg_t = groups["moe"]
+    pj = _init(cfg_j)
+    batch = _batches(cfg_t, 1, 4)[0]
+    halves = [_jax_grads(cfg_j, pj, {k: v[h * 2:(h + 1) * 2]
+                                     for k, v in batch.items()})
+              for h in range(2)]
+    want = _port_flat(cfg_t, jax.tree.map(lambda a, b: (a + b) / 2,
+                                          *halves))
+    d = groups["res"]["moe_train"][0]
+    assert any(k.endswith("moe/w1") for k in want)
+    _hold_grads(d, want, GRAD_REL_JAX)
+    port = [_port_grads(cfg_t, groups["paths"]["moe"],
+                        {k: v[h * 2:(h + 1) * 2] for k, v in batch.items()})
+            for h in range(2)]
+    _hold_grads(d, {k: (port[0][k] + port[1][k]) / 2 for k in port[0]},
+                GRAD_REL)
+
+
+def test_gpipe_matches_sequential(groups):
+    cfg_j, cfg_t, pj = groups["pp"]
+    tok = jnp.asarray(chip_smoke._mesh_tokens(5, (B, S), cfg_t.vocab_size))
+    ref = float(jax_pipeline.sequential_reference_loss(cfg_j, pj, tok, tok))
+    ranks = groups["res"]["gpipe"]
+    for d in ranks:
+        assert abs(float(d["loss"]) - ref) <= PIPE_RTOL * abs(ref)
+    # Gradients flow through the permutes: every leaf of every stage.
+    for d in ranks:
+        grads = [v for k, v in d.items() if k.startswith("grads/")]
+        assert grads and all(np.abs(g).max() > 0 for g in grads)
+
+
+def test_elastic_restore_continues(groups):
+    saved = groups["res"]["save"]
+    for s in saved:           # each of the 4 ranks held its 2 x 2 blocks
+        assert 0 < int(s["held"]) < int(s["whole"])
+    assert bool(saved[0]["written_exact"])
+    for d in groups["res"]["restore"]:
+        assert bool(d["exact"]) and bool(d["shaped"])
+        assert int(d["held"]) < int(d["whole"])
+        assert np.isfinite(float(d["loss"])) and float(d["moved"]) > 0
+    losses = [float(d["loss"]) for d in groups["res"]["restore"]]
+    assert losses[0] == losses[1]
+
+
+def test_trainer_on_a_mesh_restarts_and_matches_one_device(groups, tmp_path):
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    ranks = groups["res"]["trainer"]
+    for d in ranks:
+        assert int(d["restarts"]) == 1
+        assert d["steps_written"].tolist() == [5, 10, 12]
+        np.testing.assert_array_equal(d["params"], ranks[0]["params"])
+        np.testing.assert_array_equal(d["losses"], ranks[0]["losses"])
+    _, cfg_t = groups["train"]
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        one = Trainer(cfg_t, DataConfig(vocab_size=cfg_t.vocab_size,
+                                        seq_len=S, global_batch=B),
+                      TrainerConfig(steps=12, checkpoint_every=5,
+                                    checkpoint_dir=str(tmp_path),
+                                    peak_lr=1e-3, warmup_steps=2,
+                                    log_every=10 ** 6),
+                      device="cpu").run(fail_at=7)
+    finally:
+        torch.set_num_threads(n)
+    # The losses from the restart on (steps 5-11) are the run's own.
+    np.testing.assert_allclose(ranks[0]["losses"], one["losses"],
+                               rtol=1e-5)
+
+
+def test_compress_psum_over_two_ranks(groups):
+    for d in groups["res"]["compress"]:
+        assert float(d["one_round_err"]) <= float(d["one_round_step"])
+        assert float(d["drift"]) <= 3 * float(d["scale"])
+
+
+# -- without a process group --------------------------------------------------
+
+def test_flash_decode_lse_combines_slices():
+    """The plain flash_decode's log-sum-exp: four slices of a cache, each
+    at its kv_pos offset, combined by their LSE, equal the decode over the
+    whole cache (the sequence-sharded decode's arithmetic), windowed too;
+    and the LSE is the logits' logsumexp over the visible keys."""
+    from repro_torch.kernels.flash_attention.decode import flash_decode
+
+    g = torch.Generator().manual_seed(0)
+    b, hq, hkv, s, d = 2, 8, 2, 64, 16
+    q = torch.randn(b, hq, d, generator=g)
+    k = torch.randn(b, hkv, s, d, generator=g)
+    v = torch.randn(b, hkv, s, d, generator=g)
+    for pos, window in [(37, None), (63, None), (40, 16), (5, None)]:
+        whole, lse = flash_decode(q, k, v, pos=pos, window=window,
+                                  return_lse=True)
+        kr = k.repeat_interleave(hq // hkv, 1)
+        logits = torch.einsum("bhd,bhsd->bhs", q, kr) * d ** -0.5
+        kp = torch.arange(s)
+        vis = kp <= pos
+        if window:
+            vis &= kp > pos - window
+        want = torch.logsumexp(logits.masked_fill(~vis, -float("inf")), -1)
+        torch.testing.assert_close(lse, want, rtol=1e-5, atol=1e-5)
+        parts = []
+        for i in range(4):
+            rows = slice(i * 16, (i + 1) * 16)
+            parts.append(flash_decode(
+                q, k[:, :, rows].contiguous(), v[:, :, rows].contiguous(),
+                pos=pos, kv_pos=torch.arange(i * 16, (i + 1) * 16,
+                                             dtype=torch.int32),
+                window=window, return_lse=True))
+        top = torch.stack([p[1] for p in parts]).amax(0)
+        w = [torch.exp(p[1] - top)[..., None] for p in parts]
+        out = sum(wi * p[0] for wi, p in zip(w, parts)) / sum(w)
+        torch.testing.assert_close(out, whole, rtol=1e-5, atol=1e-5)
+
+
+def test_stage_params_stack_a_models_layers():
+    """``pipeline.stage_params`` stacks a model's layers into the stages,
+    so the sequential pipeline loss is the model's own fused loss."""
+    from repro_torch.distributed import pipeline
+    from repro_torch.models import api, transformer
+
+    cfg = dataclasses.replace(configs.get_smoke("qwen2-1.5b"), n_layers=4,
+                              layer_pattern=None).validate()
+    p = api.init_params(cfg, 3, device="cpu")
+    tok = torch.from_numpy(chip_smoke._mesh_tokens(7, (2, 8),
+                                                   cfg.vocab_size))
+    staged = pipeline.stage_params(p, 2)
+    assert staged["stages"]["norm1_w"].shape == (2, 2, cfg.d_model)
+    torch.testing.assert_close(staged["stages"]["attn"]["wq"][1, 0],
+                               p["layers"][2]["attn"]["wq"])
+    hidden = transformer.forward(p, cfg, tok, logits_mode="hidden").hidden
+    want = transformer.fused_lm_loss(p["embed"].t(), hidden, tok, cfg,
+                                     chunk=8)
+    got = pipeline.sequential_reference_loss(cfg, staged, tok, tok)
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+
+
+def test_mesh_entry_points_refuse_without_a_process_group(tmp_path):
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.launch.mesh import (
+        make_local_mesh, make_production_mesh,
+    )
+    from repro_torch.models import api
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    with pytest.raises(RuntimeError, match="process group"):
+        make_local_mesh(1, 1, device="cpu")
+    with pytest.raises(RuntimeError, match="process group"):
+        make_production_mesh(device="cpu")
+    cfg = configs.get_smoke("qwen2-1.5b")
+    with pytest.raises(TypeError, match="not a mesh"):
+        Trainer(cfg, DataConfig(vocab_size=cfg.vocab_size, seq_len=8,
+                                global_batch=2),
+                TrainerConfig(checkpoint_dir=str(tmp_path)), mesh=object(),
+                device="cpu")
+    # The serving engine has no mesh, as the reference's has none.
+    params = api.init_params(cfg, 0, device="cpu")
+    with pytest.raises(TypeError):
+        ServeEngine(cfg, params, mesh=object(), device="cpu")
+
+
+def test_a_mesh_needs_the_whole_world(tmp_path):
+    """One rank of a one-rank group cannot hold a 2 x 2 mesh; a 1 x 1 mesh
+    is this rank at (0, 0), its groups of one rank."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed import sharding_rules as rules
+    from repro_torch.distributed.process_group import init_process_group
+    from repro_torch.launch.mesh import make_local_mesh, make_production_mesh
+
+    init_process_group("gloo", 0, 1, tmp_path / "store", timeout_s=60)
+    try:
+        with pytest.raises(ValueError, match="needs 4 ranks"):
+            make_local_mesh(2, 2, device="cpu")
+        with pytest.raises(ValueError, match="needs 256 ranks"):
+            make_production_mesh(device="cpu")
+        ctx = rules.make_context(make_local_mesh(1, 1, device="cpu"))
+        assert ctx.batch_axes == ("data",)
+        assert (ctx.model_size, ctx.model_index) == (1, 0)
+        assert (ctx.axis_size("batch"), ctx.axis_index("batch")) == (1, 0)
+    finally:
+        dist.destroy_process_group()

@@ -3,7 +3,10 @@ reference's six trainer behaviours (``tests/test_trainer.py``: the loss
 falls, an injected failure restores and finishes, a failure before any
 checkpoint, too many failures raise, stragglers, microbatches), and a run
 interrupted by ``fail_at`` ending with the same parameters as one that was
-not. Also the launcher, the refusals of a mesh and of a missing card."""
+not. Also the launcher, the refusals of what is not a mesh, of a mesh
+without a process group and of a missing card."""
+import time
+
 import numpy as np
 import pytest
 
@@ -99,6 +102,29 @@ def test_an_interrupted_run_ends_with_the_uninterrupted_params(tmp_path):
         assert torch.equal(a, b)
 
 
+def test_a_restart_waits_for_the_save_in_flight(tmp_path, monkeypatch):
+    """A failure one step after an async save whose write is slow (here
+    held 0.5 s) restores that save's checkpoint, not the one before it,
+    and ends with the uninterrupted run's parameters."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+
+    clean = _trainer(tmp_path / "clean", steps=14).run()
+    write = CheckpointManager._write
+
+    def slow_write(self, *args):
+        time.sleep(0.5)
+        return write(self, *args)
+
+    monkeypatch.setattr(CheckpointManager, "_write", slow_write)
+    failed = _trainer(tmp_path / "failed", steps=14).run(fail_at=11)
+    assert failed["restarts"] == 1
+    assert len(failed["losses"]) == 11 + 14 - 10
+    assert failed["losses"][-4:] == clean["losses"][-4:]
+    for a, b in zip(tree_leaves(clean["params"]),
+                    tree_leaves(failed["params"])):
+        assert torch.equal(a, b)
+
+
 def test_a_missing_path_is_not_retried(tmp_path, monkeypatch):
     """NotImplementedError (a kernel without a backward on the card) is not
     a worker failure: it is raised at once, not restored and retried."""
@@ -116,12 +142,89 @@ def test_a_missing_path_is_not_retried(tmp_path, monkeypatch):
 
 
 def test_a_mesh_raises(tmp_path):
+    """A mesh needs a process group (``launch/mesh.py``): without one,
+    building it raises, and the Trainer refuses what is not a mesh. A
+    Trainer on a mesh runs in ``tests/test_torch_mesh.py``."""
+    from repro_torch.launch.mesh import make_local_mesh
+
     cfg = configs.get_smoke("qwen2-1.5b")
-    with pytest.raises(NotImplementedError, match="distributed"):
+    with pytest.raises(TypeError, match="not a mesh"):
         Trainer(cfg, DataConfig(vocab_size=cfg.vocab_size, seq_len=8,
                                 global_batch=2),
                 TrainerConfig(checkpoint_dir=str(tmp_path)), mesh=object(),
                 device="cpu")
+    with pytest.raises(RuntimeError, match="process group"):
+        make_local_mesh(1, 1, device="cpu")
+
+
+_ONE_RANK_FAILS = r"""
+import sys
+import torch
+sys.path.insert(0, sys.argv[4])
+from repro_torch import configs
+from repro_torch.data.pipeline import DataConfig
+from repro_torch.distributed.process_group import init_process_group
+from repro_torch.launch.mesh import make_local_mesh
+from repro_torch.train.trainer import Trainer, TrainerConfig
+
+rank, store, ckpt = int(sys.argv[1]), sys.argv[2], sys.argv[3]
+torch.set_num_threads(1)
+init_process_group("gloo", rank, 2, store, timeout_s=60)
+cfg = configs.get_smoke("qwen2-1.5b")
+trainer = Trainer(
+    cfg, DataConfig(vocab_size=cfg.vocab_size, seq_len=8, global_batch=2),
+    TrainerConfig(steps=4, checkpoint_every=1, checkpoint_dir=ckpt,
+                  log_every=10 ** 6),
+    mesh=make_local_mesh(2, 1, device="cpu"), device="cpu")
+step, calls = trainer._step, []
+
+
+def failing(*args):
+    calls.append(1)
+    if rank == 1 and len(calls) == 2:
+        raise torch.OutOfMemoryError("rank 1 alone ran out of memory")
+    return step(*args)
+
+
+trainer._step = failing
+trainer.run(max_restarts=2)
+print("finished", flush=True)
+"""
+
+
+def test_a_failure_of_one_mesh_rank_raises_on_every_rank(tmp_path):
+    """A RuntimeError on one rank of a mesh (here an out-of-memory error
+    before the step's collectives) is not restarted in place: that rank
+    raises it, and its peer, left in the step's all-reduce, raises the
+    group's error, well before the collectives' 60 s timeout. Restarting
+    the failed rank alone would pair its restore's barrier with its peer's
+    all-reduce."""
+    import os
+    import subprocess
+    import sys
+    import time
+    from pathlib import Path
+
+    src = str(Path(__file__).resolve().parents[1] / "src")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    t0 = time.monotonic()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _ONE_RANK_FAILS, str(r),
+         str(tmp_path / "store"), str(tmp_path / "ckpt"), src],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
+        for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=50) for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    took = time.monotonic() - t0
+    assert all(p.returncode != 0 for p in procs), [o[1][-2000:]
+                                                   for o in outs]
+    assert "rank 1 alone ran out of memory" in outs[1][1]
+    assert all("finished" not in o[0] for o in outs)
+    assert all("restart 1" not in o[1] for o in outs)
+    assert took < 50
 
 
 def test_tile_plans_resolve_the_train_cell(tmp_path):

@@ -4,11 +4,15 @@ the source tree named by ``--src``, on one NVIDIA card.
 
     python3 tools/time_flash_decode.py --src src --pos device
     python3 tools/time_flash_decode.py --src OLD/src --pos int
+    python3 tools/time_flash_decode.py --src src --lse
 
 It compares two versions of the kernel in one call: run it once per tree
 (old, new, new, old) and read the JSON lines. ``--pos device`` passes the
 position as a 0-d int32 tensor on the card (the kernel reads it from device
 memory); ``--pos int`` as a Python int, for a wrapper that takes only that.
+``--lse`` times each shape both without and with each row's log-sum-exp
+(``return_lse=True``, which a wrapper older than that output does not
+take), in turns off, on, on, off within the process.
 Times are ``chip_smoke.time_ms``'s: CUDA events around the replay of a CUDA
 graph of many calls on input copies that overflow the L2 cache; beside them
 each launch's device time from ``torch.profiler`` (``chip_smoke.
@@ -42,6 +46,8 @@ def main(argv=None) -> int:
     ap.add_argument("--src", required=True,
                     help="the src directory whose repro_torch to time")
     ap.add_argument("--pos", choices=("device", "int"), default="device")
+    ap.add_argument("--lse", action="store_true",
+                    help="also time the calls that return the log-sum-exp")
     args = ap.parse_args(argv)
     import torch
 
@@ -65,12 +71,26 @@ def main(argv=None) -> int:
                    randn((b, hkv, s, d))) for _ in range(copies_for(nb))]
         p = (torch.full((), pos, dtype=torch.int32, device="cuda")
              if args.pos == "device" else pos)
-        calls = [lambda x=x, y=y, z=z: flash_decode(
-            x, y, z, pos=p, window=window) for x, y, z in copies]
-        ms = time_ms(calls)
-        launches = device_kernels(calls[0])
-        print(json.dumps(dict(shape=label, ms=ms, launch_ms=launches,
-                              src=args.src)), flush=True)
+        def calls(lse):
+            kw = dict(return_lse=True) if lse else {}
+            return [lambda x=x, y=y, z=z: flash_decode(
+                x, y, z, pos=p, window=window, **kw) for x, y, z in copies]
+
+        if not args.lse:
+            fns = calls(False)
+            print(json.dumps(dict(shape=label, ms=time_ms(fns),
+                                  launch_ms=device_kernels(fns[0]),
+                                  src=args.src)), flush=True)
+            continue
+        modes = {False: calls(False), True: calls(True)}
+        ms = {False: [], True: []}
+        for lse in (False, True, True, False):
+            ms[lse].append(time_ms(modes[lse]))
+        print(json.dumps(dict(
+            shape=label, ms_off=ms[False], ms_on=ms[True],
+            launch_ms_off=device_kernels(modes[False][0]),
+            launch_ms_on=device_kernels(modes[True][0]), src=args.src)),
+            flush=True)
     return 0
 
 
