@@ -278,6 +278,22 @@ Phases, each of which fails the run if it fails:
    headline shape and at phase 18's slices, and times the headline call
    with and without it.
 
+19. the dry run (last): (a) ``python -m repro_torch.launch.dryrun --arch
+   qwen2-1.5b --single-pod --force`` on the host — a count of rank 0's
+   step of each single-pod shape on ``meta`` tensors under a fake 256-rank
+   group, started before phase 17 beside the card's work and collected
+   here — its reference-style lines printed; (b) the count against the
+   card: a bf16 train step of full-width qwen2-1.5b (28 layers, 8 x 512,
+   AdamW with bf16 moments, remat) and an eager bf16 decode step (4 rows,
+   a 1024-position cache), each counted on a 1 x 1 mesh, then run three
+   times on the card: the counted launches equal one real step's
+   ``build.LAUNCHES`` delta, kernel by kernel; the counted peak lies within
+   10% of ``torch.cuda.max_memory_allocated`` over the step (from
+   ``reset_peak_memory_stats``, less what was allocated before the step's
+   tensors were made); the median step time is at least the roofline's
+   ``total_s``; the train step's losses are finite. Measured / ``total_s``
+   is printed for each.
+
 ``--profile`` adds, after phase 5, where the time of one full-width qwen2
 request goes (prefill, eager decode, captured decode): wall time, device
 time by kernel group and the device's idle share; and the same for one
@@ -410,6 +426,30 @@ def library_ms(fns):
         return None
 
 
+def mm_flops(m, n, k):
+    from repro_torch.kernels.matmul.ops import flops
+
+    return flops(m, n, k)
+
+
+def decode_flops(b, hq, d, seen):
+    from repro_torch.kernels.flash_attention.decode import flops
+
+    return flops(b, hq, d, seen)
+
+
+def bilinear_flops(out_h, out_w):
+    from repro_torch.kernels.bilinear.ops import flops
+
+    return flops(out_h, out_w)
+
+
+def rglru_flops(b, s, f):
+    from repro_torch.kernels.rglru.ops import flops
+
+    return flops(b, s, f)
+
+
 def bound(nbytes: float, flops: float, rate: str):
     """The least time (ms) for the bytes and the operations; ``rate`` names
     the peak the kernel's arithmetic runs at (a key of PEAK_FLOPS)."""
@@ -515,7 +555,7 @@ def kernel_checks(quick: bool):
                 timing = None
                 if not quick:
                     nb = (m * k + k * n + m * n) * a.element_size()
-                    t_b, by = bound(nb, 2.0 * m * k * n, dname)
+                    t_b, by = bound(nb, mm_flops(m, n, k), dname)
                     copies = [(randn((m, k), dt), randn((k, n), dt))
                               for _ in range(copies_for(nb))]
                     timing = dict(
@@ -689,7 +729,7 @@ def kernel_checks(quick: bool):
                 seen = pos + 1
                 eb = q.element_size()
                 nb = (2 * q.numel() + 2 * HKV * seen * HEAD_DIM) * eb
-                t_b, by = bound(nb, 4.0 * HEAD_DIM * HQ * seen, dname)
+                t_b, by = bound(nb, decode_flops(1, HQ, HEAD_DIM, seen), dname)
                 mask = (torch.arange(s, device=dev) <= pos)[None, None, None]
                 copies = [(randn(q.shape, dt), randn(k.shape, dt),
                            randn(v.shape, dt)) for _ in range(copies_for(nb))]
@@ -1000,7 +1040,7 @@ def head_dim_256_checks(record, randn, dtypes, quick: bool):
         if not quick:
             seen = min(s, win)
             nb = (2 * qd.numel() + 2 * hkv * seen * d) * qd.element_size()
-            t_b, by = bound(nb, 4.0 * d * hq * seen, dname)
+            t_b, by = bound(nb, decode_flops(1, hq, d, seen), dname)
             kp = torch.arange(s, device="cuda")
             mask = (kp > s - 1 - win)[None, None, None]
             copies = [(randn(qd.shape, dt), randn(k.shape, dt),
@@ -1086,7 +1126,7 @@ def moe_slice_checks(record, randn, dtypes, quick: bool):
         if timed:
             seen = pos + 1
             nb = (2 * q.numel() + 2 * hkv * seen * d) * q.element_size()
-            t_b, by = bound(nb, 4.0 * d * hq * seen, dname)
+            t_b, by = bound(nb, decode_flops(1, hq, d, seen), dname)
             mask = (torch.arange(s, device="cuda") <= pos)[None, None, None]
             copies = [(randn(q.shape, dt), randn(k.shape, dt),
                        randn(v.shape, dt)) for _ in range(copies_for(nb))]
@@ -1132,7 +1172,7 @@ def moe_slice_checks(record, randn, dtypes, quick: bool):
                 timing = None
                 if timed:
                     nb = (m * k + k * n + m * n) * a.element_size()
-                    t_b, by = bound(nb, 2.0 * m * k * n, dname)
+                    t_b, by = bound(nb, mm_flops(m, n, k), dname)
                     copies = [(randn((m, k), dt), randn((k, n), dt))
                               for _ in range(copies_for(nb))]
                     timing = dict(
@@ -1220,7 +1260,7 @@ def head_dim_80_checks(record, randn, dtypes, quick: bool):
             splits = decode_splits(b, hkv, s, bkv, pos, True).splits
             if not quick:
                 nb = (2 * q.numel() + 2 * k.numel()) * q.element_size()
-                t_b, by = bound(nb, 4.0 * d * b * hq * s, dname)
+                t_b, by = bound(nb, decode_flops(b, hq, d, s), dname)
                 copies = [(randn(q.shape, dt), randn(k.shape, dt),
                            randn(v.shape, dt)) for _ in range(copies_for(nb))]
                 timing = dict(
@@ -1267,7 +1307,8 @@ def bilinear_checks(record, randn, dtypes, quick: bool):
             if not quick:
                 eb = src.element_size()
                 nb = (side * side + (side * scale) ** 2) * eb
-                t_b, by = bound(nb, 3.0 * (side * scale) ** 2, dname)
+                t_b, by = bound(nb, bilinear_flops(side * scale, side * scale),
+                                dname)
                 copies = [randn(src.shape, dt) for _ in range(copies_for(nb))]
                 lib = lib_err = None
                 if dt == torch.float32:
@@ -1414,7 +1455,7 @@ def rglru_checks(record, dtypes, quick: bool):
                 torch.cuda.synchronize()
                 timing = None
                 if not quick:
-                    t_b, by = bound(nb, 2.0 * s * f, dname)
+                    t_b, by = bound(nb, rglru_flops(1, s, f), dname)
                     if plain is None:
                         plain = time_ms([lambda c=c: rglru_scan_ref(*c)
                                          for c in copies], iters=2)
@@ -4809,7 +4850,7 @@ def train_shape_times():
     for dname, dt in dtypes:
         for (mm_, k, n), role in per_layer.items():
             nb = (mm_ * k + k * n + mm_ * n) * (4 if dname == "float32" else 2)
-            t_b, by = bound(nb, 2.0 * mm_ * k * n, dname)
+            t_b, by = bound(nb, mm_flops(mm_, n, k), dname)
             copies = [(randn((mm_, k), dt), randn((k, n), dt, k ** -0.5))
                       for _ in range(copies_for(nb))]
             row = dict(kernel="matmul", dtype=dname, role=role,
@@ -6846,6 +6887,182 @@ MAMBA2_SERVE_LAYERS = 32
 RECURRENTGEMMA_LENGTHS = (2100, 2040, 64, 500)
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: the dry run, and its count against the card
+# ---------------------------------------------------------------------------
+
+# The counted peak against torch.cuda.max_memory_allocated: relative.
+PEAK_REL_TOL = 0.10
+DRYRUN_ARCH = "qwen2-1.5b"
+
+
+def start_host_dryrun():
+    """Phase 19 (a) on the host, beside the card's work: the dry run's CLI
+    over qwen2-1.5b's single-pod cells, in a process of its own."""
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    return subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         DRYRUN_ARCH, "--single-pod", "--force"], cwd=str(ROOT), env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def _storage_bytes(tree) -> int:
+    seen, total = set(), 0
+    for t in _leaves(tree):
+        if hasattr(t, "untyped_storage"):
+            st = t.untyped_storage()
+            if st.data_ptr() not in seen:
+                seen.add(st.data_ptr())
+                total += st.nbytes()
+    return total
+
+
+def _calibrate(label, count, run, make_args, runs: int = 3):
+    """Run a counted step ``runs`` times on the card and hold it to its
+    count: launches, peak bytes, time against the roofline's total_s."""
+    import torch
+    from repro_torch.core.hardware import H100_SXM
+    from repro_torch.kernels import build
+    from repro_torch.roofline import analysis as RA
+
+    terms = RA.analyze(count, H100_SXM)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    args = make_args()
+    torch.cuda.synchronize()
+    times, peaks, launches, outs = [], [], None, []
+    for i in range(runs):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = dict(build.LAUNCHES)
+        t0 = time.perf_counter()
+        outs.append(run(*args))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        peaks.append(torch.cuda.max_memory_allocated() - base)
+        if launches is None:
+            launches = {k: build.LAUNCHES[k] - before[k] for k in before
+                        if build.LAUNCHES[k] != before[k]}
+    median = statistics.median(times)
+    counted_peak = float(count.peak_bytes)
+    peak = max(peaks)
+    rec = dict(launches=launches, counted_launches=dict(count.launches),
+               peak_bytes=peaks, counted_peak_bytes=counted_peak,
+               argument_bytes=_storage_bytes(list(args)),
+               ms=[t * 1e3 for t in times], median_ms=median * 1e3,
+               flops=count.flops, hbm_bytes=count.hbm_bytes,
+               total_s=terms.total_s, compute_s=terms.compute_s,
+               memory_s=terms.memory_s, dominant=terms.dominant,
+               over_total=median / terms.total_s)
+    log(f"  {label}: launches {launches} (counted {dict(count.launches)}); "
+        f"peak {peak / 1e9:.3f} GB (counted {counted_peak / 1e9:.3f} GB, "
+        f"{(counted_peak - peak) / peak:+.2%}); step ms "
+        f"{', '.join(f'{t * 1e3:.1f}' for t in times)} (median "
+        f"{median * 1e3:.1f}); roofline total_s {terms.total_s * 1e3:.3f} "
+        f"ms ({terms.dominant}; {count.flops:.4e} FLOPs, "
+        f"{count.hbm_bytes:.4e} B); measured / total_s "
+        f"{rec['over_total']:.2f}")
+    check(launches == dict(count.launches),
+          f"{label}: counted launches {dict(count.launches)} differ from the "
+          f"card's {launches}")
+    check(abs(counted_peak - peak) <= PEAK_REL_TOL * peak,
+          f"{label}: counted peak {counted_peak:.4e} B is not within "
+          f"{PEAK_REL_TOL:.0%} of the card's {peak:.4e} B")
+    check(median >= terms.total_s,
+          f"{label}: {median:.6f} s a step is faster than the roofline's "
+          f"{terms.total_s:.6f} s")
+    return rec, outs
+
+
+def dryrun_phase(host):
+    """Phase 19: (a) the host's count of qwen2-1.5b's single-pod cells
+    (``host``, the process ``start_host_dryrun`` started), (b) the count of
+    a bf16 train and decode step held against the same steps on the
+    card."""
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.launch import dryrun
+    from repro_torch.models import api
+    from repro_torch.optim import adamw
+    from repro_torch.train.step import make_serve_steps, make_train_step
+
+    out = {}
+    # (a) The host's dry run.
+    text, _ = host.communicate(timeout=600)
+    lines = [x for x in text.splitlines() if x.startswith(DRYRUN_ARCH)]
+    for x in lines:
+        log(f"  {x}")
+    check(host.returncode == 0, f"the dry run exited {host.returncode}:\n"
+          f"{text[-2000:]}")
+    cells = {}
+    for shape in ("train_4k", "prefill_32k", "decode_32k", "long_500k"):
+        res = json.loads(Path(dryrun.cell_path(DRYRUN_ARCH, shape, False))
+                         .read_text())
+        want = "skipped" if shape == "long_500k" else "ok"
+        check(res["status"] == want, f"dry run {shape}: {res['status']} "
+              f"{res.get('error', res.get('reason', ''))}")
+        cells[shape] = res
+    out["cells"] = cells
+
+    # (b) The count against the card.
+    cfg = configs.get_arch(DRYRUN_ARCH)
+    train_shape = ShapeSpec("calibration_train", 512, 8, "train")
+    decode_shape = ShapeSpec("calibration_decode", 1024, 4, "decode")
+    t0 = time.perf_counter()
+    with dryrun.cell_mesh(local=(1, 1)) as mesh:
+        train_count, _ = dryrun._compile_step(cfg, train_shape, mesh)
+        decode_count, _ = dryrun._compile_step(cfg, decode_shape, mesh)
+    log(f"  counted the train and decode steps on meta in "
+        f"{time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(19)
+
+    def params():
+        return api.init_params(cfg, 0, dtype=torch.bfloat16, device="cuda")
+
+    def train_args():
+        p = params()
+        opt = adamw.init_state(p, dryrun.OPT_CFG)
+        batch = {k: torch.from_numpy(rng.integers(
+            2, cfg.vocab_size, (8, 512)).astype(np.int32)).cuda()
+            for k in ("tokens", "targets")}
+        return p, opt, batch
+
+    step = make_train_step(cfg, dryrun.OPT_CFG, microbatches=1,
+                           accum_dtype=torch.float32)
+    out["train"], steps = _calibrate("train step (bf16, 8 x 512, remat)",
+                                     train_count, step, train_args)
+    losses = [float(m["loss"]) for _, _, m in steps]
+    log(f"  losses {', '.join(f'{x:.4f}' for x in losses)}")
+    check(all(math.isfinite(x) for x in losses),
+          f"bf16 train losses not finite: {losses}")
+    out["train"]["losses"] = losses
+    del steps
+    torch.cuda.empty_cache()
+
+    _, decode = make_serve_steps(cfg, None, max_len=1024,
+                                 dtype=torch.bfloat16)
+
+    def decode_args():
+        state = api.make_serve_state(cfg, 4, 1024, torch.bfloat16,
+                                     device="cuda")
+        tok = torch.from_numpy(rng.integers(
+            2, cfg.vocab_size, (4, 1)).astype(np.int32)).cuda()
+        return params(), tok, state
+
+    out["decode"], steps = _calibrate(
+        "decode step (bf16, 4 rows, cache 1024, eager)", decode_count,
+        decode, decode_args)
+    logits = steps[-1][0]
+    check(bool(torch.isfinite(logits.float()).all()),
+          "bf16 decode logits not finite")
+    del steps
+    torch.cuda.empty_cache()
+    return out
+
+
 def kernels_line(rows, launches, by_path=None):
     out = []
     for name, meta in KERNEL_META.items():
@@ -6892,6 +7109,7 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(SRC))
     t_start = time.perf_counter()
     result = {}
+    host_dryrun = None
     try:
         # 1. The card.
         smi = subprocess.run(
@@ -7101,6 +7319,9 @@ def main(argv=None) -> int:
             result["internvl2"] = internvl_phase()
             phase_done("15d internvl2", t0)
 
+            # 19 (a) runs on the host beside phases 17 and 18.
+            host_dryrun = start_host_dryrun()
+
             # 17. Training (last: its full-width state needs the card's
             # memory to itself).
             log("== 17: training on the card: kernel gradients, full-width "
@@ -7115,6 +7336,14 @@ def main(argv=None) -> int:
             t0 = time.perf_counter()
             result["mesh"] = mesh_phase()
             phase_done("18 mesh", t0)
+
+            # 19. The dry run, and its count against the card.
+            log("== 19: the dry run — qwen2-1.5b's single-pod cells counted "
+                "on the host; a bf16 train and decode step counted, then run "
+                "on the card")
+            t0 = time.perf_counter()
+            result["dryrun"] = dryrun_phase(host_dryrun)
+            phase_done("19 dryrun", t0)
 
             check("jax" not in sys.modules, "jax was imported")
             check(not any(m == "repro" or m.startswith("repro.")
@@ -7159,6 +7388,10 @@ def main(argv=None) -> int:
         traceback.print_exc()
         print(f"chip_smoke: FAIL: {exc}", file=sys.stderr)
         return 1
+    finally:
+        if host_dryrun is not None and host_dryrun.poll() is None:
+            host_dryrun.kill()
+            host_dryrun.wait()
     log(f"done in {result['seconds']:.1f} s")
     if not args.quick:
         log(json.dumps(line))

@@ -13,7 +13,10 @@ collectives; the port runs the same bodies on one process a rank, with
 * ``axis_index`` -> the rank's coordinate (``models/context.py``).
 
 Every rank must call the same collectives in the same order; nothing here
-branches around one.
+branches around one. On ``meta`` tensors (a dry run's count, under a fake
+process group) each call records its kind and result bytes in the open
+count (``roofline/count.py``) and moves nothing: no host staging, no
+transfer.
 
 gloo on CUDA tensors. gloo reduces and broadcasts CUDA tensors, but it has
 no CUDA all-gather and its point-to-point sends take host tensors. For
@@ -45,6 +48,9 @@ from typing import Sequence, Tuple
 import torch
 import torch.distributed as dist
 
+from repro_torch.roofline import count as _count
+from repro_torch.roofline.analysis import result_bytes
+
 _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
 
 
@@ -60,10 +66,25 @@ def _to_host(x: torch.Tensor) -> torch.Tensor:
     return h
 
 
+def _counted(kind: str, out: torch.Tensor, group) -> bool:
+    """On a ``meta`` tensor (a dry run's count): record the call's kind and
+    result bytes in the open count and return True; the caller then skips
+    the transfer (no data exists, nothing is staged). A group of one rank
+    moves nothing and records nothing. False off ``meta``."""
+    if not out.is_meta:
+        return False
+    count = _count.active()
+    if count is not None and dist.get_world_size(group) > 1:
+        count.collective(kind, result_bytes([(out.shape, out.dtype)]))
+    return True
+
+
 def all_reduce(x: torch.Tensor, op: str = "sum", group=None) -> torch.Tensor:
     """A new tensor: ``x`` reduced over ``group`` (gloo and NCCL reduce CUDA
     tensors in place, so nothing is staged)."""
     out = x.detach().clone().contiguous()
+    if _counted("all-reduce", out, group):
+        return out
     dist.all_reduce(out, op=_OPS[op], group=group)
     return out
 
@@ -75,6 +96,10 @@ def all_gather(x: torch.Tensor, dim: int = 0, group=None) -> torch.Tensor:
     if n == 1:
         return x.detach().clone()
     moved = x.detach().movedim(dim, 0).contiguous()
+    if moved.is_meta:
+        out = moved.new_empty((n * moved.shape[0],) + moved.shape[1:])
+        _counted("all-gather", out, group)
+        return out.movedim(0, dim).contiguous()
     if _host_staged(x, group):
         src = _to_host(moved)
         parts = [torch.empty_like(src) for _ in range(n)]
@@ -93,6 +118,10 @@ def permute(x: torch.Tensor, pairs: Sequence[Tuple[int, int]],
     ``(src, dst)`` pair sends its ``x`` to ``dst``; a rank that receives
     nothing gets zeros. Ranks are the group's own."""
     me = dist.get_rank(group)
+    if x.is_meta:
+        recv = torch.empty_like(x.detach().contiguous())
+        _counted("collective-permute", recv, group)
+        return recv
     staged = _host_staged(x, group)
     send = x.detach().contiguous()
     if staged:

@@ -115,12 +115,23 @@ def upscale(src: torch.Tensor, scale: int, tile=None) -> torch.Tensor:
     out = torch.empty((h * scale, w * scale), dtype=src.dtype, device=src.device)
     if out.numel() == 0:
         return out
-    rc = _lib()(src.data_ptr(), out.data_ptr(), h, w, scale,
-                build.dtype_code(src.dtype), bh, bw,
-                build.stream_ptr(src.device))
-    build.check(rc, "bilinear")
-    build.LAUNCHES["bilinear"] += 1
+    meta = build.is_meta(src)
+    if meta:
+        build.meta_work("bilinear", flops(h * scale, w * scale),
+                        build.nbytes(src, out))
+    else:
+        rc = _lib()(src.data_ptr(), out.data_ptr(), h, w, scale,
+                    build.dtype_code(src.dtype), bh, bw,
+                    build.stream_ptr(src.device))
+        build.check(rc, "bilinear")
+    build.launched("bilinear", meta)
     return out
+
+
+def flops(out_h: int, out_w: int) -> float:
+    """The upscale's operations: three blends (two along a row, one
+    between the rows) an output pixel."""
+    return 3.0 * out_h * out_w
 
 
 # --------------------------------------------------------------------------
@@ -260,5 +271,5 @@ CUDA_SPEC = registry.register(registry.KernelSpec(
 
 
 __all__ = ["CUDA_SPEC", "ROWS", "SPEC", "bilinear_upscale_ref", "footprint",
-           "launch_tile", "smem_bytes", "store_path", "upscale",
+           "flops", "launch_tile", "smem_bytes", "store_path", "upscale",
            "vector_pixels"]

@@ -22,6 +22,8 @@ import time
 from pathlib import Path
 from typing import Dict, Iterable, Optional
 
+from repro_torch.roofline import count as _count
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = {
     "matmul": "matmul.cu",
@@ -142,14 +144,51 @@ def dtype_code(dtype) -> int:
     return {torch.float32: 0, torch.bfloat16: 1}[dtype]
 
 
+def is_meta(*tensors) -> bool:
+    """Whether a call is counted rather than launched: True when every
+    tensor given (None skipped) is on ``meta``, False when none is. A mix
+    of ``meta`` and real tensors raises: a count never touches data."""
+    metas = [t.is_meta for t in tensors if t is not None]
+    if any(metas) and not all(metas):
+        raise ValueError("a kernel call mixes meta and real tensors")
+    return bool(metas) and all(metas)
+
+
+def launched(name: str, meta: bool) -> None:
+    """One call of ``name``'s kernel: on the card it counts in
+    :data:`LAUNCHES`; on ``meta`` (a dry run's count, nothing launched) in
+    the open count's launches (``roofline/count.py``), under the same key."""
+    if not meta:
+        LAUNCHES[name] += 1
+    elif _count.active() is not None:
+        _count.active().count_launch(name)
+
+
+def meta_work(name: str, flops: float, nbytes: float) -> None:
+    """The operations and bytes (operands, outputs and workspaces) of one
+    kernel launch a ``meta`` call stands for, into the open count. A
+    wrapper given ``meta`` tensors makes every decision it makes on the
+    card (regime, tile, splits, workspaces, autograd Function) and stops
+    where it would launch, so the count sees the card's launches."""
+    if _count.active() is not None:
+        _count.active().kernel_work(name, flops, nbytes)
+
+
+def nbytes(*tensors) -> int:
+    """Bytes of the tensors given (None skipped)."""
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)
+
+
 def check_cuda_operands(name: str, *tensors) -> None:
     """Raise unless every tensor is a contiguous float32/bfloat16 CUDA
-    tensor of one device and dtype."""
+    tensor of one device and dtype (or, for a count, all on ``meta``)."""
     import torch
 
     first = tensors[0]
     for t in tensors:
-        if t.device.type != "cuda" or t.device != first.device:
+        if (t.device.type not in ("cuda", "meta")
+                or t.device != first.device):
             raise ValueError(f"{name} needs its operands on one CUDA device, "
                              f"got {[str(x.device) for x in tensors]}")
         if (t.dtype not in (torch.float32, torch.bfloat16)

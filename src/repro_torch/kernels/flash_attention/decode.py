@@ -212,18 +212,31 @@ def flash_decode(
                              dtype=torch.float32, device=q.device)
         ws_ml = torch.empty((b, hkv, splits, n_rep, 2),
                             dtype=torch.float32, device=q.device)
-    rc = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                kv_pos.data_ptr() if kv_pos is not None else None,
-                pos.data_ptr(), out.data_ptr(),
-                ws_acc.data_ptr() if ws_acc is not None else None,
-                ws_ml.data_ptr() if ws_ml is not None else None,
-                lse.data_ptr() if lse is not None else None,
-                b, hq, hkv, s, d, build.dtype_code(q.dtype), bkv,
-                float(scale), int(window or 0), float(softcap or 0.0),
-                splits, build.stream_ptr(q.device))
-    build.check(rc, "flash_decode")
-    build.LAUNCHES["flash_decode"] += 1
+    meta = build.is_meta(q, k, v, kv_pos, pos)
+    if meta:
+        # pos is on the device, so a count takes every key as seen.
+        build.meta_work("flash_decode", flops(b, hq, d, s),
+                        build.nbytes(q, k, v, kv_pos, pos, out, ws_acc,
+                                     ws_ml, lse))
+    else:
+        rc = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                    kv_pos.data_ptr() if kv_pos is not None else None,
+                    pos.data_ptr(), out.data_ptr(),
+                    ws_acc.data_ptr() if ws_acc is not None else None,
+                    ws_ml.data_ptr() if ws_ml is not None else None,
+                    lse.data_ptr() if lse is not None else None,
+                    b, hq, hkv, s, d, build.dtype_code(q.dtype), bkv,
+                    float(scale), int(window or 0), float(softcap or 0.0),
+                    splits, build.stream_ptr(q.device))
+        build.check(rc, "flash_decode")
+    build.launched("flash_decode", meta)
     return (out, lse) if return_lse else out
+
+
+def flops(b: int, hq: int, d: int, seen: int) -> float:
+    """One query a (batch, head) over ``seen`` keys: q k^T and p v, two
+    operations a multiply-add."""
+    return 4.0 * d * b * hq * seen
 
 
 def flash_decode_ref(
@@ -369,5 +382,5 @@ def flash_decode_paged_ref(
 
 __all__ = ["DecodeSplits", "NEG_INF", "decode_splits", "fit_bkv",
            "flash_decode", "flash_decode_paged_ref", "flash_decode_ref",
-           "flash_decode_split_ref", "launch_bkv", "paged_gather",
+           "flash_decode_split_ref", "flops", "launch_bkv", "paged_gather",
            "paged_write", "smem_bytes", "split_count", "threads"]

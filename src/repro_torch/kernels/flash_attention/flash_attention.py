@@ -25,6 +25,7 @@ import torch
 from repro_torch.core.hardware import H100_SXM
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention.ref import NEG_INF, flash_attention_ref
+from repro_torch.models import flags
 
 HEAD_DIMS = (16, 32, 64, 80, 128, 256)   # head dims the .cu file compiles
 BQS = (64, 128)     # query rows a block: 1 or 2 warpgroups, 4 or 8 warps
@@ -53,6 +54,9 @@ def flash_attention(
     q and KV blocks are masked, so neither dim has to divide. On the CPU
     ``bkv`` is the reference's KV chunk. Under grad mode, with an input that
     requires grad, a CUDA call goes through :class:`_FlashAttentionFn`.
+    Under ``flags.ATTN_COMPUTE_BF16`` float32 CUDA (or ``meta``) tensors
+    run the bf16 (wgmma) regime; CPU tensors the plain version with bf16
+    products.
     """
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
@@ -67,6 +71,15 @@ def flash_attention(
     if q.device.type == "cpu" and k.device.type == "cpu" and v.device.type == "cpu":
         return flash_attention_ref(
             q, k, v, chunk=int(tile[1]) if tile is not None else 512, **opts)
+    if flags.ATTN_COMPUTE_BF16 and q.dtype == torch.float32:
+        # The reference's switch: the products in bf16, here the kernel's
+        # bf16 (wgmma) mode on bf16 copies, the output back in float32; a
+        # tile of the float32 regime gives way to the bf16 default.
+        bf = tuple(t.to(torch.bfloat16) for t in (q, k, v))
+        if tile is not None and tuple(int(x) for x in tile) not in \
+                regime_tiles(torch.bfloat16, d):
+            tile = None
+        return flash_attention(*bf, tile=tile, **opts).to(q.dtype)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return _FlashAttentionFn.apply(q, k, v, tile, opts)
     return _flash_cuda(q, k, v, tile, opts)
@@ -97,7 +110,7 @@ class _FlashAttentionFn(torch.autograd.Function):
             out = flash_attention_ref(*leaves, **ctx.opts)
             wanted = [t for t in leaves if t.requires_grad]
             grads = iter(torch.autograd.grad(out, wanted, dout))
-        build.LAUNCHES["flash_attention_bwd_plain"] += 1
+        build.launched("flash_attention_bwd_plain", q.is_meta)
         return (*(next(grads) if t.requires_grad else None for t in leaves),
                 None, None)
 
@@ -122,14 +135,50 @@ def _flash_cuda(q, k, v, tile, opts):
         return out
     if skv == 0:
         return out.zero_()
-    rc = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                b, hq, hkv, sq, skv, d, build.dtype_code(q.dtype), bq, bkv,
-                float(opts["scale"]), int(bool(opts["causal"])),
-                int(opts["window"] or 0), float(opts["softcap"] or 0.0),
-                int(opts["q_offset"]), build.stream_ptr(q.device))
-    build.check(rc, "flash_attention")
-    build.LAUNCHES["flash_attention"] += 1
+    meta = build.is_meta(q, k, v)
+    if meta:
+        build.meta_work("flash_attention", flops(
+            b, hq, sq, skv, d, (bq, bkv), causal=opts["causal"],
+            window=opts["window"], q_offset=opts["q_offset"]),
+            build.nbytes(q, k, v, out))
+    else:
+        rc = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                    b, hq, hkv, sq, skv, d, build.dtype_code(q.dtype), bq,
+                    bkv, float(opts["scale"]), int(bool(opts["causal"])),
+                    int(opts["window"] or 0), float(opts["softcap"] or 0.0),
+                    int(opts["q_offset"]), build.stream_ptr(q.device))
+        build.check(rc, "flash_attention")
+    build.launched("flash_attention", meta)
     return out
+
+
+def visible_blocks(sq: int, skv: int, tile, causal: bool = True,
+                   window: Optional[int] = None, q_offset: int = 0):
+    """The (query rows, keys) of every block the kernel computes: for each
+    block of ``bq`` query rows, the ``bkv``-key blocks from the window's
+    first to the causal diagonal's last (``kv_blocks`` in the source; the
+    rest are never loaded), cut at the sequences' ends."""
+    bq, bkv = int(tile[0]), int(tile[1])
+    out = []
+    for q0 in range(0, sq, bq):
+        rows = min(bq, sq - q0)
+        first, last = q_offset + q0, q_offset + q0 + rows - 1
+        hi = min(skv, last + 1) if causal else skv
+        lo = max(0, first - window + 1) if window else 0
+        for ib in range(lo // bkv, max(lo // bkv, -(-hi // bkv))):
+            out.append((rows, min(bkv, skv - ib * bkv)))
+    return out
+
+
+def flops(b: int, hq: int, sq: int, skv: int, d: int, tile,
+          causal: bool = True, window: Optional[int] = None,
+          q_offset: int = 0) -> float:
+    """The kernel's operations: the two products (q k^T and p v, two
+    operations a multiply-add) over every block it computes
+    (:func:`visible_blocks`), masked entries of a block included."""
+    pairs = sum(r * c for r, c in visible_blocks(sq, skv, tile, causal,
+                                                 window, q_offset))
+    return 4.0 * d * b * hq * pairs
 
 
 def _dtype_name(dtype) -> str:
@@ -203,5 +252,6 @@ def launch_tile(tile, d: int, dtype) -> Tuple[int, int]:
     return t
 
 
-__all__ = ["HEAD_DIMS", "NEG_INF", "flash_attention", "launch_tile",
-           "panel_dim", "regime", "regime_tiles", "smem_bytes", "threads"]
+__all__ = ["HEAD_DIMS", "NEG_INF", "flash_attention", "flops", "launch_tile",
+           "panel_dim", "regime", "regime_tiles", "smem_bytes", "threads",
+           "visible_blocks"]

@@ -19,6 +19,8 @@ from typing import Optional
 
 import torch
 
+from repro_torch.models import flags
+
 NEG_INF = -2.0e30
 
 
@@ -80,7 +82,14 @@ def flash_attention_ref(
     if n_rep > 1:
         k = k.repeat_interleave(n_rep, dim=1)
         v = v.repeat_interleave(n_rep, dim=1)
-    qf = q.float() * scale
+    # flags.ATTN_COMPUTE_BF16: the products' operands in the inputs' dtype
+    # (the scaled queries and the probabilities rounded to it), their sums
+    # and the softmax statistics in float32, as the reference computes.
+    cdt = q.dtype if flags.ATTN_COMPUTE_BF16 else torch.float32
+    if cdt == torch.float32:
+        qf = q.float() * scale
+    else:
+        qf = (q.to(cdt) * scale).float()
     q_pos = q_offset + torch.arange(sq, device=q.device)
     m = torch.full((b, hq, sq), NEG_INF, dtype=torch.float32, device=q.device)
     l = torch.zeros((b, hq, sq), dtype=torch.float32, device=q.device)
@@ -98,6 +107,8 @@ def flash_attention_ref(
         alpha = torch.exp(m - m_new)
         p = torch.exp(s - m_new[..., None])
         l = l * alpha + p.sum(dim=-1)
+        if cdt != torch.float32:
+            p = p.to(cdt).float()
         acc = acc * alpha[..., None] + torch.einsum("bhqk,bhkd->bhqd", p, v_blk)
         m = m_new
     out = acc / torch.clamp(l, min=1e-30)[..., None]

@@ -24,6 +24,7 @@ ragged edge. When the output tiles are too few for the card, K is split
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import math
 from typing import Mapping, Tuple
@@ -130,15 +131,111 @@ def mm(a: torch.Tensor, b: torch.Tensor, tile=None) -> torch.Tensor:
     tensors launch the kernel of their :func:`regime` with ``tile``
     (default: the spec's Hopper tile for this problem) or raise; under grad
     mode, with an operand that requires grad, through :class:`_MatmulFn`,
-    whose backward launches the same kernel.
+    whose backward launches the same kernel. Inside a layer checkpointed
+    under remat "dots" (:func:`kept_product_contexts`) the output is kept,
+    and the layer's recompute takes it back instead of launching.
     """
     if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
         raise ValueError(f"bad matmul shapes {tuple(a.shape)} @ {tuple(b.shape)}")
+    kept = _KEPT[-1] if _KEPT else None
+    if kept is not None and kept.replaying:
+        return kept.replay(a, b, tile)
+    grad = torch.is_grad_enabled() and (a.requires_grad or b.requires_grad)
     if a.device.type == "cpu" and b.device.type == "cpu":
-        return matmul_ref(a, b)
-    if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
-        return _MatmulFn.apply(a, b, tile)
-    return _mm_cuda(a, b, tile)
+        if kept is not None and grad:
+            # The Function the recompute replays through: it saves the same
+            # tensors, as the checkpoint requires.
+            with torch.no_grad():
+                out = matmul_ref(a, b)
+            out = _KeptPlainFn.apply(a, b, [out])
+        else:
+            out = matmul_ref(a, b)
+    elif grad:
+        out = _MatmulFn.apply(a, b, tile)
+    else:
+        out = _mm_cuda(a, b, tile)
+    if kept is not None:
+        kept.outputs.append(out.detach())
+    return out
+
+
+# -- remat "dots": a checkpointed layer keeps its products ---------------------
+# The reference's ``dots_with_no_batch_dims_saveable`` policy saves the
+# outputs of a rematerialised layer's products and recomputes the rest. The
+# port's products are ``mm`` calls, which launch the kernel through ctypes
+# where no aten-level policy sees them, so the checkpoint's two contexts
+# (``layers.maybe_checkpoint``) keep them here: its forward appends each
+# ``mm`` output to a :class:`KeptProducts`, its recompute takes them back in
+# call order, launching nothing, with the same backward as the call it
+# replays.
+_KEPT: list = []
+
+
+class KeptProducts:
+    """The ``mm`` outputs of one checkpointed call, in call order."""
+
+    def __init__(self):
+        self.outputs: list = []
+        self.replaying = False
+
+    def replay(self, a, b, tile):
+        out = self.outputs.pop(0)
+        if out.shape != (a.shape[0], b.shape[1]):
+            raise RuntimeError("a recomputed layer called mm in another "
+                               "order than its forward")
+        if not (torch.is_grad_enabled()
+                and (a.requires_grad or b.requires_grad)):
+            return out
+        if a.device.type == "cpu" and b.device.type == "cpu":
+            return _KeptPlainFn.apply(a, b, [out])
+        return _MatmulFn.apply(a, b, tile, [out])
+
+    @contextlib.contextmanager
+    def keeping(self):
+        _KEPT.append(self)
+        try:
+            yield
+        finally:
+            _KEPT.remove(self)
+
+    @contextlib.contextmanager
+    def reusing(self):
+        self.replaying = True
+        _KEPT.append(self)
+        try:
+            yield
+        finally:
+            _KEPT.remove(self)
+            self.outputs.clear()
+
+
+def kept_product_contexts():
+    """``torch.utils.checkpoint``'s ``context_fn`` for remat "dots": the
+    forward keeps every ``mm`` output, the recompute reuses them."""
+    kept = KeptProducts()
+    return kept.keeping(), kept.reusing()
+
+
+class _KeptPlainFn(torch.autograd.Function):
+    """A kept CPU product: its output as it was, and the plain version's
+    gradient (:func:`matmul_ref`'s, at the recomputed operands)."""
+
+    @staticmethod
+    def forward(ctx, a, b, kept):
+        ctx.save_for_backward(a, b)
+        return kept[0].view_as(kept[0])
+
+    @staticmethod
+    def backward(ctx, dc):
+        a, b = ctx.saved_tensors
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_(need) for t, need in
+                      zip((a, b), ctx.needs_input_grad[:2])]
+            out = matmul_ref(*leaves)
+            wanted = [t for t in leaves if t.requires_grad]
+            grads = iter(torch.autograd.grad(out, wanted, dc))
+        return (*(next(grads) if t.requires_grad else None for t in leaves),
+                None)
 
 
 def _grad_operand(t: torch.Tensor) -> torch.Tensor:
@@ -156,8 +253,10 @@ class _MatmulFn(torch.autograd.Function):
     the same."""
 
     @staticmethod
-    def forward(ctx, a, b, tile):
+    def forward(ctx, a, b, tile, kept=None):
         ctx.save_for_backward(a, b)
+        if kept is not None:              # a kept product: no launch
+            return kept[0].view_as(kept[0])
         return _mm_cuda(a, b, tile)
 
     @staticmethod
@@ -169,11 +268,12 @@ class _MatmulFn(torch.autograd.Function):
             da = _mm_cuda(dc, _grad_operand(b.t()), None)
         if ctx.needs_input_grad[1]:
             db = _mm_cuda(_grad_operand(a.t()), dc, None)
-        return da, db, None
+        return da, db, None, None
 
 
 def _mm_cuda(a: torch.Tensor, b: torch.Tensor, tile) -> torch.Tensor:
-    """One launch of the kernel (no autograd history)."""
+    """One launch of the kernel (no autograd history); on ``meta``
+    tensors the same decisions and outputs, counted and not launched."""
     build.check_cuda_operands("matmul", a, b)
     m, k = a.shape
     n = b.shape[1]
@@ -191,13 +291,23 @@ def _mm_cuda(a: torch.Tensor, b: torch.Tensor, tile) -> torch.Tensor:
     splits, k_split = split_plan(m, n, k, t)
     ws = (torch.empty((splits, m, n), dtype=torch.float32, device=a.device)
           if splits > 1 else None)
-    rc = _lib()(a.data_ptr(), b.data_ptr(), out.data_ptr(),
-                ws.data_ptr() if ws is not None else None,
-                m, n, k, build.dtype_code(a.dtype), _REGIME_CODE[reg], *t,
-                k_split, splits, build.stream_ptr(a.device))
-    build.check(rc, "matmul")
-    build.LAUNCHES["matmul"] += 1
+    meta = build.is_meta(a, b)
+    if meta:
+        build.meta_work("matmul", flops(m, n, k),
+                        build.nbytes(a, b, out, ws))
+    else:
+        rc = _lib()(a.data_ptr(), b.data_ptr(), out.data_ptr(),
+                    ws.data_ptr() if ws is not None else None,
+                    m, n, k, build.dtype_code(a.dtype), _REGIME_CODE[reg], *t,
+                    k_split, splits, build.stream_ptr(a.device))
+        build.check(rc, "matmul")
+    build.launched("matmul", meta)
     return out
+
+
+def flops(m: int, n: int, k: int) -> float:
+    """The product's operations: two a multiply-add."""
+    return 2.0 * m * n * k
 
 
 def _constraints(problem: Mapping[str, int]) -> TileConstraints:
@@ -280,5 +390,5 @@ def default_tile(m: int, k: int, n: int, dtype=torch.float32) -> TileShape:
 
 
 __all__ = ["COMPILED_TILES", "REGIME_TILES", "SKINNY_M", "SPEC",
-           "default_tile", "launch_tile", "matmul_ref", "mm", "regime",
+           "default_tile", "flops", "launch_tile", "matmul_ref", "mm", "regime",
            "smem_bytes", "split_k", "split_plan", "threads"]

@@ -74,7 +74,7 @@ def rglru_scan(a, x, h0, tile=None):
     if torch.is_grad_enabled() and any(t.requires_grad for t in (a, x, h0)):
         return _RglruScanFn.apply(a, x, h0, tile)
     y, h_last = _rglru_cuda(a, x, h0, tile)
-    build.LAUNCHES["rglru"] += 1
+    build.launched("rglru", x.is_meta)
     return y, h_last
 
 
@@ -92,11 +92,26 @@ def _rglru_cuda(a, x, h0, tile=None):
     nc = cdiv(s, bt)
     ws = (torch.empty(3 * b * nc * f, dtype=torch.float32, device=x.device)
           if nc > 1 else None)
+    if build.is_meta(a, x, h0):
+        build.meta_work("rglru", flops(b, s, f),
+                        build.nbytes(a, x, h0, y, h_last, ws))
+        return y, h_last
     rc = _lib()(a.data_ptr(), x.data_ptr(), h0.data_ptr(), y.data_ptr(),
                 h_last.data_ptr(), None if ws is None else ws.data_ptr(), b, s,
                 f, bt, bf, build.dtype_code(x.dtype), build.stream_ptr(x.device))
     build.check(rc, "rglru")
     return y, h_last
+
+
+def flops(b: int, s: int, f: int) -> float:
+    """The scan's operations: a multiply and an add a step and feature."""
+    return 2.0 * b * s * f
+
+
+def bwd_flops(b: int, s: int, f: int) -> float:
+    """The backward's: the reversed scan's (:func:`flops`) and da's product
+    a step and feature."""
+    return 3.0 * b * s * f
 
 
 def rglru_scan_backward(a, y, h0, dy, dh_last, scan):
@@ -151,6 +166,10 @@ def _rglru_bwd_cuda(a, y, h0, dy, dh_last, tile=None):
     nc = cdiv(s, bt)
     ws = (torch.empty(3 * b * nc * f, dtype=torch.float32, device=y.device)
           if nc > 1 else None)
+    if build.is_meta(a, y, h0, dy, dh_last):
+        build.meta_work("rglru_bwd", bwd_flops(b, s, f),
+                        build.nbytes(a, y, h0, dy, dh_last, dx, da, dh0, ws))
+        return da, dx, dh0
     rc = _bwd_lib()(a.data_ptr(), y.data_ptr(), h0.data_ptr(), dy.data_ptr(),
                     dh_last.data_ptr(), dx.data_ptr(), da.data_ptr(),
                     dh0.data_ptr(), None if ws is None else ws.data_ptr(), b,
@@ -171,7 +190,7 @@ class _RglruScanFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, a, x, h0, tile):
         y, h_last = _rglru_cuda(a, x, h0, tile)
-        build.LAUNCHES["rglru"] += 1
+        build.launched("rglru", x.is_meta)
         ctx.save_for_backward(a, y, h0)
         return y, h_last
 
@@ -179,7 +198,7 @@ class _RglruScanFn(torch.autograd.Function):
     def backward(ctx, dy, dh_last):
         a, y, h0 = ctx.saved_tensors
         da, dx, dh0 = _rglru_bwd_cuda(a, y, h0, dy, dh_last)
-        build.LAUNCHES["rglru_bwd"] += 1
+        build.launched("rglru_bwd", y.is_meta)
         return da, dx, dh0, None
 
 
@@ -245,6 +264,7 @@ SPEC = registry.register(registry.KernelSpec(
 ))
 
 
-__all__ = ["SPEC", "features_per_thread", "launch_tile", "rglru", "rglru_ref",
+__all__ = ["SPEC", "bwd_flops", "features_per_thread", "flops", "launch_tile",
+           "rglru", "rglru_ref",
            "rglru_scan", "rglru_scan_backward", "rglru_scan_chunked_ref",
            "rglru_scan_ref"]

@@ -34,7 +34,7 @@ from repro_torch.core.hardware import H100_SXM
 from repro_torch.core.tiling import TileConstraints, TileShape, cdiv, dtype_bytes
 from repro_torch.kernels import build
 from repro_torch.kernels.ssd.ref import (
-    discretize, ssd_chunk_states_ref, ssd_chunked_ref, ssd_ref,
+    compute_dtype, discretize, ssd_chunk_states_ref, ssd_chunked_ref, ssd_ref,
     ssd_db_dc_ref, ssd_scan_bwd_ref, ssd_scan_ref, ssd_scan_rev_ref,
     ssd_scan_split_ref,
 )
@@ -141,7 +141,9 @@ def ssd_scan(log_a, dtx, Bm, C, h0, chunk: Optional[int] = None):
     with chunk ``chunk`` (default: the spec's Hopper tile) or raise; the
     chunk need not divide S. Under grad mode, with an input that requires
     grad, CUDA tensors go through :class:`_SsdScanFn`, whose backward
-    launches the kernels too.
+    launches the kernels too. Under ``flags.SSD_COMPUTE_BF16`` float32
+    CUDA (or ``meta``) tensors run the kernels' bf16 mode; CPU tensors the
+    plain scan with bf16 products.
     """
     b, s, h, p = dtx.shape
     n = Bm.shape[-1]
@@ -150,15 +152,24 @@ def ssd_scan(log_a, dtx, Bm, C, h0, chunk: Optional[int] = None):
         raise ValueError(f"bad ssd shapes log_a {tuple(log_a.shape)} dtx "
                          f"{tuple(dtx.shape)} B {tuple(Bm.shape)} C "
                          f"{tuple(C.shape)} h0 {tuple(h0.shape)}")
+    tensors = (log_a, dtx, Bm, C, h0)
+    on_cpu = all(t.device.type == "cpu" for t in tensors)
+    if not on_cpu and compute_dtype() is not None \
+            and dtx.dtype == torch.float32:
+        # The reference's SSD_COMPUTE_BF16: the kernels' bf16 mode on bf16
+        # copies, y and the state back in float32.
+        y, h_last = ssd_scan(*(t.to(torch.bfloat16) for t in tensors),
+                             chunk=chunk)
+        return y.to(dtx.dtype), h_last.to(h0.dtype)
     if chunk is None:
         chunk = SPEC.default_tile(dict(s=s, h=h, p=p, n=n), str(dtx.dtype))[0]
-    tensors = (log_a, dtx, Bm, C, h0)
-    if all(t.device.type == "cpu" for t in tensors):
-        return ssd_scan_ref(log_a, dtx, Bm, C, h0, chunk=chunk)
+    if on_cpu:
+        return ssd_scan_ref(log_a, dtx, Bm, C, h0, chunk=chunk,
+                            compute_dtype=compute_dtype())
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         return _SsdScanFn.apply(log_a, dtx, Bm, C, h0, chunk)
     y, h_last, _ = _ssd_cuda(log_a, dtx, Bm, C, h0, chunk)
-    build.LAUNCHES["ssd"] += 1
+    build.launched("ssd", dtx.is_meta)
     return y, h_last
 
 
@@ -183,6 +194,11 @@ def _ssd_cuda(log_a, dtx, Bm, C, h0, chunk):
         ws = torch.empty((b, h, nc, n, p), dtype=torch.float32,
                          device=dtx.device)
         decay = torch.empty(nc * b * h, dtype=torch.float32, device=dtx.device)
+    if build.is_meta(log_a, dtx, Bm, C, h0):
+        build.meta_work("ssd", b * flops(q, problem),
+                        build.nbytes(log_a, dtx, Bm, C, h0, y, h_last, ws,
+                                     decay))
+        return y, h_last, ws
     rc = _lib()(log_a.data_ptr(), dtx.data_ptr(), Bm.data_ptr(), C.data_ptr(),
                 h0.data_ptr(), y.data_ptr(), h_last.data_ptr(),
                 None if ws is None else ws.data_ptr(),
@@ -217,7 +233,14 @@ def _ssd_rev_cuda(log_a, dy, C, Bm, dh_last, y, dtx, chunk):
         ws = torch.empty((b, h, nc, n, p), dtype=torch.float32,
                          device=dy.device)
         decay = torch.empty(nc * b * h, dtype=torch.float32, device=dy.device)
-    if dy.numel():
+    if build.is_meta(log_a, dy, C, Bm, dh_last, y, dtx):
+        # The forward kernels' operations on the reversed problem, and d
+        # log_a's two dot products a step, head and column.
+        build.meta_work("ssd_bwd", b * flops(q, dict(s=s, h=h, p=p, n=n))
+                        + 4.0 * b * s * h * p,
+                        build.nbytes(log_a, dy, C, Bm, dh_last, y, dtx,
+                                     d_dtx, g0, dots, ws, decay))
+    elif dy.numel():
         rc = _lib()(log_a.data_ptr(), dy.data_ptr(), C.data_ptr(),
                     Bm.data_ptr(), dh_last.data_ptr(), d_dtx.data_ptr(),
                     g0.data_ptr(), None if ws is None else ws.data_ptr(),
@@ -294,7 +317,14 @@ def _ssd_bwd_cuda(log_a, dtx, Bm, C, dy, h0, dh_last, h_in, r_h_in, chunk):
     groups = cdiv(h, hpb)
     part = torch.empty((groups, 2, b, s, n), dtype=torch.float32,
                        device=dy.device)
-    if part.numel():
+    if build.is_meta(log_a, dtx, Bm, C, dy, h0, dh_last, h_in, r_h_in):
+        # bwd_flops less the reversed forward's: dC's and dB's products.
+        problem = dict(s=s, h=h, p=p, n=n)
+        build.meta_work("ssd_bwd", b * (bwd_flops(q, problem)
+                                        - flops(q, problem)),
+                        build.nbytes(log_a, dtx, Bm, C, dy, h0, dh_last,
+                                     h_in, r_h_in, part))
+    elif part.numel():
         rc = _bwd_lib()(log_a.data_ptr(), dtx.data_ptr(), Bm.data_ptr(),
                         C.data_ptr(), dy.data_ptr(), h0.data_ptr(),
                         dh_last.data_ptr(),
@@ -374,7 +404,7 @@ class _SsdScanFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, log_a, dtx, Bm, C, h0, chunk):
         y, h_last, h_in = _ssd_cuda(log_a, dtx, Bm, C, h0, chunk)
-        build.LAUNCHES["ssd"] += 1
+        build.launched("ssd", dtx.is_meta)
         ctx.chunk = chunk
         ctx.save_for_backward(log_a, dtx, Bm, C, h0, y, h_last, h_in)
         return y, h_last
@@ -385,7 +415,7 @@ class _SsdScanFn(torch.autograd.Function):
         grads = ssd_scan_backward(log_a, dtx, Bm, C, h0, y, h_last, h_in, dy,
                                   dh_last, ctx.chunk, _ssd_rev_cuda,
                                   _ssd_bwd_cuda)
-        build.LAUNCHES["ssd_bwd"] += 1
+        build.launched("ssd_bwd", dtx.is_meta)
         return (*grads, None)
 
 

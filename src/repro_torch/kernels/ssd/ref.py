@@ -33,6 +33,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.models import flags
+
 
 def ssd_ref(x, dt, A, Bm, C, D=None, h0=None):
     b, s, h, p = x.shape
@@ -72,13 +74,19 @@ def _scan_log_a(log_a, reverse: bool):
     return torch.cat([la[..., 1:], torch.zeros_like(la[..., :1])], dim=-1)
 
 
-def ssd_scan_ref(log_a, dtx, Bm, C, h0, chunk: int = 64, reverse: bool = False):
+def ssd_scan_ref(log_a, dtx, Bm, C, h0, chunk: int = 64, reverse: bool = False,
+                 compute_dtype=None):
     """The chunk scan over log_a [B, H, S], dtx [B, S, H, P], Bm, C
     [B, S, N] and h0 [B, H, N, P] -> (y [B, S, H, P], h_last [B, H, N, P])
     in dtx's dtype. The last chunk may be shorter than ``chunk``; reversed,
-    the chunks start at forward step S - 1, so the short one ends at 0."""
+    the chunks start at forward step S - 1, so the short one ends at 0.
+    ``compute_dtype`` (bf16, the reference's ``SSD_COMPUTE_BF16``): the
+    products' operands rounded to it, their sums and the decay statistics
+    in float32."""
     s = dtx.shape[1]
     q = max(1, min(int(chunk), s))
+    if compute_dtype is not None:
+        return _ssd_scan_rounded(log_a, dtx, Bm, C, h0, q, compute_dtype)
     la, xf = _scan_log_a(log_a, reverse), dtx.float()
     bm, cm = Bm.float(), C.float()
     hs = h0.float()
@@ -107,6 +115,40 @@ def ssd_scan_ref(log_a, dtx, Bm, C, h0, chunk: int = 64, reverse: bool = False):
             ys.append((y_intra + y_inter).permute(0, 2, 1, 3))   # [B, Q, H, P]
     y = y_rev if reverse else torch.cat(ys, dim=1)
     return y.to(dtx.dtype), hs.to(dtx.dtype)
+
+
+def _ssd_scan_rounded(log_a, dtx, Bm, C, h0, q: int, cdt):
+    """:func:`ssd_scan_ref` forward with the reference's ``cdt`` products
+    (``repro/kernels/ssd/ref.py:ssd_chunked_ref``): dtx, B and C, the
+    masked scores, the state read and w x rounded to ``cdt``; float32
+    sums."""
+    def r(t):
+        return t.to(cdt).float()
+
+    s = dtx.shape[1]
+    la = log_a.float()
+    xf, bm, cm = r(dtx.float()), r(Bm.float()), r(C.float())
+    hs = h0.float()
+    ys = []
+    for t0 in range(0, s, q):
+        qn = min(q, s - t0)
+        cum = torch.cumsum(la[:, :, t0:t0 + qn], dim=-1)        # [B, H, Q]
+        x_c = xf[:, t0:t0 + qn].permute(0, 2, 1, 3)             # [B, H, Q, P]
+        b_c, c_c = bm[:, t0:t0 + qn], cm[:, t0:t0 + qn]          # [B, Q, N]
+        tri = torch.tril(torch.ones((qn, qn), dtype=torch.bool,
+                                    device=dtx.device))
+        decay = torch.where(tri, torch.exp(cum[..., :, None] - cum[..., None, :]),
+                            torch.zeros((), device=dtx.device))
+        cb = torch.einsum("bin,bjn->bij", c_c, b_c)
+        y_intra = torch.matmul(r(cb[:, None] * decay), x_c)
+        y_inter = torch.einsum("bin,bhnp->bhip", c_c, r(hs)) \
+            * torch.exp(cum)[..., None]
+        total = cum[..., -1]
+        w = torch.exp(total[..., None] - cum)
+        hs = (torch.exp(total)[..., None, None] * hs
+              + torch.einsum("bjn,bhjp->bhnp", b_c, r(w[..., None] * x_c)))
+        ys.append((y_intra + y_inter).permute(0, 2, 1, 3))
+    return torch.cat(ys, dim=1).to(dtx.dtype), hs.to(dtx.dtype)
 
 
 def ssd_scan_split_ref(log_a, dtx, Bm, C, h0, chunk: int = 64,
@@ -266,7 +308,14 @@ def ssd_chunked_ref(x, dt, A, Bm, C, D=None, h0=None, chunk: int = 128):
     log_a, dtx = discretize(x, dt, A)
     h0 = (torch.zeros((b, h, n, p), dtype=torch.float32, device=x.device)
           if h0 is None else h0)
-    y, h_last = ssd_scan_ref(log_a, dtx, Bm, C, h0, chunk=chunk)
+    y, h_last = ssd_scan_ref(log_a, dtx, Bm, C, h0, chunk=chunk,
+                             compute_dtype=compute_dtype())
     if D is not None:
         y = y + D.float()[None, None, :, None] * x.float()
     return y.to(x.dtype), h_last.to(x.dtype)
+
+
+def compute_dtype():
+    """The plain scan's product dtype: bf16 under the reference's
+    ``flags.SSD_COMPUTE_BF16``, else None (float32)."""
+    return torch.bfloat16 if flags.SSD_COMPUTE_BF16 else None

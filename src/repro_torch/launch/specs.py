@@ -11,11 +11,20 @@ of a cell takes its tile from a :class:`~repro_torch.core.plans.TilePlan`
 against the calls the model makes of its kernel (the wrappers'
 ``launch_tile`` rules) and replaces a tile that would not launch by the
 kernel's default, so no plan tile can raise in the middle of a serve.
+
+The dry run's abstract inputs (the reference's ``input_specs``,
+``decode_token_spec``, ``abstract_params``, ``abstract_opt_state`` and
+``abstract_serve_state``) are ``meta`` tensors: shapes and dtypes with no
+memory, the counterpart of ``jax.ShapeDtypeStruct`` and ``eval_shape``.
+The port's layout applies: one parameter dict (and one cache) a layer,
+where the reference stacks the layers.
 """
 from __future__ import annotations
 
 import logging
-from typing import Dict, Mapping, Sequence
+from typing import Any, Dict, Mapping, Sequence
+
+import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.configs.shapes import ShapeSpec
@@ -215,3 +224,77 @@ def launchable_tiles(tiles: Dict[str, TileShape], cfg: ArchConfig,
                 "tile %s of %s does not launch at this call; using the "
                 "default %s", tile, kernel, out[kernel])
     return out, replaced
+
+
+# ---------------------------------------------------------------------------
+# The dry run's abstract inputs (meta tensors)
+# ---------------------------------------------------------------------------
+
+META = torch.device("meta")
+
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(tuple(shape), dtype=dtype, device=META)
+
+
+def input_specs(cfg: ArchConfig, shape: ShapeSpec) -> Dict[str, Any]:
+    """Abstract train/prefill batch for one cell."""
+    from repro_torch.models import api
+
+    b, s = shape.global_batch, shape.seq_len
+    if api.is_encdec(cfg):
+        return {
+            "frames": _meta((b, cfg.encoder.seq_len, cfg.d_model),
+                            torch.bfloat16),
+            "tokens": _meta((b, s), torch.int32),
+            "targets": _meta((b, s), torch.int32),
+        }
+    if api.is_vlm(cfg):
+        p = cfg.encoder.seq_len
+        # Total sequence = p patch positions + text tail; loss on text only.
+        return {
+            "patch_embeds": _meta((b, p, 1024), torch.bfloat16),
+            "tokens": _meta((b, s - p), torch.int32),
+            "targets": _meta((b, s - p), torch.int32),
+        }
+    return {
+        "tokens": _meta((b, s), torch.int32),
+        "targets": _meta((b, s), torch.int32),
+    }
+
+
+def decode_token_spec(cfg: ArchConfig, shape: ShapeSpec) -> torch.Tensor:
+    return _meta((shape.global_batch, 1), torch.int32)
+
+
+def abstract_params(cfg: ArchConfig, dtype=torch.bfloat16):
+    """The parameters as ``meta`` tensors (``api.init_params`` on meta:
+    nothing drawn)."""
+    from repro_torch.models import api
+
+    return api.init_params(cfg, 0, dtype=dtype, device=META)
+
+
+def abstract_opt_state(params, opt_cfg):
+    """AdamW's state (``optim.adamw.init_state``) of ``meta`` parameters."""
+    from repro_torch.optim import adamw
+
+    return adamw.init_state(params, opt_cfg)
+
+
+def abstract_serve_state(cfg: ArchConfig, shape: ShapeSpec,
+                         dtype=torch.bfloat16, params=None, batch=None):
+    """Abstract KV/recurrent state for a decode cell (cache len = seq_len):
+    ``api.make_serve_state`` on ``meta`` (an encoder-decoder's from a meta
+    encoder output and ``params``). ``batch`` (default: the shape's global
+    batch) is the rows of one rank's state."""
+    from repro_torch.models import api
+
+    b = shape.global_batch if batch is None else batch
+    s = shape.seq_len
+    if api.is_encdec(cfg):
+        enc = _meta((b, cfg.encoder.seq_len, cfg.d_model), dtype)
+        return api.make_serve_state(cfg, b, s, dtype, device=META,
+                                    enc_out=enc, params=params)
+    return api.make_serve_state(cfg, b, s, dtype, device=META,
+                                ring_local=bool(cfg.attn_window))

@@ -66,10 +66,14 @@ def _refuse_encdec(cfg: ArchConfig, what: str) -> None:
 def init_params(cfg: ArchConfig, seed: Union[int, torch.Generator] = 0,
                 dtype=torch.float32, device=None):
     """Random parameters from a seeded ``torch.Generator`` on ``device``,
-    with the reference's distributions."""
+    with the reference's distributions. On ``device="meta"``: empty
+    tensors of the same shapes and dtypes, nothing drawn (the dry run's
+    abstract parameters, ``launch/specs.py:abstract_params``)."""
     dev = resolve_device(device)
-    gen = seed if isinstance(seed, torch.Generator) else \
-        torch.Generator(device=dev).manual_seed(int(seed))
+    if dev.type == "meta" or isinstance(seed, torch.Generator):
+        gen = seed
+    else:
+        gen = torch.Generator(device=dev).manual_seed(int(seed))
     if is_encdec(cfg):
         return E.init_params(cfg, gen, dtype, dev)
     return T.init_params(cfg, gen, dtype, dev)

@@ -90,7 +90,9 @@ from repro_torch.kernels.flash_attention.ref import (
 )
 from repro_torch.models import flags
 from repro_torch.models.context import DistContext, has_mesh
-from repro_torch.models.layers import ParamDef, apply_rope, rms_norm
+from repro_torch.models.layers import (
+    ParamDef, apply_rope, rms_norm, runs_kernels,
+)
 
 # ---------------------------------------------------------------------------
 # Tile-dispatch events: one per call that received a plan tile, saying
@@ -254,7 +256,7 @@ def attn_forward(
     kwargs = dict(causal=True, window=window,
                   softcap=cfg.attn_softcap or None, scale=scale)
     if impl == "auto":
-        impl = "kernel" if x.is_cuda else "reference"
+        impl = "kernel" if runs_kernels(x) else "reference"
     if impl == "kernel":
         out = flash_attention(q, k, v, tile=tile, **kwargs)
         if tile is not None:
@@ -263,7 +265,8 @@ def attn_forward(
                 tile=tuple(tile), fallback=False,
                 effective=launch_tile(tile, q.shape[-1], q.dtype))
     elif impl == "reference":
-        chunk = min(int(tile[1]), s) if tile is not None else 512
+        chunk = (min(int(tile[1]), s) if tile is not None
+                 else 2048 if flags.ANALYSIS_UNROLL else 512)
         if tile is not None:
             # The reference snaps a non-dividing chunk to the largest
             # divisor; count that instead of hiding it.
@@ -396,7 +399,7 @@ def attn_prefill_chunk(
     paged = "k_pages" in cache
 
     if impl == "auto":
-        impl = "kernel" if x.is_cuda else "reference"
+        impl = "kernel" if runs_kernels(x) else "reference"
     if paged and impl == "reference":
         n_pp = cdiv(start, cache["k_pages"].shape[2])
         bkv = _ref_bkv("chunked_prefill", tile,
@@ -481,7 +484,7 @@ def attn_prefill_packed(
     segs = [slice(offs[i], offs[i + 1]) for i in range(len(layout))]
 
     if impl == "auto":
-        impl = "kernel" if x.is_cuda else "reference"
+        impl = "kernel" if runs_kernels(x) else "reference"
     if impl == "kernel":
         outs = []
         chunk_keys = _paged_chunk_keys if paged else _chunk_keys
@@ -683,7 +686,7 @@ def attn_decode(
     bkv = int(tile[-1]) if tile is not None else None
     clamped = min(bkv, max_len) if bkv is not None else None
     if impl == "auto":
-        impl = "kernel" if x.is_cuda else ("flash_ref" if bkv else "dense")
+        impl = "kernel" if runs_kernels(x) else ("flash_ref" if bkv else "dense")
     elif impl == "reference":
         impl = "flash_ref" if bkv else "dense"
     if tile is not None:

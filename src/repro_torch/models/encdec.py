@@ -42,9 +42,11 @@ from repro_torch.kernels.flash_attention.flash_attention import (
     flash_attention,
 )
 from repro_torch.kernels.flash_attention.ref import NEG_INF, flash_attention_ref
+from repro_torch.models import flags
 from repro_torch.models.context import DistContext
 from repro_torch.models.layers import (
     ParamDef, act_fn, axes_tree, init_tree, layer_norm, maybe_checkpoint,
+    runs_kernels,
 )
 
 
@@ -132,10 +134,16 @@ def _head_mask(cfg: ArchConfig, out):
 
 def _use_kernel(x, impl: str) -> bool:
     if impl == "auto":
-        return x.is_cuda
+        return runs_kernels(x)
     if impl in ("kernel", "reference"):
         return impl == "kernel"
     raise ValueError(f"unknown attention impl {impl!r}")
+
+
+def _ref_chunk() -> int:
+    """The plain attention's KV chunk: the reference's 512, 2048 under
+    ``flags.ANALYSIS_UNROLL``."""
+    return 2048 if flags.ANALYSIS_UNROLL else 512
 
 
 def _attend(cfg: ArchConfig, q, k, v, causal: bool, impl: str):
@@ -145,7 +153,7 @@ def _attend(cfg: ArchConfig, q, k, v, causal: bool, impl: str):
                               causal=causal)
     else:
         out = flash_attention_ref(q, k, v, causal=causal,
-                                  chunk=min(512, k.shape[2]))
+                                  chunk=min(_ref_chunk(), k.shape[2]))
     return _head_mask(cfg, out)
 
 
@@ -288,7 +296,7 @@ def _cross_decode(cfg: ArchConfig, q, ck, cv, impl: str):
     if _use_kernel(q, impl):
         return flash_decode(q, ck, cv, pos=ck.shape[2] - 1)
     return flash_attention_ref(q[:, :, None], ck, cv, causal=False,
-                               chunk=min(512, ck.shape[2]))[:, :, 0]
+                               chunk=min(_ref_chunk(), ck.shape[2]))[:, :, 0]
 
 
 def decode_step(params, cfg: ArchConfig, token: torch.Tensor, caches,

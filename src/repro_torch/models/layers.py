@@ -15,6 +15,8 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.models import flags
+
 
 @dataclasses.dataclass(frozen=True)
 class ParamDef:
@@ -35,8 +37,13 @@ def init_tree(defs: Dict[str, Any], generator: torch.Generator, dtype,
     for "normal", N(0, scale / sqrt(fan_in)) for "fan_in" with fan_in the
     leading dim, zeros and ones. The numbers differ from JAX's for the same
     seed; tests that compare the two packages convert JAX's parameters.
+    On ``device="meta"`` the tensors are empty (shapes and dtypes, no
+    memory) and ``generator`` is not read: the dry run's abstract
+    parameters.
     """
     def make(d: ParamDef) -> torch.Tensor:
+        if device is not None and torch.device(device).type == "meta":
+            return torch.empty(d.shape, dtype=dtype, device=device)
         if d.init == "zeros":
             return torch.zeros(d.shape, dtype=dtype, device=device)
         if d.init == "ones":
@@ -102,15 +109,31 @@ def softcap(x, cap: float):
     return cap * torch.tanh(x / cap)
 
 
+def runs_kernels(x: torch.Tensor) -> bool:
+    """Whether a model path's ``impl="auto"`` takes the kernels for ``x``:
+    on the card, and on ``meta`` (a dry run's count of what the card runs,
+    ``roofline/count.py``); a CPU tensor takes the plain versions."""
+    return x.is_cuda or x.is_meta
+
+
 def maybe_checkpoint(enabled: bool, fn, *args, **kwargs):
     """``fn(*args, **kwargs)``, under ``torch.utils.checkpoint`` (non-reentrant) when
     ``enabled`` and grad mode is on: its activations are dropped after the
     forward and recomputed in the backward, the reference's
-    ``jax.checkpoint``. The recompute runs ``fn``'s kernels a second time.
-    Nothing in the models draws random numbers, so no RNG state is kept."""
+    ``jax.checkpoint``. The recompute runs ``fn``'s kernels a second time;
+    under ``flags.REMAT_POLICY == "dots"`` (the reference's
+    ``dots_with_no_batch_dims_saveable``) the forward keeps every ``mm``
+    output and the recompute reuses it (``kernels/matmul/ops.py``), so only
+    the rest is recomputed. Nothing in the models draws random numbers, so
+    no RNG state is kept."""
     if enabled and torch.is_grad_enabled():
+        extra = {}
+        if flags.remat_policy() == "dots":
+            from repro_torch.kernels.matmul.ops import kept_product_contexts
+
+            extra["context_fn"] = kept_product_contexts
         return checkpoint(fn, *args, use_reentrant=False,
-                          preserve_rng_state=False, **kwargs)
+                          preserve_rng_state=False, **extra, **kwargs)
     return fn(*args, **kwargs)
 
 

@@ -32,10 +32,12 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.ssd.ops import ssd, ssd_chunked_ref, ssd_ref
+from repro_torch.models import flags
 from repro_torch.models.layers import ParamDef, rms_norm
 from repro_torch.models.rglru import _causal_conv
 
-# The reference's chunk when no tile is given (``flags.SSD_CHUNK`` unset).
+# The reference's chunk when no tile is given (``flags.SSD_CHUNK`` unset;
+# 512 under ``flags.ANALYSIS_UNROLL``).
 REFERENCE_CHUNK = 128
 
 
@@ -87,7 +89,8 @@ def make_ssm_state(cfg: ArchConfig, batch: int, dtype,
 
 def _reference_scan(xh, dt, A, Bm, C, D, h0, chunk: int):
     slen = xh.shape[1]
-    q = min(chunk or REFERENCE_CHUNK, slen)
+    q = min(chunk or flags.SSD_CHUNK
+            or (512 if flags.ANALYSIS_UNROLL else REFERENCE_CHUNK), slen)
     if slen == 1 or slen % q:
         return ssd_ref(xh, dt, A, Bm, C, D, h0=h0)
     return ssd_chunked_ref(xh, dt, A, Bm, C, D, h0=h0, chunk=q)
@@ -136,7 +139,8 @@ def ssm_forward(
     if impl == "reference":
         y, h_last = _reference_scan(xh, dt, A, Bm, C, D, h0, chunk)
     elif impl in ("auto", "kernel"):
-        y, h_last = ssd(xh, dt, A, Bm, C, D, h0=h0, chunk=chunk or None)
+        y, h_last = ssd(xh, dt, A, Bm, C, D, h0=h0,
+                        chunk=chunk or flags.SSD_CHUNK or None)
     else:
         raise ValueError(f"unknown ssd impl {impl!r}")
     y = y.reshape(b, slen, di)

@@ -52,6 +52,7 @@ from repro_torch.configs.base import ArchConfig, LayerSpec
 from repro_torch.kernels.matmul.ops import mm
 from repro_torch.kernels.matmul.ref import matmul_ref
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import flags
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
@@ -557,6 +558,8 @@ def fused_lm_loss(head: torch.Tensor, hidden: torch.Tensor,
     product is ``torch.matmul`` in float32, as the reference leaves it to
     XLA. Returns the mean over the B * S positions."""
     b, s, _ = hidden.shape
+    if flags.ANALYSIS_UNROLL:
+        chunk = 4096                 # the reference's chunk under analysis
     chunk = min(chunk, s)
     if s % chunk:
         chunk = s  # unchunked for odd lengths

@@ -80,7 +80,10 @@ def test_importing_the_whole_port_loads_no_jax_and_no_repro():
                  "repro_torch.distributed.process_group",
                  "repro_torch.distributed.pipeline",
                  "repro_torch.launch.mesh",
-                 "repro_torch.optim.compression"):
+                 "repro_torch.optim.compression",
+                 "repro_torch.roofline", "repro_torch.roofline.analysis",
+                 "repro_torch.roofline.count", "repro_torch.launch.dryrun",
+                 "repro_torch.launch.specs"):
         assert name in mods
 
 

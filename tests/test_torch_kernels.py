@@ -101,18 +101,28 @@ def test_matmul_bf16_plain_accumulates_in_f32():
 
 
 def test_wrappers_refuse_non_cpu_non_cuda_tensors():
-    """A wrapper takes its plain version only for CPU tensors: any other
-    device is refused, never computed some other way."""
+    """A wrapper takes its plain version only for CPU tensors. ``meta``
+    tensors (the dry run's count) take the card's path up to the launch and
+    launch nothing: meta outputs, no launch counted. A call that mixes meta
+    and CPU tensors is refused, never computed some other way."""
+    from repro_torch.kernels import build
+
+    before = dict(build.LAUNCHES)
     a = torch.empty((4, 8), device="meta")
     b = torch.empty((8, 4), device="meta")
-    with pytest.raises(ValueError):
-        mm_ops.mm(a, b)
+    assert mm_ops.mm(a, b).is_meta
     q = torch.empty((1, 4, 8, 16), device="meta")
     kv = torch.empty((1, 2, 8, 16), device="meta")
+    assert flash_attention(q, kv, kv).is_meta
+    assert flash_decode(q[:, :, 0].contiguous(), kv, kv, pos=3).is_meta
+    assert build.LAUNCHES == before
     with pytest.raises(ValueError):
-        flash_attention(q, kv, kv)
+        mm_ops.mm(a, torch.zeros((8, 4)))
     with pytest.raises(ValueError):
-        flash_decode(q[:, :, 0], kv, kv, pos=3)
+        flash_attention(q, torch.zeros((1, 2, 8, 16)), kv)
+    with pytest.raises(ValueError):
+        flash_decode(q[:, :, 0].contiguous(), kv, torch.zeros((1, 2, 8, 16)),
+                     pos=3)
 
 
 # ---------------------------------------------------------------------------
