@@ -219,9 +219,9 @@ Phases, each of which fails the run if it fails:
    finite and falling, host ms a step, tokens/s, peak allocated bytes and
    model FLOP/s (6 N tokens) against float32's 67 TFLOP/s, with
    ``--profile`` a sixth step's device ms by group and idle share; (d)
-   ``Trainer.run`` on the 100M example config (60 steps of 8 x 256,
+   ``Trainer.run`` on the 100M example config (40 steps of 8 x 256,
    checkpoints every 20 in a temporary directory, removed after): the loss
-   falls by more than 1.0, a failure at step 45 restores step 40 and ends
+   falls by more than 1.0, a failure at step 25 restores step 20 and ends
    at the uninterrupted run's loss, bit for bit, and the launcher
    ``python -m repro_torch.launch.train --steps 20 --checkpoint-every 10
    --fail-at 12`` exits 0 with one restart; (e) the recurrent mixers under
@@ -253,30 +253,40 @@ Phases, each of which fails the run if it fails:
 18. the mesh runtime (last; ``torch.distributed``, one process a rank):
    (a) ``Trainer(mesh=make_local_mesh(1, 1))`` over a one-rank NCCL group
    (NCCL cannot put two ranks on one card) against the mesh-less Trainer:
-   full-width qwen2-1.5b at 4 of its 28 layers (a 28-layer Trainer's
+   full-width qwen2-1.5b at 2 of its 28 layers (a 28-layer Trainer's
    final checkpoint is 19 GB, two of them more than one call may write),
-   3 steps of 8 x 512, losses and final parameters bit for bit; (b) ranks on cuda:0 over gloo (its all-gather and
-   point-to-point copied through pinned host memory), each check against
-   the one-process path of the same ranks: four ranks — the
-   sequence-sharded decode of full-width qwen2-1.5b at 4 of its 28 layers
-   on a 1 x 4 mesh (2 KV heads < 4: each rank a 256-row slice of the
-   1024-row cache; a 511-token prefill, 8 greedy steps: tokens equal, logits
-   within 1e-3 of max |logit|, flash_decode launched 4 x 8 times on every
-   rank, the collectives' ms a step), the expert-parallel MoE of
-   full-width deepseek-moe-16b at 3 layers on 2 x 2 (16 of 64 experts a
-   rank, 4 x 64 tokens, capacity factor 32: logits within 2e-3), a 2 x 2
-   train step of qwen2-1.5b at 4 layers (8 x 256, 2 microbatches, 2 steps:
-   losses within 1e-6 relative, averaged gradients within 1e-5 of each
-   leaf's max, parameters within 2 x lr) and the trained parameters saved
-   from their 2 x 2 blocks; two ranks — the restore onto 1 x 2 (blocks
-   exact, each rank holding only its own) and one more step, GPipe over
-   two stages (loss within 2e-4, gradients within 1e-4 of the sequential
-   ones), ``compress_psum`` over 20 rounds; each check's wall ms and each
-   rank's peak allocated bytes. The four ranks on one card measure
-   correctness, not multi-GPU speed. Phase 3 holds flash_decode's
-   log-sum-exp output (``return_lse``) against its plain version at the
-   headline shape and at phase 18's slices, and times the headline call
-   with and without it.
+   3 steps of 8 x 512, losses and final parameters bit for bit; (b) ranks
+   on cuda:0 over gloo (its all-gather and point-to-point copied through
+   pinned host memory), each on its tensor-parallel blocks
+   (``api.tp_shardings``: attention heads, FF columns, experts
+   and vocabulary over the model axis), each check against the one-process
+   path of the same ranks: four ranks — the sequence-sharded decode of
+   full-width qwen2-1.5b at 2 of its 28 layers on a 1 x 4 mesh (4 query
+   heads a rank, gathered for the sharded body; 2 KV heads < 4: each rank
+   a 256-row slice of the 1024-row cache of both), and the same model
+   served tensor-parallel on 2 x 2 (a KV head a rank); each a 511-token
+   prefill and 8 greedy steps: tokens equal, logits within 1e-3 of max
+   |logit|, each rank launching matmul, flash_attention and flash_decode
+   as often as the one-process path, a rank's parameter bytes at most
+   0.51 (2 model ranks) and 0.27 (4) of the whole, the collectives' ms a
+   step; the expert-parallel MoE of full-width deepseek-moe-16b at 3
+   layers on 2 x 2 (16 of 64 experts a rank and its half of the shared
+   experts, 4 x 64 tokens, capacity factor 32: logits within 2e-3), a
+   2 x 2 train step of qwen2-1.5b at 2 layers (8 x 256, 2 microbatches, 2
+   steps: losses within 1e-6 relative, gradients gathered whole within
+   1e-5 of each leaf's max and the first clip norm within 1e-5 relative,
+   gathered parameters within 2 x lr, the ranks of one model coordinate
+   holding equal blocks)
+   and the trained parameters saved from their 2 x 2 blocks; two ranks —
+   the restore onto 1 x 2 (blocks exact, each rank holding only its own)
+   and one more tensor-parallel step, GPipe over two stages (loss within
+   2e-4, gradients within 1e-4 of the sequential ones), ``compress_psum``
+   over 20 rounds; each check's wall ms and each rank's peak allocated
+   bytes. The four ranks on one card measure correctness, not multi-GPU
+   speed. Phase 3 holds flash_decode's log-sum-exp output
+   (``return_lse``) against its plain version at the headline shape and at
+   phase 18's slices, and times the headline call with and without it;
+   it times the three serving kernels at a tensor-parallel rank's shapes.
 
 19. the dry run (last): (a) ``python -m repro_torch.launch.dryrun --arch
    qwen2-1.5b --single-pod --force`` on the host — a count of rank 0's
@@ -292,7 +302,9 @@ Phases, each of which fails the run if it fails:
    ``reset_peak_memory_stats``, less what was allocated before the step's
    tensors were made); the median step time is at least the roofline's
    ``total_s``; the train step's losses are finite. Measured / ``total_s``
-   is printed for each.
+   is printed for each. (c) 18b's tensor-parallel train step counted as
+   rank 0 of a fake 2 x 2 group: launches equal rank 0's, peak within
+   10% of it.
 
 ``--profile`` adds, after phase 5, where the time of one full-width qwen2
 request goes (prefill, eager decode, captured decode): wall time, device
@@ -765,6 +777,7 @@ def kernel_checks(quick: bool):
     head_dim_256_checks(record, randn, dtypes, quick)
     head_dim_80_checks(record, randn, dtypes, quick)
     moe_slice_checks(record, randn, dtypes, quick)
+    tp_slice_checks(record, randn, dtypes, quick)
     bilinear_checks(record, randn, dtypes, quick)
     ssd_checks(record, dtypes, quick)
     rglru_checks(record, dtypes, quick)
@@ -1061,6 +1074,116 @@ def head_dim_256_checks(record, randn, dtypes, quick: bool):
                dname, out, ref, timing)
 
 
+def _attention_row(record, randn, label, hq, hkv, sq, skv, d, causal, dname,
+                   dt, timed, b=1):
+    """Check ``flash_attention`` at one shape against its plain version;
+    ``timed``: also its time, the plain version's, SDPA's and the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention, regime as fa_regime,
+    )
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    q = randn((b, hq, sq, d), dt)
+    k, v = randn((b, hkv, skv, d), dt), randn((b, hkv, skv, d), dt)
+    out = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    ref = flash_attention_ref(q, k, v, causal=causal)
+    timing = None
+    if timed:
+        nb = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+        pairs = sq * (sq + 1) // 2 if causal else sq * skv
+        t_b, by = bound(nb, 4.0 * d * b * hq * pairs, TC_RATE[dname])
+        copies = [(randn(q.shape, dt), randn(k.shape, dt),
+                   randn(v.shape, dt)) for _ in range(copies_for(nb))]
+
+        def sdpa(x, y, z):
+            return F.scaled_dot_product_attention(
+                x, y, z, is_causal=causal, enable_gqa=hq != hkv)
+
+        timing = dict(
+            ms=time_ms([lambda x=x, y=y, z=z: flash_attention(
+                x, y, z, causal=causal) for x, y, z in copies]),
+            plain_ms=time_ms([lambda x=x, y=y, z=z: flash_attention_ref(
+                x, y, z, causal=causal) for x, y, z in copies], iters=8),
+            library_ms=library_ms([lambda x=x, y=y, z=z: sdpa(x, y, z)
+                                   for x, y, z in copies]),
+            bound_ms=t_b, bound_by=by,
+            shape=dict(b=b, hq=hq, hkv=hkv, sq=sq, skv=skv, d=d,
+                       causal=causal, regime=fa_regime(dt, d)))
+    record("flash_attention", label, dname, out, ref, timing)
+
+
+def _decode_row(record, randn, label, hq, hkv, d, s, pos, dname, dt, timed):
+    """Check ``flash_decode`` at one shape (batch 1) against its plain
+    version; ``timed``: also its time, the plain version's, SDPA's and the
+    bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.decode import (
+        flash_decode, flash_decode_ref,
+    )
+
+    q = randn((1, hq, d), dt)
+    k, v = randn((1, hkv, s, d), dt), randn((1, hkv, s, d), dt)
+    pos_t = dev_pos(pos)
+    out = flash_decode(q, k, v, pos=pos_t)
+    torch.cuda.synchronize()
+    ref = flash_decode_ref(q, k, v, pos=pos)
+    timing = None
+    if timed:
+        seen = pos + 1
+        nb = (2 * q.numel() + 2 * hkv * seen * d) * q.element_size()
+        t_b, by = bound(nb, decode_flops(1, hq, d, seen), dname)
+        mask = (torch.arange(s, device="cuda") <= pos)[None, None, None]
+        copies = [(randn(q.shape, dt), randn(k.shape, dt),
+                   randn(v.shape, dt)) for _ in range(copies_for(nb))]
+        timing = dict(
+            ms=time_ms([lambda x=x, y=y, z=z: flash_decode(
+                x, y, z, pos=pos_t) for x, y, z in copies]),
+            plain_ms=time_ms([lambda x=x, y=y, z=z: flash_decode_ref(
+                x, y, z, pos=pos_t) for x, y, z in copies]),
+            library_ms=library_ms([
+                lambda x=x, y=y, z=z: F.scaled_dot_product_attention(
+                    x[:, :, None], y, z, attn_mask=mask,
+                    enable_gqa=hq != hkv) for x, y, z in copies]),
+            bound_ms=t_b, bound_by=by,
+            shape=dict(b=1, hq=hq, hkv=hkv, s=s, pos=pos, d=d))
+    record("flash_decode", label, dname, out, ref, timing)
+
+
+def _mm_row(record, randn, label, m, k, n, dname, dt, timed):
+    """Check ``mm`` at one shape against its plain version; ``timed``: also
+    its time, the plain version's, ``torch.matmul``'s and the bound."""
+    import torch
+
+    from repro_torch.kernels.matmul.ops import mm, regime
+    from repro_torch.kernels.matmul.ref import matmul_ref
+
+    a = randn((m, k), dt)
+    b = randn((k, n), dt, scale=k ** -0.5)
+    out = mm(a, b)
+    torch.cuda.synchronize()
+    timing = None
+    if timed:
+        nb = (m * k + k * n + m * n) * a.element_size()
+        t_b, by = bound(nb, mm_flops(m, n, k), dname)
+        copies = [(randn((m, k), dt), randn((k, n), dt))
+                  for _ in range(copies_for(nb))]
+        timing = dict(
+            ms=time_ms([lambda x=x, y=y: mm(x, y) for x, y in copies]),
+            plain_ms=time_ms([lambda x=x, y=y: matmul_ref(x, y)
+                              for x, y in copies]),
+            library_ms=library_ms([lambda x=x, y=y: torch.matmul(x, y)
+                                   for x, y in copies]),
+            bound_ms=t_b, bound_by=by,
+            shape=dict(m=m, k=k, n=n, regime=regime(m, n, k, dt)))
+    record("matmul", label, dname, out, matmul_ref(a, b), timing)
+
+
 def moe_slice_checks(record, randn, dtypes, quick: bool):
     """The shapes phase 15's models give the three serving kernels, each
     timed (float32, the path's dtype; bf16 checked) beside its plain
@@ -1072,122 +1195,53 @@ def moe_slice_checks(record, randn, dtypes, quick: bool):
     whisper) and ratio 16 (D 128, qwen3-moe) over 1024 slots; the matmul at
     deepseek's dense layer (K 2048, N 10944) and shared experts (N 2816)
     at M = 1 and 600."""
-    import torch
-    import torch.nn.functional as F
-
-    from repro_torch.kernels.flash_attention.decode import (
-        flash_decode, flash_decode_ref,
-    )
-    from repro_torch.kernels.flash_attention.flash_attention import (
-        flash_attention, regime as fa_regime,
-    )
-    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
-    from repro_torch.kernels.matmul.ops import mm, regime
-    from repro_torch.kernels.matmul.ref import matmul_ref
-
-    def attention(label, hq, hkv, sq, skv, d, causal, dname, dt, timed):
-        q = randn((1, hq, sq, d), dt)
-        k, v = randn((1, hkv, skv, d), dt), randn((1, hkv, skv, d), dt)
-        out = flash_attention(q, k, v, causal=causal)
-        torch.cuda.synchronize()
-        ref = flash_attention_ref(q, k, v, causal=causal)
-        timing = None
-        if timed:
-            nb = (2 * q.numel() + 2 * k.numel()) * q.element_size()
-            pairs = sq * (sq + 1) // 2 if causal else sq * skv
-            t_b, by = bound(nb, 4.0 * d * hq * pairs, TC_RATE[dname])
-            copies = [(randn(q.shape, dt), randn(k.shape, dt),
-                       randn(v.shape, dt)) for _ in range(copies_for(nb))]
-
-            def sdpa(x, y, z):
-                return F.scaled_dot_product_attention(
-                    x, y, z, is_causal=causal, enable_gqa=hq != hkv)
-
-            timing = dict(
-                ms=time_ms([lambda x=x, y=y, z=z: flash_attention(
-                    x, y, z, causal=causal) for x, y, z in copies]),
-                plain_ms=time_ms([lambda x=x, y=y, z=z: flash_attention_ref(
-                    x, y, z, causal=causal) for x, y, z in copies], iters=8),
-                library_ms=library_ms([lambda x=x, y=y, z=z: sdpa(x, y, z)
-                                       for x, y, z in copies]),
-                bound_ms=t_b, bound_by=by,
-                shape=dict(b=1, hq=hq, hkv=hkv, sq=sq, skv=skv, d=d,
-                           causal=causal, regime=fa_regime(dt, d)))
-        record("flash_attention", label, dname, out, ref, timing)
-
-    def decode(label, hq, hkv, d, s, pos, dname, dt, timed):
-        q = randn((1, hq, d), dt)
-        k, v = randn((1, hkv, s, d), dt), randn((1, hkv, s, d), dt)
-        pos_t = dev_pos(pos)
-        out = flash_decode(q, k, v, pos=pos_t)
-        torch.cuda.synchronize()
-        ref = flash_decode_ref(q, k, v, pos=pos)
-        timing = None
-        if timed:
-            seen = pos + 1
-            nb = (2 * q.numel() + 2 * hkv * seen * d) * q.element_size()
-            t_b, by = bound(nb, decode_flops(1, hq, d, seen), dname)
-            mask = (torch.arange(s, device="cuda") <= pos)[None, None, None]
-            copies = [(randn(q.shape, dt), randn(k.shape, dt),
-                       randn(v.shape, dt)) for _ in range(copies_for(nb))]
-            timing = dict(
-                ms=time_ms([lambda x=x, y=y, z=z: flash_decode(
-                    x, y, z, pos=pos_t) for x, y, z in copies]),
-                plain_ms=time_ms([lambda x=x, y=y, z=z: flash_decode_ref(
-                    x, y, z, pos=pos_t) for x, y, z in copies]),
-                library_ms=library_ms([
-                    lambda x=x, y=y, z=z: F.scaled_dot_product_attention(
-                        x[:, :, None], y, z, attn_mask=mask,
-                        enable_gqa=hq != hkv) for x, y, z in copies]),
-                bound_ms=t_b, bound_by=by,
-                shape=dict(b=1, hq=hq, hkv=hkv, s=s, pos=pos, d=d))
-        record("flash_decode", label, dname, out, ref, timing)
-
     for dname, dt in dtypes:
         timed = not quick and dname == "float32"
         both = not quick                      # both regimes timed at MHA
-        attention("MHA 16/16 D=128 sq=skv=600 causal", 16, 16, 600, 600,
-                  128, True, dname, dt, both)
+        args = (record, randn)
+        _attention_row(*args, "MHA 16/16 D=128 sq=skv=600 causal", 16, 16,
+                       600, 600, 128, True, dname, dt, both)
         if quick:
             continue
-        attention("GQA 64/4 D=128 sq=skv=600 causal", 64, 4, 600, 600, 128,
-                  True, dname, dt, timed)
-        attention("MHA 32/32 D=64 sq=skv=1500 non-causal", 32, 32, 1500,
-                  1500, 64, False, dname, dt, timed)
-        attention("MHA 32/32 D=64 sq=64 skv=1500 non-causal", 32, 32, 64,
-                  1500, 64, False, dname, dt, timed)
-        decode("ratio 1 16/16 D=128 s=1024 pos=611", 16, 16, 128, 1024, 611,
-               dname, dt, timed)
-        decode("ratio 1 32/32 D=64 s=1024 pos=79", 32, 32, 64, 1024, 79,
-               dname, dt, timed)
-        decode("ratio 16 64/4 D=128 s=1024 pos=607", 64, 4, 128, 1024, 607,
-               dname, dt, timed)
+        _attention_row(*args, "GQA 64/4 D=128 sq=skv=600 causal", 64, 4, 600,
+                       600, 128, True, dname, dt, timed)
+        _attention_row(*args, "MHA 32/32 D=64 sq=skv=1500 non-causal", 32,
+                       32, 1500, 1500, 64, False, dname, dt, timed)
+        _attention_row(*args, "MHA 32/32 D=64 sq=64 skv=1500 non-causal", 32,
+                       32, 64, 1500, 64, False, dname, dt, timed)
+        _decode_row(*args, "ratio 1 16/16 D=128 s=1024 pos=611", 16, 16, 128,
+                    1024, 611, dname, dt, timed)
+        _decode_row(*args, "ratio 1 32/32 D=64 s=1024 pos=79", 32, 32, 64,
+                    1024, 79, dname, dt, timed)
+        _decode_row(*args, "ratio 16 64/4 D=128 s=1024 pos=607", 64, 4, 128,
+                    1024, 607, dname, dt, timed)
         for m in (1, 600):
             for n in (10944, 2816):
-                k = 2048
-                a = randn((m, k), dt)
-                b = randn((k, n), dt, scale=k ** -0.5)
-                out = mm(a, b)
-                torch.cuda.synchronize()
-                timing = None
-                if timed:
-                    nb = (m * k + k * n + m * n) * a.element_size()
-                    t_b, by = bound(nb, mm_flops(m, n, k), dname)
-                    copies = [(randn((m, k), dt), randn((k, n), dt))
-                              for _ in range(copies_for(nb))]
-                    timing = dict(
-                        ms=time_ms([lambda x=x, y=y: mm(x, y)
-                                    for x, y in copies]),
-                        plain_ms=time_ms([lambda x=x, y=y: matmul_ref(x, y)
-                                          for x, y in copies]),
-                        library_ms=library_ms([
-                            lambda x=x, y=y: torch.matmul(x, y)
-                            for x, y in copies]),
-                        bound_ms=t_b, bound_by=by,
-                        shape=dict(m=m, k=k, n=n,
-                                   regime=regime(m, n, k, dt)))
-                record("matmul", f"moe m={m} k={k} n={n}", dname, out,
-                       matmul_ref(a, b), timing)
+                _mm_row(*args, f"moe m={m} k=2048 n={n}", m, 2048, n, dname,
+                        dt, timed)
+
+
+def tp_slice_checks(record, randn, dtypes, quick: bool):
+    """The shapes a tensor-parallel rank of full-width qwen2-1.5b gives the
+    three serving kernels (phase 18 (b)), each timed in float32 beside its
+    plain version and one library call (bf16 checked): the FF GEMMs at
+    M 4096, K 1536 with a rank's N = d_ff / m (4480 at 2 model ranks, 560
+    at 16); flash_attention at B 1, S 512, D 128 on a rank's 8 query heads
+    and 1 KV head (2 ranks) and 1 / 1 (16 ranks); flash_decode on 8 / 1
+    heads over 1024 slots at position 511."""
+    if quick:
+        return
+    for dname, dt in dtypes:
+        timed = dname == "float32"
+        args = (record, randn)
+        for n in (4480, 560):
+            _mm_row(*args, f"tp m=4096 k={D_MODEL} n={n}", 4096, D_MODEL, n,
+                    dname, dt, timed)
+        for hq, hkv in ((8, 1), (1, 1)):
+            _attention_row(*args, f"tp {hq}/{hkv} D=128 sq=skv=512 causal",
+                           hq, hkv, 512, 512, 128, True, dname, dt, timed)
+        _decode_row(*args, "tp 8/1 D=128 s=1024 pos=511", 8, 1, 128, 1024,
+                    511, dname, dt, timed)
 
 
 def head_dim_80_checks(record, randn, dtypes, quick: bool):
@@ -4666,13 +4720,14 @@ TRAIN_PEAK_LR = 3e-4
 # twice and its plain backward once.
 TRAIN_STEP_LAUNCHES = {"matmul": 28 * 12, "flash_attention": 28 * 2,
                        "flash_attention_bwd_plain": 28}
-# 17d: the 100M example, 60 steps at 8 x 256 tokens (cut from 100 so that
-# phase 18 fits the time limit; the loss must still fall by more than 1.0),
-# checkpoints every 20 (keep 2), a failure injected at step 45, so the run
-# restarts from step 40; the replayed steps' losses and the final
-# parameters must equal the uninterrupted run's bit for bit (a step is
-# deterministic and the checkpoint holds params, moments and step).
-EXAMPLE_STEPS, EXAMPLE_EVERY, EXAMPLE_FAIL_AT = 60, 20, 45
+# 17d: the 100M example, 40 steps at 8 x 256 tokens (cut from 100 so that
+# phase 18 fits the time limit, and from 60 when phase 3's tensor-parallel
+# rows came; the loss must still fall by more than 1.0), checkpoints every
+# 20 (keep 2), a failure injected at step 25, so the run restarts from
+# step 20; the replayed steps' losses and the final parameters must equal
+# the uninterrupted run's bit for bit (a step is deterministic and the
+# checkpoint holds params, moments and step).
+EXAMPLE_STEPS, EXAMPLE_EVERY, EXAMPLE_FAIL_AT = 40, 20, 25
 EXAMPLE_RESTORED = EXAMPLE_FAIL_AT // EXAMPLE_EVERY * EXAMPLE_EVERY
 # 17e (a): each scan's gradients at its model's full width: mamba2-2.7b's
 # SSD (H 80, P 64, N 128, its float32 chunk 64) and recurrentgemma-9b's
@@ -5950,12 +6005,16 @@ MESH_GRAD_REL = 1e-5         # of each leaf's max |gradient|
 MESH_PIPE_LOSS_REL = 2e-4
 MESH_PIPE_GRAD_REL = 1e-4
 MESH_COMPRESS_SCALES = 3.0   # running mean within 3 quantization scales
-# Full-width geometry of phase 18: qwen2-1.5b cut to 4 of its 28 layers
+# Full-width geometry of phase 18: qwen2-1.5b cut to 2 of its 28 layers
 # (18a too: each Trainer writes its final checkpoint, 19 GB at 28 layers,
-# and one call to the card may write 45 GiB in all), deepseek-moe-16b to 3
-# (layer 0 dense, two MoE layers).
-MESH_QWEN2_LAYERS = 4
+# and one call to the card may write 45 GiB in all; 4 layers put phase 18
+# near or over its 130 s once its ranks ran tensor-parallel), an
+# even count for GPipe's two stages; deepseek-moe-16b to 3 (layer 0 dense,
+# two MoE layers).
+MESH_QWEN2_LAYERS = 2
 MESH_DEEPSEEK_LAYERS = 3
+# 18b's 2 x 2 train step (phase 19 (c) counts the same step).
+MESH_TRAIN = dict(mesh=(2, 2), batch=8, seq=256, microbatches=2)
 
 
 def _np32(t):
@@ -5968,11 +6027,12 @@ def _flat(tree):
     return _flatten(tree)
 
 
-def _mesh_params(src, cfg, device):
+def _mesh_params(src, cfg, device, ctx=None):
     """A check's parameters: ``{"path"}``, a tree ``torch.save`` wrote (the
     CPU tests' parameters, converted from the JAX package's), or ``{"seed"}``
     (random, made on the device; with ``"stages"`` stacked for the
-    pipeline)."""
+    pipeline). With a tensor-parallel ``ctx``, the rank's blocks
+    (``api.shard_params``)."""
     import torch
 
     from repro_torch.distributed import pipeline
@@ -5981,7 +6041,8 @@ def _mesh_params(src, cfg, device):
 
     if src.get("path"):
         tree = torch.load(src["path"])
-        return tree_map(lambda t: t.to(device), tree)
+        return api.shard_params(tree_map(lambda t: t.to(device), tree),
+                                cfg, ctx)
     if src.get("stages"):
         # The model's own layers, stacked: init_pipeline_params draws with
         # the reference's fan-in of the stacked shape (the stage count),
@@ -5989,7 +6050,26 @@ def _mesh_params(src, cfg, device):
         # stage 0 keep few digits (kernels and plain versions disagree).
         return pipeline.stage_params(
             api.init_params(cfg, src["seed"], device=device), src["stages"])
-    return api.init_params(cfg, src["seed"], device=device)
+    return api.init_params(cfg, src["seed"], device=device, ctx=ctx)
+
+
+def _tree_bytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in _leaves(tree))
+
+
+def _measured(device, fn):
+    """``fn()`` and the bytes it held at its peak above what was allocated
+    before it (0 off the card)."""
+    import torch
+
+    if torch.device(device).type != "cuda":
+        return fn(), 0
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated() - base
 
 
 def _mesh_tokens(seed: int, shape, vocab: int):
@@ -6008,9 +6088,14 @@ def _sync(device):
 
 def _mesh_decode(rank, device, out_dir, state, *, cfg, mesh, batch,
                  prompt_len, steps, max_len, params, token_seed,
-                 teacher=False):
-    """Sequence-sharded decode (``flags.set_perf(decode_sharded=True)``)
-    over this rank's rows, then the same rows unsharded."""
+                 teacher=False, sharded=True, ring_local=False):
+    """This rank's rows served on the mesh, tensor-parallel on its blocks
+    (with ``sharded``, the sequence-sharded decode:
+    ``flags.set_perf(decode_sharded=True)``; ``ring_local``, ring caches on
+    the windowed layers), then the same rows on the
+    whole parameters without the mesh. Each run's logits, tokens, kernel
+    launches, parameter bytes and peak bytes above what was held before it
+    are written."""
     import numpy as np
     import torch
 
@@ -6021,17 +6106,20 @@ def _mesh_decode(rank, device, out_dir, state, *, cfg, mesh, batch,
     from repro_torch.models import api, flags
 
     ctx = rules.make_context(make_local_mesh(*mesh, device=device))
-    p = _mesh_params(params, cfg, device)
+    whole = _mesh_params(params, cfg, device)
+    blocks = api.shard_params(whole, cfg, ctx)
     toks = torch.from_numpy(rules.local_rows(_mesh_tokens(
         token_seed, (batch, prompt_len + steps), cfg.vocab_size), ctx))
     res = {}
 
-    def run(c, sharded):
-        flags.set_perf(decode_sharded=sharded)
+    def run(p, c, on):
+        flags.set_perf(decode_sharded=on)
+        before = dict(build.LAUNCHES)
         logits, st = api.prefill(p, cfg, {"tokens": toks[:, :prompt_len]},
-                                 max_len, ctx=c)
+                                 max_len, ring_local=ring_local, ctx=c)
+        coll[:] = [0.0, 0]                   # the decode steps' collectives
         outs, picked, step_s = [], [], []
-        before = build.LAUNCHES["flash_decode"]
+        decodes = build.LAUNCHES["flash_decode"]
         for i in range(steps):
             tok = (toks[:, prompt_len + i].to(logits.device) if teacher
                    else logits[:, :cfg.vocab_size].argmax(-1))
@@ -6042,8 +6130,10 @@ def _mesh_decode(rank, device, out_dir, state, *, cfg, mesh, batch,
             _sync(device)
             step_s.append(time.perf_counter() - t0)
             outs.append(logits)
+        launches = np.array([build.LAUNCHES[k] - before[k]
+                             for k in SERVE_KERNELS])
         return (torch.stack(outs), torch.stack(picked), st,
-                build.LAUNCHES["flash_decode"] - before, step_s)
+                build.LAUNCHES["flash_decode"] - decodes, step_s, launches)
 
     coll = [0.0, 0]
     real = collectives.all_reduce
@@ -6061,7 +6151,8 @@ def _mesh_decode(rank, device, out_dir, state, *, cfg, mesh, batch,
         with torch.no_grad():
             collectives.all_reduce = timed_all_reduce
             try:
-                logits, picked, st, launches, step_s = run(ctx, True)
+                (logits, picked, st, launches, step_s, kernels), peak = \
+                    _measured(device, lambda: run(blocks, ctx, sharded))
             finally:
                 collectives.all_reduce = real
                 flags.set_perf(decode_sharded=False)
@@ -6069,16 +6160,24 @@ def _mesh_decode(rank, device, out_dir, state, *, cfg, mesh, batch,
             res["sliced_layers"] = np.array(
                 sum("kv_pos" in c for c in kv))
             res["s_loc"] = np.array(kv[0]["k"].shape[2])
+            res["kv_heads"] = np.array(kv[0]["k"].shape[1])
             res["logits"] = _np32(logits)
             res["tokens"] = picked.cpu().numpy()
             res["launches"] = np.array(launches)
+            res["kernel_launches"] = kernels
+            res["param_bytes"] = np.array(_tree_bytes(blocks))
+            res["run_peak_bytes"] = np.array(peak)
             res["collective_ms_step"] = np.array(coll[0] * 1e3 / steps)
             res["collectives_step"] = np.array(coll[1] / steps)
             res["step_ms"] = np.array(statistics.median(step_s) * 1e3)
-            del st
-            ref, ref_tok, st, _, _ = run(None, False)
+            del st, blocks
+            (ref, ref_tok, st, _, _, kernels), peak = _measured(
+                device, lambda: run(whole, None, False))
             res["ref_logits"] = _np32(ref)
             res["ref_tokens"] = ref_tok.cpu().numpy()
+            res["ref_kernel_launches"] = kernels
+            res["ref_param_bytes"] = np.array(_tree_bytes(whole))
+            res["ref_run_peak_bytes"] = np.array(peak)
             del st
     finally:
         flags.set_perf(decode_sharded=False)
@@ -6087,25 +6186,30 @@ def _mesh_decode(rank, device, out_dir, state, *, cfg, mesh, batch,
 
 def _mesh_moe(rank, device, out_dir, state, *, cfg, mesh, batch, seq,
               params, token_seed, single=True, keep=True):
-    """Expert-parallel MoE forward of this rank's rows against the local
-    all-experts forward of the same rows."""
+    """Expert-parallel MoE forward of this rank's rows (the rank's blocks:
+    its experts, its columns of the shared experts and of the rest)
+    against the local all-experts forward of the same rows."""
     import numpy as np
     import torch
 
     from repro_torch.distributed import sharding_rules as rules
     from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import api
     from repro_torch.models import transformer as T
 
     ctx = rules.make_context(make_local_mesh(*mesh, device=device))
-    p = _mesh_params(params, cfg, device)
+    whole = _mesh_params(params, cfg, device)
+    blocks = api.shard_params(whole, cfg, ctx)
     toks = torch.from_numpy(rules.local_rows(
         _mesh_tokens(token_seed, (batch, seq), cfg.vocab_size), ctx)).to(
         device)
-    res = {}
+    res = {"param_bytes": np.array(_tree_bytes(blocks)),
+           "ref_param_bytes": np.array(_tree_bytes(whole))}
     with torch.no_grad():
-        y = T.forward(p, cfg, toks, ctx=ctx).logits.float()
+        y = T.forward(blocks, cfg, toks, ctx=ctx).logits.float()
+        del blocks
         if single:
-            ref = T.forward(p, cfg, toks).logits.float()
+            ref = T.forward(whole, cfg, toks).logits.float()
             res["err"] = np.array(float((y - ref).abs().max()))
             res["bound"] = np.array(float(
                 (MESH_MOE_TOL + MESH_MOE_TOL * ref.abs()).min()))
@@ -6130,22 +6234,32 @@ def _train_batches(cfg, batch, seq, steps, seed):
 def _mesh_train(rank, device, out_dir, state, *, cfg, mesh, batch, seq,
                 microbatches, steps, lr, params, data_seed, single=True,
                 keep=False):
-    """``steps`` mesh train steps (this rank's rows, gradients averaged
-    over the batch axes) and, with ``single``, rank 0's one-process steps
-    on the global batch from the same parameters, held against them here
-    (the figures are written; with ``keep``, rank 0's arrays too: the
-    first step's gradients and the last parameters)."""
+    """``steps`` mesh train steps on the rank's blocks (this rank's rows,
+    gradients averaged over the batch axes, the clip's norm over the
+    model group) and, with ``single``, rank 0's one-process steps on the
+    global batch from the same whole parameters, held against the
+    first step's gradients and the last parameters gathered whole
+    (``unshard_tree``, collective), the losses and the first step's clip
+    norm (the blocks' squares summed over the model group). Rank 0 also
+    writes its
+    second step's kernel launches and its peak bytes above what it held
+    before the step plus the step's arguments (the dry run's count of the
+    same step, phase 19). With ``keep``, rank 0's gathered arrays are
+    written."""
     import numpy as np
     import torch
 
     from repro_torch.distributed import collectives
     from repro_torch.distributed import sharding_rules as rules
+    from repro_torch.kernels import build
     from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import api
     from repro_torch.optim import adamw
     from repro_torch.optim.adamw import tree_leaves
     from repro_torch.train.step import make_train_step
 
     ctx = rules.make_context(make_local_mesh(*mesh, device=device))
+    sh = api.tp_shardings(cfg, ctx)
     opt_cfg = adamw.AdamWConfig()
 
     def lr_fn(step):
@@ -6154,47 +6268,76 @@ def _mesh_train(rank, device, out_dir, state, *, cfg, mesh, batch, seq,
     batches = _train_batches(cfg, batch, seq, steps, data_seed)
     res = {}
 
-    def run(c, feed):
-        p = _mesh_params(params, cfg, device)
+    def run(c, feed, gather):
+        p = _mesh_params(params, cfg, device, ctx=c)
         opt = adamw.init_state(p, opt_cfg)
         step = make_train_step(cfg, opt_cfg, lr_fn, microbatches, ctx=c)
-        losses, times, grads = [], [], None
+        losses, norms, times, grads, second = [], [], [], None, {}
         for i, b in enumerate(batches):
             _sync(device)
             t0 = time.perf_counter()
             if i == 0:
                 # The step's two halves, to keep its averaged gradients.
                 m, g = step.grad_step(p, feed(b))
-                p, opt, _ = adamw.apply_updates(p, g, opt, opt_cfg,
-                                                lr_fn(opt["step"]))
-                grads = {k: _np32(v) for k, v in _flat(g).items()}
-                del g
+                p, opt, om = adamw.apply_updates(
+                    p, g, opt, opt_cfg, lr_fn(opt["step"]),
+                    split=step.split, group=step.group)
+                m = dict(m, **om)
+                whole = _flat(gather(g))         # collective: every rank
+                if rank == 0:
+                    grads = {k: _np32(v) for k, v in whole.items()}
+                del g, whole
             else:
-                p, opt, m = step(p, opt, feed(b))
+                args = (p, opt, feed(b))
+                before = dict(build.LAUNCHES)
+                (p, opt, m), peak = _measured(device, lambda: step(*args))
+                second = dict(
+                    peak=peak + _storage_bytes(list(args)),
+                    launches={k: build.LAUNCHES[k] - before[k]
+                              for k in before
+                              if build.LAUNCHES[k] != before[k]})
+                del args
             losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
             times.append(time.perf_counter() - t0)
-        return p, grads, np.array(losses), times
+        return p, grads, np.array(losses), np.array(norms), times, second
 
-    p, grads, losses, times = run(ctx, lambda b: rules.local_batch(b, ctx))
+    p, grads, losses, norms, times, second = run(
+        ctx, lambda b: rules.local_batch(b, ctx),
+        lambda t: rules.unshard_tree(t, sh))
     res["losses"] = losses
+    res["grad_norms"] = norms
     res["step_ms"] = np.array(statistics.median(times) * 1e3)
-    # Every rank must hold the same parameters after the steps.
+    res["param_bytes"] = np.array(_tree_bytes(p))
+    if second:
+        res["step2_peak_bytes"] = np.array(second["peak"])
+        res["step2_launches"] = np.array(json.dumps(second["launches"]))
+    # Ranks of one model coordinate hold the same blocks (the model
+    # coordinate of each rank beside the sum of its blocks).
     total = sum(float(t.double().abs().sum()) for t in tree_leaves(p))
     sums = collectives.all_gather(
-        torch.tensor([total], dtype=torch.float64), 0)
-    res["param_abs_sums"] = sums.numpy()
-    state["trained"] = p
+        torch.tensor([total, ctx.model_index], dtype=torch.float64), 0)
+    res["param_abs_sums"] = sums.numpy().reshape(-1, 2)
+    whole = rules.unshard_tree(p, sh)
+    del p
+    state["trained"] = whole
     if rank == 0 and keep:
         res.update({f"grads/{k}": v for k, v in grads.items()})
-        res.update({f"params/{k}": _np32(v) for k, v in _flat(p).items()})
+        res.update({f"params/{k}": _np32(v) for k, v in _flat(whole).items()})
     if single and rank == 0:
-        q, g1, l1, _ = run(None, lambda b: b)
+        q, g1, l1, n1, _, _ = run(None, lambda b: b, lambda t: t)
         res["ref_losses"] = l1
+        res["ref_param_bytes"] = np.array(_tree_bytes(q))
         res["loss_rel"] = np.array(float(np.abs(losses - l1).max()
                                          / np.abs(l1).max()))
-        res["grad_rel"] = np.array(max(_grad_rel(grads[k], g1[k])
-                                       for k in g1))
-        mine = _flat(p)
+        # The clip's norm of the first step (the same parameters).
+        res["ref_grad_norms"] = n1
+        res["norm_rel"] = np.array(abs(norms[0] - n1[0]) / abs(n1[0]))
+        rels = {k: _grad_rel(grads[k], g1[k]) for k in g1}
+        res["grad_rel"] = np.array(max(rels.values()))
+        res["grad_worst"] = np.array(", ".join(
+            f"{k} {rels[k]:.2e}" for k in sorted(rels, key=rels.get)[-3:]))
+        mine = _flat(whole)
         res["param_diff"] = np.array(max(float((mine[k] - v).abs().max())
                                          for k, v in _flat(q).items()))
         del q, g1
@@ -6258,7 +6401,8 @@ def _mesh_restore(rank, device, out_dir, state, *, cfg, mesh, batch, seq,
                   microbatches, lr, data_seed, ckpt):
     """Elastic restore: the 2 x 2 mesh's checkpoint onto this mesh's
     shardings (each rank its blocks, equal to the saved arrays exactly),
-    then one more train step on this mesh."""
+    then one more train step on this mesh, on its tensor-parallel
+    blocks."""
     import numpy as np
     import torch
 
@@ -6294,7 +6438,7 @@ def _mesh_restore(rank, device, out_dir, state, *, cfg, mesh, batch, seq,
     held = sum(t.numel() for t in tree_leaves(tree))
     whole = sum(t.numel() for t in want.values())
     del want
-    params = rules.unshard_tree(tree, sh)
+    params = api.shard_params(rules.unshard_tree(tree, sh), cfg, ctx)
     del tree
     opt_cfg = adamw.AdamWConfig()
     opt = adamw.init_state(params, opt_cfg)
@@ -6543,6 +6687,84 @@ def _grad_rel(got, want) -> float:
     return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
 
 
+# A rank's share of qwen2's parameter bytes at 2 and at 4 model ranks.
+MESH_HELD = {2: 0.51, 4: 0.27}
+
+
+def _serve_verdict(name, ranks, sharded: bool):
+    """Hold a served check (``_mesh_decode``) against its one-process run
+    on every rank: tokens equal, logits within MESH_DECODE_REL of max
+    |logit|, each kernel launched as often; with ``sharded``, every rank
+    kept a sequence slice."""
+    import numpy as np
+
+    for r, d in enumerate(ranks):
+        check(np.array_equal(d["tokens"], d["ref_tokens"]),
+              f"{name} tokens differ on rank {r}: "
+              f"{d['tokens'].ravel().tolist()} vs "
+              f"{d['ref_tokens'].ravel().tolist()}")
+        err = float(np.abs(d["logits"] - d["ref_logits"]).max())
+        scale = float(np.abs(d["ref_logits"]).max())
+        check(err <= MESH_DECODE_REL * scale,
+              f"{name} logits off by {err:.3e} on rank {r} "
+              f"(max |logit| {scale:.3e})")
+        check(np.array_equal(d["kernel_launches"], d["ref_kernel_launches"]),
+              f"{name}: rank {r} launched {SERVE_KERNELS} "
+              f"{d['kernel_launches'].tolist()} times, the one-process path "
+              f"{d['ref_kernel_launches'].tolist()}")
+        if sharded:
+            check(int(d["sliced_layers"]) > 0,
+                  f"rank {r} kept no sequence slice")
+    held = [float(d["param_bytes"]) / float(d["ref_param_bytes"])
+            for d in ranks]
+    d0 = ranks[0]
+    out = dict(
+        err=max(float(np.abs(d["logits"] - d["ref_logits"]).max())
+                for d in ranks),
+        scale=max(float(np.abs(d["ref_logits"]).max()) for d in ranks),
+        launches=[int(d["launches"]) for d in ranks],
+        kernel_launches=[dict(zip(SERVE_KERNELS,
+                                  d["kernel_launches"].tolist()))
+                         for d in ranks],
+        ref_kernel_launches=dict(zip(SERVE_KERNELS,
+                                     d0["ref_kernel_launches"].tolist())),
+        kv_heads=int(d0["kv_heads"]), s_loc=int(d0["s_loc"]),
+        held_fraction=held,
+        param_bytes=[int(d["param_bytes"]) for d in ranks],
+        ref_param_bytes=int(d0["ref_param_bytes"]),
+        run_peak_bytes=[int(d["run_peak_bytes"]) for d in ranks],
+        ref_run_peak_bytes=[int(d["ref_run_peak_bytes"]) for d in ranks],
+        collective_ms_step=[float(d["collective_ms_step"]) for d in ranks],
+        collectives_step=float(d0["collectives_step"]),
+        step_ms=[float(d["step_ms"]) for d in ranks],
+        wall_ms=[float(d["wall_ms"]) for d in ranks],
+        peak_bytes=[int(d["peak_bytes"]) for d in ranks])
+    log(f"  {name}: tokens equal on {len(ranks)} ranks, logits within "
+        f"{out['err']:.3e} (max |logit| {out['scale']:.3e}); a rank's "
+        f"{SERVE_KERNELS} launches {d0['kernel_launches'].tolist()} = the "
+        f"one-process path's {d0['ref_kernel_launches'].tolist()}; KV heads "
+        f"a rank {out['kv_heads']}, cache rows {out['s_loc']}; collectives "
+        f"{out['collectives_step']:.0f} a step taking "
+        f"{[round(x, 2) for x in out['collective_ms_step']]} ms, step ms "
+        f"{[round(x, 2) for x in out['step_ms']]}")
+    log(f"  {name}: parameter GB by rank "
+        f"{[round(x / 1e9, 3) for x in out['param_bytes']]} of "
+        f"{out['ref_param_bytes'] / 1e9:.3f} whole ({[round(h, 4) for h in held]});"
+        f" run peak GB above what was held by rank "
+        f"{[round(x / 1e9, 3) for x in out['run_peak_bytes']]} vs one process "
+        f"{[round(x / 1e9, 3) for x in out['ref_run_peak_bytes']]}")
+    log(_rank_line(name, ranks))
+    return out
+
+
+def _check_held(name, fractions, model_ranks: int):
+    limit = MESH_HELD.get(model_ranks)
+    if limit is not None:
+        check(all(f <= limit for f in fractions),
+              f"{name}: a rank holds {fractions} of the parameter bytes at "
+              f"{model_ranks} model ranks (limit {limit})")
+
+
 def mesh_verdicts(res, lr: float):
     """Hold phase 18 (b)'s results (``run_mesh_group``'s, both groups)
     against the one-process paths computed in the same ranks; returns the
@@ -6551,73 +6773,74 @@ def mesh_verdicts(res, lr: float):
 
     out = {}
     if "decode" in res:
-        ranks = res["decode"]
-        for r, d in enumerate(ranks):
-            check(np.array_equal(d["tokens"], d["ref_tokens"]),
-                  f"sharded decode tokens differ on rank {r}: "
-                  f"{d['tokens'].ravel().tolist()} vs "
-                  f"{d['ref_tokens'].ravel().tolist()}")
-            err = float(np.abs(d["logits"] - d["ref_logits"]).max())
-            scale = float(np.abs(d["ref_logits"]).max())
-            check(err <= MESH_DECODE_REL * scale,
-                  f"sharded decode logits off by {err:.3e} on rank {r} "
-                  f"(max |logit| {scale:.3e})")
-            check(int(d["sliced_layers"]) > 0,
-                  f"rank {r} kept no sequence slice")
-        d0 = ranks[0]
-        out["decode"] = dict(
-            err=max(float(np.abs(d["logits"] - d["ref_logits"]).max())
-                    for d in ranks),
-            launches=[int(d["launches"]) for d in ranks],
-            s_loc=int(d0["s_loc"]),
-            collective_ms_step=[float(d["collective_ms_step"])
-                                for d in ranks],
-            step_ms=[float(d["step_ms"]) for d in ranks],
-            wall_ms=[float(d["wall_ms"]) for d in ranks],
-            peak_bytes=[int(d["peak_bytes"]) for d in ranks])
-        log(f"  sharded decode: tokens equal on {len(ranks)} ranks, logits "
-            f"within {out['decode']['err']:.3e}, flash_decode launches by "
-            f"rank {out['decode']['launches']}, slice {d0['s_loc']} rows, "
-            f"collectives {float(d0['collectives_step']):.0f} a step taking "
-            f"{out['decode']['collective_ms_step']} ms, step ms "
-            f"{out['decode']['step_ms']}")
-        log(_rank_line("decode", ranks))
+        out["decode"] = _serve_verdict("sharded decode", res["decode"], True)
+    for tag in sorted(t for t in res if t.startswith("serve")):
+        out[tag] = _serve_verdict(f"tensor-parallel {tag}", res[tag], False)
     if "moe" in res:
         ranks = res["moe"]
         for r, d in enumerate(ranks):
             check(bool(d["ok"]), f"EP MoE logits off by {float(d['err']):.3e}"
                   f" on rank {r}")
         out["moe"] = dict(err=max(float(d["err"]) for d in ranks),
+                          param_bytes=[int(d["param_bytes"]) for d in ranks],
+                          ref_param_bytes=int(ranks[0]["ref_param_bytes"]),
                           wall_ms=[float(d["wall_ms"]) for d in ranks],
                           peak_bytes=[int(d["peak_bytes"]) for d in ranks])
         log(f"  EP MoE: logits within {out['moe']['err']:.3e} of the local "
             f"all-experts forward (max |logit| "
-            f"{max(float(d['scale']) for d in ranks):.3e})")
+            f"{max(float(d['scale']) for d in ranks):.3e}); parameter GB by "
+            f"rank {[round(x / 1e9, 3) for x in out['moe']['param_bytes']]} "
+            f"of {out['moe']['ref_param_bytes'] / 1e9:.3f} whole")
         log(_rank_line("moe", ranks))
     if "train" in res:
         ranks = res["train"]
         d = ranks[0]
-        sums = d["param_abs_sums"]
-        check(np.all(sums == sums[0]), f"ranks' parameters differ: {sums}")
+        sums = d["param_abs_sums"]            # [rank, (sum, model index)]
+        for mi in set(sums[:, 1].tolist()):
+            same = sums[sums[:, 1] == mi, 0]
+            check(np.all(same == same[0]), f"the ranks of model coordinate "
+                  f"{int(mi)} hold different blocks: {sums.tolist()}")
         lrel, grel = float(d["loss_rel"]), float(d["grad_rel"])
         pdiff = float(d["param_diff"])
+        held = [float(r["param_bytes"]) / float(d["ref_param_bytes"])
+                for r in ranks]
+        out["train"] = dict(losses=d["losses"].tolist(),
+                            ref_losses=d["ref_losses"].tolist(),
+                            grad_norms=d["grad_norms"].tolist(),
+                            ref_grad_norms=d["ref_grad_norms"].tolist(),
+                            norm_rel=float(d["norm_rel"]),
+                            loss_rel=lrel, grad_rel=grel, param_diff=pdiff,
+                            held_fraction=held,
+                            step2_peak_bytes=int(d["step2_peak_bytes"]),
+                            step2_launches=json.loads(
+                                str(d["step2_launches"])),
+                            step_ms=[float(r["step_ms"]) for r in ranks],
+                            wall_ms=[float(r["wall_ms"]) for r in ranks],
+                            peak_bytes=[int(r["peak_bytes"]) for r in ranks])
+        log(f"  mesh train (tensor-parallel): losses {d['losses'].tolist()} "
+            f"vs one process {d['ref_losses'].tolist()} (relative "
+            f"{lrel:.3e}), gathered gradients within {grel:.3e} of a leaf's "
+            f"max (worst: {d['grad_worst']}), gathered parameters within "
+            f"{pdiff:.3e}, the first clip norm "
+            f"{float(d['grad_norms'][0]):.6f} vs "
+            f"{float(d['ref_grad_norms'][0]):.6f} (relative "
+            f"{float(d['norm_rel']):.3e}), blocks equal by "
+            f"model coordinate, step ms {out['train']['step_ms']}; a rank "
+            f"holds {[round(h, 4) for h in held]} of the parameter bytes; "
+            f"rank 0's second step: launches "
+            f"{out['train']['step2_launches']}, peak "
+            f"{out['train']['step2_peak_bytes'] / 1e9:.3f} GB")
+        log(_rank_line("train", ranks))
         check(lrel <= MESH_LOSS_REL, f"mesh train losses {d['losses']} vs "
               f"{d['ref_losses']} (relative {lrel:.3e})")
         check(grel <= MESH_GRAD_REL, f"mesh gradients off by {grel:.3e} of "
               "a leaf's max")
+        nrel = float(d["norm_rel"])
+        check(nrel <= MESH_GRAD_REL, f"mesh clip norm {d['grad_norms'][0]} "
+              f"vs one process {d['ref_grad_norms'][0]} (relative "
+              f"{nrel:.3e})")
         check(pdiff <= 2 * lr, f"mesh parameters off by {pdiff:.3e} "
               f"(2 x lr = {2 * lr:.1e})")
-        out["train"] = dict(losses=d["losses"].tolist(),
-                            ref_losses=d["ref_losses"].tolist(),
-                            loss_rel=lrel, grad_rel=grel, param_diff=pdiff,
-                            step_ms=[float(r["step_ms"]) for r in ranks],
-                            wall_ms=[float(r["wall_ms"]) for r in ranks],
-                            peak_bytes=[int(r["peak_bytes"]) for r in ranks])
-        log(f"  mesh train: losses {d['losses'].tolist()} vs one process "
-            f"{d['ref_losses'].tolist()} (relative {lrel:.3e}), gradients "
-            f"within {grel:.3e} of a leaf's max, parameters within "
-            f"{pdiff:.3e}, step ms {out['train']['step_ms']}")
-        log(_rank_line("train", ranks))
     if "restore" in res:
         ranks = res["restore"]
         saved = res["save"]
@@ -6804,10 +7027,13 @@ def mesh_phase():
         four = dict(
             decode=dict(mesh=(1, 4), batch=1, prompt_len=511, steps=8,
                         max_len=1024, params={"seed": 0}, token_seed=11),
+            serve=dict(mesh=(2, 2), batch=2, prompt_len=511, steps=8,
+                       max_len=1024, params={"seed": 0}, token_seed=16,
+                       sharded=False),
             moe=dict(mesh=(2, 2), batch=4, seq=64, params={"seed": 0},
                      token_seed=12, keep=False),
-            train=dict(mesh=(2, 2), batch=8, seq=256, microbatches=2,
-                       steps=2, params={"seed": 0}, data_seed=13))
+            train=dict(MESH_TRAIN, steps=2, params={"seed": 0},
+                       data_seed=13))
         two = dict(
             restore=dict(mesh=(1, 2), batch=8, seq=256, microbatches=2,
                          data_seed=13),
@@ -6816,6 +7042,7 @@ def mesh_phase():
             compress=dict(shape=(1536, 1536), rounds=20, seed=15))
         ckpt = str(tmp / "elastic")
         g4 = [("decode", "decode", dict(cfg=qwen2, **four["decode"])),
+              ("decode", "serve", dict(cfg=qwen2, **four["serve"])),
               ("moe", "moe", dict(cfg=deepseek, **four["moe"])),
               ("train", "train", dict(cfg=qwen2, lr=lr, **four["train"])),
               ("save", "save", dict(cfg=qwen2, mesh=four["train"]["mesh"],
@@ -6824,19 +7051,31 @@ def mesh_phase():
                                           **two["restore"])),
               ("gpipe", "gpipe", dict(cfg=qwen2, **two["gpipe"])),
               ("compress", "compress", dict(**two["compress"]))]
-        log("== 18b: four gloo ranks on cuda:0 — sequence-sharded decode "
-            "(qwen2-1.5b, 4 layers, 1 x 4), EP MoE (deepseek-moe-16b, 3 "
-            "layers, 2 x 2), mesh train step (qwen2-1.5b, 4 layers, 2 x 2), "
-            "the sharded save; then two of them — elastic restore onto 1 x "
-            "2 and one step, GPipe over two stages, compress_psum")
+        log("== 18b: four gloo ranks on cuda:0, each on its tensor-parallel "
+            f"blocks — sequence-sharded decode (qwen2-1.5b, "
+            f"{MESH_QWEN2_LAYERS} layers, 1 x 4: "
+            "4 query heads a rank, KV replicated), tensor-parallel serve "
+            f"(qwen2-1.5b, {MESH_QWEN2_LAYERS} layers, 2 x 2: KV heads "
+            "split; 511-token "
+            "prompts, 8 greedy steps), EP MoE (deepseek-moe-16b, 3 layers, "
+            f"2 x 2), mesh train step (qwen2-1.5b, {MESH_QWEN2_LAYERS} "
+            "layers, 2 x 2), the "
+            "sharded save; then two of them — elastic restore onto 1 x 2 "
+            "and one step, GPipe over two stages, compress_psum")
         t0 = time.perf_counter()
         res = run_mesh_group(4, g4, tmp / "ranks", "cuda", then=(2, g2))
-        log(f"  [18b ranks: {time.perf_counter() - t0:.1f} s]")
+        log(f"  [18b ranks: {time.perf_counter() - t0:.1f} s]; slowest rank "
+            "s by check: " + ", ".join(
+                f"{tag} {max(float(r['wall_ms']) for r in ranks) / 1e3:.1f}"
+                for tag, ranks in res.items()))
         out["checks"] = mesh_verdicts(res, lr)
         want = MESH_QWEN2_LAYERS * four["decode"]["steps"]
         got = out["checks"]["decode"]["launches"]
         check(all(n == want for n in got), f"the sharded decode launched "
               f"flash_decode {got} times by rank; {want} expected")
+        for name, model in (("decode", 4), ("serve", 2), ("train", 2)):
+            _check_held(f"18b {name}", out["checks"][name]["held_fraction"],
+                        model)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return out
@@ -6975,11 +7214,14 @@ def _calibrate(label, count, run, make_args, runs: int = 3):
     return rec, outs
 
 
-def dryrun_phase(host):
+def dryrun_phase(host, mesh_train):
     """Phase 19: (a) the host's count of qwen2-1.5b's single-pod cells
     (``host``, the process ``start_host_dryrun`` started), (b) the count of
     a bf16 train and decode step held against the same steps on the
-    card."""
+    card, (c) the count of phase 18 (b)'s tensor-parallel train step
+    (float32, its layers, 2 x 2, its batch) on a fake 2 x 2 group held
+    against rank 0's second step there (``mesh_train``: its launches and
+    peak)."""
     import numpy as np
     import torch
     from repro_torch import configs
@@ -7060,6 +7302,46 @@ def dryrun_phase(host):
           "bf16 decode logits not finite")
     del steps
     torch.cuda.empty_cache()
+
+    # (c) Phase 18 (b)'s tensor-parallel step, counted as rank 0 of 2 x 2.
+    out["mesh_train"] = mesh_train_count(cfg, mesh_train)
+    return out
+
+
+def mesh_train_count(cfg, mesh_train):
+    """Phase 19 (c): phase 18 (b)'s tensor-parallel train step (``cfg`` at
+    ``MESH_QWEN2_LAYERS`` layers, float32, ``MESH_TRAIN``) counted as rank
+    0 of a fake 2 x 2 group, held against rank 0's second step there
+    (``mesh_train``: its launches and its peak, arguments included):
+    launches equal, peak within ``PEAK_REL_TOL``."""
+    import torch
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.launch import dryrun
+    from repro_torch.optim import adamw
+
+    qwen2 = _first_layers(cfg, MESH_QWEN2_LAYERS)
+    mesh_shape = ShapeSpec("mesh_train", MESH_TRAIN["seq"],
+                           MESH_TRAIN["batch"], "train")
+    with dryrun.cell_mesh(local=MESH_TRAIN["mesh"]) as mesh:
+        count, _ = dryrun._compile_step(
+            qwen2, mesh_shape, mesh, microbatches=MESH_TRAIN["microbatches"],
+            dtype=torch.float32, opt_cfg=adamw.AdamWConfig())
+    counted, card = dict(count.launches), mesh_train["step2_launches"]
+    peak, counted_peak = mesh_train["step2_peak_bytes"], float(
+        count.peak_bytes)
+    out = dict(launches=card, counted_launches=counted, peak_bytes=peak,
+               counted_peak_bytes=counted_peak, flops=count.flops,
+               hbm_bytes=count.hbm_bytes, collective_bytes=count.totals()[2])
+    log(f"  tensor-parallel train step (float32, {MESH_QWEN2_LAYERS} layers, "
+        f"2 x 2, rank 0): launches {card} (counted {counted}); peak "
+        f"{peak / 1e9:.3f} GB (counted {counted_peak / 1e9:.3f} GB, "
+        f"{(counted_peak - peak) / peak:+.2%}); counted {count.flops:.4e} "
+        f"FLOPs, {count.totals()[2]:.4e} collective bytes")
+    check(card == counted, f"the 2 x 2 step's counted launches {counted} "
+          f"differ from rank 0's {card}")
+    check(abs(counted_peak - peak) <= PEAK_REL_TOL * peak,
+          f"the 2 x 2 step's counted peak {counted_peak:.4e} B is not within "
+          f"{PEAK_REL_TOL:.0%} of rank 0's {peak:.4e} B")
     return out
 
 
@@ -7342,7 +7624,8 @@ def main(argv=None) -> int:
                 "on the host; a bf16 train and decode step counted, then run "
                 "on the card")
             t0 = time.perf_counter()
-            result["dryrun"] = dryrun_phase(host_dryrun)
+            result["dryrun"] = dryrun_phase(host_dryrun,
+                                            result["mesh"]["checks"]["train"])
             phase_done("19 dryrun", t0)
 
             check("jax" not in sys.modules, "jax was imported")
@@ -7373,9 +7656,14 @@ def main(argv=None) -> int:
             by_path["rglru"] = {
                 "recurrentgemma serve (phase 11)": launches["rglru"],
                 "train": recurrent["recurrentgemma"]["steps"]["launches"]}
-            # Phase 18 (b)'s sequence-sharded decode, on each of its ranks.
+            # Phase 18 (b)'s sequence-sharded decode (its decode steps) and
+            # tensor-parallel serve (prefill and decode steps), by rank.
             by_path["flash_decode"]["sharded decode (phase 18b), by rank"] = \
                 result["mesh"]["checks"]["decode"]["launches"]
+            for name in SERVE_KERNELS:
+                by_path[name]["tensor-parallel serve (phase 18b), by rank"] = [
+                    r[name] for r in
+                    result["mesh"]["checks"]["serve"]["kernel_launches"]]
             line = kernels_line(rows, launches, by_path)
             result["kernels"] = line["kernels"]
         result["seconds"] = time.perf_counter() - t_start

@@ -14,9 +14,13 @@ A leaf shards by its spec: this rank holds its block of every mesh axis the
 spec names (the blocks of an axis in coordinate order, of a tuple entry the
 first axis the slowest). :func:`shard_tree` cuts a whole tree into this
 rank's blocks and :func:`unshard_tree` gathers the blocks back (the
-checkpoint round trip). The port's train step keeps the parameters whole on
-every rank, as the reference's ``Trainer`` leaves them; the shardings say
-where a block lives on disk and after an elastic restore.
+checkpoint round trip).
+
+Tensor parallelism: the tree a rank holds its parameters in on a mesh is
+the model's (``models/api.py:tp_shardings``), built from each leaf's
+logical axes. FSDP (the ``data`` entries of :func:`param_shardings`) says
+where a block lives on disk and after an elastic restore; the step does
+not shard over ``data``.
 
 ``mesh`` is anything with the reference's ``shape`` (axis name -> size) and
 ``axis_names``: a ``launch.mesh.Mesh``, or a stub in the tests.

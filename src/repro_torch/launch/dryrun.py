@@ -18,10 +18,13 @@ the port counts every layer as it runs, so :func:`exact_cost_terms` counts
 the full depth directly (:func:`probe_cost_terms` is the reference's
 method, kept to check the count against itself).
 
-Each rank keeps the parameters whole and computes the dense layers whole
-for its batch rows (``models/context.py``), so the counts are the port's
-per rank; ``memory.param_bytes_sharded`` gives what the reference's FSDP
-shardings would leave a rank, beside the peak the port holds.
+Each rank holds its tensor-parallel blocks (``api.tp_shardings``:
+attention heads, FF columns, experts and vocabulary over the model axis)
+and computes the dense layers on them for its batch rows
+(``models/context.py``), so the counts are the port's per rank, the
+model-axis sums among the collectives; ``memory.param_bytes_sharded`` gives
+what the reference's FSDP shardings would leave a rank (the ``data`` axis
+too, not ported), beside the peak the port holds.
 
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen2-1.5b --shape train_4k
@@ -135,22 +138,26 @@ def _storage_bytes(tree: Any) -> int:
     return total
 
 
-def _compile_step(cfg, shape, mesh, microbatches: int = 1
+def _compile_step(cfg, shape, mesh, microbatches: int = 1,
+                  dtype=torch.bfloat16, opt_cfg=OPT_CFG
                   ) -> Tuple[Count, Dict[str, int]]:
-    """Build the cell's step and count it (the reference lowers and
-    compiles it). Returns (count, {"argument_bytes", "output_bytes"})."""
+    """Build rank 0's step of the cell on its blocks and count it (the
+    reference lowers and compiles it). ``dtype`` and ``opt_cfg``: the
+    parameters' and AdamW's (the production cells' bf16 by default).
+    Returns (count, {"argument_bytes", "output_bytes"})."""
     ctx = rules.make_context(mesh)
-    params = S.abstract_params(cfg, torch.bfloat16)
+    params = S.abstract_params(cfg, dtype, ctx=ctx)
     if shape.kind == "train":
-        opt = S.abstract_opt_state(params, OPT_CFG)
+        opt = S.abstract_opt_state(params, opt_cfg)
         batch = {k: _rank_rows(v, ctx)
                  for k, v in S.input_specs(cfg, shape).items()}
         # Huge models (235B-class) accumulate microbatch grads in bf16 to
-        # keep the f32 accumulation buffer off the HBM budget.
-        params_bytes = _storage_bytes(params)
+        # keep the f32 accumulation buffer off the HBM budget (the
+        # reference's rule, on the whole model's bytes).
+        params_bytes = _storage_bytes(S.abstract_params(cfg, dtype))
         accum = (torch.bfloat16 if params_bytes / 256 > 2**30
                  else torch.float32)
-        step = make_train_step(cfg, OPT_CFG, microbatches=microbatches,
+        step = make_train_step(cfg, opt_cfg, microbatches=microbatches,
                                accum_dtype=accum, ctx=ctx)
         args = (params, opt, batch)
         with counting(live=args) as count:
@@ -160,16 +167,16 @@ def _compile_step(cfg, shape, mesh, microbatches: int = 1
                  for k, v in S.input_specs(cfg, shape).items()}
         batch.pop("targets", None)
         prefill_step, _ = make_serve_steps(cfg, ctx, max_len=shape.seq_len,
-                                           dtype=torch.bfloat16)
+                                           dtype=dtype)
         args = (params, batch)
         with counting(live=args) as count:
             out = prefill_step(*args)
     else:  # decode
         tok = _rank_rows(S.decode_token_spec(cfg, shape), ctx)
-        state = S.abstract_serve_state(cfg, shape, torch.bfloat16,
-                                       params=params, batch=tok.shape[0])
+        state = S.abstract_serve_state(cfg, shape, dtype, params=params,
+                                       batch=tok.shape[0], ctx=ctx)
         _, decode_step = make_serve_steps(cfg, ctx, max_len=shape.seq_len,
-                                          dtype=torch.bfloat16)
+                                          dtype=dtype)
         args = (params, tok, state)
         with counting(live=args) as count:
             out = decode_step(*args)

@@ -267,12 +267,13 @@ def decode_token_spec(cfg: ArchConfig, shape: ShapeSpec) -> torch.Tensor:
     return _meta((shape.global_batch, 1), torch.int32)
 
 
-def abstract_params(cfg: ArchConfig, dtype=torch.bfloat16):
+def abstract_params(cfg: ArchConfig, dtype=torch.bfloat16, ctx=None):
     """The parameters as ``meta`` tensors (``api.init_params`` on meta:
-    nothing drawn)."""
+    nothing drawn); with a tensor-parallel ``ctx``, the blocks of its rank
+    (rank 0 in a dry run)."""
     from repro_torch.models import api
 
-    return api.init_params(cfg, 0, dtype=dtype, device=META)
+    return api.init_params(cfg, 0, dtype=dtype, device=META, ctx=ctx)
 
 
 def abstract_opt_state(params, opt_cfg):
@@ -283,11 +284,12 @@ def abstract_opt_state(params, opt_cfg):
 
 
 def abstract_serve_state(cfg: ArchConfig, shape: ShapeSpec,
-                         dtype=torch.bfloat16, params=None, batch=None):
+                         dtype=torch.bfloat16, params=None, batch=None,
+                         ctx=None):
     """Abstract KV/recurrent state for a decode cell (cache len = seq_len):
     ``api.make_serve_state`` on ``meta`` (an encoder-decoder's from a meta
     encoder output and ``params``). ``batch`` (default: the shape's global
-    batch) is the rows of one rank's state."""
+    batch) is the rows of one rank's state; ``ctx``, its KV heads."""
     from repro_torch.models import api
 
     b = shape.global_batch if batch is None else batch
@@ -297,4 +299,4 @@ def abstract_serve_state(cfg: ArchConfig, shape: ShapeSpec,
         return api.make_serve_state(cfg, b, s, dtype, device=META,
                                     enc_out=enc, params=params)
     return api.make_serve_state(cfg, b, s, dtype, device=META,
-                                ring_local=bool(cfg.attn_window))
+                                ring_local=bool(cfg.attn_window), ctx=ctx)

@@ -16,7 +16,9 @@ the train cell's kernel tiles from a compiled plan. It runs on ``cuda``
 unless given ``--device cpu``; on the card the FF GEMMs, the attention and
 the SSD and RG-LRU scans launch their kernels, forward and backward
 (``--arch mamba2-2.7b`` and ``recurrentgemma-9b`` train there). The
-reference's ``--mesh`` comes with the distributed layers.
+reference's docstring names a ``--mesh`` flag, but its argument parser has
+none, so neither has this one: a mesh Trainer is built in code
+(``Trainer(mesh=launch.mesh.make_local_mesh(...))``, one process a rank).
 """
 from __future__ import annotations
 

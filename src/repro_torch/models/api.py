@@ -24,11 +24,16 @@ live.
 
 ``ctx`` (a ``models/context.py`` ``DistContext``, as the reference threads
 it): on a mesh the batch given is this rank's rows
-(``sharding_rules.local_batch``), the parameters are whole, the MoE layers
-run expert-parallel, and with ``flags.DECODE_ATTN_SHARDED``
-:func:`decode_step` decodes every cache that ``attention.sharded_decode_gate``
-passes sequence-sharded (its first decode keeps this rank's slice of a
-whole cache). ``ctx=None`` is every path as before.
+(``sharding_rules.local_batch``). With more than one model rank the
+parameters are the rank's blocks (:func:`init_params` and
+``convert.params_from_jax`` take ``ctx`` and cut them to
+:func:`tp_shardings`), the attention, FF, embedding and head
+run tensor-parallel and the MoE layers expert-parallel, and a serve state
+holds the rank's KV heads (:func:`make_serve_state`); with
+``flags.DECODE_ATTN_SHARDED`` :func:`decode_step` decodes every cache that
+``attention.sharded_decode_gate`` passes sequence-sharded (its first decode
+keeps this rank's slice of a cache of every KV head). ``ctx=None`` is every
+path as before.
 """
 from __future__ import annotations
 
@@ -40,9 +45,15 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.tiling import TileShape
+from repro_torch.distributed.sharding_rules import (
+    NamedSharding, P, shard_tree,
+)
 from repro_torch.models import encdec as E
 from repro_torch.models import transformer as T
-from repro_torch.models.context import DistContext
+from repro_torch.models.context import (
+    DistContext, local_range, tensor_parallel,
+)
+from repro_torch.models.layers import map_defs
 
 # Resolved kernel tiles (kernel name -> TileShape), threaded from the
 # ServeEngine through forward() into the kernel call sites.
@@ -64,11 +75,16 @@ def _refuse_encdec(cfg: ArchConfig, what: str) -> None:
 
 
 def init_params(cfg: ArchConfig, seed: Union[int, torch.Generator] = 0,
-                dtype=torch.float32, device=None):
+                dtype=torch.float32, device=None,
+                ctx: Optional[DistContext] = None):
     """Random parameters from a seeded ``torch.Generator`` on ``device``,
     with the reference's distributions. On ``device="meta"``: empty
     tensors of the same shapes and dtypes, nothing drawn (the dry run's
-    abstract parameters, ``launch/specs.py:abstract_params``)."""
+    abstract parameters, ``launch/specs.py:abstract_params``). With a
+    tensor-parallel ``ctx``: the rank's blocks (:func:`tp_shardings`) of
+    the whole tree the same seed draws, each leaf cut as it is drawn, so
+    every mesh starts from the one-device parameters and a rank never
+    holds more than its blocks and one whole leaf."""
     dev = resolve_device(device)
     if dev.type == "meta" or isinstance(seed, torch.Generator):
         gen = seed
@@ -76,7 +92,48 @@ def init_params(cfg: ArchConfig, seed: Union[int, torch.Generator] = 0,
         gen = torch.Generator(device=dev).manual_seed(int(seed))
     if is_encdec(cfg):
         return E.init_params(cfg, gen, dtype, dev)
-    return T.init_params(cfg, gen, dtype, dev)
+    cut = None
+    if tensor_parallel(ctx):
+        def cut(d, x):
+            sh = _leaf_sharding(d, ctx)
+            return sh.local_block(x) if sh.spec else x
+    return T.init_params(cfg, gen, dtype, dev, cut)
+
+
+def param_defs(cfg: ArchConfig):
+    """The parameters' ``ParamDef`` tree (shapes, logical axes, inits)."""
+    if is_encdec(cfg):
+        return E.model_defs(cfg)
+    return T.model_defs(cfg)
+
+
+def _leaf_sharding(d, ctx: DistContext) -> NamedSharding:
+    # The model axis on each dim whose logical axis the ranks split.
+    entries = [ctx.model_axis if local_range(ctx, ax, n) else None
+               for ax, n in zip(d.axes, d.shape)]
+    return NamedSharding(ctx.mesh, P(*entries) if any(entries) else P())
+
+
+def tp_shardings(cfg: ArchConfig, ctx: DistContext):
+    """The tree of ``NamedSharding`` a rank holds its parameters in on
+    ``ctx``'s mesh: the model axis on each dim whose logical axis the
+    model ranks split (``context.local_range``, the reference's
+    ``param_spec(..., fsdp=False)`` on the axes the port computes
+    tensor-parallel), ``P()`` on every other leaf and on every leaf of an
+    encoder-decoder, which runs whole."""
+    if is_encdec(cfg):
+        return map_defs(lambda d: NamedSharding(ctx.mesh, P()),
+                        param_defs(cfg))
+    return map_defs(lambda d: _leaf_sharding(d, ctx), param_defs(cfg))
+
+
+def shard_params(params, cfg: ArchConfig, ctx: Optional[DistContext]):
+    """This rank's blocks (:func:`tp_shardings`) of a whole parameter tree,
+    or of an AdamW moment tree of the same structure. Without tensor
+    parallelism, ``params`` itself."""
+    if not tensor_parallel(ctx):
+        return params
+    return shard_tree(params, tp_shardings(cfg, ctx))
 
 
 def param_logical_axes(cfg: ArchConfig):
@@ -100,7 +157,9 @@ def train_loss(params, cfg: ArchConfig, batch: Dict[str, Any],
     int32 or int64), moved to the parameters' device. ``remat``
     checkpoints each layer; ``tiles`` and ``impl`` reach the kernel call
     sites as in serving. On CUDA tensors the FF GEMMs and the attention
-    launch the matmul and flash-attention kernels forward and backward."""
+    launch the matmul and flash-attention kernels forward and backward.
+    Under tensor parallelism the head is the rank's vocabulary block and
+    the cross-entropy vocab-parallel (an encoder-decoder's stays whole)."""
     tokens = _tokens(params, batch["tokens"])
     targets = _tokens(params, batch["targets"])
     if is_encdec(cfg):
@@ -110,6 +169,7 @@ def train_loss(params, cfg: ArchConfig, batch: Dict[str, Any],
                                 impl=impl, remat=remat, ctx=ctx)
         head = params["embed"].t()
         aux = torch.zeros((), dtype=torch.float32, device=hidden.device)
+        loss_ctx = None
     else:
         patch = batch.get("patch_embeds")
         out = T.forward(params, cfg, tokens, logits_mode="hidden",
@@ -119,19 +179,21 @@ def train_loss(params, cfg: ArchConfig, batch: Dict[str, Any],
         hidden, aux = out.hidden, out.aux_loss
         if patch is not None:
             hidden = hidden[:, patch.shape[1]:]
-        head = (params["embed"].t() if cfg.tie_embeddings
-                else params["lm_head"])
-    ce = T.fused_lm_loss(head, hidden, targets, cfg)
+        head = T.head_weight(params, cfg)
+        loss_ctx = ctx
+    ce = T.fused_lm_loss(head, hidden, targets, cfg, ctx=loss_ctx)
     loss = ce + aux
     return loss, {"loss": loss, "ce": ce, "aux": aux}
 
 
 def make_serve_state(cfg: ArchConfig, batch: int, max_len: int, dtype,
                      device=None, ring_local: bool = False,
-                     enc_out: Optional[torch.Tensor] = None, params=None):
+                     enc_out: Optional[torch.Tensor] = None, params=None,
+                     ctx: Optional[DistContext] = None):
     """An empty serve state; an encoder-decoder's needs the encoder output
     ``enc_out`` and the ``params`` that project its cross K/V (it lives on
-    ``enc_out``'s device)."""
+    ``enc_out``'s device). ``ctx``: each KV cache holds the rank's KV heads
+    (``attention.make_kv_cache``)."""
     if is_encdec(cfg):
         if enc_out is None or params is None:
             raise ValueError(f"{cfg.name}: an encoder-decoder serve state "
@@ -139,7 +201,7 @@ def make_serve_state(cfg: ArchConfig, batch: int, max_len: int, dtype,
         return E.make_decode_caches(params, cfg, enc_out, batch, max_len,
                                     dtype)
     return T.make_caches(cfg, batch, max_len, dtype, ring_local=ring_local,
-                         device=resolve_device(device))
+                         device=resolve_device(device), ctx=ctx)
 
 
 def _tokens(params, tokens) -> torch.Tensor:
@@ -182,7 +244,8 @@ def prefill(params, cfg: ArchConfig, batch: Dict[str, Any], max_len: int,
     patch = batch.get("patch_embeds")
     if caches is None:
         caches = T.make_caches(cfg, tokens.shape[0], max_len, dtype,
-                               ring_local=ring_local, device=tokens.device)
+                               ring_local=ring_local, device=tokens.device,
+                               ctx=ctx)
     else:
         T.reset_caches(caches)
     out = T.forward(params, cfg, tokens, caches=caches, logits_mode="last",

@@ -52,7 +52,21 @@ reference's positioned plain version (``flash_prefill_chunk_paged_ref``).
 The engine makes every written page the request's own before the call
 (``PagedKVPool.prepare_span``).
 
-On a mesh (``models/context.py``) with ``flags.DECODE_ATTN_SHARDED`` on, a
+Tensor parallelism (``ctx`` with more than one model rank,
+``models/context.py``): a rank holds its block of ``wq``, ``bq`` and ``wo``
+(its query heads, :func:`local_heads`) and computes attention on those
+heads and the KV heads they read, a contiguous range with one local ratio.
+Where the model ranks split the KV heads it holds their block of ``wk``,
+``wv``, ``bk`` and ``bv``; where they do not (fewer KV heads than ranks),
+every rank holds them whole and cuts its range after
+``collectives.copy_to_group``, so that a KV head's gradient is the sum
+over the ranks that read it. The layer's input and its replicated leaves
+(``q_norm``, ``k_norm``) enter through ``copy_to_group`` too, and the
+output projection leaves through ``sum_from_group``. Padded query heads are
+masked by their global index. A rank's KV cache holds only its KV heads,
+except the sequence-sharded decode's, which holds every KV head.
+
+On a mesh with ``flags.DECODE_ATTN_SHARDED`` on, a
 linear unpaged cache whose padded KV heads are fewer than the model axis's
 ranks, and whose length that axis divides, decodes sequence-sharded (the
 reference's ``_decode_attn_sharded``): each rank keeps the ``S / n`` slice
@@ -62,7 +76,10 @@ positions), only the owner of ``pos`` writes the new K/V (at ``pos %
 s_loc``, on the device: no rank branches), each rank runs ``flash_decode``
 over its slice with ``kv_pos`` (the kernel on the card, its plain version
 on the CPU) and returns its log-sum-exp, and the ranks combine by a max and
-a sum over the model group.
+a sum over the model group. That body needs every query head (the
+reference's takes ``q`` unsplit): the rank's query heads are gathered over
+the model group before it, and the rank keeps its own heads of its output
+before ``wo``.
 """
 from __future__ import annotations
 
@@ -89,7 +106,9 @@ from repro_torch.kernels.flash_attention.ref import (
     NEG_INF, fit_bkv, flash_attention_ref,
 )
 from repro_torch.models import flags
-from repro_torch.models.context import DistContext, has_mesh
+from repro_torch.models.context import (
+    DistContext, has_mesh, local_range, tensor_parallel,
+)
 from repro_torch.models.layers import (
     ParamDef, apply_rope, rms_norm, runs_kernels,
 )
@@ -144,12 +163,81 @@ def attn_defs(cfg: ArchConfig) -> Dict[str, ParamDef]:
     return defs
 
 
+HeadRange = Tuple[int, int]
+
+
+def local_heads(cfg: ArchConfig, ctx: Optional[DistContext]
+                ) -> Tuple[HeadRange, HeadRange]:
+    """``((q0, q1), (k0, k1))``: the padded query heads this rank computes
+    and the KV heads they read (``h // (Hq / Hkv)``), all of them without
+    tensor parallelism. The query heads are the rank's block
+    (``context.local_range``); the KV heads are its block where the ranks
+    split them, else the range its query heads read. Raises where
+    a rank's query heads would not map onto whole KV heads with one ratio
+    (neither the ranks nor the KV heads divide the other)."""
+    hq, hkv = cfg.padded_heads, cfg.padded_kv_heads
+    if not tensor_parallel(ctx):
+        return (0, hq), (0, hkv)
+    q0, q1 = local_range(ctx, "heads", hq) or (0, hq)
+    k_block = local_range(ctx, "kv_heads", hkv)
+    rep = hq // hkv
+    n = q1 - q0
+    k0, k1 = q0 // rep, (q1 - 1) // rep + 1
+    whole_groups = n >= rep and q0 % rep == 0 and n % rep == 0
+    one_group = n < rep and rep % n == 0 and k1 - k0 == 1
+    if (q0, q1) == (0, hq) or not (whole_groups or one_group) or (
+            k_block not in (None, (k0, k1))):
+        raise ValueError(
+            f"{cfg.name}: {hq} query heads and {hkv} KV heads do not split "
+            f"over {ctx.model_size} model ranks (rank {ctx.model_index}: "
+            f"query heads {q0}..{q1 - 1}, KV block {k_block})")
+    return (q0, q1), (k0, k1)
+
+
+def _shards_sequence(cfg: ArchConfig, ctx: Optional[DistContext],
+                     length: int) -> bool:
+    """Whether a linear cache of ``length`` positions (the whole
+    sequence's) decodes sequence-sharded: the switch on, a mesh, fewer
+    padded KV heads than model ranks, and a length they divide. Such a
+    cache holds every KV head, and its first decode keeps this rank's
+    sequence slice."""
+    return (flags.DECODE_ATTN_SHARDED and has_mesh(ctx)
+            and cfg.padded_kv_heads < ctx.model_size
+            and length % ctx.model_size == 0)
+
+
+def _cache_heads(cfg: ArchConfig, ctx: Optional[DistContext],
+                 cache: Optional[Dict[str, Any]]) -> HeadRange:
+    """The KV heads a layer projects: those ``cache`` holds (every one for
+    the sequence-sharded decode's cache), else the rank's."""
+    _, local = local_heads(cfg, ctx)
+    if cache is not None and "k" in cache and \
+            cache["k"].shape[1] == cfg.padded_kv_heads:
+        return 0, cfg.padded_kv_heads
+    return local
+
+
+def _local_kv(cfg: ArchConfig, ctx, kv: HeadRange, *ts):
+    """The rank's KV heads of tensors ``[B, H, ...]`` that hold heads
+    ``kv`` (views; the tensors themselves when they are the rank's)."""
+    _, (k0, k1) = local_heads(cfg, ctx)
+    if kv == (k0, k1):
+        return ts
+    return tuple(t[:, k0 - kv[0]:k1 - kv[0]] for t in ts)
+
+
 def make_kv_cache(cfg: ArchConfig, batch: int, max_len: int, dtype,
-                  ring: bool = False, device=None) -> Dict[str, Any]:
+                  ring: bool = False, device=None,
+                  ctx: Optional[DistContext] = None) -> Dict[str, Any]:
     """k/v [B, Hkv, max_len, hd] and the write position ``pos`` (0-d int32);
     a ring cache adds ``slot_pos`` [max_len] int32, the absolute position
-    each slot holds (-1 while unwritten)."""
-    hkv, hd = cfg.padded_kv_heads, cfg.head_dim_
+    each slot holds (-1 while unwritten). Under tensor parallelism Hkv is
+    the rank's KV heads (:func:`local_heads`), or every KV head for the
+    sequence-sharded decode's cache."""
+    hd = cfg.head_dim_
+    _, (k0, k1) = local_heads(cfg, ctx)
+    hkv = (cfg.padded_kv_heads
+           if not ring and _shards_sequence(cfg, ctx, max_len) else k1 - k0)
     cache = {
         "k": torch.zeros((batch, hkv, max_len, hd), dtype=dtype, device=device),
         "v": torch.zeros((batch, hkv, max_len, hd), dtype=dtype, device=device),
@@ -210,31 +298,57 @@ def _linear_write(cache, k, v, start: int, end_pos: int):
     return cache
 
 
-def _project_qkv(p, cfg: ArchConfig, x, positions):
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(x.dtype))
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"].to(x.dtype))
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"].to(x.dtype))
+def _project_qkv(p, cfg: ArchConfig, x, positions, ctx=None, kv=None):
+    """q on the rank's query heads, k and v on KV heads ``kv`` (default:
+    the rank's), each [B, H, S, hd]. Under tensor parallelism ``x`` and the
+    leaves every rank holds whole enter through ``copy_to_group`` (whole
+    KV leaves are cut to ``kv`` after it)."""
+    w = {name: p[name] for name in ("wq", "wk", "wv", "bq", "bk", "bv",
+                                    "q_norm", "k_norm") if name in p}
+    if tensor_parallel(ctx):
+        group = ctx.model_group
+        x = collectives.copy_to_group(x, group)
+        for name in ("q_norm", "k_norm"):
+            if name in w:
+                w[name] = collectives.copy_to_group(w[name], group)
+        if local_range(ctx, "kv_heads", cfg.padded_kv_heads) is None:
+            lo, hi = kv or local_heads(cfg, ctx)[1]
+            for name, dim in (("wk", 1), ("wv", 1), ("bk", 0), ("bv", 0)):
+                if name in w:
+                    w[name] = collectives.copy_to_group(
+                        w[name], group).narrow(dim, lo, hi - lo)
+        elif kv is not None and kv != local_heads(cfg, ctx)[1]:
+            raise ValueError(f"KV heads {kv} are not this rank's block")
+    q = torch.einsum("bsd,dhk->bshk", x, w["wq"].to(x.dtype))
+    k = torch.einsum("bsd,dhk->bshk", x, w["wk"].to(x.dtype))
+    v = torch.einsum("bsd,dhk->bshk", x, w["wv"].to(x.dtype))
     if cfg.qkv_bias:
-        q = q + p["bq"].to(x.dtype)
-        k = k + p["bk"].to(x.dtype)
-        v = v + p["bv"].to(x.dtype)
+        q = q + w["bq"].to(x.dtype)
+        k = k + w["bk"].to(x.dtype)
+        v = v + w["bv"].to(x.dtype)
     if cfg.use_qk_norm:
-        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
-        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+        q = rms_norm(q, w["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, w["k_norm"], cfg.norm_eps)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     # [B, H, S, hd], contiguous for the kernels.
     return tuple(t.transpose(1, 2).contiguous() for t in (q, k, v))
 
 
-def _out_proj(p, cfg: ArchConfig, attn_out, x_dtype):
-    # Mask padded query heads so they are numerically inert.
-    h = cfg.padded_heads
-    if h != cfg.n_heads:
-        mask = (torch.arange(h, device=attn_out.device) < cfg.n_heads).to(
-            attn_out.dtype)
+def _out_proj(p, cfg: ArchConfig, attn_out, x_dtype, ctx=None):
+    """``wo`` over the rank's query heads (padded ones masked by their
+    global index, so they are numerically inert), summed over the model
+    group under tensor parallelism (a rank holding only padded heads adds
+    zeros, and still makes the sum)."""
+    (q0, q1), _ = local_heads(cfg, ctx)
+    if cfg.padded_heads != cfg.n_heads:
+        mask = (torch.arange(q0, q1, device=attn_out.device)
+                < cfg.n_heads).to(attn_out.dtype)
         attn_out = attn_out * mask[None, :, None, None]
-    return torch.einsum("bhsk,hkd->bsd", attn_out, p["wo"].to(x_dtype))
+    y = torch.einsum("bhsk,hkd->bsd", attn_out, p["wo"].to(x_dtype))
+    if tensor_parallel(ctx):
+        y = collectives.sum_from_group(y, ctx.model_group)
+    return y
 
 
 def attn_forward(
@@ -243,15 +357,19 @@ def attn_forward(
     cache: Optional[Dict[str, Any]] = None,
     impl: str = "auto",
     tile=None,
+    ctx: Optional[DistContext] = None,
 ) -> Tuple[torch.Tensor, Optional[Dict[str, Any]]]:
     """Whole-sequence attention (prefill). Fills ``cache`` if given.
 
     ``tile`` is the resolved (bq, bkv) flash-attention tile. ``impl``:
     "auto" runs the kernel on CUDA tensors and the chunked reference on CPU
-    tensors; "kernel" / "reference" force one.
+    tensors; "kernel" / "reference" force one. ``ctx``: under tensor
+    parallelism the rank's heads, the output summed over the model group.
     """
     b, s, _ = x.shape
-    q, k, v = _project_qkv(p, cfg, x, positions)
+    kv = _cache_heads(cfg, ctx, cache)
+    q, k_all, v_all = _project_qkv(p, cfg, x, positions, ctx, kv)
+    k, v = (t.contiguous() for t in _local_kv(cfg, ctx, kv, k_all, v_all))
     scale = cfg.query_scale or cfg.head_dim_ ** -0.5
     kwargs = dict(causal=True, window=window,
                   softcap=cfg.attn_softcap or None, scale=scale)
@@ -277,13 +395,13 @@ def attn_forward(
         out = flash_attention_ref(q, k, v, chunk=min(chunk, s), **kwargs)
     else:
         raise ValueError(f"unknown attention impl {impl!r}")
-    y = _out_proj(p, cfg, out, x.dtype)
+    y = _out_proj(p, cfg, out, x.dtype, ctx)
     new_cache = None
     if cache is not None:
         if "slot_pos" in cache:
-            new_cache = _ring_write(cache, k, v, positions[0], s)
+            new_cache = _ring_write(cache, k_all, v_all, positions[0], s)
         else:
-            new_cache = _linear_write(cache, k, v, 0, s)
+            new_cache = _linear_write(cache, k_all, v_all, 0, s)
     return y, new_cache
 
 
@@ -370,6 +488,7 @@ def attn_prefill_chunk(
     window: Optional[int] = None,
     impl: str = "auto",
     tile=None,
+    ctx: Optional[DistContext] = None,
 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Continuation prefill of one prompt chunk over the live KV cache.
 
@@ -389,10 +508,18 @@ def attn_prefill_chunk(
     takes :func:`_paged_chunk_keys` on CUDA tensors and
     ``flash_prefill_chunk_paged_ref`` on CPU tensors, and writes through
     its table. "kernel" / "reference" force one (on CPU tensors "kernel"
-    runs the wrapper's plain version over the same keys).
+    runs the wrapper's plain version over the same keys). ``ctx``: under
+    tensor parallelism the rank's heads (a cache of every KV head is read
+    through the rank's view and written whole).
     """
     c = x.shape[1]
-    q, k, v = _project_qkv(p, cfg, x, positions)
+    kv = _cache_heads(cfg, ctx, cache)
+    q, k_proj, v_proj = _project_qkv(p, cfg, x, positions, ctx, kv)
+    k, v = _local_kv(cfg, ctx, kv, k_proj, v_proj)
+    full_cache = cache
+    if kv != local_heads(cfg, ctx)[1]:
+        cache = dict(cache, **dict(zip(
+            ("k", "v"), _local_kv(cfg, ctx, kv, cache["k"], cache["v"]))))
     scale = cfg.query_scale or cfg.head_dim_ ** -0.5
     softcap = cfg.attn_softcap or None
     ring = "slot_pos" in cache
@@ -433,13 +560,14 @@ def attn_prefill_chunk(
                                   q_offset=start, chunk=bkv)
     else:
         raise ValueError(f"unknown attention impl {impl!r}")
+    cache = full_cache
     if paged:
-        _paged_write(cache, k, v, start, start + c)
+        _paged_write(cache, k_proj, v_proj, start, start + c)
     elif ring:
-        _ring_write(cache, k, v, positions[0], start + c)
+        _ring_write(cache, k_proj, v_proj, positions[0], start + c)
     else:
-        _linear_write(cache, k, v, start, start + c)
-    return _out_proj(p, cfg, out, x.dtype), cache
+        _linear_write(cache, k_proj, v_proj, start, start + c)
+    return _out_proj(p, cfg, out, x.dtype, ctx), cache
 
 
 def attn_prefill_packed(
@@ -563,13 +691,11 @@ def sharded_decode_gate(cfg: ArchConfig, ctx: Optional[DistContext],
     unpaged cache, fewer padded KV heads than model ranks, and a cache
     length (the whole sequence's, for a slice) that the model ranks
     divide."""
-    if not (flags.DECODE_ATTN_SHARDED and has_mesh(ctx)):
-        return False
     if "k_pages" in cache or "slot_pos" in cache or "k" not in cache:
         return False
-    n = ctx.model_size
+    n = ctx.model_size if has_mesh(ctx) else 1
     length = cache["k"].shape[2] * (n if "kv_pos" in cache else 1)
-    return cfg.padded_kv_heads < n and length % n == 0
+    return _shards_sequence(cfg, ctx, length)
 
 
 def shard_kv_cache(cache: Dict[str, Any], ctx: DistContext
@@ -646,22 +772,38 @@ def attn_decode(
     collectives (gloo's host-staged ones among them) are not captured in a
     CUDA graph. The cache becomes a slice here, on its first sharded
     decode, whatever made it; ``transformer._mixer`` refuses a slice on any
-    other path.
+    other path. Under tensor parallelism the rank decodes its heads; the
+    sharded body takes every query head (gathered over the model group)
+    and the rank keeps its own heads of the result.
     """
     b = x.shape[0]
     pos = cache["pos"]                                   # 0-d int32
     positions = pos.to(torch.long).expand(b, 1)
-    q, k_new, v_new = _project_qkv(p, cfg, x, positions)  # [B, H(kv), 1, hd]
+    kv = _cache_heads(cfg, ctx, cache)
+    # [B, H(kv), 1, hd]
+    q, k_new, v_new = _project_qkv(p, cfg, x, positions, ctx, kv)
     scale = cfg.query_scale or cfg.head_dim_ ** -0.5
     if sharded_decode_gate(cfg, ctx, cache):
+        if kv != (0, cfg.padded_kv_heads):
+            raise ValueError(
+                "a sequence-sharded decode needs a cache of every KV head "
+                "(make_kv_cache(ctx=) with flags.DECODE_ATTN_SHARDED on)")
         if "kv_pos" not in cache:
             shard_kv_cache(cache, ctx)
+        q0 = q[:, :, 0].contiguous()
+        (h0, h1), _ = local_heads(cfg, ctx)
+        if tensor_parallel(ctx):
+            q0 = collectives.all_gather(q0, 1, ctx.model_group)
         out = _decode_attn_sharded(
-            ctx, q[:, :, 0].contiguous(), k_new, v_new, cache, window,
+            ctx, q0, k_new, v_new, cache, window,
             cfg.attn_softcap or None, scale, impl)
-        y = _out_proj(p, cfg, out[:, :, None].to(x.dtype), x.dtype)
+        out = out[:, h0:h1]
+        y = _out_proj(p, cfg, out[:, :, None].to(x.dtype), x.dtype, ctx)
         pos.add_(1)
         return y, cache
+    if kv != local_heads(cfg, ctx)[1]:
+        raise ValueError("a cache of every KV head decodes only through the "
+                         "sequence-sharded path")
     slot_pos = cache.get("slot_pos")
     if "k_pages" in cache:
         # Batch 1: the row through the table, then the table's linear
@@ -715,7 +857,7 @@ def attn_decode(
         mask = valid & (k_pos <= pos)
         if window is not None:
             mask &= k_pos > pos - window
-        n_rep = cfg.padded_heads // cfg.padded_kv_heads
+        n_rep = q0.shape[1] // ck.shape[1]
         ke = ck.repeat_interleave(n_rep, dim=1) if n_rep > 1 else ck
         ve = cv.repeat_interleave(n_rep, dim=1) if n_rep > 1 else cv
         s = torch.einsum("bhk,bhsk->bhs", q0.to(ke.dtype).float(),
@@ -727,6 +869,6 @@ def attn_decode(
         out = torch.einsum("bhs,bhsk->bhk", pattn.float(), ve.float())
     else:
         raise ValueError(f"unknown decode impl {impl!r}")
-    y = _out_proj(p, cfg, out[:, :, None].to(x.dtype), x.dtype)
+    y = _out_proj(p, cfg, out[:, :, None].to(x.dtype), x.dtype, ctx)
     pos.add_(1)
     return y, cache

@@ -7,19 +7,28 @@ sharding constraints and runs two bodies by hand (``shard_map``); the port
 has no GSPMD, so it writes out what each rank computes (explicit SPMD, one
 process a rank):
 
-* a rank takes the batch rows of its coordinate on the batch axes and keeps
-  the parameters whole; each model rank computes the dense layers whole for
-  its rows (the reference splits them over the model axis: a deliberate
-  difference, so :meth:`DistContext.constrain` only states a layout and
-  returns ``x`` unchanged, as the reference's does without a mesh);
+* a rank takes the batch rows of its coordinate on the batch axes;
+* with more than one model rank it holds its block of every leaf the
+  reference's ``param_spec(..., fsdp=False)`` splits over the model axis
+  among the attention, dense FF, MoE, ``embed`` and ``lm_head`` leaves
+  (``models/api.py:tp_shardings``), and computes those layers
+  Megatron-style on it: column-parallel in, row-parallel out, one sum over
+  the model group a block (``distributed/collectives.py``). The blocks and
+  every module's ranges come from :func:`local_range`, the logical axis
+  alone deciding, so the rule lives once. The other leaves (norms, the
+  router, the recurrent mixers, the encoder-decoder) stay whole and are
+  computed whole on every rank;
 * the expert-parallel MoE (``models/moe.py``) and the sequence-sharded
   decode (``models/attention.py``) run collectives over the model axis's
-  process group (``distributed/collectives.py``), at the rank's coordinate
-  (:meth:`DistContext.axis_index`, the reference's ``axis_index``).
+  process group, at the rank's coordinate (:meth:`DistContext.axis_index`,
+  the reference's ``axis_index``).
 
-The logical -> mesh axis mapping is the reference's ``rules`` (and
-``distributed/sharding_rules.py``); :meth:`DistContext.spec_for` gives the
-port's :class:`PartitionSpec`, a tuple with the reference's entries.
+:meth:`DistContext.constrain` only states a layout and returns ``x``
+unchanged, as the reference's does without a mesh: the port's layouts are
+the blocks each module computes on. The logical -> mesh axis mapping is the
+reference's ``rules`` (and ``distributed/sharding_rules.py``);
+:meth:`DistContext.spec_for` gives the port's :class:`PartitionSpec`, a
+tuple with the reference's entries.
 """
 from __future__ import annotations
 
@@ -37,6 +46,12 @@ class PartitionSpec(tuple):
 
     def __repr__(self) -> str:
         return f"PartitionSpec{tuple.__repr__(self)}"
+
+
+# The logical axes the port computes tensor-parallel. ``lru`` and
+# ``ssm_heads`` map onto the model axis too (``DistContext.rules``, the
+# reference's), but the recurrent mixers are computed whole.
+TP_AXES = ("heads", "kv_heads", "ff", "vocab", "experts")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,8 +88,9 @@ class DistContext:
         return PartitionSpec(*out)
 
     def constrain(self, x, *logical_axes):
-        """The layout ``x`` has under :meth:`spec_for`; the port computes
-        the dense layers whole on each rank, so ``x`` comes back as it is."""
+        """The layout ``x`` has under :meth:`spec_for`. The port has no
+        compiler to lay it out: each module computes on its rank's blocks
+        (:func:`local_range`), so ``x`` comes back as it is."""
         return x
 
     # -- the explicit bodies' view of the mesh ------------------------------
@@ -131,3 +147,25 @@ def null_context() -> DistContext:
 
 def has_mesh(ctx: Optional[DistContext]) -> bool:
     return ctx is not None and ctx.mesh is not None
+
+
+def tensor_parallel(ctx: Optional[DistContext]) -> bool:
+    """Whether the model axis splits the dense layers: a mesh with more
+    than one model rank. A model axis of one rank is the one-device path,
+    bit for bit."""
+    return has_mesh(ctx) and ctx.mesh.shape.get(ctx.model_axis, 1) > 1
+
+
+def local_range(ctx: Optional[DistContext], axis: str, n: int
+                ) -> Optional[Tuple[int, int]]:
+    """This rank's ``[start, stop)`` along a logical ``axis`` of size ``n``
+    where the model ranks split it, else None (the rank computes it whole).
+    They split an axis of :data:`TP_AXES` that they divide, ``param_spec``'s
+    test, and nothing without :func:`tensor_parallel`."""
+    if not tensor_parallel(ctx) or axis not in TP_AXES:
+        return None
+    m = ctx.model_size
+    if n % m or n < m:
+        return None
+    i = ctx.model_index
+    return i * (n // m), (i + 1) * (n // m)

@@ -18,12 +18,18 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
+from repro_torch.models import api
 from repro_torch.models.transformer import decompose
 
 
 def params_from_jax(cfg: ArchConfig, tree: Dict[str, Any],
-                    dtype=torch.float32, device=None) -> Dict[str, Any]:
-    return _convert(cfg, tree, dtype, resolve_device(device))
+                    dtype=torch.float32, device=None,
+                    ctx=None) -> Dict[str, Any]:
+    """The reference's parameters as the port's; with a tensor-parallel
+    ``ctx`` (``models/context.py``), this rank's blocks of them
+    (``api.shard_params``)."""
+    return api.shard_params(
+        _convert(cfg, tree, dtype, resolve_device(device)), cfg, ctx)
 
 
 def opt_state_from_jax(cfg: ArchConfig, tree: Dict[str, Any],

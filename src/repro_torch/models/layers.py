@@ -30,7 +30,7 @@ class ParamDef:
 
 
 def init_tree(defs: Dict[str, Any], generator: torch.Generator, dtype,
-              device) -> Dict[str, Any]:
+              device, cut=None) -> Dict[str, Any]:
     """Materialise a nested dict of ParamDefs (deterministic per generator).
 
     The distributions are the reference's (``layers.py:29-50``): N(0, scale)
@@ -39,7 +39,10 @@ def init_tree(defs: Dict[str, Any], generator: torch.Generator, dtype,
     seed; tests that compare the two packages convert JAX's parameters.
     On ``device="meta"`` the tensors are empty (shapes and dtypes, no
     memory) and ``generator`` is not read: the dry run's abstract
-    parameters.
+    parameters. ``cut(d, x)``, where given, is what is kept of each leaf
+    ``x`` drawn whole (a rank's block): the whole leaf is dropped before the
+    next is drawn, so the draws are those of the whole tree and at most one
+    whole leaf is held at a time.
     """
     def make(d: ParamDef) -> torch.Tensor:
         if device is not None and torch.device(device).type == "meta":
@@ -60,7 +63,7 @@ def init_tree(defs: Dict[str, Any], generator: torch.Generator, dtype,
 
     def walk(node):
         if isinstance(node, ParamDef):
-            return make(node)
+            return make(node) if cut is None else cut(node, make(node))
         if isinstance(node, dict):
             return {k: walk(node[k]) for k in sorted(node)}
         return [walk(x) for x in node]
@@ -68,14 +71,19 @@ def init_tree(defs: Dict[str, Any], generator: torch.Generator, dtype,
     return walk(defs)
 
 
+def map_defs(fn, defs):
+    """``fn`` of every ParamDef of ``defs``, in ``defs``' structure."""
+    if isinstance(defs, ParamDef):
+        return fn(defs)
+    if isinstance(defs, dict):
+        return {k: map_defs(fn, v) for k, v in defs.items()}
+    return [map_defs(fn, x) for x in defs]
+
+
 def axes_tree(defs: Dict[str, Any]) -> Dict[str, Any]:
     """The parallel tree of logical-axes tuples (the reference's
     ``axes_tree``; the port's layers are a list of dicts, not stacked)."""
-    if isinstance(defs, ParamDef):
-        return defs.axes
-    if isinstance(defs, dict):
-        return {k: axes_tree(v) for k, v in defs.items()}
-    return [axes_tree(x) for x in defs]
+    return map_defs(lambda d: d.axes, defs)
 
 
 # ---------------------------------------------------------------------------

@@ -20,18 +20,20 @@ adds. Nothing reads back to the host (group sizes come from a
 ``scatter_add_``, not ``bincount``; no boolean indexing), so a decode step
 through this block can be captured in a CUDA graph.
 
-On a mesh (``moe_forward(ctx=)``, the reference's ``_moe_forward_sharded``)
-the experts split over the model axis: model rank ``i`` runs
-:func:`moe_apply_local` on its ``n_experts / n`` experts from ``i *
-n_local`` over its batch rows, the ranks sum ``y`` over the model group and
-average ``aux``, and the shared experts run whole on every rank after the
-sum (the reference splits them over the model axis inside the sum; the
-port keeps dense compute whole, ``models/context.py``). Under grad the
-body's inputs (the tokens, the router and the expert weights) enter
-through ``collectives.copy_to_group``, whose backward sums the ranks'
-partial cotangents, and ``y`` leaves through ``sum_from_group``, whose
-backward passes the (replicated) cotangent through, so every rank ends with
-the one-device gradient of every weight.
+On a mesh with more than one model rank (``moe_forward(ctx=)``, the
+reference's ``_moe_forward_sharded``) the experts split over the model
+axis: model rank ``i`` holds its block of ``n_experts / n`` experts from
+``i * n_local`` (``api.tp_shardings``) and runs
+:func:`moe_apply_local` on it over its batch rows; the shared experts split
+over ``ff`` inside the body (the rank's columns of ``shared_w1`` /
+``shared_w3``, its rows of ``shared_w2``), as the reference's do; the
+ranks sum ``y`` over the model group and average ``aux``. Under grad the
+body's replicated inputs (the tokens and the router) enter through
+``collectives.copy_to_group``, whose backward sums the ranks' partial
+cotangents, and ``y`` leaves through ``sum_from_group``, whose backward
+passes the (replicated) cotangent through; a rank's expert blocks take
+their own gradients, so every rank ends with the one-device gradient of
+every weight it holds.
 """
 from __future__ import annotations
 
@@ -43,7 +45,9 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.distributed import collectives
 from repro_torch.kernels.matmul.ops import mm
 from repro_torch.kernels.matmul.ref import matmul_ref
-from repro_torch.models.context import DistContext, has_mesh
+from repro_torch.models.context import (
+    DistContext, local_range, tensor_parallel,
+)
 from repro_torch.models.layers import ParamDef, act_fn
 
 
@@ -169,40 +173,47 @@ def moe_forward(p: Dict[str, Any], cfg: ArchConfig, x: torch.Tensor,
                 impl: str = "auto", ctx: Optional[DistContext] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x [B, S, D] -> (y [B, S, D], aux scalar). The B*S tokens share one
-    capacity, as in the reference. With a mesh, the rank's rows through
-    its experts (:func:`_moe_forward_sharded`)."""
+    capacity, as in the reference. With more than one model rank, the
+    rank's rows through its experts (:func:`_moe_forward_sharded`)."""
     b, s, d = x.shape
     m = cfg.moe
     x2d = x.reshape(-1, d)
-    if has_mesh(ctx):
-        y, aux = _moe_forward_sharded(p, cfg, x2d, ctx)
+    if tensor_parallel(ctx):
+        y, aux = _moe_forward_sharded(p, cfg, x2d, ctx, impl)
     else:
         y, aux = moe_apply_local(p, cfg, x2d, m.n_experts, 0)
-    if m.n_shared_experts:
-        y = y + _shared_ff(p, cfg, x2d, impl)
+        if m.n_shared_experts:
+            y = y + _shared_ff(p, cfg, x2d, impl)
     return y.reshape(b, s, d), aux
 
 
-def _moe_forward_sharded(p, cfg: ArchConfig, x2d, ctx: DistContext):
+def _moe_forward_sharded(p, cfg: ArchConfig, x2d, ctx: DistContext,
+                         impl: str = "auto"):
     """The expert-parallel body over the model group: this rank's experts'
-    contribution summed over the ranks, and the mean of their aux."""
+    contribution (its block of ``w1`` / ``w3`` / ``w2``) and its columns of
+    the shared experts, summed over the ranks, and the mean of their aux.
+    Shared experts whose width the ranks do not divide are held whole and
+    run after the sum."""
     m = cfg.moe
     n = ctx.model_size
-    if m.n_experts % n:
+    block = local_range(ctx, "experts", m.n_experts)
+    if block is None:
         raise ValueError(
             f"{cfg.name}: {m.n_experts} experts not divisible by "
             f"model axis {n}")
-    n_local = m.n_experts // n
-    off = ctx.model_index * n_local
+    off, stop = block
     group = ctx.model_group
-    local = {"router": collectives.copy_to_group(p["router"], group)}
-    for name in ("w1", "w3", "w2"):
-        # Whole, then cut: the backward's sum adds the ranks' own experts'
-        # gradients into one whole tensor (a sum of the cut slices would
-        # add different experts together).
-        local[name] = collectives.copy_to_group(
-            p[name], group)[off:off + n_local]
-    y, aux = moe_apply_local(local, cfg, collectives.copy_to_group(x2d, group),
-                             n_local, off)
-    return (collectives.sum_from_group(y, group),
-            collectives.mean_from_group(aux, group))
+    xin = collectives.copy_to_group(x2d, group)
+    local = {"router": collectives.copy_to_group(p["router"], group),
+             "w1": p["w1"], "w3": p["w3"], "w2": p["w2"]}
+    y, aux = moe_apply_local(local, cfg, xin, stop - off, off)
+    shared_inside = False
+    if m.n_shared_experts:
+        width = m.d_shared or m.n_shared_experts * m.d_expert
+        shared_inside = local_range(ctx, "ff", width) is not None
+        if shared_inside:
+            y = y + _shared_ff(p, cfg, xin, impl)
+    y = collectives.sum_from_group(y, group)
+    if m.n_shared_experts and not shared_inside:
+        y = y + _shared_ff(p, cfg, x2d, impl)
+    return y, collectives.mean_from_group(aux, group)

@@ -32,6 +32,18 @@ so the backward recomputes one layer at a time, kernels included;
 each chunk checkpointed, and :func:`lm_loss` the plain cross-entropy over
 given logits.
 
+Tensor parallelism (``ctx`` with more than one model rank,
+``models/context.py``): each rank holds its block of the embedding (rows of
+its vocabulary range), the head (its columns), each layer's attention heads
+(``models/attention.py``), FF columns and experts (``models/moe.py``). The
+embedding lookup is vocab-parallel (a token outside the rank's range looks
+up zeros, then a sum over the model group); the dense FF is column-parallel
+``w1`` / ``w3`` and row-parallel ``w2`` with one sum; the head is
+column-parallel, and serving's logits are gathered whole over the
+vocabulary (outside autograd); the losses are vocab-parallel cross-entropy
+on the rank's logits block (:func:`_nll`). Padded vocabulary columns are
+masked by their global index.
+
 Paged serving (``serve/pool.py``): :func:`make_paged_pool` makes the
 engine's page tensors, one ``k_pages`` / ``v_pages`` pair per attention
 layer, and ``make_caches(paged=True)`` a request's state, in which an
@@ -49,6 +61,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ArchConfig, LayerSpec
+from repro_torch.distributed import collectives
 from repro_torch.kernels.matmul.ops import mm
 from repro_torch.kernels.matmul.ref import matmul_ref
 from repro_torch.models import attention as attn_mod
@@ -56,6 +69,7 @@ from repro_torch.models import flags
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
+from repro_torch.models.context import local_range
 from repro_torch.models.layers import (
     ParamDef, act_fn, axes_tree, init_tree, layer_norm, maybe_checkpoint,
     rms_norm, softcap,
@@ -168,8 +182,8 @@ def model_defs(cfg: ArchConfig) -> Dict[str, Any]:
 
 
 def init_params(cfg: ArchConfig, generator: torch.Generator,
-                dtype=torch.float32, device=None):
-    return init_tree(model_defs(cfg), generator, dtype, device)
+                dtype=torch.float32, device=None, cut=None):
+    return init_tree(model_defs(cfg), generator, dtype, device, cut)
 
 
 def param_logical_axes(cfg: ArchConfig):
@@ -180,11 +194,15 @@ def param_logical_axes(cfg: ArchConfig):
 # Layer forward
 # ---------------------------------------------------------------------------
 
-def _dense_ff(p, cfg: ArchConfig, x, tile=None, impl: str = "auto"):
+def _dense_ff(p, cfg: ArchConfig, x, tile=None, impl: str = "auto",
+              ctx=None):
     """SwiGLU FF. The three GEMMs go through the Hopper matmul kernel on CUDA
     tensors (``tile`` or the spec's default; any shape — the kernel masks
     ragged edges, so the reference's divisibility gate is not needed) and
-    through :func:`matmul_ref` on CPU tensors or with ``impl="reference"``."""
+    through :func:`matmul_ref` on CPU tensors or with ``impl="reference"``.
+    Under tensor parallelism ``w1`` / ``w3`` are the rank's columns and
+    ``w2`` its rows: ``x`` enters through ``copy_to_group`` and the output
+    leaves through ``sum_from_group``."""
     act = act_fn(cfg.act)
     b, s, d = x.shape
     if impl == "reference":
@@ -192,9 +210,15 @@ def _dense_ff(p, cfg: ArchConfig, x, tile=None, impl: str = "auto"):
     else:
         def gemm(a, w):
             return mm(a, w, tile=tile)
+    split = local_range(ctx, "ff", cfg.d_ff) is not None
+    if split:
+        x = collectives.copy_to_group(x, ctx.model_group)
     xf = x.reshape(b * s, d)
     h = act(gemm(xf, p["w1"].to(x.dtype))) * gemm(xf, p["w3"].to(x.dtype))
-    return gemm(h, p["w2"].to(x.dtype)).reshape(b, s, -1)
+    y = gemm(h, p["w2"].to(x.dtype))
+    if split:
+        y = collectives.sum_from_group(y, ctx.model_group)
+    return y.reshape(b, s, -1)
 
 
 def _mixer(p, cfg: ArchConfig, spec: LayerSpec, x, positions, cache,
@@ -205,8 +229,9 @@ def _mixer(p, cfg: ArchConfig, spec: LayerSpec, x, positions, cache,
     The recurrent blocks run prefill, a chunk's continuation and decode
     alike (decode is S = 1). ``chunk_start`` makes an attention layer's
     prefill a chunk's continuation; ``pack_layout`` runs a packed step
-    (``cache`` is then one cache per segment). ``ctx``: a decode may run
-    sequence-sharded (``attention.attn_decode``)."""
+    (``cache`` is then one cache per segment). ``ctx``: attention on the
+    rank's heads, and a decode may run sequence-sharded
+    (``attention.attn_decode``)."""
     if pack_layout is not None:
         return _mixer_packed(p, cfg, spec, x, positions, cache, tiles,
                              pack_layout, impl)
@@ -231,10 +256,11 @@ def _mixer(p, cfg: ArchConfig, spec: LayerSpec, x, positions, cache,
     if chunk_start is not None:
         return attn_mod.attn_prefill_chunk(
             p["attn"], cfg, x, positions, cache=cache, start=chunk_start,
-            window=window, tile=tiles.get("chunked_prefill"), impl=impl)
+            window=window, tile=tiles.get("chunked_prefill"), impl=impl,
+            ctx=ctx)
     return attn_mod.attn_forward(
         p["attn"], cfg, x, positions, window=window, cache=cache,
-        tile=tiles.get("flash_attention"), impl=impl)
+        tile=tiles.get("flash_attention"), impl=impl, ctx=ctx)
 
 
 def _mixer_packed(p, cfg: ArchConfig, spec: LayerSpec, x, positions, caches,
@@ -264,9 +290,10 @@ def layer_forward(p, cfg: ArchConfig, spec: LayerSpec, x, positions, cache,
     loss, float32, and None on a layer without one (the reference's zero,
     left out so that a dense step launches nothing for it). With
     ``pack_layout`` ``cache`` is one cache per segment, and so is
-    new_cache. ``ctx`` (a ``DistContext``): the MoE block runs expert-
-    parallel and a decode may run sequence-sharded over its mesh; the
-    rest is computed whole for the rank's rows."""
+    new_cache. ``ctx`` (a ``DistContext``): attention and the dense FF on
+    the rank's blocks, the MoE block expert-parallel, and a decode may run
+    sequence-sharded over its mesh; norms and recurrent mixers are computed
+    whole for the rank's rows."""
     tiles = tiles or {}
     aux = None
     h = _apply_norm(p, cfg, x, "norm1")
@@ -277,13 +304,15 @@ def layer_forward(p, cfg: ArchConfig, spec: LayerSpec, x, positions, cache,
         mix = _apply_norm(p, cfg, mix, "post1")
     ff_tile = tiles.get("matmul")
     if cfg.parallel_block and spec.ff is not None:
-        x = x + mix + _dense_ff(p["ff"], cfg, h, tile=ff_tile, impl=impl)
+        x = x + mix + _dense_ff(p["ff"], cfg, h, tile=ff_tile, impl=impl,
+                                ctx=ctx)
     else:
         x = x + mix
         if spec.ff is not None:
             h2 = _apply_norm(p, cfg, x, "norm2")
             if spec.ff == "dense":
-                ff = _dense_ff(p["ff"], cfg, h2, tile=ff_tile, impl=impl)
+                ff = _dense_ff(p["ff"], cfg, h2, tile=ff_tile, impl=impl,
+                               ctx=ctx)
             else:
                 ff, aux = moe_mod.moe_forward(p["moe"], cfg, h2, impl=impl,
                                               ctx=ctx)
@@ -308,7 +337,8 @@ class StackOutputs:
 
 
 def _cache_for(cfg: ArchConfig, spec: LayerSpec, batch: int, max_len: int,
-               dtype, ring_local: bool, device, paged: bool = False):
+               dtype, ring_local: bool, device, paged: bool = False,
+               ctx=None):
     if spec.mixer == "rglru":
         return rglru_mod.make_rglru_state(cfg, batch, dtype, device=device)
     if spec.mixer == "ssd":
@@ -318,20 +348,21 @@ def _cache_for(cfg: ArchConfig, spec: LayerSpec, batch: int, max_len: int,
     ring = ring_local and spec.mixer == "local_attn"
     length = min(max_len, cfg.attn_window) if ring else max_len
     return attn_mod.make_kv_cache(cfg, batch, length, dtype, ring=ring,
-                                  device=device)
+                                  device=device, ctx=ctx)
 
 
 def make_caches(cfg: ArchConfig, batch: int, max_len: int, dtype,
                 ring_local: bool = False, device=None,
-                paged: bool = False) -> List[Any]:
+                paged: bool = False, ctx=None) -> List[Any]:
     """One cache per layer, in layer order (the reference's ``_cache_for``):
     on an attention layer a KV cache, linear at ``max_len`` or with
     ``ring_local`` a ring of ``min(max_len, attn_window)`` slots on each
     ``local_attn`` layer; on an RG-LRU or SSD layer its state, zeroed.
     ``paged=True``: an attention layer keeps only its position ``pos``
-    (its K/V live in the pool, :func:`make_paged_pool`)."""
+    (its K/V live in the pool, :func:`make_paged_pool`). ``ctx``: a KV
+    cache holds the rank's KV heads (``attention.make_kv_cache``)."""
     return [_cache_for(cfg, spec, batch, max_len, dtype, ring_local, device,
-                       paged=paged)
+                       paged=paged, ctx=ctx)
             for spec in cfg.layers()]
 
 
@@ -406,8 +437,10 @@ def forward(
     sequence is P + S long. ``aux_loss`` sums the layers' MoE aux losses.
     ``remat`` checkpoints each layer when grad mode is on (training; it
     takes no caches). ``ctx`` (``models/context.py``): ``tokens`` are the
-    rank's rows of the batch; the MoE layers run expert-parallel and the
-    decode may run sequence-sharded over the mesh's model axis.
+    rank's rows of the batch and ``params`` the rank's blocks; the layers
+    run tensor-parallel, the MoE layers expert-parallel, the decode may run
+    sequence-sharded over the mesh's model axis, and the logits come back
+    whole (gathered over the vocabulary, outside autograd).
     """
     if pool is not None and not (decode or chunked):
         raise ValueError("a paged request prefills through chunks "
@@ -416,9 +449,7 @@ def forward(
         raise ValueError("chunked prefill requires caches (serve state)")
     chunk_start = start_pos if chunked else None
     b, s = tokens.shape
-    x = params["embed"][tokens]
-    if cfg.scale_embeddings:
-        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
+    x = _embed(params, cfg, tokens, ctx)
     if patch_embeds is not None:
         vp, pdt = params["vit_proj"], patch_embeds.dtype
         pe = torch.matmul(patch_embeds, vp["w"].to(pdt)) + vp["b"].to(pdt)
@@ -450,20 +481,51 @@ def forward(
                             caches=new_caches, hidden=x)
     if logits_mode == "last":
         x = x[:, -1:]
-    logits = _head(params, cfg, x)
+    logits = _head(params, cfg, x, ctx)
     if ctx is not None:
         logits = ctx.constrain(logits, "batch", None, "vocab")
     return StackOutputs(logits=logits, aux_loss=aux_total, caches=new_caches,
                         hidden=x)
 
 
-def _head(params, cfg: ArchConfig, x):
+def _embed(params, cfg: ArchConfig, tokens, ctx=None):
+    """The token embeddings (scaled where the config says). Vocab-parallel
+    under tensor parallelism: the rank's rows of the table look up its
+    range's tokens, every other token looks up zeros, and the ranks sum."""
+    table = params["embed"]
+    vocab = local_range(ctx, "vocab", cfg.padded_vocab)
+    if vocab is None:
+        x = table[tokens]
+    else:
+        local = tokens - vocab[0]
+        ok = (local >= 0) & (local < vocab[1] - vocab[0])
+        x = table[torch.where(ok, local, 0)] * ok[..., None].to(table.dtype)
+        x = collectives.sum_from_group(x, ctx.model_group)
+    if cfg.scale_embeddings:
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
+    return x
+
+
+def head_weight(params, cfg: ArchConfig):
+    """The head ``[D, V]`` (the rank's columns under tensor parallelism):
+    the embedding matrix transposed when tied, else ``lm_head``."""
+    return params["embed"].t() if cfg.tie_embeddings else params["lm_head"]
+
+
+def _head(params, cfg: ArchConfig, x, ctx=None):
     # Tied head: the embedding matrix, transposed. A plain product, as the
-    # reference leaves it to XLA.
-    head = params["embed"].t() if cfg.tie_embeddings else params["lm_head"]
+    # reference leaves it to XLA; column-parallel under tensor parallelism,
+    # each rank's columns gathered into whole logits.
+    head = head_weight(params, cfg)
+    vocab = local_range(ctx, "vocab", cfg.padded_vocab)
+    if vocab is not None:
+        x = collectives.copy_to_group(x, ctx.model_group)
     logits = torch.matmul(x, head.to(x.dtype))
     if cfg.final_softcap:
         logits = softcap(logits, cfg.final_softcap)
+    if vocab is not None:
+        logits = collectives.all_gather(logits, logits.dim() - 1,
+                                        ctx.model_group)
     return logits
 
 
@@ -490,9 +552,7 @@ def forward_packed(params, cfg: ArchConfig, tokens: torch.Tensor, states,
                          f"{len(states)} states")
     if sum(ln for _, ln in layout) != s:
         raise ValueError(f"layout {layout} does not cover {s} tokens")
-    x = params["embed"][tokens]
-    if cfg.scale_embeddings:
-        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
+    x = _embed(params, cfg, tokens)
     positions = torch.cat([start + torch.arange(ln, device=tokens.device)
                            for start, ln in layout])[None]
     for li, spec in enumerate(cfg.layers()):
@@ -520,15 +580,36 @@ def _scalar(x: float, like: torch.Tensor) -> torch.Tensor:
 
 
 def _nll(logits: torch.Tensor, targets: torch.Tensor,
-         cfg: ArchConfig) -> torch.Tensor:
+         cfg: ArchConfig, ctx=None) -> torch.Tensor:
     """Per-position negative log-likelihood over the real (unpadded)
-    vocabulary: the padded columns' logits are -1e30."""
-    vocab_ok = torch.arange(logits.shape[-1], device=logits.device) \
-        < cfg.vocab_size
+    vocabulary: the padded columns' logits are -1e30.
+
+    Under tensor parallelism ``logits`` is the rank's vocabulary block
+    (padded columns found by their global index) and the cross-entropy is
+    vocab-parallel: the max is all-reduced (detached: the log-sum-exp's
+    gradient does not depend on it), the sum of exponentials and the
+    target's logit are summed over the model group (``sum_from_group``),
+    so every rank holds the whole NLL and its logits' gradient is the
+    softmax minus the one-hot on its columns."""
+    vocab = local_range(ctx, "vocab", cfg.padded_vocab)
+    lo, hi = vocab or (0, logits.shape[-1])
+    vocab_ok = torch.arange(lo, hi, device=logits.device) < cfg.vocab_size
     logits = torch.where(vocab_ok, logits.float(), -1e30)
-    logp = torch.log_softmax(logits, dim=-1)
-    return -torch.take_along_dim(logp, targets.long()[..., None],
-                                 dim=-1)[..., 0]
+    if vocab is None:
+        logp = torch.log_softmax(logits, dim=-1)
+        return -torch.take_along_dim(logp, targets.long()[..., None],
+                                     dim=-1)[..., 0]
+    group = ctx.model_group
+    top = collectives.all_reduce(logits.detach().amax(dim=-1), "max", group)
+    sumexp = collectives.sum_from_group(
+        torch.exp(logits - top[..., None]).sum(dim=-1), group)
+    local = targets.long() - lo
+    ok = (local >= 0) & (local < hi - lo)
+    picked = torch.take_along_dim(
+        logits, torch.clamp(local, 0, hi - lo - 1)[..., None], dim=-1)[..., 0]
+    target = collectives.sum_from_group(
+        torch.where(ok, picked, torch.zeros_like(picked)), group)
+    return torch.log(sumexp) + top - target
 
 
 def lm_loss(logits: torch.Tensor, targets: torch.Tensor, cfg: ArchConfig,
@@ -541,22 +622,26 @@ def lm_loss(logits: torch.Tensor, targets: torch.Tensor, cfg: ArchConfig,
     return torch.mean(nll)
 
 
-def _chunk_nll_sum(h, t, head, cfg: ArchConfig):
+def _chunk_nll_sum(h, t, head, cfg: ArchConfig, ctx=None):
+    if local_range(ctx, "vocab", cfg.padded_vocab) is not None:
+        h = collectives.copy_to_group(h, ctx.model_group)
     logits = torch.matmul(h.float(), head.float())
     if cfg.final_softcap:
         logits = softcap(logits, cfg.final_softcap)
-    return torch.sum(_nll(logits, t, cfg))
+    return torch.sum(_nll(logits, t, cfg, ctx))
 
 
 def fused_lm_loss(head: torch.Tensor, hidden: torch.Tensor,
                   targets: torch.Tensor, cfg: ArchConfig,
-                  chunk: int = 1024) -> torch.Tensor:
+                  chunk: int = 1024, ctx=None) -> torch.Tensor:
     """Head product + cross-entropy over sequence chunks (the reference's
     ``fused_lm_loss``): ``[B, S, Vpad]`` logits are never held whole, each
     chunk's only inside a checkpointed call, recomputed in the backward.
     ``chunk`` is ``min(chunk, S)``, or S where it does not divide. The head
     product is ``torch.matmul`` in float32, as the reference leaves it to
-    XLA. Returns the mean over the B * S positions."""
+    XLA. Returns the mean over the B * S positions. ``ctx``: under tensor
+    parallelism ``head`` is the rank's columns and the cross-entropy is
+    vocab-parallel (:func:`_nll`)."""
     b, s, _ = hidden.shape
     if flags.ANALYSIS_UNROLL:
         chunk = 4096                 # the reference's chunk under analysis
@@ -567,5 +652,5 @@ def fused_lm_loss(head: torch.Tensor, hidden: torch.Tensor,
     for i in range(0, s, chunk):
         total = total + maybe_checkpoint(True, _chunk_nll_sum,
                                    hidden[:, i:i + chunk],
-                                   targets[:, i:i + chunk], head, cfg)
+                                   targets[:, i:i + chunk], head, cfg, ctx)
     return total / _scalar(b * s, total)

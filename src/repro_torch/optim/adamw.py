@@ -13,6 +13,11 @@ Unlike the reference, which returns new arrays, :func:`apply_updates`
 writes the new parameters and moments into the given tensors (no second
 copy of a 1.5 B-parameter model on the card) and returns them with a new
 step counter.
+
+Under tensor parallelism a rank holds blocks of some leaves and the whole
+of the others; :func:`global_norm` (``split=``, ``group=``) then sums the
+blocks' squares over the model group and counts the whole leaves once, so
+every rank clips by the one-device norm and their blocks stay one model.
 """
 from __future__ import annotations
 
@@ -20,6 +25,8 @@ import dataclasses
 from typing import Any, Callable, Dict, List, Tuple
 
 import torch
+
+from repro_torch.distributed import collectives
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,16 +76,31 @@ def init_state(params, cfg: AdamWConfig) -> Dict[str, Any]:
     }
 
 
-def global_norm(tree) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(x.float()))
-                          for x in tree_leaves(tree)))
+def global_norm(tree, split=None, group=None) -> torch.Tensor:
+    """The L2 norm of every leaf of ``tree``. ``split`` (a bool per leaf,
+    true where ``api.tp_shardings`` names an axis): the leaves that are
+    this rank's blocks, whose squares are summed over ``group`` (the model
+    axis's); the others are whole on every rank and count once."""
+    if split is None:
+        return torch.sqrt(sum(torch.sum(torch.square(x.float()))
+                              for x in tree_leaves(tree)))
+    parts = {True: [], False: []}             # by key, not by leaf order
+    tree_map(lambda x, f: parts[bool(f)].append(
+        torch.sum(torch.square(x.float()))), tree, split)
+    zero = torch.zeros((), dtype=torch.float32,
+                       device=tree_leaves(tree)[0].device)
+    blocks, whole = sum(parts[True], zero), sum(parts[False], zero)
+    return torch.sqrt(whole + collectives.all_reduce(blocks, "sum", group))
 
 
 @torch.no_grad()
-def apply_updates(params, grads, state, cfg: AdamWConfig, lr
+def apply_updates(params, grads, state, cfg: AdamWConfig, lr, split=None,
+                  group=None
                   ) -> Tuple[Any, Dict[str, Any], Dict[str, torch.Tensor]]:
-    """One AdamW step, in place. Returns (params, new_state, metrics)."""
-    gnorm = global_norm(grads)
+    """One AdamW step, in place. Returns (params, new_state, metrics).
+    ``split`` and ``group``: the clip's norm over a tensor-parallel rank's
+    blocks (:func:`global_norm`)."""
+    gnorm = global_norm(grads, split, group)
     dev = gnorm.device
     f32 = torch.float32
     scale = torch.clamp(

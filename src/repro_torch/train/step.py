@@ -13,10 +13,14 @@ loss is averaged.
 On a mesh (``ctx``, a ``DistContext``: the reference's second argument, a
 keyword here so that the one-device calls keep their form) the step is what
 each rank runs: ``batch`` is the rank's rows of the global batch
-(``sharding_rules.local_batch``), the parameters are whole on every rank,
-the MoE layers run expert-parallel over the model axis, and the gradients
-and the loss are averaged over the batch axes' group before AdamW, so the
-loss is the global batch's mean and every rank takes the same update.
+(``sharding_rules.local_batch``); with more than one model rank the
+parameters, gradients and moments are the rank's blocks
+(``api.tp_shardings``: the dense layers tensor-parallel, the
+MoE layers expert-parallel) and the clip's norm sums the blocks over the
+model group (``adamw.global_norm``). The gradients and the loss are
+averaged over the batch axes' group before AdamW (a batch group shares a
+model coordinate, so it averages one block), so the loss is the global
+batch's mean and the ranks of one model coordinate take the same update.
 :func:`make_serve_steps` is the reference's ``(prefill, decode)`` pair.
 """
 from __future__ import annotations
@@ -28,7 +32,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.distributed import collectives
 from repro_torch.models import api
-from repro_torch.models.context import DistContext, has_mesh
+from repro_torch.models.context import DistContext, has_mesh, tensor_parallel
 from repro_torch.optim import adamw
 from repro_torch.optim.adamw import tree_leaves, tree_map
 
@@ -105,22 +109,30 @@ def make_train_step(
     ctx: Optional[DistContext] = None,
 ):
     """``train_step(params, opt_state, batch)``; ``train_step.grad_step``
-    is its :func:`make_grad_step`."""
+    is its :func:`make_grad_step`, and ``train_step.split`` /
+    ``train_step.group`` the clip's blocks and group (None without tensor
+    parallelism), for callers that split the step."""
     lr_fn = lr_fn or (lambda step: torch.tensor(3e-4, dtype=torch.float32))
     grad_step = make_grad_step(cfg, microbatches, remat, accum_dtype, tiles,
                                ctx)
+    split = group = None
+    if tensor_parallel(ctx):
+        split = tree_map(lambda sh: bool(sh.spec),
+                         api.tp_shardings(cfg, ctx))
+        group = ctx.model_group
 
     def train_step(params, opt_state, batch):
         metrics, grads = grad_step(params, batch)
         lr = lr_fn(opt_state["step"])
         params, opt_state, om = adamw.apply_updates(
-            params, grads, opt_state, opt_cfg, lr)
+            params, grads, opt_state, opt_cfg, lr, split=split, group=group)
         metrics = dict(metrics)
         metrics.update(om)
         metrics["lr"] = lr
         return params, opt_state, metrics
 
     train_step.grad_step = grad_step
+    train_step.split, train_step.group = split, group
     return train_step
 
 
@@ -128,7 +140,8 @@ def make_serve_steps(cfg: ArchConfig, ctx: Optional[DistContext],
                      max_len: int, dtype=torch.float32, tiles=None):
     """(prefill_fn, decode_fn) pair for serving, the reference's: window
     (local) attention layers keep ring caches, their KV being the window
-    whatever the context length. On a mesh each rank serves its rows."""
+    whatever the context length. On a mesh each rank serves its rows with
+    its blocks of the parameters."""
 
     def prefill_step(params, batch):
         return api.prefill(params, cfg, batch, max_len=max_len, dtype=dtype,

@@ -15,10 +15,14 @@ launch the matmul and flash-attention kernels, forward and backward.
 ``mesh=`` (``launch/mesh.py``, built over an initialised process group;
 one Trainer a rank) runs the step of ``train/step.py`` on the mesh: every
 rank makes the global batch of the step and reads its rows
-(``sharding_rules.local_batch``), keeps the parameters whole, and takes the
-update averaged over the batch axes, so every rank holds the same state.
-Only rank 0 writes checkpoints; before a restore every rank waits for its
-writes (a barrier), so all restart from the same step. A rank restarts in
+(``sharding_rules.local_batch``), holds its blocks of the parameters and
+moments (``api.tp_shardings``; whole on a model axis of one
+rank), and takes the update averaged over the batch axes, so the ranks of
+one model coordinate hold the same blocks. Every rank calls the
+checkpoint's save and restore with those shardings (the save gathers each
+leaf whole, a collective; the restore cuts each rank's blocks from the
+whole arrays on disk), and only rank 0 writes; before a restore every rank
+waits for its writes (a barrier), so all restart from the same step. A rank restarts in
 place only on the injected failure, which every rank raises at the same
 step before the step's collectives. Any other failure on a mesh raises: a
 rank that failed alone would leave its peers inside the step's all-reduce,
@@ -98,6 +102,11 @@ class Trainer:
         self.mesh = mesh
         self.ctx = rules.make_context(mesh) if mesh is not None else None
         self.cfg = cfg
+        self._shardings = None
+        if self.ctx is not None:
+            sh = api.tp_shardings(cfg, self.ctx)
+            self._shardings = {"params": sh,
+                               "opt": rules.opt_state_shardings(sh, mesh)}
         self.data_cfg = data_cfg
         self.tcfg = tcfg
         self.device = resolve_device(device)
@@ -143,12 +152,24 @@ class Trainer:
                 self.tiles, self.cfg, b, s, "train", dtype, tokens=rows)
 
     # -- state --------------------------------------------------------------
-    def init_state(self):
+    def init_state(self, device=None):
+        """Parameters from the seed (the rank's blocks on a mesh) and fresh
+        moments; ``device="meta"`` gives the whole-shaped template a
+        restore reads into."""
+        meta = device is not None and torch.device(device).type == "meta"
         params = api.init_params(self.cfg, self.tcfg.seed,
                                  dtype=self.tcfg.param_dtype,
-                                 device=self.device)
+                                 device=device or self.device,
+                                 ctx=None if meta else self.ctx)
         opt_state = adamw.init_state(params, self.opt_cfg)
         return params, opt_state, 0
+
+    def _save(self, step: int, params, opt_state) -> None:
+        """A checkpoint of the state (on a mesh, every rank gathers it and
+        rank 0 writes)."""
+        self.ckpt.save(step, {"params": params, "opt": opt_state},
+                       extra={"data_step": step}, shardings=self._shardings,
+                       write=self._writes)
 
     def try_restore(self):
         # An async save still in flight lands before anyone looks for the
@@ -161,8 +182,15 @@ class Trainer:
         latest = self.ckpt.latest_step()
         if latest is None:
             return self.init_state()
-        params, opt_state, _ = self.init_state()
-        tree = self.ckpt.restore({"params": params, "opt": opt_state})
+        if self.ctx is None:
+            params, opt_state, _ = self.init_state()
+            tree = self.ckpt.restore({"params": params, "opt": opt_state})
+        else:
+            # Each rank reads its blocks of the whole arrays on disk.
+            params, opt_state, _ = self.init_state(device="meta")
+            tree = self.ckpt.restore({"params": params, "opt": opt_state},
+                                     device=self.device,
+                                     shardings=self._shardings)
         meta = self.ckpt.meta()
         log.info("restored checkpoint at step %d", meta["step"])
         return tree["params"], tree["opt"], meta["step"]
@@ -201,14 +229,8 @@ class Trainer:
                         log.info("step %d loss %.4f (%.3fs)", step, loss,
                                  t.seconds)
                     if (step + 1) % self.tcfg.checkpoint_every == 0:
-                        self.ckpt.save(
-                            step + 1, {"params": params, "opt": opt_state},
-                            extra={"data_step": step + 1},
-                            write=self._writes)
-                self.ckpt.save(self.tcfg.steps,
-                               {"params": params, "opt": opt_state},
-                               extra={"data_step": self.tcfg.steps},
-                               write=self._writes)
+                        self._save(step + 1, params, opt_state)
+                self._save(self.tcfg.steps, params, opt_state)
                 self.ckpt.wait()
                 if self.ctx is not None:
                     # Every rank returns once rank 0's last save is on disk.

@@ -233,9 +233,11 @@ def test_a_235b_decode_cell_is_counted_without_memory():
     res = dryrun.lower_cell("qwen3-moe-235b-a22b", "decode_32k", False)
     assert res["status"] == "ok", res
     assert _rss() - before < 1e9
-    # 235 B bf16 parameters whole on a rank: counted, not held.
-    assert res["memory"]["peak_bytes"] > 400e9
-    assert not res["memory"]["fits"]
+    # 235 B bf16 parameters (470 GB), of which rank 0 holds its blocks over
+    # 16 model ranks (experts, heads, vocabulary) beside its cache: counted,
+    # not held.
+    assert 470e9 / 16 < res["memory"]["peak_bytes"] < 60e9
+    assert res["memory"]["fits"]
     assert res["memory"]["param_bytes_sharded"] < 40e9
     assert res["launches_by_kernel"]["flash_decode"] == 94
 

@@ -2,9 +2,12 @@
 
 Two rank groups run once for the module (``chip_smoke.run_mesh_group``,
 the program phase 18 runs on the card, here at smoke width on the CPU):
-four ranks — the sequence-sharded decode and the expert-parallel MoE on a
-2 x 2 mesh, a 2 x 2 train step of the smoke qwen2 and of the smoke MoE, the
-trained parameters saved from their 2 x 2 blocks — then two of the same
+four ranks, each on its tensor-parallel blocks — the sequence-sharded
+decode and the expert-parallel MoE on a 2 x 2 mesh, the smoke qwen2 served
+on 2 x 2 (a KV head a rank) and 1 x 4 (four query heads a rank, the two KV
+heads replicated) and the smoke gemma2 on 2 x 2 (ring caches, softcaps), a
+2 x 2 train step of the smoke qwen2 and of the smoke MoE, the trained
+parameters saved from their 2 x 2 blocks — then two of the same
 processes in a group of their own: the elastic restore onto a 1 x 2 mesh
 and one more step, GPipe over two stages, ``compress_psum``, a mesh
 Trainer. The rank programs import no JAX; they take the
@@ -12,10 +15,19 @@ reference's parameters (converted here, ``torch.save``d under the module's
 temporary folder) and write their results as ``.npz``; this process holds
 them against the reference on one device, as the reference's own tests do:
 
-* the sharded decode against the full forward's last logits at 5e-4
-  (``tests/test_distributed.py:22``);
+* the sharded decode, and each tensor-parallel serve (teacher-forced
+  decode steps), against the full forward's logits at 5e-4
+  (``tests/test_distributed.py:22``); in the run, each against the port's
+  one-process path on the same rows (tokens equal, logits within 1e-3 of
+  max |logit|, every kernel launched as often);
 * the EP MoE against the local forward at 2e-3 (``:57``);
-* the 2 x 2 train step against ``make_train_step(cfg, None, ...)``: the
+* the 2 x 2 train step, tensor-parallel, on the gradients and parameters
+  gathered whole from the ranks' blocks. In the run, on the port's seed-0
+  smoke weights (the card's check): against the port's one-device step,
+  the losses within 1e-6 relative, the gradients within 1e-5 of each
+  leaf's max and the first clip norm within 1e-5 relative, the
+  parameters within 2 x lr. On the reference's weights, against
+  ``make_train_step(cfg, None, ...)``: the
   first step's loss within 1e-6 relative (the second's within 1e-5: it is
   taken after an update whose sign flips, below, move the two sides' weights
   apart; measured 1.1e-6 here; the in-run check holds both losses to the
@@ -23,11 +35,21 @@ them against the reference on one device, as the reference's own tests do:
   within 2 x lr
   (a near-zero gradient that changes sign with the order of its sum moves
   Adam's normalised step by up to 2 x lr), the averaged gradients within
-  1e-5 of each leaf's max of the port's one-device gradients and within
-  1e-4 of the reference's: the reference's own gradients of these smoke
-  weights move by 1.3e-5 to 2.3e-5 of a leaf's max between its jitted and
-  its eager run, and the port's one-device ones lie there too (1e-4 is
-  ``tests/test_torch_train_step.py``'s bound for qwen2);
+  1e-4 of each leaf's max of the reference's (the reference's own
+  gradients of these smoke weights move by 1.3e-5 to 2.3e-5 of a leaf's
+  max between its jitted and its eager run; 1e-4 is
+  ``tests/test_torch_train_step.py``'s bound for qwen2). Against the
+  port's one-device gradients: within 1e-5 of the one-device step whose
+  FF ``w2`` product is summed in two halves of ``d_ff``, as the two model
+  ranks' row-parallel ``w2`` sums it (measured 7.6e-7), and within 5e-5 of
+  the plain one-device step (measured 1.44e-5 here; three broken trees —
+  the FF input or the head's hidden states not entering through
+  ``copy_to_group``, the cross-entropy's max not all-reduced — read 0.15
+  to 1.4). That split alone moves the one-device gradients of these
+  weights by 1.46e-5, and of the seed-0 draw by 1.0e-6, which is why the
+  in-run check, held at 1e-5 of the plain one-device step, takes the
+  seed-0 draw (``test_a_split_w2_sum_alone_moves_the_gradients``). On
+  both, the ranks of one model coordinate hold equal blocks;
 * the MoE's gradients — the expert weights' summed over the model axis —
   against the one-device gradients of each data half, averaged (a rank's
   aux loss is over its rows, so this is what data parallelism computes),
@@ -77,8 +99,10 @@ LOSS_RTOL = 1e-6
 LOSS_RTOL_AFTER_UPDATE = 1e-5
 GRAD_REL = 1e-5            # against the port's one-device gradients
 GRAD_REL_JAX = 1e-4        # against the reference's (see above)
+GRAD_REL_W2 = 5e-5         # the port's, w2's sum not split (see above)
 PIPE_RTOL = 2e-4
 B, S = 4, 16
+SERVE_STEPS = 3
 
 
 def _pair(name, **kw):
@@ -128,6 +152,7 @@ def groups(tmp_path_factory):
     dec_j, dec_t = _pair("qwen2-1.5b", n_kv_heads=1, n_heads=4)
     moe_j, moe_t = _moe_pair()
     q_j, q_t = _pair("qwen2-1.5b")
+    g_j, g_t = _pair("gemma2-9b")
     pp_j, pp_t = _pp_pair()
     pp_params = jax_pipeline.init_pipeline_params(
         pp_j, jax.random.PRNGKey(0), n_stages=2)
@@ -135,6 +160,7 @@ def groups(tmp_path_factory):
         "decode": _save(_port(dec_t, _init(dec_j)), tmp / "decode.pt"),
         "moe": _save(_port(moe_t, _init(moe_j)), tmp / "moe.pt"),
         "train": _save(_port(q_t, _init(q_j)), tmp / "train.pt"),
+        "gemma2": _save(_port(g_t, _init(g_j)), tmp / "gemma2.pt"),
         "gpipe": _save(jax.tree.map(lambda a: torch.from_numpy(
             np.array(a)), pp_params), tmp / "gpipe.pt"),
     }
@@ -144,11 +170,27 @@ def groups(tmp_path_factory):
             cfg=dec_t, mesh=(2, 2), batch=B, prompt_len=S - 1, steps=1,
             max_len=S, params={"path": paths["decode"]}, token_seed=1,
             teacher=True)),
+        ("decode", "serve", dict(
+            cfg=q_t, mesh=(2, 2), batch=B, prompt_len=S - SERVE_STEPS,
+            steps=SERVE_STEPS, max_len=S, params={"path": paths["train"]},
+            token_seed=8, teacher=True, sharded=False)),
+        ("decode", "serve_1x4", dict(
+            cfg=q_t, mesh=(1, 4), batch=B, prompt_len=S - SERVE_STEPS,
+            steps=SERVE_STEPS, max_len=S, params={"path": paths["train"]},
+            token_seed=9, teacher=True, sharded=False)),
+        ("decode", "serve_gemma2", dict(
+            cfg=g_t, mesh=(2, 2), batch=B, prompt_len=S - SERVE_STEPS,
+            steps=SERVE_STEPS, max_len=S, params={"path": paths["gemma2"]},
+            token_seed=10, teacher=True, sharded=False, ring_local=True)),
         ("moe", "moe", dict(cfg=moe_t, mesh=(2, 2), batch=B, seq=S,
                             params={"path": paths["moe"]}, token_seed=2)),
         ("train", "train", dict(
             cfg=q_t, mesh=(2, 2), batch=B, seq=S, microbatches=2, steps=2,
-            lr=LR, params={"path": paths["train"]}, data_seed=3, keep=True)),
+            lr=LR, params={"seed": 0}, data_seed=3)),
+        ("train", "train_jax", dict(
+            cfg=q_t, mesh=(2, 2), batch=B, seq=S, microbatches=2, steps=2,
+            lr=LR, params={"path": paths["train"]}, data_seed=3,
+            single=False, keep=True)),
         ("save", "save", dict(cfg=q_t, mesh=(2, 2), step=1, ckpt=ckpt)),
         ("train", "moe_train", dict(
             cfg=moe_t, mesh=(2, 2), batch=B, seq=S, microbatches=1, steps=1,
@@ -171,7 +213,8 @@ def groups(tmp_path_factory):
     res = chip_smoke.run_mesh_group(4, four, tmp / "ranks", "cpu",
                                     timeout_s=240, then=(2, two))
     return dict(res=res, dec=(dec_j, dec_t), moe=(moe_j, moe_t),
-                train=(q_j, q_t), pp=(pp_j, pp_t, pp_params), paths=paths)
+                train=(q_j, q_t), gemma2=(g_j, g_t),
+                pp=(pp_j, pp_t, pp_params), paths=paths)
 
 
 def _rows(rank: int, model: int = 2):
@@ -184,8 +227,8 @@ def test_the_in_run_checks_pass(groups):
     """Phase 18 (b)'s own verdicts (each check against the one-process
     path of the same ranks) hold on the CPU too."""
     out = chip_smoke.mesh_verdicts(groups["res"], LR)
-    assert set(out) == {"decode", "moe", "train", "elastic", "gpipe",
-                        "compress"}
+    assert set(out) == {"decode", "serve", "serve_1x4", "serve_gemma2",
+                        "moe", "train", "elastic", "gpipe", "compress"}
 
 
 def test_sharded_flash_decode_matches_full(groups):
@@ -196,11 +239,44 @@ def test_sharded_flash_decode_matches_full(groups):
     for r, d in enumerate(groups["res"]["decode"]):
         np.testing.assert_allclose(d["logits"][0], full[_rows(r)],
                                    rtol=DECODE_TOL, atol=DECODE_TOL)
-        # Every layer kept its S / 2 slice; the CPU ran no kernel.
+        # Every layer kept its S / 2 slice of the one KV head; the CPU ran
+        # no kernel.
         assert int(d["sliced_layers"]) == cfg_t.n_layers
         assert int(d["s_loc"]) == S // 2
+        assert int(d["kv_heads"]) == 1
         assert int(d["launches"]) == 0
-        assert float(d["collectives_step"]) == 2 * cfg_t.n_layers
+        # All-reduces a step: the sharded body's max and sum, the
+        # attention's and the FF's row-parallel sums a layer, and the
+        # vocab-parallel embedding's sum (the query heads and the logits
+        # are gathered).
+        assert float(d["collectives_step"]) == 4 * cfg_t.n_layers + 1
+
+
+@pytest.mark.parametrize("tag,kv_heads", [
+    ("serve", 1), ("serve_1x4", 1), ("serve_gemma2", None)])
+def test_tensor_parallel_serve_matches_full(groups, tag, kv_heads):
+    """Teacher-forced decode steps on a rank's blocks against the
+    reference's full forward at the same positions; a rank holds about
+    1 / model of the parameters and its own KV heads (the smoke qwen2's
+    two split over 2 ranks, replicated over 4: each reads one)."""
+    cfg_j, cfg_t = groups["gemma2" if "gemma2" in tag else "train"]
+    tok = chip_smoke._mesh_tokens(
+        {"serve": 8, "serve_1x4": 9, "serve_gemma2": 10}[tag], (B, S),
+        cfg_t.vocab_size)
+    full = np.asarray(jax_T.forward(_init(cfg_j), cfg_j, jnp.asarray(tok),
+                                    remat=False).logits)
+    ranks = groups["res"][tag]
+    model = 4 if tag == "serve_1x4" else 2
+    for r, d in enumerate(ranks):
+        rows = slice(None) if model == 4 else _rows(r)
+        want = full[rows, S - SERVE_STEPS:]
+        np.testing.assert_allclose(d["logits"].transpose(1, 0, 2), want,
+                                   rtol=DECODE_TOL, atol=DECODE_TOL)
+        assert d["tokens"].tolist() == tok[rows, S - SERVE_STEPS:].T.tolist()
+        if kv_heads is not None:
+            assert int(d["kv_heads"]) == kv_heads
+        held = float(d["param_bytes"]) / float(d["ref_param_bytes"])
+        assert 1 / model < held < 1 / model + 0.05, held
 
 
 def test_moe_ep_sharded_matches_local(groups):
@@ -261,13 +337,51 @@ def _port_grads(cfg_t, path, batch):
         torch.set_num_threads(n)
 
 
-def test_train_step_on_a_2x2_mesh_matches_the_reference(groups):
+def _one_device_grads(cfg_t, params, batch, monkeypatch, split_w2=False):
+    """The port's one-device gradients of a step of two microbatches; with
+    ``split_w2``, the FF's ``w2`` product summed in two halves of ``d_ff``
+    (what the row-parallel ``w2`` of two model ranks computes)."""
+    from repro_torch.checkpoint.manager import _flatten
+    from repro_torch.models import transformer as T
+    from repro_torch.train.step import make_grad_step
+
+    mm = T.mm
+
+    def halves(a, w, tile=None):
+        if w.shape[0] != cfg_t.d_ff:
+            return mm(a, w, tile=tile)
+        h = cfg_t.d_ff // 2
+        return mm(a[:, :h], w[:h], tile=tile) + mm(a[:, h:], w[h:], tile=tile)
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        with monkeypatch.context() as m:
+            if split_w2:
+                m.setattr(T, "mm", halves)
+            _, grads = make_grad_step(cfg_t, 2)(params, batch)
+    finally:
+        torch.set_num_threads(n)
+    return {k: v.numpy() for k, v in _flatten(grads).items()}
+
+
+def _worst_rel(got, want):
+    return max(float(np.abs(got[k] - w).max() / np.abs(w).max())
+               for k, w in want.items())
+
+
+def test_train_step_on_a_2x2_mesh_matches_the_reference(groups, monkeypatch):
     cfg_j, cfg_t = groups["train"]
     pj = _init(cfg_j)
     batches = _batches(cfg_t, 2, 3)
-    d = groups["res"]["train"][0]
+    d = groups["res"]["train_jax"][0]
     _hold_grads(d, _port_flat(cfg_t, _jax_grads(cfg_j, pj, batches[0], 2)),
                 GRAD_REL_JAX)
+    params = torch.load(groups["paths"]["train"])
+    _hold_grads(d, _one_device_grads(cfg_t, params, batches[0], monkeypatch,
+                                     split_w2=True), GRAD_REL)
+    _hold_grads(d, _one_device_grads(cfg_t, params, batches[0], monkeypatch),
+                GRAD_REL_W2)
     ocfg = jax_adamw.AdamWConfig()
     step = jax.jit(jax_make_train_step(
         cfg_j, None, ocfg, lr_fn=lambda s: jnp.asarray(LR, jnp.float32),
@@ -282,9 +396,12 @@ def test_train_step_on_a_2x2_mesh_matches_the_reference(groups):
     want = _port_flat(cfg_t, p)
     for k, w in want.items():
         assert float(np.abs(d[f"params/{k}"] - w).max()) <= 2 * LR, k
-    # Every rank took the same update.
+    # The ranks of one model coordinate took the same update of their
+    # blocks (rows: a rank's sum of |block|, its model coordinate).
     sums = d["param_abs_sums"]
-    assert np.all(sums == sums[0])
+    for m in (0, 1):
+        same = sums[sums[:, 1] == m, 0]
+        assert len(same) == 2 and np.all(same == same[0])
 
 
 def test_moe_expert_gradients_sum_over_the_model_axis(groups):
@@ -370,6 +487,24 @@ def test_compress_psum_over_two_ranks(groups):
 
 
 # -- without a process group --------------------------------------------------
+
+def test_a_split_w2_sum_alone_moves_the_gradients(monkeypatch):
+    """On one process, summing only the FF's ``w2`` product in two halves
+    (the row-parallel ``w2`` of two model ranks) moves the port's first-step
+    gradients of the reference's smoke weights by more than 1e-5 of a
+    leaf's max, and those of the port's seed-0 draw by less: the readings
+    behind the train checks' choice of weights and limits (above)."""
+    from repro_torch.models import api
+
+    cfg_j, cfg_t = _pair("qwen2-1.5b")
+    batch = _batches(cfg_t, 2, 3)[0]
+    for params, lo, hi in [
+            (_port(cfg_t, _init(cfg_j)), GRAD_REL, GRAD_REL_W2),
+            (api.init_params(cfg_t, 0, device="cpu"), 0.0, GRAD_REL)]:
+        whole = _one_device_grads(cfg_t, params, batch, monkeypatch)
+        split = _one_device_grads(cfg_t, params, batch, monkeypatch,
+                                  split_w2=True)
+        assert lo < _worst_rel(split, whole) < hi
 
 def test_flash_decode_lse_combines_slices():
     """The plain flash_decode's log-sum-exp: four slices of a cache, each

@@ -1,0 +1,375 @@
+"""Tensor parallelism of the port without a process group: the blocks a rank
+holds, the KV heads its query heads read, the vocab-parallel cross-entropy
+and the dry run's count of a tensor-parallel step.
+
+* Every full-width config's parameters on a rank of a 1 x m mesh (m = 2, 4,
+  16; a stub mesh, rank 0 and the last) have the block shapes of the
+  reference's ``param_spec(..., fsdp=False)`` on the attention, dense FF,
+  MoE, ``embed`` and ``lm_head`` leaves, and the whole shape on every other.
+* ``attention.local_heads``: each rank's query heads tile the padded heads,
+  its KV heads are those they read, and the split of the configs' widths at
+  16 model ranks is the one ``configs/base.py``'s padding gives.
+* The vocab-parallel NLL of a logits tensor cut into blocks, its collectives
+  played by threads that sum (and take the max of) the blocks' values,
+  equals ``transformer._nll`` over the whole tensor, gradients included.
+* The dry run of the smoke qwen2 on a fake 1 x 2 group counts about half
+  the dense FLOPs of a 1 x 1 one, and records the model axis's all-reduces.
+"""
+import dataclasses
+import threading
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro.distributed import sharding_rules as jax_rules  # noqa: E402
+from repro_torch import configs  # noqa: E402
+from repro_torch.checkpoint.manager import _flatten  # noqa: E402
+from repro_torch.configs.shapes import ShapeSpec  # noqa: E402
+from repro_torch.distributed import sharding_rules as rules  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
+from repro_torch.models import api  # noqa: E402
+from repro_torch.models import attention as A  # noqa: E402
+from repro_torch.models import transformer as T  # noqa: E402
+from repro_torch.models.context import DistContext, local_range  # noqa: E402
+
+ARCHS = configs.list_archs()
+SPLIT_MODULES = ("attn", "ff", "moe")
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+class _Mesh:
+    """A 1 x m mesh seen from model coordinate ``i``; no process group."""
+
+    axis_names = ("data", "model")
+
+    def __init__(self, m: int, i: int):
+        self.shape = {"data": 1, "model": m}
+        self.coords = {"data": 0, "model": i}
+
+    def group(self, axes):
+        return ("group", axes)
+
+
+def _ctx(m: int, i: int) -> DistContext:
+    return rules.make_context(_Mesh(m, i))
+
+
+def _in_slice(path: str) -> bool:
+    parts = path.split("/")
+    if parts[0] in ("embed", "lm_head"):
+        return True
+    return parts[0] == "layers" and parts[2] in SPLIT_MODULES
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_block_shapes_are_the_references_model_specs(arch):
+    cfg = configs.get_arch(arch)
+    whole = _flatten(api.init_params(cfg, device="meta"))
+    axes = {k: d.axes for k, d in _flatten(api.param_defs(cfg)).items()}
+    encdec = api.is_encdec(cfg)
+    for m in (2, 4, 16):
+        mesh = _Mesh(m, 0)
+        for i in (0, m - 1):
+            got = _flatten(api.init_params(cfg, device="meta",
+                                           ctx=_ctx(m, i)))
+            assert set(got) == set(whole)
+            for k, t in whole.items():
+                shape = tuple(t.shape)
+                spec = rules.param_spec(axes[k], shape, mesh, fsdp=False)
+                assert tuple(spec) == tuple(jax_rules.param_spec(
+                    axes[k], shape, mesh, fsdp=False)), k
+                want = (rules.NamedSharding(mesh, spec).shard_shape(shape)
+                        if _in_slice(k) and not encdec else shape)
+                assert tuple(got[k].shape) == want, (arch, m, k)
+    # The rule's blocks, leaf by leaf: ``tp_shardings`` names the model axis
+    # exactly where a leaf is cut.
+    sh = _flatten(api.tp_shardings(cfg, _ctx(16, 0)))
+    cut = _flatten(api.init_params(cfg, device="meta", ctx=_ctx(16, 0)))
+    for k, t in whole.items():
+        assert bool(sh[k].spec) == (tuple(cut[k].shape) != tuple(
+            t.shape)), k
+
+
+@pytest.mark.parametrize("m", [2, 4])
+def test_init_cuts_each_leaf_as_it_is_drawn(m, monkeypatch):
+    """``init_params(ctx=)`` cuts each leaf to the rank's block as it draws
+    it (``init_tree``'s ``cut``), and the blocks equal those of the whole
+    tree drawn from the same seed."""
+    cfg = configs.get_smoke("qwen2-1.5b")
+    whole = api.init_params(cfg, 3, device="cpu")
+    draw = T.init_tree
+    sizes = []
+
+    def tracking(defs, gen, dtype, device, cut=None):
+        def kept(d, x):
+            out = cut(d, x)
+            sizes.append((x.numel(), out.numel()))
+            return out
+        return draw(defs, gen, dtype, device, kept)
+
+    monkeypatch.setattr(T, "init_tree", tracking)
+    for i in range(m):
+        ctx = _ctx(m, i)
+        sizes.clear()
+        got = _flatten(api.init_params(cfg, 3, device="cpu", ctx=ctx))
+        want = _flatten(api.shard_params(whole, cfg, ctx))
+        assert set(got) == set(want)
+        for k in want:
+            assert torch.equal(got[k], want[k]), k
+        assert len(sizes) == len(want)
+        assert sum(o for _, o in sizes) < sum(n for n, _ in sizes)
+
+
+def test_the_full_width_split_at_16_model_ranks():
+    """Query heads, KV heads and d_ff a rank at 16 model ranks, and the
+    vocabulary's columns (``configs/base.py``'s padded counts)."""
+    want = {  # arch: (query heads, KV heads read, KV split, d_ff, vocab)
+        "qwen2-1.5b": (1, 1, False, 560, 9600),
+        "command-r-35b": (4, 1, False, None, 16000),
+        "deepseek-moe-16b": (1, 1, True, None, None),
+        "gemma2-9b": (1, 1, False, None, 16000),
+    }
+    for arch, (nq, nkv, split, ff, vocab) in want.items():
+        cfg = configs.get_arch(arch)
+        for i in range(16):
+            ctx = _ctx(16, i)
+            (q0, q1), (k0, k1) = A.local_heads(cfg, ctx)
+            assert (q1 - q0, k1 - k0) == (nq, nkv), arch
+            assert (local_range(ctx, "kv_heads", cfg.padded_kv_heads)
+                    is not None) == split
+            if ff is not None:
+                lo, hi = local_range(ctx, "ff", cfg.d_ff)
+                assert hi - lo == ff
+            if vocab is not None:
+                lo, hi = local_range(ctx, "vocab", cfg.padded_vocab)
+                assert hi - lo == vocab
+    # qwen2: ranks 12-15 hold only padded query heads.
+    cfg = configs.get_arch("qwen2-1.5b")
+    assert cfg.n_heads == 12 and cfg.padded_heads == 16
+    assert A.local_heads(cfg, _ctx(16, 12))[0] == (12, 13)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_kv_head_map(arch):
+    """Every rank's query heads tile the padded heads in rank order and
+    read the contiguous KV heads ``h // (Hq / Hkv)``, with one local ratio;
+    a rank's cache holds those KV heads."""
+    cfg = configs.get_arch(arch)
+    hq, hkv = cfg.padded_heads, cfg.padded_kv_heads
+    if not hq or api.is_encdec(cfg):
+        return
+    rep = hq // hkv
+    for m in (2, 4, 16):
+        start = 0
+        for i in range(m):
+            ctx = _ctx(m, i)
+            (q0, q1), (k0, k1) = A.local_heads(cfg, ctx)
+            assert q0 == start and q1 - q0 == hq // m
+            start = q1
+            assert sorted({h // rep for h in range(q0, q1)}) == list(
+                range(k0, k1))
+            assert (q1 - q0) % (k1 - k0) == 0
+            assert (local_range(ctx, "kv_heads", hkv) is not None) == (
+                hkv % m == 0 and hkv >= m)
+            cache = A.make_kv_cache(cfg, 1, 8, torch.float32, device="meta",
+                                    ctx=ctx)
+            assert cache["k"].shape[1] == k1 - k0
+        assert start == hq
+    assert A.local_heads(cfg, None) == ((0, hq), (0, hkv))
+
+
+def test_heads_that_map_onto_no_whole_kv_heads_raise():
+    cfg = dataclasses.replace(configs.get_arch("qwen2-1.5b"), n_heads=48,
+                              n_kv_heads=16).validate()
+    mesh = _Mesh(3, 1)
+    with pytest.raises(ValueError, match="do not split over 3 model ranks"):
+        A.local_heads(cfg, rules.make_context(mesh))
+
+
+# -- the vocab-parallel cross-entropy -----------------------------------------
+
+class _ThreadGroup:
+    """The model axis's collectives for ``m`` threads, one a block: each
+    call waits for every block's value and returns their sum (or max);
+    ``sum_from_group`` passes its cotangent through, as the port's does."""
+
+    def __init__(self, m: int):
+        self.m = m
+        self.barrier = threading.Barrier(m)
+        self.slots = [None] * m
+        self.local = threading.local()
+
+    def _reduce(self, x, op):
+        self.slots[self.local.rank] = x.detach()
+        self.barrier.wait()
+        stack = torch.stack(self.slots)
+        out = stack.amax(0) if op == "max" else stack.sum(0)
+        self.barrier.wait()
+        return out
+
+    def all_reduce(self, x, op="sum", group=None):
+        return self._reduce(x, op)
+
+    def sum_from_group(self, x, group):
+        return x + (self._reduce(x, "sum") - x).detach()
+
+    def copy_to_group(self, x, group):
+        return x
+
+
+def _blocks(m, fn):
+    """``fn(rank)`` on ``m`` threads; their results in rank order."""
+    out, errors = [None] * m, []
+
+    def run(r):
+        try:
+            out[r] = fn(r)
+        except Exception as e:  # noqa: BLE001 — raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(r,)) for r in range(m)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    return out
+
+
+@pytest.mark.parametrize("m", [2, 4])
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "gemma2-9b"])
+def test_vocab_parallel_nll_equals_the_whole(monkeypatch, arch, m):
+    """Logits over the padded vocabulary (the smoke configs' 256 real
+    columns of 2048: with 4 blocks three hold only padded ones) cut into
+    ``m`` blocks; the blocks' NLLs, their collectives summed by threads,
+    equal ``_nll`` of the whole tensor, and so do the gradients."""
+    cfg = configs.get_smoke(arch)
+    v = cfg.padded_vocab
+    rng = np.random.default_rng(0)
+    logits = torch.from_numpy(rng.standard_normal((3, 5, v)).astype(
+        np.float32) * 4)
+    targets = torch.from_numpy(rng.integers(0, cfg.vocab_size, (3, 5)))
+    whole = logits.clone().requires_grad_(True)
+    want = T._nll(whole, targets, cfg)
+    (g_want,) = torch.autograd.grad(want.sum(), whole)
+
+    group = _ThreadGroup(m)
+    monkeypatch.setattr(T, "collectives", group)
+    n = v // m
+
+    def block(r):
+        group.local.rank = r
+        part = logits[..., r * n:(r + 1) * n].clone().requires_grad_(True)
+        nll = T._nll(part, targets, cfg, ctx=_ctx(m, r))
+        (g,) = torch.autograd.grad(nll.sum(), part)
+        return nll.detach(), g
+
+    got = _blocks(m, block)
+    for nll, _ in got:
+        torch.testing.assert_close(nll, want.detach(), rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(torch.cat([g for _, g in got], -1), g_want,
+                               rtol=1e-6, atol=1e-7)
+    # The padded columns take no probability.
+    assert float(g_want[..., cfg.vocab_size:].abs().max()) == 0.0
+
+
+def test_vocab_parallel_embedding_and_head(monkeypatch):
+    """The vocab-parallel lookup (zeros outside a rank's rows, then a sum)
+    is the whole lookup exactly; the column-parallel head's blocks are the
+    whole logits' columns."""
+    cfg = configs.get_smoke("qwen2-1.5b")
+    params = api.init_params(cfg, 0, device="cpu")
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (2, 7)))
+    want = T._embed(params, cfg, tokens)
+    group = _ThreadGroup(2)
+    monkeypatch.setattr(T, "collectives", group)
+
+    def block(r):
+        group.local.rank = r
+        ctx = _ctx(2, r)
+        p = api.shard_params(params, cfg, ctx)
+        return (T._embed(p, cfg, tokens, ctx),
+                torch.matmul(want, T.head_weight(p, cfg)))
+
+    got = _blocks(2, block)
+    for x, _ in got:
+        assert torch.equal(x, want)
+    torch.testing.assert_close(
+        torch.cat([h for _, h in got], -1),
+        torch.matmul(want, T.head_weight(params, cfg)), rtol=0, atol=0)
+
+
+def test_global_norm_sums_blocks_once(monkeypatch):
+    """The clip's norm over a tensor-parallel tree: the blocks' squares
+    summed over the model group, the whole leaves counted once, equal to
+    the norm of the whole tree on every rank (the split tree pairs with
+    the gradients by key: its dicts are not in the parameters' order)."""
+    from repro_torch.optim import adamw
+
+    cfg = configs.get_smoke("qwen2-1.5b")
+    grads = api.init_params(cfg, 1, device="cpu")
+    want = adamw.global_norm(grads)
+    group = _ThreadGroup(2)
+    monkeypatch.setattr(adamw, "collectives", group)
+    split = adamw.tree_map(lambda sh: bool(sh.spec),
+                           api.tp_shardings(cfg, _ctx(2, 0)))
+
+    def block(r):
+        group.local.rank = r
+        mine = api.shard_params(grads, cfg, _ctx(2, r))
+        return adamw.global_norm(mine, split, ("group", ("model",)))
+
+    for got in _blocks(2, block):
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=0)
+
+
+def test_params_from_jax_gives_the_ranks_blocks():
+    import jax
+
+    from repro import configs as jax_configs
+    from repro.models import api as jax_api
+    from repro_torch.models.convert import params_from_jax
+
+    cfg_j = jax_configs.get_smoke("qwen2-1.5b")
+    cfg = configs.get_smoke("qwen2-1.5b")
+    tree = jax.tree.map(np.asarray, jax.jit(
+        jax_api.init_params, static_argnums=0)(cfg_j, jax.random.PRNGKey(0)))
+    whole = params_from_jax(cfg, tree, device="cpu")
+    for i in range(4):
+        ctx = _ctx(4, i)
+        got = _flatten(params_from_jax(cfg, tree, device="cpu", ctx=ctx))
+        want = _flatten(api.shard_params(whole, cfg, ctx))
+        assert set(got) == set(want)
+        for k in want:
+            assert torch.equal(got[k], want[k]), k
+
+
+# -- the dry run --------------------------------------------------------------
+
+def test_dry_run_of_a_1x2_step_halves_the_dense_flops():
+    cfg = configs.get_smoke("qwen2-1.5b")
+    shape = ShapeSpec("tp_smoke", 32, 4, "train")
+    counts = {}
+    for model in (1, 2):
+        with dryrun.cell_mesh(local=(1, model)) as mesh:
+            counts[model], _ = dryrun._compile_step(
+                cfg, shape, mesh, dtype=torch.float32)
+    one, two = counts[1], counts[2]
+    ratio = two.flops / one.flops
+    assert 0.45 <= ratio <= 0.6, ratio
+    assert dict(two.launches) == dict(one.launches)
+    # A group of one rank moves nothing; on two, the model axis's sums.
+    assert one.totals()[2] == 0
+    kinds = {kind for kind, _ in two.collectives}
+    assert "all-reduce" in kinds and two.totals()[2] > 0
