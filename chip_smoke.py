@@ -78,7 +78,7 @@ Phases, each of which fails the run if it fails:
    measured, none skipped, and that the saved artifact resolves each cell
    exactly; then time all 16 tiles of the paper's Fig. 3 at every scale
    beside the paper's two GPUs as the cost model sees them;
-10. serve full-width mamba2-2.7b (32 of its 64 layers, float32, random
+10. serve full-width mamba2-2.7b (16 of its 64 layers, float32, random
    weights from seed 0; SSD states) through the captured engine at 4 slots and max_len
    1024: six requests of 16, 64, 100, 257, 600 and 1000 prompt tokens (a
    slot serves a second request), 16 new tokens each, held token by token
@@ -87,8 +87,10 @@ Phases, each of which fails the run if it fails:
    step); one request's prefill logits and four decode steps against the
    plain versions; prefill device ms at 600 and 1000 tokens; decode ms a
    step at 1 and 4 slots, eager beside captured;
-11. the same for full-width recurrentgemma-9b (all 38 layers: RG-LRU
-   states, GeGLU FF, local attention at head_dim 256) at max_len 2304, so
+11. the same for full-width recurrentgemma-9b (20 of its 38 layers:
+   RG-LRU states, GeGLU FF, local attention at head_dim 256, six of the
+   (rglru, rglru, local_attn) units and two rglru layers) at max_len 2304,
+   so
    its local layers keep 2048-slot rings: prompts of 2100 (wraps at
    prefill), 2040 (wraps while decoding), 64 and 500 tokens; matmul,
    flash_attention and rglru must launch in the prefills, matmul,
@@ -256,11 +258,13 @@ Phases, each of which fails the run if it fails:
    full-width qwen2-1.5b at 2 of its 28 layers (a 28-layer Trainer's
    final checkpoint is 19 GB, two of them more than one call may write),
    3 steps of 8 x 512, losses and final parameters bit for bit; (b) ranks
-   on cuda:0 over gloo (its all-gather and point-to-point copied through
-   pinned host memory), each on its tensor-parallel blocks
-   (``api.tp_shardings``: attention heads, FF columns, experts
-   and vocabulary over the model axis), each check against the one-process
-   path of the same ranks: four ranks — the sequence-sharded decode of
+   on cuda:0 over gloo (its all-gather, reduce-scatter and point-to-point
+   copied through pinned host memory), each on its blocks
+   (``api.rank_shardings``: attention heads, FF columns, experts
+   and vocabulary over the model axis; the train step's under FSDP also
+   every leaf's data block, the serving checks with ``fsdp=False``), each
+   check against the one-process path of the same ranks: four ranks — the
+   sequence-sharded decode of
    full-width qwen2-1.5b at 2 of its 28 layers on a 1 x 4 mesh (4 query
    heads a rank, gathered for the sharded body; 2 KV heads < 4: each rank
    a 256-row slice of the 1024-row cache of both), and the same model
@@ -272,16 +276,22 @@ Phases, each of which fails the run if it fails:
    step; the expert-parallel MoE of full-width deepseek-moe-16b at 3
    layers on 2 x 2 (16 of 64 experts a rank and its half of the shared
    experts, 4 x 64 tokens, capacity factor 32: logits within 2e-3), a
-   2 x 2 train step of qwen2-1.5b at 2 layers (8 x 256, 2 microbatches, 2
-   steps: losses within 1e-6 relative, gradients gathered whole within
-   1e-5 of each leaf's max and the first clip norm within 1e-5 relative,
-   gathered parameters within 2 x lr, the ranks of one model coordinate
-   holding equal blocks)
-   and the trained parameters saved from their 2 x 2 blocks; two ranks —
+   2 x 2 train step of qwen2-1.5b at 2 layers on the model split alone
+   (one step: its loss within 1e-6 and its clip norm within 1e-5 of the
+   FSDP step's first, a rank holding at most 0.51 of the parameter bytes),
+   then two FSDP steps of the same (8 x 256, 2 microbatches; each layer
+   gathered over the data group as it runs and again in the recompute,
+   its gradients reduce-scattered: losses within 1e-6 relative, gradients
+   gathered whole within 1e-5 of each leaf's max and the first clip norm
+   within 1e-5 relative, gathered parameters within 2 x lr, a rank holding
+   at most 0.26 of the parameter bytes and launching each kernel as often
+   as the one process) and the trained FSDP blocks saved; two ranks —
    the restore onto 1 x 2 (blocks exact, each rank holding only its own)
    and one more tensor-parallel step, GPipe over two stages (loss within
    2e-4, gradients within 1e-4 of the sequential ones), ``compress_psum``
-   over 20 rounds; each check's wall ms and each rank's peak allocated
+   over 20 rounds, FSDP's gather and reduce-scatter in float64 (the
+   gather exact, its gradient the reduce-scatter of the ranks'
+   cotangents); each check's wall ms and each rank's peak allocated
    bytes. The four ranks on one card measure correctness, not multi-GPU
    speed. Phase 3 holds flash_decode's log-sum-exp output
    (``return_lse``) against its plain version at the headline shape and at
@@ -302,9 +312,9 @@ Phases, each of which fails the run if it fails:
    ``reset_peak_memory_stats``, less what was allocated before the step's
    tensors were made); the median step time is at least the roofline's
    ``total_s``; the train step's losses are finite. Measured / ``total_s``
-   is printed for each. (c) 18b's tensor-parallel train step counted as
-   rank 0 of a fake 2 x 2 group: launches equal rank 0's, peak within
-   10% of it.
+   is printed for each. (c) 18b's FSDP train step counted as rank 0 of a
+   fake 2 x 2 group (its all-gathers and reduce-scatters among the
+   collectives): launches equal rank 0's, peak within 10% of it.
 
 ``--profile`` adds, after phase 5, where the time of one full-width qwen2
 request goes (prefill, eager decode, captured decode): wall time, device
@@ -4720,14 +4730,15 @@ TRAIN_PEAK_LR = 3e-4
 # twice and its plain backward once.
 TRAIN_STEP_LAUNCHES = {"matmul": 28 * 12, "flash_attention": 28 * 2,
                        "flash_attention_bwd_plain": 28}
-# 17d: the 100M example, 40 steps at 8 x 256 tokens (cut from 100 so that
-# phase 18 fits the time limit, and from 60 when phase 3's tensor-parallel
-# rows came; the loss must still fall by more than 1.0), checkpoints every
-# 20 (keep 2), a failure injected at step 25, so the run restarts from
-# step 20; the replayed steps' losses and the final parameters must equal
-# the uninterrupted run's bit for bit (a step is deterministic and the
+# 17d: the 100M example, 30 steps at 8 x 256 tokens (cut from 100 so that
+# phase 18 fits the time limit, from 60 when phase 3's tensor-parallel
+# rows came, and from 40 when phase 18 (b) gained its FSDP steps; the loss
+# must still fall by more than 1.0), checkpoints every 15 (keep 2), a
+# failure injected at step 20, so the run restarts from step 15; the
+# replayed steps' losses and the final parameters must equal the
+# uninterrupted run's bit for bit (a step is deterministic and the
 # checkpoint holds params, moments and step).
-EXAMPLE_STEPS, EXAMPLE_EVERY, EXAMPLE_FAIL_AT = 40, 20, 25
+EXAMPLE_STEPS, EXAMPLE_EVERY, EXAMPLE_FAIL_AT = 30, 15, 20
 EXAMPLE_RESTORED = EXAMPLE_FAIL_AT // EXAMPLE_EVERY * EXAMPLE_EVERY
 # 17e (a): each scan's gradients at its model's full width: mamba2-2.7b's
 # SSD (H 80, P 64, N 128, its float32 chunk 64) and recurrentgemma-9b's
@@ -6005,6 +6016,7 @@ MESH_GRAD_REL = 1e-5         # of each leaf's max |gradient|
 MESH_PIPE_LOSS_REL = 2e-4
 MESH_PIPE_GRAD_REL = 1e-4
 MESH_COMPRESS_SCALES = 3.0   # running mean within 3 quantization scales
+MESH_GATHER_REL = 1e-12      # the FSDP pair's gradient, float64, of its max
 # Full-width geometry of phase 18: qwen2-1.5b cut to 2 of its 28 layers
 # (18a too: each Trainer writes its final checkpoint, 19 GB at 28 layers,
 # and one call to the card may write 45 GiB in all; 4 layers put phase 18
@@ -6088,9 +6100,10 @@ def _sync(device):
 
 def _mesh_decode(rank, device, out_dir, state, *, cfg, mesh, batch,
                  prompt_len, steps, max_len, params, token_seed,
-                 teacher=False, sharded=True, ring_local=False):
+                 teacher=False, sharded=True, ring_local=False, fsdp=True):
     """This rank's rows served on the mesh, tensor-parallel on its blocks
-    (with ``sharded``, the sequence-sharded decode:
+    (with ``fsdp``, its data blocks too, each layer gathered as it runs;
+    with ``sharded``, the sequence-sharded decode:
     ``flags.set_perf(decode_sharded=True)``; ``ring_local``, ring caches on
     the windowed layers), then the same rows on the
     whole parameters without the mesh. Each run's logits, tokens, kernel
@@ -6105,7 +6118,7 @@ def _mesh_decode(rank, device, out_dir, state, *, cfg, mesh, batch,
     from repro_torch.launch.mesh import make_local_mesh
     from repro_torch.models import api, flags
 
-    ctx = rules.make_context(make_local_mesh(*mesh, device=device))
+    ctx = rules.make_context(make_local_mesh(*mesh, device=device), fsdp)
     whole = _mesh_params(params, cfg, device)
     blocks = api.shard_params(whole, cfg, ctx)
     toks = torch.from_numpy(rules.local_rows(_mesh_tokens(
@@ -6186,9 +6199,10 @@ def _mesh_decode(rank, device, out_dir, state, *, cfg, mesh, batch,
 
 def _mesh_moe(rank, device, out_dir, state, *, cfg, mesh, batch, seq,
               params, token_seed, single=True, keep=True):
-    """Expert-parallel MoE forward of this rank's rows (the rank's blocks:
-    its experts, its columns of the shared experts and of the rest)
-    against the local all-experts forward of the same rows."""
+    """Expert-parallel MoE forward of this rank's rows (the rank's blocks
+    of the model split, FSDP off: its experts, its columns of the shared
+    experts and of the rest) against the local all-experts forward of the
+    same rows."""
     import numpy as np
     import torch
 
@@ -6197,7 +6211,8 @@ def _mesh_moe(rank, device, out_dir, state, *, cfg, mesh, batch, seq,
     from repro_torch.models import api
     from repro_torch.models import transformer as T
 
-    ctx = rules.make_context(make_local_mesh(*mesh, device=device))
+    ctx = rules.make_context(make_local_mesh(*mesh, device=device),
+                             fsdp=False)
     whole = _mesh_params(params, cfg, device)
     blocks = api.shard_params(whole, cfg, ctx)
     toks = torch.from_numpy(rules.local_rows(
@@ -6233,19 +6248,21 @@ def _train_batches(cfg, batch, seq, steps, seed):
 
 def _mesh_train(rank, device, out_dir, state, *, cfg, mesh, batch, seq,
                 microbatches, steps, lr, params, data_seed, single=True,
-                keep=False):
-    """``steps`` mesh train steps on the rank's blocks (this rank's rows,
-    gradients averaged over the batch axes, the clip's norm over the
-    model group) and, with ``single``, rank 0's one-process steps on the
-    global batch from the same whole parameters, held against the
-    first step's gradients and the last parameters gathered whole
-    (``unshard_tree``, collective), the losses and the first step's clip
-    norm (the blocks' squares summed over the model group). Rank 0 also
-    writes its
-    second step's kernel launches and its peak bytes above what it held
-    before the step plus the step's arguments (the dry run's count of the
-    same step, phase 19). With ``keep``, rank 0's gathered arrays are
-    written."""
+                keep=False, fsdp=True, saved_as=None):
+    """``steps`` mesh train steps on the rank's blocks (this rank's rows;
+    with ``fsdp``, the default, its data blocks too, each layer gathered
+    as it runs and its gradients reduce-scattered; gradients averaged over
+    the batch axes, the clip's norm over each leaf's axes) and, with
+    ``single``, rank 0's one-process steps on the global batch from the
+    same whole parameters, held against the first step's gradients and
+    the last parameters gathered whole (``unshard_tree``, collective), the
+    losses and the first step's clip norm. Rank 0 also writes its second
+    step's kernel launches (and the one process's) and its peak bytes
+    above what it held before the step plus the step's arguments (the dry
+    run's count of the same step, phase 19). With ``saved_as``, the
+    trained blocks, their shardings and the parameters gathered whole are
+    kept in the rank's state under that key for ``_mesh_save``. With
+    ``keep``, rank 0's gathered arrays are written."""
     import numpy as np
     import torch
 
@@ -6255,12 +6272,13 @@ def _mesh_train(rank, device, out_dir, state, *, cfg, mesh, batch, seq,
     from repro_torch.launch.mesh import make_local_mesh
     from repro_torch.models import api
     from repro_torch.optim import adamw
-    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.optim.adamw import tree_leaves, tree_map
     from repro_torch.train.step import make_train_step
 
-    ctx = rules.make_context(make_local_mesh(*mesh, device=device))
-    sh = api.tp_shardings(cfg, ctx)
+    ctx = rules.make_context(make_local_mesh(*mesh, device=device), fsdp)
+    sh = api.rank_shardings(cfg, ctx)
     opt_cfg = adamw.AdamWConfig()
+    need_grads = single or keep
 
     def lr_fn(step):
         return torch.tensor(lr, dtype=torch.float32)
@@ -6276,7 +6294,7 @@ def _mesh_train(rank, device, out_dir, state, *, cfg, mesh, batch, seq,
         for i, b in enumerate(batches):
             _sync(device)
             t0 = time.perf_counter()
-            if i == 0:
+            if i == 0 and need_grads:
                 # The step's two halves, to keep its averaged gradients.
                 m, g = step.grad_step(p, feed(b))
                 p, opt, om = adamw.apply_updates(
@@ -6305,6 +6323,7 @@ def _mesh_train(rank, device, out_dir, state, *, cfg, mesh, batch, seq,
     p, grads, losses, norms, times, second = run(
         ctx, lambda b: rules.local_batch(b, ctx),
         lambda t: rules.unshard_tree(t, sh))
+    res["fsdp"] = np.array(fsdp)
     res["losses"] = losses
     res["grad_norms"] = norms
     res["step_ms"] = np.array(statistics.median(times) * 1e3)
@@ -6312,22 +6331,30 @@ def _mesh_train(rank, device, out_dir, state, *, cfg, mesh, batch, seq,
     if second:
         res["step2_peak_bytes"] = np.array(second["peak"])
         res["step2_launches"] = np.array(json.dumps(second["launches"]))
-    # Ranks of one model coordinate hold the same blocks (the model
-    # coordinate of each rank beside the sum of its blocks).
-    total = sum(float(t.double().abs().sum()) for t in tree_leaves(p))
+    # Ranks of one model coordinate hold the same blocks of every leaf that
+    # is whole over the data axis (the model coordinate of each rank beside
+    # the sum of those blocks; under FSDP few or no such leaves).
+    kept = []
+    tree_map(lambda t, s_: kept.append(t) if "data" not in s_.axes else None,
+             p, sh)
+    total = sum(float(t.double().abs().sum()) for t in kept)
     sums = collectives.all_gather(
         torch.tensor([total, ctx.model_index], dtype=torch.float64), 0)
     res["param_abs_sums"] = sums.numpy().reshape(-1, 2)
     whole = rules.unshard_tree(p, sh)
+    if saved_as is not None:
+        state[saved_as] = (whole, p, sh)
     del p
-    state["trained"] = whole
     if rank == 0 and keep:
         res.update({f"grads/{k}": v for k, v in grads.items()})
         res.update({f"params/{k}": _np32(v) for k, v in _flat(whole).items()})
     if single and rank == 0:
-        q, g1, l1, n1, _, _ = run(None, lambda b: b, lambda t: t)
+        q, g1, l1, n1, _, second1 = run(None, lambda b: b, lambda t: t)
         res["ref_losses"] = l1
         res["ref_param_bytes"] = np.array(_tree_bytes(q))
+        if second1:
+            res["ref_step2_launches"] = np.array(json.dumps(
+                second1["launches"]))
         res["loss_rel"] = np.array(float(np.abs(losses - l1).max()
                                          / np.abs(l1).max()))
         # The clip's norm of the first step (the same parameters).
@@ -6345,22 +6372,17 @@ def _mesh_train(rank, device, out_dir, state, *, cfg, mesh, batch, seq,
     return res
 
 
-def _mesh_save(rank, device, out_dir, state, *, cfg, mesh, step, ckpt):
-    """The trained parameters cut into this rank's blocks of the 2 x 2
-    mesh's shardings and saved (gathered whole, rank 0 writes); rank 0
-    holds what was written against the parameters it trained."""
+def _mesh_save(rank, device, out_dir, state, *, step, ckpt, trained):
+    """The blocks that the ``_mesh_train`` given ``saved_as=trained``
+    trained (its mesh's shardings, FSDP's data blocks among them) saved
+    (gathered whole, rank 0 writes); rank 0 holds what was written against
+    the parameters gathered whole after training."""
     import numpy as np
 
     from repro_torch.checkpoint.manager import CheckpointManager
-    from repro_torch.distributed import sharding_rules as rules
-    from repro_torch.launch.mesh import make_local_mesh
-    from repro_torch.models import api
     from repro_torch.optim.adamw import tree_leaves
 
-    m = make_local_mesh(*mesh, device=device)
-    p = state.pop("trained")
-    sh = rules.param_shardings(api.param_logical_axes(cfg), p, m)
-    blocks = rules.shard_tree(p, sh)
+    p, blocks, sh = state.pop(trained)
     held = sum(t.numel() for t in tree_leaves(blocks))
     whole = sum(t.numel() for t in tree_leaves(p))
     cm = CheckpointManager(ckpt, async_save=False)
@@ -6399,10 +6421,10 @@ def _meta_params(cfg):
 
 def _mesh_restore(rank, device, out_dir, state, *, cfg, mesh, batch, seq,
                   microbatches, lr, data_seed, ckpt):
-    """Elastic restore: the 2 x 2 mesh's checkpoint onto this mesh's
-    shardings (each rank its blocks, equal to the saved arrays exactly),
-    then one more train step on this mesh, on its tensor-parallel
-    blocks."""
+    """Elastic restore: the checkpoint ``_mesh_save`` wrote from its mesh's
+    blocks, read onto this mesh's shardings (``api.rank_shardings``: each
+    rank its blocks, equal to the saved arrays' exactly), then one more
+    train step on this mesh, on the restored blocks."""
     import numpy as np
     import torch
 
@@ -6414,20 +6436,19 @@ def _mesh_restore(rank, device, out_dir, state, *, cfg, mesh, batch, seq,
     from repro_torch.optim.adamw import tree_leaves
     from repro_torch.train.step import make_train_step
 
-    m = make_local_mesh(*mesh, device=device)
-    ctx = rules.make_context(m)
+    ctx = rules.make_context(make_local_mesh(*mesh, device=device))
     template = _meta_params(cfg)
-    sh = rules.param_shardings(api.param_logical_axes(cfg), template, m)
+    sh = api.rank_shardings(cfg, ctx)
     cm = CheckpointManager(ckpt)
     _sync(device)
     t0 = time.perf_counter()
-    tree = cm.restore({"params": template}, shardings={"params": sh},
-                      device=device)["params"]
+    params = cm.restore({"params": template}, shardings={"params": sh},
+                        device=device)["params"]
     _sync(device)
     restore_ms = (time.perf_counter() - t0) * 1e3
     # Each block against the saved whole array (which the save checked
     # against the trained parameters).
-    got, shs = _flat(tree), _flat(sh)
+    got, shs = _flat(params), _flat(sh)
     with np.load(Path(ckpt) / f"step_{cm.latest_step():010d}" /
                  "arrays.npz") as z:
         want = {k: torch.from_numpy(z[f"params/{k}"]) for k in got}
@@ -6435,11 +6456,9 @@ def _mesh_restore(rank, device, out_dir, state, *, cfg, mesh, batch, seq,
                 for k in want)
     shaped = all(tuple(got[k].shape) == shs[k].shard_shape(want[k].shape)
                  for k in want)
-    held = sum(t.numel() for t in tree_leaves(tree))
+    held = sum(t.numel() for t in tree_leaves(params))
     whole = sum(t.numel() for t in want.values())
-    del want
-    params = api.shard_params(rules.unshard_tree(tree, sh), cfg, ctx)
-    del tree
+    del want, got
     opt_cfg = adamw.AdamWConfig()
     opt = adamw.init_state(params, opt_cfg)
     step = make_train_step(cfg, opt_cfg,
@@ -6557,15 +6576,57 @@ def _mesh_compress(rank, device, out_dir, state, *, shape, rounds, seed):
             "scale": np.array(scale)}
 
 
+def _mesh_gather_grad(rank, device, out_dir, state, *, shape, dim, seed):
+    """FSDP's collective pair on this group, in float64: each rank's block
+    ``x_r`` (``shape``, drawn from ``seed`` and the rank) gathered along
+    ``dim`` (``collectives.gather_from_group``), and autograd's gradient of
+    ``sum(w_r * gathered)`` (``w_r`` a rank's own weights) against block
+    ``r`` of the ranks' summed ``w`` (what its backward's reduce-scatter
+    gives); ``collectives.reduce_scatter`` of ``w_r`` against the same.
+    Every rank draws every rank's arrays, so each holds the exact sums."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.distributed import collectives
+
+    n = dist.get_world_size()
+
+    def draw(r, which, size):
+        rng = np.random.default_rng([seed, r, which])
+        return torch.from_numpy(rng.standard_normal(size))
+
+    whole = list(shape)
+    whole[dim] *= n
+    xs = [draw(r, 0, shape) for r in range(n)]
+    ws = [draw(r, 1, whole) for r in range(n)]
+    x = xs[rank].to(device).requires_grad_(True)
+    w = ws[rank].to(device)
+    y = collectives.gather_from_group(x, dim, dist.group.WORLD)
+    (grad,) = torch.autograd.grad((y * w).sum(), x)
+    want = torch.chunk(sum(ws), n, dim)[rank]
+    scattered = collectives.reduce_scatter(w, dim, dist.group.WORLD)
+    return {
+        "gather_err": np.array(float((y.detach().cpu()
+                                      - torch.cat(xs, dim)).abs().max())),
+        "grad_err": np.array(float((grad.cpu() - want).abs().max())),
+        "scatter_err": np.array(float((scattered.cpu() - want).abs().max())),
+        "scale": np.array(float(want.abs().max())),
+        "shaped": np.array(tuple(grad.shape) == tuple(shape)
+                           and tuple(y.shape) == tuple(whole)),
+    }
+
+
 def _mesh_trainer(rank, device, out_dir, state, *, cfg, mesh, steps, batch,
                   seq, fail_at, ckpt):
     """``Trainer.run`` on a mesh, one Trainer a rank, with an injected
-    failure: its losses, restarts and parameters, and the checkpoints
-    written (rank 0 alone writes)."""
+    failure: its losses, restarts and parameters (gathered whole), and the
+    checkpoints written (rank 0 alone writes)."""
     import numpy as np
     import torch
 
     from repro_torch.data.pipeline import DataConfig
+    from repro_torch.distributed.sharding_rules import unshard_tree
     from repro_torch.launch.mesh import make_local_mesh
     from repro_torch.train.trainer import Trainer, TrainerConfig
 
@@ -6576,8 +6637,11 @@ def _mesh_trainer(rank, device, out_dir, state, *, cfg, mesh, steps, batch,
                                 global_batch=batch), tcfg,
                 mesh=make_local_mesh(*mesh, device=device), device=device)
     out = t.run(fail_at=fail_at)
+    # The whole parameters (collective): a rank's blocks differ by its
+    # data coordinate under FSDP.
+    whole = unshard_tree(out["params"], t._shardings["params"])
     flat = torch.cat([p.detach().float().reshape(-1).cpu()
-                      for p in _leaves(out["params"])])
+                      for p in _leaves(whole)])
     return {"losses": np.array(out["losses"]),
             "restarts": np.array(out["restarts"]),
             "params": flat.numpy(),
@@ -6587,7 +6651,8 @@ def _mesh_trainer(rank, device, out_dir, state, *, cfg, mesh, steps, batch,
 MESH_CHECKS = {"decode": _mesh_decode, "moe": _mesh_moe,
                "train": _mesh_train, "save": _mesh_save,
                "restore": _mesh_restore, "gpipe": _mesh_gpipe,
-               "compress": _mesh_compress, "trainer": _mesh_trainer}
+               "compress": _mesh_compress, "trainer": _mesh_trainer,
+               "gather_grad": _mesh_gather_grad}
 
 
 def mesh_rank_program(rank: int, world: int, plan):
@@ -6687,8 +6752,10 @@ def _grad_rel(got, want) -> float:
     return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
 
 
-# A rank's share of qwen2's parameter bytes at 2 and at 4 model ranks.
+# A rank's share of qwen2's parameter bytes at 2 and at 4 model ranks, and
+# on a 2 x 2 mesh under FSDP (0.25001 at 2 layers).
 MESH_HELD = {2: 0.51, 4: 0.27}
+MESH_HELD_FSDP = 0.26
 
 
 def _serve_verdict(name, ranks, sharded: bool):
@@ -6804,7 +6871,10 @@ def mesh_verdicts(res, lr: float):
         pdiff = float(d["param_diff"])
         held = [float(r["param_bytes"]) / float(d["ref_param_bytes"])
                 for r in ranks]
-        out["train"] = dict(losses=d["losses"].tolist(),
+        fsdp = bool(d["fsdp"])
+        launches = json.loads(str(d["step2_launches"]))
+        ref_launches = json.loads(str(d["ref_step2_launches"]))
+        out["train"] = dict(fsdp=fsdp, losses=d["losses"].tolist(),
                             ref_losses=d["ref_losses"].tolist(),
                             grad_norms=d["grad_norms"].tolist(),
                             ref_grad_norms=d["ref_grad_norms"].tolist(),
@@ -6812,12 +6882,13 @@ def mesh_verdicts(res, lr: float):
                             loss_rel=lrel, grad_rel=grel, param_diff=pdiff,
                             held_fraction=held,
                             step2_peak_bytes=int(d["step2_peak_bytes"]),
-                            step2_launches=json.loads(
-                                str(d["step2_launches"])),
+                            step2_launches=launches,
+                            ref_step2_launches=ref_launches,
                             step_ms=[float(r["step_ms"]) for r in ranks],
                             wall_ms=[float(r["wall_ms"]) for r in ranks],
                             peak_bytes=[int(r["peak_bytes"]) for r in ranks])
-        log(f"  mesh train (tensor-parallel): losses {d['losses'].tolist()} "
+        log(f"  mesh train ({'FSDP and ' if fsdp else ''}tensor-parallel): "
+            f"losses {d['losses'].tolist()} "
             f"vs one process {d['ref_losses'].tolist()} (relative "
             f"{lrel:.3e}), gathered gradients within {grel:.3e} of a leaf's "
             f"max (worst: {d['grad_worst']}), gathered parameters within "
@@ -6826,9 +6897,10 @@ def mesh_verdicts(res, lr: float):
             f"{float(d['ref_grad_norms'][0]):.6f} (relative "
             f"{float(d['norm_rel']):.3e}), blocks equal by "
             f"model coordinate, step ms {out['train']['step_ms']}; a rank "
-            f"holds {[round(h, 4) for h in held]} of the parameter bytes; "
-            f"rank 0's second step: launches "
-            f"{out['train']['step2_launches']}, peak "
+            f"holds {[round(h, 5) for h in held]} of the parameter bytes "
+            f"({float(d['ref_param_bytes']) / 1e9:.3f} GB whole); "
+            f"rank 0's second step: launches {launches} (one process "
+            f"{ref_launches}), peak "
             f"{out['train']['step2_peak_bytes'] / 1e9:.3f} GB")
         log(_rank_line("train", ranks))
         check(lrel <= MESH_LOSS_REL, f"mesh train losses {d['losses']} vs "
@@ -6841,6 +6913,37 @@ def mesh_verdicts(res, lr: float):
               f"{nrel:.3e})")
         check(pdiff <= 2 * lr, f"mesh parameters off by {pdiff:.3e} "
               f"(2 x lr = {2 * lr:.1e})")
+        check(launches == ref_launches, f"a rank's step launched {launches};"
+              f" the one process's {ref_launches}")
+        if fsdp:
+            check(all(h <= MESH_HELD_FSDP for h in held), f"under FSDP a "
+                  f"rank holds {held} of the parameter bytes (limit "
+                  f"{MESH_HELD_FSDP})")
+    if "train_tp" in res:
+        # One step on the model split alone (FSDP off), from the same
+        # parameters and batch as the train check's first.
+        t, d = res["train_tp"][0], res["train"][0]
+        lrel = abs(float(t["losses"][0]) - float(d["losses"][0])) / abs(
+            float(d["losses"][0]))
+        nrel = abs(float(t["grad_norms"][0]) - float(d["grad_norms"][0])) \
+            / abs(float(d["grad_norms"][0]))
+        held = [float(r["param_bytes"]) / float(d["ref_param_bytes"])
+                for r in res["train_tp"]]
+        out["train_tp"] = dict(loss=float(t["losses"][0]), loss_rel=lrel,
+                               norm_rel=nrel, held_fraction=held,
+                               step_ms=[float(r["step_ms"])
+                                        for r in res["train_tp"]])
+        log(f"  mesh train, model split alone: first loss "
+            f"{float(t['losses'][0])} (relative {lrel:.3e} to the train "
+            f"check's), clip norm relative {nrel:.3e}; a rank holds "
+            f"{[round(h, 5) for h in held]}; step ms "
+            f"{out['train_tp']['step_ms']}")
+        log(_rank_line("train_tp", res["train_tp"]))
+        check(not bool(t["fsdp"]) and lrel <= MESH_LOSS_REL,
+              f"the model-split step's loss {float(t['losses'][0])} vs "
+              f"{float(d['losses'][0])} (relative {lrel:.3e})")
+        check(nrel <= MESH_GRAD_REL, f"the model-split step's clip norm "
+              f"off by {nrel:.3e}")
     if "restore" in res:
         ranks = res["restore"]
         saved = res["save"]
@@ -6874,6 +6977,24 @@ def mesh_verdicts(res, lr: float):
             f"{[round(x) for x in out['elastic']['restore_ms']]}")
         log(_rank_line("save", saved))
         log(_rank_line("restore", ranks))
+    if "gather_grad" in res:
+        ranks = res["gather_grad"]
+        for r, d in enumerate(ranks):
+            check(bool(d["shaped"]) and float(d["gather_err"]) == 0.0,
+                  f"the FSDP gather on rank {r} is not the ranks' blocks "
+                  f"(off by {float(d['gather_err']):.3e})")
+            for key in ("grad_err", "scatter_err"):
+                check(float(d[key]) <= MESH_GATHER_REL * float(d["scale"]),
+                      f"the FSDP gather's gradient on rank {r}: {key} "
+                      f"{float(d[key]):.3e} of a scale {float(d['scale']):.3e}")
+        out["gather_grad"] = dict(
+            grad_err=max(float(d["grad_err"]) for d in ranks),
+            scatter_err=max(float(d["scatter_err"]) for d in ranks),
+            wall_ms=[float(d["wall_ms"]) for d in ranks])
+        log(f"  FSDP gather / reduce-scatter: gathered exactly; gradient "
+            f"within {out['gather_grad']['grad_err']:.3e}, reduce-scatter "
+            f"within {out['gather_grad']['scatter_err']:.3e} of the ranks' "
+            f"summed cotangent's block (float64)")
     if "gpipe" in res:
         ranks = res["gpipe"]
         d0 = ranks[0]
@@ -7024,12 +7145,14 @@ def mesh_phase():
         deepseek = dataclasses.replace(
             ds, moe=dataclasses.replace(ds.moe, capacity_factor=32.0))
         lr = 1e-3
+        # The serving checks hold the model split alone (FSDP off): a
+        # decode step would gather every layer through host memory.
         four = dict(
             decode=dict(mesh=(1, 4), batch=1, prompt_len=511, steps=8,
                         max_len=1024, params={"seed": 0}, token_seed=11),
             serve=dict(mesh=(2, 2), batch=2, prompt_len=511, steps=8,
                        max_len=1024, params={"seed": 0}, token_seed=16,
-                       sharded=False),
+                       sharded=False, fsdp=False),
             moe=dict(mesh=(2, 2), batch=4, seq=64, params={"seed": 0},
                      token_seed=12, keep=False),
             train=dict(MESH_TRAIN, steps=2, params={"seed": 0},
@@ -7039,29 +7162,34 @@ def mesh_phase():
                          data_seed=13),
             gpipe=dict(n_stages=2, microbatches=2, batch=4, seq=256,
                        params={"seed": 0}, token_seed=14),
-            compress=dict(shape=(1536, 1536), rounds=20, seed=15))
+            compress=dict(shape=(1536, 1536), rounds=20, seed=15),
+            gather_grad=dict(shape=(768, 1536), dim=0, seed=17))
         ckpt = str(tmp / "elastic")
         g4 = [("decode", "decode", dict(cfg=qwen2, **four["decode"])),
               ("decode", "serve", dict(cfg=qwen2, **four["serve"])),
               ("moe", "moe", dict(cfg=deepseek, **four["moe"])),
-              ("train", "train", dict(cfg=qwen2, lr=lr, **four["train"])),
-              ("save", "save", dict(cfg=qwen2, mesh=four["train"]["mesh"],
-                                    step=1, ckpt=ckpt))]
+              ("train", "train_tp", dict(cfg=qwen2, lr=lr, **dict(
+                  four["train"], steps=1, single=False, fsdp=False))),
+              ("train", "train", dict(cfg=qwen2, lr=lr, saved_as="train",
+                                      **four["train"])),
+              ("save", "save", dict(step=1, ckpt=ckpt, trained="train"))]
         g2 = [("restore", "restore", dict(cfg=qwen2, lr=lr, ckpt=ckpt,
                                           **two["restore"])),
               ("gpipe", "gpipe", dict(cfg=qwen2, **two["gpipe"])),
-              ("compress", "compress", dict(**two["compress"]))]
-        log("== 18b: four gloo ranks on cuda:0, each on its tensor-parallel "
-            f"blocks — sequence-sharded decode (qwen2-1.5b, "
+              ("compress", "compress", dict(**two["compress"])),
+              ("gather_grad", "gather_grad", dict(**two["gather_grad"]))]
+        log("== 18b: four gloo ranks on cuda:0, each on its blocks — "
+            f"sequence-sharded decode (qwen2-1.5b, "
             f"{MESH_QWEN2_LAYERS} layers, 1 x 4: "
             "4 query heads a rank, KV replicated), tensor-parallel serve "
             f"(qwen2-1.5b, {MESH_QWEN2_LAYERS} layers, 2 x 2: KV heads "
             "split; 511-token "
             "prompts, 8 greedy steps), EP MoE (deepseek-moe-16b, 3 layers, "
-            f"2 x 2), mesh train step (qwen2-1.5b, {MESH_QWEN2_LAYERS} "
-            "layers, 2 x 2), the "
-            "sharded save; then two of them — elastic restore onto 1 x 2 "
-            "and one step, GPipe over two stages, compress_psum")
+            f"2 x 2), mesh train steps (qwen2-1.5b, {MESH_QWEN2_LAYERS} "
+            "layers, 2 x 2: one on the model split alone, two under FSDP), "
+            "the save of the FSDP blocks; then two of them — elastic "
+            "restore onto 1 x 2 and one step, GPipe over two stages, "
+            "compress_psum")
         t0 = time.perf_counter()
         res = run_mesh_group(4, g4, tmp / "ranks", "cuda", then=(2, g2))
         log(f"  [18b ranks: {time.perf_counter() - t0:.1f} s]; slowest rank "
@@ -7073,7 +7201,7 @@ def mesh_phase():
         got = out["checks"]["decode"]["launches"]
         check(all(n == want for n in got), f"the sharded decode launched "
               f"flash_decode {got} times by rank; {want} expected")
-        for name, model in (("decode", 4), ("serve", 2), ("train", 2)):
+        for name, model in (("decode", 4), ("serve", 2), ("train_tp", 2)):
             _check_held(f"18b {name}", out["checks"][name]["held_fraction"],
                         model)
     finally:
@@ -7120,9 +7248,12 @@ PLAN_KERNELS = ("bilinear", "ssd", "rglru")
 # four slots (a slot serves a second); and recurrentgemma's 2048-slot
 # rings wrapped at prefill (2100) and while decoding (2040).
 MAMBA2_LENGTHS = (16, 64, 100, 257, 600, 1000)
-# Phase 10 serves mamba2-2.7b at 32 of its 64 layers (full width): cut so
-# that phase 18 fits the run's time (17e trains it at all 64).
-MAMBA2_SERVE_LAYERS = 32
+# Phase 10 serves mamba2-2.7b at 16 of its 64 layers and phase 11
+# recurrentgemma-9b at 20 of its 38 (full width): cut (from 64, then 32;
+# from 38) so that phase 18 fits the run's time, the second time when
+# 18 (b) gained its FSDP steps (17e trains mamba2 at all 64).
+MAMBA2_SERVE_LAYERS = 16
+RECURRENTGEMMA_SERVE_LAYERS = 20
 RECURRENTGEMMA_LENGTHS = (2100, 2040, 64, 500)
 
 
@@ -7218,10 +7349,9 @@ def dryrun_phase(host, mesh_train):
     """Phase 19: (a) the host's count of qwen2-1.5b's single-pod cells
     (``host``, the process ``start_host_dryrun`` started), (b) the count of
     a bf16 train and decode step held against the same steps on the
-    card, (c) the count of phase 18 (b)'s tensor-parallel train step
-    (float32, its layers, 2 x 2, its batch) on a fake 2 x 2 group held
-    against rank 0's second step there (``mesh_train``: its launches and
-    peak)."""
+    card, (c) the count of phase 18 (b)'s FSDP train step (float32, its
+    layers, 2 x 2, its batch) on a fake 2 x 2 group held against rank 0's
+    second step there (``mesh_train``: its launches and peak)."""
     import numpy as np
     import torch
     from repro_torch import configs
@@ -7303,15 +7433,16 @@ def dryrun_phase(host, mesh_train):
     del steps
     torch.cuda.empty_cache()
 
-    # (c) Phase 18 (b)'s tensor-parallel step, counted as rank 0 of 2 x 2.
+    # (c) Phase 18 (b)'s FSDP step, counted as rank 0 of 2 x 2.
     out["mesh_train"] = mesh_train_count(cfg, mesh_train)
     return out
 
 
 def mesh_train_count(cfg, mesh_train):
-    """Phase 19 (c): phase 18 (b)'s tensor-parallel train step (``cfg`` at
-    ``MESH_QWEN2_LAYERS`` layers, float32, ``MESH_TRAIN``) counted as rank
-    0 of a fake 2 x 2 group, held against rank 0's second step there
+    """Phase 19 (c): phase 18 (b)'s train step (``cfg`` at
+    ``MESH_QWEN2_LAYERS`` layers, float32, ``MESH_TRAIN``; FSDP over the
+    data axis, tensor-parallel over the model axis) counted as rank 0 of a
+    fake 2 x 2 group, held against rank 0's second step there
     (``mesh_train``: its launches and its peak, arguments included):
     launches equal, peak within ``PEAK_REL_TOL``."""
     import torch
@@ -7332,11 +7463,15 @@ def mesh_train_count(cfg, mesh_train):
     out = dict(launches=card, counted_launches=counted, peak_bytes=peak,
                counted_peak_bytes=counted_peak, flops=count.flops,
                hbm_bytes=count.hbm_bytes, collective_bytes=count.totals()[2])
-    log(f"  tensor-parallel train step (float32, {MESH_QWEN2_LAYERS} layers, "
+    kinds = {}
+    for kind, _ in count.collectives:
+        kinds[kind] = kinds.get(kind, 0) + 1
+    out["collectives"] = kinds
+    log(f"  FSDP train step (float32, {MESH_QWEN2_LAYERS} layers, "
         f"2 x 2, rank 0): launches {card} (counted {counted}); peak "
         f"{peak / 1e9:.3f} GB (counted {counted_peak / 1e9:.3f} GB, "
         f"{(counted_peak - peak) / peak:+.2%}); counted {count.flops:.4e} "
-        f"FLOPs, {count.totals()[2]:.4e} collective bytes")
+        f"FLOPs, {count.totals()[2]:.4e} collective bytes in {kinds}")
     check(card == counted, f"the 2 x 2 step's counted launches {counted} "
           f"differ from rank 0's {card}")
     check(abs(counted_peak - peak) <= PEAK_REL_TOL * peak,
@@ -7550,14 +7685,16 @@ def main(argv=None) -> int:
             phase_done("mamba2", t0)
 
             # 11. Full-width recurrentgemma-9b.
-            log("== serve full-width recurrentgemma-9b (38 layers, float32; "
+            log("== serve full-width recurrentgemma-9b "
+                f"({RECURRENTGEMMA_SERVE_LAYERS} of its 38 layers, float32; "
                 "RG-LRU states, 2048-slot rings)")
             t0 = time.perf_counter()
             result["recurrentgemma"] = recurrent_phase(
                 "recurrentgemma-9b", 2304, RECURRENTGEMMA_LENGTHS, seed=8,
                 prefill_kernels=("matmul", "flash_attention", "rglru"),
                 decode_kernels=("matmul", "flash_decode", "rglru"),
-                profile=args.profile, chunking=(2100, 512))
+                profile=args.profile, chunking=(2100, 512),
+                layers=RECURRENTGEMMA_SERVE_LAYERS)
             phase_done("recurrentgemma", t0)
 
             # 14c. The paper's examples.
@@ -7664,6 +7801,11 @@ def main(argv=None) -> int:
                 by_path[name]["tensor-parallel serve (phase 18b), by rank"] = [
                     r[name] for r in
                     result["mesh"]["checks"]["serve"]["kernel_launches"]]
+            # Phase 18 (b)'s FSDP train step, rank 0's second step.
+            fsdp_step = result["mesh"]["checks"]["train"]["step2_launches"]
+            for name in ("matmul", "flash_attention"):
+                by_path[name]["FSDP train step (phase 18b), rank 0"] = \
+                    fsdp_step[name]
             line = kernels_line(rows, launches, by_path)
             result["kernels"] = line["kernels"]
         result["seconds"] = time.perf_counter() - t_start

@@ -10,6 +10,8 @@ collectives; the port runs the same bodies on one process a rank, with
 * ``all_gather(tiled=True)`` -> :func:`all_gather` (``all_gather_into_tensor``
   along dim 0, the gathered dim moved there and back);
 * ``ppermute`` -> :func:`permute` (``batch_isend_irecv``);
+* ``psum_scatter(tiled=True)`` -> :func:`reduce_scatter`
+  (``reduce_scatter_tensor`` along dim 0, moved as for the gather);
 * ``axis_index`` -> the rank's coordinate (``models/context.py``).
 
 Every rank must call the same collectives in the same order; nothing here
@@ -19,9 +21,10 @@ count (``roofline/count.py``) and moves nothing: no host staging, no
 transfer.
 
 gloo on CUDA tensors. gloo reduces and broadcasts CUDA tensors, but it has
-no CUDA all-gather and its point-to-point sends take host tensors. For
-those two, a CUDA tensor under a gloo group is copied through pinned host
-memory here, explicitly; the compute stays on the card. This is how several
+no CUDA all-gather or reduce-scatter and its point-to-point sends take
+host tensors. For those three, a CUDA tensor under a gloo group is copied
+through pinned host memory here, explicitly; the compute stays on the
+card. This is how several
 ranks share one card (NCCL cannot put two ranks on one GPU); in production
 NCCL runs every collective on the device.
 
@@ -36,7 +39,12 @@ each rank of a group computes the same loss from the group's sum, so
   weights it reads) is the identity forward and sums the ranks' partial
   cotangents backward;
 * :func:`mean_from_group` (the aux loss's ``pmean``) averages forward and
-  divides its cotangent by the group size backward.
+  divides its cotangent by the group size backward;
+* :func:`gather_from_group` (FSDP: a parameter's data blocks gathered
+  whole before use) all-gathers forward and reduce-scatters its cotangent
+  backward: each rank's whole-leaf cotangent is over its own rows, so the
+  sum of the ranks' cotangents of its block is its block's gradient over
+  the group's rows (the step divides it by the group size).
 
 A differentiable ``all_reduce`` whose backward is another all-reduce would
 count a replicated cotangent once a rank, the group size too often.
@@ -109,6 +117,35 @@ def all_gather(x: torch.Tensor, dim: int = 0, group=None) -> torch.Tensor:
         out = torch.empty((n * moved.shape[0],) + moved.shape[1:],
                           dtype=x.dtype, device=x.device)
         dist.all_gather_into_tensor(out, moved, group=group)
+    return out.movedim(0, dim).contiguous()
+
+
+def reduce_scatter(x: torch.Tensor, dim: int = 0,
+                   group=None) -> torch.Tensor:
+    """This rank's block of ``x`` summed over ``group``: ``dim`` cut into
+    the group's size of blocks in rank order, group rank ``r`` getting
+    block ``r`` of the ranks' sum (the reference's ``psum_scatter(
+    tiled=True)``). Raises when the group's size does not divide ``dim``."""
+    n = dist.get_world_size(group)
+    if n == 1:
+        return x.detach().clone()
+    moved = x.detach().movedim(dim, 0).contiguous()
+    if moved.shape[0] % n:
+        raise ValueError(f"a dim of {moved.shape[0]} does not split over "
+                         f"{n} ranks")
+    shape = (moved.shape[0] // n,) + moved.shape[1:]
+    if moved.is_meta:
+        out = moved.new_empty(shape)
+        _counted("reduce-scatter", out, group)
+        return out.movedim(0, dim).contiguous()
+    if _host_staged(x, group):
+        src = _to_host(moved)
+        out = torch.empty(shape, dtype=x.dtype, pin_memory=True)
+        dist.reduce_scatter_tensor(out, src, group=group)
+        out = out.to(x.device)
+    else:
+        out = torch.empty(shape, dtype=x.dtype, device=x.device)
+        dist.reduce_scatter_tensor(out, moved, group=group)
     return out.movedim(0, dim).contiguous()
 
 
@@ -192,6 +229,26 @@ def mean_from_group(x: torch.Tensor, group) -> torch.Tensor:
     """``pmean`` over ``group``; backward divides the cotangent by the
     group size."""
     return _MeanFromGroup.apply(x, group)
+
+
+class _GatherFromGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return all_gather(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_scatter(g, ctx.dim, ctx.group), None, None
+
+
+def gather_from_group(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The ranks' blocks ``x`` concatenated along ``dim`` (:func:`all_gather`);
+    backward, :func:`reduce_scatter` of the cotangent: this rank's block of
+    the ranks' summed cotangents. Outside grad mode, the gather alone."""
+    if not (torch.is_grad_enabled() and x.requires_grad):
+        return all_gather(x, dim, group)
+    return _GatherFromGroup.apply(x, dim, group)
 
 
 class _Permute(torch.autograd.Function):

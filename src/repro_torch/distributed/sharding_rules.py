@@ -16,11 +16,12 @@ first axis the slowest). :func:`shard_tree` cuts a whole tree into this
 rank's blocks and :func:`unshard_tree` gathers the blocks back (the
 checkpoint round trip).
 
-Tensor parallelism: the tree a rank holds its parameters in on a mesh is
-the model's (``models/api.py:tp_shardings``), built from each leaf's
-logical axes. FSDP (the ``data`` entries of :func:`param_shardings`) says
-where a block lives on disk and after an elastic restore; the step does
-not shard over ``data``.
+The tree a rank holds its parameters in on a mesh is the model's
+(``models/api.py:rank_shardings``), built from each leaf's logical axes:
+the model axis where the port computes a layer tensor-parallel, and with
+FSDP the data axis on the largest dim left (``models/context.py:data_dim``,
+:func:`param_spec`'s test). :func:`param_shardings` is the reference's
+rule, which the dry run's ``param_bytes_sharded`` reports.
 
 ``mesh`` is anything with the reference's ``shape`` (axis name -> size) and
 ``axis_names``: a ``launch.mesh.Mesh``, or a stub in the tests.
@@ -55,8 +56,22 @@ class NamedSharding:
             return ()
         return tuple(entry) if isinstance(entry, tuple) else (entry,)
 
+    @property
+    def axes(self) -> Tuple[str, ...]:
+        """The mesh axes the spec names, in the mesh's order: the groups a
+        leaf's blocks are spread over (``()``: whole on every rank)."""
+        named = {a for e in self.spec for a in self._entry_axes(e)}
+        return tuple(a for a in self.mesh.axis_names if a in named)
+
+    def _fits(self, ndim: int) -> None:
+        if len(self.spec) > ndim:
+            raise ValueError(f"spec {self.spec} names {len(self.spec)} dims; "
+                             f"the array has {ndim}")
+
     def shard_shape(self, shape) -> Tuple[int, ...]:
-        """This rank's block shape of an array of ``shape``."""
+        """This rank's block shape of an array of ``shape``. Raises when
+        the spec has more entries than the shape has dims."""
+        self._fits(len(shape))
         out = []
         for i, n in enumerate(shape):
             k = 1
@@ -66,8 +81,9 @@ class NamedSharding:
             out.append(n // k)
         return tuple(out)
 
-    def _block(self, i: int) -> Tuple[int, int]:
-        """(index, count) of this rank's block along dim ``i``."""
+    def _block(self, i: int, ndim: int) -> Tuple[int, int]:
+        """(index, count) of this rank's block along dim ``i`` of ``ndim``."""
+        self._fits(ndim)
         idx, cnt = 0, 1
         if i < len(self.spec):
             for a in self._entry_axes(self.spec[i]):
@@ -78,7 +94,7 @@ class NamedSharding:
     def local_block(self, x: torch.Tensor) -> torch.Tensor:
         """This rank's block of the whole array ``x`` (a copy)."""
         for i in range(x.dim()):
-            idx, cnt = self._block(i)
+            idx, cnt = self._block(i, x.dim())
             if cnt > 1:
                 n = x.shape[i] // cnt
                 x = x.narrow(i, idx * n, n)
@@ -87,10 +103,9 @@ class NamedSharding:
     def gather(self, block: torch.Tensor) -> torch.Tensor:
         """The whole array from every rank's ``block`` (collective over the
         axes the spec names; every rank gets it)."""
+        self._fits(block.dim())
         x = block
-        for i in range(block.dim()):
-            if i >= len(self.spec):
-                break
+        for i in range(len(self.spec)):
             axes = self._entry_axes(self.spec[i])
             # The last axis of a tuple entry is the fastest: gather it first.
             for a in reversed(axes):
@@ -103,14 +118,18 @@ def batch_axes_for(mesh) -> Tuple[str, ...]:
     return ("pod", "data") if "pod" in mesh.axis_names else ("data",)
 
 
-def make_context(mesh) -> DistContext:
+def make_context(mesh, fsdp: bool = True) -> DistContext:
+    """The model's view of ``mesh``. ``fsdp`` (the reference's default, on):
+    the parameters are also split over the data axis where it has more
+    than one rank (``context.data_dim``); False keeps them whole over it."""
     if mesh is None:
         return DistContext(mesh=None)
     if not (hasattr(mesh, "shape") and hasattr(mesh, "axis_names")
             and hasattr(mesh, "group")):
         raise TypeError(f"not a mesh: {mesh!r} (launch/mesh.py builds one "
                         "over a process group)")
-    return DistContext(mesh=mesh, batch_axes=batch_axes_for(mesh))
+    return DistContext(mesh=mesh, batch_axes=batch_axes_for(mesh),
+                       fsdp=fsdp)
 
 
 def param_spec(

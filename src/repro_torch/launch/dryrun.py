@@ -18,13 +18,16 @@ the port counts every layer as it runs, so :func:`exact_cost_terms` counts
 the full depth directly (:func:`probe_cost_terms` is the reference's
 method, kept to check the count against itself).
 
-Each rank holds its tensor-parallel blocks (``api.tp_shardings``:
-attention heads, FF columns, experts and vocabulary over the model axis)
-and computes the dense layers on them for its batch rows
-(``models/context.py``), so the counts are the port's per rank, the
-model-axis sums among the collectives; ``memory.param_bytes_sharded`` gives
-what the reference's FSDP shardings would leave a rank (the ``data`` axis
-too, not ported), beside the peak the port holds.
+Each rank holds its blocks (``api.rank_shardings``: attention heads, FF
+columns, experts and vocabulary over the model axis, and with FSDP, on by
+default as the reference's is, every decoder leaf's block over the data
+axis) and computes the dense layers on them for its batch rows
+(``models/context.py``), gathering each layer over the data group as it
+runs, so the counts are the port's per rank, the model-axis sums and the
+data axis's gathers and reduce-scatters among the collectives.
+``--no-fsdp`` counts the model split alone. ``memory.param_bytes_sharded``
+gives what the reference's shardings (``sharding_rules.param_shardings``)
+leave a rank, paired with the parameters by key.
 
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen2-1.5b --shape train_4k
@@ -139,13 +142,14 @@ def _storage_bytes(tree: Any) -> int:
 
 
 def _compile_step(cfg, shape, mesh, microbatches: int = 1,
-                  dtype=torch.bfloat16, opt_cfg=OPT_CFG
+                  dtype=torch.bfloat16, opt_cfg=OPT_CFG, fsdp: bool = True
                   ) -> Tuple[Count, Dict[str, int]]:
     """Build rank 0's step of the cell on its blocks and count it (the
     reference lowers and compiles it). ``dtype`` and ``opt_cfg``: the
-    parameters' and AdamW's (the production cells' bf16 by default).
+    parameters' and AdamW's (the production cells' bf16 by default);
+    ``fsdp``: the blocks over the data axis too (``make_context``).
     Returns (count, {"argument_bytes", "output_bytes"})."""
-    ctx = rules.make_context(mesh)
+    ctx = rules.make_context(mesh, fsdp=fsdp)
     params = S.abstract_params(cfg, dtype, ctx=ctx)
     if shape.kind == "train":
         opt = S.abstract_opt_state(params, opt_cfg)
@@ -209,15 +213,17 @@ def _probe_cfg(cfg, pattern, enc_layers: Optional[int] = None):
     return dataclasses.replace(cfg, **kw)
 
 
-def _terms_of(cfg, shape, mesh) -> Tuple[float, float, float]:
-    count, _ = _compile_step(cfg, shape, mesh)
+def _terms_of(cfg, shape, mesh, fsdp: bool = True
+              ) -> Tuple[float, float, float]:
+    count, _ = _compile_step(cfg, shape, mesh, fsdp=fsdp)
     return count.totals()
 
 
-def exact_cost_terms(cfg, shape, mesh) -> Dict[str, float]:
+def exact_cost_terms(cfg, shape, mesh, fsdp: bool = True
+                     ) -> Dict[str, float]:
     """FLOPs, HBM bytes and collective bytes of one rank's step, counted
     at full depth."""
-    f, b, c = _terms_of(cfg, shape, mesh)
+    f, b, c = _terms_of(cfg, shape, mesh, fsdp)
     return {"flops": f, "hbm_bytes": b, "collective_bytes": c}
 
 
@@ -250,17 +256,20 @@ def probe_cost_terms(cfg, shape, mesh) -> Dict[str, float]:
 
 def param_bytes_sharded(cfg, mesh, fsdp: bool = True) -> int:
     """Bytes of bf16 parameters a rank would hold under the reference's
-    shardings (``sharding_rules.param_shardings``, FSDP on)."""
+    shardings (``sharding_rules.param_shardings``, FSDP on), each leaf's
+    sharding paired with it by key (``init_tree`` sorts a dict's keys,
+    the shardings keep the definitions' order)."""
     params = S.abstract_params(cfg, torch.bfloat16)
     shards = rules.param_shardings(api.param_logical_axes(cfg), params, mesh,
                                    fsdp=fsdp)
-    total = 0
-    for t, sh in zip(tree_leaves(params), tree_leaves(shards)):
+
+    def nbytes(t, sh):
         n = 1
         for d in sh.shard_shape(tuple(t.shape)):
             n *= d
-        total += n * t.element_size()
-    return total
+        return n * t.element_size()
+
+    return sum(tree_leaves(rules._map2(nbytes, params, shards)))
 
 
 def lower_cell(arch: str, shape_name: str, multi_pod: bool,
@@ -281,7 +290,8 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool,
         # Phase A: the full-depth step at its microbatches: the memory
         # picture (and, at one microbatch, the terms too).
         t0 = time.time()
-        count, sizes = _compile_step(cfg, shape, mesh, microbatches=mb)
+        count, sizes = _compile_step(cfg, shape, mesh, microbatches=mb,
+                                     fsdp=fsdp)
         t_compile = time.time() - t0
         hw = PRODUCTION_TARGET
 
@@ -292,7 +302,7 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool,
             exact = dict(zip(("flops", "hbm_bytes", "collective_bytes"),
                              count.totals()))
         else:
-            exact = exact_cost_terms(cfg, shape, mesh)
+            exact = exact_cost_terms(cfg, shape, mesh, fsdp)
         t_probe = time.time() - t0
         sharded = param_bytes_sharded(cfg, mesh, fsdp=fsdp)
     terms = RA.terms(exact["flops"], exact["hbm_bytes"],

@@ -269,8 +269,8 @@ def decode_token_spec(cfg: ArchConfig, shape: ShapeSpec) -> torch.Tensor:
 
 def abstract_params(cfg: ArchConfig, dtype=torch.bfloat16, ctx=None):
     """The parameters as ``meta`` tensors (``api.init_params`` on meta:
-    nothing drawn); with a tensor-parallel ``ctx``, the blocks of its rank
-    (rank 0 in a dry run)."""
+    nothing drawn); with a ``ctx`` whose ranks hold blocks (tensor
+    parallelism, FSDP), the blocks of its rank (rank 0 in a dry run)."""
     from repro_torch.models import api
 
     return api.init_params(cfg, 0, dtype=dtype, device=META, ctx=ctx)

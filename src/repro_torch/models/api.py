@@ -24,10 +24,11 @@ live.
 
 ``ctx`` (a ``models/context.py`` ``DistContext``, as the reference threads
 it): on a mesh the batch given is this rank's rows
-(``sharding_rules.local_batch``). With more than one model rank the
-parameters are the rank's blocks (:func:`init_params` and
-``convert.params_from_jax`` take ``ctx`` and cut them to
-:func:`tp_shardings`), the attention, FF, embedding and head
+(``sharding_rules.local_batch``). With more than one model rank, or with
+FSDP over more than one data rank, the parameters are the rank's blocks
+(:func:`init_params` and ``convert.params_from_jax`` take ``ctx`` and cut
+them to :func:`rank_shardings`); the model gathers each layer's data
+blocks before using it, the attention, FF, embedding and head
 run tensor-parallel and the MoE layers expert-parallel, and a serve state
 holds the rank's KV heads (:func:`make_serve_state`); with
 ``flags.DECODE_ATTN_SHARDED`` :func:`decode_step` decodes every cache that
@@ -51,7 +52,7 @@ from repro_torch.distributed.sharding_rules import (
 from repro_torch.models import encdec as E
 from repro_torch.models import transformer as T
 from repro_torch.models.context import (
-    DistContext, local_range, tensor_parallel,
+    DistContext, data_dim, holds_blocks, local_range,
 )
 from repro_torch.models.layers import map_defs
 
@@ -81,10 +82,11 @@ def init_params(cfg: ArchConfig, seed: Union[int, torch.Generator] = 0,
     with the reference's distributions. On ``device="meta"``: empty
     tensors of the same shapes and dtypes, nothing drawn (the dry run's
     abstract parameters, ``launch/specs.py:abstract_params``). With a
-    tensor-parallel ``ctx``: the rank's blocks (:func:`tp_shardings`) of
-    the whole tree the same seed draws, each leaf cut as it is drawn, so
-    every mesh starts from the one-device parameters and a rank never
-    holds more than its blocks and one whole leaf."""
+    ``ctx`` whose ranks hold blocks (tensor parallelism, FSDP): the rank's
+    blocks (:func:`rank_shardings`) of the whole tree the same seed
+    draws, each leaf cut as it is drawn, so every mesh starts from the
+    one-device parameters and a rank never holds more than its blocks and
+    one whole leaf."""
     dev = resolve_device(device)
     if dev.type == "meta" or isinstance(seed, torch.Generator):
         gen = seed
@@ -93,7 +95,7 @@ def init_params(cfg: ArchConfig, seed: Union[int, torch.Generator] = 0,
     if is_encdec(cfg):
         return E.init_params(cfg, gen, dtype, dev)
     cut = None
-    if tensor_parallel(ctx):
+    if holds_blocks(ctx):
         def cut(d, x):
             sh = _leaf_sharding(d, ctx)
             return sh.local_block(x) if sh.spec else x
@@ -108,19 +110,25 @@ def param_defs(cfg: ArchConfig):
 
 
 def _leaf_sharding(d, ctx: DistContext) -> NamedSharding:
-    # The model axis on each dim whose logical axis the ranks split.
+    # The model axis on each dim whose logical axis the ranks split, the
+    # data axis on the dim FSDP picks.
     entries = [ctx.model_axis if local_range(ctx, ax, n) else None
                for ax, n in zip(d.axes, d.shape)]
+    i = data_dim(ctx, d.axes, d.shape)
+    if i is not None:
+        entries[i] = "data"
     return NamedSharding(ctx.mesh, P(*entries) if any(entries) else P())
 
 
-def tp_shardings(cfg: ArchConfig, ctx: DistContext):
+def rank_shardings(cfg: ArchConfig, ctx: DistContext):
     """The tree of ``NamedSharding`` a rank holds its parameters in on
     ``ctx``'s mesh: the model axis on each dim whose logical axis the
     model ranks split (``context.local_range``, the reference's
     ``param_spec(..., fsdp=False)`` on the axes the port computes
-    tensor-parallel), ``P()`` on every other leaf and on every leaf of an
-    encoder-decoder, which runs whole."""
+    tensor-parallel) and, with FSDP, the data axis on the dim
+    ``context.data_dim`` picks (``param_spec(..., fsdp=True)``'s on those
+    leaves); ``P()`` on every leaf of an encoder-decoder, which runs
+    whole."""
     if is_encdec(cfg):
         return map_defs(lambda d: NamedSharding(ctx.mesh, P()),
                         param_defs(cfg))
@@ -128,12 +136,12 @@ def tp_shardings(cfg: ArchConfig, ctx: DistContext):
 
 
 def shard_params(params, cfg: ArchConfig, ctx: Optional[DistContext]):
-    """This rank's blocks (:func:`tp_shardings`) of a whole parameter tree,
-    or of an AdamW moment tree of the same structure. Without tensor
-    parallelism, ``params`` itself."""
-    if not tensor_parallel(ctx):
+    """This rank's blocks (:func:`rank_shardings`) of a whole parameter
+    tree, or of an AdamW moment tree of the same structure. Where a rank
+    holds the whole tree, ``params`` itself."""
+    if not holds_blocks(ctx):
         return params
-    return shard_tree(params, tp_shardings(cfg, ctx))
+    return shard_tree(params, rank_shardings(cfg, ctx))
 
 
 def param_logical_axes(cfg: ArchConfig):
@@ -159,7 +167,8 @@ def train_loss(params, cfg: ArchConfig, batch: Dict[str, Any],
     sites as in serving. On CUDA tensors the FF GEMMs and the attention
     launch the matmul and flash-attention kernels forward and backward.
     Under tensor parallelism the head is the rank's vocabulary block and
-    the cross-entropy vocab-parallel (an encoder-decoder's stays whole)."""
+    the cross-entropy vocab-parallel (an encoder-decoder's stays whole);
+    under FSDP the head is gathered over the data group first."""
     tokens = _tokens(params, batch["tokens"])
     targets = _tokens(params, batch["targets"])
     if is_encdec(cfg):
@@ -179,7 +188,7 @@ def train_loss(params, cfg: ArchConfig, batch: Dict[str, Any],
         hidden, aux = out.hidden, out.aux_loss
         if patch is not None:
             hidden = hidden[:, patch.shape[1]:]
-        head = T.head_weight(params, cfg)
+        head = T.head_weight(params, cfg, ctx)
         loss_ctx = ctx
     ce = T.fused_lm_loss(head, hidden, targets, cfg, ctx=loss_ctx)
     loss = ce + aux
@@ -293,18 +302,20 @@ def prefill_chunk(params, cfg: ArchConfig, tokens, state, start: int,
 
 
 def prefill_packed(params, cfg: ArchConfig, tokens, states, layout,
-                   tiles: Tiles = None, impl: str = "auto"):
+                   tiles: Tiles = None, impl: str = "auto",
+                   ctx: Optional[DistContext] = None):
     """One packed step of several requests' chunked prefills.
 
     ``tokens`` [1, S_packed] concatenates one chunk per request, ``layout``
     the per-segment ``(start, len)`` pairs, ``states`` the matching serve
     states (continued in place). Each state advances as it would through
     :func:`prefill_chunk` alone. Returns (per-segment last-position logits
-    [N, Vpad], states).
+    [N, Vpad], states). ``ctx``: FSDP blocks, gathered layer by layer
+    (``transformer.forward_packed``).
     """
     _refuse_encdec(cfg, "packed prefill")
     return T.forward_packed(params, cfg, _tokens(params, tokens), states,
-                            tuple(layout), tiles=tiles, impl=impl)
+                            tuple(layout), tiles=tiles, impl=impl, ctx=ctx)
 
 
 # -- the paged pool ----------------------------------------------------------

@@ -11,13 +11,21 @@ process a rank):
 * with more than one model rank it holds its block of every leaf the
   reference's ``param_spec(..., fsdp=False)`` splits over the model axis
   among the attention, dense FF, MoE, ``embed`` and ``lm_head`` leaves
-  (``models/api.py:tp_shardings``), and computes those layers
+  (``models/api.py:rank_shardings``), and computes those layers
   Megatron-style on it: column-parallel in, row-parallel out, one sum over
   the model group a block (``distributed/collectives.py``). The blocks and
   every module's ranges come from :func:`local_range`, the logical axis
   alone deciding, so the rule lives once. The other leaves (norms, the
-  router, the recurrent mixers, the encoder-decoder) stay whole and are
-  computed whole on every rank;
+  router, the recurrent mixers, the encoder-decoder) stay whole over the
+  model axis and are computed whole on every rank;
+* with FSDP (``DistContext.fsdp``, on by default as the reference's is)
+  and more than one data rank, a rank also holds only its data block of
+  every decoder leaf, on the dim :func:`data_dim` picks (the reference's
+  ``param_spec(..., fsdp=True)`` test on the dims the model ranks leave
+  whole). The model gathers a layer's blocks over the data group before
+  it uses them and frees them after (``transformer.forward``); the
+  gather's backward reduce-scatters the gradients. The encoder-decoder
+  and GPipe's stage weights stay whole;
 * the expert-parallel MoE (``models/moe.py``) and the sequence-sharded
   decode (``models/attention.py``) run collectives over the model axis's
   process group, at the rank's coordinate (:meth:`DistContext.axis_index`,
@@ -59,6 +67,7 @@ class DistContext:
     mesh: Optional[Any] = None              # launch.mesh.Mesh
     batch_axes: Tuple[str, ...] = ("data",)   # axes sharding the batch dim
     model_axis: str = "model"                 # TP / EP axis
+    fsdp: bool = True                         # parameters split over data
     # Logical axis name -> mesh axis (None = replicated).
     rules: Tuple[Tuple[str, Optional[object]], ...] = (
         ("batch", None),        # filled from batch_axes by spec_for
@@ -169,3 +178,36 @@ def local_range(ctx: Optional[DistContext], axis: str, n: int
         return None
     i = ctx.model_index
     return i * (n // m), (i + 1) * (n // m)
+
+
+def data_sharded(ctx: Optional[DistContext]) -> bool:
+    """Whether FSDP splits the parameters over the data axis: on
+    (``ctx.fsdp``), on a mesh whose data axis has more than one rank."""
+    return (has_mesh(ctx) and ctx.fsdp
+            and ctx.mesh.shape.get("data", 1) > 1)
+
+
+def holds_blocks(ctx: Optional[DistContext]) -> bool:
+    """Whether a rank holds blocks of the parameters rather than the whole
+    tree: tensor parallelism or FSDP."""
+    return tensor_parallel(ctx) or data_sharded(ctx)
+
+
+def data_dim(ctx: Optional[DistContext], axes: Tuple[Optional[str], ...],
+             shape: Tuple[int, ...]) -> Optional[int]:
+    """The dim of a leaf (its logical ``axes``, its whole ``shape``) that
+    FSDP splits over the data axis, or None: of the dims the model axis
+    does not take (an axis of :data:`TP_AXES` that its size divides,
+    :func:`local_range`'s test, a model axis of one rank included), the
+    largest that the data ranks divide, the first of equals, as
+    ``param_spec(..., fsdp=True)`` picks. None without
+    :func:`data_sharded`."""
+    if not data_sharded(ctx):
+        return None
+    n, m = ctx.mesh.shape["data"], ctx.mesh.shape.get(ctx.model_axis, 1)
+    free = [i for i, (ax, k) in enumerate(zip(axes, shape))
+            if not (ax in TP_AXES and k % m == 0 and k >= m)]
+    for i in sorted(free, key=lambda i: -shape[i]):
+        if shape[i] % n == 0 and shape[i] >= n:
+            return i
+    return None

@@ -23,7 +23,7 @@ through this block can be captured in a CUDA graph.
 On a mesh with more than one model rank (``moe_forward(ctx=)``, the
 reference's ``_moe_forward_sharded``) the experts split over the model
 axis: model rank ``i`` holds its block of ``n_experts / n`` experts from
-``i * n_local`` (``api.tp_shardings``) and runs
+``i * n_local`` (``api.rank_shardings``) and runs
 :func:`moe_apply_local` on it over its batch rows; the shared experts split
 over ``ff`` inside the body (the rank's columns of ``shared_w1`` /
 ``shared_w3``, its rows of ``shared_w2``), as the reference's do; the
@@ -33,7 +33,9 @@ body's replicated inputs (the tokens and the router) enter through
 cotangents, and ``y`` leaves through ``sum_from_group``, whose backward
 passes the (replicated) cotangent through; a rank's expert blocks take
 their own gradients, so every rank ends with the one-device gradient of
-every weight it holds.
+every weight it holds. Under FSDP the expert leaves arrive gathered over
+the data group with the rest of their layer (``transformer.forward``),
+the counterpart of the reference body's all-gather over ``data``.
 """
 from __future__ import annotations
 

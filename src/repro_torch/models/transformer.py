@@ -44,6 +44,14 @@ vocabulary (outside autograd); the losses are vocab-parallel cross-entropy
 on the rank's logits block (:func:`_nll`). Padded vocabulary columns are
 masked by their global index.
 
+FSDP (``ctx`` with ``context.data_sharded``): each leaf is also the rank's
+block over the data axis (``context.data_dim``). :func:`forward` gathers a
+layer's blocks over the data group inside the function it checkpoints
+(:func:`_gathered_layer`), so the whole layer lives only while it runs and
+the backward's recompute gathers it again; ``embed``, the final norm,
+``lm_head`` and ``vit_proj`` are gathered where they are used. The gather's
+backward reduce-scatters the gradients (``collectives.gather_from_group``).
+
 Paged serving (``serve/pool.py``): :func:`make_paged_pool` makes the
 engine's page tensors, one ``k_pages`` / ``v_pages`` pair per attention
 layer, and ``make_caches(paged=True)`` a request's state, in which an
@@ -69,7 +77,9 @@ from repro_torch.models import flags
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.context import local_range
+from repro_torch.models.context import (
+    data_dim, data_sharded, local_range, tensor_parallel,
+)
 from repro_torch.models.layers import (
     ParamDef, act_fn, axes_tree, init_tree, layer_norm, maybe_checkpoint,
     rms_norm, softcap,
@@ -179,6 +189,36 @@ def model_defs(cfg: ArchConfig) -> Dict[str, Any]:
             "b": ParamDef((d,), (None,), init="zeros"),
         }
     return defs
+
+
+def _gather_blocks(p, defs, ctx):
+    """``p`` with every leaf that FSDP splits over the data axis gathered
+    whole over the data group, paired with its ``ParamDef`` in ``defs`` by
+    key (``collectives.gather_from_group``: under grad, its backward
+    reduce-scatters the leaf's gradient). Called under FSDP only
+    (:func:`data_sharded`), so that the one-device path builds no defs."""
+    group = ctx.group("data")
+
+    def walk(d, x):
+        if isinstance(d, ParamDef):
+            i = data_dim(ctx, d.axes, d.shape)
+            return x if i is None else collectives.gather_from_group(
+                x, i, group)
+        if isinstance(d, dict):
+            return {k: walk(d[k], x[k]) for k in d}
+        return [walk(a, b) for a, b in zip(d, x)]
+
+    return walk(defs, p)
+
+
+def _top(params, cfg: ArchConfig, names, ctx):
+    """The top-level entries ``names`` of ``params`` that it holds, gathered
+    over the data group under FSDP (:func:`_gather_blocks`)."""
+    if not data_sharded(ctx):
+        return {k: params[k] for k in names if k in params}
+    defs = model_defs(cfg)
+    return {k: _gather_blocks(params[k], defs[k], ctx)
+            for k in names if k in params}
 
 
 def init_params(cfg: ArchConfig, generator: torch.Generator,
@@ -437,7 +477,8 @@ def forward(
     sequence is P + S long. ``aux_loss`` sums the layers' MoE aux losses.
     ``remat`` checkpoints each layer when grad mode is on (training; it
     takes no caches). ``ctx`` (``models/context.py``): ``tokens`` are the
-    rank's rows of the batch and ``params`` the rank's blocks; the layers
+    rank's rows of the batch and ``params`` the rank's blocks; under FSDP
+    each layer is gathered over the data group as it runs; the layers
     run tensor-parallel, the MoE layers expert-parallel, the decode may run
     sequence-sharded over the mesh's model axis, and the logits come back
     whole (gathered over the vocabulary, outside autograd).
@@ -451,7 +492,8 @@ def forward(
     b, s = tokens.shape
     x = _embed(params, cfg, tokens, ctx)
     if patch_embeds is not None:
-        vp, pdt = params["vit_proj"], patch_embeds.dtype
+        vp = _top(params, cfg, ("vit_proj",), ctx)["vit_proj"]
+        pdt = patch_embeds.dtype
         pe = torch.matmul(patch_embeds, vp["w"].to(pdt)) + vp["b"].to(pdt)
         x = torch.cat([pe.to(x.dtype), x], dim=1)
         s = x.shape[1]
@@ -467,15 +509,16 @@ def forward(
         if pool is not None:
             lc = _with_pool(lc, pool[li], page_table)
         x, nc, aux = maybe_checkpoint(
-            remat and lc is None, layer_forward, params["layers"][li], cfg,
-            spec, x, positions, lc, decode, tiles=tiles, impl=impl,
+            remat and lc is None, _gathered_layer, params["layers"][li],
+            cfg, spec, x, positions, lc, decode, tiles=tiles, impl=impl,
             chunk_start=chunk_start, ctx=ctx)
         if aux is not None:
             aux_total = aux_total + aux
         if new_caches is not None:
             new_caches.append(caches[li] if pool is not None else nc)
 
-    x = _apply_norm(params, cfg, x, "final_norm")
+    x = _apply_norm(_top(params, cfg, _FINAL_NORM, ctx), cfg, x,
+                    "final_norm")
     if logits_mode == "hidden":
         return StackOutputs(logits=None, aux_loss=aux_total,
                             caches=new_caches, hidden=x)
@@ -488,11 +531,26 @@ def forward(
                         hidden=x)
 
 
+_FINAL_NORM = ("final_norm_w", "final_norm_b")
+
+
+def _gathered_layer(p, cfg: ArchConfig, spec: LayerSpec, *args, ctx=None,
+                    **kwargs):
+    """:func:`layer_forward` on the layer's blocks gathered over the data
+    group (:func:`_gather_blocks`): :func:`forward` checkpoints this whole
+    function, so the gathered layer is dropped after the forward and
+    gathered again by the recompute."""
+    if data_sharded(ctx):
+        p = _gather_blocks(p, layer_defs(cfg, spec), ctx)
+    return layer_forward(p, cfg, spec, *args, ctx=ctx, **kwargs)
+
+
 def _embed(params, cfg: ArchConfig, tokens, ctx=None):
     """The token embeddings (scaled where the config says). Vocab-parallel
     under tensor parallelism: the rank's rows of the table look up its
-    range's tokens, every other token looks up zeros, and the ranks sum."""
-    table = params["embed"]
+    range's tokens, every other token looks up zeros, and the ranks sum.
+    Under FSDP the table is gathered over the data group first."""
+    table = _top(params, cfg, ("embed",), ctx)["embed"]
     vocab = local_range(ctx, "vocab", cfg.padded_vocab)
     if vocab is None:
         x = table[tokens]
@@ -506,17 +564,20 @@ def _embed(params, cfg: ArchConfig, tokens, ctx=None):
     return x
 
 
-def head_weight(params, cfg: ArchConfig):
+def head_weight(params, cfg: ArchConfig, ctx=None):
     """The head ``[D, V]`` (the rank's columns under tensor parallelism):
-    the embedding matrix transposed when tied, else ``lm_head``."""
-    return params["embed"].t() if cfg.tie_embeddings else params["lm_head"]
+    the embedding matrix transposed when tied, else ``lm_head``; gathered
+    over the data group under FSDP."""
+    name = "embed" if cfg.tie_embeddings else "lm_head"
+    w = _top(params, cfg, (name,), ctx)[name]
+    return w.t() if cfg.tie_embeddings else w
 
 
 def _head(params, cfg: ArchConfig, x, ctx=None):
     # Tied head: the embedding matrix, transposed. A plain product, as the
     # reference leaves it to XLA; column-parallel under tensor parallelism,
     # each rank's columns gathered into whole logits.
-    head = head_weight(params, cfg)
+    head = head_weight(params, cfg, ctx)
     vocab = local_range(ctx, "vocab", cfg.padded_vocab)
     if vocab is not None:
         x = collectives.copy_to_group(x, ctx.model_group)
@@ -531,10 +592,12 @@ def _head(params, cfg: ArchConfig, x, ctx=None):
 
 def forward_packed(params, cfg: ArchConfig, tokens: torch.Tensor, states,
                    layout, tiles=None, impl: str = "auto", pool=None,
-                   page_tables=None):
+                   page_tables=None, ctx=None):
     """One packed step of several requests' prefill chunks (the reference's
     ``forward_packed``); with ``pool``, over the paged pool, each segment
-    through its own table in ``page_tables``.
+    through its own table in ``page_tables``. ``ctx``: FSDP blocks,
+    gathered as :func:`forward` gathers them; a pack runs on whole heads,
+    so a tensor-parallel ``ctx`` raises.
 
     ``tokens`` [1, S_packed] concatenates one chunk per request; ``layout``
     the per-segment ``(start, len)`` pairs, ``states`` the matching
@@ -552,7 +615,9 @@ def forward_packed(params, cfg: ArchConfig, tokens: torch.Tensor, states,
                          f"{len(states)} states")
     if sum(ln for _, ln in layout) != s:
         raise ValueError(f"layout {layout} does not cover {s} tokens")
-    x = _embed(params, cfg, tokens)
+    if tensor_parallel(ctx):
+        raise NotImplementedError("packed prefill runs on one model rank")
+    x = _embed(params, cfg, tokens, ctx)
     positions = torch.cat([start + torch.arange(ln, device=tokens.device)
                            for start, ln in layout])[None]
     for li, spec in enumerate(cfg.layers()):
@@ -560,13 +625,14 @@ def forward_packed(params, cfg: ArchConfig, tokens: torch.Tensor, states,
         if pool is not None:
             lc = tuple(_with_pool(c, pool[li], tbl)
                        for c, tbl in zip(lc, page_tables))
-        x, _, _ = layer_forward(params["layers"][li], cfg, spec, x,
-                                positions, lc, tiles=tiles, impl=impl,
-                                pack_layout=layout)
-    x = _apply_norm(params, cfg, x, "final_norm")
+        x, _, _ = _gathered_layer(params["layers"][li], cfg, spec, x,
+                                  positions, lc, tiles=tiles, impl=impl,
+                                  pack_layout=layout, ctx=ctx)
+    x = _apply_norm(_top(params, cfg, _FINAL_NORM, ctx), cfg, x,
+                    "final_norm")
     ends = torch.tensor([sum(ln for _, ln in layout[:i + 1]) - 1
                          for i in range(len(layout))], device=x.device)
-    return _head(params, cfg, x[0, ends]), tuple(states)
+    return _head(params, cfg, x[0, ends], ctx), tuple(states)
 
 
 # ---------------------------------------------------------------------------

@@ -14,10 +14,14 @@ writes the new parameters and moments into the given tensors (no second
 copy of a 1.5 B-parameter model on the card) and returns them with a new
 step counter.
 
-Under tensor parallelism a rank holds blocks of some leaves and the whole
-of the others; :func:`global_norm` (``split=``, ``group=``) then sums the
-blocks' squares over the model group and counts the whole leaves once, so
-every rank clips by the one-device norm and their blocks stay one model.
+On a mesh a rank holds blocks of some leaves (over the model axis, and
+with FSDP over the data axis) and the whole of the others;
+:func:`global_norm` (``split=``, ``group=``) then sums each leaf's squares
+over the group of exactly the mesh axes its blocks are spread over and
+counts the whole leaves once, so every rank clips by the one-device norm
+and their blocks stay one model. The update itself is elementwise, so it
+runs on a rank's blocks unchanged, its moments blocks like their
+parameters.
 """
 from __future__ import annotations
 
@@ -77,20 +81,25 @@ def init_state(params, cfg: AdamWConfig) -> Dict[str, Any]:
 
 
 def global_norm(tree, split=None, group=None) -> torch.Tensor:
-    """The L2 norm of every leaf of ``tree``. ``split`` (a bool per leaf,
-    true where ``api.tp_shardings`` names an axis): the leaves that are
-    this rank's blocks, whose squares are summed over ``group`` (the model
-    axis's); the others are whole on every rank and count once."""
+    """The L2 norm of every leaf of ``tree``. ``split``: a tree of the
+    same structure whose leaves are the mesh axes each leaf's blocks are
+    spread over (``NamedSharding.axes`` of ``api.rank_shardings``), paired
+    by key; ``group(axes)`` is the process group of those axes (a mesh's
+    ``group``). A leaf's squares are summed over the group of its axes;
+    a leaf with none is whole on every rank and counts once."""
     if split is None:
         return torch.sqrt(sum(torch.sum(torch.square(x.float()))
                               for x in tree_leaves(tree)))
-    parts = {True: [], False: []}             # by key, not by leaf order
-    tree_map(lambda x, f: parts[bool(f)].append(
+    parts: Dict[Tuple[str, ...], List[torch.Tensor]] = {}
+    tree_map(lambda x, axes: parts.setdefault(tuple(axes), []).append(
         torch.sum(torch.square(x.float()))), tree, split)
     zero = torch.zeros((), dtype=torch.float32,
                        device=tree_leaves(tree)[0].device)
-    blocks, whole = sum(parts[True], zero), sum(parts[False], zero)
-    return torch.sqrt(whole + collectives.all_reduce(blocks, "sum", group))
+    total = sum(parts.pop((), []), zero)
+    for axes in sorted(parts):          # one order on every rank
+        total = total + collectives.all_reduce(sum(parts[axes], zero),
+                                               "sum", group(axes))
+    return torch.sqrt(total)
 
 
 @torch.no_grad()
@@ -98,8 +107,8 @@ def apply_updates(params, grads, state, cfg: AdamWConfig, lr, split=None,
                   group=None
                   ) -> Tuple[Any, Dict[str, Any], Dict[str, torch.Tensor]]:
     """One AdamW step, in place. Returns (params, new_state, metrics).
-    ``split`` and ``group``: the clip's norm over a tensor-parallel rank's
-    blocks (:func:`global_norm`)."""
+    ``split`` and ``group``: the clip's norm over a rank's blocks
+    (:func:`global_norm`)."""
     gnorm = global_norm(grads, split, group)
     dev = gnorm.device
     f32 = torch.float32

@@ -13,14 +13,20 @@ loss is averaged.
 On a mesh (``ctx``, a ``DistContext``: the reference's second argument, a
 keyword here so that the one-device calls keep their form) the step is what
 each rank runs: ``batch`` is the rank's rows of the global batch
-(``sharding_rules.local_batch``); with more than one model rank the
-parameters, gradients and moments are the rank's blocks
-(``api.tp_shardings``: the dense layers tensor-parallel, the
-MoE layers expert-parallel) and the clip's norm sums the blocks over the
-model group (``adamw.global_norm``). The gradients and the loss are
-averaged over the batch axes' group before AdamW (a batch group shares a
-model coordinate, so it averages one block), so the loss is the global
-batch's mean and the ranks of one model coordinate take the same update.
+(``sharding_rules.local_batch``); with more than one model rank, or with
+FSDP over more than one data rank, the parameters, gradients and moments
+are the rank's blocks (``api.rank_shardings``: the dense layers
+tensor-parallel, the MoE layers expert-parallel, every decoder leaf's data
+block under FSDP) and the clip's norm sums each leaf's squares over the
+axes its blocks are spread over (``adamw.global_norm``). The loss and the
+gradients are averaged over the batch axes before AdamW, so the loss is
+the global batch's mean: a leaf whole over the data axis is all-reduced
+over the batch group (which shares a model coordinate, so it averages one
+block), so the ranks of one model coordinate take the same update; a
+data block comes out of the layer gather's backward already summed over
+the data group (a reduce-scatter), is divided by the batch group's size
+and, on a mesh with a pod axis, summed over the pod group first. The
+microbatches accumulate the blocks.
 :func:`make_serve_steps` is the reference's ``(prefill, decode)`` pair.
 """
 from __future__ import annotations
@@ -32,7 +38,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.distributed import collectives
 from repro_torch.models import api
-from repro_torch.models.context import DistContext, has_mesh, tensor_parallel
+from repro_torch.models.context import DistContext, has_mesh, holds_blocks
 from repro_torch.optim import adamw
 from repro_torch.optim.adamw import tree_leaves, tree_map
 
@@ -48,6 +54,11 @@ def make_grad_step(
     """``grad_step(params, batch) -> (metrics, grads)``: the train step
     before AdamW — the loss and its gradients over the microbatches, and on
     a mesh both averaged over the batch axes."""
+    data_split = None
+    if has_mesh(ctx):
+        data_split = tree_map(lambda sh: "data" in sh.axes,
+                              api.rank_shardings(cfg, ctx))
+
     def loss_and_grads(params, batch):
         live = tree_map(lambda p: p.detach().requires_grad_(True), params)
         loss, metrics = api.train_loss(live, cfg, batch, remat=remat,
@@ -77,25 +88,34 @@ def make_grad_step(
             grads = tree_map(lambda g: g / count.to(g.dtype), grads)
             metrics = {"loss": loss / count}
         if has_mesh(ctx):
-            metrics, grads = _batch_mean(metrics, grads, ctx)
+            metrics, grads = _batch_mean(metrics, grads, ctx, data_split)
         return metrics, grads
 
     return grad_step
 
 
-def _batch_mean(metrics, grads, ctx: DistContext):
+def _batch_mean(metrics, grads, ctx: DistContext, data_split):
     """The metrics and the gradients averaged over the batch axes' group
-    (each rank's are over its rows, equal in number)."""
+    (each rank's are over its rows, equal in number). ``data_split`` (a
+    bool a leaf, paired by key): the gradient is a data block, which the
+    layer gather's backward summed over the data group already; it is
+    summed over the other batch axes (a pod axis) only."""
     n = ctx.axis_size("batch")
     if n == 1:
         return metrics, grads
     group = ctx.group("batch")
+    rest = tuple(a for a in ctx.batch_axes if a != "data")
 
-    def mean(x):
+    def mean(x, data_block=False):
         count = torch.tensor(float(n), dtype=x.dtype, device=x.device)
-        return collectives.all_reduce(x, "sum", group) / count
+        if not data_block:
+            return collectives.all_reduce(x, "sum", group) / count
+        if rest:
+            x = collectives.all_reduce(x, "sum", ctx.mesh.group(rest))
+        return x / count
 
-    return ({k: mean(v) for k, v in metrics.items()}, tree_map(mean, grads))
+    return ({k: mean(v) for k, v in metrics.items()},
+            tree_map(mean, grads, data_split))
 
 
 def make_train_step(
@@ -110,16 +130,16 @@ def make_train_step(
 ):
     """``train_step(params, opt_state, batch)``; ``train_step.grad_step``
     is its :func:`make_grad_step`, and ``train_step.split`` /
-    ``train_step.group`` the clip's blocks and group (None without tensor
-    parallelism), for callers that split the step."""
+    ``train_step.group`` the clip's mesh axes a leaf and their groups
+    (``adamw.global_norm``; None where a rank holds the whole tree), for
+    callers that split the step."""
     lr_fn = lr_fn or (lambda step: torch.tensor(3e-4, dtype=torch.float32))
     grad_step = make_grad_step(cfg, microbatches, remat, accum_dtype, tiles,
                                ctx)
     split = group = None
-    if tensor_parallel(ctx):
-        split = tree_map(lambda sh: bool(sh.spec),
-                         api.tp_shardings(cfg, ctx))
-        group = ctx.model_group
+    if holds_blocks(ctx):
+        split = tree_map(lambda sh: sh.axes, api.rank_shardings(cfg, ctx))
+        group = ctx.mesh.group
 
     def train_step(params, opt_state, batch):
         metrics, grads = grad_step(params, batch)

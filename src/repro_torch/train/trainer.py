@@ -16,9 +16,10 @@ launch the matmul and flash-attention kernels, forward and backward.
 one Trainer a rank) runs the step of ``train/step.py`` on the mesh: every
 rank makes the global batch of the step and reads its rows
 (``sharding_rules.local_batch``), holds its blocks of the parameters and
-moments (``api.tp_shardings``; whole on a model axis of one
-rank), and takes the update averaged over the batch axes, so the ranks of
-one model coordinate hold the same blocks. Every rank calls the
+moments (``api.rank_shardings``: over the model axis where it has more
+than one rank, and with FSDP, the default, over the data axis where it
+has more than one), and takes the update averaged over the batch axes, so
+the ranks of one model coordinate hold one model between them. Every rank calls the
 checkpoint's save and restore with those shardings (the save gathers each
 leaf whole, a collective; the restore cuts each rank's blocks from the
 whole arrays on disk), and only rank 0 writes; before a restore every rank
@@ -104,7 +105,7 @@ class Trainer:
         self.cfg = cfg
         self._shardings = None
         if self.ctx is not None:
-            sh = api.tp_shardings(cfg, self.ctx)
+            sh = api.rank_shardings(cfg, self.ctx)
             self._shardings = {"params": sh,
                                "opt": rules.opt_state_shardings(sh, mesh)}
         self.data_cfg = data_cfg

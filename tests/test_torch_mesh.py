@@ -2,15 +2,19 @@
 
 Two rank groups run once for the module (``chip_smoke.run_mesh_group``,
 the program phase 18 runs on the card, here at smoke width on the CPU):
-four ranks, each on its tensor-parallel blocks — the sequence-sharded
+four ranks, each on its blocks (tensor-parallel over the model axis; the
+checks named FSDP below also over the data axis, the others with
+``fsdp=False``) — the sequence-sharded
 decode and the expert-parallel MoE on a 2 x 2 mesh, the smoke qwen2 served
-on 2 x 2 (a KV head a rank) and 1 x 4 (four query heads a rank, the two KV
-heads replicated) and the smoke gemma2 on 2 x 2 (ring caches, softcaps), a
-2 x 2 train step of the smoke qwen2 and of the smoke MoE, the trained
-parameters saved from their 2 x 2 blocks — then two of the same
+on 2 x 2 (a KV head a rank; and under FSDP) and 1 x 4 (four query heads a
+rank, the two KV heads replicated) and the smoke gemma2 on 2 x 2 (ring
+caches, softcaps), 2 x 2 train steps of the smoke qwen2 and of the smoke
+MoE on the model split alone and under FSDP, the trained FSDP blocks
+saved — then two of the same
 processes in a group of their own: the elastic restore onto a 1 x 2 mesh
 and one more step, GPipe over two stages, ``compress_psum``, a mesh
-Trainer. The rank programs import no JAX; they take the
+Trainer (FSDP over its two data ranks), the FSDP gather's gradient check
+in float64. The rank programs import no JAX; they take the
 reference's parameters (converted here, ``torch.save``d under the module's
 temporary folder) and write their results as ``.npz``; this process holds
 them against the reference on one device, as the reference's own tests do:
@@ -169,11 +173,15 @@ def groups(tmp_path_factory):
         ("decode", "decode", dict(
             cfg=dec_t, mesh=(2, 2), batch=B, prompt_len=S - 1, steps=1,
             max_len=S, params={"path": paths["decode"]}, token_seed=1,
-            teacher=True)),
+            teacher=True, fsdp=False)),
         ("decode", "serve", dict(
             cfg=q_t, mesh=(2, 2), batch=B, prompt_len=S - SERVE_STEPS,
             steps=SERVE_STEPS, max_len=S, params={"path": paths["train"]},
-            token_seed=8, teacher=True, sharded=False)),
+            token_seed=8, teacher=True, sharded=False, fsdp=False)),
+        ("decode", "serve_fsdp", dict(
+            cfg=q_t, mesh=(2, 2), batch=B, prompt_len=S - SERVE_STEPS,
+            steps=SERVE_STEPS, max_len=S, params={"path": paths["train"]},
+            token_seed=11, teacher=True, sharded=False)),
         ("decode", "serve_1x4", dict(
             cfg=q_t, mesh=(1, 4), batch=B, prompt_len=S - SERVE_STEPS,
             steps=SERVE_STEPS, max_len=S, params={"path": paths["train"]},
@@ -181,18 +189,31 @@ def groups(tmp_path_factory):
         ("decode", "serve_gemma2", dict(
             cfg=g_t, mesh=(2, 2), batch=B, prompt_len=S - SERVE_STEPS,
             steps=SERVE_STEPS, max_len=S, params={"path": paths["gemma2"]},
-            token_seed=10, teacher=True, sharded=False, ring_local=True)),
+            token_seed=10, teacher=True, sharded=False, ring_local=True,
+            fsdp=False)),
         ("moe", "moe", dict(cfg=moe_t, mesh=(2, 2), batch=B, seq=S,
                             params={"path": paths["moe"]}, token_seed=2)),
+        ("train", "train_tp", dict(
+            cfg=q_t, mesh=(2, 2), batch=B, seq=S, microbatches=2, steps=1,
+            lr=LR, params={"seed": 0}, data_seed=3, single=False,
+            fsdp=False)),
         ("train", "train", dict(
             cfg=q_t, mesh=(2, 2), batch=B, seq=S, microbatches=2, steps=2,
             lr=LR, params={"seed": 0}, data_seed=3)),
         ("train", "train_jax", dict(
             cfg=q_t, mesh=(2, 2), batch=B, seq=S, microbatches=2, steps=2,
             lr=LR, params={"path": paths["train"]}, data_seed=3,
-            single=False, keep=True)),
-        ("save", "save", dict(cfg=q_t, mesh=(2, 2), step=1, ckpt=ckpt)),
+            single=False, keep=True, fsdp=False)),
+        ("train", "train_jax_fsdp", dict(
+            cfg=q_t, mesh=(2, 2), batch=B, seq=S, microbatches=2, steps=2,
+            lr=LR, params={"path": paths["train"]}, data_seed=3,
+            single=False, keep=True, saved_as="train_jax_fsdp")),
+        ("save", "save", dict(step=1, ckpt=ckpt, trained="train_jax_fsdp")),
         ("train", "moe_train", dict(
+            cfg=moe_t, mesh=(2, 2), batch=B, seq=S, microbatches=1, steps=1,
+            lr=LR, params={"path": paths["moe"]}, data_seed=4,
+            single=False, keep=True, fsdp=False)),
+        ("train", "moe_train_fsdp", dict(
             cfg=moe_t, mesh=(2, 2), batch=B, seq=S, microbatches=1, steps=1,
             lr=LR, params={"path": paths["moe"]}, data_seed=4,
             single=False, keep=True)),
@@ -209,6 +230,8 @@ def groups(tmp_path_factory):
         ("trainer", "trainer", dict(cfg=q_t, mesh=(2, 1), steps=12, batch=B,
                                     seq=S, fail_at=7,
                                     ckpt=str(tmp / "trainer"))),
+        ("gather_grad", "gather_grad", dict(shape=(3, 8, 5), dim=1,
+                                            seed=12)),
     ]
     res = chip_smoke.run_mesh_group(4, four, tmp / "ranks", "cpu",
                                     timeout_s=240, then=(2, two))
@@ -228,7 +251,9 @@ def test_the_in_run_checks_pass(groups):
     path of the same ranks) hold on the CPU too."""
     out = chip_smoke.mesh_verdicts(groups["res"], LR)
     assert set(out) == {"decode", "serve", "serve_1x4", "serve_gemma2",
-                        "moe", "train", "elastic", "gpipe", "compress"}
+                        "serve_fsdp", "moe", "train", "train_tp", "elastic",
+                        "gather_grad", "gpipe", "compress"}
+    assert out["train"]["fsdp"]
 
 
 def test_sharded_flash_decode_matches_full(groups):
@@ -253,16 +278,18 @@ def test_sharded_flash_decode_matches_full(groups):
 
 
 @pytest.mark.parametrize("tag,kv_heads", [
-    ("serve", 1), ("serve_1x4", 1), ("serve_gemma2", None)])
+    ("serve", 1), ("serve_1x4", 1), ("serve_gemma2", None),
+    ("serve_fsdp", 1)])
 def test_tensor_parallel_serve_matches_full(groups, tag, kv_heads):
     """Teacher-forced decode steps on a rank's blocks against the
     reference's full forward at the same positions; a rank holds about
-    1 / model of the parameters and its own KV heads (the smoke qwen2's
-    two split over 2 ranks, replicated over 4: each reads one)."""
+    1 / model of the parameters (1 / 4 on 2 x 2 under FSDP, each layer
+    gathered as it runs) and its own KV heads (the smoke qwen2's two split
+    over 2 ranks, replicated over 4: each reads one)."""
     cfg_j, cfg_t = groups["gemma2" if "gemma2" in tag else "train"]
     tok = chip_smoke._mesh_tokens(
-        {"serve": 8, "serve_1x4": 9, "serve_gemma2": 10}[tag], (B, S),
-        cfg_t.vocab_size)
+        {"serve": 8, "serve_1x4": 9, "serve_gemma2": 10,
+         "serve_fsdp": 11}[tag], (B, S), cfg_t.vocab_size)
     full = np.asarray(jax_T.forward(_init(cfg_j), cfg_j, jnp.asarray(tok),
                                     remat=False).logits)
     ranks = groups["res"][tag]
@@ -276,7 +303,8 @@ def test_tensor_parallel_serve_matches_full(groups, tag, kv_heads):
         if kv_heads is not None:
             assert int(d["kv_heads"]) == kv_heads
         held = float(d["param_bytes"]) / float(d["ref_param_bytes"])
-        assert 1 / model < held < 1 / model + 0.05, held
+        split = 4 if tag == "serve_fsdp" else model
+        assert 1 / split < held < 1 / split + 0.05, held
 
 
 def test_moe_ep_sharded_matches_local(groups):
@@ -404,6 +432,99 @@ def test_train_step_on_a_2x2_mesh_matches_the_reference(groups, monkeypatch):
         assert len(same) == 2 and np.all(same == same[0])
 
 
+def _whole_bytes(d) -> int:
+    return sum(v.nbytes for k, v in d.items() if k.startswith("params/"))
+
+
+def _grads_of(d):
+    return {k[len("grads/"):]: v for k, v in d.items()
+            if k.startswith("grads/")}
+
+
+def test_fsdp_train_step_on_a_2x2_mesh_matches_the_reference(
+        groups, monkeypatch):
+    """The same step as the tensor-parallel one above, under FSDP: each
+    rank holds its data block of every leaf as well, gathers a layer
+    before use and reduce-scatters its gradients. Held to the same limits,
+    and to the model split's own step (losses 1e-6, gradients 1e-5); a
+    rank holds a quarter of the parameter bytes (limit 0.26)."""
+    cfg_j, cfg_t = groups["train"]
+    pj = _init(cfg_j)
+    batches = _batches(cfg_t, 2, 3)
+    ranks = groups["res"]["train_jax_fsdp"]
+    d = ranks[0]
+    assert bool(d["fsdp"])
+    _hold_grads(d, _port_flat(cfg_t, _jax_grads(cfg_j, pj, batches[0], 2)),
+                GRAD_REL_JAX)
+    params = torch.load(groups["paths"]["train"])
+    _hold_grads(d, _one_device_grads(cfg_t, params, batches[0], monkeypatch,
+                                     split_w2=True), GRAD_REL)
+    _hold_grads(d, _one_device_grads(cfg_t, params, batches[0], monkeypatch),
+                GRAD_REL_W2)
+    ocfg = jax_adamw.AdamWConfig()
+    step = jax.jit(jax_make_train_step(
+        cfg_j, None, ocfg, lr_fn=lambda s: jnp.asarray(LR, jnp.float32),
+        microbatches=2))
+    p, opt, losses = pj, jax_adamw.init_state(pj, ocfg), []
+    for b in batches:
+        p, opt, m = step(p, opt, {k: jnp.asarray(v) for k, v in b.items()})
+        losses.append(float(m["loss"]))
+    np.testing.assert_allclose(d["losses"][0], losses[0], rtol=LOSS_RTOL)
+    np.testing.assert_allclose(d["losses"], losses,
+                               rtol=LOSS_RTOL_AFTER_UPDATE)
+    for k, w in _port_flat(cfg_t, p).items():
+        assert float(np.abs(d[f"params/{k}"] - w).max()) <= 2 * LR, k
+    tp = groups["res"]["train_jax"][0]
+    np.testing.assert_allclose(d["losses"], tp["losses"], rtol=LOSS_RTOL)
+    _hold_grads(d, _grads_of(tp), GRAD_REL)
+    for r in ranks:
+        assert float(r["param_bytes"]) <= 0.26 * _whole_bytes(d)
+
+
+def test_fsdp_holds_a_quarter_and_the_model_split_half(groups):
+    """The in-run train checks' bytes: under FSDP a rank of 2 x 2 holds
+    0.25 (limit 0.26) of the parameters; on the model split alone, half."""
+    full = float(groups["res"]["train"][0]["ref_param_bytes"])
+    fsdp = [float(r["param_bytes"]) / full for r in groups["res"]["train"]]
+    tp = [float(r["param_bytes"]) / full for r in groups["res"]["train_tp"]]
+    assert all(0.25 < h <= 0.26 for h in fsdp), fsdp
+    assert all(0.5 < h <= 0.51 for h in tp), tp
+    assert not bool(groups["res"]["train_tp"][0]["fsdp"])
+
+
+def test_fsdp_moe_gradients_match_the_model_split(groups):
+    """The 2 x 2 MoE step under FSDP (the experts' data blocks gathered in
+    the layer gather, as the reference's body gathers them) against the
+    averaged data halves, as the model split's below, and against the
+    model split's own step: loss within 1e-6, gradients within 1e-5."""
+    cfg_j, cfg_t = groups["moe"]
+    pj = _init(cfg_j)
+    batch = _batches(cfg_t, 1, 4)[0]
+    halves = [_jax_grads(cfg_j, pj, {k: v[h * 2:(h + 1) * 2]
+                                     for k, v in batch.items()})
+              for h in range(2)]
+    d = groups["res"]["moe_train_fsdp"][0]
+    assert bool(d["fsdp"])
+    _hold_grads(d, _port_flat(cfg_t, jax.tree.map(lambda a, b: (a + b) / 2,
+                                                  *halves)), GRAD_REL_JAX)
+    tp = groups["res"]["moe_train"][0]
+    np.testing.assert_allclose(d["losses"], tp["losses"], rtol=LOSS_RTOL)
+    _hold_grads(d, _grads_of(tp), GRAD_REL)
+    for r in groups["res"]["moe_train_fsdp"]:
+        assert float(r["param_bytes"]) <= 0.26 * _whole_bytes(d)
+
+
+def test_the_fsdp_gather_reduce_scatters_its_gradient(groups):
+    """On two gloo ranks (float64): the gather is the ranks' blocks
+    exactly, and its gradient is this rank's block of the ranks' summed
+    cotangents, which ``reduce_scatter`` alone gives too."""
+    for d in groups["res"]["gather_grad"]:
+        assert bool(d["shaped"])
+        assert float(d["gather_err"]) == 0.0
+        assert float(d["grad_err"]) <= 1e-12 * float(d["scale"])
+        assert float(d["scatter_err"]) <= 1e-12 * float(d["scale"])
+
+
 def test_moe_expert_gradients_sum_over_the_model_axis(groups):
     """The 2 x 2 MoE step's gradients — the experts' owned by one model
     rank each, the router's and the tokens' partial on each — equal the
@@ -450,6 +571,17 @@ def test_elastic_restore_continues(groups):
         assert np.isfinite(float(d["loss"])) and float(d["moved"]) > 0
     losses = [float(d["loss"]) for d in groups["res"]["restore"]]
     assert losses[0] == losses[1]
+
+
+def test_elastic_restore_from_fsdp_blocks(groups):
+    """The save started from the 2 x 2 FSDP blocks (a quarter of the
+    parameters a rank); the 1 x 2 restore holds each rank's half of the
+    model split, exactly the saved arrays' blocks."""
+    for s_ in groups["res"]["save"]:
+        assert int(s_["held"]) <= 0.26 * int(s_["whole"])
+    for d in groups["res"]["restore"]:
+        assert bool(d["exact"]) and bool(d["shaped"])
+        assert 0.5 <= int(d["held"]) / int(d["whole"]) <= 0.51
 
 
 def test_trainer_on_a_mesh_restarts_and_matches_one_device(groups, tmp_path):

@@ -90,9 +90,9 @@ def test_block_shapes_are_the_references_model_specs(arch):
                 want = (rules.NamedSharding(mesh, spec).shard_shape(shape)
                         if _in_slice(k) and not encdec else shape)
                 assert tuple(got[k].shape) == want, (arch, m, k)
-    # The rule's blocks, leaf by leaf: ``tp_shardings`` names the model axis
+    # The rule's blocks, leaf by leaf: ``rank_shardings`` names the model axis
     # exactly where a leaf is cut.
-    sh = _flatten(api.tp_shardings(cfg, _ctx(16, 0)))
+    sh = _flatten(api.rank_shardings(cfg, _ctx(16, 0)))
     cut = _flatten(api.init_params(cfg, device="meta", ctx=_ctx(16, 0)))
     for k, t in whole.items():
         assert bool(sh[k].spec) == (tuple(cut[k].shape) != tuple(
@@ -322,13 +322,13 @@ def test_global_norm_sums_blocks_once(monkeypatch):
     want = adamw.global_norm(grads)
     group = _ThreadGroup(2)
     monkeypatch.setattr(adamw, "collectives", group)
-    split = adamw.tree_map(lambda sh: bool(sh.spec),
-                           api.tp_shardings(cfg, _ctx(2, 0)))
+    split = adamw.tree_map(lambda sh: sh.axes,
+                           api.rank_shardings(cfg, _ctx(2, 0)))
 
     def block(r):
         group.local.rank = r
         mine = api.shard_params(grads, cfg, _ctx(2, r))
-        return adamw.global_norm(mine, split, ("group", ("model",)))
+        return adamw.global_norm(mine, split, _Mesh(2, r).group)
 
     for got in _blocks(2, block):
         torch.testing.assert_close(got, want, rtol=1e-6, atol=0)

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Run chip_smoke's phase 18 (the mesh runtime) and phase 19 (c) (its
-tensor-parallel train step against the dry run's count) alone, on one
+FSDP train step against the dry run's count) alone, on one
 NVIDIA card: the quick way to iterate on the mesh without the whole run.
 
     python3 tools/mesh_phase.py [--rows] [--out chiprun_out/mesh_phase.json]
