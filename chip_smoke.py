@@ -78,7 +78,7 @@ Phases, each of which fails the run if it fails:
    measured, none skipped, and that the saved artifact resolves each cell
    exactly; then time all 16 tiles of the paper's Fig. 3 at every scale
    beside the paper's two GPUs as the cost model sees them;
-10. serve full-width mamba2-2.7b (16 of its 64 layers, float32, random
+10. serve full-width mamba2-2.7b (8 of its 64 layers, float32, random
    weights from seed 0; SSD states) through the captured engine at 4 slots and max_len
    1024: six requests of 16, 64, 100, 257, 600 and 1000 prompt tokens (a
    slot serves a second request), 16 new tokens each, held token by token
@@ -87,8 +87,8 @@ Phases, each of which fails the run if it fails:
    step); one request's prefill logits and four decode steps against the
    plain versions; prefill device ms at 600 and 1000 tokens; decode ms a
    step at 1 and 4 slots, eager beside captured;
-11. the same for full-width recurrentgemma-9b (20 of its 38 layers:
-   RG-LRU states, GeGLU FF, local attention at head_dim 256, six of the
+11. the same for full-width recurrentgemma-9b (11 of its 38 layers:
+   RG-LRU states, GeGLU FF, local attention at head_dim 256, three of the
    (rglru, rglru, local_attn) units and two rglru layers) at max_len 2304,
    so
    its local layers keep 2048-slot rings: prompts of 2100 (wraps at
@@ -285,7 +285,14 @@ Phases, each of which fails the run if it fails:
    gathered whole within 1e-5 of each leaf's max and the first clip norm
    within 1e-5 relative, gathered parameters within 2 x lr, a rank holding
    at most 0.26 of the parameter bytes and launching each kernel as often
-   as the one process) and the trained FSDP blocks saved; two ranks —
+   as the one process) and the trained FSDP blocks saved; the recurrent
+   mixers on their blocks: mamba2-2.7b at 2 layers served as qwen2 is
+   (its SSD heads split, B and C whole) and one FSDP train step (8 x 256,
+   2 microbatches; each leaf within 1e-5 of one process, or, where one
+   process summing as the batch ranks do moves the leaf further, within
+   twice that move), recurrentgemma-9b at 3 layers (one unit) served on
+   2 x 2 (its RG-LRU features split), each rank launching ssd / rglru as
+   often as one process and holding at most 0.51 of the bytes; two ranks —
    the restore onto 1 x 2 (blocks exact, each rank holding only its own)
    and one more tensor-parallel step, GPipe over two stages (loss within
    2e-4, gradients within 1e-4 of the sequential ones), ``compress_psum``
@@ -296,7 +303,9 @@ Phases, each of which fails the run if it fails:
    speed. Phase 3 holds flash_decode's log-sum-exp output
    (``return_lse``) against its plain version at the headline shape and at
    phase 18's slices, and times the headline call with and without it;
-   it times the three serving kernels at a tensor-parallel rank's shapes.
+   it times the three serving kernels at a tensor-parallel rank's shapes,
+   and ssd (40 and 5 heads) and rglru (2048 and 256 features) forward
+   and backward at S 4096.
 
 19. the dry run (last): (a) ``python -m repro_torch.launch.dryrun --arch
    qwen2-1.5b --single-pod --force`` on the host — a count of rank 0's
@@ -791,6 +800,7 @@ def kernel_checks(quick: bool):
     bilinear_checks(record, randn, dtypes, quick)
     ssd_checks(record, dtypes, quick)
     rglru_checks(record, dtypes, quick)
+    scan_tp_checks(record, dtypes, quick)
     bad = [r for r in rows if not r["ok"]]
     check(not bad, f"{len(bad)} kernel check(s) disagree with the plain "
                    f"version: {[(r['kernel'], r['case'], r['dtype']) for r in bad]}")
@@ -1536,6 +1546,149 @@ def rglru_checks(record, dtypes, quick: bool):
                     case += f" tile {tile[0]}x{tile[1]}"
                 record("rglru", case + " y", dname, y, yr, timing)
                 record("rglru", case + " h_last", dname, hl, hr)
+
+
+# A tensor-parallel rank's scan widths (phase 18 (b)): mamba2-2.7b's 80 SSD
+# heads and recurrentgemma-9b's 4096 RG-LRU features over 2 and 16 model
+# ranks.
+TP_SSD_HEADS = (40, 5)
+TP_RGLRU_FEATURES = (2048, 256)
+
+
+def scan_tp_checks(record, dtypes, quick: bool):
+    """The scans at a tensor-parallel rank's widths, S 4096: ssd at
+    ``TP_SSD_HEADS`` (P 64, N 128, the default chunk) and rglru at
+    ``TP_RGLRU_FEATURES`` (the default tile). Forward in both dtypes
+    (float32 timed beside its plain version and its bound); the backward
+    (``_SsdScanFn`` / ``_RglruScanFn``) in float32, each gradient against
+    autograd of the plain scan, the backward's kernels timed alone from a
+    forward's saved outputs against the plain backward (its forward's graph
+    kept). No PyTorch call computes either scan."""
+    if quick:
+        return
+    import torch
+
+    from repro_torch.kernels.rglru import ops as rg_ops
+    from repro_torch.kernels.ssd import ops as ssd_ops
+
+    s, p, n = 4096, 64, 128
+    for dname, dt in dtypes:
+        timed = dname == "float32"
+        for h in TP_SSD_HEADS:
+            prob = dict(s=s, h=h, p=p, n=n)
+            (q,) = ssd_ops.SPEC.default_tile(prob, dname)
+            ops_in = _ssd_operands(1, s, h, p, n, dt, seed=200 + h)
+            y, hl = ssd_ops.ssd_scan(*ops_in, chunk=q)
+            torch.cuda.synchronize()
+            yr, hr = ssd_ops.ssd_scan_ref(*ops_in, chunk=q)
+            timing = None
+            if timed:
+                nb = (sum(t.numel() for t in ops_in) + ops_in[1].numel()
+                      + ops_in[4].numel()) * ops_in[1].element_size()
+                copies = [_ssd_operands(1, s, h, p, n, dt, seed=300 + i)
+                          for i in range(copies_for(nb))]
+                t_b, by = bound(nb, ssd_ops.flops(q, prob), TC_RATE[dname])
+                timing = dict(
+                    ms=time_ms([lambda c=c: ssd_ops.ssd_scan(*c, chunk=q)
+                                for c in copies]),
+                    plain_ms=time_ms([lambda c=c: ssd_ops.ssd_scan_ref(
+                        *c, chunk=q) for c in copies], iters=4),
+                    library_ms=None, bound_ms=t_b, bound_by=by,
+                    shape=dict(b=1, s=s, h=h, p=p, n=n, chunk=q))
+                del copies
+            case = f"tp s={s} h={h} p={p} n={n}"
+            record("ssd", case + " y", dname, y, yr, timing)
+            record("ssd", case + " h_last", dname, hl, hr)
+            if timed:
+                _scan_tp_backward(record, "ssd", dict(h=h, p=p, n=n,
+                                                      chunk=q), s, dname, dt)
+        for f in TP_RGLRU_FEATURES:
+            tile = tuple(rg_ops.SPEC.default_tile(dict(s=s, f=f), dname))
+
+            def operands(seed):
+                g = torch.Generator(device="cuda").manual_seed(seed)
+                return (torch.rand((1, s, f), generator=g,
+                                   device="cuda").to(dt),
+                        torch.randn((1, s, f), generator=g,
+                                    device="cuda").to(dt),
+                        torch.randn((1, f), generator=g, device="cuda").to(dt))
+
+            a, x, h0 = operands(400 + f)
+            y, hl = rg_ops.rglru_scan(a, x, h0, tile=tile)
+            torch.cuda.synchronize()
+            yr, hr = rg_ops.rglru_scan_ref(a, x, h0)
+            timing = None
+            if timed:
+                nb = (3 * s * f + 2 * f) * x.element_size()
+                copies = [operands(500 + i) for i in range(copies_for(nb))]
+                t_b, by = bound(nb, rglru_flops(1, s, f), dname)
+                timing = dict(
+                    ms=time_ms([lambda c=c: rg_ops.rglru_scan(*c, tile=tile)
+                                for c in copies]),
+                    plain_ms=time_ms([lambda c=c: rg_ops.rglru_scan_ref(*c)
+                                      for c in copies[:1]], iters=2),
+                    library_ms=None, bound_ms=t_b, bound_by=by,
+                    shape=dict(b=1, s=s, f=f, tile=list(tile)))
+                del copies
+            case = f"tp s={s} f={f}"
+            record("rglru", case + " y", dname, y, yr, timing)
+            record("rglru", case + " h_last", dname, hl, hr)
+            if timed:
+                _scan_tp_backward(record, "rglru", dict(f=f), s, dname, dt)
+
+
+def _scan_tp_backward(record, kernel, width, s, dname, dt):
+    """One scan's backward at a rank's width (``scan_tp_checks``): each
+    gradient of sum(y w_y) + sum(h_last w_h) through the kernel path
+    against autograd of the plain scan's, recorded as ``<kernel>_bwd``
+    (the first with its times and bound)."""
+    import torch
+
+    from repro_torch.kernels.rglru import ops as rg_ops
+    from repro_torch.kernels.ssd import ops as ssd_ops
+
+    fn, plain = _scan_fns(kernel, width)
+    inputs, weights = _scan_grad_operands(kernel, width, s, dt, "cuda",
+                                          seed=600)
+    leaves, obj = _scan_objective(fn, inputs, weights)
+    got = torch.autograd.grad(obj, leaves)
+    p_leaves, p_obj = _scan_objective(plain, inputs, weights)
+    want = torch.autograd.grad(p_obj, p_leaves, retain_graph=True)
+    dy, dh = (w.to(dt) for w in weights)
+    eb = inputs[1].element_size()
+    if kernel == "ssd":
+        q = width["chunk"]
+        prob = dict(s=s, h=width["h"], p=width["p"], n=width["n"])
+        y, hl, h_in = ssd_ops._ssd_cuda(*inputs, q)
+
+        def bwd():
+            return ssd_ops.ssd_scan_backward(
+                *inputs, y, hl, h_in, dy, dh, q, ssd_ops._ssd_rev_cuda,
+                ssd_ops._ssd_bwd_cuda)
+        nb = (2 * sum(t.numel() for t in inputs) + y.numel() + hl.numel()
+              + dy.numel() + dh.numel()) * eb
+        t_b, by = bound(nb, ssd_ops.bwd_flops(q, prob), TC_RATE[dname])
+        names = ("log_a", "dtx", "B", "C", "h0")
+        shape = dict(b=1, s=s, **width)
+    else:
+        a, _, h0 = inputs
+        y, _ = rg_ops._rglru_cuda(*inputs)
+
+        def bwd():
+            return rg_ops._rglru_bwd_cuda(a, y, h0, dy, dh)
+        f = width["f"]
+        t_b, by = bound((5 * s * f + 3 * f) * eb, 4.0 * s * f, dname)
+        names = ("a", "x", "h0")
+        shape = dict(b=1, s=s, f=f)
+    timing = dict(ms=time_ms([bwd], iters=8),
+                  plain_ms=eager_ms(lambda: torch.autograd.grad(
+                      p_obj, p_leaves, retain_graph=True), iters=2,
+                      warmup=1),
+                  library_ms=None, bound_ms=t_b, bound_by=by, shape=shape)
+    label = ", ".join(f"{k}={v}" for k, v in width.items())
+    for i, (name, g, w) in enumerate(zip(names, got, want)):
+        record(f"{kernel}_bwd", f"tp s={s} {label} d{name}", dname, g, w,
+               timing if i == 0 else None)
 
 
 # ---------------------------------------------------------------------------
@@ -4730,15 +4883,16 @@ TRAIN_PEAK_LR = 3e-4
 # twice and its plain backward once.
 TRAIN_STEP_LAUNCHES = {"matmul": 28 * 12, "flash_attention": 28 * 2,
                        "flash_attention_bwd_plain": 28}
-# 17d: the 100M example, 30 steps at 8 x 256 tokens (cut from 100 so that
+# 17d: the 100M example, 20 steps at 8 x 256 tokens (cut from 100 so that
 # phase 18 fits the time limit, from 60 when phase 3's tensor-parallel
-# rows came, and from 40 when phase 18 (b) gained its FSDP steps; the loss
-# must still fall by more than 1.0), checkpoints every 15 (keep 2), a
-# failure injected at step 20, so the run restarts from step 15; the
+# rows came, from 40 when phase 18 (b) gained its FSDP steps, and from 30
+# when it gained the recurrent mixers; the loss must still fall by more
+# than 1.0), checkpoints every 10 (keep 2), a failure injected at step
+# 14, so the run restarts from step 10; the
 # replayed steps' losses and the final parameters must equal the
 # uninterrupted run's bit for bit (a step is deterministic and the
 # checkpoint holds params, moments and step).
-EXAMPLE_STEPS, EXAMPLE_EVERY, EXAMPLE_FAIL_AT = 30, 15, 20
+EXAMPLE_STEPS, EXAMPLE_EVERY, EXAMPLE_FAIL_AT = 20, 10, 14
 EXAMPLE_RESTORED = EXAMPLE_FAIL_AT // EXAMPLE_EVERY * EXAMPLE_EVERY
 # 17e (a): each scan's gradients at its model's full width: mamba2-2.7b's
 # SSD (H 80, P 64, N 128, its float32 chunk 64) and recurrentgemma-9b's
@@ -6013,10 +6167,15 @@ MESH_DECODE_REL = 1e-3       # decode logits, of max |logit|
 MESH_MOE_TOL = 2e-3          # logits, absolute and relative (the reference's)
 MESH_LOSS_REL = 1e-6
 MESH_GRAD_REL = 1e-5         # of each leaf's max |gradient|
+# A train check with a control (mamba2's): a leaf that reordering the
+# batch's sums alone moves past MESH_GRAD_REL (A_log, dt_bias and in_dt:
+# sums that cancel) is held within this many times that move.
+MESH_SPREAD = 2.0
 MESH_PIPE_LOSS_REL = 2e-4
 MESH_PIPE_GRAD_REL = 1e-4
 MESH_COMPRESS_SCALES = 3.0   # running mean within 3 quantization scales
 MESH_GATHER_REL = 1e-12      # the FSDP pair's gradient, float64, of its max
+MESH_MIXER_REL = 1e-5        # the mixers' collectives and blocks, of max
 # Full-width geometry of phase 18: qwen2-1.5b cut to 2 of its 28 layers
 # (18a too: each Trainer writes its final checkpoint, 19 GB at 28 layers,
 # and one call to the card may write 45 GiB in all; 4 layers put phase 18
@@ -6025,8 +6184,17 @@ MESH_GATHER_REL = 1e-12      # the FSDP pair's gradient, float64, of its max
 # two MoE layers).
 MESH_QWEN2_LAYERS = 2
 MESH_DEEPSEEK_LAYERS = 3
+# The recurrent mixers at full width: mamba2-2.7b at 2 of its 64 layers,
+# recurrentgemma-9b at 3 of its 38 (one unit: rglru, rglru, local_attn;
+# served only: its 256000 x 4096 embedding's gradients would cross gloo's
+# host staging every step).
+MESH_MAMBA2_LAYERS = 2
+MESH_RGEMMA_LAYERS = 3
 # 18b's 2 x 2 train step (phase 19 (c) counts the same step).
 MESH_TRAIN = dict(mesh=(2, 2), batch=8, seq=256, microbatches=2)
+# The kernels a served check counts a rank's launches of.
+MESH_SERVE_KERNELS = ("matmul", "flash_attention", "flash_decode", "ssd",
+                      "rglru")
 
 
 def _np32(t):
@@ -6144,7 +6312,7 @@ def _mesh_decode(rank, device, out_dir, state, *, cfg, mesh, batch,
             step_s.append(time.perf_counter() - t0)
             outs.append(logits)
         launches = np.array([build.LAUNCHES[k] - before[k]
-                             for k in SERVE_KERNELS])
+                             for k in MESH_SERVE_KERNELS])
         return (torch.stack(outs), torch.stack(picked), st,
                 build.LAUNCHES["flash_decode"] - decodes, step_s, launches)
 
@@ -6170,10 +6338,18 @@ def _mesh_decode(rank, device, out_dir, state, *, cfg, mesh, batch,
                 collectives.all_reduce = real
                 flags.set_perf(decode_sharded=False)
             kv = [c for c in st if "k" in c]
+            rec = [c for c in st if "k" not in c]
             res["sliced_layers"] = np.array(
                 sum("kv_pos" in c for c in kv))
-            res["s_loc"] = np.array(kv[0]["k"].shape[2])
-            res["kv_heads"] = np.array(kv[0]["k"].shape[1])
+            res["s_loc"] = np.array(kv[0]["k"].shape[2] if kv else 0)
+            res["kv_heads"] = np.array(kv[0]["k"].shape[1] if kv else 0)
+            # The rank's SSD heads or RG-LRU features in its first
+            # recurrent state, and every recurrent leaf's shape.
+            res["state_width"] = np.array(rec[0]["h"].shape[1] if rec
+                                          else 0)
+            res["state_shapes"] = np.array(json.dumps(
+                {k: list(t.shape) for k, t in rec[0].items()} if rec
+                else {}))
             res["logits"] = _np32(logits)
             res["tokens"] = picked.cpu().numpy()
             res["launches"] = np.array(launches)
@@ -6248,7 +6424,7 @@ def _train_batches(cfg, batch, seq, steps, seed):
 
 def _mesh_train(rank, device, out_dir, state, *, cfg, mesh, batch, seq,
                 microbatches, steps, lr, params, data_seed, single=True,
-                keep=False, fsdp=True, saved_as=None):
+                keep=False, fsdp=True, saved_as=None, control=False):
     """``steps`` mesh train steps on the rank's blocks (this rank's rows;
     with ``fsdp``, the default, its data blocks too, each layer gathered
     as it runs and its gradients reduce-scattered; gradients averaged over
@@ -6256,13 +6432,20 @@ def _mesh_train(rank, device, out_dir, state, *, cfg, mesh, batch, seq,
     ``single``, rank 0's one-process steps on the global batch from the
     same whole parameters, held against the first step's gradients and
     the last parameters gathered whole (``unshard_tree``, collective), the
-    losses and the first step's clip norm. Rank 0 also writes its second
-    step's kernel launches (and the one process's) and its peak bytes
+    losses and the first step's clip norm. Every rank writes its first
+    step's kernel launches; rank 0 also its second step's (and the one
+    process's, both) and its peak bytes
     above what it held before the step plus the step's arguments (the dry
     run's count of the same step, phase 19). With ``saved_as``, the
     trained blocks, their shardings and the parameters gathered whole are
     kept in the rank's state under that key for ``_mesh_save``. With
-    ``keep``, rank 0's gathered arrays are written."""
+    ``keep``, rank 0's gathered arrays are written. With ``control`` (and
+    ``single``), rank 0 also holds the first step's gradients against one
+    process that sums them as the batch ranks do
+    (:func:`_batch_split_grads`), and that control against the plain
+    one-process step, leaf by leaf: what reordering the sums alone moves
+    (``mesh_verdicts`` holds each leaf within ``MESH_SPREAD`` times that
+    spread where it exceeds the bound)."""
     import numpy as np
     import torch
 
@@ -6291,15 +6474,19 @@ def _mesh_train(rank, device, out_dir, state, *, cfg, mesh, batch, seq,
         opt = adamw.init_state(p, opt_cfg)
         step = make_train_step(cfg, opt_cfg, lr_fn, microbatches, ctx=c)
         losses, norms, times, grads, second = [], [], [], None, {}
+        first = {}
         for i, b in enumerate(batches):
             _sync(device)
             t0 = time.perf_counter()
             if i == 0 and need_grads:
                 # The step's two halves, to keep its averaged gradients.
+                before = dict(build.LAUNCHES)
                 m, g = step.grad_step(p, feed(b))
                 p, opt, om = adamw.apply_updates(
                     p, g, opt, opt_cfg, lr_fn(opt["step"]),
                     split=step.split, group=step.group)
+                first = {k: build.LAUNCHES[k] - before[k] for k in before
+                         if build.LAUNCHES[k] != before[k]}
                 m = dict(m, **om)
                 whole = _flat(gather(g))         # collective: every rank
                 if rank == 0:
@@ -6318,12 +6505,14 @@ def _mesh_train(rank, device, out_dir, state, *, cfg, mesh, batch, seq,
             losses.append(float(m["loss"]))
             norms.append(float(m["grad_norm"]))
             times.append(time.perf_counter() - t0)
-        return p, grads, np.array(losses), np.array(norms), times, second
+        return (p, grads, np.array(losses), np.array(norms), times, first,
+                second)
 
-    p, grads, losses, norms, times, second = run(
+    p, grads, losses, norms, times, first, second = run(
         ctx, lambda b: rules.local_batch(b, ctx),
         lambda t: rules.unshard_tree(t, sh))
     res["fsdp"] = np.array(fsdp)
+    res["step1_launches"] = np.array(json.dumps(first))
     res["losses"] = losses
     res["grad_norms"] = norms
     res["step_ms"] = np.array(statistics.median(times) * 1e3)
@@ -6349,9 +6538,11 @@ def _mesh_train(rank, device, out_dir, state, *, cfg, mesh, batch, seq,
         res.update({f"grads/{k}": v for k, v in grads.items()})
         res.update({f"params/{k}": _np32(v) for k, v in _flat(whole).items()})
     if single and rank == 0:
-        q, g1, l1, n1, _, second1 = run(None, lambda b: b, lambda t: t)
+        q, g1, l1, n1, _, first1, second1 = run(None, lambda b: b,
+                                                lambda t: t)
         res["ref_losses"] = l1
         res["ref_param_bytes"] = np.array(_tree_bytes(q))
+        res["ref_step1_launches"] = np.array(json.dumps(first1))
         if second1:
             res["ref_step2_launches"] = np.array(json.dumps(
                 second1["launches"]))
@@ -6362,14 +6553,59 @@ def _mesh_train(rank, device, out_dir, state, *, cfg, mesh, batch, seq,
         res["norm_rel"] = np.array(abs(norms[0] - n1[0]) / abs(n1[0]))
         rels = {k: _grad_rel(grads[k], g1[k]) for k in g1}
         res["grad_rel"] = np.array(max(rels.values()))
+        res["grad_rels"] = np.array(json.dumps(rels))
         res["grad_worst"] = np.array(", ".join(
-            f"{k} {rels[k]:.2e}" for k in sorted(rels, key=rels.get)[-3:]))
+            f"{k} {rels[k]:.2e}" for k in sorted(rels, key=rels.get)[-6:]))
         mine = _flat(whole)
         res["param_diff"] = np.array(max(float((mine[k] - v).abs().max())
                                          for k, v in _flat(q).items()))
-        del q, g1
+        del q
+        if control:
+            ctl = _batch_split_grads(cfg, params, device, batches[0],
+                                     ctx.axis_size("batch"), microbatches)
+            rels = {k: _grad_rel(grads[k], ctl[k]) for k in ctl}
+            res["grad_rel_control"] = np.array(max(rels.values()))
+            res["control_worst"] = np.array(", ".join(
+                f"{k} {rels[k]:.2e}"
+                for k in sorted(rels, key=rels.get)[-6:]))
+            rels = {k: _grad_rel(ctl[k], g1[k]) for k in g1}
+            res["control_rel"] = np.array(max(rels.values()))
+            res["control_rels"] = np.array(json.dumps(rels))
+            res["control_plain_worst"] = np.array(", ".join(
+                f"{k} {rels[k]:.2e}"
+                for k in sorted(rels, key=rels.get)[-6:]))
+            del ctl
+        del g1
     del grads
     return res
+
+
+def _batch_split_grads(cfg, params, device, batch, ranks: int,
+                       microbatches: int):
+    """One process's gradients of ``batch`` summed in the order a mesh of
+    ``ranks`` batch ranks sums them: each rank's rows one microbatch at a
+    time (``make_grad_step`` without a mesh, at the rank's batch), the
+    microbatches summed a rank, then the ranks, over their count. A sum
+    that cancels (mamba2's ``A_log`` and ``dt_bias`` gradients) moves with
+    that order alone; a fault does not hide behind it."""
+    import torch
+
+    from repro_torch.optim.adamw import tree_map
+    from repro_torch.train.step import make_grad_step
+
+    p = _mesh_params(params, cfg, device)
+    step = make_grad_step(cfg, 1)
+    rows = len(batch["tokens"]) // ranks
+    total = None
+    for r in range(ranks):
+        mine = {k: v[r * rows:(r + 1) * rows] for k, v in batch.items()}
+        part = None
+        for m in range(microbatches):
+            _, g = step(p, {k: v[m::microbatches] for k, v in mine.items()})
+            part = g if part is None else tree_map(torch.add, part, g)
+        total = part if total is None else tree_map(torch.add, total, part)
+    n = ranks * microbatches
+    return {k: _np32(v / n) for k, v in _flat(total).items()}
 
 
 def _mesh_save(rank, device, out_dir, state, *, step, ckpt, trained):
@@ -6617,6 +6853,162 @@ def _mesh_gather_grad(rank, device, out_dir, state, *, shape, dim, seed):
     }
 
 
+def _mesh_mixer_grads(rank, device, out_dir, state, *, shape, seed,
+                      ssm_cfg, rglru_cfg):
+    """The recurrent mixers' model-axis collectives on this group (a 1 x n
+    mesh), on float64 host tensors (the scan kernels take no float64; the
+    norms and the SSD discretisation compute in float32, as the model's
+    do), each against one process's arithmetic on every rank's arrays:
+
+    * ``collectives.sum_scatter_from_group`` of each rank's ``x_r``
+      (``shape``, [..., 2, F]) along the last dim: forward the rank's block
+      of the ranks' sum, and the gradient of ``sum(w_r * y_r)`` the ranks'
+      ``w`` gathered; beside it the broken pair, ``sum_from_group`` and a
+      slice, whose gradient misses every other rank's block;
+    * ``ssm._split_rms_norm`` over the rank's columns of a whole ``x``:
+      forward and the gradient of ``sum(c * out)`` against
+      ``layers.rms_norm`` of the whole, and the same norm summed with
+      ``sum_from_group`` (backward passes each rank's partial cotangent);
+    * one SSD block of ``ssm_cfg`` and one RG-LRU block of ``rglru_cfg`` on
+      the rank's blocks (``api.rank_shardings``) against the whole block:
+      outputs, and every parameter's gradient (the rank's block of the
+      whole gradient) and the input's, relative to each one's max; for the
+      SSD block also with B and C not entering through ``copy_to_group``
+      and with the broken norm."""
+    import types
+    from unittest import mock
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.distributed import collectives
+    from repro_torch.distributed import sharding_rules as rules
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import api
+    from repro_torch.models import rglru as rglru_mod
+    from repro_torch.models import ssm as ssm_mod
+    from repro_torch.models.layers import rms_norm
+    from repro_torch.optim.adamw import tree_leaves, tree_map
+
+    n = dist.get_world_size()
+    group = dist.group.WORLD
+    res = {}
+
+    def draw(r, which, size):
+        rng = np.random.default_rng([seed, r, which])
+        return torch.from_numpy(rng.standard_normal(size))
+
+    def err(a, b):
+        return float((a - b).abs().max())
+
+    # (a) The reduce-scatter whose backward all-gathers.
+    fb = shape[-1] // n
+    xs = [draw(r, 0, shape) for r in range(n)]
+    ws = [draw(r, 1, shape[:-1] + (fb,)) for r in range(n)]
+    x = xs[rank].clone().requires_grad_(True)
+    y = collectives.sum_scatter_from_group(x, -1, group)
+    (grad,) = torch.autograd.grad((y * ws[rank]).sum(), x)
+    want = torch.cat(ws, -1)
+    x2 = xs[rank].clone().requires_grad_(True)
+    y2 = collectives.sum_from_group(x2, group)[..., rank * fb:
+                                              (rank + 1) * fb]
+    (broken,) = torch.autograd.grad((y2 * ws[rank]).sum(), x2)
+    res.update(
+        rs_fwd_err=np.array(err(y.detach(), sum(xs)[..., rank * fb:
+                                                   (rank + 1) * fb])),
+        rs_grad_err=np.array(err(grad, want)),
+        rs_slice_grad_err=np.array(err(broken, want)),
+        rs_scale=np.array(float(want.abs().max())))
+
+    # (b) The norm over the whole width, its mean of squares summed.
+    d = 4 * n
+    xw, ww, cw = draw(n, 2, (3, 5, d)), draw(n, 3, (d,)), draw(n, 4,
+                                                                 (3, 5, d))
+    whole = xw.clone().requires_grad_(True)
+    out = rms_norm(whole, ww, 1e-6)
+    (g_whole,) = torch.autograd.grad((out * cw).sum(), whole)
+    cols = slice(rank * d // n, (rank + 1) * d // n)
+
+    def split_norm(sums):
+        part = xw[..., cols].clone().requires_grad_(True)
+        with mock.patch.object(ssm_mod, "collectives", sums):
+            o = ssm_mod._split_rms_norm(part, ww[cols], 1e-6, d, group)
+        (g,) = torch.autograd.grad((o * cw[..., cols]).sum(), part)
+        return o.detach(), g
+
+    o, g = split_norm(collectives)
+    _, g_plain = split_norm(types.SimpleNamespace(
+        sum_partials=collectives.sum_from_group))
+    res.update(
+        norm_fwd_err=np.array(err(o, out.detach()[..., cols])),
+        norm_grad_err=np.array(err(g, g_whole[..., cols])),
+        norm_plain_grad_err=np.array(err(g_plain, g_whole[..., cols])),
+        norm_scale=np.array(float(g_whole.abs().max())))
+
+    # (c) Whole blocks on the rank's blocks.
+    ctx = rules.make_context(make_local_mesh(1, n, device="cpu"), fsdp=False)
+
+    def block_rels(cfg, key, forward, shim=None):
+        mixer = {"ssm": "ssd", "rglru": "rglru"}[key]
+        li = next(i for i, s_ in enumerate(cfg.layers()) if s_.mixer == mixer)
+        p = tree_map(lambda t: t.double(), api.init_params(
+            cfg, seed, device="cpu")["layers"][li][key])
+        sh = api.rank_shardings(cfg, ctx)["layers"][li][key]
+        xin = draw(n, 5, (2, 8, cfg.d_model))
+        c = draw(n, 6, (2, 8, cfg.d_model))
+
+        def grads(params, c_, **kw):
+            live = tree_map(lambda t: t.clone().requires_grad_(True), params)
+            xl = xin.clone().requires_grad_(True)
+            y_, _ = forward(live, cfg, xl, **kw)
+            gs = torch.autograd.grad((y_ * c_).sum(),
+                                     [xl] + tree_leaves(live))
+            it = iter(gs[1:])
+            return y_.detach(), gs[0], tree_map(lambda _: next(it), live)
+
+        y_w, gx_w, gp_w = grads(p, c)
+        blocks = rules.shard_tree(p, sh)
+        with mock.patch.object(ssm_mod, "collectives",
+                               shim or collectives):
+            y_r, gx_r, gp_r = grads(blocks, c, ctx=ctx)
+        want_blocks = rules.shard_tree(gp_w, sh)
+        rels = [err(gx_r, gx_w) / float(gx_w.abs().max())]
+        rels += [err(a, b) / max(float(b.abs().max()), 1e-300) for a, b in
+                 zip(tree_leaves(gp_r), tree_leaves(want_blocks))]
+        return err(y_r, y_w) / float(y_w.abs().max()), max(rels)
+
+    res["ssm_fwd_rel"], res["ssm_grad_rel"] = map(np.array, block_rels(
+        ssm_cfg, "ssm", ssm_mod.ssm_forward))
+    res["rglru_fwd_rel"], res["rglru_grad_rel"] = map(np.array, block_rels(
+        rglru_cfg, "rglru", rglru_mod.rglru_forward))
+    _, res["ssm_bc_grad_rel"] = map(np.array, block_rels(
+        ssm_cfg, "ssm", ssm_mod.ssm_forward, _FirstCopyOnly(collectives)))
+    _, res["ssm_norm_grad_rel"] = map(np.array, block_rels(
+        ssm_cfg, "ssm", ssm_mod.ssm_forward, types.SimpleNamespace(
+            copy_to_group=collectives.copy_to_group,
+            sum_from_group=collectives.sum_from_group,
+            sum_partials=collectives.sum_from_group)))
+    return res
+
+
+class _FirstCopyOnly:
+    """``collectives`` whose ``copy_to_group`` passes only its first call of
+    every three through (an SSD block's ``x``), leaving B and C out: the
+    broken block of ``_mesh_mixer_grads``."""
+
+    def __init__(self, real):
+        self.real, self.calls = real, 0
+
+    def copy_to_group(self, x, group):
+        self.calls += 1
+        return (self.real.copy_to_group(x, group) if self.calls % 3 == 1
+                else x)
+
+    def __getattr__(self, name):
+        return getattr(self.real, name)
+
+
 def _mesh_trainer(rank, device, out_dir, state, *, cfg, mesh, steps, batch,
                   seq, fail_at, ckpt):
     """``Trainer.run`` on a mesh, one Trainer a rank, with an injected
@@ -6652,7 +7044,8 @@ MESH_CHECKS = {"decode": _mesh_decode, "moe": _mesh_moe,
                "train": _mesh_train, "save": _mesh_save,
                "restore": _mesh_restore, "gpipe": _mesh_gpipe,
                "compress": _mesh_compress, "trainer": _mesh_trainer,
-               "gather_grad": _mesh_gather_grad}
+               "gather_grad": _mesh_gather_grad,
+               "mixer_grads": _mesh_mixer_grads}
 
 
 def mesh_rank_program(rank: int, world: int, plan):
@@ -6776,7 +7169,7 @@ def _serve_verdict(name, ranks, sharded: bool):
               f"{name} logits off by {err:.3e} on rank {r} "
               f"(max |logit| {scale:.3e})")
         check(np.array_equal(d["kernel_launches"], d["ref_kernel_launches"]),
-              f"{name}: rank {r} launched {SERVE_KERNELS} "
+              f"{name}: rank {r} launched {MESH_SERVE_KERNELS} "
               f"{d['kernel_launches'].tolist()} times, the one-process path "
               f"{d['ref_kernel_launches'].tolist()}")
         if sharded:
@@ -6790,10 +7183,10 @@ def _serve_verdict(name, ranks, sharded: bool):
                 for d in ranks),
         scale=max(float(np.abs(d["ref_logits"]).max()) for d in ranks),
         launches=[int(d["launches"]) for d in ranks],
-        kernel_launches=[dict(zip(SERVE_KERNELS,
+        kernel_launches=[dict(zip(MESH_SERVE_KERNELS,
                                   d["kernel_launches"].tolist()))
                          for d in ranks],
-        ref_kernel_launches=dict(zip(SERVE_KERNELS,
+        ref_kernel_launches=dict(zip(MESH_SERVE_KERNELS,
                                      d0["ref_kernel_launches"].tolist())),
         kv_heads=int(d0["kv_heads"]), s_loc=int(d0["s_loc"]),
         held_fraction=held,
@@ -6808,7 +7201,7 @@ def _serve_verdict(name, ranks, sharded: bool):
         peak_bytes=[int(d["peak_bytes"]) for d in ranks])
     log(f"  {name}: tokens equal on {len(ranks)} ranks, logits within "
         f"{out['err']:.3e} (max |logit| {out['scale']:.3e}); a rank's "
-        f"{SERVE_KERNELS} launches {d0['kernel_launches'].tolist()} = the "
+        f"{MESH_SERVE_KERNELS} launches {d0['kernel_launches'].tolist()} = the "
         f"one-process path's {d0['ref_kernel_launches'].tolist()}; KV heads "
         f"a rank {out['kv_heads']}, cache rows {out['s_loc']}; collectives "
         f"{out['collectives_step']:.0f} a step taking "
@@ -6859,8 +7252,11 @@ def mesh_verdicts(res, lr: float):
             f"rank {[round(x / 1e9, 3) for x in out['moe']['param_bytes']]} "
             f"of {out['moe']['ref_param_bytes'] / 1e9:.3f} whole")
         log(_rank_line("moe", ranks))
-    if "train" in res:
-        ranks = res["train"]
+    # Each train check held against one process (``single``): qwen2's
+    # ("train", phase 19 (c) counts it) and the mixers'.
+    for tag in sorted(t for t in res if t.startswith("train")
+                      and "loss_rel" in res[t][0]):
+        ranks = res[tag]
         d = ranks[0]
         sums = d["param_abs_sums"]            # [rank, (sum, model index)]
         for mi in set(sums[:, 1].tolist()):
@@ -6872,22 +7268,24 @@ def mesh_verdicts(res, lr: float):
         held = [float(r["param_bytes"]) / float(d["ref_param_bytes"])
                 for r in ranks]
         fsdp = bool(d["fsdp"])
-        launches = json.loads(str(d["step2_launches"]))
-        ref_launches = json.loads(str(d["ref_step2_launches"]))
-        out["train"] = dict(fsdp=fsdp, losses=d["losses"].tolist(),
-                            ref_losses=d["ref_losses"].tolist(),
-                            grad_norms=d["grad_norms"].tolist(),
-                            ref_grad_norms=d["ref_grad_norms"].tolist(),
-                            norm_rel=float(d["norm_rel"]),
-                            loss_rel=lrel, grad_rel=grel, param_diff=pdiff,
-                            held_fraction=held,
-                            step2_peak_bytes=int(d["step2_peak_bytes"]),
-                            step2_launches=launches,
-                            ref_step2_launches=ref_launches,
-                            step_ms=[float(r["step_ms"]) for r in ranks],
-                            wall_ms=[float(r["wall_ms"]) for r in ranks],
-                            peak_bytes=[int(r["peak_bytes"]) for r in ranks])
-        log(f"  mesh train ({'FSDP and ' if fsdp else ''}tensor-parallel): "
+        # The second step's launches, or the first's in a one-step check.
+        which = "step2" if "step2_launches" in d else "step1"
+        launches = json.loads(str(d[f"{which}_launches"]))
+        ref_launches = json.loads(str(d[f"ref_{which}_launches"]))
+        out[tag] = dict(fsdp=fsdp, losses=d["losses"].tolist(),
+                        ref_losses=d["ref_losses"].tolist(),
+                        grad_norms=d["grad_norms"].tolist(),
+                        ref_grad_norms=d["ref_grad_norms"].tolist(),
+                        norm_rel=float(d["norm_rel"]),
+                        loss_rel=lrel, grad_rel=grel, param_diff=pdiff,
+                        held_fraction=held,
+                        step2_peak_bytes=int(d.get("step2_peak_bytes", 0)),
+                        **{f"{which}_launches": launches,
+                           f"ref_{which}_launches": ref_launches},
+                        step_ms=[float(r["step_ms"]) for r in ranks],
+                        wall_ms=[float(r["wall_ms"]) for r in ranks],
+                        peak_bytes=[int(r["peak_bytes"]) for r in ranks])
+        log(f"  {tag} ({'FSDP and ' if fsdp else ''}tensor-parallel): "
             f"losses {d['losses'].tolist()} "
             f"vs one process {d['ref_losses'].tolist()} (relative "
             f"{lrel:.3e}), gathered gradients within {grel:.3e} of a leaf's "
@@ -6896,17 +7294,45 @@ def mesh_verdicts(res, lr: float):
             f"{float(d['grad_norms'][0]):.6f} vs "
             f"{float(d['ref_grad_norms'][0]):.6f} (relative "
             f"{float(d['norm_rel']):.3e}), blocks equal by "
-            f"model coordinate, step ms {out['train']['step_ms']}; a rank "
+            f"model coordinate, step ms {out[tag]['step_ms']}; a rank "
             f"holds {[round(h, 5) for h in held]} of the parameter bytes "
             f"({float(d['ref_param_bytes']) / 1e9:.3f} GB whole); "
-            f"rank 0's second step: launches {launches} (one process "
-            f"{ref_launches}), peak "
-            f"{out['train']['step2_peak_bytes'] / 1e9:.3f} GB")
-        log(_rank_line("train", ranks))
+            f"rank 0's {which}: launches {launches} (one process "
+            f"{ref_launches})" + (f", peak {int(d['step2_peak_bytes']) / 1e9:.3f}"
+                                  " GB" if which == "step2" else ""))
+        log(_rank_line(tag, ranks))
         check(lrel <= MESH_LOSS_REL, f"mesh train losses {d['losses']} vs "
               f"{d['ref_losses']} (relative {lrel:.3e})")
-        check(grel <= MESH_GRAD_REL, f"mesh gradients off by {grel:.3e} of "
-              "a leaf's max")
+        if "control_rels" in d:
+            # Each leaf within the bound of one process, or, where
+            # reordering the batch's sums alone (the control) moves the
+            # leaf further, within MESH_SPREAD times that move.
+            rels = json.loads(str(d["grad_rels"]))
+            spread = json.loads(str(d["control_rels"]))
+            limit = {k: max(MESH_GRAD_REL, MESH_SPREAD * spread[k])
+                     for k in rels}
+            wide = sorted(k for k in rels if limit[k] > MESH_GRAD_REL)
+            over = {k: (rels[k], spread[k]) for k in rels
+                    if rels[k] > limit[k]}
+            out[tag].update(grad_rel_control=float(d["grad_rel_control"]),
+                            control_rel=float(d["control_rel"]),
+                            spread_leaves={k: (rels[k], spread[k])
+                                           for k in wide})
+            log(f"  {tag}: one process summing as the batch ranks do lies "
+                f"{float(d['control_rel']):.3e} of a leaf's max from the "
+                f"plain step (worst: {d['control_plain_worst']}), the mesh "
+                f"{float(d['grad_rel_control']):.3e} from it (worst: "
+                f"{d['control_worst']}); {len(wide)} of {len(rels)} leaves "
+                f"move past {MESH_GRAD_REL:g} by the reorder alone, held "
+                f"within {MESH_SPREAD:g}x their move: " + ", ".join(
+                    f"{k} {rels[k]:.2e} (move {spread[k]:.2e})"
+                    for k in wide))
+            check(not over, f"{tag} gradients off one process past the "
+                  f"bound and past {MESH_SPREAD:g}x the reorder's move "
+                  f"(leaf: mesh, move): {over}")
+        else:
+            check(grel <= MESH_GRAD_REL, f"mesh gradients off by {grel:.3e} "
+                  "of a leaf's max")
         nrel = float(d["norm_rel"])
         check(nrel <= MESH_GRAD_REL, f"mesh clip norm {d['grad_norms'][0]} "
               f"vs one process {d['ref_grad_norms'][0]} (relative "
@@ -6995,6 +7421,20 @@ def mesh_verdicts(res, lr: float):
             f"within {out['gather_grad']['grad_err']:.3e}, reduce-scatter "
             f"within {out['gather_grad']['scatter_err']:.3e} of the ranks' "
             f"summed cotangent's block (float64)")
+    if "mixer_grads" in res:
+        ranks = res["mixer_grads"]
+        worst = {k: max(float(d[k]) / float(d[scale]) if scale else
+                        float(d[k]) for d in ranks)
+                 for k, scale in (("rs_grad_err", "rs_scale"),
+                                  ("norm_grad_err", "norm_scale"),
+                                  ("ssm_grad_rel", None),
+                                  ("rglru_grad_rel", None))}
+        for k, v in worst.items():
+            check(v <= MESH_MIXER_REL, f"the mixers' collectives: {k} "
+                  f"{v:.3e} (limit {MESH_MIXER_REL:g})")
+        out["mixer_grads"] = worst
+        log("  mixer collectives: " + ", ".join(
+            f"{k} {v:.3e}" for k, v in worst.items()))
     if "gpipe" in res:
         ranks = res["gpipe"]
         d0 = ranks[0]
@@ -7173,6 +7613,20 @@ def mesh_phase():
               ("train", "train", dict(cfg=qwen2, lr=lr, saved_as="train",
                                       **four["train"])),
               ("save", "save", dict(step=1, ckpt=ckpt, trained="train"))]
+        # The recurrent mixers on their blocks (after the save, which frees
+        # the qwen2 train check's parameters): the serves on the model split
+        # alone, mamba2's train step under FSDP.
+        mamba2 = _first_layers(configs.get_arch("mamba2-2.7b"),
+                               MESH_MAMBA2_LAYERS)
+        rgemma = _first_layers(configs.get_arch("recurrentgemma-9b"),
+                               MESH_RGEMMA_LAYERS)
+        g4 += [("decode", "serve_mamba2", dict(
+                   cfg=mamba2, **dict(four["serve"], token_seed=18))),
+               ("train", "train_mamba2", dict(
+                   cfg=mamba2, lr=lr, control=True,
+                   **dict(four["train"], steps=1, data_seed=19))),
+               ("decode", "serve_rglru", dict(
+                   cfg=rgemma, **dict(four["serve"], token_seed=20)))]
         g2 = [("restore", "restore", dict(cfg=qwen2, lr=lr, ckpt=ckpt,
                                           **two["restore"])),
               ("gpipe", "gpipe", dict(cfg=qwen2, **two["gpipe"])),
@@ -7187,9 +7641,12 @@ def mesh_phase():
             "prompts, 8 greedy steps), EP MoE (deepseek-moe-16b, 3 layers, "
             f"2 x 2), mesh train steps (qwen2-1.5b, {MESH_QWEN2_LAYERS} "
             "layers, 2 x 2: one on the model split alone, two under FSDP), "
-            "the save of the FSDP blocks; then two of them — elastic "
-            "restore onto 1 x 2 and one step, GPipe over two stages, "
-            "compress_psum")
+            "the save of the FSDP blocks, the recurrent mixers on their "
+            f"blocks (mamba2-2.7b, {MESH_MAMBA2_LAYERS} layers, 2 x 2: a "
+            "serve as qwen2's and one FSDP train step; recurrentgemma-9b, "
+            f"{MESH_RGEMMA_LAYERS} layers, 2 x 2: a serve); then two of "
+            "them — elastic restore onto 1 x 2 and one step, GPipe over two "
+            "stages, compress_psum")
         t0 = time.perf_counter()
         res = run_mesh_group(4, g4, tmp / "ranks", "cuda", then=(2, g2))
         log(f"  [18b ranks: {time.perf_counter() - t0:.1f} s]; slowest rank "
@@ -7201,9 +7658,19 @@ def mesh_phase():
         got = out["checks"]["decode"]["launches"]
         check(all(n == want for n in got), f"the sharded decode launched "
               f"flash_decode {got} times by rank; {want} expected")
-        for name, model in (("decode", 4), ("serve", 2), ("train_tp", 2)):
+        for name, model in (("decode", 4), ("serve", 2), ("train_tp", 2),
+                            ("serve_mamba2", 2), ("serve_rglru", 2)):
             _check_held(f"18b {name}", out["checks"][name]["held_fraction"],
                         model)
+        # The mixers' kernels ran on every rank, as often as one process.
+        for tag, kernel in (("serve_mamba2", "ssd"), ("serve_rglru", "rglru"),
+                            ("train_mamba2", "ssd")):
+            c = out["checks"][tag]
+            got = ([r[kernel] for r in c["kernel_launches"]]
+                   if "kernel_launches" in c else [c["step1_launches"].get(
+                       kernel, 0)])
+            check(all(n > 0 for n in got), f"18b {tag}: {kernel} launched "
+                  f"{got} times by rank")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return out
@@ -7248,12 +7715,13 @@ PLAN_KERNELS = ("bilinear", "ssd", "rglru")
 # four slots (a slot serves a second); and recurrentgemma's 2048-slot
 # rings wrapped at prefill (2100) and while decoding (2040).
 MAMBA2_LENGTHS = (16, 64, 100, 257, 600, 1000)
-# Phase 10 serves mamba2-2.7b at 16 of its 64 layers and phase 11
-# recurrentgemma-9b at 20 of its 38 (full width): cut (from 64, then 32;
-# from 38) so that phase 18 fits the run's time, the second time when
-# 18 (b) gained its FSDP steps (17e trains mamba2 at all 64).
-MAMBA2_SERVE_LAYERS = 16
-RECURRENTGEMMA_SERVE_LAYERS = 20
+# Phase 10 serves mamba2-2.7b at 8 of its 64 layers and phase 11
+# recurrentgemma-9b at 11 of its 38 (full width): cut (from 64, then 32,
+# then 16; from 38, then 20) so that phase 18 fits the run's time, the
+# second time when 18 (b) gained its FSDP steps, the third when it gained
+# the recurrent mixers' checks (17e trains mamba2 at all 64).
+MAMBA2_SERVE_LAYERS = 8
+RECURRENTGEMMA_SERVE_LAYERS = 11
 RECURRENTGEMMA_LENGTHS = (2100, 2040, 64, 500)
 
 
@@ -7806,6 +8274,17 @@ def main(argv=None) -> int:
             for name in ("matmul", "flash_attention"):
                 by_path[name]["FSDP train step (phase 18b), rank 0"] = \
                     fsdp_step[name]
+            # The mixers on their blocks in phase 18 (b): each serve by
+            # rank, mamba2's FSDP train step (forward and backward calls).
+            mesh_checks = result["mesh"]["checks"]
+            for tag, name in (("serve_mamba2", "ssd"),
+                              ("serve_rglru", "rglru")):
+                by_path[name]["tensor-parallel serve (phase 18b), by rank"] \
+                    = [r[name] for r in mesh_checks[tag]["kernel_launches"]]
+            by_path["ssd"]["FSDP train step (phase 18b), rank 0"] = {
+                k: v for k, v in
+                mesh_checks["train_mamba2"]["step1_launches"].items()
+                if k.startswith("ssd")}
             line = kernels_line(rows, launches, by_path)
             result["kernels"] = line["kernels"]
         result["seconds"] = time.perf_counter() - t_start

@@ -44,10 +44,22 @@ each rank of a group computes the same loss from the group's sum, so
   whole before use) all-gathers forward and reduce-scatters its cotangent
   backward: each rank's whole-leaf cotangent is over its own rows, so the
   sum of the ranks' cotangents of its block is its block's gradient over
-  the group's rows (the step divides it by the group size).
+  the group's rows (the step divides it by the group size);
+* :func:`sum_scatter_from_group` (a row-parallel product whose output a
+  column-parallel op continues: the RG-LRU gates, ``xa`` on the rank's
+  rows of ``wr`` / ``wi``) reduce-scatters forward, each rank keeping its
+  block of the ranks' partial sums, and all-gathers its cotangent
+  backward: the transpose of :func:`gather_from_group`. A
+  :func:`sum_from_group` and a slice would hand each rank only its own
+  block's cotangent;
+* :func:`sum_partials` (the ranks' partial sums of a quantity that every
+  rank then uses for its own block alone: the mean of squares of the SSD
+  block's gated norm over its whole ``d_inner``) all-reduces forward and
+  backward, since each rank's cotangent of the sum is partial too.
 
 A differentiable ``all_reduce`` whose backward is another all-reduce would
-count a replicated cotangent once a rank, the group size too often.
+count a replicated cotangent once a rank, the group size too often: only
+:func:`sum_partials` has one, for a cotangent that is not replicated.
 """
 from __future__ import annotations
 
@@ -249,6 +261,49 @@ def gather_from_group(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     if not (torch.is_grad_enabled() and x.requires_grad):
         return all_gather(x, dim, group)
     return _GatherFromGroup.apply(x, dim, group)
+
+
+class _SumScatterFromGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return reduce_scatter(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather(g, ctx.dim, ctx.group), None, None
+
+
+def sum_scatter_from_group(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """This rank's block along ``dim`` of the ranks' partial sums ``x``
+    (:func:`reduce_scatter`); backward, :func:`all_gather` of the blocks'
+    cotangents: every rank's partial sum feeds every block. Outside grad
+    mode, the reduce-scatter alone."""
+    dim = dim % x.dim()
+    if not (torch.is_grad_enabled() and x.requires_grad):
+        return reduce_scatter(x, dim, group)
+    return _SumScatterFromGroup.apply(x, dim, group)
+
+
+class _SumPartials(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_reduce(x, "sum", group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, "sum", ctx.group), None
+
+
+def sum_partials(x: torch.Tensor, group) -> torch.Tensor:
+    """``psum`` of the ranks' partial sums ``x`` whose result each rank
+    uses for its own block alone; backward sums the ranks' cotangents
+    (``sum_from_group(copy_to_group(x))``, one call each way). Outside
+    grad mode, the all-reduce alone."""
+    if not (torch.is_grad_enabled() and x.requires_grad):
+        return all_reduce(x, "sum", group)
+    return _SumPartials.apply(x, group)
 
 
 class _Permute(torch.autograd.Function):

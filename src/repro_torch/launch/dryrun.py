@@ -19,12 +19,13 @@ the full depth directly (:func:`probe_cost_terms` is the reference's
 method, kept to check the count against itself).
 
 Each rank holds its blocks (``api.rank_shardings``: attention heads, FF
-columns, experts and vocabulary over the model axis, and with FSDP, on by
-default as the reference's is, every decoder leaf's block over the data
-axis) and computes the dense layers on them for its batch rows
-(``models/context.py``), gathering each layer over the data group as it
-runs, so the counts are the port's per rank, the model-axis sums and the
-data axis's gathers and reduce-scatters among the collectives.
+columns, experts, RG-LRU features, SSD heads and vocabulary over the model
+axis, and with FSDP, on by default as the reference's is, every decoder
+leaf's block over the data axis) and computes the layers on them for its
+batch rows (``models/context.py``), gathering each layer over the data
+group as it runs, so the counts are the port's per rank, the model-axis
+sums and the data axis's gathers and reduce-scatters among the
+collectives.
 ``--no-fsdp`` counts the model split alone. ``memory.param_bytes_sharded``
 gives what the reference's shardings (``sharding_rules.param_shardings``)
 leave a rank, paired with the parameters by key.

@@ -289,7 +289,8 @@ def abstract_serve_state(cfg: ArchConfig, shape: ShapeSpec,
     """Abstract KV/recurrent state for a decode cell (cache len = seq_len):
     ``api.make_serve_state`` on ``meta`` (an encoder-decoder's from a meta
     encoder output and ``params``). ``batch`` (default: the shape's global
-    batch) is the rows of one rank's state; ``ctx``, its KV heads."""
+    batch) is the rows of one rank's state; ``ctx``, its KV heads,
+    RG-LRU features and SSD heads."""
     from repro_torch.models import api
 
     b = shape.global_batch if batch is None else batch

@@ -28,9 +28,10 @@ it): on a mesh the batch given is this rank's rows
 FSDP over more than one data rank, the parameters are the rank's blocks
 (:func:`init_params` and ``convert.params_from_jax`` take ``ctx`` and cut
 them to :func:`rank_shardings`); the model gathers each layer's data
-blocks before using it, the attention, FF, embedding and head
-run tensor-parallel and the MoE layers expert-parallel, and a serve state
-holds the rank's KV heads (:func:`make_serve_state`); with
+blocks before using it, the attention, FF, RG-LRU and SSD blocks,
+embedding and head run tensor-parallel and the MoE layers expert-parallel,
+and a serve state holds the rank's KV heads, recurrent features and SSD
+heads (:func:`make_serve_state`); with
 ``flags.DECODE_ATTN_SHARDED`` :func:`decode_step` decodes every cache that
 ``attention.sharded_decode_gate`` passes sequence-sharded (its first decode
 keeps this rank's slice of a cache of every KV head). ``ctx=None`` is every
@@ -112,9 +113,9 @@ def param_defs(cfg: ArchConfig):
 def _leaf_sharding(d, ctx: DistContext) -> NamedSharding:
     # The model axis on each dim whose logical axis the ranks split, the
     # data axis on the dim FSDP picks.
-    entries = [ctx.model_axis if local_range(ctx, ax, n) else None
+    entries = [ctx.model_axis if local_range(ctx, ax, n, d.units) else None
                for ax, n in zip(d.axes, d.shape)]
-    i = data_dim(ctx, d.axes, d.shape)
+    i = data_dim(ctx, d.axes, d.shape, d.units)
     if i is not None:
         entries[i] = "data"
     return NamedSharding(ctx.mesh, P(*entries) if any(entries) else P())
@@ -124,8 +125,9 @@ def rank_shardings(cfg: ArchConfig, ctx: DistContext):
     """The tree of ``NamedSharding`` a rank holds its parameters in on
     ``ctx``'s mesh: the model axis on each dim whose logical axis the
     model ranks split (``context.local_range``, the reference's
-    ``param_spec(..., fsdp=False)`` on the axes the port computes
-    tensor-parallel) and, with FSDP, the data axis on the dim
+    ``param_spec(..., fsdp=False)``, but an SSD block's ``d_inner`` leaves
+    split only where the ranks divide its heads, ``ParamDef.units``) and,
+    with FSDP, the data axis on the dim
     ``context.data_dim`` picks (``param_spec(..., fsdp=True)``'s on those
     leaves); ``P()`` on every leaf of an encoder-decoder, which runs
     whole."""
@@ -202,7 +204,10 @@ def make_serve_state(cfg: ArchConfig, batch: int, max_len: int, dtype,
     """An empty serve state; an encoder-decoder's needs the encoder output
     ``enc_out`` and the ``params`` that project its cross K/V (it lives on
     ``enc_out``'s device). ``ctx``: each KV cache holds the rank's KV heads
-    (``attention.make_kv_cache``)."""
+    (``attention.make_kv_cache``), each RG-LRU state its features and each
+    SSD state its heads (``conv_B`` / ``conv_C`` whole: every rank computes
+    B and C whole); the tensors are made at the block's shape, never as
+    views of a whole state (the ssd kernel needs 16-byte starts)."""
     if is_encdec(cfg):
         if enc_out is None or params is None:
             raise ValueError(f"{cfg.name}: an encoder-decoder serve state "

@@ -10,14 +10,18 @@ process a rank):
 * a rank takes the batch rows of its coordinate on the batch axes;
 * with more than one model rank it holds its block of every leaf the
   reference's ``param_spec(..., fsdp=False)`` splits over the model axis
-  among the attention, dense FF, MoE, ``embed`` and ``lm_head`` leaves
-  (``models/api.py:rank_shardings``), and computes those layers
-  Megatron-style on it: column-parallel in, row-parallel out, one sum over
-  the model group a block (``distributed/collectives.py``). The blocks and
-  every module's ranges come from :func:`local_range`, the logical axis
-  alone deciding, so the rule lives once. The other leaves (norms, the
-  router, the recurrent mixers, the encoder-decoder) stay whole over the
-  model axis and are computed whole on every rank;
+  among the attention, dense FF, MoE, RG-LRU, SSD, ``embed`` and
+  ``lm_head`` leaves (``models/api.py:rank_shardings``), and computes
+  those layers Megatron-style on it: column-parallel in, row-parallel out,
+  one sum over the model group a block (``distributed/collectives.py``);
+  a recurrent block keeps its block of the serve state (its features, its
+  SSD heads). The blocks and every module's ranges come from
+  :func:`local_range`, the logical axis alone deciding (with the whole
+  units an axis is made of, ``ParamDef.units``: an SSD block splits by
+  its heads), so the rule lives once. The other leaves (norms, the
+  router, an SSD block's ``in_B`` / ``in_C`` and their convs, the
+  encoder-decoder) stay whole over the model axis and are computed whole
+  on every rank;
 * with FSDP (``DistContext.fsdp``, on by default as the reference's is)
   and more than one data rank, a rank also holds only its data block of
   every decoder leaf, on the dim :func:`data_dim` picks (the reference's
@@ -56,10 +60,10 @@ class PartitionSpec(tuple):
         return f"PartitionSpec{tuple.__repr__(self)}"
 
 
-# The logical axes the port computes tensor-parallel. ``lru`` and
-# ``ssm_heads`` map onto the model axis too (``DistContext.rules``, the
-# reference's), but the recurrent mixers are computed whole.
-TP_AXES = ("heads", "kv_heads", "ff", "vocab", "experts")
+# The logical axes the port computes tensor-parallel: every axis that
+# ``DistContext.rules`` (the reference's) maps onto the model axis.
+TP_AXES = ("heads", "kv_heads", "ff", "vocab", "experts", "lru",
+           "ssm_heads")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -165,16 +169,27 @@ def tensor_parallel(ctx: Optional[DistContext]) -> bool:
     return has_mesh(ctx) and ctx.mesh.shape.get(ctx.model_axis, 1) > 1
 
 
-def local_range(ctx: Optional[DistContext], axis: str, n: int
-                ) -> Optional[Tuple[int, int]]:
+def _model_splits(axis: Optional[str], n: int, m: int,
+                  units: Optional[int] = None) -> bool:
+    # An axis of TP_AXES whose whole units (default: its n elements) the m
+    # model ranks divide: param_spec's test, on the units.
+    u = n if units is None else units
+    return axis in TP_AXES and u % m == 0 and u >= m
+
+
+def local_range(ctx: Optional[DistContext], axis: str, n: int,
+                units: Optional[int] = None) -> Optional[Tuple[int, int]]:
     """This rank's ``[start, stop)`` along a logical ``axis`` of size ``n``
     where the model ranks split it, else None (the rank computes it whole).
     They split an axis of :data:`TP_AXES` that they divide, ``param_spec``'s
-    test, and nothing without :func:`tensor_parallel`."""
-    if not tensor_parallel(ctx) or axis not in TP_AXES:
+    test, and nothing without :func:`tensor_parallel`. ``units``: the whole
+    units the axis is made of, which no block may cut (an SSD block's
+    ``d_inner`` is ``head_dim`` columns of each head): then the ranks must
+    divide ``units``, where the reference tests the size alone."""
+    if not tensor_parallel(ctx):
         return None
     m = ctx.model_size
-    if n % m or n < m:
+    if not _model_splits(axis, n, m, units):
         return None
     i = ctx.model_index
     return i * (n // m), (i + 1) * (n // m)
@@ -194,11 +209,12 @@ def holds_blocks(ctx: Optional[DistContext]) -> bool:
 
 
 def data_dim(ctx: Optional[DistContext], axes: Tuple[Optional[str], ...],
-             shape: Tuple[int, ...]) -> Optional[int]:
-    """The dim of a leaf (its logical ``axes``, its whole ``shape``) that
-    FSDP splits over the data axis, or None: of the dims the model axis
-    does not take (an axis of :data:`TP_AXES` that its size divides,
-    :func:`local_range`'s test, a model axis of one rank included), the
+             shape: Tuple[int, ...], units: Optional[int] = None
+             ) -> Optional[int]:
+    """The dim of a leaf (its logical ``axes``, its whole ``shape``, the
+    ``units`` of its model-axis dims: ``ParamDef.units``) that FSDP splits
+    over the data axis, or None: of the dims the model axis does not take
+    (:func:`local_range`'s test, a model axis of one rank included), the
     largest that the data ranks divide, the first of equals, as
     ``param_spec(..., fsdp=True)`` picks. None without
     :func:`data_sharded`."""
@@ -206,7 +222,7 @@ def data_dim(ctx: Optional[DistContext], axes: Tuple[Optional[str], ...],
         return None
     n, m = ctx.mesh.shape["data"], ctx.mesh.shape.get(ctx.model_axis, 1)
     free = [i for i, (ax, k) in enumerate(zip(axes, shape))
-            if not (ax in TP_AXES and k % m == 0 and k >= m)]
+            if not _model_splits(ax, k, m, units)]
     for i in sorted(free, key=lambda i: -shape[i]):
         if shape[i] % n == 0 and shape[i] >= n:
             return i

@@ -24,6 +24,10 @@ class ParamDef:
     axes: Tuple[Optional[str], ...]   # logical axes, len == len(shape)
     init: str = "fan_in"              # fan_in | normal | zeros | ones
     scale: float = 1.0
+    # The whole units the leaf's model-axis dim is made of, which no
+    # rank's block may cut (an SSD block's d_inner: its heads); None, the
+    # dim's own size (``context.local_range``).
+    units: Optional[int] = None
 
     def __post_init__(self):
         assert len(self.shape) == len(self.axes), (self.shape, self.axes)

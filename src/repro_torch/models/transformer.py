@@ -35,7 +35,8 @@ given logits.
 Tensor parallelism (``ctx`` with more than one model rank,
 ``models/context.py``): each rank holds its block of the embedding (rows of
 its vocabulary range), the head (its columns), each layer's attention heads
-(``models/attention.py``), FF columns and experts (``models/moe.py``). The
+(``models/attention.py``), FF columns, experts (``models/moe.py``), RG-LRU
+features (``models/rglru.py``) and SSD heads (``models/ssm.py``). The
 embedding lookup is vocab-parallel (a token outside the rank's range looks
 up zeros, then a sum over the model group); the dense FF is column-parallel
 ``w1`` / ``w3`` and row-parallel ``w2`` with one sum; the head is
@@ -201,7 +202,7 @@ def _gather_blocks(p, defs, ctx):
 
     def walk(d, x):
         if isinstance(d, ParamDef):
-            i = data_dim(ctx, d.axes, d.shape)
+            i = data_dim(ctx, d.axes, d.shape, d.units)
             return x if i is None else collectives.gather_from_group(
                 x, i, group)
         if isinstance(d, dict):
@@ -271,18 +272,20 @@ def _mixer(p, cfg: ArchConfig, spec: LayerSpec, x, positions, cache,
     prefill a chunk's continuation; ``pack_layout`` runs a packed step
     (``cache`` is then one cache per segment). ``ctx``: attention on the
     rank's heads, and a decode may run sequence-sharded
-    (``attention.attn_decode``)."""
+    (``attention.attn_decode``); an RG-LRU block on the rank's features,
+    an SSD block on its heads."""
     if pack_layout is not None:
         return _mixer_packed(p, cfg, spec, x, positions, cache, tiles,
                              pack_layout, impl)
     if spec.mixer == "rglru":
         return rglru_mod.rglru_forward(p["rglru"], cfg, x, state=cache,
-                                       tile=tiles.get("rglru"), impl=impl)
+                                       tile=tiles.get("rglru"), impl=impl,
+                                       ctx=ctx)
     if spec.mixer == "ssd":
         ssd_tile = tiles.get("ssd")
         return ssm_mod.ssm_forward(p["ssm"], cfg, x, state=cache,
                                    chunk=ssd_tile[0] if ssd_tile else 0,
-                                   impl=impl)
+                                   impl=impl, ctx=ctx)
     window = cfg.attn_window if spec.mixer == "local_attn" else None
     if cache is not None and "kv_pos" in cache and not (
             decode and attn_mod.sharded_decode_gate(cfg, ctx, cache)):
@@ -330,10 +333,10 @@ def layer_forward(p, cfg: ArchConfig, spec: LayerSpec, x, positions, cache,
     loss, float32, and None on a layer without one (the reference's zero,
     left out so that a dense step launches nothing for it). With
     ``pack_layout`` ``cache`` is one cache per segment, and so is
-    new_cache. ``ctx`` (a ``DistContext``): attention and the dense FF on
-    the rank's blocks, the MoE block expert-parallel, and a decode may run
-    sequence-sharded over its mesh; norms and recurrent mixers are computed
-    whole for the rank's rows."""
+    new_cache. ``ctx`` (a ``DistContext``): attention, the dense FF and the
+    recurrent mixers on the rank's blocks, the MoE block expert-parallel,
+    and a decode may run sequence-sharded over its mesh; norms are
+    computed whole for the rank's rows."""
     tiles = tiles or {}
     aux = None
     h = _apply_norm(p, cfg, x, "norm1")
@@ -380,9 +383,11 @@ def _cache_for(cfg: ArchConfig, spec: LayerSpec, batch: int, max_len: int,
                dtype, ring_local: bool, device, paged: bool = False,
                ctx=None):
     if spec.mixer == "rglru":
-        return rglru_mod.make_rglru_state(cfg, batch, dtype, device=device)
+        return rglru_mod.make_rglru_state(cfg, batch, dtype, device=device,
+                                          ctx=ctx)
     if spec.mixer == "ssd":
-        return ssm_mod.make_ssm_state(cfg, batch, dtype, device=device)
+        return ssm_mod.make_ssm_state(cfg, batch, dtype, device=device,
+                                      ctx=ctx)
     if paged:
         return {"pos": torch.zeros((), dtype=torch.int32, device=device)}
     ring = ring_local and spec.mixer == "local_attn"
@@ -400,7 +405,8 @@ def make_caches(cfg: ArchConfig, batch: int, max_len: int, dtype,
     ``local_attn`` layer; on an RG-LRU or SSD layer its state, zeroed.
     ``paged=True``: an attention layer keeps only its position ``pos``
     (its K/V live in the pool, :func:`make_paged_pool`). ``ctx``: a KV
-    cache holds the rank's KV heads (``attention.make_kv_cache``)."""
+    cache holds the rank's KV heads (``attention.make_kv_cache``), a
+    recurrent state the rank's features or SSD heads."""
     return [_cache_for(cfg, spec, batch, max_len, dtype, ring_local, device,
                        paged=paged, ctx=ctx)
             for spec in cfg.layers()]

@@ -15,14 +15,15 @@ keyword here so that the one-device calls keep their form) the step is what
 each rank runs: ``batch`` is the rank's rows of the global batch
 (``sharding_rules.local_batch``); with more than one model rank, or with
 FSDP over more than one data rank, the parameters, gradients and moments
-are the rank's blocks (``api.rank_shardings``: the dense layers
-tensor-parallel, the MoE layers expert-parallel, every decoder leaf's data
-block under FSDP) and the clip's norm sums each leaf's squares over the
-axes its blocks are spread over (``adamw.global_norm``). The loss and the
-gradients are averaged over the batch axes before AdamW, so the loss is
-the global batch's mean: a leaf whole over the data axis is all-reduced
-over the batch group (which shares a model coordinate, so it averages one
-block), so the ranks of one model coordinate take the same update; a
+are the rank's blocks (``api.rank_shardings``: the dense layers and the
+recurrent mixers tensor-parallel, the MoE layers expert-parallel, every
+decoder leaf's data block under FSDP) and the clip's norm sums each leaf's
+squares over the axes its blocks are spread over (``adamw.global_norm``).
+The loss and the gradients are averaged over the batch axes before AdamW,
+so the loss is the global batch's mean: a leaf whole over the data axis
+is all-reduced over the batch group (which shares a model coordinate, so
+it averages one block), so the ranks of one model coordinate take the
+same update; a
 data block comes out of the layer gather's backward already summed over
 the data group (a reduce-scatter), is divided by the batch group's size
 and, on a mesh with a pod axis, summed over the pod group first. The

@@ -8,12 +8,13 @@ gather's gradient, the restore from FSDP blocks) are in
 
 * The port's blocks (``api.rank_shardings``) equal the reference's
   ``param_spec(..., fsdp=True)`` on every leaf that the port splits like
-  the reference (attention, dense FF, MoE, ``embed``, ``lm_head``, the
-  norms and the router) of every decoder-only smoke config, on 2 x 1,
-  2 x 2 and 4 x 2 meshes. The recurrent mixers' leaves are computed whole
-  over the model axis, so their data dim is picked among all their dims:
-  pinned here as the reference's rule with no model axis. The
-  encoder-decoder stays whole.
+  the reference (attention, dense FF, MoE, RG-LRU, SSD, ``embed``,
+  ``lm_head``, the norms and the router) of every decoder-only smoke
+  config, on 2 x 1, 2 x 2 and 4 x 2 meshes. The one difference in the
+  mixers, the SSD head rule (a block never cuts a head, so where the model
+  ranks do not divide the heads the ``d_inner`` leaves stay whole over the
+  model axis and take the data axis on their largest dim), is pinned at
+  2 x 16. The encoder-decoder stays whole.
 * ``param_bytes_sharded`` pairs each leaf with its sharding by key: the
   bf16 bytes of qwen2-1.5b and qwen3-moe-235b-a22b a rank of the fake
   16 x 16 group holds are pinned, each leaf's spec as long as its shape;
@@ -87,52 +88,53 @@ def test_the_rule_is_the_references_on_every_split_alike_leaf(arch, shape):
     ctx = rules.make_context(mesh)
     sh = _flatten(api.rank_shardings(cfg, ctx))
     defs = _flatten(api.param_defs(cfg))
-    mixer = 0
     for k, d in defs.items():
         got = _full(sh[k].spec, len(d.shape))
-        if any(f"/{m}/" in k for m in MIXERS):
-            # Whole over the model axis: the data dim among all the dims.
-            mixer += 1
-            assert got == tuple(rules.param_spec(
-                (None,) * len(d.shape), d.shape, mesh)), k
-            continue
         ref = jax_rules.param_spec(d.axes, d.shape, mesh, fsdp=True)
         if shape[1] == 1:
             # A model axis of one rank is the one-device path: the port
             # names no block of it, the reference a block of one.
             ref = [None if e == "model" else e for e in ref]
         assert got == tuple(ref), (k, got)
-        assert "data" in got, k        # every smoke leaf has a free dim
-    assert mixer == sum(1 for k in defs if any(f"/{m}/" in k
-                                                for m in MIXERS))
+        # Every smoke leaf with a dim the model axis leaves (a 1-D mixer
+        # leaf has none) takes the data axis.
+        model = jax_rules.param_spec(d.axes, d.shape, mesh, fsdp=False)
+        assert "data" in got or None not in _full(model, len(d.shape)), k
 
 
 @pytest.mark.parametrize("arch", ["recurrentgemma-9b", "mamba2-2.7b"])
-def test_the_mixers_data_dims_are_pinned(arch):
-    """The deliberate difference: where the reference puts ``lru`` /
-    ``ssm_heads`` on the model axis, the port's whole mixer leaf may take
-    the data axis there instead (a square ``[F, F]`` leaf, the first of
-    equal dims)."""
+@pytest.mark.parametrize("shape", [(2, 2), (2, 16)], ids=["2x2", "2x16"])
+def test_the_mixers_data_dims_are_pinned(arch, shape):
+    """The mixers' leaves take the reference's ``param_spec(...,
+    fsdp=True)``, the model axis on their ``lru`` / ``ssm_heads`` dim, but
+    where the SSD head rule bites: the smoke mamba2's 8 heads do not split
+    over 16 model ranks, so its ``d_inner`` leaves (which the reference
+    cuts, 128 columns over 16) stay whole over the model axis and take the
+    data axis on their largest dim, as its per-head leaves do in both."""
     cfg = configs.get_smoke(arch)
-    mesh = _Mesh({"data": 2, "model": 2})
+    mesh = _Mesh({"data": shape[0], "model": shape[1]})
     ctx = rules.make_context(mesh)
     sh = _flatten(api.rank_shardings(cfg, ctx))
     defs = _flatten(api.param_defs(cfg))
-    differ = []
+    differ, mixers = [], 0
     for k, d in defs.items():
         if not any(f"/{m}/" in k for m in MIXERS):
             continue
+        mixers += 1
         got = _full(sh[k].spec, len(d.shape))
         ref = tuple(jax_rules.param_spec(d.axes, d.shape, mesh, fsdp=True))
-        assert "model" not in got, k
-        assert got.index("data") == data_dim(ctx, d.axes, d.shape), k
+        at = got.index("data") if "data" in got else None
+        assert at == data_dim(ctx, d.axes, d.shape, d.units), k
         if got != ref:
             differ.append(k.split("/")[-1])
-    want = {"recurrentgemma-9b": {"wx", "wy", "conv_w", "conv_b", "wr",
-                                  "br", "wi", "bi", "a_param", "wo"},
-            "mamba2-2.7b": {"in_z", "in_x", "in_dt", "conv_x_w", "conv_x_b",
-                            "A_log", "D", "dt_bias", "norm_w",
-                            "out_proj"}}[arch]
+            assert "model" not in got and "model" in ref, k
+            assert got == tuple(rules.param_spec(
+                (None,) * len(d.shape), d.shape, mesh)), k
+    assert mixers
+    want = set()
+    if arch == "mamba2-2.7b" and shape[1] == 16:
+        want = {"in_z", "in_x", "conv_x_w", "conv_x_b", "norm_w",
+                "out_proj"}
     assert set(differ) == want
 
 

@@ -7,14 +7,18 @@ checks named FSDP below also over the data axis, the others with
 ``fsdp=False``) — the sequence-sharded
 decode and the expert-parallel MoE on a 2 x 2 mesh, the smoke qwen2 served
 on 2 x 2 (a KV head a rank; and under FSDP) and 1 x 4 (four query heads a
-rank, the two KV heads replicated) and the smoke gemma2 on 2 x 2 (ring
-caches, softcaps), 2 x 2 train steps of the smoke qwen2 and of the smoke
-MoE on the model split alone and under FSDP, the trained FSDP blocks
+rank, the two KV heads replicated), the smoke gemma2 on 2 x 2 (ring
+caches, softcaps) and the smoke mamba2 and recurrentgemma on 2 x 2 (their
+SSD heads and RG-LRU features split), 2 x 2 train steps of the smoke qwen2
+and of the smoke MoE on the model split alone and under FSDP and of the
+smoke mamba2 and recurrentgemma under FSDP, the trained FSDP blocks
 saved — then two of the same
 processes in a group of their own: the elastic restore onto a 1 x 2 mesh
 and one more step, GPipe over two stages, ``compress_psum``, a mesh
 Trainer (FSDP over its two data ranks), the FSDP gather's gradient check
-in float64. The rank programs import no JAX; they take the
+in float64, the recurrent mixers' collectives (the gates' reduce-scatter,
+the split norm's sum, whole SSD and RG-LRU blocks on two ranks' blocks,
+and broken variants of each). The rank programs import no JAX; they take the
 reference's parameters (converted here, ``torch.save``d under the module's
 temporary folder) and write their results as ``.npz``; this process holds
 them against the reference on one device, as the reference's own tests do:
@@ -54,6 +58,12 @@ them against the reference on one device, as the reference's own tests do:
   in-run check, held at 1e-5 of the plain one-device step, takes the
   seed-0 draw (``test_a_split_w2_sum_alone_moves_the_gradients``). On
   both, the ranks of one model coordinate hold equal blocks;
+* the smoke mamba2's and recurrentgemma's 2 x 2 FSDP steps at the qwen2
+  step's limits (recurrentgemma's gradients against the reference at
+  ``tests/test_torch_train_step.py``'s bound for it: its one-device step
+  already lies past 1e-4, asserted);
+* the mixers' collectives against one process's arithmetic, and their
+  broken variants far off;
 * the MoE's gradients — the expert weights' summed over the model axis —
   against the one-device gradients of each data half, averaged (a rank's
   aux loss is over its rows, so this is what data parallelism computes),
@@ -105,8 +115,15 @@ GRAD_REL = 1e-5            # against the port's one-device gradients
 GRAD_REL_JAX = 1e-4        # against the reference's (see above)
 GRAD_REL_W2 = 5e-5         # the port's, w2's sum not split (see above)
 PIPE_RTOL = 2e-4
+MIXER_BROKEN = 0.05        # a broken mixer collective, of the scale
+RGLRU_GRAD_TOL = 5e-4      # recurrentgemma's, x max(1, max |g|) (see below)
 B, S = 4, 16
 SERVE_STEPS = 3
+# Each served check's tokens' seed; the pair of configs it serves.
+SERVE_SEEDS = {"serve": 8, "serve_1x4": 9, "serve_gemma2": 10,
+               "serve_fsdp": 11, "serve_mamba2": 13, "serve_rglru": 14}
+SERVE_PAIRS = {"serve_gemma2": "gemma2", "serve_mamba2": "mamba2",
+               "serve_rglru": "rglru"}
 
 
 def _pair(name, **kw):
@@ -157,6 +174,8 @@ def groups(tmp_path_factory):
     moe_j, moe_t = _moe_pair()
     q_j, q_t = _pair("qwen2-1.5b")
     g_j, g_t = _pair("gemma2-9b")
+    m_j, m_t = _pair("mamba2-2.7b")
+    r_j, r_t = _pair("recurrentgemma-9b")
     pp_j, pp_t = _pp_pair()
     pp_params = jax_pipeline.init_pipeline_params(
         pp_j, jax.random.PRNGKey(0), n_stages=2)
@@ -165,6 +184,8 @@ def groups(tmp_path_factory):
         "moe": _save(_port(moe_t, _init(moe_j)), tmp / "moe.pt"),
         "train": _save(_port(q_t, _init(q_j)), tmp / "train.pt"),
         "gemma2": _save(_port(g_t, _init(g_j)), tmp / "gemma2.pt"),
+        "mamba2": _save(_port(m_t, _init(m_j)), tmp / "mamba2.pt"),
+        "rglru": _save(_port(r_t, _init(r_j)), tmp / "rglru.pt"),
         "gpipe": _save(jax.tree.map(lambda a: torch.from_numpy(
             np.array(a)), pp_params), tmp / "gpipe.pt"),
     }
@@ -191,6 +212,16 @@ def groups(tmp_path_factory):
             steps=SERVE_STEPS, max_len=S, params={"path": paths["gemma2"]},
             token_seed=10, teacher=True, sharded=False, ring_local=True,
             fsdp=False)),
+        ("decode", "serve_mamba2", dict(
+            cfg=m_t, mesh=(2, 2), batch=B, prompt_len=S - SERVE_STEPS,
+            steps=SERVE_STEPS, max_len=S, params={"path": paths["mamba2"]},
+            token_seed=SERVE_SEEDS["serve_mamba2"], teacher=True,
+            sharded=False, fsdp=False)),
+        ("decode", "serve_rglru", dict(
+            cfg=r_t, mesh=(2, 2), batch=B, prompt_len=S - SERVE_STEPS,
+            steps=SERVE_STEPS, max_len=S, params={"path": paths["rglru"]},
+            token_seed=SERVE_SEEDS["serve_rglru"], teacher=True,
+            sharded=False, fsdp=False)),
         ("moe", "moe", dict(cfg=moe_t, mesh=(2, 2), batch=B, seq=S,
                             params={"path": paths["moe"]}, token_seed=2)),
         ("train", "train_tp", dict(
@@ -217,6 +248,14 @@ def groups(tmp_path_factory):
             cfg=moe_t, mesh=(2, 2), batch=B, seq=S, microbatches=1, steps=1,
             lr=LR, params={"path": paths["moe"]}, data_seed=4,
             single=False, keep=True)),
+        ("train", "train_mamba2_fsdp", dict(
+            cfg=m_t, mesh=(2, 2), batch=B, seq=S, microbatches=2, steps=2,
+            lr=LR, params={"path": paths["mamba2"]}, data_seed=3,
+            single=False, keep=True)),
+        ("train", "train_rglru_fsdp", dict(
+            cfg=r_t, mesh=(2, 2), batch=B, seq=S, microbatches=2, steps=2,
+            lr=LR, params={"path": paths["rglru"]}, data_seed=3,
+            single=False, keep=True)),
     ]
     two = [
         ("restore", "restore", dict(cfg=q_t, mesh=(1, 2), batch=2, seq=S,
@@ -232,11 +271,14 @@ def groups(tmp_path_factory):
                                     ckpt=str(tmp / "trainer"))),
         ("gather_grad", "gather_grad", dict(shape=(3, 8, 5), dim=1,
                                             seed=12)),
+        ("mixer_grads", "mixer_grads", dict(shape=(2, 3, 2, 8), seed=21,
+                                            ssm_cfg=m_t, rglru_cfg=r_t)),
     ]
     res = chip_smoke.run_mesh_group(4, four, tmp / "ranks", "cpu",
                                     timeout_s=240, then=(2, two))
     return dict(res=res, dec=(dec_j, dec_t), moe=(moe_j, moe_t),
-                train=(q_j, q_t), gemma2=(g_j, g_t),
+                train=(q_j, q_t), gemma2=(g_j, g_t), mamba2=(m_j, m_t),
+                rglru=(r_j, r_t),
                 pp=(pp_j, pp_t, pp_params), paths=paths)
 
 
@@ -251,8 +293,9 @@ def test_the_in_run_checks_pass(groups):
     path of the same ranks) hold on the CPU too."""
     out = chip_smoke.mesh_verdicts(groups["res"], LR)
     assert set(out) == {"decode", "serve", "serve_1x4", "serve_gemma2",
-                        "serve_fsdp", "moe", "train", "train_tp", "elastic",
-                        "gather_grad", "gpipe", "compress"}
+                        "serve_fsdp", "serve_mamba2", "serve_rglru", "moe",
+                        "train", "train_tp", "elastic", "gather_grad",
+                        "mixer_grads", "gpipe", "compress"}
     assert out["train"]["fsdp"]
 
 
@@ -279,17 +322,17 @@ def test_sharded_flash_decode_matches_full(groups):
 
 @pytest.mark.parametrize("tag,kv_heads", [
     ("serve", 1), ("serve_1x4", 1), ("serve_gemma2", None),
-    ("serve_fsdp", 1)])
+    ("serve_fsdp", 1), ("serve_mamba2", 0), ("serve_rglru", None)])
 def test_tensor_parallel_serve_matches_full(groups, tag, kv_heads):
     """Teacher-forced decode steps on a rank's blocks against the
     reference's full forward at the same positions; a rank holds about
     1 / model of the parameters (1 / 4 on 2 x 2 under FSDP, each layer
     gathered as it runs) and its own KV heads (the smoke qwen2's two split
-    over 2 ranks, replicated over 4: each reads one)."""
-    cfg_j, cfg_t = groups["gemma2" if "gemma2" in tag else "train"]
-    tok = chip_smoke._mesh_tokens(
-        {"serve": 8, "serve_1x4": 9, "serve_gemma2": 10,
-         "serve_fsdp": 11}[tag], (B, S), cfg_t.vocab_size)
+    over 2 ranks, replicated over 4: each reads one); the smoke mamba2 and
+    recurrentgemma on their SSD heads and RG-LRU features."""
+    cfg_j, cfg_t = groups[SERVE_PAIRS.get(tag, "train")]
+    tok = chip_smoke._mesh_tokens(SERVE_SEEDS[tag], (B, S),
+                                  cfg_t.vocab_size)
     full = np.asarray(jax_T.forward(_init(cfg_j), cfg_j, jnp.asarray(tok),
                                     remat=False).logits)
     ranks = groups["res"][tag]
@@ -340,11 +383,11 @@ def _port_flat(cfg_t, tree):
     return {k: v.numpy() for k, v in _flatten(_port(cfg_t, tree)).items()}
 
 
-def _hold_grads(got, want, tol):
+def _hold_grads(got, want, tol, floor=1e-30):
     for k, w in want.items():
         g = got[f"grads/{k}"]
         scale = float(np.abs(w).max())
-        assert float(np.abs(g - w).max()) <= tol * max(scale, 1e-30), k
+        assert float(np.abs(g - w).max()) <= tol * max(scale, floor), k
 
 
 def _port_grads(cfg_t, path, batch):
@@ -490,6 +533,104 @@ def test_fsdp_holds_a_quarter_and_the_model_split_half(groups):
     assert all(0.25 < h <= 0.26 for h in fsdp), fsdp
     assert all(0.5 < h <= 0.51 for h in tp), tp
     assert not bool(groups["res"]["train_tp"][0]["fsdp"])
+
+
+@pytest.mark.parametrize("tag", ["serve_mamba2", "serve_rglru"])
+def test_the_mixers_serve_on_their_blocks(groups, tag):
+    """A rank's serve state on 2 x 2: its rows, its half of the SSD heads
+    (``h``, ``conv_x``) or of the RG-LRU features (``h``, ``conv``), and
+    the SSD block's ``conv_B`` / ``conv_C`` whole."""
+    import json
+
+    _, cfg = groups[SERVE_PAIRS[tag]]
+    for d in groups["res"][tag]:
+        got = json.loads(str(d["state_shapes"]))
+        if tag == "serve_mamba2":
+            s = cfg.ssm
+            heads = s.n_heads(cfg.d_model) // 2
+            w = s.conv_width - 1
+            assert got == {"conv_x": [B // 2, w, heads * s.head_dim],
+                           "conv_B": [B // 2, w, s.d_state],
+                           "conv_C": [B // 2, w, s.d_state],
+                           "h": [B // 2, heads, s.d_state, s.head_dim]}
+            assert int(d["state_width"]) == heads
+        else:
+            f = cfg.recurrent.lru_width // 2
+            assert got == {"conv": [B // 2, cfg.recurrent.conv_width - 1, f],
+                           "h": [B // 2, f]}
+            assert int(d["state_width"]) == f
+
+
+@pytest.mark.parametrize("arch", ["mamba2", "rglru"])
+def test_mixer_fsdp_train_steps_match_the_reference(groups, monkeypatch,
+                                                    arch):
+    """A 2 x 2 FSDP train step of the smoke mamba2 and recurrentgemma on
+    the reference's weights, every SSD and RG-LRU block on its model
+    blocks, held as the qwen2 step above: the first loss within 1e-6 and
+    the second within 1e-5 of ``make_train_step(cfg, None, ...)``'s, the
+    parameters after two steps within 2 x lr, the averaged gradients within
+    1e-4 of each leaf's max of the reference's and within 5e-5 of the
+    port's one-device step's; a rank holds about a quarter of the bytes.
+    recurrentgemma's smoke gradients are ill-conditioned: the port's
+    one-device step already lies more than 1e-4 of a leaf's max from the
+    reference's (asserted here; 6.0e-4 measured), so its mesh step is held
+    to the reference at ``tests/test_torch_train_step.py``'s bound for it,
+    5e-4 x max(1, max |g|), and to the one-device step at 5e-5."""
+    cfg_j, cfg_t = groups[arch]
+    pj = _init(cfg_j)
+    batches = _batches(cfg_t, 2, 3)
+    ranks = groups["res"][f"train_{arch}_fsdp"]
+    d = ranks[0]
+    assert bool(d["fsdp"])
+    ref = _port_flat(cfg_t, _jax_grads(cfg_j, pj, batches[0], 2))
+    params = torch.load(groups["paths"][arch])
+    one = _one_device_grads(cfg_t, params, batches[0], monkeypatch)
+    if arch == "rglru":
+        assert _worst_rel(one, ref) > GRAD_REL_JAX
+        _hold_grads(d, ref, RGLRU_GRAD_TOL, floor=1.0)
+    else:
+        _hold_grads(d, ref, GRAD_REL_JAX)
+    _hold_grads(d, one, GRAD_REL_W2)
+    ocfg = jax_adamw.AdamWConfig()
+    step = jax.jit(jax_make_train_step(
+        cfg_j, None, ocfg, lr_fn=lambda s: jnp.asarray(LR, jnp.float32),
+        microbatches=2))
+    p, opt, losses = pj, jax_adamw.init_state(pj, ocfg), []
+    for b in batches:
+        p, opt, m = step(p, opt, {k: jnp.asarray(v) for k, v in b.items()})
+        losses.append(float(m["loss"]))
+    np.testing.assert_allclose(d["losses"][0], losses[0], rtol=LOSS_RTOL)
+    np.testing.assert_allclose(d["losses"], losses,
+                               rtol=LOSS_RTOL_AFTER_UPDATE)
+    for k, w in _port_flat(cfg_t, p).items():
+        assert float(np.abs(d[f"params/{k}"] - w).max()) <= 2 * LR, k
+    for r in ranks:
+        assert float(r["param_bytes"]) <= 0.27 * _whole_bytes(d)
+
+
+def test_the_mixer_collectives_and_their_broken_variants(groups):
+    """On two gloo ranks: the gates' reduce-scatter is the ranks' sum's
+    block and its gradient the ranks' cotangents gathered (exact in
+    float64); the split norm and its gradient are the whole norm's; an SSD
+    and an RG-LRU block on the ranks' blocks give the whole block's output
+    and gradients. The broken variants read far off: ``sum_from_group``
+    and a slice, the norm's squares summed by ``sum_from_group``, B and C
+    not entering the scan through ``copy_to_group``."""
+    for d in groups["res"]["mixer_grads"]:
+        assert float(d["rs_fwd_err"]) == 0.0
+        assert float(d["rs_grad_err"]) == 0.0
+        assert float(d["rs_slice_grad_err"]) > MIXER_BROKEN * float(
+            d["rs_scale"])
+        # The norm computes in float32, as layers.rms_norm does.
+        assert float(d["norm_fwd_err"]) <= 1e-6
+        assert float(d["norm_grad_err"]) <= 1e-6 * float(d["norm_scale"])
+        assert float(d["norm_plain_grad_err"]) > MIXER_BROKEN * float(
+            d["norm_scale"])
+        for k in ("ssm_fwd_rel", "ssm_grad_rel", "rglru_fwd_rel",
+                  "rglru_grad_rel"):
+            assert float(d[k]) <= chip_smoke.MESH_MIXER_REL, k
+        assert float(d["ssm_bc_grad_rel"]) > MIXER_BROKEN
+        assert float(d["ssm_norm_grad_rel"]) > MIXER_BROKEN
 
 
 def test_fsdp_moe_gradients_match_the_model_split(groups):

@@ -5,7 +5,13 @@ and the dry run's count of a tensor-parallel step.
 * Every full-width config's parameters on a rank of a 1 x m mesh (m = 2, 4,
   16; a stub mesh, rank 0 and the last) have the block shapes of the
   reference's ``param_spec(..., fsdp=False)`` on the attention, dense FF,
-  MoE, ``embed`` and ``lm_head`` leaves, and the whole shape on every other.
+  MoE, RG-LRU, SSD, ``embed`` and ``lm_head`` leaves, and the whole shape
+  on every other. An SSD block splits by whole heads: where the model
+  ranks do not divide the heads (mamba2's 80 at 32, the smoke mamba2's 8
+  at 16) every leaf of it stays whole, where the reference cuts its
+  ``d_inner`` leaves; pinned, as are the recurrent serve states (the
+  rank's features and heads; ``conv_B`` / ``conv_C`` whole, where the
+  reference's ``serve_state_shardings`` names the model axis).
 * ``attention.local_heads``: each rank's query heads tile the padded heads,
   its KV heads are those they read, and the split of the configs' widths at
   16 model ranks is the one ``configs/base.py``'s padding gives.
@@ -13,7 +19,10 @@ and the dry run's count of a tensor-parallel step.
   played by threads that sum (and take the max of) the blocks' values,
   equals ``transformer._nll`` over the whole tensor, gradients included.
 * The dry run of the smoke qwen2 on a fake 1 x 2 group counts about half
-  the dense FLOPs of a 1 x 1 one, and records the model axis's all-reduces.
+  the dense FLOPs of a 1 x 1 one, and records the model axis's all-reduces;
+  so do the smoke mamba2's and recurrentgemma's train steps (the gates'
+  reduce-scatters among them), and their decode cells hold the rank's
+  recurrent state.
 """
 import dataclasses
 import threading
@@ -31,11 +40,12 @@ from repro_torch.distributed import sharding_rules as rules  # noqa: E402
 from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.models import api  # noqa: E402
 from repro_torch.models import attention as A  # noqa: E402
+from repro_torch.models import ssm as S_mod  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.models.context import DistContext, local_range  # noqa: E402
 
 ARCHS = configs.list_archs()
-SPLIT_MODULES = ("attn", "ff", "moe")
+SPLIT_MODULES = ("attn", "ff", "moe", "rglru", "ssm")
 
 
 @pytest.fixture(autouse=True)
@@ -97,6 +107,80 @@ def test_block_shapes_are_the_references_model_specs(arch):
     for k, t in whole.items():
         assert bool(sh[k].spec) == (tuple(cut[k].shape) != tuple(
             t.shape)), k
+
+
+@pytest.mark.parametrize("arch,get,m,split", [
+    ("mamba2-2.7b", "get_arch", 16, True), ("mamba2-2.7b", "get_arch", 32,
+                                             False),
+    ("mamba2-2.7b", "get_smoke", 2, True), ("mamba2-2.7b", "get_smoke", 16,
+                                            False)])
+def test_the_ssd_block_splits_by_its_heads(arch, get, m, split):
+    """The deliberate difference in the SSD block: the port splits all of
+    it where the model ranks divide its heads and none of it otherwise.
+    The reference tests each leaf's size alone, so at 80 heads over 32
+    ranks (and the smoke's 8 over 16) it cuts the ``d_inner`` leaves and
+    keeps the per-head ones whole."""
+    cfg = getattr(configs, get)(arch)
+    h = cfg.ssm.n_heads(cfg.d_model)
+    assert (h % m == 0) == split
+    mesh = _Mesh(m, 0)
+    sh = _flatten(api.rank_shardings(cfg, _ctx(m, 0)))
+    defs = _flatten(api.param_defs(cfg))
+    per_head = {"in_dt", "A_log", "D", "dt_bias"}
+    inner = {"in_z", "in_x", "conv_x_w", "conv_x_b", "norm_w", "out_proj"}
+    seen = set()
+    for k, d in defs.items():
+        if "/ssm/" not in k:
+            continue
+        name = k.split("/")[-1]
+        ref = tuple(jax_rules.param_spec(d.axes, d.shape, mesh, fsdp=False))
+        got = tuple(sh[k].spec) + (None,) * (len(d.shape) - len(sh[k].spec))
+        if name in per_head | inner:
+            seen.add(name)
+            assert ("model" in got) == split, k
+            assert ("model" in ref) == (split or name in inner), k
+        else:                                   # in_B, in_C, their convs
+            assert "model" not in got and "model" not in ref, k
+        if split or name not in inner:
+            assert got == ref, k
+    assert seen == per_head | inner
+    assert (local_range(_ctx(m, 0), "ssm_heads", h) is not None) == split
+    assert (S_mod.local_heads(cfg, _ctx(m, 0)) is not None) == split
+
+
+@pytest.mark.parametrize("arch,m", [("mamba2-2.7b", 2), ("mamba2-2.7b", 16),
+                                    ("recurrentgemma-9b", 2),
+                                    ("recurrentgemma-9b", 4)])
+def test_the_mixer_serve_state_is_the_ranks_block(arch, m):
+    """``make_serve_state(ctx=)``'s recurrent leaves have the shapes of the
+    reference's ``serve_state_shardings`` blocks (``rules``', pinned equal
+    to it in ``tests/test_torch_sharding.py``) of the whole state, but
+    ``conv_B`` / ``conv_C``, whole (every rank computes B and C whole), and
+    an SSD state where the head rule keeps the block whole; each is a
+    tensor of its own, not a view (the ssd kernel reads ``h`` from 16-byte
+    starts)."""
+    cfg = configs.get_smoke(arch)
+    b = 2
+    whole = api.make_serve_state(cfg, b, 16, torch.float32, device="cpu")
+    for i in (0, m - 1):
+        ctx = _ctx(m, i)
+        mine = api.make_serve_state(cfg, b, 16, torch.float32, device="cpu",
+                                    ctx=ctx)
+        ref = rules.serve_state_shardings(whole, _Mesh(m, i))
+        heads_split = (arch != "mamba2-2.7b" or S_mod.local_heads(
+            cfg, ctx) is not None)
+        for w, got, sh in zip(whole, mine, ref):
+            if "k" in w:
+                continue
+            for k, t in got.items():
+                assert t._base is None and t.is_contiguous(), k
+                assert t.untyped_storage().nbytes() == t.numel() * 4, k
+                want = tuple(w[k].shape)
+                if k not in ("conv_B", "conv_C") and heads_split:
+                    want = sh[k].shard_shape(want)
+                assert tuple(t.shape) == want, (k, tuple(t.shape), want)
+                if k in ("conv_B", "conv_C"):
+                    assert sh[k].shard_shape(tuple(w[k].shape)) != want
 
 
 @pytest.mark.parametrize("m", [2, 4])
@@ -373,3 +457,32 @@ def test_dry_run_of_a_1x2_step_halves_the_dense_flops():
     assert one.totals()[2] == 0
     kinds = {kind for kind, _ in two.collectives}
     assert "all-reduce" in kinds and two.totals()[2] > 0
+
+
+@pytest.mark.parametrize("arch,lo,hi", [("mamba2-2.7b", 0.45, 0.65),
+                                        ("recurrentgemma-9b", 0.45, 0.65)])
+def test_dry_run_of_a_1x2_step_splits_the_mixers(arch, lo, hi):
+    """The smoke mamba2's and recurrentgemma's train steps on a fake 1 x 2
+    group count about half the FLOPs of a 1 x 1 one, their scans launched
+    as often; the RG-LRU gates' reduce-scatters and the SSD norm's sums are
+    recorded. A decode cell holds the rank's recurrent state: fewer
+    argument bytes than on one rank."""
+    cfg = configs.get_smoke(arch)
+    counts, sizes = {}, {}
+    for model in (1, 2):
+        with dryrun.cell_mesh(local=(1, model)) as mesh:
+            counts[model], _ = dryrun._compile_step(
+                cfg, ShapeSpec("tp_smoke", 32, 4, "train"), mesh,
+                dtype=torch.float32)
+            _, sizes[model] = dryrun._compile_step(
+                cfg, ShapeSpec("tp_smoke_decode", 32, 4, "decode"), mesh,
+                dtype=torch.float32)
+    one, two = counts[1], counts[2]
+    ratio = two.flops / one.flops
+    assert lo <= ratio <= hi, ratio
+    assert dict(two.launches) == dict(one.launches)
+    kinds = {kind for kind, _ in two.collectives}
+    assert "all-reduce" in kinds
+    if arch == "recurrentgemma-9b":
+        assert "reduce-scatter" in kinds and "all-gather" in kinds
+    assert sizes[2]["argument_bytes"] < sizes[1]["argument_bytes"]

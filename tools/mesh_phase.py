@@ -5,9 +5,9 @@ NVIDIA card: the quick way to iterate on the mesh without the whole run.
 
     python3 tools/mesh_phase.py [--rows] [--out chiprun_out/mesh_phase.json]
 
-It builds the kernels, optionally times the three serving kernels at a
-tensor-parallel rank's shapes (``--rows``: ``chip_smoke.tp_slice_checks``,
-phase 3's local-shape rows), runs ``chip_smoke.mesh_phase`` (18a and 18b,
+It builds the kernels, optionally times the kernels at a tensor-parallel
+rank's shapes (``--rows``: ``chip_smoke.tp_slice_checks`` and
+``chip_smoke.scan_tp_checks``, phase 3's local-shape rows), runs ``chip_smoke.mesh_phase`` (18a and 18b,
 each check held against the one-process path of the same ranks) and
 ``chip_smoke.mesh_train_count``, and writes every figure as JSON. Exits
 non-zero on the first check that fails. The card's name and power limit
@@ -70,9 +70,9 @@ def main(argv=None) -> int:
             cs.log(f"  {json.dumps(row)}")
             cs.check(row["ok"], f"{kernel} {case} {dname}: err {err:.3e}")
 
-        cs.tp_slice_checks(record, randn, (("float32", torch.float32),
-                                           ("bfloat16", torch.bfloat16)),
-                           False)
+        dtypes = (("float32", torch.float32), ("bfloat16", torch.bfloat16))
+        cs.tp_slice_checks(record, randn, dtypes, False)
+        cs.scan_tp_checks(record, dtypes, False)
     try:
         t1 = time.perf_counter()
         mesh = cs.mesh_phase()
