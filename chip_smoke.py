@@ -1248,7 +1248,11 @@ def tp_slice_checks(record, randn, dtypes, quick: bool):
     M 4096, K 1536 with a rank's N = d_ff / m (4480 at 2 model ranks, 560
     at 16); flash_attention at B 1, S 512, D 128 on a rank's 8 query heads
     and 1 KV head (2 ranks) and 1 / 1 (16 ranks); flash_decode on 8 / 1
-    heads over 1024 slots at position 511."""
+    heads over 1024 slots at position 511. And whisper-large-v3's rank
+    shapes (its 32 padded heads over 2 and 16 model ranks, D 64):
+    flash_attention non-causal on 16 / 16 and 2 / 2 heads, the encoder's
+    1500 x 1500 and the cross-attention's 64 queries over 1500 frames;
+    flash_decode over the 1500-frame cross cache on 16 / 16 and 2 / 2."""
     if quick:
         return
     for dname, dt in dtypes:
@@ -1262,6 +1266,13 @@ def tp_slice_checks(record, randn, dtypes, quick: bool):
                            hq, hkv, 512, 512, 128, True, dname, dt, timed)
         _decode_row(*args, "tp 8/1 D=128 s=1024 pos=511", 8, 1, 128, 1024,
                     511, dname, dt, timed)
+        for h in (16, 2):
+            for sq in (1500, 64):
+                _attention_row(*args, f"tp whisper {h}/{h} D=64 sq={sq} "
+                               "skv=1500 non-causal", h, h, sq, 1500, 64,
+                               False, dname, dt, timed)
+            _decode_row(*args, f"tp whisper cross {h}/{h} D=64 s=1500 "
+                        "pos=1499", h, h, 64, 1500, 1499, dname, dt, timed)
 
 
 def head_dim_80_checks(record, randn, dtypes, quick: bool):
@@ -6190,6 +6201,9 @@ MESH_DEEPSEEK_LAYERS = 3
 # host staging every step).
 MESH_MAMBA2_LAYERS = 2
 MESH_RGEMMA_LAYERS = 3
+# The encoder-decoder at full width: whisper-large-v3 at 2 of its 32
+# encoder and 2 of its 32 decoder layers (``_first_layers`` cuts both).
+MESH_WHISPER_LAYERS = 2
 # 18b's 2 x 2 train step (phase 19 (c) counts the same step).
 MESH_TRAIN = dict(mesh=(2, 2), batch=8, seq=256, microbatches=2)
 # The kernels a served check counts a rank's launches of.
@@ -6259,6 +6273,16 @@ def _mesh_tokens(seed: int, shape, vocab: int):
     return rng.integers(2, vocab, size=shape).astype(np.int64)
 
 
+def _mesh_frames(seed: int, cfg, rows: int):
+    """An encoder-decoder's frame embeddings ``[rows, S_enc, D]`` (the
+    conv frontend's output, the reference's stub) from a numpy seed."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return rng.standard_normal(
+        (rows, cfg.encoder.seq_len, cfg.d_model)).astype(np.float32)
+
+
 def _sync(device):
     import torch
 
@@ -6268,15 +6292,18 @@ def _sync(device):
 
 def _mesh_decode(rank, device, out_dir, state, *, cfg, mesh, batch,
                  prompt_len, steps, max_len, params, token_seed,
-                 teacher=False, sharded=True, ring_local=False, fsdp=True):
+                 teacher=False, sharded=True, ring_local=False, fsdp=True,
+                 frames_seed=None, keep_state=False):
     """This rank's rows served on the mesh, tensor-parallel on its blocks
     (with ``fsdp``, its data blocks too, each layer gathered as it runs;
     with ``sharded``, the sequence-sharded decode:
     ``flags.set_perf(decode_sharded=True)``; ``ring_local``, ring caches on
-    the windowed layers), then the same rows on the
+    the windowed layers; ``frames_seed``, an encoder-decoder's frames,
+    :func:`_mesh_frames`), then the same rows on the
     whole parameters without the mesh. Each run's logits, tokens, kernel
     launches, parameter bytes and peak bytes above what was held before it
-    are written."""
+    are written; with ``keep_state``, an encoder-decoder's serve state
+    after the mesh run's last step (``state/<key>/<layer>``)."""
     import numpy as np
     import torch
 
@@ -6291,12 +6318,15 @@ def _mesh_decode(rank, device, out_dir, state, *, cfg, mesh, batch,
     blocks = api.shard_params(whole, cfg, ctx)
     toks = torch.from_numpy(rules.local_rows(_mesh_tokens(
         token_seed, (batch, prompt_len + steps), cfg.vocab_size), ctx))
+    extra = {} if frames_seed is None else {"frames": rules.local_rows(
+        _mesh_frames(frames_seed, cfg, batch), ctx)}
     res = {}
 
     def run(p, c, on):
         flags.set_perf(decode_sharded=on)
         before = dict(build.LAUNCHES)
-        logits, st = api.prefill(p, cfg, {"tokens": toks[:, :prompt_len]},
+        logits, st = api.prefill(p, cfg, {"tokens": toks[:, :prompt_len],
+                                          **extra},
                                  max_len, ring_local=ring_local, ctx=c)
         coll[:] = [0.0, 0]                   # the decode steps' collectives
         outs, picked, step_s = [], [], []
@@ -6337,8 +6367,31 @@ def _mesh_decode(rank, device, out_dir, state, *, cfg, mesh, batch,
             finally:
                 collectives.all_reduce = real
                 flags.set_perf(decode_sharded=False)
-            kv = [c for c in st if "k" in c]
-            rec = [c for c in st if "k" not in c]
+            if isinstance(st, dict):
+                # An encoder-decoder's state: the rank's heads of each
+                # layer's self and cross caches.
+                kv = [{"k": k} for k in st["self_k"]]
+                rec = []
+                res["state_shapes"] = np.array(json.dumps(
+                    {"self_k": list(st["self_k"][0].shape),
+                     "self_v": list(st["self_v"][0].shape),
+                     "cross_k": list(st["cross"][0][0].shape),
+                     "cross_v": list(st["cross"][0][1].shape)}))
+                res["state_own"] = np.array(all(
+                    t._base is None and t.is_contiguous()
+                    for t in st["self_k"] + st["self_v"]
+                    + [x for pair in st["cross"] for x in pair]))
+                if keep_state:
+                    for key in ("self_k", "self_v"):
+                        for li, t in enumerate(st[key]):
+                            res[f"state/{key}/{li}"] = _np32(t)
+                    for li, (ck, cv) in enumerate(st["cross"]):
+                        res[f"state/cross_k/{li}"] = _np32(ck)
+                        res[f"state/cross_v/{li}"] = _np32(cv)
+                    res["state/pos"] = np.array(int(st["pos"]))
+            else:
+                kv = [c for c in st if "k" in c]
+                rec = [c for c in st if "k" not in c]
             res["sliced_layers"] = np.array(
                 sum("kv_pos" in c for c in kv))
             res["s_loc"] = np.array(kv[0]["k"].shape[2] if kv else 0)
@@ -6347,9 +6400,10 @@ def _mesh_decode(rank, device, out_dir, state, *, cfg, mesh, batch,
             # recurrent state, and every recurrent leaf's shape.
             res["state_width"] = np.array(rec[0]["h"].shape[1] if rec
                                           else 0)
-            res["state_shapes"] = np.array(json.dumps(
-                {k: list(t.shape) for k, t in rec[0].items()} if rec
-                else {}))
+            if "state_shapes" not in res:
+                res["state_shapes"] = np.array(json.dumps(
+                    {k: list(t.shape) for k, t in rec[0].items()} if rec
+                    else {}))
             res["logits"] = _np32(logits)
             res["tokens"] = picked.cpu().numpy()
             res["launches"] = np.array(launches)
@@ -6415,11 +6469,19 @@ def _mesh_moe(rank, device, out_dir, state, *, cfg, mesh, batch, seq,
 
 
 def _train_batches(cfg, batch, seq, steps, seed):
+    """``steps`` global batches of the data pipeline; an encoder-decoder's
+    with ``frames`` beside the tokens (:func:`_mesh_frames`, seeded by the
+    data seed and the step)."""
     from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.models import api
 
     dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
                     global_batch=batch, seed=seed)
-    return [make_batch(dc, s) for s in range(steps)]
+    out = [make_batch(dc, s) for s in range(steps)]
+    if api.is_encdec(cfg):
+        out = [dict(b, frames=_mesh_frames(seed * 1000 + s, cfg, batch))
+               for s, b in enumerate(out)]
+    return out
 
 
 def _mesh_train(rank, device, out_dir, state, *, cfg, mesh, batch, seq,
@@ -6474,19 +6536,28 @@ def _mesh_train(rank, device, out_dir, state, *, cfg, mesh, batch, seq,
         opt = adamw.init_state(p, opt_cfg)
         step = make_train_step(cfg, opt_cfg, lr_fn, microbatches, ctx=c)
         losses, norms, times, grads, second = [], [], [], None, {}
-        first = {}
+        first, first_peak = {}, 0
         for i, b in enumerate(batches):
             _sync(device)
             t0 = time.perf_counter()
             if i == 0 and need_grads:
-                # The step's two halves, to keep its averaged gradients.
+                # The step's two halves, to keep its averaged gradients;
+                # its peak as the whole step's (the dry run counts that).
+                args = (p, opt, feed(b))
                 before = dict(build.LAUNCHES)
-                m, g = step.grad_step(p, feed(b))
-                p, opt, om = adamw.apply_updates(
-                    p, g, opt, opt_cfg, lr_fn(opt["step"]),
-                    split=step.split, group=step.group)
+
+                def halves():
+                    m, g = step.grad_step(args[0], args[2])
+                    return m, g, adamw.apply_updates(
+                        args[0], g, args[1], opt_cfg,
+                        lr_fn(args[1]["step"]), split=step.split,
+                        group=step.group)
+
+                (m, g, (p, opt, om)), peak = _measured(device, halves)
                 first = {k: build.LAUNCHES[k] - before[k] for k in before
                          if build.LAUNCHES[k] != before[k]}
+                first_peak = peak + _storage_bytes(list(args))
+                del args
                 m = dict(m, **om)
                 whole = _flat(gather(g))         # collective: every rank
                 if rank == 0:
@@ -6505,14 +6576,15 @@ def _mesh_train(rank, device, out_dir, state, *, cfg, mesh, batch, seq,
             losses.append(float(m["loss"]))
             norms.append(float(m["grad_norm"]))
             times.append(time.perf_counter() - t0)
-        return (p, grads, np.array(losses), np.array(norms), times, first,
-                second)
+        return (p, grads, np.array(losses), np.array(norms), times,
+                (first, first_peak), second)
 
-    p, grads, losses, norms, times, first, second = run(
+    p, grads, losses, norms, times, (first, first_peak), second = run(
         ctx, lambda b: rules.local_batch(b, ctx),
         lambda t: rules.unshard_tree(t, sh))
     res["fsdp"] = np.array(fsdp)
     res["step1_launches"] = np.array(json.dumps(first))
+    res["step1_peak_bytes"] = np.array(first_peak)
     res["losses"] = losses
     res["grad_norms"] = norms
     res["step_ms"] = np.array(statistics.median(times) * 1e3)
@@ -6538,8 +6610,8 @@ def _mesh_train(rank, device, out_dir, state, *, cfg, mesh, batch, seq,
         res.update({f"grads/{k}": v for k, v in grads.items()})
         res.update({f"params/{k}": _np32(v) for k, v in _flat(whole).items()})
     if single and rank == 0:
-        q, g1, l1, n1, _, first1, second1 = run(None, lambda b: b,
-                                                lambda t: t)
+        q, g1, l1, n1, _, (first1, _), second1 = run(None, lambda b: b,
+                                                     lambda t: t)
         res["ref_losses"] = l1
         res["ref_param_bytes"] = np.array(_tree_bytes(q))
         res["ref_step1_launches"] = np.array(json.dumps(first1))
@@ -7279,6 +7351,7 @@ def mesh_verdicts(res, lr: float):
                         norm_rel=float(d["norm_rel"]),
                         loss_rel=lrel, grad_rel=grel, param_diff=pdiff,
                         held_fraction=held,
+                        step1_peak_bytes=int(d.get("step1_peak_bytes", 0)),
                         step2_peak_bytes=int(d.get("step2_peak_bytes", 0)),
                         **{f"{which}_launches": launches,
                            f"ref_{which}_launches": ref_launches},
@@ -7549,12 +7622,16 @@ def mesh_nccl_trainer(tmp_dir: Path, cfg):
 
 
 def _first_layers(cfg, n: int):
-    """``cfg`` cut to its first ``n`` layers (full width)."""
+    """``cfg`` cut to its first ``n`` layers (full width); an
+    encoder-decoder's encoder to ``n`` layers too."""
     import dataclasses
 
+    kw = {}
+    if cfg.encoder is not None and cfg.encoder.kind == "audio":
+        kw["encoder"] = dataclasses.replace(cfg.encoder, n_layers=n)
     return dataclasses.replace(
         cfg, n_layers=n, layer_pattern=cfg.layer_pattern[:n]
-        if cfg.layer_pattern else cfg.layer_pattern).validate()
+        if cfg.layer_pattern else cfg.layer_pattern, **kw).validate()
 
 
 def mesh_phase():
@@ -7627,6 +7704,17 @@ def mesh_phase():
                    **dict(four["train"], steps=1, data_seed=19))),
                ("decode", "serve_rglru", dict(
                    cfg=rgemma, **dict(four["serve"], token_seed=20)))]
+        # The encoder-decoder on its blocks: served on the model split
+        # alone (one row a data rank, 1500 frames), one FSDP train step.
+        whisper = _first_layers(configs.get_arch("whisper-large-v3"),
+                                MESH_WHISPER_LAYERS)
+        g4 += [("decode", "serve_whisper", dict(
+                   cfg=whisper, **dict(four["serve"], prompt_len=64,
+                                       max_len=448, token_seed=23,
+                                       frames_seed=0))),
+               ("train", "train_whisper", dict(
+                   cfg=whisper, lr=lr,
+                   **dict(four["train"], steps=1, data_seed=24)))]
         g2 = [("restore", "restore", dict(cfg=qwen2, lr=lr, ckpt=ckpt,
                                           **two["restore"])),
               ("gpipe", "gpipe", dict(cfg=qwen2, **two["gpipe"])),
@@ -7644,7 +7732,10 @@ def mesh_phase():
             "the save of the FSDP blocks, the recurrent mixers on their "
             f"blocks (mamba2-2.7b, {MESH_MAMBA2_LAYERS} layers, 2 x 2: a "
             "serve as qwen2's and one FSDP train step; recurrentgemma-9b, "
-            f"{MESH_RGEMMA_LAYERS} layers, 2 x 2: a serve); then two of "
+            f"{MESH_RGEMMA_LAYERS} layers, 2 x 2: a serve), the "
+            f"encoder-decoder (whisper-large-v3, {MESH_WHISPER_LAYERS} + "
+            f"{MESH_WHISPER_LAYERS} layers, 2 x 2: a serve of 64-token "
+            "prompts over 1500 frames and one FSDP train step); then two of "
             "them — elastic restore onto 1 x 2 and one step, GPipe over two "
             "stages, compress_psum")
         t0 = time.perf_counter()
@@ -7659,12 +7750,16 @@ def mesh_phase():
         check(all(n == want for n in got), f"the sharded decode launched "
               f"flash_decode {got} times by rank; {want} expected")
         for name, model in (("decode", 4), ("serve", 2), ("train_tp", 2),
-                            ("serve_mamba2", 2), ("serve_rglru", 2)):
+                            ("serve_mamba2", 2), ("serve_rglru", 2),
+                            ("serve_whisper", 2)):
             _check_held(f"18b {name}", out["checks"][name]["held_fraction"],
                         model)
         # The mixers' kernels ran on every rank, as often as one process.
         for tag, kernel in (("serve_mamba2", "ssd"), ("serve_rglru", "rglru"),
-                            ("train_mamba2", "ssd")):
+                            ("train_mamba2", "ssd"),
+                            ("serve_whisper", "flash_attention"),
+                            ("serve_whisper", "flash_decode"),
+                            ("train_whisper", "flash_attention")):
             c = out["checks"][tag]
             got = ([r[kernel] for r in c["kernel_launches"]]
                    if "kernel_launches" in c else [c["step1_launches"].get(
@@ -7813,13 +7908,14 @@ def _calibrate(label, count, run, make_args, runs: int = 3):
     return rec, outs
 
 
-def dryrun_phase(host, mesh_train):
+def dryrun_phase(host, mesh_checks):
     """Phase 19: (a) the host's count of qwen2-1.5b's single-pod cells
     (``host``, the process ``start_host_dryrun`` started), (b) the count of
     a bf16 train and decode step held against the same steps on the
-    card, (c) the count of phase 18 (b)'s FSDP train step (float32, its
-    layers, 2 x 2, its batch) on a fake 2 x 2 group held against rank 0's
-    second step there (``mesh_train``: its launches and peak)."""
+    card, (c) the counts of phase 18 (b)'s FSDP train steps (qwen2-1.5b's
+    and whisper-large-v3's; float32, their layers, 2 x 2, their batch) on a
+    fake 2 x 2 group held against rank 0's steps there (``mesh_checks``,
+    ``mesh_verdicts``' figures: launches and peak)."""
     import numpy as np
     import torch
     from repro_torch import configs
@@ -7901,51 +7997,67 @@ def dryrun_phase(host, mesh_train):
     del steps
     torch.cuda.empty_cache()
 
-    # (c) Phase 18 (b)'s FSDP step, counted as rank 0 of 2 x 2.
-    out["mesh_train"] = mesh_train_count(cfg, mesh_train)
+    # (c) Phase 18 (b)'s FSDP steps, counted as rank 0 of 2 x 2.
+    out["mesh_train"] = mesh_train_counts(mesh_checks)
     return out
 
 
 def mesh_train_count(cfg, mesh_train):
-    """Phase 19 (c): phase 18 (b)'s train step (``cfg`` at
-    ``MESH_QWEN2_LAYERS`` layers, float32, ``MESH_TRAIN``; FSDP over the
-    data axis, tensor-parallel over the model axis) counted as rank 0 of a
-    fake 2 x 2 group, held against rank 0's second step there
-    (``mesh_train``: its launches and its peak, arguments included):
-    launches equal, peak within ``PEAK_REL_TOL``."""
+    """Phase 19 (c): a phase 18 (b) train step (``cfg``, cut as 18b cuts
+    it, float32, ``MESH_TRAIN``; FSDP over the data axis, tensor-parallel
+    over the model axis) counted as rank 0 of a fake 2 x 2 group, held
+    against rank 0's last step there (``mesh_train``: its launches and its
+    peak, arguments included; the second step's, or the first's in a
+    one-step check): launches equal, peak within ``PEAK_REL_TOL``."""
     import torch
     from repro_torch.configs.shapes import ShapeSpec
     from repro_torch.launch import dryrun
     from repro_torch.optim import adamw
 
-    qwen2 = _first_layers(cfg, MESH_QWEN2_LAYERS)
     mesh_shape = ShapeSpec("mesh_train", MESH_TRAIN["seq"],
                            MESH_TRAIN["batch"], "train")
     with dryrun.cell_mesh(local=MESH_TRAIN["mesh"]) as mesh:
         count, _ = dryrun._compile_step(
-            qwen2, mesh_shape, mesh, microbatches=MESH_TRAIN["microbatches"],
+            cfg, mesh_shape, mesh, microbatches=MESH_TRAIN["microbatches"],
             dtype=torch.float32, opt_cfg=adamw.AdamWConfig())
-    counted, card = dict(count.launches), mesh_train["step2_launches"]
-    peak, counted_peak = mesh_train["step2_peak_bytes"], float(
+    which = "step2" if "step2_launches" in mesh_train else "step1"
+    counted, card = dict(count.launches), mesh_train[f"{which}_launches"]
+    peak, counted_peak = mesh_train[f"{which}_peak_bytes"], float(
         count.peak_bytes)
-    out = dict(launches=card, counted_launches=counted, peak_bytes=peak,
-               counted_peak_bytes=counted_peak, flops=count.flops,
-               hbm_bytes=count.hbm_bytes, collective_bytes=count.totals()[2])
+    out = dict(step=which, launches=card, counted_launches=counted,
+               peak_bytes=peak, counted_peak_bytes=counted_peak,
+               flops=count.flops, hbm_bytes=count.hbm_bytes,
+               collective_bytes=count.totals()[2])
     kinds = {}
     for kind, _ in count.collectives:
         kinds[kind] = kinds.get(kind, 0) + 1
     out["collectives"] = kinds
-    log(f"  FSDP train step (float32, {MESH_QWEN2_LAYERS} layers, "
-        f"2 x 2, rank 0): launches {card} (counted {counted}); peak "
-        f"{peak / 1e9:.3f} GB (counted {counted_peak / 1e9:.3f} GB, "
+    label = f"{cfg.name} at {cfg.n_layers} layers"
+    log(f"  FSDP train step ({label}, float32, 2 x 2, rank 0's {which}): "
+        f"launches {card} (counted {counted}); peak {peak / 1e9:.3f} GB "
+        f"(counted {counted_peak / 1e9:.3f} GB, "
         f"{(counted_peak - peak) / peak:+.2%}); counted {count.flops:.4e} "
         f"FLOPs, {count.totals()[2]:.4e} collective bytes in {kinds}")
-    check(card == counted, f"the 2 x 2 step's counted launches {counted} "
-          f"differ from rank 0's {card}")
+    check(card == counted, f"{label}: the 2 x 2 step's counted launches "
+          f"{counted} differ from rank 0's {card}")
     check(abs(counted_peak - peak) <= PEAK_REL_TOL * peak,
-          f"the 2 x 2 step's counted peak {counted_peak:.4e} B is not within "
-          f"{PEAK_REL_TOL:.0%} of rank 0's {peak:.4e} B")
+          f"{label}: the 2 x 2 step's counted peak {counted_peak:.4e} B is "
+          f"not within {PEAK_REL_TOL:.0%} of rank 0's {peak:.4e} B")
     return out
+
+
+def mesh_train_counts(checks):
+    """Phase 19 (c) for each of phase 18 (b)'s counted train steps
+    (``checks``, ``mesh_verdicts``' figures): qwen2-1.5b's and
+    whisper-large-v3's."""
+    from repro_torch import configs
+
+    return {"qwen2": mesh_train_count(
+                _first_layers(configs.get_arch("qwen2-1.5b"),
+                              MESH_QWEN2_LAYERS), checks["train"]),
+            "whisper": mesh_train_count(
+                _first_layers(configs.get_arch("whisper-large-v3"),
+                              MESH_WHISPER_LAYERS), checks["train_whisper"])}
 
 
 def kernels_line(rows, launches, by_path=None):
@@ -8230,7 +8342,7 @@ def main(argv=None) -> int:
                 "on the card")
             t0 = time.perf_counter()
             result["dryrun"] = dryrun_phase(host_dryrun,
-                                            result["mesh"]["checks"]["train"])
+                                            result["mesh"]["checks"])
             phase_done("19 dryrun", t0)
 
             check("jax" not in sys.modules, "jax was imported")

@@ -288,9 +288,10 @@ def abstract_serve_state(cfg: ArchConfig, shape: ShapeSpec,
                          ctx=None):
     """Abstract KV/recurrent state for a decode cell (cache len = seq_len):
     ``api.make_serve_state`` on ``meta`` (an encoder-decoder's from a meta
-    encoder output and ``params``). ``batch`` (default: the shape's global
-    batch) is the rows of one rank's state; ``ctx``, its KV heads,
-    RG-LRU features and SSD heads."""
+    encoder output at the rank's rows and ``params``). ``batch`` (default:
+    the shape's global batch) is the rows of one rank's state; ``ctx``, its
+    KV heads, RG-LRU features and SSD heads (an encoder-decoder's self and
+    cross heads)."""
     from repro_torch.models import api
 
     b = shape.global_batch if batch is None else batch
@@ -298,6 +299,6 @@ def abstract_serve_state(cfg: ArchConfig, shape: ShapeSpec,
     if api.is_encdec(cfg):
         enc = _meta((b, cfg.encoder.seq_len, cfg.d_model), dtype)
         return api.make_serve_state(cfg, b, s, dtype, device=META,
-                                    enc_out=enc, params=params)
+                                    enc_out=enc, params=params, ctx=ctx)
     return api.make_serve_state(cfg, b, s, dtype, device=META,
                                 ring_local=bool(cfg.attn_window), ctx=ctx)

@@ -29,9 +29,10 @@ FSDP over more than one data rank, the parameters are the rank's blocks
 (:func:`init_params` and ``convert.params_from_jax`` take ``ctx`` and cut
 them to :func:`rank_shardings`); the model gathers each layer's data
 blocks before using it, the attention, FF, RG-LRU and SSD blocks,
-embedding and head run tensor-parallel and the MoE layers expert-parallel,
-and a serve state holds the rank's KV heads, recurrent features and SSD
-heads (:func:`make_serve_state`); with
+embedding and head run tensor-parallel (an encoder-decoder's encoder and
+decoder layers alike) and the MoE layers expert-parallel, and a serve
+state holds the rank's KV heads, recurrent features and SSD heads (an
+encoder-decoder's self and cross heads; :func:`make_serve_state`); with
 ``flags.DECODE_ATTN_SHARDED`` :func:`decode_step` decodes every cache that
 ``attention.sharded_decode_gate`` passes sequence-sharded (its first decode
 keeps this rank's slice of a cache of every KV head). ``ctx=None`` is every
@@ -93,14 +94,12 @@ def init_params(cfg: ArchConfig, seed: Union[int, torch.Generator] = 0,
         gen = seed
     else:
         gen = torch.Generator(device=dev).manual_seed(int(seed))
-    if is_encdec(cfg):
-        return E.init_params(cfg, gen, dtype, dev)
     cut = None
     if holds_blocks(ctx):
         def cut(d, x):
             sh = _leaf_sharding(d, ctx)
             return sh.local_block(x) if sh.spec else x
-    return T.init_params(cfg, gen, dtype, dev, cut)
+    return (E if is_encdec(cfg) else T).init_params(cfg, gen, dtype, dev, cut)
 
 
 def param_defs(cfg: ArchConfig):
@@ -129,11 +128,9 @@ def rank_shardings(cfg: ArchConfig, ctx: DistContext):
     split only where the ranks divide its heads, ``ParamDef.units``) and,
     with FSDP, the data axis on the dim
     ``context.data_dim`` picks (``param_spec(..., fsdp=True)``'s on those
-    leaves); ``P()`` on every leaf of an encoder-decoder, which runs
-    whole."""
-    if is_encdec(cfg):
-        return map_defs(lambda d: NamedSharding(ctx.mesh, P()),
-                        param_defs(cfg))
+    leaves). An encoder-decoder's leaves take the same rule, on a layer's
+    own dims (the port keeps one dict a layer where the reference stacks
+    them)."""
     return map_defs(lambda d: _leaf_sharding(d, ctx), param_defs(cfg))
 
 
@@ -169,7 +166,7 @@ def train_loss(params, cfg: ArchConfig, batch: Dict[str, Any],
     sites as in serving. On CUDA tensors the FF GEMMs and the attention
     launch the matmul and flash-attention kernels forward and backward.
     Under tensor parallelism the head is the rank's vocabulary block and
-    the cross-entropy vocab-parallel (an encoder-decoder's stays whole);
+    the cross-entropy vocab-parallel (an encoder-decoder's tied head too);
     under FSDP the head is gathered over the data group first."""
     tokens = _tokens(params, batch["tokens"])
     targets = _tokens(params, batch["targets"])
@@ -178,9 +175,8 @@ def train_loss(params, cfg: ArchConfig, batch: Dict[str, Any],
                        impl=impl, remat=remat, ctx=ctx)
         hidden = E.decode_train(params, cfg, tokens, enc, return_hidden=True,
                                 impl=impl, remat=remat, ctx=ctx)
-        head = params["embed"].t()
+        head = E.head_weight(params, cfg, ctx)
         aux = torch.zeros((), dtype=torch.float32, device=hidden.device)
-        loss_ctx = None
     else:
         patch = batch.get("patch_embeds")
         out = T.forward(params, cfg, tokens, logits_mode="hidden",
@@ -191,8 +187,7 @@ def train_loss(params, cfg: ArchConfig, batch: Dict[str, Any],
         if patch is not None:
             hidden = hidden[:, patch.shape[1]:]
         head = T.head_weight(params, cfg, ctx)
-        loss_ctx = ctx
-    ce = T.fused_lm_loss(head, hidden, targets, cfg, ctx=loss_ctx)
+    ce = T.fused_lm_loss(head, hidden, targets, cfg, ctx=ctx)
     loss = ce + aux
     return loss, {"loss": loss, "ce": ce, "aux": aux}
 
@@ -204,16 +199,18 @@ def make_serve_state(cfg: ArchConfig, batch: int, max_len: int, dtype,
     """An empty serve state; an encoder-decoder's needs the encoder output
     ``enc_out`` and the ``params`` that project its cross K/V (it lives on
     ``enc_out``'s device). ``ctx``: each KV cache holds the rank's KV heads
-    (``attention.make_kv_cache``), each RG-LRU state its features and each
-    SSD state its heads (``conv_B`` / ``conv_C`` whole: every rank computes
-    B and C whole); the tensors are made at the block's shape, never as
-    views of a whole state (the ssd kernel needs 16-byte starts)."""
+    (``attention.make_kv_cache``; an encoder-decoder's self and cross
+    caches its heads, ``encdec.make_decode_caches``), each RG-LRU state its
+    features and each SSD state its heads (``conv_B`` / ``conv_C`` whole:
+    every rank computes B and C whole); the tensors are made at the
+    block's shape, never as views of a whole state (the ssd kernel needs
+    16-byte starts)."""
     if is_encdec(cfg):
         if enc_out is None or params is None:
             raise ValueError(f"{cfg.name}: an encoder-decoder serve state "
                              "needs enc_out and params")
         return E.make_decode_caches(params, cfg, enc_out, batch, max_len,
-                                    dtype)
+                                    dtype, ctx)
     return T.make_caches(cfg, batch, max_len, dtype, ring_local=ring_local,
                          device=resolve_device(device), ctx=ctx)
 
@@ -251,9 +248,9 @@ def prefill(params, cfg: ArchConfig, batch: Dict[str, Any], max_len: int,
     tokens = _tokens(params, batch["tokens"])
     if is_encdec(cfg):
         enc = E.encode(params, cfg, _embeds(params, batch["frames"]),
-                       impl=impl)
+                       impl=impl, ctx=ctx)
         logits, state = E.prefill(params, cfg, tokens, enc, max_len, dtype,
-                                  impl=impl)
+                                  impl=impl, ctx=ctx)
         return logits[:, -1], state
     patch = batch.get("patch_embeds")
     if caches is None:
@@ -280,7 +277,7 @@ def decode_step(params, cfg: ArchConfig, token, state, tiles: Tiles = None,
     """
     if is_encdec(cfg):
         logits, state = E.decode_step(params, cfg, _tokens(params, token),
-                                      state, impl=impl)
+                                      state, impl=impl, ctx=ctx)
         return logits[:, 0], state
     out = T.forward(params, cfg, _tokens(params, token), caches=state,
                     decode=True, tiles=tiles, impl=impl, ctx=ctx)

@@ -11,7 +11,8 @@ process a rank):
 * with more than one model rank it holds its block of every leaf the
   reference's ``param_spec(..., fsdp=False)`` splits over the model axis
   among the attention, dense FF, MoE, RG-LRU, SSD, ``embed`` and
-  ``lm_head`` leaves (``models/api.py:rank_shardings``), and computes
+  ``lm_head`` leaves, an encoder-decoder's attention, FF and tied
+  embedding among them (``models/api.py:rank_shardings``), and computes
   those layers Megatron-style on it: column-parallel in, row-parallel out,
   one sum over the model group a block (``distributed/collectives.py``);
   a recurrent block keeps its block of the serve state (its features, its
@@ -19,17 +20,16 @@ process a rank):
   :func:`local_range`, the logical axis alone deciding (with the whole
   units an axis is made of, ``ParamDef.units``: an SSD block splits by
   its heads), so the rule lives once. The other leaves (norms, the
-  router, an SSD block's ``in_B`` / ``in_C`` and their convs, the
-  encoder-decoder) stay whole over the model axis and are computed whole
-  on every rank;
+  router, an SSD block's ``in_B`` / ``in_C`` and their convs) stay whole
+  over the model axis and are computed whole on every rank;
 * with FSDP (``DistContext.fsdp``, on by default as the reference's is)
   and more than one data rank, a rank also holds only its data block of
-  every decoder leaf, on the dim :func:`data_dim` picks (the reference's
+  every leaf, on the dim :func:`data_dim` picks (the reference's
   ``param_spec(..., fsdp=True)`` test on the dims the model ranks leave
   whole). The model gathers a layer's blocks over the data group before
-  it uses them and frees them after (``transformer.forward``); the
-  gather's backward reduce-scatters the gradients. The encoder-decoder
-  and GPipe's stage weights stay whole;
+  it uses them and frees them after (``transformer.forward``,
+  ``encdec.encode`` and its decoder passes); the gather's backward
+  reduce-scatters the gradients. GPipe's stage weights stay whole;
 * the expert-parallel MoE (``models/moe.py``) and the sequence-sharded
   decode (``models/attention.py``) run collectives over the model axis's
   process group, at the rank's coordinate (:meth:`DistContext.axis_index`,

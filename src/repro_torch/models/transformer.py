@@ -551,20 +551,25 @@ def _gathered_layer(p, cfg: ArchConfig, spec: LayerSpec, *args, ctx=None,
     return layer_forward(p, cfg, spec, *args, ctx=ctx, **kwargs)
 
 
-def _embed(params, cfg: ArchConfig, tokens, ctx=None):
-    """The token embeddings (scaled where the config says). Vocab-parallel
-    under tensor parallelism: the rank's rows of the table look up its
-    range's tokens, every other token looks up zeros, and the ranks sum.
-    Under FSDP the table is gathered over the data group first."""
-    table = _top(params, cfg, ("embed",), ctx)["embed"]
+def vocab_lookup(table, tokens, cfg: ArchConfig, ctx=None):
+    """``table[tokens]``, vocab-parallel under tensor parallelism: the
+    rank's rows of the table look up its range's tokens, every other token
+    looks up zeros, and the ranks sum."""
     vocab = local_range(ctx, "vocab", cfg.padded_vocab)
     if vocab is None:
-        x = table[tokens]
-    else:
-        local = tokens - vocab[0]
-        ok = (local >= 0) & (local < vocab[1] - vocab[0])
-        x = table[torch.where(ok, local, 0)] * ok[..., None].to(table.dtype)
-        x = collectives.sum_from_group(x, ctx.model_group)
+        return table[tokens]
+    local = tokens - vocab[0]
+    ok = (local >= 0) & (local < vocab[1] - vocab[0])
+    x = table[torch.where(ok, local, 0)] * ok[..., None].to(table.dtype)
+    return collectives.sum_from_group(x, ctx.model_group)
+
+
+def _embed(params, cfg: ArchConfig, tokens, ctx=None):
+    """The token embeddings (scaled where the config says), vocab-parallel
+    under tensor parallelism (:func:`vocab_lookup`). Under FSDP the table
+    is gathered over the data group first."""
+    x = vocab_lookup(_top(params, cfg, ("embed",), ctx)["embed"], tokens,
+                     cfg, ctx)
     if cfg.scale_embeddings:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
     return x
@@ -580,10 +585,14 @@ def head_weight(params, cfg: ArchConfig, ctx=None):
 
 
 def _head(params, cfg: ArchConfig, x, ctx=None):
-    # Tied head: the embedding matrix, transposed. A plain product, as the
-    # reference leaves it to XLA; column-parallel under tensor parallelism,
-    # each rank's columns gathered into whole logits.
-    head = head_weight(params, cfg, ctx)
+    return head_logits(x, head_weight(params, cfg, ctx), cfg, ctx)
+
+
+def head_logits(x, head, cfg: ArchConfig, ctx=None):
+    """Logits of ``x`` through ``head`` ``[D, V]`` (a tied head: the
+    embedding matrix, transposed). A plain product, as the reference leaves
+    it to XLA; column-parallel under tensor parallelism (``head`` the
+    rank's columns), each rank's columns gathered into whole logits."""
     vocab = local_range(ctx, "vocab", cfg.padded_vocab)
     if vocab is not None:
         x = collectives.copy_to_group(x, ctx.model_group)

@@ -25,6 +25,7 @@ import jax.numpy as jnp  # noqa: E402
 from repro import configs as jax_configs  # noqa: E402
 from repro.distributed import sharding_rules as jax_rules  # noqa: E402
 from repro.models import api as jax_api  # noqa: E402
+from repro.models import encdec as jax_E  # noqa: E402
 from repro.models import transformer as jax_T  # noqa: E402
 from repro_torch import configs  # noqa: E402
 from repro_torch.distributed import sharding_rules as rules  # noqa: E402
@@ -250,8 +251,27 @@ def test_param_logical_axes_of_every_config(arch):
 
 # -- the serve state --------------------------------------------------------
 
+def _ref_encdec_state_specs(cfg_j, b, s, mesh):
+    # The reference's whisper state: self_k / self_v [L, B, H, S, hd] and
+    # the cross pair, each [L, B, H, S_enc, hd]; per layer as the port's.
+    params = jax.eval_shape(lambda: jax_api.init_params(
+        cfg_j, jax.random.PRNGKey(0)))
+    enc = jax.ShapeDtypeStruct((b, cfg_j.encoder.seq_len, cfg_j.d_model),
+                               jnp.float32)
+    shapes = jax.eval_shape(lambda p, e: jax_E.make_decode_caches(
+        p, cfg_j, e, b, s, jnp.float32), params, enc)
+    specs = jax_rules.serve_state_shardings(shapes, mesh)
+    n = cfg_j.n_layers
+    return {"self_k": [tuple(specs["self_k"])[1:]] * n,
+            "self_v": [tuple(specs["self_v"])[1:]] * n,
+            "cross": [tuple(tuple(x)[1:] for x in specs["cross"])] * n,
+            "pos": tuple(specs["pos"])}
+
+
 def _ref_state_specs(cfg_j, b, s, mesh, monkeypatch):
     monkeypatch.setattr(jax_rules, "NamedSharding", lambda m, spec: spec)
+    if jax_api.is_encdec(cfg_j):
+        return _ref_encdec_state_specs(cfg_j, b, s, mesh)
     shapes = jax.eval_shape(lambda: jax_T.make_caches(cfg_j, b, s,
                                                       jnp.float32))
     specs = jax_rules.serve_state_shardings(shapes, mesh)
@@ -271,13 +291,27 @@ def _ref_state_specs(cfg_j, b, s, mesh, monkeypatch):
 
 @pytest.mark.parametrize("arch", ["qwen2-1.5b", "deepseek-moe-16b",
                                   "mamba2-2.7b", "recurrentgemma-9b",
-                                  "gemma2-9b"])
+                                  "gemma2-9b", "whisper-large-v3"])
 @pytest.mark.parametrize("mesh", ["16x16", "2x16x16", "2x2"])
 def test_serve_state_shardings_match_the_reference(arch, mesh, monkeypatch):
     m = MESHES[mesh]
     cfg_j, cfg = jax_configs.get_arch(arch), configs.get_arch(arch)
     b, s = 32, 4096
     want = _ref_state_specs(cfg_j, b, s, m, monkeypatch)
+    if api.is_encdec(cfg):
+        enc = torch.empty((b, cfg.encoder.seq_len, cfg.d_model),
+                          device="meta")
+        state = api.make_serve_state(
+            cfg, b, s, torch.float32, device="meta", enc_out=enc,
+            params=api.init_params(cfg, device="meta"))
+        got = rules.serve_state_shardings(state, m)
+        assert set(got) == set(want)
+        assert got["pos"].spec == want["pos"] == ()
+        for k in ("self_k", "self_v"):
+            assert [g.spec for g in got[k]] == want[k], k
+        assert [tuple(x.spec for x in pair) for pair in got["cross"]] == \
+            want["cross"]
+        return
     state = transformer.make_caches(cfg, b, s, torch.float32, device="meta")
     got = rules.serve_state_shardings(state, m)
     assert len(got) == len(want) == cfg.n_layers

@@ -5,7 +5,8 @@ and the dry run's count of a tensor-parallel step.
 * Every full-width config's parameters on a rank of a 1 x m mesh (m = 2, 4,
   16; a stub mesh, rank 0 and the last) have the block shapes of the
   reference's ``param_spec(..., fsdp=False)`` on the attention, dense FF,
-  MoE, RG-LRU, SSD, ``embed`` and ``lm_head`` leaves, and the whole shape
+  MoE, RG-LRU, SSD, ``embed`` and ``lm_head`` leaves (an encoder-decoder's
+  encoder and decoder attention and FF among them), and the whole shape
   on every other. An SSD block splits by whole heads: where the model
   ranks do not divide the heads (mamba2's 80 at 32, the smoke mamba2's 8
   at 16) every leaf of it stays whole, where the reference cuts its
@@ -14,7 +15,13 @@ and the dry run's count of a tensor-parallel step.
   reference's ``serve_state_shardings`` names the model axis).
 * ``attention.local_heads``: each rank's query heads tile the padded heads,
   its KV heads are those they read, and the split of the configs' widths at
-  16 model ranks is the one ``configs/base.py``'s padding gives.
+  16 model ranks is the one ``configs/base.py``'s padding gives; an
+  encoder-decoder's heads (``encdec.local_heads``) tile its padded heads,
+  and its self and cross caches hold them, each its own tensor at the
+  block's shape of the reference's ``serve_state_shardings``.
+* The padded heads are masked by their global index: on four threads
+  standing in for a 1 x 4 mesh the smoke whisper's blocks give the whole
+  model's logits, and a mask built from the local index reads far off.
 * The vocab-parallel NLL of a logits tensor cut into blocks, its collectives
   played by threads that sum (and take the max of) the blocks' values,
   equals ``transformer._nll`` over the whole tensor, gradients included.
@@ -22,7 +29,8 @@ and the dry run's count of a tensor-parallel step.
   the dense FLOPs of a 1 x 1 one, and records the model axis's all-reduces;
   so do the smoke mamba2's and recurrentgemma's train steps (the gates'
   reduce-scatters among them), and their decode cells hold the rank's
-  recurrent state.
+  recurrent state; so do the smoke whisper's (its attention, FF and head
+  halved, its decode cell on the rank's self and cross heads).
 """
 import dataclasses
 import threading
@@ -40,12 +48,14 @@ from repro_torch.distributed import sharding_rules as rules  # noqa: E402
 from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.models import api  # noqa: E402
 from repro_torch.models import attention as A  # noqa: E402
+from repro_torch.models import encdec as E  # noqa: E402
 from repro_torch.models import ssm as S_mod  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.models.context import DistContext, local_range  # noqa: E402
 
 ARCHS = configs.list_archs()
 SPLIT_MODULES = ("attn", "ff", "moe", "rglru", "ssm")
+ENCDEC_SPLIT_MODULES = ("attn", "self_attn", "cross_attn", "ff")
 
 
 @pytest.fixture(autouse=True)
@@ -77,6 +87,8 @@ def _in_slice(path: str) -> bool:
     parts = path.split("/")
     if parts[0] in ("embed", "lm_head"):
         return True
+    if parts[0] in ("enc_layers", "dec_layers"):
+        return parts[2] in ENCDEC_SPLIT_MODULES
     return parts[0] == "layers" and parts[2] in SPLIT_MODULES
 
 
@@ -85,7 +97,6 @@ def test_block_shapes_are_the_references_model_specs(arch):
     cfg = configs.get_arch(arch)
     whole = _flatten(api.init_params(cfg, device="meta"))
     axes = {k: d.axes for k, d in _flatten(api.param_defs(cfg)).items()}
-    encdec = api.is_encdec(cfg)
     for m in (2, 4, 16):
         mesh = _Mesh(m, 0)
         for i in (0, m - 1):
@@ -98,7 +109,7 @@ def test_block_shapes_are_the_references_model_specs(arch):
                 assert tuple(spec) == tuple(jax_rules.param_spec(
                     axes[k], shape, mesh, fsdp=False)), k
                 want = (rules.NamedSharding(mesh, spec).shard_shape(shape)
-                        if _in_slice(k) and not encdec else shape)
+                        if _in_slice(k) else shape)
                 assert tuple(got[k].shape) == want, (arch, m, k)
     # The rule's blocks, leaf by leaf: ``rank_shardings`` names the model axis
     # exactly where a leaf is cut.
@@ -249,7 +260,10 @@ def test_kv_head_map(arch):
     a rank's cache holds those KV heads."""
     cfg = configs.get_arch(arch)
     hq, hkv = cfg.padded_heads, cfg.padded_kv_heads
-    if not hq or api.is_encdec(cfg):
+    if not hq:
+        return
+    if api.is_encdec(cfg):
+        _encdec_head_map(cfg)
         return
     rep = hq // hkv
     for m in (2, 4, 16):
@@ -269,6 +283,92 @@ def test_kv_head_map(arch):
             assert cache["k"].shape[1] == k1 - k0
         assert start == hq
     assert A.local_heads(cfg, None) == ((0, hq), (0, hkv))
+
+
+def _encdec_head_map(cfg):
+    """An encoder-decoder's heads (MHA: one KV head a query head) tile its
+    padded heads in rank order, and a rank's self and cross caches hold
+    its heads."""
+    hq = cfg.padded_heads
+    enc = torch.empty((1, cfg.encoder.seq_len, cfg.d_model), device="meta")
+    for m in (2, 4, 16):
+        start = 0
+        for i in range(m):
+            ctx = _ctx(m, i)
+            h0, h1 = E.local_heads(cfg, ctx)
+            assert h0 == start and h1 - h0 == hq // m
+            start = h1
+            state = api.make_serve_state(
+                cfg, 1, 8, torch.float32, device="meta", enc_out=enc,
+                params=api.init_params(cfg, device="meta", ctx=ctx), ctx=ctx)
+            caches = state["self_k"] + state["self_v"] + [
+                t for pair in state["cross"] for t in pair]
+            assert {t.shape[1] for t in caches} == {h1 - h0}
+        assert start == hq
+    assert E.local_heads(cfg, None) == (0, hq)
+
+
+@pytest.mark.parametrize("m", [2, 4])
+def test_the_encoder_decoder_serve_state_is_the_ranks_block(m):
+    """``make_serve_state(ctx=)``'s whisper tensors (the smoke's 16 padded
+    heads) have the shapes of the reference's ``serve_state_shardings``
+    blocks (``rules``', pinned equal to it in
+    ``tests/test_torch_sharding.py``) of the whole state: ``self_k`` /
+    ``self_v`` and each ``cross`` pair on the rank's heads, each a tensor
+    of its own; the cross K/V are the whole state's on those heads."""
+    cfg = configs.get_smoke("whisper-large-v3")
+    b = 2
+    params = api.init_params(cfg, 4, device="cpu")
+    enc = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        (b, cfg.encoder.seq_len, cfg.d_model)).astype(np.float32))
+    whole = api.make_serve_state(cfg, b, 16, torch.float32, enc_out=enc,
+                                 params=params)
+    for i in range(m):
+        ctx = _ctx(m, i)
+        mine = api.make_serve_state(cfg, b, 16, torch.float32, enc_out=enc,
+                                    params=api.shard_params(params, cfg, ctx),
+                                    ctx=ctx)
+        ref = rules.serve_state_shardings(whole, _Mesh(m, i))
+        h0, h1 = E.local_heads(cfg, ctx)
+        pairs = [(mine[k][li], whole[k][li], ref[k][li])
+                 for k in ("self_k", "self_v") for li in range(cfg.n_layers)]
+        pairs += [(mine["cross"][li][j], whole["cross"][li][j],
+                   ref["cross"][li][j])
+                  for li in range(cfg.n_layers) for j in (0, 1)]
+        for got, w, sh in pairs:
+            assert got._base is None and got.is_contiguous()
+            assert got.untyped_storage().nbytes() == got.numel() * 4
+            assert tuple(got.shape) == sh.shard_shape(tuple(w.shape))
+            assert tuple(got.shape) != tuple(w.shape)
+            torch.testing.assert_close(got, w[:, h0:h1], rtol=1e-6,
+                                       atol=1e-6)
+        assert mine["pos"].dim() == 0 and ref["pos"].spec == ()
+
+
+def test_one_model_rank_is_the_one_device_encoder_decoder():
+    """On a 1 x 1 mesh (one model rank, FSDP with one data rank) whisper's
+    prefill, decode step and loss are the one-device path's, bit for
+    bit."""
+    cfg = configs.get_smoke("whisper-large-v3")
+    params = api.init_params(cfg, 6, device="cpu")
+    rng = np.random.default_rng(6)
+    batch = {"tokens": rng.integers(2, cfg.vocab_size, (2, 5)),
+             "frames": rng.standard_normal(
+                 (2, cfg.encoder.seq_len, cfg.d_model)).astype(np.float32)}
+    batch["targets"] = batch["tokens"]
+    outs = []
+    for ctx in (None, _ctx(1, 0)):
+        with torch.no_grad():
+            logits, state = api.prefill(params, cfg, batch, max_len=8,
+                                        ctx=ctx)
+            step, state = api.decode_step(params, cfg,
+                                          torch.tensor([[3], [4]]), state,
+                                          ctx=ctx)
+            loss, _ = api.train_loss(params, cfg, batch, ctx=ctx)
+        outs.append((logits, step, state["self_k"][0], state["cross"][1][0],
+                     loss))
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
 
 
 def test_heads_that_map_onto_no_whole_kv_heads_raise():
@@ -308,6 +408,13 @@ class _ThreadGroup:
 
     def copy_to_group(self, x, group):
         return x
+
+    def all_gather(self, x, dim=0, group=None):
+        self.slots[self.local.rank] = x.detach()
+        self.barrier.wait()
+        out = torch.cat(self.slots, dim)
+        self.barrier.wait()
+        return out
 
 
 def _blocks(m, fn):
@@ -394,6 +501,52 @@ def test_vocab_parallel_embedding_and_head(monkeypatch):
         torch.matmul(want, T.head_weight(params, cfg)), rtol=0, atol=0)
 
 
+def test_a_local_index_head_mask_reads_far_off(monkeypatch):
+    """The smoke whisper's 4 heads padded to 16 on a 1 x 4 mesh: rank 0
+    holds the 4 real heads, ranks 1-3 padded ones only. On four threads
+    standing in for the ranks, the blocks' prefill logits (every rank
+    launches its attention; the FF's ``b2`` added once, after the sum)
+    equal the whole model's with the mask by global index; built from the
+    local index, it keeps every rank's first 4 heads, and the logits read
+    far off."""
+    cfg = configs.get_smoke("whisper-large-v3")
+    assert (cfg.n_heads, cfg.padded_heads) == (4, 16)
+    params = api.init_params(cfg, 0, device="cpu")
+    rng = np.random.default_rng(5)
+    # Non-zero FF biases (drawn zero), so that ``b2`` counts once.
+    for lp in params["enc_layers"] + params["dec_layers"]:
+        for name in ("b1", "b2"):
+            lp["ff"][name] = torch.from_numpy(rng.standard_normal(
+                lp["ff"][name].shape).astype(np.float32))
+    batch = {"tokens": rng.integers(2, cfg.vocab_size, (2, 6)),
+             "frames": rng.standard_normal(
+                 (2, cfg.encoder.seq_len, cfg.d_model)).astype(np.float32)}
+    want, _ = api.prefill(params, cfg, batch, max_len=8)
+    group = _ThreadGroup(4)
+    monkeypatch.setattr(E, "collectives", group)
+    monkeypatch.setattr(T, "collectives", group)
+
+    def prefill(r):
+        group.local.rank = r
+        ctx = _ctx(4, r)
+        logits, _ = api.prefill(api.shard_params(params, cfg, ctx), cfg,
+                                batch, max_len=8, ctx=ctx)
+        return logits
+
+    for got in _blocks(4, prefill):
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+    def local_index_mask(cfg, out, ctx=None):
+        h = out.shape[1]
+        mask = (torch.arange(h) < cfg.n_heads).to(out.dtype)
+        return out * mask.view((1, h) + (1,) * (out.dim() - 2))
+
+    monkeypatch.setattr(E, "_head_mask", local_index_mask)
+    scale = float(want.abs().max())
+    for got in _blocks(4, prefill):
+        assert float((got - want).abs().max()) > 0.05 * scale
+
+
 def test_global_norm_sums_blocks_once(monkeypatch):
     """The clip's norm over a tensor-parallel tree: the blocks' squares
     summed over the model group, the whole leaves counted once, equal to
@@ -457,6 +610,32 @@ def test_dry_run_of_a_1x2_step_halves_the_dense_flops():
     assert one.totals()[2] == 0
     kinds = {kind for kind, _ in two.collectives}
     assert "all-reduce" in kinds and two.totals()[2] > 0
+
+
+def test_dry_run_of_a_1x2_step_splits_the_encoder_decoder():
+    """The smoke whisper's train step on a fake 1 x 2 group counts about
+    half the FLOPs of a 1 x 1 one (its attention, FF and tied head split),
+    its attention kernels launched as often, and records the model axis's
+    sums; its decode cell holds the rank's self and cross heads: about half
+    the state's bytes."""
+    cfg = configs.get_smoke("whisper-large-v3")
+    counts, sizes = {}, {}
+    for model in (1, 2):
+        with dryrun.cell_mesh(local=(1, model)) as mesh:
+            counts[model], _ = dryrun._compile_step(
+                cfg, ShapeSpec("tp_smoke", 32, 4, "train"), mesh,
+                dtype=torch.float32)
+            _, sizes[model] = dryrun._compile_step(
+                cfg, ShapeSpec("tp_smoke_decode", 32, 4, "decode"), mesh,
+                dtype=torch.float32)
+    one, two = counts[1], counts[2]
+    ratio = two.flops / one.flops
+    assert 0.45 <= ratio <= 0.6, ratio
+    assert dict(two.launches) == dict(one.launches)
+    assert one.totals()[2] == 0
+    kinds = {kind for kind, _ in two.collectives}
+    assert "all-reduce" in kinds and two.totals()[2] > 0
+    assert sizes[2]["argument_bytes"] < 0.6 * sizes[1]["argument_bytes"]
 
 
 @pytest.mark.parametrize("arch,lo,hi", [("mamba2-2.7b", 0.45, 0.65),

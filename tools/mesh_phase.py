@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Run chip_smoke's phase 18 (the mesh runtime) and phase 19 (c) (its
-FSDP train step against the dry run's count) alone, on one
+FSDP train steps, qwen2-1.5b's and whisper-large-v3's, against the dry
+run's counts) alone, on one
 NVIDIA card: the quick way to iterate on the mesh without the whole run.
 
     python3 tools/mesh_phase.py [--rows] [--out chiprun_out/mesh_phase.json]
@@ -9,7 +10,7 @@ It builds the kernels, optionally times the kernels at a tensor-parallel
 rank's shapes (``--rows``: ``chip_smoke.tp_slice_checks`` and
 ``chip_smoke.scan_tp_checks``, phase 3's local-shape rows), runs ``chip_smoke.mesh_phase`` (18a and 18b,
 each check held against the one-process path of the same ranks) and
-``chip_smoke.mesh_train_count``, and writes every figure as JSON. Exits
+``chip_smoke.mesh_train_counts``, and writes every figure as JSON. Exits
 non-zero on the first check that fails. The card's name and power limit
 come first.
 """
@@ -37,7 +38,6 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(cs.SRC))
     import torch
 
-    from repro_torch import configs
     from repro_torch.kernels import build
 
     if not torch.cuda.is_available():
@@ -77,8 +77,7 @@ def main(argv=None) -> int:
         t1 = time.perf_counter()
         mesh = cs.mesh_phase()
         cs.log(f"  [18: {time.perf_counter() - t1:.1f} s]")
-        count = cs.mesh_train_count(configs.get_arch("qwen2-1.5b"),
-                                    mesh["checks"]["train"])
+        count = cs.mesh_train_counts(mesh["checks"])
     except cs.SmokeError as exc:
         print(f"mesh_phase: FAIL: {exc}", file=sys.stderr)
         return 1
